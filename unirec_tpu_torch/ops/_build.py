@@ -1,0 +1,95 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The ``.cu`` sources under ``unirec_tpu_torch/csrc/`` expose a plain C
+interface.  On first use they are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library under ``build/unirec_tpu_torch/`` at the repository root (a
+directory ``.gitignore`` lists) and loaded with ``ctypes``.  The library's
+file name carries a hash of the sources, so an edited source is rebuilt.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("flash_causal_fwd.cu", "retrieve_topk.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unirec_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@dataclass
+class Kernels:
+    """The loaded library with its build record."""
+
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when an existing build was reused
+    ptxas_log: str
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels build only on a machine "
+        "with the CUDA toolkit"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels() -> Kernels:
+    """Compile (if needed) and load the kernel library; cached per process."""
+    srcs = [CSRC / name for name in SOURCES]
+    digest = hashlib.sha256()
+    for path in srcs:
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libunirec_kernels_{digest.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.unirec_flash_causal_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                            _I, _I, _P]
+    lib.unirec_flash_causal_fwd.restype = _I
+    lib.unirec_retrieve_topk.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _P]
+    lib.unirec_retrieve_topk.restype = _I
+    return Kernels(lib, out, seconds, log)
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")

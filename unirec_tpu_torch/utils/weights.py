@@ -1,0 +1,141 @@
+"""Weights for the joint model: the bridge from the JAX parameter tree and a
+seeded initialiser.
+
+``joint_state_dict_from_flax`` takes the JAX package's ``MultiModalQwenEmbedding``
+parameters as numpy arrays and returns the port's ``state_dict``.  The port's
+module tree mirrors the Flax tree, so names map one to one: ``layers_{i}`` ->
+``layers.{i}``, ``layer_{i}`` -> ``layer.{i}``, a Dense ``kernel [in, out]``
+-> ``weight [out, in]`` (transposed), a norm ``scale`` -> ``weight``.  The
+port holds only what the forward uses: no zero text FFNs and no 30522-row
+word table, which ``unirec_tpu.utils.torch_convert.export_qformer_model``
+synthesises for the reference layout.
+
+A reference ``.pth`` of the joint model loads by composing the two numpy-only
+functions::
+
+    flax_params = torch_convert.convert_joint_model(sd, qwen_cfg, qf_cfg)
+    model.load_state_dict(joint_state_dict_from_flax(flax_params, qwen_cfg, qf_cfg))
+
+``init_joint`` builds the full-size model on a device from a
+``torch.Generator`` with the Flax initialisers' distributions, for runs that
+have no checkpoint (the card machine has no Flax to make weights with).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from unirec_tpu.configs import (
+    ItemQFormerConfig,
+    JointModelConfig,
+    LoRAConfig,
+    Qwen3Config,
+)
+from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
+
+_INDEXED = re.compile(r"^(layers|layer)_(\d+)$")
+# text-side Q-Former parameters that a reference checkpoint carries but the
+# item Q-Former's query-only forward never reads
+_TEXT_SIDE = re.compile(
+    r"^qformer\.qformer\.(embeddings\.(word|position)_embeddings\."
+    r"|encoder\.layer\.\d+\.ffn\.)")
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()):
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (name,))
+        else:
+            yield prefix + (name,), value
+
+
+def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Any Flax parameter tree of a ported module (``{"params": ...}`` or the
+    bare tree) -> float32 ``state_dict`` by the one-to-one name map."""
+    tree = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(tree):
+        names = []
+        for part in path[:-1]:
+            m = _INDEXED.match(part)
+            names.extend((m.group(1), m.group(2)) if m else (part,))
+        arr = np.array(leaf, np.float32)  # a writable copy
+        leaf_name = path[-1]
+        if leaf_name == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel")
+            arr, leaf_name = arr.T, "weight"
+        elif leaf_name == "scale":
+            leaf_name = "weight"
+        sd[".".join(names + [leaf_name])] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return sd
+
+
+def joint_state_dict_from_flax(params: Mapping[str, Any],
+                               qwen_cfg: Qwen3Config,
+                               qf_cfg: ItemQFormerConfig
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX joint parameter tree (numpy or array leaves) -> the port's
+    ``MultiModalQwenEmbedding`` state_dict, with the layer counts checked
+    against the configs.  Text-side Q-Former entries (word and position
+    tables, text FFNs), which a tree converted from a reference checkpoint
+    carries, are dropped: the query-only forward never reads them."""
+    sd = {k: v for k, v in flax_to_state_dict(params).items()
+          if not _TEXT_SIDE.match(k)}
+    n_qwen = len({k.split(".")[2] for k in sd if k.startswith("base_model.layers.")})
+    n_qf = len({k.split(".")[4] for k in sd
+                if k.startswith("qformer.qformer.encoder.layer.")})
+    if (n_qwen, n_qf) != (qwen_cfg.num_hidden_layers, qf_cfg.num_hidden_layers):
+        raise ValueError(
+            f"parameter tree has {n_qwen} Qwen3 / {n_qf} Q-Former layers, "
+            f"configs say {qwen_cfg.num_hidden_layers} / "
+            f"{qf_cfg.num_hidden_layers}")
+    return sd
+
+
+def _fill_normal(p: torch.Tensor, std: float,
+                 generator: torch.Generator) -> None:
+    """p ~ N(0, std^2), drawn in float32 on the generator's device."""
+    draw = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
+    draw.normal_(0.0, std, generator=generator)
+    p.copy_(draw)
+
+
+@torch.no_grad()
+def init_joint(qwen_cfg: Qwen3Config, qf_cfg: ItemQFormerConfig,
+               jc: JointModelConfig, lora: Optional[LoRAConfig],
+               generator: torch.Generator, device=None,
+               dtype: torch.dtype = torch.float32,
+               lora_b_std: float = 0.0) -> MultiModalQwenEmbedding:
+    """The joint model with the Flax initialisers' distributions: normal(0.02)
+    for dense kernels and embeddings, normal(1.0) for the query embeddings,
+    normal(1/r) for ``lora_a``, ones/zeros for norm scales and biases.
+
+    ``lora_b`` is zero as in Flax unless ``lora_b_std > 0``: with zeros the
+    LoRA path is computed but contributes nothing."""
+    model = MultiModalQwenEmbedding(qwen_cfg, qf_cfg, jc, lora, device=device,
+                                    dtype=dtype).eval()
+    norm_types = {"LayerNorm", "RMSNorm"}
+    for module in model.modules():
+        for name, p in module.named_parameters(recurse=False):
+            if type(module).__name__ in norm_types:
+                p.fill_(1.0 if name == "weight" else 0.0)
+            elif name == "bias":
+                p.zero_()
+            elif name == "query_embeddings":
+                _fill_normal(p, 1.0, generator)
+            elif name == "lora_a":
+                _fill_normal(p, 1.0 / lora.r, generator)
+            elif name == "lora_b":
+                if lora_b_std > 0:
+                    _fill_normal(p, lora_b_std, generator)
+                else:
+                    p.zero_()
+            else:  # dense weights and embedding tables
+                _fill_normal(p, 0.02, generator)
+    return model
