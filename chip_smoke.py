@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA Hopper GPU.
+"""Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
+serving path and the item-token sweep.
 
     python3 chip_smoke.py
 
@@ -6,19 +7,30 @@ Phases (any failed check raises; the script then exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name and
    compute capability.  No CUDA device of capability (9, 0) -> exit 2.
-2. build: the hand-written CUDA kernels from ``unirec_tpu_torch/csrc`` (nvcc
-   for sm_90a, ``-Xptxas -v`` printed).
-3. kernels vs plain versions at the slice's shapes, timed with CUDA events:
+2. build: the hand-written CUDA kernels from ``unirec_tpu_torch/csrc`` (one
+   nvcc per source for sm_90a, started together; ``-Xptxas -v`` printed).
+3. kernels vs plain versions at the slices' shapes, timed with CUDA events:
    K1 causal GQA flash attention (B=8, L=512, 16/8 heads, hd 128, row lengths
    1..512) in fp32 and bf16; K2 blocked top-k retrieval (8 and 64 users,
-   20,000 x 1,024 catalog, k=20).
+   20,000 x 1,024 catalog, k=20); B1/B2/B3, the Item Q-Former's self,
+   cross and FFN blocks in bf16 at production widths (hidden 1024, 16 heads,
+   K=32, F=14, intermediate 4096) for 4096 and a ragged 1001 items (B1 also
+   at the 1-item layer-0 shape), with ~15% missing fields and >= 8 items that
+   have none.
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
    ``make_server``, answers checked against direct ``recommend`` calls, both
    kernels' launch counters checked, both kernels compared with their plain
    versions on the tensors the served run fed them.
-5. last line: ``{"ok": true, "device": {...}}``.
+5. the item-token sweep at full width (``ItemQFormerConfig()``, random
+   weights from seed 0 saved as a checkpoint directory; a 9,000-item field
+   cache from the seed): the port's ``generate_all_item_embeddings.main`` at
+   batch 4096, its output, fallback count and B1-B3 launch counts checked,
+   its tokens held to the engine on the plain block functions and to the fp32
+   ``ItemQFormer``; items/s, TFLOP/s, peak memory and a ``torch.profiler``
+   breakdown by kernel.
+6. the ``kernels`` JSON line, then the last line ``{"ok": true, ...}``.
 
 TF32 stays off for both matmul flags: float32 products are full precision,
 so the fp32 tolerances below hold.
@@ -27,8 +39,11 @@ so the fp32 tolerances below hold.
 from __future__ import annotations
 
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -44,6 +59,22 @@ CATALOG, DIM, K2_K = 20_000, 1_024, 20
 N_REQUESTS, SERVE_K, BATCH = 24, 10, 8
 K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 K2_TIE, K2_SCORE_TOL = 1e-6, 1e-5
+# B1-B3 (bf16 in and out) against their plain versions on the same inputs, in
+# fp32: the kernels sum in another order than the plain version, which can
+# flip a bf16 rounding of qkv, probabilities, ctx or the gelu output and move
+# a unit-scale LayerNorm output by a few bf16 ulps
+BLOCK_ATOL, BLOCK_COS = 5e-2, 0.9999
+QF_D, QF_HEADS, QF_K, QF_F, QF_INTER = 1024, 16, 32, 14, 4096
+BLOCK_ITEMS = (4096, 1001)
+SWEEP_ITEMS, SWEEP_BATCH, SWEEP_SAMPLE = 9000, 4096, 256
+# the sweep's tokens against the same engine on the plain block functions:
+# 30 chained blocks carry each block's one-ulp rounding flips forward, so the
+# bound is four bf16 ulps at the top of the LayerNorm outputs' range
+# (|y| < 8, ulp 2**-5), per-token cosine as for one block
+SWEEP_PLAIN_ATOL, SWEEP_PLAIN_COS = 0.125, 0.9999
+# bf16 engine vs the fp32 model: the bf16 quality-gate class of
+# scripts/quality_gates.py (per-token cosine)
+SWEEP_FP32_COS = 0.999
 
 
 def log(msg: str) -> None:
@@ -164,6 +195,111 @@ def phase_k2(gen) -> dict:
             f"{kern2:.4f} ms, plain {plain:.4f} ms; pre-normalised kernel "
             f"{bare:.4f} ms, plain {bare_plain:.4f} ms")
     return times
+
+
+# -- B1-B3 ------------------------------------------------------------------
+
+
+def block_error(out, ref):
+    """(max|kernel - plain|, min per-row cosine), in fp32."""
+    a = out.float().reshape(-1, out.shape[-1])
+    b = ref.float().reshape(-1, ref.shape[-1])
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("a block kernel returned non-finite values")
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+    return (a - b).abs().max().item(), cos
+
+
+def check_block(name, err, cos, where):
+    log(f"{name} {where}: max|d| {err:.3e} (tol {BLOCK_ATOL:g}), min row "
+        f"cosine {cos:.7f} (tol {BLOCK_COS})")
+    if not (err <= BLOCK_ATOL and cos >= BLOCK_COS):
+        raise AssertionError(f"{name} {where} disagrees with its plain version")
+
+
+def block_inputs(gen, items):
+    """Unit-scale bf16 activations, ~15% missing fields, >= 8 items with no
+    field at all, and random weights of the blocks' layouts."""
+    def rand(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device="cuda", generator=gen) * std
+                ).to(dtype)
+
+    def vec(n, mean=0.0):
+        return mean + rand(n, std=0.1, dtype=torch.float32)
+
+    d, k, f, inter = QF_D, QF_K, QF_F, QF_INTER
+    x = rand(items, k, d)
+    mask = (torch.rand(items, f, device="cuda", generator=gen) > 0.15).float()
+    mask[:: max(items // 8, 1)][:8] = 0.0
+    mem = rand(items, f, d) * mask[..., None].bfloat16()
+    key_bias = ((1.0 - mask) * -1e9).contiguous()
+    self_w = dict(wqkv=rand(3 * d, d, std=0.03), bqkv=vec(3 * d),
+                  wo=rand(d, d, std=0.03), bo=vec(d), ln_gamma=vec(d, 1.0),
+                  ln_beta=vec(d))
+    cross_w = dict(wq=rand(d, d, std=0.03), bq=vec(d),
+                   wkv=rand(2 * d, d, std=0.03), bkv=vec(2 * d),
+                   wo=rand(d, d, std=0.03), bo=vec(d), ln_gamma=vec(d, 1.0),
+                   ln_beta=vec(d))
+    ffn_w = dict(w1=rand(inter, d, std=0.03), b1=vec(inter),
+                 w2=rand(d, inter, std=0.02), b2=vec(d), ln_gamma=vec(d, 1.0),
+                 ln_beta=vec(d))
+    return x, mem, key_bias, mask, self_w, cross_w, ffn_w
+
+
+def phase_blocks(gen) -> dict:
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+
+    sk = dict(num_heads=QF_HEADS, n_q=QF_K)
+    ck = dict(num_heads=QF_HEADS, n_q=QF_K, n_kv=QF_F)
+    result = {"b1": {"err": 0.0}, "b2": {"err": 0.0}, "b3": {"err": 0.0}}
+    for items in BLOCK_ITEMS:
+        x, mem, key_bias, mask, sw, cw, fw = block_inputs(gen, items)
+        runs = {
+            "b1": (lambda: fq.fused_self_attention_block(x, **sw, **sk),
+                   lambda: fq.fused_self_attention_block_plain(x, **sw, **sk)),
+            "b2": (lambda: fq.fused_cross_attention_block(
+                       x, mem, key_bias, **cw, **ck),
+                   lambda: fq.fused_cross_attention_block_plain(
+                       x, mem, key_bias, **cw, **ck)),
+            "b3": (lambda: fq.fused_ffn_block(x, **fw),
+                   lambda: fq.fused_ffn_block_plain(x, **fw)),
+        }
+        shapes = [(items, "b1", runs["b1"])]
+        if items == BLOCK_ITEMS[0]:  # layer 0's self block: one item
+            x1 = x[:1].contiguous()
+            shapes.append((1, "b1", (
+                lambda: fq.fused_self_attention_block(x1, **sw, **sk),
+                lambda: fq.fused_self_attention_block_plain(x1, **sw, **sk))))
+        shapes += [(items, "b2", runs["b2"]), (items, "b3", runs["b3"])]
+        for n, name, (kern, plain) in shapes:
+            out = kern()
+            torch.cuda.synchronize()
+            err, cos = block_error(out, plain())
+            check_block(name.upper(), err, cos, f"{n} items")
+            result[name]["err"] = max(result[name]["err"], err)
+        # an item with no field does not depend on the rest of its batch
+        empty = int(torch.nonzero(mask.sum(1) == 0)[0])
+        alone = fq.fused_cross_attention_block(
+            x[empty:empty + 1].contiguous(), mem[empty:empty + 1].contiguous(),
+            key_bias[empty:empty + 1].contiguous(), **cw, **ck)
+        full = runs["b2"][0]()
+        if not torch.equal(alone[0], full[empty]):
+            raise AssertionError("B2: an all-missing item depends on its batch")
+        log(f"B2 {items} items: {int((mask.sum(1) == 0).sum())} items without "
+            f"fields, {float((mask == 0).float().mean()):.3f} of fields "
+            f"missing; the all-missing item {empty} alone equals its batch row")
+        if items == BLOCK_ITEMS[0]:
+            for name in ("b1", "b2", "b3"):
+                kern, plain = runs[name]
+                t_k = time_ms(kern, iters=10, warmup=2)
+                t_p = time_ms(plain, iters=5, warmup=1)
+                t_k2 = time_ms(kern, iters=10, warmup=2)
+                result[name].update(ms=min(t_k, t_k2), plain_ms=t_p)
+                log(f"{name.upper()} time {items} items: kernel {t_k:.4f} / "
+                    f"{t_k2:.4f} ms, plain {t_p:.4f} ms")
+        del x, mem, key_bias, runs, shapes
+        torch.cuda.empty_cache()
+    return result
 
 
 # -- phase 4: the serving slice ----------------------------------------------
@@ -337,6 +473,225 @@ def phase_serve(smi: str) -> dict:
     return {"launches": launches, "k1_err": err, "k2_err": k2_err}
 
 
+# -- phase 5: the item-token sweep ---------------------------------------------
+
+
+def flops_per_item(cfg) -> float:
+    """Projection and attention-core FLOPs per item, every layer's self block
+    counted per item (the audit of bench.py, 10.88 GFLOP at production)."""
+    d, k, f = cfg.hidden_size, cfg.num_query_tokens, cfg.num_fields
+    dm, inter = cfg.field_embedding_dim, cfg.intermediate_size
+    n_cross = len(range(0, cfg.num_hidden_layers,
+                        cfg.qformer().cross_attention_freq))
+    self_f = 2 * k * 4 * d * d + 2 * 2 * k * k * d
+    ffn_f = 2 * k * 2 * d * inter
+    cross_f = 2 * (k * 2 * d * d + f * 2 * dm * d) + 2 * 2 * k * f * d
+    return cfg.num_hidden_layers * (self_f + ffn_f) + n_cross * cross_f
+
+
+def token_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.cosine_similarity(
+        a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1]),
+        dim=-1)
+
+
+def device_time_by_kernel(prof) -> list:
+    """(name, device ms) per device kernel from a torch.profiler run (the
+    kernels' own rows, so that time under an aten op is not counted twice)."""
+    rows = []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        if t > 0:
+            rows.append((ev.key, t / 1e3))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_sweep(smi: str) -> dict:
+    from unirec_tpu.configs import ItemQFormerConfig
+    from unirec_tpu.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.cli.generate_all_item_embeddings import main as cli
+    from unirec_tpu_torch.inference.fused_qformer import fused_qformer_forward
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+    from unirec_tpu_torch.utils.checkpoint import save_checkpoint
+    from unirec_tpu_torch.utils.weights import init_item_qformer
+
+    cfg = ItemQFormerConfig()
+    fields = [f"f{i}" for i in range(cfg.num_fields)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model = init_item_qformer(cfg, gen, device="cuda", dtype=torch.float32)
+        save_checkpoint(os.path.join(tmp, "ckpt"), model, cfg,
+                        extra={"field_names": fields})
+        rng = np.random.default_rng(SEED)
+        n, f, dm = SWEEP_ITEMS, cfg.num_fields, cfg.field_embedding_dim
+        emb = rng.standard_normal((n, f, dm), dtype=np.float32)
+        masks = (rng.random((n, f)) > 0.15).astype(np.float32)
+        masks[::1000] = 0.0  # items with no field at all
+        emb *= masks[..., None]  # a missing field has a zero embedding
+        ids = [f"item{j}" for j in range(n)]
+        FieldEmbeddingCache(emb, masks, fields, ids).save(
+            os.path.join(tmp, "cache"))
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"sweep set-up: ItemQFormerConfig() {cfg.num_hidden_layers} layers "
+            f"x {cfg.hidden_size}, K={cfg.num_query_tokens}, F={f}, "
+            f"intermediate {cfg.intermediate_size}; {n_params} parameters "
+            f"(fp32 checkpoint); cache {n} x {f} x {dm}, "
+            f"{int((masks == 0).sum())} missing fields, "
+            f"{int((masks.sum(1) == 0).sum())} items without fields; made in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        out_path = os.path.join(tmp, "tokens.pkl")
+        progress_path = os.path.join(tmp, "progress.json")
+        argv = ["--checkpoint", os.path.join(tmp, "ckpt"),
+                "--cache-dir", os.path.join(tmp, "cache"),
+                "--output", out_path, "--batch-size", str(SWEEP_BATCH),
+                "--profile", "--progress-file", progress_path]
+        blocks = (fq.fused_self_attention_block, fq.fused_cross_attention_block,
+                  fq.fused_ffn_block)
+        for fn in blocks:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli(argv)
+        cli_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in zip(("b1", "b2", "b3"),
+                                                          blocks)}
+        if rc != 0:
+            raise AssertionError(f"the sweep CLI returned {rc}")
+        with open(progress_path) as fh:
+            progress = json.load(fh)
+        with open(out_path, "rb") as fh:
+            tokens = pickle.load(fh)
+
+    batches = -(-n // SWEEP_BATCH)
+    n_layers = cfg.num_hidden_layers
+    n_cross = len(range(0, n_layers, cfg.qformer().cross_attention_freq))
+    want = {"b1": n_layers * batches, "b2": n_cross * batches,
+            "b3": n_layers * batches}
+    shape = (cfg.num_query_tokens, cfg.hidden_size)
+    log(f"sweep CLI: rc {rc}, {len(tokens)} items in {cli_s:.2f} s "
+        f"({n / cli_s:.1f} items/s end to end, checkpoint and cache loading "
+        f"and the .pkl included; {progress['items_per_sec']} items/s in the "
+        f"batch loop); fallback items {progress['fallback_items']}; launches "
+        f"{launches} (want {want})")
+    if len(tokens) != n or set(tokens) != set(ids):
+        raise AssertionError("the sweep did not return every item")
+    if not all(t.shape == shape and np.isfinite(t).all()
+               for t in tokens.values()):
+        raise AssertionError("a token array has the wrong shape or is not finite")
+    if progress["fallback_items"] != 0:
+        raise AssertionError("items took the per-item or zero-token fallback")
+    if launches != want:
+        raise AssertionError(f"block launches {launches}, want {want}")
+
+    # the engine the CLI ran, on the plain block functions, and the fp32 model
+    inference = QFormerInference(
+        config=cfg, params=model.state_dict(), field_names=fields,
+        device="cuda", batch_size=SWEEP_BATCH, use_fused=True)
+    empty = np.flatnonzero(masks.sum(1) == 0)  # every item without fields
+    sample = np.sort(np.concatenate([
+        empty, rng.choice(np.setdiff1d(np.arange(n), empty),
+                          SWEEP_SAMPLE - len(empty), replace=False)]))
+    emb_s = torch.from_numpy(emb[sample]).cuda()
+    mask_s = torch.from_numpy(masks[sample]).cuda()
+    got = torch.from_numpy(np.stack([tokens[ids[j]] for j in sample])).cuda()
+    with torch.inference_mode():
+        plain = fused_qformer_forward(inference.fused_params, cfg, emb_s,
+                                      mask_s, plain=True)
+        ref32 = model.query_outputs(emb_s, mask_s)
+    plain_err = (got - plain.float()).abs().max().item()
+    plain_cos = token_cosines(got, plain).min().item()
+    cos32 = token_cosines(got, ref32)
+    log(f"sweep tokens on {len(sample)} sampled items ({len(empty)} without "
+        f"fields): vs "
+        f"the engine on plain blocks max|d| {plain_err:.3e}, min token cosine "
+        f"{plain_cos:.7f} (tol {SWEEP_PLAIN_ATOL:g} / {SWEEP_PLAIN_COS}); vs "
+        f"the fp32 "
+        f"ItemQFormer min token cosine {cos32.min().item():.6f}, mean "
+        f"{cos32.mean().item():.6f} (tol {SWEEP_FP32_COS})")
+    if not (plain_err <= SWEEP_PLAIN_ATOL and plain_cos >= SWEEP_PLAIN_COS):
+        raise AssertionError("sweep tokens disagree with the plain engine")
+    if not cos32.min().item() >= SWEEP_FP32_COS:
+        raise AssertionError("sweep tokens fail the bf16 quality gate")
+    del model, ref32, plain
+
+    # throughput with inputs resident on the device, as bench.py measures
+    emb_d = torch.from_numpy(emb[:SWEEP_BATCH]).cuda()
+    mask_d = torch.from_numpy(masks[:SWEEP_BATCH]).cuda()
+
+    def rate(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+                torch.cuda.synchronize()
+            rates.append(SWEEP_BATCH * iters / (time.perf_counter() - t0))
+        return sorted(rates)
+
+    torch.cuda.reset_peak_memory_stats()
+    fused = rate(lambda: inference.forward(emb_d, mask_d), 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        plain_rates = rate(lambda: fused_qformer_forward(
+            inference.fused_params, cfg, emb_d, mask_d, plain=True), 1)
+    gflop = flops_per_item(cfg) / 1e9
+    log(f"[{smi}] query_tokens_from_embeddings engine, batch {SWEEP_BATCH} "
+        f"resident on the device: median {fused[1]:.1f} items/s (min "
+        f"{fused[0]:.1f}, max {fused[2]:.1f}; 3 repeats of 5 synced batches) "
+        f"= {fused[1] * gflop / 1e3:.1f} TFLOP/s at {gflop:.3f} GFLOP/item; "
+        f"peak device memory {peak_gb:.2f} GB (max_memory_allocated, "
+        f"weights included)")
+    log(f"[{smi}] plain engine (plain block functions), same inputs: median "
+        f"{plain_rates[1]:.1f} items/s (min {plain_rates[0]:.1f}, max "
+        f"{plain_rates[2]:.1f})")
+    log(f"[{smi}] sweep CLI end to end: {n / cli_s:.1f} items/s over {n} "
+        f"items (one run)")
+
+    # one CLI batch step by step: host gather, copy in, forward, copy out
+    cache = FieldEmbeddingCache(emb, masks, fields, ids)
+    batch_ids = ids[:SWEEP_BATCH]
+    steps = {}
+    for _ in range(2):  # the second pass is reported
+        t0 = time.perf_counter()
+        e_np, m_np = cache.gather(batch_ids)
+        t1 = time.perf_counter()
+        e_t, m_t = torch.from_numpy(e_np).cuda(), torch.from_numpy(m_np).cuda()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = inference.forward(e_t, m_t)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.float().cpu().numpy()
+        t4 = time.perf_counter()
+        steps = {"gather": t1 - t0, "to_device": t2 - t1, "forward": t3 - t2,
+                 "to_host": t4 - t3}
+    log(f"[{smi}] one CLI batch of {SWEEP_BATCH} by step (ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in steps.items()))
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        inference.forward(emb_d, mask_d)
+        torch.cuda.synchronize()
+    rows = device_time_by_kernel(prof)
+    total = sum(t for _, t in rows)
+    log(f"[{smi}] one engine batch of {SWEEP_BATCH} under torch.profiler: "
+        f"{total:.2f} ms of device time in {len(rows)} kernels"
+        + ("" if rows else " (no device rows: breakdown not measured)"))
+    for name, t in rows[:12]:
+        log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -370,7 +725,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_times = phase_k1(gen)
     k2_times = phase_k2(gen)
+    blocks = phase_blocks(gen)
     served = phase_serve(smi)
+    swept = phase_sweep(smi)
 
     k1_ms, k1_plain = k1_times[torch.bfloat16]
     k2_ms, k2_plain = k2_times[BATCH]
@@ -385,6 +742,16 @@ def main() -> int:
          "replaces": "unirec_tpu/ops/ranking.py:118",
          "launches": served["launches"]["k2"],
          "max_abs_err": served["k2_err"], "ms": k2_ms, "plain_ms": k2_plain},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "unirec_tpu_torch/csrc/qformer_blocks.cu",
+         "replaces": f"unirec_tpu/ops/fused_qformer_layer.py:{line}",
+         "launches": swept["launches"][key],
+         "max_abs_err": blocks[key]["err"], "ms": blocks[key]["ms"],
+         "plain_ms": blocks[key]["plain_ms"]}
+        for key, name, line in (("b1", "qformer_self_block", 119),
+                                ("b2", "qformer_cross_block", 174),
+                                ("b3", "qformer_ffn_block", 421))
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

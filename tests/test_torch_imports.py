@@ -38,11 +38,14 @@ def test_fresh_import_loads_no_jax_or_flax():
 
 def test_cpu_wrappers_use_plain_versions():
     from unirec_tpu_torch.ops import _build
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
     from unirec_tpu_torch.ops.flash_causal import flash_causal_attention
     from unirec_tpu_torch.ops.ranking import retrieve_top_k
 
-    flash_causal_attention.launches = 0
-    retrieve_top_k.launches = 0
+    blocks = (fq.fused_self_attention_block, fq.fused_cross_attention_block,
+              fq.fused_ffn_block)
+    for fn in (flash_causal_attention, retrieve_top_k) + blocks:
+        fn.launches = 0
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(1, 8, 2 * 128, generator=gen)
     kv = torch.randn(1, 8, 128, generator=gen)
@@ -50,7 +53,26 @@ def test_cpu_wrappers_use_plain_versions():
     s, i = retrieve_top_k(torch.randn(3, 16, generator=gen),
                           torch.randn(50, 16, generator=gen), k=5)
     assert out.shape == q.shape and s.shape == i.shape == (3, 5)
-    assert flash_causal_attention.launches == 0
-    assert retrieve_top_k.launches == 0
+    # B1-B3 in bfloat16, the dtype their kernels take on the card
+    d, k, f, dm, inter = 16, 4, 3, 8, 32
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen).bfloat16()
+
+    def v(n):
+        return torch.randn(n, generator=gen)
+
+    x = w(2, k, d)
+    y1 = fq.fused_self_attention_block(x, w(3 * d, d), v(3 * d), w(d, d), v(d),
+                                       v(d), v(d), num_heads=2, n_q=k)
+    y2 = fq.fused_cross_attention_block(
+        x, w(2, f, dm), torch.zeros(2, f), w(d, d), v(d), w(2 * d, dm),
+        v(2 * d), w(d, d), v(d), v(d), v(d), num_heads=2, n_q=k, n_kv=f)
+    y3 = fq.fused_ffn_block(x, w(inter, d), v(inter), w(d, inter), v(d), v(d),
+                            v(d))
+    assert all(y.shape == x.shape and y.dtype == torch.bfloat16
+               for y in (y1, y2, y3))
+    for fn in (flash_causal_attention, retrieve_top_k) + blocks:
+        assert fn.launches == 0, fn.__name__
     # nothing was compiled or loaded for CPU tensors
     assert _build.load_kernels.cache_info().currsize == 0

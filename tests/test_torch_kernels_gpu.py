@@ -1,14 +1,23 @@
 """The port's CUDA kernels against their plain versions on the card, at the
-serving slice's shapes (the comparisons of chip_smoke.py's phase 3).
+shapes of the serving slice and of the item-token sweep (the comparisons of
+chip_smoke.py's kernel phases).
 
 Marked ``gpu``: each test asks the ``hopper`` fixture, which skips unless a
 CUDA device of compute capability 9.0 is present.  Run them on the card with
-``python -m pytest tests/test_torch_kernels_gpu.py -q``.
+``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q`` (the
+card's machine has no JAX, which ``tests/conftest.py`` imports).
+
+B1-B3 (bf16 in, bf16 out) are held to their plain versions on the same bf16
+inputs, compared in fp32: max |diff| <= 5e-2 on the unit-scale LayerNorm
+outputs (a few bf16 ulps: the kernel and the plain version sum in different
+orders, which can flip a bf16 rounding of qkv, probabilities, ctx or the gelu
+output) and per-row cosine >= 0.9999.
 """
 
 import pytest
 import torch
 
+from unirec_tpu_torch.ops import fused_qformer_layer as fq
 from unirec_tpu_torch.ops.flash_causal import (
     flash_causal_attention,
     flash_causal_attention_plain,
@@ -59,3 +68,98 @@ def test_k2_matches_plain(hopper, n_users):
     full = l2_normalize(users) @ l2_normalize(catalog).T
     diff = i != i_ref  # only near-ties (< 1e-6 apart) may swap
     assert ((full.gather(1, i) - s_ref)[diff].abs() < 1e-6).all()
+
+
+# -- B1-B3 at the sweep's production widths ----------------------------------
+
+D, HEADS, K, F, INTER = 1024, 16, 32, 14, 4096
+BLOCK_ATOL, BLOCK_COS = 5e-2, 0.9999
+
+
+def _rand(gen, *shape, std=1.0, dtype=torch.bfloat16):
+    return (torch.randn(*shape, device="cuda", generator=gen) * std).to(dtype)
+
+
+def _vec(gen, n, mean=0.0, std=0.1):
+    return mean + _rand(gen, n, std=std, dtype=torch.float32)
+
+
+def _check_block(out, ref):
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    a, b = out.float().reshape(-1, out.shape[-1]), ref.float().reshape(
+        -1, ref.shape[-1])
+    assert torch.isfinite(a).all()
+    assert (a - b).abs().max().item() <= BLOCK_ATOL
+    assert torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item() \
+        >= BLOCK_COS
+
+
+def _missing_mask(gen, items):
+    mask = (torch.rand(items, F, device="cuda", generator=gen) > 0.15).float()
+    mask[:: max(items // 8, 1)][:8] = 0.0  # at least 8 items with no field
+    return mask
+
+
+@pytest.mark.parametrize("items", [1, 1001, 4096])
+def test_b1_self_block_matches_plain(hopper, items):
+    g = hopper
+    x = _rand(g, items, K, D)
+    w = dict(wqkv=_rand(g, 3 * D, D, std=0.03), bqkv=_vec(g, 3 * D),
+             wo=_rand(g, D, D, std=0.03), bo=_vec(g, D),
+             ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    before = fq.fused_self_attention_block.launches
+    out = fq.fused_self_attention_block(x, **w, num_heads=HEADS, n_q=K)
+    torch.cuda.synchronize()
+    assert fq.fused_self_attention_block.launches == before + 1
+    _check_block(out, fq.fused_self_attention_block_plain(
+        x, **w, num_heads=HEADS, n_q=K))
+
+
+@pytest.mark.parametrize("items", [1001, 4096])
+def test_b2_cross_block_matches_plain(hopper, items):
+    g = hopper
+    x = _rand(g, items, K, D)
+    mask = _missing_mask(g, items)
+    mem = _rand(g, items, F, D) * mask[..., None].bfloat16()
+    key_bias = ((1.0 - mask) * fq.NEG_INF).contiguous()
+    w = dict(wq=_rand(g, D, D, std=0.03), bq=_vec(g, D),
+             wkv=_rand(g, 2 * D, D, std=0.03), bkv=_vec(g, 2 * D),
+             wo=_rand(g, D, D, std=0.03), bo=_vec(g, D),
+             ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    kw = dict(num_heads=HEADS, n_q=K, n_kv=F)
+    before = fq.fused_cross_attention_block.launches
+    out = fq.fused_cross_attention_block(x, mem, key_bias, **w, **kw)
+    torch.cuda.synchronize()
+    assert fq.fused_cross_attention_block.launches == before + 1
+    _check_block(out, fq.fused_cross_attention_block_plain(
+        x, mem, key_bias, **w, **kw))
+    # an item with no field does not depend on the rest of the batch
+    empty = int(torch.nonzero(mask.sum(1) == 0)[0])
+    alone = fq.fused_cross_attention_block(
+        x[empty:empty + 1], mem[empty:empty + 1],
+        key_bias[empty:empty + 1].contiguous(), **w, **kw)
+    assert torch.equal(alone[0], out[empty])
+
+
+@pytest.mark.parametrize("items", [1001, 4096])
+def test_b3_ffn_block_matches_plain(hopper, items):
+    g = hopper
+    x = _rand(g, items, K, D)
+    w = dict(w1=_rand(g, INTER, D, std=0.03), b1=_vec(g, INTER),
+             w2=_rand(g, D, INTER, std=0.02), b2=_vec(g, D),
+             ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    before = fq.fused_ffn_block.launches
+    out = fq.fused_ffn_block(x, **w)
+    torch.cuda.synchronize()
+    assert fq.fused_ffn_block.launches == before + 1
+    _check_block(out, fq.fused_ffn_block_plain(x, **w))
+
+
+def test_blocks_refuse_fp32_on_the_card(hopper):
+    x = torch.zeros(2, K, D, device="cuda")
+    w = torch.zeros(3 * D, D, device="cuda")
+    v = torch.zeros(3 * D, device="cuda")
+    d = torch.zeros(D, device="cuda")
+    with pytest.raises(TypeError):
+        fq.fused_self_attention_block(x, w, v, w[:D], d, d, d,
+                                      num_heads=HEADS, n_q=K)

@@ -2,9 +2,12 @@
 unirec_tpu_torch vs unirec_tpu on the CPU (fp32, atol 2e-5).
 
 Q-Former: hidden 64, 2 layers (layer 1 has no cross-attention), 2 heads,
-K=2 queries, F=3 fields of width 16.  Parameters come from Flax ``init``
-and go through ``utils.weights.flax_to_state_dict``.
+K=2 queries, F=3 fields of width 16, with and without the field-type table.
+Parameters come from Flax ``init`` and go through
+``utils.weights.flax_to_state_dict``.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +62,29 @@ def test_item_qformer_matches_jax(models, mode):
         assert got[key].shape == want[key].shape, key
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    atol=ATOL, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("mode", ["all_present", "some_masked"])
+def test_item_qformer_field_type_embeddings_match_jax(mode):
+    cfg = dataclasses.replace(CFG, use_field_type_embeddings=True)
+    jm = JaxItemQFormer(cfg)
+    params = jm.init(jax.random.PRNGKey(1), jnp.zeros((1, 3, 16)),
+                     jnp.ones((1, 3)))
+    pm = ItemQFormer(cfg).eval()
+    pm.load_state_dict(flax_to_state_dict(params))
+    assert pm.field_id_embeddings.shape == (3, 16)
+    rng = np.random.RandomState(6)
+    fields = rng.randn(5, CFG.num_fields, 16).astype(np.float32)
+    mask = _masks(rng, mode, 5)
+    want = jm.apply(params, jnp.asarray(fields), jnp.asarray(mask))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(fields), torch.from_numpy(mask))
+    for key in ("query_outputs", "item_representation", "reconstructed_fields"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   atol=ATOL, rtol=0, err_msg=key)
+    with pytest.raises(NotImplementedError, match="modality"):
+        pm.query_outputs(torch.from_numpy(fields), torch.from_numpy(mask),
+                         modality_ids=torch.zeros(3, dtype=torch.long))
 
 
 def test_masked_field_values_are_ignored(models):

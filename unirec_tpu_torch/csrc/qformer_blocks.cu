@@ -1,0 +1,454 @@
+// The bf16 Item Q-Former blocks of the item-token sweep, for Hopper (sm_90a).
+//
+// Replaces the three Pallas TPU kernels of unirec_tpu/ops/fused_qformer_layer.py:
+//   B1  fused_self_attention_block  (_self_block_kernel)
+//       y = LN(x + Wo . SelfAttn(x) + bo), attention within each item's K rows
+//   B2  fused_cross_attention_block (_cross_block_kernel)
+//       y = LN(x + Wo . CrossAttn(x -> mem) + bo), each item's K query rows
+//       over its own F field rows, additive key bias 0 / -1e9 per field
+//   B3  fused_ffn_block             (_ffn_kernel)
+//       y = LN(x + W2 . gelu_tanh(W1 . x + b1) + b2)
+//
+// What bounds them: the projections.  At the production shape (hidden 1024,
+// 16 heads of 64, K=32 queries, F=14 fields, intermediate 4096) an item costs
+// 268 MFLOP of self projections per layer, 537 MFLOP of FFN and 193 MFLOP of
+// cross projections, against under 5 MFLOP of attention core; with 4096 items
+// a block's GEMMs run at hundreds of FLOP per byte of HBM traffic, so all
+// three blocks are bound by tensor-core arithmetic.
+//
+// Design (first version: right and simple, every GEMM hand-written here):
+//   * gemm_bf16_kernel: C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with
+//     K contiguous (W is the torch Linear layout, packed once on the host),
+//     128x128x32 block tiles, 8 warps of 64x32, mma.sync m16n8k16 with fp32
+//     accumulation, ldmatrix from padded shared rows, a 3-stage cp.async
+//     ring.  Ragged M (the 32-row layer-0 self block, B*14 memory rows), N
+//     and K edges are zero-filled on load and masked on store.  Epilogues:
+//     +bias -> bf16 (QKV, Q, KV), +bias -> tanh gelu in fp32 -> bf16 (FFN
+//     up), +bias +residual -> fp32 (Wo, FFN down).
+//   * item_attention_kernel: one block per (item, head).  q (times the scale,
+//     rounded to bf16), k and v of that head sit in shared memory as fp32;
+//     scores and softmax in fp32 with the additive key bias (never skipped:
+//     an item whose fields are all missing gets the uniform average of its
+//     own value rows, as the JAX path does); unnormalised probabilities are
+//     rounded to bf16 before the value product, which accumulates in fp32
+//     and is then scaled by 1/rowsum; ctx is written in bf16 to the head's
+//     column range.  These are the rounding points of _group_attention.
+//   * layer_norm_kernel: one warp per row, fp32 mean / centred variance /
+//     rsqrt, output bf16.
+// What this design spills to HBM that the TPU kernels kept on chip, at 4096
+// items (131,072 query rows): B1 the qkv buffer [rows, 3072] bf16 (805 MB),
+// ctx [rows, 1024] bf16 (268 MB) and the fp32 pre-LN sum (537 MB); B2 q
+// (268 MB), kv [57,344, 2048] bf16 (235 MB), ctx and the pre-LN sum; B3 the
+// gelu output [rows, 4096] bf16 (1.07 GB) and the pre-LN sum.  Keeping them
+// on the SM (wgmma, TMA, fused epilogues) is later work.
+//
+// Every C entry launches on the caller's stream, allocates nothing, and
+// returns the first CUDA error (0 = success).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------- GEMM ----
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 32;
+constexpr int STAGES = 3;
+constexpr int GEMM_THREADS = 256;
+constexpr int LDS = BK + 8;  // padded shared row (80 bytes): ldmatrix conflict-free
+constexpr int A_TILE = BM * LDS;
+constexpr int W_TILE = BN * LDS;
+constexpr int GEMM_SMEM = STAGES * (A_TILE + W_TILE) * (int)sizeof(bf16);  // 61,440
+
+enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESID = 2 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte async copy; pred false zero-fills the destination
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool pred) {
+  const int bytes = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// jax.nn.gelu(approximate=True) in fp32
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return x * (0.5f * (1.0f + tanhf(k * (x + 0.044715f * (x * x * x)))));
+}
+
+// C[M, N] = A[M, K] . W[N, K]^T + epilogue.  N and K are multiples of 8.
+template <int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+                 const float* __restrict__ bias, const bf16* __restrict__ resid,
+                 void* __restrict__ C, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Ws = As + STAGES * A_TILE;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;  // warp rows wm*64 .. +63
+  const int wn = warp & 3;   // warp cols wn*32 .. +31
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int k_tiles = (K + BK - 1) / BK;
+
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+    bf16* as = As + stage * A_TILE;
+    bf16* ws = Ws + stage * W_TILE;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * GEMM_THREADS;  // 512 chunks of 16 bytes per operand
+      const int r = c >> 2;
+      const int kc = (c & 3) * 8;
+      const int gk = k0 + kc;
+      const bool pa = gk < K && m0 + r < M;
+      cp_async_16(smem_addr(as + r * LDS + kc), pa ? A + (size_t)(m0 + r) * K + gk : A, pa);
+      const bool pw = gk < K && n0 + r < N;
+      cp_async_16(smem_addr(ws + r * LDS + kc), pw ? W + (size_t)(n0 + r) * K + gk : W, pw);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < k_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed
+    __syncthreads();              // and every warp is done with tile kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < k_tiles) load_tile(next % STAGES, next);
+    cp_async_commit();
+
+    const bf16* as = As + (kt % STAGES) * A_TILE;
+    const bf16* ws = Ws + (kt % STAGES) * W_TILE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[4][4];
+      uint32_t b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int r = wm * 64 + mi * 16 + (lane & 15);
+        ldmatrix_x4(a[mi], smem_addr(as + r * LDS + kk + (lane >> 4) * 8));
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+        const int n = wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
+        uint32_t t[4];
+        ldmatrix_x4(t, smem_addr(ws + n * LDS + kk + ((lane >> 3) & 1) * 8));
+        b[2 * nj][0] = t[0];
+        b[2 * nj][1] = t[1];
+        b[2 * nj + 1][0] = t[2];
+        b[2 * nj + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator fragment: c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at row g + 8
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int col = n0 + wn * 32 + ni * 8 + t4 * 2;
+    if (col >= N) continue;
+    const float b0 = bias[col];
+    const float b1 = bias[col + 1];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
+        if (row >= M) continue;
+        float v0 = acc[mi][ni][2 * hf] + b0;
+        float v1 = acc[mi][ni][2 * hf + 1] + b1;
+        const size_t off = (size_t)row * N + col;
+        if constexpr (EPI == EPI_BIAS_RESID) {
+          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(resid + off);
+          v0 += __bfloat162float(r.x);
+          v1 += __bfloat162float(r.y);
+          *reinterpret_cast<float2*>(static_cast<float*>(C) + off) = make_float2(v0, v1);
+        } else {
+          if constexpr (EPI == EPI_BIAS_GELU) {
+            v0 = gelu_tanh(v0);
+            v1 = gelu_tanh(v1);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + off) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t gemm(const void* A, const void* W, const float* bias, const void* resid, void* C,
+                 int M, int N, int K, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_bf16_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_bf16_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(W), bias,
+      static_cast<const bf16*>(resid), C, M, N, K);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------- attention ----
+
+constexpr int ATT_THREADS = 128;
+constexpr int MAX_ROWS = 64;     // queries (K) and keys (K or F) per item
+constexpr int MAX_HEAD_DIM = 128;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// One block per (item, head).  q rows: item*nq + i at q + row*q_stride + h*hd;
+// k / v rows: item*nkv + j at kv + row*kv_stride + {k_off, v_off} + h*hd.
+__global__ void __launch_bounds__(ATT_THREADS)
+item_attention_kernel(const bf16* __restrict__ q, int q_stride, const bf16* __restrict__ kv,
+                      int kv_stride, int k_off, int v_off, const float* __restrict__ key_bias,
+                      bf16* __restrict__ ctx, int ctx_stride, int nq, int nkv, int hd,
+                      float scale) {
+  extern __shared__ float sm[];
+  const int hs = hd + 1;   // padded rows: conflict-free column walks
+  const int ss = nkv + 1;
+  float* Qs = sm;                // [nq][hs]
+  float* Ks = Qs + nq * hs;      // [nkv][hs]
+  float* Vs = Ks + nkv * hs;     // [nkv][hs]
+  float* S = Vs + nkv * hs;      // [nq][ss] scores, then bf16-rounded exp
+  float* inv = S + nq * ss;      // [nq] 1 / row sum
+  const int item = blockIdx.x;
+  const int col0 = blockIdx.y * hd;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int e = tid; e < nq * hd; e += ATT_THREADS) {
+    const int i = e / hd, d = e - i * hd;
+    const float v = __bfloat162float(q[(size_t)(item * nq + i) * q_stride + col0 + d]);
+    Qs[i * hs + d] = round_bf16(v * scale);  // q * scale in the input dtype
+  }
+  for (int e = tid; e < nkv * hd; e += ATT_THREADS) {
+    const int j = e / hd, d = e - j * hd;
+    const size_t base = (size_t)(item * nkv + j) * kv_stride + col0 + d;
+    Ks[j * hs + d] = __bfloat162float(kv[base + k_off]);
+    Vs[j * hs + d] = __bfloat162float(kv[base + v_off]);
+  }
+  __syncthreads();
+
+  for (int e = tid; e < nq * nkv; e += ATT_THREADS) {
+    const int i = e / nkv, j = e - i * nkv;
+    float s = 0.f;
+    for (int d = 0; d < hd; ++d) s = fmaf(Qs[i * hs + d], Ks[j * hs + d], s);
+    S[i * ss + j] = s + (key_bias != nullptr ? key_bias[(size_t)item * nkv + j] : 0.f);
+  }
+  __syncthreads();
+
+  for (int i = warp; i < nq; i += ATT_THREADS / 32) {
+    float m = -INFINITY;
+    for (int j = lane; j < nkv; j += 32) m = fmaxf(m, S[i * ss + j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float sum = 0.f;
+    for (int j = lane; j < nkv; j += 32) {
+      const float p = expf(S[i * ss + j] - m);
+      sum += p;
+      S[i * ss + j] = round_bf16(p);  // probabilities in the input dtype
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) inv[i] = 1.f / sum;
+  }
+  __syncthreads();
+
+  for (int e = tid; e < nq * hd; e += ATT_THREADS) {
+    const int i = e / hd, d = e - i * hd;
+    float c = 0.f;
+    for (int j = 0; j < nkv; ++j) c = fmaf(S[i * ss + j], Vs[j * hs + d], c);
+    ctx[(size_t)(item * nq + i) * ctx_stride + col0 + d] = __float2bfloat16(c * inv[i]);
+  }
+}
+
+cudaError_t attention(const void* q, int q_stride, const void* kv, int kv_stride, int k_off,
+                      int v_off, const float* key_bias, void* ctx, int ctx_stride, int items,
+                      int heads, int nq, int nkv, int hd, float scale, cudaStream_t stream) {
+  const int hs = hd + 1;
+  const int bytes = (int)sizeof(float) * (nq * hs + 2 * nkv * hs + nq * (nkv + 1) + nq);
+  cudaError_t err = cudaFuncSetAttribute(
+      item_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(items, heads);
+  item_attention_kernel<<<grid, ATT_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), q_stride, static_cast<const bf16*>(kv), kv_stride, k_off,
+      v_off, key_bias, static_cast<bf16*>(ctx), ctx_stride, nq, nkv, hd, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------- LayerNorm ----
+
+constexpr int LN_THREADS = 256;  // 8 rows per block, one warp each
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// out = (x - mean) * rsqrt(var + eps) * gamma + beta, fp32 in, bf16 out
+__global__ void __launch_bounds__(LN_THREADS)
+layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, bf16* __restrict__ out, int rows, int d,
+                  float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* xr = x + (size_t)row * d;
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) s += xr[c];
+  const float mu = warp_sum(s) / (float)d;
+  float v = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float xc = xr[c] - mu;
+    v += xc * xc;
+  }
+  const float r = 1.0f / sqrtf(warp_sum(v) / (float)d + eps);
+  bf16* o = out + (size_t)row * d;
+  for (int c = lane; c < d; c += 32) o[c] = __float2bfloat16((xr[c] - mu) * r * gamma[c] + beta[c]);
+}
+
+cudaError_t layer_norm(const float* x, const float* gamma, const float* beta, void* out,
+                       int rows, int d, float eps, cudaStream_t stream) {
+  const int per_block = LN_THREADS / 32;
+  layer_norm_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, stream>>>(
+      x, gamma, beta, static_cast<bf16*>(out), rows, d, eps);
+  return cudaGetLastError();
+}
+
+bool gemm_shape_ok(long long m, int n, int k) {
+  return m > 0 && n > 0 && k > 0 && n % 8 == 0 && k % 8 == 0 &&
+         (m + BM - 1) / BM <= 65535;
+}
+
+bool attention_shape_ok(int items, int heads, int nq, int nkv, int d) {
+  return items > 0 && items <= 2147483647 / MAX_ROWS && heads > 0 && heads <= 65535 &&
+         d % heads == 0 && d / heads <= MAX_HEAD_DIM && nq > 0 && nq <= MAX_ROWS &&
+         nkv > 0 && nkv <= MAX_ROWS;
+}
+
+}  // namespace
+
+#define UNIREC_TRY(call)                     \
+  do {                                       \
+    const cudaError_t e_ = (call);           \
+    if (e_ != cudaSuccess) return (int)e_;   \
+  } while (0)
+
+// B1.  x, out [items*nq, d]; wqkv [3d, d] (rows Wq | Wk | Wv); wo [d, d];
+// scratch qkv [items*nq, 3d] bf16, ctx [items*nq, d] bf16, acc [items*nq, d] fp32.
+extern "C" int unirec_qformer_self_block(const void* x, const void* wqkv, const float* bqkv,
+                                         const void* wo, const float* bo, const float* gamma,
+                                         const float* beta, void* out, void* qkv, void* ctx,
+                                         float* acc, int items, int nq, int d, int heads,
+                                         float scale, float eps, void* stream) {
+  const long long rows = (long long)items * nq;
+  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_shape_ok(rows, 3 * d, d))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = (int)rows, hd = d / heads;
+  UNIREC_TRY(gemm<EPI_BIAS>(x, wqkv, bqkv, nullptr, qkv, m, 3 * d, d, s));
+  UNIREC_TRY(attention(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items, heads, nq, nq,
+                       hd, scale, s));
+  UNIREC_TRY(gemm<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
+  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+}
+
+// B2.  x, out [items*nq, d]; mem [items*nkv, dm]; key_bias [items, nkv] fp32;
+// wq [d, d]; wkv [2d, dm] (rows Wk | Wv); wo [d, d];
+// scratch q [items*nq, d], kv [items*nkv, 2d], ctx [items*nq, d] bf16, acc fp32.
+extern "C" int unirec_qformer_cross_block(const void* x, const void* mem, const float* key_bias,
+                                          const void* wq, const float* bq, const void* wkv,
+                                          const float* bkv, const void* wo, const float* bo,
+                                          const float* gamma, const float* beta, void* out,
+                                          void* q, void* kv, void* ctx, float* acc, int items,
+                                          int nq, int nkv, int d, int dm, int heads, float scale,
+                                          float eps, void* stream) {
+  const long long rows = (long long)items * nq;
+  const long long mem_rows = (long long)items * nkv;
+  if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_shape_ok(rows, d, d) ||
+      !gemm_shape_ok(mem_rows, 2 * d, dm))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = (int)rows, hd = d / heads;
+  UNIREC_TRY(gemm<EPI_BIAS>(x, wq, bq, nullptr, q, m, d, d, s));
+  UNIREC_TRY(gemm<EPI_BIAS>(mem, wkv, bkv, nullptr, kv, (int)mem_rows, 2 * d, dm, s));
+  UNIREC_TRY(attention(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq, nkv, hd,
+                       scale, s));
+  UNIREC_TRY(gemm<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
+  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+}
+
+// B3.  x, out [rows, d]; w1 [inter, d]; w2 [d, inter];
+// scratch h [rows, inter] bf16 (the gelu output), acc [rows, d] fp32.
+extern "C" int unirec_qformer_ffn_block(const void* x, const void* w1, const float* b1,
+                                        const void* w2, const float* b2, const float* gamma,
+                                        const float* beta, void* out, void* h, float* acc,
+                                        int rows, int d, int inter, float eps, void* stream) {
+  if (!gemm_shape_ok(rows, inter, d) || !gemm_shape_ok(rows, d, inter))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  UNIREC_TRY(gemm<EPI_BIAS_GELU>(x, w1, b1, nullptr, h, rows, inter, d, s));
+  UNIREC_TRY(gemm<EPI_BIAS_RESID>(h, w2, b2, x, acc, rows, d, inter, s));
+  return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
+}

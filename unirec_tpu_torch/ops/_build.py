@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The ``.cu`` sources under ``unirec_tpu_torch/csrc/`` expose a plain C
-interface.  On first use they are compiled by ``nvcc`` for ``sm_90a`` into one
+interface.  On first use each source is compiled by its own ``nvcc`` process
+for ``sm_90a`` (all started together), and the objects are linked into one
 shared library under ``build/unirec_tpu_torch/`` at the repository root (a
 directory ``.gitignore`` lists) and loaded with ``ctypes``.  The library's
 file name carries a hash of the sources, so an edited source is rebuilt.
@@ -23,15 +24,16 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_causal_fwd.cu", "retrieve_topk.cu")
+SOURCES = ("flash_causal_fwd.cu", "retrieve_topk.cu", "qformer_blocks.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unirec_tpu_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 @dataclass
@@ -69,16 +71,9 @@ def load_kernels() -> Kernels:
     out = BUILD_DIR / f"libunirec_kernels_{digest.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile(srcs, out)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     lib.unirec_flash_causal_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                             _I, _I, _P]
@@ -86,7 +81,41 @@ def load_kernels() -> Kernels:
     lib.unirec_retrieve_topk.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _P]
     lib.unirec_retrieve_topk.restype = _I
+    lib.unirec_qformer_self_block.argtypes = [_P] * 11 + [_I] * 4 + [_F, _F, _P]
+    lib.unirec_qformer_self_block.restype = _I
+    lib.unirec_qformer_cross_block.argtypes = ([_P] * 16 + [_I] * 6
+                                               + [_F, _F, _P])
+    lib.unirec_qformer_cross_block.restype = _I
+    lib.unirec_qformer_ffn_block.argtypes = [_P] * 10 + [_I] * 3 + [_F, _P]
+    lib.unirec_qformer_ffn_block.restype = _I
     return Kernels(lib, out, seconds, log)
+
+
+def _compile(srcs, out: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link;
+    returns the compilers' output (``-Xptxas -v``)."""
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}.objs"
+    work.mkdir(parents=True, exist_ok=True)
+    objs = [work / f"{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
+    return log
 
 
 def check(err: int, name: str) -> None:

@@ -16,9 +16,11 @@ functions::
     flax_params = torch_convert.convert_joint_model(sd, qwen_cfg, qf_cfg)
     model.load_state_dict(joint_state_dict_from_flax(flax_params, qwen_cfg, qf_cfg))
 
-``init_joint`` builds the full-size model on a device from a
-``torch.Generator`` with the Flax initialisers' distributions, for runs that
-have no checkpoint (the card machine has no Flax to make weights with).
+``init_joint`` and ``init_item_qformer`` build full-size models on a device
+from a ``torch.Generator`` with the Flax initialisers' distributions, for
+runs that have no checkpoint (the card machine has no Flax to make weights
+with).  ``item_qformer_state_dict_from_flax`` is the bridge for an Item
+Q-Former tree, a reference ``.pth`` converted by ``torch_convert`` included.
 """
 
 from __future__ import annotations
@@ -35,14 +37,16 @@ from unirec_tpu.configs import (
     LoRAConfig,
     Qwen3Config,
 )
+from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
 
 _INDEXED = re.compile(r"^(layers|layer)_(\d+)$")
 # text-side Q-Former parameters that a reference checkpoint carries but the
-# item Q-Former's query-only forward never reads
+# item Q-Former's query-only forward never reads (keys of a bare Item
+# Q-Former tree, or of one nested in the joint model under "qformer.")
 _TEXT_SIDE = re.compile(
-    r"^qformer\.qformer\.(embeddings\.(word|position)_embeddings\."
-    r"|encoder\.layer\.\d+\.ffn\.)")
+    r"^(qformer\.)?qformer\.(embeddings\.(word|position)_embeddings\."
+    r"|encoder\.layer\.\d+\.ffn\.|pooler\.)")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -98,6 +102,15 @@ def joint_state_dict_from_flax(params: Mapping[str, Any],
     return sd
 
 
+def item_qformer_state_dict_from_flax(params: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX ``ItemQFormer`` parameter tree -> the port's ``ItemQFormer``
+    state_dict, without the text-side entries that a tree converted from a
+    reference checkpoint carries and the query-only forward never reads."""
+    return {k: v for k, v in flax_to_state_dict(params).items()
+            if not _TEXT_SIDE.match(k)}
+
+
 def _fill_normal(p: torch.Tensor, std: float,
                  generator: torch.Generator) -> None:
     """p ~ N(0, std^2), drawn in float32 on the generator's device."""
@@ -120,6 +133,27 @@ def init_joint(qwen_cfg: Qwen3Config, qf_cfg: ItemQFormerConfig,
     LoRA path is computed but contributes nothing."""
     model = MultiModalQwenEmbedding(qwen_cfg, qf_cfg, jc, lora, device=device,
                                     dtype=dtype).eval()
+    _flax_init_(model, generator, lora, lora_b_std)
+    return model
+
+
+@torch.no_grad()
+def init_item_qformer(cfg: ItemQFormerConfig, generator: torch.Generator,
+                      device=None, dtype: torch.dtype = torch.float32
+                      ) -> ItemQFormer:
+    """The Item Q-Former with the Flax initialisers' distributions:
+    normal(1.0) for ``query_embeddings``, normal(0.02) for dense kernels and
+    ``field_id_embeddings``, ones/zeros for LayerNorm, zero biases."""
+    model = ItemQFormer(cfg, device=device, dtype=dtype).eval()
+    _flax_init_(model, generator)
+    return model
+
+
+def _flax_init_(model: torch.nn.Module, generator: torch.Generator,
+                lora: Optional[LoRAConfig] = None,
+                lora_b_std: float = 0.0) -> None:
+    """Fill ``model``'s parameters in place, drawing from ``generator`` in
+    module order."""
     norm_types = {"LayerNorm", "RMSNorm"}
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
@@ -138,4 +172,3 @@ def init_joint(qwen_cfg: Qwen3Config, qf_cfg: ItemQFormerConfig,
                     p.zero_()
             else:  # dense weights and embedding tables
                 _fill_normal(p, 0.02, generator)
-    return model
