@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
-serving path and the item-token sweep.
+serving path (over a float32 and an int8 catalog) and the item-token sweep
+(bf16 and W8A8 int8).
 
     python3 chip_smoke.py
 
@@ -12,22 +13,29 @@ Phases (any failed check raises; the script then exits non-zero):
 3. kernels vs plain versions at the slices' shapes, timed with CUDA events:
    K1 causal GQA flash attention (B=8, L=512, 16/8 heads, hd 128, row lengths
    1..512) in fp32 and bf16; K2 blocked top-k retrieval (8 and 64 users,
-   20,000 x 1,024 catalog, k=20); B1/B2/B3, the Item Q-Former's self,
-   cross and FFN blocks in bf16 at production widths (hidden 1024, 16 heads,
-   K=32, F=14, intermediate 4096) for 4096 and a ragged 1001 items (B1 also
-   at the 1-item layer-0 shape), with ~15% missing fields and >= 8 items that
-   have none.
+   20,000 x 1,024 catalog, k=20) and B11, the same over the catalog
+   quantized to int8; B1/B2/B3, the Item Q-Former's self, cross and FFN
+   blocks in bf16 at production widths (hidden 1024, 16 heads, K=32, F=14,
+   intermediate 4096) for 4096 and a ragged 1001 items (B1 also at the 1-item
+   layer-0 shape), with ~15% missing fields and >= 8 items that have none;
+   B1/B2 at K=128 and 256 (64 items); B4/B5/B6, the W8A8 blocks, as B1-B3.
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
    ``make_server``, answers checked against direct ``recommend`` calls, both
    kernels' launch counters checked, both kernels compared with their plain
-   versions on the tensors the served run fed them.
+   versions on the tensors the served run fed them.  Then a second
+   ``Recommender(quantize_catalog=True)`` over the same model and catalog
+   answers the same histories through B11 (answers checked, B11's counter
+   checked, B11 held to its plain version on the served users, top-10 overlap
+   with the float32 catalog's answers printed).
 5. the item-token sweep at full width (``ItemQFormerConfig()``, random
    weights from seed 0 saved as a checkpoint directory; a 9,000-item field
    cache from the seed): the port's ``generate_all_item_embeddings.main`` at
-   batch 4096, its output, fallback count and B1-B3 launch counts checked,
-   its tokens held to the engine on the plain block functions and to the fp32
+   batch 4096, once with ``--precision bf16`` and once with ``int8``; each
+   run's output, fallback count and block launch counts checked (B1-B3 or
+   B4-B6, 12/6/12 per batch, none of the other precision's), its tokens held
+   to the engine on the plain block functions and to the fp32
    ``ItemQFormer``; items/s, TFLOP/s, peak memory and a ``torch.profiler``
    breakdown by kernel.
 6. the ``kernels`` JSON line, then the last line ``{"ok": true, ...}``.
@@ -38,6 +46,7 @@ so the fp32 tolerances below hold.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import pickle
@@ -66,13 +75,22 @@ K2_TIE, K2_SCORE_TOL = 1e-6, 1e-5
 BLOCK_ATOL, BLOCK_COS = 5e-2, 0.9999
 QF_D, QF_HEADS, QF_K, QF_F, QF_INTER = 1024, 16, 32, 14, 4096
 BLOCK_ITEMS = (4096, 1001)
+# the attention kernel's repaired limit: K up to 256 query rows per item
+WIDE_K, WIDE_K_ITEMS = (128, 256), 64
 SWEEP_ITEMS, SWEEP_BATCH, SWEEP_SAMPLE = 9000, 4096, 256
 # the sweep's tokens against the same engine on the plain block functions:
 # 30 chained blocks carry each block's one-ulp rounding flips forward, so the
 # bound is four bf16 ulps at the top of the LayerNorm outputs' range
-# (|y| < 8, ulp 2**-5), per-token cosine as for one block
+# (|y| < 8, ulp 2**-5), per-token cosine as for one block.  The int8 engine
+# is held by cosine alone, at the int8 quality-gate class: requantization is
+# discontinuous, so a difference far below a code step (one flipped bf16
+# rounding) flips codes and grows over 30 blocks to about the engine's own
+# quantization noise.  Each run prints that noise floor: the plain engine
+# against itself on inputs one bf16 ulp apart (0.99933 min token cosine on
+# an H100, as far as the kernel engine is from the plain one).
 SWEEP_PLAIN_ATOL, SWEEP_PLAIN_COS = 0.125, 0.9999
-# bf16 engine vs the fp32 model: the bf16 quality-gate class of
+SWEEP_PLAIN_COS_INT8 = 0.999
+# either engine vs the fp32 model: the bf16 and int8 quality-gate class of
 # scripts/quality_gates.py (per-token cosine)
 SWEEP_FP32_COS = 0.999
 
@@ -246,31 +264,53 @@ def block_inputs(gen, items):
     return x, mem, key_bias, mask, self_w, cross_w, ffn_w
 
 
-def phase_blocks(gen) -> dict:
+# the int8 blocks take each weight as int8 codes beside its column scales
+SCALE_OF = {"wqkv": "sqkv", "wo": "so", "wq": "sq", "wkv": "skv", "w1": "s1",
+            "w2": "s2"}
+
+
+def quantized(weights: dict) -> dict:
+    from unirec_tpu_torch.ops.fused_qformer_int8 import quantize_weight
+
+    out = dict(weights)
+    for name, scale in SCALE_OF.items():
+        if name in weights:
+            out[name], out[scale] = quantize_weight(weights[name])
+    return out
+
+
+def phase_blocks(gen, precision: str) -> dict:
+    """B1-B3 (bf16) or B4-B6 (int8) against their plain versions."""
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
     from unirec_tpu_torch.ops import fused_qformer_layer as fq
 
+    mod, sfx, names = ((fq, "", ("b1", "b2", "b3")) if precision == "bf16"
+                       else (pq, "_q", ("b4", "b5", "b6")))
+    self_k, cross_k, ffn_k = (
+        (getattr(mod, f + sfx), getattr(mod, f + sfx + "_plain"))
+        for f in ("fused_self_attention_block", "fused_cross_attention_block",
+                  "fused_ffn_block"))
+    sn, cn, fn_ = names
     sk = dict(num_heads=QF_HEADS, n_q=QF_K)
     ck = dict(num_heads=QF_HEADS, n_q=QF_K, n_kv=QF_F)
-    result = {"b1": {"err": 0.0}, "b2": {"err": 0.0}, "b3": {"err": 0.0}}
+    result = {name: {"err": 0.0} for name in names}
     for items in BLOCK_ITEMS:
         x, mem, key_bias, mask, sw, cw, fw = block_inputs(gen, items)
+        if precision == "int8":
+            sw, cw, fw = quantized(sw), quantized(cw), quantized(fw)
         runs = {
-            "b1": (lambda: fq.fused_self_attention_block(x, **sw, **sk),
-                   lambda: fq.fused_self_attention_block_plain(x, **sw, **sk)),
-            "b2": (lambda: fq.fused_cross_attention_block(
-                       x, mem, key_bias, **cw, **ck),
-                   lambda: fq.fused_cross_attention_block_plain(
-                       x, mem, key_bias, **cw, **ck)),
-            "b3": (lambda: fq.fused_ffn_block(x, **fw),
-                   lambda: fq.fused_ffn_block_plain(x, **fw)),
+            sn: (lambda: self_k[0](x, **sw, **sk),
+                 lambda: self_k[1](x, **sw, **sk)),
+            cn: (lambda: cross_k[0](x, mem, key_bias, **cw, **ck),
+                 lambda: cross_k[1](x, mem, key_bias, **cw, **ck)),
+            fn_: (lambda: ffn_k[0](x, **fw), lambda: ffn_k[1](x, **fw)),
         }
-        shapes = [(items, "b1", runs["b1"])]
+        shapes = [(items, sn, runs[sn])]
         if items == BLOCK_ITEMS[0]:  # layer 0's self block: one item
             x1 = x[:1].contiguous()
-            shapes.append((1, "b1", (
-                lambda: fq.fused_self_attention_block(x1, **sw, **sk),
-                lambda: fq.fused_self_attention_block_plain(x1, **sw, **sk))))
-        shapes += [(items, "b2", runs["b2"]), (items, "b3", runs["b3"])]
+            shapes.append((1, sn, (lambda: self_k[0](x1, **sw, **sk),
+                                   lambda: self_k[1](x1, **sw, **sk))))
+        shapes += [(items, cn, runs[cn]), (items, fn_, runs[fn_])]
         for n, name, (kern, plain) in shapes:
             out = kern()
             torch.cuda.synchronize()
@@ -279,17 +319,19 @@ def phase_blocks(gen) -> dict:
             result[name]["err"] = max(result[name]["err"], err)
         # an item with no field does not depend on the rest of its batch
         empty = int(torch.nonzero(mask.sum(1) == 0)[0])
-        alone = fq.fused_cross_attention_block(
+        alone = cross_k[0](
             x[empty:empty + 1].contiguous(), mem[empty:empty + 1].contiguous(),
             key_bias[empty:empty + 1].contiguous(), **cw, **ck)
-        full = runs["b2"][0]()
+        full = runs[cn][0]()
         if not torch.equal(alone[0], full[empty]):
-            raise AssertionError("B2: an all-missing item depends on its batch")
-        log(f"B2 {items} items: {int((mask.sum(1) == 0).sum())} items without "
-            f"fields, {float((mask == 0).float().mean()):.3f} of fields "
-            f"missing; the all-missing item {empty} alone equals its batch row")
+            raise AssertionError(f"{cn.upper()}: an all-missing item depends "
+                                 "on its batch")
+        log(f"{cn.upper()} {items} items: {int((mask.sum(1) == 0).sum())} "
+            f"items without fields, {float((mask == 0).float().mean()):.3f} of "
+            f"fields missing; the all-missing item {empty} alone equals its "
+            "batch row")
         if items == BLOCK_ITEMS[0]:
-            for name in ("b1", "b2", "b3"):
+            for name in names:
                 kern, plain = runs[name]
                 t_k = time_ms(kern, iters=10, warmup=2)
                 t_p = time_ms(plain, iters=5, warmup=1)
@@ -300,6 +342,91 @@ def phase_blocks(gen) -> dict:
         del x, mem, key_bias, runs, shapes
         torch.cuda.empty_cache()
     return result
+
+
+def phase_wide_k(gen) -> dict:
+    """B1 and B2 at K=128 and 256 query rows per item (64 items): the
+    attention kernel tiles the queries and keeps keys and values in bf16."""
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+
+    errs = {"b1": 0.0, "b2": 0.0}
+    _, _, _, _, sw, cw, _ = block_inputs(gen, 1)
+    for n_q in WIDE_K:
+        items = WIDE_K_ITEMS
+        x = (torch.randn(items, n_q, QF_D, device="cuda", generator=gen)
+             ).bfloat16()
+        mask = (torch.rand(items, QF_F, device="cuda", generator=gen) > 0.15
+                ).float()
+        mask[::8] = 0.0
+        mem = (torch.randn(items, QF_F, QF_D, device="cuda", generator=gen)
+               * mask[..., None]).bfloat16()
+        key_bias = ((1.0 - mask) * -1e9).contiguous()
+        sk = dict(num_heads=QF_HEADS, n_q=n_q)
+        ck = dict(sk, n_kv=QF_F)
+        for name, kern, plain in (
+                ("b1", lambda: fq.fused_self_attention_block(x, **sw, **sk),
+                 lambda: fq.fused_self_attention_block_plain(x, **sw, **sk)),
+                ("b2", lambda: fq.fused_cross_attention_block(
+                    x, mem, key_bias, **cw, **ck),
+                 lambda: fq.fused_cross_attention_block_plain(
+                     x, mem, key_bias, **cw, **ck))):
+            out = kern()
+            torch.cuda.synchronize()
+            err, cos = block_error(out, plain())
+            check_block(name.upper(), err, cos, f"K={n_q}, {items} items")
+            errs[name] = max(errs[name], err)
+    return errs
+
+
+def b11_compare(users, codes, scales, k):
+    """B11 vs its plain version; returns the max score difference."""
+    from unirec_tpu_torch.ops.quantization import (
+        quantized_scores,
+        quantized_top_k,
+        retrieve_top_k_int8,
+    )
+
+    s, i = retrieve_top_k_int8(users, codes, scales, k=k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = quantized_top_k(users, codes, scales, k=k)
+    score_err = (s - s_ref).abs().max().item()
+    if not score_err <= K2_SCORE_TOL:
+        raise AssertionError(f"B11 scores differ by {score_err}")
+    diff = i != i_ref
+    if diff.any():  # only near-ties may swap
+        picked = quantized_scores(users, codes, scales).gather(1, i)
+        gap = (picked - s_ref)[diff].abs().max().item()
+        if not gap < K2_TIE:
+            raise AssertionError(f"B11 ids differ beyond near-ties ({gap})")
+    log(f"B11 users={users.shape[0]} N={codes.shape[0]} k={k}: "
+        f"max|d score| {score_err:.3e}, id mismatches {int(diff.sum())} "
+        f"(near-ties only)")
+    return score_err
+
+
+def phase_b11(gen) -> dict:
+    from unirec_tpu_torch.ops.quantization import (
+        quantize_rows,
+        quantized_top_k,
+        retrieve_top_k_int8,
+    )
+
+    codes, scales = quantize_rows(
+        torch.randn(CATALOG, DIM, device="cuda", generator=gen))
+    times = {}
+    for n_users in K2_USERS:
+        users = torch.randn(n_users, DIM, device="cuda", generator=gen)
+        b11_compare(users, codes, scales, K2_K)
+        kern = time_ms(lambda: retrieve_top_k_int8(users, codes, scales,
+                                                   k=K2_K))
+        plain = time_ms(lambda: quantized_top_k(users, codes, scales, k=K2_K))
+        kern2 = time_ms(lambda: retrieve_top_k_int8(users, codes, scales,
+                                                    k=K2_K))
+        times[n_users] = (min(kern, kern2), plain)
+        log(f"B11 time users={n_users} (int8 catalog {CATALOG} x {DIM}, "
+            f"{codes.numel() / 1e6:.1f} MB): kernel {kern:.4f} / "
+            f"{kern2:.4f} ms, plain {plain:.4f} ms")
+    return times
 
 
 # -- phase 4: the serving slice ----------------------------------------------
@@ -470,7 +597,62 @@ def phase_serve(smi: str) -> dict:
         f"{max(lat) * 1e3:.1f}) over 5 batches = {BATCH / med:.1f} users/s; "
         f"HTTP burst {N_REQUESTS / burst_s:.1f} users/s; peak device memory "
         f"{peak_gb:.2f} GB (max_memory_allocated)")
-    return {"launches": launches, "k1_err": err, "k2_err": k2_err}
+    b11 = serve_int8_catalog(smi, rec, histories, direct)
+    return {"launches": dict(launches, b11=b11["launches"]), "k1_err": err,
+            "k2_err": k2_err, "b11_err": b11["err"]}
+
+
+def serve_int8_catalog(smi: str, rec, histories, direct) -> dict:
+    """A second Recommender over the same model and catalog, ranking over the
+    int8 catalog (quantize_rows + B11)."""
+    from unirec_tpu_torch.ops.losses import l2_normalize
+    from unirec_tpu_torch.ops.quantization import retrieve_top_k_int8
+    from unirec_tpu_torch.serving.recommender import Recommender
+
+    qrec = Recommender(rec.model, rec.tokenizer, rec.item_dict, rec.cache,
+                       dict(zip(rec.catalog_ids, rec.catalog)),
+                       batch_size=BATCH, quantize_catalog=True)
+    seen = {}
+    hook = qrec.model.register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("pooled", out))
+    try:
+        retrieve_top_k_int8.launches = 0
+        answers = qrec.recommend(histories, k=SERVE_K)
+        launches = retrieve_top_k_int8.launches
+    finally:
+        hook.remove()
+    log(f"int8 catalog ({qrec._catalog_q.numel() / 1e6:.1f} MB of codes): "
+        f"{len(answers)} answers, B11 launches {launches}")
+    if launches == 0:
+        raise AssertionError("B11 was not launched by the int8-catalog run")
+    overlap = []
+    for h, got, want in zip(histories, answers, direct):
+        ids = [r.item_id for r in got]
+        scores = [r.score for r in got]
+        if len(got) != SERVE_K or set(ids) & set(h):
+            raise AssertionError(f"bad int8-catalog answer {ids}")
+        if scores != sorted(scores, reverse=True):
+            raise AssertionError(f"int8-catalog scores not descending {scores}")
+        overlap.append(len(set(ids) & {r.item_id for r in want}) / SERVE_K)
+    log(f"int8-catalog answers valid: {SERVE_K} items, no history items, "
+        f"scores descending; top-{SERVE_K} overlap with the float32 catalog's "
+        f"answers mean {np.mean(overlap):.3f}, min {min(overlap):.3f} "
+        "(reported, not gated)")
+    with torch.no_grad():
+        users = l2_normalize(seen["pooled"]).float()
+        err = b11_compare(users, qrec._catalog_q, qrec._catalog_scales,
+                          SERVE_K + qrec.jc.num_history_items)
+    lat = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qrec.recommend(histories[:BATCH], k=SERVE_K)
+        lat.append(time.perf_counter() - t0)
+    med = float(np.median(lat))
+    log(f"[{smi}] int8-catalog recommend(), batch {BATCH}: per-batch latency "
+        f"median {med * 1e3:.1f} ms (min {min(lat) * 1e3:.1f}, max "
+        f"{max(lat) * 1e3:.1f}) over 5 batches")
+    return {"launches": launches, "err": err}
 
 
 # -- phase 5: the item-token sweep ---------------------------------------------
@@ -511,12 +693,10 @@ def device_time_by_kernel(prof) -> list:
 
 
 def phase_sweep(smi: str) -> dict:
+    """The CLI sweep at full width, bf16 (B1-B3) and then int8 (B4-B6), over
+    one seed-0 checkpoint directory and one 9,000-item cache."""
     from unirec_tpu.configs import ItemQFormerConfig
     from unirec_tpu.data.cache import FieldEmbeddingCache
-    from unirec_tpu_torch.cli.generate_all_item_embeddings import main as cli
-    from unirec_tpu_torch.inference.fused_qformer import fused_qformer_forward
-    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
-    from unirec_tpu_torch.ops import fused_qformer_layer as fq
     from unirec_tpu_torch.utils.checkpoint import save_checkpoint
     from unirec_tpu_torch.utils.weights import init_item_qformer
 
@@ -545,41 +725,66 @@ def phase_sweep(smi: str) -> dict:
             f"{int((masks == 0).sum())} missing fields, "
             f"{int((masks.sum(1) == 0).sum())} items without fields; made in "
             f"{time.perf_counter() - t0:.1f} s")
+        empty = np.flatnonzero(masks.sum(1) == 0)  # every item without fields
+        sample = np.sort(np.concatenate([
+            empty, rng.choice(np.setdiff1d(np.arange(n), empty),
+                              SWEEP_SAMPLE - len(empty), replace=False)]))
+        inputs = dict(cfg=cfg, model=model, tmp=tmp, emb=emb, masks=masks,
+                      ids=ids, fields=fields, sample=sample, n_empty=len(empty))
+        return {precision: sweep_cli(smi, precision, **inputs)
+                for precision in ("bf16", "int8")}
 
-        out_path = os.path.join(tmp, "tokens.pkl")
-        progress_path = os.path.join(tmp, "progress.json")
-        argv = ["--checkpoint", os.path.join(tmp, "ckpt"),
-                "--cache-dir", os.path.join(tmp, "cache"),
-                "--output", out_path, "--batch-size", str(SWEEP_BATCH),
-                "--profile", "--progress-file", progress_path]
-        blocks = (fq.fused_self_attention_block, fq.fused_cross_attention_block,
-                  fq.fused_ffn_block)
-        for fn in blocks:
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = cli(argv)
-        cli_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in zip(("b1", "b2", "b3"),
-                                                          blocks)}
-        if rc != 0:
-            raise AssertionError(f"the sweep CLI returned {rc}")
-        with open(progress_path) as fh:
-            progress = json.load(fh)
-        with open(out_path, "rb") as fh:
-            tokens = pickle.load(fh)
+
+def sweep_cli(smi, precision, cfg, model, tmp, emb, masks, ids, fields, sample,
+              n_empty) -> dict:
+    from unirec_tpu.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.cli.generate_all_item_embeddings import main as cli
+    from unirec_tpu_torch.inference.fused_qformer import fused_qformer_forward
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+
+    n = len(ids)
+    out_path = os.path.join(tmp, f"tokens_{precision}.pkl")
+    progress_path = os.path.join(tmp, f"progress_{precision}.json")
+    argv = ["--checkpoint", os.path.join(tmp, "ckpt"),
+            "--cache-dir", os.path.join(tmp, "cache"),
+            "--output", out_path, "--batch-size", str(SWEEP_BATCH),
+            "--profile", "--progress-file", progress_path,
+            "--precision", precision]
+    bf16_blocks = (fq.fused_self_attention_block,
+                   fq.fused_cross_attention_block, fq.fused_ffn_block)
+    int8_blocks = (pq.fused_self_attention_block_q,
+                   pq.fused_cross_attention_block_q, pq.fused_ffn_block_q)
+    blocks, other, names = (
+        (bf16_blocks, int8_blocks, ("b1", "b2", "b3")) if precision == "bf16"
+        else (int8_blocks, bf16_blocks, ("b4", "b5", "b6")))
+    for fn in blocks + other:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli(argv)
+    cli_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in zip(names, blocks)}
+    stray = sum(fn.launches for fn in other)
+    if rc != 0:
+        raise AssertionError(f"the {precision} sweep CLI returned {rc}")
+    with open(progress_path) as fh:
+        progress = json.load(fh)
+    with open(out_path, "rb") as fh:
+        tokens = pickle.load(fh)
 
     batches = -(-n // SWEEP_BATCH)
     n_layers = cfg.num_hidden_layers
     n_cross = len(range(0, n_layers, cfg.qformer().cross_attention_freq))
-    want = {"b1": n_layers * batches, "b2": n_cross * batches,
-            "b3": n_layers * batches}
+    want = dict(zip(names, (n_layers * batches, n_cross * batches,
+                            n_layers * batches)))
     shape = (cfg.num_query_tokens, cfg.hidden_size)
-    log(f"sweep CLI: rc {rc}, {len(tokens)} items in {cli_s:.2f} s "
+    log(f"sweep CLI {precision}: rc {rc}, {len(tokens)} items in {cli_s:.2f} s "
         f"({n / cli_s:.1f} items/s end to end, checkpoint and cache loading "
         f"and the .pkl included; {progress['items_per_sec']} items/s in the "
         f"batch loop); fallback items {progress['fallback_items']}; launches "
-        f"{launches} (want {want})")
+        f"{launches} (want {want}), other precision's blocks {stray}")
     if len(tokens) != n or set(tokens) != set(ids):
         raise AssertionError("the sweep did not return every item")
     if not all(t.shape == shape and np.isfinite(t).all()
@@ -587,39 +792,47 @@ def phase_sweep(smi: str) -> dict:
         raise AssertionError("a token array has the wrong shape or is not finite")
     if progress["fallback_items"] != 0:
         raise AssertionError("items took the per-item or zero-token fallback")
-    if launches != want:
-        raise AssertionError(f"block launches {launches}, want {want}")
+    if launches != want or stray:
+        raise AssertionError(f"block launches {launches} (other precision "
+                             f"{stray}), want {want}")
 
     # the engine the CLI ran, on the plain block functions, and the fp32 model
     inference = QFormerInference(
         config=cfg, params=model.state_dict(), field_names=fields,
-        device="cuda", batch_size=SWEEP_BATCH, use_fused=True)
-    empty = np.flatnonzero(masks.sum(1) == 0)  # every item without fields
-    sample = np.sort(np.concatenate([
-        empty, rng.choice(np.setdiff1d(np.arange(n), empty),
-                          SWEEP_SAMPLE - len(empty), replace=False)]))
+        device="cuda", batch_size=SWEEP_BATCH, use_fused=True,
+        precision=precision)
     emb_s = torch.from_numpy(emb[sample]).cuda()
     mask_s = torch.from_numpy(masks[sample]).cuda()
     got = torch.from_numpy(np.stack([tokens[ids[j]] for j in sample])).cuda()
+    # the plain engine's own sensitivity: field 0 of every item one bf16 ulp
+    # away (the engine casts the fields to bf16)
+    nudged = emb_s.clone()
+    e16 = nudged[:, 0, 0].bfloat16()
+    nudged[:, 0, 0] = (e16.view(torch.int16) + 1).view(torch.bfloat16).float()
     with torch.inference_mode():
         plain = fused_qformer_forward(inference.fused_params, cfg, emb_s,
                                       mask_s, plain=True)
+        plain_nudged = fused_qformer_forward(inference.fused_params, cfg,
+                                             nudged, mask_s, plain=True)
         ref32 = model.query_outputs(emb_s, mask_s)
     plain_err = (got - plain.float()).abs().max().item()
     plain_cos = token_cosines(got, plain).min().item()
+    floor_cos = token_cosines(plain, plain_nudged).min().item()
     cos32 = token_cosines(got, ref32)
-    log(f"sweep tokens on {len(sample)} sampled items ({len(empty)} without "
-        f"fields): vs "
-        f"the engine on plain blocks max|d| {plain_err:.3e}, min token cosine "
-        f"{plain_cos:.7f} (tol {SWEEP_PLAIN_ATOL:g} / {SWEEP_PLAIN_COS}); vs "
-        f"the fp32 "
-        f"ItemQFormer min token cosine {cos32.min().item():.6f}, mean "
-        f"{cos32.mean().item():.6f} (tol {SWEEP_FP32_COS})")
-    if not (plain_err <= SWEEP_PLAIN_ATOL and plain_cos >= SWEEP_PLAIN_COS):
+    atol, min_cos = ((SWEEP_PLAIN_ATOL, SWEEP_PLAIN_COS) if precision == "bf16"
+                     else (float("inf"), SWEEP_PLAIN_COS_INT8))
+    log(f"sweep tokens {precision} on {len(sample)} sampled items ({n_empty} "
+        f"without fields): vs the engine on plain blocks max|d| "
+        f"{plain_err:.3e}, min token cosine {plain_cos:.7f} (tol "
+        f"{atol:g} / {min_cos}; the plain engine against itself one input "
+        f"ulp away: {floor_cos:.7f}); vs the fp32 ItemQFormer min token "
+        f"cosine {cos32.min().item():.6f}, mean {cos32.mean().item():.6f} "
+        f"(tol {SWEEP_FP32_COS})")
+    if not (plain_err <= atol and plain_cos >= min_cos):
         raise AssertionError("sweep tokens disagree with the plain engine")
     if not cos32.min().item() >= SWEEP_FP32_COS:
-        raise AssertionError("sweep tokens fail the bf16 quality gate")
-    del model, ref32, plain
+        raise AssertionError(f"sweep tokens fail the {precision} quality gate")
+    del ref32, plain, plain_nudged
 
     # throughput with inputs resident on the device, as bench.py measures
     emb_d = torch.from_numpy(emb[:SWEEP_BATCH]).cuda()
@@ -638,23 +851,26 @@ def phase_sweep(smi: str) -> dict:
         return sorted(rates)
 
     torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
     fused = rate(lambda: inference.forward(emb_d, mask_d), 5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with torch.inference_mode():
         plain_rates = rate(lambda: fused_qformer_forward(
             inference.fused_params, cfg, emb_d, mask_d, plain=True), 1)
     gflop = flops_per_item(cfg) / 1e9
-    log(f"[{smi}] query_tokens_from_embeddings engine, batch {SWEEP_BATCH} "
-        f"resident on the device: median {fused[1]:.1f} items/s (min "
-        f"{fused[0]:.1f}, max {fused[2]:.1f}; 3 repeats of 5 synced batches) "
-        f"= {fused[1] * gflop / 1e3:.1f} TFLOP/s at {gflop:.3f} GFLOP/item; "
-        f"peak device memory {peak_gb:.2f} GB (max_memory_allocated, "
-        f"weights included)")
-    log(f"[{smi}] plain engine (plain block functions), same inputs: median "
-        f"{plain_rates[1]:.1f} items/s (min {plain_rates[0]:.1f}, max "
-        f"{plain_rates[2]:.1f})")
-    log(f"[{smi}] sweep CLI end to end: {n / cli_s:.1f} items/s over {n} "
-        f"items (one run)")
+    log(f"[{smi}] {precision} query_tokens_from_embeddings engine, batch "
+        f"{SWEEP_BATCH} resident on the device: median {fused[1]:.1f} items/s "
+        f"(min {fused[0]:.1f}, max {fused[2]:.1f}; 3 repeats of 5 synced "
+        f"batches) = {fused[1] * gflop / 1e3:.1f} TFLOP/s at {gflop:.3f} "
+        f"GFLOP/item; peak device memory {peak_gb:.2f} GB "
+        f"(max_memory_allocated, weights included; {before_gb:.2f} GB was "
+        f"allocated before the engine ran: the engine's weights, the fp32 "
+        f"model and the inputs)")
+    log(f"[{smi}] {precision} plain engine (plain block functions), same "
+        f"inputs: median {plain_rates[1]:.1f} items/s (min "
+        f"{plain_rates[0]:.1f}, max {plain_rates[2]:.1f})")
+    log(f"[{smi}] {precision} sweep CLI end to end: {n / cli_s:.1f} items/s "
+        f"over {n} items (one run)")
 
     # one CLI batch step by step: host gather, copy in, forward, copy out
     cache = FieldEmbeddingCache(emb, masks, fields, ids)
@@ -674,7 +890,7 @@ def phase_sweep(smi: str) -> dict:
         t4 = time.perf_counter()
         steps = {"gather": t1 - t0, "to_device": t2 - t1, "forward": t3 - t2,
                  "to_host": t4 - t3}
-    log(f"[{smi}] one CLI batch of {SWEEP_BATCH} by step (ms): "
+    log(f"[{smi}] {precision}: one CLI batch of {SWEEP_BATCH} by step (ms): "
         + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in steps.items()))
 
     with torch.profiler.profile(activities=[
@@ -684,13 +900,14 @@ def phase_sweep(smi: str) -> dict:
         torch.cuda.synchronize()
     rows = device_time_by_kernel(prof)
     total = sum(t for _, t in rows)
-    log(f"[{smi}] one engine batch of {SWEEP_BATCH} under torch.profiler: "
-        f"{total:.2f} ms of device time in {len(rows)} kernels"
+    log(f"[{smi}] {precision}: one engine batch of {SWEEP_BATCH} under "
+        f"torch.profiler: {total:.2f} ms of device time in {len(rows)} kernels"
         + ("" if rows else " (no device rows: breakdown not measured)"))
     for name, t in rows[:12]:
         log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+    del inference
+    torch.cuda.empty_cache()
     return {"launches": launches}
-
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -725,12 +942,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_times = phase_k1(gen)
     k2_times = phase_k2(gen)
-    blocks = phase_blocks(gen)
+    b11_times = phase_b11(gen)
+    blocks = phase_blocks(gen, "bf16")
+    for key, err in phase_wide_k(gen).items():
+        blocks[key]["err"] = max(blocks[key]["err"], err)
+    blocks.update(phase_blocks(gen, "int8"))
     served = phase_serve(smi)
+    gc.collect()  # the serving stacks, before the sweep's memory is read
+    torch.cuda.empty_cache()
     swept = phase_sweep(smi)
+    sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
     k1_ms, k1_plain = k1_times[torch.bfloat16]
     k2_ms, k2_plain = k2_times[BATCH]
+    b11_ms, b11_plain = b11_times[BATCH]
     log(json.dumps({"kernels": [
         {"name": "flash_causal_fwd", "route": "cuda",
          "source": "unirec_tpu_torch/csrc/flash_causal_fwd.cu",
@@ -742,16 +967,26 @@ def main() -> int:
          "replaces": "unirec_tpu/ops/ranking.py:118",
          "launches": served["launches"]["k2"],
          "max_abs_err": served["k2_err"], "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "retrieve_topk_int8", "route": "cuda",
+         "source": "unirec_tpu_torch/csrc/retrieve_topk.cu",
+         "replaces": "unirec_tpu/ops/quantization.py:78",
+         "launches": served["launches"]["b11"],
+         "max_abs_err": served["b11_err"], "ms": b11_ms,
+         "plain_ms": b11_plain},
     ] + [
         {"name": name, "route": "cuda",
          "source": "unirec_tpu_torch/csrc/qformer_blocks.cu",
-         "replaces": f"unirec_tpu/ops/fused_qformer_layer.py:{line}",
-         "launches": swept["launches"][key],
+         "replaces": f"unirec_tpu/ops/{src}:{line}",
+         "launches": sweep_launches[key],
          "max_abs_err": blocks[key]["err"], "ms": blocks[key]["ms"],
          "plain_ms": blocks[key]["plain_ms"]}
-        for key, name, line in (("b1", "qformer_self_block", 119),
-                                ("b2", "qformer_cross_block", 174),
-                                ("b3", "qformer_ffn_block", 421))
+        for key, name, src, line in (
+            ("b1", "qformer_self_block", "fused_qformer_layer.py", 119),
+            ("b2", "qformer_cross_block", "fused_qformer_layer.py", 174),
+            ("b3", "qformer_ffn_block", "fused_qformer_layer.py", 421),
+            ("b4", "qformer_self_block_q", "fused_qformer_int8.py", 90),
+            ("b5", "qformer_cross_block_q", "fused_qformer_int8.py", 140),
+            ("b6", "qformer_ffn_block_q", "fused_qformer_int8.py", 193))
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

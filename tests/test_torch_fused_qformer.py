@@ -248,19 +248,34 @@ def test_prepare_fused_params_packing(setup):
     np.testing.assert_array_equal(
         pp.query_embeddings.float().numpy(),
         np.asarray(jp.query_embeddings.astype(jnp.float32)))
-    with pytest.raises(NotImplementedError, match="B4-B6"):
-        prepare_fused_params(sd, cfg, precision="int8")
+    assert not pp.layers[0].is_int8 and pp.layers[0].sqkv is None
+    q8 = prepare_fused_params(sd, cfg, precision="int8")  # B4-B6's weights
+    assert q8.layers[0].is_int8 and q8.layers[0].wqkv.dtype == torch.int8
+    assert q8.layers[0].sqkv.shape == (3 * 64,)
+    with pytest.raises(ValueError, match="precision"):
+        prepare_fused_params(sd, cfg, precision="fp8")
 
 
 @pytest.mark.parametrize("args", [
     ({"D": 1024, "intermediate": 4100},),  # a 16-byte row is 8 bf16 values
     ({"D": 1024}, 256, 32),  # head_dim above 128
-    ({"D": 1024}, 64, 128),  # K = 128 rows per item
+    ({"D": 1024}, 64, 512),  # K = 512 rows per item
 ], ids=["width", "head_dim", "rows"])
 def test_kernel_limits_are_refused(args):
     fq._check_kernel_dims("block", {"D": 1024, "intermediate": 4096})
     with pytest.raises(ValueError):
         fq._check_kernel_dims("block", *args)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_kernel_takes_every_k_that_supports_fused_admits(head_dim):
+    """The attention kernel tiles the query rows and holds keys and values
+    as bf16, so every K dividing 256 fits (up to 256 rows per item)."""
+    for k in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        assert supports_fused(ItemQFormerConfig(num_query_tokens=k))
+        fq._check_kernel_dims("block", {"D": 16 * head_dim}, head_dim, k)
+    with pytest.raises(ValueError, match="rows per item"):
+        fq._check_kernel_dims("block", {"D": 16 * head_dim}, head_dim, 257)
 
 
 def test_other_devices_are_refused():

@@ -76,3 +76,45 @@ def test_cpu_wrappers_use_plain_versions():
         assert fn.launches == 0, fn.__name__
     # nothing was compiled or loaded for CPU tensors
     assert _build.load_kernels.cache_info().currsize == 0
+
+
+def test_cpu_int8_wrappers_use_plain_versions():
+    from unirec_tpu_torch.ops import _build
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops.quantization import (
+        quantize_rows,
+        retrieve_top_k_int8,
+    )
+
+    wrappers = (pq.fused_self_attention_block_q,
+                pq.fused_cross_attention_block_q, pq.fused_ffn_block_q,
+                retrieve_top_k_int8)
+    for fn in wrappers:
+        fn.launches = 0
+    gen = torch.Generator().manual_seed(0)
+    d, k, f, dm, inter = 16, 4, 3, 16, 128
+
+    def q(*shape):  # (int8 weight [out, in], float32 scales [out])
+        return pq.quantize_weight(torch.randn(*shape, generator=gen))
+
+    def v(n):
+        return torch.randn(n, generator=gen)
+
+    x = torch.randn(2, k, d, generator=gen).bfloat16()
+    y1 = pq.fused_self_attention_block_q(x, *q(3 * d, d), v(3 * d), *q(d, d),
+                                         v(d), v(d), v(d), num_heads=2, n_q=k)
+    y2 = pq.fused_cross_attention_block_q(
+        x, torch.randn(2, f, dm, generator=gen).bfloat16(), torch.zeros(2, f),
+        *q(d, d), v(d), *q(2 * d, dm), v(2 * d), *q(d, d), v(d), v(d), v(d),
+        num_heads=2, n_q=k, n_kv=f)
+    y3 = pq.fused_ffn_block_q(x, *q(inter, d), v(inter), *q(d, inter), v(d),
+                              v(d), v(d))
+    assert all(y.shape == x.shape and y.dtype == torch.bfloat16
+               for y in (y1, y2, y3))
+    codes, scales = quantize_rows(torch.randn(50, 16, generator=gen))
+    s, i = retrieve_top_k_int8(torch.randn(3, 16, generator=gen), codes,
+                               scales, k=5)
+    assert s.shape == i.shape == (3, 5)
+    for fn in wrappers:
+        assert fn.launches == 0, fn.__name__
+    assert _build.load_kernels.cache_info().currsize == 0

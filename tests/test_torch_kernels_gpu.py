@@ -7,22 +7,30 @@ CUDA device of compute capability 9.0 is present.  Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q`` (the
 card's machine has no JAX, which ``tests/conftest.py`` imports).
 
-B1-B3 (bf16 in, bf16 out) are held to their plain versions on the same bf16
+B1-B6 (bf16 in, bf16 out) are held to their plain versions on the same bf16
 inputs, compared in fp32: max |diff| <= 5e-2 on the unit-scale LayerNorm
 outputs (a few bf16 ulps: the kernel and the plain version sum in different
 orders, which can flip a bf16 rounding of qkv, probabilities, ctx or the gelu
-output) and per-row cosine >= 0.9999.
+output, and in B4-B6 through it one int8 code) and per-row cosine >= 0.9999.
+B11 is held as K2: scores within 1e-5, ids equal except near-ties.
 """
 
 import pytest
 import torch
 
+from unirec_tpu_torch.ops import fused_qformer_int8 as pq
 from unirec_tpu_torch.ops import fused_qformer_layer as fq
 from unirec_tpu_torch.ops.flash_causal import (
     flash_causal_attention,
     flash_causal_attention_plain,
 )
 from unirec_tpu_torch.ops.losses import l2_normalize
+from unirec_tpu_torch.ops.quantization import (
+    quantize_rows,
+    quantized_scores,
+    quantized_top_k,
+    retrieve_top_k_int8,
+)
 from unirec_tpu_torch.ops.ranking import retrieve_top_k, top_k_items
 
 pytestmark = pytest.mark.gpu
@@ -163,3 +171,104 @@ def test_blocks_refuse_fp32_on_the_card(hopper):
     with pytest.raises(TypeError):
         fq.fused_self_attention_block(x, w, v, w[:D], d, d, d,
                                       num_heads=HEADS, n_q=K)
+
+
+@pytest.mark.parametrize("n_q", [128, 256])
+def test_b1_b2_take_k_up_to_256(hopper, n_q):
+    """The repaired attention kernel: K=128 and 256 query rows per item
+    (query tiles of 64, keys and values as bf16 in shared memory)."""
+    g, items = hopper, 64
+    x = _rand(g, items, n_q, D)
+    sw = dict(wqkv=_rand(g, 3 * D, D, std=0.03), bqkv=_vec(g, 3 * D),
+              wo=_rand(g, D, D, std=0.03), bo=_vec(g, D),
+              ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    out = fq.fused_self_attention_block(x, **sw, num_heads=HEADS, n_q=n_q)
+    torch.cuda.synchronize()
+    _check_block(out, fq.fused_self_attention_block_plain(
+        x, **sw, num_heads=HEADS, n_q=n_q))
+    mask = _missing_mask(g, items)
+    mem = _rand(g, items, F, D) * mask[..., None].bfloat16()
+    key_bias = ((1.0 - mask) * fq.NEG_INF).contiguous()
+    cw = dict(wq=_rand(g, D, D, std=0.03), bq=_vec(g, D),
+              wkv=_rand(g, 2 * D, D, std=0.03), bkv=_vec(g, 2 * D),
+              wo=_rand(g, D, D, std=0.03), bo=_vec(g, D),
+              ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    kw = dict(num_heads=HEADS, n_q=n_q, n_kv=F)
+    out = fq.fused_cross_attention_block(x, mem, key_bias, **cw, **kw)
+    torch.cuda.synchronize()
+    _check_block(out, fq.fused_cross_attention_block_plain(
+        x, mem, key_bias, **cw, **kw))
+
+
+# -- B4-B6: the W8A8 blocks -----------------------------------------------------
+
+
+def _q(gen, *shape, std):
+    """(int8 [out, in], float32 [out]) from a bf16-rounded random weight."""
+    return pq.quantize_weight(_rand(gen, *shape, std=std))
+
+
+def _int8_weights(g):
+    sw = dict(zip(("wqkv", "sqkv"), _q(g, 3 * D, D, std=0.03)))
+    sw.update(zip(("wo", "so"), _q(g, D, D, std=0.03)))
+    sw.update(bqkv=_vec(g, 3 * D), bo=_vec(g, D), ln_gamma=_vec(g, D, 1.0),
+              ln_beta=_vec(g, D))
+    cw = dict(zip(("wq", "sq"), _q(g, D, D, std=0.03)))
+    cw.update(zip(("wkv", "skv"), _q(g, 2 * D, D, std=0.03)))
+    cw.update(zip(("wo", "so"), _q(g, D, D, std=0.03)))
+    cw.update(bq=_vec(g, D), bkv=_vec(g, 2 * D), bo=_vec(g, D),
+              ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    fw = dict(zip(("w1", "s1"), _q(g, INTER, D, std=0.03)))
+    fw.update(zip(("w2", "s2"), _q(g, D, INTER, std=0.02)))
+    fw.update(b1=_vec(g, INTER), b2=_vec(g, D), ln_gamma=_vec(g, D, 1.0),
+              ln_beta=_vec(g, D))
+    return sw, cw, fw
+
+
+@pytest.mark.parametrize("items", [1001, 4096])
+def test_b4_b5_b6_match_plain(hopper, items):
+    g = hopper
+    x = _rand(g, items, K, D)
+    mask = _missing_mask(g, items)
+    mem = _rand(g, items, F, D) * mask[..., None].bfloat16()
+    key_bias = ((1.0 - mask) * fq.NEG_INF).contiguous()
+    sw, cw, fw = _int8_weights(g)
+    sk = dict(num_heads=HEADS, n_q=K)
+    ck = dict(num_heads=HEADS, n_q=K, n_kv=F)
+    runs = [
+        (pq.fused_self_attention_block_q, pq.fused_self_attention_block_q_plain,
+         (x,), sw, sk),
+        (pq.fused_self_attention_block_q, pq.fused_self_attention_block_q_plain,
+         (x[:1].contiguous(),), sw, sk),  # layer 0: one item
+        (pq.fused_cross_attention_block_q,
+         pq.fused_cross_attention_block_q_plain, (x, mem, key_bias), cw, ck),
+        (pq.fused_ffn_block_q, pq.fused_ffn_block_q_plain, (x,), fw, {}),
+    ]
+    for kern, plain, args, w, kw in runs:
+        before = kern.launches
+        out = kern(*args, **w, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        _check_block(out, plain(*args, **w, **kw))
+    empty = int(torch.nonzero(mask.sum(1) == 0)[0])
+    alone = pq.fused_cross_attention_block_q(
+        x[empty:empty + 1], mem[empty:empty + 1],
+        key_bias[empty:empty + 1].contiguous(), **cw, **ck)
+    full = pq.fused_cross_attention_block_q(x, mem, key_bias, **cw, **ck)
+    assert torch.equal(alone[0], full[empty])
+
+
+@pytest.mark.parametrize("n_users", [8, 64])
+def test_b11_matches_plain(hopper, n_users):
+    catalog = torch.randn(20_000, 1024, device="cuda", generator=hopper)
+    codes, scales = quantize_rows(catalog)
+    users = torch.randn(n_users, 1024, device="cuda", generator=hopper)
+    before = retrieve_top_k_int8.launches
+    s, i = retrieve_top_k_int8(users, codes, scales, k=20)
+    torch.cuda.synchronize()
+    assert retrieve_top_k_int8.launches == before + 1
+    s_ref, i_ref = quantized_top_k(users, codes, scales, k=20)
+    assert (s - s_ref).abs().max() <= 1e-5
+    full = quantized_scores(users, codes, scales)
+    diff = i != i_ref  # only near-ties (< 1e-6 apart) may swap
+    assert ((full.gather(1, i) - s_ref)[diff].abs() < 1e-6).all()

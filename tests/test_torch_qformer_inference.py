@@ -139,8 +139,8 @@ def test_reference_pth_loads(setup, tmp_path):
 
 def test_precision_and_mesh_are_refused(setup):
     _, sd, _, _ = setup
-    with pytest.raises(NotImplementedError, match="B4-B6"):
-        _port(sd, precision="int8")
+    q8 = _port(sd, precision="int8")  # the W8A8 engine, even on the CPU
+    assert q8.use_fused and q8.fused_params.layers[0].is_int8
     with pytest.raises(NotImplementedError, match="dp"):
         _port(sd, mesh=object())
     with pytest.raises(ValueError):
@@ -259,9 +259,32 @@ def test_cli_compare_trace_and_device_check(tiny_sweep, capsys):
                                              else 1)
 
 
-@pytest.mark.parametrize("extra", [["--precision", "int8"], ["--dp", "2"],
-                                   ["--data", "items.json"], []],
-                         ids=["int8", "dp2", "data-without-cache", "no-ckpt"])
+def test_cli_int8_sweep(tiny_sweep):
+    """--precision int8: every item gets the W8A8 engine's tokens, none takes
+    a fallback."""
+    tmp, argv, _ = tiny_sweep
+    out, prog = str(tmp / "tok8.pkl"), str(tmp / "progress.json")
+    rc = cli.main(argv + ["--precision", "int8", "--output", out,
+                          "--batch-size", "8", "--progress-file", prog])
+    assert rc == 0
+    with open(out, "rb") as f:
+        tokens = pickle.load(f)
+    with open(prog) as f:
+        progress = json.load(f)
+    assert progress["done"] == 20 and progress["fallback_items"] == 0
+    cache = FieldEmbeddingCache.load(str(tmp / "cache"))
+    emb, mask = cache.gather(cache.item_ids)
+    sd = load_checkpoint(str(tmp / "ckpt"))[0]
+    want = _port(sd, precision="int8").query_tokens_from_embeddings(emb, mask)
+    assert sorted(tokens) == sorted(cache.item_ids)
+    for j, iid in enumerate(cache.item_ids):
+        assert np.isfinite(tokens[iid]).all()
+        np.testing.assert_array_equal(tokens[iid], want[j])
+
+
+@pytest.mark.parametrize("extra", [["--dp", "2"], ["--data", "items.json"],
+                                   []],
+                         ids=["dp2", "data-without-cache", "no-ckpt"])
 def test_cli_refuses_what_is_not_ported(tiny_sweep, extra):
     tmp, argv, _ = tiny_sweep
     if extra == ["--data", "items.json"]:

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from unirec_tpu.data.cache import FieldEmbeddingCache
 from unirec_tpu.data.tokenizer import HashTokenizer as JaxHashTokenizer
@@ -76,6 +77,30 @@ def test_recommend_matches_jax(recommenders):
     want = jrec.recommend(HISTORIES, k=5)
     got = prec.recommend(HISTORIES, k=5)
     assert len(got) == len(HISTORIES)
+    for w, g, h in zip(want, got, HISTORIES):
+        assert [r.item_id for r in g] == [r.item_id for r in w]
+        np.testing.assert_allclose([r.score for r in g],
+                                   [r.score for r in w], atol=1e-5, rtol=0)
+        assert len(g) == 5 and not {r.item_id for r in g} & set(h)
+
+
+def test_recommend_quantized_catalog_matches_jax(fixture_data, recommenders):
+    """quantize_catalog=True on both sides: ranking over the int8 catalog
+    (B11's plain path here) gives the JAX recommender's ids and scores."""
+    cache, catalog, item_dict, jm, params = fixture_data
+    jtok = JaxHashTokenizer(QWEN.vocab_size, JC.num_history_items,
+                            JC.num_query_tokens_per_item)
+    jrec = JaxRecommender(jm, {"params": params["params"]}, jtok,
+                          dict(item_dict), cache, catalog, batch_size=4,
+                          quantize_catalog=True)
+    _, prec = recommenders
+    qrec = Recommender(prec.model, prec.tokenizer, dict(item_dict), cache,
+                       catalog, batch_size=4, quantize_catalog=True)
+    assert qrec.quantized and qrec._catalog_q.dtype == torch.int8
+    np.testing.assert_array_equal(qrec._catalog_q.numpy(),
+                                  np.asarray(jrec._catalog_q))
+    want = jrec.recommend(HISTORIES, k=5)
+    got = qrec.recommend(HISTORIES, k=5)
     for w, g, h in zip(want, got, HISTORIES):
         assert [r.item_id for r in g] == [r.item_id for r in w]
         np.testing.assert_allclose([r.score for r in g],

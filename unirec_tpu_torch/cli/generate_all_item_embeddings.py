@@ -6,17 +6,18 @@
 
 Same flags as the JAX CLI.  It sweeps a precomputed field-embedding cache
 (``--cache-dir``) through ``QFormerInference`` on one device, the fused
-engine with kernels B1-B3 on a CUDA card.  ``--checkpoint`` is a checkpoint
-directory of ``utils/checkpoint.py`` or a reference ``.pth``.
+engine with kernels B1-B3 on a CUDA card, or with the W8A8 kernels B4-B6
+under ``--precision int8`` (which takes the fused engine on any device).
+``--checkpoint`` is a checkpoint directory of ``utils/checkpoint.py`` or a
+reference ``.pth``.
 
 An OOM-shaped failure halves the batch (sticky) and retries; any other
 failure of a batch falls back to per-item processing, and a failed item gets
 zero tokens.  The number of items that took either fallback is printed and
 written to the progress file as ``fallback_items``.
 
-Not ported yet, refused with an error: ``--precision int8`` (kernels B4-B6),
-``--dp`` above 1, and ``--data`` without a cache (it needs the item
-encoders).
+Not ported yet, refused with an error: ``--dp`` above 1, and ``--data``
+without a cache (it needs the item encoders).
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def parse_args(argv=None):
     p.add_argument("--check-devices", action="store_true")
     p.add_argument("--progress-file", default=None)
     p.add_argument("--precision", default="bf16", choices=["bf16", "int8"],
-                   help="int8 (W8A8 kernels) is not ported yet")
+                   help="bf16, or int8 for the W8A8 fused engine")
     return p.parse_args(argv)
 
 
@@ -73,9 +74,6 @@ def _fail(msg: str) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.precision == "int8":
-        return _fail("--precision int8 needs the W8A8 kernels B4-B6, which "
-                     "are not ported yet")
     if args.dp > 1:
         return _fail("--dp > 1 (the data-parallel sweep) is not ported yet")
 

@@ -1,4 +1,5 @@
-// The bf16 Item Q-Former blocks of the item-token sweep, for Hopper (sm_90a).
+// The Item Q-Former blocks of the item-token sweep, bf16 and W8A8, for
+// Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of unirec_tpu/ops/fused_qformer_layer.py:
 //   B1  fused_self_attention_block  (_self_block_kernel)
@@ -8,6 +9,11 @@
 //       over its own F field rows, additive key bias 0 / -1e9 per field
 //   B3  fused_ffn_block             (_ffn_kernel)
 //       y = LN(x + W2 . gelu_tanh(W1 . x + b1) + b2)
+// and their W8A8 forms in unirec_tpu/ops/fused_qformer_int8.py:
+//   B4  fused_self_attention_block_q  (_self_block_kernel_q)
+//   B5  fused_cross_attention_block_q (_cross_block_kernel_q)
+//   B6  fused_ffn_block_q             (_ffn_kernel_q)
+// (int8 projections with int32 sums; see the W8A8 section below).
 //
 // What bounds them: the projections.  At the production shape (hidden 1024,
 // 16 heads of 64, K=32 queries, F=14 fields, intermediate 4096) an item costs
@@ -25,8 +31,10 @@
 //     and K edges are zero-filled on load and masked on store.  Epilogues:
 //     +bias -> bf16 (QKV, Q, KV), +bias -> tanh gelu in fp32 -> bf16 (FFN
 //     up), +bias +residual -> fp32 (Wo, FFN down).
-//   * item_attention_kernel: one block per (item, head).  q (times the scale,
-//     rounded to bf16), k and v of that head sit in shared memory as fp32;
+//   * item_attention_kernel: one block per (item, head, tile of up to 64
+//     query rows), up to 256 query and key rows per item.  q (times the
+//     scale, rounded to bf16) sits in shared memory as fp32, k and v of the
+//     item's head as bf16, so that K=256 fits at head dim 128;
 //     scores and softmax in fp32 with the additive key bias (never skipped:
 //     an item whose fields are all missing gets the uniform average of its
 //     own value rows, as the JAX path does); unnormalised probabilities are
@@ -41,6 +49,14 @@
 // (268 MB), kv [57,344, 2048] bf16 (235 MB), ctx and the pre-LN sum; B3 the
 // gelu output [rows, 4096] bf16 (1.07 GB) and the pre-LN sum.  Keeping them
 // on the SM (wgmma, TMA, fused epilogues) is later work.
+//
+// W8A8 blocks: the same pipeline with an int8 GEMM (mma.sync m16n8k32 s8,
+// twice the bf16 rate) and a row-quantization pass before each GEMM.  The
+// int8 FFN spills more than B3: its gelu output h stays fp32, as the JAX
+// kernel keeps it, and is requantized per row within each intermediate
+// chunk (the whole 4096 at production), so h [rows, 4096] fp32 (2.15 GB at
+// 4096 items) and its codes (0.54 GB) go through HBM; the down projection
+// folds its int32 sums into fp32 at every chunk boundary.
 //
 // Every C entry launches on the caller's stream, allocates nothing, and
 // returns the first CUDA error (0 = success).
@@ -247,56 +263,77 @@ cudaError_t gemm(const void* A, const void* W, const float* bias, const void* re
 // ----------------------------------------------------------- attention ----
 
 constexpr int ATT_THREADS = 128;
-constexpr int MAX_ROWS = 64;     // queries (K) and keys (K or F) per item
+constexpr int MAX_ROWS = 256;    // queries (K) and keys (K or F) per item
 constexpr int MAX_HEAD_DIM = 128;
+constexpr int MAX_ATT_TILE = 64;  // query rows per block
+constexpr int SMEM_OPT_IN = 232448;  // what a block may use on sm_90 (227 KB)
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// One block per (item, head).  q rows: item*nq + i at q + row*q_stride + h*hd;
-// k / v rows: item*nkv + j at kv + row*kv_stride + {k_off, v_off} + h*hd.
+// bf16 row pitch of K and V in shared memory: even, and an odd number of
+// 4-byte words, so that threads on neighbouring key rows hit different banks
+__host__ __device__ __forceinline__ int kv_pitch(int hd) {
+  int words = (hd + 1) / 2;
+  if (words % 2 == 0) ++words;
+  return 2 * words;
+}
+
+__host__ __device__ __forceinline__ int attention_smem(int qt, int nkv, int hd) {
+  return (int)sizeof(float) * (qt * (hd + 1) + qt * (nkv + 1) + qt) +
+         (int)sizeof(bf16) * 2 * nkv * kv_pitch(hd);
+}
+
+// One block per (item, head, tile of up to MAX_ATT_TILE query rows).  q rows:
+// item*nq + i at q + row*q_stride + h*hd; k / v rows: item*nkv + j at
+// kv + row*kv_stride + {k_off, v_off} + h*hd.  The item's keys and values sit
+// in shared memory as the bf16 values they are, so that 256 keys of head dim
+// 128 fit beside a 64-row query tile; tiling the queries changes no sum.
 __global__ void __launch_bounds__(ATT_THREADS)
 item_attention_kernel(const bf16* __restrict__ q, int q_stride, const bf16* __restrict__ kv,
                       int kv_stride, int k_off, int v_off, const float* __restrict__ key_bias,
-                      bf16* __restrict__ ctx, int ctx_stride, int nq, int nkv, int hd,
+                      bf16* __restrict__ ctx, int ctx_stride, int nq, int nkv, int hd, int qt,
                       float scale) {
   extern __shared__ float sm[];
   const int hs = hd + 1;   // padded rows: conflict-free column walks
   const int ss = nkv + 1;
-  float* Qs = sm;                // [nq][hs]
-  float* Ks = Qs + nq * hs;      // [nkv][hs]
-  float* Vs = Ks + nkv * hs;     // [nkv][hs]
-  float* S = Vs + nkv * hs;      // [nq][ss] scores, then bf16-rounded exp
-  float* inv = S + nq * ss;      // [nq] 1 / row sum
+  const int kp = kv_pitch(hd);
+  float* Qs = sm;                // [qt][hs]
+  float* S = Qs + qt * hs;       // [qt][ss] scores, then bf16-rounded exp
+  float* inv = S + qt * ss;      // [qt] 1 / row sum
+  bf16* Ks = reinterpret_cast<bf16*>(inv + qt);  // [nkv][kp]
+  bf16* Vs = Ks + nkv * kp;                      // [nkv][kp]
   const int item = blockIdx.x;
   const int col0 = blockIdx.y * hd;
+  const int i0 = blockIdx.z * qt;
+  const int rows = min(qt, nq - i0);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  for (int e = tid; e < nq * hd; e += ATT_THREADS) {
+  for (int e = tid; e < rows * hd; e += ATT_THREADS) {
     const int i = e / hd, d = e - i * hd;
-    const float v = __bfloat162float(q[(size_t)(item * nq + i) * q_stride + col0 + d]);
+    const float v = __bfloat162float(q[(size_t)(item * nq + i0 + i) * q_stride + col0 + d]);
     Qs[i * hs + d] = round_bf16(v * scale);  // q * scale in the input dtype
   }
   for (int e = tid; e < nkv * hd; e += ATT_THREADS) {
     const int j = e / hd, d = e - j * hd;
     const size_t base = (size_t)(item * nkv + j) * kv_stride + col0 + d;
-    Ks[j * hs + d] = __bfloat162float(kv[base + k_off]);
-    Vs[j * hs + d] = __bfloat162float(kv[base + v_off]);
+    Ks[j * kp + d] = kv[base + k_off];
+    Vs[j * kp + d] = kv[base + v_off];
   }
   __syncthreads();
 
-  for (int e = tid; e < nq * nkv; e += ATT_THREADS) {
+  for (int e = tid; e < rows * nkv; e += ATT_THREADS) {
     const int i = e / nkv, j = e - i * nkv;
     float s = 0.f;
-    for (int d = 0; d < hd; ++d) s = fmaf(Qs[i * hs + d], Ks[j * hs + d], s);
+    for (int d = 0; d < hd; ++d) s = fmaf(Qs[i * hs + d], __bfloat162float(Ks[j * kp + d]), s);
     S[i * ss + j] = s + (key_bias != nullptr ? key_bias[(size_t)item * nkv + j] : 0.f);
   }
   __syncthreads();
 
-  for (int i = warp; i < nq; i += ATT_THREADS / 32) {
+  for (int i = warp; i < rows; i += ATT_THREADS / 32) {
     float m = -INFINITY;
     for (int j = lane; j < nkv; j += 32) m = fmaxf(m, S[i * ss + j]);
 #pragma unroll
@@ -313,26 +350,28 @@ item_attention_kernel(const bf16* __restrict__ q, int q_stride, const bf16* __re
   }
   __syncthreads();
 
-  for (int e = tid; e < nq * hd; e += ATT_THREADS) {
+  for (int e = tid; e < rows * hd; e += ATT_THREADS) {
     const int i = e / hd, d = e - i * hd;
     float c = 0.f;
-    for (int j = 0; j < nkv; ++j) c = fmaf(S[i * ss + j], Vs[j * hs + d], c);
-    ctx[(size_t)(item * nq + i) * ctx_stride + col0 + d] = __float2bfloat16(c * inv[i]);
+    for (int j = 0; j < nkv; ++j) c = fmaf(S[i * ss + j], __bfloat162float(Vs[j * kp + d]), c);
+    ctx[(size_t)(item * nq + i0 + i) * ctx_stride + col0 + d] = __float2bfloat16(c * inv[i]);
   }
 }
 
 cudaError_t attention(const void* q, int q_stride, const void* kv, int kv_stride, int k_off,
                       int v_off, const float* key_bias, void* ctx, int ctx_stride, int items,
                       int heads, int nq, int nkv, int hd, float scale, cudaStream_t stream) {
-  const int hs = hd + 1;
-  const int bytes = (int)sizeof(float) * (nq * hs + 2 * nkv * hs + nq * (nkv + 1) + nq);
+  int qt = min(nq, MAX_ATT_TILE);
+  while (qt > 1 && attention_smem(qt, nkv, hd) > SMEM_OPT_IN) qt = (qt + 1) / 2;
+  const int bytes = attention_smem(qt, nkv, hd);
+  if (bytes > SMEM_OPT_IN) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       item_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(items, heads);
+  const dim3 grid(items, heads, (nq + qt - 1) / qt);
   item_attention_kernel<<<grid, ATT_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), q_stride, static_cast<const bf16*>(kv), kv_stride, k_off,
-      v_off, key_bias, static_cast<bf16*>(ctx), ctx_stride, nq, nkv, hd, scale);
+      v_off, key_bias, static_cast<bf16*>(ctx), ctx_stride, nq, nkv, hd, qt, scale);
   return cudaGetLastError();
 }
 
@@ -385,6 +424,265 @@ bool attention_shape_ok(int items, int heads, int nq, int nkv, int d) {
   return items > 0 && items <= 2147483647 / MAX_ROWS && heads > 0 && heads <= 65535 &&
          d % heads == 0 && d / heads <= MAX_HEAD_DIM && nq > 0 && nq <= MAX_ROWS &&
          nkv > 0 && nkv <= MAX_ROWS;
+}
+
+// ------------------------------------------------------ W8A8 (B4-B6) ----
+//
+// The int8 blocks are B1-B3 with every projection as int8 x int8 -> int32:
+// activations are row-quantized on the fly (row_quant_kernel), weights per
+// output column once on the host, and each GEMM epilogue dequantizes as
+// (float(acc) * row_scale) * col_scale + bias.  The epilogues round with
+// __fmul_rn / __fadd_rn so that no multiply-add is contracted: these are the
+// JAX kernels' fp32 rounding points (ops/fused_qformer_int8.py _mm_q).
+
+// gemm_s8_kernel keeps the bf16 GEMM's byte layout: a 64-byte int8 k-tile
+// is a 32-value bf16 one, so loads, ldmatrix addresses and the 80-byte
+// padded rows are the same; two m16n8k32 steps cover a tile.
+constexpr int QBK = 64;                  // int8 values of K per tile
+constexpr int QLDS = QBK + 16;           // padded shared row in bytes
+constexpr int QA_TILE = BM * QLDS;
+constexpr int QW_TILE = BN * QLDS;
+constexpr int QGEMM_SMEM = STAGES * (QA_TILE + QW_TILE);  // 61,440
+
+enum { EPQ_BIAS = 0, EPQ_BIAS_GELU = 1, EPQ_BIAS_RESID = 2, EPQ_CHUNKED_RESID = 3 };
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C[M, N] = epilogue(A[M, K] . W[N, K]^T), int8 operands with K contiguous.
+// row_scale[row * rs_stride + c] scales row `row` over the c-th group of
+// `chunk` columns of K.  Epilogues:
+//   EPQ_BIAS          (acc * rs) * cs + bias -> bf16
+//   EPQ_BIAS_GELU     gelu_tanh((acc * rs) * cs + bias) -> fp32
+//   EPQ_BIAS_RESID    (acc * rs) * cs + bias + resid -> fp32
+//   EPQ_CHUNKED_RESID f = sum over groups of float(acc_group) * rs_group, in
+//                     group order; f * cs + bias + resid -> fp32 (the FFN's
+//                     down projection, its h requantized per chunk)
+// M any; N a multiple of 8; K a multiple of 16 (of `chunk`, itself a multiple
+// of QBK, for EPQ_CHUNKED_RESID).
+template <int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+               const float* __restrict__ row_scale, int rs_stride,
+               const float* __restrict__ col_scale, const float* __restrict__ bias,
+               const bf16* __restrict__ resid, void* __restrict__ C, int M, int N, int K,
+               int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* As = reinterpret_cast<int8_t*>(smem);
+  int8_t* Ws = As + STAGES * QA_TILE;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;  // warp rows wm*64 .. +63
+  const int wn = warp & 3;   // warp cols wn*32 .. +31
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int k_tiles = (K + QBK - 1) / QBK;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * QBK;
+    int8_t* as = As + stage * QA_TILE;
+    int8_t* ws = Ws + stage * QW_TILE;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * GEMM_THREADS;  // 512 chunks of 16 bytes per operand
+      const int r = c >> 2;
+      const int kc = (c & 3) * 16;
+      const int gk = k0 + kc;
+      const bool pa = gk < K && m0 + r < M;
+      cp_async_16(smem_addr(as + r * QLDS + kc), pa ? A + (size_t)(m0 + r) * K + gk : A, pa);
+      const bool pw = gk < K && n0 + r < N;
+      cp_async_16(smem_addr(ws + r * QLDS + kc), pw ? W + (size_t)(n0 + r) * K + gk : W, pw);
+    }
+  };
+
+  int acc[4][4][4];
+  float facc[4][4][4];  // EPQ_CHUNKED_RESID only
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0;
+        facc[i][j][e] = 0.f;
+      }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < k_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  const int tiles_per_chunk = chunk / QBK;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed
+    __syncthreads();              // and every warp is done with tile kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < k_tiles) load_tile(next % STAGES, next);
+    cp_async_commit();
+
+    const int8_t* as = As + (kt % STAGES) * QA_TILE;
+    const int8_t* ws = Ws + (kt % STAGES) * QW_TILE;
+#pragma unroll
+    for (int kk = 0; kk < QBK; kk += 32) {
+      uint32_t a[4][4];
+      uint32_t b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        // matrices: (rows 0-7, k 0-15), (rows 8-15, k 0-15), (rows 0-7, k 16-31), ...
+        const int r = wm * 64 + mi * 16 + (lane & 15);
+        ldmatrix_x4(a[mi], smem_addr(as + r * QLDS + kk + (lane >> 4) * 16));
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        // matrices: (n 0-7, k 0-15), (n 0-7, k 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31)
+        const int n = wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
+        uint32_t t[4];
+        ldmatrix_x4(t, smem_addr(ws + n * QLDS + kk + ((lane >> 3) & 1) * 16));
+        b[2 * nj][0] = t[0];
+        b[2 * nj][1] = t[1];
+        b[2 * nj + 1][0] = t[2];
+        b[2 * nj + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+    }
+
+    if constexpr (EPI == EPQ_CHUNKED_RESID) {
+      if ((kt + 1) % tiles_per_chunk == 0) {  // fold the finished group
+        const int grp = kt / tiles_per_chunk;
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
+            const float rs = row < M ? row_scale[(size_t)row * rs_stride + grp] : 0.f;
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                int& a_ = acc[mi][ni][2 * hf + e];
+                float& f_ = facc[mi][ni][2 * hf + e];
+                f_ = __fadd_rn(f_, __fmul_rn(__int2float_rn(a_), rs));
+                a_ = 0;
+              }
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator fragment: c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at row g + 8
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int col = n0 + wn * 32 + ni * 8 + t4 * 2;
+    if (col >= N) continue;
+    const float cs[2] = {col_scale[col], col_scale[col + 1]};
+    const float bs[2] = {bias[col], bias[col + 1]};
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
+        if (row >= M) continue;
+        const size_t off = (size_t)row * N + col;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if constexpr (EPI == EPQ_CHUNKED_RESID) {
+            v[e] = __fmul_rn(facc[mi][ni][2 * hf + e], cs[e]);
+          } else {
+            const float rs = row_scale[(size_t)row * rs_stride];
+            v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * hf + e]), rs), cs[e]);
+          }
+          v[e] = __fadd_rn(v[e], bs[e]);
+        }
+        if constexpr (EPI == EPQ_BIAS) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + off) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        } else {
+          if constexpr (EPI == EPQ_BIAS_GELU) {
+            v[0] = gelu_tanh(v[0]);
+            v[1] = gelu_tanh(v[1]);
+          } else {
+            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(resid + off);
+            v[0] = __fadd_rn(v[0], __bfloat162float(r.x));
+            v[1] = __fadd_rn(v[1], __bfloat162float(r.y));
+          }
+          *reinterpret_cast<float2*>(static_cast<float*>(C) + off) = make_float2(v[0], v[1]);
+        }
+      }
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t gemm_s8(const void* A, const void* W, const float* row_scale, int rs_stride,
+                    const float* col_scale, const float* bias, const void* resid, void* C, int M,
+                    int N, int K, int chunk, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_s8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, QGEMM_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_s8_kernel<EPI><<<grid, GEMM_THREADS, QGEMM_SMEM, stream>>>(
+      static_cast<const int8_t*>(A), static_cast<const int8_t*>(W), row_scale, rs_stride,
+      col_scale, bias, static_cast<const bf16*>(resid), C, M, N, K, chunk);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+// One warp per (row, group of `group` columns): absmax = max(max|x|, 1e-6),
+// q = rint(x * fl(127 / absmax)) (half to even, no clip: |q| <= 127),
+// scale[row * groups + g] = absmax / 127.  _row_quant of the JAX kernels.
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+row_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                 int rows, int width, int group) {
+  const int lane = threadIdx.x & 31;
+  const int groups = width / group;
+  const long long w = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  if (w >= (long long)rows * groups) return;
+  const size_t off = (size_t)w * group;  // row-major: row * width + g * group
+  const T* xr = x + off;
+  float m = 0.f;
+  for (int c = lane; c < group; c += 32) m = fmaxf(m, fabsf(to_float(xr[c])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float absmax = fmaxf(m, 1e-6f);
+  const float r = 127.0f / absmax;
+  int8_t* qr = q + off;
+  for (int c = lane; c < group; c += 32)
+    qr[c] = (int8_t)__float2int_rn(__fmul_rn(to_float(xr[c]), r));
+  if (lane == 0) scale[w] = absmax / 127.0f;
+}
+
+template <typename T>
+cudaError_t row_quant(const void* x, void* q, float* scale, int rows, int width, int group,
+                      cudaStream_t stream) {
+  const int per_block = LN_THREADS / 32;
+  const long long warps = (long long)rows * (width / group);
+  row_quant_kernel<T><<<(unsigned)((warps + per_block - 1) / per_block), LN_THREADS, 0,
+                        stream>>>(static_cast<const T*>(x), static_cast<int8_t*>(q), scale,
+                                  rows, width, group);
+  return cudaGetLastError();
+}
+
+bool gemm_s8_shape_ok(long long m, int n, int k) {
+  return m > 0 && m <= 2147483647 && n > 0 && k > 0 && n % 8 == 0 && k % 16 == 0 &&
+         (m + BM - 1) / BM <= 65535;
 }
 
 }  // namespace
@@ -450,5 +748,85 @@ extern "C" int unirec_qformer_ffn_block(const void* x, const void* w1, const flo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   UNIREC_TRY(gemm<EPI_BIAS_GELU>(x, w1, b1, nullptr, h, rows, inter, d, s));
   UNIREC_TRY(gemm<EPI_BIAS_RESID>(h, w2, b2, x, acc, rows, d, inter, s));
+  return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
+}
+
+// B4, the W8A8 B1.  x, out [items*nq, d] bf16; wqkv [3d, d] int8 (rows
+// Wq | Wk | Wv) with column scales sqkv [3d]; wo [d, d] int8, so [d];
+// scratch xq [items*nq, d] int8 and xs [items*nq] fp32 (x's codes and row
+// scales, then ctx's), qkv [items*nq, 3d] bf16, ctx [items*nq, d] bf16,
+// acc [items*nq, d] fp32.
+extern "C" int unirec_qformer_self_block_q(const void* x, const void* wqkv, const float* sqkv,
+                                           const float* bqkv, const void* wo, const float* so,
+                                           const float* bo, const float* gamma,
+                                           const float* beta, void* out, void* xq, float* xs,
+                                           void* qkv, void* ctx, float* acc, int items, int nq,
+                                           int d, int heads, float scale, float eps,
+                                           void* stream) {
+  const long long rows = (long long)items * nq;
+  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_s8_shape_ok(rows, 3 * d, d))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = (int)rows, hd = d / heads;
+  UNIREC_TRY(row_quant<bf16>(x, xq, xs, m, d, d, s));
+  UNIREC_TRY(gemm_s8<EPQ_BIAS>(xq, wqkv, xs, 1, sqkv, bqkv, nullptr, qkv, m, 3 * d, d, d, s));
+  UNIREC_TRY(attention(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items, heads, nq, nq,
+                       hd, scale, s));
+  UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
+  UNIREC_TRY(gemm_s8<EPQ_BIAS_RESID>(xq, wo, xs, 1, so, bo, x, acc, m, d, d, d, s));
+  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+}
+
+// B5, the W8A8 B2.  x, out [items*nq, d] bf16; mem [items*nkv, dm] bf16;
+// key_bias [items, nkv] fp32; wq [d, d], wkv [2d, dm] (rows Wk | Wv), wo
+// [d, d] int8 with column scales sq, skv, so; scratch xq [items*nq, d] int8
+// and xs [items*nq] (x's, then ctx's), mq [items*nkv, dm] int8 and ms
+// [items*nkv], q [items*nq, d], kv [items*nkv, 2d], ctx [items*nq, d] bf16,
+// acc [items*nq, d] fp32.
+extern "C" int unirec_qformer_cross_block_q(
+    const void* x, const void* mem, const float* key_bias, const void* wq, const float* sq,
+    const float* bq, const void* wkv, const float* skv, const float* bkv, const void* wo,
+    const float* so, const float* bo, const float* gamma, const float* beta, void* out,
+    void* xq, float* xs, void* mq, float* ms, void* q, void* kv, void* ctx, float* acc,
+    int items, int nq, int nkv, int d, int dm, int heads, float scale, float eps,
+    void* stream) {
+  const long long rows = (long long)items * nq;
+  const long long mem_rows = (long long)items * nkv;
+  if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_s8_shape_ok(rows, d, d) ||
+      !gemm_s8_shape_ok(mem_rows, 2 * d, dm))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = (int)rows, mm = (int)mem_rows, hd = d / heads;
+  UNIREC_TRY(row_quant<bf16>(x, xq, xs, m, d, d, s));
+  UNIREC_TRY(gemm_s8<EPQ_BIAS>(xq, wq, xs, 1, sq, bq, nullptr, q, m, d, d, d, s));
+  UNIREC_TRY(row_quant<bf16>(mem, mq, ms, mm, dm, dm, s));
+  UNIREC_TRY(gemm_s8<EPQ_BIAS>(mq, wkv, ms, 1, skv, bkv, nullptr, kv, mm, 2 * d, dm, dm, s));
+  UNIREC_TRY(attention(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq, nkv, hd,
+                       scale, s));
+  UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
+  UNIREC_TRY(gemm_s8<EPQ_BIAS_RESID>(xq, wo, xs, 1, so, bo, x, acc, m, d, d, d, s));
+  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+}
+
+// B6, the W8A8 FFN.  x, out [rows, d] bf16; w1 [inter, d] int8, s1 [inter];
+// w2 [d, inter] int8, s2 [d]; the gelu output h is requantized per row over
+// each group of `chunk` intermediate columns.  Scratch xq [rows, d] int8, xs
+// [rows], h [rows, inter] fp32, hq [rows, inter] int8, hs [rows, inter/chunk],
+// acc [rows, d] fp32.
+extern "C" int unirec_qformer_ffn_block_q(const void* x, const void* w1, const float* s1,
+                                          const float* b1, const void* w2, const float* s2,
+                                          const float* b2, const float* gamma,
+                                          const float* beta, void* out, void* xq, float* xs,
+                                          float* h, void* hq, float* hs, float* acc, int rows,
+                                          int d, int inter, int chunk, float eps, void* stream) {
+  if (!gemm_s8_shape_ok(rows, inter, d) || !gemm_s8_shape_ok(rows, d, inter) || chunk <= 0 ||
+      chunk % QBK != 0 || inter % chunk != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  UNIREC_TRY(row_quant<bf16>(x, xq, xs, rows, d, d, s));
+  UNIREC_TRY(gemm_s8<EPQ_BIAS_GELU>(xq, w1, xs, 1, s1, b1, nullptr, h, rows, inter, d, d, s));
+  UNIREC_TRY(row_quant<float>(h, hq, hs, rows, inter, chunk, s));
+  UNIREC_TRY(gemm_s8<EPQ_CHUNKED_RESID>(hq, w2, hs, inter / chunk, s2, b2, x, acc, rows, d,
+                                        inter, chunk, s));
   return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
 }

@@ -3,8 +3,9 @@
 
 ``QFormerInference`` turns cached field embeddings into an item's K query
 tokens through the fused engine (``inference/fused_qformer.py``: kernels
-B1-B3 on the card) or the plain ``ItemQFormer`` in bfloat16.  Null-value
-semantics mirror process_item_for_inference
+B1-B3 on the card, or B4-B6 with ``precision="int8"``) or the plain
+``ItemQFormer`` in bfloat16.  Null-value semantics mirror
+process_item_for_inference
 (reference: data_processing/qformer_inference.py:57-110): a field is masked
 out when missing or a null-ish string, and a failed encode (a zero vector) is
 masked as well.
@@ -65,7 +66,10 @@ class QFormerInference:
     ``params`` is the port's ``ItemQFormer`` state_dict (float32 or any
     dtype; it is cast to bfloat16).  ``use_fused`` defaults to True on a CUDA
     device when ``supports_fused`` holds, and is decided here, once; the
-    fused engine's packed weights are ``fused_params``.
+    fused engine's packed weights are ``fused_params``.  ``precision="int8"``
+    (W8A8 blocks) needs the fused engine: it raises ``ValueError`` when
+    ``use_fused`` is False or ``supports_fused`` fails, and otherwise runs the
+    fused engine on any device, as the JAX class does.
     """
 
     def __init__(
@@ -85,11 +89,7 @@ class QFormerInference:
         if mesh is not None:
             raise NotImplementedError(
                 "the dp-sharded sweep is not ported yet (ROADMAP.md A9)")
-        if precision == "int8":
-            raise NotImplementedError(
-                "precision='int8' needs the W8A8 kernels B4-B6, which are not "
-                "ported yet (ROADMAP.md, queue B)")
-        if precision != "bf16":
+        if precision not in ("bf16", "int8"):
             raise ValueError(f"precision must be bf16 or int8, got {precision!r}")
         if checkpoint_path is not None:
             config, params, field_names = self._load_checkpoint(checkpoint_path)
@@ -102,14 +102,20 @@ class QFormerInference:
         self.device = torch.device(device) if device else _default_device()
         self.batch_size = batch_size
         self.precision = precision
+        if precision == "int8":
+            if use_fused is False or not supports_fused(config):
+                raise ValueError(
+                    "precision='int8' requires the fused kernel engine "
+                    "(supports_fused must hold and use_fused must not be False)")
+            use_fused = True
         if use_fused is None:
             use_fused = self.device.type == "cuda"
         self.use_fused = bool(use_fused) and supports_fused(config)
         self.model = None
         if self.use_fused:
-            self.fused_params = prepare_fused_params(params, config,
-                                               dtype=torch.bfloat16,
-                                               device=self.device)
+            self.fused_params = prepare_fused_params(
+                params, config, dtype=torch.bfloat16, precision=precision,
+                device=self.device)
         else:
             self.model = ItemQFormer(config, device=self.device,
                                      dtype=torch.bfloat16).eval()

@@ -88,6 +88,16 @@ def load_kernels() -> Kernels:
     lib.unirec_qformer_cross_block.restype = _I
     lib.unirec_qformer_ffn_block.argtypes = [_P] * 10 + [_I] * 3 + [_F, _P]
     lib.unirec_qformer_ffn_block.restype = _I
+    lib.unirec_retrieve_topk_int8.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.unirec_retrieve_topk_int8.restype = _I
+    lib.unirec_qformer_self_block_q.argtypes = [_P] * 15 + [_I] * 4 + [_F, _F,
+                                                                      _P]
+    lib.unirec_qformer_self_block_q.restype = _I
+    lib.unirec_qformer_cross_block_q.argtypes = ([_P] * 23 + [_I] * 6
+                                                 + [_F, _F, _P])
+    lib.unirec_qformer_cross_block_q.restype = _I
+    lib.unirec_qformer_ffn_block_q.argtypes = [_P] * 16 + [_I] * 4 + [_F, _P]
+    lib.unirec_qformer_ffn_block_q.restype = _I
     return Kernels(lib, out, seconds, log)
 
 

@@ -37,8 +37,10 @@ import torch.nn.functional as F
 from unirec_tpu_torch.ops._build import check, load_kernels
 
 NEG_INF = -1e9
-# the attention kernel holds one item's rows of one head in shared memory
-KERNEL_MAX_ROWS = 64
+# the attention kernel holds one item's keys and values of one head in shared
+# memory beside a tile of its query rows: up to 256 of each (every K that
+# supports_fused admits) at head_dim <= 128
+KERNEL_MAX_ROWS = 256
 KERNEL_MAX_HEAD_DIM = 128
 
 
@@ -145,9 +147,11 @@ def _expect(t: torch.Tensor, shape, name: str) -> None:
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _on_card(x: torch.Tensor, block: str, weights, params) -> bool:
+def _on_card(x: torch.Tensor, block: str, weights, params,
+             codes=None) -> bool:
     """False for CPU tensors (plain version); True after checking that the
-    kernel takes these CUDA tensors; raises otherwise."""
+    kernel takes these CUDA tensors (``weights`` bfloat16, ``params``
+    float32, ``codes`` int8); raises otherwise."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
@@ -155,26 +159,31 @@ def _on_card(x: torch.Tensor, block: str, weights, params) -> bool:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{block}: the CUDA kernel takes bfloat16, got "
                         f"{x.dtype} (fp32 on the card is not ported)")
-    for name, t in {**weights, **params}.items():
+    codes = codes or {}
+    for name, t in {**weights, **params, **codes}.items():
         if t.device != x.device:
             raise ValueError(f"{block}: {name} is on {t.device}, x on {x.device}")
-        want = torch.bfloat16 if name in weights else torch.float32
+        want = (torch.int8 if name in codes else
+                torch.bfloat16 if name in weights else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{block}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{block}: {name} must be contiguous")
-        if name in weights and t.data_ptr() % 16:
+        if name not in params and t.data_ptr() % 16:
             raise ValueError(f"{block}: {name} must be 16-byte aligned")
     return True
 
 
 def _check_kernel_dims(block: str, widths: dict,
-                       head_dim: Optional[int] = None, rows: int = 0) -> None:
-    """What the kernel takes: GEMM widths that are multiples of 8 (16-byte
-    rows), and for attention head_dim <= 128 and <= 64 rows per item."""
+                       head_dim: Optional[int] = None, rows: int = 0,
+                       multiple: int = 8) -> None:
+    """What the kernel takes: GEMM widths that are whole 16-byte rows (a
+    multiple of 8 bf16 values, or of 16 int8 codes), and for attention
+    head_dim <= 128 and <= 256 rows per item."""
     for name, w in widths.items():
-        if w % 8:
-            raise ValueError(f"{block}: {name} {w} is not a multiple of 8")
+        if w % multiple:
+            raise ValueError(f"{block}: {name} {w} is not a multiple of "
+                             f"{multiple}")
     if head_dim is not None and head_dim > KERNEL_MAX_HEAD_DIM:
         raise ValueError(f"{block}: head_dim {head_dim} > {KERNEL_MAX_HEAD_DIM}")
     if rows > KERNEL_MAX_ROWS:

@@ -3,14 +3,17 @@
 
 ``Recommender`` encodes user histories with the joint model in fixed-shape
 padded batches and ranks the whole catalog with ``ops/ranking.retrieve_top_k``
-(kernel K2 on the card).  The field-embedding cache lives on the device in
-bfloat16, as in the JAX package, so each batch uploads ``[B, H]`` row indices
-and ``[B]`` prompt lengths instead of gathered embeddings and masks.
+(kernel K2 on the card), or, with ``quantize_catalog=True``, over an int8
+copy of the catalog (``ops/quantization``: ``quantize_rows`` once, then
+``retrieve_top_k_int8``, kernel B11).  The field-embedding cache lives on
+the device in bfloat16, as in the JAX package, so each batch uploads
+``[B, H]`` row indices and ``[B]`` prompt lengths instead of gathered
+embeddings and masks.
 
 Prompts are ``tokenizer.encode(construct_input_text(...))``: the JAX
 package's fragment cache is exact by construction, so this gives the same
-ids.  The int8 path, ``quantize_catalog``, ``merge_lora``, meshes and the
-prompt cache wait.
+ids.  ``precision="int8"`` (the W8A8 Qwen3 forward), ``merge_lora``, meshes
+and the prompt cache wait.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from unirec_tpu_torch.models.joint import (
     construct_input_text,
 )
 from unirec_tpu_torch.ops.losses import l2_normalize
+from unirec_tpu_torch.ops.quantization import quantize_rows, retrieve_top_k_int8
 from unirec_tpu_torch.ops.ranking import retrieve_top_k
 
 
@@ -45,9 +49,13 @@ class Recommender:
                  tokenizer: BaseTokenizer, item_dict: Dict[str, Dict],
                  field_cache: FieldEmbeddingCache,
                  catalog_embeddings: Dict[str, Sequence[float]],
-                 batch_size: int = 8, precision: str = "bf16"):
+                 batch_size: int = 8, precision: str = "bf16",
+                 quantize_catalog: bool = False):
         """``precision="bf16"`` is the non-int8 serving path of the JAX
-        package; the compute dtype is the model's own."""
+        package; the compute dtype is the model's own.
+        ``quantize_catalog`` keeps the catalog on the device as int8 rows
+        with float32 scales and ranks over them (the JAX flag of the same
+        name); ``score_candidates`` still reads the float32 catalog."""
         if precision != "bf16":
             raise ValueError(f"only precision='bf16' is ported, got {precision!r}")
         self.model = model.eval()
@@ -61,7 +69,13 @@ class Recommender:
         self.catalog_ids: List[str] = list(catalog_embeddings)
         self.catalog = np.asarray(
             [catalog_embeddings[i] for i in self.catalog_ids], np.float32)
-        self._catalog_dev = torch.from_numpy(self.catalog).to(self.device)
+        self.quantized = quantize_catalog
+        catalog_dev = torch.from_numpy(self.catalog).to(self.device)
+        if quantize_catalog:
+            self._catalog_q, self._catalog_scales = quantize_rows(catalog_dev)
+            self._catalog_dev = None
+        else:
+            self._catalog_dev = catalog_dev
         # device-resident field cache, bfloat16 even for a float32 model
         # (0.57 GB for 20k items x 14 x 1024), upcast after the gather
         self._cache_emb_dev = torch.from_numpy(
@@ -142,7 +156,11 @@ class Recommender:
         chunks = self._encode_user_chunks(histories)
         fetch = k + (self.jc.num_history_items if exclude_history else 0)
         users = torch.cat([emb for emb, _ in chunks], dim=0).float()
-        s, ix = retrieve_top_k(users, self._catalog_dev, k=fetch)
+        if self.quantized:
+            s, ix = retrieve_top_k_int8(users, self._catalog_q,
+                                        self._catalog_scales, k=fetch)
+        else:
+            s, ix = retrieve_top_k(users, self._catalog_dev, k=fetch)
         return (s, ix, [n for _, n in chunks], histories, k, exclude_history)
 
     def recommend_finalize(self, handle) -> List[List[Recommendation]]:
