@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
-serving path (over a float32 and an int8 catalog) and the item-token sweep
-(bf16 and W8A8 int8).
+serving path (over a float32 and an int8 catalog, and with the W8A8 int8
+Qwen3 forward) and the item-token sweep (bf16 and W8A8 int8).
 
     python3 chip_smoke.py
 
@@ -18,7 +18,11 @@ Phases (any failed check raises; the script then exits non-zero):
    blocks in bf16 at production widths (hidden 1024, 16 heads, K=32, F=14,
    intermediate 4096) for 4096 and a ragged 1001 items (B1 also at the 1-item
    layer-0 shape), with ~15% missing fields and >= 8 items that have none;
-   B1/B2 at K=128 and 256 (64 items); B4/B5/B6, the W8A8 blocks, as B1-B3.
+   B1/B2 at K=128 and 256 (64 items); B4/B5/B6, the W8A8 blocks, as B1-B3;
+   B8, the W8A8 linear, at the Qwen3-0.6B serving projections (4096 rows:
+   1024->2048, 1024->1024, 2048->1024, 1024->3072, 3072->1024; and
+   1024->2048 at 16384 rows), B9a (q|k|v, [4096, 1024] -> 4096) and B9b (the
+   SwiGLU MLP, [4096, 1024], intermediate 3072).
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
@@ -28,7 +32,22 @@ Phases (any failed check raises; the script then exits non-zero):
    ``Recommender(quantize_catalog=True)`` over the same model and catalog
    answers the same histories through B11 (answers checked, B11's counter
    checked, B11 held to its plain version on the served users, top-10 overlap
-   with the float32 catalog's answers printed).
+   with the float32 catalog's answers printed).  Then int8 serving on the
+   same shared model: (a) ``precision="int8"`` with the adapters live (B8 on
+   all 7 x 28 projections per batch), (b) ``merge_lora=True`` (B9a, B9b and
+   B8 on o_proj, 28 each per batch), (c) the merged model with
+   ``fused_blocks=False``; each one's launches, user cosine and top-10
+   overlap against bf16, latency and peak memory; (b) against (c), split by
+   two controls that run (c)'s model with plain MLPs, B9b's (fp32 g, u and
+   h) and the per-projection chain's (bf16); the 24-request HTTP burst
+   through (b) with the answer checks above and 28 launches of each kernel
+   per batch the batcher ran; B8, B9a and B9b held to their plain versions
+   on what (b) fed layer 0; a ``torch.profiler`` breakdown of one (b) batch; the shared model's
+   checksum unchanged.  Last, ``serve_cli.build_recommender`` with
+   ``--precision int8 --merge-lora`` over files written from this stack (a
+   full-width K=2 Item Q-Former checkpoint directory, a field-cache
+   directory, item and catalog JSON of 2,000 items) answers one batch
+   through B9a, B9b and B8.
 5. the item-token sweep at full width (``ItemQFormerConfig()``, random
    weights from seed 0 saved as a checkpoint directory; a 9,000-item field
    cache from the seed): the port's ``generate_all_item_embeddings.main`` at
@@ -93,6 +112,27 @@ SWEEP_PLAIN_COS_INT8 = 0.999
 # either engine vs the fp32 model: the bf16 and int8 quality-gate class of
 # scripts/quality_gates.py (per-token cosine)
 SWEEP_FP32_COS = 0.999
+# the int8 serving slice's kernels at the Qwen3-0.6B serving shapes: B8 on
+# every projection of batch 8 x L 512 = 4096 rows (K -> N) and on one at
+# batch 32; B9a over [Wq | Wk | Wv]; B9b over the whole MLP
+QW_D, QW_QKV, QW_I = 1024, 4096, 3072
+B8_SHAPES = ((4096, 1024, 2048), (4096, 1024, 1024), (4096, 2048, 1024),
+             (4096, 1024, 3072), (4096, 3072, 1024), (16384, 1024, 2048))
+B9_ROWS = 4096
+# B9b against its plain version: the card's sigmoid is not torch's, which can
+# flip a code of the requantized h
+B9B_COS, B9B_REL = 0.9999, 1e-2
+# int8 serving against bf16: the int8 quality class of tests/test_serving.py.
+# The fused blocks (b) against the per-projection path (c) on the same merged
+# weights differ by design: (c) rounds gate, up and silu(g) * u to bf16 where
+# B9b keeps them fp32.  Two controls run (c)'s model with its MLPs replaced
+# by plain versions: (c32) B9b's (fp32 intermediates) and (c16) the
+# per-projection chain's (B8's plain version, silu(g) * u in bf16).  (b) is
+# held to (c32) and (c) to (c16) at the 0.9999 class of
+# tests/test_serving.py; (c32) against (c16) is that rounding alone, and (b)
+# against (c) may not fall further below 1 than it by more than the margin
+INT8_VS_BF16_COS, FUSED_VS_CONTROL_COS, ROUNDING_GAP_MARGIN = 0.98, 0.9999, 2e-5
+ENTRY_ITEMS = 2000  # the serve_cli catalog: small JSON files
 
 
 def log(msg: str) -> None:
@@ -429,6 +469,96 @@ def phase_b11(gen) -> dict:
     return times
 
 
+# -- B8, B9a, B9b -------------------------------------------------------------
+
+
+def ulp_error(out, ref) -> float:
+    """max |out - ref| in bf16 ulps of ref (0 when equal)."""
+    a, b = out.float(), ref.float()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("an int8 kernel returned non-finite values")
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+    return ((a - b).abs() / ulp).max().item()
+
+
+def check_int8_linear(name, out, ref, where) -> float:
+    """B8 / B9a: equal to the plain version, or within one bf16 ulp."""
+    ulps = ulp_error(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    log(f"{name} {where}: max|d| {err:.3e}, {ulps:.2f} bf16 ulps (tol 1), "
+        f"{int((out != ref).sum())} of {out.numel()} values differ")
+    if not ulps <= 1.0:
+        raise AssertionError(f"{name} {where} disagrees with its plain version")
+    return err
+
+
+def check_swiglu(out, ref, where) -> float:
+    a, b = out.float(), ref.float()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("B9B returned non-finite values")
+    err = (a - b).abs().max().item()
+    rel = err / b.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+    log(f"B9B {where}: max|d| {err:.3e} = {rel:.2e} of max|ref| (tol "
+        f"{B9B_REL:g}), min row cosine {cos:.7f} (tol {B9B_COS})")
+    if not (rel <= B9B_REL and cos >= B9B_COS):
+        raise AssertionError(f"B9B {where} disagrees with its plain version")
+    return err
+
+
+def phase_qwen3_int8(gen) -> dict:
+    """B8, B9a and B9b against their plain versions at the serving shapes,
+    with bf16-rounded random weights quantized per output column."""
+    from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
+    from unirec_tpu_torch.ops.fused_qformer_int8 import quantize_weight
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_plain
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * std
+                ).bfloat16()
+
+    def timed(name, kern, plain):
+        t_k = time_ms(kern, iters=20)
+        t_p = time_ms(plain, iters=5, warmup=1)
+        t_k2 = time_ms(kern, iters=20)
+        log(f"{name} time: kernel {t_k:.4f} / {t_k2:.4f} ms, plain "
+            f"{t_p:.4f} ms")
+        return min(t_k, t_k2), t_p
+
+    out = {"b8": {"err": 0.0}}
+    for rows, k, n in B8_SHAPES:
+        x = rand(rows, k)
+        x[5] = 0.0  # a row below the absmax floor
+        wq, ws = quantize_weight(rand(n, k, std=0.03))
+        where = f"[{rows}, {k}] -> {n}"
+        err = check_int8_linear("B8", int8_linear(x, wq, ws),
+                                int8_linear_plain(x, wq, ws), where)
+        out["b8"]["err"] = max(out["b8"]["err"], err)
+        ms, plain_ms = timed(f"B8 {where}", lambda: int8_linear(x, wq, ws),
+                             lambda: int8_linear_plain(x, wq, ws))
+        out["b8"][(rows, k, n)] = (ms, plain_ms)
+        if (rows, k, n) == B8_SHAPES[0]:
+            out["b8"].update(ms=ms, plain_ms=plain_ms)
+    x = rand(B9_ROWS, QW_D)
+    wqkv, sqkv = quantize_weight(rand(QW_QKV, QW_D, std=0.03))
+    where = f"[{B9_ROWS}, {QW_D}] -> {QW_QKV}"
+    err = check_int8_linear("B9A", pf.qkv_int8(x, wqkv, sqkv),
+                            pf.qkv_int8_plain(x, wqkv, sqkv), where)
+    ms, plain_ms = timed(f"B9A {where}", lambda: pf.qkv_int8(x, wqkv, sqkv),
+                         lambda: pf.qkv_int8_plain(x, wqkv, sqkv))
+    out["b9a"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    wgu, sgu = quantize_weight(rand(2 * QW_I, QW_D, std=0.03))
+    wd, sd = quantize_weight(rand(QW_D, QW_I, std=0.02))
+    args = (x, wgu, sgu, wd, sd)
+    where = f"[{B9_ROWS}, {QW_D}], I {QW_I}"
+    err = check_swiglu(pf.swiglu_mlp_int8(*args),
+                       pf.swiglu_mlp_int8_plain(*args), where)
+    ms, plain_ms = timed(f"B9B {where}", lambda: pf.swiglu_mlp_int8(*args),
+                         lambda: pf.swiglu_mlp_int8_plain(*args))
+    out["b9b"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    return out
+
+
 # -- phase 4: the serving slice ----------------------------------------------
 
 
@@ -598,8 +728,10 @@ def phase_serve(smi: str) -> dict:
         f"HTTP burst {N_REQUESTS / burst_s:.1f} users/s; peak device memory "
         f"{peak_gb:.2f} GB (max_memory_allocated)")
     b11 = serve_int8_catalog(smi, rec, histories, direct)
+    int8 = serve_int8(smi, rec, histories, direct, med)
     return {"launches": dict(launches, b11=b11["launches"]), "k1_err": err,
-            "k2_err": k2_err, "b11_err": b11["err"]}
+            "k2_err": k2_err, "b11_err": b11["err"], "int8": int8,
+            "stack": (rec, histories)}
 
 
 def serve_int8_catalog(smi: str, rec, histories, direct) -> dict:
@@ -653,6 +785,309 @@ def serve_int8_catalog(smi: str, rec, histories, direct) -> dict:
         f"median {med * 1e3:.1f} ms (min {min(lat) * 1e3:.1f}, max "
         f"{max(lat) * 1e3:.1f}) over 5 batches")
     return {"launches": launches, "err": err}
+
+
+def model_checksum(model) -> list:
+    """Exact checksum of every tensor of the module: the sum of its bytes and
+    its address, in state_dict order."""
+    return [(k, int(v.contiguous().view(torch.uint8).sum(dtype=torch.int64)),
+             v.data_ptr()) for k, v in model.state_dict().items()]
+
+
+def user_cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per-user cosine in float64 (the bf16-normalised embeddings are not
+    exactly unit length)."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def int8_launches():
+    from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear
+
+    return {"b8": int8_linear, "b9a": pf.qkv_int8, "b9b": pf.swiglu_mlp_int8}
+
+
+def serve_int8(smi: str, rec, histories, direct, bf16_med: float) -> dict:
+    """The int8 serving slice on the serving stack's model: (a)
+    precision="int8" with the adapters live (B8 on every projection), (b)
+    merge_lora=True (B9a, B9b, and B8 on o_proj), (c) the same merged model
+    with fused_blocks=False (B8 everywhere), each against the bf16
+    recommender; then the HTTP burst through (b)."""
+    from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_plain
+    from unirec_tpu_torch.serving.recommender import Recommender
+    from unirec_tpu_torch.serving.server import make_server
+
+    shared = rec.model
+    before = model_checksum(shared)
+    catalog = dict(zip(rec.catalog_ids, rec.catalog))
+    n_layers = shared.qwen_config.num_hidden_layers
+    batches = -(-len(histories) // BATCH)
+    u_bf16 = rec.encode_users(histories)
+    counters = int8_launches()
+    modes = {"a": dict(), "c": dict(merge_lora=True, fused_blocks=False),
+             "b": dict(merge_lora=True)}
+    want = {"a": {"b8": 7 * n_layers, "b9a": 0, "b9b": 0},
+            "b": {"b8": n_layers, "b9a": n_layers, "b9b": n_layers},
+            "c": {"b8": 7 * n_layers, "b9a": 0, "b9b": 0}}
+    users = {}
+    for key, kw in modes.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r8 = Recommender(shared, rec.tokenizer, rec.item_dict, rec.cache,
+                         catalog, batch_size=BATCH, precision="int8", **kw)
+        for fn in counters.values():
+            fn.launches = 0
+        answers = r8.recommend(histories, k=SERVE_K)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        per_batch = {n: want[key][n] * batches for n in want[key]}
+        users[key] = r8.encode_users(histories)
+        cos = user_cosines(users[key], u_bf16)
+        overlap = [len({r.item_id for r in got} & {r.item_id for r in ref})
+                   / SERVE_K for got, ref in zip(answers, direct)]
+        lat = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r8.recommend(histories[:BATCH], k=SERVE_K)
+            lat.append(time.perf_counter() - t0)
+        med = float(np.median(lat))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[{smi}] int8 ({key}) {kw or 'adapters live'}: launches over "
+            f"{batches} batches {launches} (want {per_batch}); user cosine "
+            f"vs bf16 min {cos.min():.5f} mean {cos.mean():.5f} (tol "
+            f"{INT8_VS_BF16_COS}); top-{SERVE_K} overlap with bf16 mean "
+            f"{np.mean(overlap):.3f} min {min(overlap):.3f}; batch {BATCH} "
+            f"latency median {med * 1e3:.1f} ms (min {min(lat) * 1e3:.1f}, "
+            f"max {max(lat) * 1e3:.1f}) vs bf16 {bf16_med * 1e3:.1f} ms; peak "
+            f"device memory {peak_gb:.2f} GB")
+        if launches != per_batch:
+            raise AssertionError(f"int8 ({key}) launches {launches}, want "
+                                 f"{per_batch}")
+        if not cos.min() >= INT8_VS_BF16_COS:
+            raise AssertionError(f"int8 ({key}) user embeddings fail the "
+                                 "quality class against bf16")
+        for h, got in zip(histories, answers):
+            ids = [r.item_id for r in got]
+            if len(ids) != SERVE_K or set(ids) & set(h):
+                raise AssertionError(f"bad int8 ({key}) answer {ids}")
+        if key != "b":
+            del r8
+    fused = r8  # (b), built last: the others are gone before its peak
+    fused_vs_controls(shared, rec, catalog, histories, users)
+
+    # (b) through HTTP, answers equal to direct recommend()
+    server, batcher = make_server(fused, port=0, warmup=True,
+                                  max_queued=N_REQUESTS)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    seen = {}
+    layer0 = fused.model.base_model.layers[0]
+    hooks = [
+        layer0.self_attn.register_forward_pre_hook(
+            lambda mod, args: seen.__setitem__("attn", args[0])),
+        layer0.self_attn.o_proj.register_forward_pre_hook(
+            lambda mod, args: seen.__setitem__("o_proj", args[0])),
+        layer0.mlp.register_forward_pre_hook(
+            lambda mod, args: seen.__setitem__("mlp", args[0])),
+    ]
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        batches_before = batcher.batches_run
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=N_REQUESTS) as pool:
+            answers = list(pool.map(
+                lambda h: post(f"{base}/recommend", {"history": h,
+                                                     "k": SERVE_K}),
+                histories))
+        burst_s = time.perf_counter() - t0
+        http_launches = {n: fn.launches for n, fn in counters.items()}
+        burst_batches = batcher.batches_run - batches_before
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        for h in hooks:
+            h.remove()
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=30)
+    want_http = {n: n_layers * burst_batches for n in counters}
+    log(f"int8 (b) served {N_REQUESTS} requests over HTTP in {burst_s:.3f} s "
+        f"({burst_batches} batches; {health['batches_run']} with the warmup); "
+        f"launches during the requests {http_launches} (want {want_http})")
+    if not (burst_batches > 0 and http_launches == want_http):
+        raise AssertionError(f"int8 (b) HTTP launches {http_launches}, want "
+                             f"{want_http}")
+    direct8 = fused.recommend(histories, k=SERVE_K)
+    for h, (status, out), ref in zip(histories, answers, direct8):
+        ids = [r["item_id"] for r in out.get("items", [])]
+        scores = [r["score"] for r in out.get("items", [])]
+        if status != 200 or len(ids) != SERVE_K or set(ids) & set(h):
+            raise AssertionError(f"bad int8 HTTP answer {status} {out}")
+        if ids != [r.item_id for r in ref] or not np.allclose(
+                scores, [r.score for r in ref], atol=1e-5, rtol=0):
+            raise AssertionError("int8 HTTP answer differs from recommend()")
+        if scores != sorted(scores, reverse=True):
+            raise AssertionError(f"int8 HTTP scores not descending {scores}")
+    log(f"{N_REQUESTS}/{N_REQUESTS} int8 HTTP answers valid and equal to "
+        "direct recommend()")
+
+    # the kernels on the tensors the served run fed layer 0
+    attn, mlp = layer0.self_attn, layer0.mlp
+    d = shared.qwen_config.hidden_size
+    with torch.no_grad():
+        x = seen["attn"].reshape(-1, d)
+        errs = {"b9a": check_int8_linear(
+            "B9A", pf.qkv_int8(x, attn.qkv_q, attn.qkv_scale),
+            pf.qkv_int8_plain(x, attn.qkv_q, attn.qkv_scale), "served layer 0")}
+        ctx = seen["o_proj"].reshape(-1, seen["o_proj"].shape[-1])
+        o = attn.o_proj
+        errs["b8"] = check_int8_linear(
+            "B8", int8_linear(ctx, o.weight_q, o.weight_scale),
+            int8_linear_plain(ctx, o.weight_q, o.weight_scale),
+            "served layer 0 o_proj")
+        x = seen["mlp"].reshape(-1, d)
+        args = (x, mlp.gate_up_q, mlp.gate_up_scale, mlp.down_proj.weight_q,
+                mlp.down_proj.weight_scale)
+        errs["b9b"] = check_swiglu(pf.swiglu_mlp_int8(*args),
+                                   pf.swiglu_mlp_int8_plain(*args),
+                                   "served layer 0")
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fused.encode_users(histories[:BATCH])
+        torch.cuda.synchronize()
+    rows = device_time_by_kernel(prof)
+    total = sum(t for _, t in rows)
+    log(f"[{smi}] int8 (b): one batch of {BATCH} users under torch.profiler: "
+        f"{total:.2f} ms of device time in {len(rows)} kernels"
+        + ("" if rows else " (no device rows: breakdown not measured)"))
+    for name, t in rows[:12]:
+        log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+
+    after = model_checksum(shared)
+    if after != before or shared.lora is None or (
+            shared.qwen_config.fused_int8_inference):
+        raise AssertionError("an int8 recommender changed the shared model")
+    log(f"the shared bf16 model is unchanged: {len(before)} tensors, checksum "
+        f"{sum(c for _, c, _ in before)} before and after")
+    del fused
+    return {"launches": http_launches, "errs": errs}
+
+
+def fused_vs_controls(shared, rec, catalog, histories, users) -> None:
+    """(b) against (c), and the two controls that split their gap: (c)'s
+    merged model with every MLP's output replaced by a plain version on the
+    card, (c32) B9b's and (c16) the per-projection chain's."""
+    import torch.nn.functional as F
+
+    from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear_plain
+    from unirec_tpu_torch.serving.recommender import Recommender
+
+    def plain_mlp(mlp, args, out):
+        x = args[0].reshape(-1, args[0].shape[-1])
+        down = mlp.down_proj
+        if fp32_mid:
+            y = pf.swiglu_mlp_int8_plain(x, mlp.gate_up_q, mlp.gate_up_scale,
+                                         down.weight_q, down.weight_scale)
+        else:
+            g, u = (int8_linear_plain(x, p.weight_q, p.weight_scale)
+                    for p in (mlp.gate_proj, mlp.up_proj))
+            y = int8_linear_plain(F.silu(g) * u, down.weight_q,
+                                  down.weight_scale)
+        return y.reshape(out.shape)
+
+    ctl = Recommender(shared, rec.tokenizer, rec.item_dict, rec.cache, catalog,
+                      batch_size=BATCH, precision="int8", merge_lora=True,
+                      fused_blocks=False)
+    hooks = [layer.mlp.register_forward_hook(plain_mlp)
+             for layer in ctl.model.base_model.layers]
+    try:
+        for key, fp32_mid in (("c32", True), ("c16", False)):
+            users[key] = ctl.encode_users(histories)
+    finally:
+        for h in hooks:
+            h.remove()
+    del ctl
+    cos = {pair: user_cosines(users[pair[0]], users[pair[1]])
+           for pair in (("b", "c"), ("b", "c32"), ("c", "c16"),
+                        ("c32", "c16"))}
+    gap = cos["b", "c"] - cos["c32", "c16"]
+    log("int8 user cosine, min / mean over users (same merged weights; c32 "
+        "and c16 are (c) with B9b's and the per-projection chain's plain "
+        "MLP): " + "; ".join(
+            f"({a}) vs ({b}) {c.min():.7f} / {c.mean():.7f}"
+            for (a, b), c in cos.items())
+        + f"; (b)/(c) minus the rounding alone, per user, min {gap.min():.2e} "
+        f"max {gap.max():.2e} (tol {FUSED_VS_CONTROL_COS} for the first "
+        f"pair's controls, -{ROUNDING_GAP_MARGIN:g} for the gap)")
+    if not (cos["b", "c32"].min() >= FUSED_VS_CONTROL_COS
+            and cos["c", "c16"].min() >= FUSED_VS_CONTROL_COS):
+        raise AssertionError("an int8 path disagrees with its plain control")
+    if not gap.min() >= -ROUNDING_GAP_MARGIN:
+        raise AssertionError("the fused blocks sit further from the "
+                             "per-projection path than the rounding explains")
+
+
+def phase_entry_point(smi: str, rec) -> dict:
+    """serve_cli.build_recommender(parse_args([...])) with --precision int8
+    --merge-lora on a saved full-width K=2 Item Q-Former checkpoint, a field
+    cache directory and JSON item and catalog files of ENTRY_ITEMS items
+    written from the serving stack; one batch answered through it."""
+    from unirec_tpu_torch.cli import serve_cli
+    from unirec_tpu_torch.utils.checkpoint import save_checkpoint
+
+    ids = rec.catalog_ids[:ENTRY_ITEMS]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "iq"), rec.model.qformer,
+                        rec.model.qformer_config,
+                        extra={"field_names": list(rec.cache.fields)})
+        rows = rec.cache.rows_for(ids)
+        type(rec.cache)(
+            np.asarray(rec.cache.embeddings)[rows],
+            np.asarray(rec.cache.masks)[rows], list(rec.cache.fields),
+            list(ids)).save(os.path.join(tmp, "cache"))
+        with open(os.path.join(tmp, "items.json"), "w") as fh:
+            json.dump({i: rec.item_dict[i] for i in ids}, fh)
+        with open(os.path.join(tmp, "catalog.json"), "w") as fh:
+            json.dump({i: np.round(rec.catalog[j], 5).tolist()
+                       for j, i in enumerate(ids)}, fh)
+        args = serve_cli.parse_args([
+            "--qformer-checkpoint", os.path.join(tmp, "iq"),
+            "--cache-dir", os.path.join(tmp, "cache"),
+            "--item-dict", os.path.join(tmp, "items.json"),
+            "--catalog", os.path.join(tmp, "catalog.json"),
+            "--precision", "int8", "--merge-lora", "--prewarm"])
+        cli_rec = serve_cli.build_recommender(args)
+        build_s = time.perf_counter() - t0
+    hist = [list(ids[i * 7: i * 7 + i % 6]) for i in range(BATCH)]
+    counters = int8_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    answers = cli_rec.recommend(hist, k=SERVE_K)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    n_layers = cli_rec.model.qwen_config.num_hidden_layers
+    log(f"serve_cli.build_recommender --precision int8 --merge-lora: "
+        f"{len(cli_rec.catalog_ids)} items, built in {build_s:.1f} s (files "
+        f"written and read); one batch of {BATCH}: launches {launches}")
+    if launches != {"b8": n_layers, "b9a": n_layers, "b9b": n_layers}:
+        raise AssertionError(f"serve_cli int8 launches {launches}")
+    for h, got in zip(hist, answers):
+        got_ids = [r.item_id for r in got]
+        if len(got_ids) != SERVE_K or set(got_ids) & set(h) or not all(
+                np.isfinite(r.score) for r in got):
+            raise AssertionError(f"bad serve_cli answer {got_ids}")
+    del cli_rec
+    return {"launches": launches}
 
 
 # -- phase 5: the item-token sweep ---------------------------------------------
@@ -947,7 +1382,9 @@ def main() -> int:
     for key, err in phase_wide_k(gen).items():
         blocks[key]["err"] = max(blocks[key]["err"], err)
     blocks.update(phase_blocks(gen, "int8"))
+    qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
+    phase_entry_point(smi, served.pop("stack")[0])
     gc.collect()  # the serving stacks, before the sweep's memory is read
     torch.cuda.empty_cache()
     swept = phase_sweep(smi)
@@ -987,6 +1424,18 @@ def main() -> int:
             ("b4", "qformer_self_block_q", "fused_qformer_int8.py", 90),
             ("b5", "qformer_cross_block_q", "fused_qformer_int8.py", 140),
             ("b6", "qformer_ffn_block_q", "fused_qformer_int8.py", 193))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "unirec_tpu_torch/csrc/qformer_blocks.cu",
+         "replaces": f"unirec_tpu/ops/{src}",
+         "launches": served["int8"]["launches"][key],
+         "max_abs_err": max(qwen3_int8[key]["err"],
+                            served["int8"]["errs"][key]),
+         "ms": qwen3_int8[key]["ms"], "plain_ms": qwen3_int8[key]["plain_ms"]}
+        for key, name, src in (
+            ("b8", "int8_linear", "int8_matmul.py:37"),
+            ("b9a", "qkv_int8", "fused_qwen3_int8.py:55"),
+            ("b9b", "qwen3_swiglu_q", "fused_qwen3_int8.py:163"))
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -118,3 +118,33 @@ def test_cpu_int8_wrappers_use_plain_versions():
     for fn in wrappers:
         assert fn.launches == 0, fn.__name__
     assert _build.load_kernels.cache_info().currsize == 0
+
+
+def test_cpu_qwen3_int8_wrappers_use_plain_versions():
+    from unirec_tpu_torch.ops import _build
+    from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
+    from unirec_tpu_torch.ops.fused_qformer_int8 import quantize_weight
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear
+    from unirec_tpu_torch.ops.int8_ste import int8_linear_ste
+
+    wrappers = (int8_linear, pf.qkv_int8, pf.swiglu_mlp_int8)
+    for fn in wrappers:
+        fn.launches = 0
+    gen = torch.Generator().manual_seed(0)
+    d, inter, rows = 128, 256, 512
+
+    def q(*shape):  # (int8 weight [out, in], float32 scales [out])
+        return quantize_weight(torch.randn(*shape, generator=gen))
+
+    x = torch.randn(rows, d, generator=gen).bfloat16()
+    y8 = int8_linear(x, *q(64, d))
+    ys = int8_linear_ste(x[None], *q(64, d))
+    yq = pf.qkv_int8(x, *q(3 * d, d))
+    ym = pf.swiglu_mlp_int8(x, *q(2 * inter, d), *q(d, inter))
+    yf = pf.int8_linear_fused_ste(x, *q(3 * d, d))
+    assert y8.shape == (rows, 64) and ys.shape == (1, rows, 64)
+    assert yq.shape == yf.shape == (rows, 3 * d) and ym.shape == x.shape
+    assert all(y.dtype == torch.bfloat16 for y in (y8, ys, yq, ym, yf))
+    for fn in wrappers:
+        assert fn.launches == 0, fn.__name__
+    assert _build.load_kernels.cache_info().currsize == 0

@@ -13,17 +13,25 @@ outputs (a few bf16 ulps: the kernel and the plain version sum in different
 orders, which can flip a bf16 rounding of qkv, probabilities, ctx or the gelu
 output, and in B4-B6 through it one int8 code) and per-row cosine >= 0.9999.
 B11 is held as K2: scores within 1e-5, ids equal except near-ties.
+
+B8 and B9a (the Qwen3 W8A8 projections) are held to their plain versions
+within one bf16 ulp of each reference value: the integer sums are exact and
+both round the epilogue at the same points, so they are expected to be equal.
+B9b has per-row cosine >= 0.9999 and max|d| <= 1e-2 max|ref|: the card's
+sigmoid is not torch's, which can flip one code of the requantized h.
 """
 
 import pytest
 import torch
 
 from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
 from unirec_tpu_torch.ops import fused_qformer_layer as fq
 from unirec_tpu_torch.ops.flash_causal import (
     flash_causal_attention,
     flash_causal_attention_plain,
 )
+from unirec_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_plain
 from unirec_tpu_torch.ops.losses import l2_normalize
 from unirec_tpu_torch.ops.quantization import (
     quantize_rows,
@@ -272,3 +280,77 @@ def test_b11_matches_plain(hopper, n_users):
     full = quantized_scores(users, codes, scales)
     diff = i != i_ref  # only near-ties (< 1e-6 apart) may swap
     assert ((full.gather(1, i) - s_ref)[diff].abs() < 1e-6).all()
+
+
+# -- B8, B9a, B9b: the int8 Qwen3-0.6B serving forward -----------------------------
+
+QWEN_D, QWEN_I, QWEN_QKV = 1024, 3072, 4096
+
+
+def _within_one_ulp(out, ref):
+    """|out - ref| <= one bf16 ulp of ref, elementwise."""
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    a, b = out.float(), ref.float()
+    assert torch.isfinite(a).all()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+    assert ((a - b).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("rows,k,n", [(4096, 1024, 2048), (4096, 1024, 1024),
+                                      (4096, 2048, 1024), (4096, 1024, 3072),
+                                      (4096, 3072, 1024),
+                                      (16384, 1024, 2048)])
+def test_b8_matches_plain(hopper, rows, k, n):
+    g = hopper
+    x = _rand(g, rows, k)
+    x[7] = 0.0  # a row below the absmax floor
+    wq, ws = _q(g, n, k, std=0.03)
+    before = int8_linear.launches
+    out = int8_linear(x, wq, ws)
+    torch.cuda.synchronize()
+    assert int8_linear.launches == before + 1
+    _within_one_ulp(out, int8_linear_plain(x, wq, ws))
+    assert (out[7] == 0).all()
+
+
+def test_b9a_matches_plain(hopper):
+    g = hopper
+    x = _rand(g, 4096, QWEN_D)
+    wq, ws = _q(g, QWEN_QKV, QWEN_D, std=0.03)
+    before = pf.qkv_int8.launches
+    out = pf.qkv_int8(x, wq, ws)
+    torch.cuda.synchronize()
+    assert pf.qkv_int8.launches == before + 1
+    _within_one_ulp(out, pf.qkv_int8_plain(x, wq, ws))
+
+
+@pytest.mark.parametrize("rows", [512, 4096])
+def test_b9b_matches_plain(hopper, rows):
+    g = hopper
+    x = _rand(g, rows, QWEN_D)
+    wgu, sgu = _q(g, 2 * QWEN_I, QWEN_D, std=0.03)
+    wd, sd = _q(g, QWEN_D, QWEN_I, std=0.02)
+    before = pf.swiglu_mlp_int8.launches
+    out = pf.swiglu_mlp_int8(x, wgu, sgu, wd, sd)
+    torch.cuda.synchronize()
+    assert pf.swiglu_mlp_int8.launches == before + 1
+    ref = pf.swiglu_mlp_int8_plain(x, wgu, sgu, wd, sd).float()
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    a = out.float()
+    assert torch.isfinite(a).all()
+    assert (a - ref).abs().max() <= 1e-2 * ref.abs().max()
+    assert torch.nn.functional.cosine_similarity(a, ref, dim=-1).min() \
+        >= 0.9999
+
+
+def test_qwen3_int8_wrappers_refuse_what_the_kernels_do_not_take(hopper):
+    x = torch.zeros(512, QWEN_D, device="cuda")
+    wq = torch.zeros(QWEN_QKV, QWEN_D, dtype=torch.int8, device="cuda")
+    ws = torch.ones(QWEN_QKV, device="cuda")
+    with pytest.raises(TypeError):  # fp32 activations are not ported
+        pf.qkv_int8(x, wq, ws)
+    with pytest.raises(TypeError):
+        int8_linear(x.bfloat16(), wq, ws, out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        int8_linear(x.bfloat16()[:, :1000].contiguous(),
+                    wq[:, :1000].contiguous(), ws)

@@ -4,7 +4,10 @@ The same fixture (20 items, hash tokenizer, tiny joint model with LoRA and a
 randomised ``lora_b``) and the same weights go to both ``Recommender``s:
 item ids must be identical and scores within 1e-5.  Also an HTTP round trip
 through the port's ``make_server``, and prompt ids identical to the JAX
-package's tokenizer and prompt cache.
+package's tokenizer and prompt cache.  Int8 serving runs on a lane-aligned
+tiny model (hidden 128, one head of 128, batch 8 x L 64 = 512 rows, so the
+fused guards pass) against the JAX ``Recommender(precision="int8")``, and
+``serve_cli.build_recommender`` with ``--tiny`` on the CPU.
 """
 
 import json
@@ -18,6 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from unirec_tpu.configs import (
+    ItemQFormerConfig,
+    JointModelConfig,
+    tiny_qwen3_config,
+)
 from unirec_tpu.data.cache import FieldEmbeddingCache
 from unirec_tpu.data.tokenizer import HashTokenizer as JaxHashTokenizer
 from unirec_tpu.models import joint as jax_joint
@@ -183,9 +191,148 @@ def test_http_round_trip(recommenders):
 
 
 def test_recommender_refuses_int8(fixture_data):
+    """int8 is accepted (the W8A8 forward is ported); any other precision is
+    refused, and the caller's model is left as it was."""
     cache, catalog, item_dict, _, _ = fixture_data
     pm = port_joint.MultiModalQwenEmbedding(QWEN, QF, JC, lora=LORA)
     tok = HashTokenizer(QWEN.vocab_size, JC.num_history_items,
                         JC.num_query_tokens_per_item)
-    with pytest.raises(ValueError, match="bf16"):
-        Recommender(pm, tok, item_dict, cache, catalog, precision="int8")
+    rec = Recommender(pm, tok, item_dict, cache, catalog, precision="int8")
+    assert rec.precision == "int8" and rec.model is not pm
+    assert pm.base_model.layers[0].self_attn.q_proj.weight_q is None
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        Recommender(pm, tok, item_dict, cache, catalog, precision="fp4")
+
+
+# -- int8 serving: a lane-aligned model at 8 x 64 = 512 rows ---------------------
+
+QWEN8 = tiny_qwen3_config(
+    hidden_size=128, intermediate_size=256, num_attention_heads=1,
+    num_key_value_heads=1, head_dim=128, max_position_embeddings=64,
+    flash_attention=False)
+QF8 = ItemQFormerConfig(
+    hidden_size=128, num_hidden_layers=1, num_attention_heads=2,
+    intermediate_size=64, num_query_tokens=2, field_embedding_dim=FD,
+    num_fields=F, dropout=0.0)
+JC8 = JointModelConfig(num_history_items=2, num_query_tokens_per_item=2,
+                       max_length=64)
+HISTORIES8 = [["i0", "i1"], ["i3"], [], ["i2", "i5"], ["i7", "i4"]]
+INT8_MODES = {"live": {}, "merged": dict(merge_lora=True),
+              "merged_unfused": dict(merge_lora=True, fused_blocks=False)}
+
+
+@pytest.fixture(scope="module")
+def int8_data():
+    rng = np.random.RandomState(11)
+    n = 12
+    item_ids = [f"i{j}" for j in range(n)]
+    cache = FieldEmbeddingCache(
+        embeddings=rng.randn(n, F, FD).astype(np.float32),
+        masks=np.ones((n, F), np.float32), fields=["a", "b", "c"],
+        item_ids=item_ids)
+    catalog = {iid: rng.randn(QWEN8.hidden_size).astype(np.float32).tolist()
+               for iid in item_ids}
+    item_dict = {iid: {"title": f"Item {iid}"} for iid in item_ids}
+    jm = jax_joint.MultiModalQwenEmbedding(QWEN8, QF8, JC8, lora=LORA)
+    params = randomize_lora_b(jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, JC8.max_length), jnp.int32),
+        jnp.ones((1, JC8.max_length)),
+        jnp.zeros((1, JC8.num_history_items, F, FD)),
+        jnp.ones((1, JC8.num_history_items, F))))
+    args = (QWEN8.vocab_size, JC8.num_history_items,
+            JC8.num_query_tokens_per_item)
+    pm = port_joint.MultiModalQwenEmbedding(QWEN8, QF8, JC8, lora=LORA)
+    pm.load_state_dict(joint_state_dict_from_flax(params, QWEN8, QF8))
+    return (cache, catalog, item_dict, jm, params, JaxHashTokenizer(*args),
+            pm, HashTokenizer(*args))
+
+
+@pytest.mark.parametrize("mode", list(INT8_MODES))
+def test_int8_recommender_matches_jax(int8_data, mode, monkeypatch):
+    """precision="int8" with the adapters live, merged (fused blocks B9a and
+    B9b), and merged with fused_blocks=False, against the JAX recommender
+    on the same weights: user-embedding cosine >= 0.9999 (the per-projection
+    path quantizes by division and the sums between projections run in
+    another order, so a code can move by one), the same top-5 ids, and the
+    caller's model untouched."""
+    from unirec_tpu_torch.models import qwen3 as pq
+
+    cache, catalog, item_dict, jm, params, jtok, pm, ptok = int8_data
+    kw = dict(batch_size=8, precision="int8", **INT8_MODES[mode])
+    jrec = JaxRecommender(jm, {"params": params["params"]}, jtok,
+                          dict(item_dict), cache, catalog, **kw)
+    before = {k: v.clone() for k, v in pm.state_dict().items()}
+    prec = Recommender(pm, ptok, dict(item_dict), cache, catalog, **kw)
+    assert (prec.model.qwen_config.fused_int8_inference
+            == jrec.model.qwen_config.fused_int8_inference
+            == (mode == "merged"))
+    assert (prec.model.lora is None) == (mode != "live")
+    calls = []
+    for name in ("qkv_int8", "swiglu_mlp_int8", "int8_linear_ste"):
+        fn = getattr(pq, name)
+        monkeypatch.setattr(pq, name, lambda *a, _f=fn, _n=name:
+                            calls.append(_n) or _f(*a))
+    got = prec.encode_users(HISTORIES8)
+    want = np.asarray(jrec.encode_users(HISTORIES8), np.float32)
+    n_layers = QWEN8.num_hidden_layers
+    assert (calls.count("qkv_int8"), calls.count("swiglu_mlp_int8"),
+            calls.count("int8_linear_ste")) == (
+        (n_layers, n_layers, n_layers) if mode == "merged"
+        else (0, 0, 7 * n_layers))
+    assert ((got * want).sum(-1) >= 0.9999).all(), (got * want).sum(-1)
+    assert [[r.item_id for r in row]
+            for row in prec.recommend(HISTORIES8, k=5)] == [
+        [r.item_id for r in row] for row in jrec.recommend(HISTORIES8, k=5)]
+    assert pm.lora is LORA and not pm.qwen_config.fused_int8_inference
+    for k, v in pm.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_serve_cli_build_recommender_tiny(tmp_path):
+    """serve_cli.build_recommender with --tiny on the CPU: a seeded joint
+    model around a saved Item Q-Former checkpoint, in bf16 precision and in
+    int8 with the adapters merged (8 x 64 = 512 rows: the fused blocks);
+    a saved joint checkpoint reloads to the same embeddings; --dp and
+    --hf-path are refused."""
+    from unirec_tpu_torch.cli import serve_cli
+    from unirec_tpu_torch.utils.checkpoint import save_checkpoint
+    from unirec_tpu_torch.utils.weights import init_item_qformer
+
+    rng = np.random.RandomState(12)
+    n = 10
+    item_ids = [f"i{j}" for j in range(n)]
+    qf = init_item_qformer(QF8, torch.Generator().manual_seed(1))
+    save_checkpoint(str(tmp_path / "iq"), qf, QF8,
+                    extra={"field_names": ["a", "b", "c"]})
+    FieldEmbeddingCache(rng.randn(n, F, FD).astype(np.float32),
+                        np.ones((n, F), np.float32), ["a", "b", "c"],
+                        item_ids).save(str(tmp_path / "cache"))
+    (tmp_path / "items.json").write_text(json.dumps(
+        {i: {"title": f"Item {i}"} for i in item_ids}))
+    (tmp_path / "catalog.json").write_text(json.dumps(
+        {i: rng.randn(QF8.hidden_size).tolist() for i in item_ids}))
+    base = ["--qformer-checkpoint", str(tmp_path / "iq"),
+            "--cache-dir", str(tmp_path / "cache"),
+            "--item-dict", str(tmp_path / "items.json"),
+            "--catalog", str(tmp_path / "catalog.json"),
+            "--tiny", "--max-length", "64", "--prewarm"]
+    hists = [["i0", "i1"], ["i3"], []]
+    bf16 = serve_cli.build_recommender(serve_cli.parse_args(base))
+    int8 = serve_cli.build_recommender(serve_cli.parse_args(
+        base + ["--precision", "int8", "--merge-lora"]))
+    assert int8.model.qwen_config.fused_int8_inference
+    assert int8.model.base_model.layers[0].mlp.gate_up_q is not None
+    u_bf, u_8 = bf16.encode_users(hists), int8.encode_users(hists)
+    assert ((u_bf * u_8).sum(-1) >= 0.98).all()  # the int8 quality class
+    recs = int8.recommend(hists, k=3)
+    assert all(len(r) == 3 for r in recs)
+
+    save_checkpoint(str(tmp_path / "joint"), bf16.model)
+    again = serve_cli.build_recommender(serve_cli.parse_args(
+        base + ["--checkpoint", str(tmp_path / "joint")]))
+    np.testing.assert_array_equal(again.encode_users(hists), u_bf)
+    with pytest.raises(NotImplementedError, match="dp"):
+        serve_cli.build_recommender(serve_cli.parse_args(base + ["--dp", "1"]))
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        serve_cli.build_recommender(serve_cli.parse_args(
+            base + ["--hf-path", str(tmp_path)]))

@@ -13,7 +13,11 @@
 //   B4  fused_self_attention_block_q  (_self_block_kernel_q)
 //   B5  fused_cross_attention_block_q (_cross_block_kernel_q)
 //   B6  fused_ffn_block_q             (_ffn_kernel_q)
-// (int8 projections with int32 sums; see the W8A8 section below).
+// (int8 projections with int32 sums; see the W8A8 section below), and the
+// W8A8 kernels of the int8 Qwen3 serving forward (last section):
+//   B8  unirec_tpu/ops/int8_matmul.py int8_linear       (_kernel)
+//   B9a unirec_tpu/ops/fused_qwen3_int8.py qkv_int8      (_qkv_kernel)
+//   B9b unirec_tpu/ops/fused_qwen3_int8.py swiglu_mlp_int8 (_mlp_kernel)
 //
 // What bounds them: the projections.  At the production shape (hidden 1024,
 // 16 heads of 64, K=32 queries, F=14 fields, intermediate 4096) an item costs
@@ -444,7 +448,14 @@ constexpr int QA_TILE = BM * QLDS;
 constexpr int QW_TILE = BN * QLDS;
 constexpr int QGEMM_SMEM = STAGES * (QA_TILE + QW_TILE);  // 61,440
 
-enum { EPQ_BIAS = 0, EPQ_BIAS_GELU = 1, EPQ_BIAS_RESID = 2, EPQ_CHUNKED_RESID = 3 };
+enum {
+  EPQ_BIAS = 0,
+  EPQ_BIAS_GELU = 1,
+  EPQ_BIAS_RESID = 2,
+  EPQ_CHUNKED_RESID = 3,
+  EPQ_PLAIN = 4,
+  EPQ_SWIGLU = 5
+};
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -464,8 +475,14 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
 //   EPQ_CHUNKED_RESID f = sum over groups of float(acc_group) * rs_group, in
 //                     group order; f * cs + bias + resid -> fp32 (the FFN's
 //                     down projection, its h requantized per chunk)
-// M any; N a multiple of 8; K a multiple of 16 (of `chunk`, itself a multiple
-// of QBK, for EPQ_CHUNKED_RESID).
+//   EPQ_PLAIN         (acc * rs) * cs -> bf16, no bias (the Qwen3 projections)
+//   EPQ_SWIGLU        W is [gate rows | up rows] ([2I, K], N = 2I); the tile
+//                     loader interleaves them in groups of 8, so that fragment
+//                     ni (even) holds gate and ni + 1 up of the same 8 columns
+//                     of h, and C[M, I] fp32 = (g * sigmoid(g)) * u with
+//                     g = (acc_g * rs) * cs_g, u = (acc_u * rs) * cs_u
+// M any; N a multiple of 8 (of 16 for EPQ_SWIGLU); K a multiple of 16 (of
+// `chunk`, itself a multiple of QBK, for EPQ_CHUNKED_RESID).
 template <int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
@@ -499,8 +516,15 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
       const int gk = k0 + kc;
       const bool pa = gk < K && m0 + r < M;
       cp_async_16(smem_addr(as + r * QLDS + kc), pa ? A + (size_t)(m0 + r) * K + gk : A, pa);
-      const bool pw = gk < K && n0 + r < N;
-      cp_async_16(smem_addr(ws + r * QLDS + kc), pw ? W + (size_t)(n0 + r) * K + gk : W, pw);
+      int wrow = n0 + r;
+      bool pw = gk < K && wrow < N;
+      if constexpr (EPI == EPQ_SWIGLU) {  // tile row r: gate (r & 8 == 0) or up
+        const int inter = N >> 1;
+        const int hcol = (n0 >> 1) + (r >> 4) * 8 + (r & 7);
+        wrow = hcol + ((r & 8) ? inter : 0);
+        pw = gk < K && hcol < inter;
+      }
+      cp_async_16(smem_addr(ws + r * QLDS + kc), pw ? W + (size_t)wrow * K + gk : W, pw);
     }
   };
 
@@ -584,43 +608,79 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
   cp_async_wait<0>();
 
   // accumulator fragment: c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at row g + 8
+  if constexpr (EPI == EPQ_SWIGLU) {
+    const int inter = N >> 1;
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + t4 * 2;
-    if (col >= N) continue;
-    const float cs[2] = {col_scale[col], col_scale[col + 1]};
-    const float bs[2] = {bias[col], bias[col + 1]};
+    for (int ni = 0; ni < 4; ni += 2) {  // ni: gate, ni + 1: up, same columns of h
+      const int col = (n0 >> 1) + (wn * 2 + (ni >> 1)) * 8 + t4 * 2;
+      if (col >= inter) continue;
+      const float cg[2] = {col_scale[col], col_scale[col + 1]};
+      const float cu[2] = {col_scale[inter + col], col_scale[inter + col + 1]};
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
+      for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
-        if (row >= M) continue;
-        const size_t off = (size_t)row * N + col;
-        float v[2];
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
+          if (row >= M) continue;
+          const float rs = row_scale[(size_t)row * rs_stride];
+          float h[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if constexpr (EPI == EPQ_CHUNKED_RESID) {
-            v[e] = __fmul_rn(facc[mi][ni][2 * hf + e], cs[e]);
-          } else {
-            const float rs = row_scale[(size_t)row * rs_stride];
-            v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * hf + e]), rs), cs[e]);
+          for (int e = 0; e < 2; ++e) {
+            const float gv =
+                __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * hf + e]), rs), cg[e]);
+            const float uv =
+                __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni + 1][2 * hf + e]), rs), cu[e]);
+            const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gv)));
+            h[e] = __fmul_rn(__fmul_rn(gv, sig), uv);
           }
-          v[e] = __fadd_rn(v[e], bs[e]);
+          *reinterpret_cast<float2*>(static_cast<float*>(C) + (size_t)row * inter + col) =
+              make_float2(h[0], h[1]);
         }
-        if constexpr (EPI == EPQ_BIAS) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + off) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        } else {
-          if constexpr (EPI == EPQ_BIAS_GELU) {
-            v[0] = gelu_tanh(v[0]);
-            v[1] = gelu_tanh(v[1]);
-          } else {
-            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(resid + off);
-            v[0] = __fadd_rn(v[0], __bfloat162float(r.x));
-            v[1] = __fadd_rn(v[1], __bfloat162float(r.y));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn * 32 + ni * 8 + t4 * 2;
+      if (col >= N) continue;
+      const float cs[2] = {col_scale[col], col_scale[col + 1]};
+      float bs[2] = {0.f, 0.f};
+      if constexpr (EPI != EPQ_PLAIN) {
+        bs[0] = bias[col];
+        bs[1] = bias[col + 1];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
+          if (row >= M) continue;
+          const size_t off = (size_t)row * N + col;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if constexpr (EPI == EPQ_CHUNKED_RESID) {
+              v[e] = __fmul_rn(facc[mi][ni][2 * hf + e], cs[e]);
+            } else {
+              const float rs = row_scale[(size_t)row * rs_stride];
+              v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * hf + e]), rs), cs[e]);
+            }
+            if constexpr (EPI != EPQ_PLAIN) v[e] = __fadd_rn(v[e], bs[e]);
           }
-          *reinterpret_cast<float2*>(static_cast<float*>(C) + off) = make_float2(v[0], v[1]);
+          if constexpr (EPI == EPQ_BIAS || EPI == EPQ_PLAIN) {
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + off) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          } else {
+            if constexpr (EPI == EPQ_BIAS_GELU) {
+              v[0] = gelu_tanh(v[0]);
+              v[1] = gelu_tanh(v[1]);
+            } else {
+              const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(resid + off);
+              v[0] = __fadd_rn(v[0], __bfloat162float(r.x));
+              v[1] = __fadd_rn(v[1], __bfloat162float(r.y));
+            }
+            *reinterpret_cast<float2*>(static_cast<float*>(C) + off) = make_float2(v[0], v[1]);
+          }
         }
       }
     }
@@ -647,7 +707,10 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 // One warp per (row, group of `group` columns): absmax = max(max|x|, 1e-6),
 // q = rint(x * fl(127 / absmax)) (half to even, no clip: |q| <= 127),
 // scale[row * groups + g] = absmax / 127.  _row_quant of the JAX kernels.
-template <typename T>
+// RCP_SCALE: scale = absmax * fl(1 / 127), the form XLA compiles
+// `absmax / 127.0` to inside a jitted kernel (the Qwen3 blocks B8-B9b follow
+// their JAX kernels there; B4-B6 keep the division).
+template <typename T, bool RCP_SCALE = false>
 __global__ void __launch_bounds__(LN_THREADS)
 row_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
                  int rows, int width, int group) {
@@ -666,15 +729,15 @@ row_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restr
   int8_t* qr = q + off;
   for (int c = lane; c < group; c += 32)
     qr[c] = (int8_t)__float2int_rn(__fmul_rn(to_float(xr[c]), r));
-  if (lane == 0) scale[w] = absmax / 127.0f;
+  if (lane == 0) scale[w] = RCP_SCALE ? __fmul_rn(absmax, 1.0f / 127.0f) : absmax / 127.0f;
 }
 
-template <typename T>
+template <typename T, bool RCP_SCALE = false>
 cudaError_t row_quant(const void* x, void* q, float* scale, int rows, int width, int group,
                       cudaStream_t stream) {
   const int per_block = LN_THREADS / 32;
   const long long warps = (long long)rows * (width / group);
-  row_quant_kernel<T><<<(unsigned)((warps + per_block - 1) / per_block), LN_THREADS, 0,
+  row_quant_kernel<T, RCP_SCALE><<<(unsigned)((warps + per_block - 1) / per_block), LN_THREADS, 0,
                         stream>>>(static_cast<const T*>(x), static_cast<int8_t*>(q), scale,
                                   rows, width, group);
   return cudaGetLastError();
@@ -829,4 +892,56 @@ extern "C" int unirec_qformer_ffn_block_q(const void* x, const void* w1, const f
   UNIREC_TRY(gemm_s8<EPQ_CHUNKED_RESID>(hq, w2, hs, inter / chunk, s2, b2, x, acc, rows, d,
                                         inter, chunk, s));
   return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
+}
+
+// ------------------------------------------- Qwen3 W8A8 (B8, B9a, B9b) ----
+//
+// The int8 serving forward of the joint model's Qwen3-0.6B.  The same s8
+// GEMM and row quantization as B4-B6, with a bias-free dequantizing epilogue
+// to bf16 (EPQ_PLAIN) and the SwiGLU epilogue (EPQ_SWIGLU).  At batch 8 x
+// L 512 = 4096 rows a layer's projections are 129 GOP against 16 MB of int8
+// weights and ~60 MB of activations: bound by tensor-core arithmetic, as the
+// Item Q-Former's GEMMs are.
+//
+// B8 and B9a are one computation (JAX's int8_matmul._kernel and
+// fused_qwen3_int8._qkv_kernel both quantize each row with absmax/127 and
+// dequantize (float(acc) * rs) * cs, rs = absmax * fl(1/127) as XLA compiles
+// them), so B9a is unirec_int8_linear over the concatenated [Wq | Wk | Wv]
+// rows: one row-quantization pass into an int8 buffer, then the GEMM.  The
+// TPU kernel recomputes the row quantization per column tile to avoid that
+// buffer; the codes are the same.  B9b keeps the JAX kernel's grouping:
+// h = silu(g) * u in fp32, one row quantization over the whole intermediate,
+// then the down GEMM.  The TPU holds gu and h in VMEM; an SM cannot hold a
+// [rows, 3072] fp32 tile, so this first design writes h to HBM from the
+// gate|up epilogue (50 MB per layer at 4096 rows) and reads it twice in the
+// quantization pass, and its codes (12.6 MB) once in the down GEMM.
+
+// B8 (and B9a): out [m, n] bf16 = W8A8(x [m, k] bf16, wq [n, k] int8,
+// ws [n]); scratch xq [m, k] int8, xs [m] fp32.
+extern "C" int unirec_int8_linear(const void* x, const void* wq, const float* ws, void* out,
+                                  void* xq, float* xs, int m, int n, int k, void* stream) {
+  if (!gemm_s8_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  UNIREC_TRY((row_quant<bf16, true>(x, xq, xs, m, k, k, s)));
+  return (int)gemm_s8<EPQ_PLAIN>(xq, wq, xs, 1, ws, nullptr, nullptr, out, m, n, k, k, s);
+}
+
+// B9b: the whole SwiGLU MLP.  x, out [rows, d] bf16; wgu [2 * inter, d] int8
+// (gate rows, then up rows) with sgu [2 * inter]; wd [d, inter] int8, sd [d];
+// scratch xq [rows, d] int8, xs [rows], h [rows, inter] fp32, hq [rows,
+// inter] int8, hs [rows].
+extern "C" int unirec_qwen3_swiglu_q(const void* x, const void* wgu, const float* sgu,
+                                     const void* wd, const float* sd, void* out, void* xq,
+                                     float* xs, float* h, void* hq, float* hs, int rows, int d,
+                                     int inter, void* stream) {
+  if (inter <= 0 || inter % 16 != 0 || !gemm_s8_shape_ok(rows, 2 * inter, d) ||
+      !gemm_s8_shape_ok(rows, d, inter))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  UNIREC_TRY((row_quant<bf16, true>(x, xq, xs, rows, d, d, s)));
+  UNIREC_TRY(gemm_s8<EPQ_SWIGLU>(xq, wgu, xs, 1, sgu, nullptr, nullptr, h, rows, 2 * inter, d, d,
+                                 s));
+  UNIREC_TRY((row_quant<float, true>(h, hq, hs, rows, inter, inter, s)));
+  return (int)gemm_s8<EPQ_PLAIN>(hq, wd, hs, 1, sd, nullptr, nullptr, out, rows, d, inter, inter,
+                                 s);
 }

@@ -1,17 +1,22 @@
 """Tokenizers for the joint model (port of ``unirec_tpu/data/tokenizer.py``).
 
-Framework-free copy of ``BaseTokenizer`` and the md5 ``HashTokenizer``: the
-JAX module imports its ``history_token_strings`` from a module that pulls in
-JAX.  Both produce fixed-length right-padded ids and a prefix mask, and the
-reserved history special tokens resolve to ids ``>= base_vocab_size``.  The
-Hugging Face tokenizer waits: it needs tokenizer files.
+Framework-free copy of ``BaseTokenizer``, the md5 ``HashTokenizer`` and
+``make_tokenizer``: the JAX module imports its ``history_token_strings`` from
+a module that pulls in JAX.  Both produce fixed-length right-padded ids and a
+prefix mask, and the reserved history special tokens resolve to ids
+``>= base_vocab_size``.  ``encode_plain``, ``encode_plain_batch`` and
+``affix_ids`` are what ``serving/prompt_cache.py`` assembles prompts from.
+
+The Hugging Face tokenizer is not ported: it reads tokenizer files, and the
+repository holds none to load or test it with.  ``make_tokenizer`` with a
+path raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import re
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -33,8 +38,24 @@ class BaseTokenizer:
             tok: base_vocab_size + i for i, tok in enumerate(self.special_tokens)
         }
 
+    @property
+    def vocab_size(self) -> int:
+        return self.base_vocab_size + len(self.special_tokens)
+
     def _encode_text(self, text: str) -> List[int]:  # pragma: no cover
         raise NotImplementedError
+
+    def encode_plain(self, text: str) -> List[int]:
+        """Ids of a text fragment: no sequence affixes and no special tokens
+        inside (the prompt cache's unit)."""
+        return self._encode_text(text)
+
+    def encode_plain_batch(self, texts: Sequence[str]) -> List[List[int]]:
+        return [self.encode_plain(t) for t in texts]
+
+    def affix_ids(self) -> Tuple[List[int], List[int]]:
+        """(prefix, suffix) ids the tokenizer adds around a full sequence."""
+        return [], []
 
     def encode(self, text: str,
                max_length: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -45,6 +66,11 @@ class BaseTokenizer:
         out = np.full(max_length, self.pad_id, np.int32)
         out[: len(ids)] = ids
         return out, mask
+
+    def encode_batch(self, texts: Sequence[str], max_length: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        ids, masks = zip(*(self.encode(t, max_length) for t in texts))
+        return np.stack(ids), np.stack(masks)
 
 
 class HashTokenizer(BaseTokenizer):
@@ -59,3 +85,18 @@ class HashTokenizer(BaseTokenizer):
                 h = int(hashlib.md5(tok.lower().encode()).hexdigest(), 16)
                 ids.append(1 + h % (self.base_vocab_size - 1))  # never pad 0
         return ids
+
+
+def make_tokenizer(name_or_path: Optional[str] = None,
+                   base_vocab_size: int = 151669,
+                   num_history_items: int = 10,
+                   num_query_tokens_per_item: int = 2) -> BaseTokenizer:
+    """The hash tokenizer; a tokenizer path raises, since the Hugging Face
+    tokenizer is not ported (it would silently change every prompt to fall
+    back to hash tokens)."""
+    if name_or_path:
+        raise NotImplementedError(
+            f"the Hugging Face tokenizer ({name_or_path!r}) is not ported: "
+            "pass no path to use the hash tokenizer")
+    return HashTokenizer(base_vocab_size, num_history_items,
+                         num_query_tokens_per_item)

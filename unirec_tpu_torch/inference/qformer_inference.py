@@ -92,7 +92,7 @@ class QFormerInference:
         if precision not in ("bf16", "int8"):
             raise ValueError(f"precision must be bf16 or int8, got {precision!r}")
         if checkpoint_path is not None:
-            config, params, field_names = self._load_checkpoint(checkpoint_path)
+            config, params, field_names = self.read_checkpoint(checkpoint_path)
         if config is None or params is None or field_names is None:
             raise ValueError(
                 "provide checkpoint_path or (config, params, field_names)")
@@ -123,9 +123,10 @@ class QFormerInference:
         self._data_cache: Dict[str, Dict] = {}
 
     @staticmethod
-    def _load_checkpoint(path: str):
-        """A checkpoint directory of ``utils/checkpoint.py`` or a reference
-        ``.pth`` (converted through ``unirec_tpu.utils.torch_convert``)."""
+    def read_checkpoint(path: str):
+        """(config, ``ItemQFormer`` state_dict, field names) of a checkpoint
+        directory of ``utils/checkpoint.py`` or a reference ``.pth``
+        (converted through ``unirec_tpu.utils.torch_convert``)."""
         if os.path.isdir(path):
             from unirec_tpu_torch.utils.checkpoint import (
                 load_checkpoint,

@@ -63,6 +63,22 @@ class MultiModalQwenEmbedding(nn.Module):
                                      device=device, dtype=dtype)
         self.qformer = ItemQFormer(qformer_config, device=device, dtype=dtype)
 
+    def clone(self, state_dict: Optional[Dict[str, torch.Tensor]] = None,
+              **changes) -> "MultiModalQwenEmbedding":
+        """A new module over ``state_dict`` (default: this model's own), with
+        the constructor arguments in ``changes`` (``qwen_config``, ``lora``,
+        ...) replaced: Flax's ``model.clone``.  The tensors are shared, not
+        copied, and this model is left as it is."""
+        kw = dict(qwen_config=self.qwen_config,
+                  qformer_config=self.qformer_config,
+                  joint_config=self.joint_config, lora=self.lora)
+        kw.update(changes)
+        new = MultiModalQwenEmbedding(**kw, device="meta", dtype=self.dtype)
+        new.load_state_dict(
+            self.state_dict() if state_dict is None else state_dict,
+            assign=True)
+        return new.train(self.training)
+
     @property
     def num_special_tokens(self) -> int:
         jc = self.joint_config

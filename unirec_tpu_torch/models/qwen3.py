@@ -11,12 +11,24 @@ additive-mask path) for CPU tensors.
 Parameter names follow the Flax tree (``layers.{i}`` for ``layers_{i}``);
 RMSNorm scales stay float32 as in Flax, everything else is stored in the
 model dtype.  ``lora_a [in, r]`` and ``lora_b [r, out]`` keep the Flax layout.
-The int8 ``qweights`` and ``y_base`` branches wait for the int8 slice.
+
+The int8 (W8A8) forward: ``quantize_qwen3_weights`` quantizes the seven
+projections per output column, and ``set_qweights`` attaches the codes and
+scales to the ``LoRADense`` modules as non-persistent buffers (``weight_q``,
+``weight_scale``; the state_dict neither carries nor needs them), the JAX
+package's ``qweights`` collection.  A projection with them runs
+``ops/int8_ste.int8_linear_ste`` (kernel B8 on the card) with the LoRA
+overlay added in the model dtype.  ``Qwen3Config.fused_int8_inference``
+(LoRA absent or merged) routes q|k|v through kernel B9a and the whole MLP
+through B9b; ``fused_int8_training`` runs q|k|v and gate|up as one wide STE
+linear each with bias and LoRA on top (``y_base``).  The guards are the JAX
+ones (``ops/fused_qwen3_int8.supports_fused_qwen3``); otherwise each
+projection runs on its own.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +36,14 @@ from torch import nn
 
 from unirec_tpu.configs import LoRAConfig, Qwen3Config
 from unirec_tpu_torch.ops.flash_causal import flash_causal_attention
+from unirec_tpu_torch.ops.fused_qformer_int8 import quantize_weight
+from unirec_tpu_torch.ops.fused_qwen3_int8 import (
+    int8_linear_fused_ste,
+    qkv_int8,
+    supports_fused_qwen3,
+    swiglu_mlp_int8,
+)
+from unirec_tpu_torch.ops.int8_ste import int8_linear_ste
 
 
 class RMSNorm(nn.Module):
@@ -67,7 +87,11 @@ class LoRADense(nn.Module):
 
     ``lora_mid`` is the grouped form: the caller already computed ``x A`` for
     several projections sharing ``x`` in one matmul and passes this module's
-    ``[..., r]`` slice.  At inference both forms are the same maths."""
+    ``[..., r]`` slice.  At inference both forms are the same maths.
+    ``y_base`` is the base projection computed by the caller through a fused
+    kernel spanning several modules; this module adds bias and LoRA.  With
+    ``weight_q`` / ``weight_scale`` set (``set_qweights``) the base
+    projection is the int8 one."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = False,
                  lora: Optional[LoRAConfig] = None, lora_enabled: bool = False,
@@ -86,10 +110,23 @@ class LoRADense(nn.Module):
             self.lora_b = nn.Parameter(
                 torch.zeros(lora.r, features, device=device, dtype=dtype))
             self.scaling = lora.scaling
+        self.register_buffer("weight_q", None, persistent=False)
+        self.register_buffer("weight_scale", None, persistent=False)
 
     def forward(self, x: torch.Tensor,
-                lora_mid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y = F.linear(x, self.weight, self.bias)
+                lora_mid: Optional[torch.Tensor] = None,
+                y_base: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.weight.dtype
+        if y_base is None and self.weight_q is None:
+            y = F.linear(x, self.weight, self.bias)
+        else:
+            if y_base is not None:
+                y = y_base
+            else:
+                y = int8_linear_ste(x.to(dtype), self.weight_q,
+                                    self.weight_scale).to(dtype)
+            if self.bias is not None:
+                y = y + self.bias
         if self.lora_a is not None:
             mid = lora_mid if lora_mid is not None else x @ self.lora_a
             y = y + (mid @ self.lora_b) * self.scaling
@@ -129,6 +166,35 @@ class Qwen3Attention(nn.Module):
         self.k_norm = RMSNorm(c.head_dim, c.rms_norm_eps, **kw)
         self.o_proj = LoRADense(c.q_size, c.hidden_size, lora=lora,
                                 lora_enabled=_lora_on(lora, "o_proj"), **kw)
+        # int8 [Wq | Wk | Wv] rows and scales (set_qweights); the three
+        # modules' weight_q / weight_scale are views into them
+        self.register_buffer("qkv_q", None, persistent=False)
+        self.register_buffer("qkv_scale", None, persistent=False)
+
+    def projections(self, hidden: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q [B, L, Hq*hd], k and v [B, L, Hkv*hd] before norm and RoPE."""
+        c = self.config
+        b, l, d = hidden.shape
+        rows, mods = b * l, (self.q_proj, self.k_proj, self.v_proj)
+        fused = self.qkv_q is not None and supports_fused_qwen3(rows, d)
+        dtype = self.q_proj.weight.dtype
+        if (fused and c.fused_int8_inference and self.lora is None
+                and not c.attention_bias):
+            # one row quantization feeds the concatenated int8 matmul (B9a)
+            qkv = qkv_int8(hidden.reshape(rows, d).to(dtype), self.qkv_q,
+                           self.qkv_scale)
+            return tuple(t.reshape(b, l, -1) for t in
+                         qkv.split([c.q_size, c.kv_size, c.kv_size], dim=1))
+        if fused and c.fused_int8_training:
+            # the frozen base as one wide STE linear; bias and LoRA on top
+            qkv = int8_linear_fused_ste(hidden.reshape(rows, d).to(dtype),
+                                        self.qkv_q, self.qkv_scale.float())
+            parts = qkv.split([c.q_size, c.kv_size, c.kv_size], dim=1)
+            return tuple(m(hidden, y_base=t.reshape(b, l, -1))
+                         for m, t in zip(mods, parts))
+        mids = _grouped_mids(self.lora, hidden, mods)
+        return tuple(m(hidden, mid) for m, mid in zip(mods, mids))
 
     def qkv(self, hidden: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -136,15 +202,12 @@ class Qwen3Attention(nn.Module):
         after the per-head RMSNorm and RoPE, and v [B, L, Hkv*hd]."""
         c = self.config
         b, l, _ = hidden.shape
-        mods = (self.q_proj, self.k_proj, self.v_proj)
-        q_mid, k_mid, v_mid = _grouped_mids(self.lora, hidden, mods)
-        q = self.q_proj(hidden, q_mid).reshape(b, l, c.num_attention_heads,
-                                               c.head_dim)
-        k = self.k_proj(hidden, k_mid).reshape(b, l, c.num_key_value_heads,
-                                               c.head_dim)
+        q, k, v = self.projections(hidden)
+        q = q.reshape(b, l, c.num_attention_heads, c.head_dim)
+        k = k.reshape(b, l, c.num_key_value_heads, c.head_dim)
         q = apply_rope(self.q_norm(q), cos, sin).reshape(b, l, c.q_size)
         k = apply_rope(self.k_norm(k), cos, sin).reshape(b, l, c.kv_size)
-        return q, k, self.v_proj(hidden, v_mid).contiguous()
+        return q, k, v.contiguous()
 
     def forward(self, hidden: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
@@ -163,7 +226,7 @@ class Qwen3MLP(nn.Module):
         super().__init__()
         d, i = config.hidden_size, config.intermediate_size
         kw = dict(device=device, dtype=dtype)
-        self.lora = lora
+        self.config, self.lora = config, lora
         self.gate_proj = LoRADense(d, i, lora=lora,
                                    lora_enabled=_lora_on(lora, "gate_proj"),
                                    **kw)
@@ -172,12 +235,38 @@ class Qwen3MLP(nn.Module):
         self.down_proj = LoRADense(i, d, lora=lora,
                                    lora_enabled=_lora_on(lora, "down_proj"),
                                    **kw)
+        # int8 [Wgate | Wup] rows and scales (set_qweights), as Qwen3Attention
+        self.register_buffer("gate_up_q", None, persistent=False)
+        self.register_buffer("gate_up_scale", None, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g_mid, u_mid = _grouped_mids(self.lora, x,
-                                     (self.gate_proj, self.up_proj))
-        h = F.silu(self.gate_proj(x, g_mid)) * self.up_proj(x, u_mid)
-        return self.down_proj(h)
+        c = self.config
+        b, l, d = x.shape
+        rows, inter = b * l, c.intermediate_size
+        fused = (self.gate_up_q is not None
+                 and supports_fused_qwen3(rows, d, inter))
+        dtype = self.gate_proj.weight.dtype
+        if (fused and c.fused_int8_inference and self.lora is None
+                and self.down_proj.weight_q is not None):
+            # the whole MLP as one kernel (B9b)
+            out = swiglu_mlp_int8(x.reshape(rows, d).to(dtype),
+                                  self.gate_up_q, self.gate_up_scale,
+                                  self.down_proj.weight_q,
+                                  self.down_proj.weight_scale)
+            return out.reshape(b, l, d)
+        if fused and c.fused_int8_training:
+            # gate|up as one wide STE linear; LoRA perturbs gate and up
+            # before the nonlinearity, so silu stays outside the kernel
+            gu = int8_linear_fused_ste(x.reshape(rows, d).to(dtype),
+                                       self.gate_up_q,
+                                       self.gate_up_scale.float())
+            gate = self.gate_proj(x, y_base=gu[:, :inter].reshape(b, l, inter))
+            up = self.up_proj(x, y_base=gu[:, inter:].reshape(b, l, inter))
+        else:
+            g_mid, u_mid = _grouped_mids(self.lora, x,
+                                         (self.gate_proj, self.up_proj))
+            gate, up = self.gate_proj(x, g_mid), self.up_proj(x, u_mid)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class Qwen3Layer(nn.Module):
@@ -269,3 +358,73 @@ def last_token_pool(hidden: torch.Tensor,
     """Last non-padding position (right padding)."""
     lengths = attention_mask.sum(dim=1).long() - 1
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), lengths]
+
+
+# -- int8 (W8A8) weights --------------------------------------------------------
+
+INT8_DENSE_NAMES = frozenset({"q_proj", "k_proj", "v_proj", "o_proj",
+                              "gate_proj", "up_proj", "down_proj"})
+
+
+def quantize_qwen3_weights(model_or_state_dict) -> Dict[str, torch.Tensor]:
+    """The seven projections of every Qwen3 layer -> int8 weights, as
+    ``unirec_tpu/models/qwen3.quantize_qwen3_weights``: each weight as
+    stored, upcast to float32, quantized per output column (absmax / 127
+    with a 1e-8 floor).  Returns ``{"<module>.weight_q": int8 [out, in],
+    "<module>.weight_scale": float32 [out]}`` keyed by the module names of
+    the model (or state_dict) given; LoRA, norms and embeddings are left
+    out."""
+    sd = (model_or_state_dict.state_dict()
+          if isinstance(model_or_state_dict, nn.Module)
+          else model_or_state_dict)
+    out: Dict[str, torch.Tensor] = {}
+    for key, w in sd.items():
+        prefix, _, leaf = key.rpartition(".")
+        if (leaf == "weight" and prefix.rpartition(".")[2] in INT8_DENSE_NAMES
+                and w.dim() == 2):
+            out[prefix + ".weight_q"], out[prefix + ".weight_scale"] = (
+                quantize_weight(w))
+    return out
+
+
+def set_qweights(model: nn.Module,
+                 qweights: Optional[Dict[str, torch.Tensor]]) -> None:
+    """Attach ``quantize_qwen3_weights``' output to ``model``'s projections
+    (moved to each module's device), or detach all with ``None``.  Where
+    q/k/v (gate/up) all have int8 weights they are stored once,
+    concatenated, on the attention (MLP) module for B9a (B9b), and the
+    projections read views of that buffer."""
+    modules = dict(model.named_modules())
+    for mod in modules.values():
+        if isinstance(mod, LoRADense):
+            mod.weight_q = mod.weight_scale = None
+        elif isinstance(mod, Qwen3Attention):
+            mod.qkv_q = mod.qkv_scale = None
+        elif isinstance(mod, Qwen3MLP):
+            mod.gate_up_q = mod.gate_up_scale = None
+    for key, t in (qweights or {}).items():
+        prefix, _, leaf = key.rpartition(".")
+        mod = modules.get(prefix)
+        if not isinstance(mod, LoRADense) or leaf not in ("weight_q",
+                                                          "weight_scale"):
+            raise KeyError(f"{key} names no projection of the model")
+        setattr(mod, leaf, t.to(mod.weight.device))
+    for mod in modules.values():
+        if isinstance(mod, Qwen3Attention):
+            _concat_qweights(mod, (mod.q_proj, mod.k_proj, mod.v_proj),
+                             "qkv_q", "qkv_scale")
+        elif isinstance(mod, Qwen3MLP):
+            _concat_qweights(mod, (mod.gate_proj, mod.up_proj), "gate_up_q",
+                             "gate_up_scale")
+
+
+def _concat_qweights(owner: nn.Module, mods, codes: str, scales: str) -> None:
+    if any(m.weight_q is None for m in mods):
+        return
+    q = torch.cat([m.weight_q for m in mods], dim=0)
+    s = torch.cat([m.weight_scale for m in mods], dim=0)
+    setattr(owner, codes, q)
+    setattr(owner, scales, s)
+    sizes = [m.weight_q.shape[0] for m in mods]
+    for m, mq, ms in zip(mods, q.split(sizes), s.split(sizes)):
+        m.weight_q, m.weight_scale = mq, ms

@@ -98,6 +98,10 @@ def load_kernels() -> Kernels:
     lib.unirec_qformer_cross_block_q.restype = _I
     lib.unirec_qformer_ffn_block_q.argtypes = [_P] * 16 + [_I] * 4 + [_F, _P]
     lib.unirec_qformer_ffn_block_q.restype = _I
+    lib.unirec_int8_linear.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.unirec_int8_linear.restype = _I
+    lib.unirec_qwen3_swiglu_q.argtypes = [_P] * 11 + [_I] * 3 + [_P]
+    lib.unirec_qwen3_swiglu_q.restype = _I
     return Kernels(lib, out, seconds, log)
 
 

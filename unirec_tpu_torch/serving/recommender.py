@@ -8,31 +8,36 @@ copy of the catalog (``ops/quantization``: ``quantize_rows`` once, then
 ``retrieve_top_k_int8``, kernel B11).  The field-embedding cache lives on
 the device in bfloat16, as in the JAX package, so each batch uploads
 ``[B, H]`` row indices and ``[B]`` prompt lengths instead of gathered
-embeddings and masks.
+embeddings and masks.  Prompts come from ``serving/prompt_cache``, whose ids
+equal ``tokenizer.encode(construct_input_text(...))``.
 
-Prompts are ``tokenizer.encode(construct_input_text(...))``: the JAX
-package's fragment cache is exact by construction, so this gives the same
-ids.  ``precision="int8"`` (the W8A8 Qwen3 forward), ``merge_lora``, meshes
-and the prompt cache wait.
+``precision="int8"`` runs the Qwen3 forward in W8A8 (``models/qwen3``:
+``quantize_qwen3_weights``, kernel B8 per projection on the card);
+``merge_lora=True`` folds the adapters into the base weights first, and then
+``fused_blocks`` (default on for int8) routes q|k|v and the MLP through
+kernels B9a and B9b.  As the JAX class clones its Flax module, the
+recommender builds its own module over the caller's tensors
+(``MultiModalQwenEmbedding.clone``): the caller's model, its weights and its
+config are never changed.  Meshes wait (A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from unirec_tpu.data.cache import FieldEmbeddingCache
 from unirec_tpu_torch.data.tokenizer import BaseTokenizer
-from unirec_tpu_torch.models.joint import (
-    MultiModalQwenEmbedding,
-    construct_input_text,
-)
+from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
+from unirec_tpu_torch.models.qwen3 import quantize_qwen3_weights, set_qweights
 from unirec_tpu_torch.ops.losses import l2_normalize
 from unirec_tpu_torch.ops.quantization import quantize_rows, retrieve_top_k_int8
 from unirec_tpu_torch.ops.ranking import retrieve_top_k
+from unirec_tpu_torch.serving.prompt_cache import CachedPromptEncoder
+from unirec_tpu_torch.utils.params import merged_model
 
 
 @dataclasses.dataclass
@@ -50,14 +55,29 @@ class Recommender:
                  field_cache: FieldEmbeddingCache,
                  catalog_embeddings: Dict[str, Sequence[float]],
                  batch_size: int = 8, precision: str = "bf16",
-                 quantize_catalog: bool = False):
-        """``precision="bf16"`` is the non-int8 serving path of the JAX
-        package; the compute dtype is the model's own.
-        ``quantize_catalog`` keeps the catalog on the device as int8 rows
-        with float32 scales and ranks over them (the JAX flag of the same
-        name); ``score_candidates`` still reads the float32 catalog."""
-        if precision != "bf16":
-            raise ValueError(f"only precision='bf16' is ported, got {precision!r}")
+                 quantize_catalog: bool = False, merge_lora: bool = False,
+                 fused_blocks: Optional[bool] = None):
+        """``precision`` is "bf16" (the compute dtype is the model's own) or
+        "int8" (W8A8 projections quantized from the weights as they are).
+        ``merge_lora`` and ``fused_blocks`` take the JAX defaults: no merge,
+        and the fused int8 blocks whenever precision is int8 and no adapter
+        is live.  ``quantize_catalog`` keeps the catalog on the device as
+        int8 rows with float32 scales and ranks over them (the JAX flag of
+        the same name); ``score_candidates`` still reads the float32
+        catalog."""
+        if precision not in ("bf16", "int8"):
+            raise ValueError(f"precision must be bf16 or int8, got {precision!r}")
+        if merge_lora:
+            model = merged_model(model)
+        if fused_blocks is None:
+            fused_blocks = precision == "int8"
+        if precision == "int8":
+            cfg = model.qwen_config
+            if fused_blocks and model.lora is None:
+                cfg = dataclasses.replace(cfg, fused_int8_inference=True)
+            model = model.clone(qwen_config=cfg)  # the caller's stays as is
+            set_qweights(model, quantize_qwen3_weights(model))
+        self.precision = precision
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.tokenizer = tokenizer
@@ -83,6 +103,13 @@ class Recommender:
                 device=self.device, dtype=torch.bfloat16)
         self._cache_mask_dev = torch.from_numpy(
             np.asarray(field_cache.masks, np.float32)).to(self.device)
+        self._prompt = CachedPromptEncoder(tokenizer, item_dict,
+                                           self.jc.num_history_items,
+                                           self.jc.num_query_tokens_per_item)
+
+    def prewarm_prompts(self, item_ids=None, slots=None) -> int:
+        """Tokenize prompt fragments ahead of traffic (prompt_cache)."""
+        return self._prompt.prewarm(item_ids, slots)
 
     # -- user encoding -----------------------------------------------------
 
@@ -97,11 +124,8 @@ class Recommender:
         for i, history in enumerate(histories):
             history = [str(h) for h in history][-jc.num_history_items:]
             rows[i, : len(history)] = self.cache.rows_for(history)
-            text = construct_input_text(history, self.item_dict,
-                                        jc.num_history_items,
-                                        jc.num_query_tokens_per_item)
-            input_ids[i], mask = self.tokenizer.encode(text, jc.max_length)
-            lengths[i] = int(mask.sum())
+            input_ids[i], lengths[i] = self._prompt.encode_ids(history,
+                                                               jc.max_length)
         return input_ids, lengths, rows
 
     @torch.no_grad()

@@ -21,6 +21,8 @@ from a ``torch.Generator`` with the Flax initialisers' distributions, for
 runs that have no checkpoint (the card machine has no Flax to make weights
 with).  ``item_qformer_state_dict_from_flax`` is the bridge for an Item
 Q-Former tree, a reference ``.pth`` converted by ``torch_convert`` included.
+``qweights_from_flax`` carries a JAX ``qweights`` collection (the int8 Qwen3
+projections) across.
 """
 
 from __future__ import annotations
@@ -100,6 +102,30 @@ def joint_state_dict_from_flax(params: Mapping[str, Any],
             f"configs say {qwen_cfg.num_hidden_layers} / "
             f"{qf_cfg.num_hidden_layers}")
     return sd
+
+
+def qweights_from_flax(qweights: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``qweights`` collection (``quantize_qwen3_weights``' output, as
+    numpy or array leaves) -> the port's int8 weights for
+    ``models/qwen3.set_qweights``: ``kernel_q [in, out]`` -> ``weight_q
+    [out, in]`` int8, ``kernel_scale`` -> ``weight_scale [out]`` float32,
+    names mapped as ``flax_to_state_dict`` maps them."""
+    tree = qweights.get("qweights", qweights)
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(tree):
+        names = []
+        for part in path[:-1]:
+            m = _INDEXED.match(part)
+            names.extend((m.group(1), m.group(2)) if m else (part,))
+        if path[-1] == "kernel_q":
+            arr, leaf_name = np.asarray(leaf, np.int8).T, "weight_q"
+        elif path[-1] == "kernel_scale":
+            arr, leaf_name = np.asarray(leaf, np.float32).reshape(-1), "weight_scale"
+        else:
+            raise ValueError(f"{'/'.join(path)}: not a qweights leaf")
+        out[".".join(names + [leaf_name])] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return out
 
 
 def item_qformer_state_dict_from_flax(params: Mapping[str, Any]
