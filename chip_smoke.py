@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
 serving path (over a float32 and an int8 catalog, and with the W8A8 int8
-Qwen3 forward) and the item-token sweep (bf16 and W8A8 int8).
+Qwen3 forward), the item-token sweep (bf16 and W8A8 int8) and joint training.
 
     python3 chip_smoke.py
 
@@ -12,17 +12,21 @@ Phases (any failed check raises; the script then exits non-zero):
    nvcc per source for sm_90a, started together; ``-Xptxas -v`` printed).
 3. kernels vs plain versions at the slices' shapes, timed with CUDA events:
    K1 causal GQA flash attention (B=8, L=512, 16/8 heads, hd 128, row lengths
-   1..512) in fp32 and bf16; K2 blocked top-k retrieval (8 and 64 users,
-   20,000 x 1,024 catalog, k=20) and B11, the same over the catalog
-   quantized to int8; B1/B2/B3, the Item Q-Former's self, cross and FFN
-   blocks in bf16 at production widths (hidden 1024, 16 heads, K=32, F=14,
-   intermediate 4096) for 4096 and a ragged 1001 items (B1 also at the 1-item
-   layer-0 shape), with ~15% missing fields and >= 8 items that have none;
-   B1/B2 at K=128 and 256 (64 items); B4/B5/B6, the W8A8 blocks, as B1-B3;
-   B8, the W8A8 linear, at the Qwen3-0.6B serving projections (4096 rows:
-   1024->2048, 1024->1024, 2048->1024, 1024->3072, 3072->1024; and
-   1024->2048 at 16384 rows), B9a (q|k|v, [4096, 1024] -> 4096) and B9b (the
-   SwiGLU MLP, [4096, 1024], intermediate 3072).
+   1..512) in fp32 and bf16, beside ``scaled_dot_product_attention`` (the
+   yardstick, never called by the port); K1's training form (o, m, l) and
+   B7b, the flash backward's dq and dk/dv kernels, at the same shape with
+   random right padding, against their plain versions, and the kernels'
+   forward + backward beside the plain path and SDPA's; K2 blocked top-k
+   retrieval (8 and 64 users, 20,000 x 1,024 catalog, k=20) and B11, the same
+   over the catalog quantized to int8; B1/B2/B3, the Item Q-Former's self,
+   cross and FFN blocks in bf16 at production widths (hidden 1024, 16 heads,
+   K=32, F=14, intermediate 4096) for 4096 and a ragged 1001 items (B1 also
+   at the 1-item layer-0 shape), with ~15% missing fields and >= 8 items
+   that have none; B1/B2 at K=128 and 256 (64 items); B4/B5/B6, the W8A8
+   blocks, as B1-B3; B8, the W8A8 linear, at the Qwen3-0.6B serving
+   projections (4096 rows: 1024->2048, 1024->1024, 2048->1024, 1024->3072,
+   3072->1024; and 1024->2048 at 16384 rows), B9a (q|k|v, [4096, 1024] ->
+   4096) and B9b (the SwiGLU MLP, [4096, 1024], intermediate 3072).
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
@@ -57,7 +61,22 @@ Phases (any failed check raises; the script then exits non-zero):
    to the engine on the plain block functions and to the fp32
    ``ItemQFormer``; items/s, TFLOP/s, peak memory and a ``torch.profiler``
    breakdown by kernel.
-6. the ``kernels`` JSON line, then the last line ``{"ok": true, ...}``.
+6. joint training at full width (``Qwen3Config()``, LoRA r=16 on the seven
+   projections, the sweep's ``ItemQFormerConfig()`` checkpoint, L=512, batch
+   8, 10 history items x 14 fields x 1024, 10 negatives; bf16 compute with
+   float32 masters and a bf16 frozen base): one step's loss and gradients
+   with flash-VJP attention (28 launches each of K1, B7b dq and B7b dk/dv),
+   on the plain attention path (none) and under remat (K1 56: the
+   recompute), held to each other per trainable leaf; ms per step and peak
+   memory, flash-VJP and plain; a ``torch.profiler`` breakdown of one step.
+   Then ``cli.train_cli.main(["joint", ...])`` over files written here
+   (train and validation JSON, 1,500 1024-d candidate embeddings, the item
+   dict, the sweep's cache): 3 steps with ``--flash-vjp --no-remat``,
+   evaluations and a checkpoint; ``--resume`` from it; one step with
+   ``--int8-base`` (B8 196 times: 7 x 28).
+7. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
+   the PyTorch yardstick where one call computes the same function), then
+   the last line ``{"ok": true, ...}``.
 
 TF32 stays off for both matmul flags: float32 products are full precision,
 so the fp32 tolerances below hold.
@@ -133,10 +152,55 @@ B9B_COS, B9B_REL = 0.9999, 1e-2
 # against (c) may not fall further below 1 than it by more than the margin
 INT8_VS_BF16_COS, FUSED_VS_CONTROL_COS, ROUNDING_GAP_MARGIN = 0.98, 0.9999, 2e-5
 ENTRY_ITEMS = 2000  # the serve_cli catalog: small JSON files
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): the least
+# time a kernel could take is the larger of its bytes over the memory rate
+# and its operations over the peak rate of their type
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+# joint training (phase 6): B7b and the m/l-saving K1 at the training shape
+# against their plain versions (relative to max|ref|; bf16 as K1's serving
+# check allows twice, the backward chaining three products), per-row cosine
+B7B_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+B7B_COS = 0.9999
+# the full-width step with flash-VJP against the plain attention path (same
+# weights and batch, dropout 0): loss and each trainable leaf's gradient
+STEP_LOSS_REL, STEP_GRAD_COS = 1e-2, 0.999
+TRAIN_BATCH, TRAIN_NEG, VAL_CANDIDATES = 8, 10, 100
+TRAIN_ITEMS = 1500  # candidate items with 1024-d embeddings in the JSON
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``nbytes`` and does ``ops`` operations of type ``kind``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def causal_pairs(mask: torch.Tensor) -> int:
+    """(query, key) pairs a causal attention over right-padded rows needs:
+    row i of a batch row of length n attends min(i + 1, n) keys."""
+    lengths = mask.sum(1).long()
+    rows = torch.arange(1, mask.shape[1] + 1, device=mask.device)
+    return int(torch.minimum(rows[None], lengths[:, None]).sum())
+
+
+def sdpa_inputs(q, k, v, mask, hq, hkv):
+    """The same attention laid out for scaled_dot_product_attention: per-head
+    [B, H, L, hd] tensors, K/V repeated over the GQA group, and one boolean
+    mask (causal and key-valid).  Made outside the timed call."""
+    b, l, dq = q.shape
+    hd = dq // hq
+    qh = q.reshape(b, l, hq, hd).transpose(1, 2)
+    kh, vh = (t.reshape(b, l, hkv, hd).repeat_interleave(hq // hkv, dim=2)
+              .transpose(1, 2) for t in (k, v))
+    causal = torch.ones(l, l, dtype=torch.bool, device=q.device).tril()
+    allowed = causal[None, None] & (mask[:, None, None, :] != 0)
+    return qh, kh, vh, allowed
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -187,6 +251,8 @@ def phase_k1(gen) -> dict:
     b, l, hq, hkv, hd = (K1_SHAPE[x] for x in ("B", "L", "HQ", "HKV", "HD"))
     lengths = torch.tensor([1, 7, 64, 65, 200, 333, 511, 512], device="cuda")
     mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = causal_pairs(mask)
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn(b, l, hq * hd, device="cuda", generator=gen).to(dtype)
@@ -197,10 +263,63 @@ def phase_k1(gen) -> dict:
         plain = time_ms(
             lambda: flash_causal_attention_plain(q, k, v, mask, hq, hkv))
         kern2 = time_ms(lambda: flash_causal_attention(q, k, v, mask, hq, hkv))
-        times[dtype] = (min(kern, kern2), plain)
+        qh, kh, vh, allowed = sdpa_inputs(q, k, v, mask, hq, hkv)
+        lib = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=allowed))
+        size = q.element_size()
+        b_ms, b_by = bound(
+            size * (2 * q.numel() + k.numel() + v.numel()) + 4 * mask.numel(),
+            2 * 2 * hd * pairs * hq, "bf16" if dtype == torch.bfloat16
+            else "fp32")
+        times[dtype] = dict(ms=min(kern, kern2), plain_ms=plain, library_ms=lib,
+                            bound_ms=b_ms, bound_by=b_by)
         log(f"K1 time {dtype} B={b} L={l} Hq={hq} Hkv={hkv} hd={hd}: kernel "
-            f"{kern:.4f} / {kern2:.4f} ms, plain {plain:.4f} ms")
+            f"{kern:.4f} / {kern2:.4f} ms, plain {plain:.4f} ms, "
+            f"scaled_dot_product_attention {lib:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
     return times
+
+
+def static_bounds() -> dict:
+    """bound_ms and bound_by of the kernels whose work depends on the shapes
+    alone, at the shapes their "ms" is timed at: K2 and B11 (8 users over
+    the 20,000 x 1,024 catalog), B1-B6 (4096 items), B8 (the first serving
+    projection), B9a and B9b.  Activations in and out once, weights once
+    (bf16, or int8 codes plus float32 column scales), float32 vectors."""
+    d, k, f, inter, n = QF_D, QF_K, QF_F, QF_INTER, BLOCK_ITEMS[0]
+    act = 2 * 2 * n * k * d
+    out = {}
+    for kind, names, wb in (("bf16", ("b1", "b2", "b3"), 2),
+                            ("int8", ("b4", "b5", "b6"), 1)):
+        sc = 4 if kind == "int8" else 0  # a float32 scale per output column
+        self_w, cross_w, ffn_w = 4 * d * d, 4 * d * d, 2 * d * inter
+        out[names[0]] = bound(
+            act + self_w * wb + 6 * d * 4 + 4 * d * sc,
+            n * (2 * k * d * 3 * d + 2 * 2 * k * k * d + 2 * k * d * d), kind)
+        out[names[1]] = bound(
+            act + n * f * d * 2 + n * f * 4 + cross_w * wb + 6 * d * 4
+            + 4 * d * sc,
+            n * (2 * k * d * d + 2 * f * d * 2 * d + 2 * 2 * k * f * d
+                 + 2 * k * d * d), kind)
+        out[names[2]] = bound(
+            act + ffn_w * wb + (inter + 3 * d) * 4 + (inter + d) * sc,
+            n * 2 * 2 * k * d * inter, kind)
+    users = K2_USERS[0]
+    ranked = 2 * users * CATALOG * DIM
+    out["k2"] = bound(4 * (CATALOG * DIM + users * DIM) + 12 * users * K2_K,
+                      ranked, "fp32")
+    out["b11"] = bound(CATALOG * DIM + 4 * CATALOG + 4 * users * DIM
+                       + 12 * users * K2_K, ranked, "fp32")
+
+    def linear(m, kk, nn):
+        return bound(2 * m * kk + nn * kk + 4 * nn + 2 * m * nn,
+                     2 * m * kk * nn, "int8")
+
+    out["b8"] = linear(*B8_SHAPES[0])
+    out["b9a"] = linear(B9_ROWS, QW_D, QW_QKV)
+    out["b9b"] = bound(2 * 2 * B9_ROWS * QW_D + 3 * QW_I * QW_D
+                       + 4 * (2 * QW_I + QW_D),
+                       2 * B9_ROWS * QW_D * 3 * QW_I, "int8")
+    return out
 
 
 # -- K2 ---------------------------------------------------------------------
@@ -563,13 +682,13 @@ def phase_qwen3_int8(gen) -> dict:
 
 
 def build_stack():
-    from unirec_tpu.configs import (
+    from unirec_tpu_torch.configs import (
         ItemQFormerConfig,
         JointModelConfig,
         LoRAConfig,
         Qwen3Config,
     )
-    from unirec_tpu.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
     from unirec_tpu_torch.data.tokenizer import HashTokenizer
     from unirec_tpu_torch.serving.recommender import Recommender
     from unirec_tpu_torch.utils.weights import init_joint
@@ -705,7 +824,7 @@ def phase_serve(smi: str) -> dict:
     # K1 and K2 on the tensors the served run fed them
     c = rec.model.qwen_config
     with torch.no_grad():
-        hidden, cos, sin, pad_mask = seen["attn0"]
+        hidden, cos, sin, pad_mask = seen["attn0"][:4]
         q, k, v = attn0.qkv(hidden, cos, sin)
         err, ref_max = k1_error(q, k, v, pad_mask, c.num_attention_heads,
                                 c.num_key_value_heads)
@@ -1090,6 +1209,123 @@ def phase_entry_point(smi: str, rec) -> dict:
     return {"launches": launches}
 
 
+# -- phase 6: joint training ----------------------------------------------------
+
+
+def check_b7b(name, out, ref, dtype, rows_cos=True) -> float:
+    """max|d| / max|ref| within B7B_TOL, and (for tensors of head rows)
+    per-row cosine over the rows where ref is nonzero."""
+    a, b = out.float(), ref.float()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"B7b {name} is not finite")
+    err = (a - b).abs().max().item()
+    rel = err / b.abs().max().item()
+    cos = 1.0
+    if rows_cos:
+        a2, b2 = a.reshape(-1, K1_SHAPE["HD"]), b.reshape(-1, K1_SHAPE["HD"])
+        live = b2.abs().amax(-1) > 0
+        cos = torch.nn.functional.cosine_similarity(
+            a2[live], b2[live], dim=-1).min().item()
+    log(f"B7b {dtype} {name}: max|d| {err:.3e} = {rel:.2e} of max|ref| (tol "
+        f"{B7B_TOL[dtype]:g}), min row cosine {cos:.7f} (tol {B7B_COS})")
+    if not (rel <= B7B_TOL[dtype] and cos >= B7B_COS):
+        raise AssertionError(f"B7b {dtype} {name} disagrees with its plain "
+                             "version")
+    return err
+
+
+def phase_b7b(gen) -> dict:
+    """K1's training form (o, m, l) and B7b's two kernels against their plain
+    versions at the joint training shape, with random right padding (key 0
+    valid), fp32 and bf16; times against the plain versions and
+    scaled_dot_product_attention forward + backward (the yardstick)."""
+    from unirec_tpu_torch.ops import flash_causal as fc
+
+    b, l, hq, hkv, hd = (K1_SHAPE[x] for x in ("B", "L", "HQ", "HKV", "HD"))
+    lengths = torch.randint(1, l + 1, (b,), device="cuda", generator=gen)
+    lengths[-1] = l
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    pairs = causal_pairs(mask)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(b, l, h * hd, device="cuda", generator=gen)
+                       .to(dtype) for h in (hq, hkv, hkv, hq))
+        o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+        torch.cuda.synchronize()
+        ref = fc.flash_causal_attention_fwd_plain(q.float(), k.float(),
+                                                  v.float(), mask, hq, hkv)
+        errs = {name: check_b7b(name, got, want, dtype, rows)
+                for name, got, want, rows in (("o", o, ref[0], True),
+                                              ("m", m, ref[1], False),
+                                              ("l", den, ref[2], False))}
+        dsum = fc.attention_dsum(do, o, hq).contiguous()
+        args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+        dq = fc.flash_causal_bwd_dq(*args)
+        dk, dv = fc.flash_causal_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        want = fc.flash_causal_attention_bwd_plain(
+            q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum,
+            hq, hkv)
+        for name, got, ref_ in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            errs[name] = check_b7b(name, got, ref_, dtype)
+        padded = mask == 0
+        if not (bool((dk[padded] == 0).all()) and bool((dv[padded] == 0).all())):
+            raise AssertionError("B7b gave a padded key a gradient")
+
+        t_dq = time_ms(lambda: fc.flash_causal_bwd_dq(*args), iters=10)
+        t_dkv = time_ms(lambda: fc.flash_causal_bwd_dkv(*args), iters=10)
+        t_fwd = time_ms(lambda: fc._k1(q, k, v, mask, hq, hkv, stats=True),
+                        iters=10)
+        t_plain = time_ms(lambda: fc.flash_causal_attention_bwd_plain(*args),
+                          iters=3, warmup=1)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def kernel_path():
+            fc.flash_causal_attention_train(qs, ks, vs, mask, hq, hkv,
+                                            mask_checked=True).backward(do)
+
+        def plain_path():
+            out_ = fc.flash_causal_attention_plain(qs, ks, vs, mask, hq, hkv)
+            out_.backward(do)
+
+        qh, kh, vh, allowed = sdpa_inputs(qs, ks, vs, mask, hq, hkv)
+        doh = do.reshape(b, l, hq, hd).transpose(1, 2)
+
+        def library():
+            sdpa(qh, kh, vh, attn_mask=allowed).backward(doh,
+                                                         retain_graph=True)
+
+        t_path = time_ms(kernel_path, iters=5)
+        t_plain_path = time_ms(plain_path, iters=3, warmup=1)
+        t_lib = time_ms(library, iters=5)
+        t_dq2 = time_ms(lambda: fc.flash_causal_bwd_dq(*args), iters=10)
+        t_dkv2 = time_ms(lambda: fc.flash_causal_bwd_dkv(*args), iters=10)
+        size = q.element_size()
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        stats = 3 * 4 * b * l * hq + 4 * b * l  # m, l, dsum and the mask
+        bq, bkv = size * b * l * hq * hd, size * b * l * hkv * hd
+        b_dq = bound(3 * bq + 2 * bkv + stats, 3 * 2 * hd * pairs * hq, kind)
+        b_dkv = bound(2 * bq + 4 * bkv + stats, 4 * 2 * hd * pairs * hq, kind)
+        out[dtype] = dict(
+            errs=errs,
+            dq=dict(ms=min(t_dq, t_dq2), plain_ms=t_plain, library_ms=t_lib,
+                    bound_ms=b_dq[0], bound_by=b_dq[1]),
+            dkv=dict(ms=min(t_dkv, t_dkv2), plain_ms=t_plain, library_ms=t_lib,
+                     bound_ms=b_dkv[0], bound_by=b_dkv[1]))
+        log(f"B7b time {dtype} B={b} L={l} Hq={hq} Hkv={hkv} hd={hd} (row "
+            f"lengths {lengths.tolist()}, {pairs} causal pairs per head): dq "
+            f"kernel {t_dq:.4f} / {t_dq2:.4f} ms (bound {b_dq[0]:.4f}, "
+            f"{b_dq[1]}), dkv kernel {t_dkv:.4f} / {t_dkv2:.4f} ms (bound "
+            f"{b_dkv[0]:.4f}, {b_dkv[1]}), K1 with (m, l) {t_fwd:.4f} ms; "
+            f"plain backward {t_plain:.4f} ms; forward + backward: kernels "
+            f"{t_path:.4f} ms, plain {t_plain_path:.4f} ms, "
+            f"scaled_dot_product_attention {t_lib:.4f} ms")
+        del qs, ks, vs, qh, kh, vh
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 5: the item-token sweep ---------------------------------------------
 
 
@@ -1127,52 +1363,52 @@ def device_time_by_kernel(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def phase_sweep(smi: str) -> dict:
+def phase_sweep(smi: str, tmp: str) -> dict:
     """The CLI sweep at full width, bf16 (B1-B3) and then int8 (B4-B6), over
-    one seed-0 checkpoint directory and one 9,000-item cache."""
-    from unirec_tpu.configs import ItemQFormerConfig
-    from unirec_tpu.data.cache import FieldEmbeddingCache
+    one seed-0 checkpoint directory and one 9,000-item cache, both written
+    under ``tmp`` (the training phase reuses them)."""
+    from unirec_tpu_torch.configs import ItemQFormerConfig
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
     from unirec_tpu_torch.utils.checkpoint import save_checkpoint
     from unirec_tpu_torch.utils.weights import init_item_qformer
 
     cfg = ItemQFormerConfig()
     fields = [f"f{i}" for i in range(cfg.num_fields)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        model = init_item_qformer(cfg, gen, device="cuda", dtype=torch.float32)
-        save_checkpoint(os.path.join(tmp, "ckpt"), model, cfg,
-                        extra={"field_names": fields})
-        rng = np.random.default_rng(SEED)
-        n, f, dm = SWEEP_ITEMS, cfg.num_fields, cfg.field_embedding_dim
-        emb = rng.standard_normal((n, f, dm), dtype=np.float32)
-        masks = (rng.random((n, f)) > 0.15).astype(np.float32)
-        masks[::1000] = 0.0  # items with no field at all
-        emb *= masks[..., None]  # a missing field has a zero embedding
-        ids = [f"item{j}" for j in range(n)]
-        FieldEmbeddingCache(emb, masks, fields, ids).save(
-            os.path.join(tmp, "cache"))
-        n_params = sum(p.numel() for p in model.parameters())
-        log(f"sweep set-up: ItemQFormerConfig() {cfg.num_hidden_layers} layers "
-            f"x {cfg.hidden_size}, K={cfg.num_query_tokens}, F={f}, "
-            f"intermediate {cfg.intermediate_size}; {n_params} parameters "
-            f"(fp32 checkpoint); cache {n} x {f} x {dm}, "
-            f"{int((masks == 0).sum())} missing fields, "
-            f"{int((masks.sum(1) == 0).sum())} items without fields; made in "
-            f"{time.perf_counter() - t0:.1f} s")
-        empty = np.flatnonzero(masks.sum(1) == 0)  # every item without fields
-        sample = np.sort(np.concatenate([
-            empty, rng.choice(np.setdiff1d(np.arange(n), empty),
-                              SWEEP_SAMPLE - len(empty), replace=False)]))
-        inputs = dict(cfg=cfg, model=model, tmp=tmp, emb=emb, masks=masks,
-                      ids=ids, fields=fields, sample=sample, n_empty=len(empty))
-        return {precision: sweep_cli(smi, precision, **inputs)
-                for precision in ("bf16", "int8")}
+    t0 = time.perf_counter()
+    model = init_item_qformer(cfg, gen, device="cuda", dtype=torch.float32)
+    save_checkpoint(os.path.join(tmp, "ckpt"), model, cfg,
+                    extra={"field_names": fields})
+    rng = np.random.default_rng(SEED)
+    n, f, dm = SWEEP_ITEMS, cfg.num_fields, cfg.field_embedding_dim
+    emb = rng.standard_normal((n, f, dm), dtype=np.float32)
+    masks = (rng.random((n, f)) > 0.15).astype(np.float32)
+    masks[::1000] = 0.0  # items with no field at all
+    emb *= masks[..., None]  # a missing field has a zero embedding
+    ids = [f"item{j}" for j in range(n)]
+    FieldEmbeddingCache(emb, masks, fields, ids).save(
+        os.path.join(tmp, "cache"))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"sweep set-up: ItemQFormerConfig() {cfg.num_hidden_layers} layers "
+        f"x {cfg.hidden_size}, K={cfg.num_query_tokens}, F={f}, "
+        f"intermediate {cfg.intermediate_size}; {n_params} parameters "
+        f"(fp32 checkpoint); cache {n} x {f} x {dm}, "
+        f"{int((masks == 0).sum())} missing fields, "
+        f"{int((masks.sum(1) == 0).sum())} items without fields; made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    empty = np.flatnonzero(masks.sum(1) == 0)  # every item without fields
+    sample = np.sort(np.concatenate([
+        empty, rng.choice(np.setdiff1d(np.arange(n), empty),
+                          SWEEP_SAMPLE - len(empty), replace=False)]))
+    inputs = dict(cfg=cfg, model=model, tmp=tmp, emb=emb, masks=masks,
+                  ids=ids, fields=fields, sample=sample, n_empty=len(empty))
+    return {precision: sweep_cli(smi, precision, **inputs)
+            for precision in ("bf16", "int8")}
 
 
 def sweep_cli(smi, precision, cfg, model, tmp, emb, masks, ids, fields, sample,
               n_empty) -> dict:
-    from unirec_tpu.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
     from unirec_tpu_torch.cli.generate_all_item_embeddings import main as cli
     from unirec_tpu_torch.inference.fused_qformer import fused_qformer_forward
     from unirec_tpu_torch.inference.qformer_inference import QFormerInference
@@ -1344,6 +1580,328 @@ def sweep_cli(smi, precision, cfg, model, tmp, emb, masks, ids, fields, sample,
     torch.cuda.empty_cache()
     return {"launches": launches}
 
+def write_train_files(tmp: str, cache, hidden: int) -> dict:
+    """The joint trainer's inputs over the sweep's field cache: histories of
+    10 cached items, 1024-d candidate embeddings of TRAIN_ITEMS items, train
+    samples with 1 + TRAIN_NEG candidates, validation samples with
+    VAL_CANDIDATES, and titles; all from the seed."""
+    rng = np.random.default_rng(SEED + 1)
+    ids = list(cache.item_ids)
+    pool = ids[:TRAIN_ITEMS]
+    words = ["serum", "lip", "balm", "cherry", "matte", "gloss", "travel",
+             "size", "vitamin", "mask", "oil", "brush", "set", "mini", "rose"]
+
+    def samples(n, n_cand):
+        out = []
+        for _ in range(n):
+            cand = [str(c) for c in rng.choice(pool, n_cand, replace=False)]
+            out.append({"history": [str(h) for h in rng.choice(ids, 10,
+                                                                replace=False)],
+                        "candidate": cand,
+                        "ground_truth": cand[int(rng.integers(n_cand))]})
+        return out
+
+    files = {
+        "train": samples(3 * TRAIN_BATCH, 1 + TRAIN_NEG),
+        "train1": samples(TRAIN_BATCH, 1 + TRAIN_NEG),
+        "val": samples(2 * TRAIN_BATCH, VAL_CANDIDATES),
+        "emb": {i: np.round(rng.standard_normal(hidden), 4).tolist()
+                for i in pool},
+        "items": {i: {"title": " ".join(rng.choice(words, rng.integers(3, 12)))}
+                  for i in ids},
+    }
+    paths = {}
+    for name, obj in files.items():
+        paths[name] = os.path.join(tmp, f"joint_{name}.json")
+        with open(paths[name], "w") as fh:
+            json.dump(obj, fh)
+    paths.update(data=files)
+    return paths
+
+
+def null_gradient(name: str) -> bool:
+    """The attention key biases: their exact gradient is 0 (a bias on every
+    key shifts each of a query's scores by one constant, which the softmax
+    ignores), so what autograd returns for them is rounding noise."""
+    return name.endswith("key.bias")
+
+
+def grad_cosines(a: dict, b: dict) -> dict:
+    """Per-leaf float64 cosine of two gradient dicts: 1 where both are
+    exactly 0; a leaf of ``null_gradient`` gets 1 when both of its norms are
+    below 1e-3 of the largest leaf norm (its noise), else 0."""
+    if set(a) != set(b):
+        raise AssertionError(f"gradient leaves differ: {set(a) ^ set(b)}")
+    top = max(t.double().norm().item() for t in b.values())
+    out = {}
+    for name in a:
+        x, y = a[name].double().flatten(), b[name].double().flatten()
+        nx, ny = x.norm().item(), y.norm().item()
+        if nx == ny == 0:  # the extra embedding rows: injection overwrites
+            out[name] = 1.0
+        elif null_gradient(name):
+            out[name] = float(max(nx, ny) <= 1e-3 * top)
+        else:
+            out[name] = (x @ y).item() / max(nx * ny, 1e-300)
+    return out
+
+
+def train_launches() -> dict:
+    from unirec_tpu_torch.ops import flash_causal as fc
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear
+
+    return {"k1": fc.flash_causal_attention, "b7b_dq": fc.flash_causal_bwd_dq,
+            "b7b_dkv": fc.flash_causal_bwd_dkv, "b8": int8_linear}
+
+
+def phase_train(smi: str, tmp: str) -> dict:
+    """Joint training at full width: (b) one step's gradients with
+    flash-VJP (K1 forward, B7b backward), on the plain attention path and
+    under remat, held to each other; ms per step; then (c) the train CLI."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from unirec_tpu_torch.configs import (
+        JointModelConfig,
+        LoRAConfig,
+        OptimizerConfig,
+        Qwen3Config,
+        TrainConfig,
+    )
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.tokenizer import HashTokenizer
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.ops.dropout import DropoutStream
+    from unirec_tpu_torch.train.common import TrainState
+    from unirec_tpu_torch.train.joint import (
+        JointDataset,
+        JointTrainer,
+        batch_to_device,
+        joint_loss,
+        make_joint_optimizer,
+        make_joint_train_step,
+    )
+    from unirec_tpu_torch.utils.params import apply_trainable_mask
+
+    qf_cfg, qf_sd, _ = QFormerInference.read_checkpoint(
+        os.path.join(tmp, "ckpt"))
+    cache = FieldEmbeddingCache.load(os.path.join(tmp, "cache"))
+    qwen = Qwen3Config(flash_vjp_attention=True)
+    jc = JointModelConfig(max_length=512)
+    files = write_train_files(tmp, cache, qwen.hidden_size)
+    opt = OptimizerConfig(learning_rate=1e-4, warmup_steps=20,
+                          max_grad_norm=1.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trainer = JointTrainer(
+        qwen, dataclasses.replace(qf_cfg, dropout=0.0), jc,
+        lora=LoRAConfig(dropout=0.0),
+        train_config=TrainConfig(batch_size=TRAIN_BATCH, optimizer=opt),
+        dtype="bfloat16", remat=False, bf16_base=True, device="cuda")
+    state = trainer.init_state(qformer_params=qf_sd)
+    model = state.model
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"joint training model: Qwen3 {qwen.num_hidden_layers} layers x "
+        f"{qwen.hidden_size}, vocab {qwen.vocab_size}+"
+        f"{model.num_special_tokens}, LoRA r16 on 7 projections; "
+        f"ItemQFormerConfig() from the sweep's checkpoint; L "
+        f"{jc.max_length}, batch {TRAIN_BATCH}, {TRAIN_NEG} negatives; bf16 "
+        f"compute, {n_train} trainable float32 parameters of {n_all}; built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    tok = HashTokenizer(qwen.vocab_size, jc.num_history_items,
+                        jc.num_query_tokens_per_item)
+    ds = JointDataset(files["data"]["train"], files["data"]["emb"], tok,
+                      files["data"]["items"], cache, jc,
+                      max_negatives=TRAIN_NEG, item_emb_dim=qwen.hidden_size)
+    batch = batch_to_device(ds.batch(np.arange(TRAIN_BATCH)), "cuda")
+    counters = train_launches()
+
+    def grads_of(m):
+        trainable = {n: p for n, p in m.named_parameters() if p.requires_grad}
+        for p in trainable.values():
+            p.grad = None
+        m.train()
+        for fn in counters.values():
+            fn.launches = 0
+        loss = joint_loss(m, batch, DropoutStream(SEED, 0))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        grads = {n: p.grad.float().clone() for n, p in trainable.items()
+                 if p.grad is not None}
+        for p in trainable.values():
+            p.grad = None
+        return loss.item(), grads, launches
+
+    n_layers = qwen.num_hidden_layers
+    loss_f, g_f, l_f = grads_of(model)
+    plain = model.clone(qwen_config=dataclasses.replace(
+        qwen, flash_vjp_attention=False))
+    apply_trainable_mask(plain)
+    loss_p, g_p, l_p = grads_of(plain)
+    del plain
+    remat = model.clone(remat=True, remat_policy="dots")
+    apply_trainable_mask(remat)
+    loss_r, g_r, l_r = grads_of(remat)
+    del remat
+    cos_p, cos_r = grad_cosines(g_f, g_p), grad_cosines(g_f, g_r)
+    worst_p = min(cos_p, key=cos_p.get)
+    worst_r = min(cos_r, key=cos_r.get)
+    rel = abs(loss_f - loss_p) / abs(loss_p)
+    log(f"joint step, batch {TRAIN_BATCH}: loss flash-VJP {loss_f:.6f}, plain "
+        f"attention {loss_p:.6f} (rel {rel:.2e}, tol {STEP_LOSS_REL:g}), "
+        f"remat dots {loss_r:.6f}; {len(g_f)} trainable leaves with "
+        f"gradients, min cosine vs plain {cos_p[worst_p]:.6f} ({worst_p}), "
+        f"vs remat {cos_r[worst_r]:.6f} ({worst_r}) (tol {STEP_GRAD_COS}); "
+        f"launches flash {l_f}, plain {l_p}, remat {l_r}")
+    if not (rel <= STEP_LOSS_REL and cos_p[worst_p] >= STEP_GRAD_COS
+            and cos_r[worst_r] >= STEP_GRAD_COS and np.isfinite(loss_f)):
+        raise AssertionError("the flash-VJP step disagrees with the plain "
+                             "attention step or with remat")
+    want_f = {"k1": n_layers, "b7b_dq": n_layers, "b7b_dkv": n_layers, "b8": 0}
+    want_p = {"k1": 0, "b7b_dq": 0, "b7b_dkv": 0, "b8": 0}
+    want_r = dict(want_f, k1=2 * n_layers)  # the recompute runs K1 again
+    if (l_f, l_p, l_r) != (want_f, want_p, want_r):
+        raise AssertionError(f"training launches {l_f} / {l_p} / {l_r}, want "
+                             f"{want_f} / {want_p} / {want_r}")
+    del g_f, g_p, g_r
+
+    # ms per step with the optimizer, flash-VJP and plain attention
+    def step_ms(st, step_fn, n=5):
+        for i in range(2):
+            st, _ = step_fn(st, ds.batch(np.arange(TRAIN_BATCH)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(n):
+            st, m = step_fn(st, ds.batch(np.arange(TRAIN_BATCH)))
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) / n * 1e3,
+                torch.cuda.max_memory_allocated() / 1e9, loss)
+
+    flash_step = make_joint_train_step(model, seed=SEED)
+    ms_f, peak_f, last_f = step_ms(state, flash_step)
+    plain = model.clone(qwen_config=dataclasses.replace(
+        qwen, flash_vjp_attention=False))
+    apply_trainable_mask(plain)
+    pstate = TrainState(plain, make_joint_optimizer(plain, opt))
+    ms_p, peak_p, last_p = step_ms(pstate, make_joint_train_step(plain,
+                                                                 seed=SEED))
+    del pstate, plain
+    ms_f2, peak_f2, _ = step_ms(state, flash_step)
+    log(f"[{smi}] joint step at batch {TRAIN_BATCH}, L {jc.max_length}, "
+        f"no remat, bf16 base (host clock over 5 synced steps, optimizer "
+        f"included): flash-VJP {ms_f:.1f} / {ms_f2:.1f} ms per step, peak "
+        f"{peak_f:.2f} GB; plain attention {ms_p:.1f} ms, peak {peak_p:.2f} "
+        f"GB; losses after the steps {last_f:.4f} / {last_p:.4f}")
+    # the step split on the host clock: forward + backward, then the
+    # optimizer's apply over the trainable leaves
+    split = {"forward_backward": [], "optimizer": []}
+    for _ in range(3):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        joint_loss(model, batch, DropoutStream(SEED, state.step)).backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state.optimizer.step({
+            n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in model.named_parameters() if p.requires_grad})
+        torch.cuda.synchronize()
+        split["forward_backward"].append((t1 - t0) * 1e3)
+        split["optimizer"].append((time.perf_counter() - t1) * 1e3)
+    model.zero_grad(set_to_none=True)
+    log(f"[{smi}] joint step split (host clock, synced, 3 repeats): forward + "
+        f"backward {np.median(split['forward_backward']):.1f} ms, optimizer "
+        f"apply over {len(state.optimizer.params)} trainable leaves "
+        f"{np.median(split['optimizer']):.1f} ms")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = flash_step(state, ds.batch(np.arange(TRAIN_BATCH)))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_time_by_kernel(prof)
+    total = sum(t for _, t in rows)
+    log(f"[{smi}] one flash-VJP step under torch.profiler: {total:.2f} ms of "
+        f"device time in {len(rows)} kernels over {wall:.1f} ms of wall time"
+        + ("" if rows else " (no device rows: breakdown not measured)"))
+    for name, t in rows[:14]:
+        log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+    del state, model, trainer, flash_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the train CLI over the written files
+    from unirec_tpu_torch.cli import train_cli
+
+    ck = os.path.join(tmp, "joint_ckpt")
+    base = ["joint", "--train-data", files["train"], "--val-data", files["val"],
+            "--item-emb", files["emb"], "--item-dict", files["items"],
+            "--qformer-checkpoint", os.path.join(tmp, "ckpt"),
+            "--cache-dir", os.path.join(tmp, "cache"), "--flash-vjp",
+            "--no-remat", "--batch-size", str(TRAIN_BATCH), "--num-epochs", "1",
+            "--checkpoint-dir", ck]
+
+    def cli(argv, what):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv)
+        seconds = time.perf_counter() - t0
+        out = buf.getvalue()
+        for line in out.strip().splitlines():
+            log(f"  train_cli {what}| {line[:400]}")
+        launches = {n: fn.launches for n, fn in counters.items()}
+        log(f"[{smi}] train_cli {what}: rc {rc} in {seconds:.1f} s (model "
+            f"build, tokenization and evaluations included), peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+            f"{launches}")
+        if rc != 0:
+            raise AssertionError(f"train_cli {what} returned {rc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, launches
+
+    from unirec_tpu_torch.utils.checkpoint import read_meta
+
+    out, launches = cli(base + ["--eval-every-steps", "2"], "joint, 3 steps")
+    evals = out.count('"mrr"')
+    meta = read_meta(os.path.join(ck, "latest_model"))
+    if evals < 3 or meta.get("step") != 2 or launches["b7b_dq"] != 3 * n_layers:
+        raise AssertionError(f"train_cli: {evals} evaluations, checkpoint "
+                             f"step {meta.get('step')}, launches {launches}")
+    out, launches = cli(base + ["--eval-every-steps", "2", "--resume"],
+                        "joint --resume, 3 more steps")
+    meta = read_meta(os.path.join(ck, "latest_model"))
+    if "resumed from" not in out or meta.get("step") != 5:
+        raise AssertionError(f"train_cli --resume: checkpoint step "
+                             f"{meta.get('step')}")
+    int8_argv = [a if a != files["train"] else files["train1"] for a in base]
+    out, launches = cli(int8_argv + ["--int8-base", "--eval-every-steps", "1",
+                                     "--checkpoint-dir",
+                                     os.path.join(tmp, "joint_int8")],
+                        "joint --int8-base, 1 step")
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if "loss=" in line]
+    if launches["b8"] != 7 * n_layers or not losses or not np.isfinite(
+            losses[0]):
+        raise AssertionError(f"train_cli --int8-base: launches {launches}, "
+                             f"losses {losses}")
+    log(f"train_cli --int8-base: B8 launched {launches['b8']} times for one "
+        f"training forward (7 x {n_layers}), loss {losses[0]:.4f}")
+    return {"launches": l_f, "ms_per_step": ms_f}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1376,6 +1934,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_times = phase_k1(gen)
+    b7b = phase_b7b(gen)
     k2_times = phase_k2(gen)
     b11_times = phase_b11(gen)
     blocks = phase_blocks(gen, "bf16")
@@ -1387,36 +1946,51 @@ def main() -> int:
     phase_entry_point(smi, served.pop("stack")[0])
     gc.collect()  # the serving stacks, before the sweep's memory is read
     torch.cuda.empty_cache()
-    swept = phase_sweep(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        swept = phase_sweep(smi, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        trained = phase_train(smi, tmp)
     sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
-    k1_ms, k1_plain = k1_times[torch.bfloat16]
+    bounds = static_bounds()
+    b16 = torch.bfloat16
     k2_ms, k2_plain = k2_times[BATCH]
     b11_ms, b11_plain = b11_times[BATCH]
-    log(json.dumps({"kernels": [
-        {"name": "flash_causal_fwd", "route": "cuda",
-         "source": "unirec_tpu_torch/csrc/flash_causal_fwd.cu",
-         "replaces": "unirec_tpu/ops/flash_causal_vjp.py:78",
-         "launches": served["launches"]["k1"],
-         "max_abs_err": served["k1_err"], "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "retrieve_topk", "route": "cuda",
-         "source": "unirec_tpu_torch/csrc/retrieve_topk.cu",
-         "replaces": "unirec_tpu/ops/ranking.py:118",
-         "launches": served["launches"]["k2"],
-         "max_abs_err": served["k2_err"], "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "retrieve_topk_int8", "route": "cuda",
-         "source": "unirec_tpu_torch/csrc/retrieve_topk.cu",
-         "replaces": "unirec_tpu/ops/quantization.py:78",
-         "launches": served["launches"]["b11"],
-         "max_abs_err": served["b11_err"], "ms": b11_ms,
-         "plain_ms": b11_plain},
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
+            bound_by, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"unirec_tpu_torch/csrc/{source}",
+                "replaces": f"unirec_tpu/ops/{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    k1 = k1_times[b16]
+    kernels = [
+        row("flash_causal_fwd", "flash_causal_fwd.cu",
+            "flash_causal_vjp.py:78", served["launches"]["k1"],
+            served["k1_err"], k1["ms"], k1["plain_ms"], k1["bound_ms"],
+            k1["bound_by"], k1["library_ms"]),
+        row("flash_causal_bwd_dq", "flash_causal_bwd.cu",
+            "flash_causal_vjp.py:158", trained["launches"]["b7b_dq"],
+            max(b7b[b16]["errs"]["dq"], b7b[torch.float32]["errs"]["dq"]),
+            **b7b[b16]["dq"]),
+        row("flash_causal_bwd_dkv", "flash_causal_bwd.cu",
+            "flash_causal_vjp.py:224", trained["launches"]["b7b_dkv"],
+            max(b7b[b16]["errs"][n] for n in ("dk", "dv")),
+            **b7b[b16]["dkv"]),
+        row("retrieve_topk", "retrieve_topk.cu", "ranking.py:118",
+            served["launches"]["k2"], served["k2_err"], k2_ms, k2_plain,
+            *bounds["k2"]),
+        row("retrieve_topk_int8", "retrieve_topk.cu", "quantization.py:78",
+            served["launches"]["b11"], served["b11_err"], b11_ms, b11_plain,
+            *bounds["b11"]),
     ] + [
-        {"name": name, "route": "cuda",
-         "source": "unirec_tpu_torch/csrc/qformer_blocks.cu",
-         "replaces": f"unirec_tpu/ops/{src}:{line}",
-         "launches": sweep_launches[key],
-         "max_abs_err": blocks[key]["err"], "ms": blocks[key]["ms"],
-         "plain_ms": blocks[key]["plain_ms"]}
+        row(name, "qformer_blocks.cu", f"{src}:{line}", sweep_launches[key],
+            blocks[key]["err"], blocks[key]["ms"], blocks[key]["plain_ms"],
+            *bounds[key])
         for key, name, src, line in (
             ("b1", "qformer_self_block", "fused_qformer_layer.py", 119),
             ("b2", "qformer_cross_block", "fused_qformer_layer.py", 174),
@@ -1425,18 +1999,16 @@ def main() -> int:
             ("b5", "qformer_cross_block_q", "fused_qformer_int8.py", 140),
             ("b6", "qformer_ffn_block_q", "fused_qformer_int8.py", 193))
     ] + [
-        {"name": name, "route": "cuda",
-         "source": "unirec_tpu_torch/csrc/qformer_blocks.cu",
-         "replaces": f"unirec_tpu/ops/{src}",
-         "launches": served["int8"]["launches"][key],
-         "max_abs_err": max(qwen3_int8[key]["err"],
-                            served["int8"]["errs"][key]),
-         "ms": qwen3_int8[key]["ms"], "plain_ms": qwen3_int8[key]["plain_ms"]}
+        row(name, "qformer_blocks.cu", src,
+            served["int8"]["launches"][key],
+            max(qwen3_int8[key]["err"], served["int8"]["errs"][key]),
+            qwen3_int8[key]["ms"], qwen3_int8[key]["plain_ms"], *bounds[key])
         for key, name, src in (
             ("b8", "int8_linear", "int8_matmul.py:37"),
             ("b9a", "qkv_int8", "fused_qwen3_int8.py:55"),
             ("b9b", "qwen3_swiglu_q", "fused_qwen3_int8.py:163"))
-    ]}))
+    ]
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,12 +1,16 @@
-"""The port imports torch and never JAX or Flax, and builds nothing at import
-time; its kernel wrappers take the plain versions for CPU tensors and leave
-their launch counters at 0."""
+"""The port imports torch and never JAX, Flax or the JAX package
+``unirec_tpu`` (not even its framework-free modules: the port carries its own
+copies), and builds nothing at import time; its kernel wrappers take the
+plain versions for CPU tensors and leave their launch counters at 0.  The
+entry points run on the card unless asked for the CPU."""
 
+import ast
 import json
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -20,7 +24,8 @@ names = ["unirec_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
+                                    "unirec_tpu"))
 import json
 print(json.dumps({"modules": len(names), "framework": bad}))
 """
@@ -34,6 +39,61 @@ def test_fresh_import_loads_no_jax_or_flax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["modules"] >= 15  # every module of the package imported
     assert result["framework"] == []
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py, at any depth of its functions, imports no module of
+    jax, flax or unirec_tpu."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "unirec_tpu_torch.ops._build" in names  # the walk sees imports
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "unirec_tpu")]
+    assert bad == []
+
+
+@pytest.mark.parametrize("entry", ["qformer_inference", "serve_cli",
+                                   "generate_all_item_embeddings",
+                                   "train_cli"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without a card, an entry point that was not asked for the CPU raises
+    and names the flag; nothing falls back to the CPU quietly."""
+    from unirec_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        if entry == "qformer_inference":
+            from unirec_tpu_torch.configs import ItemQFormerConfig
+            from unirec_tpu_torch.inference.qformer_inference import (
+                QFormerInference,
+            )
+
+            QFormerInference(config=ItemQFormerConfig(), params={},
+                             field_names=[])
+        elif entry == "serve_cli":
+            from unirec_tpu_torch.cli import serve_cli
+
+            serve_cli.build_recommender(serve_cli.parse_args(
+                ["--qformer-checkpoint", "q", "--cache-dir", "c",
+                 "--item-dict", "i", "--catalog", "e"]))
+        elif entry == "generate_all_item_embeddings":
+            from unirec_tpu_torch.cli import generate_all_item_embeddings
+
+            generate_all_item_embeddings.main(
+                ["--checkpoint", "q", "--cache-dir", REPO])
+        else:
+            from unirec_tpu_torch.cli import train_cli
+
+            train_cli.main(["joint", "--train-data", "t", "--val-data", "v",
+                            "--item-emb", "e", "--item-dict", "i",
+                            "--qformer-checkpoint", "q", "--cache-dir", "c"])
 
 
 def test_cpu_wrappers_use_plain_versions():

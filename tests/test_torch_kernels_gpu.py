@@ -19,6 +19,11 @@ within one bf16 ulp of each reference value: the integer sums are exact and
 both round the epilogue at the same points, so they are expected to be equal.
 B9b has per-row cosine >= 0.9999 and max|d| <= 1e-2 max|ref|: the card's
 sigmoid is not torch's, which can flip one code of the requantized h.
+
+B7b (the flash backward) and K1's training form are held to their plain
+versions at the joint training shape: max|d| <= 1e-5 max|ref| in fp32 and
+2e-2 in bf16, per-row cosine >= 0.9999; the autograd Function's gradients
+equal the two kernels' outputs, and padded keys get no gradient.
 """
 
 import pytest
@@ -27,6 +32,7 @@ import torch
 from unirec_tpu_torch.ops import fused_qformer_int8 as pq
 from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
 from unirec_tpu_torch.ops import fused_qformer_layer as fq
+from unirec_tpu_torch.ops import flash_causal as fc
 from unirec_tpu_torch.ops.flash_causal import (
     flash_causal_attention,
     flash_causal_attention_plain,
@@ -71,6 +77,65 @@ def test_k1_matches_plain(hopper, dtype, tol):
                                        hq, hkv)
     rel = (out.float() - ref).abs().max() / ref.abs().max()
     assert rel <= tol
+
+
+def _close(out, ref, tol):
+    a, b = out.float(), ref.float()
+    assert torch.isfinite(a).all()
+    assert (a - b).abs().max() / b.abs().max() <= tol
+    if a.dim() == 3 and a.shape[-1] % 128 == 0:
+        a2, b2 = a.reshape(-1, 128), b.reshape(-1, 128)
+        live = b2.abs().amax(-1) > 0
+        cos = torch.nn.functional.cosine_similarity(a2[live], b2[live], dim=-1)
+        assert cos.min() >= 0.9999
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_b7b_and_k1_stats_match_plain(hopper, dtype, tol):
+    b, l, hq, hkv, hd = 8, 512, 16, 8, 128
+    q, k, v, do = (torch.randn(b, l, h * hd, device="cuda", generator=hopper)
+                   .to(dtype) for h in (hq, hkv, hkv, hq))
+    lengths = torch.tensor([1, 5, 64, 100, 257, 400, 511, 512], device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    before = [fn.launches for fn in (flash_causal_attention,
+                                     fc.flash_causal_bwd_dq,
+                                     fc.flash_causal_bwd_dkv)]
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fc.flash_causal_attention_train(qs, ks, vs, mask, hq, hkv)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (flash_causal_attention,
+                                   fc.flash_causal_bwd_dq,
+                                   fc.flash_causal_bwd_dkv)] == [
+        n + 1 for n in before]
+    o, m, den = fc.flash_causal_attention_fwd_plain(
+        q.float(), k.float(), v.float(), mask, hq, hkv)
+    _close(out, o, tol)
+    _, m_k, l_k = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    _close(m_k, m, tol)
+    _close(l_k, den, tol)
+    dsum = fc.attention_dsum(do, out.detach(), hq)
+    want = fc.flash_causal_attention_bwd_plain(
+        q.float(), k.float(), v.float(), mask, do.float(), m_k, l_k, dsum,
+        hq, hkv)
+    for got, ref in zip((qs.grad, ks.grad, vs.grad), want):
+        _close(got, ref, tol)
+    padded = mask == 0
+    assert (ks.grad[padded] == 0).all() and (vs.grad[padded] == 0).all()
+    args = (q, k, v, mask, do.contiguous(), m_k, l_k, dsum.contiguous(), hq,
+            hkv)
+    dq = fc.flash_causal_bwd_dq(*args)  # deterministic: no atomics
+    assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
+
+
+def test_flash_causal_wrappers_refuse_what_the_kernels_do_not_take(hopper):
+    q = torch.randn(1, 8, 2 * 64, device="cuda", requires_grad=True)
+    kv = torch.randn(1, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fc.flash_causal_attention_train(q, kv, kv, None, 2, 1)
+    with pytest.raises(RuntimeError, match="flash_causal_attention_train"):
+        flash_causal_attention(q, kv, kv, None, 2, 1)
 
 
 @pytest.mark.parametrize("n_users", [8, 64])

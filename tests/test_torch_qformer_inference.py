@@ -9,6 +9,7 @@ agree within atol 6.3e-2, two bf16 ulps at the top of a LayerNorm output's
 range (|y| < 8), after 3 layers of chained blocks.
 """
 
+import dataclasses
 import json
 import pickle
 
@@ -119,7 +120,9 @@ def test_checkpoint_directory_round_trip(setup, tmp_path):
     assert restore_config(meta, ItemQFormerConfig) == CFG
     from_dir = QFormerInference(str(tmp_path / "ckpt"), device="cpu",
                                 use_fused=True, batch_size=8)
-    assert from_dir.config == CFG and from_dir.field_names == FIELDS
+    # the port's own config class, with the same fields
+    assert dataclasses.asdict(from_dir.config) == dataclasses.asdict(CFG)
+    assert from_dir.field_names == FIELDS
     np.testing.assert_array_equal(
         from_dir.query_tokens_from_embeddings(emb, mask),
         _port(sd, use_fused=True).query_tokens_from_embeddings(emb, mask))
@@ -157,7 +160,7 @@ def tiny_sweep(setup, tmp_path):
     # the CLI's QFormerInference defaults: on the CPU, the bf16 model
     expect = dict(zip(ids, _port(sd).query_tokens_from_embeddings(emb, mask)))
     argv = ["--checkpoint", str(tmp_path / "ckpt"),
-            "--cache-dir", str(tmp_path / "cache")]
+            "--cache-dir", str(tmp_path / "cache"), "--device", "cpu"]
     return tmp_path, argv, expect
 
 
@@ -288,7 +291,7 @@ def test_cli_int8_sweep(tiny_sweep):
 def test_cli_refuses_what_is_not_ported(tiny_sweep, extra):
     tmp, argv, _ = tiny_sweep
     if extra == ["--data", "items.json"]:
-        argv = [argv[0], argv[1]]  # checkpoint, no cache
+        argv = argv[:2] + argv[4:]  # checkpoint, no cache
     elif not extra:
         argv = argv[2:]  # cache, no checkpoint
     assert cli.main(argv + extra) == 2

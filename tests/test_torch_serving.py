@@ -315,7 +315,7 @@ def test_serve_cli_build_recommender_tiny(tmp_path):
             "--cache-dir", str(tmp_path / "cache"),
             "--item-dict", str(tmp_path / "items.json"),
             "--catalog", str(tmp_path / "catalog.json"),
-            "--tiny", "--max-length", "64", "--prewarm"]
+            "--tiny", "--max-length", "64", "--prewarm", "--device", "cpu"]
     hists = [["i0", "i1"], ["i3"], []]
     bf16 = serve_cli.build_recommender(serve_cli.parse_args(base))
     int8 = serve_cli.build_recommender(serve_cli.parse_args(

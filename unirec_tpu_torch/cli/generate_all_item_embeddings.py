@@ -8,6 +8,7 @@ Same flags as the JAX CLI.  It sweeps a precomputed field-embedding cache
 (``--cache-dir``) through ``QFormerInference`` on one device, the fused
 engine with kernels B1-B3 on a CUDA card, or with the W8A8 kernels B4-B6
 under ``--precision int8`` (which takes the fused engine on any device).
+It runs on the card; ``--device cpu`` asks for the CPU.
 ``--checkpoint`` is a checkpoint directory of ``utils/checkpoint.py`` or a
 reference ``.pth``.
 
@@ -24,17 +25,58 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import pickle
 import sys
+import time
 from typing import Dict
 
 import numpy as np
 
-# framework-free helpers, shared with the JAX CLI
-from unirec_tpu.cli.generate_all_item_embeddings import (
-    _save,
-    compare_processing_methods,
-    is_oom_error,
-)
+
+def _save(tokens: Dict[str, np.ndarray], output: str) -> None:
+    """``.json`` (lists) or a pickle of ``{item_id: [K, hidden] float32}``."""
+    os.makedirs(os.path.dirname(output) or ".", exist_ok=True)
+    if output.endswith(".json"):
+        with open(output, "w") as f:
+            json.dump({k: v.tolist() for k, v in tokens.items()}, f)
+    else:
+        with open(output, "wb") as f:
+            pickle.dump(tokens, f)
+
+
+def is_oom_error(e: BaseException) -> bool:
+    """An OOM-shaped failure, the signal for the batch downshift (the JAX
+    CLI's strings plus torch's ``CUDA out of memory``)."""
+    s = str(e).lower()
+    return any(key in s for key in (
+        "resource_exhausted", "resource exhausted", "out of memory",
+        "ran out of memory", "memory space hbm", "memory space vmem"))
+
+
+def compare_processing_methods(inference, cache, sample_size: int = 50) -> Dict:
+    """Batch-vs-per-item benchmark
+    (reference: generate_all_item_embeddings.py:465-572)."""
+    ids = cache.item_ids[:sample_size]
+    t0 = time.time()
+    batch_tokens = inference.query_tokens_from_cache(cache, ids)
+    t_batch = time.time() - t0
+    t0 = time.time()
+    single = {}
+    for iid in ids:
+        emb, mask = cache.gather([iid])
+        single[iid] = inference.query_tokens_from_embeddings(emb, mask)[0]
+    t_single = time.time() - t0
+    ok = all(np.allclose(batch_tokens[i], single[i], atol=1e-2) for i in ids)
+    result = {
+        "sample_size": len(ids),
+        "batch_time_s": round(t_batch, 3),
+        "per_item_time_s": round(t_single, 3),
+        "speedup": round(t_single / max(t_batch, 1e-9), 2),
+        "outputs_match": bool(ok),
+    }
+    print(json.dumps(result, indent=2))
+    return result
 
 
 def parse_args(argv=None):
@@ -64,6 +106,8 @@ def parse_args(argv=None):
     p.add_argument("--progress-file", default=None)
     p.add_argument("--precision", default="bf16", choices=["bf16", "int8"],
                    help="bf16, or int8 for the W8A8 fused engine")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
     return p.parse_args(argv)
 
 
@@ -77,8 +121,9 @@ def main(argv=None) -> int:
     if args.dp > 1:
         return _fail("--dp > 1 (the data-parallel sweep) is not ported yet")
 
-    from unirec_tpu.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
     from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.utils.device import resolve_device
     from unirec_tpu_torch.utils.profiling import (
         ProgressWriter,
         ThroughputMeter,
@@ -90,6 +135,7 @@ def main(argv=None) -> int:
         info = check_devices()
         if not (args.data or args.cache_dir):
             return 0 if info["ok"] else 1
+    device = resolve_device(args.device)  # the card unless --device cpu
     if not args.checkpoint:
         return _fail("--checkpoint required")
     if not (args.cache_dir and FieldEmbeddingCache.exists(args.cache_dir)):
@@ -99,7 +145,8 @@ def main(argv=None) -> int:
                          "field-embedding cache")
         return _fail("need --cache-dir (a field-embedding cache)")
 
-    inference = QFormerInference(args.checkpoint, batch_size=args.batch_size,
+    inference = QFormerInference(args.checkpoint, device=device,
+                                 batch_size=args.batch_size,
                                  precision=args.precision)
     cache = FieldEmbeddingCache.load(args.cache_dir)
     ids = cache.item_ids

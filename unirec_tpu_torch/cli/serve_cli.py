@@ -13,8 +13,9 @@ may also be a reference ``.pth``).  Without ``--checkpoint`` the joint model
 is initialised from seed 0 around the given Item Q-Former, as in the JAX
 CLI: the ranking then rests on the Q-Former and the catalog alone, which
 smoke-tests a deployment before joint training is done.  The model runs on
-the CUDA device in bfloat16 (the kernels' type) when there is one, and on
-the CPU in float32 otherwise.
+the CUDA card in bfloat16 (the kernels' type); ``--device cpu`` asks for the
+CPU, where it runs in float32.  Without a card and without that flag it
+raises.
 
 Not ported, refused with an error: ``--dp`` (a dp mesh, ROADMAP.md A9) and
 ``--hf-path`` (the Hugging Face tokenizer, which needs tokenizer files).
@@ -55,6 +56,8 @@ def add_recommender_flags(p, batch_size: int = 8):
                    help="tiny Qwen3 config (smoke tests / CPU)")
     p.add_argument("--dp", type=int, default=0,
                    help="dp mesh size (not ported: anything but 0 raises)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
 
 
 def parse_args(argv=None):
@@ -71,23 +74,25 @@ def build_recommender(args):
     from ``main`` so that tests drive it without the HTTP loop)."""
     import torch
 
-    from unirec_tpu.configs import (
+    from unirec_tpu_torch.configs import (
         JointModelConfig,
         LoRAConfig,
         Qwen3Config,
         tiny_qwen3_config,
     )
-    from unirec_tpu.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
     from unirec_tpu_torch.data.tokenizer import make_tokenizer
     from unirec_tpu_torch.inference.qformer_inference import QFormerInference
     from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
     from unirec_tpu_torch.serving.recommender import Recommender
     from unirec_tpu_torch.utils.checkpoint import load_checkpoint
+    from unirec_tpu_torch.utils.device import resolve_device
     from unirec_tpu_torch.utils.weights import init_joint
 
     if args.dp:
         raise NotImplementedError(
             "--dp (serving over a dp mesh) is not ported yet (ROADMAP.md A9)")
+    device = resolve_device(args.device)
     with open(args.item_dict) as f:
         item_dict = json.load(f)
     with open(args.catalog) as f:
@@ -116,9 +121,7 @@ def build_recommender(args):
     tokenizer = make_tokenizer(args.hf_path, qwen_cfg.vocab_size,
                                jc.num_history_items,
                                jc.num_query_tokens_per_item)
-    on_card = torch.cuda.is_available()
-    device = torch.device("cuda" if on_card else "cpu")
-    dtype = torch.bfloat16 if on_card else torch.float32
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     if args.checkpoint:
         state, _ = load_checkpoint(args.checkpoint)
         model = MultiModalQwenEmbedding(qwen_cfg, qf_cfg, jc, lora=LoRAConfig(),

@@ -11,6 +11,10 @@
 //   k, v [B, L, Hkv * HD]  un-repeated
 //   mask [B, L]  float, 0 = padded key
 //   out  [B, L, Hq  * HD]  same type as q
+//   m, l [B, L, Hq]  float, optional (the training forward): per (row, head)
+//        the running max of the scaled scores and the softmax denominator,
+//        kept apart (never a logsumexp: fp32 swallows log l at the -1e9 mask
+//        magnitude), for the backward kernels of flash_causal_bwd.cu
 // Masked keys (causal or padded) get probability exactly 0, which is what the
 // additive -1e9 bias gives whenever a row has one unmasked key.  The wrapper
 // guarantees that by requiring mask[:, 0] != 0 (key 0 is causal for every row).
@@ -51,7 +55,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_causal_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const float* __restrict__ mask,
-                        T* __restrict__ out, int L, int Hq, int Hkv, float scale) {
+                        T* __restrict__ out, float* __restrict__ m_out,
+                        float* __restrict__ l_out, int L, int Hq, int Hkv,
+                        float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                // [BQ][QS]
   float* KVs = Qs + BQ * QS;       // [BK][KS]  K tile, then V tile
@@ -187,12 +193,18 @@ flash_causal_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       store(ob + (size_t)row * q_row + tx + 16 * j, acc[i][j] * inv);
+    if (m_out != nullptr && tx == 0) {  // the 16 threads of a row agree
+      const size_t r = ((size_t)b * L + row) * Hq + h;
+      m_out[r] = m[i];
+      l_out[r] = l[i];
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* mask,
-                   void* out, int B, int L, int Hq, int Hkv, cudaStream_t stream) {
+                   void* out, float* m_out, float* l_out, int B, int L, int Hq,
+                   int Hkv, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_causal_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
@@ -200,22 +212,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* mas
   dim3 grid((L + BQ - 1) / BQ, Hq, B);
   flash_causal_fwd_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<T*>(out), L, Hq, Hkv, 1.0f / sqrtf((float)HD));
+      mask, static_cast<T*>(out), m_out, l_out, L, Hq, Hkv,
+      1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim must be 128 (checked by the
-// wrapper; returns cudaErrorInvalidValue otherwise).
+// wrapper; returns cudaErrorInvalidValue otherwise).  m_out and l_out are both
+// null (inference) or both [B, L, Hq] float (training).
 extern "C" int unirec_flash_causal_fwd(const void* q, const void* k, const void* v,
-                                       const float* mask, void* out, int B, int L,
-                                       int Hq, int Hkv, int head_dim, int dtype,
-                                       void* stream) {
-  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || L <= 0)
+                                       const float* mask, void* out, float* m_out,
+                                       float* l_out, int B, int L, int Hq, int Hkv,
+                                       int head_dim, int dtype, void* stream) {
+  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || L <= 0 ||
+      (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(q, k, v, mask, out, B, L, Hq, Hkv, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(q, k, v, mask, out, B, L, Hq, Hkv, s);
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, mask, out, m_out, l_out, B, L, Hq, Hkv, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(q, k, v, mask, out, m_out, l_out, B, L, Hq,
+                                      Hkv, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,7 @@ from typing import List, Mapping, Optional, Union
 import torch
 from torch import nn
 
-from unirec_tpu.configs import ItemQFormerConfig
+from unirec_tpu_torch.configs import ItemQFormerConfig
 from unirec_tpu_torch.ops import fused_qformer_int8 as ops_q
 from unirec_tpu_torch.ops import fused_qformer_layer as ops
 from unirec_tpu_torch.ops.fused_qformer_layer import NEG_INF, ffn_chunk_size

@@ -28,14 +28,15 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from unirec_tpu.configs import ItemQFormerConfig
-from unirec_tpu.data.cache import FieldEmbeddingCache
+from unirec_tpu_torch.configs import ItemQFormerConfig
+from unirec_tpu_torch.data.cache import FieldEmbeddingCache
 from unirec_tpu_torch.inference.fused_qformer import (
     fused_qformer_forward,
     prepare_fused_params,
     supports_fused,
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
+from unirec_tpu_torch.utils.device import resolve_device
 
 NULL_STRINGS = {
     "", "null", "NULL", "Null", "none", "NONE", "None", "nan", "NaN", "NAN",
@@ -49,10 +50,6 @@ def is_null_value(value) -> bool:
     if isinstance(value, str):
         return value.strip() in NULL_STRINGS
     return False
-
-
-def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class QFormerInference:
@@ -99,7 +96,7 @@ class QFormerInference:
         self.config = config
         self.field_names = list(field_names)
         self.item_encoder = item_encoder
-        self.device = torch.device(device) if device else _default_device()
+        self.device = resolve_device(device)
         self.batch_size = batch_size
         self.precision = precision
         if precision == "int8":
@@ -126,7 +123,7 @@ class QFormerInference:
     def read_checkpoint(path: str):
         """(config, ``ItemQFormer`` state_dict, field names) of a checkpoint
         directory of ``utils/checkpoint.py`` or a reference ``.pth``
-        (converted through ``unirec_tpu.utils.torch_convert``)."""
+        (converted through ``utils/torch_convert``)."""
         if os.path.isdir(path):
             from unirec_tpu_torch.utils.checkpoint import (
                 load_checkpoint,
@@ -136,7 +133,7 @@ class QFormerInference:
             sd, meta = load_checkpoint(path)
             return (restore_config(meta, ItemQFormerConfig), sd,
                     meta.get("field_names"))
-        from unirec_tpu.utils.torch_convert import (
+        from unirec_tpu_torch.utils.torch_convert import (
             load_reference_item_qformer_checkpoint,
         )
         from unirec_tpu_torch.utils.weights import (

@@ -21,38 +21,42 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from unirec_tpu.configs import ItemQFormerConfig
-from unirec_tpu_torch.models.qformer import QFormerModel
+from unirec_tpu_torch.configs import ItemQFormerConfig
+from unirec_tpu_torch.models.qformer import Linear, QFormerModel
+from unirec_tpu_torch.ops.dropout import DropoutStream
 
 
 class ItemQFormer(nn.Module):
+    """``param_dtype`` (default ``dtype``) stores the parameters, ``dtype``
+    computes, as ``models/qwen3.py`` does."""
+
     def __init__(self, config: ItemQFormerConfig, *, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
         k, d, fd = (config.num_query_tokens, config.hidden_size,
                     config.field_embedding_dim)
-        self.query_embeddings = nn.Parameter(
-            torch.empty(1, k, d, device=device, dtype=dtype))
+        pkw = dict(device=device, dtype=param_dtype or dtype)
+        lkw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.query_embeddings = nn.Parameter(torch.empty(1, k, d, **pkw))
         self.field_id_embeddings = (
-            nn.Parameter(torch.empty(config.num_fields, fd, device=device,
-                                     dtype=dtype))
+            nn.Parameter(torch.empty(config.num_fields, fd, **pkw))
             if config.use_field_type_embeddings else None)
-        self.qformer = QFormerModel(config.qformer(), device=device,
-                                    dtype=dtype)
-        self.item_representation_head = nn.Linear(d, fd, device=device,
-                                                  dtype=dtype)
-        self.reconstruction_head = nn.Linear(d, fd, device=device, dtype=dtype)
+        self.qformer = QFormerModel(config.qformer(), **lkw)
+        self.item_representation_head = Linear(d, fd, **lkw)
+        self.reconstruction_head = Linear(d, fd, **lkw)
         # Flax DenseGeneral(features=F, axis=1): kernel [K, F] -> weight [F, K]
-        self.field_projection = nn.Linear(k, config.num_fields, device=device,
-                                          dtype=dtype)
+        self.field_projection = Linear(k, config.num_fields, **lkw)
 
     def query_outputs(self, field_embeddings: torch.Tensor,
                       attention_mask: Optional[torch.Tensor] = None,
-                      modality_ids: Optional[torch.Tensor] = None
+                      modality_ids: Optional[torch.Tensor] = None,
+                      dropout: Optional[DropoutStream] = None
                       ) -> torch.Tensor:
-        """[B, F, field_dim] fields -> [B, K, hidden] query tokens."""
+        """[B, F, field_dim] fields -> [B, K, hidden] query tokens;
+        ``dropout``: a training forward's stream."""
         if modality_ids is not None:
             raise NotImplementedError(
                 "modality-id embeddings are not ported yet (they arrive with "
@@ -73,14 +77,16 @@ class ItemQFormer(nn.Module):
             attention_mask=query_mask,
             encoder_hidden_states=field_embeddings.to(self.dtype),
             encoder_attention_mask=attention_mask,
+            dropout=dropout,
         )
 
     def forward(self, field_embeddings: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                modality_ids: Optional[torch.Tensor] = None
+                modality_ids: Optional[torch.Tensor] = None,
+                dropout: Optional[DropoutStream] = None
                 ) -> Dict[str, torch.Tensor]:
         query_outputs = self.query_outputs(field_embeddings, attention_mask,
-                                           modality_ids)
+                                           modality_ids, dropout)
         item_representation = self.item_representation_head(
             query_outputs.mean(dim=1))
         recon = self.reconstruction_head(query_outputs)  # [B, K, field_dim]

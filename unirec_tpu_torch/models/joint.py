@@ -1,11 +1,16 @@
 """Joint multimodal Qwen3 embedding model (port of
-``unirec_tpu/models/joint.py``), deterministic forward.
+``unirec_tpu/models/joint.py``).
 
 The Item Q-Former runs on the history items' field embeddings; the first
 ``num_query_tokens_per_item`` of each item's query tokens overwrite the
 embedding rows of the reserved special tokens (ids ``vocab_size + i``) in one
 vectorised gather/where; the Qwen3 decoder with LoRA runs; the output is
-pooled.  ``history_token_strings`` and ``construct_input_text`` are
+pooled.  ``model.train()`` puts both submodules in training mode; a training
+forward takes a ``DropoutStream`` (``dropout=``), which each submodule
+extends with its own name, so the Q-Former's and the decoder's masks are
+independent.  ``remat`` / ``remat_policy`` go to the decoder, and
+``param_dtype`` to both (see ``models/qwen3.py``).
+``history_token_strings`` and ``construct_input_text`` are
 framework-free copies of the JAX module's functions (that module imports JAX,
 and ``unirec_tpu`` is the reference the port is held against, so it is not
 edited).
@@ -18,7 +23,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from unirec_tpu.configs import (
+from unirec_tpu_torch.configs import (
     ItemQFormerConfig,
     JointModelConfig,
     LoRAConfig,
@@ -26,6 +31,7 @@ from unirec_tpu.configs import (
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.models.qwen3 import Qwen3Model, last_token_pool, mean_pool
+from unirec_tpu_torch.ops.dropout import DropoutStream, at
 
 
 def history_token_strings(num_items: int, tokens_per_item: int) -> List[str]:
@@ -44,7 +50,9 @@ class MultiModalQwenEmbedding(nn.Module):
                  qformer_config: ItemQFormerConfig,
                  joint_config: JointModelConfig = JointModelConfig(),
                  lora: Optional[LoRAConfig] = None, *, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         if qformer_config.hidden_size != qwen_config.hidden_size:
             raise ValueError(
@@ -58,10 +66,14 @@ class MultiModalQwenEmbedding(nn.Module):
         self.joint_config = joint_config
         self.lora = lora
         self.dtype = dtype
+        self.param_dtype = param_dtype or dtype
         self.base_model = Qwen3Model(qwen_config, lora,
                                      n_extra_tokens=self.num_special_tokens,
-                                     device=device, dtype=dtype)
-        self.qformer = ItemQFormer(qformer_config, device=device, dtype=dtype)
+                                     device=device, dtype=dtype,
+                                     param_dtype=param_dtype, remat=remat,
+                                     remat_policy=remat_policy)
+        self.qformer = ItemQFormer(qformer_config, device=device, dtype=dtype,
+                                   param_dtype=param_dtype)
 
     def clone(self, state_dict: Optional[Dict[str, torch.Tensor]] = None,
               **changes) -> "MultiModalQwenEmbedding":
@@ -71,7 +83,10 @@ class MultiModalQwenEmbedding(nn.Module):
         copied, and this model is left as it is."""
         kw = dict(qwen_config=self.qwen_config,
                   qformer_config=self.qformer_config,
-                  joint_config=self.joint_config, lora=self.lora)
+                  joint_config=self.joint_config, lora=self.lora,
+                  param_dtype=self.param_dtype,
+                  remat=self.base_model.remat,
+                  remat_policy=self.base_model.remat_policy)
         kw.update(changes)
         new = MultiModalQwenEmbedding(**kw, device="meta", dtype=self.dtype)
         new.load_state_dict(
@@ -91,9 +106,10 @@ class MultiModalQwenEmbedding(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 history_field_embeddings: Optional[torch.Tensor] = None,
-                history_attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """ids/mask [B, L], history [B, H, F, FD] / [B, H, F] -> [B, D]."""
+                history_attention_mask: Optional[torch.Tensor] = None,
+                dropout: Optional[DropoutStream] = None) -> torch.Tensor:
+        """ids/mask [B, L], history [B, H, F, FD] / [B, H, F] -> [B, D];
+        ``dropout``: a training forward's stream."""
         jc = self.joint_config
         n_special = self.num_special_tokens
         text_embeds = self.base_model.embed(input_ids)
@@ -107,6 +123,7 @@ class MultiModalQwenEmbedding(nn.Module):
                 history_field_embeddings.reshape(bh * num_hist, num_fields,
                                                  field_dim),
                 history_attention_mask.reshape(bh * num_hist, num_fields),
+                dropout=at(dropout, "qformer"),
             )
             k_per_item = jc.num_query_tokens_per_item
             tokens = q_out[:, :k_per_item, :].reshape(
@@ -118,8 +135,9 @@ class MultiModalQwenEmbedding(nn.Module):
                                     safe[..., None].expand(b, l, d))
             text_embeds = torch.where(valid[..., None], gathered, text_embeds)
 
-        hidden = self.base_model(inputs_embeds=text_embeds,
-                                 attention_mask=attention_mask)
+        hidden = self.base_model(
+            inputs_embeds=text_embeds, attention_mask=attention_mask,
+            dropout=at(dropout, "base_model"))
         if jc.pool == "mean":
             # mean over ALL positions, padding included (the reference)
             return mean_pool(hidden)

@@ -24,7 +24,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_causal_fwd.cu", "retrieve_topk.cu", "qformer_blocks.cu")
+SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
+           "qformer_blocks.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unirec_tpu_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -75,9 +76,12 @@ def load_kernels() -> Kernels:
         log = _compile(srcs, out)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
-    lib.unirec_flash_causal_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                            _I, _I, _P]
+    lib.unirec_flash_causal_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     lib.unirec_flash_causal_fwd.restype = _I
+    lib.unirec_flash_causal_bwd_dq.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+    lib.unirec_flash_causal_bwd_dq.restype = _I
+    lib.unirec_flash_causal_bwd_dkv.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+    lib.unirec_flash_causal_bwd_dkv.restype = _I
     lib.unirec_retrieve_topk.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _P]
     lib.unirec_retrieve_topk.restype = _I

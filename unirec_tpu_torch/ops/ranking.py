@@ -1,5 +1,7 @@
-"""Full-catalog retrieval (port of ``unirec_tpu/ops/ranking.py``): the plain
-``top_k_items`` and the blocked running-top-k kernel K2.
+"""Candidate-pool ranking and full-catalog retrieval (port of
+``unirec_tpu/ops/ranking.py``): ``rank_of_positive`` and ``ranking_metrics``
+(the joint trainer's evaluation), the plain ``top_k_items`` and the blocked
+running-top-k kernel K2.
 
 K2 (``csrc/retrieve_topk.cu``) replaces ``unirec_tpu/ops/ranking.py::
 retrieve_top_k`` (``_retrieval_kernel`` with ``merge_running_topk``).  It is
@@ -13,15 +15,50 @@ Both return scores ``[B, k]`` float32 in descending order and catalog ids
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
-from unirec_tpu_torch.ops.losses import l2_normalize
+from unirec_tpu_torch.ops.losses import l2_normalize, normalize_promoted
 
 MAX_KERNEL_K = 32  # the kernel keeps k <= 32 candidates per user on chip
 _USERS_PER_BLOCK = 8
+
+
+def rank_of_positive(user_emb: torch.Tensor, positive_emb: torch.Tensor,
+                     negative_emb: torch.Tensor,
+                     negative_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """1-based rank of the positive among [positive] + negatives by cosine
+    similarity: 1 + the number of negatives scoring strictly higher (ties go
+    to the positive; a masked negative scores -inf)."""
+    u, p, n = normalize_promoted(user_emb, positive_emb, negative_emb)
+    pos_sim = (u * p).sum(-1)                             # [B]
+    neg_sim = torch.einsum("bd,bnd->bn", u, n)            # [B, N]
+    if negative_mask is not None:
+        neg_sim = torch.where(negative_mask.bool(), neg_sim,
+                              torch.full_like(neg_sim, float("-inf")))
+    return 1 + (neg_sim > pos_sim[:, None]).sum(-1)
+
+
+def ranking_metrics(user_emb: torch.Tensor, positive_emb: torch.Tensor,
+                    negative_emb: torch.Tensor,
+                    negative_mask: Optional[torch.Tensor] = None,
+                    ks: Tuple[int, ...] = (1, 5, 10)
+                    ) -> Dict[str, torch.Tensor]:
+    """MRR, Recall@K and NDCG@K for one relevant item per user: Recall@K is
+    hit@K, NDCG@K is 1/log2(rank + 1) within K and 0 beyond."""
+    ranks = rank_of_positive(user_emb, positive_emb, negative_emb,
+                             negative_mask)
+    out: Dict[str, torch.Tensor] = {"mrr": (1.0 / ranks).mean()}
+    for k in ks:
+        hit = ranks <= k
+        out[f"recall@{k}"] = hit.float().mean()
+        out[f"ndcg@{k}"] = torch.where(
+            hit, 1.0 / torch.log2(ranks.float() + 1.0),
+            torch.zeros((), device=ranks.device)).mean()
+    return out
 
 
 def top_k_items(user_emb: torch.Tensor, catalog_emb: torch.Tensor,

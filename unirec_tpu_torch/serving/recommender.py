@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from unirec_tpu.data.cache import FieldEmbeddingCache
+from unirec_tpu_torch.data.cache import FieldEmbeddingCache
 from unirec_tpu_torch.data.tokenizer import BaseTokenizer
 from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
 from unirec_tpu_torch.models.qwen3 import quantize_qwen3_weights, set_qweights

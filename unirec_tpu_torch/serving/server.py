@@ -8,7 +8,7 @@ POST /score       {"history": [...], "candidates": [...]}
 GET  /healthz     -> {"ok": true, "catalog_size": N, "batches_run": M, ...}
 
 Concurrent ``/recommend`` requests coalesce into full fixed-shape batches in
-the shared ``unirec_tpu.serving.batching.MicroBatcher``, whose single
+``serving/batching.MicroBatcher``, whose single
 dispatcher thread is the only one that drives the device.
 """
 
@@ -18,7 +18,7 @@ import json
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from unirec_tpu.serving.batching import MicroBatcher, ServerOverloaded
+from unirec_tpu_torch.serving.batching import MicroBatcher, ServerOverloaded
 from unirec_tpu_torch.serving.recommender import Recommender
 
 
@@ -123,7 +123,7 @@ def make_server(recommender: Recommender, host: str = "127.0.0.1",
     if warmup:
         batcher.warmup()
     if freeze_heap:
-        from unirec_tpu.serving.host_tuning import freeze_host_heap
+        from unirec_tpu_torch.serving.host_tuning import freeze_host_heap
 
         freeze_host_heap()
 

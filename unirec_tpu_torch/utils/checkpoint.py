@@ -2,14 +2,18 @@
 ``unirec_tpu/utils/checkpoint.py``).
 
     directory/
-      meta.json   {"config": {...}, "config_class": "...", **extra}
-                  (extra carries ``field_names`` for an Item Q-Former)
-      params.pt   torch state_dict (in place of orbax's ``state/``)
+      meta.json     {"config": {...}, "config_class": "...", **extra}
+                    (extra carries ``field_names`` for an Item Q-Former;
+                    a train state adds ``step`` and ``grad_accum``)
+      params.pt     torch state_dict (in place of orbax's ``state/``)
+      optimizer.pt  a train state only: the optimizer's moments, its
+                    gradient-accumulation buffer and counters, and the step
 
-Optimizer state, the step and resume arrive with the training slice.  A
+``params.pt`` alone is what ``serve_cli --checkpoint`` and
+``QFormerInference`` read; ``restore_train_state`` reads all three.  A
 reference ``best_qformer_model.pth`` is read by ``QFormerInference`` through
-``unirec_tpu.utils.torch_convert`` instead (unpickling its ``BertConfig``
-needs ``transformers``).
+``utils/torch_convert.py`` instead (unpickling its ``BertConfig`` needs
+``transformers``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 
 PARAMS_FILE = "params.pt"
 META_FILE = "meta.json"
+OPTIMIZER_FILE = "optimizer.pt"
 
 
 def save_checkpoint(
@@ -69,3 +74,66 @@ def restore_config(meta: Dict[str, Any], config_cls):
     cfg = dict(meta.get("config", {}))
     fields = {f.name for f in dataclasses.fields(config_cls)}
     return config_cls(**{k: v for k, v in cfg.items() if k in fields})
+
+
+# -- train states -------------------------------------------------------------
+
+
+def has_train_state(directory: Optional[str]) -> bool:
+    return bool(directory) and os.path.exists(
+        os.path.join(directory, OPTIMIZER_FILE))
+
+
+def save_train_state(directory: str, state, config: Optional[Any] = None,
+                     extra: Optional[Dict[str, Any]] = None) -> str:
+    """Parameters, optimizer state and step of a ``train/common.TrainState``
+    (the JAX ``save_checkpoint`` of a TrainState)."""
+    directory = save_checkpoint(directory, state.model, config,
+                                extra={**(extra or {}), "step": int(state.step)})
+    opt = state.optimizer.state_dict()
+    host = {k: ({n: t.detach().cpu() for n, t in v.items()}
+                if isinstance(v, dict) else v) for k, v in opt.items()}
+    torch.save({"step": int(state.step), "optimizer": host},
+               os.path.join(directory, OPTIMIZER_FILE))
+    return directory
+
+
+def restore_train_state(directory: str, template_state):
+    """Restore parameters, optimizer state and step into a freshly built
+    ``TrainState`` (its structure is the template); returns (state, meta)."""
+    directory = os.path.abspath(directory)
+    sd, meta = load_checkpoint(directory)
+    model = template_state.model
+    device = next(model.parameters()).device
+    model.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    saved = torch.load(os.path.join(directory, OPTIMIZER_FILE),
+                       map_location=device, weights_only=True)
+    template_state.optimizer.load_state_dict(saved["optimizer"])
+    template_state.step = int(saved["step"])
+    return template_state, meta
+
+
+def check_grad_accum(meta: Dict[str, Any], expected: int) -> None:
+    """The checkpoint's gradient-accumulation setting must be the resuming
+    run's (the optimizer state's layout depends on it); checkpoints without
+    the field count as 1."""
+    saved = int(meta.get("grad_accum", 1))
+    if saved != int(expected):
+        raise ValueError(
+            f"checkpoint was saved with gradient accumulation {saved} but "
+            f"this run uses {int(expected)}; the optimizer-state layout "
+            "depends on it — resume with the matching --grad-accum")
+
+
+def resume_train_state(directory: Optional[str], template_state, log_fn=print,
+                       expect_grad_accum: Optional[int] = None):
+    """``restore_train_state`` with the trainer-resume contract: raise when
+    no checkpoint exists instead of silently training from scratch."""
+    if not has_train_state(directory):
+        raise FileNotFoundError(
+            f"resume requested but no checkpoint under {directory!r}")
+    if expect_grad_accum is not None:
+        check_grad_accum(read_meta(directory), expect_grad_accum)
+    state, meta = restore_train_state(directory, template_state)
+    log_fn(f"resumed from {directory} at step {int(state.step)}")
+    return state, meta

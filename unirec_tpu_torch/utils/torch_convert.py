@@ -1,0 +1,132 @@
+"""Reader for a reference ``best_qformer_model.pth`` (the port's copy of the
+item Q-Former part of ``unirec_tpu/utils/torch_convert.py``).
+
+The reference checkpoint is a torch pickle ``{model_state_dict, config:
+BertConfig, field_names}`` (reference: training/item_qformer_training.py:
+178-182).  ``convert_item_qformer`` maps its state_dict to the JAX package's
+parameter tree (numpy leaves, Flax names and ``kernel [in, out]`` layout),
+which ``utils/weights.item_qformer_state_dict_from_flax`` turns into the
+port's state_dict: the same two steps the JAX package takes, so both packages
+read one checkpoint to the same weights.  Unpickling the ``BertConfig`` needs
+``transformers``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+
+from unirec_tpu_torch.configs import ItemQFormerConfig, QFormerConfig
+
+
+def _np(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _dense(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """torch nn.Linear -> Flax Dense (the kernel is transposed)."""
+    out = {"kernel": _np(sd[prefix + ".weight"]).T}
+    if prefix + ".bias" in sd:
+        out["bias"] = _np(sd[prefix + ".bias"])
+    return out
+
+
+def _layernorm(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[prefix + ".weight"]),
+            "bias": _np(sd[prefix + ".bias"])}
+
+
+def _attention(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """BertAttention (self or cross) -> QFormerAttention parameters."""
+    out = {
+        "query": _dense(sd, f"{prefix}.self.query"),
+        "key": _dense(sd, f"{prefix}.self.key"),
+        "value": _dense(sd, f"{prefix}.self.value"),
+        "output_dense": _dense(sd, f"{prefix}.output.dense"),
+        "output_LayerNorm": _layernorm(sd, f"{prefix}.output.LayerNorm"),
+    }
+    if f"{prefix}.self.distance_embedding.weight" in sd:
+        out["distance_embedding"] = {
+            "embedding": _np(sd[f"{prefix}.self.distance_embedding.weight"])}
+    return out
+
+
+def _ffn(sd: Mapping[str, Any], inter_prefix: str,
+         out_prefix: str) -> Dict[str, Any]:
+    return {
+        "intermediate_dense": _dense(sd, f"{inter_prefix}.dense"),
+        "output_dense": _dense(sd, f"{out_prefix}.dense"),
+        "output_LayerNorm": _layernorm(sd, f"{out_prefix}.LayerNorm"),
+    }
+
+
+def convert_qformer_model(sd: Mapping[str, Any], config: QFormerConfig,
+                          prefix: str = "") -> Dict[str, Any]:
+    """Torch BertModel state_dict -> QFormerModel parameter tree."""
+    p = prefix
+    emb: Dict[str, Any] = {"LayerNorm": _layernorm(sd, f"{p}embeddings.LayerNorm")}
+    if f"{p}embeddings.word_embeddings.weight" in sd:
+        emb["word_embeddings"] = {
+            "embedding": _np(sd[f"{p}embeddings.word_embeddings.weight"])}
+        emb["position_embeddings"] = {
+            "embedding": _np(sd[f"{p}embeddings.position_embeddings.weight"])}
+    encoder: Dict[str, Any] = {}
+    for i in range(config.num_hidden_layers):
+        lp = f"{p}encoder.layer.{i}"
+        layer: Dict[str, Any] = {
+            "attention": _attention(sd, f"{lp}.attention"),
+            "ffn_query": _ffn(sd, f"{lp}.intermediate_query",
+                              f"{lp}.output_query"),
+        }
+        if f"{lp}.crossattention.self.query.weight" in sd:
+            layer["crossattention"] = _attention(sd, f"{lp}.crossattention")
+        if f"{lp}.intermediate.dense.weight" in sd:
+            layer["ffn"] = _ffn(sd, f"{lp}.intermediate", f"{lp}.output")
+        encoder[f"layer_{i}"] = layer
+    out = {"embeddings": emb, "encoder": encoder}
+    if f"{p}pooler.dense.weight" in sd:
+        out["pooler"] = {"dense": _dense(sd, f"{p}pooler.dense")}
+    return out
+
+
+def convert_item_qformer(sd: Mapping[str, Any],
+                         config: ItemQFormerConfig) -> Dict[str, Any]:
+    """Torch QFormerForItemRepresentation state_dict -> ItemQFormer tree
+    (the field_projection Linear(K -> F) weight [F, K] becomes the
+    DenseGeneral kernel [K, F])."""
+    return {
+        "query_embeddings": _np(sd["query_embeddings"]),
+        "qformer": convert_qformer_model(sd, config.qformer(),
+                                         prefix="qformer."),
+        "item_representation_head": _dense(sd, "item_representation_head"),
+        "reconstruction_head": _dense(sd, "reconstruction_head"),
+        "field_projection": {
+            "kernel": _np(sd["field_projection.weight"]).T,
+            "bias": _np(sd["field_projection.bias"]),
+        },
+    }
+
+
+def load_reference_item_qformer_checkpoint(path: str):
+    """A reference ``best_qformer_model.pth`` -> (ItemQFormerConfig,
+    ``{"params": tree}``, field_names)."""
+    import torch
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    bert_cfg = ckpt["config"]
+    field_names = ckpt["field_names"]
+    cfg = ItemQFormerConfig(
+        hidden_size=bert_cfg.hidden_size,
+        num_hidden_layers=bert_cfg.num_hidden_layers,
+        num_attention_heads=bert_cfg.num_attention_heads,
+        intermediate_size=bert_cfg.intermediate_size,
+        num_query_tokens=bert_cfg.query_length,
+        field_embedding_dim=bert_cfg.encoder_width,
+        num_fields=len(field_names),
+        dropout=bert_cfg.hidden_dropout_prob,
+    )
+    params = convert_item_qformer(ckpt["model_state_dict"], cfg)
+    return cfg, {"params": params}, field_names

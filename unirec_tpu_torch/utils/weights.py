@@ -7,7 +7,7 @@ module tree mirrors the Flax tree, so names map one to one: ``layers_{i}`` ->
 ``layers.{i}``, ``layer_{i}`` -> ``layer.{i}``, a Dense ``kernel [in, out]``
 -> ``weight [out, in]`` (transposed), a norm ``scale`` -> ``weight``.  The
 port holds only what the forward uses: no zero text FFNs and no 30522-row
-word table, which ``unirec_tpu.utils.torch_convert.export_qformer_model``
+word table, which the JAX package's ``torch_convert.export_qformer_model``
 synthesises for the reference layout.
 
 A reference ``.pth`` of the joint model loads by composing the two numpy-only
@@ -33,7 +33,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from unirec_tpu.configs import (
+from unirec_tpu_torch.configs import (
     ItemQFormerConfig,
     JointModelConfig,
     LoRAConfig,
@@ -150,15 +150,23 @@ def init_joint(qwen_cfg: Qwen3Config, qf_cfg: ItemQFormerConfig,
                jc: JointModelConfig, lora: Optional[LoRAConfig],
                generator: torch.Generator, device=None,
                dtype: torch.dtype = torch.float32,
-               lora_b_std: float = 0.0) -> MultiModalQwenEmbedding:
+               lora_b_std: float = 0.0,
+               param_dtype: Optional[torch.dtype] = None,
+               remat: bool = False,
+               remat_policy: Optional[str] = None) -> MultiModalQwenEmbedding:
     """The joint model with the Flax initialisers' distributions: normal(0.02)
     for dense kernels and embeddings, normal(1.0) for the query embeddings,
     normal(1/r) for ``lora_a``, ones/zeros for norm scales and biases.
 
     ``lora_b`` is zero as in Flax unless ``lora_b_std > 0``: with zeros the
-    LoRA path is computed but contributes nothing."""
+    LoRA path is computed but contributes nothing.  ``param_dtype`` (default
+    ``dtype``) stores the parameters, ``dtype`` computes: the trainer asks
+    for float32 masters under bfloat16 compute.  ``remat`` and
+    ``remat_policy`` go to the decoder (``models/qwen3.Qwen3Model``)."""
     model = MultiModalQwenEmbedding(qwen_cfg, qf_cfg, jc, lora, device=device,
-                                    dtype=dtype).eval()
+                                    dtype=dtype, param_dtype=param_dtype,
+                                    remat=remat,
+                                    remat_policy=remat_policy).eval()
     _flax_init_(model, generator, lora, lora_b_std)
     return model
 
