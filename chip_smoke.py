@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
 serving path (over a float32 and an int8 catalog, and with the W8A8 int8
-Qwen3 forward), the item-token sweep (bf16 and W8A8 int8) and joint training.
+Qwen3 forward), the item-token sweep (bf16 and W8A8 int8), joint training
+and Item Q-Former training.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,11 @@ Phases (any failed check raises; the script then exits non-zero):
    blocks, as B1-B3; B8, the W8A8 linear, at the Qwen3-0.6B serving
    projections (4096 rows: 1024->2048, 1024->1024, 2048->1024, 1024->3072,
    3072->1024; and 1024->2048 at 16384 rows), B9a (q|k|v, [4096, 1024] ->
-   4096) and B9b (the SwiGLU MLP, [4096, 1024], intermediate 3072).
+   4096) and B9b (the SwiGLU MLP, [4096, 1024], intermediate 3072); B12s and
+   B12c, the trainable self- and cross-attention blocks, forward and
+   backward, at the item-training shape (512 and a ragged 509 items, ~15%
+   missing fields, >= 8 items with none), each repeated for identical bits,
+   the forwards beside ``multi_head_attention_forward`` (the yardstick).
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
@@ -74,7 +79,20 @@ Phases (any failed check raises; the script then exits non-zero):
    dict, the sweep's cache): 3 steps with ``--flash-vjp --no-remat``,
    evaluations and a checkpoint; ``--resume`` from it; one step with
    ``--int8-base`` (B8 196 times: 7 x 28).
-7. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
+7. Item Q-Former training at full width over the sweep's checkpoint and
+   cache (batch 512, bf16 compute with float32 masters): one step with the
+   fused anchor (B12s/B12c 12/12/6/6 launches) against the plain anchor
+   (none), B1/B2/B3 24/12/24 for the positive and negative forwards in both,
+   loss and every leaf's gradient held to each other; a 10-step trajectory
+   of each from one init; ms per step and peak memory of the plain anchor,
+   the fused anchor, and the fused anchor with int8 references (B4-B6), the
+   step split and a ``torch.profiler`` breakdown.  Then
+   ``cli.train_cli.main(["item-qformer", ...])`` over item and sequence
+   JSON written for the cache (2 epochs with ``--bf16 --fused-anchor``, then
+   ``--resume``, then ``--int8-ref``; exact launch counts), ``evaluate`` on
+   its checkpoint, ``QFormerInference`` on it against the fp32 model, and
+   ``precompute`` of 2,000 items in the default field schema.
+8. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
    the PyTorch yardstick where one call computes the same function), then
    the last line ``{"ok": true, ...}``.
 
@@ -113,6 +131,10 @@ K2_TIE, K2_SCORE_TOL = 1e-6, 1e-5
 BLOCK_ATOL, BLOCK_COS = 5e-2, 0.9999
 QF_D, QF_HEADS, QF_K, QF_F, QF_INTER = 1024, 16, 32, 14, 4096
 BLOCK_ITEMS = (4096, 1001)
+# B12s / B12c at the item-training batch (and a ragged one) against their
+# plain versions: relative to max|ref| (the backward chains three products,
+# as B7b's bf16 bound), per-row cosine as B1-B6
+B12_ITEMS, B12_TOL, B12_COS = (512, 509), 2e-2, 0.9999
 # the attention kernel's repaired limit: K up to 256 query rows per item
 WIDE_K, WIDE_K_ITEMS = (128, 256), 64
 SWEEP_ITEMS, SWEEP_BATCH, SWEEP_SAMPLE = 9000, 4096, 256
@@ -167,6 +189,10 @@ B7B_COS = 0.9999
 STEP_LOSS_REL, STEP_GRAD_COS = 1e-2, 0.999
 TRAIN_BATCH, TRAIN_NEG, VAL_CANDIDATES = 8, 10, 100
 TRAIN_ITEMS = 1500  # candidate items with 1024-d embeddings in the JSON
+# item training (phase 7): batch 512 as the JAX package's scripts/bench_item.py,
+# a 10-step trajectory, 256 users x 9 items (2,048 pairs: 4 steps an epoch)
+# for the CLI, and a 2,000-item precompute
+ITEM_BATCH, ITEM_STEPS, ITEM_CLI_USERS, PRECOMPUTE_ITEMS = 512, 10, 256, 2000
 
 
 def log(msg: str) -> None:
@@ -535,6 +561,185 @@ def phase_wide_k(gen) -> dict:
             check_block(name.upper(), err, cos, f"K={n_q}, {items} items")
             errs[name] = max(errs[name], err)
     return errs
+
+
+# -- B12s / B12c: the trainable fused blocks ---------------------------------
+
+
+def b12_error(name, out, ref, where, noise_rows=None) -> float:
+    """Checks a B12 output against its plain version (bf16 both, compared in
+    fp32): max|d| <= B12_TOL * max|ref| and per-row cosine >= B12_COS over
+    the rows where ref is nonzero, except ``noise_rows``: the query rows of
+    an item with no valid field, whose exact dq is 0 (its keys are one and
+    the same row, and ds sums to 0 over them), so that both versions return
+    rounding noise there, which the max|d| bound holds.  Returns max|d|."""
+    a = out.float().reshape(-1, out.shape[-1])
+    b = ref.float().reshape(-1, ref.shape[-1])
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{name} {where}: non-finite values")
+    err = (a - b).abs().max().item()
+    rel = err / b.abs().max().item()
+    live = b.abs().amax(-1) > 0
+    if noise_rows is not None:
+        live &= ~noise_rows
+    cos = torch.nn.functional.cosine_similarity(a[live], b[live], dim=-1)
+    log(f"{name} {where}: max|d| {err:.3e}, rel {rel:.3e} (tol {B12_TOL:g}), "
+        f"min row cosine {cos.min().item():.7f} over {int(live.sum())} rows "
+        f"(tol {B12_COS})")
+    if not (rel <= B12_TOL and cos.min().item() >= B12_COS):
+        raise AssertionError(f"{name} {where} disagrees with its plain version")
+    return err
+
+
+def b12_bounds(items: int) -> dict:
+    """bound_ms and bound_by of the four B12 kernels at ``items`` items of
+    the production widths: inputs read once and outputs written once (bf16;
+    float32 key bias and biases; dctx is the kernels' own scratch), and the
+    projection and per-item attention products (s and p.v forward; s, dp,
+    dq, dk and dv backward) in bf16."""
+    d, k, f, h = QF_D, QF_K, QF_F, QF_HEADS
+    rows, mrows = items * k, items * f
+    w = 2 * d * d  # one [d, d] bf16 weight
+    attn = 2 * k * (d // h) * h  # one [k, n] x [n, hd] product per row pair
+    return {
+        "b12s_fwd": bound(2 * rows * d + 4 * w + 4 * 4 * d + 4 * rows
+                          + 2 * rows * (d + 3 * d + d),
+                          2 * rows * d * 4 * d + 2 * attn * rows, "bf16"),
+        "b12s_bwd": bound(2 * rows * 3 * d + w + 4 * rows + 2 * rows * d
+                          + 2 * rows * 3 * d,
+                          2 * rows * d * d + 5 * attn * rows, "bf16"),
+        "b12c_fwd": bound(2 * rows * d + 2 * mrows * d + 4 * w + 4 * 4 * d
+                          + 4 * mrows + 2 * rows * 3 * d + 2 * mrows * 2 * d,
+                          2 * rows * d * 2 * d + 2 * mrows * d * 2 * d
+                          + 2 * 2 * k * f * d * items, "bf16"),
+        "b12c_bwd": bound(2 * rows * d + 2 * mrows * 2 * d + w + 4 * mrows
+                          + 2 * rows * d + 2 * rows * d + 2 * mrows * 2 * d,
+                          2 * rows * d * d + 5 * 2 * k * f * d * items,
+                          "bf16"),
+    }
+
+
+def b12_library_calls(x, mem, key_bias, sw, cw) -> dict:
+    """The PyTorch yardstick of the two B12 forwards: one
+    ``multi_head_attention_forward`` call computes their ``out`` (the input
+    projections, attention under the per-key bias, the output projection)
+    from the same weights, in the sequence-first layout made here, outside
+    the timed call; it returns neither qkv nor ctx, which the kernels save.
+    No single call computes the backwards."""
+    mha = torch.nn.functional.multi_head_attention_forward
+    d, h = QF_D, QF_HEADS
+    xs = x.transpose(0, 1).contiguous()
+    ms = mem.transpose(0, 1).contiguous()
+    kpm = key_bias.to(x.dtype)
+    bqkv = torch.cat([cw["bq"], cw["bkv"]]).to(x.dtype)
+    return {
+        "b12s_fwd": lambda: mha(
+            xs, xs, xs, d, h, sw["wqkv"], sw["bqkv"].to(x.dtype), None, None,
+            False, 0.0, sw["wo"], sw["bo"].to(x.dtype), training=False,
+            need_weights=False)[0],
+        "b12c_fwd": lambda: mha(
+            xs, ms, ms, d, h, None, bqkv, None, None, False, 0.0, cw["wo"],
+            cw["bo"].to(x.dtype), training=False, key_padding_mask=kpm,
+            need_weights=False, use_separate_proj_weight=True,
+            q_proj_weight=cw["wq"], k_proj_weight=cw["wkv"][:d],
+            v_proj_weight=cw["wkv"][d:])[0],
+    }
+
+
+def phase_b12(gen) -> dict:
+    """B12s and B12c, forward and backward, against their plain versions at
+    the item-training shape (512 items and a ragged 509; ~15% missing fields,
+    >= 8 items with none), each run twice for identical bits; timed with
+    CUDA events at 512 items beside the plain versions and the bounds."""
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    d, k, f = QF_D, QF_K, QF_F
+    skw = dict(num_heads=QF_HEADS, n_q=k)
+    ckw = dict(skw, n_kv=f)
+    names = ("b12s_fwd", "b12s_bwd", "b12c_fwd", "b12c_bwd")
+    result = {n: {"err": 0.0} for n in names}
+    for items in B12_ITEMS:
+        x, mem, key_bias, mask, sw, cw, _ = block_inputs(gen, items)
+        x2, mem2 = x.reshape(-1, d), mem.reshape(-1, d)
+        kb = key_bias.reshape(-1).contiguous()
+        zero = torch.zeros(x2.shape[0], device="cuda")  # queries: no mask
+        dout = (torch.randn(x2.shape, device="cuda", generator=gen) * 0.1
+                ).bfloat16()
+        # the model hands the blocks its biases in the compute dtype
+        sa = (x2, zero, sw["wqkv"], sw["bqkv"].bfloat16(), sw["wo"],
+              sw["bo"].bfloat16())
+        ca = (x2, mem2, kb, cw["wq"], cw["bq"].bfloat16(), cw["wkv"],
+              cw["bkv"].bfloat16(), cw["wo"], cw["bo"].bfloat16())
+        s_out = fv.self_attention_fwd(*sa, **skw)
+        c_out = fv.cross_attention_fwd(*ca, **ckw)
+        qkv, q, kv = s_out[1], c_out[1], c_out[2]
+        runs = {
+            "b12s_fwd": (lambda: fv.self_attention_fwd(*sa, **skw),
+                         lambda: fv.self_attention_fwd_plain(*sa, **skw),
+                         ("out", "qkv", "ctx")),
+            "b12s_bwd": (lambda: fv.self_attention_bwd(qkv, sw["wo"], zero,
+                                                       dout, **skw),
+                         lambda: fv.self_attention_bwd_plain(
+                             qkv, sw["wo"], zero, dout, **skw), ("dqkv",)),
+            "b12c_fwd": (lambda: fv.cross_attention_fwd(*ca, **ckw),
+                         lambda: fv.cross_attention_fwd_plain(*ca, **ckw),
+                         ("out", "q", "kv", "ctx")),
+            "b12c_bwd": (lambda: fv.cross_attention_bwd(q, kv, cw["wo"], kb,
+                                                        dout, **ckw),
+                         lambda: fv.cross_attention_bwd_plain(
+                             q, kv, cw["wo"], kb, dout, **ckw), ("dq", "dkv")),
+        }
+        noise = (mask.sum(1) == 0).repeat_interleave(k)
+        where = (f"{items} items, {int((mask.sum(1) == 0).sum())} without "
+                 f"fields")
+        for name, (kern, plain, outs) in runs.items():
+            got = kern()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = plain()
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for o, g, r in zip(outs, got, ref):
+                err = b12_error(f"{name.upper()} {o}", g, r, where,
+                                noise if o == "dq" else None)
+                result[name]["err"] = max(result[name]["err"], err)
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name.upper()} {where}: a repeat gave "
+                                     "other bits")
+        log(f"B12 {where}: the four kernels repeat bit for bit")
+        if items == B12_ITEMS[0]:
+            bounds = b12_bounds(items)
+            library = b12_library_calls(x, mem, key_bias, sw, cw)
+            for name, call in library.items():  # the same function: out
+                lib_out = call().transpose(0, 1).reshape(-1, d)
+                kern_out = runs[name][0]()[0]
+                cos = torch.nn.functional.cosine_similarity(
+                    lib_out.float(), kern_out.float(), dim=-1).min().item()
+                log(f"{name.upper()} out against multi_head_attention_forward"
+                    f": min row cosine {cos:.6f} (tol 0.999)")
+                if not cos >= 0.999:
+                    raise AssertionError(f"{name.upper()}: the yardstick "
+                                         "computes another function")
+            for name, (kern, plain, _) in runs.items():
+                t_k = time_ms(kern, iters=20, warmup=3)
+                t_p = time_ms(plain, iters=5, warmup=1)
+                t_k2 = time_ms(kern, iters=20, warmup=3)
+                t_l = (time_ms(library[name], iters=20, warmup=3)
+                       if name in library else None)
+                b_ms, b_by = bounds[name]
+                result[name].update(ms=min(t_k, t_k2), plain_ms=t_p,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=t_l)
+                log(f"{name.upper()} time {items} items: kernel {t_k:.4f} / "
+                    f"{t_k2:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}), " + (
+                        f"multi_head_attention_forward {t_l:.4f} ms (out "
+                        "only)" if t_l is not None
+                        else "no single PyTorch call computes it"))
+        del x, mem, runs, s_out, c_out, qkv, q, kv
+        torch.cuda.empty_cache()
+    return result
 
 
 def b11_compare(users, codes, scales, k):
@@ -1373,7 +1578,9 @@ def phase_sweep(smi: str, tmp: str) -> dict:
     from unirec_tpu_torch.utils.weights import init_item_qformer
 
     cfg = ItemQFormerConfig()
-    fields = [f"f{i}" for i in range(cfg.num_fields)]
+    # zero-padded, so that sorting them (the train CLI's field order) keeps
+    # the cache's order
+    fields = [f"f{i:02d}" for i in range(cfg.num_fields)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     model = init_item_qformer(cfg, gen, device="cuda", dtype=torch.float32)
@@ -1902,6 +2109,390 @@ def phase_train(smi: str, tmp: str) -> dict:
     return {"launches": l_f, "ms_per_step": ms_f}
 
 
+# -- phase 7: Item Q-Former training ---------------------------------------------
+
+
+def item_counters() -> dict:
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    return {"b12s_fwd": fv.self_attention_fwd,
+            "b12s_bwd": fv.self_attention_bwd,
+            "b12c_fwd": fv.cross_attention_fwd,
+            "b12c_bwd": fv.cross_attention_bwd,
+            "b1": fq.fused_self_attention_block,
+            "b2": fq.fused_cross_attention_block, "b3": fq.fused_ffn_block,
+            "b4": pq.fused_self_attention_block_q,
+            "b5": pq.fused_cross_attention_block_q,
+            "b6": pq.fused_ffn_block_q}
+
+
+def item_launches(n_layers: int, n_cross: int, steps: int, fused: bool,
+                  precision: str = "bf16", eval_batches: int = 0) -> dict:
+    """Launches of ``steps`` item-training steps: the anchor's blocks through
+    B12s / B12c forward and backward (``fused``), the positive and negative
+    forwards through B1-B3 or B4-B6; the fused model's evaluation batches
+    run the B12 forwards alone."""
+    want = dict.fromkeys(item_counters(), 0)
+    if fused:
+        want.update(b12s_fwd=n_layers * (steps + eval_batches),
+                    b12s_bwd=n_layers * steps,
+                    b12c_fwd=n_cross * (steps + eval_batches),
+                    b12c_bwd=n_cross * steps)
+    refs = ("b1", "b2", "b3") if precision == "bf16" else ("b4", "b5", "b6")
+    want.update(zip(refs, (2 * n_layers * steps, 2 * n_cross * steps,
+                           2 * n_layers * steps)))
+    return want
+
+
+def write_item_files(tmp: str, cache) -> dict:
+    """The item CLI's inputs: an item dict over the sweep's cache items whose
+    keys are the cache's fields (so that the CLI loads the cache and encodes
+    nothing), and ITEM_CLI_USERS histories of 9 cached items; and an item
+    dict of PRECOMPUTE_ITEMS items in the default field schema (text,
+    category, image and number fields, some blank) for ``precompute``."""
+    rng = np.random.default_rng(SEED + 3)
+    ids = list(cache.item_ids)
+    items = {i: {f: "x" for f in cache.fields} for i in ids}
+    seqs = [{"history": [str(h) for h in rng.choice(ids, 9, replace=False)]}
+            for _ in range(ITEM_CLI_USERS)]
+    words = ["serum", "lip", "balm", "cherry", "matte", "gloss", "travel",
+             "vitamin", "mask", "oil", "brush", "mini", "rose"]
+
+    def text(n):
+        return " ".join(rng.choice(words, n))
+
+    raw = {}
+    for j in range(PRECOMPUTE_ITEMS):
+        raw[f"p{j}"] = {
+            "title": text(5), "description": text(12) if j % 10 else "",
+            "features": text(8), "main_category": "All Beauty",
+            "store": f"store{j % 37}", "brand": f"brand{j % 91}",
+            "style": text(1), "color": text(1) if j % 4 else "",
+            "size": f"{j % 9} oz", "material": text(1),
+            "main_image": f"https://img.example/{j}.jpg",
+            "price": round(float(rng.uniform(1, 200)), 2),
+            "average_rating": round(float(rng.uniform(1, 5)), 1),
+            "rating_number": int(rng.integers(0, 5000))}
+    paths = {}
+    for name, obj in (("items", items), ("seqs", seqs), ("raw", raw)):
+        paths[name] = os.path.join(tmp, f"item_{name}.json")
+        with open(paths[name], "w") as fh:
+            json.dump(obj, fh)
+    paths["raw_items"] = raw
+    return paths
+
+
+def phase_item_train(smi: str, tmp: str) -> dict:
+    """Item Q-Former training at full width over the sweep's checkpoint and
+    cache: (a) one step with the fused anchor (B12s / B12c) against the
+    plain anchor, (b) a 10-step trajectory of each from one init, (c) ms per
+    step and peak memory of three configurations with a split and a
+    profile, (d) ``train_cli item-qformer`` / ``--resume`` / ``--int8-ref``,
+    ``evaluate`` and ``QFormerInference`` on its checkpoint, (e)
+    ``precompute``."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from unirec_tpu_torch.configs import OptimizerConfig, TrainConfig
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache, analyze_fields
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.models.item_qformer import ItemQFormer
+    from unirec_tpu_torch.train.item_qformer import (
+        ItemQFormerTrainer,
+        make_train_step,
+        sample_negatives,
+    )
+    from unirec_tpu_torch.utils.checkpoint import read_meta
+
+    cfg, sd, _ = QFormerInference.read_checkpoint(os.path.join(tmp, "ckpt"))
+    cache_dir = os.path.join(tmp, "cache")
+    cache = FieldEmbeddingCache.load(cache_dir)
+    counters = item_counters()
+    n_layers = cfg.num_hidden_layers
+    n_cross = len(range(0, n_layers, cfg.qformer().cross_attention_freq))
+    rng = np.random.default_rng(SEED + 2)
+    batches = []
+    for _ in range(ITEM_STEPS):
+        pairs = rng.integers(0, len(cache), (ITEM_BATCH, 2)).astype(np.int32)
+        batches.append(ItemQFormerTrainer.gather_batch(
+            cache, pairs, sample_negatives(rng, pairs, len(cache))))
+    opt = OptimizerConfig(learning_rate=1e-4)
+
+    def launches_now():
+        return {n: fn.launches for n, fn in counters.items()}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def trainer(fused_anchor: bool, precision: str = "bf16",
+                return_grads: bool = False):
+        """A bf16 trainer's state (float32 masters) at dropout 0 from the
+        sweep's seed-0 checkpoint, and its step function."""
+        mc = dataclasses.replace(cfg, dropout=0.0, fused_training=fused_anchor)
+        tr = ItemQFormerTrainer(
+            mc, TrainConfig(batch_size=ITEM_BATCH, seed=SEED, optimizer=opt),
+            dtype="bfloat16", fused_precision=precision, device="cuda")
+        if not tr.use_fused:
+            raise AssertionError("the trainer did not take the fused engine "
+                                 "for the positive and negative forwards")
+        st = tr.init_state(params=sd)
+        return st, make_train_step(st.model, fused_reference_config=mc,
+                                   fused_precision=precision,
+                                   return_grads=return_grads, seed=SEED)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) one step, fused anchor against plain anchor
+    def one_step(fused_anchor: bool):
+        st, step = trainer(fused_anchor, return_grads=True)
+        zero_counts()
+        st, m = step(st, batches[0])
+        torch.cuda.synchronize()
+        launches = launches_now()
+        loss, grads = m["loss"].item(), m["grads"]
+        del st, step, m
+        release()
+        return loss, grads, launches
+
+    loss_f, g_f, l_f = one_step(True)
+    loss_p, g_p, l_p = one_step(False)
+    cos = grad_cosines(g_f, g_p)
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_f - loss_p) / abs(loss_p)
+    want_f = item_launches(n_layers, n_cross, 1, fused=True)
+    want_p = item_launches(n_layers, n_cross, 1, fused=False)
+    log(f"item step, batch {ITEM_BATCH}, ItemQFormerConfig() at dropout 0: "
+        f"loss fused anchor {loss_f:.6f}, plain anchor {loss_p:.6f} (rel "
+        f"{rel:.2e}, tol {STEP_LOSS_REL:g}); {len(g_f)} trainable leaves, min "
+        f"gradient cosine {cos[worst]:.6f} ({worst}; tol {STEP_GRAD_COS}); "
+        f"launches fused {l_f}, plain {l_p}")
+    if not (rel <= STEP_LOSS_REL and cos[worst] >= STEP_GRAD_COS
+            and np.isfinite(loss_f)):
+        raise AssertionError("the fused-anchor step disagrees with the plain "
+                             "anchor step")
+    if (l_f, l_p) != (want_f, want_p):
+        raise AssertionError(f"item step launches {l_f} / {l_p}, want "
+                             f"{want_f} / {want_p}")
+    del g_f, g_p
+
+    # (b) a trajectory from one init, fused against plain, fitting one batch
+    # (random fields: only a batch seen again can be fitted in 10 steps)
+    def trajectory(fused_anchor: bool):
+        st, step = trainer(fused_anchor)
+        losses = []
+        for _ in range(ITEM_STEPS):
+            st, m = step(st, batches[0])
+            losses.append(m["loss"].item())
+        del st, step
+        release()
+        return losses
+
+    traj_f, traj_p = trajectory(True), trajectory(False)
+    rels = [abs(a - b) / abs(b) for a, b in zip(traj_f, traj_p)]
+    log(f"item trajectory, {ITEM_STEPS} steps on one batch (lr 1e-4, no "
+        f"warmup): fused "
+        f"anchor {[round(x, 5) for x in traj_f]}, plain anchor "
+        f"{[round(x, 5) for x in traj_p]}; max rel {max(rels):.2e} (tol "
+        f"{STEP_LOSS_REL:g})")
+    if not (max(rels) <= STEP_LOSS_REL and traj_f[-1] < traj_f[0]
+            and traj_p[-1] < traj_p[0]):
+        raise AssertionError("the trajectories disagree or the loss does not "
+                             "fall")
+
+    # (c) ms per step and peak memory; the split and a profile (fused, bf16)
+    def step_ms(fused_anchor: bool, precision: str, extra=None):
+        st, step = trainer(fused_anchor, precision)
+        for b in batches[:2]:
+            st, _ = step(st, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches[2:7]:
+            st, m = step(st, b)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if extra is not None:
+            extra(st, step)
+        del st, step
+        release()
+        return ms, peak
+
+    def split_and_profile(st, step):
+        real = st.optimizer.step
+        marks = []
+
+        def apply(grads):  # the optimizer's part, synchronised on both ends
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            real(grads)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        st.optimizer.step = apply
+        fb, op = [], []
+        for b in batches[7:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st, b)
+            fb.append((marks[-2] - t0) * 1e3)
+            op.append((marks[-1] - marks[-2]) * 1e3)
+        del st.optimizer.step
+        log(f"[{smi}] item step split (host clock, synced, {len(fb)} steps): "
+            f"forward + backward + reference forwards "
+            f"{np.median(fb):.1f} ms, optimizer apply over "
+            f"{len(st.optimizer.params)} leaves {np.median(op):.1f} ms")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st, batches[0])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = device_time_by_kernel(prof)
+        total = sum(t for _, t in rows)
+        log(f"[{smi}] one fused-anchor item step under torch.profiler: "
+            f"{total:.2f} ms of device time in {len(rows)} kernels over "
+            f"{wall:.1f} ms of wall time (device idle "
+            f"{100 * max(0.0, 1 - total / wall):.1f}%)"
+            + ("" if rows else " (no device rows: breakdown not measured)"))
+        for name, t in rows[:16]:
+            log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+
+    times = {}
+    for label, fused_anchor, precision, extra in (
+            ("plain anchor, bf16 refs", False, "bf16", None),
+            ("fused anchor, bf16 refs", True, "bf16", split_and_profile),
+            ("fused anchor, int8 refs", True, "int8", None),
+            ("fused anchor, bf16 refs (again)", True, "bf16", None)):
+        times[label] = step_ms(fused_anchor, precision, extra)
+    log(f"[{smi}] item step at batch {ITEM_BATCH}, ItemQFormerConfig(), bf16 "
+        f"compute with float32 masters (host clock over 5 synced steps, "
+        f"optimizer included): " + "; ".join(
+            f"{k} {ms:.1f} ms, peak {peak:.2f} GB"
+            for k, (ms, peak) in times.items()))
+    del batches
+    release()
+
+    # (d) the train CLI, evaluate, and the sweep's inference on the result
+    from unirec_tpu_torch.cli import train_cli
+
+    files = write_item_files(tmp, cache)
+    ck, ck8 = os.path.join(tmp, "item_ckpt"), os.path.join(tmp, "item_int8")
+    base = ["item-qformer", "--data", files["items"], "--sequences",
+            files["seqs"], "--cache-dir", cache_dir, "--bf16", "--fused-anchor",
+            "--batch-size", str(ITEM_BATCH), "--eval-every", "1"]
+
+    def cli(argv, what):
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = launches_now()
+        out = buf.getvalue()
+        for line in out.strip().splitlines():
+            log(f"  train_cli {what}| {line[:300]}")
+        log(f"[{smi}] train_cli {what}: rc {rc} in {seconds:.1f} s (cache "
+            f"load, model build and evaluations included), peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+            f"{launches}")
+        if rc != 0:
+            raise AssertionError(f"train_cli {what} returned {rc}")
+        release()
+        return out, launches
+
+    steps = ITEM_CLI_USERS * 8 // ITEM_BATCH  # per epoch (the last cut)
+    n_val = len(cache) - int(0.9 * len(cache))
+    val_batches = -(-n_val // ITEM_BATCH)
+    main_launches = None
+    for argv, what, epochs, precision in (
+            (["--num-epochs", "2", "--checkpoint-dir", ck],
+             "item-qformer --bf16 --fused-anchor, 2 epochs", 2, "bf16"),
+            (["--num-epochs", "1", "--checkpoint-dir", ck, "--resume"],
+             "item-qformer --resume, 1 epoch", 1, "bf16"),
+            (["--num-epochs", "1", "--checkpoint-dir", ck8, "--int8-ref"],
+             "item-qformer --int8-ref, 1 epoch", 1, "int8")):
+        if "--resume" in argv:
+            saved_step = read_meta(ck)["step"]
+        out, launches = cli(base + argv, what)
+        want = item_launches(n_layers, n_cross, steps * epochs, True,
+                             precision, val_batches * epochs)
+        if launches != want:
+            raise AssertionError(f"train_cli {what}: launches {launches}, "
+                                 f"want {want}")
+        if main_launches is None:
+            main_launches = launches
+        if "--resume" in argv and f"at step {saved_step}" not in out:
+            raise AssertionError("train_cli --resume did not restore the "
+                                 "first run's checkpoint")
+    meta = read_meta(ck)
+    if not np.isfinite(meta.get("val_recon_loss", np.nan)):
+        raise AssertionError(f"item checkpoint meta {meta}")
+    out, _ = cli(["evaluate", "--checkpoint", ck, "--cache-dir", cache_dir,
+                  "--batch-size", str(ITEM_BATCH)], "evaluate")
+    res = json.loads(out[out.index("{"):])
+    if not (res["num_samples"] == len(cache)
+            and np.isfinite(res["val_recon_loss"])
+            and 0.0 < res["avg_cosine_similarity"] <= 1.0):
+        raise AssertionError(f"train_cli evaluate: {res}")
+    inference = QFormerInference(ck, device="cuda", batch_size=ITEM_BATCH,
+                                 use_fused=True)
+    rows = np.arange(0, len(cache), len(cache) // SWEEP_SAMPLE)[:SWEEP_SAMPLE]
+    emb = torch.from_numpy(np.asarray(cache.embeddings[rows])).to("cuda")
+    mask = torch.from_numpy(np.asarray(cache.masks[rows])).to("cuda")
+    tcfg, tsd, _ = QFormerInference.read_checkpoint(ck)
+    model32 = ItemQFormer(tcfg, device="cuda")
+    model32.load_state_dict(tsd)
+    with torch.inference_mode():
+        tokens = inference.forward(emb, mask)
+        ref32 = model32.eval().query_outputs(emb, mask)
+    cos32 = token_cosines(tokens, ref32)
+    log(f"QFormerInference (bf16 engine) on the trained checkpoint (step "
+        f"{meta.get('step')}, val_recon_loss {meta['val_recon_loss']:.6f}): "
+        f"tokens {tuple(tokens.shape)}, min token cosine vs the fp32 "
+        f"ItemQFormer {cos32.min().item():.6f} (tol {SWEEP_FP32_COS})")
+    if not (tokens.shape == (len(rows), cfg.num_query_tokens, cfg.hidden_size)
+            and bool(torch.isfinite(tokens.float()).all())
+            and cos32.min().item() >= SWEEP_FP32_COS):
+        raise AssertionError("the trained checkpoint's tokens fail the check")
+    del inference, model32, tokens, ref32, emb, mask
+    release()
+
+    # (e) precompute: the hash and MWNE backends into a cache, reloaded
+    pre_dir = os.path.join(tmp, "precomputed")
+    t0 = time.perf_counter()
+    rc = train_cli.main(["precompute", "--data", files["raw"], "--cache-dir",
+                         pre_dir])
+    seconds = time.perf_counter() - t0
+    pre = FieldEmbeddingCache.load(pre_dir)
+    raw = list(files["raw_items"].values())
+    norms = np.linalg.norm(np.asarray(pre.embeddings), axis=-1)
+    price = pre.fields.index("price")
+    blank = pre.fields.index("description")
+    log(f"train_cli precompute: rc {rc}, {len(pre)} items x "
+        f"{pre.num_fields} fields x {pre.embedding_dim} in {seconds:.1f} s; "
+        f"{int((np.asarray(pre.masks) == 0).sum())} missing fields")
+    if not (rc == 0 and len(pre) == PRECOMPUTE_ITEMS
+            and pre.fields == analyze_fields(raw)
+            and pre.embedding_dim == cfg.field_embedding_dim
+            and np.allclose(norms[:, price], 1.0, atol=1e-4)
+            and not pre.masks[0, blank] and pre.masks[1, blank]
+            and np.array_equal(np.asarray(pre.masks), (norms > 0))):
+        raise AssertionError("the precomputed cache fails its checks")
+    return {"launches": main_launches, "ms": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1941,6 +2532,7 @@ def main() -> int:
     for key, err in phase_wide_k(gen).items():
         blocks[key]["err"] = max(blocks[key]["err"], err)
     blocks.update(phase_blocks(gen, "int8"))
+    b12 = phase_b12(gen)
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
     phase_entry_point(smi, served.pop("stack")[0])
@@ -1951,6 +2543,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         trained = phase_train(smi, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        item_trained = phase_item_train(smi, tmp)
     sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
     bounds = static_bounds()
@@ -2007,6 +2602,16 @@ def main() -> int:
             ("b8", "int8_linear", "int8_matmul.py:37"),
             ("b9a", "qkv_int8", "fused_qwen3_int8.py:55"),
             ("b9b", "qwen3_swiglu_q", "fused_qwen3_int8.py:163"))
+    ] + [
+        row(name, "fused_qformer_vjp.cu", f"fused_qformer_vjp.py:{line}",
+            item_trained["launches"][key], b12[key]["err"], b12[key]["ms"],
+            b12[key]["plain_ms"], b12[key]["bound_ms"], b12[key]["bound_by"],
+            b12[key]["library_ms"])
+        for key, name, line in (
+            ("b12s_fwd", "qformer_self_block_train_fwd", 133),
+            ("b12s_bwd", "qformer_self_block_train_bwd", 162),
+            ("b12c_fwd", "qformer_cross_block_train_fwd", 344),
+            ("b12c_bwd", "qformer_cross_block_train_bwd", 383))
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -27,8 +28,20 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
                                     "unirec_tpu"))
 import json
-print(json.dumps({"modules": len(names), "framework": bad}))
+print(json.dumps({"modules": names, "framework": bad}))
 """
+
+# the modules of each slice, which the walk must reach (the item-training
+# slice's among them)
+EXPECTED_MODULES = {
+    "unirec_tpu_torch.ops.fused_qformer_vjp", "unirec_tpu_torch.models.mwne",
+    "unirec_tpu_torch.encoders.backends",
+    "unirec_tpu_torch.encoders.item_encoder",
+    "unirec_tpu_torch.eval.reconstruction",
+    "unirec_tpu_torch.train.item_qformer", "unirec_tpu_torch.cli.train_cli",
+    "unirec_tpu_torch.ops.fused_qformer_layer",
+    "unirec_tpu_torch.ops.flash_causal", "unirec_tpu_torch.train.joint",
+}
 
 
 def test_fresh_import_loads_no_jax_or_flax():
@@ -37,7 +50,8 @@ def test_fresh_import_loads_no_jax_or_flax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result["modules"] >= 15  # every module of the package imported
+    assert len(result["modules"]) >= 15  # every module of the package
+    assert EXPECTED_MODULES <= set(result["modules"])
     assert result["framework"] == []
 
 
@@ -60,7 +74,7 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["qformer_inference", "serve_cli",
                                    "generate_all_item_embeddings",
-                                   "train_cli"])
+                                   "train_cli", "train_cli_item_qformer"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card, an entry point that was not asked for the CPU raises
     and names the flag; nothing falls back to the CPU quietly."""
@@ -88,6 +102,11 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
             generate_all_item_embeddings.main(
                 ["--checkpoint", "q", "--cache-dir", REPO])
+        elif entry == "train_cli_item_qformer":
+            from unirec_tpu_torch.cli import train_cli
+
+            train_cli.main(["item-qformer", "--data", "d", "--sequences", "s",
+                            "--cache-dir", "c", "--bf16", "--fused-anchor"])
         else:
             from unirec_tpu_torch.cli import train_cli
 
@@ -207,4 +226,55 @@ def test_cpu_qwen3_int8_wrappers_use_plain_versions():
     assert all(y.dtype == torch.bfloat16 for y in (y8, ys, yq, ym, yf))
     for fn in wrappers:
         assert fn.launches == 0, fn.__name__
+    assert _build.load_kernels.cache_info().currsize == 0
+
+
+def test_cpu_b12_wrappers_use_plain_versions():
+    """B12s / B12c forward and backward, and their autograd blocks, take the
+    plain versions for CPU tensors in bfloat16 (the kernels' dtype): nothing
+    is launched, counted or built."""
+    from unirec_tpu_torch.ops import _build
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    wrappers = (fv.self_attention_fwd, fv.self_attention_bwd,
+                fv.cross_attention_fwd, fv.cross_attention_bwd)
+    for fn in wrappers:
+        fn.launches = 0
+    gen = torch.Generator().manual_seed(0)
+    b, k, f, d = 2, 4, 3, 16
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.1).bfloat16(
+            ).requires_grad_()
+
+    x, mem = w(b, k, d), w(b, f, d)
+    bias = torch.zeros(b, f)
+    bias[0] = -1e9  # an item with no valid field
+    y = fv.fused_self_attention_train(x, torch.zeros(b, k), w(3 * d, d),
+                                      w(3 * d), w(d, d), w(d), num_heads=2)
+    z = fv.fused_cross_attention_train(y, mem, bias, w(d, d), w(d),
+                                       w(2 * d, d), w(2 * d), w(d, d), w(d),
+                                       num_heads=2)
+    z.float().square().sum().backward()
+    assert z.shape == x.shape and z.dtype == torch.bfloat16
+    assert x.grad is not None and mem.grad is not None
+    assert bool(torch.isfinite(x.grad.float()).all())
+    for fn in wrappers:
+        assert fn.launches == 0, fn.__name__
+    assert _build.load_kernels.cache_info().currsize == 0
+
+
+def test_build_dir_follows_the_environment(monkeypatch, tmp_path):
+    """The kernel library goes to ``UNIREC_TPU_TORCH_BUILD_DIR`` when it is
+    set, else to build/unirec_tpu_torch at the repository root; resolving
+    the directory creates and compiles nothing."""
+    from unirec_tpu_torch.ops import _build
+
+    monkeypatch.delenv(_build.BUILD_DIR_ENV, raising=False)
+    assert _build.build_dir() == Path(REPO).resolve() / "build" / \
+        "unirec_tpu_torch"
+    target = tmp_path / "kernels"
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(target))
+    assert _build.build_dir() == target.resolve()
+    assert not target.exists()
     assert _build.load_kernels.cache_info().currsize == 0

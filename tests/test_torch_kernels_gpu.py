@@ -419,3 +419,129 @@ def test_qwen3_int8_wrappers_refuse_what_the_kernels_do_not_take(hopper):
     with pytest.raises(ValueError):
         int8_linear(x.bfloat16()[:, :1000].contiguous(),
                     wq[:, :1000].contiguous(), ws)
+
+
+# -- B12s / B12c: the trainable fused Q-Former blocks -----------------------------
+
+
+def _check_b12(name, out, ref, tol=2e-2, min_cos=0.9999, noise_rows=None):
+    """max|d| <= tol * max|ref| (bf16 in both; the kernel sums in another
+    order, which can flip one bf16 rounding of qkv, p, ctx or ds) and the
+    per-row cosine >= min_cos over rows where ref is nonzero, except
+    ``noise_rows``: the query rows of an item with no valid field, whose
+    exact dq is 0 (its keys are all the same row, bkv, and the softmax VJP's
+    ds sums to 0 over them), so both versions return rounding noise there,
+    which the max|d| bound holds."""
+    a, b = out.float(), ref.float()
+    assert bool(torch.isfinite(a).all()), name
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    live = b2.abs().amax(-1) > 0
+    if noise_rows is not None:
+        live &= ~noise_rows
+    cos = torch.nn.functional.cosine_similarity(a2[live], b2[live], dim=-1)
+    assert rel <= tol and cos.min().item() >= min_cos, (name, rel,
+                                                        cos.min().item())
+
+
+def _b12_inputs(gen, items, k=32, f=14, d=1024):
+    x = _rand(gen, items * k, d)
+    mask = _missing_mask(gen, items)[:, :f]
+    mem = (_rand(gen, items, f, d) * mask[..., None].bfloat16()).reshape(-1, d)
+    kb = ((1.0 - mask) * -1e9).reshape(-1).contiguous()
+    w = {n: _rand(gen, *s, std=0.03) for n, s in (
+        ("wqkv", (3 * d, d)), ("wq", (d, d)), ("wkv", (2 * d, d)),
+        ("wo", (d, d)))}
+    b = {n: _rand(gen, s, std=0.1) for n, s in (("bqkv", 3 * d), ("bq", d),
+                                                 ("bkv", 2 * d), ("bo", d))}
+    dout = _rand(gen, items * k, d, std=0.1)
+    empty = (mask.sum(1) == 0).repeat_interleave(k)  # query rows, no field
+    return x, mem, kb, w, b, dout, empty
+
+
+@pytest.mark.parametrize("items", [509, 512])
+def test_b12s_matches_plain_and_repeats_bit_for_bit(hopper, items):
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    x, _, _, w, b, dout, _ = _b12_inputs(hopper, items)
+    kb = torch.zeros(x.shape[0], device="cuda")
+    kw = dict(num_heads=16, n_q=32)
+    args = (x, kb, w["wqkv"], b["bqkv"], w["wo"], b["bo"])
+    got = fv.self_attention_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("out", "qkv", "ctx"), got,
+                          fv.self_attention_fwd_plain(*args, **kw)):
+        _check_b12(name, g, r)
+    dqkv = fv.self_attention_bwd(got[1], w["wo"], kb, dout, **kw)
+    torch.cuda.synchronize()
+    _check_b12("dqkv", dqkv, fv.self_attention_bwd_plain(got[1], w["wo"], kb,
+                                                         dout, **kw))
+    again = fv.self_attention_fwd(*args, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert torch.equal(dqkv, fv.self_attention_bwd(got[1], w["wo"], kb, dout,
+                                                   **kw))
+
+
+@pytest.mark.parametrize("items", [509, 512])
+def test_b12c_matches_plain_and_repeats_bit_for_bit(hopper, items):
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    x, mem, kb, w, b, dout, empty = _b12_inputs(hopper, items)
+    kw = dict(num_heads=16, n_q=32, n_kv=14)
+    args = (x, mem, kb, w["wq"], b["bq"], w["wkv"], b["bkv"], w["wo"],
+            b["bo"])
+    got = fv.cross_attention_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("out", "q", "kv", "ctx"), got,
+                          fv.cross_attention_fwd_plain(*args, **kw)):
+        _check_b12(name, g, r)
+    q, kv = got[1], got[2]
+    dq, dkv = fv.cross_attention_bwd(q, kv, w["wo"], kb, dout, **kw)
+    torch.cuda.synchronize()
+    rq, rkv = fv.cross_attention_bwd_plain(q, kv, w["wo"], kb, dout, **kw)
+    _check_b12("dq", dq, rq, noise_rows=empty)
+    _check_b12("dkv", dkv, rkv)
+    again = fv.cross_attention_bwd(q, kv, w["wo"], kb, dout, **kw)
+    assert torch.equal(dq, again[0]) and torch.equal(dkv, again[1])
+    assert all(torch.equal(a, c) for a, c in
+               zip(got, fv.cross_attention_fwd(*args, **kw)))
+
+
+def test_b12_autograd_gradients_match_plain(hopper):
+    """The differentiable blocks on the card against the same Functions on
+    the plain versions (the CPU path), every input's gradient."""
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    x, mem, kb, w, b, dout, empty = _b12_inputs(hopper, 64)
+    d = x.shape[1]
+    leaves = [t.clone().requires_grad_() for t in (
+        x.reshape(64, 32, d), mem.reshape(64, 14, d), w["wq"], b["bq"],
+        w["wkv"], b["bkv"], w["wo"], b["bo"])]
+    out = fv.fused_cross_attention_train(leaves[0], leaves[1],
+                                         kb.reshape(64, 14), *leaves[2:],
+                                         num_heads=16)
+    out.backward(dout.reshape(out.shape))
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    ref = fv.fused_cross_attention_train(cpu[0], cpu[1],
+                                         kb.reshape(64, 14).cpu(), *cpu[2:],
+                                         num_heads=16)
+    ref.backward(dout.reshape(out.shape).cpu())
+    _check_b12("out", out.detach(), ref.detach().cuda())
+    for i, (g, r) in enumerate(zip(leaves, cpu)):
+        _check_b12(f"grad {i}", g.grad, r.grad.cuda(), tol=3e-2, min_cos=0.999,
+                   noise_rows=empty if i == 0 else None)
+
+
+def test_b12_wrappers_refuse_what_the_kernels_do_not_take(hopper):
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    x, _, _, w, b, _, _ = _b12_inputs(hopper, 2)
+    kb = torch.zeros(x.shape[0], device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        fv.self_attention_fwd(x.float(), kb, w["wqkv"], b["bqkv"], w["wo"],
+                              b["bo"], num_heads=16, n_q=32)
+    big = _rand(hopper, 256 * 4, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        fv.self_attention_fwd(big, torch.zeros(1024, device="cuda"),
+                              w["wqkv"], b["bqkv"], w["wo"], b["bo"],
+                              num_heads=16, n_q=256)

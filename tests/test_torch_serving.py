@@ -125,6 +125,34 @@ def test_encode_users_matches_jax(recommenders):
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-5)
 
 
+def test_bulk_encode_users_bounds_device_chunks(recommenders, monkeypatch):
+    """A bulk encode_users call keeps at most MAX_IN_FLIGHT (8) embedding
+    chunks alive over 20 batches, draining the older ones to host copies,
+    and returns what the on-device chunks hold, bit for bit."""
+    import weakref
+
+    _, prec = recommenders
+    histories = [HISTORIES[i % len(HISTORIES)] for i in range(20 * 4)]
+    kept = [emb[:n].float().cpu().numpy()
+            for emb, n in prec._encode_user_chunks(histories)]
+    live, peak = [], [0]
+    forward = prec._forward_rows
+
+    def counting(*args):
+        out = forward(*args)
+        live.append(weakref.ref(out))
+        peak[0] = max(peak[0], sum(r() is not None for r in live))
+        return out
+
+    monkeypatch.setattr(prec, "_forward_rows", counting)
+    got = prec.encode_users(histories)
+    assert len(live) == 20 and peak[0] == prec.MAX_IN_FLIGHT == 8
+    np.testing.assert_array_equal(got, np.concatenate(kept))
+    # recommend keeps its chunks on the device for retrieval
+    chunks = prec._encode_user_chunks(histories[:8])
+    assert all(isinstance(emb, torch.Tensor) for emb, _ in chunks)
+
+
 def test_prompt_ids_identical(fixture_data):
     _, _, item_dict, _, _ = fixture_data
     items = dict(item_dict, long={"title": "Serum " * 30})

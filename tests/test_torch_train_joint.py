@@ -357,10 +357,18 @@ def test_qformer_training_dropout_and_fused_refusal():
     d = model.query_outputs(x, mask)
     assert torch.equal(a, b) and not torch.allclose(a, c)
     assert not torch.allclose(a, d)
+    # fused_training takes the trainable fused blocks (B12s / B12c, their
+    # plain versions on the CPU): the same forward as the plain path at
+    # dropout 0, where it used to be refused
+    plain = ItemQFormer(dataclasses.replace(cfg, dropout=0.0)).train()
     fused = ItemQFormer(dataclasses.replace(cfg, fused_training=True,
                                             dropout=0.0)).train()
-    with pytest.raises(NotImplementedError, match="B12"):
-        fused.query_outputs(x, mask, dropout=DropoutStream(1, 0))
+    fused.load_state_dict(model.state_dict())
+    plain.load_state_dict(model.state_dict())
+    torch.testing.assert_close(
+        fused.query_outputs(x, mask, dropout=DropoutStream(1, 0)),
+        plain.query_outputs(x, mask, dropout=DropoutStream(1, 0)),
+        atol=1e-5, rtol=1e-5)
 
 
 def test_train_state_checkpoint_round_trip(joint_setup, tmp_path):
@@ -452,5 +460,5 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, match):
 def test_train_cli_other_subcommands_are_not_ported(capsys):
     from unirec_tpu_torch.cli import train_cli
 
-    assert train_cli.main(["item-qformer", "--data", "x"]) == 2
+    assert train_cli.main(["user-qformer", "--history", "x"]) == 2
     assert "not ported yet" in capsys.readouterr().err

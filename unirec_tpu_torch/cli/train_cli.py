@@ -1,5 +1,5 @@
-"""Training CLI (port of ``unirec_tpu/cli/train_cli.py``): the ``joint``
-subcommand.
+"""Training CLI (port of ``unirec_tpu/cli/train_cli.py``): the ``joint``,
+``item-qformer``, ``evaluate`` and ``precompute`` subcommands.
 
     python -m unirec_tpu_torch.cli.train_cli joint \\
         --train-data train.json --val-data val.json --item-emb item_emb.json \\
@@ -7,20 +7,37 @@ subcommand.
         [--flash-vjp] [--no-remat] [--int8-base] [--lora-grouped] \\
         [--grad-accum K] [--checkpoint-dir DIR [--resume]] [--tiny] \\
         [--device cpu]
+    python -m unirec_tpu_torch.cli.train_cli item-qformer \\
+        --data items.json --sequences train.json --cache-dir CACHE \\
+        [--bf16 [--fused-anchor] [--int8-ref]] [--grad-accum K] \\
+        [--checkpoint-dir DIR [--resume]] [--max-samples N] [--eval-every E] \\
+        [--device cpu]
+    python -m unirec_tpu_torch.cli.train_cli evaluate --checkpoint DIR \\
+        --cache-dir CACHE [--device cpu]
+    python -m unirec_tpu_torch.cli.train_cli precompute --data items.json \\
+        --cache-dir CACHE [--max-items N] [--device cpu]
 
-The flags and the loop are the JAX CLI's ``joint``: AdamW with warmup 20 and
-clipping at 1.0, an evaluation (MRR, Recall/NDCG@{1,5,10}) before training,
-every ``--eval-every-steps`` steps and at the end, checkpoints by
+The flags and the loops are the JAX CLI's.  ``joint``: AdamW with warmup 20
+and clipping at 1.0, an evaluation (MRR, Recall/NDCG@{1,5,10}) before
+training, every ``--eval-every-steps`` steps and at the end, checkpoints by
 ``--save-strategy`` (``latest_model/`` and ``best_model/`` with "both"),
 ``--resume`` from the newest of them, and the pending gradient accumulation
 applied at the end.  ``--qformer-checkpoint`` is an Item Q-Former checkpoint
-directory of ``utils/checkpoint.py`` or a reference ``.pth``; checkpoints
-written here are train-state directories (``utils/checkpoint.py``), which
-``serve_cli --checkpoint`` also reads.  It runs on the CUDA card;
-``--device cpu`` asks for the CPU.
+directory of ``utils/checkpoint.py`` or a reference ``.pth``.
+``item-qformer``: the field cache is built from ``--data`` with the hash and
+MWNE backends unless ``--cache-dir`` already holds one for its fields; a
+90/10 split by ``--seed``; the best-validation checkpoint goes to
+``--checkpoint-dir`` (a train-state directory that ``QFormerInference``,
+``generate_all_item_embeddings`` and ``joint --qformer-checkpoint`` read).
+``--fused-anchor`` (needs ``--bf16``) runs the anchor's attention blocks
+through B12s / B12c and zeroes attention-probability dropout; with
+``--bf16`` on the card the positive and negative forwards run on the fused
+engine, B1-B3, or B4-B6 with ``--int8-ref``.  Checkpoints written here are
+train-state directories (``utils/checkpoint.py``).  Every subcommand runs on
+the CUDA card; ``--device cpu`` asks for the CPU.
 
 Not ported yet, refused with the queue that holds them: ``--pp``, ``--dp``
-and ``--tp`` above 1 (A9), and ``--hf-path`` (it reads a Hugging Face Qwen3
+and ``--tp`` above 1 (A9), ``--hf-path`` (it reads a Hugging Face Qwen3
 checkpoint, and the repository holds none).  The other subcommands print
 "not ported yet".
 """
@@ -34,8 +51,7 @@ import os
 import sys
 
 # the JAX CLI's other subcommands and the ROADMAP.md queue that holds each
-NOT_PORTED = {"precompute": "A8", "mwne": "A8", "item-qformer": "A6",
-              "user-qformer": "A7", "evaluate": "A6", "export-pth": "A8",
+NOT_PORTED = {"mwne": "A8", "user-qformer": "A7", "export-pth": "A8",
               "export-pretrained": "A8"}
 
 
@@ -58,6 +74,29 @@ def _metrics_logger(args):
         wandb_config={k: v for k, v in vars(args).items()
                       if isinstance(v, (int, float, str, bool))},
         stdout=False)
+
+
+def _common_train_flags(sp, batch_size: int, epochs: int, lr: float) -> None:
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    sp.add_argument("--batch-size", type=int, default=batch_size)
+    sp.add_argument("--num-epochs", type=int, default=epochs)
+    sp.add_argument("--learning-rate", type=float, default=lr)
+    sp.add_argument("--seed", type=int, default=42)
+    sp.add_argument("--checkpoint-dir", default=None)
+    sp.add_argument("--resume", action="store_true",
+                    help="restore params + optimizer state + step from "
+                         "--checkpoint-dir before training")
+    sp.add_argument("--wandb", action="store_true",
+                    help="also stream metrics to wandb (JSONL under "
+                         "--checkpoint-dir is always written)")
+    sp.add_argument("--dp", type=int, default=-1,
+                    help="data-parallel size (not ported: above 1 raises)")
+    sp.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel size (not ported: above 1 raises)")
+    sp.add_argument("--grad-accum", type=int, default=1,
+                    help="apply the optimizer every k micro-batches on the "
+                         "averaged gradient")
 
 
 def _joint_parser(sub) -> None:
@@ -96,26 +135,51 @@ def _joint_parser(sub) -> None:
     sp.add_argument("--tiny", action="store_true",
                     help="2-layer Qwen3 (hidden of the Q-Former) for smoke "
                          "tests / CPU")
+    _common_train_flags(sp, 16, 500, 1e-4)
+
+
+def _item_parsers(sub) -> None:
+    sp = sub.add_parser("precompute")
+    sp.add_argument("--data", required=True, help="item (triplet) dict JSON")
+    sp.add_argument("--cache-dir", required=True)
+    sp.add_argument("--batch-size", type=int, default=8192)
+    sp.add_argument("--max-items", type=int, default=None)
+    sp.add_argument("--config", default=None, help="field schema YAML")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu: "
+                         "where the number encoder runs")
+
+    sp = sub.add_parser("item-qformer")
+    sp.add_argument("--data", required=True, help="item (triplet) dict JSON")
+    sp.add_argument("--sequences", required=True, help="LRanker train JSON")
+    sp.add_argument("--cache-dir", required=True)
+    sp.add_argument("--num-query-tokens", type=int, default=32)
+    sp.add_argument("--hidden-size", type=int, default=1024)
+    sp.add_argument("--num-layers", type=int, default=12)
+    sp.add_argument("--num-heads", type=int, default=16)
+    sp.add_argument("--intermediate-size", type=int, default=4096)
+    sp.add_argument("--contrastive-weight", type=float, default=0.25)
+    sp.add_argument("--max-samples", type=int, default=None)
+    sp.add_argument("--eval-every", type=int, default=50)
+    sp.add_argument("--bf16", action="store_true",
+                    help="bf16 activations (fp32 params); default fp32 for "
+                         "strict reference parity")
+    sp.add_argument("--int8-ref", action="store_true",
+                    help="run the no-gradient pos/neg reference forwards on "
+                         "the W8A8 blocks (B4-B6)")
+    sp.add_argument("--fused-anchor", action="store_true",
+                    help="run the trainable anchor forward+backward through "
+                         "the fused attention blocks B12s/B12c (requires "
+                         "--bf16); zeroes attention-PROB dropout (hidden "
+                         "dropout unchanged)")
+    _common_train_flags(sp, 4096, 500, 1e-4)
+
+    sp = sub.add_parser("evaluate")
+    sp.add_argument("--checkpoint", required=True)
+    sp.add_argument("--cache-dir", required=True)
+    sp.add_argument("--batch-size", type=int, default=256)
     sp.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
-    sp.add_argument("--batch-size", type=int, default=16)
-    sp.add_argument("--num-epochs", type=int, default=500)
-    sp.add_argument("--learning-rate", type=float, default=1e-4)
-    sp.add_argument("--seed", type=int, default=42)
-    sp.add_argument("--checkpoint-dir", default=None)
-    sp.add_argument("--resume", action="store_true",
-                    help="restore params + optimizer state + step from "
-                         "--checkpoint-dir before training")
-    sp.add_argument("--wandb", action="store_true",
-                    help="also stream metrics to wandb (JSONL under "
-                         "--checkpoint-dir is always written)")
-    sp.add_argument("--dp", type=int, default=-1,
-                    help="data-parallel size (not ported: above 1 raises)")
-    sp.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (not ported: above 1 raises)")
-    sp.add_argument("--grad-accum", type=int, default=1,
-                    help="apply the optimizer every k micro-batches on the "
-                         "averaged gradient")
 
 
 def main(argv=None) -> int:
@@ -123,16 +187,130 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     _joint_parser(sub)
+    _item_parsers(sub)
     for name in NOT_PORTED:
         sub.add_parser(name, add_help=False)
     args, rest = p.parse_known_args(argv)
-    if args.cmd != "joint":
+    if args.cmd in NOT_PORTED:
         print(f"train {args.cmd}: not ported yet (ROADMAP.md queue A, "
               f"{NOT_PORTED[args.cmd]})", file=sys.stderr)
         return 2
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
-    return _run_joint(args)
+    return {"joint": _run_joint, "item-qformer": _run_item_qformer,
+            "evaluate": _run_evaluate,
+            "precompute": _run_precompute}[args.cmd](args)
+
+
+def _read_items(path: str):
+    """An item dict JSON -> a list of item dicts carrying their ``item_id``."""
+    with open(path) as f:
+        data = json.load(f)
+    return [dict(item, item_id=iid) for iid, item in data.items()]
+
+
+def _run_precompute(args) -> int:
+    from unirec_tpu_torch.data.cache import build_cache
+    from unirec_tpu_torch.encoders.item_encoder import ItemEncoder
+    from unirec_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    items = _read_items(args.data)
+    if args.max_items:
+        items = items[: args.max_items]
+    encoder = ItemEncoder(config_path=args.config, device=device)
+    cache = build_cache(items, encoder, cache_dir=args.cache_dir,
+                        batch_size=args.batch_size)
+    print(f"cached {len(cache)} items x {cache.num_fields} fields "
+          f"-> {args.cache_dir}")
+    return 0
+
+
+def _run_item_qformer(args) -> int:
+    import numpy as np
+
+    from unirec_tpu_torch.configs import (
+        ItemQFormerConfig,
+        MeshConfig,
+        OptimizerConfig,
+        TrainConfig,
+    )
+    from unirec_tpu_torch.data.cache import build_cache
+    from unirec_tpu_torch.encoders.item_encoder import ItemEncoder
+    from unirec_tpu_torch.ops.fused_qformer_vjp import supports_fused_train
+    from unirec_tpu_torch.train.item_qformer import train_item_qformer
+    from unirec_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.dp > 1 or args.tp > 1:
+        raise NotImplementedError("--dp / --tp above 1 are not ported yet "
+                                  "(ROADMAP.md A9)")
+    if args.fused_anchor and not args.bf16:
+        # the JAX CLI's refusal: the fused kernels are bf16-only
+        raise SystemExit("--fused-anchor requires --bf16")
+    items = _read_items(args.data)
+    if args.max_samples:
+        items = items[: args.max_samples]
+    with open(args.sequences) as f:
+        seq_data = json.load(f)
+    sequences = [s["history"] for s in seq_data
+                 if "history" in s and len(s["history"]) > 1]
+    cache = build_cache(items, ItemEncoder(device=device),
+                        cache_dir=args.cache_dir)
+    # 90/10 split by --seed (reference: item_qformer_training.py:64-68)
+    rng = np.random.default_rng(args.seed)
+    perm = rng.permutation(len(cache))
+    val_rows = perm[int(0.9 * len(cache)):]
+    mc = ItemQFormerConfig(
+        num_fields=cache.num_fields, field_embedding_dim=cache.embedding_dim,
+        num_query_tokens=args.num_query_tokens, hidden_size=args.hidden_size,
+        num_hidden_layers=args.num_layers, num_attention_heads=args.num_heads,
+        intermediate_size=args.intermediate_size,
+        fused_training=args.fused_anchor)
+    if args.fused_anchor and not (
+            supports_fused_train(mc.num_query_tokens, mc.hidden_size,
+                                 mc.num_attention_heads, mc.num_fields)
+            and supports_fused_train(mc.num_query_tokens, mc.hidden_size,
+                                     mc.num_attention_heads,
+                                     mc.num_query_tokens)):
+        raise SystemExit("--fused-anchor: the fused blocks do not take this "
+                         "shape (ops/fused_qformer_vjp.supports_fused_train)")
+    tc = TrainConfig(
+        batch_size=args.batch_size, num_epochs=args.num_epochs, seed=args.seed,
+        eval_every_epochs=args.eval_every,
+        optimizer=OptimizerConfig(learning_rate=args.learning_rate,
+                                  gradient_accumulation_steps=args.grad_accum),
+        mesh=MeshConfig(dp=args.dp, tp=args.tp))
+    _, metrics = train_item_qformer(
+        cache, sequences, mc, tc, val_rows=val_rows,
+        checkpoint_dir=args.checkpoint_dir,
+        contrastive_weight=args.contrastive_weight,
+        dtype="bfloat16" if args.bf16 else "float32",
+        fused_precision="int8" if args.int8_ref else "bf16",
+        resume=args.resume, metrics_logger=_metrics_logger(args),
+        device=device)
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
+def _run_evaluate(args) -> int:
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.eval.reconstruction import (
+        evaluate_reconstruction_quality,
+    )
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.models.item_qformer import ItemQFormer
+    from unirec_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg, sd, _ = QFormerInference.read_checkpoint(args.checkpoint)
+    cache = FieldEmbeddingCache.load(args.cache_dir)
+    model = ItemQFormer(cfg, device=device)
+    model.load_state_dict(sd)
+    res = evaluate_reconstruction_quality(model, cache,
+                                          batch_size=args.batch_size)
+    print(json.dumps(res, indent=2))
+    return 0
 
 
 def _run_joint(args) -> int:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def _warn_prob_dropout_zeroed(cls_name: str, flags: str, rate: float) -> None:
@@ -28,6 +28,58 @@ def _warn_prob_dropout_zeroed(cls_name: str, flags: str, rate: float) -> None:
         UserWarning,
         stacklevel=3,
     )
+
+
+# ---------------------------------------------------------------------------
+# Field schema (reference: config/triplet_config.yaml)
+# ---------------------------------------------------------------------------
+
+#: Modality names -> modality id (reference: config/triplet_config.yaml:18-22)
+MODALITY_IDS: Dict[str, int] = {"text": 0, "category": 1, "image": 2, "number": 3}
+
+#: Default field schema: field name -> (field_id, modality_id, modality_type)
+#: (reference: config/triplet_config.yaml:1-16)
+DEFAULT_FIELD_MAPPING: Dict[str, Tuple[int, int, str]] = {
+    "title": (0, 0, "text"),
+    "description": (1, 0, "text"),
+    "features": (2, 0, "text"),
+    "main_category": (3, 1, "category"),
+    "store": (4, 1, "category"),
+    "brand": (5, 1, "category"),
+    "style": (6, 1, "category"),
+    "color": (7, 1, "category"),
+    "size": (8, 1, "category"),
+    "material": (9, 1, "category"),
+    "main_image": (10, 2, "image"),
+    "price": (11, 3, "number"),
+    "average_rating": (12, 3, "number"),
+    "rating_number": (13, 3, "number"),
+}
+
+
+@dataclass(frozen=True)
+class FieldSchema:
+    """Maps item fields to modalities (the YAML schema the reference reads at
+    models/item_encoder_pure_value.py:35-42)."""
+
+    mapping: Tuple[Tuple[str, Tuple[int, int, str]], ...] = tuple(
+        sorted(DEFAULT_FIELD_MAPPING.items())
+    )
+
+    @staticmethod
+    def from_yaml(path: str) -> "FieldSchema":
+        import yaml  # only ``--config`` reaches this
+
+        with open(path) as f:
+            raw = yaml.safe_load(f)
+        mapping = {
+            name: (int(spec[0]), int(spec[1]), str(spec[2]))
+            for name, spec in raw["FIELD_MAPPING"].items()
+        }
+        return FieldSchema(mapping=tuple(sorted(mapping.items())))
+
+    def as_dict(self) -> Dict[str, Tuple[int, int, str]]:
+        return dict(self.mapping)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +205,43 @@ class ItemQFormerConfig:
             fused_training=self.fused_training,
             capture_attention_probs=self.capture_attention_probs,
         )
+
+
+# ---------------------------------------------------------------------------
+# MWNE number encoder (reference: models/mwne.py:91-183)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MWNEConfig:
+    """Math-aware number encoder (reference: models/mwne.py:91-183)."""
+
+    embedding_dim: int = 1024
+    num_frequencies: int = 20
+    max_frequency: float = 100.0
+    include_raw: bool = True
+    # Normalizer (reference: models/mwne.py:9-64)
+    target_std: float = 1.0
+    momentum: float = 0.99
+    min_std: float = 0.1
+
+    @property
+    def fourier_dim(self) -> int:
+        return 2 * self.num_frequencies
+
+    @property
+    def raw_dim(self) -> int:
+        return 2 if self.include_raw else 0
+
+    @property
+    def extra_dim(self) -> int:
+        d = self.embedding_dim - self.fourier_dim - self.raw_dim
+        if d < 0:
+            raise ValueError(
+                f"embedding_dim {self.embedding_dim} too small for "
+                f"{self.fourier_dim} fourier + {self.raw_dim} raw dims"
+            )
+        return d
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ stores one dense memory-mappable array pair instead:
     fields.json      ordered field list (cache-validity check)
     item_ids.json    item id per row
 
-A compat loader ingests reference-format ``.pt`` caches.
+A compat loader ingests reference-format ``.pt`` caches.  ``build_cache``
+precomputes a cache with an item encoder (``encoders/item_encoder.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -127,3 +128,47 @@ class FieldEmbeddingCache:
         item_ids = [str(i) for i in order]  # reference caches key by index
         return FieldEmbeddingCache(emb, masks, fields, item_ids)
 
+
+def analyze_fields(samples: Sequence[Dict]) -> List[str]:
+    """Sorted union of sample keys minus item_id
+    (reference: models/qformer_utils.py:78-90)."""
+    all_fields = set()
+    for s in samples:
+        all_fields.update(s.keys())
+    return sorted(f for f in all_fields if f != "item_id")
+
+
+def build_cache(
+    samples: Sequence[Dict],
+    item_encoder,
+    fields: Optional[List[str]] = None,
+    cache_dir: Optional[str] = None,
+    batch_size: int = 8192,
+) -> FieldEmbeddingCache:
+    """Precompute the dense cache with the batched encoder.
+
+    Equivalent of QFormerDataset._precompute (reference:
+    models/qformer_utils.py:92-119): a field is valid iff its embedding is
+    nonzero.  If ``cache_dir`` holds a valid cache it is loaded instead.
+    """
+    fields = fields or analyze_fields(samples)
+    if cache_dir and FieldEmbeddingCache.exists(cache_dir):
+        try:
+            return FieldEmbeddingCache.load(cache_dir, expected_fields=fields)
+        except ValueError:
+            pass  # fields changed -> recompute
+
+    n = len(samples)
+    dim = item_encoder.embedding_dim
+    emb = np.zeros((n, len(fields), dim), np.float32)
+    for i in range(0, n, batch_size):
+        batch = samples[i : i + batch_size]
+        by_field = item_encoder.encode_batch_by_field(batch, fields)
+        for fi, f in enumerate(fields):
+            emb[i : i + len(batch), fi] = by_field[f]
+    masks = (np.abs(emb).sum(axis=-1) > 0).astype(np.float32)
+    item_ids = [str(s.get("item_id", i)) for i, s in enumerate(samples)]
+    cache = FieldEmbeddingCache(emb, masks, fields, item_ids)
+    if cache_dir:
+        cache.save(cache_dir)
+    return cache

@@ -1,0 +1,147 @@
+"""MWNE, the math-aware number encoder (port of the number part of
+``unirec_tpu/models/mwne.py``).
+
+* ``MathematicalEncoder``: Fourier features over log-spaced frequencies, the
+  raw value and its sign, and a learned linear remainder
+  (reference: models/mwne.py:91-183);
+* ``NormalizedMathematicalEncoder``: the encoder followed by the running-std
+  rescaling with a 50%-change guard and a [0.1, 10] scaling clamp
+  (reference: models/mwne.py:9-64).  The running statistics are buffers
+  (``running_std``, ``num_batches_tracked``: the JAX module's
+  ``batch_stats``); ``train=True`` updates them in place.
+
+Parameter names follow the Flax tree (``base.fourier_weight``,
+``base.raw_scale``, ``base.extra_proj.weight``; the Flax kernel ``[1, extra]``
+is stored as ``weight [extra, 1]``), so ``utils/weights.
+mwne_state_dict_from_flax`` maps JAX variables one to one.  The timestamp and
+geo encoders, the decoder and the position encoding wait for the user stage.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from unirec_tpu_torch.configs import MWNEConfig
+
+
+def log_frequencies(cfg: MWNEConfig) -> torch.Tensor:
+    """The fixed frequencies 10^-2 .. max_frequency (reference:
+    models/mwne.py:111) as ``jnp.logspace`` spaces them: the exponents in
+    float32 (``start * (1 - i/(n-1)) + stop * i/(n-1)``, the last exactly
+    ``stop``), then 10 ** exponent rounded to float32."""
+    n = cfg.num_frequencies
+    start = np.float32(-2.0)
+    stop = np.float32(math.log10(cfg.max_frequency))
+    if n == 1:
+        lin = np.asarray([start], np.float32)
+    else:
+        j = np.arange(n - 1, dtype=np.float32) / np.float32(n - 1)
+        lin = np.concatenate([start * (np.float32(1) - j) + stop * j, [stop]])
+    return torch.from_numpy(
+        np.power(10.0, lin.astype(np.float64)).astype(np.float32))
+
+
+class MathematicalEncoder(nn.Module):
+    """Fourier + raw + linear number encoder; additive-friendly by design."""
+
+    def __init__(self, config: MWNEConfig, *, device=None):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.register_buffer("frequencies", log_frequencies(cfg).to(device),
+                             persistent=False)
+        self.fourier_weight = nn.Parameter(
+            torch.ones(cfg.fourier_dim, device=device))
+        self.raw_scale = (nn.Parameter(torch.ones(2, device=device))
+                          if cfg.include_raw else None)
+        self.extra_proj = (nn.Linear(1, cfg.extra_dim, bias=False,
+                                     device=device)
+                           if cfg.extra_dim > 0 else None)
+
+    def forward(self, numbers: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        shape = numbers.shape
+        x = numbers.reshape(-1, 1).float()
+        # interleaved (cos, sin) per frequency (reference: models/mwne.py:162-175)
+        phases = x * self.frequencies[None, :]
+        four = torch.stack([torch.cos(phases), torch.sin(phases)], dim=-1)
+        components = [four.reshape(x.shape[0], -1) * self.fourier_weight[None]]
+        if self.raw_scale is not None:
+            raw = torch.cat([x, torch.sign(x)], dim=-1)
+            components.append(raw * self.raw_scale[None])
+        if self.extra_proj is not None:
+            components.append(self.extra_proj(x))
+        return torch.cat(components, dim=-1).reshape(*shape, cfg.embedding_dim)
+
+
+class NormalizedMathematicalEncoder(nn.Module):
+    """MathematicalEncoder + the running-std normalizer."""
+
+    def __init__(self, config: MWNEConfig, *, device=None):
+        super().__init__()
+        self.config = config
+        self.base = MathematicalEncoder(config, device=device)
+        self.register_buffer("running_std",
+                             torch.ones(config.embedding_dim, device=device))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.int32, device=device))
+
+    def forward(self, numbers: torch.Tensor, train: bool = False) -> torch.Tensor:
+        cfg = self.config
+        embeddings = self.base(numbers)
+        flat = embeddings.reshape(-1, cfg.embedding_dim)
+        if train:
+            with torch.no_grad():
+                batch_std = flat.std(dim=0, unbiased=False)
+                prev = self.running_std
+                # 50%-change guard: only dims whose std moved by less than
+                # half the running value take the momentum update
+                # (reference: models/mwne.py:36-47)
+                valid = (batch_std - prev).abs() < prev * 0.5
+                updated = torch.where(
+                    valid, cfg.momentum * prev + (1 - cfg.momentum) * batch_std,
+                    prev)
+                first = bool(self.num_batches_tracked == 0)
+                new_std = torch.clamp_min(batch_std if first else updated,
+                                          cfg.min_std)
+                self.running_std.copy_(new_std)
+                self.num_batches_tracked += 1
+            std = new_std
+        else:
+            std = self.running_std
+        scaling = torch.clamp(cfg.target_std / (std[None, :] + 1e-8), 0.1, 10.0)
+        return (flat * scaling).reshape(embeddings.shape)
+
+
+@torch.no_grad()
+def init_mwne(cfg: MWNEConfig, generator: torch.Generator,
+              device=None) -> NormalizedMathematicalEncoder:
+    """The encoder with the Flax initialisers' distributions: ones for the
+    Fourier weights and raw scales, lecun-normal (a normal of std
+    1/sqrt(fan_in) / 0.8796, truncated at two standard deviations) for
+    ``extra_proj``, fan_in 1."""
+    model = NormalizedMathematicalEncoder(cfg, device=device)
+    if model.base.extra_proj is not None:
+        w = model.base.extra_proj.weight
+        std = 1.0 / 0.87962566103423978
+        draw = torch.empty(w.shape, device=generator.device)
+        nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        w.copy_(draw)
+    return model
+
+
+def load_mwne(cfg: MWNEConfig, state_dict: Optional[dict] = None,
+              device=None, seed: int = 0) -> NormalizedMathematicalEncoder:
+    """An eval-mode encoder from a state_dict, or seeded weights."""
+    if state_dict is None:
+        gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+        return init_mwne(cfg, gen, device=device).eval()
+    model = NormalizedMathematicalEncoder(cfg, device=device)
+    model.load_state_dict(state_dict)
+    return model.eval()

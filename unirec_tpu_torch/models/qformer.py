@@ -8,9 +8,11 @@ plain-tensor path is ported, deterministic and training: a training forward's
 ``DropoutStream`` applies the JAX module's dropout sites (the embeddings
 after their LayerNorm, the attention probabilities, each attention block's
 and the FFN's output before the residual LayerNorm) at
-``hidden_dropout_prob`` / ``attention_probs_dropout_prob``.  The text-token
-embeddings and FFN, the decoder mask, relative positions and the fused/flash
-branches wait; ``fused_training`` raises (its kernels, B12, are not ported).
+``hidden_dropout_prob`` / ``attention_probs_dropout_prob``.  With
+``fused_training`` an attention block runs as one trainable fused block
+(``ops/fused_qformer_vjp``: B12s / B12c on the card) wherever the JAX
+module's dispatch takes its Pallas blocks.  The text-token embeddings and FFN,
+the decoder mask, relative positions and the flash branch wait.
 
 Parameter names follow the Flax tree one to one (``query``, ``key``,
 ``value``, ``output_dense``, ``output_LayerNorm``, ``crossattention``,
@@ -38,6 +40,11 @@ from unirec_tpu_torch.ops.attention import (
 )
 from unirec_tpu_torch.ops.dropout import DropoutStream, dropout
 from unirec_tpu_torch.ops.dropout import at as _at
+from unirec_tpu_torch.ops.fused_qformer_vjp import (
+    fused_cross_attention_train,
+    fused_self_attention_train,
+    supports_fused_train,
+)
 
 
 class Linear(nn.Linear):
@@ -100,6 +107,7 @@ class QFormerAttention(nn.Module):
         super().__init__()
         d = config.hidden_size
         src = config.encoder_width if is_cross else d
+        self.config = config
         self.is_cross = is_cross
         self.num_heads = config.num_attention_heads
         self.rates = (config.attention_probs_dropout_prob,
@@ -117,14 +125,61 @@ class QFormerAttention(nn.Module):
                 kv_states: Optional[torch.Tensor] = None,
                 drop: Optional[DropoutStream] = None) -> torch.Tensor:
         src = kv_states if self.is_cross else hidden_states
-        q = split_heads(self.query(hidden_states), self.num_heads)
-        k = split_heads(self.key(src), self.num_heads)
-        v = split_heads(self.value(src), self.num_heads)
         probs_rate, hidden_rate = self.rates
-        ctx = merge_heads(attention(q, k, v, bias, probs_rate,
-                                    _at(drop, "probs")))
-        out = dropout(self.output_dense(ctx), hidden_rate, _at(drop, "out"))
+        if self._fused_ok(hidden_states, src, bias, drop):
+            out = self._fused(hidden_states, src, bias)
+        else:
+            q = split_heads(self.query(hidden_states), self.num_heads)
+            k = split_heads(self.key(src), self.num_heads)
+            v = split_heads(self.value(src), self.num_heads)
+            ctx = merge_heads(attention(q, k, v, bias, probs_rate,
+                                        _at(drop, "probs")))
+            out = self.output_dense(ctx)
+        out = dropout(out, hidden_rate, _at(drop, "out"))
         return self.output_LayerNorm(out + hidden_states)
+
+    def _fused_ok(self, hidden_states, src, bias, drop) -> bool:
+        """The JAX module's dispatch to its trainable fused blocks:
+        ``fused_training``, attention-probability dropout inactive, no
+        fast or capture path, a key-only bias, bf16 compute (or a CPU
+        tensor, where the blocks run their plain versions as JAX runs
+        interpret mode) and ``supports_fused_train``."""
+        cfg = self.config
+        deterministic = drop is None
+        return bool(
+            cfg.fused_training
+            and not cfg.capture_attention_probs
+            and (deterministic or self.rates[0] <= 0.0)
+            and not (cfg.fast_attention and deterministic)
+            and (self.is_cross or cfg.position_embedding_type == "absolute")
+            and (bias is None or (bias.dim() == 4 and bias.shape[1] == 1
+                                  and bias.shape[2] == 1))
+            and (self.query.compute_dtype == torch.bfloat16
+                 or hidden_states.device.type == "cpu")
+            and supports_fused_train(hidden_states.shape[1], cfg.hidden_size,
+                                     self.num_heads, src.shape[1]))
+
+    def _fused(self, hidden_states, src, bias) -> torch.Tensor:
+        """W_o . Attention + b_o through B12s / B12c, on the weights
+        concatenated as the JAX module does (Wq | Wk | Wv, Wk | Wv) and cast
+        to the compute dtype at use, so gradients reach the masters."""
+        dt = self.query.compute_dtype
+        kb = (bias[:, 0, 0, :].float() if bias is not None
+              else src.new_zeros(src.shape[:2], dtype=torch.float32))
+        wo, bo = self.output_dense.weight.to(dt), self.output_dense.bias.to(dt)
+        if self.is_cross:
+            wkv = torch.cat([self.key.weight, self.value.weight]).to(dt)
+            bkv = torch.cat([self.key.bias, self.value.bias]).to(dt)
+            return fused_cross_attention_train(
+                hidden_states.to(dt), src.to(dt), kb, self.query.weight.to(dt),
+                self.query.bias.to(dt), wkv, bkv, wo, bo,
+                num_heads=self.num_heads)
+        wqkv = torch.cat([self.query.weight, self.key.weight,
+                          self.value.weight]).to(dt)
+        bqkv = torch.cat([self.query.bias, self.key.bias,
+                          self.value.bias]).to(dt)
+        return fused_self_attention_train(hidden_states.to(dt), kb, wqkv, bqkv,
+                                          wo, bo, num_heads=self.num_heads)
 
 
 class QFormerFFN(nn.Module):
@@ -223,10 +278,6 @@ class QFormerModel(nn.Module):
                 encoder_attention_mask: Optional[torch.Tensor] = None,
                 dropout: Optional[DropoutStream] = None) -> torch.Tensor:
         """``dropout``: a training forward's stream (None: no dropout)."""
-        if self.training and self.config.fused_training:
-            raise NotImplementedError(
-                "fused_training is not ported (B12): the trainable fused "
-                "Q-Former blocks wait for the item-training slice")
         hidden = self.embeddings(query_embeds, _at(dropout, "embeddings"))
         if attention_mask is None:
             attention_mask = hidden.new_ones(hidden.shape[:2], dtype=torch.float32)

@@ -3,9 +3,11 @@
 The ``.cu`` sources under ``unirec_tpu_torch/csrc/`` expose a plain C
 interface.  On first use each source is compiled by its own ``nvcc`` process
 for ``sm_90a`` (all started together), and the objects are linked into one
-shared library under ``build/unirec_tpu_torch/`` at the repository root (a
-directory ``.gitignore`` lists) and loaded with ``ctypes``.  The library's
-file name carries a hash of the sources, so an edited source is rebuilt.
+shared library and loaded with ``ctypes``.  The library goes to the directory
+that ``UNIREC_TPU_TORCH_BUILD_DIR`` names, or by default to
+``build/unirec_tpu_torch/`` at the repository root (a directory ``.gitignore``
+lists).  Its file name carries a hash of the sources and the headers they
+include (``csrc/*.cuh``), so an edited source is rebuilt.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -25,8 +27,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
-           "qformer_blocks.cu")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unirec_tpu_torch"
+           "qformer_blocks.cu", "fused_qformer_vjp.cu")
+HEADERS = ("gemm_bf16.cuh",)
+BUILD_DIR_ENV = "UNIREC_TPU_TORCH_BUILD_DIR"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+                     / "unirec_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +50,14 @@ class Kernels:
     path: Path
     build_seconds: float  # 0.0 when an existing build was reused
     ptxas_log: str
+
+
+def build_dir() -> Path:
+    """Where the library is built: ``$UNIREC_TPU_TORCH_BUILD_DIR`` when set
+    (an installed package may not be able to write beside itself), else
+    ``build/unirec_tpu_torch`` at the repository root."""
+    override = os.environ.get(BUILD_DIR_ENV)
+    return Path(override).expanduser().resolve() if override else DEFAULT_BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -66,10 +79,10 @@ def load_kernels() -> Kernels:
     """Compile (if needed) and load the kernel library; cached per process."""
     srcs = [CSRC / name for name in SOURCES]
     digest = hashlib.sha256()
-    for path in srcs:
+    for path in srcs + [CSRC / name for name in HEADERS]:
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libunirec_kernels_{digest.hexdigest()[:16]}.so"
+    out = build_dir() / f"libunirec_kernels_{digest.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         t0 = time.perf_counter()
@@ -106,6 +119,14 @@ def load_kernels() -> Kernels:
     lib.unirec_int8_linear.restype = _I
     lib.unirec_qwen3_swiglu_q.argtypes = [_P] * 11 + [_I] * 3 + [_P]
     lib.unirec_qwen3_swiglu_q.restype = _I
+    lib.unirec_b12_self_fwd.argtypes = [_P] * 9 + [_I] * 4 + [_F, _P]
+    lib.unirec_b12_self_fwd.restype = _I
+    lib.unirec_b12_self_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_F, _P]
+    lib.unirec_b12_self_bwd.restype = _I
+    lib.unirec_b12_cross_fwd.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P]
+    lib.unirec_b12_cross_fwd.restype = _I
+    lib.unirec_b12_cross_bwd.argtypes = [_P] * 8 + [_I] * 5 + [_F, _P]
+    lib.unirec_b12_cross_bwd.restype = _I
     return Kernels(lib, out, seconds, log)
 
 
@@ -113,7 +134,7 @@ def _compile(srcs, out: Path) -> str:
     """One ``nvcc -c`` per source, all started together, then one link;
     returns the compilers' output (``-Xptxas -v``)."""
     nvcc = _nvcc()
-    work = BUILD_DIR / f"{out.stem}.{os.getpid()}.objs"
+    work = out.parent / f"{out.stem}.{os.getpid()}.objs"
     work.mkdir(parents=True, exist_ok=True)
     objs = [work / f"{src.stem}.o" for src in srcs]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],

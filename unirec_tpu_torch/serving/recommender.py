@@ -23,6 +23,7 @@ config are never changed.  Meshes wait (A9).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -145,24 +146,47 @@ class Recommender:
         hm = torch.where(valid[..., None], self._cache_mask_dev[safe], 0.0)
         return l2_normalize(self.model(ids_t, mask, he, hm))
 
-    def _encode_user_chunks(self, histories: Sequence[Sequence[str]]
-                            ) -> List[Tuple[torch.Tensor, int]]:
-        """[(embedding chunk [batch_size, D] on the device, n_valid), ...];
-        every chunk is padded to the full batch with empty histories."""
-        out = []
+    # batches allowed on the device before the oldest is drained to the host
+    # in a bulk ``encode_users`` call: host assembly overlaps device work,
+    # and device memory stays bounded for any number of users
+    MAX_IN_FLIGHT = 8
+
+    def _encode_user_chunks(self, histories: Sequence[Sequence[str]],
+                            to_host: bool = False) -> List[Tuple[object, int]]:
+        """[(embedding chunk [batch_size, D], n_valid), ...]; every chunk is
+        padded to the full batch with empty histories.
+
+        ``to_host=False`` (the ``recommend`` path) keeps the chunks on the
+        device for retrieval.  ``to_host=True`` (bulk ``encode_users``)
+        copies each chunk to a float32 numpy array once ``MAX_IN_FLIGHT``
+        newer ones are pending, so at most that many stay on the device."""
+        out: List[Tuple[object, int]] = []
+        pending: collections.deque = collections.deque()
         bs = self.batch_size
+
+        def drain(emb: torch.Tensor, n: int) -> None:
+            out.append((emb.to("cpu", torch.float32, copy=True).numpy(), n))
+
         for i in range(0, len(histories), bs):
             chunk = list(histories[i: i + bs])
             n = len(chunk)
             chunk += [[] for _ in range(bs - n)]
-            out.append((self._forward_rows(*self._build_batch_rows(chunk)), n))
+            emb = self._forward_rows(*self._build_batch_rows(chunk))
+            if not to_host:
+                out.append((emb, n))
+                continue
+            pending.append((emb, n))
+            del emb
+            if len(pending) >= self.MAX_IN_FLIGHT:
+                drain(*pending.popleft())
+        while pending:
+            drain(*pending.popleft())
         return out
 
     def encode_users(self, histories: Sequence[Sequence[str]]) -> np.ndarray:
         """[num_users, D] L2-normalised user embeddings (float32 numpy)."""
-        chunks = self._encode_user_chunks(histories)
-        return np.concatenate(
-            [emb[:n].float().cpu().numpy() for emb, n in chunks], axis=0)
+        chunks = self._encode_user_chunks(histories, to_host=True)
+        return np.concatenate([emb[:n] for emb, n in chunks], axis=0)
 
     # -- ranking -----------------------------------------------------------
 

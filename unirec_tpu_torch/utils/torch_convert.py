@@ -1,5 +1,6 @@
-"""Reader for a reference ``best_qformer_model.pth`` (the port's copy of the
-item Q-Former part of ``unirec_tpu/utils/torch_convert.py``).
+"""Readers for reference checkpoints: ``best_qformer_model.pth`` and the MWNE
+number encoder (the port's copy of those parts of
+``unirec_tpu/utils/torch_convert.py``).
 
 The reference checkpoint is a torch pickle ``{model_state_dict, config:
 BertConfig, field_names}`` (reference: training/item_qformer_training.py:
@@ -8,7 +9,8 @@ parameter tree (numpy leaves, Flax names and ``kernel [in, out]`` layout),
 which ``utils/weights.item_qformer_state_dict_from_flax`` turns into the
 port's state_dict: the same two steps the JAX package takes, so both packages
 read one checkpoint to the same weights.  Unpickling the ``BertConfig`` needs
-``transformers``.
+``transformers``.  ``convert_mwne`` does the same for a number encoder
+(``utils/weights.mwne_state_dict_from_flax`` is its bridge).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 
-from unirec_tpu_torch.configs import ItemQFormerConfig, QFormerConfig
+from unirec_tpu_torch.configs import ItemQFormerConfig, MWNEConfig, QFormerConfig
 
 
 def _np(x) -> np.ndarray:
@@ -130,3 +132,67 @@ def load_reference_item_qformer_checkpoint(path: str):
     )
     params = convert_item_qformer(ckpt["model_state_dict"], cfg)
     return cfg, {"params": params}, field_names
+
+
+# ---------------------------------------------------------------------------
+# MWNE (math-aware number encoder) checkpoints: the reference ItemEncoder
+# loads a self-trained number encoder from
+# number_encoders/mathematical_encoder_1024d_normalized.pth (reference:
+# models/item_encoder_pure_value.py:68-70, schema written at
+# models/mwne.py:784-806, loaded at :613-663).
+# ---------------------------------------------------------------------------
+
+
+def convert_mwne(ckpt: Mapping[str, Any]):
+    """Reference MWNE checkpoint dict -> (MWNEConfig, Flax-layout variables).
+
+    ``encoder_state_dict`` holds the BASE encoder's weights only
+    (``frequencies`` buffer, ``fourier_weight``, ``raw_scale``,
+    ``extra_proj.weight``); the reference's ``load_trained_encoder`` wraps it
+    in a fresh normalizer, so the running statistics are the init values
+    (ones and 0)."""
+    ec = ckpt["encoder_config"]
+    nc = ckpt.get("normalization_config") or {}
+    cfg = MWNEConfig(
+        embedding_dim=int(ec["embedding_dim"]),
+        num_frequencies=int(ec["num_frequencies"]),
+        max_frequency=float(ec["max_frequency"]),
+        include_raw=bool(ec["include_raw"]),
+        target_std=float(nc.get("target_std") or 1.0),
+        momentum=float(nc.get("momentum") or 0.99),
+        min_std=float(nc.get("min_std") or 0.1),
+    )
+    sd = {k: _np(v) for k, v in ckpt["encoder_state_dict"].items()}
+    # the frequencies follow from the config; a checkpoint whose buffer
+    # disagrees with its own config cannot be converted faithfully
+    if "frequencies" in sd:
+        expect = np.logspace(-2, np.log10(cfg.max_frequency),
+                             cfg.num_frequencies)
+        if not np.allclose(sd["frequencies"], expect, rtol=1e-4):
+            raise ValueError(
+                "checkpoint 'frequencies' buffer does not match the "
+                "logspace(-2, log10(max_frequency)) grid implied by its own "
+                "encoder_config")
+    base: Dict[str, Any] = {"fourier_weight": sd["fourier_weight"]}
+    if cfg.include_raw:
+        base["raw_scale"] = sd["raw_scale"]
+    if cfg.extra_dim > 0:
+        # torch Linear(1, extra) weight [extra, 1] -> Flax kernel [1, extra]
+        base["extra_proj"] = {"kernel": sd["extra_proj.weight"].T}
+    variables = {
+        "params": {"base": base},
+        "batch_stats": {
+            "running_std": np.ones((cfg.embedding_dim,), np.float32),
+            "num_batches_tracked": np.zeros((), np.int32),
+        },
+    }
+    return cfg, variables
+
+
+def load_reference_mwne_checkpoint(path: str):
+    """A reference ``mathematical_encoder_*d_normalized.pth`` ->
+    (MWNEConfig, Flax-layout variables)."""
+    import torch
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return convert_mwne(ckpt)

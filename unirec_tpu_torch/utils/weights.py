@@ -22,7 +22,8 @@ runs that have no checkpoint (the card machine has no Flax to make weights
 with).  ``item_qformer_state_dict_from_flax`` is the bridge for an Item
 Q-Former tree, a reference ``.pth`` converted by ``torch_convert`` included.
 ``qweights_from_flax`` carries a JAX ``qweights`` collection (the int8 Qwen3
-projections) across.
+projections) across, and ``mwne_state_dict_from_flax`` a number encoder's
+parameters and running statistics.
 """
 
 from __future__ import annotations
@@ -137,6 +138,23 @@ def item_qformer_state_dict_from_flax(params: Mapping[str, Any]
             if not _TEXT_SIDE.match(k)}
 
 
+def mwne_state_dict_from_flax(variables: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``NormalizedMathematicalEncoder`` variables (``params`` and
+    ``batch_stats``, numpy or array leaves) -> the port's state_dict:
+    ``base.extra_proj.kernel [1, extra]`` -> ``weight [extra, 1]``, the
+    running statistics as buffers (``num_batches_tracked`` int32)."""
+    sd = flax_to_state_dict(variables.get("params", {}))
+    stats = variables.get("batch_stats", {})
+    if "running_std" in stats:
+        sd["running_std"] = torch.from_numpy(
+            np.array(stats["running_std"], np.float32))
+    if "num_batches_tracked" in stats:
+        sd["num_batches_tracked"] = torch.tensor(
+            int(np.asarray(stats["num_batches_tracked"])), dtype=torch.int32)
+    return sd
+
+
 def _fill_normal(p: torch.Tensor, std: float,
                  generator: torch.Generator) -> None:
     """p ~ N(0, std^2), drawn in float32 on the generator's device."""
@@ -173,12 +191,16 @@ def init_joint(qwen_cfg: Qwen3Config, qf_cfg: ItemQFormerConfig,
 
 @torch.no_grad()
 def init_item_qformer(cfg: ItemQFormerConfig, generator: torch.Generator,
-                      device=None, dtype: torch.dtype = torch.float32
+                      device=None, dtype: torch.dtype = torch.float32,
+                      param_dtype: Optional[torch.dtype] = None
                       ) -> ItemQFormer:
     """The Item Q-Former with the Flax initialisers' distributions:
     normal(1.0) for ``query_embeddings``, normal(0.02) for dense kernels and
-    ``field_id_embeddings``, ones/zeros for LayerNorm, zero biases."""
-    model = ItemQFormer(cfg, device=device, dtype=dtype).eval()
+    ``field_id_embeddings``, ones/zeros for LayerNorm, zero biases.
+    ``param_dtype`` (default ``dtype``) stores the parameters, ``dtype``
+    computes (the trainer's float32 masters under bfloat16 compute)."""
+    model = ItemQFormer(cfg, device=device, dtype=dtype,
+                        param_dtype=param_dtype).eval()
     _flax_init_(model, generator)
     return model
 
