@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
 serving path (over a float32 and an int8 catalog, and with the W8A8 int8
-Qwen3 forward), the item-token sweep (bf16 and W8A8 int8), joint training
-and Item Q-Former training.
+Qwen3 forward), the item-token sweep (bf16 and W8A8 int8), joint training,
+Item Q-Former training and User Q-Former training.
 
     python3 chip_smoke.py
 
@@ -31,7 +31,13 @@ Phases (any failed check raises; the script then exits non-zero):
    B12c, the trainable self- and cross-attention blocks, forward and
    backward, at the item-training shape (512 and a ragged 509 items, ~15%
    missing fields, >= 8 items with none), each repeated for identical bits,
-   the forwards beside ``multi_head_attention_forward`` (the yardstick).
+   the forwards beside ``multi_head_attention_forward`` (the yardstick),
+   and B12s at the user stage's 64 users of 64 query rows; B13 (the streaming cross-attention) and B14 (the trainable merged-head
+   cross-attention, forward and backward) at the user stage's shape (64
+   users, 64 queries over 1,600 memory rows, 16 heads of 64) and over a
+   ragged 1,000-row memory, with ~15% masked keys and one user masked
+   whole, in fp32 and bf16, each repeated for identical bits, timed beside
+   ``scaled_dot_product_attention`` (the yardstick).
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
@@ -92,7 +98,19 @@ Phases (any failed check raises; the script then exits non-zero):
    ``--resume``, then ``--int8-ref``; exact launch counts), ``evaluate`` on
    its checkpoint, ``QFormerInference`` on it against the fp32 model, and
    ``precompute`` of 2,000 items in the default field schema.
-8. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
+8. User Q-Former training at full width (``UserQFormerConfig()`` over the
+   sweep's checkpoint and cache, --max-seq-len 50, batch 64, bf16 compute
+   with float32 masters): the catalog's item tokens by
+   ``precompute_item_tokens``; one step with ``--flash --fused`` (B14 and
+   B12s 4 launches each way) against the plain step (none) from one init
+   at dropout 0, loss and every leaf's gradient held to each other; ms per
+   step, the forward + backward / optimizer split and peak memory of both,
+   and a ``torch.profiler`` breakdown.  Then
+   ``cli.train_cli.main(["user-qformer", ...])`` over history and review
+   JSON written for the cache (``--bf16 --flash --fused`` for 2 epochs,
+   ``--resume`` for 1, then ``--bf16 --remat`` for 1, whose evaluation
+   launches B13 4 times a batch); exact launch counts, finite metrics.
+9. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
    the PyTorch yardstick where one call computes the same function), then
    the last line ``{"ok": true, ...}``.
 
@@ -131,10 +149,12 @@ K2_TIE, K2_SCORE_TOL = 1e-6, 1e-5
 BLOCK_ATOL, BLOCK_COS = 5e-2, 0.9999
 QF_D, QF_HEADS, QF_K, QF_F, QF_INTER = 1024, 16, 32, 14, 4096
 BLOCK_ITEMS = (4096, 1001)
-# B12s / B12c at the item-training batch (and a ragged one) against their
-# plain versions: relative to max|ref| (the backward chains three products,
-# as B7b's bf16 bound), per-row cosine as B1-B6
-B12_ITEMS, B12_TOL, B12_COS = (512, 509), 2e-2, 0.9999
+# B12s / B12c at the item-training batch (and a ragged one), and B13 / B14,
+# against their plain versions: relative to max|ref| (in bf16 the backward
+# chains three products, as B7b's bound), and in bf16 per-row cosine as B1-B6
+B12_ITEMS = (512, 509)
+KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+KERNEL_COS = 0.9999
 # the attention kernel's repaired limit: K up to 256 query rows per item
 WIDE_K, WIDE_K_ITEMS = (128, 256), 64
 SWEEP_ITEMS, SWEEP_BATCH, SWEEP_SAMPLE = 9000, 4096, 256
@@ -193,6 +213,25 @@ TRAIN_ITEMS = 1500  # candidate items with 1024-d embeddings in the JSON
 # a 10-step trajectory, 256 users x 9 items (2,048 pairs: 4 steps an epoch)
 # for the CLI, and a 2,000-item precompute
 ITEM_BATCH, ITEM_STEPS, ITEM_CLI_USERS, PRECOMPUTE_ITEMS = 512, 10, 256, 2000
+# user training (phase 8): UserQFormerConfig() at --max-seq-len 50, whose 64
+# query tokens attend over 50 x 32 = 1,600 memory rows in 16 heads of 64; B13
+# at the evaluation batch and B14 at the training batch (both 64), and both
+# over a ragged 1,000-row memory, against their plain versions (KERNEL_TOL,
+# KERNEL_COS)
+USER_BATCH, USER_SEQ, USER_HEADS = 64, 50, 16
+USER_RAGGED = (8, 1000)
+# train_cli user-qformer: histories of 20-60 items over the sweep's cache
+# (~760 sliding-window samples: 10 steps an epoch at batch 64, 2 evaluation
+# batches), a few items missing from the cache
+USER_CLI_USERS = 20
+# the user step's leaves below 1e-4 of the largest float32 leaf norm (phase
+# 8 prints them: the first cross layer's query and key weights, the top self
+# layer's) are sums of nearly cancelling terms, where the two bf16 steps
+# differ mostly by rounding.  Their bf16 norms must stay below twice the
+# threshold, and each (but the key biases, whose float32 gradient is noise
+# too) must be as close to the float32 step in the --flash --fused step as in
+# the plain one: 1 - cosine at most NOISE_GAP_RATIO times the plain step's
+NOISE_LEAF, NOISE_GAP_RATIO = 1e-4, 2.0
 
 
 def log(msg: str) -> None:
@@ -566,27 +605,33 @@ def phase_wide_k(gen) -> dict:
 # -- B12s / B12c: the trainable fused blocks ---------------------------------
 
 
-def b12_error(name, out, ref, where, noise_rows=None) -> float:
-    """Checks a B12 output against its plain version (bf16 both, compared in
-    fp32): max|d| <= B12_TOL * max|ref| and per-row cosine >= B12_COS over
-    the rows where ref is nonzero, except ``noise_rows``: the query rows of
-    an item with no valid field, whose exact dq is 0 (its keys are one and
-    the same row, and ds sums to 0 over them), so that both versions return
-    rounding noise there, which the max|d| bound holds.  Returns max|d|."""
+def kernel_error(name, out, ref, where, noise_rows=None) -> float:
+    """Checks a kernel's output against its plain version (the same dtype,
+    compared in fp32): max|d| <= KERNEL_TOL * max|ref| and, in bf16, per-row
+    cosine >= KERNEL_COS over the rows where ref is nonzero, except
+    ``noise_rows``: the query rows of an item with no valid field, whose
+    exact B12c dq is 0 (its keys are one and the same row, and ds sums to 0
+    over them), so that both versions return rounding noise there, which the
+    max|d| bound holds.  Returns max|d|."""
     a = out.float().reshape(-1, out.shape[-1])
     b = ref.float().reshape(-1, ref.shape[-1])
     if not bool(torch.isfinite(a).all()):
         raise AssertionError(f"{name} {where}: non-finite values")
     err = (a - b).abs().max().item()
     rel = err / b.abs().max().item()
-    live = b.abs().amax(-1) > 0
-    if noise_rows is not None:
-        live &= ~noise_rows
-    cos = torch.nn.functional.cosine_similarity(a[live], b[live], dim=-1)
-    log(f"{name} {where}: max|d| {err:.3e}, rel {rel:.3e} (tol {B12_TOL:g}), "
-        f"min row cosine {cos.min().item():.7f} over {int(live.sum())} rows "
-        f"(tol {B12_COS})")
-    if not (rel <= B12_TOL and cos.min().item() >= B12_COS):
+    tol = KERNEL_TOL[out.dtype]
+    msg = f"{name} {where}: max|d| {err:.3e}, rel {rel:.3e} (tol {tol:g})"
+    ok = rel <= tol
+    if out.dtype == torch.bfloat16:
+        live = b.abs().amax(-1) > 0
+        if noise_rows is not None:
+            live &= ~noise_rows
+        cos = torch.nn.functional.cosine_similarity(a[live], b[live], dim=-1)
+        msg += (f", min row cosine {cos.min().item():.7f} over "
+                f"{int(live.sum())} rows (tol {KERNEL_COS})")
+        ok = ok and cos.min().item() >= KERNEL_COS
+    log(msg)
+    if not ok:
         raise AssertionError(f"{name} {where} disagrees with its plain version")
     return err
 
@@ -650,7 +695,8 @@ def phase_b12(gen) -> dict:
     """B12s and B12c, forward and backward, against their plain versions at
     the item-training shape (512 items and a ragged 509; ~15% missing fields,
     >= 8 items with none), each run twice for identical bits; timed with
-    CUDA events at 512 items beside the plain versions and the bounds."""
+    CUDA events at 512 items beside the plain versions and the bounds.  Then
+    B12s at the user stage's shape (64 users of 64 query rows)."""
     from unirec_tpu_torch.ops import fused_qformer_vjp as fv
 
     d, k, f = QF_D, QF_K, QF_F
@@ -699,7 +745,7 @@ def phase_b12(gen) -> dict:
             ref = plain()
             ref = ref if isinstance(ref, tuple) else (ref,)
             for o, g, r in zip(outs, got, ref):
-                err = b12_error(f"{name.upper()} {o}", g, r, where,
+                err = kernel_error(f"{name.upper()} {o}", g, r, where,
                                 noise if o == "dq" else None)
                 result[name]["err"] = max(result[name]["err"], err)
             again = kern()
@@ -739,7 +785,169 @@ def phase_b12(gen) -> dict:
                         else "no single PyTorch call computes it"))
         del x, mem, runs, s_out, c_out, qkv, q, kv
         torch.cuda.empty_cache()
+    # B12s at the user stage's shape: 64 users of 64 query rows
+    d, n_q = QF_D, 64
+    where = f"{USER_BATCH} users x {n_q} query rows"
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).bfloat16()
+
+    x2, dout = rand(USER_BATCH * n_q, d), rand(USER_BATCH * n_q, d, scale=0.1)
+    zero = torch.zeros(x2.shape[0], device="cuda")
+    sa = (x2, zero, rand(3 * d, d, scale=0.03), rand(3 * d, scale=0.01),
+          rand(d, d, scale=0.03), rand(d, scale=0.01))
+    ukw = dict(num_heads=QF_HEADS, n_q=n_q)
+    got = fv.self_attention_fwd(*sa, **ukw)
+    torch.cuda.synchronize()
+    for o, g, r in zip(("out", "qkv", "ctx"), got,
+                       fv.self_attention_fwd_plain(*sa, **ukw)):
+        err = kernel_error(f"B12S_FWD {o}", g, r, where)
+        result["b12s_fwd"]["err"] = max(result["b12s_fwd"]["err"], err)
+    args = (got[1], sa[4], zero, dout)
+    err = kernel_error("B12S_BWD dqkv", fv.self_attention_bwd(*args, **ukw),
+                    fv.self_attention_bwd_plain(*args, **ukw), where)
+    result["b12s_bwd"]["err"] = max(result["b12s_bwd"]["err"], err)
     return result
+
+
+# -- B13 / B14: the user stage's streaming cross-attention --------------------
+
+
+def flash_inputs(gen, b, lkv, dtype):
+    """Merged-head q and dO [B, 64, 1024], k3 / v3 [B, Lkv, 1024], and a
+    per-key bias [B, 1, 1, Lkv] with ~15% of the keys masked and batch row 1
+    masked whole (a user whose history is all missing from the cache)."""
+    lq, d = 64, QF_D
+    q, do = (torch.randn(b, lq, d, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    k3, v3 = (torch.randn(b, lkv, d, device="cuda", generator=gen).to(dtype)
+              for _ in range(2))
+    mask = (torch.rand(b, lkv, device="cuda", generator=gen) > 0.15).float()
+    mask[1] = 0.0
+    return q, k3, v3, do, ((1.0 - mask) * -1e9)[:, None, None, :]
+
+
+def flash_bounds(b, lq, lkv, size) -> dict:
+    """bound_ms and bound_by of B13 and B14 at these shapes: q, k, v (and dO)
+    read once and the outputs written once in the working type (B14's
+    forward o in float32), the float32 key bias and (m, l, dsum) [B, Lq, H];
+    the score and p.v products (2 forward; s, dp, dv, dk, dq backward)."""
+    d, h = QF_D, USER_HEADS
+    kind = "bf16" if size == 2 else "fp32"
+    io_q, io_kv = size * b * lq * d, size * b * lkv * d
+    stats, bias = 4 * b * lq * h, 4 * b * lkv
+    prod = 2 * b * lq * lkv * d  # one product over every head
+    return {"b13": bound(2 * io_q + 2 * io_kv + bias, 2 * prod, kind),
+            "b14_fwd": bound(io_q + 4 * b * lq * d + 2 * io_kv + bias
+                             + 2 * stats, 2 * prod, kind),
+            "b14_bwd": bound(3 * io_q + 4 * io_kv + bias + 3 * stats,
+                             5 * prod, kind)}
+
+
+def phase_flash_cross(gen) -> dict:
+    """B13 and B14 (forward and backward) against their plain versions, in
+    fp32 and bf16, at the user stage's batch (64 users, 1,600 memory rows)
+    and over a ragged 1,000-row memory, each run twice for identical bits;
+    the fully masked user averages its keys uniformly.  Timed in bf16 at the
+    user shape beside the plain versions, the bounds and
+    ``scaled_dot_product_attention`` (forward for B13 and B14's forward,
+    forward + backward for B14's backward)."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h = USER_HEADS
+    res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, lkv in ((USER_BATCH, USER_SEQ * QF_K), USER_RAGGED):
+            where = f"{dtype} B={b} Lq=64 Lkv={lkv}"
+            q, k3, v3, do, bias = flash_inputs(gen, b, lkv, dtype)
+            qh, kh, vh = (pa.split_heads(t, h) for t in (q, k3, v3))
+            bias32 = pa.key_bias(bias, b, lkv, q.device)
+            dsum = None
+            runs = {
+                "b13": (lambda: (pa.flash_cross_attention(qh, kh, vh, bias),),
+                        lambda: (pa.flash_cross_attention_plain(qh, kh, vh,
+                                                                bias),),
+                        ("o",)),
+                "b14_fwd": (lambda: fl.flash_cross_fwd(q, k3, v3, bias32, h),
+                            lambda: fl.flash_cross_fwd_plain(q, k3, v3, bias32,
+                                                             h),
+                            ("o", "m", "l")),
+                "b14_bwd": (lambda: fl.flash_cross_bwd(q, k3, v3, bias32, do,
+                                                       *ml, dsum, h),
+                            lambda: fl.flash_cross_bwd_plain(
+                                q, k3, v3, bias32, do, *ml, dsum, h),
+                            ("dq", "dk3", "dv3")),
+            }
+            for name, (kern, plain, outs) in runs.items():
+                got = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                for o, g, r in zip(outs, got, ref):
+                    if o in ("m", "l"):  # float32 statistics of both
+                        rel = ((g - r).abs() / r.abs().clamp_min(1e-30)).max()
+                        log(f"{name.upper()} {o} {where}: max rel "
+                            f"{rel.item():.3e} (tol 1e-5)")
+                        if not rel.item() <= 1e-5:
+                            raise AssertionError(f"{name.upper()} {o} {where} "
+                                                 "disagrees")
+                        continue
+                    err = kernel_error(f"{name.upper()} {o}", g, r, where)
+                    res[name]["err"] = max(res[name]["err"], err)
+                if not all(torch.equal(x, y) for x, y in zip(got, kern())):
+                    raise AssertionError(f"{name.upper()} {where}: a repeat "
+                                         "gave other bits")
+                if name == "b13":  # the masked user: its keys' plain mean
+                    kernel_error("B13 fully masked user", got[0][1],
+                                 vh[1].float().mean(1, keepdim=True).expand(
+                                     h, 64, 64), where)
+                if name == "b14_fwd":
+                    ml = got[1:]
+                    dsum = fl.attention_dsum(do, got[0], h).contiguous()
+            log(f"B13 / B14 {where}: the kernels repeat bit for bit")
+            if dtype == torch.bfloat16 and b == USER_BATCH:
+                bounds = flash_bounds(b, 64, lkv, 2)
+                mask = bias.to(dtype)
+                lib_o = sdpa(qh, kh, vh, attn_mask=mask)
+                cos = torch.nn.functional.cosine_similarity(
+                    lib_o.float().reshape(-1, 64),
+                    runs["b13"][0]()[0].float().reshape(-1, 64), dim=-1)
+                log(f"B13 against scaled_dot_product_attention: min row "
+                    f"cosine {cos.min().item():.6f} (tol 0.999)")
+                if not cos.min().item() >= 0.999:
+                    raise AssertionError("B13: the yardstick computes another "
+                                         "function")
+                qg, kg, vg = (t.detach().clone().requires_grad_()
+                              for t in (qh, kh, vh))
+                doh = pa.split_heads(do, h)
+
+                def sdpa_fwd_bwd():
+                    torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask),
+                                        (qg, kg, vg), doh)
+
+                library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                           "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                           "b14_bwd": sdpa_fwd_bwd}
+                for name, (kern, plain, _) in runs.items():
+                    t_k = time_ms(kern, iters=20, warmup=3)
+                    t_p = time_ms(plain, iters=5, warmup=1)
+                    t_k2 = time_ms(kern, iters=20, warmup=3)
+                    t_l = time_ms(library[name], iters=20, warmup=3)
+                    b_ms, b_by = bounds[name]
+                    res[name].update(ms=min(t_k, t_k2), plain_ms=t_p,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=t_l)
+                    log(f"{name.upper()} time {where}: kernel {t_k:.4f} / "
+                        f"{t_k2:.4f} ms, plain {t_p:.4f} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by}), scaled_dot_product_attention"
+                        f" {t_l:.4f} ms"
+                        + (" (forward + backward)" if name == "b14_bwd"
+                           else ""))
+            del q, k3, v3, do, bias, qh, kh, vh, runs
+            torch.cuda.empty_cache()
+    return res
 
 
 def b11_compare(users, codes, scales, k):
@@ -1853,6 +2061,18 @@ def grad_cosines(a: dict, b: dict) -> dict:
     return out
 
 
+def noise_leaves(ref: dict) -> set:
+    """Leaves of a float32 reference gradient below NOISE_LEAF of its
+    largest leaf norm, whose bf16 value is mostly rounding noise: besides
+    the key biases (exactly 0, ``null_gradient``), in the user stage the
+    query and key projections of the upper layers' self-attention and of
+    the first cross-attention, whose queries are the same for every user,
+    so that their gradient is a sum of nearly cancelling terms."""
+    top = max(t.double().norm().item() for t in ref.values())
+    return {n for n, t in ref.items()
+            if t.double().norm().item() < NOISE_LEAF * top}
+
+
 def train_launches() -> dict:
     from unirec_tpu_torch.ops import flash_causal as fc
     from unirec_tpu_torch.ops.int8_matmul import int8_linear
@@ -2493,6 +2713,347 @@ def phase_item_train(smi: str, tmp: str) -> dict:
     return {"launches": main_launches, "ms": times}
 
 
+def user_counters() -> dict:
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    return {"b13": pa.flash_cross_attention, "b14_fwd": fl.flash_cross_fwd,
+            "b14_bwd": fl.flash_cross_bwd, "b12s_fwd": fv.self_attention_fwd,
+            "b12s_bwd": fv.self_attention_bwd,
+            "b12c_fwd": fv.cross_attention_fwd,
+            "b12c_bwd": fv.cross_attention_bwd}
+
+
+def user_launches(n_layers: int, steps: int, eval_batches: int,
+                  kernels: bool) -> dict:
+    """Launches of ``steps`` user-training steps and ``eval_batches``
+    evaluation forwards: with ``--flash --fused`` every layer's cross block
+    through B14 and self block through B12s, forward in both, backward in the
+    steps; otherwise the steps take the plain path and every evaluation
+    layer B13 (its 1,600-row memory).  The 1,600-row cross side never takes
+    B12c."""
+    want = dict.fromkeys(user_counters(), 0)
+    if kernels:
+        want.update(b14_fwd=n_layers * (steps + eval_batches),
+                    b14_bwd=n_layers * steps,
+                    b12s_fwd=n_layers * (steps + eval_batches),
+                    b12s_bwd=n_layers * steps)
+    else:
+        want.update(b13=n_layers * eval_batches)
+    return want
+
+
+def write_user_files(tmp: str, cache) -> dict:
+    """The user CLI's inputs over the sweep's cache: USER_CLI_USERS
+    histories of 20-60 items, about 5% of them missing from the cache (user
+    0's first three: its first samples have no valid event), and a review
+    dict keyed "user|item" with Unix review times."""
+    rng = np.random.default_rng(SEED + 4)
+    ids = list(cache.item_ids)
+    histories, reviews = [], {}
+    for u in range(USER_CLI_USERS):
+        hist = [str(h) for h in rng.choice(ids, int(rng.integers(20, 61)),
+                                           replace=False)]
+        for j in range(len(hist)):
+            if (u == 0 and j < 3) or rng.random() < 0.05:
+                hist[j] = f"gone{u}_{j}"
+        histories.append({"history": hist})
+        for h in hist:
+            reviews[f"u{u}|{h}"] = {
+                "unixReviewTime": int(rng.integers(1_200_000_000,
+                                                   1_700_000_000))}
+    paths = {}
+    for name, obj in (("history", histories), ("reviews", reviews)):
+        paths[name] = os.path.join(tmp, f"user_{name}.json")
+        with open(paths[name], "w") as fh:
+            json.dump(obj, fh)
+    paths["histories"] = histories
+    by_item: dict = {}  # the CLI's regrouping of the review dict per item
+    for key, review in reviews.items():
+        by_item.setdefault(key.split("|", 1)[-1], []).append(review)
+    paths["reviews_by_item"] = by_item
+    return paths
+
+
+def phase_user_train(smi: str, tmp: str) -> dict:
+    """User Q-Former training at full width (``UserQFormerConfig()`` over the
+    sweep's checkpoint and cache, --max-seq-len 50, batch 64, bf16 compute
+    with float32 masters): (b) one step with ``--flash --fused`` (B14 in
+    every cross layer, B12s in every self layer) against the plain step from
+    one init at dropout 0, loss and every leaf's gradient, ms per step, the
+    split and peak memory of both; (c) ``train_cli user-qformer --bf16
+    --flash --fused`` for 2 epochs, ``--resume`` for 1, then ``--bf16
+    --remat`` for 1, whose evaluation goes through B13; exact launches."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from unirec_tpu_torch.cli import train_cli
+    from unirec_tpu_torch.configs import (
+        OptimizerConfig,
+        TrainConfig,
+        UserQFormerConfig,
+    )
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.models.item_qformer import ItemQFormer
+    from unirec_tpu_torch.train.user_qformer import (
+        UserQFormerTrainer,
+        build_sliding_window_samples,
+        build_timestamp_map,
+        make_train_step,
+        precompute_item_tokens,
+    )
+    from unirec_tpu_torch.utils.checkpoint import read_meta
+
+    ckpt = os.path.join(tmp, "ckpt")
+    cfg, sd, _ = QFormerInference.read_checkpoint(ckpt)
+    cache_dir = os.path.join(tmp, "cache")
+    cache = FieldEmbeddingCache.load(cache_dir)
+    counters = user_counters()
+    files = write_user_files(tmp, cache)
+    samples = build_sliding_window_samples(files["histories"],
+                                           max_seq_len=USER_SEQ)
+    item_qformer = ItemQFormer(cfg, device="cuda")
+    item_qformer.load_state_dict(sd)
+    t0 = time.perf_counter()
+    tokens = precompute_item_tokens(item_qformer, cache)
+    log(f"user stage: {len(samples)} sliding-window samples of "
+        f"{USER_CLI_USERS} users; the catalog's item tokens "
+        f"{tokens.shape} in {time.perf_counter() - t0:.1f} s")
+    if not (tokens.shape == (len(cache), cfg.num_query_tokens, cfg.hidden_size)
+            and np.isfinite(tokens).all()):
+        raise AssertionError("precompute_item_tokens fails its checks")
+    del item_qformer
+    ts_map = build_timestamp_map(files["reviews_by_item"])
+    uc0 = UserQFormerConfig(num_item_tokens_to_predict=cfg.num_query_tokens,
+                            input_embedding_dim=cfg.hidden_size, dropout=0.0)
+    n_layers = uc0.num_hidden_layers
+    tc = TrainConfig(batch_size=USER_BATCH, seed=SEED,
+                     optimizer=OptimizerConfig(learning_rate=5e-5))
+    rng = np.random.default_rng(SEED + 5)
+    order = rng.permutation(len(samples))
+    probe = UserQFormerTrainer(uc0, tc, USER_SEQ, dtype="bfloat16",
+                               device="cuda")
+    batches = [probe.make_batch(samples, order[i:i + USER_BATCH], tokens,
+                                cache, ts_map)
+               for i in range(0, 10 * USER_BATCH, USER_BATCH)]
+    masked = int((batches[0]["seq_mask"].sum(1) == 0).sum())
+
+    def launches_now():
+        return {n: fn.launches for n, fn in counters.items()}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def trainer(kernels: bool, return_grads: bool = False,
+                dtype: str = "bfloat16"):
+        """A trainer's state from the seed at dropout 0, with ``--flash
+        --fused`` (kernels) or without, and its step."""
+        uc = dataclasses.replace(uc0, flash_training=kernels,
+                                 fused_training=kernels)
+        st = UserQFormerTrainer(uc, tc, USER_SEQ, dtype=dtype,
+                                device="cuda").init_state()
+        return st, make_train_step(st.model, return_grads=return_grads,
+                                   seed=SEED)
+
+    # (b) one step each way from one init (and the plain step in float32 as
+    # the reference of both), then ms per step and the split
+    def one_step(kernels: bool, dtype: str = "bfloat16"):
+        st, step = trainer(kernels, return_grads=True, dtype=dtype)
+        zero_counts()
+        st, m = step(st, batches[0])
+        torch.cuda.synchronize()
+        launches = launches_now()
+        loss = m["loss"].item()
+        grads = {n: g.double() for n, g in m["grads"].items()}
+        del st, step, m
+        release()
+        return loss, grads, launches
+
+    loss_k, g_k, l_k = one_step(True)
+    loss_p, g_p, l_p = one_step(False)
+    loss_32, g_32, _ = one_step(False, "float32")
+    noise = noise_leaves(g_32)
+    top = max(t.norm().item() for t in g_32.values())
+    cos = {n: c for n, c in grad_cosines(g_k, g_p).items() if n not in noise}
+    worst = min(cos, key=cos.get)
+    noisy = max(max(g_k[n].norm().item(), g_p[n].norm().item()) / top
+                for n in noise)
+
+    def cosine(x, y):
+        x, y = x.flatten(), y.flatten()
+        return (x @ y).item() / max(x.norm().item() * y.norm().item(), 1e-300)
+
+    vs32 = {n: (cosine(g_k[n], t), cosine(g_p[n], t)) for n, t in g_32.items()}
+    gap, widest = max((((1 - vs32[n][0]) / max(1 - vs32[n][1], 1e-12), n)
+                       for n in noise if not null_gradient(n)),
+                      default=(0.0, "none"))
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    want_k = user_launches(n_layers, 1, 0, True)
+    want_p = user_launches(n_layers, 1, 0, False)
+    log(f"user step, batch {USER_BATCH} ({masked} with no valid event), "
+        f"UserQFormerConfig() at --max-seq-len {USER_SEQ}, dropout 0: loss "
+        f"--flash --fused {loss_k:.6f}, plain {loss_p:.6f}, plain float32 "
+        f"{loss_32:.6f} (rel {rel:.2e}, tol {STEP_LOSS_REL:g}); {len(cos)} of "
+        f"{len(g_k)} leaves above {NOISE_LEAF:g} of the largest float32 leaf "
+        f"norm, min gradient cosine {cos[worst]:.6f} ({worst}; tol "
+        f"{STEP_GRAD_COS}); the other {len(noise)} at most {noisy:.2e} of it "
+        f"in bf16 (tol {2 * NOISE_LEAF:g}), their distance from the float32 "
+        f"step at most {gap:.3f} times the plain step's ({widest}; "
+        f"tol {NOISE_GAP_RATIO:g}); launches --flash --fused {l_k}, plain "
+        f"{l_p}")
+    all_cos = grad_cosines(g_k, g_p)
+    for n in sorted(g_32, key=all_cos.get)[:12]:
+        log(f"  {'noise ' if n in noise else 'gated '}{n}: |g|/top "
+            f"{g_32[n].norm().item() / top:.2e}, cosine --flash --fused to "
+            f"plain {all_cos[n]:.6f}; to float32: --flash --fused "
+            f"{vs32[n][0]:.6f}, plain bf16 {vs32[n][1]:.6f}")
+    worst32 = min((n for n in g_32 if n not in noise), key=lambda n: vs32[n][0])
+    log(f"  against the float32 step, worst leaf above it: {worst32}: "
+        f"--flash --fused {vs32[worst32][0]:.6f}, plain bf16 "
+        f"{vs32[worst32][1]:.6f}")
+    if not (rel <= STEP_LOSS_REL and cos[worst] >= STEP_GRAD_COS
+            and noisy <= 2 * NOISE_LEAF and gap <= NOISE_GAP_RATIO
+            and np.isfinite(loss_k)):
+        raise AssertionError("the --flash --fused user step disagrees with "
+                             "the plain step")
+    if (l_k, l_p) != (want_k, want_p):
+        raise AssertionError(f"user step launches {l_k} / {l_p}, want "
+                             f"{want_k} / {want_p}")
+    del g_k, g_p, g_32
+
+    def step_ms(kernels: bool):
+        st, step = trainer(kernels)
+        for b in batches[:2]:
+            st, _ = step(st, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches[2:7]:
+            st, m = step(st, b)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        real = st.optimizer.step
+        marks = []
+
+        def apply(grads):  # the optimizer's part, synchronised on both ends
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            real(grads)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        st.optimizer.step = apply
+        fb, op = [], []
+        for b in batches[7:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st, b)
+            fb.append((marks[-2] - t0) * 1e3)
+            op.append((marks[-1] - marks[-2]) * 1e3)
+        del st.optimizer.step
+        if kernels:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(st, batches[0])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            rows = device_time_by_kernel(prof)
+            total = sum(t for _, t in rows)
+            log(f"[{smi}] one --flash --fused user step under torch.profiler:"
+                f" {total:.2f} ms of device time in {len(rows)} kernels over "
+                f"{wall:.1f} ms of wall time (device idle "
+                f"{100 * max(0.0, 1 - total / wall):.1f}%; the step copies "
+                f"its [64, 50, 32, 1024] float32 batch to the card)"
+                + ("" if rows else " (no device rows: not measured)"))
+            for name, t in rows[:12]:
+                log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+        del st, step
+        release()
+        return dict(ms=ms, peak_gb=peak, fwd_bwd_ms=float(np.median(fb)),
+                    optimizer_ms=float(np.median(op)))
+
+    times = {"plain": step_ms(False), "--flash --fused": step_ms(True),
+             "plain (again)": step_ms(False)}
+    log(f"[{smi}] user step at batch {USER_BATCH}, UserQFormerConfig(), "
+        f"bf16 compute with float32 masters (host clock over 5 synced steps, "
+        f"the batch's copy to the card and the optimizer included; split over "
+        f"{len(batches) - 7} steps): " + "; ".join(
+            f"{k} {t['ms']:.1f} ms (forward + backward {t['fwd_bwd_ms']:.1f},"
+            f" optimizer {t['optimizer_ms']:.1f}), peak {t['peak_gb']:.2f} GB"
+            for k, t in times.items()))
+    del batches, tokens
+    release()
+
+    # (c) the train CLI: --flash --fused, --resume, then --remat (B13)
+    ck, ck_remat = os.path.join(tmp, "user_ckpt"), os.path.join(tmp,
+                                                                "user_remat")
+    base = ["user-qformer", "--item-qformer-checkpoint", ckpt, "--history",
+            files["history"], "--reviews", files["reviews"], "--cache-dir",
+            cache_dir, "--bf16", "--batch-size", str(USER_BATCH),
+            "--max-seq-len", str(USER_SEQ)]
+    n_train = max(int(0.9 * len(samples)), 1)
+    steps = n_train // USER_BATCH  # per epoch (the last cut)
+    eval_batches = -(-(len(samples) - n_train) // USER_BATCH)
+    main_launches = None
+    for argv, what, epochs, kernels in (
+            (["--flash", "--fused", "--num-epochs", "2", "--checkpoint-dir",
+              ck], "user-qformer --bf16 --flash --fused, 2 epochs", 2, True),
+            (["--flash", "--fused", "--num-epochs", "1", "--checkpoint-dir",
+              ck, "--resume"], "user-qformer --resume, 1 epoch", 1, True),
+            (["--remat", "--num-epochs", "1", "--checkpoint-dir", ck_remat],
+             "user-qformer --bf16 --remat, 1 epoch", 1, False)):
+        if "--resume" in argv:
+            saved_step = read_meta(ck)["step"]
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(base + argv)
+        seconds = time.perf_counter() - t0
+        launches = launches_now()
+        out = buf.getvalue()
+        for line in out.strip().splitlines():
+            log(f"  train_cli {what}| {line[:300]}")
+        log(f"[{smi}] train_cli {what}: rc {rc} in {seconds:.1f} s (item "
+            f"tokens, model build, checkpoints and evaluation included), "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+            f"launches {launches}")
+        if rc != 0:
+            raise AssertionError(f"train_cli {what} returned {rc}")
+        want = user_launches(n_layers, steps * epochs, eval_batches, kernels)
+        if launches != want:
+            raise AssertionError(f"train_cli {what}: launches {launches}, "
+                                 f"want {want}")
+        if main_launches is None:
+            main_launches = dict(launches)
+        if not kernels:  # the main path's evaluation without --flash: B13
+            main_launches["b13"] = launches["b13"]
+        if "--resume" in argv and f"at step {saved_step}" not in out:
+            raise AssertionError("train_cli --resume did not restore the "
+                                 "first run's checkpoint")
+        res = json.loads(out[out.rindex("\n{") + 1:])
+        if not (np.isfinite(res["loss"]) and np.isfinite(res["token_mse"])
+                and -1.0 <= res["token_cosine"] <= 1.0
+                and 0.0 < res["retrieval_mrr"] <= 1.0):
+            raise AssertionError(f"train_cli {what}: metrics {res}")
+        release()
+    return {"launches": main_launches, "ms": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2533,6 +3094,7 @@ def main() -> int:
         blocks[key]["err"] = max(blocks[key]["err"], err)
     blocks.update(phase_blocks(gen, "int8"))
     b12 = phase_b12(gen)
+    flash = phase_flash_cross(gen)
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
     phase_entry_point(smi, served.pop("stack")[0])
@@ -2546,6 +3108,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         item_trained = phase_item_train(smi, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        user_trained = phase_user_train(smi, tmp)
     sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
     bounds = static_bounds()
@@ -2612,6 +3177,15 @@ def main() -> int:
             ("b12s_bwd", "qformer_self_block_train_bwd", 162),
             ("b12c_fwd", "qformer_cross_block_train_fwd", 344),
             ("b12c_bwd", "qformer_cross_block_train_bwd", 383))
+    ] + [
+        row(name, "flash_cross.cu", replaces,
+            user_trained["launches"][key], flash[key]["err"],
+            flash[key]["ms"], flash[key]["plain_ms"], flash[key]["bound_ms"],
+            flash[key]["bound_by"], flash[key]["library_ms"])
+        for key, name, replaces in (
+            ("b13", "flash_cross_attention", "attention.py:163"),
+            ("b14_fwd", "flash_cross_proj_fwd", "flash_vjp.py:362"),
+            ("b14_bwd", "flash_cross_proj_bwd", "flash_vjp.py:426"))
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -41,6 +41,9 @@ EXPECTED_MODULES = {
     "unirec_tpu_torch.train.item_qformer", "unirec_tpu_torch.cli.train_cli",
     "unirec_tpu_torch.ops.fused_qformer_layer",
     "unirec_tpu_torch.ops.flash_causal", "unirec_tpu_torch.train.joint",
+    "unirec_tpu_torch.ops.flash_vjp", "unirec_tpu_torch.models.user_sequence",
+    "unirec_tpu_torch.models.user_qformer",
+    "unirec_tpu_torch.train.user_qformer", "unirec_tpu_torch.eval.user_eval",
 }
 
 
@@ -74,7 +77,8 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["qformer_inference", "serve_cli",
                                    "generate_all_item_embeddings",
-                                   "train_cli", "train_cli_item_qformer"])
+                                   "train_cli", "train_cli_item_qformer",
+                                   "train_cli_user_qformer"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card, an entry point that was not asked for the CPU raises
     and names the flag; nothing falls back to the CPU quietly."""
@@ -102,6 +106,13 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
             generate_all_item_embeddings.main(
                 ["--checkpoint", "q", "--cache-dir", REPO])
+        elif entry == "train_cli_user_qformer":
+            from unirec_tpu_torch.cli import train_cli
+
+            train_cli.main(["user-qformer", "--item-qformer-checkpoint", "q",
+                            "--history", "h", "--reviews", "r",
+                            "--cache-dir", "c", "--bf16", "--flash",
+                            "--fused"])
         elif entry == "train_cli_item_qformer":
             from unirec_tpu_torch.cli import train_cli
 
@@ -259,6 +270,42 @@ def test_cpu_b12_wrappers_use_plain_versions():
     assert z.shape == x.shape and z.dtype == torch.bfloat16
     assert x.grad is not None and mem.grad is not None
     assert bool(torch.isfinite(x.grad.float()).all())
+    for fn in wrappers:
+        assert fn.launches == 0, fn.__name__
+    assert _build.load_kernels.cache_info().currsize == 0
+
+
+def test_cpu_flash_cross_wrappers_use_plain_versions():
+    """B13, B14's forward and backward, and the trainable proj-VJP take the
+    plain versions for CPU tensors in bfloat16 (a kernel dtype): nothing is
+    launched, counted or built."""
+    from unirec_tpu_torch.ops import _build
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    wrappers = (pa.flash_cross_attention, fl.flash_cross_fwd,
+                fl.flash_cross_bwd)
+    for fn in wrappers:
+        fn.launches = 0
+    gen = torch.Generator().manual_seed(0)
+    b, lq, lkv, d = 2, 4, 70, 32
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.1).bfloat16(
+            ).requires_grad_()
+
+    bias = torch.zeros(b, 1, 1, lkv)
+    bias[1] = -1e9  # a user with no cached history
+    q, mem = w(b, lq, d), w(b, lkv, d)
+    with torch.no_grad():
+        o = pa.flash_cross_attention(pa.split_heads(q, 2), pa.split_heads(
+            mem, 2), pa.split_heads(mem, 2), bias)
+    z = fl.flash_cross_attention_proj_vjp(q, mem, w(d, d), w(d), w(d, d),
+                                          w(d), bias, num_heads=2)
+    z.float().square().sum().backward()
+    assert o.shape == (b, 2, lq, d // 2) and o.dtype == torch.bfloat16
+    assert z.shape == q.shape and z.dtype == torch.bfloat16
+    assert bool(torch.isfinite(mem.grad.float()).all())
     for fn in wrappers:
         assert fn.launches == 0, fn.__name__
     assert _build.load_kernels.cache_info().currsize == 0

@@ -424,24 +424,29 @@ def test_qwen3_int8_wrappers_refuse_what_the_kernels_do_not_take(hopper):
 # -- B12s / B12c: the trainable fused Q-Former blocks -----------------------------
 
 
-def _check_b12(name, out, ref, tol=2e-2, min_cos=0.9999, noise_rows=None):
-    """max|d| <= tol * max|ref| (bf16 in both; the kernel sums in another
-    order, which can flip one bf16 rounding of qkv, p, ctx or ds) and the
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _check_kernel(name, out, ref, tol=None, min_cos=0.9999, noise_rows=None):
+    """max|d| <= tol * max|ref| (by default 1e-5 in float32 and 2e-2 in
+    bf16, both sides in the same dtype: the kernel sums in another order,
+    which can flip one bf16 rounding of qkv, p, ctx or ds) and, in bf16, the
     per-row cosine >= min_cos over rows where ref is nonzero, except
     ``noise_rows``: the query rows of an item with no valid field, whose
-    exact dq is 0 (its keys are all the same row, bkv, and the softmax VJP's
-    ds sums to 0 over them), so both versions return rounding noise there,
-    which the max|d| bound holds."""
+    exact B12c dq is 0 (its keys are all the same row, bkv, and the softmax
+    VJP's ds sums to 0 over them), so both versions return rounding noise
+    there, which the max|d| bound holds."""
     a, b = out.float(), ref.float()
     assert bool(torch.isfinite(a).all()), name
     rel = ((a - b).abs().max() / b.abs().max()).item()
-    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
-    live = b2.abs().amax(-1) > 0
-    if noise_rows is not None:
-        live &= ~noise_rows
-    cos = torch.nn.functional.cosine_similarity(a2[live], b2[live], dim=-1)
-    assert rel <= tol and cos.min().item() >= min_cos, (name, rel,
-                                                        cos.min().item())
+    assert rel <= (tol or TOL[out.dtype]), (name, rel)
+    if out.dtype == torch.bfloat16:
+        a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        live = b2.abs().amax(-1) > 0
+        if noise_rows is not None:
+            live &= ~noise_rows
+        cos = torch.nn.functional.cosine_similarity(a2[live], b2[live], dim=-1)
+        assert cos.min().item() >= min_cos, (name, cos.min().item())
 
 
 def _b12_inputs(gen, items, k=32, f=14, d=1024):
@@ -471,11 +476,11 @@ def test_b12s_matches_plain_and_repeats_bit_for_bit(hopper, items):
     torch.cuda.synchronize()
     for name, g, r in zip(("out", "qkv", "ctx"), got,
                           fv.self_attention_fwd_plain(*args, **kw)):
-        _check_b12(name, g, r)
+        _check_kernel(name, g, r)
     dqkv = fv.self_attention_bwd(got[1], w["wo"], kb, dout, **kw)
     torch.cuda.synchronize()
-    _check_b12("dqkv", dqkv, fv.self_attention_bwd_plain(got[1], w["wo"], kb,
-                                                         dout, **kw))
+    _check_kernel("dqkv", dqkv, fv.self_attention_bwd_plain(
+        got[1], w["wo"], kb, dout, **kw))
     again = fv.self_attention_fwd(*args, **kw)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     assert torch.equal(dqkv, fv.self_attention_bwd(got[1], w["wo"], kb, dout,
@@ -494,13 +499,13 @@ def test_b12c_matches_plain_and_repeats_bit_for_bit(hopper, items):
     torch.cuda.synchronize()
     for name, g, r in zip(("out", "q", "kv", "ctx"), got,
                           fv.cross_attention_fwd_plain(*args, **kw)):
-        _check_b12(name, g, r)
+        _check_kernel(name, g, r)
     q, kv = got[1], got[2]
     dq, dkv = fv.cross_attention_bwd(q, kv, w["wo"], kb, dout, **kw)
     torch.cuda.synchronize()
     rq, rkv = fv.cross_attention_bwd_plain(q, kv, w["wo"], kb, dout, **kw)
-    _check_b12("dq", dq, rq, noise_rows=empty)
-    _check_b12("dkv", dkv, rkv)
+    _check_kernel("dq", dq, rq, noise_rows=empty)
+    _check_kernel("dkv", dkv, rkv)
     again = fv.cross_attention_bwd(q, kv, w["wo"], kb, dout, **kw)
     assert torch.equal(dq, again[0]) and torch.equal(dkv, again[1])
     assert all(torch.equal(a, c) for a, c in
@@ -526,10 +531,10 @@ def test_b12_autograd_gradients_match_plain(hopper):
                                          kb.reshape(64, 14).cpu(), *cpu[2:],
                                          num_heads=16)
     ref.backward(dout.reshape(out.shape).cpu())
-    _check_b12("out", out.detach(), ref.detach().cuda())
+    _check_kernel("out", out.detach(), ref.detach().cuda())
     for i, (g, r) in enumerate(zip(leaves, cpu)):
-        _check_b12(f"grad {i}", g.grad, r.grad.cuda(), tol=3e-2, min_cos=0.999,
-                   noise_rows=empty if i == 0 else None)
+        _check_kernel(f"grad {i}", g.grad, r.grad.cuda(), tol=3e-2,
+                      min_cos=0.999, noise_rows=empty if i == 0 else None)
 
 
 def test_b12_wrappers_refuse_what_the_kernels_do_not_take(hopper):
@@ -545,3 +550,115 @@ def test_b12_wrappers_refuse_what_the_kernels_do_not_take(hopper):
         fv.self_attention_fwd(big, torch.zeros(1024, device="cuda"),
                               w["wqkv"], b["bqkv"], w["wo"], b["bo"],
                               num_heads=16, n_q=256)
+
+
+# -- B13 / B14: the user stage's streaming cross-attention ---------------------
+
+
+def _flash_inputs(gen, b, lq, lkv, dtype, d=1024):
+    """Merged-head q [B, Lq, D], k3 / v3 [B, Lkv, D], dO, and a per-key
+    bias with ~15% masked keys and batch row 1 fully masked (a user whose
+    whole history is missing from the cache)."""
+    q, do = (torch.randn(b, lq, d, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    k3, v3 = (torch.randn(b, lkv, d, device="cuda", generator=gen).to(dtype)
+              for _ in range(2))
+    mask = (torch.rand(b, lkv, device="cuda", generator=gen) > 0.15).float()
+    mask[1] = 0.0
+    bias = ((1.0 - mask) * -1e9)[:, None, None, :]
+    return q, k3, v3, do, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lkv", [(8, 64, 1600), (4, 50, 1000)],
+                         ids=["user_shape", "ragged"])
+def test_b13_matches_plain(hopper, dtype, b, lq, lkv):
+    from unirec_tpu_torch.ops import attention as pa
+
+    q, k3, v3, _, bias = _flash_inputs(hopper, b, lq, lkv, dtype)
+    qh, kh, vh = (pa.split_heads(t, 16) for t in (q, k3, v3))
+    before = pa.flash_cross_attention.launches
+    out = pa.flash_cross_attention(qh, kh, vh, bias)
+    torch.cuda.synchronize()
+    assert pa.flash_cross_attention.launches == before + 1
+    assert out.shape == (b, 16, lq, 64) and out.dtype == dtype
+    _check_kernel("B13", out,
+                  pa.flash_cross_attention_plain(qh, kh, vh, bias))
+    assert torch.equal(out, pa.flash_cross_attention(qh, kh, vh, bias))
+    # the fully masked row averages its real keys uniformly
+    torch.testing.assert_close(out[1].float(), vh[1].float().mean(
+        dim=1, keepdim=True).expand(16, lq, 64), atol=2e-2, rtol=0)
+    # the dispatch takes B13 from FLASH_MIN_KV memory rows on
+    pa.cross_attention(qh, kh, vh, bias)
+    assert pa.flash_cross_attention.launches == before + 2 + (
+        lkv >= pa.FLASH_MIN_KV)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lkv", [(8, 64, 1600), (4, 50, 1000)],
+                         ids=["user_shape", "ragged"])
+def test_b14_fwd_bwd_match_plain(hopper, dtype, b, lq, lkv):
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    q, k3, v3, do, bias = _flash_inputs(hopper, b, lq, lkv, dtype)
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    o, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, 16)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32  # for the backward's dsum
+    ro, rm, rl = fl.flash_cross_fwd_plain(q, k3, v3, bias32, 16)
+    _check_kernel("B14 o", o, ro)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    dsum = fl.attention_dsum(do, o, 16)
+    got = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, 16)
+    torch.cuda.synchronize()
+    ref = fl.flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, 16)
+    for name, g, r in zip(("dq", "dk3", "dv3"), got, ref):
+        _check_kernel(f"B14 {name}", g, r)
+    again = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, 16)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(torch.equal(a, c) for a, c in
+               zip((o, m, l), fl.flash_cross_fwd(q, k3, v3, bias32, 16)))
+
+
+def test_b14_autograd_gradients_match_cpu(hopper):
+    """The trainable proj-VJP on the card (bf16) against the same Function
+    on the CPU (the plain versions), the output and all six gradients."""
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    d = 1024
+    q, mem, _, do, bias = _flash_inputs(hopper, 4, 64, 1000, torch.bfloat16)
+    weights = [torch.randn(*s, device="cuda", generator=hopper) * 0.03
+               for s in ((d, d), (d,), (d, d), (d,))]
+    leaves = [t.clone().requires_grad_() for t in [q, mem] + weights]
+    out = fl.flash_cross_attention_proj_vjp(*leaves, bias, num_heads=16)
+    out.backward(do)
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    ref = fl.flash_cross_attention_proj_vjp(*cpu, bias.cpu(), num_heads=16)
+    ref.backward(do.cpu())
+    _check_kernel("out", out.detach(), ref.detach().cuda())
+    top = max(t.grad.float().norm().item() for t in cpu)
+    for name, g, r in zip(("q", "mem", "wk", "bk", "wv", "bv"), leaves, cpu):
+        if name == "bk":  # exactly 0 (a key bias shifts all of a query's
+            # scores alike): both sides return rounding noise
+            assert max(g.grad.float().norm().item(),
+                       r.grad.float().norm().item()) <= 1e-3 * top
+            continue
+        _check_kernel(f"grad {name}", g.grad, r.grad.cuda(), tol=3e-2,
+                      min_cos=0.999)
+
+
+def test_flash_cross_wrappers_refuse_what_the_kernels_do_not_take(hopper):
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    q, k3, v3, _, bias = _flash_inputs(hopper, 2, 8, 100, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fl.flash_cross_fwd(q, k3, v3, None, 8)  # head dim 128
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fl.flash_cross_fwd(q.half(), k3.half(), v3.half(), None, 16)
+    qh = pa.split_heads(q, 16).requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        pa.flash_cross_attention(qh, pa.split_heads(k3, 16),
+                                 pa.split_heads(v3, 16), bias)

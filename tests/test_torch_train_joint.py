@@ -460,5 +460,5 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, match):
 def test_train_cli_other_subcommands_are_not_ported(capsys):
     from unirec_tpu_torch.cli import train_cli
 
-    assert train_cli.main(["user-qformer", "--history", "x"]) == 2
+    assert train_cli.main(["mwne", "--history", "x"]) == 2
     assert "not ported yet" in capsys.readouterr().err

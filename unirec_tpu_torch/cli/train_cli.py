@@ -1,5 +1,6 @@
 """Training CLI (port of ``unirec_tpu/cli/train_cli.py``): the ``joint``,
-``item-qformer``, ``evaluate`` and ``precompute`` subcommands.
+``item-qformer``, ``user-qformer``, ``evaluate`` and ``precompute``
+subcommands.
 
     python -m unirec_tpu_torch.cli.train_cli joint \\
         --train-data train.json --val-data val.json --item-emb item_emb.json \\
@@ -12,6 +13,11 @@
         [--bf16 [--fused-anchor] [--int8-ref]] [--grad-accum K] \\
         [--checkpoint-dir DIR [--resume]] [--max-samples N] [--eval-every E] \\
         [--device cpu]
+    python -m unirec_tpu_torch.cli.train_cli user-qformer \\
+        --item-qformer-checkpoint IQ_CKPT --history train.json \\
+        --reviews reviews.json --cache-dir CACHE [--max-seq-len 50] \\
+        [--bf16] [--flash] [--fused] [--remat] [--grad-accum K] \\
+        [--checkpoint-dir DIR [--resume]] [--device cpu]
     python -m unirec_tpu_torch.cli.train_cli evaluate --checkpoint DIR \\
         --cache-dir CACHE [--device cpu]
     python -m unirec_tpu_torch.cli.train_cli precompute --data items.json \\
@@ -33,13 +39,21 @@ MWNE backends unless ``--cache-dir`` already holds one for its fields; a
 through B12s / B12c and zeroes attention-probability dropout; with
 ``--bf16`` on the card the positive and negative forwards run on the fused
 engine, B1-B3, or B4-B6 with ``--int8-ref``.  Checkpoints written here are
-train-state directories (``utils/checkpoint.py``).  Every subcommand runs on
-the CUDA card; ``--device cpu`` asks for the CPU.
+train-state directories (``utils/checkpoint.py``).  ``user-qformer``: the
+User Q-Former (``UserQFormerConfig()`` over the Item Q-Former checkpoint's K
+and hidden) on sliding-window samples of ``--history`` with the first
+review time of each item from ``--reviews`` (keyed "user|item"), a 90/10
+split by ``--seed``, best-by-train-loss checkpoints and the held-out
+evaluation; ``--flash`` runs every cross-attention layer through B14 and
+``--fused`` every self-attention layer through B12s (both set dropout 0),
+``--remat`` recomputes the layers and the sequence assembly in the
+backward.  Every subcommand runs on the CUDA card; ``--device cpu`` asks
+for the CPU.
 
-Not ported yet, refused with the queue that holds them: ``--pp``, ``--dp``
-and ``--tp`` above 1 (A9), ``--hf-path`` (it reads a Hugging Face Qwen3
-checkpoint, and the repository holds none).  The other subcommands print
-"not ported yet".
+Not ported yet, refused with the queue that holds them: ``--pp``, ``--dp``,
+``--tp`` and ``--sp`` above 1 (A9), ``--hf-path`` (it reads a Hugging Face
+Qwen3 checkpoint, and the repository holds none).  The other subcommands
+print "not ported yet".
 """
 
 from __future__ import annotations
@@ -51,8 +65,7 @@ import os
 import sys
 
 # the JAX CLI's other subcommands and the ROADMAP.md queue that holds each
-NOT_PORTED = {"mwne": "A8", "user-qformer": "A7", "export-pth": "A8",
-              "export-pretrained": "A8"}
+NOT_PORTED = {"mwne": "A8", "export-pth": "A8", "export-pretrained": "A8"}
 
 
 def _joint_cfg_meta(qwen_cfg, qformer_cfg) -> dict:
@@ -174,6 +187,27 @@ def _item_parsers(sub) -> None:
                          "dropout unchanged)")
     _common_train_flags(sp, 4096, 500, 1e-4)
 
+    sp = sub.add_parser("user-qformer")
+    sp.add_argument("--item-qformer-checkpoint", required=True)
+    sp.add_argument("--history", required=True, help="LRanker train JSON")
+    sp.add_argument("--reviews", required=True, help="review dict JSON")
+    sp.add_argument("--cache-dir", required=True)
+    sp.add_argument("--max-seq-len", type=int, default=50)
+    sp.add_argument("--bf16", action="store_true",
+                    help="bf16 activations (fp32 params)")
+    sp.add_argument("--remat", action="store_true",
+                    help="recompute the layers and the sequence assembly in "
+                         "the backward (long histories)")
+    sp.add_argument("--flash", action="store_true",
+                    help="trainable flash cross-attention (B14 forward and "
+                         "backward on the card); sets dropout 0")
+    sp.add_argument("--fused", action="store_true",
+                    help="trainable fused self-attention blocks (B12s); "
+                         "sets dropout 0 like --flash")
+    sp.add_argument("--sp", type=int, default=1,
+                    help="sequence parallelism (not ported: above 1 raises)")
+    _common_train_flags(sp, 64, 50, 5e-5)
+
     sp = sub.add_parser("evaluate")
     sp.add_argument("--checkpoint", required=True)
     sp.add_argument("--cache-dir", required=True)
@@ -198,7 +232,7 @@ def main(argv=None) -> int:
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     return {"joint": _run_joint, "item-qformer": _run_item_qformer,
-            "evaluate": _run_evaluate,
+            "user-qformer": _run_user_qformer, "evaluate": _run_evaluate,
             "precompute": _run_precompute}[args.cmd](args)
 
 
@@ -289,6 +323,53 @@ def _run_item_qformer(args) -> int:
         fused_precision="int8" if args.int8_ref else "bf16",
         resume=args.resume, metrics_logger=_metrics_logger(args),
         device=device)
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
+def _run_user_qformer(args) -> int:
+    from unirec_tpu_torch import configs
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.models.item_qformer import ItemQFormer
+    from unirec_tpu_torch.train.user_qformer import train_user_qformer
+    from unirec_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.dp > 1 or args.tp > 1 or args.sp > 1:
+        raise NotImplementedError("--dp / --tp / --sp above 1 are not ported "
+                                  "yet (ROADMAP.md A9)")
+    iq_cfg, iq_sd, _ = QFormerInference.read_checkpoint(
+        args.item_qformer_checkpoint)
+    item_qformer = ItemQFormer(iq_cfg, device=device)
+    item_qformer.load_state_dict(iq_sd)
+    cache = FieldEmbeddingCache.load(args.cache_dir)
+    with open(args.history) as f:
+        histories = json.load(f)
+    with open(args.reviews) as f:
+        reviews_raw = json.load(f)
+    # the review dict is keyed "user|asin": regroup per item
+    reviews: dict = {}
+    for key, review in reviews_raw.items():
+        reviews.setdefault(key.split("|", 1)[-1], []).append(review)
+    tc = configs.TrainConfig(
+        batch_size=args.batch_size, num_epochs=args.num_epochs, seed=args.seed,
+        optimizer=configs.OptimizerConfig(
+            learning_rate=args.learning_rate,
+            gradient_accumulation_steps=args.grad_accum),
+        mesh=configs.MeshConfig(dp=args.dp, tp=args.tp, sp=args.sp))
+    uc = configs.UserQFormerConfig(
+        num_item_tokens_to_predict=iq_cfg.num_query_tokens,
+        input_embedding_dim=iq_cfg.hidden_size,
+        gradient_checkpointing=args.remat, flash_training=args.flash,
+        fused_training=args.fused,
+        dropout=0.0 if (args.flash or args.fused) else 0.1)
+    _, metrics = train_user_qformer(
+        cache, histories, reviews, item_qformer, user_config=uc,
+        train_config=tc, max_seq_len=args.max_seq_len,
+        checkpoint_dir=args.checkpoint_dir,
+        dtype="bfloat16" if args.bf16 else "float32", resume=args.resume,
+        metrics_logger=_metrics_logger(args), device=device)
     print(json.dumps(metrics, indent=2))
     return 0
 

@@ -122,11 +122,11 @@ class QFormerConfig:
     # Inference-only bf16 softmax path (~20% faster on TPU for the tiny
     # per-item attention shapes); keep False for training / strict parity.
     fast_attention: bool = False
-    # Trainable streaming cross-attention (ops/flash_vjp.py): fwd AND bwd
-    # block over the memory axis, so long-history training memory is
-    # O(Lq * block) instead of O(Lq * Lkv).  Only takes effect when
+    # Trainable streaming cross-attention (ops/flash_vjp.py, B14): fwd AND
+    # bwd stream over the memory axis, so long-history training memory is
+    # O(Lq * tile) instead of O(Lq * Lkv).  Only takes effect when
     # attention-prob dropout is inactive (the kernel's probs are
-    # deterministic); XLA path otherwise.
+    # deterministic); plain path otherwise.
     flash_training: bool = False
     # Trainable FUSED attention blocks (ops/fused_qformer_vjp.py): QKV
     # projections + packed per-item attention + output projection as one
@@ -204,6 +204,61 @@ class ItemQFormerConfig:
             gradient_checkpointing=self.gradient_checkpointing,
             fused_training=self.fused_training,
             capture_attention_probs=self.capture_attention_probs,
+        )
+
+
+@dataclass(frozen=True)
+class UserQFormerConfig:
+    """User Q-Former config (reference: training/user_qformer_training.py:21-45).
+
+    4 layers, 64 query tokens, cross-attention at every layer, and an MLP
+    prediction head emitting the next item's flattened query tokens.
+    """
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 4
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    num_query_tokens: int = 64
+    input_embedding_dim: int = 1024
+    num_item_tokens_to_predict: int = 32
+    dropout: float = 0.1
+    # layer-level remat (``torch.utils.checkpoint`` over the layers and the
+    # sequence assembly): long histories hold [B, H, 64, seq * K] attention
+    # probabilities per layer without it
+    gradient_checkpointing: bool = False
+    # trainable flash cross-attention (ops/flash_vjp.py, B14); zeroes
+    # attention-PROB dropout (qformer() below), hidden dropout stays exact
+    flash_training: bool = False
+    # trainable fused SELF-attention blocks over the 64 query tokens (B12s;
+    # the 1,600-row cross side fails supports_fused_train and takes the
+    # flash or plain path), composes with flash_training
+    fused_training: bool = False
+
+    def qformer(self) -> QFormerConfig:
+        # the trainable kernels engage only without attention-prob dropout:
+        # zero it when a kernel flag is set so the flags are never silently
+        # inert; hidden-state dropout keeps the configured rate
+        kernel_train = self.fused_training or self.flash_training
+        if kernel_train and self.dropout > 0.0:
+            _warn_prob_dropout_zeroed(
+                "UserQFormerConfig", "flash_training/fused_training",
+                self.dropout,
+            )
+        return QFormerConfig(
+            hidden_size=self.hidden_size,
+            num_hidden_layers=self.num_hidden_layers,
+            num_attention_heads=self.num_attention_heads,
+            intermediate_size=self.intermediate_size,
+            hidden_dropout_prob=self.dropout,
+            attention_probs_dropout_prob=0.0 if kernel_train else self.dropout,
+            add_cross_attention=True,
+            cross_attention_freq=1,
+            encoder_width=self.input_embedding_dim,
+            query_length=self.num_query_tokens,
+            gradient_checkpointing=self.gradient_checkpointing,
+            flash_training=self.flash_training,
+            fused_training=self.fused_training,
         )
 
 

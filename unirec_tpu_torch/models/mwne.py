@@ -8,13 +8,18 @@
   rescaling with a 50%-change guard and a [0.1, 10] scaling clamp
   (reference: models/mwne.py:9-64).  The running statistics are buffers
   (``running_std``, ``num_batches_tracked``: the JAX module's
-  ``batch_stats``); ``train=True`` updates them in place.
+  ``batch_stats``); ``train=True`` updates them in place;
+* the user stage's context encoders: ``timestamp_features`` (Unix seconds ->
+  9 trend and phase features, the JAX function's float32 operations in its
+  order), ``TimestampEncoder``, ``geo_to_cartesian``,
+  ``GeoCoordinateEncoder``, and ``sinusoidal_position_encoding``
+  (reference: models/mwne.py:532-608, models/user_sequence_encoder.py:20-25).
 
 Parameter names follow the Flax tree (``base.fourier_weight``,
 ``base.raw_scale``, ``base.extra_proj.weight``; the Flax kernel ``[1, extra]``
 is stored as ``weight [extra, 1]``), so ``utils/weights.
-mwne_state_dict_from_flax`` maps JAX variables one to one.  The timestamp and
-geo encoders, the decoder and the position encoding wait for the user stage.
+mwne_state_dict_from_flax`` maps JAX variables one to one.  The decoder waits
+for MWNE training (ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from torch import nn
 
 from unirec_tpu_torch.configs import MWNEConfig
+from unirec_tpu_torch.models.qformer import Linear
 
 
 def log_frequencies(cfg: MWNEConfig) -> torch.Tensor:
@@ -145,3 +151,97 @@ def load_mwne(cfg: MWNEConfig, state_dict: Optional[dict] = None,
     model = NormalizedMathematicalEncoder(cfg, device=device)
     model.load_state_dict(state_dict)
     return model.eval()
+
+
+SECONDS_IN_DAY = 24 * 60 * 60
+SECONDS_IN_WEEK = 7 * SECONDS_IN_DAY
+SECONDS_IN_YEAR = 365.25 * SECONDS_IN_DAY
+
+
+def _f32(c: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 constant on ``like``'s device: tensor-by-tensor arithmetic
+    is one IEEE operation on both devices (the card computes a Python-scalar
+    divisor as a reciprocal multiply)."""
+    return torch.tensor(c, dtype=torch.float32, device=like.device)
+
+
+def timestamp_features(timestamps: torch.Tensor) -> torch.Tensor:
+    """Unix seconds -> 9 features: secular trend + day/week/year/month sin-cos
+    (reference: models/mwne.py:532-565), float32 ``[N, 9]``."""
+    x = timestamps.float().reshape(-1, 1)
+    two_pi = _f32(2 * math.pi, x)
+    day, year = _f32(SECONDS_IN_DAY, x), _f32(SECONDS_IN_YEAR, x)
+    secular = x / year
+    day_phase = torch.remainder(x, day) / day
+    week_phase = ((x / day) + _f32(4, x)) / _f32(7, x)  # epoch was a Thursday
+    year_phase = torch.remainder(x, year) / year
+    month_phase = year_phase * _f32(12, x)
+    feats = [secular]
+    for phase in (day_phase, week_phase, year_phase, month_phase):
+        feats += [torch.sin(two_pi * phase), torch.cos(two_pi * phase)]
+    return torch.cat(feats, dim=-1)
+
+
+class _ContextMLP(nn.Module):
+    """features -> Linear(2D) -> exact gelu -> Linear(D), in ``dtype``
+    (Flax ``Dense(dtype=...)`` over float32 parameters)."""
+
+    def __init__(self, in_features: int, embedding_dim: int, *, device=None,
+                 dtype: torch.dtype = torch.float32, param_dtype=None):
+        super().__init__()
+        lkw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.fc1 = Linear(in_features, 2 * embedding_dim, **lkw)
+        self.fc2 = Linear(2 * embedding_dim, embedding_dim, **lkw)
+        self.dtype = dtype
+
+    def mlp(self, feats: torch.Tensor) -> torch.Tensor:
+        h = torch.nn.functional.gelu(self.fc1(feats.to(self.dtype)),
+                                     approximate="none")
+        return self.fc2(h)
+
+
+class TimestampEncoder(_ContextMLP):
+    """9 temporal features -> Linear -> GELU -> Linear(embedding_dim)."""
+
+    def __init__(self, embedding_dim: int, **kw):
+        super().__init__(9, embedding_dim, **kw)
+
+    def forward(self, timestamps: torch.Tensor) -> torch.Tensor:
+        return self.mlp(timestamp_features(timestamps))
+
+
+def geo_to_cartesian(coordinates: torch.Tensor) -> torch.Tensor:
+    """[N, 2] (lat, lon) degrees -> [N, 3] unit-sphere cartesian
+    (reference: models/mwne.py:596-608)."""
+    lat = torch.deg2rad(coordinates[:, 0])
+    lon = torch.deg2rad(coordinates[:, 1])
+    return torch.stack([torch.cos(lat) * torch.cos(lon),
+                        torch.cos(lat) * torch.sin(lon), torch.sin(lat)],
+                       dim=-1)
+
+
+class GeoCoordinateEncoder(_ContextMLP):
+    """(lat, lon) -> unit sphere -> Linear -> GELU -> Linear(embedding_dim)."""
+
+    def __init__(self, embedding_dim: int, **kw):
+        super().__init__(3, embedding_dim, **kw)
+
+    def forward(self, coordinates: torch.Tensor) -> torch.Tensor:
+        if coordinates.dim() != 2 or coordinates.shape[1] != 2:
+            raise ValueError("coordinates must be [batch, 2] (lat, lon)")
+        return self.mlp(geo_to_cartesian(coordinates.float()))
+
+
+def sinusoidal_position_encoding(length: int, d_model: int,
+                                 dtype: torch.dtype = torch.float32,
+                                 device=None) -> torch.Tensor:
+    """Standard sinusoidal PE table [length, d_model]
+    (reference: models/user_sequence_encoder.py:20-25)."""
+    position = torch.arange(length, device=device).float()[:, None]
+    div_term = torch.exp(
+        torch.arange(0, d_model, 2, device=device).float()
+        * _f32(-math.log(10000.0) / d_model, position))
+    pe = torch.zeros(length, d_model, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe.to(dtype)

@@ -11,8 +11,12 @@ and the FFN's output before the residual LayerNorm) at
 ``hidden_dropout_prob`` / ``attention_probs_dropout_prob``.  With
 ``fused_training`` an attention block runs as one trainable fused block
 (``ops/fused_qformer_vjp``: B12s / B12c on the card) wherever the JAX
-module's dispatch takes its Pallas blocks.  The text-token embeddings and FFN,
-the decoder mask, relative positions and the flash branch wait.
+module's dispatch takes its Pallas blocks; with ``flash_training`` a cross
+block that takes no fused block runs the trainable flash cross-attention
+(``ops/flash_vjp``: B14), and a deterministic cross block otherwise goes
+through ``ops/attention.cross_attention`` (B13 on the card over long
+memories), in the JAX module's order of checks.  The text-token embeddings
+and FFN, the decoder mask and relative positions wait.
 
 Parameter names follow the Flax tree one to one (``query``, ``key``,
 ``value``, ``output_dense``, ``output_LayerNorm``, ``crossattention``,
@@ -30,16 +34,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unirec_tpu_torch.configs import QFormerConfig
 from unirec_tpu_torch.ops.attention import (
     attention,
+    cross_attention,
     make_additive_mask,
     merge_heads,
     split_heads,
 )
 from unirec_tpu_torch.ops.dropout import DropoutStream, dropout
 from unirec_tpu_torch.ops.dropout import at as _at
+from unirec_tpu_torch.ops.flash_vjp import flash_cross_attention_proj_vjp
 from unirec_tpu_torch.ops.fused_qformer_vjp import (
     fused_cross_attention_train,
     fused_self_attention_train,
@@ -126,14 +133,26 @@ class QFormerAttention(nn.Module):
                 drop: Optional[DropoutStream] = None) -> torch.Tensor:
         src = kv_states if self.is_cross else hidden_states
         probs_rate, hidden_rate = self.rates
+        cfg = self.config
+        fast = cfg.fast_attention and drop is None
         if self._fused_ok(hidden_states, src, bias, drop):
             out = self._fused(hidden_states, src, bias)
+        elif (self.is_cross and cfg.flash_training
+              and not cfg.capture_attention_probs
+              and (drop is None or probs_rate <= 0.0) and not fast):
+            # B14: the K/V projections inside the gradient, merged heads in
+            # and out; its saved state is the shared memory, not k / v
+            q = self.query(hidden_states)
+            out = self.output_dense(flash_cross_attention_proj_vjp(
+                q, src.to(q.dtype), self.key.weight, self.key.bias,
+                self.value.weight, self.value.bias, bias, self.num_heads))
         else:
             q = split_heads(self.query(hidden_states), self.num_heads)
             k = split_heads(self.key(src), self.num_heads)
             v = split_heads(self.value(src), self.num_heads)
-            ctx = merge_heads(attention(q, k, v, bias, probs_rate,
-                                        _at(drop, "probs")))
+            attend = cross_attention if self.is_cross and not fast else attention
+            ctx = merge_heads(attend(q, k, v, bias, probs_rate,
+                                     _at(drop, "probs")))
             out = self.output_dense(ctx)
         out = dropout(out, hidden_rate, _at(drop, "out"))
         return self.output_LayerNorm(out + hidden_states)
@@ -237,9 +256,15 @@ class QFormerLayer(nn.Module):
 
 
 class QFormerEncoder(nn.Module):
+    """The layers; with ``gradient_checkpointing`` a training forward that
+    needs gradients recomputes each layer in the backward
+    (``torch.utils.checkpoint``), the JAX module's layer remat.  The
+    recompute gets the same dropout stream and so draws the same masks."""
+
     def __init__(self, config: QFormerConfig, *, device=None,
                  dtype: torch.dtype = torch.float32, param_dtype=None):
         super().__init__()
+        self.remat = config.gradient_checkpointing
         self.layer = nn.ModuleList(
             QFormerLayer(
                 config,
@@ -252,10 +277,12 @@ class QFormerEncoder(nn.Module):
 
     def forward(self, hidden_states, self_bias, encoder_hidden_states,
                 encoder_bias, drop: Optional[DropoutStream] = None):
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i, layer in enumerate(self.layer):
-            hidden_states = layer(hidden_states, self_bias,
-                                  encoder_hidden_states, encoder_bias,
-                                  _at(drop, "layer", i))
+            args = (hidden_states, self_bias, encoder_hidden_states,
+                    encoder_bias, _at(drop, "layer", i))
+            hidden_states = (checkpoint(layer, *args, use_reentrant=False)
+                             if remat else layer(*args))
         return hidden_states
 
 

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
-           "qformer_blocks.cu", "fused_qformer_vjp.cu")
+           "qformer_blocks.cu", "fused_qformer_vjp.cu", "flash_cross.cu")
 HEADERS = ("gemm_bf16.cuh",)
 BUILD_DIR_ENV = "UNIREC_TPU_TORCH_BUILD_DIR"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 @dataclass
@@ -127,6 +128,11 @@ def load_kernels() -> Kernels:
     lib.unirec_b12_cross_fwd.restype = _I
     lib.unirec_b12_cross_bwd.argtypes = [_P] * 8 + [_I] * 5 + [_F, _P]
     lib.unirec_b12_cross_bwd.restype = _I
+    lib.unirec_flash_cross_fwd.argtypes = [_P] * 7 + [_L] * 12 + [_I] * 6 + [
+        _F, _P]
+    lib.unirec_flash_cross_fwd.restype = _I
+    lib.unirec_flash_cross_bwd.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
+    lib.unirec_flash_cross_bwd.restype = _I
     return Kernels(lib, out, seconds, log)
 
 

@@ -1,25 +1,41 @@
 """Attention primitives for the Q-Former stacks (port of
-``unirec_tpu/ops/attention.py``, the fp32-softmax path with its
-attention-probability dropout).
+``unirec_tpu/ops/attention.py``): the fp32-softmax path with its
+attention-probability dropout, the streaming cross-attention B13 and the
+dispatch between them.
 
 Layout and semantics follow the JAX module: per-head ``[B, H, L, head_dim]``
 tensors and an additive bias broadcastable to ``[B, H, Lq, Lkv]`` with
-``NEG_INF`` at masked keys.  The item Q-Former's memory (14 fields) is far
-below the length where the JAX package switches to its streaming kernel, so
-this path is plain tensor code.
+``NEG_INF`` at masked keys.
+
+``flash_cross_attention`` is kernel B13 (``csrc/flash_cross.cu``, replacing
+``flash_cross_attention``'s ``_flash_kernel``): streaming softmax over the
+memory axis, so the ``[B, H, Lq, Lkv]`` scores never reach device memory.  It
+takes a per-key bias ``[B, 1, 1, Lkv]`` (the only mask the Q-Former's cross
+attention uses) and has no gradient.  ``cross_attention`` is the JAX
+dispatch: B13 for deterministic forwards over a memory of at least
+``FLASH_MIN_KV`` rows on the card (the user Q-Former's history, 1,600 rows at
+seq 50), the plain path otherwise (the item Q-Former's 14 fields, training
+forwards).  ``use_flash_cross`` is that decision as a pure predicate.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.dropout import DropoutStream, dropout
 
 # exp(-1e9) == 0.0 in fp32: identical to the reference's additive -10000.
 NEG_INF = -1e9
+
+# Memory length from which the JAX package takes its streaming kernel.
+FLASH_MIN_KV = 1024
+
+# the head dimension the streaming kernels are built for (csrc/flash_cross.cu)
+KERNEL_HEAD_DIM = 64
 
 
 def make_additive_mask(mask: torch.Tensor,
@@ -57,3 +73,142 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, drop)
     out = torch.matmul(probs.to(in_dtype).float(), v.float())
     return out.to(in_dtype)
+
+
+# -- B13: streaming cross-attention -------------------------------------------
+
+
+def sm_scale(head_dim: int) -> float:
+    """1 / sqrt(head_dim) as the float32 the JAX kernels multiply by."""
+    return float(torch.tensor(1.0 / head_dim ** 0.5, dtype=torch.float32))
+
+
+def streaming_softmax_stats(s: torch.Tensor) -> Tuple[torch.Tensor,
+                                                      torch.Tensor,
+                                                      torch.Tensor]:
+    """(p, m, l) of fp32 scores ``s [..., Lkv]``, as the streaming kernels end
+    up with them: m = max(NEG_INF, max s) (their running max starts at
+    NEG_INF), p = exp(s - m) and l = sum p, with keepdim."""
+    m = torch.clamp_min(s.amax(dim=-1, keepdim=True), NEG_INF)
+    p = torch.exp(s - m)
+    return p, m, p.sum(dim=-1, keepdim=True)
+
+
+def key_bias(bias: Optional[torch.Tensor], b: int, lkv: int,
+             device) -> Optional[torch.Tensor]:
+    """A per-key bias ``[B, 1, 1, Lkv]`` (or None) as the kernels read it:
+    float32 ``[B, Lkv]``, contiguous."""
+    if bias is None:
+        return None
+    if bias.dim() != 4 or bias.shape[1] != 1 or bias.shape[2] != 1:
+        raise ValueError(f"the streaming kernels take a per-key bias "
+                         f"[B, 1, 1, Lkv], got {tuple(bias.shape)}")
+    return bias.to(device=device, dtype=torch.float32).expand(
+        b, 1, 1, lkv).reshape(b, lkv).contiguous()
+
+
+def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor,
+                                bias: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """B13's plain version: ``_flash_kernel``'s function in one pass.
+    s = (q . k) * scale + bias in fp32, m and l as the streaming loop leaves
+    them, o = (exp(s - m) v) / (l == 0 ? 1 : l) cast to q's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * sm_scale(q.shape[-1])
+    if bias is not None:
+        s = s + bias.float()
+    p, _, l = streaming_softmax_stats(s)
+    o = torch.matmul(p, v.float()) / torch.where(l == 0, 1.0, l)
+    return o.to(q.dtype)
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    """The streaming kernels' dtype argument: 0 float32, 1 bfloat16."""
+    return 0 if t.dtype == torch.float32 else 1
+
+
+def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
+    """What the streaming kernels take: one CUDA device, float32 or bfloat16
+    of one dtype, head dimension ``KERNEL_HEAD_DIM`` contiguous."""
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {first.dtype}")
+    for t in tensors:
+        if t.dtype != first.dtype or t.device != first.device:
+            raise TypeError(f"{name}: all tensors must share {first.dtype} on "
+                            f"{first.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dimension must be contiguous")
+
+
+def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
+    """The forward kernel of ``csrc/flash_cross.cu`` on per-head views
+    ``[B, H, L, hd]`` of any (batch, head, row) strides: B13 without (m, l),
+    B14's forward with them (float32 ``[B, Lq, H]``).  o is in q's dtype
+    for B13 and float32 for B14."""
+    b, h, lq, hd = q.shape
+    if hd != KERNEL_HEAD_DIM:
+        raise ValueError(f"the streaming kernels are built for head_dim "
+                         f"{KERNEL_HEAD_DIM}, got {hd}")
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    err = load_kernels().lib.unirec_flash_cross_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias32 is None else bias32.data_ptr(), o.data_ptr(),
+        None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+        *strides, b, h, lq, k.shape[2], hd, dtype_code(q), sm_scale(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_cross_fwd")
+
+
+def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Streaming-softmax cross attention (B13).  q ``[B, H, Lq, hd]``, k / v
+    ``[B, H, Lkv, hd]`` (views with a contiguous head dim, such as
+    ``split_heads`` of a projection), bias ``[B, 1, 1, Lkv]`` or None.
+    Returns ``[B, H, Lq, hd]`` in q's dtype, laid out so that
+    ``merge_heads`` copies nothing.  CPU tensors take the plain version; on
+    the card it launches the kernel or raises, also when an input needs a
+    gradient (the kernel has none)."""
+    b, h, lq, hd = q.shape
+    lkv = k.shape[2]
+    if k.shape != (b, h, lkv, hd) or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return flash_cross_attention_plain(q, k, v, bias)
+    check_kernel_tensors("B13", q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_cross_attention has no gradient: a training forward goes "
+            "through ops/flash_vjp.flash_cross_attention_proj_vjp")
+    out = torch.empty(b, lq, h, hd, device=q.device,
+                      dtype=q.dtype).transpose(1, 2)
+    launch_flash_cross_fwd(q, k, v, key_bias(bias, b, lkv, q.device), out)
+    flash_cross_attention.launches += 1
+    return out
+
+
+flash_cross_attention.launches = 0
+
+
+def use_flash_cross(on_card: bool, deterministic: bool, lkv: int) -> bool:
+    """The JAX dispatch's answer: the streaming kernel serves deterministic
+    forwards (it has no gradient and no dropout) over a memory of at least
+    ``FLASH_MIN_KV`` rows, on the accelerator ("on a TPU" there, "on CUDA"
+    here)."""
+    return on_card and deterministic and lkv >= FLASH_MIN_KV
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    dropout_rate: float = 0.0,
+                    drop: Optional[DropoutStream] = None) -> torch.Tensor:
+    """B13 where ``use_flash_cross`` says so, ``attention`` otherwise.  A
+    forward is deterministic when it has no dropout stream."""
+    if use_flash_cross(q.device.type == "cuda", drop is None, k.shape[2]):
+        return flash_cross_attention(q, k, v, bias)
+    return attention(q, k, v, bias, dropout_rate, drop)

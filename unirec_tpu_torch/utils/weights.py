@@ -23,7 +23,10 @@ with).  ``item_qformer_state_dict_from_flax`` is the bridge for an Item
 Q-Former tree, a reference ``.pth`` converted by ``torch_convert`` included.
 ``qweights_from_flax`` carries a JAX ``qweights`` collection (the int8 Qwen3
 projections) across, and ``mwne_state_dict_from_flax`` a number encoder's
-parameters and running statistics.
+parameters and running statistics.  ``user_state_dict_from_flax`` maps the
+user trainer's ``{"sequence": ..., "user": ...}`` tree onto
+``models/user_qformer.UserStage``, and ``init_user_qformer`` draws that
+module's weights from a generator.
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ from unirec_tpu_torch.configs import (
     JointModelConfig,
     LoRAConfig,
     Qwen3Config,
+    UserQFormerConfig,
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
+from unirec_tpu_torch.models.user_qformer import UserStage
 
 _INDEXED = re.compile(r"^(layers|layer)_(\d+)$")
 # text-side Q-Former parameters that a reference checkpoint carries but the
@@ -138,6 +143,17 @@ def item_qformer_state_dict_from_flax(params: Mapping[str, Any]
             if not _TEXT_SIDE.match(k)}
 
 
+def user_state_dict_from_flax(params: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX ``UserQFormerTrainer.init_state`` parameter tree ``{"sequence":
+    ..., "user": ...}`` (numpy or array leaves) -> the port's ``UserStage``
+    state_dict, without text-side Q-Former entries (the query-only forward
+    never reads them)."""
+    return {k: v for k, v in flax_to_state_dict(params).items()
+            if not (k.startswith("user.")
+                    and _TEXT_SIDE.match(k[len("user."):]))}
+
+
 def mwne_state_dict_from_flax(variables: Mapping[str, Any]
                               ) -> Dict[str, torch.Tensor]:
     """JAX ``NormalizedMathematicalEncoder`` variables (``params`` and
@@ -202,6 +218,31 @@ def init_item_qformer(cfg: ItemQFormerConfig, generator: torch.Generator,
     model = ItemQFormer(cfg, device=device, dtype=dtype,
                         param_dtype=param_dtype).eval()
     _flax_init_(model, generator)
+    return model
+
+
+@torch.no_grad()
+def init_user_qformer(cfg: UserQFormerConfig, generator: torch.Generator,
+                      device=None, dtype: torch.dtype = torch.float32,
+                      param_dtype: Optional[torch.dtype] = None) -> UserStage:
+    """The user stage with the Flax initialisers' distributions: the context
+    encoders' Dense layers lecun-normal (a normal of std 1/sqrt(fan_in) /
+    0.8796, truncated at two standard deviations) with zero biases; the
+    User Q-Former as ``init_item_qformer`` (normal(1.0) query embeddings,
+    normal(0.02) dense kernels and head, ones/zeros LayerNorms, zero
+    biases).  ``param_dtype`` stores, ``dtype`` computes."""
+    model = UserStage(cfg, device=device, dtype=dtype,
+                      param_dtype=param_dtype).eval()
+    for module in model.sequence.modules():
+        if isinstance(module, torch.nn.Linear):
+            std = 1.0 / module.in_features ** 0.5 / 0.87962566103423978
+            draw = torch.empty(module.weight.shape, dtype=torch.float32,
+                               device=generator.device)
+            torch.nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
+                                        generator=generator)
+            module.weight.copy_(draw)
+            module.bias.zero_()
+    _flax_init_(model.user, generator)
     return model
 
 
