@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
 serving path (over a float32 and an int8 catalog, and with the W8A8 int8
 Qwen3 forward), the item-token sweep (bf16 and W8A8 int8), joint training,
-Item Q-Former training and User Q-Former training.
+Item Q-Former training and User Q-Former training; and the two kernels no
+path of the JAX package calls (B14p, B15) through their own entry points.
 
     python3 chip_smoke.py
 
@@ -36,8 +37,21 @@ Phases (any failed check raises; the script then exits non-zero):
    cross-attention, forward and backward) at the user stage's shape (64
    users, 64 queries over 1,600 memory rows, 16 heads of 64) and over a
    ragged 1,000-row memory, with ~15% masked keys and one user masked
-   whole, in fp32 and bf16, each repeated for identical bits, timed beside
-   ``scaled_dot_product_attention`` (the yardstick).
+   whole, and over the ragged memory in 32 heads of 32 and 8 of 128, in
+   fp32 and bf16, each repeated for identical bits, timed beside
+   ``scaled_dot_product_attention`` (the yardstick); B14p, the trainable
+   per-head cross-attention, driven through ``flash_cross_attention_vjp``
+   and ``torch.autograd.grad`` (counted launches) at the user shape in
+   per-head layout, the ragged memory and the JAX tests' shape (2 x 3 heads
+   x 16 queries over 384 keys, hd 32), fp32 and bf16: output and gradients
+   against the plain path, forward and backward kernels against their
+   plain versions, repeats, masked keys' zero gradients; B15, the packed
+   item attention, driven through ``packed_item_attention`` (counted) at
+   the sweep's self (4096 items x 16 heads, K = F = 32, hd 64) and cross
+   (F = 14) shapes, a ragged 1,001 items with ~15% missing fields and 9
+   items with none, and K = 2 (hd 32), fp32 and bf16, against its plain
+   version, repeats, items without a field against their values' mean;
+   both timed beside SDPA.
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
@@ -220,6 +234,8 @@ ITEM_BATCH, ITEM_STEPS, ITEM_CLI_USERS, PRECOMPUTE_ITEMS = 512, 10, 256, 2000
 # KERNEL_COS)
 USER_BATCH, USER_SEQ, USER_HEADS = 64, 50, 16
 USER_RAGGED = (8, 1000)
+# B13 / B14 also at the head dims of 32 and 8 heads of the same width
+FLASH_OTHER_HD = (32, 128)
 # train_cli user-qformer: histories of 20-60 items over the sweep's cache
 # (~760 sliding-window samples: 10 steps an epoch at batch 64, 2 evaluation
 # batches), a few items missing from the cache
@@ -845,108 +861,358 @@ def flash_bounds(b, lq, lkv, size) -> dict:
                              5 * prod, kind)}
 
 
+def check_flash_cross(gen, dtype, b, lkv, h, res) -> dict:
+    """B13 and B14 (forward and backward) against their plain versions at
+    one dtype, batch, memory length and head count (merged width 1024), each
+    run twice for identical bits; the fully masked user averages its keys
+    uniformly.  Returns the runs and inputs, for timing."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    hd = QF_D // h
+    where = f"{dtype} B={b} Lq=64 Lkv={lkv} hd={hd}"
+    q, k3, v3, do, bias = flash_inputs(gen, b, lkv, dtype)
+    qh, kh, vh = (pa.split_heads(t, h) for t in (q, k3, v3))
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    state = {}
+    runs = {
+        "b13": (lambda: (pa.flash_cross_attention(qh, kh, vh, bias),),
+                lambda: (pa.flash_cross_attention_plain(qh, kh, vh, bias),),
+                ("o",)),
+        "b14_fwd": (lambda: fl.flash_cross_fwd(q, k3, v3, bias32, h),
+                    lambda: fl.flash_cross_fwd_plain(q, k3, v3, bias32, h),
+                    ("o", "m", "l")),
+        "b14_bwd": (lambda: fl.flash_cross_bwd(q, k3, v3, bias32, do,
+                                               *state["ml"], state["dsum"], h),
+                    lambda: fl.flash_cross_bwd_plain(
+                        q, k3, v3, bias32, do, *state["ml"], state["dsum"],
+                        h), ("dq", "dk3", "dv3")),
+    }
+    for name, (kern, plain, outs) in runs.items():
+        got = kern()
+        torch.cuda.synchronize()
+        check_outputs(name.upper(), outs, got, plain(), where, res[name])
+        if not all(torch.equal(x, y) for x, y in zip(got, kern())):
+            raise AssertionError(f"{name.upper()} {where}: a repeat gave "
+                                 "other bits")
+        if name == "b13":  # the masked user: its keys' plain mean
+            kernel_error("B13 fully masked user", got[0][1],
+                         vh[1].float().mean(1, keepdim=True).expand(
+                             h, 64, hd), where)
+        if name == "b14_fwd":
+            state["ml"] = got[1:]
+            state["dsum"] = fl.attention_dsum(do, got[0], h).contiguous()
+    log(f"B13 / B14 {where}: the kernels repeat bit for bit")
+    return {"runs": runs, "qh": qh, "kh": kh, "vh": vh, "do": do,
+            "bias": bias}
+
+
+def check_outputs(name, outs, got, ref, where, res) -> None:
+    """Each output of a kernel against its plain version: float32 (m, l)
+    statistics to 1e-5 relative, the rest by ``kernel_error``; the largest
+    error goes to ``res["err"]``."""
+    for o, g, r in zip(outs, got, ref):
+        if o in ("m", "l"):  # float32 statistics of both
+            rel = ((g - r).abs() / r.abs().clamp_min(1e-30)).max()
+            log(f"{name} {o} {where}: max rel {rel.item():.3e} (tol 1e-5)")
+            if not rel.item() <= 1e-5:
+                raise AssertionError(f"{name} {o} {where} disagrees")
+            continue
+        res["err"] = max(res["err"], kernel_error(f"{name} {o}", g, r, where))
+
+
+def sdpa_cosine(name, lib_out, kern_out) -> None:
+    """The yardstick computes the kernel's function: min row cosine 0.999."""
+    hd = kern_out.shape[-1]
+    cos = torch.nn.functional.cosine_similarity(
+        lib_out.float().reshape(-1, hd), kern_out.float().reshape(-1, hd),
+        dim=-1).min().item()
+    log(f"{name} against scaled_dot_product_attention: min row cosine "
+        f"{cos:.6f} (tol 0.999)")
+    if not cos >= 0.999:
+        raise AssertionError(f"{name}: the yardstick computes another "
+                             "function")
+
+
+def time_runs(runs, library, bounds, res, where) -> None:
+    """Kernel (twice), plain version, bound and SDPA of each run, into
+    ``res``."""
+    for name, (kern, plain, _) in runs.items():
+        t_k = time_ms(kern, iters=20, warmup=3)
+        t_p = time_ms(plain, iters=5, warmup=1)
+        t_k2 = time_ms(kern, iters=20, warmup=3)
+        t_l = time_ms(library[name], iters=20, warmup=3)
+        b_ms, b_by = bounds[name]
+        res[name].update(ms=min(t_k, t_k2), plain_ms=t_p, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=t_l)
+        log(f"{name.upper()} time {where}: kernel {t_k:.4f} / {t_k2:.4f} ms,"
+            f" plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"scaled_dot_product_attention {t_l:.4f} ms"
+            + (" (forward + backward)" if name.endswith("_bwd") else ""))
+
+
+def sdpa_fwd_bwd(sdpa, q, k, v, mask, do):
+    """SDPA's forward + backward on copies of q, k, v that need gradients
+    (made here, outside the timed call)."""
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def run():
+        torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask), (qg, kg, vg),
+                            do)
+    return run
+
+
 def phase_flash_cross(gen) -> dict:
     """B13 and B14 (forward and backward) against their plain versions, in
     fp32 and bf16, at the user stage's batch (64 users, 1,600 memory rows)
-    and over a ragged 1,000-row memory, each run twice for identical bits;
-    the fully masked user averages its keys uniformly.  Timed in bf16 at the
-    user shape beside the plain versions, the bounds and
-    ``scaled_dot_product_attention`` (forward for B13 and B14's forward,
-    forward + backward for B14's backward)."""
+    and over a ragged 1,000-row memory in 16 heads of 64, and over the
+    ragged memory in 32 heads of 32 and 8 of 128; each run twice for
+    identical bits.  Timed in bf16 at the user shape beside the plain
+    versions, the bounds and ``scaled_dot_product_attention`` (forward for
+    B13 and B14's forward, forward + backward for B14's backward)."""
+    from unirec_tpu_torch.ops import attention as pa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
+    cases = [(dtype, b, lkv, USER_HEADS)
+             for dtype in (torch.float32, torch.bfloat16)
+             for b, lkv in ((USER_BATCH, USER_SEQ * QF_K), USER_RAGGED)]
+    cases += [(dtype, *USER_RAGGED, QF_D // hd) for hd in FLASH_OTHER_HD
+              for dtype in (torch.float32, torch.bfloat16)]
+    for dtype, b, lkv, h in cases:
+        c = check_flash_cross(gen, dtype, b, lkv, h, res)
+        if dtype == torch.bfloat16 and b == USER_BATCH:
+            mask = c["bias"].to(dtype)
+            qh, kh, vh = c["qh"], c["kh"], c["vh"]
+            sdpa_cosine("B13", sdpa(qh, kh, vh, attn_mask=mask),
+                        c["runs"]["b13"][0]()[0])
+            library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                       "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                       "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
+                                               pa.split_heads(c["do"], h))}
+            time_runs(c["runs"], library, flash_bounds(b, 64, lkv, 2), res,
+                      f"{dtype} B={b} Lq=64 Lkv={lkv}")
+        del c
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- B14p: trainable flash cross-attention over per-head tensors -------------
+
+
+def b14p_inputs(gen, b, h, lq, lkv, hd, dtype):
+    """Per-head q and dO [B, H, Lq, hd], k / v [B, H, Lkv, hd], and a
+    per-key bias [B, 1, 1, Lkv] with ~15% of the keys masked and batch row 1
+    masked whole."""
+    q, do = (torch.randn(b, h, lq, hd, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, lkv, hd, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    mask = (torch.rand(b, lkv, device="cuda", generator=gen) > 0.15).float()
+    mask[1] = 0.0
+    return q, k, v, do, ((1.0 - mask) * -1e9)[:, None, None, :]
+
+
+def phase_b14p(gen) -> dict:
+    """B14p, ``flash_cross_attention_vjp``, driven as a user calls it: every
+    case's inputs need gradients, the output goes through
+    ``torch.autograd.grad``, with the launch counts set to 0 before and read
+    after (one forward and one backward a case).  The cases: the user
+    stage's shape in per-head layout (64 users x 16 heads x 64 queries over
+    1,600 memory rows, hd 64) and a ragged 1,000-row memory (8 users), ~15%
+    masked keys and one user masked whole, and the JAX tests' shape (2 x 3
+    heads x 16 queries over 384 keys, hd 32); fp32 and bf16.  Then the
+    output and gradients against the plain path's, the kernels (forward:
+    o, m, l; backward: dq, dk, dv) against their plain versions, identical
+    bits on a repeat, exactly zero dk / dv at masked keys, the masked user's
+    uniform average; timed in bf16 at the user shape beside the plain
+    versions, the bounds and SDPA."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    h = USER_HEADS
-    res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, lkv in ((USER_BATCH, USER_SEQ * QF_K), USER_RAGGED):
-            where = f"{dtype} B={b} Lq=64 Lkv={lkv}"
-            q, k3, v3, do, bias = flash_inputs(gen, b, lkv, dtype)
-            qh, kh, vh = (pa.split_heads(t, h) for t in (q, k3, v3))
-            bias32 = pa.key_bias(bias, b, lkv, q.device)
-            dsum = None
-            runs = {
-                "b13": (lambda: (pa.flash_cross_attention(qh, kh, vh, bias),),
-                        lambda: (pa.flash_cross_attention_plain(qh, kh, vh,
-                                                                bias),),
-                        ("o",)),
-                "b14_fwd": (lambda: fl.flash_cross_fwd(q, k3, v3, bias32, h),
-                            lambda: fl.flash_cross_fwd_plain(q, k3, v3, bias32,
-                                                             h),
-                            ("o", "m", "l")),
-                "b14_bwd": (lambda: fl.flash_cross_bwd(q, k3, v3, bias32, do,
-                                                       *ml, dsum, h),
-                            lambda: fl.flash_cross_bwd_plain(
-                                q, k3, v3, bias32, do, *ml, dsum, h),
-                            ("dq", "dk3", "dv3")),
-            }
-            for name, (kern, plain, outs) in runs.items():
-                got = kern()
-                torch.cuda.synchronize()
-                ref = plain()
-                for o, g, r in zip(outs, got, ref):
-                    if o in ("m", "l"):  # float32 statistics of both
-                        rel = ((g - r).abs() / r.abs().clamp_min(1e-30)).max()
-                        log(f"{name.upper()} {o} {where}: max rel "
-                            f"{rel.item():.3e} (tol 1e-5)")
-                        if not rel.item() <= 1e-5:
-                            raise AssertionError(f"{name.upper()} {o} {where} "
-                                                 "disagrees")
-                        continue
-                    err = kernel_error(f"{name.upper()} {o}", g, r, where)
-                    res[name]["err"] = max(res[name]["err"], err)
-                if not all(torch.equal(x, y) for x, y in zip(got, kern())):
-                    raise AssertionError(f"{name.upper()} {where}: a repeat "
-                                         "gave other bits")
-                if name == "b13":  # the masked user: its keys' plain mean
-                    kernel_error("B13 fully masked user", got[0][1],
-                                 vh[1].float().mean(1, keepdim=True).expand(
-                                     h, 64, 64), where)
-                if name == "b14_fwd":
-                    ml = got[1:]
-                    dsum = fl.attention_dsum(do, got[0], h).contiguous()
-            log(f"B13 / B14 {where}: the kernels repeat bit for bit")
-            if dtype == torch.bfloat16 and b == USER_BATCH:
-                bounds = flash_bounds(b, 64, lkv, 2)
-                mask = bias.to(dtype)
-                lib_o = sdpa(qh, kh, vh, attn_mask=mask)
-                cos = torch.nn.functional.cosine_similarity(
-                    lib_o.float().reshape(-1, 64),
-                    runs["b13"][0]()[0].float().reshape(-1, 64), dim=-1)
-                log(f"B13 against scaled_dot_product_attention: min row "
-                    f"cosine {cos.min().item():.6f} (tol 0.999)")
-                if not cos.min().item() >= 0.999:
-                    raise AssertionError("B13: the yardstick computes another "
-                                         "function")
-                qg, kg, vg = (t.detach().clone().requires_grad_()
-                              for t in (qh, kh, vh))
-                doh = pa.split_heads(do, h)
+    shapes = ((USER_BATCH, USER_HEADS, 64, USER_SEQ * QF_K, 64),
+              (USER_RAGGED[0], USER_HEADS, 64, USER_RAGGED[1], 64),
+              (2, 3, 16, 384, 32))
+    cases = [(dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
+             for shape in shapes]
+    inputs = {case: b14p_inputs(gen, *case[1:], case[0]) for case in cases}
+    # the entry point's run: its launches
+    fl.flash_cross_vjp_fwd.launches = fl.flash_cross_vjp_bwd.launches = 0
+    driven = {}
+    for case in cases:
+        q, k, v, do, bias = inputs[case]
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fl.flash_cross_attention_vjp(*leaves, bias)
+        driven[case] = (out.detach(), torch.autograd.grad(out, leaves, do))
+    torch.cuda.synchronize()
+    launches = {"b14p_fwd": fl.flash_cross_vjp_fwd.launches,
+                "b14p_bwd": fl.flash_cross_vjp_bwd.launches}
+    log(f"B14p launches through flash_cross_attention_vjp: {launches} over "
+        f"{len(cases)} calls")
+    if launches != {"b14p_fwd": len(cases), "b14p_bwd": len(cases)}:
+        raise AssertionError(f"B14p launches {launches}")
+    res = {n: {"err": 0.0} for n in ("b14p_fwd", "b14p_bwd")}
+    for case in cases:
+        dtype, b, h, lq, lkv, hd = case
+        where = f"{dtype} B={b} H={h} Lq={lq} Lkv={lkv} hd={hd}"
+        q, k, v, do, bias = inputs[case]
+        bias32 = pa.key_bias(bias, b, lkv, q.device)
+        # the entry point against the plain path
+        o32, m, l = fl.flash_cross_vjp_fwd_plain(q, k, v, bias32)
+        dsum = (do.float() * o32).sum(-1).transpose(1, 2).contiguous()
+        plain_grads = fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l,
+                                                   dsum)
+        out, grads = driven.pop(case)
+        res["b14p_fwd"]["err"] = max(res["b14p_fwd"]["err"], kernel_error(
+            "B14P out (autograd)", out, o32.to(dtype), where))
+        for name, g, r in zip("qkv", grads, plain_grads):
+            res["b14p_bwd"]["err"] = max(res["b14p_bwd"]["err"], kernel_error(
+                f"B14P d{name} (autograd)", g, r, where))
+        # the kernels against their plain versions, on the same (m, l, dsum)
+        state = {}
+        runs = {
+            "b14p_fwd": (lambda: fl.flash_cross_vjp_fwd(q, k, v, bias32),
+                         lambda: fl.flash_cross_vjp_fwd_plain(q, k, v,
+                                                              bias32),
+                         ("o", "m", "l")),
+            "b14p_bwd": (lambda: fl.flash_cross_vjp_bwd(
+                             q, k, v, bias32, do, *state["mld"]),
+                         lambda: fl.flash_cross_vjp_bwd_plain(
+                             q, k, v, bias32, do, *state["mld"]),
+                         ("dq", "dk", "dv")),
+        }
+        for name, (kern, plain, outs) in runs.items():
+            got = kern()
+            torch.cuda.synchronize()
+            check_outputs(name.upper(), outs, got, plain(), where, res[name])
+            if not all(torch.equal(x, y) for x, y in zip(got, kern())):
+                raise AssertionError(f"{name.upper()} {where}: a repeat gave "
+                                     "other bits")
+            if name == "b14p_fwd":
+                kernel_error("B14P fully masked user", got[0][1],
+                             v[1].float().mean(1, keepdim=True).expand(
+                                 h, lq, hd), where)
+                state["mld"] = (got[1], got[2], (do.float() * got[0]).sum(
+                    -1).transpose(1, 2).contiguous())
+            else:  # masked keys of users with a valid key: exactly zero
+                masked = bias32 != 0
+                masked[1] = False
+                if not all(bool((g.transpose(1, 2)[masked] == 0).all())
+                           for g in got[1:]):
+                    raise AssertionError(f"B14P {where}: masked keys got a "
+                                         "gradient")
+        log(f"B14p {where}: the kernels repeat bit for bit, masked keys get "
+            "exactly zero dk / dv")
+        if dtype == torch.bfloat16 and b == USER_BATCH:
+            mask = bias.to(dtype)
+            sdpa_cosine("B14P", sdpa(q, k, v, attn_mask=mask),
+                        runs["b14p_fwd"][0]()[0])
+            library = {"b14p_fwd": lambda: sdpa(q, k, v, attn_mask=mask),
+                       "b14p_bwd": sdpa_fwd_bwd(sdpa, q, k, v, mask, do)}
+            bounds = flash_bounds(b, lq, lkv, 2)
+            time_runs(runs, library, {"b14p_fwd": bounds["b14_fwd"],
+                                      "b14p_bwd": bounds["b14_bwd"]}, res,
+                      where)
+        del runs, state
+        torch.cuda.empty_cache()
+    for name in res:
+        res[name]["launches"] = launches[name]
+    return res
 
-                def sdpa_fwd_bwd():
-                    torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask),
-                                        (qg, kg, vg), doh)
 
-                library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
-                           "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
-                           "b14_bwd": sdpa_fwd_bwd}
-                for name, (kern, plain, _) in runs.items():
-                    t_k = time_ms(kern, iters=20, warmup=3)
-                    t_p = time_ms(plain, iters=5, warmup=1)
-                    t_k2 = time_ms(kern, iters=20, warmup=3)
-                    t_l = time_ms(library[name], iters=20, warmup=3)
-                    b_ms, b_by = bounds[name]
-                    res[name].update(ms=min(t_k, t_k2), plain_ms=t_p,
-                                     bound_ms=b_ms, bound_by=b_by,
-                                     library_ms=t_l)
-                    log(f"{name.upper()} time {where}: kernel {t_k:.4f} / "
-                        f"{t_k2:.4f} ms, plain {t_p:.4f} ms, bound "
-                        f"{b_ms:.4f} ms ({b_by}), scaled_dot_product_attention"
-                        f" {t_l:.4f} ms"
-                        + (" (forward + backward)" if name == "b14_bwd"
-                           else ""))
-            del q, k3, v3, do, bias, qh, kh, vh, runs
-            torch.cuda.empty_cache()
+# -- B15: packed item attention ----------------------------------------------
+
+
+def b15_bound(items, h, n_q, n_kv, hd, size):
+    """B15's least time: q, k, v read and o written once in the working
+    type, the float32 key bias; the score and value products."""
+    nbytes = size * items * h * hd * (2 * n_q + 2 * n_kv) + 4 * items * n_kv
+    ops = 2 * 2 * items * h * n_q * n_kv * hd
+    return bound(nbytes, ops, "bf16" if size == 2 else "fp32")
+
+
+def b15_inputs(gen, items, n_q, n_kv, hd, dtype, missing=0.0):
+    """q [items, 16, K, hd], k / v [items, 16, F, hd] as per-head views of
+    merged [items, L, 16 * hd] tensors (the Q-Former's layout), and a
+    per-key bias with ``missing`` of the fields masked and every 125th item
+    without a field (none when ``missing`` is 0)."""
+    def rand(n):
+        return (torch.randn(items, n, QF_HEADS, hd, device="cuda",
+                            generator=gen).to(dtype).transpose(1, 2))
+
+    mask = (torch.rand(items, n_kv, device="cuda", generator=gen)
+            >= missing).float()
+    if missing:
+        mask[::125] = 0.0
+    return (rand(n_q), rand(n_kv), rand(n_kv),
+            ((1.0 - mask) * -1e9)[:, None, None, :], mask)
+
+
+def phase_b15(gen) -> dict:
+    """B15, ``packed_item_attention``, with the launch count set to 0 before
+    its cases and read after (one launch a case): the item sweep's self
+    shape (4096 items x 16 heads, K = F = 32, hd 64) and cross shape (F =
+    14), a ragged 1,001 items over 14 fields with ~15% missing and 9 items
+    without any, and K = 2 (1,001 items, F = 14, hd 32); fp32 and bf16.
+    Each against the plain version, repeated for identical bits, the items
+    without a field against their own values' mean; timed in bf16 at the
+    two sweep shapes beside the plain version, the bound and SDPA."""
+    from unirec_tpu_torch.ops import packed_attention as pp
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = ((SWEEP_BATCH, QF_K, QF_K, 64, 0.0),
+              (SWEEP_BATCH, QF_K, QF_F, 64, 0.0),
+              (BLOCK_ITEMS[1], QF_K, QF_F, 64, 0.15),
+              (BLOCK_ITEMS[1], 2, QF_F, 32, 0.15))
+    cases = [(dtype, shape) for dtype in (torch.float32, torch.bfloat16)
+             for shape in shapes]
+    inputs = {case: b15_inputs(gen, *case[1][:4], case[0], case[1][4])
+              for case in cases}
+    # the entry point's run: its launches
+    pp.packed_item_attention.launches = 0
+    outs = {case: pp.packed_item_attention(*inputs[case][:4])
+            for case in cases}
+    torch.cuda.synchronize()
+    n = pp.packed_item_attention.launches
+    log(f"B15 launches through packed_item_attention: {n} over {len(cases)} "
+        "calls")
+    if n != len(cases):
+        raise AssertionError(f"B15 launches {n}")
+    res = {"err": 0.0, "launches": n, "timed": []}
+    for case in cases:
+        dtype, shape = case
+        items, n_q, n_kv, hd, missing = shape
+        q, k, v, bias, mask = inputs.pop(case)
+        out = outs.pop(case)
+        where = (f"{dtype} {items} items x {QF_HEADS} heads, K={n_q} "
+                 f"F={n_kv} hd={hd}, {int((mask.sum(1) == 0).sum())} "
+                 "without fields")
+        res["err"] = max(res["err"], kernel_error(
+            "B15", out, pp.packed_item_attention_plain(q, k, v, bias),
+            where))
+        if not torch.equal(out, pp.packed_item_attention(q, k, v, bias)):
+            raise AssertionError(f"B15 {where}: a repeat gave other bits")
+        none = mask.sum(1) == 0
+        if none.any():
+            kernel_error("B15 items without fields", out[none],
+                         v[none].float().mean(2, keepdim=True).expand(
+                             -1, -1, n_q, -1), where)
+        log(f"B15 {where}: repeats bit for bit")
+        if dtype == torch.bfloat16 and not missing:
+            mask_f = bias.to(dtype)
+            sdpa_cosine("B15", sdpa(q, k, v, attn_mask=mask_f), out)
+            timed = {"b15": {"F": n_kv}}
+            time_runs(
+                {"b15": (lambda: pp.packed_item_attention(q, k, v, bias),
+                         lambda: pp.packed_item_attention_plain(q, k, v, bias),
+                         None)},
+                {"b15": lambda: sdpa(q, k, v, attn_mask=mask_f)},
+                {"b15": b15_bound(items, QF_HEADS, n_q, n_kv, hd, 2)}, timed,
+                where)
+            res["timed"].append(timed["b15"])
+        del q, k, v, bias, mask, out
+        torch.cuda.empty_cache()
     return res
 
 
@@ -3095,6 +3361,8 @@ def main() -> int:
     blocks.update(phase_blocks(gen, "int8"))
     b12 = phase_b12(gen)
     flash = phase_flash_cross(gen)
+    b14p = phase_b14p(gen)
+    b15 = phase_b15(gen)
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
     phase_entry_point(smi, served.pop("stack")[0])
@@ -3186,6 +3454,18 @@ def main() -> int:
             ("b13", "flash_cross_attention", "attention.py:163"),
             ("b14_fwd", "flash_cross_proj_fwd", "flash_vjp.py:362"),
             ("b14_bwd", "flash_cross_proj_bwd", "flash_vjp.py:426"))
+    ] + [
+        row(name, "flash_cross.cu", replaces, b14p[key]["launches"],
+            b14p[key]["err"], b14p[key]["ms"], b14p[key]["plain_ms"],
+            b14p[key]["bound_ms"], b14p[key]["bound_by"],
+            b14p[key]["library_ms"])
+        for key, name, replaces in (
+            ("b14p_fwd", "flash_cross_attention_vjp_fwd", "flash_vjp.py:51"),
+            ("b14p_bwd", "flash_cross_attention_vjp_bwd", "flash_vjp.py:113"))
+    ] + [
+        row("packed_item_attention", "packed_attention.cu",
+            "packed_attention.py:39", b15["launches"], b15["err"],
+            **{k: v for k, v in b15["timed"][0].items() if k != "F"})
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -44,6 +44,7 @@ EXPECTED_MODULES = {
     "unirec_tpu_torch.ops.flash_vjp", "unirec_tpu_torch.models.user_sequence",
     "unirec_tpu_torch.models.user_qformer",
     "unirec_tpu_torch.train.user_qformer", "unirec_tpu_torch.eval.user_eval",
+    "unirec_tpu_torch.ops.packed_attention",
 }
 
 

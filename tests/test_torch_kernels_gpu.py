@@ -655,10 +655,178 @@ def test_flash_cross_wrappers_refuse_what_the_kernels_do_not_take(hopper):
 
     q, k3, v3, _, bias = _flash_inputs(hopper, 2, 8, 100, torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        fl.flash_cross_fwd(q, k3, v3, None, 8)  # head dim 128
+        fl.flash_cross_fwd(q, k3, v3, None, 4)  # head dim 256
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.flash_cross_attention(*(pa.split_heads(t, 4) for t in (q, k3, v3)))
+    with pytest.raises(ValueError, match="head_dim"):
+        fl.flash_cross_attention_vjp(
+            *(pa.split_heads(t, 4).detach() for t in (q, k3, v3)))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fl.flash_cross_fwd(q.half(), k3.half(), v3.half(), None, 16)
     qh = pa.split_heads(q, 16).requires_grad_()
     with pytest.raises(RuntimeError, match="no gradient"):
         pa.flash_cross_attention(qh, pa.split_heads(k3, 16),
                                  pa.split_heads(v3, 16), bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 128])
+def test_b13_b14_take_other_head_dims(hopper, dtype, hd):
+    """The streaming kernels at 32 and 16 heads of a width of 1024 (hd 32
+    and 128; hd 64 above), over a ragged memory."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    h, b, lkv = 1024 // hd, 4, 1000
+    q, k3, v3, do, bias = _flash_inputs(hopper, b, 64, lkv, dtype)
+    qh, kh, vh = (pa.split_heads(t, h) for t in (q, k3, v3))
+    out = pa.flash_cross_attention(qh, kh, vh, bias)
+    torch.cuda.synchronize()
+    _check_kernel("B13", out, pa.flash_cross_attention_plain(qh, kh, vh, bias))
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    o, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, h)
+    torch.cuda.synchronize()
+    ro, rm, rl = fl.flash_cross_fwd_plain(q, k3, v3, bias32, h)
+    _check_kernel("B14 o", o, ro)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    dsum = fl.attention_dsum(do, o, h)
+    got = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, h)
+    torch.cuda.synchronize()
+    ref = fl.flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, h)
+    for name, g, r in zip(("dq", "dk3", "dv3"), got, ref):
+        _check_kernel(f"B14 {name}", g, r)
+
+
+# -- B14p: trainable flash cross-attention over per-head tensors --------------
+
+
+def _b14p_inputs(gen, b, h, lq, lkv, hd, dtype):
+    """Per-head q, dO [B, H, Lq, hd], k / v [B, H, Lkv, hd], and a per-key
+    bias with ~15% masked keys and batch row 1 masked whole."""
+    q, do = (torch.randn(b, h, lq, hd, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, lkv, hd, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    mask = (torch.rand(b, lkv, device="cuda", generator=gen) > 0.15).float()
+    mask[1] = 0.0
+    return q, k, v, do, ((1.0 - mask) * -1e9)[:, None, None, :]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lkv,hd", [(8, 16, 64, 1600, 64),
+                                           (4, 16, 64, 1000, 64),
+                                           (2, 3, 16, 384, 32),
+                                           (2, 2, 5, 200, 32)],
+                         ids=["user_shape", "ragged", "jax_test", "odd"])
+def test_b14p_fwd_bwd_match_plain(hopper, dtype, b, h, lq, lkv, hd):
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    q, k, v, do, bias = _b14p_inputs(hopper, b, h, lq, lkv, hd, dtype)
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    before = (fl.flash_cross_vjp_fwd.launches, fl.flash_cross_vjp_bwd.launches)
+    o, m, l = fl.flash_cross_vjp_fwd(q, k, v, bias32)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    ro, rm, rl = fl.flash_cross_vjp_fwd_plain(q, k, v, bias32)
+    _check_kernel("B14p o", o, ro)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    dsum = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
+    got = fl.flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum)
+    torch.cuda.synchronize()
+    assert (fl.flash_cross_vjp_fwd.launches, fl.flash_cross_vjp_bwd.launches
+            ) == (before[0] + 1, before[1] + 1)
+    ref = fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l, dsum)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _check_kernel(f"B14p {name}", g, r)
+    again = fl.flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(torch.equal(a, c) for a, c in
+               zip((o, m, l), fl.flash_cross_vjp_fwd(q, k, v, bias32)))
+    # masked keys of a user with a valid key: exactly zero dk and dv (the
+    # fully masked user's keys share its probability uniformly)
+    masked = bias32 != 0
+    masked[1] = False
+    for g in got[1:]:
+        assert (g.transpose(1, 2)[masked] == 0).all()
+    # the fully masked user averages its keys
+    torch.testing.assert_close(o[1], v[1].float().mean(1, keepdim=True)
+                               .expand(h, lq, hd), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b14p_autograd_gradients_match_cpu(hopper, dtype):
+    """flash_cross_attention_vjp on the card against the same Function on
+    the CPU (the plain versions): the output and the three gradients."""
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    q, k, v, do, bias = _b14p_inputs(hopper, 4, 16, 64, 1000, 64, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fl.flash_cross_attention_vjp(*leaves, bias)
+    grads = torch.autograd.grad(out, leaves, do)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    ref = fl.flash_cross_attention_vjp(*cpu, bias.cpu())
+    ref_grads = torch.autograd.grad(ref, cpu, do.cpu())
+    _check_kernel("out", out.detach(), ref.detach().cuda())
+    for name, g, r in zip("qkv", grads, ref_grads):
+        _check_kernel(f"grad {name}", g, r.cuda())
+
+
+# -- B15: packed item attention ---------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_kv,hd", [(32, 32, 64), (32, 14, 64),
+                                         (2, 14, 32), (2, 32, 64),
+                                         (32, 14, 32)])
+def test_b15_matches_plain(hopper, dtype, n_q, n_kv, hd):
+    """1001 items (a ragged last block), 16 heads, read through per-head
+    views of merged [items, L, 16 * hd] tensors; ~15% missing fields and 9
+    items with none, which average their own values."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import packed_attention as pp
+
+    items, h = 1001, 16
+
+    def rand(n):
+        return pa.split_heads(torch.randn(items, n, h * hd, device="cuda",
+                                          generator=hopper).to(dtype), h)
+
+    q, k, v = rand(n_q), rand(n_kv), rand(n_kv)
+    mask = (torch.rand(items, n_kv, device="cuda", generator=hopper)
+            > 0.15).float()
+    mask[::125] = 0.0
+    bias = ((1.0 - mask) * -1e9)[:, None, None, :]
+    before = pp.packed_item_attention.launches
+    out = pp.packed_item_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert pp.packed_item_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _check_kernel("B15", out, pp.packed_item_attention_plain(q, k, v, bias))
+    assert torch.equal(out, pp.packed_item_attention(q, k, v, bias))
+    none = mask.sum(1) == 0
+    torch.testing.assert_close(out[none].float(), v[none].float().mean(
+        2, keepdim=True).expand(-1, -1, n_q, -1), atol=2e-2, rtol=0)
+    _check_kernel("B15 no bias", pp.packed_item_attention(q, k, v),
+                  pp.packed_item_attention_plain(q, k, v))
+
+
+def test_b15_refuses_what_the_kernel_does_not_take(hopper):
+    from unirec_tpu_torch.ops import packed_attention as pp
+
+    q = torch.randn(4, 2, 32, 64, device="cuda", generator=hopper)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pp.packed_item_attention(q.half(), q.half(), q.half())
+    wide = torch.randn(4, 2, 32, 256, device="cuda", generator=hopper)
+    with pytest.raises(ValueError, match="head_dim"):
+        pp.packed_item_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="divide 128"):
+        pp.packed_item_attention(q[:, :, :24], q, q)
+    # rows read with 16-byte loads: a row that starts off a 16-byte boundary
+    # is refused, not read wrong
+    odd = torch.randn(4 * 2 * 32 * 64 + 1, device="cuda")[1:].view(
+        4, 2, 32, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        pp.packed_item_attention(odd, q, q)

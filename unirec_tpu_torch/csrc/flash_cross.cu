@@ -1,6 +1,7 @@
-// Streaming-softmax cross-attention for Hopper (sm_90a): kernels B13 and B14
-// (forward and backward), the user Q-Former's attention of its 64 query
-// tokens over the flattened history memory (seq * K rows, 1,600 at seq 50).
+// Streaming-softmax cross-attention for Hopper (sm_90a): kernels B13, B14
+// and B14p (forward and backward), the user Q-Former's attention of its 64
+// query tokens over the flattened history memory (seq * K rows, 1,600 at
+// seq 50).
 //
 // Replaces the Pallas TPU kernels
 //   B13      unirec_tpu/ops/attention.py::flash_cross_attention (_flash_kernel,
@@ -11,8 +12,14 @@
 //            ranges, keeping the per-(batch, row, head) max m and sum l;
 //   B14 bwd  unirec_tpu/ops/flash_vjp.py::_mh_bwd (_mh_bwd_kernel, call :595):
 //            dq, dk and dv from (m, l), flash-2 recompute, the backward of
-//            flash_cross_attention_proj_vjp.
-// Their arithmetic, as the JAX kernels do it:
+//            flash_cross_attention_proj_vjp;
+//   B14p fwd unirec_tpu/ops/flash_vjp.py::_fwd (_fwd_kernel :51, call :236)
+//            and bwd _bwd (_bwd_kernel :113, call :276): the same pair over
+//            per-head [B, H, L, hd] tensors, flash_cross_attention_vjp.
+// The TPU needed two kernel pairs only for its lane layout (heads as lane
+// column ranges against heads as a grid axis); here every kernel takes
+// (batch, head, row) strides, so one forward and one backward serve all
+// three.  Their arithmetic, as the JAX kernels do it:
 //   s  = (q . k) * scale + bias       two fp32 roundings (no contraction)
 //   m  = max(-1e9, max_j s),  l = sum_j exp(s - m)   (m starts at NEG_INF)
 //   o  = (sum_j exp(s - m) v_j) / (l == 0 ? 1 : l)
@@ -36,16 +43,17 @@
 // whole history is missing from the cache) the real keys then share the
 // probability uniformly and a pad at -1e9 would take a share too.
 //
-// Layouts (elements; the head dimension is always contiguous):
-//   forward  q [B, H, Lq, HD], k / v [B, H, Lkv, HD] and o [B, H, Lq, HD] by
-//            (batch, head, row) strides, so B13 reads the per-head views of
-//            merged [B, L, D] projections without a copy and B14 passes the
-//            merged layout itself; bias [B, Lkv] float or null; m / l
-//            [B, Lq, H] float (B14 only).
-//   backward merged q, dO, dq [B, Lq, H * HD], k, v, dk, dv [B, Lkv, H * HD];
-//            m, l, dsum [B, Lq, H] float.
-// Inputs and outputs are float or bf16 (one type per call, except B14's
-// forward o, which is float); arithmetic and accumulators are fp32.
+// Layouts (elements; the head dimension is always contiguous and every row
+// starts on a 16-byte boundary): q, dO, o, dq
+// [B, H, Lq, HD] and k, v, dk, dv [B, H, Lkv, HD], each by its own (batch,
+// head, row) strides, so B13 reads the per-head views of merged [B, L, D]
+// projections without a copy, B14 passes the merged layout itself and B14p
+// plain per-head tensors; bias [B, Lkv] float or null; m, l, dsum [B, Lq, H]
+// float (B14, B14p).  The head dimension HD is a template parameter: every
+// multiple of 16 up to 128 (any head count a Q-Former width of 1024 splits
+// into, and more).  Inputs and outputs are float or bf16 (one type per
+// call, except the forward's o of B14 and B14p, which is float);
+// arithmetic and accumulators are fp32.
 //
 // What bounds them: at the user stage's training shape (B = 64, Lq = 64,
 // Lkv = 1,600, 16 heads of 64, bf16) the forward reads ~420 MB of q, k and v
@@ -63,7 +71,9 @@
 //            tiles (one at Lq = 64), dk and dv accumulate in registers.
 // Each output has one owner block and no atomics: the bits are the same from
 // run to run.  16 x 16 threads; a thread owns a 4 x 4 block of a 64 x 64
-// score tile and a 4 x (HD / 16) block of a 64 x HD output.
+// score tile and a 4 x (HD / 16) block of a 64 x HD output.  Shared memory
+// grows with HD: at HD = 128 the dk / dv kernel takes 166,400 bytes of the
+// 232,448 a block may have, set per instance.
 //
 // Every C entry launches on the caller's stream, allocates nothing, and
 // returns the first CUDA error (0 = success).
@@ -75,27 +85,38 @@
 
 #include <type_traits>
 
+#include "head_dim.cuh"
+
 namespace {
 
-constexpr int HD = 64;            // head_dim this build supports
 constexpr int BT = 64;            // rows of a q tile and keys of a kv tile
 constexpr int THREADS = 256;      // 16 x 16 threads
-constexpr int CJ = HD / 16;       // output columns a thread owns
-constexpr int RS = HD + 1;        // padded row stride of a [64][HD] tile
 constexpr int PS = BT + 1;        // padded row stride of a [64][64] tile
 constexpr float NEG_INF = -1e9f;  // the running max's start (ops/attention.py)
-// forward: Q, K, V tiles, the p tile, the kv tile's bias
-constexpr int FWD_SMEM_FLOATS = 3 * BT * RS + BT * PS + BT;
-// dq kernel: Q, dO, K, V tiles, the ds tile, m / l / dsum / bias
-constexpr int DQ_SMEM_FLOATS = 4 * BT * RS + BT * PS + 4 * BT;
-// dkv kernel: K, V, Q, dO tiles, the p^T and ds^T tiles, m / l / dsum / bias
-constexpr int DKV_SMEM_FLOATS = 4 * BT * RS + 2 * BT * PS + 4 * BT;
-constexpr size_t FWD_SMEM_BYTES = FWD_SMEM_FLOATS * sizeof(float);
-constexpr size_t DQ_SMEM_BYTES = DQ_SMEM_FLOATS * sizeof(float);
-constexpr size_t DKV_SMEM_BYTES = DKV_SMEM_FLOATS * sizeof(float);
+
+// the shared-memory layout of each kernel, per head dimension
+template <int HD>
+struct Tile {
+  static constexpr int CJ = HD / 16;  // output columns a thread owns
+  static constexpr int RS = HD + 1;   // padded row stride of a [64][HD] tile
+  // forward: Q, K, V tiles, the p tile, the kv tile's bias
+  static constexpr size_t FWD_BYTES = (3 * BT * RS + BT * PS + BT) * sizeof(float);
+  // dq kernel: Q, dO, K, V tiles, the ds tile, m / l / dsum / bias
+  static constexpr size_t DQ_BYTES = (4 * BT * RS + BT * PS + 4 * BT) * sizeof(float);
+  // dkv kernel: K, V, Q, dO tiles, the p^T and ds^T tiles, m / l / dsum / bias
+  static constexpr size_t DKV_BYTES =
+      (4 * BT * RS + 2 * BT * PS + 4 * BT) * sizeof(float);
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "head_dim");
+  static_assert(DKV_BYTES <= 232448, "shared memory of one block");
+};
 
 struct Strides {
   long long b, h, r;  // elements between batches, heads and rows
+};
+
+// the backward's seven tensors
+struct BwdStrides {
+  Strides q, k, v, dout, dq, dk, dv;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -108,15 +129,29 @@ __device__ __forceinline__ float score(float dot, float scale, float bias) {
   return __fadd_rn(__fmul_rn(dot, scale), bias);
 }
 
-// rows [r0, r0 + 64) of one head (row stride rs) -> smem [64][RS] floats;
-// rows past L read as zero
-template <typename T>
+// rows [r0, r0 + 64) of one head (row stride rs) -> smem [64][HD + 1] floats;
+// rows past L read as zero.  16-byte loads (8 bf16 or 4 floats a thread):
+// the tile loads wait on device memory with nothing to overlap them, so the
+// fewer load instructions the better.  Rows start on 16-byte boundaries
+// (the wrappers check: ops/attention.check_kernel_tensors).
+template <int HD, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, long long rs, int r0,
                                           int L, int tid) {
-  for (int e = tid; e < BT * HD; e += THREADS) {
-    const int r = e / HD, d = e % HD;
+  constexpr int V = 16 / sizeof(T);  // elements of one load
+  constexpr int VPR = HD / V;        // loads per row
+  for (int e = tid; e < BT * VPR; e += THREADS) {
+    const int r = e / VPR, d = (e % VPR) * V;
     const int row = r0 + r;
-    dst[r * RS + d] = row < L ? to_f(src[(long long)row * rs + d]) : 0.f;
+    float* out = dst + r * Tile<HD>::RS + d;
+    if (row < L) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + (long long)row * rs + d);
+      const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[i] = to_f(x[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[i] = 0.f;
+    }
   }
 }
 
@@ -136,13 +171,14 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, bool STATS>
 using OutT = typename std::conditional<STATS, float, T>::type;
 
-template <typename T, bool STATS>
+template <int HD, typename T, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 flash_cross_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const float* __restrict__ bias,
                        OutT<T, STATS>* __restrict__ o, float* __restrict__ m_out,
                        float* __restrict__ l_out, Strides qs, Strides ks, Strides vs,
                        Strides os, int Lq, int Lkv, int H, float scale) {
+  constexpr int CJ = Tile<HD>::CJ, RS = Tile<HD>::RS;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BT][RS]
   float* Ks = Qs + BT * RS;      // [BT][RS]
@@ -161,7 +197,7 @@ flash_cross_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * vs.b + h * vs.h;
   const float* biasb = bias ? bias + (long long)b * Lkv : nullptr;
 
-  load_tile(Qs, qb, qs.r, q0, Lq, tid);
+  load_tile<HD>(Qs, qb, qs.r, q0, Lq, tid);
 
   float m_run[4], l_run[4], acc[4][CJ];
 #pragma unroll
@@ -176,8 +212,8 @@ flash_cross_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // the previous tile's K / V / P reads are done
-    load_tile(Ks, kb, ks.r, k0, Lkv, tid);
-    load_tile(Vs, vb, vs.r, k0, Lkv, tid);
+    load_tile<HD>(Ks, kb, ks.r, k0, Lkv, tid);
+    load_tile<HD>(Vs, vb, vs.r, k0, Lkv, tid);
     if (tid < BT) {
       const int key = k0 + tid;
       bs[tid] = (key < Lkv && biasb) ? biasb[key] : 0.f;
@@ -261,14 +297,15 @@ flash_cross_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_cross_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const float* __restrict__ bias,
                           const T* __restrict__ dout, const float* __restrict__ m_in,
                           const float* __restrict__ l_in,
-                          const float* __restrict__ dsum_in, T* __restrict__ dq, int Lq,
-                          int Lkv, int H, float scale) {
+                          const float* __restrict__ dsum_in, T* __restrict__ dq,
+                          BwdStrides st, int Lq, int Lkv, int H, float scale) {
+  constexpr int CJ = Tile<HD>::CJ, RS = Tile<HD>::RS;
   extern __shared__ float smem[];
   float* Qs = smem;                // [BT][RS]
   float* dOs = Qs + BT * RS;       // [BT][RS]
@@ -286,15 +323,14 @@ flash_cross_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid >> 4;          // rows ty*4 .. ty*4+3
   const int tx = tid & 15;          // score cols tx + 16j, output cols tx + 16j
-  const long long D = (long long)H * HD;
-  const T* qb = q + (long long)b * Lq * D + h * HD;
-  const T* dob = dout + (long long)b * Lq * D + h * HD;
-  const T* kb = k + (long long)b * Lkv * D + h * HD;
-  const T* vb = v + (long long)b * Lkv * D + h * HD;
+  const T* qb = q + b * st.q.b + h * st.q.h;
+  const T* dob = dout + b * st.dout.b + h * st.dout.h;
+  const T* kb = k + b * st.k.b + h * st.k.h;
+  const T* vb = v + b * st.v.b + h * st.v.h;
   const float* biasb = bias ? bias + (long long)b * Lkv : nullptr;
 
-  load_tile(Qs, qb, D, q0, Lq, tid);
-  load_tile(dOs, dob, D, q0, Lq, tid);
+  load_tile<HD>(Qs, qb, st.q.r, q0, Lq, tid);
+  load_tile<HD>(dOs, dob, st.dout.r, q0, Lq, tid);
   if (tid < BT) {
     const int row = q0 + tid;
     const size_t r = ((size_t)b * Lq + row) * H + h;
@@ -314,8 +350,8 @@ flash_cross_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // the previous tile's K / ds reads are done
-    load_tile(Ks, kb, D, k0, Lkv, tid);
-    load_tile(Vs, vb, D, k0, Lkv, tid);
+    load_tile<HD>(Ks, kb, st.k.r, k0, Lkv, tid);
+    load_tile<HD>(Vs, vb, st.v.r, k0, Lkv, tid);
     if (tid < BT) {
       const int key = k0 + tid;
       bs[tid] = (key < Lkv && biasb) ? biasb[key] : 0.f;
@@ -379,24 +415,26 @@ flash_cross_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + (long long)b * Lq * D + h * HD;
+  T* dqb = dq + b * st.dq.b + h * st.dq.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= Lq) continue;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) store(dqb + (long long)row * D + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < CJ; ++j) store(dqb + row * st.dq.r + tx + 16 * j, acc[i][j]);
   }
 }
 
-template <typename T>
+template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_cross_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const float* __restrict__ bias,
                            const T* __restrict__ dout, const float* __restrict__ m_in,
                            const float* __restrict__ l_in,
                            const float* __restrict__ dsum_in, T* __restrict__ dk,
-                           T* __restrict__ dv, int Lq, int Lkv, int H, float scale) {
+                           T* __restrict__ dv, BwdStrides st, int Lq, int Lkv, int H,
+                           float scale) {
+  constexpr int CJ = Tile<HD>::CJ, RS = Tile<HD>::RS;
   extern __shared__ float smem[];
   float* Ks = smem;                // [BT][RS]
   float* Vs = Ks + BT * RS;        // [BT][RS]
@@ -415,15 +453,14 @@ flash_cross_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid >> 4;          // keys ty*4 .. ty*4+3
   const int tx = tid & 15;          // score rows tx + 16j, output cols tx + 16j
-  const long long D = (long long)H * HD;
-  const T* kb = k + (long long)b * Lkv * D + h * HD;
-  const T* vb = v + (long long)b * Lkv * D + h * HD;
-  const T* qb = q + (long long)b * Lq * D + h * HD;
-  const T* dob = dout + (long long)b * Lq * D + h * HD;
+  const T* kb = k + b * st.k.b + h * st.k.h;
+  const T* vb = v + b * st.v.b + h * st.v.h;
+  const T* qb = q + b * st.q.b + h * st.q.h;
+  const T* dob = dout + b * st.dout.b + h * st.dout.h;
   const float* biasb = bias ? bias + (long long)b * Lkv : nullptr;
 
-  load_tile(Ks, kb, D, k0, Lkv, tid);
-  load_tile(Vs, vb, D, k0, Lkv, tid);
+  load_tile<HD>(Ks, kb, st.k.r, k0, Lkv, tid);
+  load_tile<HD>(Vs, vb, st.v.r, k0, Lkv, tid);
   if (tid < BT) {
     const int key = k0 + tid;
     bs[tid] = (key < Lkv && biasb) ? biasb[key] : 0.f;
@@ -439,8 +476,8 @@ flash_cross_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = 0; qt < n_q; ++qt) {
     const int q0 = qt * BT;
     __syncthreads();  // the previous tile's Q / dO / p^T / ds^T reads are done
-    load_tile(Qs, qb, D, q0, Lq, tid);
-    load_tile(dOs, dob, D, q0, Lq, tid);
+    load_tile<HD>(Qs, qb, st.q.r, q0, Lq, tid);
+    load_tile<HD>(dOs, dob, st.dout.r, q0, Lq, tid);
     if (tid < BT) {
       const int row = q0 + tid;
       const size_t r = ((size_t)b * Lq + row) * H + h;
@@ -518,76 +555,76 @@ flash_cross_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + (long long)b * Lkv * D + h * HD;
-  T* dvb = dv + (long long)b * Lkv * D + h * HD;
+  T* dkb = dk + b * st.dk.b + h * st.dk.h;
+  T* dvb = dv + b * st.dv.b + h * st.dv.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
     if (key >= Lkv) continue;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
-      store(dkb + (long long)key * D + tx + 16 * j, acc_k[i][j]);
-      store(dvb + (long long)key * D + tx + 16 * j, acc_v[i][j]);
+      store(dkb + key * st.dk.r + tx + 16 * j, acc_k[i][j]);
+      store(dvb + key * st.dv.r + tx + 16 * j, acc_v[i][j]);
     }
   }
 }
 
-template <typename T, bool STATS>
+template <int HD, typename T, bool STATS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                        void* o, float* m, float* l, Strides qs, Strides ks, Strides vs,
                        Strides os, int B, int H, int Lq, int Lkv, float scale,
                        cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_cross_fwd_kernel<T, STATS>,
+  constexpr size_t smem = Tile<HD>::FWD_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_cross_fwd_kernel<HD, T, STATS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FWD_SMEM_BYTES);
+                                         (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + BT - 1) / BT, H, B);
-  flash_cross_fwd_kernel<T, STATS><<<grid, THREADS, FWD_SMEM_BYTES, stream>>>(
+  flash_cross_fwd_kernel<HD, T, STATS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       static_cast<OutT<T, STATS>*>(o), m, l, qs, ks, vs, os, Lq, Lkv, H, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int HD, typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                        const void* dout, const float* m, const float* l, const float* dsum,
-                       void* dq, void* dk, void* dv, int B, int H, int Lq, int Lkv,
-                       float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_cross_bwd_dq_kernel<T>,
+                       void* dq, void* dk, void* dv, const BwdStrides& st, int B, int H,
+                       int Lq, int Lkv, float scale, cudaStream_t stream) {
+  constexpr size_t dq_smem = Tile<HD>::DQ_BYTES, dkv_smem = Tile<HD>::DKV_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_cross_bwd_dq_kernel<HD, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DQ_SMEM_BYTES);
+                                         (int)dq_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_cross_bwd_dkv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DKV_SMEM_BYTES);
+  err = cudaFuncSetAttribute(flash_cross_bwd_dkv_kernel<HD, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  flash_cross_bwd_dq_kernel<T><<<dim3((Lq + BT - 1) / BT, H, B), THREADS, DQ_SMEM_BYTES,
-                                 stream>>>(qt, kt, vt, bias, dot, m, l, dsum,
-                                           static_cast<T*>(dq), Lq, Lkv, H, scale);
+  flash_cross_bwd_dq_kernel<HD, T><<<dim3((Lq + BT - 1) / BT, H, B), THREADS, dq_smem,
+                                     stream>>>(qt, kt, vt, bias, dot, m, l, dsum,
+                                               static_cast<T*>(dq), st, Lq, Lkv, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_cross_bwd_dkv_kernel<T><<<dim3((Lkv + BT - 1) / BT, H, B), THREADS,
-                                  DKV_SMEM_BYTES, stream>>>(
-      qt, kt, vt, bias, dot, m, l, dsum, static_cast<T*>(dk), static_cast<T*>(dv), Lq, Lkv,
-      H, scale);
+  flash_cross_bwd_dkv_kernel<HD, T><<<dim3((Lkv + BT - 1) / BT, H, B), THREADS, dkv_smem,
+                                      stream>>>(qt, kt, vt, bias, dot, m, l, dsum,
+                                                static_cast<T*>(dk), static_cast<T*>(dv),
+                                                st, Lq, Lkv, H, scale);
   return cudaGetLastError();
 }
 
-bool bad_shape(int head_dim, int B, int H, int Lq, int Lkv) {
-  return head_dim != HD || B <= 0 || H <= 0 || Lq <= 0 || Lkv <= 0 || B > 65535 ||
-         H > 65535;
+bool bad_shape(int B, int H, int Lq, int Lkv) {
+  return B <= 0 || H <= 0 || Lq <= 0 || Lkv <= 0 || B > 65535 || H > 65535;
 }
 
 }  // namespace
 
-// B13 (m = l = null; o in the inputs' type) and B14 fwd (m, l [B, Lq, H] float;
-// o float).  Strides in elements for (batch, head, row) of q, k, v and o.
-// dtype: 0 = float32, 1 = bfloat16.  bias: [B, Lkv] float additive per-key
-// bias, or null.
+// B13 (m = l = null; o in the inputs' type), the forward of B14 and of B14p
+// (m, l [B, Lq, H] float; o float).  Strides in elements for (batch, head,
+// row) of q, k, v and o.  dtype: 0 = float32, 1 = bfloat16.  bias: [B, Lkv]
+// float additive per-key bias, or null.
 extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* v,
                                       const float* bias, void* o, float* m, float* l,
                                       long long qsb, long long qsh, long long qsr,
@@ -596,36 +633,46 @@ extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* 
                                       long long osb, long long osh, long long osr, int B,
                                       int H, int Lq, int Lkv, int head_dim, int dtype,
                                       float scale, void* stream) {
-  if (bad_shape(head_dim, B, H, Lq, Lkv) || ((m == nullptr) != (l == nullptr)))
+  if (bad_shape(B, H, Lq, Lkv) || ((m == nullptr) != (l == nullptr)) || dtype < 0 ||
+      dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qsr}, ks{ksb, ksh, ksr}, vs{vsb, vsh, vsr}, os{osb, osh, osr};
-  if (dtype == 0)
-    return (int)(m ? launch_fwd<float, true>(q, k, v, bias, o, m, l, qs, ks, vs, os, B, H,
+  return (int)with_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    if (dtype == 0)
+      return m ? launch_fwd<HD, float, true>(q, k, v, bias, o, m, l, qs, ks, vs, os, B, H,
                                              Lq, Lkv, scale, s)
-                   : launch_fwd<float, false>(q, k, v, bias, o, m, l, qs, ks, vs, os, B, H,
-                                              Lq, Lkv, scale, s));
-  if (dtype == 1)
-    return (int)(m ? launch_fwd<__nv_bfloat16, true>(q, k, v, bias, o, m, l, qs, ks, vs, os,
-                                                     B, H, Lq, Lkv, scale, s)
-                   : launch_fwd<__nv_bfloat16, false>(q, k, v, bias, o, m, l, qs, ks, vs,
-                                                      os, B, H, Lq, Lkv, scale, s));
-  return (int)cudaErrorInvalidValue;
+               : launch_fwd<HD, float, false>(q, k, v, bias, o, m, l, qs, ks, vs, os, B,
+                                              H, Lq, Lkv, scale, s);
+    return m ? launch_fwd<HD, __nv_bfloat16, true>(q, k, v, bias, o, m, l, qs, ks, vs, os,
+                                                   B, H, Lq, Lkv, scale, s)
+             : launch_fwd<HD, __nv_bfloat16, false>(q, k, v, bias, o, m, l, qs, ks, vs, os,
+                                                    B, H, Lq, Lkv, scale, s);
+  });
 }
 
-// B14 bwd: the dq kernel, then the dk / dv kernel, on merged-head tensors.
+// The backward of B14 and B14p: the dq kernel, then the dk / dv kernel.
+// strides: 21 values, (batch, head, row) of q, k, v, dO, dq, dk and dv in
+// that order.
 extern "C" int unirec_flash_cross_bwd(const void* q, const void* k, const void* v,
                                       const float* bias, const void* dout, const float* m,
                                       const float* l, const float* dsum, void* dq, void* dk,
-                                      void* dv, int B, int H, int Lq, int Lkv, int head_dim,
-                                      int dtype, float scale, void* stream) {
-  if (bad_shape(head_dim, B, H, Lq, Lkv)) return (int)cudaErrorInvalidValue;
+                                      void* dv, const long long* strides, int B, int H,
+                                      int Lq, int Lkv, int head_dim, int dtype, float scale,
+                                      void* stream) {
+  if (bad_shape(B, H, Lq, Lkv) || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_bwd<float>(q, k, v, bias, dout, m, l, dsum, dq, dk, dv, B, H, Lq,
-                                  Lkv, scale, s);
-  if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(q, k, v, bias, dout, m, l, dsum, dq, dk, dv, B,
-                                          H, Lq, Lkv, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const long long* x = strides;
+  const BwdStrides st{{x[0], x[1], x[2]},    {x[3], x[4], x[5]},    {x[6], x[7], x[8]},
+                      {x[9], x[10], x[11]},  {x[12], x[13], x[14]}, {x[15], x[16], x[17]},
+                      {x[18], x[19], x[20]}};
+  return (int)with_head_dim(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    if (dtype == 0)
+      return launch_bwd<HD, float>(q, k, v, bias, dout, m, l, dsum, dq, dk, dv, st, B, H,
+                                   Lq, Lkv, scale, s);
+    return launch_bwd<HD, __nv_bfloat16>(q, k, v, bias, dout, m, l, dsum, dq, dk, dv, st,
+                                         B, H, Lq, Lkv, scale, s);
+  });
 }

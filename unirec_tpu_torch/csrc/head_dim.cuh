@@ -1,0 +1,27 @@
+// The head dimensions the attention kernels of flash_cross.cu (B13, B14,
+// B14p) and packed_attention.cu (B15) are built for: every multiple of 16 up
+// to 128 (ops/attention.py:KERNEL_HEAD_DIMS).  Each kernel takes the head
+// dimension as a template parameter; with_head_dim maps the runtime value to
+// one instance.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+// fn(std::integral_constant<int, HD>) for a head dimension this build has;
+// cudaErrorInvalidValue for any other
+template <typename Fn>
+cudaError_t with_head_dim(int head_dim, Fn&& fn) {
+  switch (head_dim) {
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 48: return fn(std::integral_constant<int, 48>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 80: return fn(std::integral_constant<int, 80>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 112: return fn(std::integral_constant<int, 112>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}

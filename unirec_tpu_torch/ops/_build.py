@@ -27,8 +27,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
-           "qformer_blocks.cu", "fused_qformer_vjp.cu", "flash_cross.cu")
-HEADERS = ("gemm_bf16.cuh",)
+           "qformer_blocks.cu", "fused_qformer_vjp.cu", "flash_cross.cu",
+           "packed_attention.cu")
+HEADERS = ("gemm_bf16.cuh", "head_dim.cuh")
 BUILD_DIR_ENV = "UNIREC_TPU_TORCH_BUILD_DIR"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
                      / "unirec_tpu_torch")
@@ -131,8 +132,11 @@ def load_kernels() -> Kernels:
     lib.unirec_flash_cross_fwd.argtypes = [_P] * 7 + [_L] * 12 + [_I] * 6 + [
         _F, _P]
     lib.unirec_flash_cross_fwd.restype = _I
-    lib.unirec_flash_cross_bwd.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
+    lib.unirec_flash_cross_bwd.argtypes = [_P] * 12 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_cross_bwd.restype = _I
+    lib.unirec_packed_item_attention.argtypes = [_P] * 5 + [_L] * 12 + [
+        _I] * 7 + [_F, _P]
+    lib.unirec_packed_item_attention.restype = _I
     return Kernels(lib, out, seconds, log)
 
 

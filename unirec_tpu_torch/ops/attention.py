@@ -34,8 +34,10 @@ NEG_INF = -1e9
 # Memory length from which the JAX package takes its streaming kernel.
 FLASH_MIN_KV = 1024
 
-# the head dimension the streaming kernels are built for (csrc/flash_cross.cu)
-KERNEL_HEAD_DIM = 64
+# the head dimensions the streaming kernels (csrc/flash_cross.cu) and the
+# packed item attention (csrc/packed_attention.cu) are built for: every
+# multiple of 16 up to 128
+KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
 
 
 def make_additive_mask(mask: torch.Tensor,
@@ -128,9 +130,19 @@ def dtype_code(t: torch.Tensor) -> int:
     return 0 if t.dtype == torch.float32 else 1
 
 
+def check_head_dim(name: str, head_dim: int) -> None:
+    """Raise unless the kernels are built for ``head_dim``."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} is built for head_dim in {KERNEL_HEAD_DIMS}"
+                         f", got {head_dim}")
+
+
 def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
-    """What the streaming kernels take: one CUDA device, float32 or bfloat16
-    of one dtype, head dimension ``KERNEL_HEAD_DIM`` contiguous."""
+    """What the streaming kernels and B15 take: one CUDA device, float32 or
+    bfloat16 of one dtype, the head dimension contiguous and every row on a
+    16-byte boundary (they read rows with 16-byte loads): the data pointer
+    and each stride of a dimension longer than 1 in multiples of 16
+    bytes."""
     first = tensors[0]
     if first.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {first.device}")
@@ -142,17 +154,21 @@ def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
                             f"{first.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(
+                n > 1 and st * size % 16
+                for n, st in zip(t.shape[:-1], t.stride()[:-1])):
+            raise ValueError(f"{name}: rows must start on 16-byte boundaries "
+                             f"(strides {t.stride()})")
 
 
 def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
     """The forward kernel of ``csrc/flash_cross.cu`` on per-head views
     ``[B, H, L, hd]`` of any (batch, head, row) strides: B13 without (m, l),
-    B14's forward with them (float32 ``[B, Lq, H]``).  o is in q's dtype
-    for B13 and float32 for B14."""
+    the forward of B14 and B14p with them (float32 ``[B, Lq, H]``).  o is in
+    q's dtype for B13 and float32 for B14 and B14p."""
     b, h, lq, hd = q.shape
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(f"the streaming kernels are built for head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {hd}")
+    check_head_dim("the streaming forward", hd)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     err = load_kernels().lib.unirec_flash_cross_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),

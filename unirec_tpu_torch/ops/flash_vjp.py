@@ -1,6 +1,7 @@
-"""Trainable flash cross-attention with the K/V projections inside its
-gradient (port of ``unirec_tpu/ops/flash_vjp.py``'s
-``flash_cross_attention_proj_vjp``): kernel B14, forward and backward.
+"""Trainable flash cross-attention (port of ``unirec_tpu/ops/flash_vjp.py``):
+kernel B14, ``flash_cross_attention_proj_vjp`` with the K/V projections
+inside its gradient, and kernel B14p, ``flash_cross_attention_vjp`` over
+per-head tensors, forward and backward each.
 
 The user Q-Former's 64 query tokens attend, at every layer, over the
 flattened history memory (seq * K = 1,600 rows at seq 50).  The trainable
@@ -29,27 +30,37 @@ projected k/v:
   ``torch.matmul`` and sums, as ``_proj_vjp_bwd`` computes them; the bias
   (a validity mask) gets no gradient.
 
+B14p is the same pair of kernels on ``[B, H, L, hd]`` tensors (replacing
+``_fwd_kernel`` and ``_bwd_kernel``; the TPU needed a second pair only for
+its lane layout): ``_FlashCross`` saves (q, k, v, bias, o, m, l) with o in
+float32, takes dsum from it, and returns (dq, dk, dv) and no bias gradient.
+Only the JAX package's tests call it; here its tests and ``chip_smoke.py``.
+
 Weights are the torch ``Linear`` layout ``[out, in]`` (the port's
 parameters), so ``k3 = mem . Wk^T + bk``; their gradients come back in the
-weights' dtype.  The wrappers ``flash_cross_fwd`` and ``flash_cross_bwd``
-launch the kernels for CUDA tensors (float32 or bfloat16, head dim 64; they
-raise on anything else) and take the plain versions beside them for CPU
-tensors; each counts its launches.
+weights' dtype.  The wrappers ``flash_cross_fwd`` / ``flash_cross_bwd``
+(B14) and ``flash_cross_vjp_fwd`` / ``flash_cross_vjp_bwd`` (B14p) launch
+the kernels for CUDA tensors (float32 or bfloat16, a head dimension in
+``KERNEL_HEAD_DIMS``; they raise on anything else) and take the plain
+versions beside them for CPU tensors; each counts its launches.  B14's
+plain versions are B14p's on per-head views of the merged tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.attention import (
-    KERNEL_HEAD_DIM,
+    check_head_dim,
     check_kernel_tensors,
     dtype_code,
     key_bias,
     launch_flash_cross_fwd,
+    merge_heads,
     sm_scale,
     streaming_softmax_stats,
 )
@@ -62,51 +73,92 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
 
 
-def _scores(q, k3, bias32, num_heads: int) -> torch.Tensor:
+def _scores(q, k, bias32) -> torch.Tensor:
     """fp32 s = (q . k) * scale + bias per head, ``[B, H, Lq, Lkv]``."""
-    hd = q.shape[-1] // num_heads
-    s = torch.matmul(_heads(q, num_heads).float(),
-                     _heads(k3, num_heads).float().transpose(-1, -2))
-    s = s * sm_scale(hd)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * sm_scale(q.shape[-1])
     if bias32 is not None:
         s = s + bias32[:, None, None, :]
     return s
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, Lq, 1] -> [B, Lq, H], contiguous (the kernels' m, l, dsum)."""
+    return t[..., 0].transpose(1, 2).contiguous()
+
+
+def flash_cross_vjp_fwd_plain(q, k, v, bias32
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """B14p forward's plain version on per-head q ``[B, H, Lq, hd]``, k / v
+    ``[B, H, Lkv, hd]``: (o ``[B, H, Lq, hd]``, m, l ``[B, Lq, H]``), all
+    float32; bias32 float32 ``[B, Lkv]`` or None."""
+    p, m, l = streaming_softmax_stats(_scores(q, k, bias32))
+    o = torch.matmul(p, v.float()) / torch.where(l == 0, 1.0, l)
+    return o, _rows(m), _rows(l)
+
+
+def flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l, dsum
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """B14p backward's plain version, ``_bwd_kernel`` step by step in fp32
+    from the saved m and l and dsum (``[B, Lq, H]``): (dq, dk, dv) in the
+    inputs' dtypes."""
+    s = _scores(q, k, bias32)
+    m_h = m.transpose(1, 2)[..., None]
+    l_h = l.transpose(1, 2)[..., None]
+    p = torch.exp(s - m_h) / torch.where(l_h == 0, 1.0, l_h)
+    dof = do.float()
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = p * (dp - dsum.transpose(1, 2)[..., None]) * sm_scale(q.shape[-1])
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_cross_fwd_plain(q, k3, v3, bias32, num_heads: int
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B14 forward's plain version: (o ``[B, Lq, D]``, m, l ``[B, Lq, H]``),
     all float32; bias32 float32 ``[B, Lkv]`` or None."""
-    b, lq, d = q.shape
-    p, m, l = streaming_softmax_stats(_scores(q, k3, bias32, num_heads))
-    ctx = torch.matmul(p, _heads(v3, num_heads).float())
-    o = ctx / torch.where(l == 0, 1.0, l)
-    return (o.transpose(1, 2).reshape(b, lq, d),
-            m[..., 0].transpose(1, 2).contiguous(),
-            l[..., 0].transpose(1, 2).contiguous())
+    o, m, l = flash_cross_vjp_fwd_plain(
+        *(_heads(t, num_heads) for t in (q, k3, v3)), bias32)
+    return merge_heads(o), m, l
 
 
 def flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, num_heads: int
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B14 backward's plain version, ``_mh_bwd_kernel`` step by step in fp32
     from the saved m and l: (dq, dk3, dv3) in the inputs' dtypes."""
-    b, lq, d = q.shape
-    hd = d // num_heads
-    s = _scores(q, k3, bias32, num_heads)
-    m_h = m.transpose(1, 2)[..., None]
-    l_h = l.transpose(1, 2)[..., None]
-    p = torch.exp(s - m_h) / torch.where(l_h == 0, 1.0, l_h)
-    doh = _heads(do, num_heads).float()
-    dv = torch.matmul(p.transpose(-1, -2), doh)
-    dp = torch.matmul(doh, _heads(v3, num_heads).float().transpose(-1, -2))
-    ds = p * (dp - dsum.transpose(1, 2)[..., None]) * sm_scale(hd)
-    dk = torch.matmul(ds.transpose(-1, -2), _heads(q, num_heads).float())
-    dq = torch.matmul(ds, _heads(k3, num_heads).float())
+    q_h, k_h, v_h, do_h = (_heads(t, num_heads) for t in (q, k3, v3, do))
+    grads = flash_cross_vjp_bwd_plain(q_h, k_h, v_h, bias32, do_h, m, l, dsum)
+    return tuple(merge_heads(g) for g in grads)
 
-    def merged(g, like):
-        return g.transpose(1, 2).reshape(like.shape).to(like.dtype)
 
-    return merged(dq, q), merged(dk, k3), merged(dv, v3)
+def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
+                           ) -> None:
+    """The backward kernels of ``csrc/flash_cross.cu`` (the dq kernel, then
+    the dk / dv kernel) on per-head views ``[B, H, L, hd]`` of any (batch,
+    head, row) strides: B14's merged layout or B14p's per-head one."""
+    b, h, lq, hd = q.shape
+    check_head_dim("the streaming backward", hd)
+    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
+    err = load_kernels().lib.unirec_flash_cross_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias32 is None else bias32.data_ptr(), do.data_ptr(),
+        m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), (ctypes.c_longlong * 21)(*strides),
+        b, h, lq, k.shape[2], hd, dtype_code(q), sm_scale(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_cross_bwd")
+
+
+def _check_stats(name: str, b: int, lq: int, h: int, *stats) -> None:
+    for t in stats:
+        if (t.dtype != torch.float32 or t.shape != (b, lq, h)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: m, l and dsum must be float32 "
+                             "[B, Lq, H], contiguous")
 
 
 def _check_shapes(q, k3, v3, num_heads: int) -> None:
@@ -122,10 +174,7 @@ def _kernel_inputs(name: str, num_heads: int, *tensors) -> None:
     check_kernel_tensors(name, *tensors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: merged-head tensors must be contiguous")
-    hd = tensors[0].shape[-1] // num_heads
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name} is built for head_dim {KERNEL_HEAD_DIM}, "
-                         f"got {hd}")
+    check_head_dim(name, tensors[0].shape[-1] // num_heads)
 
 
 def flash_cross_fwd(q, k3, v3, bias32, num_heads: int
@@ -156,22 +205,12 @@ def flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, num_heads: int
         return flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum,
                                      num_heads)
     _kernel_inputs("B14 bwd", num_heads, q, k3, v3, do)
-    b, lq, d = q.shape
-    for name, t in (("m", m), ("l", l), ("dsum", dsum)):
-        if (t.dtype != torch.float32 or t.shape != (b, lq, num_heads)
-                or not t.is_contiguous()):
-            raise ValueError(f"B14 bwd: {name} must be float32 [B, Lq, H], "
-                             "contiguous")
+    _check_stats("B14 bwd", q.shape[0], q.shape[1], num_heads, m, l, dsum)
     dq, dk3, dv3 = (torch.empty_like(t) for t in (q, k3, v3))
-    err = load_kernels().lib.unirec_flash_cross_bwd(
-        q.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-        None if bias32 is None else bias32.data_ptr(), do.data_ptr(),
-        m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk3.data_ptr(), dv3.data_ptr(), b, num_heads, lq, k3.shape[1],
-        d // num_heads, dtype_code(q),
-        sm_scale(d // num_heads),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_cross_bwd")
+    launch_flash_cross_bwd(*(_heads(t, num_heads)
+                             for t in (q, k3, v3)), bias32,
+                           _heads(do, num_heads), m, l, dsum,
+                           *(_heads(t, num_heads) for t in (dq, dk3, dv3)))
     flash_cross_bwd.launches += 1
     return dq, dk3, dv3
 
@@ -235,3 +274,90 @@ def flash_cross_attention_proj_vjp(q: torch.Tensor, mem: torch.Tensor,
     bias32 = key_bias(bias, b, mem.shape[1], q.device)
     return _FlashCrossProj.apply(q.contiguous(), mem.contiguous(), wk, bk, wv,
                                  bv, bias32, num_heads)
+
+
+# -- B14p: trainable flash cross-attention over per-head tensors ------------
+
+
+def _check_head_shapes(q, k, v) -> None:
+    b, h, lq, hd = q.shape
+    if k.dim() != 4 or k.shape[:2] != (b, h) or k.shape[3] != hd \
+            or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+
+
+def flash_cross_vjp_fwd(q, k, v, bias32
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B14p forward: (o ``[B, H, Lq, hd]``, m, l ``[B, Lq, H]``), all
+    float32, from per-head q ``[B, H, Lq, hd]``, k / v ``[B, H, Lkv, hd]``
+    (any strides with a contiguous head dimension) and bias32 float32
+    ``[B, Lkv]`` or None."""
+    _check_head_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_cross_vjp_fwd_plain(q, k, v, bias32)
+    check_kernel_tensors("B14p fwd", q, k, v)
+    b, h, lq, hd = q.shape
+    o = torch.empty(b, h, lq, hd, device=q.device, dtype=torch.float32)
+    m = torch.empty(b, lq, h, device=q.device, dtype=torch.float32)
+    l = torch.empty_like(m)
+    launch_flash_cross_fwd(q, k, v, bias32, o, m, l)
+    flash_cross_vjp_fwd.launches += 1
+    return o, m, l
+
+
+def flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B14p backward: (dq, dk, dv) in the inputs' dtype and layout from the
+    forward's inputs, dO ``[B, H, Lq, hd]`` and the saved m, l with dsum =
+    rowsum(dO * O) (float32 ``[B, Lq, H]``)."""
+    _check_head_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l, dsum)
+    check_kernel_tensors("B14p bwd", q, k, v, do)
+    if do.shape != q.shape:
+        raise ValueError(f"B14p bwd: dO {tuple(do.shape)} is not q's shape")
+    b, h, lq, _ = q.shape
+    _check_stats("B14p bwd", b, lq, h, m, l, dsum)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv)
+    flash_cross_vjp_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_cross_vjp_fwd.launches = 0
+flash_cross_vjp_bwd.launches = 0
+
+
+class _FlashCross(torch.autograd.Function):
+    """The JAX ``custom_vjp`` of ``flash_cross_attention_vjp``: B14p forward
+    (o kept in float32 for dsum), B14p backward; the bias gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias32):
+        o32, m, l = flash_cross_vjp_fwd(q, k, v, bias32)
+        ctx.save_for_backward(q, k, v, bias32, o32, m, l)
+        return o32.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias32, o32, m, l = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        dsum = _rows((do.float() * o32).sum(-1, keepdim=True))
+        dq, dk, dv = flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum)
+        return dq, dk, dv, None
+
+
+def flash_cross_attention_vjp(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              bias: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Differentiable streaming cross-attention (B14p).  q ``[B, H, Lq,
+    hd]``, k / v ``[B, H, Lkv, hd]`` of one dtype (float32 or bfloat16 on
+    the card), bias an additive per-key ``[B, 1, 1, Lkv]`` or None (no
+    gradient).  Returns ``[B, H, Lq, hd]`` in q's dtype; the gradients flow
+    to q, k and v.  CPU tensors take the plain versions."""
+    _check_head_shapes(q, k, v)
+    bias32 = key_bias(bias, q.shape[0], k.shape[2], q.device)
+    return _FlashCross.apply(q, k, v, bias32)
