@@ -18,7 +18,11 @@ Phases (any failed check raises; the script then exits non-zero):
    yardstick, never called by the port); K1's training form (o, m, l) and
    B7b, the flash backward's dq and dk/dv kernels, at the same shape with
    random right padding, against their plain versions, and the kernels'
-   forward + backward beside the plain path and SDPA's; K2 blocked top-k
+   forward + backward beside the plain path and SDPA's; K1 and B7b also at
+   hd 64 and 32 (B=4, L=512, 16/8 heads, a row whose last three key tiles
+   are padding), every one repeated for identical bits; a tiny Qwen3 at
+   head_dim 64 and 16 (C-4) whose bf16 forward and flash-VJP backward run
+   through K1 and B7b (counted), held to its plain attention path; K2 blocked top-k
    retrieval (8 and 64 users, 20,000 x 1,024 catalog, k=20) and B11, the same
    over the catalog quantized to int8; B1/B2/B3, the Item Q-Former's self,
    cross and FFN blocks in bf16 at production widths (hidden 1024, 16 heads,
@@ -76,7 +80,8 @@ Phases (any failed check raises; the script then exits non-zero):
    ``--precision int8 --merge-lora`` over files written from this stack (a
    full-width K=2 Item Q-Former checkpoint directory, a field-cache
    directory, item and catalog JSON of 2,000 items) answers one batch
-   through B9a, B9b and B8.
+   through B9a, B9b and B8.  A bf16 batch's ``torch.profiler`` breakdown by
+   kernel and its device idle share are printed beside its latency.
 5. the item-token sweep at full width (``ItemQFormerConfig()``, random
    weights from seed 0 saved as a checkpoint directory; a 9,000-item field
    cache from the seed): the port's ``generate_all_item_embeddings.main`` at
@@ -125,8 +130,10 @@ Phases (any failed check raises; the script then exits non-zero):
    ``--resume`` for 1, then ``--bf16 --remat`` for 1, whose evaluation
    launches B13 4 times a batch); exact launch counts, finite metrics.
 9. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
-   the PyTorch yardstick where one call computes the same function), then
-   the last line ``{"ok": true, ...}``.
+   the PyTorch yardstick where one call computes the same function; the B7b
+   rows also ``path_ms``, the kernels' forward + backward through autograd,
+   the like of their ``library_ms``), then the last line ``{"ok": true,
+   ...}``.
 
 TF32 stays off for both matmul flags: float32 products are full precision,
 so the fp32 tolerances below hold.
@@ -155,6 +162,10 @@ K2_USERS = (8, 64)
 CATALOG, DIM, K2_K = 20_000, 1_024, 20
 N_REQUESTS, SERVE_K, BATCH = 24, 10, 8
 K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# K1 and B7b at the other head dims the kernels take (C-4), GQA 2:1: a row
+# whose last three key tiles are all padding, a 129-key row, a 5-key row
+CAUSAL_OTHER = dict(B=4, L=512, HQ=16, HKV=8, HD=(64, 32),
+                    LENGTHS=(512, 320, 129, 5))
 K2_TIE, K2_SCORE_TOL = 1e-6, 1e-5
 # B1-B3 (bf16 in and out) against their plain versions on the same inputs, in
 # fp32: the kernels sum in another order than the plain version, which can
@@ -315,6 +326,21 @@ def k1_error(q, k, v, mask, hq, hkv):
     return (out.float() - ref).abs().max().item(), ref.abs().max().item()
 
 
+def causal_inputs(gen, b, l, hq, hkv, hd, dtype, lengths):
+    """q, k, v, dO (randn, cast to dtype) and the right-padded [B, L] mask."""
+    mask = (torch.arange(l, device="cuda")[None]
+            < torch.as_tensor(lengths, device="cuda")[:, None]).float()
+    q, k, v, do = (torch.randn(b, l, h * hd, device="cuda", generator=gen)
+                   .to(dtype) for h in (hq, hkv, hkv, hq))
+    return q, k, v, do, mask
+
+
+def check_repeat(name: str, first, again) -> None:
+    """The kernels have one owner per output: a repeat gives the same bits."""
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{name}: a repeat gave other bits")
+
+
 def check_k1(err: float, ref_max: float, dtype, where: str) -> None:
     rel = err / ref_max
     log(f"K1 {where} {dtype}: max|d| {err:.3e} max|ref| {ref_max:.3e} "
@@ -340,10 +366,23 @@ def phase_k1(gen) -> dict:
         k = torch.randn(b, l, hkv * hd, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, l, hkv * hd, device="cuda", generator=gen).to(dtype)
         check_k1(*k1_error(q, k, v, mask, hq, hkv), dtype, "phase 3")
-        kern = time_ms(lambda: flash_causal_attention(q, k, v, mask, hq, hkv))
+        check_repeat(f"K1 {dtype}",
+                     [flash_causal_attention(q, k, v, mask, hq, hkv)],
+                     [flash_causal_attention(q, k, v, mask, hq, hkv)])
+
+        # the kernel as the model calls it: the pad mask checked once per
+        # forward, not once per launch (the unchecked call's host
+        # synchronisation is timed apart)
+        def kernel():
+            return flash_causal_attention(q, k, v, mask, hq, hkv,
+                                          mask_checked=True)
+
+        kern = time_ms(kernel)
         plain = time_ms(
             lambda: flash_causal_attention_plain(q, k, v, mask, hq, hkv))
-        kern2 = time_ms(lambda: flash_causal_attention(q, k, v, mask, hq, hkv))
+        kern2 = time_ms(kernel)
+        checked = time_ms(
+            lambda: flash_causal_attention(q, k, v, mask, hq, hkv))
         qh, kh, vh, allowed = sdpa_inputs(q, k, v, mask, hq, hkv)
         lib = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=allowed))
         size = q.element_size()
@@ -354,9 +393,10 @@ def phase_k1(gen) -> dict:
         times[dtype] = dict(ms=min(kern, kern2), plain_ms=plain, library_ms=lib,
                             bound_ms=b_ms, bound_by=b_by)
         log(f"K1 time {dtype} B={b} L={l} Hq={hq} Hkv={hkv} hd={hd}: kernel "
-            f"{kern:.4f} / {kern2:.4f} ms, plain {plain:.4f} ms, "
-            f"scaled_dot_product_attention {lib:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"{kern:.4f} / {kern2:.4f} ms (with the per-call pad-mask check "
+            f"and its host synchronisation {checked:.4f} ms), plain "
+            f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
     return times
 
 
@@ -1525,6 +1565,23 @@ def phase_serve(smi: str) -> dict:
         f"{max(lat) * 1e3:.1f}) over 5 batches = {BATCH / med:.1f} users/s; "
         f"HTTP burst {N_REQUESTS / burst_s:.1f} users/s; peak device memory "
         f"{peak_gb:.2f} GB (max_memory_allocated)")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.recommend(batch, k=SERVE_K)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_time_by_kernel(prof)
+    total = sum(t for _, t in rows)
+    log(f"[{smi}] bf16 recommend(), batch {BATCH}, under torch.profiler: "
+        f"{total:.2f} ms of device time in {len(rows)} kernels over "
+        f"{wall:.1f} ms of wall time (device idle "
+        f"{100 * (1 - total / wall):.1f}%)"
+        + ("" if rows else " (no device rows: breakdown not measured)"))
+    for name, t in rows[:12]:
+        log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
     b11 = serve_int8_catalog(smi, rec, histories, direct)
     int8 = serve_int8(smi, rec, histories, direct, med)
     return {"launches": dict(launches, b11=b11["launches"]), "k1_err": err,
@@ -1891,9 +1948,33 @@ def phase_entry_point(smi: str, rec) -> dict:
 # -- phase 6: joint training ----------------------------------------------------
 
 
-def check_b7b(name, out, ref, dtype, rows_cos=True) -> float:
-    """max|d| / max|ref| within B7B_TOL, and (for tensors of head rows)
-    per-row cosine over the rows where ref is nonzero."""
+def single_key_rows(mask: torch.Tensor, heads: int) -> torch.Tensor:
+    """The query rows whose causal window holds one valid key (key 0), per
+    (batch, row, head) in the row order of a [B, L, heads * hd] tensor.
+    Their exact dq is 0 (a softmax over one key has no gradient: ds = p (dp
+    - dsum) with p = 1 and dsum = dp), so what a kernel and the plain
+    version return there is rounding noise along k_0, whose sign decides
+    the row cosine; max|d| still holds those rows."""
+    one = mask.cumsum(1) == 1
+    return one[:, :, None].expand(-1, -1, heads).reshape(-1)
+
+
+def lone_key_rows(mask: torch.Tensor, heads: int) -> torch.Tensor:
+    """dk's rows of exact value 0, per (batch, key, KV head) in the row
+    order of a [B, L, heads * hd] tensor: key 0 of a batch row whose only
+    valid key it is (every query attends it alone, as in
+    ``single_key_rows``)."""
+    lone = torch.zeros_like(mask, dtype=torch.bool)
+    lone[:, 0] = mask.sum(1) == 1
+    return lone[:, :, None].expand(-1, -1, heads).reshape(-1)
+
+
+def check_b7b(name, out, ref, dtype, rows_cos=True, hd=K1_SHAPE["HD"],
+              noise_rows=None) -> float:
+    """max|d| / max|ref| within B7B_TOL, and (for tensors of head rows of
+    width hd) per-row cosine over the rows where ref is nonzero, but for
+    ``noise_rows`` (rows whose exact value is 0: ``single_key_rows``,
+    ``lone_key_rows``)."""
     a, b = out.float(), ref.float()
     if not bool(torch.isfinite(a).all()):
         raise AssertionError(f"B7b {name} is not finite")
@@ -1901,8 +1982,10 @@ def check_b7b(name, out, ref, dtype, rows_cos=True) -> float:
     rel = err / b.abs().max().item()
     cos = 1.0
     if rows_cos:
-        a2, b2 = a.reshape(-1, K1_SHAPE["HD"]), b.reshape(-1, K1_SHAPE["HD"])
+        a2, b2 = a.reshape(-1, hd), b.reshape(-1, hd)
         live = b2.abs().amax(-1) > 0
+        if noise_rows is not None:
+            live &= ~noise_rows
         cos = torch.nn.functional.cosine_similarity(
             a2[live], b2[live], dim=-1).min().item()
     log(f"B7b {dtype} {name}: max|d| {err:.3e} = {rel:.2e} of max|ref| (tol "
@@ -1913,10 +1996,49 @@ def check_b7b(name, out, ref, dtype, rows_cos=True) -> float:
     return err
 
 
+def b7b_errors(q, k, v, do, mask, hq, hkv, hd) -> tuple:
+    """K1's training form (o, m, l) and B7b's dq and dk/dv kernels against
+    their plain versions (check_b7b), each repeated for identical bits, and
+    padded keys' dk / dv exactly 0; returns (errors, the kernels' args)."""
+    from unirec_tpu_torch.ops import flash_causal as fc
+
+    dtype = q.dtype
+    o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    check_repeat(f"K1 (m, l) hd {hd} {dtype}", (o, m, den),
+                 fc._k1(q, k, v, mask, hq, hkv, stats=True))
+    torch.cuda.synchronize()
+    ref = fc.flash_causal_attention_fwd_plain(q.float(), k.float(),
+                                              v.float(), mask, hq, hkv)
+    errs = {name: check_b7b(name, got, want, dtype, rows, hd)
+            for name, got, want, rows in (("o", o, ref[0], True),
+                                          ("m", m, ref[1], False),
+                                          ("l", den, ref[2], False))}
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    dq = fc.flash_causal_bwd_dq(*args)
+    dk, dv = fc.flash_causal_bwd_dkv(*args)
+    check_repeat(f"B7b dq hd {hd} {dtype}", [dq], [fc.flash_causal_bwd_dq(*args)])
+    check_repeat(f"B7b dk/dv hd {hd} {dtype}", (dk, dv),
+                 fc.flash_causal_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    want = fc.flash_causal_attention_bwd_plain(
+        q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum,
+        hq, hkv)
+    for name, got, ref_ in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        noise = {"dq": single_key_rows(mask, hq),
+                 "dk": lone_key_rows(mask, hkv)}.get(name)
+        errs[name] = check_b7b(name, got, ref_, dtype, True, hd, noise)
+    padded = mask == 0
+    if not (bool((dk[padded] == 0).all()) and bool((dv[padded] == 0).all())):
+        raise AssertionError("B7b gave a padded key a gradient")
+    return errs, args
+
+
 def phase_b7b(gen) -> dict:
     """K1's training form (o, m, l) and B7b's two kernels against their plain
     versions at the joint training shape, with random right padding (key 0
-    valid), fp32 and bf16; times against the plain versions and
+    valid), and K1 in both forms and B7b at hd 64 and 32 (CAUSAL_OTHER),
+    fp32 and bf16, repeats identical; times against the plain versions and
     scaled_dot_product_attention forward + backward (the yardstick)."""
     from unirec_tpu_torch.ops import flash_causal as fc
 
@@ -1930,27 +2052,7 @@ def phase_b7b(gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do = (torch.randn(b, l, h * hd, device="cuda", generator=gen)
                        .to(dtype) for h in (hq, hkv, hkv, hq))
-        o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
-        torch.cuda.synchronize()
-        ref = fc.flash_causal_attention_fwd_plain(q.float(), k.float(),
-                                                  v.float(), mask, hq, hkv)
-        errs = {name: check_b7b(name, got, want, dtype, rows)
-                for name, got, want, rows in (("o", o, ref[0], True),
-                                              ("m", m, ref[1], False),
-                                              ("l", den, ref[2], False))}
-        dsum = fc.attention_dsum(do, o, hq).contiguous()
-        args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
-        dq = fc.flash_causal_bwd_dq(*args)
-        dk, dv = fc.flash_causal_bwd_dkv(*args)
-        torch.cuda.synchronize()
-        want = fc.flash_causal_attention_bwd_plain(
-            q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum,
-            hq, hkv)
-        for name, got, ref_ in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-            errs[name] = check_b7b(name, got, ref_, dtype)
-        padded = mask == 0
-        if not (bool((dk[padded] == 0).all()) and bool((dv[padded] == 0).all())):
-            raise AssertionError("B7b gave a padded key a gradient")
+        errs, args = b7b_errors(q, k, v, do, mask, hq, hkv, hd)
 
         t_dq = time_ms(lambda: fc.flash_causal_bwd_dq(*args), iters=10)
         t_dkv = time_ms(lambda: fc.flash_causal_bwd_dkv(*args), iters=10)
@@ -1989,9 +2091,9 @@ def phase_b7b(gen) -> dict:
         out[dtype] = dict(
             errs=errs,
             dq=dict(ms=min(t_dq, t_dq2), plain_ms=t_plain, library_ms=t_lib,
-                    bound_ms=b_dq[0], bound_by=b_dq[1]),
+                    bound_ms=b_dq[0], bound_by=b_dq[1], path_ms=t_path),
             dkv=dict(ms=min(t_dkv, t_dkv2), plain_ms=t_plain, library_ms=t_lib,
-                     bound_ms=b_dkv[0], bound_by=b_dkv[1]))
+                     bound_ms=b_dkv[0], bound_by=b_dkv[1], path_ms=t_path))
         log(f"B7b time {dtype} B={b} L={l} Hq={hq} Hkv={hkv} hd={hd} (row "
             f"lengths {lengths.tolist()}, {pairs} causal pairs per head): dq "
             f"kernel {t_dq:.4f} / {t_dq2:.4f} ms (bound {b_dq[0]:.4f}, "
@@ -2002,7 +2104,114 @@ def phase_b7b(gen) -> dict:
             f"scaled_dot_product_attention {t_lib:.4f} ms")
         del qs, ks, vs, qh, kh, vh
         torch.cuda.empty_cache()
+    # the other head dims, after the timed shape (whose random row lengths
+    # stay the ones earlier PRs timed)
+    b, l, hq, hkv = (CAUSAL_OTHER[x] for x in ("B", "L", "HQ", "HKV"))
+    for hd in CAUSAL_OTHER["HD"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, mask = causal_inputs(gen, b, l, hq, hkv, hd, dtype,
+                                              CAUSAL_OTHER["LENGTHS"])
+            check_k1(*k1_error(q, k, v, mask, hq, hkv), dtype,
+                     f"phase 3, hd {hd}, B={b}, row lengths "
+                     f"{list(CAUSAL_OTHER['LENGTHS'])}")
+            check_repeat(f"K1 hd {hd} {dtype}",
+                         [fc.flash_causal_attention(q, k, v, mask, hq, hkv)],
+                         [fc.flash_causal_attention(q, k, v, mask, hq, hkv)])
+            log(f"B7b at hd {hd}, B={b} L={l} Hq={hq} Hkv={hkv}, row lengths "
+                f"{list(CAUSAL_OTHER['LENGTHS'])}:")
+            for name, err in b7b_errors(q, k, v, do, mask, hq, hkv,
+                                        hd)[0].items():
+                out[dtype]["errs"][name] = max(out[dtype]["errs"][name], err)
     return out
+
+
+def phase_head_dims(gen) -> None:
+    """C-4 on the card: a tiny Qwen3 (``tiny_qwen3_config``) at head_dim 64
+    and 16, bf16 compute over float32 parameters, right-padded rows (one
+    whose last three key tiles are padding): the deterministic forward
+    through K1 and a flash-VJP training forward + backward through K1 with
+    (m, l) and B7b, with exact launch counts, held to the same weights on
+    the plain attention path (no launches): the loss (mean squared distance
+    of the hidden states from a fixed random target) within STEP_LOSS_REL,
+    and the per-row cosine of the forward's hidden states and every
+    parameter's gradient at least STEP_GRAD_COS."""
+    import dataclasses
+
+    from unirec_tpu_torch.configs import tiny_qwen3_config
+    from unirec_tpu_torch.models.qwen3 import Qwen3Model
+    from unirec_tpu_torch.ops import flash_causal as fc
+
+    counters = (fc.flash_causal_attention, fc.flash_causal_bwd_dq,
+                fc.flash_causal_bwd_dkv)
+    b, l = 4, 512
+    lengths = (512, 320, 129, 5)
+    for hd in (64, 16):
+        cfg = tiny_qwen3_config(head_dim=hd, flash_vjp_attention=True)
+        models = []
+        for flash in (True, False):
+            m = Qwen3Model(dataclasses.replace(cfg, flash_vjp_attention=flash),
+                           device="cuda", dtype=torch.bfloat16,
+                           param_dtype=torch.float32)
+            models.append(m)
+        with torch.no_grad():
+            for p in models[0].parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+            for name, p in models[0].named_parameters():
+                if name.endswith("norm.weight"):
+                    p.fill_(1.0)
+        models[1].load_state_dict(models[0].state_dict())
+        ids = torch.randint(0, cfg.vocab_size, (b, l), device="cuda",
+                            generator=gen)
+        mask = (torch.arange(l, device="cuda")[None]
+                < torch.as_tensor(lengths, device="cuda")[:, None]).float()
+        target = torch.randn(b, l, cfg.hidden_size, device="cuda",
+                             generator=gen)
+
+        def run(model, train):
+            for fn in counters:
+                fn.launches = 0
+            model.train(train)
+            for p in model.parameters():
+                p.grad = None
+            with torch.set_grad_enabled(train):
+                hidden = model(ids, mask).float()
+                loss = ((hidden - target) ** 2).mean()
+                if train:
+                    loss.backward()
+            torch.cuda.synchronize()
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            return (loss.item(), hidden.detach().reshape(b * l, -1), grads,
+                    [fn.launches for fn in counters])
+
+        n = cfg.num_hidden_layers
+        fwd_k, h_k, _, launch_fk = run(models[0], False)
+        loss_k, _, g_k, launch_k = run(models[0], True)
+        loss_p, h_p, g_p, launch_p = run(models[1], True)
+        fwd_rel = abs(fwd_k - loss_p) / abs(loss_p)
+        fwd_cos = torch.nn.functional.cosine_similarity(
+            h_k.double(), h_p.double(), dim=-1).min().item()
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        cos = grad_cosines(g_k, g_p)
+        worst = min(cos, key=cos.get)
+        log(f"C-4, tiny Qwen3 at head_dim {hd} ({cfg.num_attention_heads}/"
+            f"{cfg.num_key_value_heads} heads, {n} layers), B={b} L={l}, row "
+            f"lengths {list(lengths)}, bf16: K1 forward vs plain loss rel "
+            f"{fwd_rel:.2e}, min row cosine {fwd_cos:.6f}; flash-VJP step "
+            f"loss rel {rel:.2e} (tol {STEP_LOSS_REL:g}); {len(cos)} "
+            f"gradients, min cosine {cos[worst]:.6f} ({worst}; tol "
+            f"{STEP_GRAD_COS}); launches (K1, B7b dq, B7b dk/dv): forward "
+            f"{launch_fk}, training {launch_k}, plain {launch_p}")
+        if not (fwd_rel <= STEP_LOSS_REL and rel <= STEP_LOSS_REL
+                and fwd_cos >= STEP_GRAD_COS and cos[worst] >= STEP_GRAD_COS
+                and len(cos) == len(list(models[0].parameters()))):
+            raise AssertionError(f"C-4: the kernels at head_dim {hd} disagree "
+                                 "with the plain attention path")
+        if (launch_fk, launch_k, launch_p) != ([n, 0, 0], [n, n, n],
+                                               [0, 0, 0]):
+            raise AssertionError(f"C-4 launches at head_dim {hd}: {launch_fk}"
+                                 f" / {launch_k} / {launch_p}")
+        del models
 
 
 # -- phase 5: the item-token sweep ---------------------------------------------
@@ -2523,7 +2732,8 @@ def phase_train(smi: str, tmp: str) -> dict:
     rows = device_time_by_kernel(prof)
     total = sum(t for _, t in rows)
     log(f"[{smi}] one flash-VJP step under torch.profiler: {total:.2f} ms of "
-        f"device time in {len(rows)} kernels over {wall:.1f} ms of wall time"
+        f"device time in {len(rows)} kernels over {wall:.1f} ms of wall time "
+        f"(device idle {100 * (1 - total / wall):.1f}%)"
         + ("" if rows else " (no device rows: breakdown not measured)"))
     for name, t in rows[:14]:
         log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
@@ -3353,6 +3563,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_times = phase_k1(gen)
     b7b = phase_b7b(gen)
+    phase_head_dims(gen)
     k2_times = phase_k2(gen)
     b11_times = phase_b11(gen)
     blocks = phase_blocks(gen, "bf16")
@@ -3387,13 +3598,13 @@ def main() -> int:
     b11_ms, b11_plain = b11_times[BATCH]
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
-            bound_by, library_ms=None):
+            bound_by, library_ms=None, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"unirec_tpu_torch/csrc/{source}",
                 "replaces": f"unirec_tpu/ops/{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
 
     k1 = k1_times[b16]
     kernels = [

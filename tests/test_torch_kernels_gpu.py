@@ -23,7 +23,9 @@ sigmoid is not torch's, which can flip one code of the requantized h.
 B7b (the flash backward) and K1's training form are held to their plain
 versions at the joint training shape: max|d| <= 1e-5 max|ref| in fp32 and
 2e-2 in bf16, per-row cosine >= 0.9999; the autograd Function's gradients
-equal the two kernels' outputs, and padded keys get no gradient.
+equal the two kernels' outputs, and padded keys get no gradient.  K1 and
+B7b run at every head dim the kernels take that the model configs use (16,
+32, 64, 128), over key tiles that are all padding, and repeat bit for bit.
 """
 
 import pytest
@@ -60,10 +62,14 @@ def hopper():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+CAUSAL_HEAD_DIMS = (16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("hd", CAUSAL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-def test_k1_matches_plain(hopper, dtype, tol):
-    b, l, hq, hkv, hd = 8, 512, 16, 8, 128
+def test_k1_matches_plain(hopper, dtype, tol, hd):
+    b, l, hq, hkv = 8, 512, 16, 8
     q = torch.randn(b, l, hq * hd, device="cuda", generator=hopper).to(dtype)
     k = torch.randn(b, l, hkv * hd, device="cuda", generator=hopper).to(dtype)
     v = torch.randn(b, l, hkv * hd, device="cuda", generator=hopper).to(dtype)
@@ -77,23 +83,44 @@ def test_k1_matches_plain(hopper, dtype, tol):
                                        hq, hkv)
     rel = (out.float() - ref).abs().max() / ref.abs().max()
     assert rel <= tol
+    assert torch.equal(out, flash_causal_attention(q, k, v, mask, hq, hkv))
 
 
-def _close(out, ref, tol):
+def _single_key_rows(mask, heads):
+    """Rows whose causal window holds one valid key, per (batch, row, head):
+    their exact dq is 0 (a softmax over one key has no gradient), so both
+    sides are rounding noise along k_0 and the row cosine is its sign;
+    max|d| still holds them."""
+    one = mask.cumsum(1) == 1
+    return one[:, :, None].expand(-1, -1, heads).reshape(-1)
+
+
+def _lone_key_rows(mask, heads):
+    """dk's rows of exact value 0, per (batch, key, KV head): key 0 of a
+    batch row whose only valid key it is (every query attends it alone)."""
+    lone = torch.zeros_like(mask, dtype=torch.bool)
+    lone[:, 0] = mask.sum(1) == 1
+    return lone[:, :, None].expand(-1, -1, heads).reshape(-1)
+
+
+def _close(out, ref, tol, hd=128, noise_rows=None):
     a, b = out.float(), ref.float()
     assert torch.isfinite(a).all()
     assert (a - b).abs().max() / b.abs().max() <= tol
-    if a.dim() == 3 and a.shape[-1] % 128 == 0:
-        a2, b2 = a.reshape(-1, 128), b.reshape(-1, 128)
+    if a.dim() == 3 and a.shape[-1] % hd == 0:
+        a2, b2 = a.reshape(-1, hd), b.reshape(-1, hd)
         live = b2.abs().amax(-1) > 0
+        if noise_rows is not None:
+            live &= ~noise_rows
         cos = torch.nn.functional.cosine_similarity(a2[live], b2[live], dim=-1)
         assert cos.min() >= 0.9999
 
 
+@pytest.mark.parametrize("hd", CAUSAL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_b7b_and_k1_stats_match_plain(hopper, dtype, tol):
-    b, l, hq, hkv, hd = 8, 512, 16, 8, 128
+def test_b7b_and_k1_stats_match_plain(hopper, dtype, tol, hd):
+    b, l, hq, hkv = 8, 512, 16, 8
     q, k, v, do = (torch.randn(b, l, h * hd, device="cuda", generator=hopper)
                    .to(dtype) for h in (hq, hkv, hkv, hq))
     lengths = torch.tensor([1, 5, 64, 100, 257, 400, 511, 512], device="cuda")
@@ -111,29 +138,71 @@ def test_b7b_and_k1_stats_match_plain(hopper, dtype, tol):
         n + 1 for n in before]
     o, m, den = fc.flash_causal_attention_fwd_plain(
         q.float(), k.float(), v.float(), mask, hq, hkv)
-    _close(out, o, tol)
+    _close(out, o, tol, hd)
     _, m_k, l_k = fc._k1(q, k, v, mask, hq, hkv, stats=True)
-    _close(m_k, m, tol)
-    _close(l_k, den, tol)
+    _close(m_k, m, tol, hd)
+    _close(l_k, den, tol, hd)
     dsum = fc.attention_dsum(do, out.detach(), hq)
     want = fc.flash_causal_attention_bwd_plain(
         q.float(), k.float(), v.float(), mask, do.float(), m_k, l_k, dsum,
         hq, hkv)
-    for got, ref in zip((qs.grad, ks.grad, vs.grad), want):
-        _close(got, ref, tol)
+    _close(qs.grad, want[0], tol, hd, _single_key_rows(mask, hq))
+    _close(ks.grad, want[1], tol, hd, _lone_key_rows(mask, hkv))
+    _close(vs.grad, want[2], tol, hd)
     padded = mask == 0
     assert (ks.grad[padded] == 0).all() and (vs.grad[padded] == 0).all()
     args = (q, k, v, mask, do.contiguous(), m_k, l_k, dsum.contiguous(), hq,
             hkv)
     dq = fc.flash_causal_bwd_dq(*args)  # deterministic: no atomics
     assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
+    dk, dv = fc.flash_causal_bwd_dkv(*args)
+    dk2, dv2 = fc.flash_causal_bwd_dkv(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
-def test_flash_causal_wrappers_refuse_what_the_kernels_do_not_take(hopper):
-    q = torch.randn(1, 8, 2 * 64, device="cuda", requires_grad=True)
-    kv = torch.randn(1, 8, 64, device="cuda")
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_k1_b7b_over_key_tiles_that_are_all_padding(hopper, dtype, tol):
+    """Key tiles whose keys are all padding (skipped by the bf16 kernels:
+    in the middle of a row, at its end, every tile past key 0's) change
+    nothing: output and gradients as the plain versions, padded keys' dk
+    and dv exactly 0."""
+    b, l, hq, hkv, hd = 3, 512, 8, 4, 64
+    mask = torch.ones(b, l, device="cuda")
+    mask[0, 64:256] = 0.0  # tiles 1-3 padding, keys after them valid
+    mask[1, 320:] = 0.0    # the last three tiles padding
+    mask[2, 1:] = 0.0      # key 0 alone
+    q, k, v, do = (torch.randn(b, l, h * hd, device="cuda", generator=hopper)
+                   .to(dtype) for h in (hq, hkv, hkv, hq))
+    o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    ref = fc.flash_causal_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                              mask, hq, hkv)
+    for got, want in zip((o, m, den), ref):
+        _close(got, want, tol, hd)
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    dq = fc.flash_causal_bwd_dq(*args)
+    dk, dv = fc.flash_causal_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    want = fc.flash_causal_attention_bwd_plain(
+        q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum, hq,
+        hkv)
+    _close(dq, want[0], tol, hd, _single_key_rows(mask, hq))
+    _close(dk, want[1], tol, hd, _lone_key_rows(mask, hkv))
+    _close(dv, want[2], tol, hd)
+    padded = mask == 0
+    assert (dk[padded] == 0).all() and (dv[padded] == 0).all()
+
+
+@pytest.mark.parametrize("hd", [8, 256])
+def test_flash_causal_wrappers_refuse_what_the_kernels_do_not_take(hopper,
+                                                                   hd):
+    q = torch.randn(1, 8, 2 * hd, device="cuda", requires_grad=True)
+    kv = torch.randn(1, 8, hd, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fc.flash_causal_attention_train(q, kv, kv, None, 2, 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_causal_attention(q.detach(), kv, kv, None, 2, 1)
     with pytest.raises(RuntimeError, match="flash_causal_attention_train"):
         flash_causal_attention(q, kv, kv, None, 2, 1)
 

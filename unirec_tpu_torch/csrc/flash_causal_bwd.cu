@@ -17,81 +17,115 @@
 //   k, v, dk, dv [B, L, Hkv * HD]
 //   mask        [B, L]  float, 0 = padded key (gets no gradient)
 //   m, l, dsum  [B, L, Hq]  float
+// Head dims: every multiple of 16 up to 128 (head_dim.cuh).
 //
 // Two kernels, deterministic and without atomics, as the JAX design: a TPU
 // grid runs in order and carries a sum in scratch, a Hopper grid does not, so
-// each output is owned by one block that loops over what it sums.
-//   dq kernel:  one block per (batch, 64-row q tile, q head); loops over kv
-//               tiles up to the diagonal; dq accumulates in registers.
-//   dkv kernel: one block per (batch, 64-key kv tile, kv head); loops over its
-//               group's q heads and over q tiles from the diagonal on; dk and
-//               dv accumulate in registers.
-// No cross-block reduction, so the bits are the same from run to run.
+// each output is owned by one block that loops over what it sums, in a fixed
+// order.  The bits are the same from run to run.
 //
 // What bounds it: at the joint training shape (B=8, L=512, Hq=16, Hkv=8,
-// HD=128) the causal half of each of the seven score-sized products is about
-// 4.3 GFLOP, 30 GFLOP per layer (3 in the dq kernel, 4 in the dkv kernel)
-// against ~40 MB of q/k/v/dO/dq/dk/dv traffic: it is bound by arithmetic
-// (about 30 us at the card's bf16 tensor-core peak).  This first design does
-// that arithmetic as K1 does, with scalar fp32 FMAs from shared memory (one
-// code path for bf16 and fp32 inputs, fp32 accumulators): 16 x 16 threads,
-// each owning a 4 x 4 block of a 64 x 64 score tile and a 4 x 8 block of a
-// 64 x 128 output.  Tensor cores (mma.sync / wgmma) and TMA are later work.
+// HD=128) the causal pairs of the five score-sized products (S, dP and dq in
+// the dq kernel; S^T, dP^T, dv and dk in the dk/dv kernel: seven in all) are
+// about 2.2 GFLOP each, against ~70 MB of q/k/v/dO and gradient traffic per
+// kernel: at the bf16 tensor-core peak the arithmetic takes 7-9 us, the
+// bytes about 20 us, so each kernel is bound by bytes and loses the rest to
+// latency.
+//
+// bf16 design: FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate), tiles bf16 in shared memory with rows padded by 16 bytes (no
+// ldmatrix bank conflicts), 16-byte cp.async copies into a two-stage ring.
+//   dq kernel (flash_causal_bwd_dq_tc): one block of 8 warps per (batch, q
+//     tile, pair of query heads of one GQA group), 2 heads x 64 rows (1 x 128
+//     when the group is odd), each warp 16 rows.  Q and dO stay in shared
+//     memory; K/V tiles stream through the ring, tiles above the diagonal and
+//     key tiles that are all padding are never loaded, a warp skips a tile
+//     whose keys all lie after its rows.  Per tile: S = Q K^T and dP = dO V^T
+//     on tensor cores; p = exp(S scale - m) / l and ds = p (dP - dsum) scale
+//     in fp32 registers in the accumulator layout; ds rounded to bf16 in
+//     registers is the A fragment of dq += ds K (K via ldmatrix.trans).
+//   dk/dv kernel (flash_causal_bwd_dkv_tc): one block of 8 warps per (batch,
+//     64-key tile, KV head) that loops over its group's query heads and over
+//     the q tiles from the diagonal on, Q, dO and the rows' m, l and dsum
+//     streaming through the ring (4-byte cp.async for the strided stats).
+//     Per q tile: each warp computes a 16-key x 32-row block of S^T = K Q^T
+//     and dP^T = V dO^T, and writes p^T and ds^T as bf16 to shared memory;
+//     then warps 0-3 take dv += p^T dO and warps 4-7 dk += ds^T Q for 16 keys
+//     each over the full head dim (dO and Q via ldmatrix.trans).  A key tile
+//     that is all padding writes exact zeros and returns.
+//   The products see bf16-rounded p and ds; the fp32 p is what the softmax
+//   state (m, l) normalises, as in K1.
+//   wgmma and TMA are the next step, as for K1 (flash_causal_fwd.cu).
+//
+// fp32 design: tensor cores would mean TF32, which breaks the 1e-5 fp32
+// gates, so fp32 keeps the scalar design (templated on the head dim): 16 x 16
+// threads, each owning a 4 x 4 block of a 64 x 64 score tile and a 4 x (HD /
+// 16) block of a 64 x HD output, fp32 FMAs from padded shared tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "causal_tiles.cuh"
+#include "head_dim.cuh"
+#include "ptx_helpers.cuh"
+
 namespace {
 
-constexpr int HD = 128;           // head_dim this build supports
-constexpr int BT = 64;            // rows of a q tile and of a kv tile
-constexpr int THREADS = 256;      // 16 x 16 threads
-constexpr int RS = HD + 1;        // padded row stride of a [64][128] tile
-constexpr int PS = BT + 1;        // padded row stride of a [64][64] tile
-// dq kernel: Q, dO, K, V tiles, the ds tile, m / l / dsum / key validity
-constexpr int DQ_SMEM_FLOATS = 4 * BT * RS + BT * PS + 4 * BT;
-// dkv kernel: K, V, Q, dO tiles, the p^T and ds^T tiles, m / l / dsum / rows
-constexpr int DKV_SMEM_FLOATS = 4 * BT * RS + 2 * BT * PS + 4 * BT;
-constexpr size_t DQ_SMEM_BYTES = DQ_SMEM_FLOATS * sizeof(float);
-constexpr size_t DKV_SMEM_BYTES = DKV_SMEM_FLOATS * sizeof(float);
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+constexpr int BT = 64;  // rows of a q tile and of a kv tile
+
+// ------------------------------------------------------------ fp32, scalar --
+
+constexpr int F32_THREADS = 256;  // 16 x 16 threads
+
+template <int HD>
+struct F32Bwd {
+  static constexpr int RS = HD + 1;  // padded row stride of a [64][HD] tile
+  static constexpr int PS = BT + 1;  // padded row stride of a [64][64] tile
+  // dq kernel: Q, dO, K, V tiles, the ds tile, m / l / dsum / key validity
+  static constexpr size_t DQ_BYTES = (size_t)(4 * BT * RS + BT * PS + 4 * BT) * sizeof(float);
+  // dkv kernel: K, V, Q, dO tiles, the p^T and ds^T tiles, m / l / dsum / rows
+  static constexpr size_t DKV_BYTES =
+      (size_t)(4 * BT * RS + 2 * BT * PS + 4 * BT) * sizeof(float);
+};
 
 // rows [r0, r0 + 64) of one head's columns of a merged-head tensor -> smem
-// [64][RS] floats; rows past L read as zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t row_stride,
+// [64][HD + 1] floats; rows past L read as zero
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t row_stride,
                                           int r0, int L, int tid) {
-  for (int e = tid; e < BT * HD; e += THREADS) {
+  for (int e = tid; e < BT * HD; e += F32_THREADS) {
     const int r = e / HD, d = e % HD;
     const int row = r0 + r;
-    dst[r * RS + d] = row < L ? to_f(src[(size_t)row * row_stride + d]) : 0.f;
+    dst[r * (HD + 1) + d] = row < L ? src[(size_t)row * row_stride + d] : 0.f;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_causal_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const float* __restrict__ mask,
-                           const T* __restrict__ dout, const float* __restrict__ m_in,
-                           const float* __restrict__ l_in,
-                           const float* __restrict__ dsum_in, T* __restrict__ dq,
-                           int L, int Hq, int Hkv, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                // [BT][RS]
-  float* dOs = Qs + BT * RS;       // [BT][RS]
-  float* Ks = dOs + BT * RS;       // [BT][RS]
-  float* Vs = Ks + BT * RS;        // [BT][RS]
-  float* dSs = Vs + BT * RS;       // [BT][PS]  ds of this tile
-  float* ms = dSs + BT * PS;       // [BT]
-  float* ls = ms + BT;             // [BT]  l with 0 guarded to 1
-  float* dsums = ls + BT;          // [BT]
-  float* kval = dsums + BT;        // [BT]  key validity of this kv tile
+template <int HD>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ mask,
+                        const float* __restrict__ dout, const float* __restrict__ m_in,
+                        const float* __restrict__ l_in, const float* __restrict__ dsum_in,
+                        float* __restrict__ dq, int L, int Hq, int Hkv, float scale) {
+  constexpr int RS = F32Bwd<HD>::RS;
+  constexpr int PS = F32Bwd<HD>::PS;
+  constexpr int OC = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BT][RS]
+  float* dOs = Qs + BT * RS;                        // [BT][RS]
+  float* Ks = dOs + BT * RS;                        // [BT][RS]
+  float* Vs = Ks + BT * RS;                         // [BT][RS]
+  float* dSs = Vs + BT * RS;                        // [BT][PS]  ds of this tile
+  float* ms = dSs + BT * PS;                        // [BT]
+  float* ls = ms + BT;                              // [BT]  l with 0 guarded to 1
+  float* dsums = ls + BT;                           // [BT]
+  float* kval = dsums + BT;                         // [BT]  key validity of this kv tile
 
   // longest rows first: the last q tiles loop over the most kv tiles
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -100,18 +134,18 @@ flash_causal_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (Hq / Hkv);
   const int q0 = qt * BT;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;          // rows ty*4 .. ty*4+3
-  const int tx = tid & 15;          // score cols tx + 16j, output cols tx + 16j
+  const int ty = tid >> 4;  // rows ty*4 .. ty*4+3
+  const int tx = tid & 15;  // score cols tx + 16j, output cols tx + 16j
   const size_t q_row = (size_t)Hq * HD;
   const size_t kv_row = (size_t)Hkv * HD;
-  const T* qb = q + (size_t)b * L * q_row + (size_t)h * HD;
-  const T* dob = dout + (size_t)b * L * q_row + (size_t)h * HD;
-  const T* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  const T* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const float* qb = q + (size_t)b * L * q_row + (size_t)h * HD;
+  const float* dob = dout + (size_t)b * L * q_row + (size_t)h * HD;
+  const float* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
   const float* mb = mask + (size_t)b * L;
 
-  load_tile(Qs, qb, q_row, q0, L, tid);
-  load_tile(dOs, dob, q_row, q0, L, tid);
+  load_tile<HD>(Qs, qb, q_row, q0, L, tid);
+  load_tile<HD>(dOs, dob, q_row, q0, L, tid);
   if (tid < BT) {
     const int row = q0 + tid;
     const size_t r = ((size_t)b * L + row) * Hq + h;
@@ -121,19 +155,19 @@ flash_causal_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dsums[tid] = row < L ? dsum_in[r] : 0.f;
   }
 
-  float acc[4][8];
+  float acc[4][OC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < OC; ++j) acc[i][j] = 0.f;
 
   const int last_row = min(q0 + BT, L) - 1;
   const int n_kv = last_row / BT + 1;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // the previous tile's K reads are done
-    load_tile(Ks, kb, kv_row, k0, L, tid);
-    load_tile(Vs, vb, kv_row, k0, L, tid);
+    load_tile<HD>(Ks, kb, kv_row, k0, L, tid);
+    load_tile<HD>(Vs, vb, kv_row, k0, L, tid);
     if (tid < BT) {
       const int key = k0 + tid;
       kval[tid] = (key < L && mb[key] != 0.f) ? 1.f : 0.f;
@@ -184,47 +218,50 @@ flash_causal_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dq += ds k
 #pragma unroll 4
     for (int c = 0; c < BT; ++c) {
-      float dv_[4], kk[8];
+      float dv_[4], kk[OC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) dv_[i] = dSs[(ty * 4 + i) * PS + c];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kk[j] = Ks[c * RS + tx + 16 * j];
+      for (int j = 0; j < OC; ++j) kk[j] = Ks[c * RS + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(dv_[i], kk[j], acc[i][j]);
+        for (int j = 0; j < OC; ++j) acc[i][j] = fmaf(dv_[i], kk[j], acc[i][j]);
     }
   }
 
-  T* dqb = dq + (size_t)b * L * q_row + (size_t)h * HD;
+  float* dqb = dq + (size_t)b * L * q_row + (size_t)h * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= L) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) store(dqb + (size_t)row * q_row + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < OC; ++j) dqb[(size_t)row * q_row + tx + 16 * j] = acc[i][j];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_causal_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const float* __restrict__ mask,
-                            const T* __restrict__ dout, const float* __restrict__ m_in,
-                            const float* __restrict__ l_in,
-                            const float* __restrict__ dsum_in, T* __restrict__ dk,
-                            T* __restrict__ dv, int L, int Hq, int Hkv, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                // [BT][RS]
-  float* Vs = Ks + BT * RS;        // [BT][RS]
-  float* Qs = Vs + BT * RS;        // [BT][RS]
-  float* dOs = Qs + BT * RS;       // [BT][RS]
-  float* Pt = dOs + BT * RS;       // [BT][PS]  p^T: [key][row]
-  float* dSt = Pt + BT * PS;       // [BT][PS]  ds^T
-  float* ms = dSt + BT * PS;       // [BT]
-  float* ls = ms + BT;             // [BT]
-  float* dsums = ls + BT;          // [BT]
-  float* kval = dsums + BT;        // [BT]
+template <int HD>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ mask,
+                         const float* __restrict__ dout, const float* __restrict__ m_in,
+                         const float* __restrict__ l_in, const float* __restrict__ dsum_in,
+                         float* __restrict__ dk, float* __restrict__ dv, int L, int Hq,
+                         int Hkv, float scale) {
+  constexpr int RS = F32Bwd<HD>::RS;
+  constexpr int PS = F32Bwd<HD>::PS;
+  constexpr int OC = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [BT][RS]
+  float* Vs = Ks + BT * RS;                         // [BT][RS]
+  float* Qs = Vs + BT * RS;                         // [BT][RS]
+  float* dOs = Qs + BT * RS;                        // [BT][RS]
+  float* Pt = dOs + BT * RS;                        // [BT][PS]  p^T: [key][row]
+  float* dSt = Pt + BT * PS;                        // [BT][PS]  ds^T
+  float* ms = dSt + BT * PS;                        // [BT]
+  float* ls = ms + BT;                              // [BT]
+  float* dsums = ls + BT;                           // [BT]
+  float* kval = dsums + BT;                         // [BT]
 
   // the first kv tiles are seen by the most q tiles: start them first
   const int kt = blockIdx.x;
@@ -233,37 +270,37 @@ flash_causal_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int group = Hq / Hkv;
   const int k0 = kt * BT;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;          // keys ty*4 .. ty*4+3
-  const int tx = tid & 15;          // score rows tx + 16j, output cols tx + 16j
+  const int ty = tid >> 4;  // keys ty*4 .. ty*4+3
+  const int tx = tid & 15;  // score rows tx + 16j, output cols tx + 16j
   const size_t q_row = (size_t)Hq * HD;
   const size_t kv_row = (size_t)Hkv * HD;
-  const T* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  const T* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const float* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
   const float* mb = mask + (size_t)b * L;
 
-  load_tile(Ks, kb, kv_row, k0, L, tid);
-  load_tile(Vs, vb, kv_row, k0, L, tid);
+  load_tile<HD>(Ks, kb, kv_row, k0, L, tid);
+  load_tile<HD>(Vs, vb, kv_row, k0, L, tid);
   if (tid < BT) {
     const int key = k0 + tid;
     kval[tid] = (key < L && mb[key] != 0.f) ? 1.f : 0.f;
   }
 
-  float acc_k[4][8], acc_v[4][8];
+  float acc_k[4][OC], acc_v[4][OC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+    for (int j = 0; j < OC; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
   const int n_q = (L + BT - 1) / BT;
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
-    const T* qb = q + (size_t)b * L * q_row + (size_t)h * HD;
-    const T* dob = dout + (size_t)b * L * q_row + (size_t)h * HD;
+    const float* qb = q + (size_t)b * L * q_row + (size_t)h * HD;
+    const float* dob = dout + (size_t)b * L * q_row + (size_t)h * HD;
     for (int qt = kt; qt < n_q; ++qt) {
       const int q0 = qt * BT;
       __syncthreads();  // the previous tile's Q / dO / p^T / ds^T reads are done
-      load_tile(Qs, qb, q_row, q0, L, tid);
-      load_tile(dOs, dob, q_row, q0, L, tid);
+      load_tile<HD>(Qs, qb, q_row, q0, L, tid);
+      load_tile<HD>(dOs, dob, q_row, q0, L, tid);
       if (tid < BT) {
         const int row = q0 + tid;
         const size_t r = ((size_t)b * L + row) * Hq + h;
@@ -320,21 +357,21 @@ flash_causal_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dv += p^T dO, dk += ds^T q
 #pragma unroll 2
       for (int r = 0; r < BT; ++r) {
-        float pv[4], sv[4], ov[8], qv[8];
+        float pv[4], sv[4], ov[OC], qv[OC];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           pv[i] = Pt[(ty * 4 + i) * PS + r];
           sv[i] = dSt[(ty * 4 + i) * PS + r];
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < OC; ++j) {
           ov[j] = dOs[r * RS + tx + 16 * j];
           qv[j] = Qs[r * RS + tx + 16 * j];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < OC; ++j) {
             acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
             acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
           }
@@ -342,75 +379,486 @@ flash_causal_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  T* dvb = dv + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  float* dkb = dk + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  float* dvb = dv + (size_t)b * L * kv_row + (size_t)kvh * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
     if (key >= L) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      store(dkb + (size_t)key * kv_row + tx + 16 * j, acc_k[i][j]);
-      store(dvb + (size_t)key * kv_row + tx + 16 * j, acc_v[i][j]);
+    for (int j = 0; j < OC; ++j) {
+      dkb[(size_t)key * kv_row + tx + 16 * j] = acc_k[i][j];
+      dvb[(size_t)key * kv_row + tx + 16 * j] = acc_v[i][j];
     }
   }
 }
 
-template <typename T>
+// ------------------------------------------------- bf16, tensor cores ------
+
+constexpr int TC_THREADS = 256;  // 8 warps
+constexpr int SLOTS = 128;       // dq kernel: 2 heads x 64 rows, or 1 head x 128 rows
+constexpr int STAGES = 2;        // the ring
+constexpr int PT_LD = BT + 8;    // padded bf16 row of the p^T / ds^T tiles
+
+template <int HD>
+struct TcBwd {
+  static constexpr int LD = HD + 8;  // padded bf16 row (odd multiple of 16 bytes)
+  static constexpr int TILE = BT * LD;
+  // dq kernel: Q and dO [SLOTS][LD], the ring of K and V tiles
+  static constexpr size_t DQ_FIXED = (size_t)(2 * SLOTS * LD + STAGES * 2 * TILE) * sizeof(bf16);
+  // dkv kernel: K and V, the ring of (Q, dO, m / l / dsum), p^T and ds^T
+  static constexpr size_t STAGE_BYTES = 2 * TILE * sizeof(bf16) + 3 * BT * sizeof(float);
+  static constexpr size_t DKV_BYTES = 2 * TILE * sizeof(bf16) + STAGES * STAGE_BYTES +
+                                      2 * BT * PT_LD * sizeof(bf16) + sizeof(unsigned long long);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_causal_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ mask,
+                       const bf16* __restrict__ dout, const float* __restrict__ m_in,
+                       const float* __restrict__ l_in, const float* __restrict__ dsum_in,
+                       bf16* __restrict__ dq, int L, int Hq, int Hkv, int nh, float scale) {
+  using S = TcBwd<HD>;
+  constexpr int LD = S::LD;
+  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [SLOTS][LD]
+  bf16* dOs = Qs + SLOTS * LD;                    // [SLOTS][LD]
+  bf16* KVs = dOs + SLOTS * LD;                   // [STAGES][K, V][BT][LD]
+  const int n_kv_max = (L + BT - 1) / BT;
+  unsigned long long* kbits =
+      reinterpret_cast<unsigned long long*>(smem_raw + S::DQ_FIXED);  // [n_kv_max]
+  int* tiles = reinterpret_cast<int*>(kbits + n_kv_max);               // [n_kv_max + 1]
+
+  const int rows = SLOTS / nh;  // query rows of the block
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int h0 = blockIdx.y * nh;
+  const int b = blockIdx.z;
+  const int kvh = h0 / (Hq / Hkv);  // nh == 2 only when the group is even
+  const int q0 = qt * rows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int slot0 = warp * 16;        // the warp's 16 slots
+  const int h = h0 + slot0 / rows;    // its head
+  const int wr0 = q0 + slot0 % rows;  // its first query row
+  const size_t q_row = (size_t)Hq * HD;
+  const size_t kv_row = (size_t)Hkv * HD;
+  const bf16* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const bf16* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const float* mb = mask + (size_t)b * L;
+  const int n_kv = (min(q0 + rows, L) - 1) / BT + 1;
+
+  live_tiles(mb, L, n_kv, n_kv_max, kbits, tiles);
+  const int n_live = tiles[n_kv_max];
+
+  // Q and dO: slot s is row q0 + s % rows of head h0 + s / rows
+  for (int c = tid; c < SLOTS * CH; c += TC_THREADS) {
+    const int s = c / CH, ch = c % CH;
+    const int row = q0 + s % rows;
+    const bool ok = row < L;
+    const size_t off =
+        ((size_t)b * L + (ok ? row : 0)) * q_row + (size_t)(h0 + s / rows) * HD + ch * 8;
+    cp_async_16(smem_addr(Qs + s * LD + ch * 8), q + off, ok);
+    cp_async_16(smem_addr(dOs + s * LD + ch * 8), dout + off, ok);
+  }
+  auto load_kv = [&](int stage, int t) {
+    bf16* ks = KVs + stage * 2 * S::TILE;
+    bf16* vs = ks + S::TILE;
+    for (int c = tid; c < BT * CH; c += TC_THREADS) {
+      const int r = c / CH, ch = c % CH;
+      const int key = t * BT + r;
+      const bool ok = key < L;  // keys past L are zero-filled
+      const size_t off = (size_t)(ok ? key : 0) * kv_row + ch * 8;
+      cp_async_16(smem_addr(ks + r * LD + ch * 8), kb + off, ok);
+      cp_async_16(smem_addr(vs + r * LD + ch * 8), vb + off, ok);
+    }
+  };
+  if (n_live > 0) load_kv(0, tiles[0]);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp: m, 1 / l (l == 0 guarded to 1), dsum
+  float mr[2], il[2], dsr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr0 + g + 8 * i;
+    const size_t r = ((size_t)b * L + row) * Hq + h;
+    const float lv = row < L ? l_in[r] : 1.f;
+    mr[i] = row < L ? m_in[r] : 0.f;
+    il[i] = 1.f / (lv == 0.f ? 1.f : lv);
+    dsr[i] = row < L ? dsum_in[r] : 0.f;
+  }
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_live; ++j) {
+    if (j + 1 < n_live) load_kv((j + 1) % STAGES, tiles[j + 1]);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q, dO) has landed
+    __syncthreads();
+    const int t = tiles[j];
+    const int k0 = t * BT;
+    if (k0 <= wr0 + 15) {
+      const bf16* ks = KVs + (j % STAGES) * 2 * S::TILE;
+      const bf16* vs = ks + S::TILE;
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        const int arow = (slot0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(aq, smem_addr(Qs + arow));
+        ldmatrix_x4(ao, smem_addr(dOs + arow));
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          const int brow =
+              (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, smem_addr(ks + brow));
+          ldmatrix_x4(bv, smem_addr(vs + brow));
+          mma_16816(s[2 * nj], aq, bk[0], bk[1]);
+          mma_16816(s[2 * nj + 1], aq, bk[2], bk[3]);
+          mma_16816(dp[2 * nj], ao, bv[0], bv[1]);
+          mma_16816(dp[2 * nj + 1], ao, bv[2], bv[3]);
+        }
+      }
+      // p and ds in the accumulator layout; ds overwrites s
+      const unsigned long long bits = kbits[t];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t4 + (e & 1);
+          const int i = e >> 1;
+          const int row = wr0 + g + 8 * i;
+          const bool ok = row < L && ((bits >> c) & 1ull) && k0 + c <= row;
+          const float p = ok ? __expf(s[n][e] * scale - mr[i]) * il[i] : 0.f;
+          s[n][e] = p * (dp[n][e] - dsr[i]) * scale;
+        }
+      // dq += ds K: ds (bf16) from the fragments, K via ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int nd = 0; nd < HD / 16; ++nd) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, smem_addr(ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                          nd * 16 + (lane >> 4) * 8));
+          mma_16816(acc[2 * nd], a, bk[0], bk[1]);
+          mma_16816(acc[2 * nd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage j before tile j + 2 refills it
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr0 + g + 8 * i;
+    if (row >= L) continue;
+    bf16* drow = dq + ((size_t)b * L + row) * q_row + (size_t)h * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(drow + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_causal_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ mask,
+                        const bf16* __restrict__ dout, const float* __restrict__ m_in,
+                        const float* __restrict__ l_in, const float* __restrict__ dsum_in,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int Hq, int Hkv,
+                        float scale) {
+  using S = TcBwd<HD>;
+  constexpr int LD = S::LD;
+  constexpr int CH = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BT][LD]
+  bf16* Vs = Ks + S::TILE;                        // [BT][LD]
+  unsigned char* ring = smem_raw + 2 * S::TILE * sizeof(bf16);  // [STAGES][STAGE_BYTES]
+  bf16* Pt = reinterpret_cast<bf16*>(ring + STAGES * S::STAGE_BYTES);  // [BT][PT_LD] p^T
+  bf16* dSt = Pt + BT * PT_LD;                                          // [BT][PT_LD] ds^T
+  unsigned long long* kbits = reinterpret_cast<unsigned long long*>(dSt + BT * PT_LD);
+
+  // the first kv tiles are seen by the most q tiles: start them first
+  const int kt = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int k0 = kt * BT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int kw = (warp & 3) * 16;  // the warp's 16 keys of the tile
+  const int half = warp >> 2;      // S^T: rows 32 half ..; dk (1) or dv (0)
+  const size_t q_row = (size_t)Hq * HD;
+  const size_t kv_row = (size_t)Hkv * HD;
+  const bf16* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const bf16* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  const float* mb = mask + (size_t)b * L;
+  bf16* dkb = dk + (size_t)b * L * kv_row + (size_t)kvh * HD;
+  bf16* dvb = dv + (size_t)b * L * kv_row + (size_t)kvh * HD;
+
+  if (warp == 0) {
+    const int ka = k0 + lane, kc = ka + 32;
+    const unsigned lo = __ballot_sync(0xffffffffu, ka < L && mb[ka] != 0.f);
+    const unsigned hi = __ballot_sync(0xffffffffu, kc < L && mb[kc] != 0.f);
+    if (lane == 0) *kbits = ((unsigned long long)hi << 32) | lo;
+  }
+  __syncthreads();
+  const unsigned long long bits = *kbits;
+  if (bits == 0ull) {  // every key of the tile is padding: no gradient
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+    for (int e = tid; e < BT * HD / 2; e += TC_THREADS) {
+      const int r = e / (HD / 2), c = 2 * (e % (HD / 2));
+      const int key = k0 + r;
+      if (key >= L) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key * kv_row + c) = zero;
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key * kv_row + c) = zero;
+    }
+    return;
+  }
+
+  for (int c = tid; c < BT * CH; c += TC_THREADS) {
+    const int r = c / CH, ch = c % CH;
+    const int key = k0 + r;
+    const bool ok = key < L;
+    const size_t off = (size_t)(ok ? key : 0) * kv_row + ch * 8;
+    cp_async_16(smem_addr(Ks + r * LD + ch * 8), kb + off, ok);
+    cp_async_16(smem_addr(Vs + r * LD + ch * 8), vb + off, ok);
+  }
+
+  // iteration i: head kvh * group + i / n_qt, q tile kt + i % n_qt
+  const int n_qt = (L + BT - 1) / BT - kt;
+  const int n_it = group * n_qt;
+  auto load_q = [&](int stage, int i) {
+    const int h = kvh * group + i / n_qt;
+    const int q0 = (kt + i % n_qt) * BT;
+    unsigned char* st = ring + stage * S::STAGE_BYTES;
+    bf16* qs = reinterpret_cast<bf16*>(st);
+    bf16* os = qs + S::TILE;
+    float* stats = reinterpret_cast<float*>(os + S::TILE);  // m, l, dsum [3][BT]
+    for (int c = tid; c < BT * CH; c += TC_THREADS) {
+      const int r = c / CH, ch = c % CH;
+      const int row = q0 + r;
+      const bool ok = row < L;
+      const size_t off = ((size_t)b * L + (ok ? row : 0)) * q_row + (size_t)h * HD + ch * 8;
+      cp_async_16(smem_addr(qs + r * LD + ch * 8), q + off, ok);
+      cp_async_16(smem_addr(os + r * LD + ch * 8), dout + off, ok);
+    }
+    if (tid < 3 * BT) {
+      const int which = tid / BT, r = tid % BT;
+      const int row = q0 + r;
+      const bool ok = row < L;  // rows past L: m = l = dsum = 0 (masked below)
+      const float* src = which == 0 ? m_in : which == 1 ? l_in : dsum_in;
+      cp_async_4(smem_addr(stats + tid), src + ((size_t)b * L + (ok ? row : 0)) * Hq + h, ok);
+    }
+  };
+  load_q(0, 0);
+  cp_async_commit();
+
+  float acc[HD / 8][4];  // dv (warps 0-3) or dk (warps 4-7) of the warp's keys
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_it; ++i) {
+    if (i + 1 < n_it) load_q((i + 1) % STAGES, i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // stage i (and K, V) has landed
+    __syncthreads();
+    const int q0 = (kt + i % n_qt) * BT;
+    const unsigned char* st = ring + (i % STAGES) * S::STAGE_BYTES;
+    const bf16* qs = reinterpret_cast<const bf16*>(st);
+    const bf16* os = qs + S::TILE;
+    const float* ms = reinterpret_cast<const float*>(os + S::TILE);
+    const float* ls = ms + BT;
+    const float* dsums = ls + BT;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys kw .. kw + 15, rows 32 half .. + 31
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      const int arow = (kw + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(ak, smem_addr(Ks + arow));
+      ldmatrix_x4(av, smem_addr(Vs + arow));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int brow = (32 * half + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                         ((lane >> 3) & 1) * 8;
+        uint32_t bq[4], bo[4];
+        ldmatrix_x4(bq, smem_addr(qs + brow));
+        ldmatrix_x4(bo, smem_addr(os + brow));
+        mma_16816(s[2 * np], ak, bq[0], bq[1]);
+        mma_16816(s[2 * np + 1], ak, bq[2], bq[3]);
+        mma_16816(dp[2 * np], av, bo[0], bo[1]);
+        mma_16816(dp[2 * np + 1], av, bo[2], bo[3]);
+      }
+    }
+    // p^T and ds^T, rounded to bf16 into shared memory
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = kw + g + 8 * hf;  // key within the tile
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 32 * half + n * 8 + 2 * t4 + e;  // row within the q tile
+          const int row = q0 + r;
+          const bool ok = row < L && ((bits >> c) & 1ull) && k0 + c <= row;
+          const float lv = ls[r];
+          p[e] = ok ? __expf(s[n][2 * hf + e] * scale - ms[r]) / (lv == 0.f ? 1.f : lv) : 0.f;
+          ds[e] = p[e] * (dp[n][2 * hf + e] - dsums[r]) * scale;
+        }
+        const int at = c * PT_LD + 32 * half + n * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(Pt + at) = pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(ds[0], ds[1]);
+      }
+    __syncthreads();  // p^T and ds^T written
+
+    // dv += p^T dO (warps 0-3), dk += ds^T Q (warps 4-7); B via ldmatrix.trans
+    const bf16* as = half ? dSt : Pt;
+    const bf16* bs = half ? qs : os;
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, smem_addr(as + (kw + (lane & 15)) * PT_LD + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, smem_addr(bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                        nd * 16 + (lane >> 4) * 8));
+        mma_16816(acc[2 * nd], a, bb[0], bb[1]);
+        mma_16816(acc[2 * nd + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // p^T / ds^T and stage i are free for the next iteration
+  }
+  cp_async_wait<0>();
+
+  bf16* outb = half ? dkb : dvb;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = k0 + kw + g + 8 * hf;
+    if (key >= L) continue;
+    bf16* orow = outb + (size_t)key * kv_row;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2 * hf], acc[n][2 * hf + 1]);
+  }
+}
+
+// ----------------------------------------------------------------- launch --
+
+template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* mask,
-                      const void* dout, const float* m, const float* l,
-                      const float* dsum, void* dq, int B, int L, int Hq, int Hkv,
-                      cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DQ_SMEM_BYTES);
+                      const void* dout, const float* m, const float* l, const float* dsum,
+                      void* dq, int B, int L, int Hq, int Hkv, bool bf, cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf((float)HD);
+  if (!bf) {
+    const size_t smem = F32Bwd<HD>::DQ_BYTES;
+    cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dq_f32<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((L + BT - 1) / BT, Hq, B);
+    flash_causal_bwd_dq_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, static_cast<const float*>(dout), m, l, dsum,
+        static_cast<float*>(dq), L, Hq, Hkv, scale);
+    return cudaGetLastError();
+  }
+  const size_t smem = TcBwd<HD>::DQ_FIXED + live_tiles_bytes(L);
+  cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dq_tc<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((L + BT - 1) / BT, Hq, B);
-  flash_causal_bwd_dq_kernel<T><<<grid, THREADS, DQ_SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<const T*>(dout), m, l, dsum, static_cast<T*>(dq), L, Hq, Hkv,
-      1.0f / sqrtf((float)HD));
+  const int nh = (Hq / Hkv) % 2 == 0 ? 2 : 1;  // heads per block
+  const int rows = SLOTS / nh;
+  dim3 grid((L + rows - 1) / rows, Hq / nh, B);
+  flash_causal_bwd_dq_tc<HD><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      mask, static_cast<const bf16*>(dout), m, l, dsum, static_cast<bf16*>(dq), L, Hq, Hkv, nh,
+      scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const float* mask,
-                       const void* dout, const float* m, const float* l,
-                       const float* dsum, void* dk, void* dv, int B, int L, int Hq,
-                       int Hkv, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dkv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DKV_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
+                       const void* dout, const float* m, const float* l, const float* dsum,
+                       void* dk, void* dv, int B, int L, int Hq, int Hkv, bool bf,
+                       cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf((float)HD);
   dim3 grid((L + BT - 1) / BT, Hkv, B);
-  flash_causal_bwd_dkv_kernel<T><<<grid, THREADS, DKV_SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<const T*>(dout), m, l, dsum, static_cast<T*>(dk),
-      static_cast<T*>(dv), L, Hq, Hkv, 1.0f / sqrtf((float)HD));
+  if (!bf) {
+    const size_t smem = F32Bwd<HD>::DKV_BYTES;
+    cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dkv_f32<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_causal_bwd_dkv_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, static_cast<const float*>(dout), m, l, dsum,
+        static_cast<float*>(dk), static_cast<float*>(dv), L, Hq, Hkv, scale);
+    return cudaGetLastError();
+  }
+  const size_t smem = TcBwd<HD>::DKV_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dkv_tc<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_causal_bwd_dkv_tc<HD><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      mask, static_cast<const bf16*>(dout), m, l, dsum, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), L, Hq, Hkv, scale);
   return cudaGetLastError();
 }
 
-bool bad_shape(int head_dim, int B, int L, int Hq, int Hkv) {
-  return head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || L <= 0;
+bool bad_shape(int B, int L, int Hq, int Hkv, int dtype) {
+  return Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || L <= 0 || dtype < 0 || dtype > 1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim must be 128.
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: a multiple of 16 up to 128
+// (cudaErrorInvalidValue otherwise).
 extern "C" int unirec_flash_causal_bwd_dq(const void* q, const void* k, const void* v,
                                           const float* mask, const void* dout,
                                           const float* m, const float* l,
                                           const float* dsum, void* dq, int B, int L,
                                           int Hq, int Hkv, int head_dim, int dtype,
                                           void* stream) {
-  if (bad_shape(head_dim, B, L, Hq, Hkv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, L, Hq, Hkv, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_dq<float>(q, k, v, mask, dout, m, l, dsum, dq, B, L, Hq, Hkv, s);
-  if (dtype == 1)
-    return (int)launch_dq<__nv_bfloat16>(q, k, v, mask, dout, m, l, dsum, dq, B, L,
-                                         Hq, Hkv, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(head_dim, [&](auto hd) {
+    return launch_dq<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dq, B, L, Hq, Hkv,
+                                          dtype == 1, s);
+  });
 }
 
 extern "C" int unirec_flash_causal_bwd_dkv(const void* q, const void* k, const void* v,
@@ -419,13 +867,10 @@ extern "C" int unirec_flash_causal_bwd_dkv(const void* q, const void* k, const v
                                            const float* dsum, void* dk, void* dv,
                                            int B, int L, int Hq, int Hkv, int head_dim,
                                            int dtype, void* stream) {
-  if (bad_shape(head_dim, B, L, Hq, Hkv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, L, Hq, Hkv, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_dkv<float>(q, k, v, mask, dout, m, l, dsum, dk, dv, B, L, Hq,
-                                  Hkv, s);
-  if (dtype == 1)
-    return (int)launch_dkv<__nv_bfloat16>(q, k, v, mask, dout, m, l, dsum, dk, dv, B,
-                                          L, Hq, Hkv, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(head_dim, [&](auto hd) {
+    return launch_dkv<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dk, dv, B, L, Hq,
+                                           Hkv, dtype == 1, s);
+  });
 }

@@ -1,6 +1,7 @@
 // The bf16 GEMM shared by the Item Q-Former kernels (qformer_blocks.cu: B1-B6;
-// fused_qformer_vjp.cu: B12s/B12c), with the cp.async / ldmatrix / mma.sync
-// helpers the int8 GEMM of qformer_blocks.cu also uses.
+// fused_qformer_vjp.cu: B12s/B12c).  Its cp.async / ldmatrix / mma.sync
+// helpers, which the int8 GEMM of qformer_blocks.cu also uses, are in
+// ptx_helpers.cuh.
 //
 //   gemm_bf16_kernel: C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with K
 //   contiguous (W is the torch Linear layout), 128x128x32 block tiles, 8 warps
@@ -20,6 +21,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ptx_helpers.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -37,41 +40,6 @@ constexpr int W_TILE = BN * LDS;
 constexpr int GEMM_SMEM = STAGES * (A_TILE + W_TILE) * (int)sizeof(bf16);  // 61,440
 
 enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESID = 2, EPI_F32 = 3 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy; pred false zero-fills the destination
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool pred) {
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // jax.nn.gelu(approximate=True) in fp32
 __device__ __forceinline__ float gelu_tanh(float x) {

@@ -1,6 +1,7 @@
 // The head dimensions the attention kernels of flash_cross.cu (B13, B14,
-// B14p) and packed_attention.cu (B15) are built for: every multiple of 16 up
-// to 128 (ops/attention.py:KERNEL_HEAD_DIMS).  Each kernel takes the head
+// B14p), packed_attention.cu (B15) and flash_causal_fwd.cu /
+// flash_causal_bwd.cu (K1, B7b) are built for: every multiple of 16 up to
+// 128 (ops/attention.py:KERNEL_HEAD_DIMS).  Each kernel takes the head
 // dimension as a template parameter; with_head_dim maps the runtime value to
 // one instance.
 #pragma once

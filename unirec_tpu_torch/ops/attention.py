@@ -34,9 +34,10 @@ NEG_INF = -1e9
 # Memory length from which the JAX package takes its streaming kernel.
 FLASH_MIN_KV = 1024
 
-# the head dimensions the streaming kernels (csrc/flash_cross.cu) and the
-# packed item attention (csrc/packed_attention.cu) are built for: every
-# multiple of 16 up to 128
+# the head dimensions the streaming kernels (csrc/flash_cross.cu), the
+# packed item attention (csrc/packed_attention.cu) and the causal flash
+# kernels K1 and B7b (csrc/flash_causal_*.cu) are built for: every multiple
+# of 16 up to 128
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
 
 

@@ -7,8 +7,27 @@ K1 (``csrc/flash_causal_fwd.cu``) replaces
 attention that ``unirec_tpu/models/qwen3.py`` takes for deterministic
 forwards.  B7b (``csrc/flash_causal_bwd.cu``, a dq kernel and a dk/dv kernel)
 replaces that file's ``_bwd`` (``_dq_kernel``, ``_dkv_kernel``), the backward
-of its ``jax.custom_vjp``.  The sources' notes say what bounds each kernel on
-the card and how the first designs handle it.
+of its ``jax.custom_vjp``.
+
+On the card, at the Qwen3-0.6B shapes (B 8, L 512, 16 query and 8 KV heads
+of 128), each kernel is bound by the bytes it must move (q, k, v, dO and the
+outputs: about 15 us for K1 and 20 us for each B7b kernel at 3.35 TB/s);
+the arithmetic of the causal pairs takes a third of that at the bf16
+tensor-core peak.  For bf16 the three kernels are FlashAttention-2 designs
+on tensor cores (``mma.sync.m16n8k16``, fp32 accumulation): bf16 tiles in
+shared memory filled by 16-byte ``cp.async`` copies through a two-stage
+ring, one block per pair of query heads of a GQA group so each K/V tile is
+loaded once for both, online softmax in fp32 registers, P and dS rounded to
+bf16 in registers before their products, tiles above the diagonal and key
+tiles that are all padding never loaded.  float32 keeps the scalar fp32 FMA
+design: tensor cores would mean TF32, which breaks the 1e-5 float32 gates.
+The sources' notes give the details, and why ``wgmma`` is the next step.
+
+Head dims: the kernels take every multiple of 16 up to 128
+(``ops/attention.KERNEL_HEAD_DIMS``, checked by ``check_head_dim``); any
+other raises on a CUDA tensor, naming the set.  The JAX kernel pads lanes
+and takes any head dim; the plain versions here do too, so CPU tensors take
+every head dim.
 
 Layout: merged heads, K/V un-repeated.  q ``[B, L, Hq*hd]``, k/v
 ``[B, L, Hkv*hd]``, pad mask ``[B, L]`` (1 valid, 0 padded key); output
@@ -42,9 +61,7 @@ from typing import Optional, Tuple
 import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
-from unirec_tpu_torch.ops.attention import NEG_INF
-
-KERNEL_HEAD_DIM = 128
+from unirec_tpu_torch.ops.attention import NEG_INF, check_head_dim
 
 
 def check_pad_mask(pad_mask: torch.Tensor) -> None:
@@ -76,12 +93,11 @@ def _check_shapes(q, k, v, pad_mask, num_q_heads, num_kv_heads, mask_checked
 def _check_kernel_inputs(name: str, num_q_heads: int,
                          *tensors: torch.Tensor) -> None:
     """What the CUDA kernels take: one CUDA device, fp32 or bf16 q/k/v of one
-    dtype (the first three tensors), head_dim 128, contiguous."""
+    dtype (the first three tensors), a head dim in ``KERNEL_HEAD_DIMS``,
+    contiguous, and each tensor on a 16-byte boundary (the bf16 kernels copy
+    rows in 16-byte pieces)."""
     q = tensors[0]
-    hd = q.shape[-1] // num_q_heads
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name} is built for head_dim {KERNEL_HEAD_DIM}, "
-                         f"got {hd}")
+    check_head_dim(name, q.shape[-1] // num_q_heads)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -92,6 +108,8 @@ def _check_kernel_inputs(name: str, num_q_heads: int,
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs every tensor on a 16-byte boundary")
 
 
 def _dtype_code(t: torch.Tensor) -> int:
