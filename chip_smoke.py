@@ -163,8 +163,9 @@ CATALOG, DIM, K2_K = 20_000, 1_024, 20
 N_REQUESTS, SERVE_K, BATCH = 24, 10, 8
 K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # K1 and B7b at the other head dims the kernels take (C-4), GQA 2:1: a row
-# whose last three key tiles are all padding, a 129-key row, a 5-key row
-CAUSAL_OTHER = dict(B=4, L=512, HQ=16, HKV=8, HD=(64, 32),
+# whose last three key tiles are all padding, a 129-key row, a 5-key row;
+# hd 8 and 24 run zero-padded to 16 and 32, 256 is an instance of its own
+CAUSAL_OTHER = dict(B=4, L=512, HQ=16, HKV=8, HD=(64, 32, 8, 24, 256),
                     LENGTHS=(512, 320, 129, 5))
 K2_TIE, K2_SCORE_TOL = 1e-6, 1e-5
 # B1-B3 (bf16 in and out) against their plain versions on the same inputs, in
@@ -245,8 +246,10 @@ ITEM_BATCH, ITEM_STEPS, ITEM_CLI_USERS, PRECOMPUTE_ITEMS = 512, 10, 256, 2000
 # KERNEL_COS)
 USER_BATCH, USER_SEQ, USER_HEADS = 64, 50, 16
 USER_RAGGED = (8, 1000)
-# B13 / B14 also at the head dims of 32 and 8 heads of the same width
-FLASH_OTHER_HD = (32, 128)
+# B13 / B14 also at the head dims of 32 and 8 heads of the same width, at
+# hd 8 and 24 (zero-padded to 16 and 32; 24 in 16 heads, a width of 384) and
+# at hd 256 (4 heads of the same width)
+FLASH_OTHER_HD = (32, 128, 8, 24, 256)
 # train_cli user-qformer: histories of 20-60 items over the sweep's cache
 # (~760 sliding-window samples: 10 steps an epoch at batch 64, 2 evaluation
 # batches), a few items missing from the cache
@@ -870,11 +873,11 @@ def phase_b12(gen) -> dict:
 # -- B13 / B14: the user stage's streaming cross-attention --------------------
 
 
-def flash_inputs(gen, b, lkv, dtype):
-    """Merged-head q and dO [B, 64, 1024], k3 / v3 [B, Lkv, 1024], and a
+def flash_inputs(gen, b, lkv, dtype, d=QF_D):
+    """Merged-head q and dO [B, 64, d], k3 / v3 [B, Lkv, d], and a
     per-key bias [B, 1, 1, Lkv] with ~15% of the keys masked and batch row 1
     masked whole (a user whose history is all missing from the cache)."""
-    lq, d = 64, QF_D
+    lq = 64
     q, do = (torch.randn(b, lq, d, device="cuda", generator=gen).to(dtype)
              for _ in range(2))
     k3, v3 = (torch.randn(b, lkv, d, device="cuda", generator=gen).to(dtype)
@@ -901,17 +904,18 @@ def flash_bounds(b, lq, lkv, size) -> dict:
                              5 * prod, kind)}
 
 
-def check_flash_cross(gen, dtype, b, lkv, h, res) -> dict:
+def check_flash_cross(gen, dtype, b, lkv, h, hd, res) -> dict:
     """B13 and B14 (forward and backward) against their plain versions at
-    one dtype, batch, memory length and head count (merged width 1024), each
-    run twice for identical bits; the fully masked user averages its keys
-    uniformly.  Returns the runs and inputs, for timing."""
+    one dtype, batch, memory length, head count and head dim (merged width h
+    * hd), each run twice for identical bits; the fully masked user averages
+    its keys uniformly.  Returns the runs and inputs, for timing, and B14's
+    forward + backward as ``_FlashCrossProj`` runs them without its
+    projections (``path``)."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
-    hd = QF_D // h
-    where = f"{dtype} B={b} Lq=64 Lkv={lkv} hd={hd}"
-    q, k3, v3, do, bias = flash_inputs(gen, b, lkv, dtype)
+    where = f"{dtype} B={b} Lq=64 Lkv={lkv} H={h} hd={hd}"
+    q, k3, v3, do, bias = flash_inputs(gen, b, lkv, dtype, h * hd)
     qh, kh, vh = (pa.split_heads(t, h) for t in (q, k3, v3))
     bias32 = pa.key_bias(bias, b, lkv, q.device)
     state = {}
@@ -943,8 +947,15 @@ def check_flash_cross(gen, dtype, b, lkv, h, res) -> dict:
             state["ml"] = got[1:]
             state["dsum"] = fl.attention_dsum(do, got[0], h).contiguous()
     log(f"B13 / B14 {where}: the kernels repeat bit for bit")
+
+    def path():
+        o32, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, h)
+        o32.to(dtype)
+        dsum = fl.attention_dsum(do, o32, h).contiguous()
+        fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, h)
+
     return {"runs": runs, "qh": qh, "kh": kh, "vh": vh, "do": do,
-            "bias": bias}
+            "bias": bias, "path": path}
 
 
 def check_outputs(name, outs, got, ref, where, res) -> None:
@@ -1006,21 +1017,26 @@ def phase_flash_cross(gen) -> dict:
     """B13 and B14 (forward and backward) against their plain versions, in
     fp32 and bf16, at the user stage's batch (64 users, 1,600 memory rows)
     and over a ragged 1,000-row memory in 16 heads of 64, and over the
-    ragged memory in 32 heads of 32 and 8 of 128; each run twice for
-    identical bits.  Timed in bf16 at the user shape beside the plain
+    ragged memory at the other head dims (FLASH_OTHER_HD: heads of the same
+    width, 16 heads where the head dim does not divide it); each run twice
+    for identical bits.  Timed in bf16 at the user shape beside the plain
     versions, the bounds and ``scaled_dot_product_attention`` (forward for
-    B13 and B14's forward, forward + backward for B14's backward)."""
+    B13 and B14's forward, forward + backward for B14's backward, which
+    also gets ``path_ms``: B14's forward + backward as the autograd
+    Function runs them, without its projections)."""
     from unirec_tpu_torch.ops import attention as pa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
-    cases = [(dtype, b, lkv, USER_HEADS)
+    cases = [(dtype, b, lkv, USER_HEADS, QF_D // USER_HEADS)
              for dtype in (torch.float32, torch.bfloat16)
              for b, lkv in ((USER_BATCH, USER_SEQ * QF_K), USER_RAGGED)]
-    cases += [(dtype, *USER_RAGGED, QF_D // hd) for hd in FLASH_OTHER_HD
+    cases += [(dtype, *USER_RAGGED,
+               QF_D // hd if QF_D % hd == 0 else USER_HEADS, hd)
+              for hd in FLASH_OTHER_HD
               for dtype in (torch.float32, torch.bfloat16)]
-    for dtype, b, lkv, h in cases:
-        c = check_flash_cross(gen, dtype, b, lkv, h, res)
+    for dtype, b, lkv, h, hd in cases:
+        c = check_flash_cross(gen, dtype, b, lkv, h, hd, res)
         if dtype == torch.bfloat16 and b == USER_BATCH:
             mask = c["bias"].to(dtype)
             qh, kh, vh = c["qh"], c["kh"], c["vh"]
@@ -1032,6 +1048,17 @@ def phase_flash_cross(gen) -> dict:
                                                pa.split_heads(c["do"], h))}
             time_runs(c["runs"], library, flash_bounds(b, 64, lkv, 2), res,
                       f"{dtype} B={b} Lq=64 Lkv={lkv}")
+            res["b14_bwd"]["path_ms"] = time_ms(c["path"], iters=20,
+                                                warmup=3)
+            log(f"B14 forward + backward through the Function's kernels "
+                f"{dtype} B={b} Lq=64 Lkv={lkv}: "
+                f"{res['b14_bwd']['path_ms']:.4f} ms (SDPA forward + "
+                f"backward {res['b14_bwd']['library_ms']:.4f} ms)")
+        elif dtype == torch.bfloat16:  # the ragged memory at each head dim
+            log(f"B13 / B14 kernel times {dtype} B={b} Lq=64 Lkv={lkv} "
+                f"H={h} hd={hd}: " + ", ".join(
+                    f"{name} {time_ms(kern, iters=10):.4f} ms"
+                    for name, (kern, _, _) in c["runs"].items()))
         del c
         torch.cuda.empty_cache()
     return res
@@ -1060,8 +1087,10 @@ def phase_b14p(gen) -> dict:
     after (one forward and one backward a case).  The cases: the user
     stage's shape in per-head layout (64 users x 16 heads x 64 queries over
     1,600 memory rows, hd 64) and a ragged 1,000-row memory (8 users), ~15%
-    masked keys and one user masked whole, and the JAX tests' shape (2 x 3
-    heads x 16 queries over 384 keys, hd 32); fp32 and bf16.  Then the
+    masked keys and one user masked whole, the JAX tests' shape (2 x 3
+    heads x 16 queries over 384 keys, hd 32), 200 queries (four q tiles: the
+    bf16 backward's partial dk / dv and their sum) and one query over the
+    ragged memory; fp32 and bf16.  Then the
     output and gradients against the plain path's, the kernels (forward:
     o, m, l; backward: dq, dk, dv) against their plain versions, identical
     bits on a repeat, exactly zero dk / dv at masked keys, the masked user's
@@ -1073,7 +1102,9 @@ def phase_b14p(gen) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = ((USER_BATCH, USER_HEADS, 64, USER_SEQ * QF_K, 64),
               (USER_RAGGED[0], USER_HEADS, 64, USER_RAGGED[1], 64),
-              (2, 3, 16, 384, 32))
+              (2, 3, 16, 384, 32),
+              (USER_RAGGED[0], 4, 200, USER_RAGGED[1], 64),
+              (USER_RAGGED[0], USER_HEADS, 1, USER_RAGGED[1], 64))
     cases = [(dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
              for shape in shapes]
     inputs = {case: b14p_inputs(gen, *case[1:], case[0]) for case in cases}
@@ -1154,6 +1185,15 @@ def phase_b14p(gen) -> dict:
             time_runs(runs, library, {"b14p_fwd": bounds["b14_fwd"],
                                       "b14p_bwd": bounds["b14_bwd"]}, res,
                       where)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            res["b14p_bwd"]["path_ms"] = time_ms(
+                lambda: torch.autograd.grad(
+                    fl.flash_cross_attention_vjp(*leaves, bias), leaves, do),
+                iters=20, warmup=3)
+            log(f"B14p forward + backward through flash_cross_attention_vjp"
+                f" {where}: {res['b14p_bwd']['path_ms']:.4f} ms (SDPA "
+                f"forward + backward {res['b14p_bwd']['library_ms']:.4f} ms)")
+            del leaves
         del runs, state
         torch.cuda.empty_cache()
     for name in res:
@@ -1194,7 +1234,8 @@ def phase_b15(gen) -> dict:
     its cases and read after (one launch a case): the item sweep's self
     shape (4096 items x 16 heads, K = F = 32, hd 64) and cross shape (F =
     14), a ragged 1,001 items over 14 fields with ~15% missing and 9 items
-    without any, and K = 2 (1,001 items, F = 14, hd 32); fp32 and bf16.
+    without any, and K = 2 (1,001 items, F = 14, hd 32), and the ragged
+    items at hd 8 and 24 (zero-padded to 16 and 32); fp32 and bf16.
     Each against the plain version, repeated for identical bits, the items
     without a field against their own values' mean; timed in bf16 at the
     two sweep shapes beside the plain version, the bound and SDPA."""
@@ -1204,7 +1245,9 @@ def phase_b15(gen) -> dict:
     shapes = ((SWEEP_BATCH, QF_K, QF_K, 64, 0.0),
               (SWEEP_BATCH, QF_K, QF_F, 64, 0.0),
               (BLOCK_ITEMS[1], QF_K, QF_F, 64, 0.15),
-              (BLOCK_ITEMS[1], 2, QF_F, 32, 0.15))
+              (BLOCK_ITEMS[1], 2, QF_F, 32, 0.15),
+              (BLOCK_ITEMS[1], QF_K, QF_F, 8, 0.15),
+              (BLOCK_ITEMS[1], QF_K, QF_F, 24, 0.15))
     cases = [(dtype, shape) for dtype in (torch.float32, torch.bfloat16)
              for shape in shapes]
     inputs = {case: b15_inputs(gen, *case[1][:4], case[0], case[1][4])
@@ -2037,9 +2080,11 @@ def b7b_errors(q, k, v, do, mask, hq, hkv, hd) -> tuple:
 def phase_b7b(gen) -> dict:
     """K1's training form (o, m, l) and B7b's two kernels against their plain
     versions at the joint training shape, with random right padding (key 0
-    valid), and K1 in both forms and B7b at hd 64 and 32 (CAUSAL_OTHER),
-    fp32 and bf16, repeats identical; times against the plain versions and
-    scaled_dot_product_attention forward + backward (the yardstick)."""
+    valid), and K1 in both forms and B7b at the other head dims
+    (CAUSAL_OTHER: 64, 32, 8 and 24 zero-padded, 256), fp32 and bf16,
+    repeats identical; times against the plain versions and
+    scaled_dot_product_attention forward + backward (the yardstick), and
+    the kernels alone in bf16 at each other head dim."""
     from unirec_tpu_torch.ops import flash_causal as fc
 
     b, l, hq, hkv, hd = (K1_SHAPE[x] for x in ("B", "L", "HQ", "HKV", "HD"))
@@ -2119,15 +2164,24 @@ def phase_b7b(gen) -> dict:
                          [fc.flash_causal_attention(q, k, v, mask, hq, hkv)])
             log(f"B7b at hd {hd}, B={b} L={l} Hq={hq} Hkv={hkv}, row lengths "
                 f"{list(CAUSAL_OTHER['LENGTHS'])}:")
-            for name, err in b7b_errors(q, k, v, do, mask, hq, hkv,
-                                        hd)[0].items():
+            errs, args = b7b_errors(q, k, v, do, mask, hq, hkv, hd)
+            for name, err in errs.items():
                 out[dtype]["errs"][name] = max(out[dtype]["errs"][name], err)
+            if dtype == torch.bfloat16:
+                t_k1 = time_ms(lambda: fc.flash_causal_attention(
+                    q, k, v, mask, hq, hkv), iters=10)
+                t_dq = time_ms(lambda: fc.flash_causal_bwd_dq(*args),
+                               iters=10)
+                t_dkv = time_ms(lambda: fc.flash_causal_bwd_dkv(*args),
+                                iters=10)
+                log(f"K1 / B7b kernel times {dtype} hd {hd}, B={b} L={l}: K1 "
+                    f"{t_k1:.4f} ms, dq {t_dq:.4f} ms, dk/dv {t_dkv:.4f} ms")
     return out
 
 
 def phase_head_dims(gen) -> None:
-    """C-4 on the card: a tiny Qwen3 (``tiny_qwen3_config``) at head_dim 64
-    and 16, bf16 compute over float32 parameters, right-padded rows (one
+    """C-4 on the card: a tiny Qwen3 (``tiny_qwen3_config``) at head_dim 64,
+    16, 8 (zero-padded to 16) and 256, bf16 compute over float32 parameters, right-padded rows (one
     whose last three key tiles are padding): the deterministic forward
     through K1 and a flash-VJP training forward + backward through K1 with
     (m, l) and B7b, with exact launch counts, held to the same weights on
@@ -2145,7 +2199,7 @@ def phase_head_dims(gen) -> None:
                 fc.flash_causal_bwd_dkv)
     b, l = 4, 512
     lengths = (512, 320, 129, 5)
-    for hd in (64, 16):
+    for hd in (64, 16, 8, 256):
         cfg = tiny_qwen3_config(head_dim=hd, flash_vjp_attention=True)
         models = []
         for flash in (True, False):
@@ -3456,6 +3510,12 @@ def phase_user_train(smi: str, tmp: str) -> dict:
                 + ("" if rows else " (no device rows: not measured)"))
             for name, t in rows[:12]:
                 log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+            b14 = {kind: sum(t for name, t in rows if f"flash_cross_{kind}"
+                             in name) for kind in ("fwd", "bwd")}
+            log(f"  B14 (flash_cross.cu) in that step: forward "
+                f"{b14['fwd']:.3f} ms, backward {b14['bwd']:.3f} ms, "
+                f"{100 * sum(b14.values()) / max(total, 1e-9):.1f}% of the "
+                "device time")
         del st, step
         release()
         return dict(ms=ms, peak_gb=peak, fwd_bwd_ms=float(np.median(fb)),
@@ -3660,7 +3720,8 @@ def main() -> int:
         row(name, "flash_cross.cu", replaces,
             user_trained["launches"][key], flash[key]["err"],
             flash[key]["ms"], flash[key]["plain_ms"], flash[key]["bound_ms"],
-            flash[key]["bound_by"], flash[key]["library_ms"])
+            flash[key]["bound_by"], flash[key]["library_ms"],
+            **{k: v for k, v in flash[key].items() if k == "path_ms"})
         for key, name, replaces in (
             ("b13", "flash_cross_attention", "attention.py:163"),
             ("b14_fwd", "flash_cross_proj_fwd", "flash_vjp.py:362"),
@@ -3669,7 +3730,8 @@ def main() -> int:
         row(name, "flash_cross.cu", replaces, b14p[key]["launches"],
             b14p[key]["err"], b14p[key]["ms"], b14p[key]["plain_ms"],
             b14p[key]["bound_ms"], b14p[key]["bound_by"],
-            b14p[key]["library_ms"])
+            b14p[key]["library_ms"],
+            **{k: v for k, v in b14p[key].items() if k == "path_ms"})
         for key, name, replaces in (
             ("b14p_fwd", "flash_cross_attention_vjp_fwd", "flash_vjp.py:51"),
             ("b14p_bwd", "flash_cross_attention_vjp_bwd", "flash_vjp.py:113"))

@@ -1,5 +1,5 @@
 """B13 and B14 (forward and backward) of two checkouts of the port on one
-card: outputs bit for bit and times side by side, at the user stage's shape
+card: outputs compared and times side by side, at the user stage's shape
 (64 users, 64 queries over 1,600 memory rows, 16 heads of 64; ~15% masked
 keys, one user masked whole) in float32 and bf16.
 
@@ -9,10 +9,15 @@ OTHER_ROOT is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``).  Each checkout runs in its own
 interpreter, which builds that checkout's kernels into its own ``build/``
 directory; the order is other, this, this, other.  Every run makes the same
-inputs from seed 0, hashes each output's bytes and times each kernel with
-CUDA events (20 launches after 3 warm-ups, bf16).  The script fails unless
-all four runs give the same hashes; it prints the card's name and power
-limit and one JSON line per run.
+inputs from seed 0, hashes each output's bytes, saves the bf16 outputs and
+times each kernel with CUDA events (20 launches after 3 warm-ups, bf16).
+The script fails unless the float32 hashes are the same in all four runs
+(the float32 kernels are the scalar design in both), the bf16 hashes are
+the same in the two runs of each checkout, and this checkout's bf16 outputs
+agree with the other's within chip_smoke.py's kernel gates (max|d| at most
+KERNEL_TOL of max|ref|, per-row cosine at least KERNEL_COS where the other's
+row is nonzero; the bf16 designs may differ, so their bits may).  It prints
+the card's name and power limit and one JSON line per run.
 """
 
 from __future__ import annotations
@@ -21,14 +26,17 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, LQ, LKV, H, D = 64, 64, 1600, 16, 1024
+KERNEL_TOL, KERNEL_COS = 2e-2, 0.9999  # chip_smoke.py's bf16 kernel gates
 
 
-def worker(root: str) -> dict:
+def worker(root: str, save: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -64,6 +72,8 @@ def worker(root: str) -> dict:
                               .tobytes())
             hashes[f"{name} {dtype}"] = digest.hexdigest()[:16]
             if dtype == torch.bfloat16:
+                torch.save([t.cpu() for t in run()],
+                           os.path.join(save, f"{name}.pt"))
                 for _ in range(3):
                     run()
                 start = torch.cuda.Event(enable_timing=True)
@@ -80,11 +90,11 @@ def worker(root: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("other", help="root of the other checkout")
-    parser.add_argument("--worker", action="store_true",
+    parser.add_argument("--worker", metavar="SAVE_DIR",
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        print(json.dumps(worker(os.path.abspath(args.other))))
+        print(json.dumps(worker(os.path.abspath(args.other), args.worker)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -92,20 +102,57 @@ def main() -> int:
     print(smi, flush=True)
     other = os.path.abspath(args.other)
     results = []
-    for root in (other, HERE, HERE, other):
-        env = {k: v for k, v in os.environ.items()
-               if k != "UNIREC_TPU_TORCH_BUILD_DIR"}
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), root,
-                              "--worker"], cwd=root, env=env,
-                             capture_output=True, text=True)
-        if out.returncode:
-            print(out.stdout + out.stderr, file=sys.stderr)
-            return 1
-        results.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        print(json.dumps(results[-1]), flush=True)
-    same = all(r["hashes"] == results[0]["hashes"] for r in results)
-    print(f"outputs identical across the four runs: {same}")
-    return 0 if same else 1
+    saved = tempfile.mkdtemp(prefix="compare_flash_cross_")
+    try:
+        for i, root in enumerate((other, HERE, HERE, other)):
+            env = {k: v for k, v in os.environ.items()
+                   if k != "UNIREC_TPU_TORCH_BUILD_DIR"}
+            save = os.path.join(saved, str(i))
+            os.makedirs(save)
+            out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  root, "--worker", save], cwd=root, env=env,
+                                 capture_output=True, text=True)
+            if out.returncode:
+                print(out.stdout + out.stderr, file=sys.stderr)
+                return 1
+            results.append(json.loads(out.stdout.strip().splitlines()[-1]))
+            print(json.dumps(results[-1]), flush=True)
+        ok = compare(results, saved)
+    finally:
+        shutil.rmtree(saved, ignore_errors=True)
+    return 0 if ok else 1
+
+
+def compare(results, saved) -> bool:
+    """float32 bits equal in all four runs; bf16 bits equal within each
+    checkout; this checkout's bf16 outputs against the other's."""
+    import torch
+
+    f32 = [{k: v for k, v in r["hashes"].items() if "float32" in k}
+           for r in results]
+    b16 = [{k: v for k, v in r["hashes"].items() if "bfloat16" in k}
+           for r in results]
+    same_f32 = all(h == f32[0] for h in f32)
+    repeat_b16 = b16[0] == b16[3] and b16[1] == b16[2]
+    print(f"float32 outputs identical across the four runs: {same_f32}")
+    print(f"bf16 outputs identical within each checkout: {repeat_b16}")
+    ok = same_f32 and repeat_b16
+    for name in sorted(os.listdir(os.path.join(saved, "0"))):
+        ref = torch.load(os.path.join(saved, "0", name))
+        got = torch.load(os.path.join(saved, "1", name))
+        for i, (g, r) in enumerate(zip(got, ref)):
+            a, b = g.float(), r.float()
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+            live = b2.abs().amax(-1) > 0
+            cos = torch.nn.functional.cosine_similarity(
+                a2[live], b2[live], dim=-1).min().item()
+            good = rel <= KERNEL_TOL and cos >= KERNEL_COS
+            print(f"bf16 {name[:-3]} output {i}: max|d| {rel:.3e} of "
+                  f"max|other| (tol {KERNEL_TOL:g}), min row cosine "
+                  f"{cos:.7f} (tol {KERNEL_COS})")
+            ok = ok and good
+    return ok
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """The head dims of the causal flash kernels K1 and B7b (C-4).
 
-The kernels take every head dim that is a multiple of 16 up to 128
-(``ops/attention.KERNEL_HEAD_DIMS``); the wrappers check it with
-``check_head_dim`` before anything else and raise, naming the set, on any
-other.  That is checked here without a card: the kernel-only entry points
-refuse CPU tensors after the head-dim check, so a head dim in the set gets
-to the device check and one outside it does not.
+The kernels are built for every multiple of 16 up to 128 and for 256
+(``ops/attention.KERNEL_HEAD_DIMS``) and take every head dim up to 256, any
+other than those zero-padded to the next instance; the wrappers check it
+with ``check_head_dim`` before anything else and raise, naming the set, on a
+head dim above 256.  That is checked here without a card: the kernel-only
+entry points refuse CPU tensors after the head-dim check, so a head dim the
+kernels take gets to the device check and one above 256 does not.  The head
+dims the wrappers refused before the padding (8, 24, 136, 256) now get to
+the device check.
 
 The plain versions (what a CPU tensor takes, and what the kernels are held
 to on the card) at hd 64 and 32 with GQA 2:1 against the JAX
@@ -26,7 +29,8 @@ from unirec_tpu_torch.ops import flash_causal as fc
 from unirec_tpu_torch.ops.attention import KERNEL_HEAD_DIMS, check_head_dim
 
 FWD_ATOL, GRAD_ATOL, GRAD_RTOL, STAT_RTOL = 2e-5, 5e-5, 1e-3, 1e-5
-REFUSED = (8, 24, 136, 256)
+FORMERLY_REFUSED = (8, 24, 136, 256)
+REFUSED = (272, 512)
 SHAPES = [(2, 72, 4, 2, 64), (2, 72, 4, 2, 32)]  # (B, L, Hq, Hkv, hd)
 
 
@@ -43,6 +47,20 @@ def test_wrappers_take_each_kernel_head_dim(hd):
     # past the head-dim check, a CPU tensor is refused by the device check
     with pytest.raises(ValueError, match="unsupported device"):
         fc._check_kernel_inputs("K1", 4, q, kv, kv)
+
+
+@pytest.mark.parametrize("hd", FORMERLY_REFUSED)
+def test_wrappers_take_padded_and_wide_head_dims(hd):
+    check_head_dim("K1", hd)
+    q, kv = _inputs(hd)
+    m = torch.zeros(1, 8, 4)
+    # past the head-dim check, a CPU tensor is refused by the device check
+    with pytest.raises(ValueError, match="unsupported device"):
+        fc._check_kernel_inputs("K1", 4, q, kv, kv)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fc.flash_causal_bwd_dq(q, kv, kv, torch.ones(1, 8), q, m, m, m, 4, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fc.flash_causal_bwd_dkv(q, kv, kv, torch.ones(1, 8), q, m, m, m, 4, 2)
 
 
 @pytest.mark.parametrize("hd", REFUSED)

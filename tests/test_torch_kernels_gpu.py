@@ -24,8 +24,12 @@ B7b (the flash backward) and K1's training form are held to their plain
 versions at the joint training shape: max|d| <= 1e-5 max|ref| in fp32 and
 2e-2 in bf16, per-row cosine >= 0.9999; the autograd Function's gradients
 equal the two kernels' outputs, and padded keys get no gradient.  K1 and
-B7b run at every head dim the kernels take that the model configs use (16,
-32, 64, 128), over key tiles that are all padding, and repeat bit for bit.
+B7b run at every head dim the model configs use (16, 32, 64, 128), at hd 8
+and 24 (zero-padded to 16 and 32) and 256, over key tiles that are all
+padding, and repeat bit for bit.  B13 / B14 / B14p run at hd 8, 24, 64, 128
+and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
+and 200 over a ragged last key tile; B15 at hd 8 and 24.  Head dims above
+256 are refused, naming the set.
 """
 
 import pytest
@@ -62,7 +66,7 @@ def hopper():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-CAUSAL_HEAD_DIMS = (16, 32, 64, 128)
+CAUSAL_HEAD_DIMS = (16, 32, 64, 128, 8, 24, 256)
 
 
 @pytest.mark.parametrize("hd", CAUSAL_HEAD_DIMS)
@@ -194,7 +198,7 @@ def test_k1_b7b_over_key_tiles_that_are_all_padding(hopper, dtype, tol):
     assert (dk[padded] == 0).all() and (dv[padded] == 0).all()
 
 
-@pytest.mark.parametrize("hd", [8, 256])
+@pytest.mark.parametrize("hd", [272, 512])
 def test_flash_causal_wrappers_refuse_what_the_kernels_do_not_take(hopper,
                                                                    hd):
     q = torch.randn(1, 8, 2 * hd, device="cuda", requires_grad=True)
@@ -723,13 +727,16 @@ def test_flash_cross_wrappers_refuse_what_the_kernels_do_not_take(hopper):
     from unirec_tpu_torch.ops import flash_vjp as fl
 
     q, k3, v3, _, bias = _flash_inputs(hopper, 2, 8, 100, torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        fl.flash_cross_fwd(q, k3, v3, None, 4)  # head dim 256
-    with pytest.raises(ValueError, match="head_dim"):
-        pa.flash_cross_attention(*(pa.split_heads(t, 4) for t in (q, k3, v3)))
-    with pytest.raises(ValueError, match="head_dim"):
-        fl.flash_cross_attention_vjp(
-            *(pa.split_heads(t, 4).detach() for t in (q, k3, v3)))
+    for hd in (272, 512):  # above the largest instance, 256
+        wide = _flash_inputs(hopper, 2, 8, 100, torch.bfloat16, d=2 * hd)
+        with pytest.raises(ValueError, match=r"head_dim in \(16, .*256\)"):
+            fl.flash_cross_fwd(*wide[:3], None, 2)
+        with pytest.raises(ValueError, match="head_dim"):
+            pa.flash_cross_attention(*(pa.split_heads(t, 2)
+                                       for t in wide[:3]))
+        with pytest.raises(ValueError, match="head_dim"):
+            fl.flash_cross_attention_vjp(
+                *(pa.split_heads(t, 2).detach() for t in wide[:3]))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fl.flash_cross_fwd(q.half(), k3.half(), v3.half(), None, 16)
     qh = pa.split_heads(q, 16).requires_grad_()
@@ -739,15 +746,16 @@ def test_flash_cross_wrappers_refuse_what_the_kernels_do_not_take(hopper):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 8, 24, 256])
 def test_b13_b14_take_other_head_dims(hopper, dtype, hd):
-    """The streaming kernels at 32 and 16 heads of a width of 1024 (hd 32
-    and 128; hd 64 above), over a ragged memory."""
+    """The streaming kernels at other head dims of a width of 1024 (hd 32,
+    128, 256; 8 zero-padded to 16; hd 64 above) and at 16 heads of 24 (a
+    width of 384, zero-padded to 32), over a ragged memory."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
-    h, b, lkv = 1024 // hd, 4, 1000
-    q, k3, v3, do, bias = _flash_inputs(hopper, b, 64, lkv, dtype)
+    h, b, lkv = (1024 // hd if 1024 % hd == 0 else 16), 4, 1000
+    q, k3, v3, do, bias = _flash_inputs(hopper, b, 64, lkv, dtype, d=h * hd)
     qh, kh, vh = (pa.split_heads(t, h) for t in (q, k3, v3))
     out = pa.flash_cross_attention(qh, kh, vh, bias)
     torch.cuda.synchronize()
@@ -849,7 +857,8 @@ def test_b14p_autograd_gradients_match_cpu(hopper, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_q,n_kv,hd", [(32, 32, 64), (32, 14, 64),
                                          (2, 14, 32), (2, 32, 64),
-                                         (32, 14, 32)])
+                                         (32, 14, 32), (32, 14, 8),
+                                         (32, 14, 24)])
 def test_b15_matches_plain(hopper, dtype, n_q, n_kv, hd):
     """1001 items (a ragged last block), 16 heads, read through per-head
     views of merged [items, L, 16 * hd] tensors; ~15% missing fields and 9
@@ -899,3 +908,45 @@ def test_b15_refuses_what_the_kernel_does_not_take(hopper):
         4, 2, 32, 64)
     with pytest.raises(ValueError, match="16-byte"):
         pp.packed_item_attention(odd, q, q)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 64, 128, 256])
+@pytest.mark.parametrize("lq", [64, 1, 200])
+def test_flash_cross_bf16_tensor_core_kernels(hopper, hd, lq):
+    """The bf16 forward and one-pass backward (B14p's entries; B13 and B14
+    share them) at every head-dim tiling, at one q tile, one query and four
+    q tiles (the partial dk / dv and their sum), over a 1,000-key memory
+    whose last key tile is ragged at both tile sizes: against the plain
+    versions, bit for bit on a repeat, the fully masked user's uniform
+    average, and exactly zero dk / dv at the masked keys of users with a
+    valid key."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    b, h, lkv = 3, 4, 1000
+    q, k, v, do, bias = _b14p_inputs(hopper, b, h, lq, lkv, hd,
+                                     torch.bfloat16)
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    o, m, l = fl.flash_cross_vjp_fwd(q, k, v, bias32)
+    torch.cuda.synchronize()
+    ro, rm, rl = fl.flash_cross_vjp_fwd_plain(q, k, v, bias32)
+    _check_kernel("o", o, ro)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    torch.testing.assert_close(o[1], v[1].float().mean(1, keepdim=True)
+                               .expand(h, lq, hd), atol=2e-2, rtol=0)
+    o13 = pa.flash_cross_attention(q, k, v, bias)
+    _check_kernel("B13", o13, pa.flash_cross_attention_plain(q, k, v, bias))
+    dsum = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
+    got = fl.flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum)
+    torch.cuda.synchronize()
+    ref = fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l, dsum)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _check_kernel(name, g, r)
+    again = fl.flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.equal(x, y) for x, y in
+               zip((o, m, l), fl.flash_cross_vjp_fwd(q, k, v, bias32)))
+    masked = bias32 != 0
+    masked[1] = False
+    assert all(bool((g.transpose(1, 2)[masked] == 0).all()) for g in got[1:])

@@ -17,7 +17,12 @@
 //   k, v, dk, dv [B, L, Hkv * HD]
 //   mask        [B, L]  float, 0 = padded key (gets no gradient)
 //   m, l, dsum  [B, L, Hq]  float
-// Head dims: every multiple of 16 up to 128 (head_dim.cuh).
+// Head dims: every multiple of 16 up to 128, and 256 (head_dim.cuh); the
+// wrapper zero-pads any other head dim up to 256 to the next instance and
+// passes the softmax scale of the true one.  At 256 the bf16 dq kernel
+// holds 64 slots in 4 warps (Q, dO and the ring take 202,752 bytes of shared
+// memory), and the fp32 kernels take 32-row tiles (a thread owns 2 x 2
+// scores): their four 64-row tiles would not fit.
 //
 // Two kernels, deterministic and without atomics, as the JAX design: a TPU
 // grid runs in order and carries a sum in scratch, a Hopper grid does not, so
@@ -54,7 +59,10 @@
 //     each over the full head dim (dO and Q via ldmatrix.trans).  A key tile
 //     that is all padding writes exact zeros and returns.
 //   The products see bf16-rounded p and ds; the fp32 p is what the softmax
-//   state (m, l) normalises, as in K1.
+//   state (m, l) normalises, as in K1.  Up to HD 32, ds enters dq += ds K
+//   and dk += ds^T Q as two bf16 terms (hi = bf16(ds), lo = bf16(ds - hi)):
+//   a row of 16 or 32 lanes has too few components for one rounding of ds,
+//   which took dq's row cosine below 0.9999 at head dim 8.
 //   wgmma and TMA are the next step, as for K1 (flash_causal_fwd.cu).
 //
 // fp32 design: tensor cores would mean TF32, which breaks the 1e-5 fp32
@@ -85,8 +93,12 @@ constexpr int F32_THREADS = 256;  // 16 x 16 threads
 
 template <int HD>
 struct F32Bwd {
-  static constexpr int RS = HD + 1;  // padded row stride of a [64][HD] tile
-  static constexpr int PS = BT + 1;  // padded row stride of a [64][64] tile
+  // rows of a q tile and keys of a kv tile: 64, or 32 at HD 256 (shared
+  // memory: the dq kernel's four 64-row tiles would take 280,832 bytes)
+  static constexpr int BT = HD > 128 ? 32 : 64;
+  static constexpr int R = BT / 16;  // score rows and columns a thread owns
+  static constexpr int RS = HD + 1;  // padded row stride of a [BT][HD] tile
+  static constexpr int PS = BT + 1;  // padded row stride of a [BT][BT] tile
   // dq kernel: Q, dO, K, V tiles, the ds tile, m / l / dsum / key validity
   static constexpr size_t DQ_BYTES = (size_t)(4 * BT * RS + BT * PS + 4 * BT) * sizeof(float);
   // dkv kernel: K, V, Q, dO tiles, the p^T and ds^T tiles, m / l / dsum / rows
@@ -94,12 +106,12 @@ struct F32Bwd {
       (size_t)(4 * BT * RS + 2 * BT * PS + 4 * BT) * sizeof(float);
 };
 
-// rows [r0, r0 + 64) of one head's columns of a merged-head tensor -> smem
-// [64][HD + 1] floats; rows past L read as zero
+// rows [r0, r0 + BT) of one head's columns of a merged-head tensor -> smem
+// [BT][HD + 1] floats; rows past L read as zero
 template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, size_t row_stride,
                                           int r0, int L, int tid) {
-  for (int e = tid; e < BT * HD; e += F32_THREADS) {
+  for (int e = tid; e < F32Bwd<HD>::BT * HD; e += F32_THREADS) {
     const int r = e / HD, d = e % HD;
     const int row = r0 + r;
     dst[r * (HD + 1) + d] = row < L ? src[(size_t)row * row_stride + d] : 0.f;
@@ -116,6 +128,7 @@ flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k
   constexpr int RS = F32Bwd<HD>::RS;
   constexpr int PS = F32Bwd<HD>::PS;
   constexpr int OC = HD / 16;
+  constexpr int BT = F32Bwd<HD>::BT, R = F32Bwd<HD>::R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [BT][RS]
   float* dOs = Qs + BT * RS;                        // [BT][RS]
@@ -134,7 +147,7 @@ flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k
   const int kvh = h / (Hq / Hkv);
   const int q0 = qt * BT;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows ty*4 .. ty*4+3
+  const int ty = tid >> 4;  // rows ty*R .. ty*R+R-1
   const int tx = tid & 15;  // score cols tx + 16j, output cols tx + 16j
   const size_t q_row = (size_t)Hq * HD;
   const size_t kv_row = (size_t)Hkv * HD;
@@ -155,9 +168,9 @@ flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k
     dsums[tid] = row < L ? dsum_in[r] : 0.f;
   }
 
-  float acc[4][OC];
+  float acc[R][OC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < OC; ++j) acc[i][j] = 0.f;
 
@@ -174,39 +187,39 @@ flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k
     }
     __syncthreads();
 
-    // s = q k^T and dp = dO v^T for rows ty*4+i, keys tx+16j
-    float s[4][4], dp[4][4];
+    // s = q k^T and dp = dO v^T for rows ty*R+i, keys tx+16j
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[R], ov[R], kv[R], vv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * RS + d];
-        ov[i] = dOs[(ty * 4 + i) * RS + d];
+      for (int i = 0; i < R; ++i) {
+        qv[i] = Qs[(ty * R + i) * RS + d];
+        ov[i] = dOs[(ty * R + i) * RS + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         kv[j] = Ks[(tx + 16 * j) * RS + d];
         vv[j] = Vs[(tx + 16 * j) * RS + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int r = ty * R + i;
       const int row = q0 + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;
         const bool ok = row < L && k0 + c <= row && kval[c] != 0.f;
         const float p = ok ? expf(s[i][j] * scale - ms[r]) / ls[r] : 0.f;
@@ -218,13 +231,13 @@ flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k
     // dq += ds k
 #pragma unroll 4
     for (int c = 0; c < BT; ++c) {
-      float dv_[4], kk[OC];
+      float dv_[R], kk[OC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dv_[i] = dSs[(ty * 4 + i) * PS + c];
+      for (int i = 0; i < R; ++i) dv_[i] = dSs[(ty * R + i) * PS + c];
 #pragma unroll
       for (int j = 0; j < OC; ++j) kk[j] = Ks[c * RS + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < OC; ++j) acc[i][j] = fmaf(dv_[i], kk[j], acc[i][j]);
     }
@@ -232,8 +245,8 @@ flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k
 
   float* dqb = dq + (size_t)b * L * q_row + (size_t)h * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
     if (row >= L) continue;
 #pragma unroll
     for (int j = 0; j < OC; ++j) dqb[(size_t)row * q_row + tx + 16 * j] = acc[i][j];
@@ -251,6 +264,7 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
   constexpr int RS = F32Bwd<HD>::RS;
   constexpr int PS = F32Bwd<HD>::PS;
   constexpr int OC = HD / 16;
+  constexpr int BT = F32Bwd<HD>::BT, R = F32Bwd<HD>::R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);  // [BT][RS]
   float* Vs = Ks + BT * RS;                         // [BT][RS]
@@ -270,7 +284,7 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
   const int group = Hq / Hkv;
   const int k0 = kt * BT;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // keys ty*4 .. ty*4+3
+  const int ty = tid >> 4;  // keys ty*R .. ty*R+R-1
   const int tx = tid & 15;  // score rows tx + 16j, output cols tx + 16j
   const size_t q_row = (size_t)Hq * HD;
   const size_t kv_row = (size_t)Hkv * HD;
@@ -285,9 +299,9 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
     kval[tid] = (key < L && mb[key] != 0.f) ? 1.f : 0.f;
   }
 
-  float acc_k[4][OC], acc_v[4][OC];
+  float acc_k[R][OC], acc_v[R][OC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < OC; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
@@ -311,39 +325,39 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
       }
       __syncthreads();
 
-      // s^T = k q^T and dp^T = v dO^T for keys ty*4+i, rows tx+16j
-      float s[4][4], dp[4][4];
+      // s^T = k q^T and dp^T = v dO^T for keys ty*R+i, rows tx+16j
+      float s[R][R], dp[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < HD; ++d) {
-        float kk[4], vv[4], qv[4], ov[4];
+        float kk[R], vv[R], qv[R], ov[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = Ks[(ty * 4 + i) * RS + d];
-          vv[i] = Vs[(ty * 4 + i) * RS + d];
+        for (int i = 0; i < R; ++i) {
+          kk[i] = Ks[(ty * R + i) * RS + d];
+          vv[i] = Vs[(ty * R + i) * RS + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           qv[j] = Qs[(tx + 16 * j) * RS + d];
           ov[j] = dOs[(tx + 16 * j) * RS + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < R; ++j) {
             s[i][j] = fmaf(kk[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = ty * 4 + i;
+      for (int i = 0; i < R; ++i) {
+        const int c = ty * R + i;
         const int key = k0 + c;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int r = tx + 16 * j;
           const int row = q0 + r;
           const bool ok = row < L && key <= row && kval[c] != 0.f;
@@ -357,11 +371,11 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
       // dv += p^T dO, dk += ds^T q
 #pragma unroll 2
       for (int r = 0; r < BT; ++r) {
-        float pv[4], sv[4], ov[OC], qv[OC];
+        float pv[R], sv[R], ov[OC], qv[OC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Pt[(ty * 4 + i) * PS + r];
-          sv[i] = dSt[(ty * 4 + i) * PS + r];
+        for (int i = 0; i < R; ++i) {
+          pv[i] = Pt[(ty * R + i) * PS + r];
+          sv[i] = dSt[(ty * R + i) * PS + r];
         }
 #pragma unroll
         for (int j = 0; j < OC; ++j) {
@@ -369,7 +383,7 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
           qv[j] = Qs[r * RS + tx + 16 * j];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int j = 0; j < OC; ++j) {
             acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
@@ -382,8 +396,8 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
   float* dkb = dk + (size_t)b * L * kv_row + (size_t)kvh * HD;
   float* dvb = dv + (size_t)b * L * kv_row + (size_t)kvh * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + ty * R + i;
     if (key >= L) continue;
 #pragma unroll
     for (int j = 0; j < OC; ++j) {
@@ -395,8 +409,7 @@ flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ 
 
 // ------------------------------------------------- bf16, tensor cores ------
 
-constexpr int TC_THREADS = 256;  // 8 warps
-constexpr int SLOTS = 128;       // dq kernel: 2 heads x 64 rows, or 1 head x 128 rows
+constexpr int TC_THREADS = 256;  // 8 warps (the dk/dv kernel; the dq kernel's below)
 constexpr int STAGES = 2;        // the ring
 constexpr int PT_LD = BT + 8;    // padded bf16 row of the p^T / ds^T tiles
 
@@ -404,16 +417,26 @@ template <int HD>
 struct TcBwd {
   static constexpr int LD = HD + 8;  // padded bf16 row (odd multiple of 16 bytes)
   static constexpr int TILE = BT * LD;
+  // dq kernel: 2 heads x 64 rows or 1 head x 128 rows (8 warps); at HD 256
+  // half that (4 warps), so that Q, dO and the ring fit in shared memory
+  static constexpr int SLOTS = HD > 128 ? 64 : 128;
+  static constexpr int DQ_THREADS = 2 * SLOTS;
+  // up to HD 32 ds enters dq += ds K and dk += ds^T Q as a bf16 hi + lo
+  // pair: a row of 16 or 32 lanes has too few components for one rounding
+  // of ds (dq's row cosine fell to 0.99990 at hd 8)
+  static constexpr bool SPLIT_DS = HD <= 32;
   // dq kernel: Q and dO [SLOTS][LD], the ring of K and V tiles
   static constexpr size_t DQ_FIXED = (size_t)(2 * SLOTS * LD + STAGES * 2 * TILE) * sizeof(bf16);
+  static_assert(DQ_FIXED + 1024 <= 232448, "dq kernel: shared memory of one block");
   // dkv kernel: K and V, the ring of (Q, dO, m / l / dsum), p^T and ds^T
   static constexpr size_t STAGE_BYTES = 2 * TILE * sizeof(bf16) + 3 * BT * sizeof(float);
   static constexpr size_t DKV_BYTES = 2 * TILE * sizeof(bf16) + STAGES * STAGE_BYTES +
-                                      2 * BT * PT_LD * sizeof(bf16) + sizeof(unsigned long long);
+                                      (SPLIT_DS ? 3 : 2) * BT * PT_LD * sizeof(bf16) +
+                                      sizeof(unsigned long long);
 };
 
 template <int HD>
-__global__ void __launch_bounds__(TC_THREADS)
+__global__ void __launch_bounds__(TcBwd<HD>::DQ_THREADS)
 flash_causal_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ mask,
                        const bf16* __restrict__ dout, const float* __restrict__ m_in,
@@ -422,6 +445,7 @@ flash_causal_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using S = TcBwd<HD>;
   constexpr int LD = S::LD;
   constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  constexpr int SLOTS = S::SLOTS, THREADS = S::DQ_THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [SLOTS][LD]
   bf16* dOs = Qs + SLOTS * LD;                    // [SLOTS][LD]
@@ -456,7 +480,7 @@ flash_causal_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_live = tiles[n_kv_max];
 
   // Q and dO: slot s is row q0 + s % rows of head h0 + s / rows
-  for (int c = tid; c < SLOTS * CH; c += TC_THREADS) {
+  for (int c = tid; c < SLOTS * CH; c += THREADS) {
     const int s = c / CH, ch = c % CH;
     const int row = q0 + s % rows;
     const bool ok = row < L;
@@ -468,7 +492,7 @@ flash_causal_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_kv = [&](int stage, int t) {
     bf16* ks = KVs + stage * 2 * S::TILE;
     bf16* vs = ks + S::TILE;
-    for (int c = tid; c < BT * CH; c += TC_THREADS) {
+    for (int c = tid; c < BT * CH; c += THREADS) {
       const int r = c / CH, ch = c % CH;
       const int key = t * BT + r;
       const bool ok = key < L;  // keys past L are zero-filled
@@ -545,13 +569,19 @@ flash_causal_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float p = ok ? __expf(s[n][e] * scale - mr[i]) * il[i] : 0.f;
           s[n][e] = p * (dp[n][e] - dsr[i]) * scale;
         }
-      // dq += ds K: ds (bf16) from the fragments, K via ldmatrix.trans
+      // dq += ds K: ds (bf16; hi and lo with SPLIT_DS) from the fragments, K
+      // via ldmatrix.trans
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t a[4], lo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float* x = s[2 * kk + (r >> 1)] + 2 * (r & 1);
+          if constexpr (S::SPLIT_DS)
+            split_bf16(x[0], x[1], a[r], lo[r]);
+          else
+            a[r] = pack_bf16(x[0], x[1]);
+        }
 #pragma unroll
         for (int nd = 0; nd < HD / 16; ++nd) {
           uint32_t bk[4];
@@ -559,6 +589,10 @@ flash_causal_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                           nd * 16 + (lane >> 4) * 8));
           mma_16816(acc[2 * nd], a, bk[0], bk[1]);
           mma_16816(acc[2 * nd + 1], a, bk[2], bk[3]);
+          if constexpr (S::SPLIT_DS) {
+            mma_16816(acc[2 * nd], lo, bk[0], bk[1]);
+            mma_16816(acc[2 * nd + 1], lo, bk[2], bk[3]);
+          }
         }
       }
     }
@@ -595,7 +629,9 @@ flash_causal_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* ring = smem_raw + 2 * S::TILE * sizeof(bf16);  // [STAGES][STAGE_BYTES]
   bf16* Pt = reinterpret_cast<bf16*>(ring + STAGES * S::STAGE_BYTES);  // [BT][PT_LD] p^T
   bf16* dSt = Pt + BT * PT_LD;                                          // [BT][PT_LD] ds^T
-  unsigned long long* kbits = reinterpret_cast<unsigned long long*>(dSt + BT * PT_LD);
+  bf16* dSl = dSt + BT * PT_LD;  // [BT][PT_LD] ds^T - bf16(ds^T), with SPLIT_DS
+  unsigned long long* kbits =
+      reinterpret_cast<unsigned long long*>(dSt + (S::SPLIT_DS ? 2 : 1) * BT * PT_LD);
 
   // the first kv tiles are seen by the most q tiles: start them first
   const int kt = blockIdx.x;
@@ -720,7 +756,8 @@ flash_causal_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_16816(dp[2 * np + 1], av, bo[2], bo[3]);
       }
     }
-    // p^T and ds^T, rounded to bf16 into shared memory
+    // p^T and ds^T, rounded to bf16 into shared memory (ds^T as hi + lo with
+    // SPLIT_DS)
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -738,17 +775,24 @@ flash_causal_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         const int at = c * PT_LD + 32 * half + n * 8 + 2 * t4;
         *reinterpret_cast<uint32_t*>(Pt + at) = pack_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(ds[0], ds[1]);
+        if constexpr (S::SPLIT_DS)
+          split_bf16(ds[0], ds[1], *reinterpret_cast<uint32_t*>(dSt + at),
+                     *reinterpret_cast<uint32_t*>(dSl + at));
+        else
+          *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(ds[0], ds[1]);
       }
     __syncthreads();  // p^T and ds^T written
 
     // dv += p^T dO (warps 0-3), dk += ds^T Q (warps 4-7); B via ldmatrix.trans
     const bf16* as = half ? dSt : Pt;
     const bf16* bs = half ? qs : os;
+    const bool lo_too = S::SPLIT_DS && half;  // dk's ds^T - bf16(ds^T)
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, smem_addr(as + (kw + (lane & 15)) * PT_LD + kk * 16 + (lane >> 4) * 8));
+      const int arow = (kw + (lane & 15)) * PT_LD + kk * 16 + (lane >> 4) * 8;
+      uint32_t a[4], lo[4];
+      ldmatrix_x4(a, smem_addr(as + arow));
+      if (lo_too) ldmatrix_x4(lo, smem_addr(dSl + arow));
 #pragma unroll
       for (int nd = 0; nd < HD / 16; ++nd) {
         uint32_t bb[4];
@@ -756,6 +800,10 @@ flash_causal_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                         nd * 16 + (lane >> 4) * 8));
         mma_16816(acc[2 * nd], a, bb[0], bb[1]);
         mma_16816(acc[2 * nd + 1], a, bb[2], bb[3]);
+        if (lo_too) {
+          mma_16816(acc[2 * nd], lo, bb[0], bb[1]);
+          mma_16816(acc[2 * nd + 1], lo, bb[2], bb[3]);
+        }
       }
     }
     __syncthreads();  // p^T / ds^T and stage i are free for the next iteration
@@ -780,15 +828,16 @@ flash_causal_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* mask,
                       const void* dout, const float* m, const float* l, const float* dsum,
-                      void* dq, int B, int L, int Hq, int Hkv, bool bf, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)HD);
+                      void* dq, int B, int L, int Hq, int Hkv, bool bf, float scale,
+                      cudaStream_t stream) {
   if (!bf) {
     const size_t smem = F32Bwd<HD>::DQ_BYTES;
     cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dq_f32<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((L + BT - 1) / BT, Hq, B);
+    constexpr int FT = F32Bwd<HD>::BT;
+    dim3 grid((L + FT - 1) / FT, Hq, B);
     flash_causal_bwd_dq_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, static_cast<const float*>(dout), m, l, dsum,
@@ -800,9 +849,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nh = (Hq / Hkv) % 2 == 0 ? 2 : 1;  // heads per block
-  const int rows = SLOTS / nh;
+  const int rows = TcBwd<HD>::SLOTS / nh;
   dim3 grid((L + rows - 1) / rows, Hq / nh, B);
-  flash_causal_bwd_dq_tc<HD><<<grid, TC_THREADS, smem, stream>>>(
+  flash_causal_bwd_dq_tc<HD><<<grid, TcBwd<HD>::DQ_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       mask, static_cast<const bf16*>(dout), m, l, dsum, static_cast<bf16*>(dq), L, Hq, Hkv, nh,
       scale);
@@ -813,10 +862,10 @@ template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const float* mask,
                        const void* dout, const float* m, const float* l, const float* dsum,
                        void* dk, void* dv, int B, int L, int Hq, int Hkv, bool bf,
-                       cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)HD);
-  dim3 grid((L + BT - 1) / BT, Hkv, B);
+                       float scale, cudaStream_t stream) {
   if (!bf) {
+    constexpr int FT = F32Bwd<HD>::BT;
+    dim3 grid((L + FT - 1) / FT, Hkv, B);
     const size_t smem = F32Bwd<HD>::DKV_BYTES;
     cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dkv_f32<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -829,6 +878,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const float*
     return cudaGetLastError();
   }
   const size_t smem = TcBwd<HD>::DKV_BYTES;
+  dim3 grid((L + BT - 1) / BT, Hkv, B);
   cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dkv_tc<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -845,19 +895,20 @@ bool bad_shape(int B, int L, int Hq, int Hkv, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: a multiple of 16 up to 128
-// (cudaErrorInvalidValue otherwise).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh
+// (cudaErrorInvalidValue otherwise).  scale: the softmax scale, 1 / sqrt of
+// the true head dim (the wrapper pads other head dims to an instance).
 extern "C" int unirec_flash_causal_bwd_dq(const void* q, const void* k, const void* v,
                                           const float* mask, const void* dout,
                                           const float* m, const float* l,
                                           const float* dsum, void* dq, int B, int L,
                                           int Hq, int Hkv, int head_dim, int dtype,
-                                          void* stream) {
+                                          float scale, void* stream) {
   if (bad_shape(B, L, Hq, Hkv, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     return launch_dq<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dq, B, L, Hq, Hkv,
-                                          dtype == 1, s);
+                                          dtype == 1, scale, s);
   });
 }
 
@@ -866,11 +917,11 @@ extern "C" int unirec_flash_causal_bwd_dkv(const void* q, const void* k, const v
                                            const float* m, const float* l,
                                            const float* dsum, void* dk, void* dv,
                                            int B, int L, int Hq, int Hkv, int head_dim,
-                                           int dtype, void* stream) {
+                                           int dtype, float scale, void* stream) {
   if (bad_shape(B, L, Hq, Hkv, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     return launch_dkv<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dk, dv, B, L, Hq,
-                                           Hkv, dtype == 1, s);
+                                           Hkv, dtype == 1, scale, s);
   });
 }

@@ -18,8 +18,11 @@
 // Masked keys (causal or padded) get probability exactly 0, which is what the
 // additive -1e9 bias gives whenever a row has one unmasked key.  The wrapper
 // guarantees that by requiring mask[:, 0] != 0 (key 0 is causal for every row).
-// Head dims: every multiple of 16 up to 128 (head_dim.cuh), each its own
-// template instance.
+// Head dims: every multiple of 16 up to 128, and 256 (head_dim.cuh), each
+// its own template instance; the wrapper zero-pads any other head dim up to
+// 256 to the next instance and passes the softmax scale of the true one.
+// At 256 both designs below fit as they are: the bf16 block takes 202,752
+// bytes of shared memory and one block an SM, the fp32 block 148,480.
 //
 // What bounds it: at the serving shape (B=8, L=512, Hq=16, Hkv=8, HD=128) the
 // causal pairs of QK^T and PV are ~4.3 GFLOP (about 4.4 us at the bf16
@@ -437,7 +440,7 @@ flash_causal_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const float* mask,
                        void* out, float* m_out, float* l_out, int B, int L, int Hq, int Hkv,
-                       cudaStream_t stream) {
+                       float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_causal_fwd_f32<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -446,14 +449,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
   flash_causal_fwd_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), mask, static_cast<float*>(out), m_out, l_out, L, Hq, Hkv,
-      1.0f / sqrtf((float)HD));
+      scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* mask,
                       void* out, float* m_out, float* l_out, int B, int L, int Hq, int Hkv,
-                      cudaStream_t stream) {
+                      float scale, cudaStream_t stream) {
   const size_t smem = TcFwd<HD>::FIXED + live_tiles_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(flash_causal_fwd_tc<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -463,26 +466,29 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
   dim3 grid((L + rows - 1) / rows, Hq / nh, B);
   flash_causal_fwd_tc<HD><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      mask, static_cast<bf16*>(out), m_out, l_out, L, Hq, Hkv, nh, 1.0f / sqrtf((float)HD));
+      mask, static_cast<bf16*>(out), m_out, l_out, L, Hq, Hkv, nh, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: a multiple of 16 up to 128
-// (cudaErrorInvalidValue otherwise; the wrapper checks it first).  m_out and
-// l_out are both null (inference) or both [B, L, Hq] float (training).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh
+// (cudaErrorInvalidValue otherwise; the wrapper pads to one first).  scale:
+// the softmax scale, 1 / sqrt of the true head dim.  m_out and l_out are
+// both null (inference) or both [B, L, Hq] float (training).
 extern "C" int unirec_flash_causal_fwd(const void* q, const void* k, const void* v,
                                        const float* mask, void* out, float* m_out,
                                        float* l_out, int B, int L, int Hq, int Hkv,
-                                       int head_dim, int dtype, void* stream) {
+                                       int head_dim, int dtype, float scale,
+                                       void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || L <= 0 ||
       (m_out == nullptr) != (l_out == nullptr) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
-    return dtype == 0 ? launch_f32<HD>(q, k, v, mask, out, m_out, l_out, B, L, Hq, Hkv, s)
-                      : launch_tc<HD>(q, k, v, mask, out, m_out, l_out, B, L, Hq, Hkv, s);
+    return dtype == 0
+               ? launch_f32<HD>(q, k, v, mask, out, m_out, l_out, B, L, Hq, Hkv, scale, s)
+               : launch_tc<HD>(q, k, v, mask, out, m_out, l_out, B, L, Hq, Hkv, scale, s);
   });
 }

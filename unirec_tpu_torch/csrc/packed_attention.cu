@@ -203,7 +203,7 @@ extern "C" int unirec_packed_item_attention(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qsr}, ks{ksb, ksh, ksr}, vs{vsb, vsh, vsr}, os{osb, osh, osr};
-  return (int)with_head_dim(head_dim, [&](auto hd) {
+  return (int)with_head_dim<128>(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
     if (dtype == 0)
       return launch<HD, float>(q, k, v, bias, o, qs, ks, vs, os, B, H, K, F, G, scale, s);

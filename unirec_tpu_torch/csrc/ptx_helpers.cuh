@@ -1,6 +1,7 @@
 // PTX helpers shared by the port's tensor-core kernels: shared-memory
 // addresses, 16- and 4-byte cp.async copies, ldmatrix (plain and transposed)
-// and the bf16 mma.sync.m16n8k16 with fp32 accumulation.
+// and the bf16 mma.sync.m16n8k16 with fp32 accumulation, with the bf16
+// packing of its A fragments (one rounding, or a hi + lo pair).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major) a[0]: (g, 2t..2t+1)   a[1]: (g + 8, 2t..2t+1)
@@ -75,6 +76,14 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 as the bf16 pairs hi = bf16(x) and lo = bf16(x - hi): hi + lo holds
+// x to about 16 bits (two products where one bf16 rounding is too coarse)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  lo = pack_bf16(x0 - __bfloat162float(h.x), x1 - __bfloat162float(h.y));
 }
 
 }  // namespace

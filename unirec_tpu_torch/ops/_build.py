@@ -91,12 +91,17 @@ def load_kernels() -> Kernels:
         t0 = time.perf_counter()
         log = _compile(srcs, out)
         seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(out))
-    lib.unirec_flash_causal_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib = bind(ctypes.CDLL(str(out)))
+    return Kernels(lib, out, seconds, log)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries' argument and result types on ``lib``."""
+    lib.unirec_flash_causal_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_causal_fwd.restype = _I
-    lib.unirec_flash_causal_bwd_dq.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+    lib.unirec_flash_causal_bwd_dq.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_causal_bwd_dq.restype = _I
-    lib.unirec_flash_causal_bwd_dkv.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+    lib.unirec_flash_causal_bwd_dkv.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_causal_bwd_dkv.restype = _I
     lib.unirec_retrieve_topk.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _P]
@@ -133,12 +138,12 @@ def load_kernels() -> Kernels:
     lib.unirec_flash_cross_fwd.argtypes = [_P] * 7 + [_L] * 12 + [_I] * 6 + [
         _F, _P]
     lib.unirec_flash_cross_fwd.restype = _I
-    lib.unirec_flash_cross_bwd.argtypes = [_P] * 12 + [_I] * 6 + [_F, _P]
+    lib.unirec_flash_cross_bwd.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_cross_bwd.restype = _I
     lib.unirec_packed_item_attention.argtypes = [_P] * 5 + [_L] * 12 + [
         _I] * 7 + [_F, _P]
     lib.unirec_packed_item_attention.restype = _I
-    return Kernels(lib, out, seconds, log)
+    return lib
 
 
 def _compile(srcs, out: Path) -> str:

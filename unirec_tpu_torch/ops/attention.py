@@ -35,10 +35,14 @@ NEG_INF = -1e9
 FLASH_MIN_KV = 1024
 
 # the head dimensions the streaming kernels (csrc/flash_cross.cu), the
-# packed item attention (csrc/packed_attention.cu) and the causal flash
-# kernels K1 and B7b (csrc/flash_causal_*.cu) are built for: every multiple
-# of 16 up to 128
-KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
+# causal flash kernels K1 and B7b (csrc/flash_causal_*.cu) and the packed
+# item attention (csrc/packed_attention.cu) are built for
+# (csrc/head_dim.cuh): every multiple of 16 up to 128, and 256 for all but
+# the packed item attention, which stops at PACKED_MAX_HEAD_DIM.  Any other
+# head dim up to the largest instance runs zero-padded to the next one
+# (``padded_launch``).
+KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
+PACKED_MAX_HEAD_DIM = 128
 
 
 def make_additive_mask(mask: torch.Tensor,
@@ -131,11 +135,65 @@ def dtype_code(t: torch.Tensor) -> int:
     return 0 if t.dtype == torch.float32 else 1
 
 
-def check_head_dim(name: str, head_dim: int) -> None:
-    """Raise unless the kernels are built for ``head_dim``."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} is built for head_dim in {KERNEL_HEAD_DIMS}"
-                         f", got {head_dim}")
+def kernel_head_dim(name: str, head_dim: int,
+                    max_head_dim: int = KERNEL_HEAD_DIMS[-1]) -> int:
+    """The instance of ``KERNEL_HEAD_DIMS`` (up to ``max_head_dim``) that a
+    head dim runs at: the least one not below it.  Raises, naming the set,
+    for a head dim above the largest."""
+    built = tuple(hd for hd in KERNEL_HEAD_DIMS if hd <= max_head_dim)
+    for hd in built:
+        if 0 < head_dim <= hd:
+            return hd
+    raise ValueError(f"{name} is built for head_dim in {built} and pads any "
+                     f"smaller head dim to the next, got {head_dim}")
+
+
+def check_head_dim(name: str, head_dim: int,
+                   max_head_dim: int = KERNEL_HEAD_DIMS[-1]) -> None:
+    """Raise unless the kernels take ``head_dim``: every head dim up to
+    the largest instance of ``KERNEL_HEAD_DIMS`` (``max_head_dim``), the
+    instances as they are and any other zero-padded to the next one
+    (``padded_launch``)."""
+    kernel_head_dim(name, head_dim, max_head_dim)
+
+
+def _pad_heads(t: torch.Tensor, heads: Optional[int], hd: int) -> torch.Tensor:
+    """t with each head's columns zero-padded to ``hd``: the last dim is
+    the head dim (``heads`` None) or ``heads`` merged head dims."""
+    if heads is None:
+        return torch.nn.functional.pad(t, (0, hd - t.shape[-1]))
+    *lead, d = t.shape
+    split = t.reshape(*lead, heads, d // heads)
+    return torch.nn.functional.pad(split, (0, hd - d // heads)).reshape(
+        *lead, heads * hd)
+
+
+def padded_launch(name: str, head_dim: int, inputs, outputs, launch,
+                  max_head_dim: int = KERNEL_HEAD_DIMS[-1]) -> None:
+    """Run ``launch(ins, outs, kernel_hd)`` at the kernel instance of
+    ``head_dim`` (``kernel_head_dim``).  ``inputs`` and ``outputs`` are
+    (tensor, heads) pairs: heads None for a tensor whose last dim is the head
+    dim, H for merged heads ``[..., H * head_dim]``.  At an instance the
+    tensors go to ``launch`` as they are; at any other head dim the inputs go
+    zero-padded to the instance and the outputs into padded scratch, whose
+    true columns are copied back after the launch.  Zero lanes add exact
+    zeros to every dot product, so the scores, m, l, o and the gradients'
+    true columns are unchanged; the caller passes the softmax scale of the
+    true head dim (``sm_scale``)."""
+    hd = kernel_head_dim(name, head_dim, max_head_dim)
+    if hd == head_dim:
+        launch([t for t, _ in inputs], [t for t, _ in outputs], hd)
+        return
+    ins = [_pad_heads(t, heads, hd) for t, heads in inputs]
+    outs = [torch.empty(*t.shape[:-1], hd * (heads or 1), device=t.device,
+                        dtype=t.dtype) for t, heads in outputs]
+    launch(ins, outs, hd)
+    for (t, heads), padded in zip(outputs, outs):
+        if heads is None:
+            t.copy_(padded[..., :head_dim])
+        else:
+            t.copy_(padded.reshape(*t.shape[:-1], heads, hd)[..., :head_dim]
+                    .reshape(t.shape))
 
 
 def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
@@ -167,17 +225,24 @@ def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
     """The forward kernel of ``csrc/flash_cross.cu`` on per-head views
     ``[B, H, L, hd]`` of any (batch, head, row) strides: B13 without (m, l),
     the forward of B14 and B14p with them (float32 ``[B, Lq, H]``).  o is in
-    q's dtype for B13 and float32 for B14 and B14p."""
+    q's dtype for B13 and float32 for B14 and B14p.  A head dim that is not
+    an instance runs zero-padded (``padded_launch``)."""
     b, h, lq, hd = q.shape
-    check_head_dim("the streaming forward", hd)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    err = load_kernels().lib.unirec_flash_cross_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias32 is None else bias32.data_ptr(), o.data_ptr(),
-        None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
-        *strides, b, h, lq, k.shape[2], hd, dtype_code(q), sm_scale(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_cross_fwd")
+
+    def launch(ins, outs, kernel_hd):
+        qk, kk, vk = ins
+        strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
+        err = load_kernels().lib.unirec_flash_cross_fwd(
+            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
+            None if bias32 is None else bias32.data_ptr(), outs[0].data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if l is None else l.data_ptr(), *strides, b, h, lq,
+            k.shape[2], kernel_hd, dtype_code(q), sm_scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        check(err, "flash_cross_fwd")
+
+    padded_launch("the streaming forward", hd,
+                  [(q, None), (k, None), (v, None)], [(o, None)], launch)
 
 
 def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

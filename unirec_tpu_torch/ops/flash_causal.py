@@ -23,11 +23,13 @@ tiles that are all padding never loaded.  float32 keeps the scalar fp32 FMA
 design: tensor cores would mean TF32, which breaks the 1e-5 float32 gates.
 The sources' notes give the details, and why ``wgmma`` is the next step.
 
-Head dims: the kernels take every multiple of 16 up to 128
-(``ops/attention.KERNEL_HEAD_DIMS``, checked by ``check_head_dim``); any
-other raises on a CUDA tensor, naming the set.  The JAX kernel pads lanes
-and takes any head dim; the plain versions here do too, so CPU tensors take
-every head dim.
+Head dims: the kernels are built for every multiple of 16 up to 128 and
+for 256 (``ops/attention.KERNEL_HEAD_DIMS``); any other head dim up to 256
+runs zero-padded to the next instance with the softmax scale of the true
+one (``ops/attention.padded_launch``), as the JAX kernel pads lanes.  Above
+256 the wrappers raise on a CUDA tensor, naming the set
+(``check_head_dim``).  The plain versions take every head dim, so CPU
+tensors do too.
 
 Layout: merged heads, K/V un-repeated.  q ``[B, L, Hq*hd]``, k/v
 ``[B, L, Hkv*hd]``, pad mask ``[B, L]`` (1 valid, 0 padded key); output
@@ -55,13 +57,17 @@ A CPU tensor takes the plain versions of both directions.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
-from unirec_tpu_torch.ops.attention import NEG_INF, check_head_dim
+from unirec_tpu_torch.ops.attention import (
+    NEG_INF,
+    check_head_dim,
+    padded_launch,
+    sm_scale,
+)
 
 
 def check_pad_mask(pad_mask: torch.Tensor) -> None:
@@ -93,9 +99,10 @@ def _check_shapes(q, k, v, pad_mask, num_q_heads, num_kv_heads, mask_checked
 def _check_kernel_inputs(name: str, num_q_heads: int,
                          *tensors: torch.Tensor) -> None:
     """What the CUDA kernels take: one CUDA device, fp32 or bf16 q/k/v of one
-    dtype (the first three tensors), a head dim in ``KERNEL_HEAD_DIMS``,
-    contiguous, and each tensor on a 16-byte boundary (the bf16 kernels copy
-    rows in 16-byte pieces)."""
+    dtype (the first three tensors), a head dim up to the largest of
+    ``KERNEL_HEAD_DIMS`` (``check_head_dim``; the launches pad it to an
+    instance), contiguous, and each tensor on a 16-byte boundary (the bf16
+    kernels copy rows in 16-byte pieces)."""
     q = tensors[0]
     check_head_dim(name, q.shape[-1] // num_q_heads)
     if q.device.type != "cuda":
@@ -116,6 +123,11 @@ def _dtype_code(t: torch.Tensor) -> int:
     return 0 if t.dtype == torch.float32 else 1
 
 
+def _heads(q, k, v, num_q_heads: int, num_kv_heads: int) -> list:
+    """q, k and v as ``padded_launch`` inputs: merged heads."""
+    return [(q, num_q_heads), (k, num_kv_heads), (v, num_kv_heads)]
+
+
 def _split(q, k, v, num_q_heads, num_kv_heads):
     """Per-head views: q [B, Hq, L, hd], k/v repeated to [B, Hq, L, hd]."""
     b, l, dq = q.shape
@@ -133,7 +145,7 @@ def _scores(q, k, v, pad_mask, num_q_heads, num_kv_heads):
     qh, kh, vh, hd = _split(q, k, v, num_q_heads, num_kv_heads)
     l = q.shape[1]
     scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
-    scores = scores * (1.0 / math.sqrt(hd))
+    scores = scores * sm_scale(hd)
     causal = torch.tril(torch.ones(l, l, device=q.device))[None, None]
     allowed = causal * pad_mask.float()[:, None, None, :]
     return scores + (1.0 - allowed) * NEG_INF, kh, vh, hd
@@ -200,7 +212,7 @@ def flash_causal_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     l_h = l.transpose(1, 2)[..., None]
     p = torch.exp(scores - m_h) / torch.where(l_h == 0, 1.0, l_h)
     dp = torch.matmul(doh, vh.float().transpose(-1, -2))
-    ds = p * (dp - dsum.transpose(1, 2)[..., None]) * (1.0 / math.sqrt(hd))
+    ds = p * (dp - dsum.transpose(1, 2)[..., None]) * sm_scale(hd)
     dq = torch.matmul(ds, kh.float())
     dk = torch.matmul(ds.transpose(-1, -2), qh)  # [B, Hq, L, hd]
     dv = torch.matmul(p.transpose(-1, -2), doh)
@@ -224,13 +236,17 @@ def _k1(q, k, v, pad_mask, num_q_heads, num_kv_heads, stats: bool):
     if stats:
         m = torch.empty(b, l, num_q_heads, device=q.device)
         l_ = torch.empty_like(m)
-    err = load_kernels().lib.unirec_flash_causal_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), m.data_ptr() if stats else None,
-        l_.data_ptr() if stats else None, b, l, num_q_heads, num_kv_heads, hd,
-        _dtype_code(q), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(err, "flash_causal_fwd")
+
+    def launch(ins, outs, kernel_hd):
+        err = load_kernels().lib.unirec_flash_causal_fwd(
+            *(t.data_ptr() for t in ins), mask.data_ptr(), outs[0].data_ptr(),
+            m.data_ptr() if stats else None, l_.data_ptr() if stats else None,
+            b, l, num_q_heads, num_kv_heads, kernel_hd, _dtype_code(q),
+            sm_scale(hd), torch.cuda.current_stream(q.device).cuda_stream)
+        check(err, "flash_causal_fwd")
+
+    padded_launch("K1", hd, _heads(q, k, v, num_q_heads, num_kv_heads),
+                  [(out, num_q_heads)], launch)
     flash_causal_attention.launches += 1
     return (out, m, l_) if stats else out
 
@@ -267,12 +283,19 @@ def flash_causal_bwd_dq(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
     hd = dq_width // num_q_heads
     mask = pad_mask.to(device=q.device, dtype=torch.float32).contiguous()
     dq = torch.empty_like(q)
-    err = load_kernels().lib.unirec_flash_causal_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        do.data_ptr(), m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
-        dq.data_ptr(), b, seq, num_q_heads, num_kv_heads, hd, _dtype_code(q),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_causal_bwd_dq")
+
+    def launch(ins, outs, kernel_hd):
+        qk, kk, vk, dok = ins
+        err = load_kernels().lib.unirec_flash_causal_bwd_dq(
+            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), mask.data_ptr(),
+            dok.data_ptr(), m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
+            outs[0].data_ptr(), b, seq, num_q_heads, num_kv_heads, kernel_hd,
+            _dtype_code(q), sm_scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        check(err, "flash_causal_bwd_dq")
+
+    padded_launch("B7b", hd, _heads(q, k, v, num_q_heads, num_kv_heads)
+                  + [(do, num_q_heads)], [(dq, num_q_heads)], launch)
     flash_causal_bwd_dq.launches += 1
     return dq
 
@@ -288,12 +311,20 @@ def flash_causal_bwd_dkv(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
     hd = dq_width // num_q_heads
     mask = pad_mask.to(device=q.device, dtype=torch.float32).contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = load_kernels().lib.unirec_flash_causal_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        do.data_ptr(), m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, seq, num_q_heads, num_kv_heads, hd,
-        _dtype_code(q), torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_causal_bwd_dkv")
+
+    def launch(ins, outs, kernel_hd):
+        qk, kk, vk, dok = ins
+        err = load_kernels().lib.unirec_flash_causal_bwd_dkv(
+            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), mask.data_ptr(),
+            dok.data_ptr(), m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), b, seq, num_q_heads,
+            num_kv_heads, kernel_hd, _dtype_code(q), sm_scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        check(err, "flash_causal_bwd_dkv")
+
+    padded_launch("B7b", hd, _heads(q, k, v, num_q_heads, num_kv_heads)
+                  + [(do, num_q_heads)],
+                  [(dk, num_kv_heads), (dv, num_kv_heads)], launch)
     flash_causal_bwd_dkv.launches += 1
     return dk, dv
 

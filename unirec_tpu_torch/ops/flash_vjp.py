@@ -24,11 +24,12 @@ projected k/v:
   by one rounding of dsum, which reaches dq through the keys' common
   component and dk through the memory's; the first cross layer's query and
   key weight gradients, sums over users whose queries are all the same,
-  nearly cancel and keep mostly that error; B14's backward kernels
-  (replacing ``_mh_bwd_kernel``: a dq kernel, then a dk/dv kernel)
-  for dq, dk3 and dv3, then dmem, dWk, dbk, dWv and dbv by float32
-  ``torch.matmul`` and sums, as ``_proj_vjp_bwd`` computes them; the bias
-  (a validity mask) gets no gradient.
+  nearly cancel and keep mostly that error; B14's backward (replacing
+  ``_mh_bwd_kernel``; in bf16 one pass over the keys on tensor cores, in
+  float32 a dq kernel, then a dk/dv kernel) for dq, dk3 and dv3, then dmem,
+  dWk, dbk, dWv and dbv by float32 ``torch.matmul`` and sums, as
+  ``_proj_vjp_bwd`` computes them; the bias (a validity mask) gets no
+  gradient.
 
 B14p is the same pair of kernels on ``[B, H, L, hd]`` tensors (replacing
 ``_fwd_kernel`` and ``_bwd_kernel``; the TPU needed a second pair only for
@@ -40,10 +41,12 @@ Weights are the torch ``Linear`` layout ``[out, in]`` (the port's
 parameters), so ``k3 = mem . Wk^T + bk``; their gradients come back in the
 weights' dtype.  The wrappers ``flash_cross_fwd`` / ``flash_cross_bwd``
 (B14) and ``flash_cross_vjp_fwd`` / ``flash_cross_vjp_bwd`` (B14p) launch
-the kernels for CUDA tensors (float32 or bfloat16, a head dimension in
-``KERNEL_HEAD_DIMS``; they raise on anything else) and take the plain
-versions beside them for CPU tensors; each counts its launches.  B14's
-plain versions are B14p's on per-head views of the merged tensors.
+the kernels for CUDA tensors (float32 or bfloat16, any head dimension up to
+256: the kernels are built for the multiples of 16 up to 128 and for 256,
+and ``ops/attention.padded_launch`` zero-pads any other to the next with
+the softmax scale of the true one; they raise on anything else) and take
+the plain versions beside them for CPU tensors; each counts its launches.
+B14's plain versions are B14p's on per-head views of the merged tensors.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from unirec_tpu_torch.ops.attention import (
     key_bias,
     launch_flash_cross_fwd,
     merge_heads,
+    padded_launch,
     sm_scale,
     streaming_softmax_stats,
 )
@@ -135,22 +139,44 @@ def flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, num_heads: int
     return tuple(merge_heads(g) for g in grads)
 
 
+# query rows of the bf16 backward's tile: with more, each q tile's block
+# writes float32 partial dk / dv, which a second kernel sums in order
+BWD_Q_TILE = 64
+
+
 def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
                            ) -> None:
-    """The backward kernels of ``csrc/flash_cross.cu`` (the dq kernel, then
-    the dk / dv kernel) on per-head views ``[B, H, L, hd]`` of any (batch,
-    head, row) strides: B14's merged layout or B14p's per-head one."""
+    """The backward of ``csrc/flash_cross.cu`` on per-head views ``[B, H,
+    L, hd]`` of any (batch, head, row) strides: B14's merged layout or
+    B14p's per-head one.  bf16 runs one pass over the keys (with float32
+    scratch for the partial dk / dv of each 64-row q tile when Lq is
+    longer), float32 the dq kernel, then the dk / dv kernel.  A head dim
+    that is not an instance runs zero-padded (``padded_launch``)."""
     b, h, lq, hd = q.shape
-    check_head_dim("the streaming backward", hd)
-    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
-    err = load_kernels().lib.unirec_flash_cross_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias32 is None else bias32.data_ptr(), do.data_ptr(),
-        m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), (ctypes.c_longlong * 21)(*strides),
-        b, h, lq, k.shape[2], hd, dtype_code(q), sm_scale(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_cross_bwd")
+    lkv = k.shape[2]
+
+    def launch(ins, outs, kernel_hd):
+        n_qt = -(-lq // BWD_Q_TILE)
+        scratch = None
+        if q.dtype == torch.bfloat16 and n_qt > 1:
+            scratch = torch.empty(n_qt * 2 * b * h * lkv * kernel_hd,
+                                  device=q.device, dtype=torch.float32)
+        strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
+        qk, kk, vk, dok = ins
+        err = load_kernels().lib.unirec_flash_cross_bwd(
+            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
+            None if bias32 is None else bias32.data_ptr(), dok.data_ptr(),
+            m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            None if scratch is None else scratch.data_ptr(),
+            (ctypes.c_longlong * 21)(*strides), b, h, lq, lkv, kernel_hd,
+            dtype_code(q), sm_scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        check(err, "flash_cross_bwd")
+
+    padded_launch("the streaming backward", hd,
+                  [(q, None), (k, None), (v, None), (do, None)],
+                  [(dq, None), (dk, None), (dv, None)], launch)
 
 
 def _check_stats(name: str, b: int, lq: int, h: int, *stats) -> None:

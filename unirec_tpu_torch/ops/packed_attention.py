@@ -15,8 +15,9 @@ Q-Former's attention runs inside B1/B2 and B12.
 
 CPU tensors take ``packed_item_attention_plain``; on the card the wrapper
 launches the kernel or raises (float32 or bfloat16 of one dtype, a head
-dimension in ``ops/attention.KERNEL_HEAD_DIMS``, a block's items within
-shared memory), and counts its launches.
+dimension up to ``ops/attention.PACKED_MAX_HEAD_DIM``, any that is not a
+multiple of 16 zero-padded to the next by ``ops/attention.padded_launch``, a
+block's items within shared memory), and counts its launches.
 """
 
 from __future__ import annotations
@@ -27,10 +28,12 @@ import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.attention import (
+    PACKED_MAX_HEAD_DIM,
     check_head_dim,
     check_kernel_tensors,
     dtype_code,
     key_bias,
+    padded_launch,
     sm_scale,
 )
 
@@ -102,17 +105,22 @@ def packed_item_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return packed_item_attention_plain(q, k, v, bias)
     check_kernel_tensors("B15", q, k, v)
-    check_head_dim("B15", hd)
-    items = items_per_block(n_q, n_kv, hd, b)
+    check_head_dim("B15", hd, PACKED_MAX_HEAD_DIM)
     bias32 = key_bias(bias, b, n_kv, q.device)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    err = load_kernels().lib.unirec_packed_item_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
-        *strides, b, h, n_q, n_kv, items, hd, dtype_code(q), sm_scale(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "packed_item_attention")
+
+    def launch(ins, outs, kernel_hd):
+        items = items_per_block(n_q, n_kv, kernel_hd, b)
+        strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
+        err = load_kernels().lib.unirec_packed_item_attention(
+            *(t.data_ptr() for t in ins),
+            None if bias32 is None else bias32.data_ptr(), outs[0].data_ptr(),
+            *strides, b, h, n_q, n_kv, items, kernel_hd, dtype_code(q),
+            sm_scale(hd), torch.cuda.current_stream(q.device).cuda_stream)
+        check(err, "packed_item_attention")
+
+    padded_launch("B15", hd, [(q, None), (k, None), (v, None)], [(out, None)],
+                  launch, PACKED_MAX_HEAD_DIM)
     packed_item_attention.launches += 1
     return out
 
