@@ -28,7 +28,10 @@ Phases (any failed check raises; the script then exits non-zero):
    cross and FFN blocks in bf16 at production widths (hidden 1024, 16 heads,
    K=32, F=14, intermediate 4096) for 4096 and a ragged 1001 items (B1 also
    at the 1-item layer-0 shape), with ~15% missing fields and >= 8 items
-   that have none; B1/B2 at K=128 and 256 (64 items); B4/B5/B6, the W8A8
+   that have none; B1/B2 at K=128 and 256 (64 items), and at 4 heads of
+   256 and 300 fields per item (64 items, K=32), timed; the device time of
+   each launch inside B1 and B2 (GEMMs, attention, LayerNorm) from
+   ``torch.profiler``; B4/B5/B6, the W8A8
    blocks, as B1-B3; B8, the W8A8 linear, at the Qwen3-0.6B serving
    projections (4096 rows: 1024->2048, 1024->1024, 2048->1024, 1024->3072,
    3072->1024; and 1024->2048 at 16384 rows), B9a (q|k|v, [4096, 1024] ->
@@ -37,7 +40,11 @@ Phases (any failed check raises; the script then exits non-zero):
    backward, at the item-training shape (512 and a ragged 509 items, ~15%
    missing fields, >= 8 items with none), each repeated for identical bits,
    the forwards beside ``multi_head_attention_forward`` (the yardstick),
-   and B12s at the user stage's 64 users of 64 query rows; B13 (the streaming cross-attention) and B14 (the trainable merged-head
+   the device time of each launch inside them (GEMMs, attention), B12s at
+   the user stage's 64 users of 64 query rows, and the four B12 kernels at
+   the shapes of their gate the old kernels refused (K = F = 128 at head
+   dim 128, K = F = 64 at 512, one head of 1024, hidden 1020 in 4 heads),
+   timed; B13 (the streaming cross-attention) and B14 (the trainable merged-head
    cross-attention, forward and backward) at the user stage's shape (64
    users, 64 queries over 1,600 memory rows, 16 heads of 64) and over a
    ragged 1,000-row memory, with ~15% masked keys and one user masked
@@ -181,8 +188,14 @@ BLOCK_ITEMS = (4096, 1001)
 B12_ITEMS = (512, 509)
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 KERNEL_COS = 0.9999
-# the attention kernel's repaired limit: K up to 256 query rows per item
+# B1/B2 at K up to 256 query rows per item, at a head dim above 128 (4
+# heads of 256) and at 300 fields per item, 64 items
 WIDE_K, WIDE_K_ITEMS = (128, 256), 64
+WIDE_BLOCKS = ((4, QF_F), (QF_HEADS, 300))  # (heads, fields) at K = 32
+# B12 at shapes of its gate beyond the old kernels' (items, K, F, hidden,
+# heads): K = F = 128 at hd 128, hd 512, one head of 1024, hidden 1020
+B12_SHAPES = ((128, 128, 128, 1024, 8), (128, 64, 64, 1024, 2),
+              (64, 64, 64, 1024, 1), (512, 32, 14, 1020, 4))
 SWEEP_ITEMS, SWEEP_BATCH, SWEEP_SAMPLE = 9000, 4096, 256
 # the sweep's tokens against the same engine on the plain block functions:
 # 30 chained blocks carry each block's one-ulp rounding flips forward, so the
@@ -614,6 +627,9 @@ def phase_blocks(gen, precision: str) -> dict:
             f"fields missing; the all-missing item {empty} alone equals its "
             "batch row")
         if items == BLOCK_ITEMS[0]:
+            if precision == "bf16":
+                for name in (sn, cn):
+                    log_split(f"{name.upper()} {items} items", runs[name][0])
             for name in names:
                 kern, plain = runs[name]
                 t_k = time_ms(kern, iters=10, warmup=2)
@@ -658,7 +674,58 @@ def phase_wide_k(gen) -> dict:
             err, cos = block_error(out, plain())
             check_block(name.upper(), err, cos, f"K={n_q}, {items} items")
             errs[name] = max(errs[name], err)
+    for heads, f in WIDE_BLOCKS:  # C-6 and C-9
+        items = WIDE_K_ITEMS
+        x = torch.randn(items, QF_K, QF_D, device="cuda", generator=gen
+                        ).bfloat16()
+        mask = (torch.rand(items, f, device="cuda", generator=gen) > 0.15
+                ).float()
+        mask[::8] = 0.0
+        mem = (torch.randn(items, f, QF_D, device="cuda", generator=gen)
+               * mask[..., None]).bfloat16()
+        key_bias = ((1.0 - mask) * -1e9).contiguous()
+        sk = dict(num_heads=heads, n_q=QF_K)
+        ck = dict(sk, n_kv=f)
+        where = f"{heads} heads of {QF_D // heads}, F={f}, {items} items"
+        for name, kern, plain in (
+                ("b1", lambda: fq.fused_self_attention_block(x, **sw, **sk),
+                 lambda: fq.fused_self_attention_block_plain(x, **sw, **sk)),
+                ("b2", lambda: fq.fused_cross_attention_block(
+                    x, mem, key_bias, **cw, **ck),
+                 lambda: fq.fused_cross_attention_block_plain(
+                     x, mem, key_bias, **cw, **ck))):
+            out = kern()
+            torch.cuda.synchronize()
+            err, cos = block_error(out, plain())
+            check_block(name.upper(), err, cos, where)
+            errs[name] = max(errs[name], err)
+            check_repeat(f"{name.upper()} {where}", (out,), (kern(),))
+            log(f"{name.upper()} time {where}: kernel "
+                f"{time_ms(kern, iters=10, warmup=2):.4f} ms")
     return errs
+
+
+def log_split(name: str, fn, iters: int = 5) -> None:
+    """The device time of each launch inside one call of ``fn`` (a block's
+    C entry makes several: GEMMs, attention, LayerNorm), from
+    ``torch.profiler`` over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_time_by_kernel(prof)
+
+    def short(key: str) -> str:  # "void (anonymous namespace)::gemm<0>(..." -> gemm<0>
+        key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return key.split("(")[0].split("::")[-1][:48]
+
+    log(f"{name} split, device ms a call: " + "; ".join(
+        f"{ms / iters:.4f} {short(key)}" for key, ms in rows))
 
 
 # -- B12s / B12c: the trainable fused blocks ---------------------------------
@@ -827,6 +894,7 @@ def phase_b12(gen) -> dict:
                     raise AssertionError(f"{name.upper()}: the yardstick "
                                          "computes another function")
             for name, (kern, plain, _) in runs.items():
+                log_split(f"{name.upper()} {items} items", kern)
                 t_k = time_ms(kern, iters=20, warmup=3)
                 t_p = time_ms(plain, iters=5, warmup=1)
                 t_k2 = time_ms(kern, iters=20, warmup=3)
@@ -868,6 +936,80 @@ def phase_b12(gen) -> dict:
                     fv.self_attention_bwd_plain(*args, **ukw), where)
     result["b12s_bwd"]["err"] = max(result["b12s_bwd"]["err"], err)
     return result
+
+
+def phase_b12_shapes(gen) -> dict:
+    """B12s and B12c, forward and backward, at the B12_SHAPES that
+    supports_fused_train admits and the old kernels refused (C-7, C-10),
+    against their plain versions with the phase's gates, each repeated for
+    identical bits and timed.  Returns max|d| per kernel."""
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    errs = {n: 0.0 for n in ("b12s_fwd", "b12s_bwd", "b12c_fwd", "b12c_bwd")}
+    for items, k, f, d, heads in B12_SHAPES:
+        if not fv.supports_fused_train(k, d, heads, f):
+            raise AssertionError(f"B12 {(k, f, d, heads)} is not admitted")
+        where = (f"{items} items, K={k}, F={f}, D={d}, {heads} heads of "
+                 f"{d // heads}")
+
+        def rand(*shape, std=1.0):
+            return (torch.randn(*shape, device="cuda", generator=gen) * std
+                    ).bfloat16()
+
+        mask = (torch.rand(items, f, device="cuda", generator=gen) > 0.15
+                ).float()
+        mask[::8] = 0.0
+        x2, dout = rand(items * k, d), rand(items * k, d, std=0.1)
+        mem2 = (rand(items, f, d) * mask[..., None].bfloat16()).reshape(-1, d)
+        kb = ((1.0 - mask) * -1e9).reshape(-1).contiguous()
+        zero = torch.zeros(items * k, device="cuda")
+        s = d ** -0.5
+        sa = (x2, zero, rand(3 * d, d, std=s), rand(3 * d, std=0.1),
+              rand(d, d, std=s), rand(d, std=0.1))
+        ca = (x2, mem2, kb, rand(d, d, std=s), rand(d, std=0.1),
+              rand(2 * d, d, std=s), rand(2 * d, std=0.1), rand(d, d, std=s),
+              rand(d, std=0.1))
+        skw = dict(num_heads=heads, n_q=k)
+        ckw = dict(skw, n_kv=f)
+        qkv = fv.self_attention_fwd_plain(*sa, **skw)[1]
+        _, q, kv, _ = fv.cross_attention_fwd_plain(*ca, **ckw)
+        noise = (mask.sum(1) == 0).repeat_interleave(k)
+        runs = {
+            "b12s_fwd": (lambda: fv.self_attention_fwd(*sa, **skw),
+                         lambda: fv.self_attention_fwd_plain(*sa, **skw),
+                         ("out", "qkv", "ctx")),
+            "b12s_bwd": (lambda: fv.self_attention_bwd(qkv, sa[4], zero, dout,
+                                                       **skw),
+                         lambda: fv.self_attention_bwd_plain(
+                             qkv, sa[4], zero, dout, **skw), ("dqkv",)),
+            "b12c_fwd": (lambda: fv.cross_attention_fwd(*ca, **ckw),
+                         lambda: fv.cross_attention_fwd_plain(*ca, **ckw),
+                         ("out", "q", "kv", "ctx")),
+            "b12c_bwd": (lambda: fv.cross_attention_bwd(q, kv, ca[7], kb, dout,
+                                                        **ckw),
+                         lambda: fv.cross_attention_bwd_plain(
+                             q, kv, ca[7], kb, dout, **ckw), ("dq", "dkv")),
+        }
+        for name, (kern, plain, outs) in runs.items():
+            got = kern()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = plain()
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for o, g, r in zip(outs, got, ref):
+                err = kernel_error(f"{name.upper()} {o}", g, r, where,
+                                   noise if o == "dq" else None)
+                errs[name] = max(errs[name], err)
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name.upper()} {where}: a repeat "
+                                     "gave other bits")
+            log(f"{name.upper()} time {where}: kernel "
+                f"{time_ms(kern, iters=10, warmup=2):.4f} ms")
+        del runs, qkv, q, kv
+        torch.cuda.empty_cache()
+    return errs
 
 
 # -- B13 / B14: the user stage's streaming cross-attention --------------------
@@ -3631,6 +3773,8 @@ def main() -> int:
         blocks[key]["err"] = max(blocks[key]["err"], err)
     blocks.update(phase_blocks(gen, "int8"))
     b12 = phase_b12(gen)
+    for key, err in phase_b12_shapes(gen).items():
+        b12[key]["err"] = max(b12[key]["err"], err)
     flash = phase_flash_cross(gen)
     b14p = phase_b14p(gen)
     b15 = phase_b15(gen)

@@ -76,23 +76,31 @@ def _launches(text: str) -> str:
     return "".join(out) + text[i:]
 
 
-def build(csrc: Path, work: Path, sources=SOURCES) -> ctypes.CDLL:
-    """Compile ``sources`` of ``csrc`` for the emulation into ``work``."""
+def build(csrc: Path, work: Path, sources=SOURCES,
+          extra: dict | None = None) -> ctypes.CDLL:
+    """Compile ``sources`` of ``csrc`` (and ``extra``: file name -> text of
+    more sources beside them) for the emulation into ``work``."""
     shutil.rmtree(work, ignore_errors=True)
     src = work / "src"
     src.mkdir(parents=True)
     for p in csrc.iterdir():
         if p.suffix in (".cu", ".cuh"):
             shutil.copy(p, src / p.name)
+    for name, text in (extra or {}).items():
+        (src / name).write_text(text)
+    sources = (*sources, *(extra or {}))
+    def emulated(text: str) -> str:  # shared memory and launches rewritten
+        return _launches(re.sub(
+            r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?)\s+(\w+)\[\];",
+            r"\1* \2 = reinterpret_cast<\1*>(emu::smem_base);", text))
+
+    for p in src.glob("*.cuh"):
+        p.write_text(emulated(p.read_text()))
     shutil.copy(HERE / "ptx_helpers.cuh", src / "ptx_helpers.cuh")
     units = []
     for name in sources:
-        text = re.sub(
-            r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?)\s+(\w+)\[\];",
-            r"\1* \2 = reinterpret_cast<\1*>(emu::smem_base);",
-            (src / name).read_text())
         unit = src / (Path(name).stem + ".cpp")
-        unit.write_text(_launches(text))
+        unit.write_text(emulated((src / name).read_text()))
         units.append(unit)
     units.append(HERE / "api.cpp")
     objs = [work / (u.stem + ".o") for u in units]

@@ -33,6 +33,7 @@
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n)
+#define __grid_constant__
 #ifndef INFINITY
 #define INFINITY (__builtin_inff())
 #endif
@@ -42,11 +43,13 @@ struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-enum cudaError { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorSmem = 700, cudaErrorLaunch = 701 };
+enum cudaError { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801,
+                 cudaErrorSmem = 700, cudaErrorLaunch = 701 };
 typedef cudaError cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -55,6 +58,7 @@ namespace emu {
 struct Block {
   std::barrier<>* bar;
   std::barrier<>* wbar[32];
+  std::barrier<>* gbar[8];  // warpgroups of 128 threads (wgmma's collective)
   uint32_t xbuf[32][32][12];
   uint64_t abuf[32][32];
 };
@@ -155,6 +159,8 @@ void launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
         Block* b = new Block();
         b->bar = new std::barrier<>(nt);
         for (int w = 0; w < nw; ++w) b->wbar[w] = new std::barrier<>(32);
+        for (int w = 0; w < (nw + 3) / 4; ++w)
+          b->gbar[w] = new std::barrier<>(std::min(128, (int)nt - 128 * w));
         std::vector<std::thread> th;
         for (unsigned t = 0; t < nt; ++t)
           th.emplace_back([&, t]() {
@@ -163,12 +169,14 @@ void launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
             cur.clear(); groups.clear();
             kernel(args...);
             b->wbar[t >> 5]->arrive_and_drop();
+            b->gbar[t >> 7]->arrive_and_drop();
             b->bar->arrive_and_drop();
           });
         for (auto& x : th) x.join();
         for (int i = 0; i < 64; ++i)
           if (mem[smem + i] != 0xFF) { fail("shared memory written past its end"); break; }
         for (int w = 0; w < nw; ++w) delete b->wbar[w];
+        for (int w = 0; w < (nw + 3) / 4; ++w) delete b->gbar[w];
         delete b->bar; delete b;
         if (fault) return;
       }

@@ -2,9 +2,13 @@
 // the same functions, computed from the fragment layouts that header
 // documents.  mma.sync sums each product in fp32 in k order.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <atomic>
+#include <chrono>
+#include <thread>
 namespace {
 inline uint32_t smem_addr(const void* p) {
   const size_t off = __cvta_generic_to_shared(p);
@@ -101,5 +105,125 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   hi = pack_bf16(x0, x1);
   const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
   lo = pack_bf16(x0 - __bfloat162float(h.x), x1 - __bfloat162float(h.y));
+}
+
+// wgmma: each thread computes its own accumulator elements straight from
+// the shared-memory tiles the descriptors name (K-major, 128-byte swizzle:
+// address bits 4-6 XOR bits 7-9), summing each product in k order.  The
+// fence is a barrier of the warpgroup, as the collective products keep its
+// warps together; commit and wait are no-ops: a product is complete on
+// return.
+inline uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+inline void wgmma_fence() { emu::blk->gbar[emu::tIdx.x >> 7]->arrive_and_wait(); }
+inline void wgmma_commit() {}
+template <int N>
+inline void wgmma_wait() {}
+inline void fence_proxy_async() {}
+inline float emu_desc_elem(uint64_t desc, int row, int k) {
+  if ((desc >> 62) != 1) { emu::fail("wgmma descriptor: not 128-byte swizzle"); return 0.f; }
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  const uint32_t logical = start + (row / 8) * sbo + (row % 8) * 128 + k * 2;
+  const uint32_t phys = logical ^ (((logical >> 7) & 7) << 4);
+  return bfl(emu_ld16(phys), 0);
+}
+template <int N>
+inline void emu_wgmma(float* d, uint64_t da, uint64_t db) {
+  const int t = emu::tIdx.x % 128, w = t / 32, ln = t % 32, g = ln >> 2, q = ln & 3;
+  for (int n = 0; n < N / 8; ++n)
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * w + g + 8 * (e >> 1), col = 8 * n + 2 * q + (e & 1);
+      float acc = d[4 * n + e];
+      for (int k = 0; k < 16; ++k) acc += emu_desc_elem(da, row, k) * emu_desc_elem(db, col, k);
+      d[4 * n + e] = acc;
+    }
+}
+inline void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  emu_wgmma<128>(d, da, db);
+}
+inline void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  emu_wgmma<256>(d, da, db);
+}
+
+// mbarriers: an 8-byte shared word updated atomically, bits 0-14 pending
+// arrivals, 15-29 the arrival count, 30 the phase, 32-63 pending
+// transaction bytes (signed); a phase completes when arrivals and bytes
+// reach zero.  TMA copies its box at once (128-byte swizzle by address
+// bits, zeros past the tensor) and completes the bytes on the barrier.
+inline std::atomic_ref<uint64_t> emu_bar(uint64_t* bar) {
+  const uint32_t off = smem_addr(bar);
+  if (off % 8) emu::fail("mbarrier misaligned");
+  return std::atomic_ref<uint64_t>(*bar);
+}
+inline void emu_bar_update(uint64_t* bar, int arrivals, long long bytes) {
+  auto a = emu_bar(bar);
+  uint64_t v = a.load();
+  for (;;) {
+    int pending = (int)(v & 0x7FFF) - arrivals;
+    const int count = (int)((v >> 15) & 0x7FFF);
+    uint64_t phase = (v >> 30) & 1;
+    long long tx = (long long)(int32_t)(uint32_t)(v >> 32) + bytes;
+    if (pending < 0) { emu::fail("mbarrier: too many arrivals"); return; }
+    if (pending == 0 && tx == 0) { pending = count; phase ^= 1; }
+    const uint64_t nv = (uint64_t)pending | ((uint64_t)count << 15) | (phase << 30) |
+                        ((uint64_t)(uint32_t)(int32_t)tx << 32);
+    if (a.compare_exchange_weak(v, nv)) return;
+  }
+}
+inline void mbar_init(uint64_t* bar, int count) {
+  emu_bar(bar).store((uint64_t)count | ((uint64_t)count << 15));
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive_expect(uint64_t* bar, int bytes) {
+  // the bytes first, then the arrival: the phase cannot complete between
+  emu_bar_update(bar, 0, bytes);
+  emu_bar_update(bar, 1, 0);
+}
+inline void mbar_arrive(uint64_t* bar) { emu_bar_update(bar, 1, 0); }
+inline void mbar_wait(uint64_t* bar, int parity) {
+  for (long long spins = 0; ((emu_bar(bar).load() >> 30) & 1) == (uint64_t)parity; ++spins) {
+    if (emu::fault) return;
+    if (spins > 200000) {
+      char msg[160];
+      const uint64_t v = emu_bar(bar).load();
+      snprintf(msg, sizeof msg, "mbarrier wait: no progress (barrier at %u, parity %d, word %llx)",
+               smem_addr(bar), parity, (unsigned long long)v);
+      emu::fail(msg);
+      return;
+    }
+    std::this_thread::sleep_for(std::chrono::microseconds(20));
+  }
+}
+inline void tma_load_2d(void* dst, const void* map, int x, int y, uint64_t* bar) {
+  const uint64_t* m = static_cast<const CUtensorMap*>(map)->opaque;
+  const auto* base = reinterpret_cast<const unsigned char*>((uintptr_t)m[0]);
+  const long long cols = (long long)m[1], rows = (long long)m[2], stride = (long long)m[3];
+  const int bc = (int)m[4], br = (int)m[5];
+  if (m[6] != 3 || bc * 2 != 128) {
+    emu::fail("TMA: only 128-byte swizzled 64-column boxes");
+    return;
+  }
+  const uint32_t d0 = smem_addr(dst);
+  if (d0 % 1024) { emu::fail("TMA: destination not 1024-byte aligned"); return; }
+  for (int r = 0; r < br; ++r) {
+    const long long gr = y + r;
+    for (int c = 0; c < bc; c += 8) {  // 16-byte chunks, zero past the edges
+      unsigned char chunk[16] = {0};
+      if (gr < rows && x + c < cols) {
+        const long long n = std::min<long long>(8, cols - (x + c)) * 2;
+        const unsigned char* src = base + gr * stride + (x + c) * 2;
+        if (!emu::in_global(src, n)) { emu::fail("TMA source out of global tensors"); return; }
+        memcpy(chunk, src, n);
+      }
+      const uint32_t logical = d0 + r * 128 + c * 2;
+      const uint32_t phys = logical ^ (((logical >> 7) & 7) << 4);
+      if (phys + 16 > emu::smem_size) { emu::fail("TMA destination out of smem"); return; }
+      memcpy(emu::smem_base + phys, chunk, 16);
+    }
+  }
+  emu_bar_update(bar, 0, -(long long)br * bc * 2);
 }
 }  // namespace

@@ -29,6 +29,7 @@ from unirec_tpu_torch.inference.fused_qformer import (
     supports_fused,
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
+from unirec_tpu_torch.ops import fused_qformer_int8 as fq_int8
 from unirec_tpu_torch.ops import fused_qformer_layer as fq
 from unirec_tpu_torch.utils.weights import item_qformer_state_dict_from_flax
 
@@ -256,26 +257,91 @@ def test_prepare_fused_params_packing(setup):
         prepare_fused_params(sd, cfg, precision="fp8")
 
 
-@pytest.mark.parametrize("args", [
-    ({"D": 1024, "intermediate": 4100},),  # a 16-byte row is 8 bf16 values
-    ({"D": 1024}, 256, 32),  # head_dim above 128
-    ({"D": 1024}, 64, 512),  # K = 512 rows per item
-], ids=["width", "head_dim", "rows"])
-def test_kernel_limits_are_refused(args):
-    fq._check_kernel_dims("block", {"D": 1024, "intermediate": 4096})
-    with pytest.raises(ValueError):
-        fq._check_kernel_dims("block", *args)
+@pytest.mark.parametrize("widths,multiple", [
+    ({"D": 1024, "intermediate": 4100}, 8),  # a 16-byte row is 8 bf16 values
+    ({"D": 1020, "Dm": 1024}, 8),  # hidden 1020 in 4 heads: supports_fused admits it
+    ({"D": 1032}, fq_int8.KERNEL_INT8_MULTIPLE),  # or 16 int8 codes (B4-B6)
+], ids=["width", "hidden", "int8"])
+def test_kernel_limits_are_refused(widths, multiple):
+    """The only limit left on B1-B6 is their GEMMs' (C-10, B1-B6 part): a
+    width that is not a whole number of 16-byte rows.  The attention core
+    takes any head dim, K and F, so the wrappers check nothing else; the
+    plain versions at such shapes are held to the JAX kernels below, and
+    the kernels to the plain versions on the card (test_torch_kernels_gpu,
+    chip_smoke.py)."""
+    fq._check_kernel_dims("block", {"D": 1024, "intermediate": 4096}, multiple)
+    with pytest.raises(ValueError, match=f"not a multiple of {multiple}"):
+        fq._check_kernel_dims("block", widths, multiple)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [128, 256])
 def test_kernel_takes_every_k_that_supports_fused_admits(head_dim):
-    """The attention kernel tiles the query rows and holds keys and values
-    as bf16, so every K dividing 256 fits (up to 256 rows per item)."""
+    """B1 at every K dividing 256 (the K supports_fused admits) in 2 heads of
+    128 and of 256 (above the old kernel's limit, C-6), 2 items: the
+    wrapper passes the width check and, on CPU tensors, its plain version
+    agrees with the JAX kernel in interpret mode, in float32."""
+    d = 2 * head_dim
+    rng = np.random.RandomState(6)
+    s = d ** -0.5
+    w = {n: rng.randn(*shape).astype(np.float32) * s for n, shape in (
+        ("wqkv", (d, 3 * d)), ("wo", (d, d)))}
+    v = {n: rng.randn(n_).astype(np.float32) * 0.1 for n, n_ in (
+        ("bqkv", 3 * d), ("bo", d), ("beta", d))}
+    g = 1.0 + 0.1 * rng.randn(d).astype(np.float32)
     for k in (1, 2, 4, 8, 16, 32, 64, 128, 256):
-        assert supports_fused(ItemQFormerConfig(num_query_tokens=k))
-        fq._check_kernel_dims("block", {"D": 16 * head_dim}, head_dim, k)
-    with pytest.raises(ValueError, match="rows per item"):
-        fq._check_kernel_dims("block", {"D": 16 * head_dim}, head_dim, 257)
+        assert supports_fused(ItemQFormerConfig(
+            hidden_size=d, num_attention_heads=2, num_query_tokens=k))
+        fq._check_kernel_dims("fused_self_attention_block", {"D": d})
+        x = rng.randn(2, k, d).astype(np.float32)
+        want = jax_fq.fused_self_attention_block(
+            jnp.asarray(x), jnp.asarray(w["wqkv"]), jnp.asarray(v["bqkv"]),
+            jnp.asarray(w["wo"]), jnp.asarray(v["bo"]), jnp.asarray(g),
+            jnp.asarray(v["beta"]), num_heads=2, n_q=k, interpret=True)
+        got = fq.fused_self_attention_block(
+            _t(x), _t(w["wqkv"].T).contiguous(), _t(v["bqkv"]),
+            _t(w["wo"].T).contiguous(), _t(v["bo"]), _t(g), _t(v["beta"]),
+            num_heads=2, n_q=k)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=RTOL, err_msg=f"K={k}")
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_cross_block_takes_300_fields(dtype):
+    """B2 at 300 fields per item (2 items, one without a field), newly taken
+    by the kernel (C-9): the plain version against the JAX kernel in
+    interpret mode, which has no limit on F."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.RandomState(5)
+    b, f, d = 2, 300, 64
+    x = rng.randn(b, K, d).astype(np.float32)
+    mem = rng.randn(b, f, d).astype(np.float32)
+    mask = (rng.rand(b, f) > 0.2).astype(np.float32)
+    mask[1] = 0.0
+    bias = (1.0 - mask) * fq.NEG_INF
+    w = {n: rng.randn(*s).astype(np.float32) * 0.1 for n, s in (
+        ("wq", (d, d)), ("wkv", (d, 2 * d)), ("wo", (d, d)))}
+    v = {n: rng.randn(s).astype(np.float32) * 0.1 for n, s in (
+        ("bq", d), ("bkv", 2 * d), ("bo", d))}
+    g, beta = 1.0 + 0.1 * rng.randn(d).astype(np.float32), 0.1 * rng.randn(d)
+    want = jax_fq.fused_cross_attention_block(
+        jnp.asarray(x, jdt), jnp.asarray(mem, jdt), jnp.asarray(bias),
+        jnp.asarray(w["wq"], jdt), jnp.asarray(v["bq"], jdt),
+        jnp.asarray(w["wkv"], jdt), jnp.asarray(v["bkv"], jdt),
+        jnp.asarray(w["wo"], jdt), jnp.asarray(v["bo"], jdt),
+        jnp.asarray(g, jdt), jnp.asarray(beta, jdt), num_heads=HEADS, n_q=K,
+        n_kv=f, interpret=True)
+    wt = lambda n: _t(w[n].T).to(tdt).contiguous()  # noqa: E731
+    vt = lambda a: _t(np.asarray(jnp.asarray(a, jdt).astype(jnp.float32)))  # noqa: E731
+    got = fq.fused_cross_attention_block(
+        _t(x).to(tdt), _t(mem).to(tdt), _t(bias), wt("wq"), vt(v["bq"]),
+        wt("wkv"), vt(v["bkv"]), wt("wo"), vt(v["bo"]), vt(g), vt(beta),
+        num_heads=HEADS, n_q=K, n_kv=f)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "fp32":
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL,
+                                   rtol=0)
 
 
 def test_other_devices_are_refused():

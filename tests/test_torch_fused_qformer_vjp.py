@@ -261,9 +261,71 @@ def test_supports_fused_train_matches_jax():
             for f in (1, 14, 100, 1600):
                 assert pvjp.supports_fused_train(k, d, h, f) == \
                     jvjp.supports_fused_train(k, d, h, f), (k, d, h, f)
-    assert pvjp.kernel_takes(32, 32, 64) and pvjp.kernel_takes(32, 14, 64)
-    assert pvjp.kernel_takes(128, 128, 64)
-    assert not pvjp.kernel_takes(256, 256, 64)
+    # shapes the old kernels refused and the new ones take on the card (C-7,
+    # C-10; held there by test_b12_takes_every_admitted_shape), admitted by
+    # both gates: K = F = 128 at head dim 128, one head of 1024, hidden 1020
+    for k, d, h, f in ((128, 1024, 8, 128), (64, 1024, 1, 64),
+                       (32, 1020, 4, 14)):
+        assert pvjp.supports_fused_train(k, d, h, f)
+        assert jvjp.supports_fused_train(k, d, h, f)
+
+
+@pytest.mark.parametrize("d,heads", [(512, 2), (512, 1), (1020, 4)],
+                         ids=["hd256", "hd512", "d1020"])
+def test_kernel_functions_take_wide_heads(d, heads):
+    """B12's plain versions at shapes the kernels newly take (C-7, C-10): K
+    = F = 8 over 32 items (one whole 256-row tile of the JAX kernels; one
+    item without a field) at 2 heads of 256, one head of 512 and hidden
+    1020 in 4 heads, forward residuals and backward outputs against the JAX
+    kernels in interpret mode, in float32."""
+    rng = np.random.RandomState(4)
+    b, k, f = 32, 8, 8
+    s = d ** -0.5
+    w = {n: rng.randn(*shape).astype(np.float32) * (s if len(shape) > 1
+                                                      else 0.01)
+         for n, shape in (("wq", (d, d)), ("bq", (d,)), ("wkv", (d, 2 * d)),
+                          ("bkv", (2 * d,)), ("wqkv", (d, 3 * d)),
+                          ("bqkv", (3 * d,)), ("wo", (d, d)), ("bo", (d,)))}
+    x2 = rng.randn(b * k, d).astype(np.float32)
+    mem2 = rng.randn(b * f, d).astype(np.float32)
+    mask = (rng.rand(b, f) > 0.3).astype(np.float32)
+    mask[1] = 0.0
+    kb = ((1.0 - mask) * jvjp.NEG_INF).astype(np.float32).reshape(-1)
+    dout = rng.randn(b * k, d).astype(np.float32)
+    zeros = np.zeros(b * k, np.float32)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    j = lambda n: jnp.asarray(w[n], jnp.float32)  # noqa: E731
+    close = lambda got, want: np.testing.assert_allclose(  # noqa: E731
+        got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+    j_self = jvjp._self_fwd(jnp.asarray(x2), jnp.asarray(zeros), j("wqkv"),
+                            j("bqkv"), j("wo"), j("bo"), heads, k, True)
+    p_self = pvjp.self_attention_fwd(t(x2), t(zeros), t(w["wqkv"].T),
+                                     t(w["bqkv"]), t(w["wo"].T), t(w["bo"]),
+                                     num_heads=heads, n_q=k)
+    for got, want in zip(p_self, j_self):
+        close(got, want)
+    close(pvjp.self_attention_bwd(p_self[1], t(w["wo"].T), t(zeros), t(dout),
+                                  num_heads=heads, n_q=k),
+          jvjp._self_bwd_call(j_self[1], j("wo"), jnp.asarray(zeros),
+                              jnp.asarray(dout), heads, k, True))
+
+    j_cross = jvjp._cross_fwd(jnp.asarray(x2), jnp.asarray(mem2),
+                              jnp.asarray(kb), j("wq"), j("bq"), j("wkv"),
+                              j("bkv"), j("wo"), j("bo"), heads, k, f, True)
+    p_cross = pvjp.cross_attention_fwd(
+        t(x2), t(mem2), t(kb), t(w["wq"].T), t(w["bq"]), t(w["wkv"].T),
+        t(w["bkv"]), t(w["wo"].T), t(w["bo"]), num_heads=heads, n_q=k, n_kv=f)
+    for got, want in zip(p_cross, j_cross):
+        close(got, want)
+    j_grads = jvjp._cross_bwd_call(j_cross[1], j_cross[2], j("wo"),
+                                   jnp.asarray(kb), jnp.asarray(dout), heads,
+                                   k, f, True)
+    p_grads = pvjp.cross_attention_bwd(p_cross[1], p_cross[2], t(w["wo"].T),
+                                       t(kb), t(dout), num_heads=heads, n_q=k,
+                                       n_kv=f)
+    for got, want in zip(p_grads, j_grads):
+        close(got, want)
 
 
 def test_item_qformer_fused_training_matches_jax():

@@ -321,8 +321,8 @@ def test_blocks_refuse_fp32_on_the_card(hopper):
 
 @pytest.mark.parametrize("n_q", [128, 256])
 def test_b1_b2_take_k_up_to_256(hopper, n_q):
-    """The repaired attention kernel: K=128 and 256 query rows per item
-    (query tiles of 64, keys and values as bf16 in shared memory)."""
+    """K=128 and 256 query rows per item: tiles of 64 query rows of one
+    item in the attention core."""
     g, items = hopper, 64
     x = _rand(g, items, n_q, D)
     sw = dict(wqkv=_rand(g, 3 * D, D, std=0.03), bqkv=_vec(g, 3 * D),
@@ -343,6 +343,37 @@ def test_b1_b2_take_k_up_to_256(hopper, n_q):
     out = fq.fused_cross_attention_block(x, mem, key_bias, **cw, **kw)
     torch.cuda.synchronize()
     _check_block(out, fq.fused_cross_attention_block_plain(
+        x, mem, key_bias, **cw, **kw))
+
+
+@pytest.mark.parametrize("heads,f", [(4, F), (HEADS, 300)],
+                         ids=["hd256", "f300"])
+def test_b1_b2_take_wide_heads_and_fields(hopper, heads, f):
+    """B1 and B2 at a head dim above 128 (C-6: 4 heads of 256) and B2 at 300
+    fields per item (C-9), through the attention core."""
+    g, items = hopper, 64
+    x = _rand(g, items, K, D)
+    sw = dict(wqkv=_rand(g, 3 * D, D, std=0.03), bqkv=_vec(g, 3 * D),
+              wo=_rand(g, D, D, std=0.03), bo=_vec(g, D),
+              ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    out = fq.fused_self_attention_block(x, **sw, num_heads=heads, n_q=K)
+    torch.cuda.synchronize()
+    _check_block(out, fq.fused_self_attention_block_plain(
+        x, **sw, num_heads=heads, n_q=K))
+    mask = (torch.rand(items, f, device="cuda", generator=g) > 0.15).float()
+    mask[::8] = 0.0
+    mem = _rand(g, items, f, D) * mask[..., None].bfloat16()
+    key_bias = ((1.0 - mask) * fq.NEG_INF).contiguous()
+    cw = dict(wq=_rand(g, D, D, std=0.03), bq=_vec(g, D),
+              wkv=_rand(g, 2 * D, D, std=0.03), bkv=_vec(g, 2 * D),
+              wo=_rand(g, D, D, std=0.03), bo=_vec(g, D),
+              ln_gamma=_vec(g, D, 1.0), ln_beta=_vec(g, D))
+    kw = dict(num_heads=heads, n_q=K, n_kv=f)
+    out = fq.fused_cross_attention_block(x, mem, key_bias, **cw, **kw)
+    torch.cuda.synchronize()
+    _check_block(out, fq.fused_cross_attention_block_plain(
+        x, mem, key_bias, **cw, **kw))
+    assert torch.equal(out, fq.fused_cross_attention_block(
         x, mem, key_bias, **cw, **kw))
 
 
@@ -611,6 +642,10 @@ def test_b12_autograd_gradients_match_plain(hopper):
 
 
 def test_b12_wrappers_refuse_what_the_kernels_do_not_take(hopper):
+    """fp32 activations are refused; K = 256 (an item the old kernels' shared
+    memory could not hold) is taken since the attention core (C-7); an item
+    of more query tiles than a grid dimension holds is refused by the C
+    entry itself (cudaErrorInvalidValue through check)."""
     from unirec_tpu_torch.ops import fused_qformer_vjp as fv
 
     x, _, _, w, b, _, _ = _b12_inputs(hopper, 2)
@@ -619,10 +654,83 @@ def test_b12_wrappers_refuse_what_the_kernels_do_not_take(hopper):
         fv.self_attention_fwd(x.float(), kb, w["wqkv"], b["bqkv"], w["wo"],
                               b["bo"], num_heads=16, n_q=32)
     big = _rand(hopper, 256 * 4, 1024)
-    with pytest.raises(ValueError, match="shared memory"):
-        fv.self_attention_fwd(big, torch.zeros(1024, device="cuda"),
-                              w["wqkv"], b["bqkv"], w["wo"], b["bo"],
-                              num_heads=16, n_q=256)
+    args = (big, torch.zeros(1024, device="cuda"), w["wqkv"], b["bqkv"],
+            w["wo"], b["bo"])
+    got = fv.self_attention_fwd(*args, num_heads=16, n_q=256)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("out", "qkv", "ctx"), got, fv.self_attention_fwd_plain(
+            *args, num_heads=16, n_q=256)):
+        _check_kernel(name, g, r)
+    n_q = 64 * 65535 + 1  # 65,536 query tiles of 64 rows in one item
+    tall = _rand(hopper, n_q, 8)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        fv.self_attention_fwd(tall, torch.zeros(n_q, device="cuda"),
+                              _rand(hopper, 24, 8), _rand(hopper, 24),
+                              _rand(hopper, 8, 8), _rand(hopper, 8),
+                              num_heads=1, n_q=n_q)
+
+
+def _b12_shape_inputs(gen, items, k, f, d):
+    """x [items * k, d], mem [items * f, d] with ~15% missing fields and item
+    0 without any, key bias, weights at std d^-1/2, dout."""
+    mask = (torch.rand(items, f, device="cuda", generator=gen) > 0.15).float()
+    mask[0] = 0.0
+    x = _rand(gen, items * k, d)
+    mem = (_rand(gen, items, f, d) * mask[..., None].bfloat16()).reshape(-1, d)
+    kb = ((1.0 - mask) * -1e9).reshape(-1).contiguous()
+    s = d ** -0.5
+    w = {n: _rand(gen, *sh, std=s) for n, sh in (
+        ("wqkv", (3 * d, d)), ("wq", (d, d)), ("wkv", (2 * d, d)),
+        ("wo", (d, d)))}
+    b = {n: _rand(gen, n_, std=0.1) for n, n_ in (
+        ("bqkv", 3 * d), ("bq", d), ("bkv", 2 * d), ("bo", d))}
+    dout = _rand(gen, items * k, d, std=0.1)
+    return x, mem, kb, w, b, dout, (mask.sum(1) == 0).repeat_interleave(k)
+
+
+@pytest.mark.parametrize("items,k,f,d,heads", [
+    (16, 128, 128, 1024, 8), (16, 64, 64, 1024, 2), (8, 64, 64, 1024, 1),
+    (64, 32, 14, 1020, 4)], ids=["kf128_hd128", "kf64_hd512", "hd1024",
+                                 "d1020"])
+def test_b12_takes_every_admitted_shape(hopper, items, k, f, d, heads):
+    """B12s / B12c forward and backward at shapes supports_fused_train admits
+    that the old kernels refused (C-7: K = F = 128 at hd 128, hd 512, one
+    head of 1024; C-10: width 1020, rows not 16-byte aligned), against the
+    plain versions, repeating bit for bit."""
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    assert fv.supports_fused_train(k, d, heads, f)
+    x, mem, kb, w, b, dout, empty = _b12_shape_inputs(hopper, items, k, f, d)
+    zero = torch.zeros(x.shape[0], device="cuda")
+    skw = dict(num_heads=heads, n_q=k)
+    ckw = dict(skw, n_kv=f)
+    sa = (x, zero, w["wqkv"], b["bqkv"], w["wo"], b["bo"])
+    ca = (x, mem, kb, w["wq"], b["bq"], w["wkv"], b["bkv"], w["wo"], b["bo"])
+    got = fv.self_attention_fwd(*sa, **skw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("out", "qkv", "ctx"), got,
+                          fv.self_attention_fwd_plain(*sa, **skw)):
+        _check_kernel(name, g, r)
+    bargs = (got[1], w["wo"], zero, dout)
+    dqkv = fv.self_attention_bwd(*bargs, **skw)
+    torch.cuda.synchronize()
+    _check_kernel("dqkv", dqkv, fv.self_attention_bwd_plain(*bargs, **skw))
+    assert all(torch.equal(a, c) for a, c in
+               zip(got, fv.self_attention_fwd(*sa, **skw)))
+    assert torch.equal(dqkv, fv.self_attention_bwd(*bargs, **skw))
+    got = fv.cross_attention_fwd(*ca, **ckw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("out", "q", "kv", "ctx"), got,
+                          fv.cross_attention_fwd_plain(*ca, **ckw)):
+        _check_kernel(name, g, r)
+    bargs = (got[1], got[2], w["wo"], kb, dout)
+    dq, dkv = fv.cross_attention_bwd(*bargs, **ckw)
+    torch.cuda.synchronize()
+    rq, rkv = fv.cross_attention_bwd_plain(*bargs, **ckw)
+    _check_kernel("dq", dq, rq, noise_rows=empty)
+    _check_kernel("dkv", dkv, rkv)
+    again = fv.cross_attention_bwd(*bargs, **ckw)
+    assert torch.equal(dq, again[0]) and torch.equal(dkv, again[1])
 
 
 # -- B13 / B14: the user stage's streaming cross-attention ---------------------

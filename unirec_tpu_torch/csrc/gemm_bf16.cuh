@@ -1,7 +1,7 @@
-// The bf16 GEMM shared by the Item Q-Former kernels (qformer_blocks.cu: B1-B6;
-// fused_qformer_vjp.cu: B12s/B12c).  Its cp.async / ldmatrix / mma.sync
-// helpers, which the int8 GEMM of qformer_blocks.cu also uses, are in
-// ptx_helpers.cuh.
+// The bf16 GEMM of the item-token sweep's Q-Former blocks (qformer_blocks.cu:
+// B1-B6; the trainable blocks B12s/B12c take gemm_wide.cuh).  Its cp.async /
+// ldmatrix / mma.sync helpers, which the int8 GEMM of qformer_blocks.cu also
+// uses, are in ptx_helpers.cuh.
 //
 //   gemm_bf16_kernel: C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with K
 //   contiguous (W is the torch Linear layout), 128x128x32 block tiles, 8 warps

@@ -27,7 +27,7 @@
 // three blocks are bound by tensor-core arithmetic.
 //
 // Design (first version: right and simple, every GEMM hand-written here):
-//   * gemm_bf16_kernel (in gemm_bf16.cuh, shared with fused_qformer_vjp.cu):
+//   * gemm_bf16_kernel (in gemm_bf16.cuh):
 //     C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with
 //     K contiguous (W is the torch Linear layout, packed once on the host),
 //     128x128x32 block tiles, 8 warps of 64x32, mma.sync m16n8k16 with fp32
@@ -36,16 +36,16 @@
 //     and K edges are zero-filled on load and masked on store.  Epilogues:
 //     +bias -> bf16 (QKV, Q, KV), +bias -> tanh gelu in fp32 -> bf16 (FFN
 //     up), +bias +residual -> fp32 (Wo, FFN down).
-//   * item_attention_kernel: one block per (item, head, tile of up to 64
-//     query rows), up to 256 query and key rows per item.  q (times the
-//     scale, rounded to bf16) sits in shared memory as fp32, k and v of the
-//     item's head as bf16, so that K=256 fits at head dim 128;
-//     scores and softmax in fp32 with the additive key bias (never skipped:
-//     an item whose fields are all missing gets the uniform average of its
-//     own value rows, as the JAX path does); unnormalised probabilities are
-//     rounded to bf16 before the value product, which accumulates in fp32
-//     and is then scaled by 1/rowsum; ctx is written in bf16 to the head's
-//     column range.  These are the rounding points of _group_attention.
+//   * the attention is the per-item core of item_attention.cuh (shared with
+//     B12) in its B1 rounding, the rounding points of _group_attention:
+//     bf16(q * scale) before the product, scores and softmax in fp32 with
+//     the additive key bias (never skipped: an item whose fields are all
+//     missing gets the uniform average of its own value rows, as the JAX
+//     path does), unnormalised probabilities rounded to bf16 before the
+//     value product, which accumulates in fp32 and is then scaled by
+//     1/rowsum; ctx in bf16 in the head's column range.  Whole items are
+//     packed into 64-row tiles, S and P V run on tensor cores, and any head
+//     dim and any number of fields is taken.
 //   * layer_norm_kernel: one warp per row, fp32 mean / centred variance /
 //     rsqrt, output bf16.
 // What this design spills to HBM that the TPU kernels kept on chip, at 4096
@@ -72,123 +72,9 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "item_attention.cuh"
 
 namespace {
-
-// ---------------------------------------------------------- attention ----
-
-constexpr int ATT_THREADS = 128;
-constexpr int MAX_ROWS = 256;    // queries (K) and keys (K or F) per item
-constexpr int MAX_HEAD_DIM = 128;
-constexpr int MAX_ATT_TILE = 64;  // query rows per block
-constexpr int SMEM_OPT_IN = 232448;  // what a block may use on sm_90 (227 KB)
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// bf16 row pitch of K and V in shared memory: even, and an odd number of
-// 4-byte words, so that threads on neighbouring key rows hit different banks
-__host__ __device__ __forceinline__ int kv_pitch(int hd) {
-  int words = (hd + 1) / 2;
-  if (words % 2 == 0) ++words;
-  return 2 * words;
-}
-
-__host__ __device__ __forceinline__ int attention_smem(int qt, int nkv, int hd) {
-  return (int)sizeof(float) * (qt * (hd + 1) + qt * (nkv + 1) + qt) +
-         (int)sizeof(bf16) * 2 * nkv * kv_pitch(hd);
-}
-
-// One block per (item, head, tile of up to MAX_ATT_TILE query rows).  q rows:
-// item*nq + i at q + row*q_stride + h*hd; k / v rows: item*nkv + j at
-// kv + row*kv_stride + {k_off, v_off} + h*hd.  The item's keys and values sit
-// in shared memory as the bf16 values they are, so that 256 keys of head dim
-// 128 fit beside a 64-row query tile; tiling the queries changes no sum.
-__global__ void __launch_bounds__(ATT_THREADS)
-item_attention_kernel(const bf16* __restrict__ q, int q_stride, const bf16* __restrict__ kv,
-                      int kv_stride, int k_off, int v_off, const float* __restrict__ key_bias,
-                      bf16* __restrict__ ctx, int ctx_stride, int nq, int nkv, int hd, int qt,
-                      float scale) {
-  extern __shared__ float sm[];
-  const int hs = hd + 1;   // padded rows: conflict-free column walks
-  const int ss = nkv + 1;
-  const int kp = kv_pitch(hd);
-  float* Qs = sm;                // [qt][hs]
-  float* S = Qs + qt * hs;       // [qt][ss] scores, then bf16-rounded exp
-  float* inv = S + qt * ss;      // [qt] 1 / row sum
-  bf16* Ks = reinterpret_cast<bf16*>(inv + qt);  // [nkv][kp]
-  bf16* Vs = Ks + nkv * kp;                      // [nkv][kp]
-  const int item = blockIdx.x;
-  const int col0 = blockIdx.y * hd;
-  const int i0 = blockIdx.z * qt;
-  const int rows = min(qt, nq - i0);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int e = tid; e < rows * hd; e += ATT_THREADS) {
-    const int i = e / hd, d = e - i * hd;
-    const float v = __bfloat162float(q[(size_t)(item * nq + i0 + i) * q_stride + col0 + d]);
-    Qs[i * hs + d] = round_bf16(v * scale);  // q * scale in the input dtype
-  }
-  for (int e = tid; e < nkv * hd; e += ATT_THREADS) {
-    const int j = e / hd, d = e - j * hd;
-    const size_t base = (size_t)(item * nkv + j) * kv_stride + col0 + d;
-    Ks[j * kp + d] = kv[base + k_off];
-    Vs[j * kp + d] = kv[base + v_off];
-  }
-  __syncthreads();
-
-  for (int e = tid; e < rows * nkv; e += ATT_THREADS) {
-    const int i = e / nkv, j = e - i * nkv;
-    float s = 0.f;
-    for (int d = 0; d < hd; ++d) s = fmaf(Qs[i * hs + d], __bfloat162float(Ks[j * kp + d]), s);
-    S[i * ss + j] = s + (key_bias != nullptr ? key_bias[(size_t)item * nkv + j] : 0.f);
-  }
-  __syncthreads();
-
-  for (int i = warp; i < rows; i += ATT_THREADS / 32) {
-    float m = -INFINITY;
-    for (int j = lane; j < nkv; j += 32) m = fmaxf(m, S[i * ss + j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-    for (int j = lane; j < nkv; j += 32) {
-      const float p = expf(S[i * ss + j] - m);
-      sum += p;
-      S[i * ss + j] = round_bf16(p);  // probabilities in the input dtype
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) inv[i] = 1.f / sum;
-  }
-  __syncthreads();
-
-  for (int e = tid; e < rows * hd; e += ATT_THREADS) {
-    const int i = e / hd, d = e - i * hd;
-    float c = 0.f;
-    for (int j = 0; j < nkv; ++j) c = fmaf(S[i * ss + j], __bfloat162float(Vs[j * kp + d]), c);
-    ctx[(size_t)(item * nq + i0 + i) * ctx_stride + col0 + d] = __float2bfloat16(c * inv[i]);
-  }
-}
-
-cudaError_t attention(const void* q, int q_stride, const void* kv, int kv_stride, int k_off,
-                      int v_off, const float* key_bias, void* ctx, int ctx_stride, int items,
-                      int heads, int nq, int nkv, int hd, float scale, cudaStream_t stream) {
-  int qt = min(nq, MAX_ATT_TILE);
-  while (qt > 1 && attention_smem(qt, nkv, hd) > SMEM_OPT_IN) qt = (qt + 1) / 2;
-  const int bytes = attention_smem(qt, nkv, hd);
-  if (bytes > SMEM_OPT_IN) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      item_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(items, heads, (nq + qt - 1) / qt);
-  item_attention_kernel<<<grid, ATT_THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), q_stride, static_cast<const bf16*>(kv), kv_stride, k_off,
-      v_off, key_bias, static_cast<bf16*>(ctx), ctx_stride, nq, nkv, hd, qt, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------- LayerNorm ----
 
@@ -230,10 +116,12 @@ cudaError_t layer_norm(const float* x, const float* gamma, const float* beta, vo
   return cudaGetLastError();
 }
 
+// what the attention core takes: int32 row counts, a grid of at most 65,535
+// heads and query tiles of an item (any head dim, any K and F)
 bool attention_shape_ok(int items, int heads, int nq, int nkv, int d) {
-  return items > 0 && items <= 2147483647 / MAX_ROWS && heads > 0 && heads <= 65535 &&
-         d % heads == 0 && d / heads <= MAX_HEAD_DIM && nq > 0 && nq <= MAX_ROWS &&
-         nkv > 0 && nkv <= MAX_ROWS;
+  return items > 0 && heads > 0 && heads <= 65535 && d % heads == 0 && nq > 0 && nkv > 0 &&
+         (long long)items * nq <= 2147483647 && (long long)items * nkv <= 2147483647 &&
+         (nq + IA_TILE - 1) / IA_TILE <= 65535;
 }
 
 // ------------------------------------------------------ W8A8 (B4-B6) ----
@@ -575,8 +463,8 @@ extern "C" int unirec_qformer_self_block(const void* x, const void* wqkv, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, hd = d / heads;
   UNIREC_TRY(gemm<EPI_BIAS>(x, wqkv, bqkv, nullptr, qkv, m, 3 * d, d, s));
-  UNIREC_TRY(attention(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items, heads, nq, nq,
-                       hd, scale, s));
+  UNIREC_TRY(item_attention<IA_B1>(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items,
+                                   heads, nq, nq, hd, scale, s));
   UNIREC_TRY(gemm<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
 }
@@ -600,8 +488,8 @@ extern "C" int unirec_qformer_cross_block(const void* x, const void* mem, const 
   const int m = (int)rows, hd = d / heads;
   UNIREC_TRY(gemm<EPI_BIAS>(x, wq, bq, nullptr, q, m, d, d, s));
   UNIREC_TRY(gemm<EPI_BIAS>(mem, wkv, bkv, nullptr, kv, (int)mem_rows, 2 * d, dm, s));
-  UNIREC_TRY(attention(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq, nkv, hd,
-                       scale, s));
+  UNIREC_TRY(item_attention<IA_B1>(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq,
+                                   nkv, hd, scale, s));
   UNIREC_TRY(gemm<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
 }
@@ -639,8 +527,8 @@ extern "C" int unirec_qformer_self_block_q(const void* x, const void* wqkv, cons
   const int m = (int)rows, hd = d / heads;
   UNIREC_TRY(row_quant<bf16>(x, xq, xs, m, d, d, s));
   UNIREC_TRY(gemm_s8<EPQ_BIAS>(xq, wqkv, xs, 1, sqkv, bqkv, nullptr, qkv, m, 3 * d, d, d, s));
-  UNIREC_TRY(attention(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items, heads, nq, nq,
-                       hd, scale, s));
+  UNIREC_TRY(item_attention<IA_B1>(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items,
+                                   heads, nq, nq, hd, scale, s));
   UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
   UNIREC_TRY(gemm_s8<EPQ_BIAS_RESID>(xq, wo, xs, 1, so, bo, x, acc, m, d, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
@@ -670,8 +558,8 @@ extern "C" int unirec_qformer_cross_block_q(
   UNIREC_TRY(gemm_s8<EPQ_BIAS>(xq, wq, xs, 1, sq, bq, nullptr, q, m, d, d, d, s));
   UNIREC_TRY(row_quant<bf16>(mem, mq, ms, mm, dm, dm, s));
   UNIREC_TRY(gemm_s8<EPQ_BIAS>(mq, wkv, ms, 1, skv, bkv, nullptr, kv, mm, 2 * d, dm, dm, s));
-  UNIREC_TRY(attention(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq, nkv, hd,
-                       scale, s));
+  UNIREC_TRY(item_attention<IA_B1>(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq,
+                                   nkv, hd, scale, s));
   UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
   UNIREC_TRY(gemm_s8<EPQ_BIAS_RESID>(xq, wo, xs, 1, so, bo, x, acc, m, d, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);

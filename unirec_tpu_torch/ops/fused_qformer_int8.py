@@ -190,8 +190,7 @@ def fused_self_attention_block_q(x, wqkv, sqkv, bqkv, wo, so, bo, ln_gamma,
                     codes={"wqkv": wqkv, "wo": wo}):
         return fused_self_attention_block_q_plain(
             *args, num_heads=num_heads, n_q=n_q, ln_eps=ln_eps)
-    _check_kernel_dims(name, {"D": d}, d // num_heads, k,
-                       multiple=KERNEL_INT8_MULTIPLE)
+    _check_kernel_dims(name, {"D": d}, multiple=KERNEL_INT8_MULTIPLE)
     rows = b * k
     dev = x.device
     out = torch.empty_like(x)
@@ -242,8 +241,7 @@ def fused_cross_attention_block_q(x, mem, key_bias, wq, sq, bq, wkv, skv, bkv,
                     codes={"wq": wq, "wkv": wkv, "wo": wo}):
         return fused_cross_attention_block_q_plain(
             *args, num_heads=num_heads, n_q=n_q, n_kv=n_kv, ln_eps=ln_eps)
-    _check_kernel_dims(name, {"D": d, "Dm": dm}, d // num_heads,
-                       max(k, n_kv), multiple=KERNEL_INT8_MULTIPLE)
+    _check_kernel_dims(name, {"D": d, "Dm": dm}, multiple=KERNEL_INT8_MULTIPLE)
     rows, mem_rows = b * k, b * n_kv
     dev = x.device
     out = torch.empty_like(x)

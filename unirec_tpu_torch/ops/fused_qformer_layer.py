@@ -37,11 +37,6 @@ import torch.nn.functional as F
 from unirec_tpu_torch.ops._build import check, load_kernels
 
 NEG_INF = -1e9
-# the attention kernel holds one item's keys and values of one head in shared
-# memory beside a tile of its query rows: up to 256 of each (every K that
-# supports_fused admits) at head_dim <= 128
-KERNEL_MAX_ROWS = 256
-KERNEL_MAX_HEAD_DIM = 128
 
 
 def ffn_chunk_size(intermediate: int) -> int:
@@ -174,20 +169,14 @@ def _on_card(x: torch.Tensor, block: str, weights, params,
     return True
 
 
-def _check_kernel_dims(block: str, widths: dict,
-                       head_dim: Optional[int] = None, rows: int = 0,
-                       multiple: int = 8) -> None:
-    """What the kernel takes: GEMM widths that are whole 16-byte rows (a
-    multiple of 8 bf16 values, or of 16 int8 codes), and for attention
-    head_dim <= 128 and <= 256 rows per item."""
+def _check_kernel_dims(block: str, widths: dict, multiple: int = 8) -> None:
+    """What the kernel's GEMMs take: widths that are whole 16-byte rows (a
+    multiple of 8 bf16 values, or of 16 int8 codes).  The attention core
+    (``csrc/item_attention.cuh``) takes any head dim and any K and F."""
     for name, w in widths.items():
         if w % multiple:
             raise ValueError(f"{block}: {name} {w} is not a multiple of "
                              f"{multiple}")
-    if head_dim is not None and head_dim > KERNEL_MAX_HEAD_DIM:
-        raise ValueError(f"{block}: head_dim {head_dim} > {KERNEL_MAX_HEAD_DIM}")
-    if rows > KERNEL_MAX_ROWS:
-        raise ValueError(f"{block}: {rows} rows per item > {KERNEL_MAX_ROWS}")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -215,8 +204,7 @@ def fused_self_attention_block(x, wqkv, bqkv, wo, bo, ln_gamma, ln_beta, *,
                      "ln_beta": ln_beta}):
         return fused_self_attention_block_plain(
             *args, num_heads=num_heads, n_q=n_q, ln_eps=ln_eps)
-    _check_kernel_dims("fused_self_attention_block", {"D": d},
-                       d // num_heads, k)
+    _check_kernel_dims("fused_self_attention_block", {"D": d})
     rows = b * k
     out = torch.empty_like(x)
     qkv = torch.empty(rows, 3 * d, device=x.device, dtype=x.dtype)
@@ -261,8 +249,7 @@ def fused_cross_attention_block(x, mem, key_bias, wq, bq, wkv, bkv, wo, bo,
                      "ln_gamma": ln_gamma, "ln_beta": ln_beta}):
         return fused_cross_attention_block_plain(
             *args, num_heads=num_heads, n_q=n_q, n_kv=n_kv, ln_eps=ln_eps)
-    _check_kernel_dims("fused_cross_attention_block", {"D": d, "Dm": dm},
-                       d // num_heads, max(k, n_kv))
+    _check_kernel_dims("fused_cross_attention_block", {"D": d, "Dm": dm})
     rows = b * k
     out = torch.empty_like(x)
     q = torch.empty(rows, d, device=x.device, dtype=x.dtype)

@@ -8,8 +8,11 @@ Both stop before the hidden dropout, the residual and the LayerNorm, which
 stay in ``models/qformer.QFormerAttention``.  Attention-probability dropout is
 not supported (the backward recomputes deterministic probabilities); the
 model takes these blocks only when it is off.  The CUDA kernels are in
-``csrc/fused_qformer_vjp.cu``; its source note says what bounds them and how
-per-item attention replaces the TPU kernels' packed tiles.
+``csrc/fused_qformer_vjp.cu`` (projections in ``csrc/gemm_wide.cuh``, the
+per-item attention in ``csrc/item_attention.cuh``); its source note says what
+bounds them and how the attention packs whole items into tiles as the TPU
+kernels do.  They take every shape ``supports_fused_train`` admits: any K,
+F and head dim, and widths that are not a multiple of 8.
 
 Layouts: rows item-major ``[B * K, D]``, heads as column ranges, the memory
 field-major ``[B * F, Dm]``, a per-key additive bias (0 valid / ``NEG_INF``
@@ -52,8 +55,6 @@ from unirec_tpu_torch.ops._build import check, load_kernels
 
 NEG_INF = -1e9
 _TILE_ROWS = 256  # the JAX kernels' packed tile, read by supports_fused_train
-# shared memory a block may use on sm_90, and the kernels' layouts of it
-_SMEM_LIMIT = 232448
 
 
 def supports_fused_train(k: int, d: int, num_heads: int, f: int = 1) -> bool:
@@ -175,27 +176,6 @@ def cross_attention_bwd_plain(q, kv, wo, kbias, dout, *, num_heads: int,
 # -- wrappers -------------------------------------------------------------------
 
 
-def _fwd_smem(qt: int, nkv: int, hd: int) -> int:
-    return 4 * (qt * (hd + 1) + qt * (nkv + 1)) + 2 * 2 * nkv * _pitch(hd)
-
-
-def _bwd_smem(nq: int, nkv: int, hd: int) -> int:
-    return 4 * (nq * (hd + 1) + 2 * nq * (nkv + 1)) + 2 * (nq + 2 * nkv) * _pitch(hd)
-
-
-def _pitch(hd: int) -> int:
-    words = (hd + 1) // 2
-    return 2 * (words + 1 if words % 2 == 0 else words)
-
-
-def kernel_takes(n_q: int, n_kv: int, head_dim: int) -> bool:
-    """Whether the attention kernels' shared memory holds an item of n_q
-    queries over n_kv keys at ``head_dim`` (the backward holds the whole
-    item: up to K = F = 128 at head dim 64)."""
-    return (_fwd_smem(1, n_kv, head_dim) <= _SMEM_LIMIT
-            and _bwd_smem(n_q, n_kv, head_dim) <= _SMEM_LIMIT)
-
-
 def _on_card(block: str, tensors: dict, floats: dict = ()) -> bool:
     """False for CPU tensors (plain version); True after checking that the
     kernel takes these CUDA tensors (bfloat16, contiguous, 16-byte aligned;
@@ -219,16 +199,6 @@ def _on_card(block: str, tensors: dict, floats: dict = ()) -> bool:
         if want == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{block}: {name} must be 16-byte aligned")
     return True
-
-
-def _check_dims(block: str, d: int, num_heads: int, n_q: int, n_kv: int,
-                dm: int = 8) -> None:
-    if d % 8 or dm % 8:
-        raise ValueError(f"{block}: widths {d}, {dm} must be multiples of 8")
-    if not kernel_takes(n_q, n_kv, d // num_heads):
-        raise ValueError(f"{block}: an item of {n_q} queries over {n_kv} keys "
-                         f"at head dim {d // num_heads} exceeds the kernel's "
-                         "shared memory")
 
 
 def _check_shapes(x2, n_q: int, num_heads: int, weights: dict) -> Tuple[int, int]:
@@ -261,7 +231,6 @@ def self_attention_fwd(x2, kbias, wqkv, bqkv, wo, bo, *, num_heads: int,
                     {"kbias": kbias}):
         return self_attention_fwd_plain(x2, kbias, wqkv, bqkv, wo, bo,
                                         num_heads=num_heads, n_q=n_q)
-    _check_dims("B12s fwd", d, num_heads, n_q, n_q)
     rows = x2.shape[0]
     out = torch.empty_like(x2)
     qkv = torch.empty(rows, 3 * d, device=x2.device, dtype=x2.dtype)
@@ -289,7 +258,6 @@ def self_attention_bwd(qkv, wo, kbias, dout, *, num_heads: int,
                     {"kbias": kbias}):
         return self_attention_bwd_plain(qkv, wo, kbias, dout,
                                         num_heads=num_heads, n_q=n_q)
-    _check_dims("B12s bwd", d, num_heads, n_q, n_q)
     wo_t = wo.t().contiguous()  # [in, out]: the GEMM's contracted dim last
     dctx = torch.empty(dout.shape, device=dout.device, dtype=torch.float32)
     dqkv = torch.empty_like(qkv)
@@ -320,7 +288,6 @@ def cross_attention_fwd(x2, mem2, kbias, wq, bq, wkv, bkv, wo, bo, *,
         return cross_attention_fwd_plain(x2, mem2, kbias, wq, bq, wkv, bkv, wo,
                                          bo, num_heads=num_heads, n_q=n_q,
                                          n_kv=n_kv)
-    _check_dims("B12c fwd", d, num_heads, n_q, n_kv, dm)
     out = torch.empty_like(x2)
     q = torch.empty_like(x2)
     kv = torch.empty(mem2.shape[0], 2 * d, device=x2.device, dtype=x2.dtype)
@@ -353,7 +320,6 @@ def cross_attention_bwd(q, kv, wo, kbias, dout, *, num_heads: int, n_q: int,
         return cross_attention_bwd_plain(q, kv, wo, kbias, dout,
                                          num_heads=num_heads, n_q=n_q,
                                          n_kv=n_kv)
-    _check_dims("B12c bwd", d, num_heads, n_q, n_kv)
     wo_t = wo.t().contiguous()
     dctx = torch.empty(dout.shape, device=dout.device, dtype=torch.float32)
     dq = torch.empty_like(q)
