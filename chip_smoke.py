@@ -197,6 +197,9 @@ WIDE_BLOCKS = ((4, QF_F), (QF_HEADS, 300))  # (heads, fields) at K = 32
 B12_SHAPES = ((128, 128, 128, 1024, 8), (128, 64, 64, 1024, 2),
               (64, 64, 64, 1024, 1), (512, 32, 14, 1020, 4))
 SWEEP_ITEMS, SWEEP_BATCH, SWEEP_SAMPLE = 9000, 4096, 256
+# B15 at shapes the first kernel refused (C-8): (items, K, F, hd, missing)
+B15_SHAPES = ((256, QF_K, QF_F, 256, 0.15), (256, QF_K, QF_F, 512, 0.15),
+              (64, 128, 512, 64, 0.15), (BLOCK_ITEMS[1], 2, 600, 32, 0.15))
 # the sweep's tokens against the same engine on the plain block functions:
 # 30 chained blocks carry each block's one-ulp rounding flips forward, so the
 # bound is four bf16 ulps at the top of the LayerNorm outputs' range
@@ -627,9 +630,8 @@ def phase_blocks(gen, precision: str) -> dict:
             f"fields missing; the all-missing item {empty} alone equals its "
             "batch row")
         if items == BLOCK_ITEMS[0]:
-            if precision == "bf16":
-                for name in (sn, cn):
-                    log_split(f"{name.upper()} {items} items", runs[name][0])
+            for name in (sn, cn) if precision == "bf16" else names:
+                log_split(f"{name.upper()} {items} items", runs[name][0])
             for name in names:
                 kern, plain = runs[name]
                 t_k = time_ms(kern, iters=10, warmup=2)
@@ -703,6 +705,141 @@ def phase_wide_k(gen) -> dict:
             log(f"{name.upper()} time {where}: kernel "
                 f"{time_ms(kern, iters=10, warmup=2):.4f} ms")
     return errs
+
+
+def phase_int8_gemm(gen) -> None:
+    """The int8 TMA + wgmma GEMM that B4-B6 run on against gemm_s8_kernel,
+    the GEMM they ran on before (which B8/B9 keep), through the test entry
+    ``unirec_gemm_q_test``: the same codes and scales at B6's two products,
+    B4's QKV product and a ragged row count, each epilogue the two share and
+    B6's up projection with its gelu and quantization per chunk (h's codes
+    and scales), ``torch.equal``; both timed at 4096 items (131,072 rows)."""
+    from unirec_tpu_torch.ops._build import check, load_kernels
+
+    lib = load_kernels().lib
+    d, inter = QF_D, QF_INTER
+    epis = ("bias", "up_gelu_quant", "bias_resid", "chunked_resid")
+    # (rows, n, k, step, chunk)
+    cases = [(32 * BLOCK_ITEMS[1], 3 * d, d, "bias", d),
+             (32 * BLOCK_ITEMS[1], inter, d, "up_gelu_quant", inter),
+             (32 * BLOCK_ITEMS[1], inter, d, "up_gelu_quant", 1024),
+             (32 * BLOCK_ITEMS[1], d, d, "bias_resid", d),
+             (32 * BLOCK_ITEMS[1], d, inter, "chunked_resid", inter),
+             (32 * BLOCK_ITEMS[1], d, inter, "chunked_resid", 1024),
+             (32 * BLOCK_ITEMS[0], inter, d, "up_gelu_quant", inter),
+             (32 * BLOCK_ITEMS[0], d, inter, "chunked_resid", inter)]
+    for m, n, k, epi, chunk in cases:
+        a = torch.randint(-127, 128, (m, k), device="cuda", generator=gen,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen,
+                          dtype=torch.int8)
+        groups = k // chunk if epi == "chunked_resid" else 1
+        rs = torch.rand(m, groups, device="cuda", generator=gen) * 1e-3
+        cs = torch.rand(n, device="cuda", generator=gen) * 1e-2
+        bias = torch.randn(n, device="cuda", generator=gen) * 0.1
+        resid = torch.randn(m, n, device="cuda", generator=gen).bfloat16()
+        dtype = {"bias": torch.bfloat16, "up_gelu_quant": torch.int8}.get(
+            epi, torch.float32)
+        outs = [torch.empty(m, n, device="cuda", dtype=dtype) for _ in range(2)]
+        scales = [torch.empty(m, n // chunk, device="cuda") for _ in range(2)]
+        scratch = torch.empty(m, n, device="cuda")
+
+        def run(which):
+            err = lib.unirec_gemm_q_test(
+                which, epis.index(epi), a.data_ptr(), w.data_ptr(),
+                rs.data_ptr(), groups, cs.data_ptr(), bias.data_ptr(),
+                resid.data_ptr(), outs[which].data_ptr(), scratch.data_ptr(),
+                scales[which].data_ptr(), m, n, k, chunk,
+                torch.cuda.current_stream().cuda_stream)
+            check(err, "unirec_gemm_q_test")
+
+        run(0)
+        run(1)
+        torch.cuda.synchronize()
+        where = f"{epi} [{m}, {k}] x [{n}, {k}], chunk {chunk}"
+        if not (torch.equal(outs[0], outs[1]) and (
+                epi != "up_gelu_quant" or torch.equal(scales[0], scales[1]))):
+            raise AssertionError(f"int8 TMA GEMM {where}: not gemm_s8_kernel's "
+                                 "bits")
+        first = outs[1].clone()
+        run(1)
+        if not torch.equal(first, outs[1]):
+            raise AssertionError(f"int8 TMA GEMM {where}: a repeat gave other "
+                                 "bits")
+        msg = (f"int8 TMA GEMM {where}: gemm_s8_kernel's bits, repeats bit "
+               "for bit")
+        if m == 32 * BLOCK_ITEMS[0]:
+            t_old, t_new = (time_ms(lambda i=i: run(i), iters=10, warmup=2)
+                            for i in (0, 1))
+            ops = 2 * m * n * k
+            msg += (f"; before (gemm_s8_kernel{', row_quant' if epi == 'up_gelu_quant' else ''}) "
+                    f"{t_old:.4f} ms ({ops / t_old / 1e9:.1f} TOP/s), TMA + "
+                    f"wgmma{' + gelu_quant' if epi == 'up_gelu_quant' else ''} "
+                    f"{t_new:.4f} ms ({ops / t_new / 1e9:.1f} TOP/s)")
+        log(msg)
+        del a, w, rs, cs, bias, resid, outs, scales, scratch
+    torch.cuda.empty_cache()
+
+
+def phase_widths(gen) -> None:
+    """B1-B6 at hidden 1020 (not a multiple of 8 bf16 values: every product
+    on gemm_wide.cuh's edge kernel) and 1032 (a multiple of 8 but not of 16
+    int8 codes: B4-B6 on the int8 edge kernel), 4 heads, intermediate 4096,
+    64 items with ~15% missing fields, against their plain versions at the
+    blocks' gate, repeated for identical bits (C-10)."""
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+
+    items, heads, k, f, inter = WIDE_K_ITEMS, 4, QF_K, QF_F, QF_INTER
+    for d in (1020, 1032):
+        def rand(*shape, std=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, device="cuda", generator=gen) * std
+                    ).to(dtype)
+
+        def vec(n, mean=0.0):
+            return mean + rand(n, std=0.1, dtype=torch.float32)
+
+        x = rand(items, k, d)
+        mask = (torch.rand(items, f, device="cuda", generator=gen) > 0.15
+                ).float()
+        mask[::8] = 0.0
+        mem = rand(items, f, d) * mask[..., None].bfloat16()
+        key_bias = ((1.0 - mask) * -1e9).contiguous()
+        sw = dict(wqkv=rand(3 * d, d, std=0.03), bqkv=vec(3 * d),
+                  wo=rand(d, d, std=0.03), bo=vec(d), ln_gamma=vec(d, 1.0),
+                  ln_beta=vec(d))
+        cw = dict(wq=rand(d, d, std=0.03), bq=vec(d),
+                  wkv=rand(2 * d, d, std=0.03), bkv=vec(2 * d),
+                  wo=rand(d, d, std=0.03), bo=vec(d), ln_gamma=vec(d, 1.0),
+                  ln_beta=vec(d))
+        fw = dict(w1=rand(inter, d, std=0.03), b1=vec(inter),
+                  w2=rand(d, inter, std=0.02), b2=vec(d),
+                  ln_gamma=vec(d, 1.0), ln_beta=vec(d))
+        sk = dict(num_heads=heads, n_q=k)
+        ck = dict(sk, n_kv=f)
+        for mod, sfx, names, (s_w, c_w, f_w) in (
+                (fq, "", ("b1", "b2", "b3"), (sw, cw, fw)),
+                (pq, "_q", ("b4", "b5", "b6"),
+                 (quantized(sw), quantized(cw), quantized(fw)))):
+            runs = {
+                names[0]: ("fused_self_attention_block", (x,), s_w, sk),
+                names[1]: ("fused_cross_attention_block", (x, mem, key_bias),
+                           c_w, ck),
+                names[2]: ("fused_ffn_block", (x,), f_w, {})}
+            for name, (fn, args, w, kw) in runs.items():
+                kern = getattr(mod, fn + sfx)
+                plain = getattr(mod, fn + sfx + "_plain")
+                out = kern(*args, **w, **kw)
+                torch.cuda.synchronize()
+                where = f"hidden {d}, {heads} heads, {items} items"
+                err, cos = block_error(out, plain(*args, **w, **kw))
+                check_block(name.upper(), err, cos, where)
+                check_repeat(f"{name.upper()} {where}", (out,),
+                             (kern(*args, **w, **kw),))
+                log(f"{name.upper()} time {where}: kernel "
+                    f"{time_ms(lambda: kern(*args, **w, **kw), iters=5, warmup=1):.4f} ms")
+        del x, mem, key_bias, sw, cw, fw
+        torch.cuda.empty_cache()
 
 
 def log_split(name: str, fn, iters: int = 5) -> None:
@@ -1371,13 +1508,14 @@ def b15_inputs(gen, items, n_q, n_kv, hd, dtype, missing=0.0):
             ((1.0 - mask) * -1e9)[:, None, None, :], mask)
 
 
-def phase_b15(gen) -> dict:
+def phase_b15(gen, extra_gen) -> dict:
     """B15, ``packed_item_attention``, with the launch count set to 0 before
     its cases and read after (one launch a case): the item sweep's self
     shape (4096 items x 16 heads, K = F = 32, hd 64) and cross shape (F =
     14), a ragged 1,001 items over 14 fields with ~15% missing and 9 items
-    without any, and K = 2 (1,001 items, F = 14, hd 32), and the ragged
-    items at hd 8 and 24 (zero-padded to 16 and 32); fp32 and bf16.
+    without any, and K = 2 (1,001 items, F = 14, hd 32), the ragged items at
+    hd 8 and 24, and B15_SHAPES (head dims above 128, K = 128 over 512 keys,
+    K = 2 over 600); fp32 and bf16.
     Each against the plain version, repeated for identical bits, the items
     without a field against their own values' mean; timed in bf16 at the
     two sweep shapes beside the plain version, the bound and SDPA."""
@@ -1389,10 +1527,12 @@ def phase_b15(gen) -> dict:
               (BLOCK_ITEMS[1], QF_K, QF_F, 64, 0.15),
               (BLOCK_ITEMS[1], 2, QF_F, 32, 0.15),
               (BLOCK_ITEMS[1], QF_K, QF_F, 8, 0.15),
-              (BLOCK_ITEMS[1], QF_K, QF_F, 24, 0.15))
+              (BLOCK_ITEMS[1], QF_K, QF_F, 24, 0.15),
+              *B15_SHAPES)
     cases = [(dtype, shape) for dtype in (torch.float32, torch.bfloat16)
              for shape in shapes]
-    inputs = {case: b15_inputs(gen, *case[1][:4], case[0], case[1][4])
+    inputs = {case: b15_inputs(extra_gen if case[1] in B15_SHAPES else gen,
+                               *case[1][:4], case[0], case[1][4])
               for case in cases}
     # the entry point's run: its launches
     pp.packed_item_attention.launches = 0
@@ -3076,6 +3216,58 @@ def write_item_files(tmp: str, cache) -> dict:
     return paths
 
 
+def item_train_c10(cli, base, tmp, cache, n_layers, n_cross, steps,
+                   val_batches) -> None:
+    """C-10: ``train_cli item-qformer --bf16 --hidden-size 1020 --num-heads
+    4`` (hidden 1020 is no multiple of 8: B1-B3 and B12 on gemm_wide.cuh's
+    edge kernel, hd 255), one epoch with its exact launches, then its
+    checkpoint swept by the bf16 (B1-B3) and the int8 (B4-B6) engines:
+    finite tokens of the right shape, each engine through its blocks,
+    within SWEEP_FP32_COS of the fp32 model."""
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.models.item_qformer import ItemQFormer
+
+    ck = os.path.join(tmp, "item_1020")
+    what = "item-qformer --bf16 --hidden-size 1020 --num-heads 4, 1 epoch"
+    _, launches = cli(base + ["--num-epochs", "1", "--checkpoint-dir", ck,
+                              "--hidden-size", "1020", "--num-heads", "4"],
+                      what)
+    want = item_launches(n_layers, n_cross, steps, True, "bf16", val_batches)
+    if launches != want:
+        raise AssertionError(f"train_cli {what}: launches {launches}, want "
+                             f"{want}")
+    cfg, sd, _ = QFormerInference.read_checkpoint(ck)
+    rows = np.arange(0, len(cache), len(cache) // SWEEP_SAMPLE)[:SWEEP_SAMPLE]
+    emb = torch.from_numpy(np.asarray(cache.embeddings[rows])).to("cuda")
+    mask = torch.from_numpy(np.asarray(cache.masks[rows])).to("cuda")
+    model32 = ItemQFormer(cfg, device="cuda")
+    model32.load_state_dict(sd)
+    with torch.inference_mode():
+        ref32 = model32.eval().query_outputs(emb, mask)
+    counters = item_counters()
+    for precision, blocks in (("bf16", ("b1", "b2", "b3")),
+                              ("int8", ("b4", "b5", "b6"))):
+        before = {n: counters[n].launches for n in blocks}
+        engine = QFormerInference(ck, device="cuda", batch_size=ITEM_BATCH,
+                                  use_fused=True, precision=precision)
+        with torch.inference_mode():
+            tokens = engine.forward(emb, mask)
+        torch.cuda.synchronize()
+        ran = {n: counters[n].launches - before[n] for n in blocks}
+        cos = token_cosines(tokens, ref32).min().item()
+        log(f"the hidden-1020 checkpoint through the {precision} engine: "
+            f"tokens {tuple(tokens.shape)}, launches {ran}, min token cosine "
+            f"vs the fp32 ItemQFormer {cos:.6f} (tol {SWEEP_FP32_COS})")
+        if not (tokens.shape == (len(rows), cfg.num_query_tokens, 1020)
+                and bool(torch.isfinite(tokens.float()).all())
+                and all(ran.values()) and cos >= SWEEP_FP32_COS):
+            raise AssertionError(f"the hidden-1020 checkpoint fails the "
+                                 f"{precision} sweep's checks")
+        del engine, tokens
+    del model32, ref32, emb, mask
+    torch.cuda.empty_cache()
+
+
 def phase_item_train(smi: str, tmp: str) -> dict:
     """Item Q-Former training at full width over the sweep's checkpoint and
     cache: (a) one step with the fused anchor (B12s / B12c) against the
@@ -3328,6 +3520,8 @@ def phase_item_train(smi: str, tmp: str) -> dict:
         if "--resume" in argv and f"at step {saved_step}" not in out:
             raise AssertionError("train_cli --resume did not restore the "
                                  "first run's checkpoint")
+    item_train_c10(cli, base, tmp, cache, n_layers, n_cross, steps,
+                   val_batches)
     meta = read_meta(ck)
     if not np.isfinite(meta.get("val_recon_loss", np.nan)):
         raise AssertionError(f"item checkpoint meta {meta}")
@@ -3772,12 +3966,17 @@ def main() -> int:
     for key, err in phase_wide_k(gen).items():
         blocks[key]["err"] = max(blocks[key]["err"], err)
     blocks.update(phase_blocks(gen, "int8"))
+    # the phases added since draw from their own generator, so that every
+    # other phase sees the inputs it was held to before
+    new_gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    phase_int8_gemm(new_gen)
+    phase_widths(new_gen)
     b12 = phase_b12(gen)
     for key, err in phase_b12_shapes(gen).items():
         b12[key]["err"] = max(b12[key]["err"], err)
     flash = phase_flash_cross(gen)
     b14p = phase_b14p(gen)
-    b15 = phase_b15(gen)
+    b15 = phase_b15(gen, new_gen)
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
     phase_entry_point(smi, served.pop("stack")[0])

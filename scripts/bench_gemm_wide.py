@@ -27,8 +27,9 @@ CSRC = ROOT / "unirec_tpu_torch" / "csrc"
 # label -> the launch (the port's gemm_wide takes the TMA kernel for these
 # aligned shapes, and the edge kernel for rows TMA cannot take)
 CFGS = {
-    "TMA + wgmma (gemm_tma_kernel)": "launch_gemm_tma<WG_BIAS>",
-    "4-byte cp.async + wgmma (gemm_edge_kernel)": "launch_gemm_edge<WG_BIAS>",
+    "TMA + wgmma (gemm_tma_kernel)": "launch_gemm_tma<bf16, WG_BIAS, 256, false>",
+    "4-byte cp.async + wgmma (gemm_edge_kernel)":
+        "launch_gemm_edge<bf16, WG_BIAS, false>",
 }
 SHAPES = ((16384, 3072, 1024), (16384, 1024, 1024), (7168, 2048, 1024))
 
@@ -41,7 +42,8 @@ def build() -> ctypes.CDLL:
         unit.append(
             f'extern "C" int bench_gemm_{i}(const void* a, const void* w, '
             'const float* b, void* c, int m, int n, int k, void* s) {\n'
-            f'  return (int){launch}(a, w, b, c, m, n, k, '
+            '  WgEpi e{};\n  e.bias = b;\n'
+            f'  return (int){launch}(a, w, e, c, m, n, k, '
             'static_cast<cudaStream_t>(s));\n}')
     src = out / "bench.cu"
     src.write_text("\n".join(unit) + "\n")

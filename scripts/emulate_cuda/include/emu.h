@@ -59,6 +59,8 @@ struct Block {
   std::barrier<>* bar;
   std::barrier<>* wbar[32];
   std::barrier<>* gbar[8];  // warpgroups of 128 threads (wgmma's collective)
+  std::barrier<>* nbar[16] = {};  // named barriers, made by their first arrival
+  std::mutex nmu;
   uint32_t xbuf[32][32][12];
   uint64_t abuf[32][32];
 };
@@ -127,9 +129,13 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __expf(float x) { return expf(x); }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __int2float_rn(int i) { return (float)i; }
+inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
 inline float __fdividef(float a, float b) { return a / b; }
 inline size_t __cvta_generic_to_shared(const void* p) {
   return (size_t)((const unsigned char*)p - emu::smem_base);
@@ -177,6 +183,7 @@ void launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
           if (mem[smem + i] != 0xFF) { fail("shared memory written past its end"); break; }
         for (int w = 0; w < nw; ++w) delete b->wbar[w];
         for (int w = 0; w < (nw + 3) / 4; ++w) delete b->gbar[w];
+        for (auto* nb : b->nbar) delete nb;
         delete b->bar; delete b;
         if (fault) return;
       }

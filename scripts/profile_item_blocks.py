@@ -1,9 +1,11 @@
-"""Device time of each launch inside the Item Q-Former's attention blocks on
-one card: B12s / B12c forward and backward at the item-training shape (512
-items, K 32, F 14, hidden 1024, 16 heads) and B1 / B2 at the sweep's batch
-(4096 items), bf16, random unit-scale inputs from a seed.
+"""Device time of each launch inside the Item Q-Former's blocks on one
+card: B12s / B12c forward and backward at the item-training shape (512
+items, K 32, F 14, hidden 1024, 16 heads), B1 / B2 and the W8A8 blocks B4 /
+B5 / B6 at the sweep's batch (4096 items), and B15 (packed item attention)
+at the sweep's two shapes (4096 items, 16 heads of 64, K 32, F 32 and 14);
+bf16, random unit-scale inputs from a seed (``chip_smoke.py``'s own).
 
-    python3 scripts/profile_item_blocks.py [--iters 20]
+    python3 scripts/profile_item_blocks.py [--iters 20] [--only B6,B15]
 
 Each block's C entry makes several launches (GEMMs, the attention kernel,
 LayerNorm).  The script prints each block's time a call from CUDA events and
@@ -52,14 +54,19 @@ def inputs(gen, items):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--only", default="",
+                        help="comma-separated name prefixes (e.g. B6,B15)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_item_blocks: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import log_split, time_ms
+    from chip_smoke import (QF_F, QF_HEADS, QF_K, SWEEP_BATCH, b15_inputs,
+                            block_inputs, log_split, quantized, time_ms)
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
     from unirec_tpu_torch.ops import fused_qformer_layer as fq
     from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+    from unirec_tpu_torch.ops import packed_attention as pp
     from unirec_tpu_torch.ops._build import load_kernels
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -90,7 +97,22 @@ def main() -> int:
         xb, **swb, num_heads=HEADS, n_q=K)
     runs["B2 (4096 items)"] = lambda: fq.fused_cross_attention_block(
         xb, memb, kbb, **cwb, num_heads=HEADS, n_q=K, n_kv=F)
+    xq, memq, kbq, _, swq, cwq, fwq = block_inputs(gen, SWEEP_BATCH)
+    swq, cwq, fwq = quantized(swq), quantized(cwq), quantized(fwq)
+    runs["B4 (4096 items)"] = lambda: pq.fused_self_attention_block_q(
+        xq, **swq, num_heads=HEADS, n_q=K)
+    runs["B5 (4096 items)"] = lambda: pq.fused_cross_attention_block_q(
+        xq, memq, kbq, **cwq, num_heads=HEADS, n_q=K, n_kv=F)
+    runs["B6 (4096 items)"] = lambda: pq.fused_ffn_block_q(xq, **fwq)
+    for n_kv in (QF_K, QF_F):
+        b15_args = b15_inputs(gen, SWEEP_BATCH, QF_K, n_kv, 64,
+                              torch.bfloat16)[:4]
+        runs[f"B15 (4096 items x {QF_HEADS} heads, F={n_kv})"] = (
+            lambda a=b15_args: pp.packed_item_attention(*a))
+    only = [p for p in args.only.split(",") if p]
     for name, fn in runs.items():
+        if only and not any(name.startswith(p + " ") for p in only):
+            continue
         ms = time_ms(fn, iters=args.iters)
         print(f"{name}: {ms:.4f} ms a call (CUDA events)", flush=True)
         log_split(name, fn, iters=args.iters)

@@ -29,7 +29,6 @@ from unirec_tpu_torch.inference.fused_qformer import (
     supports_fused,
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
-from unirec_tpu_torch.ops import fused_qformer_int8 as fq_int8
 from unirec_tpu_torch.ops import fused_qformer_layer as fq
 from unirec_tpu_torch.utils.weights import item_qformer_state_dict_from_flax
 
@@ -257,29 +256,80 @@ def test_prepare_fused_params_packing(setup):
         prepare_fused_params(sd, cfg, precision="fp8")
 
 
-@pytest.mark.parametrize("widths,multiple", [
-    ({"D": 1024, "intermediate": 4100}, 8),  # a 16-byte row is 8 bf16 values
-    ({"D": 1020, "Dm": 1024}, 8),  # hidden 1020 in 4 heads: supports_fused admits it
-    ({"D": 1032}, fq_int8.KERNEL_INT8_MULTIPLE),  # or 16 int8 codes (B4-B6)
-], ids=["width", "hidden", "int8"])
-def test_kernel_limits_are_refused(widths, multiple):
-    """The only limit left on B1-B6 is their GEMMs' (C-10, B1-B6 part): a
-    width that is not a whole number of 16-byte rows.  The attention core
-    takes any head dim, K and F, so the wrappers check nothing else; the
-    plain versions at such shapes are held to the JAX kernels below, and
-    the kernels to the plain versions on the card (test_torch_kernels_gpu,
-    chip_smoke.py)."""
-    fq._check_kernel_dims("block", {"D": 1024, "intermediate": 4096}, multiple)
-    with pytest.raises(ValueError, match=f"not a multiple of {multiple}"):
-        fq._check_kernel_dims("block", widths, multiple)
+def _bf16_array(rng, *shape, std):
+    """(numpy float32 of bf16-rounded values, the same as a JAX bf16 array)"""
+    a = torch.from_numpy((rng.randn(*shape) * std).astype(np.float32))
+    a = a.bfloat16().float().numpy()
+    return a, jnp.asarray(a, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("d", [1020, 1032])
+@pytest.mark.parametrize("block", ["self", "cross", "ffn"])
+def test_blocks_at_widths_off_16_byte_rows(block, d):
+    """B1-B3 at hidden 1020 (no multiple of 8 bf16 values) and 1032, in 4
+    heads: widths supports_fused admits and the kernels now take (C-10;
+    the kernels are held to these plain versions on the card,
+    test_torch_kernels_gpu and chip_smoke.py).  On CPU tensors the wrapper
+    runs its plain version, held to the JAX kernel in interpret mode on the
+    same bf16 values (2 items, K 8, F 6, intermediate 256)."""
+    assert supports_fused(ItemQFormerConfig(hidden_size=d,
+                                            num_attention_heads=4))
+    rng = np.random.RandomState(d)
+    items, n_q, n_kv, inter, heads = 2, 8, 6, 256, 4
+    x, jx = _bf16_array(rng, items, n_q, d, std=1.0)
+    mem, jmem = _bf16_array(rng, items, n_kv, d, std=1.0)
+    mask = np.ones((items, n_kv), np.float32)
+    mask[1, 2:] = 0.0
+    bias = (1.0 - mask) * fq.NEG_INF
+    shapes = {"self": dict(wqkv=(d, 3 * d), bqkv=3 * d, wo=(d, d), bo=d),
+              "cross": dict(wq=(d, d), bq=d, wkv=(d, 2 * d), bkv=2 * d,
+                            wo=(d, d), bo=d),
+              "ffn": dict(w1=(d, inter), b1=inter, w2=(inter, d), b2=d)}
+    w, jw = {}, {}
+    for name, shape in shapes[block].items():
+        std = 0.1 if isinstance(shape, int) else shape[0] ** -0.5
+        w[name], jw[name] = _bf16_array(rng, *np.atleast_1d(shape), std=std)
+    g, jg = _bf16_array(rng, d, std=0.1)
+    g, jg = g + 1.0, jg + 1.0
+    b, jb = _bf16_array(rng, d, std=0.1)
+    port = {n: _t(a.T).contiguous() if a.ndim == 2 else _t(a)
+            for n, a in w.items()}
+    args = dict(num_heads=heads, n_q=n_q)
+    if block == "self":
+        want = jax_fq.fused_self_attention_block(
+            jnp.asarray(jx), jw["wqkv"], jw["bqkv"], jw["wo"], jw["bo"], jg,
+            jb, **args, interpret=True)
+        got = fq.fused_self_attention_block(
+            _t(x).bfloat16(), port["wqkv"].bfloat16(), port["bqkv"],
+            port["wo"].bfloat16(), port["bo"], _t(g), _t(b), **args)
+    elif block == "cross":
+        want = jax_fq.fused_cross_attention_block(
+            jx, jmem, jnp.asarray(bias), jw["wq"], jw["bq"], jw["wkv"],
+            jw["bkv"], jw["wo"], jw["bo"], jg, jb, **args, n_kv=n_kv,
+            interpret=True)
+        got = fq.fused_cross_attention_block(
+            _t(x).bfloat16(), _t(mem).bfloat16(), _t(bias),
+            port["wq"].bfloat16(), port["bq"], port["wkv"].bfloat16(),
+            port["bkv"], port["wo"].bfloat16(), port["bo"], _t(g), _t(b),
+            **args, n_kv=n_kv)
+    else:
+        want = jax_fq.fused_ffn_block(jx, jw["w1"], jw["b1"], jw["w2"],
+                                      jw["b2"], jg, jb, interpret=True)
+        got = fq.fused_ffn_block(_t(x).bfloat16(), port["w1"].bfloat16(),
+                                 port["b1"], port["w2"].bfloat16(),
+                                 port["b2"], _t(g), _t(b))
+    assert got.shape == (items, n_q, d) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=BF16_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("head_dim", [128, 256])
 def test_kernel_takes_every_k_that_supports_fused_admits(head_dim):
     """B1 at every K dividing 256 (the K supports_fused admits) in 2 heads of
-    128 and of 256 (above the old kernel's limit, C-6), 2 items: the
-    wrapper passes the width check and, on CPU tensors, its plain version
-    agrees with the JAX kernel in interpret mode, in float32."""
+    128 and of 256 (above the old kernel's limit, C-6), 2 items: on CPU
+    tensors the wrapper's plain version agrees with the JAX kernel in
+    interpret mode, in float32."""
     d = 2 * head_dim
     rng = np.random.RandomState(6)
     s = d ** -0.5
@@ -291,7 +341,6 @@ def test_kernel_takes_every_k_that_supports_fused_admits(head_dim):
     for k in (1, 2, 4, 8, 16, 32, 64, 128, 256):
         assert supports_fused(ItemQFormerConfig(
             hidden_size=d, num_attention_heads=2, num_query_tokens=k))
-        fq._check_kernel_dims("fused_self_attention_block", {"D": d})
         x = rng.randn(2, k, d).astype(np.float32)
         want = jax_fq.fused_self_attention_block(
             jnp.asarray(x), jnp.asarray(w["wqkv"]), jnp.asarray(v["bqkv"]),

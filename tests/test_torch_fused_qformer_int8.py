@@ -189,6 +189,67 @@ def test_block_q_matches_jax_kernel(setup, block):
                                atol=BLOCK_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("d", [1020, 1032])
+@pytest.mark.parametrize("block", ["self", "cross", "ffn"])
+def test_block_q_at_widths_off_16_byte_rows(block, d):
+    """B4-B6 at hidden 1020 and 1032 in 4 heads (no multiple of 16 int8
+    codes; the kernels now take them on gemm_wide.cuh's int8 edge kernel,
+    C-10, held to these plain versions on the card): on CPU tensors the
+    wrapper's plain version against the JAX kernel in interpret mode, the
+    same weights quantized on each side (2 items, K 8, F 6, intermediate
+    256)."""
+    rng = np.random.RandomState(d + 1)
+    items, n_q, n_kv, inter, heads = 2, 8, 6, 256, 4
+    x = rng.randn(items, n_q, d).astype(np.float32)
+    mem = rng.randn(items, n_kv, d).astype(np.float32)
+    mask = np.ones((items, n_kv), np.float32)
+    mask[1, 2:] = 0.0
+    bias = (1.0 - mask) * NEG_INF
+    shapes = {"self": dict(wqkv=(d, 3 * d), wo=(d, d)),
+              "cross": dict(wq=(d, d), wkv=(d, 2 * d), wo=(d, d)),
+              "ffn": dict(w1=(d, inter), w2=(inter, d))}[block]
+    jw, pw = {}, {}
+    for name, (i, o) in shapes.items():  # [in, out] in JAX, [out, in] here
+        w = (rng.randn(i, o) * i ** -0.5).astype(np.float32)
+        jw[name] = jax_q.quantize_weight(jnp.asarray(w))
+        pw[name] = pq.quantize_weight(_t(w.T))
+    sizes = {"self": dict(bqkv=3 * d, bo=d),
+             "cross": dict(bq=d, bkv=2 * d, bo=d),
+             "ffn": dict(b1=inter, b2=d)}[block]
+    vec = {n: (rng.randn(n_) * 0.1).astype(np.float32)
+           for n, n_ in dict(sizes, g=d, be=d).items()}
+    vec["g"] += 1.0
+    jv = {n: jnp.asarray(a) for n, a in vec.items()}
+    pv = {n: _t(a) for n, a in vec.items()}
+    jx, px = jnp.asarray(x, jnp.bfloat16), _t(x).bfloat16()
+    kw = dict(num_heads=heads, n_q=n_q)
+    if block == "self":
+        want = jax_q.fused_self_attention_block_q(
+            jx, *jw["wqkv"], jv["bqkv"], *jw["wo"], jv["bo"], jv["g"],
+            jv["be"], **kw, interpret=True)
+        got = pq.fused_self_attention_block_q(
+            px, *pw["wqkv"], pv["bqkv"], *pw["wo"], pv["bo"], pv["g"],
+            pv["be"], **kw)
+    elif block == "cross":
+        want = jax_q.fused_cross_attention_block_q(
+            jx, jnp.asarray(mem, jnp.bfloat16), jnp.asarray(bias), *jw["wq"],
+            jv["bq"], *jw["wkv"], jv["bkv"], *jw["wo"], jv["bo"], jv["g"],
+            jv["be"], **kw, n_kv=n_kv, interpret=True)
+        got = pq.fused_cross_attention_block_q(
+            px, _t(mem).bfloat16(), _t(bias), *pw["wq"], pv["bq"],
+            *pw["wkv"], pv["bkv"], *pw["wo"], pv["bo"], pv["g"], pv["be"],
+            **kw, n_kv=n_kv)
+    else:
+        want = jax_q.fused_ffn_block_q(
+            jx, *jw["w1"], jv["b1"], *jw["w2"], jv["b2"], jv["g"], jv["be"],
+            interpret=True)
+        got = pq.fused_ffn_block_q(px, *pw["w1"], pv["b1"], *pw["w2"],
+                                   pv["b2"], pv["g"], pv["be"])
+    assert got.shape == (items, n_q, d) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _np(want),
+                               atol=BLOCK_ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("inter,chunk", [(256, 128), (4224, None)],
                          ids=["explicit_chunk", "above_4096"])
 def test_ffn_q_groupings_match_jax(inter, chunk):

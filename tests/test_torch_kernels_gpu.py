@@ -28,8 +28,10 @@ B7b run at every head dim the model configs use (16, 32, 64, 128), at hd 8
 and 24 (zero-padded to 16 and 32) and 256, over key tiles that are all
 padding, and repeat bit for bit.  B13 / B14 / B14p run at hd 8, 24, 64, 128
 and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
-and 200 over a ragged last key tile; B15 at hd 8 and 24.  Head dims above
-256 are refused, naming the set.
+and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
+dim and F (C-8).  Head dims above 256 are refused by K1-B14p, naming the
+set.  B4-B6's int8 GEMM is held to gemm_s8_kernel bit for bit; B1-B6 run
+at hidden 1020 and 1032 (C-10).
 """
 
 import pytest
@@ -427,6 +429,7 @@ def test_b4_b5_b6_match_plain(hopper, items):
         torch.cuda.synchronize()
         assert kern.launches == before + 1
         _check_block(out, plain(*args, **w, **kw))
+        assert torch.equal(out, kern(*args, **w, **kw))
     empty = int(torch.nonzero(mask.sum(1) == 0)[0])
     alone = pq.fused_cross_attention_block_q(
         x[empty:empty + 1], mem[empty:empty + 1],
@@ -959,6 +962,107 @@ def test_b14p_autograd_gradients_match_cpu(hopper, dtype):
         _check_kernel(f"grad {name}", g, r.cuda())
 
 
+EPIS = ("bias", "up_gelu_quant", "bias_resid", "chunked_resid")
+
+
+@pytest.mark.parametrize("m,n,k,epi,chunk", [
+    (32 * 1001, 3 * D, D, "bias", D),
+    (32 * 1001, INTER, D, "up_gelu_quant", INTER),
+    (32 * 1001, INTER, D, "up_gelu_quant", 1024),
+    (32 * 1001, D, D, "bias_resid", D),
+    (32 * 1001, D, INTER, "chunked_resid", INTER),
+    (32 * 1001, D, INTER, "chunked_resid", 1024),
+    (32 * 4096, INTER, D, "up_gelu_quant", INTER),
+    (32 * 4096, D, INTER, "chunked_resid", INTER)])
+def test_int8_gemm_matches_gemm_s8_bit_for_bit(hopper, m, n, k, epi, chunk):
+    """B4-B6's int8 TMA + wgmma GEMM (csrc/gemm_wide.cuh) against
+    gemm_s8_kernel, which they ran on before and B8/B9 keep, through the
+    test entry unirec_gemm_q_test: the same codes and scales give the same
+    bits in every epilogue the two share (the int32 sums are exact in any
+    order, the epilogues round at the same points), and B6's up projection
+    with its gelu and quantization per chunk (up_gelu_quant: h's codes and
+    scales) the same codes and scales as the gelu epilogue and row_quant
+    before; a repeat gives the same bits."""
+    from unirec_tpu_torch.ops._build import check, load_kernels
+
+    g = hopper
+    a = torch.randint(-127, 128, (m, k), device="cuda", generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device="cuda", generator=g,
+                      dtype=torch.int8)
+    groups = k // chunk if epi == "chunked_resid" else 1
+    rs = torch.rand(m, groups, device="cuda", generator=g) * 1e-3
+    cs = torch.rand(n, device="cuda", generator=g) * 1e-2
+    bias = _vec(g, n)
+    resid = _rand(g, m, n)
+    dtype = {"bias": torch.bfloat16, "up_gelu_quant": torch.int8}.get(
+        epi, torch.float32)
+    outs = [torch.empty(m, n, device="cuda", dtype=dtype) for _ in range(3)]
+    scales = [torch.empty(m, n // chunk, device="cuda") for _ in range(3)]
+    scratch = torch.empty(m, n, device="cuda")
+    for which, out, sc in zip((0, 1, 1), outs, scales):
+        check(load_kernels().lib.unirec_gemm_q_test(
+            which, EPIS.index(epi), a.data_ptr(), w.data_ptr(), rs.data_ptr(),
+            groups, cs.data_ptr(), bias.data_ptr(), resid.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), sc.data_ptr(), m, n, k, chunk,
+            torch.cuda.current_stream().cuda_stream), "unirec_gemm_q_test")
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    if epi == "up_gelu_quant":
+        assert torch.equal(scales[0], scales[1])
+        assert torch.equal(scales[1], scales[2])
+
+
+@pytest.mark.parametrize("d", [1020, 1032])
+def test_blocks_take_widths_off_16_byte_rows(hopper, d):
+    """B1-B6 at hidden 1020 (no multiple of 8 bf16 values: every product on
+    gemm_wide.cuh's edge kernel) and 1032 (no multiple of 16 int8 codes:
+    B4-B6's products on its int8 edge kernel), 4 heads, 64 items with
+    missing fields, against their plain versions, repeating bit for bit
+    (C-10)."""
+    g = hopper
+    items, heads = 64, 4
+    x = _rand(g, items, K, d)
+    mask = _missing_mask(g, items)
+    mem = _rand(g, items, F, d) * mask[..., None].bfloat16()
+    key_bias = ((1.0 - mask) * fq.NEG_INF).contiguous()
+    sw = dict(wqkv=_rand(g, 3 * d, d, std=0.03), bqkv=_vec(g, 3 * d),
+              wo=_rand(g, d, d, std=0.03), bo=_vec(g, d),
+              ln_gamma=_vec(g, d, 1.0), ln_beta=_vec(g, d))
+    cw = dict(wq=_rand(g, d, d, std=0.03), bq=_vec(g, d),
+              wkv=_rand(g, 2 * d, d, std=0.03), bkv=_vec(g, 2 * d),
+              wo=_rand(g, d, d, std=0.03), bo=_vec(g, d),
+              ln_gamma=_vec(g, d, 1.0), ln_beta=_vec(g, d))
+    fw = dict(w1=_rand(g, INTER, d, std=0.03), b1=_vec(g, INTER),
+              w2=_rand(g, d, INTER, std=0.02), b2=_vec(g, d),
+              ln_gamma=_vec(g, d, 1.0), ln_beta=_vec(g, d))
+
+    def q(ws):
+        out = dict(ws)
+        for name, scale in (("wqkv", "sqkv"), ("wo", "so"), ("wq", "sq"),
+                            ("wkv", "skv"), ("w1", "s1"), ("w2", "s2")):
+            if name in ws:
+                out[name], out[scale] = pq.quantize_weight(ws[name])
+        return out
+
+    sk = dict(num_heads=heads, n_q=K)
+    ck = dict(sk, n_kv=F)
+    for mod, sfx, (s_w, c_w, f_w) in ((fq, "", (sw, cw, fw)),
+                                      (pq, "_q", (q(sw), q(cw), q(fw)))):
+        for fn, args, w, kw in (
+                ("fused_self_attention_block", (x,), s_w, sk),
+                ("fused_cross_attention_block", (x, mem, key_bias), c_w, ck),
+                ("fused_ffn_block", (x,), f_w, {})):
+            kern = getattr(mod, fn + sfx)
+            before = kern.launches
+            out = kern(*args, **w, **kw)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 1
+            _check_block(out, getattr(mod, fn + sfx + "_plain")(*args, **w,
+                                                                **kw))
+            assert torch.equal(out, kern(*args, **w, **kw))
+
+
 # -- B15: packed item attention ---------------------------------------------
 
 
@@ -999,23 +1103,57 @@ def test_b15_matches_plain(hopper, dtype, n_q, n_kv, hd):
                   pp.packed_item_attention_plain(q, k, v))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("items,n_q,n_kv,hd", [
+    (4096, 32, 32, 64), (4096, 32, 14, 64), (256, 32, 14, 256),
+    (256, 32, 14, 512), (64, 128, 512, 64), (256, 2, 600, 32)])
+def test_b15_takes_any_head_dim_and_fields(hopper, dtype, items, n_q, n_kv,
+                                           hd):
+    """B15 at the sweep's two shapes and at shapes the first kernel refused
+    (C-8): head dims 256 and 512, K = 128 over 512 keys, K = 2 over 600, 16
+    heads, contiguous per-head tensors with ~15% missing keys; against the
+    plain version, repeating bit for bit, rows rounded off 16-byte
+    boundaries read right."""
+    from unirec_tpu_torch.ops import packed_attention as pp
+
+    h = 16
+    q, k, v = (torch.randn(items, h, n, hd, device="cuda",
+                           generator=hopper).to(dtype)
+               for n in (n_q, n_kv, n_kv))
+    mask = (torch.rand(items, n_kv, device="cuda", generator=hopper)
+            > 0.15).float()
+    mask[::50] = 0.0
+    bias = ((1.0 - mask) * -1e9)[:, None, None, :]
+    out = pp.packed_item_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    _check_kernel("B15", out, pp.packed_item_attention_plain(q, k, v, bias))
+    assert torch.equal(out, pp.packed_item_attention(q, k, v, bias))
+    none = mask.sum(1) == 0
+    torch.testing.assert_close(out[none].float(), v[none].float().mean(
+        2, keepdim=True).expand(-1, -1, n_q, -1), atol=2e-2, rtol=0)
+
+
 def test_b15_refuses_what_the_kernel_does_not_take(hopper):
+    """Other dtypes, K not dividing 128 and a strided head dimension are
+    refused; rows off 16-byte boundaries and head dims above 128 are taken
+    (the first kernel refused them)."""
     from unirec_tpu_torch.ops import packed_attention as pp
 
     q = torch.randn(4, 2, 32, 64, device="cuda", generator=hopper)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         pp.packed_item_attention(q.half(), q.half(), q.half())
-    wide = torch.randn(4, 2, 32, 256, device="cuda", generator=hopper)
-    with pytest.raises(ValueError, match="head_dim"):
-        pp.packed_item_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="divide 128"):
         pp.packed_item_attention(q[:, :, :24], q, q)
-    # rows read with 16-byte loads: a row that starts off a 16-byte boundary
-    # is refused, not read wrong
-    odd = torch.randn(4 * 2 * 32 * 64 + 1, device="cuda")[1:].view(
-        4, 2, 32, 64)
-    with pytest.raises(ValueError, match="16-byte"):
-        pp.packed_item_attention(odd, q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        pp.packed_item_attention(q[..., ::2], q[..., ::2], q[..., ::2])
+    odd = torch.randn(4 * 2 * 32 * 63 + 1, device="cuda")[1:].view(
+        4, 2, 32, 63)
+    _check_kernel("B15 at rows off 16-byte boundaries",
+                  pp.packed_item_attention(odd, odd, odd),
+                  pp.packed_item_attention_plain(odd, odd, odd))
+    wide = torch.randn(4, 2, 32, 300, device="cuda", generator=hopper)
+    _check_kernel("B15 at hd 300", pp.packed_item_attention(wide, wide, wide),
+                  pp.packed_item_attention_plain(wide, wide, wide))
 
 
 @pytest.mark.parametrize("hd", [8, 24, 64, 128, 256])

@@ -96,22 +96,39 @@ def test_invalid_query_count():
         pp.packed_item_attention(q, q, q)
 
 
-@pytest.mark.parametrize("n_q,n_kv,hd,batch,items", [
-    (32, 32, 64, 4096, 4),    # the sweep's self shape: the TPU tile's 4
-    (32, 14, 64, 4096, 4),
-    (2, 14, 64, 4096, 14),    # 64 would take 465 KB: cut to the budget
-    (2, 14, 32, 3, 3),        # a batch smaller than a tile
-    (128, 128, 128, 8, 1),    # one item over the two-block budget
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,k,f,hd", [
+    (3, 32, 14, 200),   # head dims above the first kernel's 128
+    (3, 32, 14, 256),
+    (2, 32, 14, 512),
+    (2, 128, 512, 64),  # one item over more keys than a block held
+    (3, 2, 600, 32),    # K = 2 over 600 keys: 64 items per TPU tile
 ])
-def test_items_per_block_fits_shared_memory(n_q, n_kv, hd, batch, items):
-    """How many items a kernel block holds (computed on the host, so it is
-    tested here): at most 128 rows, within shared memory."""
-    got = pp.items_per_block(n_q, n_kv, hd, batch)
-    assert got == items
-    assert got * n_q <= pp.PACKED_ROWS
-    assert pp.smem_bytes(hd, got, n_q, n_kv) <= pp.BLOCK_SMEM_BYTES
-
-
-def test_items_per_block_refuses_an_item_over_a_block():
-    with pytest.raises(ValueError, match="shared memory"):
-        pp.items_per_block(128, 512, 128, 8)
+def test_matches_jax_at_shapes_the_first_kernel_refused(dtype, b, k, f, hd):
+    """Shapes the CUDA kernels now take at any head dim and F (C-8; they are
+    held to this plain version on the card by test_torch_kernels_gpu and
+    chip_smoke.py): the wrapper's plain version against the JAX kernel in
+    interpret mode, ~30% masked keys and an item with none; float32 at
+    atol 2e-5, bf16 (both sides fp32 inside, one rounding of the output)
+    within one bf16 ulp."""
+    rng = np.random.RandomState(hd + f)
+    h = 2
+    q = rng.randn(b, h, k, hd).astype(np.float32)
+    kk = rng.randn(b, h, f, hd).astype(np.float32)
+    v = rng.randn(b, h, f, hd).astype(np.float32)
+    mask = (rng.rand(b, f) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[-1] = 0.0
+    bias = np.array(make_additive_mask(jnp.asarray(mask)))
+    if dtype == "fp32":
+        got, want = _both(q, kk, v, bias)
+        np.testing.assert_allclose(got, want, atol=ATOL)
+        return
+    q, kk, v = (torch.from_numpy(a).bfloat16() for a in (q, kk, v))
+    want = jpacked(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                     for t in (q, kk, v)), jnp.asarray(bias), interpret=True)
+    got = pp.packed_item_attention(q, kk, v, torch.from_numpy(bias))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=8e-3, atol=1e-3)

@@ -1,7 +1,9 @@
-// The bf16 GEMM of the item-token sweep's Q-Former blocks (qformer_blocks.cu:
-// B1-B6; the trainable blocks B12s/B12c take gemm_wide.cuh).  Its cp.async /
-// ldmatrix / mma.sync helpers, which the int8 GEMM of qformer_blocks.cu also
-// uses, are in ptx_helpers.cuh.
+// The bf16 GEMM of the item-token sweep's Q-Former blocks B1-B3 at widths
+// that are whole 16-byte rows (qformer_blocks.cu; the trainable blocks
+// B12s/B12c, the int8 blocks B4-B6 and B1-B3 at other widths take
+// gemm_wide.cuh, which also holds gelu_tanh).  Its cp.async / ldmatrix /
+// mma.sync helpers, which the int8 GEMM of qformer_blocks.cu also uses, are
+// in ptx_helpers.cuh.
 //
 //   gemm_bf16_kernel: C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with K
 //   contiguous (W is the torch Linear layout), 128x128x32 block tiles, 8 warps
@@ -21,6 +23,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gemm_wide.cuh"
 #include "ptx_helpers.cuh"
 
 namespace {
@@ -40,12 +43,6 @@ constexpr int W_TILE = BN * LDS;
 constexpr int GEMM_SMEM = STAGES * (A_TILE + W_TILE) * (int)sizeof(bf16);  // 61,440
 
 enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESID = 2, EPI_F32 = 3 };
-
-// jax.nn.gelu(approximate=True) in fp32
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return x * (0.5f * (1.0f + tanhf(k * (x + 0.044715f * (x * x * x)))));
-}
 
 // C[M, N] = A[M, K] . W[N, K]^T + epilogue.  N and K are multiples of 8;
 // bias is not read by EPI_F32 (pass nullptr).

@@ -1,13 +1,16 @@
 // The per-item attention core of the Item Q-Former kernels, on bf16 tensor
-// cores: the sweep's blocks B1/B2/B4/B5 (qformer_blocks.cu) and the
-// trainable blocks B12s/B12c, forward and backward (fused_qformer_vjp.cu).
+// cores: the sweep's blocks B1/B2/B4/B5 (qformer_blocks.cu), the
+// trainable blocks B12s/B12c, forward and backward (fused_qformer_vjp.cu),
+// and the packed item attention B15 in bf16 (packed_attention.cu).
 //
 // Each item's nq query rows attend over its own nkv key rows, with an
 // additive per-key bias (0 valid / -1e9 missing; none for self-attention).
-// Heads are column ranges [h*hd, (h+1)*hd) of row-major q, k, v.  It
-// replaces the per-head attention inside the Pallas bodies of
+// Heads are column ranges [h*hd, (h+1)*hd) of row-major q, k, v; the
+// forward also takes B15's per-head layout, any (item, row, head) strides
+// (IaArgs).  It replaces the per-head attention inside the Pallas bodies of
 // unirec_tpu/ops/fused_qformer_layer.py (_group_attention) and
-// unirec_tpu/ops/fused_qformer_vjp.py (_attn_heads_fwd, _attn_heads_bwd).
+// unirec_tpu/ops/fused_qformer_vjp.py (_attn_heads_fwd, _attn_heads_bwd), and
+// the body of unirec_tpu/ops/packed_attention.py (_packed_kernel).
 //
 // What bounds it: bytes.  At the item-training shape (512 items, K 32,
 // 16 heads of 64) the forward reads q / k / v (96 MB) and writes ctx (32
@@ -60,6 +63,10 @@
 //   IA_B1   _group_attention of the sweep's blocks: bf16(q * scale) before
 //           the product, s = q . k + bias, unnormalised bf16(e) . v, then
 //           * (1 / sum e).
+//   IA_B15  _packed_kernel: s = (q . k) * scale + bias (two roundings), the
+//           unnormalised e in fp32 enters e . v as a bf16 hi + lo pair (two
+//           products; the JAX kernel multiplies in fp32), then
+//           / (sum e == 0 ? 1 : sum e); the output in bf16.
 // Every output element has one owner (no atomics): a repeat gives the same
 // bits.
 //
@@ -85,17 +92,26 @@ constexpr int IA_PACKED_KEYS = 128;  // at most this many keys in a block of sev
 constexpr int IA_SMEM_LIMIT = 232448;
 constexpr int IA_SP = IA_TILE + 8;   // pitch of a streamed 64 x 64 tile: 144 bytes
 
-enum { IA_B12 = 0, IA_B1 = 1 };
+enum { IA_B12 = 0, IA_B1 = 1, IA_B15 = 2 };
 
+// Row r of an item of q sits at q + item * q_item + r * q_stride + head *
+// q_head (k and v likewise with kv_item, kv_stride, kv_head, from kv + k_off
+// and vbase + v_off; ctx with ctx_*).  q_n, kv_n, ctx_n: 0 where a tensor's
+// items' rows are one run of rows q_stride apart (q_item = nq * q_stride),
+// else its rows an item (nq, nkv), for ia_row.  The backward takes one run
+// of row-major rows, heads hd apart.
 struct IaArgs {
   const bf16* q;
   const bf16* kv;
+  const bf16* vbase;      // v's tensor: kv, or B15's own
   const float* key_bias;  // [items * nkv] or nullptr
   const float* dctx;      // backward: [items * nq, dctx_stride] fp32
   bf16* ctx;              // forward output
   bf16* dq;               // backward outputs
   bf16* dkv;
   int q_stride, kv_stride, k_off, v_off, ctx_stride;
+  long long q_item, kv_item, ctx_item;
+  int q_head, kv_head, ctx_head, q_n, kv_n, ctx_n;
   int dctx_stride, dq_stride, dkv_stride, dk_off, dv_off;
   int items, nq, nkv, hd;
   int ipt, hp, nqt, nkt;  // items a block; hd padded to 16; 64-row tiles of rows, keys
@@ -125,25 +141,33 @@ inline long long ia_bwd_smem(bool resident, int nqt, int nkt, int hp, bool alias
   return 2LL * 5 * IA_TILE * IA_SP + common + 8LL * IA_TILE;
 }
 
-// dst[r * pitch + c] = src[r * stride + c] for r < nr, c < nc, else 0, over
-// rows x cols (cols a multiple of 16).  vec: 16-byte cp.async (the caller
-// commits and waits); else plain loads.
+// the offset of a block's row r: rows `stride` apart, or (n > 0) items of n
+// rows `item` apart
+__device__ __forceinline__ size_t ia_row(int r, int stride, int n, long long item) {
+  return n == 0 ? (size_t)r * stride : (size_t)(r / n) * item + (size_t)(r % n) * stride;
+}
+
+// dst[r * pitch + c] = src[ia_row(r0 + r) + c] for r < nr, c < nc, else 0,
+// over rows x cols (cols a multiple of 16).  vec: 16-byte cp.async (the
+// caller commits and waits); else plain loads.
 __device__ __forceinline__ void ia_load(bf16* dst, int pitch, int rows, int cols,
-                                        const bf16* src, int stride, int nr, int nc, bool vec) {
+                                        const bf16* src, int stride, int nr, int nc, bool vec,
+                                        int r0 = 0, int n = 0, long long item = 0) {
   if (vec) {
     const int per_row = cols / 8;
     for (int ch = threadIdx.x; ch < rows * per_row; ch += IA_THREADS) {
       const int r = ch / per_row;
       const int c = (ch - r * per_row) * 8;
       const bool p = r < nr && c < nc;
-      cp_async_16(smem_addr(dst + r * pitch + c), p ? src + (size_t)r * stride + c : src, p);
+      cp_async_16(smem_addr(dst + r * pitch + c),
+                  p ? src + ia_row(r0 + r, stride, n, item) + c : src, p);
     }
   } else {
     for (int e = threadIdx.x; e < rows * cols; e += IA_THREADS) {
       const int r = e / cols;
       const int c = e - r * cols;
-      dst[r * pitch + c] =
-          r < nr && c < nc ? src[(size_t)r * stride + c] : __float2bfloat16(0.f);
+      dst[r * pitch + c] = r < nr && c < nc ? src[ia_row(r0 + r, stride, n, item) + c]
+                                            : __float2bfloat16(0.f);
     }
   }
 }
@@ -270,7 +294,9 @@ __device__ __forceinline__ void ia_mask(float (&s)[8][4], const float* kb, const
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = n * 8 + 2 * t4 + (e & 1);
-      const float v = RND == IA_B12 ? s[n][e] * scale + kb[j] : s[n][e] + kb[j];
+      const float v = RND == IA_B12  ? s[n][e] * scale + kb[j]
+                      : RND == IA_B1 ? s[n][e] + kb[j]
+                                     : __fadd_rn(__fmul_rn(s[n][e], scale), kb[j]);
       s[n][e] = ki[j] == ritem[e >> 1] ? v : -INFINITY;
     }
 }
@@ -333,9 +359,8 @@ item_attention_fwd_kernel(const IaArgs a) {
   const int nkt = ONE ? 1 : (keys_b + IA_TILE - 1) / IA_TILE;
   const int qt = blockIdx.z;
   const int rows_t = min(IA_TILE, rows_b - qt * IA_TILE);
-  const size_t qrow0 = (size_t)item0 * a.nq + qt * IA_TILE;
   const size_t krow0 = (size_t)item0 * a.nkv;
-  const int col0 = blockIdx.y * a.hd;
+  const size_t head = blockIdx.y;
   const int hp = a.hp;
   const bool resident = ONE || a.resident != 0;
   const bool vec = a.vec != 0;
@@ -348,9 +373,13 @@ item_attention_fwd_kernel(const IaArgs a) {
   float* kb = reinterpret_cast<float*>(Vs + (resident ? a.nkt * IA_TILE : IA_TILE) * P);
   int* ki = reinterpret_cast<int*>(kb + (resident ? a.nkt * IA_TILE : IA_TILE));
 
-  const bf16* qg = a.q + qrow0 * a.q_stride + col0;
-  const bf16* kg = a.kv + krow0 * a.kv_stride + a.k_off + col0;
-  const bf16* vg = a.kv + krow0 * a.kv_stride + a.v_off + col0;
+  // the block's first rows, at the head's first column; its rows as ia_row
+  const bf16* qg = a.q + item0 * a.q_item + head * a.q_head;
+  const bf16* kg = a.kv + item0 * a.kv_item + head * a.kv_head + a.k_off;
+  const bf16* vg = a.vbase + item0 * a.kv_item + head * a.kv_head + a.v_off;
+  bf16* cg = a.ctx + item0 * a.ctx_item + head * a.ctx_head;
+  const int qn = a.q_n, kn = a.kv_n;
+  const int q0 = qt * IA_TILE;
 
   int ritem[2];
 #pragma unroll
@@ -360,9 +389,9 @@ item_attention_fwd_kernel(const IaArgs a) {
   }
 
   if (resident) {
-    ia_load(Qs, P, IA_TILE, hp, qg, a.q_stride, rows_t, a.hd, vec);
-    ia_load(Ks, P, key_rows, hp, kg, a.kv_stride, keys_b, a.hd, vec);
-    ia_load(Vs, P, key_rows, hp, vg, a.kv_stride, keys_b, a.hd, vec);
+    ia_load(Qs, P, IA_TILE, hp, qg, a.q_stride, rows_t, a.hd, vec, q0, qn, a.q_item);
+    ia_load(Ks, P, key_rows, hp, kg, a.kv_stride, keys_b, a.hd, vec, 0, kn, a.kv_item);
+    ia_load(Vs, P, key_rows, hp, vg, a.kv_stride, keys_b, a.hd, vec, 0, kn, a.kv_item);
     for (int kt = 0; kt < nkt; ++kt)
       ia_key_info(kb + kt * IA_TILE, ki + kt * IA_TILE, a, krow0, keys_b, kt);
     ia_land();
@@ -376,9 +405,10 @@ item_attention_fwd_kernel(const IaArgs a) {
     } else {
       for (int c = 0; c < hp; c += IA_TILE) {
         __syncthreads();  // every warp is done with the slots
-        ia_load(Qs, P, IA_TILE, IA_TILE, qg + c, a.q_stride, rows_t, a.hd - c, vec);
-        ia_load(Ks, P, IA_TILE, IA_TILE, kg + (size_t)kt * IA_TILE * a.kv_stride + c,
-                a.kv_stride, keys_b - kt * IA_TILE, a.hd - c, vec);
+        ia_load(Qs, P, IA_TILE, IA_TILE, qg + c, a.q_stride, rows_t, a.hd - c, vec, q0, qn,
+                a.q_item);
+        ia_load(Ks, P, IA_TILE, IA_TILE, kg + c, a.kv_stride, keys_b - kt * IA_TILE, a.hd - c,
+                vec, kt * IA_TILE, kn, a.kv_item);
         if (c == 0) ia_key_info(kb, ki, a, krow0, keys_b, kt);
         ia_land();
         ia_qk(s, Qs, P, Ks, P, min(IA_TILE, hp - c), RND == IA_B1, a.scale);
@@ -394,13 +424,19 @@ item_attention_fwd_kernel(const IaArgs a) {
     scores(kt, s);
     ia_stats(s, m, l);
   }
-  float mb[2], inv[2];
+  float mb[2], inv[2], den[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const float sum = ia_quad_sum(l[hf]);
     mb[hf] = m[hf] == -INFINITY ? 0.f : m[hf];
     inv[hf] = sum > 0.f ? 1.f / sum : 0.f;
+    den[hf] = sum == 0.f ? 1.f : sum;
   }
+
+  size_t orow[2];  // the offsets of this thread's two output rows
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    orow[hf] = ia_row(q0 + warp * 16 + g + 8 * hf, a.ctx_stride, a.ctx_n, a.ctx_item);
 
   // pass 2: P V, 64 output columns at a time
   for (int oc = 0; oc < hp; oc += IA_TILE) {
@@ -409,7 +445,8 @@ item_attention_fwd_kernel(const IaArgs a) {
     ia_zero(o);
     for (int kt = 0; kt < nkt; ++kt) {
       if (!ONE && nkt > 1) scores(kt, s);
-      uint32_t pa[4][4];  // p (B12) or e (B1), bf16, as A fragments
+      // p (B12) or e (B1, B15), bf16, as A fragments; B15: e's low half in pl
+      uint32_t pa[4][4], pl[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -421,17 +458,21 @@ item_attention_fwd_kernel(const IaArgs a) {
             p0 *= inv[hf];
             p1 *= inv[hf];
           }
-          pa[kk][r] = pack_bf16(p0, p1);
+          if (RND == IA_B15)
+            split_bf16(p0, p1, pa[kk][r], pl[kk][r]);
+          else
+            pa[kk][r] = pack_bf16(p0, p1);
         }
       const bf16* vt = Vs + kt * IA_TILE * P + oc;
       if (!resident) {
         __syncthreads();
-        ia_load(Vs, P, IA_TILE, IA_TILE, vg + (size_t)kt * IA_TILE * a.kv_stride + oc, a.kv_stride,
-                keys_b - kt * IA_TILE, a.hd - oc, vec);
+        ia_load(Vs, P, IA_TILE, IA_TILE, vg + oc, a.kv_stride, keys_b - kt * IA_TILE,
+                a.hd - oc, vec, kt * IA_TILE, kn, a.kv_item);
         ia_land();
         vt = Vs;
       }
       ia_pv(o, pa, vt, P, w);
+      if (RND == IA_B15) ia_pv(o, pl, vt, P, w);
     }
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -445,8 +486,11 @@ item_attention_fwd_kernel(const IaArgs a) {
         if (RND == IA_B1) {
           v0 *= inv[hf];
           v1 *= inv[hf];
+        } else if (RND == IA_B15) {
+          v0 = __fdiv_rn(v0, den[hf]);
+          v1 = __fdiv_rn(v1, den[hf]);
         }
-        bf16* dst = a.ctx + (qrow0 + r) * a.ctx_stride + col0 + col;
+        bf16* dst = cg + orow[hf] + col;
         if (a.pairs) {
           *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
         } else {
@@ -807,7 +851,8 @@ inline int ia_plan(IaArgs& a, bool backward, int& groups) {
   a.nkt = (keys + IA_TILE - 1) / IA_TILE;
   a.hp = (a.hd + 15) / 16 * 16;
   a.vec = a.hd % 8 == 0 && a.q_stride % 8 == 0 && a.kv_stride % 8 == 0 && a.k_off % 8 == 0 &&
-          a.v_off % 8 == 0 && ia_aligned(a.q) && ia_aligned(a.kv);
+          a.v_off % 8 == 0 && a.q_item % 8 == 0 && a.kv_item % 8 == 0 && a.q_head % 8 == 0 &&
+          a.kv_head % 8 == 0 && ia_aligned(a.q) && ia_aligned(a.kv) && ia_aligned(a.vbase);
   const bool alias = a.nqt == 1 && a.nkt == 1 && a.hp + 8 >= IA_SP;
   const long long res = backward ? ia_bwd_smem(true, a.nqt, a.nkt, a.hp, alias)
                                  : ia_fwd_smem(true, a.nkt, a.hp);
@@ -818,29 +863,13 @@ inline int ia_plan(IaArgs& a, bool backward, int& groups) {
   return bytes <= IA_SMEM_LIMIT ? (int)bytes : 0;
 }
 
-// ctx = per-item attention (variant RND) of q over k / v; layouts as IaArgs
+// the forward of the layout and variant that `a` holds (its plan fields
+// filled here)
 template <int RND>
-cudaError_t item_attention(const void* q, int q_stride, const void* kv, int kv_stride, int k_off,
-                           int v_off, const float* key_bias, void* ctx, int ctx_stride, int items,
-                           int heads, int nq, int nkv, int hd, float scale, cudaStream_t stream) {
-  IaArgs a{};
-  a.q = static_cast<const bf16*>(q);
-  a.kv = static_cast<const bf16*>(kv);
-  a.key_bias = key_bias;
-  a.ctx = static_cast<bf16*>(ctx);
-  a.q_stride = q_stride;
-  a.kv_stride = kv_stride;
-  a.k_off = k_off;
-  a.v_off = v_off;
-  a.ctx_stride = ctx_stride;
-  a.items = items;
-  a.nq = nq;
-  a.nkv = nkv;
-  a.hd = hd;
-  a.scale = scale;
+cudaError_t item_attention_fwd(IaArgs& a, int heads, cudaStream_t stream) {
   int groups = 0;
   const int bytes = ia_plan(a, false, groups);
-  a.pairs = hd % 2 == 0 && ctx_stride % 2 == 0;
+  a.pairs = a.hd % 2 == 0 && a.ctx_stride % 2 == 0 && a.ctx_item % 2 == 0 && a.ctx_head % 2 == 0;
   if (bytes == 0 || heads > 65535 || a.nqt > 65535) return cudaErrorInvalidValue;
   const bool one = a.resident && a.nkt == 1;
   cudaError_t err = cudaFuncSetAttribute(
@@ -855,6 +884,34 @@ cudaError_t item_attention(const void* q, int q_stride, const void* kv, int kv_s
   return cudaGetLastError();
 }
 
+// ctx = per-item attention (variant RND) of q over k / v, heads as column
+// ranges of row-major rows (IaArgs)
+template <int RND>
+cudaError_t item_attention(const void* q, int q_stride, const void* kv, int kv_stride, int k_off,
+                           int v_off, const float* key_bias, void* ctx, int ctx_stride, int items,
+                           int heads, int nq, int nkv, int hd, float scale, cudaStream_t stream) {
+  IaArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.kv = a.vbase = static_cast<const bf16*>(kv);
+  a.key_bias = key_bias;
+  a.ctx = static_cast<bf16*>(ctx);
+  a.q_stride = q_stride;
+  a.kv_stride = kv_stride;
+  a.k_off = k_off;
+  a.v_off = v_off;
+  a.ctx_stride = ctx_stride;
+  a.q_item = (long long)nq * q_stride;
+  a.kv_item = (long long)nkv * kv_stride;
+  a.ctx_item = (long long)nq * ctx_stride;
+  a.q_head = a.kv_head = a.ctx_head = hd;
+  a.items = items;
+  a.nq = nq;
+  a.nkv = nkv;
+  a.hd = hd;
+  a.scale = scale;
+  return item_attention_fwd<RND>(a, heads, stream);
+}
+
 // B12's softmax VJP: dq [rows, dq_stride], dk / dv at dkv + row * dkv_stride
 // + {dk_off, dv_off}, from q, k, v as the forward read them and dctx fp32
 // (a template, so that only the sources that call it build its kernels)
@@ -867,7 +924,7 @@ cudaError_t item_attention_bwd(const void* q, int q_stride, const void* kv, int 
                                       cudaStream_t stream) {
   IaArgs a{};
   a.q = static_cast<const bf16*>(q);
-  a.kv = static_cast<const bf16*>(kv);
+  a.kv = a.vbase = static_cast<const bf16*>(kv);
   a.key_bias = key_bias;
   a.dctx = dctx;
   a.dq = static_cast<bf16*>(dq);
@@ -881,6 +938,9 @@ cudaError_t item_attention_bwd(const void* q, int q_stride, const void* kv, int 
   a.dkv_stride = dkv_stride;
   a.dk_off = dk_off;
   a.dv_off = dv_off;
+  a.q_item = (long long)nq * q_stride;
+  a.kv_item = (long long)nkv * kv_stride;
+  a.q_head = a.kv_head = hd;
   a.items = items;
   a.nq = nq;
   a.nkv = nkv;

@@ -26,8 +26,9 @@
 // a block's GEMMs run at hundreds of FLOP per byte of HBM traffic, so all
 // three blocks are bound by tensor-core arithmetic.
 //
-// Design (first version: right and simple, every GEMM hand-written here):
-//   * gemm_bf16_kernel (in gemm_bf16.cuh):
+// Design (every GEMM hand-written here):
+//   * gemm_bf16_kernel (in gemm_bf16.cuh), B1-B3's products at widths that
+//     are whole 16-byte rows (every production width):
 //     C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with
 //     K contiguous (W is the torch Linear layout, packed once on the host),
 //     128x128x32 block tiles, 8 warps of 64x32, mma.sync m16n8k16 with fp32
@@ -35,7 +36,9 @@
 //     ring.  Ragged M (the 32-row layer-0 self block, B*14 memory rows), N
 //     and K edges are zero-filled on load and masked on store.  Epilogues:
 //     +bias -> bf16 (QKV, Q, KV), +bias -> tanh gelu in fp32 -> bf16 (FFN
-//     up), +bias +residual -> fp32 (Wo, FFN down).
+//     up), +bias +residual -> fp32 (Wo, FFN down).  At other widths (hidden
+//     1020: C-10) the same products and epilogues run on gemm_wide.cuh's
+//     warpgroup kernels (gemm_any).
 //   * the attention is the per-item core of item_attention.cuh (shared with
 //     B12) in its B1 rounding, the rounding points of _group_attention:
 //     bf16(q * scale) before the product, scores and softmax in fp32 with
@@ -55,13 +58,22 @@
 // gelu output [rows, 4096] bf16 (1.07 GB) and the pre-LN sum.  Keeping them
 // on the SM (wgmma, TMA, fused epilogues) is later work.
 //
-// W8A8 blocks: the same pipeline with an int8 GEMM (mma.sync m16n8k32 s8,
-// twice the bf16 rate) and a row-quantization pass before each GEMM.  The
-// int8 FFN spills more than B3: its gelu output h stays fp32, as the JAX
-// kernel keeps it, and is requantized per row within each intermediate
-// chunk (the whole 4096 at production), so h [rows, 4096] fp32 (2.15 GB at
-// 4096 items) and its codes (0.54 GB) go through HBM; the down projection
-// folds its int32 sums into fp32 at every chunk boundary.
+// W8A8 blocks: the same pipeline with every product on gemm_wide.cuh's int8
+// TMA + wgmma GEMM (wgmma.m64n256k32.s32.s8.s8, twice the bf16 rate; its
+// edge kernel where a width is not a multiple of 16 codes) and a
+// row-quantization pass before each GEMM.  The int8 FFN (B6) spills more
+// than B3: its gelu output h stays fp32, as the JAX kernel keeps it, and is
+// requantized per row within each intermediate chunk (the whole 4096 at
+// production), and a row's absmax spans all 4096 columns, which no block
+// holds.  So the up projection and its codes go through HBM: at 4096 items
+// GEMM1 writes u = (acc * rs) * cs + b1 in fp32 (2.15 GB), one pass reads u
+// once, applies the gelu in registers and writes h's codes (0.54 GB), and
+// GEMM2 reads the codes: at least 5.4 GB, about 1.6 ms at 3.35 TB/s, which
+// the TPU kernel keeps in VMEM.  The next step is to recompute GEMM1's tile
+// inside GEMM2's producer so that h never leaves the SM.  The down
+// projection folds its int32 sums into fp32 at every chunk boundary.
+// gemm_s8_kernel below (mma.sync m16n8k32) is left to the Qwen3 kernels
+// B8/B9a/B9b and to a test entry that holds the new GEMM to it bit for bit.
 //
 // Every C entry launches on the caller's stream, allocates nothing, and
 // returns the first CUDA error (0 = success).
@@ -72,6 +84,7 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "gemm_wide.cuh"
 #include "item_attention.cuh"
 
 namespace {
@@ -142,23 +155,9 @@ constexpr int QA_TILE = BM * QLDS;
 constexpr int QW_TILE = BN * QLDS;
 constexpr int QGEMM_SMEM = STAGES * (QA_TILE + QW_TILE);  // 61,440
 
-enum {
-  EPQ_BIAS = 0,
-  EPQ_BIAS_GELU = 1,
-  EPQ_BIAS_RESID = 2,
-  EPQ_CHUNKED_RESID = 3,
-  EPQ_PLAIN = 4,
-  EPQ_SWIGLU = 5
-};
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// gemm_s8_kernel's epilogues: gemm_wide.cuh's EPQ_BIAS, EPQ_BIAS_RESID and
+// EPQ_CHUNKED_RESID, and its own
+enum { EPQ_BIAS_GELU = EPQ_CHUNKED_RESID + 1, EPQ_PLAIN, EPQ_SWIGLU };
 
 // C[M, N] = epilogue(A[M, K] . W[N, K]^T), int8 operands with K contiguous.
 // row_scale[row * rs_stride + c] scales row `row` over the c-th group of
@@ -437,6 +436,118 @@ cudaError_t row_quant(const void* x, void* q, float* scale, int rows, int width,
   return cudaGetLastError();
 }
 
+// B6's gelu and the quantization of h in one pass: one block of GQ_THREADS
+// per (row, group of `group` columns, a multiple of 64) reads the up
+// projection's fp32 output u once with 16-byte loads, keeps h = gelu_tanh(u)
+// in registers (up to 16 values a thread: every group up to GQ_MAX, which
+// covers every chunk ffn_q_chunk picks; a wider group reads u twice), takes
+// the absmax of h over the group (warp shuffles, then the block's warps)
+// and writes the codes and the scale as row_quant_kernel<float> does from
+// h.  h never reaches memory: the down projection reads only its codes.
+// The gelu, the costliest part of B6's epilogue, runs here at full
+// occupancy instead of in the GEMM's exposed epilogue (PERF.md §6).
+constexpr int GQ_THREADS = 256;
+constexpr int GQ_MAX = 4096;
+
+__device__ __forceinline__ uint32_t gq_codes(float h0, float h1, float h2, float h3, float r) {
+  const float h[4] = {h0, h1, h2, h3};
+  uint32_t packed = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    packed |= (uint32_t)(uint8_t)(int8_t)__float2int_rn(__fmul_rn(h[i], r)) << (8 * i);
+  return packed;
+}
+
+__global__ void __launch_bounds__(GQ_THREADS)
+gelu_quant_kernel(const float* __restrict__ u, int8_t* __restrict__ q, float* __restrict__ scale,
+                  int group) {
+  extern __shared__ float wmax[];  // [GQ_THREADS / 32]
+  const size_t w = blockIdx.x;  // row * groups + g
+  const float4* ur = reinterpret_cast<const float4*>(u + w * group);
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + w * group);
+  const int t = threadIdx.x;
+  const int n4 = group / 4;
+  auto block_max = [&](float m) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((t & 31) == 0) wmax[t >> 5] = m;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < GQ_THREADS / 32; ++i) m = fmaxf(m, wmax[i]);
+    return fmaxf(m, 1e-6f);
+  };
+  float m = 0.f, absmax;
+  if (group <= GQ_MAX) {
+    float h[GQ_MAX / GQ_THREADS];
+#pragma unroll
+    for (int j = 0; j < GQ_MAX / GQ_THREADS / 4; ++j) {
+      const int c = j * GQ_THREADS + t;
+      if (c < n4) {
+        const float4 x = ur[c];
+        h[4 * j] = gelu_tanh(x.x);
+        h[4 * j + 1] = gelu_tanh(x.y);
+        h[4 * j + 2] = gelu_tanh(x.z);
+        h[4 * j + 3] = gelu_tanh(x.w);
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(h[4 * j]), fabsf(h[4 * j + 1])),
+                           fmaxf(fabsf(h[4 * j + 2]), fabsf(h[4 * j + 3]))));
+      }
+    }
+    absmax = block_max(m);
+    const float r = 127.0f / absmax;
+#pragma unroll
+    for (int j = 0; j < GQ_MAX / GQ_THREADS / 4; ++j) {
+      const int c = j * GQ_THREADS + t;
+      if (c < n4) qr[c] = gq_codes(h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3], r);
+    }
+  } else {
+    for (int c = t; c < n4; c += GQ_THREADS) {
+      const float4 x = ur[c];
+      m = fmaxf(m, fmaxf(fmaxf(fabsf(gelu_tanh(x.x)), fabsf(gelu_tanh(x.y))),
+                         fmaxf(fabsf(gelu_tanh(x.z)), fabsf(gelu_tanh(x.w)))));
+    }
+    absmax = block_max(m);
+    const float r = 127.0f / absmax;
+    for (int c = t; c < n4; c += GQ_THREADS) {
+      const float4 x = ur[c];
+      qr[c] = gq_codes(gelu_tanh(x.x), gelu_tanh(x.y), gelu_tanh(x.z), gelu_tanh(x.w), r);
+    }
+  }
+  if (t == 0) scale[w] = absmax / 127.0f;
+}
+
+cudaError_t gelu_quant(const float* u, void* q, float* scale, int rows, int width, int group,
+                       cudaStream_t stream) {
+  const long long blocks = (long long)rows * (width / group);
+  gelu_quant_kernel<<<(unsigned)blocks, GQ_THREADS, GQ_THREADS / 32 * sizeof(float), stream>>>(
+      u, static_cast<int8_t*>(q), scale, group);
+  return cudaGetLastError();
+}
+
+// the dequantizing epilogue's inputs of an int8 product (gemm_wide.cuh)
+WgEpi epq(const float* row_scale, int rs_stride, const float* col_scale, const float* bias,
+          const void* resid = nullptr) {
+  WgEpi e{};
+  e.row_scale = row_scale;
+  e.rs_stride = rs_stride;
+  e.col_scale = col_scale;
+  e.bias = bias;
+  e.resid = static_cast<const bf16*>(resid);
+  return e;
+}
+
+// B1-B3's products: gemm_bf16.cuh where the rows are whole 16-byte chunks
+// (every production width), gemm_wide.cuh's kernels otherwise (C-10)
+template <int EPI>
+cudaError_t gemm_any(const void* A, const void* W, const float* bias, const void* resid, void* C,
+                     int M, int N, int K, cudaStream_t stream) {
+  if (gemm_shape_ok(M, N, K)) return gemm<EPI>(A, W, bias, resid, C, M, N, K, stream);
+  constexpr int WEPI = EPI == EPI_BIAS        ? WG_BIAS
+                       : EPI == EPI_BIAS_GELU ? WG_BIAS_GELU
+                       : EPI == EPI_BIAS_RESID ? WG_BIAS_RESID
+                                               : WG_F32;
+  return gemm_wide<WEPI>(A, W, bias, C, M, N, K, stream, resid);
+}
+
 bool gemm_s8_shape_ok(long long m, int n, int k) {
   return m > 0 && m <= 2147483647 && n > 0 && k > 0 && n % 8 == 0 && k % 16 == 0 &&
          (m + BM - 1) / BM <= 65535;
@@ -458,14 +569,14 @@ extern "C" int unirec_qformer_self_block(const void* x, const void* wqkv, const 
                                          float* acc, int items, int nq, int d, int heads,
                                          float scale, float eps, void* stream) {
   const long long rows = (long long)items * nq;
-  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_shape_ok(rows, 3 * d, d))
+  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_wide_shape_ok(rows, 3 * d, d))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, hd = d / heads;
-  UNIREC_TRY(gemm<EPI_BIAS>(x, wqkv, bqkv, nullptr, qkv, m, 3 * d, d, s));
+  UNIREC_TRY(gemm_any<EPI_BIAS>(x, wqkv, bqkv, nullptr, qkv, m, 3 * d, d, s));
   UNIREC_TRY(item_attention<IA_B1>(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items,
                                    heads, nq, nq, hd, scale, s));
-  UNIREC_TRY(gemm<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
+  UNIREC_TRY(gemm_any<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
 }
 
@@ -481,16 +592,16 @@ extern "C" int unirec_qformer_cross_block(const void* x, const void* mem, const 
                                           float eps, void* stream) {
   const long long rows = (long long)items * nq;
   const long long mem_rows = (long long)items * nkv;
-  if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_shape_ok(rows, d, d) ||
-      !gemm_shape_ok(mem_rows, 2 * d, dm))
+  if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_wide_shape_ok(rows, d, d) ||
+      !gemm_wide_shape_ok(mem_rows, 2 * d, dm))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, hd = d / heads;
-  UNIREC_TRY(gemm<EPI_BIAS>(x, wq, bq, nullptr, q, m, d, d, s));
-  UNIREC_TRY(gemm<EPI_BIAS>(mem, wkv, bkv, nullptr, kv, (int)mem_rows, 2 * d, dm, s));
+  UNIREC_TRY(gemm_any<EPI_BIAS>(x, wq, bq, nullptr, q, m, d, d, s));
+  UNIREC_TRY(gemm_any<EPI_BIAS>(mem, wkv, bkv, nullptr, kv, (int)mem_rows, 2 * d, dm, s));
   UNIREC_TRY(item_attention<IA_B1>(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq,
                                    nkv, hd, scale, s));
-  UNIREC_TRY(gemm<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
+  UNIREC_TRY(gemm_any<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
 }
 
@@ -500,11 +611,11 @@ extern "C" int unirec_qformer_ffn_block(const void* x, const void* w1, const flo
                                         const void* w2, const float* b2, const float* gamma,
                                         const float* beta, void* out, void* h, float* acc,
                                         int rows, int d, int inter, float eps, void* stream) {
-  if (!gemm_shape_ok(rows, inter, d) || !gemm_shape_ok(rows, d, inter))
+  if (!gemm_wide_shape_ok(rows, inter, d) || !gemm_wide_shape_ok(rows, d, inter))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  UNIREC_TRY(gemm<EPI_BIAS_GELU>(x, w1, b1, nullptr, h, rows, inter, d, s));
-  UNIREC_TRY(gemm<EPI_BIAS_RESID>(h, w2, b2, x, acc, rows, d, inter, s));
+  UNIREC_TRY(gemm_any<EPI_BIAS_GELU>(x, w1, b1, nullptr, h, rows, inter, d, s));
+  UNIREC_TRY(gemm_any<EPI_BIAS_RESID>(h, w2, b2, x, acc, rows, d, inter, s));
   return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
 }
 
@@ -521,16 +632,16 @@ extern "C" int unirec_qformer_self_block_q(const void* x, const void* wqkv, cons
                                            int d, int heads, float scale, float eps,
                                            void* stream) {
   const long long rows = (long long)items * nq;
-  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_s8_shape_ok(rows, 3 * d, d))
+  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_wide_shape_ok(rows, 3 * d, d))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, hd = d / heads;
   UNIREC_TRY(row_quant<bf16>(x, xq, xs, m, d, d, s));
-  UNIREC_TRY(gemm_s8<EPQ_BIAS>(xq, wqkv, xs, 1, sqkv, bqkv, nullptr, qkv, m, 3 * d, d, d, s));
+  UNIREC_TRY(gemm_q<EPQ_BIAS>(xq, wqkv, epq(xs, 1, sqkv, bqkv), qkv, m, 3 * d, d, s));
   UNIREC_TRY(item_attention<IA_B1>(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items,
                                    heads, nq, nq, hd, scale, s));
   UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
-  UNIREC_TRY(gemm_s8<EPQ_BIAS_RESID>(xq, wo, xs, 1, so, bo, x, acc, m, d, d, d, s));
+  UNIREC_TRY(gemm_q<EPQ_BIAS_RESID>(xq, wo, epq(xs, 1, so, bo, x), acc, m, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
 }
 
@@ -549,42 +660,43 @@ extern "C" int unirec_qformer_cross_block_q(
     void* stream) {
   const long long rows = (long long)items * nq;
   const long long mem_rows = (long long)items * nkv;
-  if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_s8_shape_ok(rows, d, d) ||
-      !gemm_s8_shape_ok(mem_rows, 2 * d, dm))
+  if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_wide_shape_ok(rows, d, d) ||
+      !gemm_wide_shape_ok(mem_rows, 2 * d, dm))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, mm = (int)mem_rows, hd = d / heads;
   UNIREC_TRY(row_quant<bf16>(x, xq, xs, m, d, d, s));
-  UNIREC_TRY(gemm_s8<EPQ_BIAS>(xq, wq, xs, 1, sq, bq, nullptr, q, m, d, d, d, s));
+  UNIREC_TRY(gemm_q<EPQ_BIAS>(xq, wq, epq(xs, 1, sq, bq), q, m, d, d, s));
   UNIREC_TRY(row_quant<bf16>(mem, mq, ms, mm, dm, dm, s));
-  UNIREC_TRY(gemm_s8<EPQ_BIAS>(mq, wkv, ms, 1, skv, bkv, nullptr, kv, mm, 2 * d, dm, dm, s));
+  UNIREC_TRY(gemm_q<EPQ_BIAS>(mq, wkv, epq(ms, 1, skv, bkv), kv, mm, 2 * d, dm, s));
   UNIREC_TRY(item_attention<IA_B1>(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq,
                                    nkv, hd, scale, s));
   UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
-  UNIREC_TRY(gemm_s8<EPQ_BIAS_RESID>(xq, wo, xs, 1, so, bo, x, acc, m, d, d, d, s));
+  UNIREC_TRY(gemm_q<EPQ_BIAS_RESID>(xq, wo, epq(xs, 1, so, bo, x), acc, m, d, d, s));
   return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
 }
 
 // B6, the W8A8 FFN.  x, out [rows, d] bf16; w1 [inter, d] int8, s1 [inter];
 // w2 [d, inter] int8, s2 [d]; the gelu output h is requantized per row over
-// each group of `chunk` intermediate columns.  Scratch xq [rows, d] int8, xs
-// [rows], h [rows, inter] fp32, hq [rows, inter] int8, hs [rows, inter/chunk],
-// acc [rows, d] fp32.
+// each group of `chunk` intermediate columns (a multiple of 64).  Scratch xq [rows, d] int8, xs [rows], u [rows, inter] fp32 (the up
+// projection before its gelu), hq [rows, inter] int8, hs [rows,
+// inter/chunk], acc [rows, d] fp32.
 extern "C" int unirec_qformer_ffn_block_q(const void* x, const void* w1, const float* s1,
                                           const float* b1, const void* w2, const float* s2,
                                           const float* b2, const float* gamma,
                                           const float* beta, void* out, void* xq, float* xs,
-                                          float* h, void* hq, float* hs, float* acc, int rows,
+                                          float* u, void* hq, float* hs, float* acc, int rows,
                                           int d, int inter, int chunk, float eps, void* stream) {
-  if (!gemm_s8_shape_ok(rows, inter, d) || !gemm_s8_shape_ok(rows, d, inter) || chunk <= 0 ||
-      chunk % QBK != 0 || inter % chunk != 0)
+  if (!gemm_wide_shape_ok(rows, inter, d) || !gemm_wide_shape_ok(rows, d, inter) || chunk <= 0 ||
+      chunk % 64 != 0 || inter % chunk != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   UNIREC_TRY(row_quant<bf16>(x, xq, xs, rows, d, d, s));
-  UNIREC_TRY(gemm_s8<EPQ_BIAS_GELU>(xq, w1, xs, 1, s1, b1, nullptr, h, rows, inter, d, d, s));
-  UNIREC_TRY(row_quant<float>(h, hq, hs, rows, inter, chunk, s));
-  UNIREC_TRY(gemm_s8<EPQ_CHUNKED_RESID>(hq, w2, hs, inter / chunk, s2, b2, x, acc, rows, d,
-                                        inter, chunk, s));
+  UNIREC_TRY(gemm_q<EPQ_BIAS_F32>(xq, w1, epq(xs, 1, s1, b1), u, rows, inter, d, s));
+  UNIREC_TRY(gelu_quant(u, hq, hs, rows, inter, chunk, s));
+  WgEpi down = epq(hs, inter / chunk, s2, b2, x);
+  down.chunk = chunk;
+  UNIREC_TRY(gemm_q<EPQ_CHUNKED_RESID>(hq, w2, down, acc, rows, d, inter, s));
   return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
 }
 
@@ -638,4 +750,48 @@ extern "C" int unirec_qwen3_swiglu_q(const void* x, const void* wgu, const float
   UNIREC_TRY((row_quant<float, true>(h, hq, hs, rows, inter, inter, s)));
   return (int)gemm_s8<EPQ_PLAIN>(hq, wd, hs, 1, sd, nullptr, nullptr, out, rows, d, inter, inter,
                                  s);
+}
+
+// For the tests only, while B8/B9 keep gemm_s8_kernel: one step of B4-B6 by
+// the int8 GEMM of gemm_wide.cuh (which = 1) or as it ran on gemm_s8_kernel
+// before (which = 0), so that the two can be held to each other bit for
+// bit.  epi 0, 2, 3: C = epilogue(A . W^T) with EPQ_BIAS, EPQ_BIAS_RESID or
+// EPQ_CHUNKED_RESID.  epi 1: B6's up projection, gelu and quantization of h
+// per group of `chunk` columns: codes into c [m, n] and scales into scales
+// [m, n / chunk], by EPQ_BIAS_F32 and gelu_quant (new) or EPQ_BIAS_GELU and
+// row_quant<float> (before); scratch [m, n] fp32 holds u or h.
+extern "C" int unirec_gemm_q_test(int which, int epi, const void* a, const void* w,
+                                  const float* row_scale, int rs_stride, const float* col_scale,
+                                  const float* bias, const void* resid, void* c, float* scratch,
+                                  float* scales, int m, int n, int k, int chunk, void* stream) {
+  if (epi < 0 || epi > 3 || !gemm_wide_shape_ok(m, n, k) ||
+      (which == 0 && (!gemm_s8_shape_ok(m, n, k) || (epi == 3 && chunk % QBK != 0))) ||
+      (epi == 3 && (chunk <= 0 || chunk % 64 != 0 || k % chunk != 0)) ||
+      (epi == 1 && (chunk <= 0 || chunk % 64 != 0 || n % chunk != 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WgEpi e = epq(row_scale, rs_stride, col_scale, bias, resid);
+  e.chunk = chunk;
+  switch (epi) {
+    case 0:
+      return (int)(which ? gemm_q<EPQ_BIAS>(a, w, e, c, m, n, k, s)
+                         : gemm_s8<EPQ_BIAS>(a, w, row_scale, rs_stride, col_scale, bias,
+                                             resid, c, m, n, k, chunk, s));
+    case 1:
+      if (which) {
+        UNIREC_TRY(gemm_q<EPQ_BIAS_F32>(a, w, e, scratch, m, n, k, s));
+        return (int)gelu_quant(scratch, c, scales, m, n, chunk, s);
+      }
+      UNIREC_TRY(gemm_s8<EPQ_BIAS_GELU>(a, w, row_scale, rs_stride, col_scale, bias, resid,
+                                        scratch, m, n, k, k, s));
+      return (int)row_quant<float>(scratch, c, scales, m, n, chunk, s);
+    case 2:
+      return (int)(which ? gemm_q<EPQ_BIAS_RESID>(a, w, e, c, m, n, k, s)
+                         : gemm_s8<EPQ_BIAS_RESID>(a, w, row_scale, rs_stride, col_scale, bias,
+                                                   resid, c, m, n, k, chunk, s));
+    default:
+      return (int)(which ? gemm_q<EPQ_CHUNKED_RESID>(a, w, e, c, m, n, k, s)
+                         : gemm_s8<EPQ_CHUNKED_RESID>(a, w, row_scale, rs_stride, col_scale,
+                                                      bias, resid, c, m, n, k, chunk, s));
+  }
 }

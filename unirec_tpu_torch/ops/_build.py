@@ -123,6 +123,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_qformer_cross_block_q.restype = _I
     lib.unirec_qformer_ffn_block_q.argtypes = [_P] * 16 + [_I] * 4 + [_F, _P]
     lib.unirec_qformer_ffn_block_q.restype = _I
+    lib.unirec_gemm_q_test.argtypes = [_I, _I] + [_P] * 3 + [_I] + [_P] * 6 + [
+        _I] * 4 + [_P]
+    lib.unirec_gemm_q_test.restype = _I
     lib.unirec_int8_linear.argtypes = [_P] * 6 + [_I] * 3 + [_P]
     lib.unirec_int8_linear.restype = _I
     lib.unirec_qwen3_swiglu_q.argtypes = [_P] * 11 + [_I] * 3 + [_P]
@@ -141,7 +144,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_flash_cross_bwd.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_cross_bwd.restype = _I
     lib.unirec_packed_item_attention.argtypes = [_P] * 5 + [_L] * 12 + [
-        _I] * 7 + [_F, _P]
+        _I] * 6 + [_F, _P]
     lib.unirec_packed_item_attention.restype = _I
     return lib
 

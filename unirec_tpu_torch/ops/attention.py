@@ -34,15 +34,13 @@ NEG_INF = -1e9
 # Memory length from which the JAX package takes its streaming kernel.
 FLASH_MIN_KV = 1024
 
-# the head dimensions the streaming kernels (csrc/flash_cross.cu), the
-# causal flash kernels K1 and B7b (csrc/flash_causal_*.cu) and the packed
-# item attention (csrc/packed_attention.cu) are built for
-# (csrc/head_dim.cuh): every multiple of 16 up to 128, and 256 for all but
-# the packed item attention, which stops at PACKED_MAX_HEAD_DIM.  Any other
+# the head dimensions the streaming kernels (csrc/flash_cross.cu) and the
+# causal flash kernels K1 and B7b (csrc/flash_causal_*.cu) are built for
+# (csrc/head_dim.cuh): every multiple of 16 up to 128, and 256.  Any other
 # head dim up to the largest instance runs zero-padded to the next one
-# (``padded_launch``).
+# (``padded_launch``).  The packed item attention takes every head dim as it
+# is (csrc/packed_attention.cu).
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
-PACKED_MAX_HEAD_DIM = 128
 
 
 def make_additive_mask(mask: torch.Tensor,
@@ -135,26 +133,23 @@ def dtype_code(t: torch.Tensor) -> int:
     return 0 if t.dtype == torch.float32 else 1
 
 
-def kernel_head_dim(name: str, head_dim: int,
-                    max_head_dim: int = KERNEL_HEAD_DIMS[-1]) -> int:
-    """The instance of ``KERNEL_HEAD_DIMS`` (up to ``max_head_dim``) that a
-    head dim runs at: the least one not below it.  Raises, naming the set,
-    for a head dim above the largest."""
-    built = tuple(hd for hd in KERNEL_HEAD_DIMS if hd <= max_head_dim)
-    for hd in built:
+def kernel_head_dim(name: str, head_dim: int) -> int:
+    """The instance of ``KERNEL_HEAD_DIMS`` that a head dim runs at: the
+    least one not below it.  Raises, naming the set, for a head dim above
+    the largest."""
+    for hd in KERNEL_HEAD_DIMS:
         if 0 < head_dim <= hd:
             return hd
-    raise ValueError(f"{name} is built for head_dim in {built} and pads any "
-                     f"smaller head dim to the next, got {head_dim}")
+    raise ValueError(f"{name} is built for head_dim in {KERNEL_HEAD_DIMS} "
+                     f"and pads any smaller head dim to the next, got "
+                     f"{head_dim}")
 
 
-def check_head_dim(name: str, head_dim: int,
-                   max_head_dim: int = KERNEL_HEAD_DIMS[-1]) -> None:
+def check_head_dim(name: str, head_dim: int) -> None:
     """Raise unless the kernels take ``head_dim``: every head dim up to
-    the largest instance of ``KERNEL_HEAD_DIMS`` (``max_head_dim``), the
-    instances as they are and any other zero-padded to the next one
-    (``padded_launch``)."""
-    kernel_head_dim(name, head_dim, max_head_dim)
+    the largest instance of ``KERNEL_HEAD_DIMS``, the instances as they are
+    and any other zero-padded to the next one (``padded_launch``)."""
+    kernel_head_dim(name, head_dim)
 
 
 def _pad_heads(t: torch.Tensor, heads: Optional[int], hd: int) -> torch.Tensor:
@@ -168,8 +163,8 @@ def _pad_heads(t: torch.Tensor, heads: Optional[int], hd: int) -> torch.Tensor:
         *lead, heads * hd)
 
 
-def padded_launch(name: str, head_dim: int, inputs, outputs, launch,
-                  max_head_dim: int = KERNEL_HEAD_DIMS[-1]) -> None:
+def padded_launch(name: str, head_dim: int, inputs, outputs,
+                  launch) -> None:
     """Run ``launch(ins, outs, kernel_hd)`` at the kernel instance of
     ``head_dim`` (``kernel_head_dim``).  ``inputs`` and ``outputs`` are
     (tensor, heads) pairs: heads None for a tensor whose last dim is the head
@@ -180,7 +175,7 @@ def padded_launch(name: str, head_dim: int, inputs, outputs, launch,
     zeros to every dot product, so the scores, m, l, o and the gradients'
     true columns are unchanged; the caller passes the softmax scale of the
     true head dim (``sm_scale``)."""
-    hd = kernel_head_dim(name, head_dim, max_head_dim)
+    hd = kernel_head_dim(name, head_dim)
     if hd == head_dim:
         launch([t for t, _ in inputs], [t for t, _ in outputs], hd)
         return
@@ -197,7 +192,7 @@ def padded_launch(name: str, head_dim: int, inputs, outputs, launch,
 
 
 def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
-    """What the streaming kernels and B15 take: one CUDA device, float32 or
+    """What the streaming kernels take: one CUDA device, float32 or
     bfloat16 of one dtype, the head dimension contiguous and every row on a
     16-byte boundary (they read rows with 16-byte loads): the data pointer
     and each stride of a dimension longer than 1 in multiples of 16

@@ -1,8 +1,9 @@
 """The Item Q-Former's W8A8 blocks, one call per block (kernels B4-B6).
 
 Port of ``unirec_tpu/ops/fused_qformer_int8.py``.  The CUDA kernels are the
-W8A8 section of ``csrc/qformer_blocks.cu``; its source note says what the
-first design spills to HBM.
+W8A8 section of ``csrc/qformer_blocks.cu``, every product on the int8 TMA +
+``wgmma`` GEMM of ``csrc/gemm_wide.cuh`` at any width; their source notes
+say what the design spills to HBM.
 
     B4  fused_self_attention_block_q   y = LN(x + Wo . SelfAttn(x) + bo)
     B5  fused_cross_attention_block_q  y = LN(x + Wo . CrossAttn(x -> mem) + bo)
@@ -34,7 +35,6 @@ import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.fused_qformer_layer import (
-    _check_kernel_dims,
     _expect,
     _gelu,
     _item_attention,
@@ -45,8 +45,10 @@ from unirec_tpu_torch.ops.fused_qformer_layer import (
     ffn_chunk_size,
 )
 
-# the kernel's int8 GEMM streams K in 16-byte rows and a 64-value k-tile
+# the Qwen3 kernels' int8 GEMM (B8/B9, csrc/qformer_blocks.cu
+# gemm_s8_kernel) streams K in 16-byte rows; B4-B6 take any width
 KERNEL_INT8_MULTIPLE = 16
+# B6 folds its down projection's sums at chunk boundaries of 64 codes
 KERNEL_CHUNK_MULTIPLE = 64
 
 
@@ -190,7 +192,6 @@ def fused_self_attention_block_q(x, wqkv, sqkv, bqkv, wo, so, bo, ln_gamma,
                     codes={"wqkv": wqkv, "wo": wo}):
         return fused_self_attention_block_q_plain(
             *args, num_heads=num_heads, n_q=n_q, ln_eps=ln_eps)
-    _check_kernel_dims(name, {"D": d}, multiple=KERNEL_INT8_MULTIPLE)
     rows = b * k
     dev = x.device
     out = torch.empty_like(x)
@@ -241,7 +242,6 @@ def fused_cross_attention_block_q(x, mem, key_bias, wq, sq, bq, wkv, skv, bkv,
                     codes={"wq": wq, "wkv": wkv, "wo": wo}):
         return fused_cross_attention_block_q_plain(
             *args, num_heads=num_heads, n_q=n_q, n_kv=n_kv, ln_eps=ln_eps)
-    _check_kernel_dims(name, {"D": d, "Dm": dm}, multiple=KERNEL_INT8_MULTIPLE)
     rows, mem_rows = b * k, b * n_kv
     dev = x.device
     out = torch.empty_like(x)
@@ -287,8 +287,6 @@ def fused_ffn_block_q(x, w1, s1, b1, w2, s2, b2, ln_gamma, ln_beta, *,
                      "ln_gamma": ln_gamma, "ln_beta": ln_beta},
                     codes={"w1": w1, "w2": w2}):
         return fused_ffn_block_q_plain(*args, ln_eps=ln_eps, chunk=chunk)
-    _check_kernel_dims(name, {"D": d, "intermediate": inter},
-                       multiple=KERNEL_INT8_MULTIPLE)
     if chunk % KERNEL_CHUNK_MULTIPLE:
         raise ValueError(f"{name}: chunk {chunk} is not a multiple of "
                          f"{KERNEL_CHUNK_MULTIPLE}")
@@ -297,7 +295,7 @@ def fused_ffn_block_q(x, w1, s1, b1, w2, s2, b2, ln_gamma, ln_beta, *,
     out = torch.empty_like(x)
     xq = torch.empty(rows, d, device=dev, dtype=torch.int8)
     xs = torch.empty(rows, device=dev, dtype=torch.float32)
-    h = torch.empty(rows, inter, device=dev, dtype=torch.float32)
+    u = torch.empty(rows, inter, device=dev, dtype=torch.float32)
     hq = torch.empty(rows, inter, device=dev, dtype=torch.int8)
     hs = torch.empty(rows, inter // chunk, device=dev, dtype=torch.float32)
     acc = torch.empty(rows, d, device=dev, dtype=torch.float32)
@@ -305,7 +303,7 @@ def fused_ffn_block_q(x, w1, s1, b1, w2, s2, b2, ln_gamma, ln_beta, *,
         x.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), ln_gamma.data_ptr(),
         ln_beta.data_ptr(), out.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-        h.data_ptr(), hq.data_ptr(), hs.data_ptr(), acc.data_ptr(), rows, d,
+        u.data_ptr(), hq.data_ptr(), hs.data_ptr(), acc.data_ptr(), rows, d,
         inter, chunk, ln_eps, _stream(x))
     check(err, name)
     fused_ffn_block_q.launches += 1

@@ -2,7 +2,10 @@
 
 Port of ``unirec_tpu/ops/fused_qformer_layer.py``.  The CUDA kernels are in
 ``csrc/qformer_blocks.cu``; its source note says what bounds them on the card
-(the projection GEMMs) and what the first design spills to HBM.
+(the projection GEMMs) and what the first design spills to HBM.  They take
+any width: the GEMMs of ``csrc/gemm_bf16.cuh`` serve rows of whole 16-byte
+chunks, those of ``csrc/gemm_wide.cuh`` any other (hidden 1020), and the
+attention core (``csrc/item_attention.cuh``) any head dim, K and F.
 
     B1  fused_self_attention_block   y = LN(x + Wo . SelfAttn(x) + bo)
     B2  fused_cross_attention_block  y = LN(x + Wo . CrossAttn(x -> mem) + bo)
@@ -169,16 +172,6 @@ def _on_card(x: torch.Tensor, block: str, weights, params,
     return True
 
 
-def _check_kernel_dims(block: str, widths: dict, multiple: int = 8) -> None:
-    """What the kernel's GEMMs take: widths that are whole 16-byte rows (a
-    multiple of 8 bf16 values, or of 16 int8 codes).  The attention core
-    (``csrc/item_attention.cuh``) takes any head dim and any K and F."""
-    for name, w in widths.items():
-        if w % multiple:
-            raise ValueError(f"{block}: {name} {w} is not a multiple of "
-                             f"{multiple}")
-
-
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -204,7 +197,6 @@ def fused_self_attention_block(x, wqkv, bqkv, wo, bo, ln_gamma, ln_beta, *,
                      "ln_beta": ln_beta}):
         return fused_self_attention_block_plain(
             *args, num_heads=num_heads, n_q=n_q, ln_eps=ln_eps)
-    _check_kernel_dims("fused_self_attention_block", {"D": d})
     rows = b * k
     out = torch.empty_like(x)
     qkv = torch.empty(rows, 3 * d, device=x.device, dtype=x.dtype)
@@ -249,7 +241,6 @@ def fused_cross_attention_block(x, mem, key_bias, wq, bq, wkv, bkv, wo, bo,
                      "ln_gamma": ln_gamma, "ln_beta": ln_beta}):
         return fused_cross_attention_block_plain(
             *args, num_heads=num_heads, n_q=n_q, n_kv=n_kv, ln_eps=ln_eps)
-    _check_kernel_dims("fused_cross_attention_block", {"D": d, "Dm": dm})
     rows = b * k
     out = torch.empty_like(x)
     q = torch.empty(rows, d, device=x.device, dtype=x.dtype)
@@ -284,7 +275,6 @@ def fused_ffn_block(x, w1, b1, w2, b2, ln_gamma, ln_beta, *,
                     {"b1": b1, "b2": b2, "ln_gamma": ln_gamma,
                      "ln_beta": ln_beta}):
         return fused_ffn_block_plain(*args, ln_eps=ln_eps)
-    _check_kernel_dims("fused_ffn_block", {"D": d, "intermediate": inter})
     rows = b * k
     out = torch.empty_like(x)
     h = torch.empty(rows, inter, device=x.device, dtype=x.dtype)
