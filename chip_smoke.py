@@ -30,8 +30,14 @@ Phases (any failed check raises; the script then exits non-zero):
    at the 1-item layer-0 shape), with ~15% missing fields and >= 8 items
    that have none; B1/B2 at K=128 and 256 (64 items), and at 4 heads of
    256 and 300 fields per item (64 items, K=32), timed; the device time of
-   each launch inside B1 and B2 (GEMMs, attention, LayerNorm) from
-   ``torch.profiler``; B4/B5/B6, the W8A8
+   each launch inside B1, B2 and B3 (GEMMs, attention, the LayerNorm in the
+   residual GEMM's cluster epilogue) from ``torch.profiler``, repeats bit
+   for bit, and cuBLAS's time for each block's products alone (the
+   yardstick); the residual GEMM's LayerNorm on both routes (the cluster
+   epilogue against WG_BIAS_RESID + layer_norm_kernel through a test entry,
+   at the sweep's two residual products and at widths 896 and 1032, timed)
+   and B1-B3 at hidden 896 (a cluster with a ragged last tile) and 2304
+   (two passes) at 4096 items; B4/B5/B6, the W8A8
    blocks, as B1-B3; B8, the W8A8 linear, at the Qwen3-0.6B serving
    projections (4096 rows: 1024->2048, 1024->1024, 2048->1024, 1024->3072,
    3072->1024; and 1024->2048 at 16384 rows), B9a (q|k|v, [4096, 1024] ->
@@ -188,6 +194,12 @@ BLOCK_ITEMS = (4096, 1001)
 B12_ITEMS = (512, 509)
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 KERNEL_COS = 0.9999
+# B14's and B14p's bf16 dq / dk rows whose plain norm is below this share of
+# the largest row's leave the cosine test (the max|d| bound still holds
+# them): with one query, dk's row for key j is ds_j q, and a ds_j near zero
+# leaves rounding noise on both sides (C-11: rows of 1e-10 and 2e-9 against
+# 0.75, neither side parallel to q; every other row of 40 draws is)
+GRAD_NOISE_FLOOR = 1e-6
 # B1/B2 at K up to 256 query rows per item, at a head dim above 128 (4
 # heads of 256) and at 300 fields per item, 64 items
 WIDE_K, WIDE_K_ITEMS = (128, 256), 64
@@ -249,6 +261,13 @@ B7B_COS = 0.9999
 # the full-width step with flash-VJP against the plain attention path (same
 # weights and batch, dropout 0): loss and each trainable leaf's gradient
 STEP_LOSS_REL, STEP_GRAD_COS = 1e-2, 0.999
+# the item step's gate (phase 7 (a), C-12): at most HINGE_FLIP_MAX of its
+# samples may take the other side of the contrastive hinge in the fused and
+# the plain anchor step, each with its two hinge arguments within
+# HINGE_ROUNDING of each other: the largest difference of the two steps'
+# arguments over every sample of the 12 of 24 draws of the batch without a
+# flip (scripts/probe_item_hinge.py on an H100; PERF.md)
+HINGE_FLIP_MAX, HINGE_ROUNDING = 2, 1.56e-2
 TRAIN_BATCH, TRAIN_NEG, VAL_CANDIDATES = 8, 10, 100
 TRAIN_ITEMS = 1500  # candidate items with 1024-d embeddings in the JSON
 # item training (phase 7): batch 512 as the JAX package's scripts/bench_item.py,
@@ -630,19 +649,147 @@ def phase_blocks(gen, precision: str) -> dict:
             f"fields missing; the all-missing item {empty} alone equals its "
             "batch row")
         if items == BLOCK_ITEMS[0]:
-            for name in (sn, cn) if precision == "bf16" else names:
+            for name in names:
                 log_split(f"{name.upper()} {items} items", runs[name][0])
+            library = {}
+            if precision == "bf16":
+                for name in names:
+                    check_repeat(f"{name.upper()} {items} items",
+                                 (runs[name][0](),), (runs[name][0](),))
+                library = block_products_ms(x, mem, sw, cw, fw)
             for name in names:
                 kern, plain = runs[name]
                 t_k = time_ms(kern, iters=10, warmup=2)
                 t_p = time_ms(plain, iters=5, warmup=1)
                 t_k2 = time_ms(kern, iters=10, warmup=2)
-                result[name].update(ms=min(t_k, t_k2), plain_ms=t_p)
+                result[name].update(ms=min(t_k, t_k2), plain_ms=t_p,
+                                    library_ms=library.get(name))
                 log(f"{name.upper()} time {items} items: kernel {t_k:.4f} / "
-                    f"{t_k2:.4f} ms, plain {t_p:.4f} ms")
+                    f"{t_k2:.4f} ms, plain {t_p:.4f} ms"
+                    + (f", cuBLAS for its products alone {library[name]:.4f}"
+                       " ms" if name in library else ""))
         del x, mem, key_bias, runs, shapes
         torch.cuda.empty_cache()
     return result
+
+
+def block_products_ms(x, mem, sw, cw, fw) -> dict:
+    """The yardstick of B1-B3: ``torch.matmul`` (cuBLAS) time of each
+    block's products alone, bf16 in and out, on tensors of their shapes (no
+    bias, attention, residual or LayerNorm: no single PyTorch call computes
+    the block)."""
+    x2, mem2 = x.reshape(-1, x.shape[-1]), mem.reshape(-1, mem.shape[-1])
+    h = x2.repeat(1, fw["w1"].shape[0] // x2.shape[1])  # [rows, inter]
+    products = {
+        "b1": ((x2, sw["wqkv"]), (x2, sw["wo"])),
+        "b2": ((x2, cw["wq"]), (mem2, cw["wkv"]), (x2, cw["wo"])),
+        "b3": ((x2, fw["w1"]), (h, fw["w2"]))}
+    out = {}
+    for name, pairs in products.items():
+        out[name] = time_ms(lambda: [torch.matmul(a, w.t()) for a, w in pairs],
+                            iters=10, warmup=2)
+    return out
+
+
+def phase_ln_routes(gen) -> None:
+    """B1-B3's residual product and LayerNorm on each route their shape
+    takes: the WG_BIAS_RESID_LN cluster epilogue against the two passes
+    (WG_BIAS_RESID into fp32, then layer_norm_kernel) through the test entry
+    ``unirec_gemm_ln_test`` at the sweep's two residual products (4096
+    items) and at widths of 896 (the last of 4 CTAs 128 columns wide) and
+    1032 (5 CTAs), within bf16 rounding, repeated for identical bits and
+    timed; then B1-B3 against their plain versions at 4096 items of hidden
+    896 (14 heads; the cluster with a ragged last tile) and 2304 (18 heads;
+    two passes: more than a portable cluster of 8 CTAs), repeated for
+    identical bits."""
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+    from unirec_tpu_torch.ops._build import check, load_kernels
+
+    lib = load_kernels().lib
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rand(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device="cuda", generator=gen) * std
+                ).to(dtype)
+
+    def vec(n, mean=0.0):
+        return mean + rand(n, std=0.1, dtype=torch.float32)
+
+    rows = 32 * BLOCK_ITEMS[0]
+    for m, n, k in ((rows, QF_D, QF_D), (rows, QF_D, QF_INTER),
+                    (32 * BLOCK_ITEMS[1], 896, QF_D), (4000, 1032, 1032)):
+        a, w = rand(m, k), rand(n, k, std=k ** -0.5)
+        bias, resid, g, b = vec(n), rand(m, n), vec(n, 1.0), vec(n)
+        acc = torch.empty(m, n, device="cuda")
+        outs = [torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2)]
+
+        def run(which):
+            check(lib.unirec_gemm_ln_test(
+                which, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                resid.data_ptr(), g.data_ptr(), b.data_ptr(),
+                outs[which].data_ptr(), acc.data_ptr() if which == 0 else None,
+                m, n, k, 1e-12, stream), "unirec_gemm_ln_test")
+
+        run(0)
+        run(1)
+        torch.cuda.synchronize()
+        x0, x1 = outs[0].float(), outs[1].float()
+        ulp = torch.exp2(torch.floor(torch.log2(x0.abs().clamp_min(1e-30)))
+                         - 7)
+        worst = ((x1 - x0).abs() - ulp).max().item()
+        where = f"[{m}, {k}] x [{n}, {k}]"
+        if not worst <= 1e-5:
+            raise AssertionError(f"cluster LayerNorm {where}: beyond bf16 "
+                                 f"rounding of the two passes ({worst:.3e})")
+        first = outs[1].clone()
+        run(1)
+        check_repeat(f"cluster LayerNorm {where}", (first,), (outs[1],))
+        t_two, t_one = (time_ms(lambda i=i: run(i), iters=10, warmup=2)
+                        for i in (0, 1))
+        log(f"residual GEMM + LayerNorm {where}: cluster of "
+            f"{-(-n // 256)} CTAs within bf16 rounding of the two passes "
+            f"(max excess over one ulp {worst:.2e}), repeats bit for bit; "
+            f"two passes {t_two:.4f} ms, cluster {t_one:.4f} ms")
+        del a, w, bias, resid, g, b, acc, outs
+    for d, heads in ((896, 14), (2304, 18)):
+        items = BLOCK_ITEMS[0]
+        x = rand(items, QF_K, d)
+        mask = (torch.rand(items, QF_F, device="cuda", generator=gen) > 0.15
+                ).float()
+        mask[::8] = 0.0
+        mem = rand(items, QF_F, d) * mask[..., None].bfloat16()
+        key_bias = ((1.0 - mask) * -1e9).contiguous()
+        sw = dict(wqkv=rand(3 * d, d, std=0.03), bqkv=vec(3 * d),
+                  wo=rand(d, d, std=0.03), bo=vec(d), ln_gamma=vec(d, 1.0),
+                  ln_beta=vec(d))
+        cw = dict(wq=rand(d, d, std=0.03), bq=vec(d),
+                  wkv=rand(2 * d, d, std=0.03), bkv=vec(2 * d),
+                  wo=rand(d, d, std=0.03), bo=vec(d), ln_gamma=vec(d, 1.0),
+                  ln_beta=vec(d))
+        fw = dict(w1=rand(QF_INTER, d, std=0.03), b1=vec(QF_INTER),
+                  w2=rand(d, QF_INTER, std=0.02), b2=vec(d),
+                  ln_gamma=vec(d, 1.0), ln_beta=vec(d))
+        sk = dict(num_heads=heads, n_q=QF_K)
+        route = ("two passes" if fq.two_pass_layer_norm(d, d)
+                 else f"a cluster of {-(-d // 256)} CTAs")
+        where = f"hidden {d}, {heads} heads, {items} items ({route})"
+        for name, fn, args, w, kw in (
+                ("b1", "fused_self_attention_block", (x,), sw, sk),
+                ("b2", "fused_cross_attention_block", (x, mem, key_bias), cw,
+                 dict(sk, n_kv=QF_F)),
+                ("b3", "fused_ffn_block", (x,), fw, {})):
+            kern, plain = getattr(fq, fn), getattr(fq, fn + "_plain")
+            out = kern(*args, **w, **kw)
+            torch.cuda.synchronize()
+            err, cos = block_error(out, plain(*args, **w, **kw))
+            check_block(name.upper(), err, cos, where)
+            check_repeat(f"{name.upper()} {where}", (out,),
+                         (kern(*args, **w, **kw),))
+            log(f"{name.upper()} time {where}: kernel "
+                f"{time_ms(lambda: kern(*args, **w, **kw), iters=5, warmup=1):.4f} ms")
+        del x, mem, key_bias, sw, cw, fw
+    torch.cuda.empty_cache()
 
 
 def phase_wide_k(gen) -> dict:
@@ -783,8 +930,10 @@ def phase_int8_gemm(gen) -> None:
 
 def phase_widths(gen) -> None:
     """B1-B6 at hidden 1020 (not a multiple of 8 bf16 values: every product
-    on gemm_wide.cuh's edge kernel) and 1032 (a multiple of 8 but not of 16
-    int8 codes: B4-B6 on the int8 edge kernel), 4 heads, intermediate 4096,
+    on gemm_wide.cuh's edge kernel, the two-pass LayerNorm) and 1032 (a
+    multiple of 8 but not of 16 int8 codes: B1-B3 on the TMA kernel with the
+    LayerNorm over a cluster of 5 CTAs, B4-B6 on the int8 edge kernel), 4
+    heads, intermediate 4096,
     64 items with ~15% missing fields, against their plain versions at the
     blocks' gate, repeated for identical bits (C-10)."""
     from unirec_tpu_torch.ops import fused_qformer_int8 as pq
@@ -868,14 +1017,18 @@ def log_split(name: str, fn, iters: int = 5) -> None:
 # -- B12s / B12c: the trainable fused blocks ---------------------------------
 
 
-def kernel_error(name, out, ref, where, noise_rows=None) -> float:
+def kernel_error(name, out, ref, where, noise_rows=None,
+                 noise_floor=0.0) -> float:
     """Checks a kernel's output against its plain version (the same dtype,
     compared in fp32): max|d| <= KERNEL_TOL * max|ref| and, in bf16, per-row
     cosine >= KERNEL_COS over the rows where ref is nonzero, except
     ``noise_rows``: the query rows of an item with no valid field, whose
     exact B12c dq is 0 (its keys are one and the same row, and ds sums to 0
     over them), so that both versions return rounding noise there, which the
-    max|d| bound holds.  Returns max|d|."""
+    max|d| bound holds; and, with ``noise_floor``, the rows whose ref norm
+    is below that share of the largest row's (logged: how many, the largest
+    of them and the smallest row kept, relative to the top).  Returns
+    max|d|."""
     a = out.float().reshape(-1, out.shape[-1])
     b = ref.float().reshape(-1, ref.shape[-1])
     if not bool(torch.isfinite(a).all()):
@@ -889,6 +1042,15 @@ def kernel_error(name, out, ref, where, noise_rows=None) -> float:
         live = b.abs().amax(-1) > 0
         if noise_rows is not None:
             live &= ~noise_rows
+        if noise_floor:
+            ratio = b.norm(dim=-1) / b.norm(dim=-1).max()
+            quiet = live & (ratio < noise_floor)
+            live &= ~quiet
+            msg += (f", {int(quiet.sum())} rows below {noise_floor:g} of the "
+                    "top row's norm leave the cosine test"
+                    + (f" (largest {ratio[quiet].max().item():.2e})"
+                       if bool(quiet.any()) else "")
+                    + f", smallest kept {ratio[live].min().item():.2e}")
         cos = torch.nn.functional.cosine_similarity(a[live], b[live], dim=-1)
         msg += (f", min row cosine {cos.min().item():.7f} over "
                 f"{int(live.sum())} rows (tol {KERNEL_COS})")
@@ -1239,8 +1401,8 @@ def check_flash_cross(gen, dtype, b, lkv, h, hd, res) -> dict:
 
 def check_outputs(name, outs, got, ref, where, res) -> None:
     """Each output of a kernel against its plain version: float32 (m, l)
-    statistics to 1e-5 relative, the rest by ``kernel_error``; the largest
-    error goes to ``res["err"]``."""
+    statistics to 1e-5 relative, the rest by ``kernel_error`` (dq and dk
+    with the GRAD_NOISE_FLOOR); the largest error goes to ``res["err"]``."""
     for o, g, r in zip(outs, got, ref):
         if o in ("m", "l"):  # float32 statistics of both
             rel = ((g - r).abs() / r.abs().clamp_min(1e-30)).max()
@@ -1248,7 +1410,9 @@ def check_outputs(name, outs, got, ref, where, res) -> None:
             if not rel.item() <= 1e-5:
                 raise AssertionError(f"{name} {o} {where} disagrees")
             continue
-        res["err"] = max(res["err"], kernel_error(f"{name} {o}", g, r, where))
+        floor = GRAD_NOISE_FLOOR if o in ("dq", "dk", "dk3") else 0.0
+        res["err"] = max(res["err"], kernel_error(f"{name} {o}", g, r, where,
+                                                  noise_floor=floor))
 
 
 def sdpa_cosine(name, lib_out, kern_out) -> None:
@@ -1418,7 +1582,8 @@ def phase_b14p(gen) -> dict:
             "B14P out (autograd)", out, o32.to(dtype), where))
         for name, g, r in zip("qkv", grads, plain_grads):
             res["b14p_bwd"]["err"] = max(res["b14p_bwd"]["err"], kernel_error(
-                f"B14P d{name} (autograd)", g, r, where))
+                f"B14P d{name} (autograd)", g, r, where,
+                noise_floor=GRAD_NOISE_FLOOR if name in "qk" else 0.0))
         # the kernels against their plain versions, on the same (m, l, dsum)
         state = {}
         runs = {
@@ -2587,10 +2752,11 @@ def device_time_by_kernel(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def phase_sweep(smi: str, tmp: str) -> dict:
-    """The CLI sweep at full width, bf16 (B1-B3) and then int8 (B4-B6), over
-    one seed-0 checkpoint directory and one 9,000-item cache, both written
-    under ``tmp`` (the training phase reuses them)."""
+def write_sweep_inputs(tmp: str):
+    """The seed-0 ``ItemQFormerConfig()`` checkpoint (``tmp/ckpt``) and the
+    9,000-item field cache (``tmp/cache``) of the sweep and the training
+    phases; (cfg, model, fields, emb, masks, ids, the numpy generator that
+    made the cache)."""
     from unirec_tpu_torch.configs import ItemQFormerConfig
     from unirec_tpu_torch.data.cache import FieldEmbeddingCache
     from unirec_tpu_torch.utils.checkpoint import save_checkpoint
@@ -2601,7 +2767,6 @@ def phase_sweep(smi: str, tmp: str) -> dict:
     # the cache's order
     fields = [f"f{i:02d}" for i in range(cfg.num_fields)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    t0 = time.perf_counter()
     model = init_item_qformer(cfg, gen, device="cuda", dtype=torch.float32)
     save_checkpoint(os.path.join(tmp, "ckpt"), model, cfg,
                     extra={"field_names": fields})
@@ -2614,6 +2779,16 @@ def phase_sweep(smi: str, tmp: str) -> dict:
     ids = [f"item{j}" for j in range(n)]
     FieldEmbeddingCache(emb, masks, fields, ids).save(
         os.path.join(tmp, "cache"))
+    return cfg, model, fields, emb, masks, ids, rng
+
+
+def phase_sweep(smi: str, tmp: str) -> dict:
+    """The CLI sweep at full width, bf16 (B1-B3) and then int8 (B4-B6), over
+    one seed-0 checkpoint directory and one 9,000-item cache, both written
+    under ``tmp`` (the training phase reuses them)."""
+    t0 = time.perf_counter()
+    cfg, model, fields, emb, masks, ids, rng = write_sweep_inputs(tmp)
+    n, f, dm = SWEEP_ITEMS, cfg.num_fields, cfg.field_embedding_dim
     n_params = sum(p.numel() for p in model.parameters())
     log(f"sweep set-up: ItemQFormerConfig() {cfg.num_hidden_layers} layers "
         f"x {cfg.hidden_size}, K={cfg.num_query_tokens}, F={f}, "
@@ -3144,6 +3319,79 @@ def phase_train(smi: str, tmp: str) -> dict:
 # -- phase 7: Item Q-Former training ---------------------------------------------
 
 
+def item_trainer(cfg, sd, fused_anchor: bool, precision: str = "bf16",
+                 return_grads: bool = False):
+    """A bf16 item trainer's state (float32 masters) at dropout 0 from the
+    weights ``sd`` of ``cfg``, at batch ``ITEM_BATCH`` and lr 1e-4, and its
+    step function."""
+    import dataclasses
+
+    from unirec_tpu_torch.configs import OptimizerConfig, TrainConfig
+    from unirec_tpu_torch.train.item_qformer import (
+        ItemQFormerTrainer,
+        make_train_step,
+    )
+
+    mc = dataclasses.replace(cfg, dropout=0.0, fused_training=fused_anchor)
+    tr = ItemQFormerTrainer(
+        mc, TrainConfig(batch_size=ITEM_BATCH, seed=SEED,
+                        optimizer=OptimizerConfig(learning_rate=1e-4)),
+        dtype="bfloat16", fused_precision=precision, device="cuda")
+    if not tr.use_fused:
+        raise AssertionError("the trainer did not take the fused engine "
+                             "for the positive and negative forwards")
+    st = tr.init_state(params=sd)
+    return st, make_train_step(st.model, fused_reference_config=mc,
+                               fused_precision=precision,
+                               return_grads=return_grads, seed=SEED)
+
+
+def item_batches(cache, rng, n: int) -> list:
+    """``n`` item-trainer batches of ``ITEM_BATCH`` random pairs of the
+    cache's items and their negatives, drawn from ``rng``."""
+    from unirec_tpu_torch.train.item_qformer import (
+        ItemQFormerTrainer,
+        sample_negatives,
+    )
+
+    out = []
+    for _ in range(n):
+        pairs = rng.integers(0, len(cache), (ITEM_BATCH, 2)).astype(np.int32)
+        out.append(ItemQFormerTrainer.gather_batch(
+            cache, pairs, sample_negatives(rng, pairs, len(cache))))
+    return out
+
+
+def item_step(cfg, sd, batch, fused_anchor: bool, counters: dict,
+              active=None):
+    """One item-trainer step from ``sd`` on ``batch``: (loss, every leaf's
+    gradient, the kernels' launches in it, the contrastive hinge's argument
+    per sample); ``active`` is the step's ``hinge_active``."""
+    st, step = item_trainer(cfg, sd, fused_anchor, return_grads=True)
+    for fn in counters.values():
+        fn.launches = 0
+    st, m = step(st, batch, active)
+    torch.cuda.synchronize()
+    out = (m["loss"].item(), m["grads"],
+           {n: fn.launches for n, fn in counters.items()},
+           m["hinge_arguments"])
+    del st, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hinge_flips(arg_f: torch.Tensor, arg_p: torch.Tensor):
+    """The samples on the other side of the contrastive hinge in the fused
+    and the plain anchor step (indices), and whether the bound of C-12
+    admits them: at most ``HINGE_FLIP_MAX`` samples, each with its two
+    arguments within ``HINGE_ROUNDING`` of each other (and so of 0)."""
+    flipped = ((arg_f > 0) != (arg_p > 0)).nonzero().flatten()
+    gap = (arg_f - arg_p).abs()[flipped]
+    return flipped, (len(flipped) <= HINGE_FLIP_MAX
+                     and bool((gap <= HINGE_ROUNDING).all()))
+
+
 def item_counters() -> dict:
     from unirec_tpu_torch.ops import fused_qformer_int8 as pq
     from unirec_tpu_torch.ops import fused_qformer_layer as fq
@@ -3277,18 +3525,11 @@ def phase_item_train(smi: str, tmp: str) -> dict:
     ``evaluate`` and ``QFormerInference`` on its checkpoint, (e)
     ``precompute``."""
     import contextlib
-    import dataclasses
     import io
 
-    from unirec_tpu_torch.configs import OptimizerConfig, TrainConfig
     from unirec_tpu_torch.data.cache import FieldEmbeddingCache, analyze_fields
     from unirec_tpu_torch.inference.qformer_inference import QFormerInference
     from unirec_tpu_torch.models.item_qformer import ItemQFormer
-    from unirec_tpu_torch.train.item_qformer import (
-        ItemQFormerTrainer,
-        make_train_step,
-        sample_negatives,
-    )
     from unirec_tpu_torch.utils.checkpoint import read_meta
 
     cfg, sd, _ = QFormerInference.read_checkpoint(os.path.join(tmp, "ckpt"))
@@ -3297,13 +3538,7 @@ def phase_item_train(smi: str, tmp: str) -> dict:
     counters = item_counters()
     n_layers = cfg.num_hidden_layers
     n_cross = len(range(0, n_layers, cfg.qformer().cross_attention_freq))
-    rng = np.random.default_rng(SEED + 2)
-    batches = []
-    for _ in range(ITEM_STEPS):
-        pairs = rng.integers(0, len(cache), (ITEM_BATCH, 2)).astype(np.int32)
-        batches.append(ItemQFormerTrainer.gather_batch(
-            cache, pairs, sample_negatives(rng, pairs, len(cache))))
-    opt = OptimizerConfig(learning_rate=1e-4)
+    batches = item_batches(cache, np.random.default_rng(SEED + 2), ITEM_STEPS)
 
     def launches_now():
         return {n: fn.launches for n, fn in counters.items()}
@@ -3312,40 +3547,27 @@ def phase_item_train(smi: str, tmp: str) -> dict:
         for fn in counters.values():
             fn.launches = 0
 
-    def trainer(fused_anchor: bool, precision: str = "bf16",
-                return_grads: bool = False):
-        """A bf16 trainer's state (float32 masters) at dropout 0 from the
-        sweep's seed-0 checkpoint, and its step function."""
-        mc = dataclasses.replace(cfg, dropout=0.0, fused_training=fused_anchor)
-        tr = ItemQFormerTrainer(
-            mc, TrainConfig(batch_size=ITEM_BATCH, seed=SEED, optimizer=opt),
-            dtype="bfloat16", fused_precision=precision, device="cuda")
-        if not tr.use_fused:
-            raise AssertionError("the trainer did not take the fused engine "
-                                 "for the positive and negative forwards")
-        st = tr.init_state(params=sd)
-        return st, make_train_step(st.model, fused_reference_config=mc,
-                                   fused_precision=precision,
-                                   return_grads=return_grads, seed=SEED)
+    def trainer(fused_anchor: bool, precision: str = "bf16"):
+        return item_trainer(cfg, sd, fused_anchor, precision)
 
     def release():
         gc.collect()
         torch.cuda.empty_cache()
 
-    # (a) one step, fused anchor against plain anchor
-    def one_step(fused_anchor: bool):
-        st, step = trainer(fused_anchor, return_grads=True)
-        zero_counts()
-        st, m = step(st, batches[0])
-        torch.cuda.synchronize()
-        launches = launches_now()
-        loss, grads = m["loss"].item(), m["grads"]
-        del st, step, m
-        release()
-        return loss, grads, launches
-
-    loss_f, g_f, l_f = one_step(True)
-    loss_p, g_p, l_p = one_step(False)
+    # (a) one step, fused anchor against plain anchor.  The contrastive term
+    # is a hinge, relu(margin + d(a, p) - d(a, n)): a sample whose argument
+    # lies within the two anchors' bf16 rounding of 0 can be active in one
+    # step and not in the other, and then moves the leaves that only this
+    # term reaches (the item representation head) by its whole share (C-12).
+    # Where samples flip, the gate holds the plain step run again on the
+    # fused step's active set, but only for the few flips whose two
+    # arguments lie within the rounding scale of each other (hinge_flips);
+    # any other flip fails.
+    loss_f, g_f, l_f, arg_f = item_step(cfg, sd, batches[0], True, counters)
+    loss_p, g_p, l_p, arg_p = item_step(cfg, sd, batches[0], False, counters)
+    flipped, admitted = hinge_flips(arg_f, arg_p)
+    rest = torch.ones_like(arg_f, dtype=torch.bool)
+    rest[flipped] = False
     cos = grad_cosines(g_f, g_p)
     worst = min(cos, key=cos.get)
     rel = abs(loss_f - loss_p) / abs(loss_p)
@@ -3355,7 +3577,28 @@ def phase_item_train(smi: str, tmp: str) -> dict:
         f"loss fused anchor {loss_f:.6f}, plain anchor {loss_p:.6f} (rel "
         f"{rel:.2e}, tol {STEP_LOSS_REL:g}); {len(g_f)} trainable leaves, min "
         f"gradient cosine {cos[worst]:.6f} ({worst}; tol {STEP_GRAD_COS}); "
-        f"launches fused {l_f}, plain {l_p}")
+        f"launches fused {l_f}, plain {l_p}; hinge arguments fused - plain: "
+        f"max |difference| {(arg_f - arg_p).abs().max().item():.3e}; "
+        f"{len(flipped)} of {ITEM_BATCH} samples on the other side of the "
+        f"hinge (at most {HINGE_FLIP_MAX}, each within {HINGE_ROUNDING:g}; "
+        f"fused / plain: "
+        f"{[(round(a, 6), round(b, 6)) for a, b in zip(arg_f[flipped].tolist(), arg_p[flipped].tolist())]}; "
+        f"smallest |argument| of the rest "
+        f"{arg_f[rest].abs().min().item():.3e})")
+    if len(flipped):
+        if not admitted:
+            raise AssertionError("the fused and the plain anchor step take "
+                                 "different sides of the contrastive hinge "
+                                 "beyond the rounding bound")
+        loss_p, g_p, _, _ = item_step(cfg, sd, batches[0], False, counters,
+                                      active=(arg_f > 0).float())
+        cos = grad_cosines(g_f, g_p)
+        worst = min(cos, key=cos.get)
+        rel = abs(loss_f - loss_p) / abs(loss_p)
+        log(f"item step, the plain anchor again on the fused step's active "
+            f"set of the hinge: loss {loss_p:.6f} (rel {rel:.2e}, tol "
+            f"{STEP_LOSS_REL:g}), min gradient cosine {cos[worst]:.6f} "
+            f"({worst}; tol {STEP_GRAD_COS})")
     if not (rel <= STEP_LOSS_REL and cos[worst] >= STEP_GRAD_COS
             and np.isfinite(loss_f)):
         raise AssertionError("the fused-anchor step disagrees with the plain "
@@ -3971,6 +4214,7 @@ def main() -> int:
     new_gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     phase_int8_gemm(new_gen)
     phase_widths(new_gen)
+    phase_ln_routes(torch.Generator(device="cuda").manual_seed(SEED + 13))
     b12 = phase_b12(gen)
     for key, err in phase_b12_shapes(gen).items():
         b12[key]["err"] = max(b12[key]["err"], err)
@@ -4032,7 +4276,7 @@ def main() -> int:
     ] + [
         row(name, "qformer_blocks.cu", f"{src}:{line}", sweep_launches[key],
             blocks[key]["err"], blocks[key]["ms"], blocks[key]["plain_ms"],
-            *bounds[key])
+            *bounds[key], blocks[key]["library_ms"])
         for key, name, src, line in (
             ("b1", "qformer_self_block", "fused_qformer_layer.py", 119),
             ("b2", "qformer_cross_block", "fused_qformer_layer.py", 174),

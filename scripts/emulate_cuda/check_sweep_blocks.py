@@ -8,8 +8,15 @@ emulation of CUDA and hold them to their plain versions (no timing):
 * B4, B5 and B6 (``csrc/qformer_blocks.cu``) on the TMA path and on the edge
   path (a width that is not a multiple of 16 codes), B6 with one chunk and
   with chunks that end inside a k-tile;
-* B1, B2 and B3 at a width that is not a multiple of 8 (their products on
-  ``gemm_wide.cuh``'s edge kernel with the gelu and residual epilogues);
+* the residual product with its LayerNorm (``unirec_gemm_ln_test``): one
+  launch of ``WG_BIAS_RESID_LN`` over a thread-block cluster (partial sums
+  through the peers' shared memory) against ``WG_BIAS_RESID`` and
+  ``layer_norm_kernel``, within bf16 rounding, at clusters of 1, 4 and 5
+  CTAs whose last tile is ragged, and refused above 2048 columns;
+* B1, B2 and B3 on the TMA kernel with the cluster LayerNorm (one CTA, and
+  two whose second is 128 columns wide; no fp32 scratch) and at a width
+  that is not a multiple of 8 (every product on ``gemm_wide.cuh``'s edge
+  kernel, the two-pass LayerNorm);
 * B15 (``csrc/packed_attention.cu``) in bf16 (the attention core's IA_B15
   rounding on B15's strides) and float32 (the scalar kernel), at head dims
   above 128, K = 128 over 512 keys, K = 2 over 600 keys, ~15% masked keys
@@ -200,6 +207,46 @@ def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk):
                                            v["b2"], g, b, chunk=chunk))
 
 
+def check_gemm_ln(lib, raw, m, n, k):
+    """The cluster LayerNorm epilogue against the two-pass route on the same
+    inputs: the same fp32 sums up to the LayerNorm's own order, so within
+    bf16 rounding of the unit-scale output (2 ulps at |y| < 8)."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    a, w = _bf(gen, m, k), _bf(gen, n, k, std=k ** -0.5)
+    bias, resid = _vec(gen, n), _bf(gen, m, n)
+    g, b = _vec(gen, n, 1.0), _vec(gen, n)
+    outs = [torch.zeros(m, n).bfloat16() for _ in range(2)]
+    acc = torch.zeros(m, n)
+    if n > 2048:  # more than a portable cluster: refused, two-pass only
+        raw.emu_clear()
+        if lib.unirec_gemm_ln_test(1, _p(a), _p(w), _p(bias), _p(resid),
+                                   _p(g), _p(b), _p(outs[1]), None, m, n, k,
+                                   1e-12, None) == 0:
+            raise AssertionError(f"cluster LayerNorm took N {n} > 2048")
+        which = (0,)
+    else:
+        which = (0, 1)
+    for i in which:
+        _twice(raw, lambda i=i: lib.unirec_gemm_ln_test(
+            i, _p(a), _p(w), _p(bias), _p(resid), _p(g), _p(b), _p(outs[i]),
+            _p(acc) if i == 0 else None, m, n, k, 1e-12, None), [outs[i]],
+            a, w, bias, resid, g, b, acc)
+    ref = fq._layer_norm_rows(a.float() @ w.float().t() + bias
+                              + resid.float(), g, b, 1e-12)
+    for i in which:
+        err = (outs[i].float() - ref).abs().max().item()
+        if not err <= 2 * 2 ** -5:
+            raise AssertionError(f"LayerNorm GEMM route {i}: max|d| {err:.2e}")
+    if len(which) == 2:
+        d = (outs[0].float() - outs[1].float()).abs().max().item()
+        if not d <= 2 * 2 ** -5:
+            raise AssertionError(f"cluster LayerNorm vs two passes: {d:.2e}")
+    print(f"residual GEMM + LayerNorm M {m} N {n} K {k}: "
+          f"{'cluster of ' + str(-(-n // 256)) if len(which) == 2 else 'two passes only'}"
+          ", within bf16 rounding of the fp32 reference, repeats bit for bit",
+          flush=True)
+
+
 def check_bf16_blocks(lib, raw, items, nq, nkv, d, heads, inter):
     gen = torch.Generator().manual_seed(items + d + inter)
     rows = items * nq
@@ -219,13 +266,17 @@ def check_bf16_blocks(lib, raw, items, nq, nkv, d, heads, inter):
     out = torch.empty_like(x)
     qkv = torch.empty(rows, 3 * d).bfloat16()
     ctx = torch.empty(rows, d).bfloat16()
-    acc = torch.empty(rows, d)
-    where = f"items {items} K {nq} D {d} heads {heads}"
+    # the fp32 scratch only where the wrappers give it (the two-pass route)
+    acc = torch.empty(rows, d) if lib.unirec_resid_ln_two_pass(d, d) else None
+    acc3 = (torch.empty(rows, d) if lib.unirec_resid_ln_two_pass(d, inter)
+            else None)
+    where = (f"items {items} K {nq} D {d} heads {heads}, "
+             f"{'two-pass' if acc is not None else 'cluster'} LayerNorm")
     _twice(raw, lambda: lib.unirec_qformer_self_block(
         _p(x), _p(w["wqkv"]), _p(v["bqkv"]), _p(w["wo"]), _p(v["bo"]), _p(g),
         _p(b), _p(out), _p(qkv), _p(ctx), _p(acc), items, nq, d, heads, scale,
         1e-12, None), [out], x, w["wqkv"], v["bqkv"], w["wo"], v["bo"], g, b,
-        qkv, ctx, acc)
+        qkv, ctx, *[t for t in (acc,) if t is not None])
     _hold_block(f"B1 {where}", out, fq.fused_self_attention_block_plain(
         x, w["wqkv"], v["bqkv"], w["wo"], v["bo"], g, b, num_heads=heads,
         n_q=nq))
@@ -236,7 +287,8 @@ def check_bf16_blocks(lib, raw, items, nq, nkv, d, heads, inter):
         _p(v["bkv"]), _p(w["wo"]), _p(v["bo"]), _p(g), _p(b), _p(out), _p(qb),
         _p(kv), _p(ctx), _p(acc), items, nq, nkv, d, d, heads, scale, 1e-12,
         None), [out], x, mem, kb, w["wq"], v["bq"], w["wkv"], v["bkv"],
-        w["wo"], v["bo"], g, b, qb, kv, ctx, acc)
+        w["wo"], v["bo"], g, b, qb, kv, ctx,
+        *[t for t in (acc,) if t is not None])
     _hold_block(f"B2 {where} F {nkv}", out,
                 fq.fused_cross_attention_block_plain(
                     x, mem, kb, w["wq"], v["bq"], w["wkv"], v["bkv"], w["wo"],
@@ -244,8 +296,9 @@ def check_bf16_blocks(lib, raw, items, nq, nkv, d, heads, inter):
     h = torch.empty(rows, inter).bfloat16()
     _twice(raw, lambda: lib.unirec_qformer_ffn_block(
         _p(x), _p(w["w1"]), _p(v["b1"]), _p(w["w2"]), _p(v["b2"]), _p(g),
-        _p(b), _p(out), _p(h), _p(acc), rows, d, inter, 1e-12, None), [out],
-        x, w["w1"], v["b1"], w["w2"], v["b2"], g, b, h, acc)
+        _p(b), _p(out), _p(h), _p(acc3), rows, d, inter, 1e-12, None), [out],
+        x, w["w1"], v["b1"], w["w2"], v["b2"], g, b, h,
+        *[t for t in (acc3,) if t is not None])
     _hold_block(f"B3 {where} I {inter}", out, fq.fused_ffn_block_plain(
         x, w["w1"], v["b1"], w["w2"], v["b2"], g, b))
 
@@ -305,6 +358,11 @@ def main() -> int:
     check_int8_blocks(lib, raw, 3, 8, 6, 128, 2, 384, 192)
     check_int8_blocks(lib, raw, 3, 8, 6, 100, 4, 256, 256)
     check_int8_blocks(lib, raw, 2, 8, 6, 104, 4, 192, 64)
+    for case in ((150, 128, 64), (150, 896, 64), (40, 1032, 64),
+                 (40, 2304, 64)):
+        check_gemm_ln(lib, raw, *case)
+    check_bf16_blocks(lib, raw, 3, 8, 6, 128, 2, 256)
+    check_bf16_blocks(lib, raw, 3, 8, 6, 384, 4, 256)
     check_bf16_blocks(lib, raw, 3, 8, 6, 100, 4, 200)
     for dtype in (torch.bfloat16, torch.float32):
         check_b15(lib, raw, dtype, 5, 2, 32, 14, 64, True)

@@ -16,3 +16,33 @@ inline cudaError_t cudaGetDriverEntryPoint(const char* symbol, void** fn, unsign
   *q = cudaDriverEntryPointSuccess;
   return cudaSuccess;
 }
+
+// cudaLaunchKernelEx with a cluster dimension along x (the one launch
+// attribute the kernels set)
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class K, class... A>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, K kernel, A&&... args) {
+  unsigned cx = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      const auto& d = cfg->attrs[i].val.clusterDim;
+      if (d.y != 1 || d.z != 1 || d.x > 8) return cudaErrorLaunch;  // portable, along x
+      cx = d.x;
+    }
+  emu::launch_cluster(cx, cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, kernel, args...);
+  return emu::last_error;
+}

@@ -2,8 +2,9 @@
 // so that their index and fragment logic can be run with g++ on a machine
 // without a card (build.py compiles a source against these headers).
 //
-// One OS thread per CUDA thread, one block at a time; __syncthreads is a
-// block barrier and every warp collective (shuffles, ballots, ldmatrix,
+// One OS thread per CUDA thread, one block (or one thread-block cluster: its
+// blocks at once, with a barrier of all their threads and each other's
+// shared memory) at a time; __syncthreads is a block barrier and every warp collective (shuffles, ballots, ldmatrix,
 // mma.sync in ptx_helpers.cuh) exchanges the 32 lanes' operands through a
 // per-warp buffer between two warp barriers.  Shared memory starts as 0xFF
 // bytes (NaN in bf16 and fp32), so a read of a word nobody wrote shows, and a
@@ -20,6 +21,7 @@
 #include <cstring>
 #include <mutex>
 #include <atomic>
+#include <optional>
 #include <thread>
 #include <vector>
 #include <algorithm>
@@ -65,10 +67,17 @@ struct Block {
   uint64_t abuf[32][32];
 };
 inline thread_local dim3 tIdx, bIdx;
-inline dim3 bDim, gDim;
 inline thread_local unsigned char* smem_base = nullptr;
 inline thread_local size_t smem_size = 0;
 inline thread_local Block* blk = nullptr;
+// a thread-block cluster: one barrier of all its threads, and each block's
+// shared memory by rank in the cluster
+struct Cluster {
+  std::barrier<>* bar;
+  std::vector<unsigned char*> smem;
+};
+inline thread_local Cluster* clu = nullptr;
+inline thread_local std::optional<std::barrier<>::arrival_token> clu_token;
 inline thread_local cudaError last_error = cudaSuccess;
 inline std::atomic<int> fault{0};
 inline char fault_msg[512];
@@ -102,8 +111,8 @@ inline void wsync() { blk->wbar[warp()]->arrive_and_wait(); }
 
 #define threadIdx (emu::tIdx)
 #define blockIdx (emu::bIdx)
-#define blockDim (emu::bDim)
-#define gridDim (emu::gDim)
+// variables, not macros: cudaLaunchConfig_t has members of these names
+inline dim3 blockDim, gridDim;
 
 inline void __syncthreads() { emu::blk->bar->arrive_and_wait(); }
 
@@ -150,42 +159,63 @@ inline cudaError_t cudaFuncSetAttribute(F, int, int v) {
 inline cudaError_t cudaGetLastError() { auto e = emu::last_error; emu::last_error = cudaSuccess; return e; }
 
 namespace emu {
+// blocks in clusters of cx along x (cx = 1: one block at a time)
 template <class K, class... A>
-void launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
+void launch_cluster(unsigned cx, dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
   const unsigned nt = block.x * block.y * block.z;
-  if (nt > 1024 || nt % 32 || smem > 232448 || grid.y > 65535 || grid.z > 65535) {
+  if (nt > 1024 || nt % 32 || smem > 232448 || grid.y > 65535 || grid.z > 65535 || cx == 0 ||
+      grid.x % cx) {
     last_error = cudaErrorLaunch; return;
   }
-  bDim = block; gDim = grid;
+  blockDim = block; gridDim = grid;
   const int nw = nt / 32;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::vector<unsigned char> mem(smem + 64, 0xFF);  // garbage (NaN) + guard
-        Block* b = new Block();
-        b->bar = new std::barrier<>(nt);
-        for (int w = 0; w < nw; ++w) b->wbar[w] = new std::barrier<>(32);
-        for (int w = 0; w < (nw + 3) / 4; ++w)
-          b->gbar[w] = new std::barrier<>(std::min(128, (int)nt - 128 * w));
+      for (unsigned bx0 = 0; bx0 < grid.x; bx0 += cx) {
+        // garbage (NaN) + guard, a block each
+        std::vector<std::vector<unsigned char>> mem(cx, std::vector<unsigned char>(smem + 64, 0xFF));
+        Cluster c;
+        c.bar = new std::barrier<>(nt * cx);
+        std::vector<Block*> blocks(cx);
+        for (unsigned r = 0; r < cx; ++r) {
+          Block* b = blocks[r] = new Block();
+          b->bar = new std::barrier<>(nt);
+          for (int w = 0; w < nw; ++w) b->wbar[w] = new std::barrier<>(32);
+          for (int w = 0; w < (nw + 3) / 4; ++w)
+            b->gbar[w] = new std::barrier<>(std::min(128, (int)nt - 128 * w));
+          c.smem.push_back(mem[r].data());
+        }
         std::vector<std::thread> th;
-        for (unsigned t = 0; t < nt; ++t)
-          th.emplace_back([&, t]() {
-            tIdx = dim3(t); bIdx = dim3(bx, by, bz);
-            smem_base = mem.data(); smem_size = smem; blk = b;
-            cur.clear(); groups.clear();
-            kernel(args...);
-            b->wbar[t >> 5]->arrive_and_drop();
-            b->gbar[t >> 7]->arrive_and_drop();
-            b->bar->arrive_and_drop();
-          });
+        for (unsigned r = 0; r < cx; ++r)
+          for (unsigned t = 0; t < nt; ++t)
+            th.emplace_back([&, r, t]() {
+              Block* b = blocks[r];
+              tIdx = dim3(t); bIdx = dim3(bx0 + r, by, bz);
+              smem_base = mem[r].data(); smem_size = smem; blk = b; clu = &c;
+              clu_token.reset();
+              cur.clear(); groups.clear();
+              kernel(args...);
+              b->wbar[t >> 5]->arrive_and_drop();
+              b->gbar[t >> 7]->arrive_and_drop();
+              b->bar->arrive_and_drop();
+              c.bar->arrive_and_drop();
+            });
         for (auto& x : th) x.join();
-        for (int i = 0; i < 64; ++i)
-          if (mem[smem + i] != 0xFF) { fail("shared memory written past its end"); break; }
-        for (int w = 0; w < nw; ++w) delete b->wbar[w];
-        for (int w = 0; w < (nw + 3) / 4; ++w) delete b->gbar[w];
-        for (auto* nb : b->nbar) delete nb;
-        delete b->bar; delete b;
+        for (unsigned r = 0; r < cx; ++r)
+          for (int i = 0; i < 64; ++i)
+            if (mem[r][smem + i] != 0xFF) { fail("shared memory written past its end"); break; }
+        for (Block* b : blocks) {
+          for (int w = 0; w < nw; ++w) delete b->wbar[w];
+          for (int w = 0; w < (nw + 3) / 4; ++w) delete b->gbar[w];
+          for (auto* nb : b->nbar) delete nb;
+          delete b->bar; delete b;
+        }
+        delete c.bar;
         if (fault) return;
       }
+}
+template <class K, class... A>
+void launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
+  launch_cluster(1, grid, block, smem, kernel, args...);
 }
 }  // namespace emu

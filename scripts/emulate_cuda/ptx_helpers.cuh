@@ -296,4 +296,32 @@ inline void tma_load_2d(void* dst, const void* map, int x, int y, uint64_t* bar)
   }
   emu_bar_update(bar, 0, -(long long)br * bc * es);
 }
+
+// thread-block clusters: the barrier of all the cluster's threads (arrive,
+// then wait on the same phase), and a peer block's shared memory by its
+// rank (a cluster_map address carries rank + 1 above the 24 offset bits)
+inline void cluster_arrive() {
+  if (emu::clu_token) { emu::fail("barrier.cluster.arrive twice without a wait"); return; }
+  emu::clu_token.emplace(emu::clu->bar->arrive());
+}
+inline void cluster_wait() {
+  if (!emu::clu_token) { emu::fail("barrier.cluster.wait without an arrive"); return; }
+  emu::clu->bar->wait(std::move(*emu::clu_token));
+  emu::clu_token.reset();
+}
+inline uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  if (rank >= emu::clu->smem.size()) { emu::fail("mapa: rank outside the cluster"); return 0; }
+  if (addr >= (1u << 24)) { emu::fail("mapa: not a shared-memory address"); return 0; }
+  return ((rank + 1) << 24) | addr;
+}
+inline float ld_cluster_f32(uint32_t a) {
+  const uint32_t rank = (a >> 24) - 1, off = a & 0xFFFFFF;
+  if ((a >> 24) == 0 || rank >= emu::clu->smem.size() || off % 4 || off + 4 > emu::smem_size) {
+    emu::fail("ld.shared::cluster: not a mapped shared-memory word");
+    return 0.f;
+  }
+  float v;
+  memcpy(&v, emu::clu->smem[rank] + off, 4);
+  return v;
+}
 }  // namespace

@@ -1,11 +1,11 @@
 """Device time of each launch inside the Item Q-Former's blocks on one
 card: B12s / B12c forward and backward at the item-training shape (512
-items, K 32, F 14, hidden 1024, 16 heads), B1 / B2 and the W8A8 blocks B4 /
-B5 / B6 at the sweep's batch (4096 items), and B15 (packed item attention)
+items, K 32, F 14, hidden 1024, 16 heads), B1 / B2 / B3 and the W8A8
+blocks B4 / B5 / B6 at the sweep's batch (4096 items), and B15 (packed item attention)
 at the sweep's two shapes (4096 items, 16 heads of 64, K 32, F 32 and 14);
 bf16, random unit-scale inputs from a seed (``chip_smoke.py``'s own).
 
-    python3 scripts/profile_item_blocks.py [--iters 20] [--only B6,B15]
+    python3 scripts/profile_item_blocks.py [--iters 20] [--only B1,B3]
 
 Each block's C entry makes several launches (GEMMs, the attention kernel,
 LayerNorm).  The script prints each block's time a call from CUDA events and
@@ -97,8 +97,9 @@ def main() -> int:
         xb, **swb, num_heads=HEADS, n_q=K)
     runs["B2 (4096 items)"] = lambda: fq.fused_cross_attention_block(
         xb, memb, kbb, **cwb, num_heads=HEADS, n_q=K, n_kv=F)
-    xq, memq, kbq, _, swq, cwq, fwq = block_inputs(gen, SWEEP_BATCH)
-    swq, cwq, fwq = quantized(swq), quantized(cwq), quantized(fwq)
+    xq, memq, kbq, _, swq, cwq, fw = block_inputs(gen, SWEEP_BATCH)
+    runs["B3 (4096 items)"] = lambda: fq.fused_ffn_block(xq, **fw)
+    swq, cwq, fwq = quantized(swq), quantized(cwq), quantized(fw)
     runs["B4 (4096 items)"] = lambda: pq.fused_self_attention_block_q(
         xq, **swq, num_heads=HEADS, n_q=K)
     runs["B5 (4096 items)"] = lambda: pq.fused_cross_attention_block_q(

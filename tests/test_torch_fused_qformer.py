@@ -272,10 +272,27 @@ def test_blocks_at_widths_off_16_byte_rows(block, d):
     test_torch_kernels_gpu and chip_smoke.py).  On CPU tensors the wrapper
     runs its plain version, held to the JAX kernel in interpret mode on the
     same bf16 values (2 items, K 8, F 6, intermediate 256)."""
+    _check_block_at_width(block, d, 4)
+
+
+@pytest.mark.parametrize("d,heads", [(896, 14), (2304, 18)])
+@pytest.mark.parametrize("block", ["self", "cross", "ffn"])
+def test_blocks_at_the_layer_norm_routes_widths(block, d, heads):
+    """B1-B3 at the widths their LayerNorm routes bring in: 896 (the
+    cluster epilogue, its last tile of 256 columns 128 wide) and 2304 (more
+    than a portable cluster of 8 CTAs: the fp32 sum and a LayerNorm kernel;
+    the kernels are held to these plain versions on both routes on the
+    card, where test_two_pass_layer_norm_routes_by_shape holds the route).
+    The wrapper's plain version against the JAX kernel in interpret mode,
+    as at the widths off 16-byte rows."""
+    _check_block_at_width(block, d, heads)
+
+
+def _check_block_at_width(block, d, heads):
     assert supports_fused(ItemQFormerConfig(hidden_size=d,
-                                            num_attention_heads=4))
+                                            num_attention_heads=heads))
     rng = np.random.RandomState(d)
-    items, n_q, n_kv, inter, heads = 2, 8, 6, 256, 4
+    items, n_q, n_kv, inter = 2, 8, 6, 256
     x, jx = _bf16_array(rng, items, n_q, d, std=1.0)
     mem, jmem = _bf16_array(rng, items, n_kv, d, std=1.0)
     mask = np.ones((items, n_kv), np.float32)

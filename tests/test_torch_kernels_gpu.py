@@ -31,7 +31,10 @@ and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
 and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
 dim and F (C-8).  Head dims above 256 are refused by K1-B14p, naming the
 set.  B4-B6's int8 GEMM is held to gemm_s8_kernel bit for bit; B1-B6 run
-at hidden 1020 and 1032 (C-10).
+at hidden 1020 and 1032 (C-10).  B1-B3 run on each route of their
+LayerNorm (the cluster epilogue at hidden 1024 and at 896, whose last tile
+is ragged; two passes at 2304 and 1020) and repeat bit for bit; the
+cluster epilogue alone is held to the two-pass route within a bf16 ulp.
 """
 
 import pytest
@@ -309,6 +312,117 @@ def test_b3_ffn_block_matches_plain(hopper, items):
     torch.cuda.synchronize()
     assert fq.fused_ffn_block.launches == before + 1
     _check_block(out, fq.fused_ffn_block_plain(x, **w))
+
+
+def _block_weights(g, d, inter=INTER):
+    return (dict(wqkv=_rand(g, 3 * d, d, std=0.03), bqkv=_vec(g, 3 * d),
+                 wo=_rand(g, d, d, std=0.03), bo=_vec(g, d),
+                 ln_gamma=_vec(g, d, 1.0), ln_beta=_vec(g, d)),
+            dict(wq=_rand(g, d, d, std=0.03), bq=_vec(g, d),
+                 wkv=_rand(g, 2 * d, d, std=0.03), bkv=_vec(g, 2 * d),
+                 wo=_rand(g, d, d, std=0.03), bo=_vec(g, d),
+                 ln_gamma=_vec(g, d, 1.0), ln_beta=_vec(g, d)),
+            dict(w1=_rand(g, inter, d, std=0.03), b1=_vec(g, inter),
+                 w2=_rand(g, d, inter, std=0.02), b2=_vec(g, d),
+                 ln_gamma=_vec(g, d, 1.0), ln_beta=_vec(g, d)))
+
+
+@pytest.mark.parametrize("d,heads,items,two_pass", [
+    (1024, 16, 4096, False), (896, 14, 4096, False), (2304, 18, 4096, True),
+    (1024, 16, 1, False)], ids=["cluster", "ragged-cluster", "two-pass",
+                                 "32-rows"])
+def test_b1_b2_b3_on_each_layer_norm_route(hopper, d, heads, items,
+                                           two_pass):
+    """B1-B3 against their plain versions on each route of the residual
+    product's LayerNorm: the cluster epilogue (hidden 1024: 4 CTAs; 896:
+    the last of 4 CTAs 128 columns wide; one item of 32 rows, below one
+    128-row tile) and two passes (2304: more than a portable cluster of 8
+    CTAs); each call repeated for identical bits."""
+    assert fq.two_pass_layer_norm(d, d) is two_pass
+    assert fq.two_pass_layer_norm(d, INTER) is two_pass
+    g = hopper
+    x = _rand(g, items, K, d)
+    mask = _missing_mask(g, items)
+    mem = _rand(g, items, F, d) * mask[..., None].bfloat16()
+    key_bias = ((1.0 - mask) * fq.NEG_INF).contiguous()
+    sw, cw, fw = _block_weights(g, d)
+    sk = dict(num_heads=heads, n_q=K)
+    ck = dict(sk, n_kv=F)
+    for fn, args, w, kw in (
+            ("fused_self_attention_block", (x,), sw, sk),
+            ("fused_cross_attention_block", (x, mem, key_bias), cw, ck),
+            ("fused_ffn_block", (x,), fw, {})):
+        kern = getattr(fq, fn)
+        before = kern.launches
+        out = kern(*args, **w, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        _check_block(out, getattr(fq, fn + "_plain")(*args, **w, **kw))
+        assert torch.equal(out, kern(*args, **w, **kw))
+
+
+def test_two_pass_layer_norm_routes_by_shape(hopper):
+    """The kernels' route for a residual product (unirec_resid_ln_two_pass,
+    csrc/gemm_wide.cuh wl_shape), which the wrappers ask to size their
+    scratch: the cluster epilogue where TMA takes the product's rows (a
+    multiple of 8 inputs) and the residual's (a width that is a multiple of
+    8), and the width is at most 8 x 256."""
+    assert not fq.two_pass_layer_norm(1024, 1024)
+    assert not fq.two_pass_layer_norm(1024, 4096)
+    assert not fq.two_pass_layer_norm(2048, 1024)
+    assert not fq.two_pass_layer_norm(1032, 1032)
+    assert fq.two_pass_layer_norm(2056, 1024)
+    assert fq.two_pass_layer_norm(1020, 1020)
+    assert fq.two_pass_layer_norm(1024, 1020)
+    assert fq.two_pass_layer_norm(1020, 4096)
+
+
+def _within_bf16_rounding(out, ref, atol=1e-5):
+    """|out - ref| <= one bf16 ulp of ref + atol, elementwise: two fp32
+    values a few fp32 ulps apart, each rounded to bf16 (atol covers the
+    outputs near 0, where an fp32 ulp of the unnormalised row is many bf16
+    ulps of the output)."""
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    a, b = out.float(), ref.float()
+    assert torch.isfinite(a).all()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+    assert ((a - b).abs() <= ulp + atol).all()
+
+
+@pytest.mark.parametrize("m,n,k", [(32 * 4096, D, D), (32 * 4096, D, INTER),
+                                   (32 * 1001, 896, D), (32, D, D),
+                                   (4000, 1032, 1032), (4000, 2048, 512)])
+def test_cluster_layer_norm_matches_two_passes(hopper, m, n, k):
+    """WG_BIAS_RESID_LN (one cluster launch: LayerNorm(a . w^T + bias +
+    resid) -> bf16) against WG_BIAS_RESID followed by layer_norm_kernel,
+    through the test entry unirec_gemm_ln_test: the same fp32 sums up to the
+    LayerNorm's order of summation, so within bf16 rounding; a repeat gives
+    the same bits.  Above 2048 columns the cluster launch is refused."""
+    from unirec_tpu_torch.ops._build import load_kernels
+
+    g = hopper
+    a, w = _rand(g, m, k), _rand(g, n, k, std=k ** -0.5)
+    bias, resid = _vec(g, n), _rand(g, m, n)
+    gamma, beta = _vec(g, n, 1.0), _vec(g, n)
+    acc = torch.empty(m, n, device="cuda")
+    outs = [torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+            for _ in range(3)]
+    lib = load_kernels().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    for which, out in zip((0, 1, 1), outs):
+        assert lib.unirec_gemm_ln_test(
+            which, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            resid.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            out.data_ptr(), acc.data_ptr() if which == 0 else None, m, n, k,
+            1e-12, stream) == 0
+    torch.cuda.synchronize()
+    _within_bf16_rounding(outs[1], outs[0])
+    assert torch.equal(outs[1], outs[2])
+    wide = torch.empty(8, 2304, device="cuda", dtype=torch.bfloat16)
+    assert lib.unirec_gemm_ln_test(
+        1, a.data_ptr(), w.data_ptr(), bias.data_ptr(), resid.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), wide.data_ptr(), None, 8, 2304,
+        k, 1e-12, stream) != 0
 
 
 def test_blocks_refuse_fp32_on_the_card(hopper):

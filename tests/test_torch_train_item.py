@@ -103,13 +103,13 @@ def _jax_step(cfg, params, batch, **kw):
     return m
 
 
-def _port_step(cfg, params, batch, **kw):
+def _port_step(cfg, params, batch, hinge_active=None, **kw):
     pt = port_train.ItemQFormerTrainer(cfg, _tc(), device="cpu",
                                        fused_reference_forwards=False)
     state = pt.init_state(params=item_qformer_state_dict_from_flax(params))
     step = port_train.make_train_step(state.model, return_grads=True, seed=3,
                                       **kw)
-    _, m = step(state, batch)
+    _, m = step(state, batch, hinge_active)
     return m
 
 
@@ -129,6 +129,35 @@ def test_train_step_loss_and_grads_match_jax(data, jax_params, fused_anchor):
     for name, g in pm["grads"].items():
         np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=1e-5,
                                    rtol=2e-3, err_msg=name)
+
+
+def test_train_step_hinge_hook(data, jax_params):
+    """The parity instrumentation of the step: ``hinge_arguments`` are the
+    arguments whose hinge is the JAX step's contrastive term; a
+    ``hinge_active`` equal to their sign gives the same loss and gradients
+    as the step without it, and one sample moved to the other side changes
+    the contrastive term by its argument over the batch."""
+    pairs = port_train.build_triplet_pairs(data[4], _caches(data)[1].id_to_row)
+    batch = _batch(data, pairs[:8], np.arange(10, 18))
+    jm = _jax_step(CFG, jax_params, batch)
+    pm = _port_step(CFG, jax_params, batch)
+    arg = pm["hinge_arguments"]
+    assert arg.shape == (8,) and not arg.requires_grad
+    np.testing.assert_allclose(float(torch.clamp(arg, min=0.0).mean()),
+                               float(jm["contrastive"]), rtol=2e-5)
+    active = (arg > 0).float()
+    same = _port_step(CFG, jax_params, batch, hinge_active=active)
+    assert torch.equal(same["loss"], pm["loss"])
+    for name, g in pm["grads"].items():
+        torch.testing.assert_close(same["grads"][name], g, rtol=0, atol=0,
+                                   msg=name)
+    i = int(torch.argmin(arg.abs()))
+    moved = active.clone()
+    moved[i] = 1.0 - moved[i]
+    other = _port_step(CFG, jax_params, batch, hinge_active=moved)
+    np.testing.assert_allclose(
+        float(other["contrastive"] - pm["contrastive"]),
+        float((moved[i] - active[i]) * arg[i] / 8), rtol=1e-4, atol=1e-7)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "int8"])

@@ -1,8 +1,7 @@
 // The warpgroup GEMM of the Item Q-Former kernels, for bf16 and int8
 // operands: the projections of the trainable blocks B12s / B12c
-// (fused_qformer_vjp.cu), every int8 product of the sweep's W8A8 blocks
-// B4-B6 and the bf16 products of B1-B3 at widths gemm_bf16.cuh does not
-// take (qformer_blocks.cu).
+// (fused_qformer_vjp.cu), every product of the sweep's bf16 blocks B1-B3
+// and of their W8A8 forms B4-B6 (qformer_blocks.cu).
 //
 //   C[M, N] = epilogue(A[M, K] . W[N, K]^T), both operands K-contiguous (W
 //   is the torch Linear layout), bf16 with fp32 sums or int8 codes with
@@ -11,10 +10,11 @@
 //
 // What bounds it: tensor-core arithmetic (x . Wqkv at 512 items is 103
 // GFLOP against 130 MB; B6's two products at 4096 items 1.1 TOP each
-// against under 1 GB).  gemm_bf16.cuh's mma.sync tiles ran these products
-// at 19-27% of the bf16 peak, and no mma.sync tiling did much better on this
-// card (scripts/bench_gemm_wide.py, PERF.md): mma.sync issues from each
-// warp, 16 x 8 x 16 at a time.  Here the warpgroup product wgmma does it:
+// against under 1 GB).  The mma.sync GEMM B1-B3 ran on before ran these
+// products at 19-27% of the bf16 peak, and no mma.sync tiling did much
+// better on this card (scripts/bench_gemm_wide.py, PERF.md): mma.sync issues
+// from each warp, 16 x 8 x 16 at a time.  Here the warpgroup product wgmma
+// does it:
 //   * 128 x 256 block tiles (128 x 128 where an int8 product folds several
 //     chunks, below), two consumer warpgroups of 64 x BN (BN / 2 fp32 or
 //     int32 accumulators a thread), each k-step one wgmma.m64nBNk16 (bf16)
@@ -49,7 +49,12 @@
 //   WG_BIAS           + bias -> bf16 (the projections)
 //   WG_F32            the bare fp32 sum (the backward's dctx = dout . Wo^T)
 //   WG_BIAS_GELU      + bias -> tanh gelu in fp32 -> bf16 (B3's up projection)
-//   WG_BIAS_RESID     + bias + resid -> fp32 (B1-B3's Wo and down projection)
+//   WG_BIAS_RESID     + bias + resid -> fp32 (B1-B3's Wo and down projection
+//                     where WG_BIAS_RESID_LN does not apply; LayerNorm follows
+//                     in a kernel of its own)
+//   WG_BIAS_RESID_LN  y = + bias + resid in fp32, then each row's LayerNorm
+//                     (y - mean) * rsqrt(var + eps) * gamma + beta -> bf16
+//                     (B1-B3's Wo and down projection, N <= 2048; below)
 // int32 sums (int8 codes), dequantized as (float(acc) * rs) * cs with the
 // row scale rs (row_scale[row * rs_stride]) and the column scale cs, rounded
 // with __fmul_rn / __fadd_rn (no contraction): the JAX kernels' fp32
@@ -70,6 +75,31 @@
 //                     the whole 4096) needs no fp32 registers of its own and
 //                     takes the 128 x 256 tile; several fold into BN / 2 fp32
 //                     registers beside the int32 ones, which fit at 128 x 128.
+//
+// The LayerNorm in the residual GEMM's epilogue (WG_BIAS_RESID_LN): a row
+// spans all N columns, more than one 128 x 256 tile, and 128 x 1024 fp32
+// sums do not fit one SM's registers.  So the GEMM launches as clusters of
+// ceil(N / 256) CTAs along N (at N 1024: 4 CTAs on 4 SMs of one GPC), which
+// together hold whole rows.  While the products run, the producer thread
+// also loads the tile's residual by TMA and the producer warpgroup's other
+// warps its bias, gamma and beta columns, into shared memory beside a
+// 3-stage ring (read in the epilogue from global memory, with the sums
+// holding most registers, the residual's latency was exposed).  Each CTA
+// adds bias and residual to its sums in registers, reduces its columns of
+// each row to a partial sum (in column
+// order a thread, then over the 4 threads of a quad), writes the partials
+// to its shared memory and meets the cluster at a barrier; every CTA then
+// reads all partials of its rows from the cluster's shared memory (mapa +
+// ld.shared::cluster) and sums them in CTA-rank order: the mean.  The same
+// for the centred sum of squares gives the variance (the two-pass form of
+// the JAX kernels' _layer_norm_rows: mean, then mean((y - mu)^2), then
+// rsqrt(var + eps)), and the CTA writes (y - mu) * r * gamma + beta as bf16
+// straight to the output.  The fp32 pre-LN sum never reaches memory (537 MB
+// and a separate LayerNorm pass at 4096 items), and a fixed order gives
+// identical bits on repeat.  Above 8 CTAs (N > 2048, the portable cluster
+// size) and where TMA cannot take the rows (K or N not a multiple of 8),
+// WG_BIAS_RESID and a LayerNorm kernel do the same in two passes
+// (qformer_blocks.cu).
 //
 // Everything is in an unnamed namespace: each source that includes this
 // header gets its own copy, and nothing is exported.
@@ -97,6 +127,7 @@ enum {
   WG_F32,
   WG_BIAS_GELU,
   WG_BIAS_RESID,
+  WG_BIAS_RESID_LN,
   EPQ_BIAS,
   EPQ_BIAS_F32,
   EPQ_BIAS_RESID,
@@ -106,11 +137,14 @@ enum {
 // what an epilogue reads besides the sums (unused fields may be null)
 struct WgEpi {
   const float* bias;       // [N]
-  const bf16* resid;       // [M, N]: the *_RESID epilogues
+  const bf16* resid;       // [M, N]: the *_RESID epilogues (WG_BIAS_RESID_LN: by TMA)
   const float* row_scale;  // int8: [M, rs_stride]
   int rs_stride;
   const float* col_scale;  // int8: [N]
   int chunk;               // EPQ_CHUNKED_RESID: columns of K a row scale covers
+  const float* gamma;      // WG_BIAS_RESID_LN: [N]
+  const float* beta;       // WG_BIAS_RESID_LN: [N]
+  float eps;               // WG_BIAS_RESID_LN
 };
 
 template <typename T>
@@ -341,35 +375,163 @@ __device__ __forceinline__ void wg_flush(const uint32_t* stage, void* C, int t, 
 constexpr int WT_BM = 128;
 constexpr int WT_STAGES = 4;
 constexpr int WT_THREADS = 384;  // producer warpgroup + two consumers
-// the ring, its barriers, and room to align it to 1024 bytes
-template <int BN>
-constexpr int wt_smem() {
-  return WT_STAGES * (WT_BM + BN) * WG_ROW + 16 * WT_STAGES + 1024;
+// WG_BIAS_RESID_LN: a 3-stage ring, beside which the tile's residual (BN / 64
+// swizzled boxes of WT_BM rows x 128 bytes) and its bias, gamma and beta
+// columns arrive while the products run
+template <int EPI>
+__host__ __device__ constexpr int wt_stages() {
+  return EPI == WG_BIAS_RESID_LN ? 3 : WT_STAGES;
 }
+// bytes of WG_BIAS_RESID_LN's own shared memory: the residual tile, its
+// barrier, the partial sums [2][WT_BM] and bias / gamma / beta [3][BN]
+template <int EPI, int BN>
+__host__ __device__ constexpr int wl_smem() {
+  return EPI == WG_BIAS_RESID_LN ? BN * 2 * WT_BM + 8 + 2 * WT_BM * 4 + 3 * BN * 4 : 0;
+}
+// the ring, its barriers, WG_BIAS_RESID_LN's own and room to align the ring
+// to 1024 bytes
+template <int EPI, int BN>
+constexpr int wt_smem() {
+  return wt_stages<EPI>() * ((WT_BM + BN) * WG_ROW + 16) + wl_smem<EPI, BN>() + 1024;
+}
+
+// WG_BIAS_RESID_LN (layout as wg_fold), in place of wg_stage: y = acc +
+// bias + resid in acc, each row's mean and variance over the cluster's N
+// columns, and the normalised row as bf16 into `stage` (for wg_flush).
+// res: the tile's residual (swizzled boxes of 64 columns, zeros past M and
+// N), vec: its bias, gamma and beta columns ([3][BN]), both in shared
+// memory; part: this CTA's [2][WT_BM] partial sums (sums, then centred sums
+// of squares); crow the CTA row of the thread's first sum.  Every thread of
+// the cluster meets it at two barriers here and arrives at a third, which it
+// waits on after its flush (wl_done): no CTA leaves while a peer may still
+// read its partials.
+template <int NA>
+__device__ __forceinline__ void wg_stage_ln(float (&acc)[NA], const WgEpi& ep,
+                                            const unsigned char* res, const float* vec,
+                                            uint32_t* stage, float* part, int crow, int n0,
+                                            int N) {
+  constexpr int BN = 2 * NA;
+  constexpr int P = wg_pitch<WG_BIAS_RESID_LN, BN>();
+  const int t2 = (threadIdx.x & 3) * 2;
+  const int lrow = crow & 63;
+  const int ncta = gridDim.x;  // the cluster spans the grid's columns
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NA / 4; ++n) {
+    const int c = n * 8 + t2;  // the tile's column
+    if (n0 + c >= N) continue;
+    const bool two = n0 + c + 1 < N;
+    const bf16* box = reinterpret_cast<const bf16*>(res + (n / 8) * WT_BM * WG_ROW);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const __nv_bfloat162 rb =
+          *reinterpret_cast<const __nv_bfloat162*>(box + wg_at<bf16>(crow + 8 * hf, c % 64));
+      const float r[2] = {__bfloat162float(rb.x), __bfloat162float(rb.y)};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * n + 2 * hf + e;
+        if (e == 0 || two) {
+          acc[i] = __fadd_rn(acc[i] + vec[c + e], r[e]);
+          s[hf] += acc[i];
+        }
+      }
+    }
+  }
+  auto cluster_rows = [&](float (&v)[2], int half) {  // v: this thread's partials -> totals
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      v[hf] += __shfl_xor_sync(0xffffffffu, v[hf], 1);
+      v[hf] += __shfl_xor_sync(0xffffffffu, v[hf], 2);
+      if (t2 == 0) part[half * WT_BM + crow + 8 * hf] = v[hf];
+    }
+    cluster_arrive();
+    cluster_wait();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const uint32_t a = smem_addr(part + half * WT_BM + crow + 8 * hf);
+      float total = 0.f;
+      for (int r = 0; r < ncta; ++r) total += ld_cluster_f32(cluster_map(a, r));
+      v[hf] = total;
+    }
+  };
+  cluster_rows(s, 0);
+  const float mu[2] = {s[0] / (float)N, s[1] / (float)N};
+  float q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NA / 4; ++n) {
+    const int c = n * 8 + t2;
+    if (n0 + c >= N) continue;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (e == 0 || n0 + c + 1 < N) {
+          const float x = acc[4 * n + 2 * hf + e] - mu[hf];
+          q[hf] += x * x;
+        }
+  }
+  cluster_rows(q, 1);
+  cluster_arrive();  // done with the peers' partials (wl_done waits)
+  const float rs[2] = {1.0f / sqrtf(q[0] / (float)N + ep.eps),
+                       1.0f / sqrtf(q[1] / (float)N + ep.eps)};
+#pragma unroll
+  for (int n = 0; n < NA / 4; ++n) {
+    const int c = n * 8 + t2;
+    if (n0 + c >= N) continue;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        v[e] = (acc[4 * n + 2 * hf + e] - mu[hf]) * rs[hf] * vec[BN + c + e] + vec[2 * BN + c + e];
+      const __nv_bfloat162 o = __floats2bfloat162_rn(v[0], v[1]);
+      stage[(lrow + 8 * hf) * P + n * 4 + t2 / 2] = *reinterpret_cast<const uint32_t*>(&o);
+    }
+  }
+}
+
+// the cluster barriers of WG_BIAS_RESID_LN that a thread without sums (the
+// producer warpgroup) takes part in, and the last one's wait
+__device__ __forceinline__ void wl_join() {
+  cluster_arrive();
+  cluster_wait();
+  cluster_arrive();
+  cluster_wait();
+  cluster_arrive();
+}
+__device__ __forceinline__ void wl_done() { cluster_wait(); }
 
 template <typename T, int EPI, int BN, bool FOLD>
 __global__ void __launch_bounds__(WT_THREADS, 1)
 gemm_tma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                const __grid_constant__ CUtensorMap tma_w, const WgEpi ep, void* __restrict__ C,
+                const __grid_constant__ CUtensorMap tma_w,
+                const __grid_constant__ CUtensorMap tma_r, const WgEpi ep, void* __restrict__ C,
                 int M, int N, int K) {
   constexpr int BK = WG_ROW / (int)sizeof(T);  // values of K a k-tile
-  static_assert(wg_stage_bytes<EPI, BN>() <= WT_STAGES * (WT_BM + BN) * WG_ROW, "staging");
+  constexpr bool LN = EPI == WG_BIAS_RESID_LN;
+  constexpr int ST = wt_stages<EPI>();
+  static_assert(wg_stage_bytes<EPI, BN>() <= ST * (WT_BM + BN) * WG_ROW, "staging");
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t s0 = smem_addr(smem);
   unsigned char* As = smem + ((1024 - (s0 & 1023)) & 1023);
-  unsigned char* Ws = As + WT_STAGES * WT_BM * WG_ROW;
-  uint64_t* full = reinterpret_cast<uint64_t*>(Ws + WT_STAGES * BN * WG_ROW);
-  uint64_t* empty = full + WT_STAGES;
+  unsigned char* Ws = As + ST * WT_BM * WG_ROW;
+  unsigned char* Rs = Ws + ST * BN * WG_ROW;  // WG_BIAS_RESID_LN: the residual
+  uint64_t* full = reinterpret_cast<uint64_t*>(Rs + (LN ? BN * 2 * WT_BM : 0));
+  uint64_t* empty = full + ST;
+  uint64_t* rbar = empty + ST;  // WG_BIAS_RESID_LN: residual and vectors landed
+  float* part = reinterpret_cast<float*>(rbar + 1);
+  float* vec = part + 2 * WT_BM;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int m0 = blockIdx.y * WT_BM;
   const int n0 = blockIdx.x * BN;
   const int k_tiles = (K + BK - 1) / BK;
   if (tid == 0) {
-    for (int s = 0; s < WT_STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
+    if constexpr (LN) mbar_init(rbar, 1 + 96);  // the TMA thread, warps 1-3
     mbar_fence_init();
   }
   __syncthreads();
@@ -377,12 +539,32 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tma_a,
   if (wg == 0) {  // producer
     if (tid == 0) {
       for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = kt % WT_STAGES;
-        if (kt >= WT_STAGES) mbar_wait(&empty[s], (kt / WT_STAGES - 1) & 1);
+        const int s = kt % ST;
+        if (kt >= ST) mbar_wait(&empty[s], (kt / ST - 1) & 1);
         mbar_arrive_expect(&full[s], (WT_BM + BN) * WG_ROW);
         tma_load_2d(As + s * WT_BM * WG_ROW, &tma_a, kt * BK, m0, &full[s]);
         tma_load_2d(Ws + s * BN * WG_ROW, &tma_w, kt * BK, n0, &full[s]);
+        if constexpr (LN) {
+          if (kt == min(ST, k_tiles) - 1) {  // the ring is filled: the residual
+            mbar_arrive_expect(rbar, BN * 2 * WT_BM);
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load_2d(Rs + j * WT_BM * WG_ROW, &tma_r, n0 + 64 * j, m0, rbar);
+          }
+        }
       }
+    }
+    if constexpr (LN) {
+      if (tid >= 32) {  // warps 1-3: the tile's bias, gamma and beta
+        for (int c = tid - 32; c < BN; c += 96) {
+          const bool in = n0 + c < N;
+          vec[c] = in ? ep.bias[n0 + c] : 0.f;
+          vec[BN + c] = in ? ep.gamma[n0 + c] : 0.f;
+          vec[2 * BN + c] = in ? ep.beta[n0 + c] : 0.f;
+        }
+        mbar_arrive(rbar);
+      }
+      wl_join();
+      wl_done();
     }
     return;
   }
@@ -397,19 +579,25 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tma_a,
 #pragma unroll
   for (int i = 0; i < (FOLD ? BN / 2 : 1); ++i) facc[i] = 0.f;
   for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt % WT_STAGES;
-    mbar_wait(&full[s], (kt / WT_STAGES) & 1);
+    const int s = kt % ST;
+    mbar_wait(&full[s], (kt / ST) & 1);
     wg_ktile<FOLD>(acc, facc, smem_addr(As + s * WT_BM * WG_ROW + cw * 64 * WG_ROW),
                    smem_addr(Ws + s * BN * WG_ROW), kt * BK, K, ep, row0, M);
     wgmma_wait<1>();  // tile kt - 1's products are done: release its stage
-    if (kt > 0 && (tid & 127) == 0) mbar_arrive(&empty[(kt - 1) % WT_STAGES]);
+    if (kt > 0 && (tid & 127) == 0) mbar_arrive(&empty[(kt - 1) % ST]);
   }
   wgmma_wait<0>();
   named_barrier(1, 256);  // both consumers are done with the ring
   uint32_t* stage = reinterpret_cast<uint32_t*>(As) + cw * 64 * wg_pitch<EPI, BN>();
-  wg_stage<EPI, FOLD>(acc, facc, ep, stage, row0, n0, M, N);
+  if constexpr (LN) {
+    mbar_wait(rbar, 0);
+    wg_stage_ln(acc, ep, Rs, vec, stage, part, row0 - m0, n0, N);
+  } else {
+    wg_stage<EPI, FOLD>(acc, facc, ep, stage, row0, n0, M, N);
+  }
   named_barrier(2 + cw, 128);
   wg_flush<EPI, BN>(stage, C, tid & 127, m0 + cw * 64, n0, M, N);
+  if constexpr (LN) wl_done();
 }
 
 typedef CUresult (*WtEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -452,16 +640,40 @@ cudaError_t wt_tensor_map(CUtensorMap* map, const void* base, int rows, int cols
 template <typename T, int EPI, int BN, bool FOLD>
 cudaError_t launch_gemm_tma(const void* A, const void* W, const WgEpi& ep, void* C, int M, int N,
                             int K, cudaStream_t stream) {
-  CUtensorMap ta, tw;
+  CUtensorMap ta, tw, tr;  // tr: WG_BIAS_RESID_LN's residual [M, N]
   cudaError_t err = wt_tensor_map<T>(&ta, A, M, K, WT_BM);
   if (err == cudaSuccess) err = wt_tensor_map<T>(&tw, W, N, K, BN);
   if (err != cudaSuccess) return err;
-  constexpr int smem = wt_smem<BN>();
+  if constexpr (EPI == WG_BIAS_RESID_LN)
+    err = wt_tensor_map<bf16>(&tr, ep.resid, M, N, WT_BM);
+  else
+    tr = ta;
+  if (err != cudaSuccess) return err;
+  constexpr int smem = wt_smem<EPI, BN>();
   err = cudaFuncSetAttribute(gemm_tma_kernel<T, EPI, BN, FOLD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + WT_BM - 1) / WT_BM);
-  gemm_tma_kernel<T, EPI, BN, FOLD><<<grid, WT_THREADS, smem, stream>>>(ta, tw, ep, C, M, N, K);
+  if constexpr (EPI == WG_BIAS_RESID_LN) {  // a cluster spans the columns
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(WT_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = grid.x;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, gemm_tma_kernel<T, EPI, BN, FOLD>, ta, tw, tr, ep, C, M, N,
+                             K);
+    if (err != cudaSuccess) return err;
+  } else {
+    gemm_tma_kernel<T, EPI, BN, FOLD><<<grid, WT_THREADS, smem, stream>>>(ta, tw, tr, ep, C, M, N,
+                                                                        K);
+  }
   return cudaGetLastError();
 }
 
@@ -585,12 +797,46 @@ bool wt_takes(const void* A, const void* W, int K) {
 template <int EPI>
 cudaError_t gemm_wide(const void* A, const void* W, const float* bias, void* C, int M, int N,
                       int K, cudaStream_t stream, const void* resid = nullptr) {
-  static_assert(EPI < EPQ_BIAS, "bf16 epilogues");
+  static_assert(EPI < WG_BIAS_RESID_LN, "bf16 epilogues of one CTA");
   WgEpi ep{};
   ep.bias = bias;
   ep.resid = static_cast<const bf16*>(resid);
   return wt_takes<bf16>(A, W, K) ? launch_gemm_tma<bf16, EPI, 256, false>(A, W, ep, C, M, N, K, stream)
                                  : launch_gemm_edge<bf16, EPI, false>(A, W, ep, C, M, N, K, stream);
+}
+
+// the most CTAs of a cluster that every Hopper part schedules, and the
+// columns of each of WG_BIAS_RESID_LN's tiles
+constexpr int WL_MAX_CLUSTER = 8;
+constexpr int WL_BN = 256;
+
+// whether gemm_resid_ln takes a residual product of N columns over K
+// inputs: TMA takes rows of K (A and W) and of N (the residual [M, N]) bf16
+// values, and one portable cluster of WL_BN-column tiles spans the N columns.
+// The one copy of this rule: the wrappers ask it through
+// unirec_resid_ln_two_pass (qformer_blocks.cu)
+bool wl_shape(int N, int K) {
+  return K % 8 == 0 && N % 8 == 0 && N <= WL_MAX_CLUSTER * WL_BN;
+}
+
+// wl_shape, and the operands 16-byte aligned as TMA needs them
+bool wl_takes(const void* A, const void* W, const void* resid, int N, int K) {
+  return wl_shape(N, K) && wt_takes<bf16>(A, W, K) && (uintptr_t)resid % 16 == 0;
+}
+
+// out [M, N] bf16 = LayerNorm(A . W^T + bias + resid) with gamma, beta and
+// eps (WG_BIAS_RESID_LN), bf16 operands; only where wl_takes holds, which
+// the caller checks
+cudaError_t gemm_resid_ln(const void* A, const void* W, const float* bias, const void* resid,
+                          const float* gamma, const float* beta, float eps, void* out, int M,
+                          int N, int K, cudaStream_t stream) {
+  WgEpi ep{};
+  ep.bias = bias;
+  ep.resid = static_cast<const bf16*>(resid);
+  ep.gamma = gamma;
+  ep.beta = beta;
+  ep.eps = eps;
+  return launch_gemm_tma<bf16, WG_BIAS_RESID_LN, WL_BN, false>(A, W, ep, out, M, N, K, stream);
 }
 
 // C = epilogue(A . W^T), int8 codes (EPQ_*; ep as WgEpi says)

@@ -4,7 +4,8 @@
 // packing of its A fragments (one rounding, or a hi + lo pair), and the int8
 // mma.sync.m16n8k32; the warpgroup products wgmma.m64n128k16 / m64n256k16
 // (bf16) and m64n128k32 / m64n256k32 (int8) from swizzled shared-memory
-// tiles, mbarriers and 2-D TMA tile loads.
+// tiles, mbarriers and 2-D TMA tile loads; the cluster barrier and reads of
+// a peer CTA's shared memory (distributed shared memory).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major) a[0]: (g, 2t..2t+1)   a[1]: (g + 8, 2t..2t+1)
@@ -340,6 +341,36 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x, i
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
       : "memory");
+}
+
+// ---------------------------------------------- thread-block clusters ----
+// The CTAs of a cluster (cudaLaunchAttributeClusterDimension) run at once
+// on neighbouring SMs and can read each other's shared memory.  Every
+// thread of the cluster takes part in each cluster barrier: arrive
+// (release: its earlier writes to shared memory become visible to the
+// cluster), then wait (acquire) until every thread has arrived.
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// the address of the same shared-memory word (addr, this CTA's) in the
+// cluster's CTA `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// a float from a cluster_map address
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 }  // namespace

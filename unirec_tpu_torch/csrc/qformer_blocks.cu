@@ -27,18 +27,27 @@
 // three blocks are bound by tensor-core arithmetic.
 //
 // Design (every GEMM hand-written here):
-//   * gemm_bf16_kernel (in gemm_bf16.cuh), B1-B3's products at widths that
-//     are whole 16-byte rows (every production width):
-//     C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with
-//     K contiguous (W is the torch Linear layout, packed once on the host),
-//     128x128x32 block tiles, 8 warps of 64x32, mma.sync m16n8k16 with fp32
-//     accumulation, ldmatrix from padded shared rows, a 3-stage cp.async
-//     ring.  Ragged M (the 32-row layer-0 self block, B*14 memory rows), N
-//     and K edges are zero-filled on load and masked on store.  Epilogues:
-//     +bias -> bf16 (QKV, Q, KV), +bias -> tanh gelu in fp32 -> bf16 (FFN
-//     up), +bias +residual -> fp32 (Wo, FFN down).  At other widths (hidden
-//     1020: C-10) the same products and epilogues run on gemm_wide.cuh's
-//     warpgroup kernels (gemm_any).
+//   * every bf16 product of B1-B3 runs on gemm_wide.cuh's warpgroup GEMM
+//     (gemm_wide): C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with K
+//     contiguous (W is the torch Linear layout, packed once on the host),
+//     fp32 sums.  Rows TMA takes (K a multiple of 8, every production width)
+//     run on gemm_tma_kernel: a TMA producer warp, two wgmma.m64n256k16
+//     consumer warpgroups, a 4-stage mbarrier ring; other widths (hidden
+//     1020: C-10) on gemm_edge_kernel.  Ragged M (the 32-row layer-0 self
+//     block, B*14 memory rows), N and K edges are zero-filled on load and
+//     masked on store.  Epilogues round where the JAX kernels do: +bias ->
+//     bf16 (QKV, Q, KV), +bias -> tanh gelu in fp32 -> bf16 (FFN up).
+//   * the residual product (Wo, FFN down) and the LayerNorm, by shape
+//     (resid_ln): where TMA takes the rows and d <= 2048 (every width the
+//     configs use: hidden 1024, and 896 or 1032 with a ragged last tile),
+//     one launch of WG_BIAS_RESID_LN, a cluster of ceil(d / 256) CTAs that
+//     adds bias and residual in fp32, exchanges each row's partial sums
+//     through distributed shared memory and writes the LayerNorm output as
+//     bf16 (gemm_wide.cuh); the fp32 pre-LN sum never reaches memory.  Where
+//     TMA cannot take the rows (hidden 1020: d or the product's K not a
+//     multiple of 8) or d > 2048 (more than the 8 CTAs of a portable
+//     cluster), WG_BIAS_RESID writes it in fp32 and layer_norm_kernel
+//     normalises it.
 //   * the attention is the per-item core of item_attention.cuh (shared with
 //     B12) in its B1 rounding, the rounding points of _group_attention:
 //     bf16(q * scale) before the product, scores and softmax in fp32 with
@@ -50,13 +59,15 @@
 //     packed into 64-row tiles, S and P V run on tensor cores, and any head
 //     dim and any number of fields is taken.
 //   * layer_norm_kernel: one warp per row, fp32 mean / centred variance /
-//     rsqrt, output bf16.
+//     rsqrt, output bf16 (the two-pass route above, and B4-B6).
 // What this design spills to HBM that the TPU kernels kept on chip, at 4096
-// items (131,072 query rows): B1 the qkv buffer [rows, 3072] bf16 (805 MB),
-// ctx [rows, 1024] bf16 (268 MB) and the fp32 pre-LN sum (537 MB); B2 q
-// (268 MB), kv [57,344, 2048] bf16 (235 MB), ctx and the pre-LN sum; B3 the
-// gelu output [rows, 4096] bf16 (1.07 GB) and the pre-LN sum.  Keeping them
-// on the SM (wgmma, TMA, fused epilogues) is later work.
+// items (131,072 query rows): B1 the qkv buffer [rows, 3072] bf16 (805 MB)
+// and ctx [rows, 1024] bf16 (268 MB); B2 q (268 MB), kv [57,344, 2048] bf16
+// (235 MB) and ctx; B3 the gelu output h [rows, 4096] bf16, written by the
+// up projection and read by the down projection (a 2.15 GB round trip,
+// about 0.64 ms at 3.35 TB/s), which the JAX kernel keeps in VMEM.  Keeping
+// h on the SM is next: a fused FFN whose cluster shares each chunk of the
+// up projection's output, as the LayerNorm shares its partial sums.
 //
 // W8A8 blocks: the same pipeline with every product on gemm_wide.cuh's int8
 // TMA + wgmma GEMM (wgmma.m64n256k32.s32.s8.s8, twice the bf16 rate; its
@@ -83,7 +94,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "gemm_bf16.cuh"
 #include "gemm_wide.cuh"
 #include "item_attention.cuh"
 
@@ -146,9 +156,13 @@ bool attention_shape_ok(int items, int heads, int nq, int nkv, int d) {
 // __fmul_rn / __fadd_rn so that no multiply-add is contracted: these are the
 // JAX kernels' fp32 rounding points (ops/fused_qformer_int8.py _mm_q).
 
-// gemm_s8_kernel keeps the bf16 GEMM's byte layout: a 64-byte int8 k-tile
-// is a 32-value bf16 one, so loads, ldmatrix addresses and the 80-byte
-// padded rows are the same; two m16n8k32 steps cover a tile.
+// gemm_s8_kernel: 128 x 128 block tiles, 8 warps of 64 x 32, 64-byte int8
+// k-tiles in 80-byte padded shared rows (ldmatrix conflict-free), a 3-stage
+// cp.async ring; two m16n8k32 steps cover a k-tile.
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int STAGES = 3;
+constexpr int GEMM_THREADS = 256;
 constexpr int QBK = 64;                  // int8 values of K per tile
 constexpr int QLDS = QBK + 16;           // padded shared row in bytes
 constexpr int QA_TILE = BM * QLDS;
@@ -535,17 +549,19 @@ WgEpi epq(const float* row_scale, int rs_stride, const float* col_scale, const f
   return e;
 }
 
-// B1-B3's products: gemm_bf16.cuh where the rows are whole 16-byte chunks
-// (every production width), gemm_wide.cuh's kernels otherwise (C-10)
-template <int EPI>
-cudaError_t gemm_any(const void* A, const void* W, const float* bias, const void* resid, void* C,
+// B1-B3's residual product and LayerNorm, out [M, N] bf16 = LayerNorm(A .
+// W^T + bias + resid), on the route their shape takes: one cluster launch
+// that writes the LayerNorm itself where gemm_wide.cuh's wl_takes (TMA
+// rows: K and N multiples of 8; N <= 2048), else the fp32 sum into acc [M,
+// N] and layer_norm_kernel (acc may be null on the cluster route)
+cudaError_t resid_ln(const void* A, const void* W, const float* bias, const void* resid,
+                     const float* gamma, const float* beta, float eps, void* out, float* acc,
                      int M, int N, int K, cudaStream_t stream) {
-  if (gemm_shape_ok(M, N, K)) return gemm<EPI>(A, W, bias, resid, C, M, N, K, stream);
-  constexpr int WEPI = EPI == EPI_BIAS        ? WG_BIAS
-                       : EPI == EPI_BIAS_GELU ? WG_BIAS_GELU
-                       : EPI == EPI_BIAS_RESID ? WG_BIAS_RESID
-                                               : WG_F32;
-  return gemm_wide<WEPI>(A, W, bias, C, M, N, K, stream, resid);
+  if (wl_takes(A, W, resid, N, K))
+    return gemm_resid_ln(A, W, bias, resid, gamma, beta, eps, out, M, N, K, stream);
+  if (acc == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t err = gemm_wide<WG_BIAS_RESID>(A, W, bias, acc, M, N, K, stream, resid);
+  return err != cudaSuccess ? err : layer_norm(acc, gamma, beta, out, M, N, eps, stream);
 }
 
 bool gemm_s8_shape_ok(long long m, int n, int k) {
@@ -561,8 +577,16 @@ bool gemm_s8_shape_ok(long long m, int n, int k) {
     if (e_ != cudaSuccess) return (int)e_;   \
   } while (0)
 
+// B1-B3's scratch acc (the fp32 pre-LN sum [rows, d]) is read only where
+// resid_ln takes the two-pass route (d > 2048 or K not a multiple of 8) and
+// may be null elsewhere.  The wrappers ask this entry which route a residual
+// product of n columns over k inputs takes (1: two passes, acc needed), for
+// 16-byte aligned operands, which they check.
+extern "C" int unirec_resid_ln_two_pass(int n, int k) { return wl_shape(n, k) ? 0 : 1; }
+
+//
 // B1.  x, out [items*nq, d]; wqkv [3d, d] (rows Wq | Wk | Wv); wo [d, d];
-// scratch qkv [items*nq, 3d] bf16, ctx [items*nq, d] bf16, acc [items*nq, d] fp32.
+// scratch qkv [items*nq, 3d] bf16, ctx [items*nq, d] bf16, acc.
 extern "C" int unirec_qformer_self_block(const void* x, const void* wqkv, const float* bqkv,
                                          const void* wo, const float* bo, const float* gamma,
                                          const float* beta, void* out, void* qkv, void* ctx,
@@ -573,16 +597,15 @@ extern "C" int unirec_qformer_self_block(const void* x, const void* wqkv, const 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, hd = d / heads;
-  UNIREC_TRY(gemm_any<EPI_BIAS>(x, wqkv, bqkv, nullptr, qkv, m, 3 * d, d, s));
+  UNIREC_TRY(gemm_wide<WG_BIAS>(x, wqkv, bqkv, qkv, m, 3 * d, d, s));
   UNIREC_TRY(item_attention<IA_B1>(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items,
                                    heads, nq, nq, hd, scale, s));
-  UNIREC_TRY(gemm_any<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
-  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+  return (int)resid_ln(ctx, wo, bo, x, gamma, beta, eps, out, acc, m, d, d, s);
 }
 
 // B2.  x, out [items*nq, d]; mem [items*nkv, dm]; key_bias [items, nkv] fp32;
 // wq [d, d]; wkv [2d, dm] (rows Wk | Wv); wo [d, d];
-// scratch q [items*nq, d], kv [items*nkv, 2d], ctx [items*nq, d] bf16, acc fp32.
+// scratch q [items*nq, d], kv [items*nkv, 2d], ctx [items*nq, d] bf16, acc.
 extern "C" int unirec_qformer_cross_block(const void* x, const void* mem, const float* key_bias,
                                           const void* wq, const float* bq, const void* wkv,
                                           const float* bkv, const void* wo, const float* bo,
@@ -597,16 +620,15 @@ extern "C" int unirec_qformer_cross_block(const void* x, const void* mem, const 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, hd = d / heads;
-  UNIREC_TRY(gemm_any<EPI_BIAS>(x, wq, bq, nullptr, q, m, d, d, s));
-  UNIREC_TRY(gemm_any<EPI_BIAS>(mem, wkv, bkv, nullptr, kv, (int)mem_rows, 2 * d, dm, s));
+  UNIREC_TRY(gemm_wide<WG_BIAS>(x, wq, bq, q, m, d, d, s));
+  UNIREC_TRY(gemm_wide<WG_BIAS>(mem, wkv, bkv, kv, (int)mem_rows, 2 * d, dm, s));
   UNIREC_TRY(item_attention<IA_B1>(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq,
                                    nkv, hd, scale, s));
-  UNIREC_TRY(gemm_any<EPI_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
-  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+  return (int)resid_ln(ctx, wo, bo, x, gamma, beta, eps, out, acc, m, d, d, s);
 }
 
 // B3.  x, out [rows, d]; w1 [inter, d]; w2 [d, inter];
-// scratch h [rows, inter] bf16 (the gelu output), acc [rows, d] fp32.
+// scratch h [rows, inter] bf16 (the gelu output), acc.
 extern "C" int unirec_qformer_ffn_block(const void* x, const void* w1, const float* b1,
                                         const void* w2, const float* b2, const float* gamma,
                                         const float* beta, void* out, void* h, float* acc,
@@ -614,9 +636,8 @@ extern "C" int unirec_qformer_ffn_block(const void* x, const void* w1, const flo
   if (!gemm_wide_shape_ok(rows, inter, d) || !gemm_wide_shape_ok(rows, d, inter))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  UNIREC_TRY(gemm_any<EPI_BIAS_GELU>(x, w1, b1, nullptr, h, rows, inter, d, s));
-  UNIREC_TRY(gemm_any<EPI_BIAS_RESID>(h, w2, b2, x, acc, rows, d, inter, s));
-  return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
+  UNIREC_TRY(gemm_wide<WG_BIAS_GELU>(x, w1, b1, h, rows, inter, d, s));
+  return (int)resid_ln(h, w2, b2, x, gamma, beta, eps, out, acc, rows, d, inter, s);
 }
 
 // B4, the W8A8 B1.  x, out [items*nq, d] bf16; wqkv [3d, d] int8 (rows
@@ -794,4 +815,21 @@ extern "C" int unirec_gemm_q_test(int which, int epi, const void* a, const void*
                          : gemm_s8<EPQ_CHUNKED_RESID>(a, w, row_scale, rs_stride, col_scale,
                                                       bias, resid, c, m, n, k, chunk, s));
   }
+}
+
+// For the tests only: B1-B3's residual product and LayerNorm, out [m, n]
+// bf16 = LayerNorm(a . w^T + bias + resid), by WG_BIAS_RESID_LN's cluster
+// launch (which = 1; refused where wl_takes does not hold) or as two passes,
+// WG_BIAS_RESID into acc [m, n] fp32 and layer_norm_kernel (which = 0).
+extern "C" int unirec_gemm_ln_test(int which, const void* a, const void* w, const float* bias,
+                                   const void* resid, const float* gamma, const float* beta,
+                                   void* out, float* acc, int m, int n, int k, float eps,
+                                   void* stream) {
+  if (!gemm_wide_shape_ok(m, n, k) || (which == 0 && acc == nullptr) ||
+      (which && !wl_takes(a, w, resid, n, k)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (which) return (int)gemm_resid_ln(a, w, bias, resid, gamma, beta, eps, out, m, n, k, s);
+  UNIREC_TRY(gemm_wide<WG_BIAS_RESID>(a, w, bias, acc, m, n, k, s, resid));
+  return (int)layer_norm(acc, gamma, beta, out, m, n, eps, s);
 }

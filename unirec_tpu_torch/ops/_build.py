@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
            "qformer_blocks.cu", "fused_qformer_vjp.cu", "flash_cross.cu",
            "packed_attention.cu")
-HEADERS = ("causal_tiles.cuh", "gemm_bf16.cuh", "gemm_wide.cuh", "head_dim.cuh",
+HEADERS = ("causal_tiles.cuh", "gemm_wide.cuh", "head_dim.cuh",
            "item_attention.cuh", "ptx_helpers.cuh")
 BUILD_DIR_ENV = "UNIREC_TPU_TORCH_BUILD_DIR"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -126,6 +126,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_gemm_q_test.argtypes = [_I, _I] + [_P] * 3 + [_I] + [_P] * 6 + [
         _I] * 4 + [_P]
     lib.unirec_gemm_q_test.restype = _I
+    lib.unirec_gemm_ln_test.argtypes = [_I] + [_P] * 8 + [_I] * 3 + [_F, _P]
+    lib.unirec_gemm_ln_test.restype = _I
+    lib.unirec_resid_ln_two_pass.argtypes = [_I, _I]
+    lib.unirec_resid_ln_two_pass.restype = _I
     lib.unirec_int8_linear.argtypes = [_P] * 6 + [_I] * 3 + [_P]
     lib.unirec_int8_linear.restype = _I
     lib.unirec_qwen3_swiglu_q.argtypes = [_P] * 11 + [_I] * 3 + [_P]

@@ -2,10 +2,15 @@
 
 Port of ``unirec_tpu/ops/fused_qformer_layer.py``.  The CUDA kernels are in
 ``csrc/qformer_blocks.cu``; its source note says what bounds them on the card
-(the projection GEMMs) and what the first design spills to HBM.  They take
-any width: the GEMMs of ``csrc/gemm_bf16.cuh`` serve rows of whole 16-byte
-chunks, those of ``csrc/gemm_wide.cuh`` any other (hidden 1020), and the
-attention core (``csrc/item_attention.cuh``) any head dim, K and F.
+(the projection GEMMs) and what the design spills to HBM.  They take any
+width: every product runs on the warpgroup GEMM of ``csrc/gemm_wide.cuh``
+(its TMA kernel where the rows are whole 16-byte chunks, its edge kernel
+otherwise, e.g. hidden 1020), and the attention core
+(``csrc/item_attention.cuh``) takes any head dim, K and F.  The residual
+product writes the LayerNorm output itself over a thread-block cluster where
+TMA takes its rows and the width is at most 2048; elsewhere it writes the
+fp32 sum into a scratch buffer that a LayerNorm kernel reads
+(``two_pass_layer_norm``).
 
     B1  fused_self_attention_block   y = LN(x + Wo . SelfAttn(x) + bo)
     B2  fused_cross_attention_block  y = LN(x + Wo . CrossAttn(x -> mem) + bo)
@@ -140,6 +145,28 @@ def fused_ffn_block_plain(x, w1, b1, w2, b2, ln_gamma, ln_beta, *,
 # -- wrappers -------------------------------------------------------------------
 
 
+def two_pass_layer_norm(d: int, k: int) -> bool:
+    """Whether a block's residual product of width ``d`` over ``k`` inputs
+    takes the two-pass route (fp32 sum into a scratch buffer, then a
+    LayerNorm kernel) rather than the cluster epilogue, by the kernels' own
+    rule (``unirec_resid_ln_two_pass``: ``csrc/gemm_wide.cuh``'s
+    ``wl_shape``), for 16-byte aligned tensors, which ``_on_card`` checks
+    and torch's allocator gives.  Builds the kernels at first use."""
+    return bool(load_kernels().lib.unirec_resid_ln_two_pass(d, k))
+
+
+def _acc(rows: int, d: int, k: int, x: torch.Tensor):
+    """The fp32 pre-LN scratch where the two-pass route needs it, else
+    None (a null pointer)."""
+    if not two_pass_layer_norm(d, k):
+        return None
+    return torch.empty(rows, d, device=x.device, dtype=torch.float32)
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _expect(t: torch.Tensor, shape, name: str) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
@@ -201,11 +228,11 @@ def fused_self_attention_block(x, wqkv, bqkv, wo, bo, ln_gamma, ln_beta, *,
     out = torch.empty_like(x)
     qkv = torch.empty(rows, 3 * d, device=x.device, dtype=x.dtype)
     ctx = torch.empty(rows, d, device=x.device, dtype=x.dtype)
-    acc = torch.empty(rows, d, device=x.device, dtype=torch.float32)
+    acc = _acc(rows, d, d, x)
     err = load_kernels().lib.unirec_qformer_self_block(
         x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
         bo.data_ptr(), ln_gamma.data_ptr(), ln_beta.data_ptr(), out.data_ptr(),
-        qkv.data_ptr(), ctx.data_ptr(), acc.data_ptr(), b, k, d, num_heads,
+        qkv.data_ptr(), ctx.data_ptr(), _ptr(acc), b, k, d, num_heads,
         _scale(d // num_heads, x.dtype), ln_eps, _stream(x))
     check(err, "fused_self_attention_block")
     fused_self_attention_block.launches += 1
@@ -246,12 +273,12 @@ def fused_cross_attention_block(x, mem, key_bias, wq, bq, wkv, bkv, wo, bo,
     q = torch.empty(rows, d, device=x.device, dtype=x.dtype)
     kv = torch.empty(b * n_kv, 2 * d, device=x.device, dtype=x.dtype)
     ctx = torch.empty(rows, d, device=x.device, dtype=x.dtype)
-    acc = torch.empty(rows, d, device=x.device, dtype=torch.float32)
+    acc = _acc(rows, d, d, x)
     err = load_kernels().lib.unirec_qformer_cross_block(
         x.data_ptr(), mem.data_ptr(), key_bias.data_ptr(), wq.data_ptr(),
         bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
         bo.data_ptr(), ln_gamma.data_ptr(), ln_beta.data_ptr(), out.data_ptr(),
-        q.data_ptr(), kv.data_ptr(), ctx.data_ptr(), acc.data_ptr(), b, k,
+        q.data_ptr(), kv.data_ptr(), ctx.data_ptr(), _ptr(acc), b, k,
         n_kv, d, dm, num_heads, _scale(d // num_heads, x.dtype), ln_eps,
         _stream(x))
     check(err, "fused_cross_attention_block")
@@ -278,11 +305,11 @@ def fused_ffn_block(x, w1, b1, w2, b2, ln_gamma, ln_beta, *,
     rows = b * k
     out = torch.empty_like(x)
     h = torch.empty(rows, inter, device=x.device, dtype=x.dtype)
-    acc = torch.empty(rows, d, device=x.device, dtype=torch.float32)
+    acc = _acc(rows, d, inter, x)
     err = load_kernels().lib.unirec_qformer_ffn_block(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), ln_gamma.data_ptr(), ln_beta.data_ptr(), out.data_ptr(),
-        h.data_ptr(), acc.data_ptr(), rows, d, inter, ln_eps, _stream(x))
+        h.data_ptr(), _ptr(acc), rows, d, inter, ln_eps, _stream(x))
     check(err, "fused_ffn_block")
     fused_ffn_block.launches += 1
     return out

@@ -39,14 +39,28 @@ def masked_reconstruction_mse(reconstructed: torch.Tensor,
     return masked.sum() / field_mask.sum().clamp_min(1.0)
 
 
-def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
-                        negative: torch.Tensor, margin: float = 0.5,
-                        eps: float = 1e-6) -> torch.Tensor:
-    """mean(relu(margin + d(a, p) - d(a, n))), euclidean d with eps inside
-    the square root, as the JAX function."""
+def triplet_hinge_arguments(anchor: torch.Tensor, positive: torch.Tensor,
+                            negative: torch.Tensor, margin: float = 0.5,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """margin + d(a, p) - d(a, n) per sample, euclidean d with eps inside
+    the square root: the argument of the triplet hinge."""
     d_pos = torch.sqrt(((anchor - positive) ** 2).sum(-1) + eps)
     d_neg = torch.sqrt(((anchor - negative) ** 2).sum(-1) + eps)
-    return torch.clamp(d_pos - d_neg + margin, min=0.0).mean()
+    return d_pos - d_neg + margin
+
+
+def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                        negative: torch.Tensor, margin: float = 0.5,
+                        eps: float = 1e-6,
+                        active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean(relu(margin + d(a, p) - d(a, n))), as the JAX function.
+    ``active`` (0 / 1 per sample), for parity tests: the hinge passes the
+    argument of exactly these samples, the same loss wherever the set
+    agrees with the argument's sign."""
+    arg = triplet_hinge_arguments(anchor, positive, negative, margin, eps)
+    if active is None:
+        return torch.clamp(arg, min=0.0).mean()
+    return (arg * active).mean()
 
 
 def item_qformer_loss(model_output: Dict[str, torch.Tensor],
@@ -54,13 +68,16 @@ def item_qformer_loss(model_output: Dict[str, torch.Tensor],
                       field_mask: torch.Tensor, positive_rep: torch.Tensor,
                       negative_rep: torch.Tensor,
                       reconstruction_weight: float = 1.0,
-                      contrastive_weight: float = 0.25, margin: float = 0.5
+                      contrastive_weight: float = 0.25, margin: float = 0.5,
+                      hinge_active: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(total, reconstruction, contrastive) of the item trainer."""
+    """(total, reconstruction, contrastive) of the item trainer;
+    ``hinge_active`` is ``triplet_margin_loss``'s ``active``."""
     recon = masked_reconstruction_mse(model_output["reconstructed_fields"],
                                       field_embeddings, field_mask)
     cont = triplet_margin_loss(model_output["item_representation"],
-                               positive_rep, negative_rep, margin)
+                               positive_rep, negative_rep, margin,
+                               active=hinge_active)
     return reconstruction_weight * recon + contrastive_weight * cont, recon, cont
 
 

@@ -43,7 +43,10 @@ from unirec_tpu_torch.eval.reconstruction import (
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.ops.dropout import DropoutStream
-from unirec_tpu_torch.ops.losses import item_qformer_loss
+from unirec_tpu_torch.ops.losses import (
+    item_qformer_loss,
+    triplet_hinge_arguments,
+)
 from unirec_tpu_torch.train.common import (
     TrainState,
     drive_steps,
@@ -135,11 +138,16 @@ def make_train_step(
     ``fused_reference_config``: when set, the positive and negative forwards
     run through the fused inference engine (``fused_precision`` "bf16" or
     "int8"), on the live weights packed again at every step.  Metrics stay on
-    the device; ``return_grads`` adds every parameter's gradient by name
-    (parity-test instrumentation)."""
+    the device.  Parity-test instrumentation: ``return_grads`` adds every
+    parameter's gradient by name and the contrastive hinge's argument per
+    sample (``hinge_arguments``), and the step's ``hinge_active`` (0 / 1 per
+    sample) makes the hinge pass exactly those samples
+    (``triplet_margin_loss``'s ``active``)."""
     params = dict(model.named_parameters())
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def step(state: TrainState, batch,
+             hinge_active: Optional[torch.Tensor] = None
+             ) -> Tuple[TrainState, Dict]:
         device = next(model.parameters()).device
         b = batch_to_device(batch, device)
         for p in params.values():
@@ -164,7 +172,7 @@ def make_train_step(
                             ["item_representation"] for x in ("pos", "neg"))
         total, recon, cont = item_qformer_loss(
             anc, b["anchor_emb"], b["anchor_mask"], pos, neg,
-            reconstruction_weight, contrastive_weight, margin)
+            reconstruction_weight, contrastive_weight, margin, hinge_active)
         total.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
@@ -174,6 +182,8 @@ def make_train_step(
                    "contrastive": cont.detach()}
         if return_grads:
             metrics["grads"] = {n: g.detach().clone() for n, g in grads.items()}
+            metrics["hinge_arguments"] = triplet_hinge_arguments(
+                anc["item_representation"].detach(), pos, neg, margin)
         return state, metrics
 
     return step
