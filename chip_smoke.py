@@ -41,7 +41,10 @@ Phases (any failed check raises; the script then exits non-zero):
    blocks, as B1-B3; B8, the W8A8 linear, at the Qwen3-0.6B serving
    projections (4096 rows: 1024->2048, 1024->1024, 2048->1024, 1024->3072,
    3072->1024; and 1024->2048 at 16384 rows), B9a (q|k|v, [4096, 1024] ->
-   4096) and B9b (the SwiGLU MLP, [4096, 1024], intermediate 3072); B12s and
+   4096) and B9b (the SwiGLU MLP, [4096, 1024], intermediate 3072), each
+   with the device time of each launch and ``torch._int_mm``'s time for its
+   products alone (the yardstick); the int8 GEMM they and B4-B6 share in
+   each of its epilogues against its plain form, bit for bit; B12s and
    B12c, the trainable self- and cross-attention blocks, forward and
    backward, at the item-training shape (512 and a ragged 509 items, ~15%
    missing fields, >= 8 items with none), each repeated for identical bits,
@@ -119,9 +122,12 @@ Phases (any failed check raises; the script then exits non-zero):
    ``--int8-base`` (B8 196 times: 7 x 28).
 7. Item Q-Former training at full width over the sweep's checkpoint and
    cache (batch 512, bf16 compute with float32 masters): one step with the
-   fused anchor (B12s/B12c 12/12/6/6 launches) against the plain anchor
-   (none), B1/B2/B3 24/12/24 for the positive and negative forwards in both,
-   loss and every leaf's gradient held to each other; a 10-step trajectory
+   plain anchor (the reference), then one with the fused anchor (B12s/B12c
+   12/12/6/6 launches) on the plain step's active set of the contrastive
+   hinge, B1/B2/B3 24/12/24 for the positive and negative forwards in both;
+   the fused forward held to the plain one sample by sample (anchor
+   representation, each hinge argument within its Lipschitz bound), loss
+   and every leaf's gradient held to each other; a 10-step trajectory
    of each from one init; ms per step and peak memory of the plain anchor,
    the fused anchor, and the fused anchor with int8 references (B4-B6), the
    step split and a ``torch.profiler`` breakdown.  Then
@@ -261,13 +267,16 @@ B7B_COS = 0.9999
 # the full-width step with flash-VJP against the plain attention path (same
 # weights and batch, dropout 0): loss and each trainable leaf's gradient
 STEP_LOSS_REL, STEP_GRAD_COS = 1e-2, 0.999
-# the item step's gate (phase 7 (a), C-12): at most HINGE_FLIP_MAX of its
-# samples may take the other side of the contrastive hinge in the fused and
-# the plain anchor step, each with its two hinge arguments within
-# HINGE_ROUNDING of each other: the largest difference of the two steps'
-# arguments over every sample of the 12 of 24 draws of the batch without a
-# flip (scripts/probe_item_hinge.py on an H100; PERF.md)
-HINGE_FLIP_MAX, HINGE_ROUNDING = 2, 1.56e-2
+# the item step's forward gate (phase 7 (a), C-12).  The contrastive term is
+# the hinge relu(margin + d(a, p) - d(a, n)), whose gradient jumps at 0, so
+# the fused-anchor step runs on the plain-anchor step's active set (the
+# reference decides which samples the hinge passes), and its forward is held
+# to the reference's sample by sample: the anchor representation at the
+# port's bf16 kernel class (max|d| / max|ref|, per-row cosine), and each
+# hinge argument within what the representations' differences allow (d is
+# 1-Lipschitz in either argument: |arg_f - arg_p| <= 2 |a_f - a_p| + |p_f -
+# p_p| + |n_f - n_p|), plus both steps' rounding of the distances
+ANCHOR_REP_REL, ANCHOR_REP_COS = 2e-2, 0.9999
 TRAIN_BATCH, TRAIN_NEG, VAL_CANDIDATES = 8, 10, 100
 TRAIN_ITEMS = 1500  # candidate items with 1024-d embeddings in the JSON
 # item training (phase 7): batch 512 as the JAX package's scripts/bench_item.py,
@@ -854,77 +863,113 @@ def phase_wide_k(gen) -> dict:
     return errs
 
 
+# the int8 epilogues of gemm_wide.cuh by the test entry unirec_gemm_q_test's
+# index: EPQ_BIAS, EPQ_BIAS_F32, EPQ_BIAS_RESID, EPQ_CHUNKED_RESID,
+# EPQ_PLAIN, EPQ_SWIGLU
+GEMM_Q_EPIS = ("bias", "bias_f32", "bias_resid", "chunked_resid", "plain",
+               "swiglu")
+
+
+def gemm_q_plain(epi: str, a, w, rs, cs, bias, resid, chunk: int,
+                 exp=torch.exp):
+    """The plain form of one ``unirec_gemm_q_test`` call: the exact int32
+    product (``_mm_q``'s float64 sum), then the epilogue's fp32 roundings in
+    its order.  rs [m, groups]; w [2n, k] for ``swiglu``, which returns (h,
+    each row's max |h|) with sigmoid(g) = 1 / (1 + exp(-g)) divided as one
+    IEEE division (``exp``: the device's expf on the card is torch.exp's)."""
+    from unirec_tpu_torch.ops.fused_qformer_int8 import _int_mm, true_div
+
+    if epi == "chunked_resid":
+        f = torch.zeros(a.shape[0], w.shape[0], device=a.device)
+        for g in range(a.shape[1] // chunk):
+            c = slice(g * chunk, (g + 1) * chunk)
+            f = f + _int_mm(a[:, c], w[:, c]) * rs[:, g:g + 1]
+        return f * cs + bias + resid.float()
+    f = _int_mm(a, w) * rs[:, :1] * cs
+    if epi == "swiglu":
+        g, u = f.chunk(2, dim=1)
+        h = (g * true_div(1.0, 1.0 + exp(-g))) * u
+        return h, h.abs().amax(dim=1)
+    if epi in ("bias", "plain"):
+        return (f + bias if epi == "bias" else f).bfloat16()
+    return f + bias + (resid.float() if epi == "bias_resid" else 0.0)
+
+
 def phase_int8_gemm(gen) -> None:
-    """The int8 TMA + wgmma GEMM that B4-B6 run on against gemm_s8_kernel,
-    the GEMM they ran on before (which B8/B9 keep), through the test entry
-    ``unirec_gemm_q_test``: the same codes and scales at B6's two products,
-    B4's QKV product and a ragged row count, each epilogue the two share and
-    B6's up projection with its gelu and quantization per chunk (h's codes
-    and scales), ``torch.equal``; both timed at 4096 items (131,072 rows)."""
+    """The int8 TMA + wgmma GEMM that B4-B6, B8, B9a and B9b run on, in each
+    of its epilogues, against its plain form (``gemm_q_plain``) through the
+    test entry ``unirec_gemm_q_test``, ``torch.equal``: B6's two products,
+    B4's QKV product and a ragged row count, B6's down projection over one
+    and four chunks, and the Qwen3 serving products (B9a, B9b's gate|up with
+    h's row maxima and its down projection, at 4096 and a ragged 1,000
+    rows); each repeated for identical bits and timed at 4096 items
+    (131,072 rows) and 4096 Qwen3 rows."""
     from unirec_tpu_torch.ops._build import check, load_kernels
 
     lib = load_kernels().lib
     d, inter = QF_D, QF_INTER
-    epis = ("bias", "up_gelu_quant", "bias_resid", "chunked_resid")
-    # (rows, n, k, step, chunk)
+    # (rows, n, k, epilogue, chunk); swiglu: n columns of h, w [2n, k]
     cases = [(32 * BLOCK_ITEMS[1], 3 * d, d, "bias", d),
-             (32 * BLOCK_ITEMS[1], inter, d, "up_gelu_quant", inter),
-             (32 * BLOCK_ITEMS[1], inter, d, "up_gelu_quant", 1024),
+             (32 * BLOCK_ITEMS[1], inter, d, "bias_f32", d),
              (32 * BLOCK_ITEMS[1], d, d, "bias_resid", d),
              (32 * BLOCK_ITEMS[1], d, inter, "chunked_resid", inter),
              (32 * BLOCK_ITEMS[1], d, inter, "chunked_resid", 1024),
-             (32 * BLOCK_ITEMS[0], inter, d, "up_gelu_quant", inter),
-             (32 * BLOCK_ITEMS[0], d, inter, "chunked_resid", inter)]
+             (32 * BLOCK_ITEMS[0], inter, d, "bias_f32", d),
+             (32 * BLOCK_ITEMS[0], d, inter, "chunked_resid", inter),
+             (B9_ROWS, QW_QKV, QW_D, "plain", QW_D),
+             (B9_ROWS, QW_I, QW_D, "swiglu", QW_D),
+             (B9_ROWS, QW_D, QW_I, "plain", QW_I),
+             (1000, QW_I, QW_D, "swiglu", QW_D),
+             (1000, 2 * QW_D, QW_D, "plain", QW_D)]
     for m, n, k, epi, chunk in cases:
+        wn = 2 * n if epi == "swiglu" else n
         a = torch.randint(-127, 128, (m, k), device="cuda", generator=gen,
                           dtype=torch.int8)
-        w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen,
+        w = torch.randint(-127, 128, (wn, k), device="cuda", generator=gen,
                           dtype=torch.int8)
         groups = k // chunk if epi == "chunked_resid" else 1
         rs = torch.rand(m, groups, device="cuda", generator=gen) * 1e-3
-        cs = torch.rand(n, device="cuda", generator=gen) * 1e-2
+        cs = torch.rand(wn, device="cuda", generator=gen) * 1e-2
         bias = torch.randn(n, device="cuda", generator=gen) * 0.1
         resid = torch.randn(m, n, device="cuda", generator=gen).bfloat16()
-        dtype = {"bias": torch.bfloat16, "up_gelu_quant": torch.int8}.get(
-            epi, torch.float32)
+        dtype = torch.bfloat16 if epi in ("bias", "plain") else torch.float32
         outs = [torch.empty(m, n, device="cuda", dtype=dtype) for _ in range(2)]
-        scales = [torch.empty(m, n // chunk, device="cuda") for _ in range(2)]
-        scratch = torch.empty(m, n, device="cuda")
+        maxes = [torch.zeros(m, device="cuda") for _ in range(2)]
 
-        def run(which):
+        def run(i):
+            if epi == "swiglu":  # the row maxima start at 0
+                maxes[i].zero_()
             err = lib.unirec_gemm_q_test(
-                which, epis.index(epi), a.data_ptr(), w.data_ptr(),
+                GEMM_Q_EPIS.index(epi), a.data_ptr(), w.data_ptr(),
                 rs.data_ptr(), groups, cs.data_ptr(), bias.data_ptr(),
-                resid.data_ptr(), outs[which].data_ptr(), scratch.data_ptr(),
-                scales[which].data_ptr(), m, n, k, chunk,
-                torch.cuda.current_stream().cuda_stream)
+                resid.data_ptr(), outs[i].data_ptr(), maxes[i].data_ptr(), m,
+                n, k, chunk, torch.cuda.current_stream().cuda_stream)
             check(err, "unirec_gemm_q_test")
 
         run(0)
         run(1)
+        ref = gemm_q_plain(epi, a, w, rs, cs, bias, resid, chunk)
         torch.cuda.synchronize()
-        where = f"{epi} [{m}, {k}] x [{n}, {k}], chunk {chunk}"
-        if not (torch.equal(outs[0], outs[1]) and (
-                epi != "up_gelu_quant" or torch.equal(scales[0], scales[1]))):
-            raise AssertionError(f"int8 TMA GEMM {where}: not gemm_s8_kernel's "
-                                 "bits")
-        first = outs[1].clone()
-        run(1)
-        if not torch.equal(first, outs[1]):
+        where = f"{epi} [{m}, {k}] x [{wn}, {k}], chunk {chunk}"
+        ok = torch.equal(outs[0], ref[0] if epi == "swiglu" else ref)
+        if epi == "swiglu":  # the row maxima of the kernel's own h, and h
+            ok = ok and torch.equal(maxes[0], ref[1])
+        if not ok:
+            raise AssertionError(f"int8 TMA GEMM {where}: not its plain "
+                                 "form's bits")
+        if not (torch.equal(outs[0], outs[1])
+                and torch.equal(maxes[0], maxes[1])):
             raise AssertionError(f"int8 TMA GEMM {where}: a repeat gave other "
                                  "bits")
-        msg = (f"int8 TMA GEMM {where}: gemm_s8_kernel's bits, repeats bit "
-               "for bit")
-        if m == 32 * BLOCK_ITEMS[0]:
-            t_old, t_new = (time_ms(lambda i=i: run(i), iters=10, warmup=2)
-                            for i in (0, 1))
-            ops = 2 * m * n * k
-            msg += (f"; before (gemm_s8_kernel{', row_quant' if epi == 'up_gelu_quant' else ''}) "
-                    f"{t_old:.4f} ms ({ops / t_old / 1e9:.1f} TOP/s), TMA + "
-                    f"wgmma{' + gelu_quant' if epi == 'up_gelu_quant' else ''} "
-                    f"{t_new:.4f} ms ({ops / t_new / 1e9:.1f} TOP/s)")
+        msg = (f"int8 TMA GEMM {where}: its plain form's bits"
+               f"{' (h and its row maxima)' if epi == 'swiglu' else ''}, "
+               "repeats bit for bit")
+        if m in (32 * BLOCK_ITEMS[0], B9_ROWS):
+            t = time_ms(lambda: run(1), iters=10, warmup=2)
+            ops = 2 * m * wn * k
+            msg += f"; {t:.4f} ms ({ops / t / 1e9:.1f} TOP/s)"
         log(msg)
-        del a, w, rs, cs, bias, resid, outs, scales, scratch
+        del a, w, rs, cs, bias, resid, outs, maxes, ref
     torch.cuda.empty_cache()
 
 
@@ -1836,7 +1881,9 @@ def check_swiglu(out, ref, where) -> float:
 
 def phase_qwen3_int8(gen) -> dict:
     """B8, B9a and B9b against their plain versions at the serving shapes,
-    with bf16-rounded random weights quantized per output column."""
+    with bf16-rounded random weights quantized per output column; each
+    timed, with the device time of each of its launches (``log_split``) and
+    ``torch._int_mm``'s time for its product(s) alone (the yardstick)."""
     from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
     from unirec_tpu_torch.ops.fused_qformer_int8 import quantize_weight
     from unirec_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_plain
@@ -1845,13 +1892,21 @@ def phase_qwen3_int8(gen) -> dict:
         return (torch.randn(*shape, device="cuda", generator=gen) * std
                 ).bfloat16()
 
-    def timed(name, kern, plain):
+    def timed(name, kern, plain, products):
         t_k = time_ms(kern, iters=20)
         t_p = time_ms(plain, iters=5, warmup=1)
         t_k2 = time_ms(kern, iters=20)
+        t_l = time_ms(lambda: [torch._int_mm(a, w.t()) for a, w in products],
+                      iters=20)
         log(f"{name} time: kernel {t_k:.4f} / {t_k2:.4f} ms, plain "
-            f"{t_p:.4f} ms")
-        return min(t_k, t_k2), t_p
+            f"{t_p:.4f} ms, torch._int_mm (the product{'s' * (len(products) > 1)} "
+            f"alone) {t_l:.4f} ms")
+        log_split(name, kern)
+        return dict(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=t_l)
+
+    def codes(rows, k):  # operands of the yardstick's product
+        return torch.randint(-127, 128, (rows, k), device="cuda",
+                             generator=gen, dtype=torch.int8)
 
     out = {"b8": {"err": 0.0}}
     for rows, k, n in B8_SHAPES:
@@ -1862,28 +1917,31 @@ def phase_qwen3_int8(gen) -> dict:
         err = check_int8_linear("B8", int8_linear(x, wq, ws),
                                 int8_linear_plain(x, wq, ws), where)
         out["b8"]["err"] = max(out["b8"]["err"], err)
-        ms, plain_ms = timed(f"B8 {where}", lambda: int8_linear(x, wq, ws),
-                             lambda: int8_linear_plain(x, wq, ws))
-        out["b8"][(rows, k, n)] = (ms, plain_ms)
+        t = timed(f"B8 {where}", lambda: int8_linear(x, wq, ws),
+                  lambda: int8_linear_plain(x, wq, ws),
+                  [(codes(rows, k), wq)])
+        out["b8"][(rows, k, n)] = t
         if (rows, k, n) == B8_SHAPES[0]:
-            out["b8"].update(ms=ms, plain_ms=plain_ms)
+            out["b8"].update(t)
     x = rand(B9_ROWS, QW_D)
     wqkv, sqkv = quantize_weight(rand(QW_QKV, QW_D, std=0.03))
     where = f"[{B9_ROWS}, {QW_D}] -> {QW_QKV}"
     err = check_int8_linear("B9A", pf.qkv_int8(x, wqkv, sqkv),
                             pf.qkv_int8_plain(x, wqkv, sqkv), where)
-    ms, plain_ms = timed(f"B9A {where}", lambda: pf.qkv_int8(x, wqkv, sqkv),
-                         lambda: pf.qkv_int8_plain(x, wqkv, sqkv))
-    out["b9a"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    out["b9a"] = dict(err=err, **timed(
+        f"B9A {where}", lambda: pf.qkv_int8(x, wqkv, sqkv),
+        lambda: pf.qkv_int8_plain(x, wqkv, sqkv),
+        [(codes(B9_ROWS, QW_D), wqkv)]))
     wgu, sgu = quantize_weight(rand(2 * QW_I, QW_D, std=0.03))
     wd, sd = quantize_weight(rand(QW_D, QW_I, std=0.02))
     args = (x, wgu, sgu, wd, sd)
     where = f"[{B9_ROWS}, {QW_D}], I {QW_I}"
     err = check_swiglu(pf.swiglu_mlp_int8(*args),
                        pf.swiglu_mlp_int8_plain(*args), where)
-    ms, plain_ms = timed(f"B9B {where}", lambda: pf.swiglu_mlp_int8(*args),
-                         lambda: pf.swiglu_mlp_int8_plain(*args))
-    out["b9b"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    out["b9b"] = dict(err=err, **timed(
+        f"B9B {where}", lambda: pf.swiglu_mlp_int8(*args),
+        lambda: pf.swiglu_mlp_int8_plain(*args),
+        [(codes(B9_ROWS, QW_D), wgu), (codes(B9_ROWS, QW_I), wd)]))
     return out
 
 
@@ -2304,18 +2362,7 @@ def serve_int8(smi: str, rec, histories, direct, bf16_med: float) -> dict:
                                    pf.swiglu_mlp_int8_plain(*args),
                                    "served layer 0")
 
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fused.encode_users(histories[:BATCH])
-        torch.cuda.synchronize()
-    rows = device_time_by_kernel(prof)
-    total = sum(t for _, t in rows)
-    log(f"[{smi}] int8 (b): one batch of {BATCH} users under torch.profiler: "
-        f"{total:.2f} ms of device time in {len(rows)} kernels"
-        + ("" if rows else " (no device rows: breakdown not measured)"))
-    for name, t in rows[:12]:
-        log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+    int8_batch_profile(smi, fused, histories)
 
     after = model_checksum(shared)
     if after != before or shared.lora is None or (
@@ -2325,6 +2372,25 @@ def serve_int8(smi: str, rec, histories, direct, bf16_med: float) -> dict:
         f"{sum(c for _, c, _ in before)} before and after")
     del fused
     return {"launches": http_launches, "errs": errs}
+
+
+def int8_batch_profile(smi: str, rec8, histories) -> float:
+    """One batch of ``BATCH`` users through the int8 recommender ``rec8``
+    (phase 4 (b)) under ``torch.profiler``: its device time (returned) and
+    the kernels that take it."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rec8.encode_users(histories[:BATCH])
+        torch.cuda.synchronize()
+    rows = device_time_by_kernel(prof)
+    total = sum(t for _, t in rows)
+    log(f"[{smi}] int8 (b): one batch of {BATCH} users under torch.profiler: "
+        f"{total:.2f} ms of device time in {len(rows)} kernels"
+        + ("" if rows else " (no device rows: breakdown not measured)"))
+    for name, t in rows[:12]:
+        log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+    return total
 
 
 def fused_vs_controls(shared, rec, catalog, histories, users) -> None:
@@ -3320,10 +3386,11 @@ def phase_train(smi: str, tmp: str) -> dict:
 
 
 def item_trainer(cfg, sd, fused_anchor: bool, precision: str = "bf16",
-                 return_grads: bool = False):
+                 return_grads: bool = False, device: str = "cuda"):
     """A bf16 item trainer's state (float32 masters) at dropout 0 from the
-    weights ``sd`` of ``cfg``, at batch ``ITEM_BATCH`` and lr 1e-4, and its
-    step function."""
+    weights ``sd`` of ``cfg``, at batch ``ITEM_BATCH`` and lr 1e-4, its
+    positive and negative forwards through the fused engine, and its step
+    function."""
     import dataclasses
 
     from unirec_tpu_torch.configs import OptimizerConfig, TrainConfig
@@ -3336,7 +3403,8 @@ def item_trainer(cfg, sd, fused_anchor: bool, precision: str = "bf16",
     tr = ItemQFormerTrainer(
         mc, TrainConfig(batch_size=ITEM_BATCH, seed=SEED,
                         optimizer=OptimizerConfig(learning_rate=1e-4)),
-        dtype="bfloat16", fused_precision=precision, device="cuda")
+        dtype="bfloat16", fused_reference_forwards=True,
+        fused_precision=precision, device=device)
     if not tr.use_fused:
         raise AssertionError("the trainer did not take the fused engine "
                              "for the positive and negative forwards")
@@ -3362,34 +3430,124 @@ def item_batches(cache, rng, n: int) -> list:
     return out
 
 
+HINGE_KEYS = ("hinge_arguments", "item_representation",
+              "positive_representation", "negative_representation")
+
+
 def item_step(cfg, sd, batch, fused_anchor: bool, counters: dict,
-              active=None):
+              active=None, device: str = "cuda"):
     """One item-trainer step from ``sd`` on ``batch``: (loss, every leaf's
-    gradient, the kernels' launches in it, the contrastive hinge's argument
-    per sample); ``active`` is the step's ``hinge_active``."""
-    st, step = item_trainer(cfg, sd, fused_anchor, return_grads=True)
+    gradient, the kernels' launches in it, the step's ``HINGE_KEYS``: the
+    contrastive hinge's argument per sample and the representations it is
+    taken from); ``active`` is the step's ``hinge_active``."""
+    st, step = item_trainer(cfg, sd, fused_anchor, return_grads=True,
+                            device=device)
     for fn in counters.values():
         fn.launches = 0
     st, m = step(st, batch, active)
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     out = (m["loss"].item(), m["grads"],
            {n: fn.launches for n, fn in counters.items()},
-           m["hinge_arguments"])
+           {k: m[k] for k in HINGE_KEYS})
     del st, step, m
     gc.collect()
-    torch.cuda.empty_cache()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
-def hinge_flips(arg_f: torch.Tensor, arg_p: torch.Tensor):
-    """The samples on the other side of the contrastive hinge in the fused
-    and the plain anchor step (indices), and whether the bound of C-12
-    admits them: at most ``HINGE_FLIP_MAX`` samples, each with its two
-    arguments within ``HINGE_ROUNDING`` of each other (and so of 0)."""
-    flipped = ((arg_f > 0) != (arg_p > 0)).nonzero().flatten()
-    gap = (arg_f - arg_p).abs()[flipped]
-    return flipped, (len(flipped) <= HINGE_FLIP_MAX
-                     and bool((gap <= HINGE_ROUNDING).all()))
+def hinge_rounding(a, p, n, margin: float) -> torch.Tensor:
+    """A bound on the rounding of each sample's hinge argument as
+    ``ops/losses.triplet_hinge_arguments`` computes it from the anchor,
+    positive and negative representations a, p, n, in their promoted dtype
+    (unit roundoff u) and in any order of summation: each distance sqrt(sum
+    of D squared differences + eps) lies within (D + 4) u of itself (a
+    difference, a square, D - 1 additions, eps, the root), and the
+    subtraction and the margin add u of their results."""
+    dtype = torch.promote_types(torch.promote_types(a.dtype, p.dtype), n.dtype)
+    u = torch.finfo(dtype).eps / 2
+    a, p, n = (t.detach().double().cpu() for t in (a, p, n))
+    d_p, d_n = ((((a - t) ** 2).sum(-1) + 1e-6).sqrt() for t in (p, n))
+    return (a.shape[-1] + 6) * u * (d_p + d_n + margin)
+
+
+def hinge_gate(ref: dict, got: dict, margin: float = 0.5) -> dict:
+    """C-12's forward gate on two item steps' ``HINGE_KEYS``: ``ref`` the
+    plain anchor's, ``got`` the fused anchor's on ``ref``'s active set.  The
+    anchor representation within ``ANCHOR_REP_REL`` of max|ref| with every
+    row's cosine >= ``ANCHOR_REP_COS``, and each sample's hinge argument
+    within ``bound`` of the reference's: 2 |a_f - a_p| + |p_f - p_p| + |n_f
+    - n_p| (row norms) plus both steps' ``hinge_rounding``.  A sample whose
+    two arguments lie on the two sides of 0 (a flip) is admitted exactly
+    where its argument holds.  Returns ``ok`` and what it read."""
+    from unirec_tpu_torch.ops.losses import triplet_hinge_active
+
+    def rows(m, key):
+        return m[key].detach().double().cpu()
+
+    a_p = rows(ref, "item_representation")
+    a_f = rows(got, "item_representation")
+    arg_p, arg_f = rows(ref, "hinge_arguments"), rows(got, "hinge_arguments")
+    rel = ((a_f - a_p).abs().max() / a_p.abs().max()).item()
+    cos = torch.nn.functional.cosine_similarity(a_f, a_p, dim=-1).min().item()
+    lipschitz = 2 * (a_f - a_p).norm(dim=-1) + sum(
+        (rows(got, k) - rows(ref, k)).norm(dim=-1)
+        for k in ("positive_representation", "negative_representation"))
+    bound = lipschitz + sum(
+        hinge_rounding(m["item_representation"], m["positive_representation"],
+                       m["negative_representation"], margin)
+        for m in (ref, got))
+    gap = (arg_f - arg_p).abs()
+    finite = bool(torch.isfinite(a_f).all() and torch.isfinite(arg_f).all())
+    return {"ok": (finite and rel <= ANCHOR_REP_REL and cos >= ANCHOR_REP_COS
+                   and bool((gap <= bound).all())),
+            "rep_rel": rel, "rep_cos": cos, "gap": gap, "bound": bound,
+            "flips": (triplet_hinge_active(arg_f)
+                      != triplet_hinge_active(arg_p)).nonzero().flatten(),
+            "arg_f": arg_f, "arg_p": arg_p}
+
+
+def item_step_parity(cfg, sd, batch, counters: dict,
+                     device: str = "cuda") -> dict:
+    """Phase 7 (a)'s comparison on ``batch``: the plain-anchor step, the
+    reference, then the fused-anchor step on the reference's active set of
+    the hinge; ``hinge_gate`` on their forwards and the gradient gate (loss
+    within ``STEP_LOSS_REL``, every trainable leaf's cosine >=
+    ``STEP_GRAD_COS``).  No step runs on a set the code under test chose."""
+    from unirec_tpu_torch.ops.losses import triplet_hinge_active
+
+    loss_p, g_p, l_p, m_p = item_step(cfg, sd, batch, False, counters,
+                                      device=device)
+    active = triplet_hinge_active(m_p["hinge_arguments"])
+    loss_f, g_f, l_f, m_f = item_step(cfg, sd, batch, True, counters, active,
+                                      device=device)
+    gate = hinge_gate(m_p, m_f)
+    cos = grad_cosines(g_f, g_p)
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_f - loss_p) / abs(loss_p)
+    ok = (gate["ok"] and rel <= STEP_LOSS_REL and cos[worst] >= STEP_GRAD_COS
+          and bool(np.isfinite(loss_f)))
+    return {"ok": ok, "gate": gate, "loss_f": loss_f, "loss_p": loss_p,
+            "loss_rel": rel, "worst": worst, "cos": cos[worst],
+            "leaves": len(cos), "launches_f": l_f, "launches_p": l_p}
+
+
+def hinge_log(res: dict) -> str:
+    """``item_step_parity``'s forward gate in one line."""
+    gate = res["gate"]
+    flips = [(round(gate["arg_f"][i].item(), 6),
+              round(gate["arg_p"][i].item(), 6),
+              round(gate["bound"][i].item(), 6))
+             for i in gate["flips"].tolist()]
+    return (f"anchor representation max|d| {gate['rep_rel']:.2e} of max|ref| "
+            f"(tol {ANCHOR_REP_REL:g}), min row cosine {gate['rep_cos']:.7f} "
+            f"(tol {ANCHOR_REP_COS}); hinge arguments fused - plain max "
+            f"{gate['gap'].max().item():.3e}, least slack to the bound "
+            f"{(gate['bound'] - gate['gap']).min().item():.3e} (bounds "
+            f"{gate['bound'].min().item():.3e}-"
+            f"{gate['bound'].max().item():.3e}); {len(flips)} flips (fused, "
+            f"plain, bound): {flips}")
 
 
 def item_counters() -> dict:
@@ -3554,59 +3712,28 @@ def phase_item_train(smi: str, tmp: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # (a) one step, fused anchor against plain anchor.  The contrastive term
-    # is a hinge, relu(margin + d(a, p) - d(a, n)): a sample whose argument
-    # lies within the two anchors' bf16 rounding of 0 can be active in one
-    # step and not in the other, and then moves the leaves that only this
-    # term reaches (the item representation head) by its whole share (C-12).
-    # Where samples flip, the gate holds the plain step run again on the
-    # fused step's active set, but only for the few flips whose two
-    # arguments lie within the rounding scale of each other (hinge_flips);
-    # any other flip fails.
-    loss_f, g_f, l_f, arg_f = item_step(cfg, sd, batches[0], True, counters)
-    loss_p, g_p, l_p, arg_p = item_step(cfg, sd, batches[0], False, counters)
-    flipped, admitted = hinge_flips(arg_f, arg_p)
-    rest = torch.ones_like(arg_f, dtype=torch.bool)
-    rest[flipped] = False
-    cos = grad_cosines(g_f, g_p)
-    worst = min(cos, key=cos.get)
-    rel = abs(loss_f - loss_p) / abs(loss_p)
+    # (a) one step, fused anchor against plain anchor (C-12): the plain
+    # step first, the reference; the fused step on its active set of the
+    # contrastive hinge; the fused forward held to the plain one sample by
+    # sample (hinge_gate), then loss and every leaf's gradient
+    res = item_step_parity(cfg, sd, batches[0], counters)
+    l_f, l_p = res["launches_f"], res["launches_p"]
     want_f = item_launches(n_layers, n_cross, 1, fused=True)
     want_p = item_launches(n_layers, n_cross, 1, fused=False)
-    log(f"item step, batch {ITEM_BATCH}, ItemQFormerConfig() at dropout 0: "
-        f"loss fused anchor {loss_f:.6f}, plain anchor {loss_p:.6f} (rel "
-        f"{rel:.2e}, tol {STEP_LOSS_REL:g}); {len(g_f)} trainable leaves, min "
-        f"gradient cosine {cos[worst]:.6f} ({worst}; tol {STEP_GRAD_COS}); "
-        f"launches fused {l_f}, plain {l_p}; hinge arguments fused - plain: "
-        f"max |difference| {(arg_f - arg_p).abs().max().item():.3e}; "
-        f"{len(flipped)} of {ITEM_BATCH} samples on the other side of the "
-        f"hinge (at most {HINGE_FLIP_MAX}, each within {HINGE_ROUNDING:g}; "
-        f"fused / plain: "
-        f"{[(round(a, 6), round(b, 6)) for a, b in zip(arg_f[flipped].tolist(), arg_p[flipped].tolist())]}; "
-        f"smallest |argument| of the rest "
-        f"{arg_f[rest].abs().min().item():.3e})")
-    if len(flipped):
-        if not admitted:
-            raise AssertionError("the fused and the plain anchor step take "
-                                 "different sides of the contrastive hinge "
-                                 "beyond the rounding bound")
-        loss_p, g_p, _, _ = item_step(cfg, sd, batches[0], False, counters,
-                                      active=(arg_f > 0).float())
-        cos = grad_cosines(g_f, g_p)
-        worst = min(cos, key=cos.get)
-        rel = abs(loss_f - loss_p) / abs(loss_p)
-        log(f"item step, the plain anchor again on the fused step's active "
-            f"set of the hinge: loss {loss_p:.6f} (rel {rel:.2e}, tol "
-            f"{STEP_LOSS_REL:g}), min gradient cosine {cos[worst]:.6f} "
-            f"({worst}; tol {STEP_GRAD_COS})")
-    if not (rel <= STEP_LOSS_REL and cos[worst] >= STEP_GRAD_COS
-            and np.isfinite(loss_f)):
+    log(f"item step, batch {ITEM_BATCH}, ItemQFormerConfig() at dropout 0, "
+        f"the fused anchor on the plain anchor's active set of the hinge: "
+        f"{hinge_log(res)}; loss fused anchor {res['loss_f']:.6f}, plain "
+        f"anchor {res['loss_p']:.6f} (rel {res['loss_rel']:.2e}, tol "
+        f"{STEP_LOSS_REL:g}); {res['leaves']} trainable leaves, min gradient "
+        f"cosine {res['cos']:.6f} ({res['worst']}; tol {STEP_GRAD_COS}); "
+        f"launches fused {l_f}, plain {l_p}")
+    if not res["ok"]:
         raise AssertionError("the fused-anchor step disagrees with the plain "
                              "anchor step")
     if (l_f, l_p) != (want_f, want_p):
         raise AssertionError(f"item step launches {l_f} / {l_p}, want "
                              f"{want_f} / {want_p}")
-    del g_f, g_p
+    del res
 
     # (b) a trajectory from one init, fused against plain, fitting one batch
     # (random fields: only a batch seen again can be fitted in 10 steps)
@@ -4288,7 +4415,8 @@ def main() -> int:
         row(name, "qformer_blocks.cu", src,
             served["int8"]["launches"][key],
             max(qwen3_int8[key]["err"], served["int8"]["errs"][key]),
-            qwen3_int8[key]["ms"], qwen3_int8[key]["plain_ms"], *bounds[key])
+            qwen3_int8[key]["ms"], qwen3_int8[key]["plain_ms"], *bounds[key],
+            qwen3_int8[key]["library_ms"])
         for key, name, src in (
             ("b8", "int8_linear", "int8_matmul.py:37"),
             ("b9a", "qkv_int8", "fused_qwen3_int8.py:55"),

@@ -15,7 +15,17 @@ and prints ms and TFLOP/s per shape:
   the epilogue its block takes: x . Wqkv -> 3072 (+bias), ctx . Wo -> 1024
   and h . W2 [131072, 4096] -> 1024 (+bias +residual, fp32 out; and the
   LayerNorm written by the cluster epilogue, bf16 out, with gamma = beta =
-  bias), x . W1 -> 4096 (+bias, tanh gelu), on the TMA kernel.
+  bias), x . W1 -> 4096 (+bias, tanh gelu), on the TMA kernel;
+* the int8 Qwen3-0.6B serving products at 4096 rows (batch 8 x L 512), on
+  the int8 TMA kernel beside ``torch._int_mm`` (cuBLASLt's product alone,
+  int32 out): x . Wqkv -> 4096 (B9a), x . Wgu [6144, 1024] (B9b's gate|up),
+  h . Wd [4096, 3072] -> 1024 (B9b's down), x . W -> 2048 and ctx . Wo
+  [4096, 2048] -> 1024 (B8); the bf16 products with the dequantizing
+  epilogue EPQ_PLAIN at block tiles of 128 x 256 and 128 x 128; the gate|up
+  product with the SwiGLU epilogue (h in fp32 and its row maxima, what B9b
+  runs) and, the alternative measured beside it, to fp32 g|u (EPQ_BIAS_F32
+  over a zero bias) followed by one pass for silu and the quantization of h
+  (``silu_quant_kernel`` below, the shape of B6's ``gelu_quant``).
 
 Needs a card and nvcc; prints the card's name and power limit first.
 """
@@ -49,11 +59,92 @@ SWEEP_SHAPES = (("x . Wqkv^T", 131072, 3072, 1024, "bias"),
                 ("h . W2^T", 131072, 1024, 4096, "bias_resid"))
 WG_EPI = {"bias": "WG_BIAS", "bias_gelu": "WG_BIAS_GELU",
           "bias_resid": "WG_BIAS_RESID"}
+# the int8 Qwen3 products at 4096 rows: (label, n, k, epilogue)
+QWEN_ROWS = 4096
+QWEN_SHAPES = (("B9a x . Wqkv^T", 4096, 1024, "plain"),
+               ("B9b x . Wgu^T", 6144, 1024, "swiglu"),
+               ("B9b h . Wd^T", 1024, 3072, "plain"),
+               ("B8 x . W^T", 2048, 1024, "plain"),
+               ("B8 ctx . Wo^T", 1024, 2048, "plain"))
+# label -> (launch over a, w, e (the WgEpi), c, m, n, k, s; epilogue)
+Q_VARIANTS = {
+    "TMA + wgmma, 128 x 256 tiles": (
+        "launch_gemm_tma<int8_t, EPQ_PLAIN, 256, false>", "plain"),
+    "TMA + wgmma, 128 x 128 tiles": (
+        "launch_gemm_tma<int8_t, EPQ_PLAIN, 128, false>", "plain"),
+    "TMA + wgmma, SwiGLU epilogue (h, row maxima)": (
+        "launch_gemm_tma<int8_t, EPQ_SWIGLU, 256, false>", "swiglu"),
+    "TMA + wgmma, fp32 g|u (EPQ_BIAS_F32, zero bias)": (
+        "launch_gemm_tma<int8_t, EPQ_BIAS_F32, 256, false>", "swiglu_f32"),
+}
+# the alternative's second pass: one block per row reads g|u [rows, 2I] fp32
+# once (16-byte loads), keeps h = (g * sigmoid(g)) * u in registers (I <=
+# 4096), takes the row's absmax and writes h's codes and row scale as B9b
+# does (absmax * fl(1 / 127))
+SILU_QUANT = r"""
+constexpr int SQ_THREADS = 256, SQ_MAX = 4096;
+__global__ void __launch_bounds__(SQ_THREADS)
+silu_quant_kernel(const float* __restrict__ gu, int8_t* __restrict__ q, float* __restrict__ scale,
+                  int inter) {
+  extern __shared__ float wmax[];  // [SQ_THREADS / 32]
+  const size_t row = blockIdx.x;
+  const float4* g4 = reinterpret_cast<const float4*>(gu + row * 2 * inter);
+  const float4* u4 = g4 + inter / 4;
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + row * inter);
+  const int t = threadIdx.x, n4 = inter / 4;
+  float h[SQ_MAX / SQ_THREADS];
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < SQ_MAX / SQ_THREADS / 4; ++j) {
+    const int c = j * SQ_THREADS + t;
+    if (c < n4) {
+      const float4 g = g4[c], u = u4[c];
+      const float gv[4] = {g.x, g.y, g.z, g.w}, uv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gv[i])));
+        h[4 * j + i] = __fmul_rn(__fmul_rn(gv[i], sig), uv[i]);
+        m = fmaxf(m, fabsf(h[4 * j + i]));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((t & 31) == 0) wmax[t >> 5] = m;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < SQ_THREADS / 32; ++i) m = fmaxf(m, wmax[i]);
+  const float absmax = fmaxf(m, 1e-6f), r = 127.0f / absmax;
+#pragma unroll
+  for (int j = 0; j < SQ_MAX / SQ_THREADS / 4; ++j) {
+    const int c = j * SQ_THREADS + t;
+    if (c < n4) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        packed |= (uint32_t)(uint8_t)(int8_t)__float2int_rn(__fmul_rn(h[4 * j + i], r)) << (8 * i);
+      qr[c] = packed;
+    }
+  }
+  if (t == 0) scale[row] = __fmul_rn(absmax, 1.0f / 127.0f);
+}
+extern "C" int bench_silu_quant(const float* gu, void* q, float* scale, int rows, int inter,
+                                void* s) {
+  if (inter % 4 != 0 || inter > SQ_MAX) return (int)cudaErrorInvalidValue;
+  silu_quant_kernel<<<rows, SQ_THREADS, SQ_THREADS / 32 * sizeof(float),
+                      static_cast<cudaStream_t>(s)>>>(
+      gu, static_cast<int8_t*>(q), scale, inter);
+  return (int)cudaGetLastError();
+}
+"""
 
 
-def build(launches: dict) -> list:
+def build(launches: dict, q_launches: dict) -> tuple:
     """A library of ``gemm_wide.cuh`` with one C entry per launch (label ->
-    the text of a call over a, w, b, r, c, m, n, k, s); the entries."""
+    the text of a call over a, w, b, r, c, m, n, k, s), one per int8 launch
+    (label -> a launch over a, w, e, c, m, n, k, s, with e the WgEpi of row
+    scales rs, column scales cs, bias b and row maxima mx) and
+    ``bench_silu_quant``; the entries, the int8 entries and the library."""
     out = ROOT / "build" / "bench_gemm_wide"
     out.mkdir(parents=True, exist_ok=True)
     unit = ['#include "gemm_wide.cuh"']
@@ -63,6 +154,16 @@ def build(launches: dict) -> list:
             'const float* b, const void* r, void* c, int m, int n, int k, '
             'void* s) {\n'
             f'  return (int){launch};\n}}')
+    for i, launch in enumerate(q_launches.values()):
+        unit.append(
+            f'extern "C" int bench_q_{i}(const void* a, const void* w, '
+            'const float* rs, const float* cs, const float* b, int* mx, '
+            'void* c, int m, int n, int k, void* s) {\n'
+            '  WgEpi e{};\n  e.row_scale = rs;\n  e.rs_stride = 1;\n'
+            '  e.col_scale = cs;\n  e.bias = b;\n  e.row_max = mx;\n'
+            f'  return (int){launch}(a, w, e, c, m, n, k, '
+            'static_cast<cudaStream_t>(s));\n}')
+    unit.append(SILU_QUANT)
     src = out / "bench.cu"
     src.write_text("\n".join(unit) + "\n")
     lib = out / "libbench.so"
@@ -75,7 +176,15 @@ def build(launches: dict) -> list:
         fn = getattr(raw, f"bench_gemm_{i}")
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
-    return [getattr(raw, f"bench_gemm_{i}") for i in range(len(launches))]
+    for i in range(len(q_launches)):
+        fn = getattr(raw, f"bench_q_{i}")
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+    raw.bench_silu_quant.argtypes = ([ctypes.c_void_p] * 3
+                                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return ([getattr(raw, f"bench_gemm_{i}") for i in range(len(launches))],
+            [getattr(raw, f"bench_q_{i}") for i in range(len(q_launches))],
+            raw)
 
 
 def wide_launch(launch: str) -> str:
@@ -139,9 +248,71 @@ def run_shape(label, m, n, k, variants, gen, iters):
     torch.cuda.empty_cache()
 
 
+def run_qwen_shape(label, n, k, epi, fns, silu_quant, gen, iters):
+    """Check and time the int8 variants of ``epi`` at one Qwen3 product
+    beside ``torch._int_mm``; the SwiGLU forms at n = 2I also with their
+    pass over h (the alternative's silu_quant_kernel)."""
+    m = QWEN_ROWS
+    a = torch.randint(-127, 128, (m, k), device="cuda", generator=gen,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen,
+                      dtype=torch.int8)
+    rs = torch.rand(m, device="cuda", generator=gen) * 1e-3
+    cs = torch.rand(n, device="cuda", generator=gen) * 1e-2
+    zero = torch.zeros(n, device="cuda")
+    ops = 2.0 * m * n * k
+    t = time_ms(lambda: torch._int_mm(a, w.t()), iters)
+    print(f"{label} [{m}, {k}] -> {n}: torch._int_mm {t:.4f} ms, "
+          f"{ops / t / 1e9:.1f} TOP/s", flush=True)
+    acc = torch._int_mm(a, w.t()).double()  # exact int32 sums
+    f = acc.float() * rs[:, None] * cs  # (float(acc) * rs) * cs
+    inter = n // 2
+    stream = torch.cuda.current_stream().cuda_stream
+    for cfg, (fn, form) in fns.items():
+        if not (form == epi or (epi == "swiglu" and form == "swiglu_f32")):
+            continue
+        width = inter if form == "swiglu" else n
+        dtype = torch.bfloat16 if form == "plain" else torch.float32
+        c = torch.empty(m, width, device="cuda", dtype=dtype)
+        mx = torch.zeros(m, device="cuda", dtype=torch.int32)
+        call = lambda: fn(a.data_ptr(), w.data_ptr(), rs.data_ptr(),  # noqa: E731
+                          cs.data_ptr(), zero.data_ptr(), mx.data_ptr(),
+                          c.data_ptr(), m, width, k, stream)
+        err = call()
+        torch.cuda.synchronize()
+        if form == "swiglu":
+            g, u = f[:, :inter], f[:, inter:]
+            ref = g * (1.0 / (1.0 + torch.exp(-g))) * u
+            peak = (mx.view(torch.float32) - ref.abs().amax(1)).abs().max()
+            note = f", row maxima max|d| {peak.item():.2e}"
+        else:
+            ref, note = f, ""
+        rel = ((c.float() - ref).abs().max() / ref.abs().max()).item()
+        t = time_ms(call, iters)
+        print(f"    {cfg}: rc {err}, rel {rel:.2e}{note}, {t:.4f} ms, "
+              f"{ops / t / 1e9:.1f} TOP/s", flush=True)
+        if form == "swiglu_f32":
+            q = torch.empty(m, inter, device="cuda", dtype=torch.int8)
+            sc = torch.empty(m, device="cuda")
+            err = silu_quant(c.data_ptr(), q.data_ptr(), sc.data_ptr(), m,
+                             inter, stream)
+            torch.cuda.synchronize()
+            t = time_ms(lambda: silu_quant(c.data_ptr(), q.data_ptr(),
+                                           sc.data_ptr(), m, inter, stream),
+                        iters)
+            print(f"    then silu_quant_kernel over g|u: rc {err}, {t:.4f} "
+                  f"ms", flush=True)
+            del q, sc
+        del c, mx, ref
+    del a, w, rs, cs, zero, acc, f
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--int8-only", action="store_true",
+                        help="the int8 Qwen3 products alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_gemm_wide: no CUDA device", file=sys.stderr)
@@ -154,8 +325,16 @@ def main() -> int:
             if cfg == TMA or epi == "bias"}
     wide[LN] = ("gemm_resid_ln(a, w, b, r, b, b, 1e-12f, c, m, n, k, "
                 "static_cast<cudaStream_t>(s))")
-    fns = dict(zip(wide, build(wide)))
+    q_launches = {cfg: launch for cfg, (launch, _) in Q_VARIANTS.items()}
+    wide_fns, q_fns, raw = build(wide, q_launches)
+    fns = dict(zip(wide, wide_fns))
     gen = torch.Generator(device="cuda").manual_seed(0)
+    qfns = {cfg: (fn, Q_VARIANTS[cfg][1]) for cfg, fn in zip(q_launches, q_fns)}
+    for label, n, k, epi in QWEN_SHAPES:
+        run_qwen_shape(label, n, k, epi, qfns, raw.bench_silu_quant, gen,
+                       args.iters)
+    if args.int8_only:
+        return 0
     for m, n, k in B12_SHAPES:
         run_shape("B12", m, n, k,
                   {cfg: (fns[f"{cfg} bias"], "bias") for cfg in B12_CFGS},

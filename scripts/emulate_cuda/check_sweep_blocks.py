@@ -1,10 +1,17 @@
 """Run the sweep's block kernels and the packed item attention in the CPU
 emulation of CUDA and hold them to their plain versions (no timing):
 
-* the int8 TMA + wgmma GEMM of ``csrc/gemm_wide.cuh`` against
-  ``gemm_s8_kernel`` (``unirec_gemm_q_test``) on the same codes, for each
-  epilogue they share and B6's up projection with its gelu and
-  quantization (h's codes and scales), bit for bit (``torch.equal``);
+* the int8 TMA + wgmma GEMM of ``csrc/gemm_wide.cuh`` in each of its
+  epilogues (``unirec_gemm_q_test``) against its plain form
+  (``chip_smoke.gemm_q_plain``: the exact product, then the same fp32
+  roundings), bit for bit (``torch.equal``), the SwiGLU epilogue's h and
+  row maxima with the plain form's exp taken from the C library's ``expf``,
+  the function the emulated kernel calls;
+* B8 (``unirec_int8_linear``) against its plain version bit for bit, and
+  B9b (``unirec_qwen3_swiglu_q``) within the block tolerance, its codes and
+  row scales of h equal to ``kernel_row_quant`` of its own h and its output
+  to the down product of those codes, at a gate|up tile whose gate box
+  runs past the intermediate width;
 * B4, B5 and B6 (``csrc/qformer_blocks.cu``) on the TMA path and on the edge
   path (a width that is not a multiple of 16 codes), B6 with one chunk and
   with chunks that end inside a k-tile;
@@ -45,16 +52,31 @@ sys.path.insert(0, str(HERE))
 
 import torch  # noqa: E402
 
+import chip_smoke as cs  # noqa: E402
 from check_attention import _Entries, build  # noqa: E402
 from unirec_tpu_torch.ops import _build  # noqa: E402
 from unirec_tpu_torch.ops import attention as pa  # noqa: E402
 from unirec_tpu_torch.ops import fused_qformer_int8 as pq  # noqa: E402
 from unirec_tpu_torch.ops import fused_qformer_layer as fq  # noqa: E402
+from unirec_tpu_torch.ops import fused_qwen3_int8 as pf  # noqa: E402
 from unirec_tpu_torch.ops import packed_attention as pp  # noqa: E402
+from unirec_tpu_torch.ops.int8_matmul import (  # noqa: E402
+    int8_linear_plain,
+    kernel_row_quant,
+)
 
 BLOCK_ATOL, BLOCK_COS = 5e-2, 0.9999
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-EPIS = ("bias", "up_gelu_quant", "bias_resid", "chunked_resid")
+_LIBM = ctypes.CDLL("libm.so.6")
+_LIBM.expf.restype = ctypes.c_float
+_LIBM.expf.argtypes = [ctypes.c_float]
+
+
+def _expf(x: torch.Tensor) -> torch.Tensor:
+    """The C library's expf elementwise (torch's CPU exp can differ from it
+    by an ulp)."""
+    return torch.tensor([_LIBM.expf(v) for v in x.flatten().tolist()],
+                        dtype=torch.float32).reshape(x.shape)
 
 
 def _emulated():
@@ -110,34 +132,83 @@ def _vec(gen, n, mean=0.0):
 
 
 def check_gemm_q(lib, raw, m, n, k, epi, chunk):
-    """The new int8 GEMM against gemm_s8_kernel on the same codes, one step
-    (an epilogue, or B6's up projection with its gelu and quantization)."""
+    """The int8 GEMM in one epilogue against its plain form, bit for bit
+    (swiglu: n columns of h from w [2n, k], and its row maxima)."""
     gen = torch.Generator().manual_seed(m + n + k + chunk)
+    wn = 2 * n if epi == "swiglu" else n
     a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
-    w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (wn, k), generator=gen, dtype=torch.int8)
     groups = k // chunk if epi == "chunked_resid" else 1
     rs = (torch.rand(m, groups, generator=gen) * 1e-3).contiguous()
-    cs = (torch.rand(n, generator=gen) * 1e-2).contiguous()
+    cs_ = (torch.rand(wn, generator=gen) * 1e-2).contiguous()
     bias = _vec(gen, n)
     resid = _bf(gen, m, n)
-    out_dtype = {"bias": torch.bfloat16, "up_gelu_quant": torch.int8}.get(
-        epi, torch.float32)
-    got = [torch.zeros(m, n, dtype=out_dtype) for _ in range(2)]
-    scratch = torch.zeros(m, n)
-    scales = [torch.zeros(m, n // chunk) for _ in range(2)]
-    for which in (0, 1):
-        c, sc = got[which], scales[which]
-        _twice(raw, lambda c=c, sc=sc, which=which: lib.unirec_gemm_q_test(
-            which, EPIS.index(epi), a.data_ptr(), w.data_ptr(), rs.data_ptr(),
-            groups, cs.data_ptr(), bias.data_ptr(), resid.data_ptr(),
-            c.data_ptr(), scratch.data_ptr(), sc.data_ptr(), m, n, k, chunk,
-            None), [c, sc], a, w, rs, cs, bias, resid, scratch)
-    if not (torch.equal(got[0], got[1]) and torch.equal(scales[0], scales[1])):
-        d = (got[0].float() - got[1].float()).abs().max().item()
-        raise AssertionError(f"int8 GEMM {epi}: not gemm_s8_kernel's bits "
-                             f"(max|d| {d:.2e})")
-    print(f"int8 GEMM {epi} M {m} N {n} K {k} chunk {chunk}: "
-          "gemm_s8_kernel's bits", flush=True)
+    dtype = torch.bfloat16 if epi in ("bias", "plain") else torch.float32
+    c, mx = torch.zeros(m, n, dtype=dtype), torch.zeros(m)
+
+    def call():
+        mx.zero_()
+        return lib.unirec_gemm_q_test(
+            cs.GEMM_Q_EPIS.index(epi), a.data_ptr(), w.data_ptr(),
+            rs.data_ptr(), groups, cs_.data_ptr(), bias.data_ptr(),
+            resid.data_ptr(), c.data_ptr(), mx.data_ptr(), m, n, k, chunk,
+            None)
+
+    _twice(raw, call, [c, mx], a, w, rs, cs_, bias, resid)
+    ref = cs.gemm_q_plain(epi, a, w, rs, cs_, bias, resid, chunk, exp=_expf)
+    if epi == "swiglu":
+        ok = torch.equal(c, ref[0]) and torch.equal(mx, ref[1])
+    else:
+        ok = torch.equal(c, ref)
+    if not ok:
+        got = c.float() - (ref[0] if epi == "swiglu" else ref).float()
+        raise AssertionError(f"int8 GEMM {epi}: not its plain form's bits "
+                             f"(max|d| {got.abs().max().item():.2e})")
+    print(f"int8 GEMM {epi} M {m} N {n} K {k} chunk {chunk}: its plain "
+          "form's bits, repeats bit for bit", flush=True)
+
+
+def check_int8_linear(lib, raw, m, k, n):
+    """B8 against its plain version, bit for bit."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = _bf(gen, m, k)
+    x[5] = 0.0
+    wq, ws = pq.quantize_weight(torch.randn(n, k, generator=gen) * 0.03)
+    out = torch.zeros(m, n).bfloat16()
+    xq, xs = torch.zeros(m, k, dtype=torch.int8), torch.zeros(m)
+    _twice(raw, lambda: lib.unirec_int8_linear(
+        _p(x), _p(wq), _p(ws), _p(out), _p(xq), _p(xs), m, n, k, None),
+        [out], x, wq, ws, xq, xs)
+    if not torch.equal(out, int8_linear_plain(x, wq, ws)):
+        raise AssertionError(f"B8 [{m}, {k}] -> {n}: not its plain bits")
+    print(f"B8 [{m}, {k}] -> {n}: its plain version's bits, repeats bit for "
+          "bit", flush=True)
+
+
+def check_swiglu_block(lib, raw, rows, d, inter):
+    """B9b within the block tolerance of its plain version, its codes and
+    row scales of h those of kernel_row_quant(h) and its output the down
+    product of those codes (``_mm_q``), bit for bit."""
+    gen = torch.Generator().manual_seed(rows + d + inter)
+    x = _bf(gen, rows, d)
+    wgu, sgu = pq.quantize_weight(torch.randn(2 * inter, d, generator=gen)
+                                  * 0.05)
+    wd, sd = pq.quantize_weight(torch.randn(d, inter, generator=gen) * 0.05)
+    out = torch.zeros(rows, d).bfloat16()
+    xq, xs = torch.zeros(rows, d, dtype=torch.int8), torch.zeros(rows)
+    h, hs = torch.zeros(rows, inter), torch.zeros(rows)
+    hq = torch.zeros(rows, inter, dtype=torch.int8)
+    _twice(raw, lambda: lib.unirec_qwen3_swiglu_q(
+        _p(x), _p(wgu), _p(sgu), _p(wd), _p(sd), _p(out), _p(xq), _p(xs),
+        _p(h), _p(hq), _p(hs), rows, d, inter, None),
+        [out, h, hq, hs], x, wgu, sgu, wd, sd, xq, xs)
+    codes, scales = kernel_row_quant(h)
+    if not (torch.equal(hq, codes) and torch.equal(hs, scales[:, 0])
+            and torch.equal(out, pq._mm_q(hq, hs[:, None], wd, sd).bfloat16())):
+        raise AssertionError(f"B9b rows {rows}: h's codes, scales or the down "
+                             "product are not their plain bits")
+    _hold_block(f"B9b rows {rows} D {d} I {inter}", out,
+                pf.swiglu_mlp_int8_plain(x, wgu, sgu, wd, sd))
 
 
 def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk):
@@ -344,14 +415,20 @@ def check_b15(lib, raw, dtype, items, heads, nq, nkv, hd, merged):
 def main() -> int:
     raw, lib = _emulated()
     for case in ((150, 320, 384, "bias", 384),
-                 (150, 320, 384, "up_gelu_quant", 320),
-                 (150, 320, 384, "up_gelu_quant", 64),
-                 (20, 4160, 64, "up_gelu_quant", 4160),  # a group above 4096
+                 (150, 320, 384, "bias_f32", 384),
                  (150, 320, 384, "bias_resid", 384),
                  (150, 320, 384, "chunked_resid", 384),
                  (150, 320, 384, "chunked_resid", 128),
-                 (70, 128, 384, "chunked_resid", 192)):
+                 (70, 128, 384, "chunked_resid", 192),
+                 (150, 320, 384, "plain", 384),
+                 (150, 104, 100, "plain", 100),  # the edge kernel
+                 (150, 160, 256, "swiglu", 256),  # a gate box past I
+                 (70, 256, 128, "swiglu", 128)):
         check_gemm_q(lib, raw, *case)
+    for case in ((150, 128, 320), (70, 256, 48)):
+        check_int8_linear(lib, raw, *case)
+    for case in ((150, 128, 160), (129, 256, 384)):
+        check_swiglu_block(lib, raw, *case)
     # the TMA path, one chunk and chunks that end inside a k-tile; the edge
     # path (100 and 104 codes are not whole 16-byte rows)
     check_int8_blocks(lib, raw, 3, 8, 6, 128, 2, 384, 384)

@@ -138,6 +138,14 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline void __syncwarp() { emu::wsync(); }
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+inline int atomicMax(int* p, int v) {  // the blocks of a cluster run at once
+  std::atomic_ref<int> a(*p);
+  int old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
 inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }

@@ -1,23 +1,22 @@
-"""The contrastive hinge of ``chip_smoke.py``'s item step (phase 7 (a), C-12)
-over draws of its batch, on one card: the fused-anchor step (B12s / B12c)
-and the plain-anchor step from the sweep's seed-0 checkpoint at
+"""The item step's gate of ``chip_smoke.py`` (phase 7 (a), C-12) over draws
+of its batch, on one card: from the sweep's seed-0 checkpoint at
 ``ItemQFormerConfig()``, batch 512, dropout 0, each draw a batch of
 ``chip_smoke.item_batches`` from ``numpy.random.default_rng(SEED + 2 +
-draw)`` (draw 0 is the smoke's own batch).
+draw)`` (draw 0 is the smoke's own batch), ``chip_smoke.item_step_parity``:
+the plain-anchor step, the reference, then the fused-anchor step (B12s /
+B12c) on the plain step's active set of the contrastive hinge
+relu(margin + d(a, p) - d(a, n)).
 
     python3 scripts/probe_item_hinge.py [--draws 24]
 
-The hinge is relu(margin + d(a, p) - d(a, n)); both steps give each
-sample's argument (the step's ``hinge_arguments``).  For each draw the
-script prints the largest |fused - plain| difference of the arguments over
-the 512 samples (the two anchors' rounding on the hinge), its 99th
-percentile, the samples whose arguments lie on the two sides of 0 (fused,
-plain, difference), the smoke's first gate (loss and every leaf's gradient
-cosine, fused against plain), and where samples flipped, whether
-``chip_smoke.hinge_flips`` admits them and the gate on one active set.
-Last, a summary: the largest difference over the draws without a flip
-(the rounding scale that ``HINGE_ROUNDING`` is set from), over all draws,
-and every flip.  Exits 1 if a draw fails the smoke's gate.  Needs a card.
+For each draw the script prints the gate's reading: the anchor
+representation's max|d| / max|ref| and least row cosine, the largest
+|fused - plain| hinge argument difference and the least slack to its
+per-sample bound (2 |a_f - a_p| + |p_f - p_p| + |n_f - n_p| plus both
+steps' rounding of the distances), the samples whose two arguments lie on
+the two sides of 0 (fused, plain, bound), the loss and the worst leaf's
+gradient cosine.  Last, a summary.  Exits 1 if a draw fails the gate.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     counters = cs.item_counters()
-    quiet_gaps, all_gaps, flips, failed = [], [], [], 0
+    failed, flips, worst = 0, 0, []
     with tempfile.TemporaryDirectory() as tmp:
         cs.write_sweep_inputs(tmp)
         cfg, sd, _ = QFormerInference.read_checkpoint(os.path.join(tmp, "ckpt"))
@@ -57,55 +56,17 @@ def main() -> int:
         for draw in range(args.draws):
             batch = cs.item_batches(
                 cache, np.random.default_rng(cs.SEED + 2 + draw), 1)[0]
-            loss_f, g_f, _, arg_f = cs.item_step(cfg, sd, batch, True,
-                                                 counters)
-            loss_p, g_p, _, arg_p = cs.item_step(cfg, sd, batch, False,
-                                                 counters)
-            gap = (arg_f - arg_p).abs()
-            flipped, admitted = cs.hinge_flips(arg_f, arg_p)
-            cos = cs.grad_cosines(g_f, g_p)
-            worst = min(cos, key=cos.get)
-            rel = abs(loss_f - loss_p) / abs(loss_p)
-            first = rel <= cs.STEP_LOSS_REL and cos[worst] >= cs.STEP_GRAD_COS
-            line = (f"draw {draw}: |fused - plain| argument max "
-                    f"{gap.max().item():.3e}, 99th percentile "
-                    f"{torch.quantile(gap, 0.99).item():.3e}; |argument| "
-                    f"min {arg_p.abs().min().item():.3e}; first gate: loss "
-                    f"rel {rel:.2e}, min cosine {cos[worst]:.6f} ({worst})")
-            ok = first and np.isfinite(loss_f)
-            all_gaps.append(gap.max().item())
-            if len(flipped) == 0:
-                quiet_gaps.append(gap.max().item())
-            else:
-                seen = [(arg_f[i].item(), arg_p[i].item(), gap[i].item())
-                        for i in flipped.tolist()]
-                flips += seen
-                line += (f"; {len(flipped)} flipped (fused, plain, "
-                         f"difference): "
-                         f"{[tuple(f'{x:.3e}' for x in t) for t in seen]}, "
-                         f"{'admitted' if admitted else 'not admitted'}")
-                ok = admitted
-                if admitted:
-                    loss_p, g_p, _, _ = cs.item_step(
-                        cfg, sd, batch, False, counters,
-                        active=(arg_f > 0).float())
-                    cos = cs.grad_cosines(g_f, g_p)
-                    worst = min(cos, key=cos.get)
-                    rel = abs(loss_f - loss_p) / abs(loss_p)
-                    ok = (rel <= cs.STEP_LOSS_REL
-                          and cos[worst] >= cs.STEP_GRAD_COS)
-                    line += (f"; on one active set: loss rel {rel:.2e}, min "
-                             f"cosine {cos[worst]:.6f} ({worst})")
-            failed += not ok
-            print(line + ("" if ok else "  FAILS"), flush=True)
-            del g_f, g_p
+            res = cs.item_step_parity(cfg, sd, batch, counters)
+            failed += not res["ok"]
+            flips += len(res["gate"]["flips"])
+            worst.append(res["cos"])
+            print(f"draw {draw}: {cs.hinge_log(res)}; loss rel "
+                  f"{res['loss_rel']:.2e}, min gradient cosine "
+                  f"{res['cos']:.6f} ({res['worst']})"
+                  + ("" if res["ok"] else "  FAILS"), flush=True)
     print(f"summary: {args.draws - failed} of {args.draws} draws pass the "
-          f"smoke's gate (at most {cs.HINGE_FLIP_MAX} flips, each within "
-          f"{cs.HINGE_ROUNDING:g}); {len(quiet_gaps)} draws without a flip, "
-          f"largest |fused - plain| argument over them "
-          f"{max(quiet_gaps, default=float('nan')):.3e}; over all draws "
-          f"{max(all_gaps):.3e}; {len(flips)} flips, differences "
-          f"{sorted(round(t[2], 6) for t in flips)}", flush=True)
+          f"gate; {flips} flips in all; worst leaf cosine over the draws "
+          f"{min(worst):.6f}", flush=True)
     return 1 if failed else 0
 
 

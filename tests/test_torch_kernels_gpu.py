@@ -14,11 +14,12 @@ orders, which can flip a bf16 rounding of qkv, probabilities, ctx or the gelu
 output, and in B4-B6 through it one int8 code) and per-row cosine >= 0.9999.
 B11 is held as K2: scores within 1e-5, ids equal except near-ties.
 
-B8 and B9a (the Qwen3 W8A8 projections) are held to their plain versions
-within one bf16 ulp of each reference value: the integer sums are exact and
-both round the epilogue at the same points, so they are expected to be equal.
+B8 and B9a (the Qwen3 W8A8 projections) give their plain versions' bits:
+the integer sums are exact and both round the epilogue at the same points.
 B9b has per-row cosine >= 0.9999 and max|d| <= 1e-2 max|ref|: the card's
-sigmoid is not torch's, which can flip one code of the requantized h.
+sigmoid is not torch's, which can flip one code of the requantized h; its
+codes of h and its down product are held bit for bit to the plain forms
+over its own h.
 
 B7b (the flash backward) and K1's training form are held to their plain
 versions at the joint training shape: max|d| <= 1e-5 max|ref| in fp32 and
@@ -30,7 +31,8 @@ padding, and repeat bit for bit.  B13 / B14 / B14p run at hd 8, 24, 64, 128
 and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
 and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
 dim and F (C-8).  Head dims above 256 are refused by K1-B14p, naming the
-set.  B4-B6's int8 GEMM is held to gemm_s8_kernel bit for bit; B1-B6 run
+set.  The int8 GEMM of B4-B6 and B8-B9b is held bit for bit to its plain
+form in every epilogue; B1-B6 run
 at hidden 1020 and 1032 (C-10).  B1-B3 run on each route of their
 LayerNorm (the cluster epilogue at hidden 1024 and at 896, whose last tile
 is ragged; two passes at 2304 and 1020) and repeat bit for bit; the
@@ -40,6 +42,7 @@ cluster epilogue alone is held to the two-pass route within a bf16 ulp.
 import pytest
 import torch
 
+import chip_smoke
 from unirec_tpu_torch.ops import fused_qformer_int8 as pq
 from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
 from unirec_tpu_torch.ops import fused_qformer_layer as fq
@@ -48,7 +51,11 @@ from unirec_tpu_torch.ops.flash_causal import (
     flash_causal_attention,
     flash_causal_attention_plain,
 )
-from unirec_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_plain
+from unirec_tpu_torch.ops.int8_matmul import (
+    int8_linear,
+    int8_linear_plain,
+    kernel_row_quant,
+)
 from unirec_tpu_torch.ops.losses import l2_normalize
 from unirec_tpu_torch.ops.quantization import (
     quantize_rows,
@@ -573,20 +580,15 @@ def test_b11_matches_plain(hopper, n_users):
 QWEN_D, QWEN_I, QWEN_QKV = 1024, 3072, 4096
 
 
-def _within_one_ulp(out, ref):
-    """|out - ref| <= one bf16 ulp of ref, elementwise."""
-    assert out.shape == ref.shape and out.dtype == torch.bfloat16
-    a, b = out.float(), ref.float()
-    assert torch.isfinite(a).all()
-    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
-    assert ((a - b).abs() <= ulp).all()
-
-
 @pytest.mark.parametrize("rows,k,n", [(4096, 1024, 2048), (4096, 1024, 1024),
                                       (4096, 2048, 1024), (4096, 1024, 3072),
                                       (4096, 3072, 1024),
-                                      (16384, 1024, 2048)])
+                                      (16384, 1024, 2048),
+                                      (1000, 1024, 2048)])
 def test_b8_matches_plain(hopper, rows, k, n):
+    """B8 gives its plain version's bits (the int32 sums are exact in any
+    order, the epilogue rounds at the plain version's points), at the
+    serving projections and a ragged row count, and repeats them."""
     g = hopper
     x = _rand(g, rows, k)
     x[7] = 0.0  # a row below the absmax floor
@@ -595,31 +597,71 @@ def test_b8_matches_plain(hopper, rows, k, n):
     out = int8_linear(x, wq, ws)
     torch.cuda.synchronize()
     assert int8_linear.launches == before + 1
-    _within_one_ulp(out, int8_linear_plain(x, wq, ws))
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, int8_linear_plain(x, wq, ws))
+    assert torch.equal(out, int8_linear(x, wq, ws))
     assert (out[7] == 0).all()
 
 
-def test_b9a_matches_plain(hopper):
+@pytest.mark.parametrize("rows", [4096, 1024])
+def test_b9a_matches_plain(hopper, rows):
     g = hopper
-    x = _rand(g, 4096, QWEN_D)
+    x = _rand(g, rows, QWEN_D)
     wq, ws = _q(g, QWEN_QKV, QWEN_D, std=0.03)
     before = pf.qkv_int8.launches
     out = pf.qkv_int8(x, wq, ws)
     torch.cuda.synchronize()
     assert pf.qkv_int8.launches == before + 1
-    _within_one_ulp(out, pf.qkv_int8_plain(x, wq, ws))
+    assert torch.equal(out, pf.qkv_int8_plain(x, wq, ws))
+    assert torch.equal(out, pf.qkv_int8(x, wq, ws))
 
 
-@pytest.mark.parametrize("rows", [512, 4096])
+def _swiglu_entry(x, wgu, sgu, wd, sd):
+    """B9b's C entry on scratch the test owns (any row count): (out, h, h's
+    codes, h's row scales)."""
+    from unirec_tpu_torch.ops._build import check, load_kernels
+
+    rows, d = x.shape
+    inter = wd.shape[1]
+    out = torch.empty_like(x)
+    xq = torch.empty(rows, d, device="cuda", dtype=torch.int8)
+    xs, hs = (torch.empty(rows, device="cuda") for _ in range(2))
+    h = torch.empty(rows, inter, device="cuda")
+    hq = torch.empty(rows, inter, device="cuda", dtype=torch.int8)
+    check(load_kernels().lib.unirec_qwen3_swiglu_q(
+        x.data_ptr(), wgu.data_ptr(), sgu.data_ptr(), wd.data_ptr(),
+        sd.data_ptr(), out.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+        h.data_ptr(), hq.data_ptr(), hs.data_ptr(), rows, d, inter,
+        torch.cuda.current_stream().cuda_stream), "unirec_qwen3_swiglu_q")
+    return out, h, hq, hs
+
+
+@pytest.mark.parametrize("rows", [512, 4096, 1000])
 def test_b9b_matches_plain(hopper, rows):
+    """B9b against its plain version (the card's sigmoid is not torch's,
+    which can flip a code of h), through the wrapper at whole 512-row tiles
+    and through its C entry at a ragged row count; its codes and row scales
+    of h are kernel_row_quant's of its own h and its output the down
+    product of those codes, bit for bit; a repeat gives the same bits."""
     g = hopper
     x = _rand(g, rows, QWEN_D)
     wgu, sgu = _q(g, 2 * QWEN_I, QWEN_D, std=0.03)
     wd, sd = _q(g, QWEN_D, QWEN_I, std=0.02)
-    before = pf.swiglu_mlp_int8.launches
-    out = pf.swiglu_mlp_int8(x, wgu, sgu, wd, sd)
+    if rows % 512 == 0:
+        before = pf.swiglu_mlp_int8.launches
+        out = pf.swiglu_mlp_int8(x, wgu, sgu, wd, sd)
+        torch.cuda.synchronize()
+        assert pf.swiglu_mlp_int8.launches == before + 1
+    got = _swiglu_entry(x, wgu, sgu, wd, sd)
+    again = _swiglu_entry(x, wgu, sgu, wd, sd)
     torch.cuda.synchronize()
-    assert pf.swiglu_mlp_int8.launches == before + 1
+    if rows % 512 == 0:
+        assert torch.equal(out, got[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    out, h, hq, hs = got
+    codes, scales = kernel_row_quant(h)
+    assert torch.equal(hq, codes) and torch.equal(hs, scales[:, 0])
+    assert torch.equal(out, pq._mm_q(hq, hs[:, None], wd, sd).bfloat16())
     ref = pf.swiglu_mlp_int8_plain(x, wgu, sgu, wd, sd).float()
     assert out.shape == x.shape and out.dtype == torch.bfloat16
     a = out.float()
@@ -1076,55 +1118,56 @@ def test_b14p_autograd_gradients_match_cpu(hopper, dtype):
         _check_kernel(f"grad {name}", g, r.cuda())
 
 
-EPIS = ("bias", "up_gelu_quant", "bias_resid", "chunked_resid")
-
-
 @pytest.mark.parametrize("m,n,k,epi,chunk", [
     (32 * 1001, 3 * D, D, "bias", D),
-    (32 * 1001, INTER, D, "up_gelu_quant", INTER),
-    (32 * 1001, INTER, D, "up_gelu_quant", 1024),
+    (32 * 1001, INTER, D, "bias_f32", D),
     (32 * 1001, D, D, "bias_resid", D),
     (32 * 1001, D, INTER, "chunked_resid", INTER),
     (32 * 1001, D, INTER, "chunked_resid", 1024),
-    (32 * 4096, INTER, D, "up_gelu_quant", INTER),
-    (32 * 4096, D, INTER, "chunked_resid", INTER)])
-def test_int8_gemm_matches_gemm_s8_bit_for_bit(hopper, m, n, k, epi, chunk):
-    """B4-B6's int8 TMA + wgmma GEMM (csrc/gemm_wide.cuh) against
-    gemm_s8_kernel, which they ran on before and B8/B9 keep, through the
-    test entry unirec_gemm_q_test: the same codes and scales give the same
-    bits in every epilogue the two share (the int32 sums are exact in any
-    order, the epilogues round at the same points), and B6's up projection
-    with its gelu and quantization per chunk (up_gelu_quant: h's codes and
-    scales) the same codes and scales as the gelu epilogue and row_quant
-    before; a repeat gives the same bits."""
+    (32 * 4096, INTER, D, "bias_f32", D),
+    (32 * 4096, D, INTER, "chunked_resid", INTER),
+    (4096, QWEN_QKV, QWEN_D, "plain", QWEN_D),
+    (4096, QWEN_D, QWEN_I, "plain", QWEN_I),
+    (1000, 2 * QWEN_D, QWEN_D, "plain", QWEN_D),
+    (4096, QWEN_I, QWEN_D, "swiglu", QWEN_D),
+    (1000, QWEN_I, QWEN_D, "swiglu", QWEN_D)])
+def test_int8_gemm_matches_plain_bit_for_bit(hopper, m, n, k, epi, chunk):
+    """The int8 TMA + wgmma GEMM of B4-B6 and B8-B9b (csrc/gemm_wide.cuh)
+    in each of its epilogues, through the test entry unirec_gemm_q_test,
+    against its plain form (chip_smoke.gemm_q_plain: the exact product,
+    then the same fp32 roundings): the same bits, at B4-B6's and the Qwen3
+    serving products; the SwiGLU epilogue's row maxima equal to the amax of
+    |h| over each row; a repeat gives the same bits."""
     from unirec_tpu_torch.ops._build import check, load_kernels
 
     g = hopper
+    wn = 2 * n if epi == "swiglu" else n
     a = torch.randint(-127, 128, (m, k), device="cuda", generator=g,
                       dtype=torch.int8)
-    w = torch.randint(-127, 128, (n, k), device="cuda", generator=g,
+    w = torch.randint(-127, 128, (wn, k), device="cuda", generator=g,
                       dtype=torch.int8)
     groups = k // chunk if epi == "chunked_resid" else 1
     rs = torch.rand(m, groups, device="cuda", generator=g) * 1e-3
-    cs = torch.rand(n, device="cuda", generator=g) * 1e-2
+    cs = torch.rand(wn, device="cuda", generator=g) * 1e-2
     bias = _vec(g, n)
     resid = _rand(g, m, n)
-    dtype = {"bias": torch.bfloat16, "up_gelu_quant": torch.int8}.get(
-        epi, torch.float32)
-    outs = [torch.empty(m, n, device="cuda", dtype=dtype) for _ in range(3)]
-    scales = [torch.empty(m, n // chunk, device="cuda") for _ in range(3)]
-    scratch = torch.empty(m, n, device="cuda")
-    for which, out, sc in zip((0, 1, 1), outs, scales):
+    dtype = torch.bfloat16 if epi in ("bias", "plain") else torch.float32
+    outs = [torch.empty(m, n, device="cuda", dtype=dtype) for _ in range(2)]
+    maxes = [torch.zeros(m, device="cuda") for _ in range(2)]
+    for out, mx in zip(outs, maxes):
         check(load_kernels().lib.unirec_gemm_q_test(
-            which, EPIS.index(epi), a.data_ptr(), w.data_ptr(), rs.data_ptr(),
-            groups, cs.data_ptr(), bias.data_ptr(), resid.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), sc.data_ptr(), m, n, k, chunk,
+            chip_smoke.GEMM_Q_EPIS.index(epi), a.data_ptr(), w.data_ptr(),
+            rs.data_ptr(), groups, cs.data_ptr(), bias.data_ptr(),
+            resid.data_ptr(), out.data_ptr(), mx.data_ptr(), m, n, k, chunk,
             torch.cuda.current_stream().cuda_stream), "unirec_gemm_q_test")
+    ref = chip_smoke.gemm_q_plain(epi, a, w, rs, cs, bias, resid, chunk)
     torch.cuda.synchronize()
-    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
-    if epi == "up_gelu_quant":
-        assert torch.equal(scales[0], scales[1])
-        assert torch.equal(scales[1], scales[2])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(maxes[0], maxes[1])
+    if epi == "swiglu":
+        assert torch.equal(outs[0], ref[0])
+        assert torch.equal(maxes[0], outs[0].abs().amax(dim=1))
+    else:
+        assert torch.equal(outs[0], ref)
 
 
 @pytest.mark.parametrize("d", [1020, 1032])

@@ -1,7 +1,9 @@
-// The warpgroup GEMM of the Item Q-Former kernels, for bf16 and int8
+// The warpgroup GEMM of the port's projections, for bf16 and int8
 // operands: the projections of the trainable blocks B12s / B12c
 // (fused_qformer_vjp.cu), every product of the sweep's bf16 blocks B1-B3
-// and of their W8A8 forms B4-B6 (qformer_blocks.cu).
+// and of their W8A8 forms B4-B6, and every product of the int8 Qwen3
+// serving kernels B8, B9a and B9b (qformer_blocks.cu): one int8 mainloop
+// for B4-B6 and B8-B9b.
 //
 //   C[M, N] = epilogue(A[M, K] . W[N, K]^T), both operands K-contiguous (W
 //   is the torch Linear layout), bf16 with fp32 sums or int8 codes with
@@ -58,8 +60,9 @@
 // int32 sums (int8 codes), dequantized as (float(acc) * rs) * cs with the
 // row scale rs (row_scale[row * rs_stride]) and the column scale cs, rounded
 // with __fmul_rn / __fadd_rn (no contraction): the JAX kernels' fp32
-// rounding points (unirec_tpu/ops/fused_qformer_int8.py _mm_q), the same as
-// gemm_s8_kernel's in qformer_blocks.cu, so the two give the same bits:
+// rounding points (unirec_tpu/ops/fused_qformer_int8.py _mm_q); the int32
+// sums are exact in any order, so each epilogue gives the bits of its plain
+// form (the exact product, then the same fp32 roundings):
 //   EPQ_BIAS          + bias -> bf16
 //   EPQ_BIAS_F32      + bias -> fp32 (B6's up projection u: its gelu runs in
 //                     the quantization pass that reads u, qformer_blocks.cu)
@@ -75,6 +78,15 @@
 //                     the whole 4096) needs no fp32 registers of its own and
 //                     takes the 128 x 256 tile; several fold into BN / 2 fp32
 //                     registers beside the int32 ones, which fit at 128 x 128.
+//   EPQ_PLAIN         no bias -> bf16 (the Qwen3 projections B8, B9a and
+//                     B9b's down projection)
+//   EPQ_SWIGLU        W [2N, K] holds gate rows, then up rows (B9b's gate|up
+//                     product); C [M, N] fp32 = h = (g * sigmoid(g)) * u of
+//                     the dequantized g and u, with each row's max |h| raised
+//                     in row_max (wg_stage_swiglu below).  A 128 x 256 tile
+//                     holds 128 columns of h: the producer loads its W stage
+//                     as two TMA boxes, the tile's gate rows and its up rows,
+//                     so that one thread holds g and u of the same column.
 //
 // The LayerNorm in the residual GEMM's epilogue (WG_BIAS_RESID_LN): a row
 // spans all N columns, more than one 128 x 256 tile, and 128 x 1024 fp32
@@ -131,7 +143,9 @@ enum {
   EPQ_BIAS,
   EPQ_BIAS_F32,
   EPQ_BIAS_RESID,
-  EPQ_CHUNKED_RESID
+  EPQ_CHUNKED_RESID,
+  EPQ_PLAIN,
+  EPQ_SWIGLU
 };
 
 // what an epilogue reads besides the sums (unused fields may be null)
@@ -145,6 +159,7 @@ struct WgEpi {
   const float* gamma;      // WG_BIAS_RESID_LN: [N]
   const float* beta;       // WG_BIAS_RESID_LN: [N]
   float eps;               // WG_BIAS_RESID_LN
+  int* row_max;            // EPQ_SWIGLU: [M], each row's max |h| as the float's bits
 };
 
 template <typename T>
@@ -239,13 +254,20 @@ __device__ __forceinline__ void wg_ktile(Acc (&acc)[NA], float (&facc)[FOLD ? NA
 template <int EPI>
 __host__ __device__ constexpr bool wg_f32_out() {
   return EPI == WG_F32 || EPI == WG_BIAS_RESID || EPI == EPQ_BIAS_F32 ||
-         EPI == EPQ_BIAS_RESID || EPI == EPQ_CHUNKED_RESID;
+         EPI == EPQ_BIAS_RESID || EPI == EPQ_CHUNKED_RESID || EPI == EPQ_SWIGLU;
 }
 
-// words (4 bytes) between staged rows of BN values
+// output columns of a block tile of BN product columns (EPQ_SWIGLU pairs a
+// gate column with an up column)
+template <int EPI, int BN>
+__host__ __device__ constexpr int wg_cols() {
+  return EPI == EPQ_SWIGLU ? BN / 2 : BN;
+}
+
+// words (4 bytes) between staged rows of a tile's output columns
 template <int EPI, int BN>
 __host__ __device__ constexpr int wg_pitch() {
-  return wg_f32_out<EPI>() ? BN + 8 : BN / 2 + 4;
+  return wg_f32_out<EPI>() ? wg_cols<EPI, BN>() + 8 : BN / 2 + 4;
 }
 
 // bytes of the two consumer warpgroups' staging tiles
@@ -277,7 +299,7 @@ __device__ __forceinline__ void wg_stage(const Acc (&acc)[NA], const float (&fac
     if (col >= N) continue;
     const bool two = col + 1 < N;
     float bs[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
-    if constexpr (EPI != WG_F32) {
+    if constexpr (EPI != WG_F32 && EPI != EPQ_PLAIN) {
       bs[0] = ep.bias[col];
       bs[1] = two ? ep.bias[col + 1] : 0.f;
     }
@@ -303,7 +325,8 @@ __device__ __forceinline__ void wg_stage(const Acc (&acc)[NA], const float (&fac
             f = __fadd_rn(0.f, __fmul_rn(__int2float_rn(acc[i]), rs[hf]));
           else
             f = __fmul_rn(__int2float_rn(acc[i]), rs[hf]);
-          v[e] = __fadd_rn(__fmul_rn(f, cs[e]), bs[e]);
+          v[e] = __fmul_rn(f, cs[e]);
+          if constexpr (EPI != EPQ_PLAIN) v[e] = __fadd_rn(v[e], bs[e]);
         }
       }
       if constexpr (EPI == WG_BIAS_GELU) {
@@ -339,15 +362,69 @@ __device__ __forceinline__ void wg_stage(const Acc (&acc)[NA], const float (&fac
   }
 }
 
-// phase 2: the warpgroup's staged 64 x BN tile (rows m0.., columns n0..)
-// into C in 16-byte chunks; t: the thread's index in its warpgroup
+// EPQ_SWIGLU's phase 1, in place of wg_stage (layout as wg_fold).  The
+// producer loads a tile's W rows as two boxes, gate rows n0.. and up rows
+// N + n0.. of W [2N, K], so that tile column j < BN / 2 is gate column
+// n0 + j and column BN / 2 + j up column n0 + j: acc[4n + i] and
+// acc[4(n + BN / 16) + i] are g and u of one column of h (each thread of an
+// m64nBN product holds sums in every 8-column block).  h = (g * sigmoid(g))
+// * u in fp32, with g = (acc_g * rs) * cs_g and u = (acc_u * rs) * cs_u,
+// into `stage` (BN / 2 columns); and each row's max |h| over the tile's
+// columns into ep.row_max by atomicMax on the float's bits: |h| >= 0, so
+// integer order is float order, and a maximum does not depend on the order
+// of the atomics (identical bits on repeat).
+template <int NA>
+__device__ __forceinline__ void wg_stage_swiglu(const int (&acc)[NA], const WgEpi& ep,
+                                                uint32_t* stage, int row0, int n0, int M,
+                                                int N) {
+  constexpr int P = wg_pitch<EPQ_SWIGLU, 2 * NA>();
+  constexpr int HB = NA / 8;  // 8-column blocks of h
+  const int t2 = (threadIdx.x & 3) * 2;
+  const int lrow = ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  float rs[2] = {0.f, 0.f}, mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    if (row0 + 8 * hf < M) rs[hf] = ep.row_scale[(size_t)(row0 + 8 * hf) * ep.rs_stride];
+#pragma unroll
+  for (int n = 0; n < HB; ++n) {
+    const int col = n0 + n * 8 + t2;
+    if (col >= N) continue;
+    const bool two = col + 1 < N;
+    const float cg[2] = {ep.col_scale[col], two ? ep.col_scale[col + 1] : 0.f};
+    const float cu[2] = {ep.col_scale[N + col], two ? ep.col_scale[N + col + 1] : 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * n + 2 * hf + e;
+        const float g = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), rs[hf]), cg[e]);
+        const float u = __fmul_rn(__fmul_rn(__int2float_rn(acc[i + 4 * HB]), rs[hf]), cu[e]);
+        const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
+        h[e] = __fmul_rn(__fmul_rn(g, sig), u);
+      }
+      mx[hf] = fmaxf(mx[hf], two ? fmaxf(fabsf(h[0]), fabsf(h[1])) : fabsf(h[0]));
+      *reinterpret_cast<float2*>(stage + (lrow + 8 * hf) * P + n * 8 + t2) = make_float2(h[0], h[1]);
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {  // the row's 4 threads, then the other tiles
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+    if (t2 == 0 && row0 + 8 * hf < M) atomicMax(ep.row_max + row0 + 8 * hf, __float_as_int(mx[hf]));
+  }
+}
+
+// phase 2: the warpgroup's staged 64-row tile (rows m0.., its output
+// columns n0..) into C in 16-byte chunks; t: the thread's index in its
+// warpgroup
 template <int EPI, int BN>
 __device__ __forceinline__ void wg_flush(const uint32_t* stage, void* C, int t, int m0, int n0,
                                          int M, int N) {
   using O = std::conditional_t<wg_f32_out<EPI>(), float, bf16>;
   constexpr int P = wg_pitch<EPI, BN>();
-  constexpr int E = 16 / (int)sizeof(O);  // values of a 16-byte chunk
-  constexpr int CPR = BN / E;             // chunks of a row
+  constexpr int E = 16 / (int)sizeof(O);        // values of a 16-byte chunk
+  constexpr int CPR = wg_cols<EPI, BN>() / E;  // chunks of a row
   const bool vec = N % E == 0 && (uintptr_t)C % 16 == 0;
   for (int c = t; c < 64 * CPR; c += 128) {
     const int r = c / CPR, cc = c - r * CPR;
@@ -524,7 +601,7 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tma_a,
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int m0 = blockIdx.y * WT_BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * wg_cols<EPI, BN>();  // the tile's first output column
   const int k_tiles = (K + BK - 1) / BK;
   if (tid == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -544,6 +621,8 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tma_a,
         mbar_arrive_expect(&full[s], (WT_BM + BN) * WG_ROW);
         tma_load_2d(As + s * WT_BM * WG_ROW, &tma_a, kt * BK, m0, &full[s]);
         tma_load_2d(Ws + s * BN * WG_ROW, &tma_w, kt * BK, n0, &full[s]);
+        if constexpr (EPI == EPQ_SWIGLU)  // the up rows N + n0.. below the gate rows
+          tma_load_2d(Ws + (s * BN + BN / 2) * WG_ROW, &tma_w, kt * BK, N + n0, &full[s]);
         if constexpr (LN) {
           if (kt == min(ST, k_tiles) - 1) {  // the ring is filled: the residual
             mbar_arrive_expect(rbar, BN * 2 * WT_BM);
@@ -592,6 +671,8 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tma_a,
   if constexpr (LN) {
     mbar_wait(rbar, 0);
     wg_stage_ln(acc, ep, Rs, vec, stage, part, row0 - m0, n0, N);
+  } else if constexpr (EPI == EPQ_SWIGLU) {
+    wg_stage_swiglu(acc, ep, stage, row0, n0, M, N);
   } else {
     wg_stage<EPI, FOLD>(acc, facc, ep, stage, row0, n0, M, N);
   }
@@ -641,8 +722,11 @@ template <typename T, int EPI, int BN, bool FOLD>
 cudaError_t launch_gemm_tma(const void* A, const void* W, const WgEpi& ep, void* C, int M, int N,
                             int K, cudaStream_t stream) {
   CUtensorMap ta, tw, tr;  // tr: WG_BIAS_RESID_LN's residual [M, N]
+  constexpr int OC = wg_cols<EPI, BN>();
   cudaError_t err = wt_tensor_map<T>(&ta, A, M, K, WT_BM);
-  if (err == cudaSuccess) err = wt_tensor_map<T>(&tw, W, N, K, BN);
+  // EPQ_SWIGLU: W is [2N, K], loaded in boxes of the tile's BN / 2 gate and
+  // BN / 2 up rows
+  if (err == cudaSuccess) err = wt_tensor_map<T>(&tw, W, N * (BN / OC), K, OC);
   if (err != cudaSuccess) return err;
   if constexpr (EPI == WG_BIAS_RESID_LN)
     err = wt_tensor_map<bf16>(&tr, ep.resid, M, N, WT_BM);
@@ -653,7 +737,7 @@ cudaError_t launch_gemm_tma(const void* A, const void* W, const WgEpi& ep, void*
   err = cudaFuncSetAttribute(gemm_tma_kernel<T, EPI, BN, FOLD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + WT_BM - 1) / WT_BM);
+  const dim3 grid((N + OC - 1) / OC, (M + WT_BM - 1) / WT_BM);
   if constexpr (EPI == WG_BIAS_RESID_LN) {  // a cluster spans the columns
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
@@ -839,19 +923,26 @@ cudaError_t gemm_resid_ln(const void* A, const void* W, const float* bias, const
   return launch_gemm_tma<bf16, WG_BIAS_RESID_LN, WL_BN, false>(A, W, ep, out, M, N, K, stream);
 }
 
-// C = epilogue(A . W^T), int8 codes (EPQ_*; ep as WgEpi says)
+// C = epilogue(A . W^T), int8 codes (EPQ_*; ep as WgEpi says).  EPQ_SWIGLU:
+// W [2N, K] holds the gate rows, then the up rows; C [M, N] is h; only
+// where TMA takes the rows (else cudaErrorInvalidValue)
 template <int EPI>
 cudaError_t gemm_q(const void* A, const void* W, const WgEpi& ep, void* C, int M, int N, int K,
                    cudaStream_t stream) {
   static_assert(EPI >= EPQ_BIAS, "int8 epilogues");
   const bool tma = wt_takes<int8_t>(A, W, K);
-  if constexpr (EPI == EPQ_CHUNKED_RESID) {
-    if (ep.chunk < K)
-      return tma ? launch_gemm_tma<int8_t, EPI, 128, true>(A, W, ep, C, M, N, K, stream)
-                 : launch_gemm_edge<int8_t, EPI, true>(A, W, ep, C, M, N, K, stream);
+  if constexpr (EPI == EPQ_SWIGLU) {
+    return tma ? launch_gemm_tma<int8_t, EPI, 256, false>(A, W, ep, C, M, N, K, stream)
+               : cudaErrorInvalidValue;
+  } else {
+    if constexpr (EPI == EPQ_CHUNKED_RESID) {
+      if (ep.chunk < K)
+        return tma ? launch_gemm_tma<int8_t, EPI, 128, true>(A, W, ep, C, M, N, K, stream)
+                   : launch_gemm_edge<int8_t, EPI, true>(A, W, ep, C, M, N, K, stream);
+    }
+    return tma ? launch_gemm_tma<int8_t, EPI, 256, false>(A, W, ep, C, M, N, K, stream)
+               : launch_gemm_edge<int8_t, EPI, false>(A, W, ep, C, M, N, K, stream);
   }
-  return tma ? launch_gemm_tma<int8_t, EPI, 256, false>(A, W, ep, C, M, N, K, stream)
-             : launch_gemm_edge<int8_t, EPI, false>(A, W, ep, C, M, N, K, stream);
 }
 
 bool gemm_wide_shape_ok(long long m, int n, int k) {

@@ -26,7 +26,7 @@
 // a block's GEMMs run at hundreds of FLOP per byte of HBM traffic, so all
 // three blocks are bound by tensor-core arithmetic.
 //
-// Design (every GEMM hand-written here):
+// Design (every GEMM hand-written here, every one on gemm_wide.cuh):
 //   * every bf16 product of B1-B3 runs on gemm_wide.cuh's warpgroup GEMM
 //     (gemm_wide): C[M, N] = A[M, K] . W[N, K]^T, both operands bf16 with K
 //     contiguous (W is the torch Linear layout, packed once on the host),
@@ -82,9 +82,9 @@
 // GEMM2 reads the codes: at least 5.4 GB, about 1.6 ms at 3.35 TB/s, which
 // the TPU kernel keeps in VMEM.  The next step is to recompute GEMM1's tile
 // inside GEMM2's producer so that h never leaves the SM.  The down
-// projection folds its int32 sums into fp32 at every chunk boundary.
-// gemm_s8_kernel below (mma.sync m16n8k32) is left to the Qwen3 kernels
-// B8/B9a/B9b and to a test entry that holds the new GEMM to it bit for bit.
+// projection folds its int32 sums into fp32 at every chunk boundary.  The
+// Qwen3 kernels B8, B9a and B9b (last section) share this one int8
+// mainloop with B4-B6.
 //
 // Every C entry launches on the caller's stream, allocates nothing, and
 // returns the first CUDA error (0 = success).
@@ -156,258 +156,6 @@ bool attention_shape_ok(int items, int heads, int nq, int nkv, int d) {
 // __fmul_rn / __fadd_rn so that no multiply-add is contracted: these are the
 // JAX kernels' fp32 rounding points (ops/fused_qformer_int8.py _mm_q).
 
-// gemm_s8_kernel: 128 x 128 block tiles, 8 warps of 64 x 32, 64-byte int8
-// k-tiles in 80-byte padded shared rows (ldmatrix conflict-free), a 3-stage
-// cp.async ring; two m16n8k32 steps cover a k-tile.
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int STAGES = 3;
-constexpr int GEMM_THREADS = 256;
-constexpr int QBK = 64;                  // int8 values of K per tile
-constexpr int QLDS = QBK + 16;           // padded shared row in bytes
-constexpr int QA_TILE = BM * QLDS;
-constexpr int QW_TILE = BN * QLDS;
-constexpr int QGEMM_SMEM = STAGES * (QA_TILE + QW_TILE);  // 61,440
-
-// gemm_s8_kernel's epilogues: gemm_wide.cuh's EPQ_BIAS, EPQ_BIAS_RESID and
-// EPQ_CHUNKED_RESID, and its own
-enum { EPQ_BIAS_GELU = EPQ_CHUNKED_RESID + 1, EPQ_PLAIN, EPQ_SWIGLU };
-
-// C[M, N] = epilogue(A[M, K] . W[N, K]^T), int8 operands with K contiguous.
-// row_scale[row * rs_stride + c] scales row `row` over the c-th group of
-// `chunk` columns of K.  Epilogues:
-//   EPQ_BIAS          (acc * rs) * cs + bias -> bf16
-//   EPQ_BIAS_GELU     gelu_tanh((acc * rs) * cs + bias) -> fp32
-//   EPQ_BIAS_RESID    (acc * rs) * cs + bias + resid -> fp32
-//   EPQ_CHUNKED_RESID f = sum over groups of float(acc_group) * rs_group, in
-//                     group order; f * cs + bias + resid -> fp32 (the FFN's
-//                     down projection, its h requantized per chunk)
-//   EPQ_PLAIN         (acc * rs) * cs -> bf16, no bias (the Qwen3 projections)
-//   EPQ_SWIGLU        W is [gate rows | up rows] ([2I, K], N = 2I); the tile
-//                     loader interleaves them in groups of 8, so that fragment
-//                     ni (even) holds gate and ni + 1 up of the same 8 columns
-//                     of h, and C[M, I] fp32 = (g * sigmoid(g)) * u with
-//                     g = (acc_g * rs) * cs_g, u = (acc_u * rs) * cs_u
-// M any; N a multiple of 8 (of 16 for EPQ_SWIGLU); K a multiple of 16 (of
-// `chunk`, itself a multiple of QBK, for EPQ_CHUNKED_RESID).
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
-               const float* __restrict__ row_scale, int rs_stride,
-               const float* __restrict__ col_scale, const float* __restrict__ bias,
-               const bf16* __restrict__ resid, void* __restrict__ C, int M, int N, int K,
-               int chunk) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Ws = As + STAGES * QA_TILE;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // warp rows wm*64 .. +63
-  const int wn = warp & 3;   // warp cols wn*32 .. +31
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int k_tiles = (K + QBK - 1) / QBK;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * QBK;
-    int8_t* as = As + stage * QA_TILE;
-    int8_t* ws = Ws + stage * QW_TILE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;  // 512 chunks of 16 bytes per operand
-      const int r = c >> 2;
-      const int kc = (c & 3) * 16;
-      const int gk = k0 + kc;
-      const bool pa = gk < K && m0 + r < M;
-      cp_async_16(smem_addr(as + r * QLDS + kc), pa ? A + (size_t)(m0 + r) * K + gk : A, pa);
-      int wrow = n0 + r;
-      bool pw = gk < K && wrow < N;
-      if constexpr (EPI == EPQ_SWIGLU) {  // tile row r: gate (r & 8 == 0) or up
-        const int inter = N >> 1;
-        const int hcol = (n0 >> 1) + (r >> 4) * 8 + (r & 7);
-        wrow = hcol + ((r & 8) ? inter : 0);
-        pw = gk < K && hcol < inter;
-      }
-      cp_async_16(smem_addr(ws + r * QLDS + kc), pw ? W + (size_t)wrow * K + gk : W, pw);
-    }
-  };
-
-  int acc[4][4][4];
-  float facc[4][4][4];  // EPQ_CHUNKED_RESID only
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        facc[i][j][e] = 0.f;
-      }
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_tile(s, s);
-    cp_async_commit();
-  }
-
-  const int tiles_per_chunk = chunk / QBK;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed
-    __syncthreads();              // and every warp is done with tile kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < k_tiles) load_tile(next % STAGES, next);
-    cp_async_commit();
-
-    const int8_t* as = As + (kt % STAGES) * QA_TILE;
-    const int8_t* ws = Ws + (kt % STAGES) * QW_TILE;
-#pragma unroll
-    for (int kk = 0; kk < QBK; kk += 32) {
-      uint32_t a[4][4];
-      uint32_t b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // matrices: (rows 0-7, k 0-15), (rows 8-15, k 0-15), (rows 0-7, k 16-31), ...
-        const int r = wm * 64 + mi * 16 + (lane & 15);
-        ldmatrix_x4(a[mi], smem_addr(as + r * QLDS + kk + (lane >> 4) * 16));
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        // matrices: (n 0-7, k 0-15), (n 0-7, k 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31)
-        const int n = wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
-        uint32_t t[4];
-        ldmatrix_x4(t, smem_addr(ws + n * QLDS + kk + ((lane >> 3) & 1) * 16));
-        b[2 * nj][0] = t[0];
-        b[2 * nj][1] = t[1];
-        b[2 * nj + 1][0] = t[2];
-        b[2 * nj + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-    }
-
-    if constexpr (EPI == EPQ_CHUNKED_RESID) {
-      if ((kt + 1) % tiles_per_chunk == 0) {  // fold the finished group
-        const int grp = kt / tiles_per_chunk;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
-            const float rs = row < M ? row_scale[(size_t)row * rs_stride + grp] : 0.f;
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                int& a_ = acc[mi][ni][2 * hf + e];
-                float& f_ = facc[mi][ni][2 * hf + e];
-                f_ = __fadd_rn(f_, __fmul_rn(__int2float_rn(a_), rs));
-                a_ = 0;
-              }
-          }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // accumulator fragment: c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at row g + 8
-  if constexpr (EPI == EPQ_SWIGLU) {
-    const int inter = N >> 1;
-#pragma unroll
-    for (int ni = 0; ni < 4; ni += 2) {  // ni: gate, ni + 1: up, same columns of h
-      const int col = (n0 >> 1) + (wn * 2 + (ni >> 1)) * 8 + t4 * 2;
-      if (col >= inter) continue;
-      const float cg[2] = {col_scale[col], col_scale[col + 1]};
-      const float cu[2] = {col_scale[inter + col], col_scale[inter + col + 1]};
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
-          if (row >= M) continue;
-          const float rs = row_scale[(size_t)row * rs_stride];
-          float h[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float gv =
-                __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * hf + e]), rs), cg[e]);
-            const float uv =
-                __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni + 1][2 * hf + e]), rs), cu[e]);
-            const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gv)));
-            h[e] = __fmul_rn(__fmul_rn(gv, sig), uv);
-          }
-          *reinterpret_cast<float2*>(static_cast<float*>(C) + (size_t)row * inter + col) =
-              make_float2(h[0], h[1]);
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + t4 * 2;
-      if (col >= N) continue;
-      const float cs[2] = {col_scale[col], col_scale[col + 1]};
-      float bs[2] = {0.f, 0.f};
-      if constexpr (EPI != EPQ_PLAIN) {
-        bs[0] = bias[col];
-        bs[1] = bias[col + 1];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
-          if (row >= M) continue;
-          const size_t off = (size_t)row * N + col;
-          float v[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if constexpr (EPI == EPQ_CHUNKED_RESID) {
-              v[e] = __fmul_rn(facc[mi][ni][2 * hf + e], cs[e]);
-            } else {
-              const float rs = row_scale[(size_t)row * rs_stride];
-              v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * hf + e]), rs), cs[e]);
-            }
-            if constexpr (EPI != EPQ_PLAIN) v[e] = __fadd_rn(v[e], bs[e]);
-          }
-          if constexpr (EPI == EPQ_BIAS || EPI == EPQ_PLAIN) {
-            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + off) =
-                __floats2bfloat162_rn(v[0], v[1]);
-          } else {
-            if constexpr (EPI == EPQ_BIAS_GELU) {
-              v[0] = gelu_tanh(v[0]);
-              v[1] = gelu_tanh(v[1]);
-            } else {
-              const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(resid + off);
-              v[0] = __fadd_rn(v[0], __bfloat162float(r.x));
-              v[1] = __fadd_rn(v[1], __bfloat162float(r.y));
-            }
-            *reinterpret_cast<float2*>(static_cast<float*>(C) + off) = make_float2(v[0], v[1]);
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int EPI>
-cudaError_t gemm_s8(const void* A, const void* W, const float* row_scale, int rs_stride,
-                    const float* col_scale, const float* bias, const void* resid, void* C, int M,
-                    int N, int K, int chunk, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_s8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, QGEMM_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_s8_kernel<EPI><<<grid, GEMM_THREADS, QGEMM_SMEM, stream>>>(
-      static_cast<const int8_t*>(A), static_cast<const int8_t*>(W), row_scale, rs_stride,
-      col_scale, bias, static_cast<const bf16*>(resid), C, M, N, K, chunk);
-  return cudaGetLastError();
-}
-
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
@@ -417,10 +165,12 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 // RCP_SCALE: scale = absmax * fl(1 / 127), the form XLA compiles
 // `absmax / 127.0` to inside a jitted kernel (the Qwen3 blocks B8-B9b follow
 // their JAX kernels there; B4-B6 keep the division).
+// zero: null, or a [rows * groups] buffer set to 0 here (B9b's row maxima of
+// h, which its gate|up epilogue then raises by atomics)
 template <typename T, bool RCP_SCALE = false>
 __global__ void __launch_bounds__(LN_THREADS)
 row_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
-                 int rows, int width, int group) {
+                 int rows, int width, int group, float* __restrict__ zero) {
   const int lane = threadIdx.x & 31;
   const int groups = width / group;
   const long long w = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
@@ -436,17 +186,20 @@ row_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restr
   int8_t* qr = q + off;
   for (int c = lane; c < group; c += 32)
     qr[c] = (int8_t)__float2int_rn(__fmul_rn(to_float(xr[c]), r));
-  if (lane == 0) scale[w] = RCP_SCALE ? __fmul_rn(absmax, 1.0f / 127.0f) : absmax / 127.0f;
+  if (lane == 0) {
+    scale[w] = RCP_SCALE ? __fmul_rn(absmax, 1.0f / 127.0f) : absmax / 127.0f;
+    if (zero != nullptr) zero[w] = 0.f;
+  }
 }
 
 template <typename T, bool RCP_SCALE = false>
 cudaError_t row_quant(const void* x, void* q, float* scale, int rows, int width, int group,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, float* zero = nullptr) {
   const int per_block = LN_THREADS / 32;
   const long long warps = (long long)rows * (width / group);
   row_quant_kernel<T, RCP_SCALE><<<(unsigned)((warps + per_block - 1) / per_block), LN_THREADS, 0,
                         stream>>>(static_cast<const T*>(x), static_cast<int8_t*>(q), scale,
-                                  rows, width, group);
+                                  rows, width, group, zero);
   return cudaGetLastError();
 }
 
@@ -537,6 +290,40 @@ cudaError_t gelu_quant(const float* u, void* q, float* scale, int rows, int widt
   return cudaGetLastError();
 }
 
+// B9b's quantization of h [rows, width] fp32 (width a multiple of 4) with
+// each row's max |h| given: scale[row] holds it on entry, as the float's
+// bits that the gate|up epilogue raised by atomics, and the row scale on
+// exit.  One warp per row reads h once with 16-byte loads and writes the
+// codes rint(h * fl(127 / absmax)) and the scale absmax * fl(1 / 127),
+// absmax = max(max |h|, 1e-6): row_quant_kernel<float, true>'s arithmetic
+// without its first read of h.
+__global__ void __launch_bounds__(LN_THREADS)
+quant_given_max_kernel(const float* __restrict__ h, int8_t* __restrict__ q, float* scale, int rows,
+                       int width) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float absmax = fmaxf(scale[row], 1e-6f);
+  const float r = 127.0f / absmax;
+  const float4* hr = reinterpret_cast<const float4*>(h + (size_t)row * width);
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + (size_t)row * width);
+#pragma unroll 4
+  for (int c = lane; c < width / 4; c += 32) {
+    const float4 v = hr[c];
+    qr[c] = gq_codes(v.x, v.y, v.z, v.w, r);
+  }
+  __syncwarp();  // every lane has read the maximum before it is overwritten
+  if (lane == 0) scale[row] = __fmul_rn(absmax, 1.0f / 127.0f);
+}
+
+cudaError_t quant_given_max(const float* h, void* q, float* scale, int rows, int width,
+                            cudaStream_t stream) {
+  const int per_block = LN_THREADS / 32;
+  quant_given_max_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, stream>>>(
+      h, static_cast<int8_t*>(q), scale, rows, width);
+  return cudaGetLastError();
+}
+
 // the dequantizing epilogue's inputs of an int8 product (gemm_wide.cuh)
 WgEpi epq(const float* row_scale, int rs_stride, const float* col_scale, const float* bias,
           const void* resid = nullptr) {
@@ -562,11 +349,6 @@ cudaError_t resid_ln(const void* A, const void* W, const float* bias, const void
   if (acc == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = gemm_wide<WG_BIAS_RESID>(A, W, bias, acc, M, N, K, stream, resid);
   return err != cudaSuccess ? err : layer_norm(acc, gamma, beta, out, M, N, eps, stream);
-}
-
-bool gemm_s8_shape_ok(long long m, int n, int k) {
-  return m > 0 && m <= 2147483647 && n > 0 && k > 0 && n % 8 == 0 && k % 16 == 0 &&
-         (m + BM - 1) / BM <= 65535;
 }
 
 }  // namespace
@@ -723,12 +505,14 @@ extern "C" int unirec_qformer_ffn_block_q(const void* x, const void* w1, const f
 
 // ------------------------------------------- Qwen3 W8A8 (B8, B9a, B9b) ----
 //
-// The int8 serving forward of the joint model's Qwen3-0.6B.  The same s8
-// GEMM and row quantization as B4-B6, with a bias-free dequantizing epilogue
-// to bf16 (EPQ_PLAIN) and the SwiGLU epilogue (EPQ_SWIGLU).  At batch 8 x
-// L 512 = 4096 rows a layer's projections are 129 GOP against 16 MB of int8
-// weights and ~60 MB of activations: bound by tensor-core arithmetic, as the
-// Item Q-Former's GEMMs are.
+// The int8 serving forward of the joint model's Qwen3-0.6B, on the int8 TMA
+// + wgmma GEMM of gemm_wide.cuh that B4-B6 run on (gemm_q), with the
+// bias-free dequantizing epilogue to bf16 (EPQ_PLAIN) and the SwiGLU
+// epilogue (EPQ_SWIGLU).  At batch 8 x L 512 = 4096 rows a layer's
+// projections are 129 GOP against 16 MB of int8 weights and ~60 MB of
+// activations: bound by tensor-core arithmetic, as the Item Q-Former's GEMMs
+// are.  The mma.sync GEMM they ran on first reached 21-22% of the int8
+// peak at these shapes (PERF.md).
 //
 // B8 and B9a are one computation (JAX's int8_matmul._kernel and
 // fused_qwen3_int8._qkv_kernel both quantize each row with absmax/127 and
@@ -739,18 +523,21 @@ extern "C" int unirec_qformer_ffn_block_q(const void* x, const void* w1, const f
 // buffer; the codes are the same.  B9b keeps the JAX kernel's grouping:
 // h = silu(g) * u in fp32, one row quantization over the whole intermediate,
 // then the down GEMM.  The TPU holds gu and h in VMEM; an SM cannot hold a
-// [rows, 3072] fp32 tile, so this first design writes h to HBM from the
-// gate|up epilogue (50 MB per layer at 4096 rows) and reads it twice in the
-// quantization pass, and its codes (12.6 MB) once in the down GEMM.
+// [rows, 3072] fp32 tile, so h goes through HBM once: the gate|up product
+// pairs each gate column with its up column in one tile (two TMA boxes of
+// W), writes h in fp32 (50 MB per layer at 4096 rows) and raises each row's
+// max |h| by atomics, so the quantization pass reads h once
+// (quant_given_max), and the down GEMM reads its codes (12.6 MB).  Keeping
+// h on the SM (quantized by the down GEMM's producer) is next.
 
 // B8 (and B9a): out [m, n] bf16 = W8A8(x [m, k] bf16, wq [n, k] int8,
 // ws [n]); scratch xq [m, k] int8, xs [m] fp32.
 extern "C" int unirec_int8_linear(const void* x, const void* wq, const float* ws, void* out,
                                   void* xq, float* xs, int m, int n, int k, void* stream) {
-  if (!gemm_s8_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
+  if (!gemm_wide_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   UNIREC_TRY((row_quant<bf16, true>(x, xq, xs, m, k, k, s)));
-  return (int)gemm_s8<EPQ_PLAIN>(xq, wq, xs, 1, ws, nullptr, nullptr, out, m, n, k, k, s);
+  return (int)gemm_q<EPQ_PLAIN>(xq, wq, epq(xs, 1, ws, nullptr), out, m, n, k, s);
 }
 
 // B9b: the whole SwiGLU MLP.  x, out [rows, d] bf16; wgu [2 * inter, d] int8
@@ -761,59 +548,50 @@ extern "C" int unirec_qwen3_swiglu_q(const void* x, const void* wgu, const float
                                      const void* wd, const float* sd, void* out, void* xq,
                                      float* xs, float* h, void* hq, float* hs, int rows, int d,
                                      int inter, void* stream) {
-  if (inter <= 0 || inter % 16 != 0 || !gemm_s8_shape_ok(rows, 2 * inter, d) ||
-      !gemm_s8_shape_ok(rows, d, inter))
+  if (inter <= 0 || inter % 16 != 0 || !gemm_wide_shape_ok(rows, inter, d) ||
+      !gemm_wide_shape_ok(rows, d, inter) || !wt_takes<int8_t>(xq, wgu, d) ||
+      (uintptr_t)h % 16 != 0 || (uintptr_t)hq % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  UNIREC_TRY((row_quant<bf16, true>(x, xq, xs, rows, d, d, s)));
-  UNIREC_TRY(gemm_s8<EPQ_SWIGLU>(xq, wgu, xs, 1, sgu, nullptr, nullptr, h, rows, 2 * inter, d, d,
-                                 s));
-  UNIREC_TRY((row_quant<float, true>(h, hq, hs, rows, inter, inter, s)));
-  return (int)gemm_s8<EPQ_PLAIN>(hq, wd, hs, 1, sd, nullptr, nullptr, out, rows, d, inter, inter,
-                                 s);
+  UNIREC_TRY((row_quant<bf16, true>(x, xq, xs, rows, d, d, s, hs)));  // hs = 0: h's row maxima
+  WgEpi gu = epq(xs, 1, sgu, nullptr);
+  gu.row_max = reinterpret_cast<int*>(hs);
+  UNIREC_TRY(gemm_q<EPQ_SWIGLU>(xq, wgu, gu, h, rows, inter, d, s));
+  UNIREC_TRY(quant_given_max(h, hq, hs, rows, inter, s));
+  return (int)gemm_q<EPQ_PLAIN>(hq, wd, epq(hs, 1, sd, nullptr), out, rows, d, inter, s);
 }
 
-// For the tests only, while B8/B9 keep gemm_s8_kernel: one step of B4-B6 by
-// the int8 GEMM of gemm_wide.cuh (which = 1) or as it ran on gemm_s8_kernel
-// before (which = 0), so that the two can be held to each other bit for
-// bit.  epi 0, 2, 3: C = epilogue(A . W^T) with EPQ_BIAS, EPQ_BIAS_RESID or
-// EPQ_CHUNKED_RESID.  epi 1: B6's up projection, gelu and quantization of h
-// per group of `chunk` columns: codes into c [m, n] and scales into scales
-// [m, n / chunk], by EPQ_BIAS_F32 and gelu_quant (new) or EPQ_BIAS_GELU and
-// row_quant<float> (before); scratch [m, n] fp32 holds u or h.
-extern "C" int unirec_gemm_q_test(int which, int epi, const void* a, const void* w,
-                                  const float* row_scale, int rs_stride, const float* col_scale,
-                                  const float* bias, const void* resid, void* c, float* scratch,
-                                  float* scales, int m, int n, int k, int chunk, void* stream) {
-  if (epi < 0 || epi > 3 || !gemm_wide_shape_ok(m, n, k) ||
-      (which == 0 && (!gemm_s8_shape_ok(m, n, k) || (epi == 3 && chunk % QBK != 0))) ||
-      (epi == 3 && (chunk <= 0 || chunk % 64 != 0 || k % chunk != 0)) ||
-      (epi == 1 && (chunk <= 0 || chunk % 64 != 0 || n % chunk != 0)))
+// For the tests only: C = epilogue(A . W^T) by gemm_q, in each int8
+// epilogue of gemm_wide.cuh, so that each can be held bit for bit to its
+// plain form (ops/fused_qformer_int8._mm_q: the exact product, then the
+// same fp32 rounding).  epi 0 EPQ_BIAS, 1 EPQ_BIAS_F32, 2 EPQ_BIAS_RESID, 3
+// EPQ_CHUNKED_RESID (row_scale [m, k / chunk]), 4 EPQ_PLAIN, 5 EPQ_SWIGLU
+// (w [2n, k], gate rows then up rows; c [m, n] fp32 is h; row_max [m],
+// zeros on entry, receives each row's max |h|).
+extern "C" int unirec_gemm_q_test(int epi, const void* a, const void* w, const float* row_scale,
+                                  int rs_stride, const float* col_scale, const float* bias,
+                                  const void* resid, void* c, float* row_max, int m, int n, int k,
+                                  int chunk, void* stream) {
+  if (epi < 0 || epi > 5 || !gemm_wide_shape_ok(m, n, k) ||
+      (epi == 3 && (chunk <= 0 || chunk % 64 != 0 || k % chunk != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WgEpi e = epq(row_scale, rs_stride, col_scale, bias, resid);
   e.chunk = chunk;
+  e.row_max = reinterpret_cast<int*>(row_max);
   switch (epi) {
     case 0:
-      return (int)(which ? gemm_q<EPQ_BIAS>(a, w, e, c, m, n, k, s)
-                         : gemm_s8<EPQ_BIAS>(a, w, row_scale, rs_stride, col_scale, bias,
-                                             resid, c, m, n, k, chunk, s));
+      return (int)gemm_q<EPQ_BIAS>(a, w, e, c, m, n, k, s);
     case 1:
-      if (which) {
-        UNIREC_TRY(gemm_q<EPQ_BIAS_F32>(a, w, e, scratch, m, n, k, s));
-        return (int)gelu_quant(scratch, c, scales, m, n, chunk, s);
-      }
-      UNIREC_TRY(gemm_s8<EPQ_BIAS_GELU>(a, w, row_scale, rs_stride, col_scale, bias, resid,
-                                        scratch, m, n, k, k, s));
-      return (int)row_quant<float>(scratch, c, scales, m, n, chunk, s);
+      return (int)gemm_q<EPQ_BIAS_F32>(a, w, e, c, m, n, k, s);
     case 2:
-      return (int)(which ? gemm_q<EPQ_BIAS_RESID>(a, w, e, c, m, n, k, s)
-                         : gemm_s8<EPQ_BIAS_RESID>(a, w, row_scale, rs_stride, col_scale, bias,
-                                                   resid, c, m, n, k, chunk, s));
+      return (int)gemm_q<EPQ_BIAS_RESID>(a, w, e, c, m, n, k, s);
+    case 3:
+      return (int)gemm_q<EPQ_CHUNKED_RESID>(a, w, e, c, m, n, k, s);
+    case 4:
+      return (int)gemm_q<EPQ_PLAIN>(a, w, e, c, m, n, k, s);
     default:
-      return (int)(which ? gemm_q<EPQ_CHUNKED_RESID>(a, w, e, c, m, n, k, s)
-                         : gemm_s8<EPQ_CHUNKED_RESID>(a, w, row_scale, rs_stride, col_scale,
-                                                      bias, resid, c, m, n, k, chunk, s));
+      return (int)gemm_q<EPQ_SWIGLU>(a, w, e, c, m, n, k, s);
   }
 }
 

@@ -123,7 +123,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_qformer_cross_block_q.restype = _I
     lib.unirec_qformer_ffn_block_q.argtypes = [_P] * 16 + [_I] * 4 + [_F, _P]
     lib.unirec_qformer_ffn_block_q.restype = _I
-    lib.unirec_gemm_q_test.argtypes = [_I, _I] + [_P] * 3 + [_I] + [_P] * 6 + [
+    lib.unirec_gemm_q_test.argtypes = [_I] + [_P] * 3 + [_I] + [_P] * 5 + [
         _I] * 4 + [_P]
     lib.unirec_gemm_q_test.restype = _I
     lib.unirec_gemm_ln_test.argtypes = [_I] + [_P] * 8 + [_I] * 3 + [_F, _P]

@@ -45,8 +45,8 @@ from unirec_tpu_torch.ops.fused_qformer_layer import (
     ffn_chunk_size,
 )
 
-# the Qwen3 kernels' int8 GEMM (B8/B9, csrc/qformer_blocks.cu
-# gemm_s8_kernel) streams K in 16-byte rows; B4-B6 take any width
+# the Qwen3 kernels B8/B9 take rows of whole 16-byte chunks of codes (the
+# int8 GEMM's TMA kernel); B4-B6 take any width (its edge kernel too)
 KERNEL_INT8_MULTIPLE = 16
 # B6 folds its down projection's sums at chunk boundaries of 64 codes
 KERNEL_CHUNK_MULTIPLE = 64

@@ -1,14 +1,20 @@
 """The fused int8 Qwen3 blocks of the serving forward (kernels B9a, B9b).
 
 Port of ``unirec_tpu/ops/fused_qwen3_int8.py``.  The CUDA kernels are the
-Qwen3 W8A8 section of ``csrc/qformer_blocks.cu``; its source note says what
-this first design writes to HBM that the TPU kernel kept on chip.
+Qwen3 W8A8 section of ``csrc/qformer_blocks.cu``, every product on the int8
+TMA + ``wgmma`` GEMM of ``csrc/gemm_wide.cuh``, the one int8 mainloop that
+B4-B6 and B8 share; its source note says what the design writes to HBM that
+the TPU kernel kept on chip.
 
     B9a  qkv_int8         one row quantization of the normed hidden rows,
                           one int8 GEMM against the concatenated Wq | Wk | Wv
-    B9b  swiglu_mlp_int8  gate|up GEMM, h = (g * sigmoid(g)) * u in fp32, one
-                          row quantization of h over the whole intermediate,
-                          then the down GEMM, dequantized to x's dtype
+                          (B8's kernel: the same bits as the plain version)
+    B9b  swiglu_mlp_int8  gate|up GEMM whose epilogue pairs each gate column
+                          with its up column and writes h = (g * sigmoid(g))
+                          * u in fp32 with each row's max |h|; one pass that
+                          reads h once and writes its codes (one row scale
+                          over the whole intermediate); the down GEMM,
+                          dequantized to bf16
 
 Both take the already-normed hidden rows ``[rows, D]`` and weights in the
 torch ``[out, in]`` layout, int8 with float32 per-output scales: ``wqkv

@@ -2,7 +2,11 @@
 
 Port of ``unirec_tpu/ops/int8_matmul.py``.  The CUDA kernel is the Qwen3
 W8A8 section of ``csrc/qformer_blocks.cu``: one row-quantization pass into an
-int8 buffer, then the s8 GEMM with a dequantizing epilogue.
+int8 buffer, then the int8 TMA + ``wgmma`` GEMM of ``csrc/gemm_wide.cuh``
+(the one int8 mainloop of B4-B6 and B8-B9b) with the bias-free dequantizing
+epilogue ``EPQ_PLAIN``.  The integer sums are exact in any order and the
+epilogue rounds where the plain version does, so the two give the same
+bits.
 
     y = (float(round(x * fl(127 / absmax)) . wq^T) * rs) * ws
 
@@ -53,9 +57,10 @@ def kernel_row_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def supports_int8_linear(m: int, k: int, n: int) -> bool:
-    """The shapes the kernel takes: whole 16-byte rows of int8 codes (K a
-    multiple of 16) and pairs of output columns (N a multiple of 8), at any
-    row count."""
+    """The shapes the wrappers launch: rows of whole 16-byte chunks of int8
+    codes (K a multiple of 16: the GEMM's TMA kernel) and of bf16 outputs
+    (N a multiple of 8: 16-byte stores; no projection of the models has
+    another width), at any row count."""
     return m >= 1 and k % KERNEL_INT8_MULTIPLE == 0 and n % 8 == 0
 
 

@@ -49,6 +49,13 @@ def triplet_hinge_arguments(anchor: torch.Tensor, positive: torch.Tensor,
     return d_pos - d_neg + margin
 
 
+def triplet_hinge_active(arguments: torch.Tensor) -> torch.Tensor:
+    """The samples (0 / 1) whose hinge argument ``triplet_margin_loss``
+    passes: ``clamp(arg, min=0)``'s gradient is 1 where arg >= 0, an
+    argument of exactly 0 included."""
+    return (arguments >= 0).to(arguments.dtype)
+
+
 def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
                         negative: torch.Tensor, margin: float = 0.5,
                         eps: float = 1e-6,

@@ -139,9 +139,11 @@ def make_train_step(
     run through the fused inference engine (``fused_precision`` "bf16" or
     "int8"), on the live weights packed again at every step.  Metrics stay on
     the device.  Parity-test instrumentation: ``return_grads`` adds every
-    parameter's gradient by name and the contrastive hinge's argument per
-    sample (``hinge_arguments``), and the step's ``hinge_active`` (0 / 1 per
-    sample) makes the hinge pass exactly those samples
+    parameter's gradient by name, the contrastive hinge's argument per
+    sample (``hinge_arguments``) and the three representations it is taken
+    from (``item_representation``, the anchor's, ``positive_representation``
+    and ``negative_representation``), and the step's ``hinge_active`` (0 / 1
+    per sample) makes the hinge pass exactly those samples
     (``triplet_margin_loss``'s ``active``)."""
     params = dict(model.named_parameters())
 
@@ -182,8 +184,11 @@ def make_train_step(
                    "contrastive": cont.detach()}
         if return_grads:
             metrics["grads"] = {n: g.detach().clone() for n, g in grads.items()}
-            metrics["hinge_arguments"] = triplet_hinge_arguments(
-                anc["item_representation"].detach(), pos, neg, margin)
+            rep = anc["item_representation"].detach()
+            metrics.update(
+                hinge_arguments=triplet_hinge_arguments(rep, pos, neg, margin),
+                item_representation=rep, positive_representation=pos,
+                negative_representation=neg)
         return state, metrics
 
     return step
