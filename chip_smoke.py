@@ -187,6 +187,21 @@ K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 CAUSAL_OTHER = dict(B=4, L=512, HQ=16, HKV=8, HD=(64, 32, 8, 24, 256),
                     LENGTHS=(512, 320, 129, 5))
 K2_TIE, K2_SCORE_TOL = 1e-6, 1e-5
+# K2 / B11 times: device ms a call from torch.profiler (the kernels' own
+# rows, not the wrappers' host enqueue), each call after a 128 MB buffer is
+# written and read (the catalog leaves L2, and no dirty line of the buffer
+# is written back inside the measured kernels), as the serving path meets
+# the catalog after its 28-layer forward; warm (back-to-back) logged beside
+L2_FLUSH_BYTES = 128 << 20
+RETRIEVAL_KERNELS = ("topk_share_kernel", "topk_merge_kernel")
+# K2 and B11 off the serving shapes (users, rows, width, k): C-13's widths
+# and the partition's edges (one row, fewer rows than SMs, a share one row
+# short, two user groups); every catalog has a zero row and runs of equal
+# rows across each share boundary, and the (8, 20,000, 1021) case runs once
+# more with every score negative
+RETRIEVAL_EDGES = ((1, 1, 1021, 1), (24, 37, 1021, 32), (8, 20_000, 1021, 20),
+                   (64, 20_000, 1021, 20), (200, 20_001, 1021, 20),
+                   (64, 20_001, 1024, 32))
 # B1-B3 (bf16 in and out) against their plain versions on the same inputs, in
 # fp32: the kernels sum in another order than the plain version, which can
 # flip a bf16 rounding of qkv, probabilities, ctx or the gelu output and move
@@ -449,10 +464,10 @@ def phase_k1(gen) -> dict:
 
 def static_bounds() -> dict:
     """bound_ms and bound_by of the kernels whose work depends on the shapes
-    alone, at the shapes their "ms" is timed at: K2 and B11 (8 users over
-    the 20,000 x 1,024 catalog), B1-B6 (4096 items), B8 (the first serving
-    projection), B9a and B9b.  Activations in and out once, weights once
-    (bf16, or int8 codes plus float32 column scales), float32 vectors."""
+    alone, at the shapes their "ms" is timed at: B1-B6 (4096 items), B8 (the
+    first serving projection), B9a and B9b (K2 and B11: retrieval_bound).
+    Activations in and out once, weights once (bf16, or int8 codes plus
+    float32 column scales), float32 vectors."""
     d, k, f, inter, n = QF_D, QF_K, QF_F, QF_INTER, BLOCK_ITEMS[0]
     act = 2 * 2 * n * k * d
     out = {}
@@ -471,12 +486,6 @@ def static_bounds() -> dict:
         out[names[2]] = bound(
             act + ffn_w * wb + (inter + 3 * d) * 4 + (inter + d) * sc,
             n * 2 * 2 * k * d * inter, kind)
-    users = K2_USERS[0]
-    ranked = 2 * users * CATALOG * DIM
-    out["k2"] = bound(4 * (CATALOG * DIM + users * DIM) + 12 * users * K2_K,
-                      ranked, "fp32")
-    out["b11"] = bound(CATALOG * DIM + 4 * CATALOG + 4 * users * DIM
-                       + 12 * users * K2_K, ranked, "fp32")
 
     def linear(m, kk, nn):
         return bound(2 * m * kk + nn * kk + 4 * nn + 2 * m * nn,
@@ -490,31 +499,132 @@ def static_bounds() -> dict:
     return out
 
 
-# -- K2 ---------------------------------------------------------------------
+# -- K2 and B11 --------------------------------------------------------------
+
+
+def retrieval_check(kind, users, catalog, k, scales=None, where="") -> float:
+    """K2 (``scales`` None) or B11 against its plain version on the same
+    inputs: one launch-counter increment a call, identical bits on a repeat,
+    scores within K2_SCORE_TOL, ids equal but for near-ties (the plain
+    scores of the two picks within K2_TIE), equal scores in ascending index
+    order.  Returns the max score difference."""
+    from unirec_tpu_torch.ops.losses import l2_normalize
+    from unirec_tpu_torch.ops.quantization import (
+        quantized_scores,
+        quantized_top_k,
+        retrieve_top_k_int8,
+    )
+    from unirec_tpu_torch.ops.ranking import retrieve_top_k, top_k_items
+
+    if scales is None:
+        wrapper = retrieve_top_k
+
+        def call():
+            return retrieve_top_k(users, catalog, k=k)
+        ref = top_k_items(users, catalog, k=k)
+        full = l2_normalize(users.float()) @ l2_normalize(catalog.float()).T
+    else:
+        wrapper = retrieve_top_k_int8
+
+        def call():
+            return retrieve_top_k_int8(users, catalog, scales, k=k)
+        ref = quantized_top_k(users, catalog, scales, k=k)
+        full = quantized_scores(users, catalog, scales)
+    before = wrapper.launches
+    s, i = call()
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{kind}: {wrapper.launches - before} counted "
+                             f"launches for one call")
+    again = call()
+    if not (torch.equal(s, again[0]) and torch.equal(i, again[1])):
+        raise AssertionError(f"{kind}{where}: a repeat gave other bits")
+    s_ref, i_ref = ref
+    score_err = (s - s_ref).abs().max().item()
+    if not score_err <= K2_SCORE_TOL:
+        raise AssertionError(f"{kind}{where}: scores differ by {score_err}")
+    diff = i != i_ref
+    if diff.any():  # only near-ties may swap: the kernel's pick must score
+        gap = (full.gather(1, i) - s_ref)[diff].abs().max().item()
+        if not gap < K2_TIE:  # within K2_TIE of the rank's true score
+            raise AssertionError(f"{kind}{where}: ids differ beyond "
+                                 f"near-ties ({gap})")
+    if bool(((s[:, 1:] == s[:, :-1]) & (i[:, 1:] < i[:, :-1])).any()):
+        raise AssertionError(f"{kind}{where}: a tie went to the higher index")
+    log(f"{kind} users={users.shape[0]} N={catalog.shape[0]} "
+        f"D={catalog.shape[1]} k={k}{where}: max|d score| {score_err:.3e}, "
+        f"id mismatches {int(diff.sum())} (near-ties only), repeat identical")
+    return score_err
 
 
 def k2_compare(users, catalog, k):
-    """Kernel vs plain retrieval; returns the max score difference."""
-    from unirec_tpu_torch.ops.losses import l2_normalize
-    from unirec_tpu_torch.ops.ranking import retrieve_top_k, top_k_items
+    """K2 vs plain retrieval; returns the max score difference."""
+    return retrieval_check("K2", users, catalog, k)
 
-    s, i = retrieve_top_k(users, catalog, k=k)
+
+def retrieval_device_ms(call, iters: int, flush=None):
+    """Device ms a call of K2 or B11 (``call``) from torch.profiler: each of
+    its two kernels' own device time averaged over its recorded launches in
+    ``iters`` calls, each call after ``flush`` (a CUDA buffer) is written and
+    read when given.  Fails unless both kernels ran and, unflushed, nothing
+    else did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
     torch.cuda.synchronize()
-    s_ref, i_ref = top_k_items(users, catalog, k=k)
-    full = l2_normalize(users.float()) @ l2_normalize(catalog.float()).T
-    score_err = (s - s_ref).abs().max().item()
-    if not score_err <= K2_SCORE_TOL:
-        raise AssertionError(f"K2 scores differ by {score_err}")
-    diff = i != i_ref
-    if diff.any():  # only near-ties may swap: the kernel's pick must score
-        picked = full.gather(1, i)  # within K2_TIE of the rank's true score
-        gap = (picked - s_ref)[diff].abs().max().item()
-        if not gap < K2_TIE:
-            raise AssertionError(f"K2 ids differ beyond near-ties ({gap})")
-    log(f"K2 users={users.shape[0]} N={catalog.shape[0]} k={k}: "
-        f"max|d score| {score_err:.3e}, id mismatches {int(diff.sum())} "
-        f"(near-ties only)")
-    return score_err
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.fill_(1.0)
+                flush.sum()
+            call()
+        torch.cuda.synchronize()
+    total, count, other = {}, {}, []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        name = next((n for n in RETRIEVAL_KERNELS if n in ev.key), None)
+        if name:
+            total[name] = total.get(name, 0.0) + t / 1e3
+            count[name] = count.get(name, 0) + ev.count
+        elif flush is None and t > 0:
+            other.append(ev.key)
+    if other or set(total) != set(RETRIEVAL_KERNELS):
+        raise AssertionError(f"a retrieval call launched {sorted(total)} "
+                             f"and {other}")
+    split = {name: total[name] / count[name] for name in total}
+    return sum(split.values()), split
+
+
+def retrieval_bound(users: int, elem_bytes: int, n=CATALOG, d=DIM, k=K2_K):
+    """(bound_ms, bound_by) of K2 (elem_bytes 4) or B11 (1): the catalog
+    (and B11's row scales), the users and the [users, k] outputs once; the
+    fp32 products."""
+    scales = 4 * n if elem_bytes == 1 else 0
+    return bound(elem_bytes * n * d + scales + 4 * users * d + 12 * users * k,
+                 2 * users * n * d, "fp32")
+
+
+def retrieval_times(kind, users, elem_bytes, call, plain, mm_topk, flush):
+    """Cold and warm device ms a call, the plain version's and the context
+    product + top-k's ms (CUDA events), and the bound."""
+    cold, split = retrieval_device_ms(call, 20, flush)
+    warm, _ = retrieval_device_ms(call, 20)
+    cold2, _ = retrieval_device_ms(call, 20, flush)
+    plain_ms, lib = time_ms(plain), time_ms(mm_topk)
+    b_ms, b_by = retrieval_bound(users, elem_bytes)
+    log(f"{kind} time users={users}: device ms a call, L2 flushed "
+        f"{cold:.4f} / {cold2:.4f} (" + ", ".join(
+            f"{n} {ms:.4f}" for n, ms in split.items()) + f"), warm "
+        f"{warm:.4f}; plain {plain_ms:.4f} ms; torch.mm + torch.topk on "
+        f"pre-normalised inputs {lib:.4f} ms (context); bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(ms=min(cold, cold2), warm_ms=warm, plain_ms=plain_ms,
+                mm_topk_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_k2(gen) -> dict:
@@ -523,23 +633,78 @@ def phase_k2(gen) -> dict:
 
     catalog = torch.randn(CATALOG, DIM, device="cuda", generator=gen)
     cat_n = l2_normalize(catalog)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     times = {}
     for n_users in K2_USERS:
         users = torch.randn(n_users, DIM, device="cuda", generator=gen)
         k2_compare(users, catalog, K2_K)
         u_n = l2_normalize(users)
-        kern = time_ms(lambda: retrieve_top_k(users, catalog, k=K2_K))
-        plain = time_ms(lambda: top_k_items(users, catalog, k=K2_K))
-        bare = time_ms(lambda: retrieve_top_k(u_n, cat_n, k=K2_K,
-                                              normalize=False))
-        bare_plain = time_ms(lambda: top_k_items(u_n, cat_n, k=K2_K,
-                                                 normalize=False))
-        kern2 = time_ms(lambda: retrieve_top_k(users, catalog, k=K2_K))
-        times[n_users] = (min(kern, kern2), plain)
-        log(f"K2 time users={n_users}: with normalisation kernel {kern:.4f} / "
-            f"{kern2:.4f} ms, plain {plain:.4f} ms; pre-normalised kernel "
-            f"{bare:.4f} ms, plain {bare_plain:.4f} ms")
+        times[n_users] = retrieval_times(
+            "K2", n_users, 4, lambda: retrieve_top_k(users, catalog, k=K2_K),
+            lambda: top_k_items(users, catalog, k=K2_K),
+            lambda: torch.topk(u_n @ cat_n.T, K2_K), flush)
+        log_split(f"K2 users={n_users}",
+                  lambda: retrieve_top_k(users, catalog, k=K2_K))
     return times
+
+
+def edge_catalog(gen, n: int, d: int, negative_for=None):
+    """A catalog with a zero row and a run of three equal rows across every
+    share boundary of the card's plan; with ``negative_for`` (a user row)
+    rows scoring negative against it."""
+    from unirec_tpu_torch.ops.ranking import retrieval_plan, sm_count
+
+    c = torch.randn(n, d, device="cuda", generator=gen)
+    if negative_for is not None:
+        c = (-torch.rand(n, 1, device="cuda", generator=gen) - 0.1) \
+            * negative_for[None] + 0.3 * c
+    c[min(5, n - 1)] = 0.0
+    plan = retrieval_plan(1, n, d, 4, sm_count(c.device))
+    for s in range(1, plan.shares):
+        edge = s * plan.rows_per_share
+        c[edge - 1:edge + 2] = c[edge]
+    return c, plan
+
+
+def phase_retrieval_edges(gen) -> None:
+    """K2 and B11 at RETRIEVAL_EDGES (C-13: widths off 4), with user 0 equal
+    to the row at the first share boundary (ties across it), and the cold
+    device ms at D 1021 beside D 1024's."""
+    from unirec_tpu_torch.ops.quantization import (
+        quantize_rows,
+        retrieve_top_k_int8,
+    )
+    from unirec_tpu_torch.ops.ranking import retrieve_top_k
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    for b, n, d, k in RETRIEVAL_EDGES:
+        cases = [(None, "")]
+        if (b, n, d) == (8, CATALOG, 1021):
+            cases.append((torch.randn(d, device="cuda", generator=gen),
+                          " all scores negative"))
+        for base, where in cases:
+            catalog, plan = edge_catalog(gen, n, d, base)
+            users = torch.randn(b, d, device="cuda", generator=gen)
+            if base is not None:
+                users[:] = base
+                users += 0.3 * torch.randn(b, d, device="cuda",
+                                           generator=gen)
+            users[0] = 2.0 * catalog[min(plan.rows_per_share, n - 1)]
+            retrieval_check("K2", users, catalog, k, where=where)
+            codes, scales = quantize_rows(catalog)
+            retrieval_check("B11", users, codes, k, scales, where=where)
+            if base is not None:
+                picked = retrieve_top_k(users, catalog, k=k)[0]
+                if not bool((picked[1:, 1:] < 0).all()):  # but the zero row
+                    raise AssertionError("the negative case scored >= 0")
+            if n == CATALOG and base is None:
+                k2 = retrieval_device_ms(
+                    lambda: retrieve_top_k(users, catalog, k=k), 10, flush)[0]
+                b11 = retrieval_device_ms(
+                    lambda: retrieve_top_k_int8(users, codes, scales, k=k),
+                    10, flush)[0]
+                log(f"K2 / B11 users={b} N={n} D={d} k={k}: device ms a "
+                    f"call, L2 flushed, {k2:.4f} / {b11:.4f}")
 
 
 # -- B1-B3 ------------------------------------------------------------------
@@ -1793,31 +1958,11 @@ def phase_b15(gen, extra_gen) -> dict:
 
 def b11_compare(users, codes, scales, k):
     """B11 vs its plain version; returns the max score difference."""
-    from unirec_tpu_torch.ops.quantization import (
-        quantized_scores,
-        quantized_top_k,
-        retrieve_top_k_int8,
-    )
-
-    s, i = retrieve_top_k_int8(users, codes, scales, k=k)
-    torch.cuda.synchronize()
-    s_ref, i_ref = quantized_top_k(users, codes, scales, k=k)
-    score_err = (s - s_ref).abs().max().item()
-    if not score_err <= K2_SCORE_TOL:
-        raise AssertionError(f"B11 scores differ by {score_err}")
-    diff = i != i_ref
-    if diff.any():  # only near-ties may swap
-        picked = quantized_scores(users, codes, scales).gather(1, i)
-        gap = (picked - s_ref)[diff].abs().max().item()
-        if not gap < K2_TIE:
-            raise AssertionError(f"B11 ids differ beyond near-ties ({gap})")
-    log(f"B11 users={users.shape[0]} N={codes.shape[0]} k={k}: "
-        f"max|d score| {score_err:.3e}, id mismatches {int(diff.sum())} "
-        f"(near-ties only)")
-    return score_err
+    return retrieval_check("B11", users, codes, k, scales)
 
 
 def phase_b11(gen) -> dict:
+    from unirec_tpu_torch.ops.losses import l2_normalize
     from unirec_tpu_torch.ops.quantization import (
         quantize_rows,
         quantized_top_k,
@@ -1826,19 +1971,22 @@ def phase_b11(gen) -> dict:
 
     codes, scales = quantize_rows(
         torch.randn(CATALOG, DIM, device="cuda", generator=gen))
+    deq = codes.float() * scales[:, None]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     times = {}
     for n_users in K2_USERS:
         users = torch.randn(n_users, DIM, device="cuda", generator=gen)
         b11_compare(users, codes, scales, K2_K)
-        kern = time_ms(lambda: retrieve_top_k_int8(users, codes, scales,
-                                                   k=K2_K))
-        plain = time_ms(lambda: quantized_top_k(users, codes, scales, k=K2_K))
-        kern2 = time_ms(lambda: retrieve_top_k_int8(users, codes, scales,
-                                                    k=K2_K))
-        times[n_users] = (min(kern, kern2), plain)
-        log(f"B11 time users={n_users} (int8 catalog {CATALOG} x {DIM}, "
-            f"{codes.numel() / 1e6:.1f} MB): kernel {kern:.4f} / "
-            f"{kern2:.4f} ms, plain {plain:.4f} ms")
+        u_n = l2_normalize(users)
+        log(f"B11 int8 catalog {CATALOG} x {DIM}, "
+            f"{codes.numel() / 1e6:.1f} MB of codes")
+        times[n_users] = retrieval_times(
+            "B11", n_users, 1,
+            lambda: retrieve_top_k_int8(users, codes, scales, k=K2_K),
+            lambda: quantized_top_k(users, codes, scales, k=K2_K),
+            lambda: torch.topk(u_n @ deq.T, K2_K), flush)
+        log_split(f"B11 users={n_users}",
+                  lambda: retrieve_top_k_int8(users, codes, scales, k=K2_K))
     return times
 
 
@@ -4332,6 +4480,7 @@ def main() -> int:
     phase_head_dims(gen)
     k2_times = phase_k2(gen)
     b11_times = phase_b11(gen)
+    phase_retrieval_edges(torch.Generator(device="cuda").manual_seed(SEED + 15))
     blocks = phase_blocks(gen, "bf16")
     for key, err in phase_wide_k(gen).items():
         blocks[key]["err"] = max(blocks[key]["err"], err)
@@ -4368,8 +4517,6 @@ def main() -> int:
 
     bounds = static_bounds()
     b16 = torch.bfloat16
-    k2_ms, k2_plain = k2_times[BATCH]
-    b11_ms, b11_plain = b11_times[BATCH]
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
             bound_by, library_ms=None, **extra):
@@ -4379,6 +4526,18 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, **extra}
+
+    def retrieval_row(name, replaces, launches, err, times):
+        """The 8-user (serving batch) figures, cold L2, with the warm and
+        64-user ones as extra keys."""
+        at8, at64 = times[BATCH], times[K2_USERS[-1]]
+        return row(name, "retrieve_topk.cu", replaces, launches, err,
+                   at8["ms"], at8["plain_ms"], at8["bound_ms"],
+                   at8["bound_by"], users=BATCH, warm_ms=at8["warm_ms"],
+                   mm_topk_ms=at8["mm_topk_ms"], **{
+                       f"{key}_{K2_USERS[-1]}users": at64[key] for key in (
+                           "ms", "warm_ms", "plain_ms", "mm_topk_ms",
+                           "bound_ms", "bound_by")})
 
     k1 = k1_times[b16]
     kernels = [
@@ -4394,12 +4553,11 @@ def main() -> int:
             "flash_causal_vjp.py:224", trained["launches"]["b7b_dkv"],
             max(b7b[b16]["errs"][n] for n in ("dk", "dv")),
             **b7b[b16]["dkv"]),
-        row("retrieve_topk", "retrieve_topk.cu", "ranking.py:118",
-            served["launches"]["k2"], served["k2_err"], k2_ms, k2_plain,
-            *bounds["k2"]),
-        row("retrieve_topk_int8", "retrieve_topk.cu", "quantization.py:78",
-            served["launches"]["b11"], served["b11_err"], b11_ms, b11_plain,
-            *bounds["b11"]),
+        retrieval_row("retrieve_topk", "ranking.py:118",
+                      served["launches"]["k2"], served["k2_err"], k2_times),
+        retrieval_row("retrieve_topk_int8", "quantization.py:78",
+                      served["launches"]["b11"], served["b11_err"],
+                      b11_times),
     ] + [
         row(name, "qformer_blocks.cu", f"{src}:{line}", sweep_launches[key],
             blocks[key]["err"], blocks[key]["ms"], blocks[key]["plain_ms"],

@@ -10,6 +10,7 @@ typedef int CUresult;
 enum { CUDA_SUCCESS = 0 };
 typedef enum {
   CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0,
+  CU_TENSOR_MAP_DATA_TYPE_FLOAT32 = 7,
   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9
 } CUtensorMapDataType;
 typedef enum { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 } CUtensorMapInterleave;
@@ -24,7 +25,9 @@ inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuu
                                  const cuuint32_t* box, const cuuint32_t*, CUtensorMapInterleave,
                                  CUtensorMapSwizzle swizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill) {
-  const uint64_t es = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
+  const uint64_t es = type == CU_TENSOR_MAP_DATA_TYPE_UINT8     ? 1
+                      : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                                                                : 2;
   if (rank != 2 || (uintptr_t)base % 16 || strides[0] % 16 || box[0] * es > 128) return 1;
   map->opaque[0] = (uint64_t)(uintptr_t)base;
   map->opaque[1] = dims[0];

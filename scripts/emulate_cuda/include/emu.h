@@ -227,3 +227,23 @@ void launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
   launch_cluster(1, grid, block, smem, kernel, args...);
 }
 }  // namespace emu
+
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= 4);
+  uint32_t u = 0; memcpy(&u, &v, sizeof(T));
+  auto& xb = emu::blk->xbuf[emu::warp()];
+  xb[emu::lane()][0] = u;
+  emu::wsync();
+  uint32_t r = xb[src & 31][0];
+  emu::wsync();
+  T out; memcpy(&out, &r, sizeof(T));
+  return out;
+}
+// byte n of the result is byte (s >> 4n) & 7 of the eight bytes {y:x}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xFFu) << (8 * n);
+  return r;
+}

@@ -12,7 +12,11 @@ inputs, compared in fp32: max |diff| <= 5e-2 on the unit-scale LayerNorm
 outputs (a few bf16 ulps: the kernel and the plain version sum in different
 orders, which can flip a bf16 rounding of qkv, probabilities, ctx or the gelu
 output, and in B4-B6 through it one int8 code) and per-row cosine >= 0.9999.
-B11 is held as K2: scores within 1e-5, ids equal except near-ties.
+K2 and B11 are held to their plain versions at 1, 8, 24, 64 and 200 users
+over 1, 37, 20,000 and 20,001 rows of width 1021 and 1024, k 1, 20 and 32,
+with a zero row, equal rows across share boundaries and all scores negative:
+scores within 1e-5, ids equal except near-ties, repeats bit for bit, one
+counted launch a call.
 
 B8 and B9a (the Qwen3 W8A8 projections) give their plain versions' bits:
 the integer sums are exact and both round the epilogue at the same points.
@@ -56,14 +60,7 @@ from unirec_tpu_torch.ops.int8_matmul import (
     int8_linear_plain,
     kernel_row_quant,
 )
-from unirec_tpu_torch.ops.losses import l2_normalize
-from unirec_tpu_torch.ops.quantization import (
-    quantize_rows,
-    quantized_scores,
-    quantized_top_k,
-    retrieve_top_k_int8,
-)
-from unirec_tpu_torch.ops.ranking import retrieve_top_k, top_k_items
+from unirec_tpu_torch.ops.quantization import quantize_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -223,17 +220,36 @@ def test_flash_causal_wrappers_refuse_what_the_kernels_do_not_take(hopper,
         flash_causal_attention(q, kv, kv, None, 2, 1)
 
 
-@pytest.mark.parametrize("n_users", [8, 64])
-def test_k2_matches_plain(hopper, n_users):
-    users = torch.randn(n_users, 1024, device="cuda", generator=hopper)
-    catalog = torch.randn(20_000, 1024, device="cuda", generator=hopper)
-    s, i = retrieve_top_k(users, catalog, k=20)
-    torch.cuda.synchronize()
-    s_ref, i_ref = top_k_items(users, catalog, k=20)
-    assert (s - s_ref).abs().max() <= 1e-5
-    full = l2_normalize(users) @ l2_normalize(catalog).T
-    diff = i != i_ref  # only near-ties (< 1e-6 apart) may swap
-    assert ((full.gather(1, i) - s_ref)[diff].abs() < 1e-6).all()
+# K2 and B11 over the partition's edges: users (one, one group of 8, 24, 64,
+# two groups), rows (one, fewer than SMs, the serving catalog, a share one
+# row short), widths 1021 (C-13) and 1024, k in {1, 20, 32} up to the rows
+RETRIEVAL_CASES = [(b, n, d, k) for b in (1, 8, 24, 64, 200)
+                   for n in (1, 37, 20_000, 20_001) for d in (1021, 1024)
+                   for k in (1, 20, 32) if k <= n]
+
+
+def _retrieval_inputs(gen, b, n, d, negative):
+    """Users and a catalog with a zero row and equal rows across every share
+    boundary, user 0 equal to the first boundary's row; ``negative``: every
+    other score below 0."""
+    base = torch.randn(d, device="cuda", generator=gen) if negative else None
+    catalog, plan = chip_smoke.edge_catalog(gen, n, d, base)
+    users = torch.randn(b, d, device="cuda", generator=gen)
+    if negative:
+        users = base + 0.3 * users
+    users[0] = 2.0 * catalog[min(plan.rows_per_share, n - 1)]
+    return users, catalog
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("n_users,rows,width,k", RETRIEVAL_CASES)
+def test_k2_matches_plain(hopper, n_users, rows, width, k, negative):
+    """K2 against top_k_items: scores within 1e-5, ids equal but near-ties
+    (< 1e-6 apart), ties to the lower index, one counted launch a call,
+    identical bits on a repeat (chip_smoke.retrieval_check)."""
+    users, catalog = _retrieval_inputs(hopper, n_users, rows, width,
+                                       negative)
+    chip_smoke.retrieval_check("K2", users, catalog, k)
 
 
 # -- B1-B3 at the sweep's production widths ----------------------------------
@@ -559,20 +575,14 @@ def test_b4_b5_b6_match_plain(hopper, items):
     assert torch.equal(alone[0], full[empty])
 
 
-@pytest.mark.parametrize("n_users", [8, 64])
-def test_b11_matches_plain(hopper, n_users):
-    catalog = torch.randn(20_000, 1024, device="cuda", generator=hopper)
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("n_users,rows,width,k", RETRIEVAL_CASES)
+def test_b11_matches_plain(hopper, n_users, rows, width, k, negative):
+    """B11 against quantized_top_k, held as K2."""
+    users, catalog = _retrieval_inputs(hopper, n_users, rows, width,
+                                       negative)
     codes, scales = quantize_rows(catalog)
-    users = torch.randn(n_users, 1024, device="cuda", generator=hopper)
-    before = retrieve_top_k_int8.launches
-    s, i = retrieve_top_k_int8(users, codes, scales, k=20)
-    torch.cuda.synchronize()
-    assert retrieve_top_k_int8.launches == before + 1
-    s_ref, i_ref = quantized_top_k(users, codes, scales, k=20)
-    assert (s - s_ref).abs().max() <= 1e-5
-    full = quantized_scores(users, codes, scales)
-    diff = i != i_ref  # only near-ties (< 1e-6 apart) may swap
-    assert ((full.gather(1, i) - s_ref)[diff].abs() < 1e-6).all()
+    chip_smoke.retrieval_check("B11", users, codes, k, scales)
 
 
 # -- B8, B9a, B9b: the int8 Qwen3-0.6B serving forward -----------------------------

@@ -5,6 +5,12 @@ within 1e-6.
 
 Cases: a catalog that is not a multiple of the block (padded rows must score
 -inf, not 0), all-negative scores, exact ties (-> lower index), k=20.
+
+The kernels' folded score (``folded_scores``: raw dot products scaled by the
+user's and the row's inverse norms) is held to ``top_k_items`` and to the JAX
+kernel on the same cases and on rows of norms from 1e-6 to 1e6 with a zero
+row and a zero user: scores within 1e-6, ids equal except near-ties (plain
+scores within 1e-6), zero rows scoring 0 on both sides.
 """
 
 import jax.numpy as jnp
@@ -15,7 +21,11 @@ import torch
 from unirec_tpu.ops.ranking import retrieve_top_k as jax_retrieve
 from unirec_tpu.ops.losses import l2_normalize as jax_l2
 from unirec_tpu_torch.ops.losses import l2_normalize
-from unirec_tpu_torch.ops.ranking import retrieve_top_k, top_k_items
+from unirec_tpu_torch.ops.ranking import (
+    folded_scores,
+    retrieve_top_k,
+    top_k_items,
+)
 
 
 def _case(name):
@@ -34,6 +44,15 @@ def _case(name):
         cat[199] = cat[40]
         users = np.stack([cat[3], cat[40], rng.randn(16)])
         return users, cat
+    if name == "norm_range":
+        cat = rng.randn(257, 48) * np.logspace(-6, 6, 257)[
+            rng.permutation(257)][:, None]
+        cat[11] = 0.0
+        cat[200] = cat[100] * 1e-3  # the same direction at another norm
+        users = rng.randn(6, 48)
+        users[1] = cat[100] * 1e4
+        users[2] = 0.0
+        return users, cat
     raise KeyError(name)
 
 
@@ -49,6 +68,32 @@ def test_plain_matches_jax_kernel(case):
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
     np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), atol=1e-6, rtol=0)
     assert np.isfinite(s.numpy()).all()
+
+
+@pytest.mark.parametrize("case", ["padded_catalog", "all_negative",
+                                  "exact_ties", "norm_range"])
+def test_folded_scores_match_plain_and_jax(case):
+    users, cat = (a.astype(np.float32) for a in _case(case))
+    u, c = torch.from_numpy(users), torch.from_numpy(cat)
+    k = 20
+    folded = folded_scores(u, c)
+    s, i = torch.sort(folded, dim=-1, descending=True, stable=True)
+    s, i = s[:, :k], i[:, :k]
+    plain = l2_normalize(u) @ l2_normalize(c).T  # top_k_items' scores
+    jax_s, jax_i = jax_retrieve(jnp.asarray(users), jnp.asarray(cat), k=k,
+                                block_u=8, block_n=128, interpret=True)
+    for s_ref, i_ref in (top_k_items(u, c, k=k),
+                         (torch.from_numpy(np.array(jax_s)),
+                          torch.from_numpy(np.array(jax_i)).long())):
+        np.testing.assert_allclose(s.numpy(), s_ref.numpy(), atol=1e-6,
+                                   rtol=0)
+        diff = i != i_ref
+        assert ((plain.gather(1, i) - s_ref)[diff].abs() < 1e-6).all()
+    zero_rows = np.flatnonzero(~cat.any(axis=1))
+    zero_users = np.flatnonzero(~users.any(axis=1))
+    for scores in (folded, plain):
+        assert (scores[:, zero_rows] == 0).all()
+        assert (scores[zero_users] == 0).all()
 
 
 def test_ties_go_to_lower_index():

@@ -103,8 +103,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_flash_causal_bwd_dq.restype = _I
     lib.unirec_flash_causal_bwd_dkv.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_causal_bwd_dkv.restype = _I
-    lib.unirec_retrieve_topk.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _P]
+    lib.unirec_retrieve_topk.argtypes = [_P] * 6 + [_I] * 9 + [_P]
     lib.unirec_retrieve_topk.restype = _I
     lib.unirec_qformer_self_block.argtypes = [_P] * 11 + [_I] * 4 + [_F, _F, _P]
     lib.unirec_qformer_self_block.restype = _I
@@ -113,7 +112,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_qformer_cross_block.restype = _I
     lib.unirec_qformer_ffn_block.argtypes = [_P] * 10 + [_I] * 3 + [_F, _P]
     lib.unirec_qformer_ffn_block.restype = _I
-    lib.unirec_retrieve_topk_int8.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.unirec_retrieve_topk_int8.argtypes = [_P] * 7 + [_I] * 8 + [_P]
     lib.unirec_retrieve_topk_int8.restype = _I
     lib.unirec_qformer_self_block_q.argtypes = [_P] * 15 + [_I] * 4 + [_F, _F,
                                                                       _P]

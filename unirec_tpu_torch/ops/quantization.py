@@ -7,10 +7,15 @@ the catalog, has to stream.  A row scores ``(u . float(q_n)) * s_n`` with the
 user ``u`` L2-normalised in float32.
 
 B11 (``csrc/retrieve_topk.cu``, ``unirec_retrieve_topk_int8``) replaces
-``retrieve_top_k_int8`` (``_q_retrieval_kernel``): K2's two-pass blocked
-top-k reading int8 codes.  Both ``quantized_top_k`` and the kernel return
-scores ``[B, k]`` float32 in descending order and catalog ids ``[B, k]``
-int64; equal scores go to the lower catalog index.
+``unirec_tpu/ops/quantization.py::retrieve_top_k_int8``
+(``_q_retrieval_kernel`` :78, called at :166): K2's design over int8 codes
+(``ops/ranking.py`` and the source note), one pass over the 20.5 MB of codes
+at 20,000 x 1,024, the users' norms and the row scales applied in the
+epilogue, the codes turned into floats by a byte permute.  At 8 users it is
+bound by the codes' bytes, at 64 by its fp32 FMAs.  Both
+``quantized_top_k`` and the kernel return scores ``[B, k]`` float32 in
+descending order and catalog ids ``[B, k]`` int64; equal scores go to the
+lower catalog index.
 """
 
 from __future__ import annotations
@@ -22,7 +27,13 @@ import torch
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.fused_qformer_int8 import true_div
 from unirec_tpu_torch.ops.losses import l2_normalize
-from unirec_tpu_torch.ops.ranking import MAX_KERNEL_K, _num_splits
+from unirec_tpu_torch.ops.ranking import (
+    MAX_KERNEL_K,
+    kernel_inputs,
+    kernel_outputs,
+    retrieval_plan,
+    sm_count,
+)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,11 +68,27 @@ def quantized_top_k(user_emb: torch.Tensor, catalog_q: torch.Tensor,
     return vals[:, :k], idx[:, :k]
 
 
+def int8_kernel_inputs(user_emb: torch.Tensor, catalog_q: torch.Tensor,
+                       catalog_scales: torch.Tensor, k: int):
+    """B11's checks and layout: ``kernel_inputs`` over int8 codes, with
+    float32 scales ``[N]``.  Any width D >= 1."""
+    if catalog_q.dtype != torch.int8 or catalog_scales.dtype != torch.float32:
+        raise TypeError(f"B11 takes int8 codes and float32 scales, got "
+                        f"{catalog_q.dtype} and {catalog_scales.dtype}")
+    u, c = kernel_inputs(user_emb, catalog_q, k)
+    s = catalog_scales.contiguous()
+    if tuple(s.shape) != (c.shape[0],):
+        raise ValueError(f"bad shapes catalog {tuple(c.shape)} scales "
+                         f"{tuple(s.shape)}")
+    return u, c, s
+
+
 def retrieve_top_k_int8(user_emb: torch.Tensor, catalog_q: torch.Tensor,
                         catalog_scales: torch.Tensor,
                         k: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k catalog items per user over an int8 catalog: B11 for CUDA
-    tensors, ``quantized_top_k`` for CPU tensors.
+    tensors, ``quantized_top_k`` for CPU tensors.  The kernel normalises
+    the users in its epilogue: nothing else is launched.
 
     ``k > 32`` takes ``quantized_top_k`` on every device, the JAX package's
     rule.  On a CUDA tensor with k <= 32 it launches the kernel or raises.
@@ -72,31 +99,23 @@ def retrieve_top_k_int8(user_emb: torch.Tensor, catalog_q: torch.Tensor,
     if (dev.type != "cuda" or catalog_q.device != dev
             or catalog_scales.device != dev):
         raise ValueError("users and catalog must be on one CUDA device")
-    if catalog_q.dtype != torch.int8 or catalog_scales.dtype != torch.float32:
-        raise TypeError(f"B11 takes int8 codes and float32 scales, got "
-                        f"{catalog_q.dtype} and {catalog_scales.dtype}")
-    u = l2_normalize(user_emb.float()).contiguous()
-    c, s = catalog_q.contiguous(), catalog_scales.contiguous()
-    if (u.dim() != 2 or c.dim() != 2 or u.shape[1] != c.shape[1]
-            or tuple(s.shape) != (c.shape[0],)):
-        raise ValueError(f"bad shapes users {tuple(u.shape)} catalog "
-                         f"{tuple(c.shape)} scales {tuple(s.shape)}")
-    b, d = u.shape
-    n = c.shape[0]
-    if not 1 <= k <= n:
-        raise ValueError(f"k must be in [1, {n}], got {k}")
-    if d % 4:
-        raise ValueError(f"B11 needs the embedding width % 4 == 0, got {d}")
-    splits = _num_splits(
-        b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_s = torch.empty(b, splits, k, device=dev, dtype=torch.float32)
-    part_i = torch.empty(b, splits, k, device=dev, dtype=torch.int32)
-    out_s = torch.empty(b, k, device=dev, dtype=torch.float32)
-    out_i = torch.empty(b, k, device=dev, dtype=torch.int64)
+    return launch_b11(user_emb, catalog_q, catalog_scales, k)
+
+
+def launch_b11(user_emb: torch.Tensor, catalog_q: torch.Tensor,
+               catalog_scales: torch.Tensor,
+               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B11's launches (the share pass and the merge) on checked inputs; the
+    device test is ``retrieve_top_k_int8``'s."""
+    u, c, s = int8_kernel_inputs(user_emb, catalog_q, catalog_scales, k)
+    (b, d), n = u.shape, c.shape[0]
+    plan = retrieval_plan(b, n, d, 1, sm_count(u.device))
+    part, out_s, out_i = kernel_outputs(plan, k, u.device)
     err = load_kernels().lib.unirec_retrieve_topk_int8(
-        u.data_ptr(), c.data_ptr(), s.data_ptr(), part_s.data_ptr(),
-        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, n, d, k,
-        splits, torch.cuda.current_stream(dev).cuda_stream)
+        u.data_ptr(), c.data_ptr(), s.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, n, d, k,
+        plan.users_per_group, plan.shares, plan.rows_per_share,
+        plan.tile_rows, torch.cuda.current_stream(u.device).cuda_stream)
     check(err, "retrieve_topk_int8")
     retrieve_top_k_int8.launches += 1
     return out_s, out_i
