@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch port's main paths on one NVIDIA Hopper GPU: the
 serving path (over a float32 and an int8 catalog, and with the W8A8 int8
-Qwen3 forward), the item-token sweep (bf16 and W8A8 int8), joint training,
-Item Q-Former training and User Q-Former training; and the two kernels no
-path of the JAX package calls (B14p, B15) through their own entry points.
+Qwen3 forward), the item-token sweep (bf16 and W8A8 int8), the pipeline's
+front end (data, the item encoders' towers, ``tokens --data``, ``users``),
+joint training, Item Q-Former training and User Q-Former training; and the
+two kernels no path of the JAX package calls (B14p, B15) through their own
+entry points.
 
     python3 chip_smoke.py
 
@@ -107,6 +109,22 @@ Phases (any failed check raises; the script then exits non-zero):
    to the engine on the plain block functions and to the fp32
    ``ItemQFormer``; items/s, TFLOP/s, peak memory and a ``torch.profiler``
    breakdown by kernel.
+5a. the pipeline's front end: ``data`` (the five subcommands of
+   ``cli/data_pipeline.py``) over seeded raw files of 2,000 items and 1,000
+   users; the Qwen3-Embedding text backend at full width (``Qwen3Config()``,
+   seed-0 bf16 weights, max_length 128, batch 64) on 512 item texts of the
+   triplet dict, with 28 K1 launches a batch, its pooled rows held to the
+   same backend on the plain attention path (row cosine >= 0.999), K1 held
+   to its plain version on layer 0's q, k and v (the bf16 K1 gate) and timed
+   at that shape (B 64, L 128) beside SDPA; the CLIP ViT-L/14 vision tower
+   (batch 32) and the CLIP text tower (batch 128, L 77) through their
+   backends in bf16 against the same weights in fp32 (row cosine >= 0.99),
+   images/s and texts/s; ``tokens --data`` at batch 4096 over phase 5's
+   checkpoint saved with the default schema's 14 fields (``ItemEncoder()``
+   then B1-B3, launch counts checked); ``users`` over phase 4's serving files
+   (K1 launches checked), with the field cache on and off the device (row
+   cosine >= 0.999, users/s each), and ``python3 -m unirec_tpu_torch users``
+   as a subprocess.
 6. joint training at full width (``Qwen3Config()``, LoRA r=16 on the seven
    projections, the sweep's ``ItemQFormerConfig()`` checkpoint, L=512, batch
    8, 10 history items x 14 fields x 1024, 10 negatives; bf16 compute with
@@ -149,7 +167,9 @@ Phases (any failed check raises; the script then exits non-zero):
    ``--resume`` for 1, then ``--bf16 --remat`` for 1, whose evaluation
    launches B13 4 times a batch); exact launch counts, finite metrics.
 9. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
-   the PyTorch yardstick where one call computes the same function; the B7b
+   the PyTorch yardstick where one call computes the same function; K1 a
+   second time at the text tower's shape, its launches the text backend's;
+   the B7b
    rows also ``path_ms``, the kernels' forward + backward through autograd,
    the like of their ``library_ms``), then the last line ``{"ok": true,
    ...}``.
@@ -343,6 +363,14 @@ def causal_pairs(mask: torch.Tensor) -> int:
     return int(torch.minimum(rows[None], lengths[:, None]).sum())
 
 
+def k1_bytes(q, k, v, mask) -> float:
+    """Bytes K1 must move: q read and o written in full, K and V read at the
+    valid keys only (no query attends a padded key), the float32 mask."""
+    valid = float(mask.sum()) / mask.numel()
+    return (q.element_size() * (2 * q.numel() + (k.numel() + v.numel())
+                                * valid) + 4 * mask.numel())
+
+
 def sdpa_inputs(q, k, v, mask, hq, hkv):
     """The same attention laid out for scaled_dot_product_attention: per-head
     [B, H, L, hd] tensors, K/V repeated over the GQA group, and one boolean
@@ -447,11 +475,9 @@ def phase_k1(gen) -> dict:
             lambda: flash_causal_attention(q, k, v, mask, hq, hkv))
         qh, kh, vh, allowed = sdpa_inputs(q, k, v, mask, hq, hkv)
         lib = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=allowed))
-        size = q.element_size()
         b_ms, b_by = bound(
-            size * (2 * q.numel() + k.numel() + v.numel()) + 4 * mask.numel(),
-            2 * 2 * hd * pairs * hq, "bf16" if dtype == torch.bfloat16
-            else "fp32")
+            k1_bytes(q, k, v, mask), 2 * 2 * hd * pairs * hq,
+            "bf16" if dtype == torch.bfloat16 else "fp32")
         times[dtype] = dict(ms=min(kern, kern2), plain_ms=plain, library_ms=lib,
                             bound_ms=b_ms, bound_by=b_by)
         log(f"K1 time {dtype} B={b} L={l} Hq={hq} Hkv={hkv} hd={hd}: kernel "
@@ -2596,38 +2622,39 @@ def fused_vs_controls(shared, rec, catalog, histories, users) -> None:
                              "per-projection path than the rounding explains")
 
 
-def phase_entry_point(smi: str, rec) -> dict:
+def phase_entry_point(smi: str, rec, tmp: str) -> dict:
     """serve_cli.build_recommender(parse_args([...])) with --precision int8
     --merge-lora on a saved full-width K=2 Item Q-Former checkpoint, a field
     cache directory and JSON item and catalog files of ENTRY_ITEMS items
-    written from the serving stack; one batch answered through it."""
+    written from the serving stack into ``tmp`` (the front-end phase's
+    ``users`` reads them); one batch answered through it."""
     from unirec_tpu_torch.cli import serve_cli
     from unirec_tpu_torch.utils.checkpoint import save_checkpoint
 
     ids = rec.catalog_ids[:ENTRY_ITEMS]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        save_checkpoint(os.path.join(tmp, "iq"), rec.model.qformer,
-                        rec.model.qformer_config,
-                        extra={"field_names": list(rec.cache.fields)})
-        rows = rec.cache.rows_for(ids)
-        type(rec.cache)(
-            np.asarray(rec.cache.embeddings)[rows],
-            np.asarray(rec.cache.masks)[rows], list(rec.cache.fields),
-            list(ids)).save(os.path.join(tmp, "cache"))
-        with open(os.path.join(tmp, "items.json"), "w") as fh:
-            json.dump({i: rec.item_dict[i] for i in ids}, fh)
-        with open(os.path.join(tmp, "catalog.json"), "w") as fh:
-            json.dump({i: np.round(rec.catalog[j], 5).tolist()
-                       for j, i in enumerate(ids)}, fh)
-        args = serve_cli.parse_args([
-            "--qformer-checkpoint", os.path.join(tmp, "iq"),
-            "--cache-dir", os.path.join(tmp, "cache"),
-            "--item-dict", os.path.join(tmp, "items.json"),
-            "--catalog", os.path.join(tmp, "catalog.json"),
-            "--precision", "int8", "--merge-lora", "--prewarm"])
-        cli_rec = serve_cli.build_recommender(args)
-        build_s = time.perf_counter() - t0
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(tmp, "iq"), rec.model.qformer,
+                    rec.model.qformer_config,
+                    extra={"field_names": list(rec.cache.fields)})
+    rows = rec.cache.rows_for(ids)
+    type(rec.cache)(
+        np.asarray(rec.cache.embeddings)[rows],
+        np.asarray(rec.cache.masks)[rows], list(rec.cache.fields),
+        list(ids)).save(os.path.join(tmp, "cache"))
+    with open(os.path.join(tmp, "items.json"), "w") as fh:
+        json.dump({i: rec.item_dict[i] for i in ids}, fh)
+    with open(os.path.join(tmp, "catalog.json"), "w") as fh:
+        json.dump({i: np.round(rec.catalog[j], 5).tolist()
+                   for j, i in enumerate(ids)}, fh)
+    args = serve_cli.parse_args([
+        "--qformer-checkpoint", os.path.join(tmp, "iq"),
+        "--cache-dir", os.path.join(tmp, "cache"),
+        "--item-dict", os.path.join(tmp, "items.json"),
+        "--catalog", os.path.join(tmp, "catalog.json"),
+        "--precision", "int8", "--merge-lora", "--prewarm"])
+    cli_rec = serve_cli.build_recommender(args)
+    build_s = time.perf_counter() - t0
     hist = [list(ids[i * 7: i * 7 + i % 6]) for i in range(BATCH)]
     counters = int8_launches()
     for fn in counters.values():
@@ -2792,8 +2819,11 @@ def phase_b7b(gen) -> dict:
         kind = "bf16" if dtype == torch.bfloat16 else "fp32"
         stats = 3 * 4 * b * l * hq + 4 * b * l  # m, l, dsum and the mask
         bq, bkv = size * b * l * hq * hd, size * b * l * hkv * hd
-        b_dq = bound(3 * bq + 2 * bkv + stats, 3 * 2 * hd * pairs * hq, kind)
-        b_dkv = bound(2 * bq + 4 * bkv + stats, 4 * 2 * hd * pairs * hq, kind)
+        # K and V read at the valid keys only; dK and dV written in full
+        kv_read = 2 * bkv * float(mask.sum()) / mask.numel()
+        b_dq = bound(3 * bq + kv_read + stats, 3 * 2 * hd * pairs * hq, kind)
+        b_dkv = bound(2 * bq + kv_read + 2 * bkv + stats,
+                      4 * 2 * hd * pairs * hq, kind)
         out[dtype] = dict(
             errs=errs,
             dq=dict(ms=min(t_dq, t_dq2), plain_ms=t_plain, library_ms=t_lib,
@@ -3194,6 +3224,485 @@ def sweep_cli(smi, precision, cfg, model, tmp, emb, masks, ids, fields, sample,
     del inference
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+# -- phase 5a: the pipeline's front end -------------------------------------------
+
+# synthetic raw files for `data` (All_Beauty's shape), the text backend at
+# the Qwen3-Embedding tower's serving shape (batch 64 x L 128: 16 and 8 heads
+# of 128, 28 layers), the CLIP towers at ViT-L/14 (batch 32, 257 tokens) and
+# the CLIP text tower (batch 128, L 77), `users` over phase 4's files
+FRONT_ITEMS, FRONT_USERS = 2000, 1000
+TEXT_ITEMS, TEXT_BATCH, TEXT_LEN = 512, 64, 128
+VIT_BATCH, CLIP_TEXT_BATCH = 32, 128
+USERS_N, USERS_BATCH = 256, 16
+# the text backend's pooled rows on K1 against the same backend on the plain
+# attention path, and users with the field cache on and off the device:
+# row cosine; the CLIP towers in bf16 against fp32 on the same (bf16)
+# weights: row cosine
+TEXT_PLAIN_COS, USERS_COS, TOWER_COS = 0.999, 0.999, 0.99
+FRONT_WORDS = ("serum lip balm cherry matte gloss travel size vitamin mask oil "
+               "brush set mini rose hydrating cream face shampoo nail polish "
+               "remover spf sunscreen eye liner palette glow").split()
+
+
+def row_cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+def write_front_raw(root: str, rng) -> None:
+    """meta.jsonl (FRONT_ITEMS items), reviews.jsonl and x.inter
+    (FRONT_USERS users of 13-30 interactions), seeded.  Item texts are as
+    long as All_Beauty's: title, feature bullets and description together
+    pass the text tower's 128 tokens in most rows."""
+    def words(lo, hi):
+        return " ".join(rng.choice(FRONT_WORDS, rng.integers(lo, hi)))
+
+    with open(os.path.join(root, "meta.jsonl"), "w") as fh:
+        for i in range(FRONT_ITEMS):
+            fh.write(json.dumps({
+                "parent_asin": f"B{i:05d}", "title": words(8, 30),
+                "main_category": "All Beauty", "store": f"store{i % 97}",
+                "price": None if i % 11 == 0 else round(float(
+                    rng.uniform(2, 80)), 2),
+                "average_rating": round(float(rng.uniform(1, 5)), 1),
+                "rating_number": int(rng.integers(0, 5000)),
+                "description": [words(60, 200)] if i % 4 else [],
+                "features": [words(6, 20) for _ in range(rng.integers(2, 6))]
+                if i % 3 else [],
+                "details": {"Brand": f"brand{i % 53}", "Color": words(1, 2),
+                            "Size": f"{1 + i % 9} oz",
+                            **({"Style": words(1, 3)} if i % 2 else {}),
+                            **({"Material": words(1, 2)} if i % 5 == 0
+                               else {})},
+                "images": [{"variant": "MAIN",
+                            "large": f"https://img.example/{i}.jpg"}],
+            }) + "\n")
+    inter_rows = []
+    with open(os.path.join(root, "reviews.jsonl"), "w") as fh:
+        for u in range(FRONT_USERS):
+            items = rng.choice(FRONT_ITEMS, rng.integers(13, 31), replace=False)
+            times = np.sort(rng.integers(10**9, 2 * 10**9, len(items)))
+            for j, (i, t) in enumerate(zip(items, times)):
+                inter_rows.append(f"user{u}\tB{i:05d}\t5.0\t{t}\n")
+                if j < 3:
+                    fh.write(json.dumps({
+                        "user_id": f"user{u}", "parent_asin": f"B{i:05d}",
+                        "title": words(1, 4), "text": words(5, 25),
+                        "rating": 5.0, "timestamp": int(t)}) + "\n")
+    with open(os.path.join(root, "x.inter"), "w") as fh:
+        fh.write("user_id:token\titem_id:token\trating:float\t"
+                 "timestamp:float\n")
+        fh.writelines(inter_rows)
+
+
+def front_data(root: str) -> dict:
+    """``data`` through the port's CLI: the five subcommands over the raw
+    files; counts checked."""
+    from unirec_tpu_torch.cli import data_pipeline
+    from unirec_tpu_torch.configs import DEFAULT_FIELD_MAPPING
+
+    t0 = time.perf_counter()
+    write_front_raw(root, np.random.default_rng(SEED + 16))
+    raw_s = time.perf_counter() - t0
+
+    def path(name):
+        return os.path.join(root, name)
+
+    t0 = time.perf_counter()
+    for argv in (["item-dict", "--input", path("meta.jsonl"), "--output",
+                  path("items.json")],
+                 ["review-dict", "--input", path("reviews.jsonl"), "--output",
+                  path("reviews.json")],
+                 ["triplet-dict", "--input", path("items.json"), "--output",
+                  path("triplet.json")],
+                 ["rec-old-user", "--inter", path("x.inter"),
+                  "--output-prefix", path("rec")],
+                 ["rec-new-user", "--inter", path("x.inter"),
+                  "--output-prefix", path("new")]):
+        if data_pipeline.main(argv) != 0:
+            raise AssertionError(f"data {argv[0]} failed")
+    data_s = time.perf_counter() - t0
+    counts = {}
+    for name in ("items.json", "reviews.json", "triplet.json",
+                 "rec_train.json", "rec_test.json", "new_train_LRanker.json",
+                 "new_test_LRanker.json"):
+        with open(path(name)) as fh:
+            counts[name] = len(json.load(fh))
+    log(f"front end, data: raw files ({FRONT_ITEMS} items, {FRONT_USERS} "
+        f"users) written in {raw_s:.2f} s; item-dict, review-dict, "
+        f"triplet-dict, rec-old-user, rec-new-user in {data_s:.2f} s: {counts}")
+    want = {"items.json": FRONT_ITEMS, "reviews.json": 3 * FRONT_USERS,
+            "triplet.json": FRONT_ITEMS, "rec_train.json": FRONT_USERS,
+            "rec_test.json": FRONT_USERS, "new_train_LRanker.json": 232,
+            "new_test_LRanker.json": 58}
+    if counts != want:
+        raise AssertionError(f"data outputs {counts}, want {want}")
+    with open(path("triplet.json")) as fh:
+        triplet = json.load(fh)
+    if set(triplet["B00005"]) != set(DEFAULT_FIELD_MAPPING):
+        raise AssertionError(f"triplet fields {sorted(triplet['B00005'])}")
+    return triplet
+
+
+def log_device_split(smi: str, what: str, fn, top: int = 6) -> None:
+    """One call of ``fn`` under torch.profiler: its device time by kernel
+    (the top ``top``) beside its host time, and the device's idle share."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.inference_mode(), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_time_by_kernel(prof)
+    total = sum(t for _, t in rows)
+    log(f"[{smi}] {what} under torch.profiler: {total:.2f} ms of device time "
+        f"in {len(rows)} kernels of a {wall:.2f} ms call (idle "
+        f"{100 * max(0.0, 1 - total / wall):.1f}%)"
+        + ("" if rows else " (no device rows: breakdown not measured)"))
+    for name, t in rows[:top]:
+        log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
+
+
+def front_text_backend(smi: str, triplet: dict) -> dict:
+    """The full-width Qwen3-Embedding text backend on TEXT_ITEMS item texts:
+    K1 launches (28 a batch), the pooled rows against the backend on the
+    plain attention path, K1 on layer 0's q, k, v against its plain version,
+    texts/s, and K1's time at the tower's shape beside SDPA's and its
+    bound."""
+    from unirec_tpu_torch.cli.candidate_embeddings import extract_text
+    from unirec_tpu_torch.configs import Qwen3Config
+    from unirec_tpu_torch.encoders.backends import Qwen3TextBackend
+    from unirec_tpu_torch.models import qwen3 as qwen3_mod
+    from unirec_tpu_torch.ops import flash_causal as fc
+
+    cfg = Qwen3Config()
+    t0 = time.perf_counter()
+    backend = Qwen3TextBackend(cfg, max_length=TEXT_LEN,
+                               batch_size=TEXT_BATCH, device="cuda",
+                               seed=SEED)
+    build_s = time.perf_counter() - t0
+    texts = [extract_text(item) for item in list(triplet.values())[:TEXT_ITEMS]]
+    backend.encode(texts[:TEXT_BATCH])  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    fc.flash_causal_attention.launches = 0
+    t0 = time.perf_counter()
+    rows = backend.encode(texts)
+    encode_s = time.perf_counter() - t0
+    launches = fc.flash_causal_attention.launches
+    batches = -(-len(texts) // TEXT_BATCH)
+    want = batches * cfg.num_hidden_layers
+
+    def plain_attention(q, k, v, mask, hq, hkv, mask_checked=False):
+        return fc.flash_causal_attention_plain(q, k, v, mask, hq, hkv)
+
+    qwen3_mod.flash_causal_attention = plain_attention
+    try:
+        plain_rows = backend.encode(texts)
+    finally:
+        qwen3_mod.flash_causal_attention = fc.flash_causal_attention
+    cos = row_cosines(rows, plain_rows)
+    norms = np.linalg.norm(rows, axis=1)
+    ids, masks = backend.tokenize(texts[:TEXT_BATCH])  # no empty text
+    fwd_ms = time_ms(lambda: backend.forward(ids, masks), iters=10, warmup=2)
+    log_device_split(smi, f"text tower bf16 batch {TEXT_BATCH}",
+                     lambda: backend.forward(ids, masks))
+    lengths = masks.sum(1)
+    log(f"[{smi}] front end, Qwen3TextBackend(Qwen3Config()) {cfg.num_hidden_layers} "
+        f"layers x {cfg.hidden_size}, bf16, max_length {TEXT_LEN}, batch "
+        f"{TEXT_BATCH} (seed-{SEED} weights, built in {build_s:.1f} s): "
+        f"{len(texts)} item texts ({int(lengths.min())}-{int(lengths.max())} "
+        f"tokens, mean {lengths.mean():.1f}, fill {lengths.mean() / TEXT_LEN:.4f}"
+        f" in the first batch) encoded in "
+        f"{encode_s:.3f} s = {len(texts) / encode_s:.1f} texts/s with hash "
+        f"tokenization; forward of one tokenized batch {fwd_ms:.2f} ms = "
+        f"{TEXT_BATCH / fwd_ms * 1e3:.1f} texts/s; K1 launches {launches} "
+        f"(want {want}: {cfg.num_hidden_layers} a batch x {batches}); pooled "
+        f"rows vs the plain attention path: min row cosine {cos.min():.6f} "
+        f"(tol {TEXT_PLAIN_COS}), norms {norms.min():.6f}-{norms.max():.6f}")
+    if launches != want:
+        raise AssertionError(f"text backend K1 launches {launches}, want {want}")
+    if not (np.isfinite(rows).all() and rows.shape == (len(texts),
+                                                       cfg.hidden_size)):
+        raise AssertionError("text backend rows not finite or misshapen")
+    if not cos.min() >= TEXT_PLAIN_COS or abs(norms - 1).max() > 1e-3:
+        raise AssertionError("text backend rows disagree with the plain path")
+
+    # K1 at the tower's shape, on layer 0's q, k and v of the first batch
+    from unirec_tpu_torch.models.qwen3 import rotary_embedding
+
+    model = backend.model
+    hq, hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim)
+    with torch.inference_mode():
+        ids_t = torch.from_numpy(ids).cuda().long()
+        mask = torch.from_numpy(masks).cuda()
+        b, l = ids_t.shape
+        pos = torch.arange(l, device="cuda")[None].expand(b, l)
+        rc, rs = rotary_embedding(pos, hd, cfg.rope_theta, dtype=model.dtype)
+        layer = model.layers[0]
+        q, k, v = layer.self_attn.qkv(
+            layer.input_layernorm(model.embed(ids_t)), rc, rs)
+        err, ref_max = k1_error(q, k, v, mask, hq, hkv)
+        check_k1(err, ref_max, torch.bfloat16, "text tower layer 0")
+        kern = time_ms(lambda: fc.flash_causal_attention(
+            q, k, v, mask, hq, hkv, mask_checked=True))
+        plain = time_ms(lambda: fc.flash_causal_attention_plain(
+            q, k, v, mask, hq, hkv))
+        kern2 = time_ms(lambda: fc.flash_causal_attention(
+            q, k, v, mask, hq, hkv, mask_checked=True))
+        qh, kh, vh, allowed = sdpa_inputs(q, k, v, mask, hq, hkv)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=allowed))
+    pairs = causal_pairs(mask)
+    fill = float(mask.sum()) / mask.numel()
+    b_ms, b_by = bound(k1_bytes(q, k, v, mask), 2 * 2 * hd * pairs * hq,
+                       "bf16")
+    log(f"[{smi}] K1 at the text tower's shape B={b} L={l} Hq={hq} Hkv={hkv} "
+        f"hd={hd} bf16 (fill {fill:.4f}: valid tokens / B*L; {pairs} causal "
+        f"pairs of the batch's lengths): kernel "
+        f"{kern:.4f} / {kern2:.4f} ms, plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention {lib:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    del backend, model
+    return {"launches": launches, "err": err, "ms": min(kern, kern2),
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": b_by, "fill": fill}
+
+
+def front_clip_towers(smi: str, gen) -> None:
+    """The CLIP ViT-L/14 vision tower and the CLIP text tower, through their
+    backends' forwards in bf16 (seed-0 weights) against the same weights in
+    fp32: row cosine, images/s and texts/s.  The card has no PIL or
+    transformers: pixels and ids are seeded arrays."""
+    from unirec_tpu_torch.encoders.backends import (
+        CLIPImageBackend,
+        CLIPTextBackend,
+    )
+    from unirec_tpu_torch.models.clip import CLIPTextTower, CLIPVisionTower
+
+    vision = CLIPImageBackend(device="cuda", seed=SEED)  # bf16
+    vc = vision.config
+    v32 = CLIPVisionTower(vc, device="cuda").eval()
+    v32.load_state_dict(vision.model.state_dict())
+    pix = torch.randn(VIT_BATCH, vc.image_size, vc.image_size, 3,
+                      device="cuda", generator=gen)
+    emb16 = vision.forward(pix.cpu().numpy())
+    with torch.inference_mode():
+        emb32 = v32(pix).cpu().numpy()
+        ms16 = time_ms(lambda: vision.model(pix), iters=10, warmup=2)
+        ms32 = time_ms(lambda: v32(pix), iters=3, warmup=1)
+    cos_v = row_cosines(emb16, emb32)
+    log_device_split(smi, f"ViT-L/14 bf16 batch {VIT_BATCH}",
+                     lambda: vision.model(pix))
+    n_params = sum(p.numel() for p in vision.model.parameters())
+    log(f"[{smi}] front end, CLIP vision tower ViT-L/14 "
+        f"({vc.num_hidden_layers} x {vc.hidden_size}, {vc.num_patches + 1} "
+        f"tokens, {n_params} parameters), batch {VIT_BATCH}: bf16 {ms16:.2f} "
+        f"ms = {VIT_BATCH / ms16 * 1e3:.1f} images/s, fp32 {ms32:.2f} ms = "
+        f"{VIT_BATCH / ms32 * 1e3:.1f} images/s; bf16 vs fp32 row cosine min "
+        f"{cos_v.min():.6f} mean {cos_v.mean():.6f} (tol {TOWER_COS})")
+    if not (np.isfinite(emb16).all() and cos_v.min() >= TOWER_COS):
+        raise AssertionError("the bf16 vision tower disagrees with fp32")
+    del vision, v32
+
+    text = CLIPTextBackend(dtype=torch.bfloat16, device="cuda", seed=SEED)
+    tc = text.config
+    t32 = CLIPTextTower(tc, device="cuda").eval()
+    t32.load_state_dict(text.model.state_dict())
+    b, l = CLIP_TEXT_BATCH, tc.max_position_embeddings
+    ids = torch.randint(1, tc.eos_token_id - 1, (b, l), device="cuda",
+                        generator=gen)
+    eos = torch.randint(2, l, (b,), device="cuda", generator=gen)
+    cols = torch.arange(l, device="cuda")[None]
+    ids = torch.where(cols >= eos[:, None], tc.eos_token_id, ids)
+    ids[:, 0] = tc.eos_token_id - 1  # start of text
+    mask = (cols <= eos[:, None]).float()
+    emb16 = text.forward(ids.cpu().numpy(), mask.cpu().numpy())
+    with torch.inference_mode():
+        emb32 = t32(ids, mask).cpu().numpy()
+        ms16 = time_ms(lambda: text.model(ids, mask), iters=10, warmup=2)
+    cos_t = row_cosines(emb16, emb32)
+    log(f"[{smi}] front end, CLIP text tower ({tc.num_hidden_layers} x "
+        f"{tc.hidden_size}, L {l}), batch {b}: bf16 {ms16:.2f} ms = "
+        f"{b / ms16 * 1e3:.1f} texts/s; bf16 vs fp32 row cosine min "
+        f"{cos_t.min():.6f} mean {cos_t.mean():.6f} (tol {TOWER_COS})")
+    if not (np.isfinite(emb16).all() and cos_t.min() >= TOWER_COS):
+        raise AssertionError("the bf16 CLIP text tower disagrees with fp32")
+
+
+def front_tokens(smi: str, tmp: str, root: str, n_items: int) -> None:
+    """``tokens --data`` at batch SWEEP_BATCH over phase 5's checkpoint,
+    saved again with the default schema's fields: the raw triplet dict
+    encoded by ``ItemEncoder()`` (hash text and image, MWNE on the card),
+    then swept through B1-B3 (launch counts checked)."""
+    from unirec_tpu_torch.cli.generate_all_item_embeddings import main as cli
+    from unirec_tpu_torch.configs import DEFAULT_FIELD_MAPPING
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+    from unirec_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg, state, _ = QFormerInference.read_checkpoint(os.path.join(tmp, "ckpt"))
+    fields = sorted(DEFAULT_FIELD_MAPPING)
+    ckpt = os.path.join(tmp, "ckpt_schema")
+    save_checkpoint(ckpt, state, cfg, extra={"field_names": fields})
+    out, prog = os.path.join(tmp, "front_tokens.pkl"), os.path.join(
+        tmp, "front_progress.json")
+    blocks = (fq.fused_self_attention_block, fq.fused_cross_attention_block,
+              fq.fused_ffn_block)
+    for fn in blocks:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli(["--checkpoint", ckpt, "--data", os.path.join(root,
+                                                           "triplet.json"),
+              "--cache-dir", os.path.join(tmp, "front_cache"),
+              "--batch-size", str(SWEEP_BATCH), "--output", out,
+              "--progress-file", prog])
+    cli_s = time.perf_counter() - t0
+    launches = [fn.launches for fn in blocks]
+    batches = -(-n_items // SWEEP_BATCH)
+    n_cross = len(range(0, cfg.num_hidden_layers,
+                        cfg.qformer().cross_attention_freq))
+    want = [cfg.num_hidden_layers * batches, n_cross * batches,
+            cfg.num_hidden_layers * batches]
+    with open(out, "rb") as fh:
+        tokens = pickle.load(fh)
+    with open(prog) as fh:
+        progress = json.load(fh)
+    cache = FieldEmbeddingCache.load(os.path.join(tmp, "front_cache"))
+    valid = cache.masks.mean(0)
+    log(f"[{smi}] front end, tokens --data (ItemEncoder() + build_cache, "
+        f"then the bf16 sweep) at batch {SWEEP_BATCH}: rc {rc}, {len(tokens)} "
+        f"items in {cli_s:.2f} s ({n_items / cli_s:.1f} items/s, encoding "
+        f"included); B1/B2/B3 launches {launches} (want {want}); fallback "
+        f"items {progress['fallback_items']}; valid share per field "
+        + ", ".join(f"{f} {v:.2f}" for f, v in zip(cache.fields, valid)))
+    if rc != 0 or len(tokens) != n_items or launches != want:
+        raise AssertionError(f"tokens --data: rc {rc}, {len(tokens)} items, "
+                             f"launches {launches}")
+    shape = (cfg.num_query_tokens, cfg.hidden_size)
+    if progress["fallback_items"] or not all(
+            t.shape == shape and np.isfinite(t).all() for t in tokens.values()):
+        raise AssertionError("tokens --data: a fallback or a bad token array")
+    if list(cache.fields) != fields or not (valid[fields.index("title")] == 1
+                                            and valid.min() > 0):
+        raise AssertionError("tokens --data: the encoded cache lost fields")
+
+
+def front_users(smi: str, tmp: str) -> None:
+    """``users`` over phase 4's serving files (bf16, batch USERS_BATCH): the
+    CLI in this process (K1 launches checked), the field cache on and off the
+    device on one model (row cosine), and ``python3 -m unirec_tpu_torch
+    users`` as a subprocess."""
+    from unirec_tpu_torch.cli import serve_cli, user_embeddings
+    from unirec_tpu_torch.configs import Qwen3Config
+    from unirec_tpu_torch.ops.flash_causal import flash_causal_attention
+    from unirec_tpu_torch.serving.recommender import Recommender
+
+    serve = os.path.join(tmp, "serve")
+    with open(os.path.join(serve, "items.json")) as fh:
+        item_ids = list(json.load(fh))
+    rng = np.random.default_rng(SEED + 16)
+    hist = {f"user{u}": [item_ids[j] for j in rng.choice(
+        len(item_ids), rng.integers(1, 16), replace=False)]
+        for u in range(USERS_N)}
+    with open(os.path.join(tmp, "histories.json"), "w") as fh:
+        json.dump(hist, fh)
+    base = ["--qformer-checkpoint", os.path.join(serve, "iq"),
+            "--cache-dir", os.path.join(serve, "cache"),
+            "--item-dict", os.path.join(serve, "items.json"),
+            "--catalog", os.path.join(serve, "catalog.json"),
+            "--histories", os.path.join(tmp, "histories.json"),
+            "--batch-size", str(USERS_BATCH)]
+    out = os.path.join(tmp, "users.npy")
+    flash_causal_attention.launches = 0
+    t0 = time.perf_counter()
+    rc = user_embeddings.main(base + ["--output", out])
+    cli_s = time.perf_counter() - t0
+    launches = flash_causal_attention.launches
+    emb_cli = np.load(out)
+    with open(out + ".ids.json") as fh:
+        ids = json.load(fh)
+
+    rec = serve_cli.build_recommender(user_embeddings.parse_args(
+        base + ["--output", out]))
+    catalog = {i: rec.catalog[j] for j, i in enumerate(rec.catalog_ids)}
+    host = Recommender(rec.model, rec.tokenizer, rec.item_dict, rec.cache,
+                       catalog, batch_size=USERS_BATCH,
+                       device_field_cache=False)
+    histories = list(hist.values())
+    rates = {}
+    for name, r in (("device", rec), ("host", host)):
+        r.encode_users(histories[:USERS_BATCH])  # warm-up
+        t0 = time.perf_counter()
+        rates[name] = (r.encode_users(histories), time.perf_counter() - t0)
+    cos_cache = row_cosines(rates["device"][0], rates["host"][0])
+    cos_cli = row_cosines(rates["device"][0], emb_cli)
+    del rec, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out2 = os.path.join(tmp, "users_module.npy")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "unirec_tpu_torch", "users"] + base
+        + ["--output", out2, "--host-field-cache"], capture_output=True,
+        text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    sub_s = time.perf_counter() - t0
+    qwen = Qwen3Config()  # serve_cli's model
+    want = -(-USERS_N // USERS_BATCH) * qwen.num_hidden_layers
+    log(f"[{smi}] front end, users (bf16, batch {USERS_BATCH}) over phase "
+        f"4's files ({len(item_ids)} items): the CLI rc {rc}, {len(ids)} users "
+        f"in {cli_s:.2f} s with model building; K1 launches {launches} (want "
+        f"{want}); encode_users with the field cache on the device "
+        f"{USERS_N / rates['device'][1]:.1f} users/s, on the host "
+        f"{USERS_N / rates['host'][1]:.1f} users/s; device vs host min row "
+        f"cosine {cos_cache.min():.6f}, vs the CLI {cos_cli.min():.6f} (tol "
+        f"{USERS_COS}); python3 -m unirec_tpu_torch users --host-field-cache:"
+        f" rc {proc.returncode} in {sub_s:.1f} s")
+    if rc != 0 or ids != list(hist) or emb_cli.shape != (USERS_N,
+                                                         qwen.hidden_size):
+        raise AssertionError("users CLI output")
+    if launches != want:
+        raise AssertionError(f"users K1 launches {launches}, want {want}")
+    if not (cos_cache.min() >= USERS_COS and cos_cli.min() >= USERS_COS):
+        raise AssertionError("users: cache on / off the device disagree")
+    if proc.returncode != 0:
+        raise AssertionError(f"python3 -m unirec_tpu_torch users failed: "
+                             f"{proc.stderr[-2000:]}")
+    cos_sub = row_cosines(np.load(out2), emb_cli)
+    if not cos_sub.min() >= USERS_COS:
+        raise AssertionError("python3 -m unirec_tpu_torch users disagrees")
+
+
+def phase_front_end(smi: str, tmp: str) -> dict:
+    """The pipeline's front end: ``data`` over seeded raw files, the text
+    backend (K1), the CLIP towers, ``tokens --data`` over phase 5's
+    checkpoint (B1-B3) and ``users`` over phase 4's files (K1)."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "front")
+    os.makedirs(root)
+    triplet = front_data(root)
+    k1_text = front_text_backend(smi, triplet)
+    gc.collect()
+    torch.cuda.empty_cache()
+    front_clip_towers(smi, torch.Generator(device="cuda").manual_seed(
+        SEED + 16))
+    gc.collect()
+    torch.cuda.empty_cache()
+    front_tokens(smi, tmp, root, len(triplet))
+    front_users(smi, tmp)
+    log(f"front end phase: {time.perf_counter() - t0:.1f} s")
+    return {"k1_text": k1_text}
+
 
 def write_train_files(tmp: str, cache, hidden: int) -> dict:
     """The joint trainer's inputs over the sweep's field cache: histories of
@@ -4499,11 +5008,15 @@ def main() -> int:
     b15 = phase_b15(gen, new_gen)
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
-    phase_entry_point(smi, served.pop("stack")[0])
-    gc.collect()  # the serving stacks, before the sweep's memory is read
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        phase_entry_point(smi, served.pop("stack")[0],
+                          os.path.join(tmp, "serve"))
+        gc.collect()  # the serving stacks, before the sweep's memory is read
+        torch.cuda.empty_cache()
         swept = phase_sweep(smi, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        front = phase_front_end(smi, tmp)
         gc.collect()
         torch.cuda.empty_cache()
         trained = phase_train(smi, tmp)
@@ -4539,12 +5052,19 @@ def main() -> int:
                            "ms", "warm_ms", "plain_ms", "mm_topk_ms",
                            "bound_ms", "bound_by")})
 
-    k1 = k1_times[b16]
+    k1, k1t = k1_times[b16], front["k1_text"]
     kernels = [
         row("flash_causal_fwd", "flash_causal_fwd.cu",
             "flash_causal_vjp.py:78", served["launches"]["k1"],
             served["k1_err"], k1["ms"], k1["plain_ms"], k1["bound_ms"],
             k1["bound_by"], k1["library_ms"]),
+        # K1 at the text tower's shape (B 64, L 128), where the JAX package
+        # runs the stock Pallas flash; launches from the text backend's run;
+        # fill: the timed batch's valid tokens / (B * L)
+        dict(row("flash_causal_fwd_text_tower", "flash_causal_fwd.cu", "",
+                 k1t["launches"], k1t["err"], k1t["ms"], k1t["plain_ms"],
+                 k1t["bound_ms"], k1t["bound_by"], k1t["library_ms"]),
+             replaces="unirec_tpu/models/qwen3.py:347", fill=k1t["fill"]),
         row("flash_causal_bwd_dq", "flash_causal_bwd.cu",
             "flash_causal_vjp.py:158", trained["launches"]["b7b_dq"],
             max(b7b[b16]["errs"]["dq"], b7b[torch.float32]["errs"]["dq"]),

@@ -1,8 +1,10 @@
 """The port imports torch and never JAX, Flax or the JAX package
 ``unirec_tpu`` (not even its framework-free modules: the port carries its own
-copies), and builds nothing at import time; its kernel wrappers take the
-plain versions for CPU tensors and leave their launch counters at 0.  The
-entry points run on the card unless asked for the CPU."""
+copies), and builds nothing at import time; every module imports where
+``transformers``, ``tokenizers``, PIL and ``requests`` are absent (the card's
+machine has none of them); its kernel wrappers take the plain versions for
+CPU tensors and leave their launch counters at 0.  The entry points run on
+the card unless asked for the CPU."""
 
 import ast
 import json
@@ -18,6 +20,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, pkgutil, sys
+# the Hugging Face and image packages are imported where they are used only
+for name in ("transformers", "tokenizers", "PIL", "requests"):
+    sys.modules[name] = None
 import unirec_tpu_torch
 names = ["unirec_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(unirec_tpu_torch.__path__,
@@ -45,6 +50,12 @@ EXPECTED_MODULES = {
     "unirec_tpu_torch.models.user_qformer",
     "unirec_tpu_torch.train.user_qformer", "unirec_tpu_torch.eval.user_eval",
     "unirec_tpu_torch.ops.packed_attention",
+    # the pipeline's front end
+    "unirec_tpu_torch.__main__", "unirec_tpu_torch.data.builders",
+    "unirec_tpu_torch.cli.data_pipeline", "unirec_tpu_torch.models.clip",
+    "unirec_tpu_torch.cli.candidate_embeddings",
+    "unirec_tpu_torch.cli.review_embeddings",
+    "unirec_tpu_torch.cli.user_embeddings",
 }
 
 
@@ -79,8 +90,9 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
 @pytest.mark.parametrize("entry", ["qformer_inference", "serve_cli",
                                    "generate_all_item_embeddings",
                                    "train_cli", "train_cli_item_qformer",
-                                   "train_cli_user_qformer"])
-def test_entry_points_default_to_the_card(entry, monkeypatch):
+                                   "train_cli_user_qformer", "user_embeddings",
+                                   "text_backend", "image_backend"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Without a card, an entry point that was not asked for the CPU raises
     and names the flag; nothing falls back to the CPU quietly."""
     from unirec_tpu_torch.utils.device import resolve_device
@@ -107,6 +119,22 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
             generate_all_item_embeddings.main(
                 ["--checkpoint", "q", "--cache-dir", REPO])
+        elif entry == "user_embeddings":
+            from unirec_tpu_torch.cli import user_embeddings
+
+            (tmp_path / "h.json").write_text(json.dumps({"u": ["a"]}))
+            user_embeddings.main(
+                ["--qformer-checkpoint", "q", "--cache-dir", "c",
+                 "--item-dict", "i", "--catalog", "e", "--histories",
+                 str(tmp_path / "h.json"), "--output", "o"])
+        elif entry == "text_backend":
+            from unirec_tpu_torch.encoders.backends import Qwen3TextBackend
+
+            Qwen3TextBackend()
+        elif entry == "image_backend":
+            from unirec_tpu_torch.encoders.backends import CLIPImageBackend
+
+            CLIPImageBackend()
         elif entry == "train_cli_user_qformer":
             from unirec_tpu_torch.cli import train_cli
 

@@ -103,5 +103,7 @@ def test_tokenizer_helpers_match_jax():
     j_ids, j_masks = jtok.encode_batch(texts, 8)
     np.testing.assert_array_equal(ids, j_ids)
     np.testing.assert_array_equal(masks, j_masks)
-    with pytest.raises(NotImplementedError, match="tokenizer"):
+    # a path loads the Hugging Face tokenizer; one that holds none raises
+    # (as the JAX make_tokenizer does) rather than falling back to hashing
+    with pytest.raises(ValueError, match="tokenizer"):
         make_tokenizer("/nonexistent/tokenizer")

@@ -289,9 +289,14 @@ def test_cli_int8_sweep(tiny_sweep):
                                    []],
                          ids=["dp2", "data-without-cache", "no-ckpt"])
 def test_cli_refuses_what_is_not_ported(tiny_sweep, extra):
+    """--dp above 1; --data without a cache is ported
+    (tests/test_torch_front_cli.py), and a --data file that does not exist
+    is refused; no checkpoint."""
     tmp, argv, _ = tiny_sweep
     if extra == ["--data", "items.json"]:
         argv = argv[:2] + argv[4:]  # checkpoint, no cache
+        assert not (tmp / "items.json").exists()
+        extra = ["--data", str(tmp / "items.json")]
     elif not extra:
         argv = argv[2:]  # cache, no checkpoint
     assert cli.main(argv + extra) == 2

@@ -320,8 +320,8 @@ def test_serve_cli_build_recommender_tiny(tmp_path):
     """serve_cli.build_recommender with --tiny on the CPU: a seeded joint
     model around a saved Item Q-Former checkpoint, in bf16 precision and in
     int8 with the adapters merged (8 x 64 = 512 rows: the fused blocks);
-    a saved joint checkpoint reloads to the same embeddings; --dp and
-    --hf-path are refused."""
+    a saved joint checkpoint reloads to the same embeddings; --dp is
+    refused, and an --hf-path that holds no tokenizer raises."""
     from unirec_tpu_torch.cli import serve_cli
     from unirec_tpu_torch.utils.checkpoint import save_checkpoint
     from unirec_tpu_torch.utils.weights import init_item_qformer
@@ -361,6 +361,6 @@ def test_serve_cli_build_recommender_tiny(tmp_path):
     np.testing.assert_array_equal(again.encode_users(hists), u_bf)
     with pytest.raises(NotImplementedError, match="dp"):
         serve_cli.build_recommender(serve_cli.parse_args(base + ["--dp", "1"]))
-    with pytest.raises(NotImplementedError, match="tokenizer"):
+    with pytest.raises(ValueError, match="tokenizer"):
         serve_cli.build_recommender(serve_cli.parse_args(
             base + ["--hf-path", str(tmp_path)]))

@@ -447,13 +447,18 @@ def test_train_cli_joint_tiny_end_to_end(tmp_path, capsys):
                                   "--grad-accum", "2"]) == 0
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--pp", "2"], "A9"), (["--dp", "2"], "A9"), (["--tp", "2"], "A9"),
-    (["--hf-path", "somewhere"], "hf-path")])
-def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, match):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--pp", "2"], NotImplementedError, "A9"),
+    (["--dp", "2"], NotImplementedError, "A9"),
+    (["--tp", "2"], NotImplementedError, "A9"),
+    # --hf-path is ported (tests/test_torch_text_backend.py); a path that
+    # holds no checkpoint is refused, not replaced by hash tokens
+    (["--hf-path", "somewhere"], ValueError, "somewhere")],
+    ids=["extra0-A9", "extra1-A9", "extra2-A9", "extra3-hf-path"])
+def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, error, match):
     from unirec_tpu_torch.cli import train_cli
 
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         train_cli.main(_cli_files(tmp_path) + extra)
 
 

@@ -4,8 +4,12 @@
     python -m unirec_tpu_torch.cli.generate_all_item_embeddings \\
         --checkpoint CKPT --cache-dir CACHE --output tokens.pkl --batch-size 4096
 
-Same flags as the JAX CLI.  It sweeps a precomputed field-embedding cache
-(``--cache-dir``) through ``QFormerInference`` on one device, the fused
+Same flags as the JAX CLI.  It sweeps a field-embedding cache through
+``QFormerInference`` on one device: the one in ``--cache-dir``, or, where
+that holds none, one encoded from the raw items of ``--data`` (an item dict
+JSON) with ``ItemEncoder()`` (the hash text and image backends and MWNE, as
+the JAX CLI) for the checkpoint's fields, written to ``--cache-dir`` when
+given.  The fused
 engine with kernels B1-B3 on a CUDA card, or with the W8A8 kernels B4-B6
 under ``--precision int8`` (which takes the fused engine on any device).
 It runs on the card; ``--device cpu`` asks for the CPU.
@@ -17,8 +21,7 @@ failure of a batch falls back to per-item processing, and a failed item gets
 zero tokens.  The number of items that took either fallback is printed and
 written to the progress file as ``fallback_items``.
 
-Not ported yet, refused with an error: ``--dp`` above 1, and ``--data``
-without a cache (it needs the item encoders).
+Not ported yet, refused with an error: ``--dp`` above 1 (A9).
 """
 
 from __future__ import annotations
@@ -29,9 +32,24 @@ import os
 import pickle
 import sys
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def _load_items(data_path: str, max_items: Optional[int]) -> List[Dict]:
+    """Item dict JSON -> samples with their ``item_id``."""
+    with open(data_path) as f:
+        data = json.load(f)
+    items = []
+    for item_id, item in data.items():
+        if isinstance(item, dict):
+            item = dict(item)
+            item["item_id"] = item_id
+            items.append(item)
+    if max_items:
+        items = items[:max_items]
+    return items
 
 
 def _save(tokens: Dict[str, np.ndarray], output: str) -> None:
@@ -121,7 +139,7 @@ def main(argv=None) -> int:
     if args.dp > 1:
         return _fail("--dp > 1 (the data-parallel sweep) is not ported yet")
 
-    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache, build_cache
     from unirec_tpu_torch.inference.qformer_inference import QFormerInference
     from unirec_tpu_torch.utils.device import resolve_device
     from unirec_tpu_torch.utils.profiling import (
@@ -138,17 +156,26 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)  # the card unless --device cpu
     if not args.checkpoint:
         return _fail("--checkpoint required")
-    if not (args.cache_dir and FieldEmbeddingCache.exists(args.cache_dir)):
-        if args.data:
-            return _fail("encoding raw items needs the item encoders, which "
-                         "are not ported yet: pass --cache-dir with a "
-                         "field-embedding cache")
-        return _fail("need --cache-dir (a field-embedding cache)")
+    cached = bool(args.cache_dir and FieldEmbeddingCache.exists(args.cache_dir))
+    if not (cached or args.data):
+        return _fail("need --cache-dir or --data")
+    if not cached and not os.path.isfile(args.data):
+        return _fail(f"--data {args.data}: no such file")
 
     inference = QFormerInference(args.checkpoint, device=device,
                                  batch_size=args.batch_size,
                                  precision=args.precision)
-    cache = FieldEmbeddingCache.load(args.cache_dir)
+    # field embeddings: from the cache (the fast path) or encoded from raw
+    # items
+    if cached:
+        cache = FieldEmbeddingCache.load(args.cache_dir)
+    else:
+        from unirec_tpu_torch.encoders.item_encoder import ItemEncoder
+
+        items = _load_items(args.data, args.max_items)
+        cache = build_cache(items, ItemEncoder(device=device),
+                            fields=inference.field_names,
+                            cache_dir=args.cache_dir)
     ids = cache.item_ids
     if args.max_items:
         ids = ids[: args.max_items]

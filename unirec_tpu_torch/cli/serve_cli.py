@@ -5,7 +5,8 @@ and the catalog, then answer HTTP ``/recommend`` requests.
         --qformer-checkpoint IQ_CKPT_DIR --cache-dir CACHE_DIR \\
         --item-dict items.json --catalog emb.json --port 8099 \\
         [--checkpoint JOINT_CKPT_DIR] [--quantize] \\
-        [--precision int8 [--merge-lora] [--no-fused-blocks]] [--prewarm]
+        [--precision int8 [--merge-lora] [--no-fused-blocks]] [--prewarm] \\
+        [--host-field-cache]
 
 The flags are the JAX CLI's.  ``--checkpoint`` and ``--qformer-checkpoint``
 are checkpoint directories of ``utils/checkpoint.py`` (the Item Q-Former's
@@ -17,8 +18,15 @@ the CUDA card in bfloat16 (the kernels' type); ``--device cpu`` asks for the
 CPU, where it runs in float32.  Without a card and without that flag it
 raises.
 
-Not ported, refused with an error: ``--dp`` (a dp mesh, ROADMAP.md A9) and
-``--hf-path`` (the Hugging Face tokenizer, which needs tokenizer files).
+``--hf-path`` names a local Hugging Face tokenizer directory
+(``data/tokenizer.HFTokenizer``; needs ``transformers``); without it the
+prompts take the hash tokenizer.  The field cache lives on the card in
+bfloat16; ``--host-field-cache`` (not a flag of the JAX CLI) keeps it on the
+host for a catalog whose cache does not fit there, and uploads each batch's
+gathered fields instead (``Recommender(device_field_cache=False)``).
+``users`` (``cli/user_embeddings.py``) shares these flags.
+
+Not ported, refused with an error: ``--dp`` (a dp mesh, ROADMAP.md A9).
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ def add_recommender_flags(p, batch_size: int = 8):
     p.add_argument("--catalog", required=True,
                    help="candidate item-embedding JSON")
     p.add_argument("--hf-path", default=None,
-                   help="Hugging Face tokenizer (not ported: raises)")
+                   help="local Hugging Face tokenizer directory (default: "
+                        "the hash tokenizer)")
     p.add_argument("--batch-size", type=int, default=batch_size)
     p.add_argument("--max-length", type=int, default=512)
     p.add_argument("--quantize", action="store_true",
@@ -52,6 +61,10 @@ def add_recommender_flags(p, batch_size: int = 8):
                         "int8 then runs each projection on its own")
     p.add_argument("--prewarm", action="store_true",
                    help="tokenize all prompt fragments at startup")
+    p.add_argument("--host-field-cache", action="store_true",
+                   help="keep the field cache on the host and gather each "
+                        "batch's history fields there (a catalog whose "
+                        "cache does not fit in the card's memory)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny Qwen3 config (smoke tests / CPU)")
     p.add_argument("--dp", type=int, default=0,
@@ -136,7 +149,8 @@ def build_recommender(args):
         model, tokenizer, item_dict, cache, catalog,
         batch_size=args.batch_size, precision=args.precision,
         quantize_catalog=args.quantize, merge_lora=args.merge_lora,
-        fused_blocks=False if args.no_fused_blocks else None)
+        fused_blocks=False if args.no_fused_blocks else None,
+        device_field_cache=not args.host_field_cache)
     if args.prewarm:
         print(f"prewarmed {rec.prewarm_prompts()} prompt fragments")
     return rec

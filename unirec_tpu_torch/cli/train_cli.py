@@ -48,12 +48,14 @@ evaluation; ``--flash`` runs every cross-attention layer through B14 and
 ``--fused`` every self-attention layer through B12s (both set dropout 0),
 ``--remat`` recomputes the layers and the sequence assembly in the
 backward.  Every subcommand runs on the CUDA card; ``--device cpu`` asks
-for the CPU.
+for the CPU.  ``joint --hf-path DIR`` reads the frozen Qwen3 base and the
+tokenizer from a local Hugging Face checkpoint (``utils/torch_convert.
+convert_qwen3``, ``data/tokenizer.HFTokenizer``; needs ``transformers``),
+whose shapes must be the model's (``Qwen3Config()``, or the ``--tiny`` one).
 
 Not ported yet, refused with the queue that holds them: ``--pp``, ``--dp``,
-``--tp`` and ``--sp`` above 1 (A9), ``--hf-path`` (it reads a Hugging Face
-Qwen3 checkpoint, and the repository holds none).  The other subcommands
-print "not ported yet".
+``--tp`` and ``--sp`` above 1 (A9).  The other subcommands print "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -122,7 +124,8 @@ def _joint_parser(sub) -> None:
     sp.add_argument("--qformer-checkpoint", required=True)
     sp.add_argument("--cache-dir", required=True)
     sp.add_argument("--hf-path", default=None,
-                    help="Hugging Face Qwen3 checkpoint (not ported: raises)")
+                    help="local Hugging Face Qwen3 checkpoint: the base "
+                         "weights and the tokenizer")
     sp.add_argument("--max-length", type=int, default=512)
     sp.add_argument("--eval-every-steps", type=int, default=20)
     sp.add_argument("--save-strategy", default="both",
@@ -428,10 +431,6 @@ def _run_joint(args) -> int:
     if args.dp > 1 or args.tp > 1:
         raise NotImplementedError("--dp / --tp above 1 are not ported yet "
                                   "(ROADMAP.md A9)")
-    if args.hf_path:
-        raise NotImplementedError(
-            "--hf-path is not ported yet: it reads a Hugging Face Qwen3 "
-            "checkpoint, and the repository holds none to test it on")
 
     with open(args.train_data) as f:
         train_data = json.load(f)
@@ -456,7 +455,8 @@ def _run_joint(args) -> int:
     if args.flash_vjp:
         qwen_cfg = dataclasses.replace(qwen_cfg, flash_vjp_attention=True)
     jc = JointModelConfig(max_length=args.max_length)
-    tokenizer = make_tokenizer(None, qwen_cfg.vocab_size, jc.num_history_items,
+    tokenizer = make_tokenizer(args.hf_path, qwen_cfg.vocab_size,
+                               jc.num_history_items,
                                jc.num_query_tokens_per_item)
     emb_dim = len(next(iter(item_emb_dict.values())))
     if emb_dim != qwen_cfg.hidden_size:
@@ -487,7 +487,13 @@ def _run_joint(args) -> int:
         remat=args.remat, remat_policy="dots",
         bf16_base=bf16_base and args.bf16, int8_base=args.int8_base,
         device=device)
-    state = trainer.init_state(qformer_params=qf_state)
+    qwen_params = None
+    if args.hf_path:
+        from unirec_tpu_torch.utils.weights import qwen3_state_dict_from_hf
+
+        qwen_params = qwen3_state_dict_from_hf(args.hf_path, qwen_cfg)
+    state = trainer.init_state(qformer_params=qf_state,
+                               qwen_params=qwen_params)
 
     best_mrr = float("-inf")
     if args.resume and args.checkpoint_dir:

@@ -1,15 +1,13 @@
 """Tokenizers for the joint model (port of ``unirec_tpu/data/tokenizer.py``).
 
-Framework-free copy of ``BaseTokenizer``, the md5 ``HashTokenizer`` and
-``make_tokenizer``: the JAX module imports its ``history_token_strings`` from
-a module that pulls in JAX.  Both produce fixed-length right-padded ids and a
-prefix mask, and the reserved history special tokens resolve to ids
-``>= base_vocab_size``.  ``encode_plain``, ``encode_plain_batch`` and
-``affix_ids`` are what ``serving/prompt_cache.py`` assembles prompts from.
-
-The Hugging Face tokenizer is not ported: it reads tokenizer files, and the
-repository holds none to load or test it with.  ``make_tokenizer`` with a
-path raises ``NotImplementedError``.
+Framework-free copy of ``BaseTokenizer``, the md5 ``HashTokenizer``, the
+Hugging Face ``HFTokenizer`` and ``make_tokenizer``: the JAX module imports
+its ``history_token_strings`` from a module that pulls in JAX.  All produce
+fixed-length right-padded ids and a prefix mask, and the reserved history
+special tokens resolve to ids ``>= base_vocab_size``.  ``encode_plain``,
+``encode_plain_batch`` and ``affix_ids`` are what ``serving/prompt_cache.py``
+assembles prompts from.  ``transformers`` is imported only when an
+``HFTokenizer`` is made.
 """
 
 from __future__ import annotations
@@ -87,16 +85,67 @@ class HashTokenizer(BaseTokenizer):
         return ids
 
 
+class HFTokenizer(BaseTokenizer):
+    """Wraps a local HF tokenizer; adds the history special tokens exactly as
+    the reference does (train_item_individual_token_joint.py:117-119)."""
+
+    def __init__(self, name_or_path: str, num_history_items: int = 10,
+                 num_query_tokens_per_item: int = 2):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(name_or_path)
+        base_vocab = len(self.tok)
+        super().__init__(base_vocab, num_history_items,
+                         num_query_tokens_per_item,
+                         pad_id=self.tok.pad_token_id or 0)
+        self.tok.add_special_tokens(
+            {"additional_special_tokens": self.special_tokens})
+        # HF assigns added ids sequentially from base_vocab: the same contract
+        self.special_to_id = {
+            t: self.tok.convert_tokens_to_ids(t) for t in self.special_tokens}
+
+    def _encode_text(self, text: str) -> List[int]:
+        return self.tok(text, add_special_tokens=True)["input_ids"]
+
+    def encode_plain(self, text: str) -> List[int]:
+        return self.tok(text, add_special_tokens=False)["input_ids"]
+
+    def encode_plain_batch(self, texts: Sequence[str]) -> List[List[int]]:
+        return self.tok(list(texts), add_special_tokens=False)["input_ids"]
+
+    def affix_ids(self) -> Tuple[List[int], List[int]]:
+        """Sequence affixes from the tokenizer's own template: ids added
+        around an empty input (Qwen adds none; BERT-style adds CLS/SEP)."""
+        ids = self.tok("", add_special_tokens=True)["input_ids"]
+        if not ids:
+            return [], []
+        # everything a bare encode emits is affix; a one-token probe locates
+        # the boundary between prefix and suffix
+        probe = self.tok("a", add_special_tokens=False)["input_ids"]
+        full = self.tok("a", add_special_tokens=True)["input_ids"]
+        for start in range(len(full) - len(probe) + 1):
+            if full[start: start + len(probe)] == probe:
+                return full[:start], full[start + len(probe):]
+        return ids, []  # fallback: treat everything as prefix
+
+
 def make_tokenizer(name_or_path: Optional[str] = None,
                    base_vocab_size: int = 151669,
                    num_history_items: int = 10,
                    num_query_tokens_per_item: int = 2) -> BaseTokenizer:
-    """The hash tokenizer; a tokenizer path raises, since the Hugging Face
-    tokenizer is not ported (it would silently change every prompt to fall
-    back to hash tokens)."""
+    """The HF tokenizer when a path is given, the hash tokenizer otherwise.
+
+    A path that fails to load (no tokenizer there, or no ``transformers``)
+    raises instead of degrading to hash tokens, which would silently change
+    every prompt."""
     if name_or_path:
-        raise NotImplementedError(
-            f"the Hugging Face tokenizer ({name_or_path!r}) is not ported: "
-            "pass no path to use the hash tokenizer")
+        try:
+            return HFTokenizer(name_or_path, num_history_items,
+                               num_query_tokens_per_item)
+        except Exception as e:  # noqa: BLE001  re-raised with the path
+            raise ValueError(
+                f"failed to load HF tokenizer from {name_or_path!r}; "
+                "pass name_or_path=None to use the hash tokenizer explicitly"
+            ) from e
     return HashTokenizer(base_vocab_size, num_history_items,
                          num_query_tokens_per_item)

@@ -58,16 +58,18 @@ class Linear(nn.Linear):
     """``nn.Linear`` with its parameters in ``param_dtype`` and its product
     in ``dtype`` (Flax ``Dense(dtype=..., param_dtype=...)``)."""
 
-    def __init__(self, in_features: int, out_features: int, *, device=None,
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, device=None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None):
-        super().__init__(in_features, out_features, device=device,
+        super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=param_dtype or dtype)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.Module):

@@ -8,7 +8,9 @@ copy of the catalog (``ops/quantization``: ``quantize_rows`` once, then
 ``retrieve_top_k_int8``, kernel B11).  The field-embedding cache lives on
 the device in bfloat16, as in the JAX package, so each batch uploads
 ``[B, H]`` row indices and ``[B]`` prompt lengths instead of gathered
-embeddings and masks.  Prompts come from ``serving/prompt_cache``, whose ids
+embeddings and masks; ``device_field_cache=False`` keeps it on the host,
+gathers each batch's history fields there in float32 and uploads them with
+the ``[B, L]`` attention masks (the JAX ``_build_batch`` path).  Prompts come from ``serving/prompt_cache``, whose ids
 equal ``tokenizer.encode(construct_input_text(...))``.
 
 ``precision="int8"`` runs the Qwen3 forward in W8A8 (``models/qwen3``:
@@ -57,7 +59,8 @@ class Recommender:
                  catalog_embeddings: Dict[str, Sequence[float]],
                  batch_size: int = 8, precision: str = "bf16",
                  quantize_catalog: bool = False, merge_lora: bool = False,
-                 fused_blocks: Optional[bool] = None):
+                 fused_blocks: Optional[bool] = None,
+                 device_field_cache: bool = True):
         """``precision`` is "bf16" (the compute dtype is the model's own) or
         "int8" (W8A8 projections quantized from the weights as they are).
         ``merge_lora`` and ``fused_blocks`` take the JAX defaults: no merge,
@@ -65,7 +68,9 @@ class Recommender:
         is live.  ``quantize_catalog`` keeps the catalog on the device as
         int8 rows with float32 scales and ranks over them (the JAX flag of
         the same name); ``score_candidates`` still reads the float32
-        catalog."""
+        catalog.  ``device_field_cache`` (default on) keeps the field cache on
+        the device; off, each batch's history fields are gathered on the
+        host."""
         if precision not in ("bf16", "int8"):
             raise ValueError(f"precision must be bf16 or int8, got {precision!r}")
         if merge_lora:
@@ -99,11 +104,13 @@ class Recommender:
             self._catalog_dev = catalog_dev
         # device-resident field cache, bfloat16 even for a float32 model
         # (0.57 GB for 20k items x 14 x 1024), upcast after the gather
-        self._cache_emb_dev = torch.from_numpy(
-            np.asarray(field_cache.embeddings, np.float32)).to(
-                device=self.device, dtype=torch.bfloat16)
-        self._cache_mask_dev = torch.from_numpy(
-            np.asarray(field_cache.masks, np.float32)).to(self.device)
+        self.device_cache = device_field_cache
+        if device_field_cache:
+            self._cache_emb_dev = torch.from_numpy(
+                np.asarray(field_cache.embeddings, np.float32)).to(
+                    device=self.device, dtype=torch.bfloat16)
+            self._cache_mask_dev = torch.from_numpy(
+                np.asarray(field_cache.masks, np.float32)).to(self.device)
         self._prompt = CachedPromptEncoder(tokenizer, item_dict,
                                            self.jc.num_history_items,
                                            self.jc.num_query_tokens_per_item)
@@ -113,6 +120,36 @@ class Recommender:
         return self._prompt.prewarm(item_ids, slots)
 
     # -- user encoding -----------------------------------------------------
+
+    def _build_batch(self, histories: Sequence[Sequence[str]]
+                     ) -> Tuple[np.ndarray, ...]:
+        """(input_ids [B, L], attention mask [B, L], history field
+        embeddings [B, H, F, FD] float32, their masks [B, H, F]): the host
+        gather of ``device_field_cache=False``."""
+        jc = self.jc
+        n = len(histories)
+        f, fd = self.cache.num_fields, self.cache.embedding_dim
+        input_ids = np.zeros((n, jc.max_length), np.int32)
+        attn = np.zeros((n, jc.max_length), np.float32)
+        hist_emb = np.zeros((n, jc.num_history_items, f, fd), np.float32)
+        hist_mask = np.zeros((n, jc.num_history_items, f), np.float32)
+        for i, history in enumerate(histories):
+            history = [str(h) for h in history][-jc.num_history_items:]
+            e, m = self.cache.gather(history)
+            hist_emb[i, : len(history)] = e
+            hist_mask[i, : len(history)] = m
+            input_ids[i], attn[i] = self._prompt.encode(history, jc.max_length)
+        return input_ids, attn, hist_emb, hist_mask
+
+    @torch.no_grad()
+    def _forward(self, ids: np.ndarray, attn: np.ndarray, he: np.ndarray,
+                 hm: np.ndarray) -> torch.Tensor:
+        """L2-normalised user embeddings [B, D] on the device, from host
+        arrays."""
+        dev = self.device
+        ids_t, attn_t, he_t, hm_t = (torch.from_numpy(a).to(dev)
+                                     for a in (ids, attn, he, hm))
+        return l2_normalize(self.model(ids_t.long(), attn_t, he_t, hm_t))
 
     def _build_batch_rows(self, histories: Sequence[Sequence[str]]
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -171,7 +208,10 @@ class Recommender:
             chunk = list(histories[i: i + bs])
             n = len(chunk)
             chunk += [[] for _ in range(bs - n)]
-            emb = self._forward_rows(*self._build_batch_rows(chunk))
+            if self.device_cache:
+                emb = self._forward_rows(*self._build_batch_rows(chunk))
+            else:
+                emb = self._forward(*self._build_batch(chunk))
             if not to_host:
                 out.append((emb, n))
                 continue

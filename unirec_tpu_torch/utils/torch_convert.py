@@ -10,7 +10,9 @@ which ``utils/weights.item_qformer_state_dict_from_flax`` turns into the
 port's state_dict: the same two steps the JAX package takes, so both packages
 read one checkpoint to the same weights.  Unpickling the ``BertConfig`` needs
 ``transformers``.  ``convert_mwne`` does the same for a number encoder
-(``utils/weights.mwne_state_dict_from_flax`` is its bridge).
+(``utils/weights.mwne_state_dict_from_flax`` is its bridge), and
+``convert_qwen3`` for a Hugging Face Qwen3 checkpoint
+(``utils/weights.qwen3_state_dict_from_flax``).
 """
 
 from __future__ import annotations
@@ -110,6 +112,52 @@ def convert_item_qformer(sd: Mapping[str, Any],
             "bias": _np(sd["field_projection.bias"]),
         },
     }
+
+
+def convert_qwen3(sd: Mapping[str, Any], num_layers: int) -> Dict[str, Any]:
+    """HF Qwen3Model state_dict -> the JAX ``Qwen3Model`` parameter tree.
+
+    Accepts both bare-model keys (``layers.0...``) and ``model.``-prefixed
+    keys (full checkpoints).  LoRA params are not present in HF checkpoints;
+    they initialize fresh (zeros for lora_b -> identity overlay).
+    """
+    def get(k: str) -> np.ndarray:
+        if k in sd:
+            return _np(sd[k])
+        return _np(sd["model." + k])
+
+    def lin(prefix: str) -> Dict[str, np.ndarray]:
+        out = {"kernel": get(prefix + ".weight").T}
+        if prefix + ".bias" in sd or ("model." + prefix + ".bias") in sd:
+            out["bias"] = get(prefix + ".bias")
+        return out
+
+    params: Dict[str, Any] = {
+        "embed_tokens": get("embed_tokens.weight"),
+        "norm": {"scale": get("norm.weight")},
+    }
+    for i in range(num_layers):
+        lp = f"layers.{i}"
+        params[f"layers_{i}"] = {
+            "self_attn": {
+                "q_proj": lin(f"{lp}.self_attn.q_proj"),
+                "k_proj": lin(f"{lp}.self_attn.k_proj"),
+                "v_proj": lin(f"{lp}.self_attn.v_proj"),
+                "o_proj": lin(f"{lp}.self_attn.o_proj"),
+                "q_norm": {"scale": get(f"{lp}.self_attn.q_norm.weight")},
+                "k_norm": {"scale": get(f"{lp}.self_attn.k_norm.weight")},
+            },
+            "mlp": {
+                "gate_proj": lin(f"{lp}.mlp.gate_proj"),
+                "up_proj": lin(f"{lp}.mlp.up_proj"),
+                "down_proj": lin(f"{lp}.mlp.down_proj"),
+            },
+            "input_layernorm": {"scale": get(f"{lp}.input_layernorm.weight")},
+            "post_attention_layernorm": {
+                "scale": get(f"{lp}.post_attention_layernorm.weight")
+            },
+        }
+    return params
 
 
 def load_reference_item_qformer_checkpoint(path: str):

@@ -27,6 +27,14 @@ parameters and running statistics.  ``user_state_dict_from_flax`` maps the
 user trainer's ``{"sequence": ..., "user": ...}`` tree onto
 ``models/user_qformer.UserStage``, and ``init_user_qformer`` draws that
 module's weights from a generator.
+
+The item encoders' towers: ``qwen3_state_dict_from_flax`` maps a JAX
+``Qwen3Model`` tree (e.g. ``torch_convert.convert_qwen3`` of a Hugging Face
+checkpoint) onto the port's ``models/qwen3.Qwen3Model`` and ``init_qwen3``
+draws one from a generator; ``clip_state_dict_from_flax`` maps a JAX CLIP
+tower's tree (or ``models/clip.convert_clip_*`` of an HF ``CLIPModel``) onto
+``models/clip``'s towers, and ``init_clip_vision`` / ``init_clip_text`` draw
+them with the Flax initialisers' distributions.
 """
 
 from __future__ import annotations
@@ -44,8 +52,15 @@ from unirec_tpu_torch.configs import (
     Qwen3Config,
     UserQFormerConfig,
 )
+from unirec_tpu_torch.models.clip import (
+    CLIPTextConfig,
+    CLIPTextTower,
+    CLIPVisionConfig,
+    CLIPVisionTower,
+)
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
+from unirec_tpu_torch.models.qwen3 import Qwen3Model
 from unirec_tpu_torch.models.user_qformer import UserStage
 
 _INDEXED = re.compile(r"^(layers|layer)_(\d+)$")
@@ -171,6 +186,58 @@ def mwne_state_dict_from_flax(variables: Mapping[str, Any]
     return sd
 
 
+def qwen3_state_dict_from_flax(params: Mapping[str, Any],
+                               cfg: Qwen3Config) -> Dict[str, torch.Tensor]:
+    """A JAX ``Qwen3Model`` tree (numpy or array leaves) -> the port's
+    ``Qwen3Model`` state_dict, its layer count checked against ``cfg``."""
+    sd = flax_to_state_dict(params)
+    n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
+    if n != cfg.num_hidden_layers:
+        raise ValueError(f"parameter tree has {n} Qwen3 layers, the config "
+                         f"says {cfg.num_hidden_layers}")
+    return sd
+
+
+def qwen3_state_dict_from_hf(path: str, cfg: Qwen3Config
+                             ) -> Dict[str, torch.Tensor]:
+    """A local Hugging Face Qwen3 checkpoint (no network) -> the port's
+    ``Qwen3Model`` state_dict: ``AutoModel.from_pretrained`` in float32,
+    ``utils/torch_convert.convert_qwen3``, then the bridge above."""
+    from transformers import AutoModel
+
+    from unirec_tpu_torch.utils.torch_convert import convert_qwen3
+
+    hf = AutoModel.from_pretrained(path, torch_dtype=torch.float32)
+    return qwen3_state_dict_from_flax(
+        convert_qwen3(hf.state_dict(), cfg.num_hidden_layers), cfg)
+
+
+def clip_state_dict_from_flax(params: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX ``CLIPVisionTower`` or ``CLIPTextTower`` tree -> the port
+    tower's state_dict.  The Dense rule of ``flax_to_state_dict`` holds for
+    every leaf but two: the patch convolution's kernel ``[kh, kw, in, out]``
+    (NHWC) becomes ``Conv2d.weight [out, in, kh, kw]`` (NCHW), and the token
+    table ``token_embedding.embedding`` becomes ``token_embedding.weight``;
+    ``class_embedding`` and ``position_embedding`` are raw parameters and
+    keep their names."""
+    tree = dict(params.get("params", params))
+    sd: Dict[str, torch.Tensor] = {}
+    conv = tree.pop("patch_embedding", None)
+    if conv is not None:
+        kernel = np.asarray(conv["kernel"], np.float32)
+        if kernel.ndim != 4:
+            raise ValueError("patch_embedding: expected a 4-D Conv kernel")
+        sd["patch_embedding.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+    table = tree.pop("token_embedding", None)
+    if table is not None:
+        sd["token_embedding.weight"] = torch.from_numpy(
+            np.array(table["embedding"], np.float32))
+    sd.update(flax_to_state_dict(tree))
+    return sd
+
+
 def _fill_normal(p: torch.Tensor, std: float,
                  generator: torch.Generator) -> None:
     """p ~ N(0, std^2), drawn in float32 on the generator's device."""
@@ -269,3 +336,70 @@ def _flax_init_(model: torch.nn.Module, generator: torch.Generator,
                     p.zero_()
             else:  # dense weights and embedding tables
                 _fill_normal(p, 0.02, generator)
+
+
+@torch.no_grad()
+def init_qwen3(cfg: Qwen3Config, generator: torch.Generator, device=None,
+               dtype: torch.dtype = torch.float32) -> Qwen3Model:
+    """A bare Qwen3 decoder (the text backend's tower) with the Flax
+    initialisers' distributions: normal(0.02) for dense kernels and the
+    embedding table, ones for the RMSNorm scales."""
+    model = Qwen3Model(cfg, device=device, dtype=dtype).eval()
+    _flax_init_(model, generator)
+    return model
+
+
+def _lecun_normal_(p: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    """Flax's default ``lecun_normal``: a normal of std 1/sqrt(fan_in) /
+    0.8796, truncated at two standard deviations."""
+    std = 1.0 / fan_in ** 0.5 / 0.87962566103423978
+    draw = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
+                                generator=generator)
+    p.copy_(draw)
+
+
+def _clip_init_(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """The JAX CLIP towers' initialisers, drawn in module order: Dense and
+    Conv kernels ``lecun_normal`` (fan-in = in features; in channels x
+    kernel area), zero biases, the token table ``variance_scaling(1,
+    fan_in, normal)`` over its width, the class and position embeddings
+    normal(0.02), LayerNorms ones/zeros."""
+    for module in model.modules():
+        if isinstance(module, torch.nn.Conv2d):
+            _lecun_normal_(module.weight, module.weight[0].numel(), generator)
+        elif isinstance(module, torch.nn.Linear):
+            _lecun_normal_(module.weight, module.in_features, generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, torch.nn.Embedding):
+            _fill_normal(module.weight, module.embedding_dim ** -0.5,
+                         generator)
+        elif type(module).__name__ == "LayerNorm":
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+        for name in ("class_embedding", "position_embedding"):
+            p = module._parameters.get(name)
+            if p is not None:
+                _fill_normal(p, 0.02, generator)
+
+
+@torch.no_grad()
+def init_clip_vision(cfg: CLIPVisionConfig, generator: torch.Generator,
+                     device=None, dtype: torch.dtype = torch.float32
+                     ) -> CLIPVisionTower:
+    """The CLIP vision tower with the Flax initialisers' distributions."""
+    model = CLIPVisionTower(cfg, device=device, dtype=dtype).eval()
+    _clip_init_(model, generator)
+    return model
+
+
+@torch.no_grad()
+def init_clip_text(cfg: CLIPTextConfig, generator: torch.Generator,
+                   device=None, dtype: torch.dtype = torch.float32
+                   ) -> CLIPTextTower:
+    """The CLIP text tower with the Flax initialisers' distributions."""
+    model = CLIPTextTower(cfg, device=device, dtype=dtype).eval()
+    _clip_init_(model, generator)
+    return model
