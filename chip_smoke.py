@@ -333,6 +333,17 @@ FLASH_OTHER_HD = (32, 128, 8, 24, 256)
 # (~760 sliding-window samples: 10 steps an epoch at batch 64, 2 evaluation
 # batches), a few items missing from the cache
 USER_CLI_USERS = 20
+# (a) C-4/C-5: head dims above 256 (the chunked form)
+WIDE_HDS = (320, 512)
+WIDE_CAUSAL = dict(B=2, L=512, HQ=4, HKV=2, LENGTHS=(512, 301))
+WIDE_CROSS = dict(B=8, LKV=1600, H=2, HD=512)
+# (c) the Q-Former's LM head: QFormerConfig(), 32 query tokens over ViT-L/14's
+# 257 patch tokens, 32 generated tokens
+LM_BATCH, LM_MEMORY, LM_TOKENS = 64, 257, 32
+# fp32 rounding near-ties of the two decoders: a top-2 logit gap below
+# LM_TIE (the logits' scale is about 0.6 at these weights), in at most
+# LM_TIE_ROWS of the 64 rows
+LM_TIE, LM_TIE_ROWS = 1e-4, 2
 # the user step's leaves below 1e-4 of the largest float32 leaf norm (phase
 # 8 prints them: the first cross layer's query and key weights, the top self
 # layer's) are sums of nearly cancelling terms, where the two bf16 steps
@@ -1564,12 +1575,13 @@ def flash_inputs(gen, b, lkv, dtype, d=QF_D):
     return q, k3, v3, do, ((1.0 - mask) * -1e9)[:, None, None, :]
 
 
-def flash_bounds(b, lq, lkv, size) -> dict:
-    """bound_ms and bound_by of B13 and B14 at these shapes: q, k, v (and dO)
-    read once and the outputs written once in the working type (B14's
-    forward o in float32), the float32 key bias and (m, l, dsum) [B, Lq, H];
-    the score and p.v products (2 forward; s, dp, dv, dk, dq backward)."""
-    d, h = QF_D, USER_HEADS
+def flash_bounds(b, lq, lkv, size, h=USER_HEADS) -> dict:
+    """bound_ms and bound_by of B13 and B14 at these shapes (merged width
+    QF_D in ``h`` heads): q, k, v (and dO) read once and the outputs written
+    once in the working type (B14's forward o in float32), the float32 key
+    bias and (m, l, dsum) [B, Lq, H]; the score and p.v products (2
+    forward; s, dp, dv, dk, dq backward)."""
+    d = QF_D
     kind = "bf16" if size == 2 else "fp32"
     io_q, io_kv = size * b * lq * d, size * b * lkv * d
     stats, bias = 4 * b * lq * h, 4 * b * lkv
@@ -2957,6 +2969,225 @@ def phase_head_dims(gen) -> None:
             raise AssertionError(f"C-4 launches at head_dim {hd}: {launch_fk}"
                                  f" / {launch_k} / {launch_p}")
         del models
+
+
+# -- phase 3a (C-4/C-5): head dims above 256, the chunked form ----------------
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs,
+    by torch's own choice function."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0,
+                                                  False)).name
+    except Exception as exc:  # a torch without the choice function
+        return f"not read ({type(exc).__name__})"
+
+
+def sdpa_time(fn, iters: int = 10):
+    """SDPA's time, or None where it does not take the shape."""
+    try:
+        return time_ms(fn, iters=iters)
+    except RuntimeError as exc:
+        log(f"  scaled_dot_product_attention refuses the shape: {exc}"[:300])
+        return None
+
+
+def wide_causal(gen, hd: int, dtype) -> dict:
+    """K1 (both forms) and B7b at head dim ``hd`` (WIDE_CAUSAL's shape)
+    against their plain versions with phase 3's gates, repeats identical;
+    driven once through ``flash_causal_attention_train`` and
+    ``torch.autograd.grad`` (counted, its gradients equal to the kernels'
+    bits); timed against the plain versions, the bounds and SDPA."""
+    from unirec_tpu_torch.ops import flash_causal as fc
+
+    b, l, hq, hkv = (WIDE_CAUSAL[x] for x in ("B", "L", "HQ", "HKV"))
+    lengths = WIDE_CAUSAL["LENGTHS"]
+    q, k, v, do, mask = causal_inputs(gen, b, l, hq, hkv, hd, dtype, lengths)
+    where = f"C-4, hd {hd}, B={b} L={l} Hq={hq} Hkv={hkv}, lengths {lengths}"
+    check_k1(*k1_error(q, k, v, mask, hq, hkv), dtype, where)
+    check_repeat(f"K1 hd {hd} {dtype}",
+                 [fc.flash_causal_attention(q, k, v, mask, hq, hkv)],
+                 [fc.flash_causal_attention(q, k, v, mask, hq, hkv)])
+    log(f"B7b {where}:")
+    errs, args = b7b_errors(q, k, v, do, mask, hq, hkv, hd)
+    counters = (fc.flash_causal_attention, fc.flash_causal_bwd_dq,
+                fc.flash_causal_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(
+        fc.flash_causal_attention_train(*leaves, mask, hq, hkv), leaves, do)
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in counters]
+    if launches != [1, 1, 1]:
+        raise AssertionError(f"K1 / B7b hd {hd} launches {launches}")
+    if not (torch.equal(grads[0], fc.flash_causal_bwd_dq(*args)) and all(
+            torch.equal(g, r) for g, r in zip(
+                grads[1:], fc.flash_causal_bwd_dkv(*args)))):
+        raise AssertionError(f"K1 / B7b hd {hd}: the autograd path's "
+                             "gradients are not the kernels'")
+    del leaves, grads
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    pairs = causal_pairs(mask)
+    k1 = time_ms(lambda: fc.flash_causal_attention(
+        q, k, v, mask, hq, hkv, mask_checked=True), iters=10)
+    k1_plain = time_ms(lambda: fc.flash_causal_attention_plain(
+        q, k, v, mask, hq, hkv), iters=3, warmup=1)
+    dq = time_ms(lambda: fc.flash_causal_bwd_dq(*args), iters=10)
+    dkv = time_ms(lambda: fc.flash_causal_bwd_dkv(*args), iters=10)
+    bwd_plain = time_ms(lambda: fc.flash_causal_attention_bwd_plain(*args),
+                        iters=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, allowed = sdpa_inputs(q, k, v, mask, hq, hkv)
+    backend = sdpa_backend(qh, kh, vh, allowed)
+    lib = sdpa_time(lambda: sdpa(qh, kh, vh, attn_mask=allowed))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
+    doh = do.reshape(b, l, hq, hd).transpose(1, 2)
+    lib_fb = sdpa_time(lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg, attn_mask=allowed), (qg, kg, vg), doh))
+    size = q.element_size()
+    stats = 3 * 4 * b * l * hq + 4 * b * l
+    bq, bkv = size * b * l * hq * hd, size * b * l * hkv * hd
+    kv_read = 2 * bkv * float(mask.sum()) / mask.numel()
+    b_k1 = bound(k1_bytes(q, k, v, mask), 2 * 2 * hd * pairs * hq, kind)
+    b_dq = bound(3 * bq + kv_read + stats, 3 * 2 * hd * pairs * hq, kind)
+    b_dkv = bound(2 * bq + kv_read + 2 * bkv + stats,
+                  4 * 2 * hd * pairs * hq, kind)
+    log(f"K1 / B7b chunked time {dtype} {where}: K1 {k1:.4f} ms (plain "
+        f"{k1_plain:.4f}, bound {b_k1[0]:.4f} {b_k1[1]}), dq {dq:.4f} ms "
+        f"(bound {b_dq[0]:.4f} {b_dq[1]}), dk/dv {dkv:.4f} ms (bound "
+        f"{b_dkv[0]:.4f} {b_dkv[1]}), plain backward {bwd_plain:.4f} ms; "
+        f"scaled_dot_product_attention ({backend}) forward "
+        f"{'refused' if lib is None else f'{lib:.4f} ms'}, forward + backward "
+        f"{'refused' if lib_fb is None else f'{lib_fb:.4f} ms'}")
+    del qh, kh, vh, qg, kg, vg
+    torch.cuda.empty_cache()
+    return {"errs": errs, "launches": launches, "sdpa_backend": backend,
+            "k1": dict(ms=k1, plain_ms=k1_plain, library_ms=lib,
+                       bound_ms=b_k1[0], bound_by=b_k1[1]),
+            "dq": dict(ms=dq, plain_ms=bwd_plain, library_ms=lib_fb,
+                       bound_ms=b_dq[0], bound_by=b_dq[1]),
+            "dkv": dict(ms=dkv, plain_ms=bwd_plain, library_ms=lib_fb,
+                        bound_ms=b_dkv[0], bound_by=b_dkv[1])}
+
+
+def wide_b14p(gen, dtype, res) -> None:
+    """B14p at WIDE_CROSS's shape in per-head layout, as ``phase_b14p``
+    holds it: driven through ``flash_cross_attention_vjp`` and
+    ``torch.autograd.grad`` (counted: one launch each way), against the
+    plain path; the kernels against their plain versions, repeats
+    identical, masked keys' zero dk / dv, the masked user's uniform
+    average; timed beside the plain versions, the bounds and SDPA."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    b, lkv, h, hd = (WIDE_CROSS[x] for x in ("B", "LKV", "H", "HD"))
+    lq = 64
+    where = f"{dtype} B={b} H={h} Lq={lq} Lkv={lkv} hd={hd}"
+    q, k, v, do, bias = b14p_inputs(gen, b, h, lq, lkv, hd, dtype)
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    fl.flash_cross_vjp_fwd.launches = fl.flash_cross_vjp_bwd.launches = 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fl.flash_cross_attention_vjp(*leaves, bias)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = (fl.flash_cross_vjp_fwd.launches,
+                fl.flash_cross_vjp_bwd.launches)
+    if launches != (1, 1):
+        raise AssertionError(f"B14p {where}: launches {launches}")
+    for key, n in zip(("b14p_fwd", "b14p_bwd"), launches):
+        res[key]["launches"] = res[key].get("launches", 0) + n
+    o32, m, l = fl.flash_cross_vjp_fwd_plain(q, k, v, bias32)
+    dsum = (do.float() * o32).sum(-1).transpose(1, 2).contiguous()
+    plain = fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l, dsum)
+    res["b14p_fwd"]["err"] = max(res["b14p_fwd"]["err"], kernel_error(
+        "B14P out (autograd)", out.detach(), o32.to(dtype), where))
+    for name, g, r in zip("qkv", grads, plain):
+        res["b14p_bwd"]["err"] = max(res["b14p_bwd"]["err"], kernel_error(
+            f"B14P d{name} (autograd)", g, r, where,
+            noise_floor=GRAD_NOISE_FLOOR if name in "qk" else 0.0))
+    del leaves, out, grads
+    state = {}
+    runs = {
+        "b14p_fwd": (lambda: fl.flash_cross_vjp_fwd(q, k, v, bias32),
+                     lambda: fl.flash_cross_vjp_fwd_plain(q, k, v, bias32),
+                     ("o", "m", "l")),
+        "b14p_bwd": (lambda: fl.flash_cross_vjp_bwd(q, k, v, bias32, do,
+                                                    *state["mld"]),
+                     lambda: fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do,
+                                                          *state["mld"]),
+                     ("dq", "dk", "dv")),
+    }
+    for name, (kern, plain_fn, outs) in runs.items():
+        got = kern()
+        torch.cuda.synchronize()
+        check_outputs(name.upper(), outs, got, plain_fn(), where, res[name])
+        if not all(torch.equal(x, y) for x, y in zip(got, kern())):
+            raise AssertionError(f"{name.upper()} {where}: a repeat gave "
+                                 "other bits")
+        if name == "b14p_fwd":
+            kernel_error("B14P fully masked user", got[0][1],
+                         v[1].float().mean(1, keepdim=True).expand(h, lq, hd),
+                         where)
+            state["mld"] = (got[1], got[2], (do.float() * got[0]).sum(
+                -1).transpose(1, 2).contiguous())
+        else:
+            masked = bias32 != 0
+            masked[1] = False
+            if not all(bool((g.transpose(1, 2)[masked] == 0).all())
+                       for g in got[1:]):
+                raise AssertionError(f"B14P {where}: masked keys got a "
+                                     "gradient")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = bias.to(dtype)
+    res["sdpa_backend"] = sdpa_backend(q, k, v, mask)
+    library = {"b14p_fwd": lambda: sdpa(q, k, v, attn_mask=mask),
+               "b14p_bwd": sdpa_fwd_bwd(sdpa, q, k, v, mask, do)}
+    bounds = flash_bounds(b, lq, lkv, q.element_size(), h)
+    time_runs(runs, library, {"b14p_fwd": bounds["b14_fwd"],
+                              "b14p_bwd": bounds["b14_bwd"]}, res, where)
+    log(f"B14p {where}: the kernels repeat bit for bit, masked keys get "
+        f"exactly zero dk / dv; SDPA's backend {res['sdpa_backend']}")
+
+
+def phase_wide_heads(gen) -> dict:
+    """(a) C-4/C-5 on the card: the chunked form of K1 and B7b at
+    WIDE_CAUSAL's shape, head dims 320 and 512 (``wide_causal``), and of
+    B13, B14 and B14p at WIDE_CROSS's (8 users, 64 queries over 1,600
+    memory rows, 2 heads of 512; ~15% masked keys and one user masked
+    whole), fp32 and bf16: each held to its plain version with phase 3's
+    gates and repeated for identical bits, timed against its bound and SDPA
+    (naming SDPA's backend)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"causal": {(hd, dtype): wide_causal(gen, hd, dtype)
+                      for hd in WIDE_HDS
+                      for dtype in (torch.float32, torch.bfloat16)}}
+    b, lkv, h, hd = (WIDE_CROSS[x] for x in ("B", "LKV", "H", "HD"))
+    for dtype in (torch.float32, torch.bfloat16):
+        res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd",
+                                         "b14p_fwd", "b14p_bwd")}
+        c = check_flash_cross(gen, dtype, b, lkv, h, hd, res)
+        mask = c["bias"].to(dtype)
+        qh, kh, vh = c["qh"], c["kh"], c["vh"]
+        res["sdpa_backend"] = sdpa_backend(qh, kh, vh, mask)
+        library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                   "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                   "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
+                                           c["do"].reshape(b, 64, h, hd)
+                                           .transpose(1, 2))}
+        time_runs(c["runs"], library,
+                  flash_bounds(b, 64, lkv, qh.element_size(), h), res,
+                  f"{dtype} B={b} Lq=64 Lkv={lkv} H={h} hd={hd} (SDPA "
+                  f"backend {res['sdpa_backend']})")
+        del c, qh, kh, vh
+        torch.cuda.empty_cache()
+        wide_b14p(gen, dtype, res)
+        out[dtype] = res
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 5: the item-token sweep ---------------------------------------------
@@ -4669,7 +4900,7 @@ def write_user_files(tmp: str, cache) -> dict:
     return paths
 
 
-def phase_user_train(smi: str, tmp: str) -> dict:
+def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
     """User Q-Former training at full width (``UserQFormerConfig()`` over the
     sweep's checkpoint and cache, --max-seq-len 50, batch 64, bf16 compute
     with float32 masters): (b) one step with ``--flash --fused`` (B14 in
@@ -4677,7 +4908,12 @@ def phase_user_train(smi: str, tmp: str) -> dict:
     one init at dropout 0, loss and every leaf's gradient, ms per step, the
     split and peak memory of both; (c) ``train_cli user-qformer --bf16
     --flash --fused`` for 2 epochs, ``--resume`` for 1, then ``--bf16
-    --remat`` for 1, whose evaluation goes through B13; exact launches."""
+    --remat`` for 1, whose evaluation goes through B13; exact launches.
+
+    With ``heads`` (the chunked kernels' phase (b): 2 heads of 512): the
+    step parity of (b) alone at ``num_attention_heads=heads``, then one
+    evaluation forward of the plain model, whose cross layers take B13;
+    returns those launches."""
     import contextlib
     import dataclasses
     import io
@@ -4722,6 +4958,8 @@ def phase_user_train(smi: str, tmp: str) -> dict:
     ts_map = build_timestamp_map(files["reviews_by_item"])
     uc0 = UserQFormerConfig(num_item_tokens_to_predict=cfg.num_query_tokens,
                             input_embedding_dim=cfg.hidden_size, dropout=0.0)
+    if heads is not None:
+        uc0 = dataclasses.replace(uc0, num_attention_heads=heads)
     n_layers = uc0.num_hidden_layers
     tc = TrainConfig(batch_size=USER_BATCH, seed=SEED,
                      optimizer=OptimizerConfig(learning_rate=5e-5))
@@ -4792,7 +5030,8 @@ def phase_user_train(smi: str, tmp: str) -> dict:
     want_k = user_launches(n_layers, 1, 0, True)
     want_p = user_launches(n_layers, 1, 0, False)
     log(f"user step, batch {USER_BATCH} ({masked} with no valid event), "
-        f"UserQFormerConfig() at --max-seq-len {USER_SEQ}, dropout 0: loss "
+        f"UserQFormerConfig({'' if heads is None else f'num_attention_heads={heads}'})"
+        f" at --max-seq-len {USER_SEQ}, dropout 0: loss "
         f"--flash --fused {loss_k:.6f}, plain {loss_p:.6f}, plain float32 "
         f"{loss_32:.6f} (rel {rel:.2e}, tol {STEP_LOSS_REL:g}); {len(cos)} of "
         f"{len(g_k)} leaves above {NOISE_LEAF:g} of the largest float32 leaf "
@@ -4821,6 +5060,27 @@ def phase_user_train(smi: str, tmp: str) -> dict:
         raise AssertionError(f"user step launches {l_k} / {l_p}, want "
                              f"{want_k} / {want_p}")
     del g_k, g_p, g_32
+    if heads is not None:  # the plain model's evaluation forward: B13
+        from unirec_tpu_torch.train.user_qformer import (
+            batch_to_device,
+            user_forward,
+        )
+
+        st, _ = trainer(False)
+        zero_counts()
+        st.model.eval()
+        with torch.no_grad():
+            pred = user_forward(st.model, batch_to_device(batches[0], "cuda"))
+        torch.cuda.synchronize()
+        l_eval = launches_now()
+        log(f"user evaluation forward at {heads} heads: launches {l_eval}")
+        if (l_eval != user_launches(n_layers, 0, 1, False)
+                or not bool(torch.isfinite(pred).all())):
+            raise AssertionError(f"user evaluation at {heads} heads: "
+                                 f"launches {l_eval}")
+        del st, pred, batches, tokens
+        release()
+        return {"launches": {**l_k, "b13": l_eval["b13"]}}
 
     def step_ms(kernels: bool):
         st, step = trainer(kernels)
@@ -4953,6 +5213,275 @@ def phase_user_train(smi: str, tmp: str) -> dict:
     return {"launches": main_launches, "ms": times}
 
 
+# -- phases (b)-(e): the Q-Former's LM head, MWNE training, the exporters ----
+
+
+def lm_step_logits(model, query, memory, mask, ids, step):
+    """Both decoders' float32 logits [B, vocab] at ``step`` (the token
+    ``step + 1`` is chosen from them), teacher-forced on ``ids``: the full
+    forward's, and the KV-cached decoder's (``models/qformer_decode``'s
+    prefill and steps)."""
+    from unirec_tpu_torch.models import qformer_decode as qd
+
+    b, n_q = query.shape[:2]
+    t = ids.shape[1]
+    text = (torch.arange(t, device=ids.device) <= step).float()
+    full_mask = torch.cat([torch.ones(b, n_q, device=ids.device),
+                           text[None].expand(b, -1)], dim=1)
+    with torch.no_grad():
+        full = model(ids, full_mask, query, memory, mask)[:, step].float()
+        k_cache, v_cache = qd._caches(*qd._prefill(model, query, memory, mask),
+                                      t)
+        for s in range(step + 1):
+            h = qd._decode_step(model, qd._embed_token(model, ids[:, s], s),
+                                k_cache, v_cache,
+                                qd._visible(n_q + t, n_q + s, ids.device),
+                                n_q + s)
+        cached = model.cls(h)[:, 0].float()
+    return full, cached
+
+
+def near_ties(model, query, memory, mask, full_ids, cached_ids) -> list:
+    """Each row where the two decoders' ids differ: (row, step, the full
+    forward's top-2 logit gap, the cached decoder's) at the first
+    difference, both decoders fed the common prefix."""
+    rows = (full_ids != cached_ids).any(1).nonzero().flatten().tolist()
+    out = []
+    for r in rows:
+        step = int((full_ids[r] != cached_ids[r]).nonzero()[0]) - 1
+        sl = slice(r, r + 1)
+        full, cached = lm_step_logits(model, query[sl], memory[sl], mask[sl],
+                                      full_ids[sl], step)
+        gaps = [float(x.topk(2).values[0, 0] - x.topk(2).values[0, 1])
+                for x in (full, cached)]
+        top2 = [set(x.topk(2).indices[0].tolist()) for x in (full, cached)]
+        picked = {int(full_ids[r, step + 1]), int(cached_ids[r, step + 1])}
+        out.append((r, step, *gaps, picked <= top2[0] and picked <= top2[1]))
+    return out
+
+
+def phase_lm_decode(smi: str) -> dict:
+    """(c) ``QFormerLMHeadModel`` at ``QFormerConfig()`` (12 layers, hidden
+    1024, vocab 30,522; seed-0 weights), batch LM_BATCH, 32 query tokens over
+    a LM_MEMORY-row memory (ViT-L/14's patch tokens): greedy decoding of
+    LM_TOKENS tokens by ``greedy_generate`` (a full forward a step) and by
+    ``kv_cached_greedy_generate``, token for token equal in float32 but at
+    a rounding near-tie (``near_ties``: a row may part where, fed the
+    common prefix, both decoders' top-2 logits lie within LM_TIE of each
+    other and each picks one of them; at most LM_TIE_ROWS rows); the same
+    weights in bf16 (float32 masters): both decoders' agreement with each
+    other and with float32, tokens/s of each."""
+    from unirec_tpu_torch.configs import QFormerConfig
+    from unirec_tpu_torch.models.qformer import (
+        QFormerLMHeadModel,
+        greedy_generate,
+    )
+    from unirec_tpu_torch.models.qformer_decode import kv_cached_greedy_generate
+    from unirec_tpu_torch.utils.weights import init_qformer_lm_head
+
+    cfg = QFormerConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    model = init_qformer_lm_head(cfg, gen, device="cuda")
+    query = torch.randn(LM_BATCH, cfg.query_length, cfg.hidden_size,
+                        device="cuda", generator=gen)
+    memory = torch.randn(LM_BATCH, LM_MEMORY, cfg.encoder_width,
+                         device="cuda", generator=gen)
+    mask = torch.ones(LM_BATCH, LM_MEMORY, device="cuda")
+    mask[1, 200:] = 0.0
+    out, ms = {}, {}
+
+    def run(name, fn, m):
+        fn(m, query[:2], memory[:2], mask[:2], max_new_tokens=4)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = fn(m, query, memory, mask, max_new_tokens=LM_TOKENS)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        out[name] = ids
+        return ids
+
+    # greedy_generate's default ids: BOS the last row of the vocabulary,
+    # EOS 102 ([SEP])
+    ends = dict(bos_token_id=cfg.vocab_size - 1, eos_token_id=102)
+
+    def kv(m, *args, **kw):
+        return kv_cached_greedy_generate(m, *args, **ends, **kw)
+
+    def full(m, *args, **kw):
+        return greedy_generate(m, *args, **ends, **kw)
+
+    run("full fp32", full, model)
+    run("cached fp32", kv, model)
+    ties = near_ties(model, query, memory, mask, out["full fp32"],
+                     out["cached fp32"])
+    for r, step, gap_full, gap_cached, in_top2 in ties:
+        log(f"  (c) fp32 row {r} parts at step {step}: top-2 logit gap full "
+            f"{gap_full:.3e}, cached {gap_cached:.3e}, picks within both "
+            f"top-2 {in_top2}")
+    bf16 = QFormerLMHeadModel(cfg, device="cuda", dtype=torch.bfloat16,
+                              param_dtype=torch.float32).eval()
+    bf16.load_state_dict(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    run("full bf16", full, bf16)
+    run("cached bf16", kv, bf16)
+    new = LM_BATCH * (LM_TOKENS - 1)
+
+    def agree(a, b):
+        return float((out[a] == out[b]).float().mean())
+
+    same32 = torch.equal(out["full fp32"], out["cached fp32"])
+    rates = {k: new / (v / 1e3) for k, v in ms.items()}
+    log(f"[{smi}] (c) QFormerLMHeadModel at QFormerConfig(), batch "
+        f"{LM_BATCH}, {cfg.query_length} query tokens over {LM_MEMORY} memory "
+        f"rows, {LM_TOKENS} tokens ({new} generated): fp32 KV-cached ids equal"
+        f" to greedy_generate's: {same32} ({len(ties)} rows part at a "
+        f"near-tie; fp32 agreement {agree('cached fp32', 'full fp32'):.4f}); "
+        f"bf16 agreement cached/full "
+        f"{agree('cached bf16', 'full bf16'):.4f}, bf16 cached/fp32 "
+        f"{agree('cached bf16', 'full fp32'):.4f}; " + ", ".join(
+            f"{k} {ms[k]:.1f} ms ({rates[k]:.1f} tokens/s)" for k in ms))
+    if not (len(ties) <= LM_TIE_ROWS and all(
+            max(g_f, g_c) <= LM_TIE and in_top2
+            for _, _, g_f, g_c, in_top2 in ties)):
+        raise AssertionError(f"(c) KV-cached greedy ids differ from "
+                             f"greedy_generate's in fp32 beyond near-ties: "
+                             f"{ties}")
+    if not all(bool((ids >= 0).all() and (ids < cfg.vocab_size).all())
+               for ids in out.values()):
+        raise AssertionError("(c) ids outside the vocabulary")
+    del bf16
+    torch.cuda.empty_cache()
+    return {"ms": ms, "tokens_per_s": rates,
+            "bf16_agreement": agree("cached bf16", "full bf16")}
+
+
+def phase_mwne(smi: str, tmp: str) -> str:
+    """(d) ``python3 -m unirec_tpu_torch train mwne`` at ``MWNEConfig()``
+    (1,500 steps, batch 64, on the card) as a subprocess: exit 0, finite
+    metrics, the total loss below its first step's; returns the checkpoint
+    directory."""
+    ck = os.path.join(tmp, "mwne")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "unirec_tpu_torch", "train",
+                           "mwne", "--checkpoint-dir", ck],
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(d) train mwne returned {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout[proc.stdout.index("{"):])
+    train = res["train"]
+    log(f"[{smi}] (d) python3 -m unirec_tpu_torch train mwne (MWNEConfig(), "
+        f"1,500 steps): rc 0 in {seconds:.1f} s (start-up included); total "
+        f"loss {train['total_first']:.5f} -> {train['total']:.5f}; eval "
+        f"{json.dumps(res['eval'])}")
+    if not (all(np.isfinite(v) for v in train.values())
+            and train["total"] < train["total_first"]):
+        raise AssertionError(f"(d) train mwne: the loss did not fall: {train}")
+    return ck
+
+
+def same_tensors(what: str, got: dict, want: dict) -> None:
+    """Re-read tensors equal to the checkpoint's, key for key, in float32."""
+    if set(got) != set(want):
+        raise AssertionError(f"(e) {what}: keys differ: "
+                             f"{sorted(set(got) ^ set(want))[:6]}")
+    bad = [k for k in want if not torch.equal(got[k].float().cpu(),
+                                              want[k].float().cpu())]
+    if bad:
+        raise AssertionError(f"(e) {what}: tensors differ at {bad[:6]}")
+
+
+def phase_exports(smi: str, tmp: str, mwne_dir: str) -> None:
+    """(e) ``train export-pth`` of the item (phase 7), user (phase 8) and
+    MWNE ((d)) checkpoints and ``train export-pretrained`` of the joint one
+    (phase 6); each file read back through ``utils/torch_convert``'s
+    ``convert_*`` (and the bridge) must give the checkpoint's tensors."""
+    import contextlib
+    import io
+
+    from unirec_tpu_torch.cli import train_cli
+    from unirec_tpu_torch.configs import ItemQFormerConfig, UserQFormerConfig
+    from unirec_tpu_torch.utils import torch_convert as tc
+    from unirec_tpu_torch.utils.checkpoint import load_checkpoint, restore_config
+    from unirec_tpu_torch.utils.weights import (
+        item_qformer_state_dict_from_flax,
+        mwne_state_dict_from_flax,
+        user_state_dict_from_flax,
+    )
+
+    def cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv)
+        log(f"  train_cli {' '.join(argv[:1] + argv[-2:])}: rc {rc} in "
+            f"{time.perf_counter() - t0:.1f} s | {buf.getvalue().strip()}")
+        if rc != 0:
+            raise AssertionError(f"(e) train_cli {argv[0]} returned {rc}")
+
+    out = os.path.join(tmp, "exports")
+    os.makedirs(out, exist_ok=True)
+    item_dir = os.path.join(tmp, "item_ckpt")
+    cli(["export-pth", "--checkpoint", item_dir, "--output",
+         os.path.join(out, "item.pth")])
+    sd, meta = load_checkpoint(item_dir)
+    cfg = restore_config(meta, ItemQFormerConfig)
+    ck = torch.load(os.path.join(out, "item.pth"), weights_only=False)
+    same_tensors("item", item_qformer_state_dict_from_flax(
+        tc.convert_item_qformer(ck["model_state_dict"], cfg)), sd)
+    if ck["field_names"] != meta["field_names"]:
+        raise AssertionError("(e) item: field names differ")
+
+    user_dir = os.path.join(tmp, "user_ckpt")
+    cli(["export-pth", "--stage", "user", "--checkpoint", user_dir,
+         "--output", os.path.join(out, "user.pth")])
+    sd, meta = load_checkpoint(user_dir)
+    ucfg = restore_config(meta, UserQFormerConfig)
+    ck = torch.load(os.path.join(out, "user.pth"), weights_only=False)
+    same_tensors("user", user_state_dict_from_flax(
+        {"user": tc.convert_user_qformer(ck["model_state_dict"], ucfg)}),
+        {k: v for k, v in sd.items() if k.startswith("user.")})
+
+    cli(["export-pth", "--stage", "mwne", "--checkpoint", mwne_dir,
+         "--output", os.path.join(out, "mwne.pth")])
+    sd, _ = load_checkpoint(mwne_dir)
+    _, variables = tc.convert_mwne(torch.load(os.path.join(out, "mwne.pth"),
+                                              weights_only=False))
+    back = mwne_state_dict_from_flax(variables)
+    same_tensors("mwne", {k[len("base."):]: v for k, v in back.items()
+                          if k.startswith("base.")},
+                 {k[len("encoder."):]: v for k, v in sd.items()
+                  if k.startswith("encoder.")})
+
+    joint_dir = os.path.join(tmp, "joint_ckpt")
+    saved = os.path.join(out, "saved_model")
+    cli(["export-pretrained", "--checkpoint", joint_dir, "--output", saved])
+    sd, meta = load_checkpoint(os.path.join(joint_dir, "latest_model"))
+    qf = restore_config({"config": meta["qformer_config"]}, ItemQFormerConfig)
+    qsd = torch.load(os.path.join(saved, "qformer_model.bin"),
+                     weights_only=True)
+    same_tensors("joint q-former", item_qformer_state_dict_from_flax(
+        tc.convert_item_qformer(qsd, qf)),
+        {k[len("qformer."):]: v for k, v in sd.items()
+         if k.startswith("qformer.")})
+    adapter = torch.load(os.path.join(saved, "adapter_model.bin"),
+                         weights_only=True)
+    # base_model.model.layers.i.x.proj.lora_A.weight <- lora_a [in, r].T
+    lora = {k.replace("base_model.model.", "base_model.").replace(
+        ".lora_A.weight", ".lora_a").replace(".lora_B.weight", ".lora_b"):
+        v.t() for k, v in adapter.items()}
+    same_tensors("joint adapter", lora, {k: v for k, v in sd.items()
+                                         if k.endswith((".lora_a", ".lora_b"))})
+    with open(os.path.join(saved, "adapter_config.json")) as fh:
+        acfg = json.load(fh)
+    log(f"[{smi}] (e) exports: item, user and MWNE .pth and the joint "
+        f"save_pretrained directory ({sorted(os.listdir(saved))}, adapter r "
+        f"{acfg['r']} over {len(adapter)} tensors) read back to the "
+        f"checkpoints' tensors")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5006,6 +5535,10 @@ def main() -> int:
     flash = phase_flash_cross(gen)
     b14p = phase_b14p(gen)
     b15 = phase_b15(gen, new_gen)
+    wide = phase_wide_heads(torch.Generator(device="cuda").manual_seed(
+        SEED + 17))
+    gc.collect()
+    torch.cuda.empty_cache()
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5026,6 +5559,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         user_trained = phase_user_train(smi, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b)-(e): the user step at 2 heads of 512, the LM head's decoding,
+        # MWNE training, and the exports of phases 6-8's and (d)'s
+        # checkpoints
+        wide_user = phase_user_train(smi, tmp, heads=2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = phase_lm_decode(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_exports(smi, tmp, phase_mwne(smi, tmp))
     sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
     bounds = static_bounds()
@@ -5133,6 +5678,55 @@ def main() -> int:
             "packed_attention.py:39", b15["launches"], b15["err"],
             **{k: v for k, v in b15["timed"][0].items() if k != "F"})
     ]
+
+    # the chunked form at head dim 512 ((a); bf16 figures, the fp32 and
+    # hd-320 ones as extra keys): K1 / B7b launches from their entry
+    # point's run in (a), B13 / B14 from the 2-head user step and
+    # evaluation of (b), B14p from its entry point's run in (a)
+    causal = wide["causal"]
+    for key, row_name, src, replaces in (
+            ("k1", "flash_causal_fwd_hd512", "flash_causal_fwd.cu",
+             "flash_causal_vjp.py:78"),
+            ("dq", "flash_causal_bwd_dq_hd512", "flash_causal_bwd.cu",
+             "flash_causal_vjp.py:158"),
+            ("dkv", "flash_causal_bwd_dkv_hd512", "flash_causal_bwd.cu",
+             "flash_causal_vjp.py:224")):
+        at = causal[(512, b16)]
+        errs = ({"k1": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}[key])
+        err = max(causal[(hd, dt)]["errs"][e] for hd in WIDE_HDS
+                  for dt in (torch.float32, b16) for e in errs)
+        launches = sum(causal[(512, dt)]["launches"][
+            ("k1", "dq", "dkv").index(key)] for dt in (torch.float32, b16))
+        kernels.append(row(
+            row_name, src, replaces, launches, err, **at[key], head_dim=512,
+            sdpa_backend=at["sdpa_backend"],
+            **{f"{k}_fp32": v for k, v in causal[(512, torch.float32)][key]
+               .items() if k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{f"{k}_hd320": v for k, v in causal[(320, b16)][key].items()
+               if k in ("ms", "plain_ms", "bound_ms", "library_ms")}))
+    for key, row_name, replaces, launches in (
+            ("b13", "flash_cross_attention_hd512", "attention.py:163",
+             wide_user["launches"]["b13"]),
+            ("b14_fwd", "flash_cross_proj_fwd_hd512", "flash_vjp.py:362",
+             wide_user["launches"]["b14_fwd"]),
+            ("b14_bwd", "flash_cross_proj_bwd_hd512", "flash_vjp.py:426",
+             wide_user["launches"]["b14_bwd"]),
+            ("b14p_fwd", "flash_cross_attention_vjp_fwd_hd512",
+             "flash_vjp.py:51", None),
+            ("b14p_bwd", "flash_cross_attention_vjp_bwd_hd512",
+             "flash_vjp.py:113", None)):
+        at, at32 = wide[b16][key], wide[torch.float32][key]
+        kernels.append(row(
+            row_name, "flash_cross.cu", replaces,
+            launches if launches is not None
+            else at["launches"] + at32["launches"],
+            max(at["err"], at32["err"]), at["ms"], at["plain_ms"],
+            at["bound_ms"], at["bound_by"], at["library_ms"], head_dim=512,
+            sdpa_backend=wide[b16]["sdpa_backend"],
+            **{f"{k}_fp32": at32[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "library_ms")}))
+    log(f"(c) LM-head decoding tokens/s: {json.dumps(lm['tokens_per_s'])}, "
+        f"bf16 agreement {lm['bf16_agreement']:.4f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

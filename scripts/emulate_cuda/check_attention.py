@@ -5,6 +5,9 @@ card sees them (no timing).
     python3 scripts/emulate_cuda/check_attention.py [--hd 8,24,64,256]
         [--parent OTHER_ROOT]
 
+Head dims above 256 (``--hd 320,512``) run the chunked form of
+``flash_chunked.cuh`` (2 chunks of 256; about seven minutes for both).
+
 The sources of ``unirec_tpu_torch/csrc`` are compiled with ``g++`` against
 the headers beside this script (``emu.h``: CUDA threads as OS threads,
 ``ptx_helpers.cuh``: ldmatrix, mma.sync and cp.async from their documented

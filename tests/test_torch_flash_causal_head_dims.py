@@ -1,14 +1,15 @@
 """The head dims of the causal flash kernels K1 and B7b (C-4).
 
 The kernels are built for every multiple of 16 up to 128 and for 256
-(``ops/attention.KERNEL_HEAD_DIMS``) and take every head dim up to 256, any
-other than those zero-padded to the next instance; the wrappers check it
-with ``check_head_dim`` before anything else and raise, naming the set, on a
-head dim above 256.  That is checked here without a card: the kernel-only
+(``ops/attention.KERNEL_HEAD_DIMS``) and take every head dim: up to 256 any
+other than those zero-padded to the next instance, above 256 in chunks of
+256 (``csrc/flash_chunked.cuh``); the wrappers check it with
+``check_head_dim`` before anything else and raise, naming the set, on a head
+dim below 1.  That is checked here without a card: the kernel-only
 entry points refuse CPU tensors after the head-dim check, so a head dim the
-kernels take gets to the device check and one above 256 does not.  The head
-dims the wrappers refused before the padding (8, 24, 136, 256) now get to
-the device check.
+kernels take gets to the device check and 0 does not.  The head dims the
+wrappers refused before the padding (8, 24, 136, 256) and before the chunked
+form (272, 512) now get to the device check.
 
 The plain versions (what a CPU tensor takes, and what the kernels are held
 to on the card) at hd 64 and 32 with GQA 2:1 against the JAX
@@ -29,8 +30,8 @@ from unirec_tpu_torch.ops import flash_causal as fc
 from unirec_tpu_torch.ops.attention import KERNEL_HEAD_DIMS, check_head_dim
 
 FWD_ATOL, GRAD_ATOL, GRAD_RTOL, STAT_RTOL = 2e-5, 5e-5, 1e-3, 1e-5
-FORMERLY_REFUSED = (8, 24, 136, 256)
-REFUSED = (272, 512)
+FORMERLY_REFUSED = (8, 24, 136, 256, 272, 512)
+REFUSED = (0,)
 SHAPES = [(2, 72, 4, 2, 64), (2, 72, 4, 2, 32)]  # (B, L, Hq, Hkv, hd)
 
 

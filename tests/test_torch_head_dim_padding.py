@@ -2,20 +2,22 @@
 ``ops/attention.padded_launch`` and the plain versions at those head dims.
 
 The attention kernels are built for every multiple of 16 up to 128 and for
-256 (``KERNEL_HEAD_DIMS``).  Any other head dim runs zero-padded to the next
-instance with the softmax scale of the true head dim: zero lanes add exact
-zeros to every dot product, so the scores, (m, l), the output and the
-gradients' true columns do not move.  Without a card that is checked on the
-plain versions: each runs on the padded tensors inside ``padded_launch``
-(with the true head dim's scale, as the wrappers pass it to the kernels),
-and the true columns it returns are held to the unpadded plain version
-within 1e-6 relative, for K1 / B7b, B13, B14 (merged heads) and B14p, at hd
-8, 24 and 200.  The packed item attention B15 pads nothing: its kernels
-take every head dim as it is; at those head dims its plain version is held
-to the JAX kernel.
+256 (``KERNEL_HEAD_DIMS``).  Any other head dim up to 256 runs zero-padded to
+the next instance, and any head dim above 256 zero-padded to C = ceil(hd /
+256) chunks of 256 (the chunked form, ``csrc/flash_chunked.cuh``), with the
+softmax scale of the true head dim: zero lanes add exact zeros to every dot
+product, so the scores, (m, l), the output and the gradients' true columns
+do not move.  Without a card that is checked on the plain versions: each
+runs on the padded tensors inside ``padded_launch`` (with the true head
+dim's scale, as the wrappers pass it to the kernels), and the true columns
+it returns are held to the unpadded plain version within 1e-6 relative, for
+K1 / B7b, B13, B14 (merged heads) and B14p, at hd 8, 24, 200, 257 and 300
+(257 and 300 at 2 chunks, 512 wide).  The packed item attention B15 pads
+nothing: its kernels take every head dim as it is; at those head dims its
+plain version is held to the JAX kernel.
 
-The port's plain B13, B14p and K1 / B7b at hd 8 and 24 are held to the JAX
-functions in interpret mode, as ``tests/test_torch_flash_cross.py``,
+The port's plain B13, B14p and K1 / B7b at hd 8, 24, 320 and 512 are held
+to the JAX functions in interpret mode, as ``tests/test_torch_flash_cross.py``,
 ``tests/test_torch_flash_vjp.py`` and
 ``tests/test_torch_flash_causal_head_dims.py`` hold them at the kernels'
 head dims and at their tolerances (B13 atol 2e-5 rtol 1e-4; B14p forward
@@ -41,8 +43,9 @@ from unirec_tpu_torch.ops import flash_vjp as fl
 from unirec_tpu_torch.ops import packed_attention as pp
 
 PAD_REL = 1e-6
-PADDED = (8, 24, 200)
-INSTANCE = {8: 16, 24: 32, 200: 256}
+PADDED = (8, 24, 200, 257, 300)
+# the kernels' width for each padded head dim: instance * chunks
+INSTANCE = {8: 16, 24: 32, 200: 256, 257: 512, 300: 512}
 
 
 def _rel(got, want) -> float:
@@ -94,14 +97,32 @@ def _per_head(rng, b, h, lq, lkv, hd):
 @pytest.mark.parametrize("hd,want", [(1, 16), (8, 16), (16, 16), (24, 32),
                                      (130, 256), (200, 256), (256, 256)])
 def test_kernel_head_dim_is_the_next_instance(hd, want):
-    assert pa.kernel_head_dim("K1", hd) == want
+    assert pa.kernel_head_dim("K1", hd) == (want, 1)
     pa.check_head_dim("K1", hd)
 
 
-@pytest.mark.parametrize("hd", [0, 257, 300])
+@pytest.mark.parametrize("hd", [0])
 def test_kernel_head_dim_refuses_naming_the_set(hd):
     with pytest.raises(ValueError, match=r"head_dim in \(16, 32.*256\)"):
         pa.kernel_head_dim("K1", hd)
+
+
+@pytest.mark.parametrize("hd,chunks", [(257, 2), (300, 2), (320, 2),
+                                       (512, 2), (513, 3), (1024, 4)])
+def test_kernel_head_dim_plans_chunks_above_256(hd, chunks):
+    """Above 256: C = ceil(hd / 256) chunks of the 256 instance, the head
+    dim zero-padded to C * 256 (``csrc/flash_chunked.cuh``)."""
+    assert pa.kernel_head_dim("K1", hd) == (256, chunks)
+    pa.check_head_dim("K1", hd)
+    t = torch.randn(2, 3, 2 * hd)
+    seen = []
+    pa.padded_launch("K1", hd, [(t, 2)], [],
+                     lambda ins, outs, kernel_hd: seen.append((ins, kernel_hd)))
+    (ins,), kernel_hd = seen[0]
+    assert kernel_hd == 256 * chunks and ins.shape == (2, 3, 2 * 256 * chunks)
+    split = ins.reshape(2, 3, 2, 256 * chunks)
+    assert torch.equal(split[..., :hd], t.reshape(2, 3, 2, hd))
+    assert not split[..., hd:].any()
 
 
 def test_padded_launch_passes_instances_as_they_are():
@@ -229,7 +250,7 @@ def test_b15_padded_matches_plain(hd):
 # -- the plain versions at hd 8 and 24 against the JAX kernels ----------------
 
 
-@pytest.mark.parametrize("hd", [8, 24])
+@pytest.mark.parametrize("hd", [8, 24, 320, 512])
 def test_b13_plain_matches_jax_kernel_at_padded_head_dims(hd):
     rng = np.random.RandomState(10 + hd)
     b, h, lq, lkv = 2, 2, 8, 200
@@ -246,7 +267,7 @@ def test_b13_plain_matches_jax_kernel_at_padded_head_dims(hd):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("hd", [8, 24])
+@pytest.mark.parametrize("hd", [8, 24, 320, 512])
 def test_b14p_plain_matches_jax_kernels_at_padded_head_dims(hd):
     rng = np.random.RandomState(20 + hd)
     b, h, lq, lkv = 2, 3, 16, 384
@@ -274,7 +295,7 @@ def test_b14p_plain_matches_jax_kernels_at_padded_head_dims(hd):
                                    rtol=1e-3, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("hd", [8, 24])
+@pytest.mark.parametrize("hd", [8, 24, 320, 512])
 def test_k1_b7b_plain_match_jax_kernels_at_padded_head_dims(hd):
     rng = np.random.RandomState(30 + hd)
     b, l, hq, hkv = 2, 72, 4, 2

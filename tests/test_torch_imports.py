@@ -1,7 +1,7 @@
 """The port imports torch and never JAX, Flax or the JAX package
 ``unirec_tpu`` (not even its framework-free modules: the port carries its own
 copies), and builds nothing at import time; every module imports where
-``transformers``, ``tokenizers``, PIL and ``requests`` are absent (the card's
+``transformers``, ``tokenizers``, ``peft``, PIL and ``requests`` are absent (the card's
 machine has none of them); its kernel wrappers take the plain versions for
 CPU tensors and leave their launch counters at 0.  The entry points run on
 the card unless asked for the CPU."""
@@ -21,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, pkgutil, sys
 # the Hugging Face and image packages are imported where they are used only
-for name in ("transformers", "tokenizers", "PIL", "requests"):
+for name in ("transformers", "tokenizers", "PIL", "requests", "peft"):
     sys.modules[name] = None
 import unirec_tpu_torch
 names = ["unirec_tpu_torch"] + [
@@ -56,6 +56,11 @@ EXPECTED_MODULES = {
     "unirec_tpu_torch.cli.candidate_embeddings",
     "unirec_tpu_torch.cli.review_embeddings",
     "unirec_tpu_torch.cli.user_embeddings",
+    # A8: the Q-Former's text branch and LM heads, decoding, MWNE training,
+    # the exporters and the debugging aids
+    "unirec_tpu_torch.models.qformer", "unirec_tpu_torch.models.qformer_decode",
+    "unirec_tpu_torch.train.mwne", "unirec_tpu_torch.utils.torch_convert",
+    "unirec_tpu_torch.utils.debug", "unirec_tpu_torch.utils.profiling",
 }
 
 

@@ -34,7 +34,8 @@ and 24 (zero-padded to 16 and 32) and 256, over key tiles that are all
 padding, and repeat bit for bit.  B13 / B14 / B14p run at hd 8, 24, 64, 128
 and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
 and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
-dim and F (C-8).  Head dims above 256 are refused by K1-B14p, naming the
+dim and F (C-8).  K1-B14p run head dims above 256 in their chunked form
+(320 and 512: two chunks of 256); a head dim of 0 is refused, naming the
 set.  The int8 GEMM of B4-B6 and B8-B9b is held bit for bit to its plain
 form in every epilogue; B1-B6 run
 at hidden 1020 and 1032 (C-10).  B1-B3 run on each route of their
@@ -75,7 +76,7 @@ def hopper():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-CAUSAL_HEAD_DIMS = (16, 32, 64, 128, 8, 24, 256)
+CAUSAL_HEAD_DIMS = (16, 32, 64, 128, 8, 24, 256, 320, 512)
 
 
 @pytest.mark.parametrize("hd", CAUSAL_HEAD_DIMS)
@@ -207,7 +208,7 @@ def test_k1_b7b_over_key_tiles_that_are_all_padding(hopper, dtype, tol):
     assert (dk[padded] == 0).all() and (dv[padded] == 0).all()
 
 
-@pytest.mark.parametrize("hd", [272, 512])
+@pytest.mark.parametrize("hd", [0])
 def test_flash_causal_wrappers_refuse_what_the_kernels_do_not_take(hopper,
                                                                    hd):
     q = torch.randn(1, 8, 2 * hd, device="cuda", requires_grad=True)
@@ -1004,16 +1005,18 @@ def test_flash_cross_wrappers_refuse_what_the_kernels_do_not_take(hopper):
     from unirec_tpu_torch.ops import flash_vjp as fl
 
     q, k3, v3, _, bias = _flash_inputs(hopper, 2, 8, 100, torch.bfloat16)
-    for hd in (272, 512):  # above the largest instance, 256
-        wide = _flash_inputs(hopper, 2, 8, 100, torch.bfloat16, d=2 * hd)
-        with pytest.raises(ValueError, match=r"head_dim in \(16, .*256\)"):
-            fl.flash_cross_fwd(*wide[:3], None, 2)
-        with pytest.raises(ValueError, match="head_dim"):
-            pa.flash_cross_attention(*(pa.split_heads(t, 2)
-                                       for t in wide[:3]))
-        with pytest.raises(ValueError, match="head_dim"):
-            fl.flash_cross_attention_vjp(
-                *(pa.split_heads(t, 2).detach() for t in wide[:3]))
+    # above 256 the chunked form runs; a head dim of 0 has no instance (its
+    # empty rows may meet the row-alignment check first)
+    with pytest.raises(ValueError, match=r"head_dim in \(16, .*256\)"):
+        pa.check_head_dim("B14", 0)
+    empty = _flash_inputs(hopper, 2, 8, 100, torch.bfloat16, d=0)
+    with pytest.raises(ValueError):
+        fl.flash_cross_fwd(*empty[:3], None, 2)
+    with pytest.raises(ValueError):
+        pa.flash_cross_attention(*(pa.split_heads(t, 2) for t in empty[:3]))
+    with pytest.raises(ValueError):
+        fl.flash_cross_attention_vjp(
+            *(pa.split_heads(t, 2).detach() for t in empty[:3]))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fl.flash_cross_fwd(q.half(), k3.half(), v3.half(), None, 16)
     qh = pa.split_heads(q, 16).requires_grad_()
@@ -1023,11 +1026,12 @@ def test_flash_cross_wrappers_refuse_what_the_kernels_do_not_take(hopper):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 128, 8, 24, 256])
+@pytest.mark.parametrize("hd", [32, 128, 8, 24, 256, 512])
 def test_b13_b14_take_other_head_dims(hopper, dtype, hd):
     """The streaming kernels at other head dims of a width of 1024 (hd 32,
-    128, 256; 8 zero-padded to 16; hd 64 above) and at 16 heads of 24 (a
-    width of 384, zero-padded to 32), over a ragged memory."""
+    128, 256, and 512 in two chunks; 8 zero-padded to 16; hd 64 above) and
+    at 16 heads of 24 (a width of 384, zero-padded to 32), over a ragged
+    memory."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 

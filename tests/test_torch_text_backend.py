@@ -13,6 +13,9 @@ checkpoint matches the JAX step within the joint-parity tolerances
 (``tests/test_torch_train_joint.py``), and ``train_cli joint --hf-path``
 runs where it used to raise.
 
+C-15: a text of no token gives the JAX backend's row (an all-pad row is
+the same at every position, whatever the attention weights).
+
 C-14: with a left-padding tokenizer the JAX backend's ``from_local_hf``
 pools a pad position (its ``last_token_pool`` is the right-padding branch);
 the port's wrapper pads on the right, and K1's key-0 contract refuses the
@@ -141,6 +144,33 @@ def test_text_backend_empty_text_runs():
     out = pb.encode(["lip balm", "", "   "])
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out[1], out[2], rtol=1e-6)
+
+
+def test_text_backend_empty_text_matches_jax():
+    """C-15: an item whose text tokenizes to no token.  The JAX backend pools
+    position L-1 of the all-masked row, the port position 0 (its key 0 is
+    marked valid, K1's contract).  Every position holds the pad token, so
+    every layer's value rows are equal, and any attention weights (the XLA
+    path's uniform ones over all L keys, a Pallas block's, the port's one
+    key) give the same hidden row at every position: the JAX row is a
+    function of its inputs, and the port's equals it (max|d| / max|ref| <=
+    1e-5), beside a real text in the same batch."""
+    jm = JaxQwen3(JAX_CFG)
+    params = jm.init(jax.random.PRNGKey(3),
+                     input_ids=jnp.zeros((1, 4), jnp.int32))
+    jb = jax_backends.Qwen3TextBackend(JAX_CFG, params, max_length=16,
+                                       batch_size=4, dtype=jnp.float32)
+    pb = Qwen3TextBackend(CFG, qwen3_state_dict_from_flax(params, CFG),
+                          max_length=16, batch_size=4, dtype=torch.float32,
+                          device="cpu")
+    texts = ["lip balm", "", "   "]
+    want, got = jb.encode(texts), pb.encode(texts)
+    for row in range(3):
+        assert rel_err(got[row], want[row]) <= REL, row
+    ids = jnp.zeros((1, 16), jnp.int32)
+    hidden = np.asarray(jm.apply(params, input_ids=ids,
+                                 attention_mask=jnp.zeros((1, 16))))[0]
+    assert rel_err(hidden, np.broadcast_to(hidden[:1], hidden.shape)) <= 1e-6
 
 
 def test_text_backend_from_local_hf_matches_jax(hf_dir):

@@ -2,8 +2,8 @@
 
 Commands:
   data          data-pipeline builders (dicts, filtering, rec samples)
-  train         training stages (precompute/item-qformer/user-qformer/joint)
-                + evaluate
+  train         training stages (precompute/mwne/item-qformer/user-qformer/
+                joint), evaluate, and export-pth / export-pretrained
   tokens        batch item-query-token generation (flagship data tool)
   embed         candidate-pool item embeddings (clip / qwen3)
   review-embed  review + item concatenated embeddings

@@ -1,6 +1,6 @@
 """Training CLI (port of ``unirec_tpu/cli/train_cli.py``): the ``joint``,
-``item-qformer``, ``user-qformer``, ``evaluate`` and ``precompute``
-subcommands.
+``item-qformer``, ``user-qformer``, ``evaluate``, ``precompute``, ``mwne``,
+``export-pth`` and ``export-pretrained`` subcommands.
 
     python -m unirec_tpu_torch.cli.train_cli joint \\
         --train-data train.json --val-data val.json --item-emb item_emb.json \\
@@ -22,6 +22,13 @@ subcommands.
         --cache-dir CACHE [--device cpu]
     python -m unirec_tpu_torch.cli.train_cli precompute --data items.json \\
         --cache-dir CACHE [--max-items N] [--device cpu]
+    python -m unirec_tpu_torch.cli.train_cli mwne [--embedding-dim 1024] \\
+        [--num-frequencies 20] [--num-steps 1500] [--learning-rate 1e-3] \\
+        [--checkpoint-dir number_encoders] [--device cpu]
+    python -m unirec_tpu_torch.cli.train_cli export-pth --checkpoint DIR \\
+        --output OUT.pth [--stage item|user|mwne]
+    python -m unirec_tpu_torch.cli.train_cli export-pretrained \\
+        --checkpoint JOINT_DIR --output DIR [--tokenizer HF_PATH]
 
 The flags and the loops are the JAX CLI's.  ``joint``: AdamW with warmup 20
 and clipping at 1.0, an evaluation (MRR, Recall/NDCG@{1,5,10}) before
@@ -53,9 +60,17 @@ tokenizer from a local Hugging Face checkpoint (``utils/torch_convert.
 convert_qwen3``, ``data/tokenizer.HFTokenizer``; needs ``transformers``),
 whose shapes must be the model's (``Qwen3Config()``, or the ``--tiny`` one).
 
+``mwne``: MWNE property training (``train/mwne.MWNETrainer``), the
+evaluation printed as JSON, a train-state directory under
+``--checkpoint-dir``.  ``export-pth`` writes the reference's ``.pth`` of an
+item (a checkpoint directory or a reference ``.pth``), user or MWNE
+checkpoint directory, ``export-pretrained`` the reference's
+``save_pretrained`` directory of a joint checkpoint (``latest_model/``,
+``best_model/`` or the directory itself; its meta records both configs),
+through ``utils/weights.state_dict_to_flax`` and ``utils/torch_convert``.
+
 Not ported yet, refused with the queue that holds them: ``--pp``, ``--dp``,
-``--tp`` and ``--sp`` above 1 (A9).  The other subcommands print "not ported
-yet".
+``--tp`` and ``--sp`` above 1 (A9).
 """
 
 from __future__ import annotations
@@ -66,8 +81,8 @@ import json
 import os
 import sys
 
-# the JAX CLI's other subcommands and the ROADMAP.md queue that holds each
-NOT_PORTED = {"mwne": "A8", "export-pth": "A8", "export-pretrained": "A8"}
+# the JAX CLI's subcommands still to port and the ROADMAP.md queue of each
+NOT_PORTED: dict = {}
 
 
 def _joint_cfg_meta(qwen_cfg, qformer_cfg) -> dict:
@@ -219,12 +234,48 @@ def _item_parsers(sub) -> None:
                     help="cuda (the default; raises without a card) or cpu")
 
 
+def _export_parsers(sub) -> None:
+    sp = sub.add_parser("mwne")
+    sp.add_argument("--embedding-dim", type=int, default=1024)
+    sp.add_argument("--num-frequencies", type=int, default=20)
+    sp.add_argument("--num-steps", type=int, default=1500)
+    sp.add_argument("--learning-rate", type=float, default=1e-3)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--checkpoint-dir", default="number_encoders")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+
+    sp = sub.add_parser(
+        "export-pth",
+        help="write a checkpoint in the reference's .pth schema")
+    sp.add_argument("--checkpoint", required=True,
+                    help="checkpoint directory (or, for --stage item, a "
+                         "reference .pth)")
+    sp.add_argument("--output", required=True, help="output .pth path")
+    sp.add_argument("--stage", choices=["item", "user", "mwne"],
+                    default="item")
+
+    sp = sub.add_parser(
+        "export-pretrained",
+        help="write a joint checkpoint as the reference's save_pretrained "
+             "directory (PEFT adapter, qformer_model.bin, model_config.json "
+             "and the tokenizer's files)")
+    sp.add_argument("--checkpoint", required=True,
+                    help="joint checkpoint directory (train joint "
+                         "--checkpoint-dir)")
+    sp.add_argument("--output", required=True, help="output directory")
+    sp.add_argument("--tokenizer", default=None,
+                    help="a local Hugging Face tokenizer to copy into the "
+                         "directory (needs transformers)")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     _joint_parser(sub)
     _item_parsers(sub)
+    _export_parsers(sub)
     for name in NOT_PORTED:
         sub.add_parser(name, add_help=False)
     args, rest = p.parse_known_args(argv)
@@ -236,7 +287,9 @@ def main(argv=None) -> int:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     return {"joint": _run_joint, "item-qformer": _run_item_qformer,
             "user-qformer": _run_user_qformer, "evaluate": _run_evaluate,
-            "precompute": _run_precompute}[args.cmd](args)
+            "precompute": _run_precompute, "mwne": _run_mwne,
+            "export-pth": _run_export_pth,
+            "export-pretrained": _run_export_pretrained}[args.cmd](args)
 
 
 def _read_items(path: str):
@@ -394,6 +447,103 @@ def _run_evaluate(args) -> int:
     res = evaluate_reconstruction_quality(model, cache,
                                           batch_size=args.batch_size)
     print(json.dumps(res, indent=2))
+    return 0
+
+
+def _run_mwne(args) -> int:
+    import numpy as np
+
+    from unirec_tpu_torch.configs import MWNEConfig
+    from unirec_tpu_torch.train.common import TrainState
+    from unirec_tpu_torch.train.mwne import MWNETrainer
+    from unirec_tpu_torch.utils.checkpoint import save_train_state
+    from unirec_tpu_torch.utils.device import resolve_device
+
+    cfg = MWNEConfig(embedding_dim=args.embedding_dim,
+                     num_frequencies=args.num_frequencies)
+    trainer = MWNETrainer(cfg, lr=args.learning_rate, seed=args.seed,
+                          device=resolve_device(args.device))
+    metrics = trainer.train(num_steps=args.num_steps)
+    test = np.array([0.5, 1.0, 2.0, 5.0, 10.0, -3.0, 42.0, 100.0], np.float32)
+    results = trainer.evaluate(test)
+    print(json.dumps({"train": metrics, "eval": results}, indent=2))
+    if args.checkpoint_dir:
+        save_train_state(args.checkpoint_dir,
+                         TrainState(trainer.model, trainer.optimizer,
+                                    args.num_steps),
+                         config=cfg, extra={"final_metrics": results})
+    return 0
+
+
+def _run_export_pth(args) -> int:
+    from unirec_tpu_torch.utils import torch_convert as tc
+    from unirec_tpu_torch.utils.checkpoint import load_checkpoint, restore_config
+    from unirec_tpu_torch.utils.weights import state_dict_to_flax
+
+    if args.stage == "item":
+        from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+
+        cfg, sd, field_names = QFormerInference.read_checkpoint(args.checkpoint)
+        tc.save_reference_item_qformer_checkpoint(
+            args.output, state_dict_to_flax(sd), cfg, field_names)
+        print(f"wrote reference-schema checkpoint -> {args.output} "
+              f"({len(field_names)} fields)")
+        return 0
+    sd, meta = load_checkpoint(args.checkpoint)
+    tree = state_dict_to_flax(sd)
+    if args.stage == "user":
+        from unirec_tpu_torch.configs import UserQFormerConfig
+
+        tc.save_reference_user_qformer_checkpoint(
+            args.output, tree["user"], restore_config(meta, UserQFormerConfig),
+            epoch=int(meta.get("epoch", 0)), loss=float(meta.get("loss", 0.0)))
+        print(f"wrote reference-schema user checkpoint -> {args.output}")
+        return 0
+    from unirec_tpu_torch.configs import MWNEConfig
+
+    tc.save_reference_mwne_checkpoint(
+        args.output, restore_config(meta, MWNEConfig),
+        {"base": tree["encoder"]}, final_metrics=meta.get("final_metrics"))
+    print(f"wrote reference-schema MWNE checkpoint -> {args.output}")
+    return 0
+
+
+def _run_export_pretrained(args) -> int:
+    from unirec_tpu_torch.configs import ItemQFormerConfig, Qwen3Config
+    from unirec_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        read_meta,
+        restore_config,
+    )
+    from unirec_tpu_torch.utils.torch_convert import save_pretrained_directory
+    from unirec_tpu_torch.utils.weights import state_dict_to_flax
+
+    cand = next((c for c in (os.path.join(args.checkpoint, "latest_model"),
+                             os.path.join(args.checkpoint, "best_model"),
+                             args.checkpoint)
+                 if os.path.exists(os.path.join(c, "params.pt"))), None)
+    if cand is None:
+        print(f"error: no checkpoint under {args.checkpoint}", file=sys.stderr)
+        return 2
+    meta = read_meta(cand)
+
+    def config(key, cls):  # the configs the joint save records
+        if key not in meta:
+            raise SystemExit(f"checkpoint meta lacks {key!r}: re-save it with "
+                             f"`train joint`")
+        return restore_config({"config": meta[key]}, cls)
+
+    tokenizer = None
+    if args.tokenizer:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+    sd, _ = load_checkpoint(cand)
+    save_pretrained_directory(
+        args.output, state_dict_to_flax(sd),
+        config("qwen_config", Qwen3Config),
+        config("qformer_config", ItemQFormerConfig), tokenizer=tokenizer)
+    print(f"wrote reference save_pretrained layout -> {args.output}")
     return 0
 
 

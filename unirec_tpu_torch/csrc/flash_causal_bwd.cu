@@ -19,7 +19,8 @@
 //   m, l, dsum  [B, L, Hq]  float
 // Head dims: every multiple of 16 up to 128, and 256 (head_dim.cuh); the
 // wrapper zero-pads any other head dim up to 256 to the next instance and
-// passes the softmax scale of the true one.  At 256 the bf16 dq kernel
+// passes the softmax scale of the true one (above 256: whole chunks of 256,
+// run by the chunked form of flash_chunked.cuh).  At 256 the bf16 dq kernel
 // holds 64 slots in 4 warps (Q, dO and the ring take 202,752 bytes of shared
 // memory), and the fp32 kernels take 32-row tiles (a thread owns 2 x 2
 // scores): their four 64-row tiles would not fit.
@@ -78,6 +79,7 @@
 #include <type_traits>
 
 #include "causal_tiles.cuh"
+#include "flash_chunked.cuh"
 #include "head_dim.cuh"
 #include "ptx_helpers.cuh"
 
@@ -893,6 +895,13 @@ bool bad_shape(int B, int L, int Hq, int Hkv, int dtype) {
   return Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || L <= 0 || dtype < 0 || dtype > 1;
 }
 
+// the merged-head strides of q, k, v, dO, dq, dk and dv
+chunked::BwdStrides chunked_strides(int L, int Hq, int Hkv, int head_dim) {
+  const chunked::Strides qs = chunked::merged(L, Hq, head_dim),
+                         ks = chunked::merged(L, Hkv, head_dim);
+  return chunked::BwdStrides{qs, ks, ks, qs, qs, ks, ks};
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh
@@ -906,6 +915,17 @@ extern "C" int unirec_flash_causal_bwd_dq(const void* q, const void* k, const vo
                                           float scale, void* stream) {
   if (bad_shape(B, L, Hq, Hkv, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunked::is_chunked(head_dim)) {
+    const chunked::BwdStrides st = chunked_strides(L, Hq, Hkv, head_dim);
+    return (int)(dtype == 0
+                     ? chunked::launch_bwd_rows<float, true>(q, k, v, mask, dout, m, l, dsum, dq,
+                                                             nullptr, nullptr, nullptr, st, B,
+                                                             Hq, Hq / Hkv, L, L, head_dim,
+                                                             scale, s)
+                     : chunked::launch_bwd_rows<bf16, true>(q, k, v, mask, dout, m, l, dsum, dq,
+                                                            nullptr, nullptr, nullptr, st, B, Hq,
+                                                            Hq / Hkv, L, L, head_dim, scale, s));
+  }
   return (int)with_head_dim(head_dim, [&](auto hd) {
     return launch_dq<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dq, B, L, Hq, Hkv,
                                           dtype == 1, scale, s);
@@ -920,6 +940,16 @@ extern "C" int unirec_flash_causal_bwd_dkv(const void* q, const void* k, const v
                                            int dtype, float scale, void* stream) {
   if (bad_shape(B, L, Hq, Hkv, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunked::is_chunked(head_dim)) {
+    const chunked::BwdStrides st = chunked_strides(L, Hq, Hkv, head_dim);
+    return (int)(dtype == 0
+                     ? chunked::launch_bwd_keys<float>(q, k, v, mask, dout, m, l, dsum, dk, dv,
+                                                       st, B, Hq, Hq / Hkv, L, head_dim, scale,
+                                                       s)
+                     : chunked::launch_bwd_keys<bf16>(q, k, v, mask, dout, m, l, dsum, dk, dv,
+                                                      st, B, Hq, Hq / Hkv, L, head_dim, scale,
+                                                      s));
+  }
   return (int)with_head_dim(head_dim, [&](auto hd) {
     return launch_dkv<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dk, dv, B, L, Hq,
                                            Hkv, dtype == 1, scale, s);

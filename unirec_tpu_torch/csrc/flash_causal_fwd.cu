@@ -20,8 +20,9 @@
 // guarantees that by requiring mask[:, 0] != 0 (key 0 is causal for every row).
 // Head dims: every multiple of 16 up to 128, and 256 (head_dim.cuh), each
 // its own template instance; the wrapper zero-pads any other head dim up to
-// 256 to the next instance and passes the softmax scale of the true one.
-// At 256 both designs below fit as they are: the bf16 block takes 202,752
+// 256 to the next instance and passes the softmax scale of the true one;
+// above 256 it pads to whole chunks of 256, which the C entry hands to the
+// chunked form of flash_chunked.cuh.  At 256 both designs below fit as they are: the bf16 block takes 202,752
 // bytes of shared memory and one block an SM, the fp32 block 148,480.
 //
 // What bounds it: at the serving shape (B=8, L=512, Hq=16, Hkv=8, HD=128) the
@@ -69,6 +70,7 @@
 #include <type_traits>
 
 #include "causal_tiles.cuh"
+#include "flash_chunked.cuh"
 #include "head_dim.cuh"
 #include "ptx_helpers.cuh"
 
@@ -485,6 +487,17 @@ extern "C" int unirec_flash_causal_fwd(const void* q, const void* k, const void*
       (m_out == nullptr) != (l_out == nullptr) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunked::is_chunked(head_dim)) {
+    const chunked::Strides qs = chunked::merged(L, Hq, head_dim),
+                           ks = chunked::merged(L, Hkv, head_dim);
+    return (int)(dtype == 0
+                     ? chunked::launch_fwd<float, float, true>(q, k, v, mask, out, m_out, l_out,
+                                                               qs, ks, ks, qs, B, Hq, Hq / Hkv,
+                                                               L, L, head_dim, scale, s)
+                     : chunked::launch_fwd<bf16, bf16, true>(q, k, v, mask, out, m_out, l_out,
+                                                             qs, ks, ks, qs, B, Hq, Hq / Hkv, L,
+                                                             L, head_dim, scale, s));
+  }
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
     return dtype == 0

@@ -54,7 +54,9 @@
 // parameter: every multiple of 16 up to 128, and 256 (head_dim.cuh); the
 // wrappers zero-pad any other head dimension up to 256 to the next instance
 // (ops/attention.padded_launch: zero lanes add exact zeros to every dot
-// product) and pass the scale of the true one.  Inputs and outputs are float
+// product) and pass the scale of the true one; above 256 they pad to whole
+// chunks of 256, which the C entries hand to the chunked form of
+// flash_chunked.cuh.  Inputs and outputs are float
 // or bf16 (one type per call, except the forward's o of B14 and B14p, which
 // is float); arithmetic and accumulators are fp32.
 //
@@ -136,6 +138,7 @@
 
 #include <type_traits>
 
+#include "flash_chunked.cuh"
 #include "head_dim.cuh"
 #include "ptx_helpers.cuh"
 
@@ -1268,6 +1271,20 @@ extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* 
       dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunked::is_chunked(head_dim)) {
+    const chunked::Strides cq{qsb, qsh, qsr}, ck{ksb, ksh, ksr}, cv{vsb, vsh, vsr},
+        co{osb, osh, osr};
+    if (dtype == 0)
+      return (int)chunked::launch_fwd<float, float, false>(q, k, v, bias, o, m, l, cq, ck, cv,
+                                                           co, B, H, 1, Lq, Lkv, head_dim,
+                                                           scale, s);
+    return (int)(m ? chunked::launch_fwd<bf16, float, false>(q, k, v, bias, o, m, l, cq, ck, cv,
+                                                             co, B, H, 1, Lq, Lkv, head_dim,
+                                                             scale, s)
+                   : chunked::launch_fwd<bf16, bf16, false>(q, k, v, bias, o, m, l, cq, ck, cv,
+                                                            co, B, H, 1, Lq, Lkv, head_dim,
+                                                            scale, s));
+  }
   const Strides qs{qsb, qsh, qsr}, ks{ksb, ksh, ksr}, vs{vsb, vsh, vsr}, os{osb, osh, osr};
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
@@ -1300,6 +1317,19 @@ extern "C" int unirec_flash_cross_bwd(const void* q, const void* k, const void* 
   const BwdStrides st{{x[0], x[1], x[2]},    {x[3], x[4], x[5]},    {x[6], x[7], x[8]},
                       {x[9], x[10], x[11]},  {x[12], x[13], x[14]}, {x[15], x[16], x[17]},
                       {x[18], x[19], x[20]}};
+  if (chunked::is_chunked(head_dim)) {
+    const chunked::BwdStrides cs{{x[0], x[1], x[2]},    {x[3], x[4], x[5]},
+                                 {x[6], x[7], x[8]},    {x[9], x[10], x[11]},
+                                 {x[12], x[13], x[14]}, {x[15], x[16], x[17]},
+                                 {x[18], x[19], x[20]}};
+    return (int)(dtype == 0
+                     ? chunked::launch_bwd_rows<float, false>(q, k, v, bias, dout, m, l, dsum,
+                                                              dq, dk, dv, part, cs, B, H, 1,
+                                                              Lq, Lkv, head_dim, scale, s)
+                     : chunked::launch_bwd_rows<bf16, false>(q, k, v, bias, dout, m, l, dsum,
+                                                             dq, dk, dv, part, cs, B, H, 1, Lq,
+                                                             Lkv, head_dim, scale, s));
+  }
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
     if (dtype == 0)

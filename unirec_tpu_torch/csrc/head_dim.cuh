@@ -3,9 +3,12 @@
 // for: every multiple of 16 up to 128, and 256
 // (ops/attention.py:KERNEL_HEAD_DIMS).  Any other
 // head dimension up to the largest instance is zero-padded to the next one
-// by the Python wrappers (ops/attention.pad_head_dim), which pass the softmax
-// scale of the true head dimension.  Each kernel takes the head dimension as
-// a template parameter; with_head_dim maps the runtime value to one instance.
+// by the Python wrappers (ops/attention.padded_launch), which pass the
+// softmax scale of the true head dimension.  Each kernel takes the head
+// dimension as a template parameter; with_head_dim maps the runtime value to
+// one instance.  Above 256 the wrappers pad to a multiple of 256, which the
+// C entries hand to the chunked form of flash_chunked.cuh before they get
+// here.
 #pragma once
 
 #include <cuda_runtime.h>

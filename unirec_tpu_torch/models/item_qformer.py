@@ -10,8 +10,11 @@ The joint model reads only ``query_outputs`` (``query_outputs()``), which is
 what the JAX jit graph keeps after dead-code elimination.
 
 With ``use_field_type_embeddings`` a learned ``field_id_embeddings [F,
-field_dim]`` table is added to the field embeddings before the encoder, as in
-the JAX model.  Its per-call modality table (``modality_ids``) is not ported.
+field_dim]`` table is added to the field embeddings before the encoder, and
+with ``modality_ids`` ``[F]`` (the schema's modality id of each field) the
+rows of a ``modality_id_embeddings [num_modalities, field_dim]`` table too,
+as in the JAX model.  A Flax module creates that table only when its init
+sees ``modality_ids``, so the port builds it with ``modality_table=True``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ class ItemQFormer(nn.Module):
 
     def __init__(self, config: ItemQFormerConfig, *, device=None,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 modality_table: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -44,6 +48,9 @@ class ItemQFormer(nn.Module):
         self.field_id_embeddings = (
             nn.Parameter(torch.empty(config.num_fields, fd, **pkw))
             if config.use_field_type_embeddings else None)
+        self.modality_id_embeddings = (
+            nn.Parameter(torch.empty(config.num_modalities, fd, **pkw))
+            if config.use_field_type_embeddings and modality_table else None)
         self.qformer = QFormerModel(config.qformer(), **lkw)
         self.item_representation_head = Linear(d, fd, **lkw)
         self.reconstruction_head = Linear(d, fd, **lkw)
@@ -57,10 +64,6 @@ class ItemQFormer(nn.Module):
                       ) -> torch.Tensor:
         """[B, F, field_dim] fields -> [B, K, hidden] query tokens;
         ``dropout``: a training forward's stream."""
-        if modality_ids is not None:
-            raise NotImplementedError(
-                "modality-id embeddings are not ported yet (they arrive with "
-                "the encoders)")
         batch = field_embeddings.shape[0]
         if attention_mask is None:
             attention_mask = field_embeddings.new_ones(
@@ -68,6 +71,12 @@ class ItemQFormer(nn.Module):
         if self.field_id_embeddings is not None:
             # added before the cast to the model dtype, as in the JAX model
             field_embeddings = field_embeddings + self.field_id_embeddings[None]
+            if modality_ids is not None:
+                if self.modality_id_embeddings is None:
+                    raise ValueError("modality_ids need the modality table: "
+                                     "build the model with modality_table=True")
+                field_embeddings = (field_embeddings
+                                    + self.modality_id_embeddings[modality_ids][None])
         query_embeds = self.query_embeddings.expand(batch, -1, -1)
         # queries are never masked
         query_mask = field_embeddings.new_ones(

@@ -18,8 +18,9 @@
 Parameter names follow the Flax tree (``base.fourier_weight``,
 ``base.raw_scale``, ``base.extra_proj.weight``; the Flax kernel ``[1, extra]``
 is stored as ``weight [extra, 1]``), so ``utils/weights.
-mwne_state_dict_from_flax`` maps JAX variables one to one.  The decoder waits
-for MWNE training (ROADMAP.md A8).
+mwne_state_dict_from_flax`` maps JAX variables one to one.  ``MWNEDecoder``
+is the invertibility decoder that MWNE training (``train/mwne.py``) fits
+beside the encoder.
 """
 
 from __future__ import annotations
@@ -151,6 +152,26 @@ def load_mwne(cfg: MWNEConfig, state_dict: Optional[dict] = None,
     model = NormalizedMathematicalEncoder(cfg, device=device)
     model.load_state_dict(state_dict)
     return model.eval()
+
+
+class MWNEDecoder(nn.Module):
+    """The invertibility decoder MLP: dense (d / 2) -> exact gelu -> dense
+    (d / 4) -> exact gelu -> dense (1), squeezed (reference:
+    models/mwne.py:237-243)."""
+
+    def __init__(self, embedding_dim: int, *, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d = embedding_dim
+        self.fc1 = Linear(d, d // 2, device=device, dtype=dtype)
+        self.fc2 = Linear(d // 2, d // 4, device=device, dtype=dtype)
+        self.fc3 = Linear(d // 4, 1, device=device, dtype=dtype)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        gelu = nn.functional.gelu
+        h = gelu(self.fc1(emb), approximate="none")
+        h = gelu(self.fc2(h), approximate="none")
+        return self.fc3(h)[..., 0]
 
 
 SECONDS_IN_DAY = 24 * 60 * 60

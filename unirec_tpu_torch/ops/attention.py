@@ -38,8 +38,10 @@ FLASH_MIN_KV = 1024
 # causal flash kernels K1 and B7b (csrc/flash_causal_*.cu) are built for
 # (csrc/head_dim.cuh): every multiple of 16 up to 128, and 256.  Any other
 # head dim up to the largest instance runs zero-padded to the next one
-# (``padded_launch``).  The packed item attention takes every head dim as it
-# is (csrc/packed_attention.cu).
+# (``padded_launch``); above it, the head dim is cut into chunks of the
+# largest instance (``kernel_head_dim``), which the kernels' chunked form
+# (csrc/flash_chunked.cuh) runs over a grid axis.  The packed item attention
+# takes every head dim as it is (csrc/packed_attention.cu).
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
 
 
@@ -47,6 +49,23 @@ def make_additive_mask(mask: torch.Tensor,
                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[B, Lk] 0/1 validity mask -> additive bias [B, 1, 1, Lk]."""
     return ((1.0 - mask.to(dtype)) * NEG_INF)[:, None, None, :]
+
+
+def make_causal_mask(attention_mask: torch.Tensor, seq_length: int,
+                     query_length: int = 0,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The decoder's additive mask ``[B, 1, L, L]`` over ``query_length``
+    query tokens then ``seq_length`` text tokens (the JAX
+    ``make_causal_mask``, BERT's ``get_extended_attention_mask``): text rows
+    see the whole prefix and the text up to themselves, prefix rows (UniLM)
+    only the prefix; times the ``[B, L]`` padding mask."""
+    total = query_length + seq_length
+    i = torch.arange(total, device=attention_mask.device)[:, None]
+    j = torch.arange(total, device=attention_mask.device)[None, :]
+    causal = (j <= i) | (j < query_length)
+    allowed = torch.where(i < query_length, j < query_length, causal)
+    combined = allowed[None].to(dtype) * attention_mask[:, None, :].to(dtype)
+    return ((1.0 - combined) * NEG_INF)[:, None, :, :]
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -63,21 +82,23 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-              drop: Optional[DropoutStream] = None) -> torch.Tensor:
+              drop: Optional[DropoutStream] = None,
+              return_probs: bool = False):
     """Softmax attention with fp32 scores and softmax whatever the input
     dtype; probabilities are cast back to the input dtype before the value
     product, which accumulates in fp32 (the JAX einsums'
     ``preferred_element_type=float32``).  A training forward's ``drop``
     stream applies attention-probability dropout to the fp32 probabilities,
-    as the JAX function does."""
+    as the JAX function does.  ``return_probs`` (introspection) returns
+    ``(out, probs)``, the post-dropout fp32 ``[B, H, Lq, Lkv]``."""
     in_dtype = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.float()
     probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, drop)
-    out = torch.matmul(probs.to(in_dtype).float(), v.float())
-    return out.to(in_dtype)
+    out = torch.matmul(probs.to(in_dtype).float(), v.float()).to(in_dtype)
+    return (out, probs) if return_probs else out
 
 
 # -- B13: streaming cross-attention -------------------------------------------
@@ -133,22 +154,27 @@ def dtype_code(t: torch.Tensor) -> int:
     return 0 if t.dtype == torch.float32 else 1
 
 
-def kernel_head_dim(name: str, head_dim: int) -> int:
-    """The instance of ``KERNEL_HEAD_DIMS`` that a head dim runs at: the
-    least one not below it.  Raises, naming the set, for a head dim above
-    the largest."""
+def kernel_head_dim(name: str, head_dim: int) -> Tuple[int, int]:
+    """(instance, chunks): the kernels run ``head_dim`` at ``instance *
+    chunks`` columns.  Up to the largest instance of ``KERNEL_HEAD_DIMS``,
+    one chunk at the least instance not below it; above it, C = ceil(hd /
+    256) chunks of 256 (``csrc/flash_chunked.cuh``).  Raises, naming the
+    set, for a head dim below 1."""
+    if head_dim <= 0:
+        raise ValueError(f"{name} is built for head_dim in {KERNEL_HEAD_DIMS} "
+                         f"(chunks of {KERNEL_HEAD_DIMS[-1]} above) and pads "
+                         f"any other, got {head_dim}")
     for hd in KERNEL_HEAD_DIMS:
-        if 0 < head_dim <= hd:
-            return hd
-    raise ValueError(f"{name} is built for head_dim in {KERNEL_HEAD_DIMS} "
-                     f"and pads any smaller head dim to the next, got "
-                     f"{head_dim}")
+        if head_dim <= hd:
+            return hd, 1
+    widest = KERNEL_HEAD_DIMS[-1]
+    return widest, -(-head_dim // widest)
 
 
 def check_head_dim(name: str, head_dim: int) -> None:
-    """Raise unless the kernels take ``head_dim``: every head dim up to
-    the largest instance of ``KERNEL_HEAD_DIMS``, the instances as they are
-    and any other zero-padded to the next one (``padded_launch``)."""
+    """Raise unless the kernels take ``head_dim``: every head dim of at
+    least 1, the instances as they are, any other zero-padded to the next
+    one or, above the largest, to whole chunks of it (``padded_launch``)."""
     kernel_head_dim(name, head_dim)
 
 
@@ -165,8 +191,9 @@ def _pad_heads(t: torch.Tensor, heads: Optional[int], hd: int) -> torch.Tensor:
 
 def padded_launch(name: str, head_dim: int, inputs, outputs,
                   launch) -> None:
-    """Run ``launch(ins, outs, kernel_hd)`` at the kernel instance of
-    ``head_dim`` (``kernel_head_dim``).  ``inputs`` and ``outputs`` are
+    """Run ``launch(ins, outs, kernel_hd)`` at the kernels' width for
+    ``head_dim``: instance * chunks (``kernel_head_dim``), which the C
+    entries take as their head dim.  ``inputs`` and ``outputs`` are
     (tensor, heads) pairs: heads None for a tensor whose last dim is the head
     dim, H for merged heads ``[..., H * head_dim]``.  At an instance the
     tensors go to ``launch`` as they are; at any other head dim the inputs go
@@ -175,7 +202,8 @@ def padded_launch(name: str, head_dim: int, inputs, outputs,
     zeros to every dot product, so the scores, m, l, o and the gradients'
     true columns are unchanged; the caller passes the softmax scale of the
     true head dim (``sm_scale``)."""
-    hd = kernel_head_dim(name, head_dim)
+    instance, chunks = kernel_head_dim(name, head_dim)
+    hd = instance * chunks
     if hd == head_dim:
         launch([t for t, _ in inputs], [t for t, _ in outputs], hd)
         return

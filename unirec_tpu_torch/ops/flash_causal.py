@@ -26,10 +26,10 @@ The sources' notes give the details, and why ``wgmma`` is the next step.
 Head dims: the kernels are built for every multiple of 16 up to 128 and
 for 256 (``ops/attention.KERNEL_HEAD_DIMS``); any other head dim up to 256
 runs zero-padded to the next instance with the softmax scale of the true
-one (``ops/attention.padded_launch``), as the JAX kernel pads lanes.  Above
-256 the wrappers raise on a CUDA tensor, naming the set
-(``check_head_dim``).  The plain versions take every head dim, so CPU
-tensors do too.
+one (``ops/attention.padded_launch``), as the JAX kernel pads lanes; above
+256 the chunked form of ``csrc/flash_chunked.cuh`` runs it in chunks of 256
+(zero-padded to whole chunks).  The plain versions take every head dim, so
+CPU tensors do too.
 
 Layout: merged heads, K/V un-repeated.  q ``[B, L, Hq*hd]``, k/v
 ``[B, L, Hkv*hd]``, pad mask ``[B, L]`` (1 valid, 0 padded key); output
@@ -99,9 +99,9 @@ def _check_shapes(q, k, v, pad_mask, num_q_heads, num_kv_heads, mask_checked
 def _check_kernel_inputs(name: str, num_q_heads: int,
                          *tensors: torch.Tensor) -> None:
     """What the CUDA kernels take: one CUDA device, fp32 or bf16 q/k/v of one
-    dtype (the first three tensors), a head dim up to the largest of
-    ``KERNEL_HEAD_DIMS`` (``check_head_dim``; the launches pad it to an
-    instance), contiguous, and each tensor on a 16-byte boundary (the bf16
+    dtype (the first three tensors), a head dim of at least 1
+    (``check_head_dim``; the launches pad it to an instance or to whole
+    chunks of 256), contiguous, and each tensor on a 16-byte boundary (the bf16
     kernels copy rows in 16-byte pieces)."""
     q = tensors[0]
     check_head_dim(name, q.shape[-1] // num_q_heads)

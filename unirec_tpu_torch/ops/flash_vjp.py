@@ -41,10 +41,11 @@ Weights are the torch ``Linear`` layout ``[out, in]`` (the port's
 parameters), so ``k3 = mem . Wk^T + bk``; their gradients come back in the
 weights' dtype.  The wrappers ``flash_cross_fwd`` / ``flash_cross_bwd``
 (B14) and ``flash_cross_vjp_fwd`` / ``flash_cross_vjp_bwd`` (B14p) launch
-the kernels for CUDA tensors (float32 or bfloat16, any head dimension up to
-256: the kernels are built for the multiples of 16 up to 128 and for 256,
-and ``ops/attention.padded_launch`` zero-pads any other to the next with
-the softmax scale of the true one; they raise on anything else) and take
+the kernels for CUDA tensors (float32 or bfloat16, any head dimension: the
+kernels are built for the multiples of 16 up to 128 and for 256, and
+``ops/attention.padded_launch`` zero-pads any other to the next, or above
+256 to whole chunks of 256 for the chunked form, with the softmax scale of
+the true one) and take
 the plain versions beside them for CPU tensors; each counts its launches.
 B14's plain versions are B14p's on per-head views of the merged tensors.
 """
@@ -158,7 +159,8 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
     def launch(ins, outs, kernel_hd):
         n_qt = -(-lq // BWD_Q_TILE)
         scratch = None
-        if q.dtype == torch.bfloat16 and n_qt > 1:
+        # bf16, and the chunked form above 256 in both types, run one pass
+        if (q.dtype == torch.bfloat16 or kernel_hd > 256) and n_qt > 1:
             scratch = torch.empty(n_qt * 2 * b * h * lkv * kernel_hd,
                                   device=q.device, dtype=torch.float32)
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]

@@ -1,5 +1,6 @@
-"""Throughput meters, progress files, a device self-test and ``torch.profiler``
-traces (port of ``unirec_tpu/utils/profiling.py``).
+"""Throughput meters, progress files, a device self-test, ``torch.profiler``
+traces, named spans and per-card memory statistics (port of
+``unirec_tpu/utils/profiling.py``).
 
 ``ThroughputMeter`` and ``ProgressWriter`` carry the reference's ``--profile``
 statistics and resumable progress JSON
@@ -36,6 +37,29 @@ def profiler_trace(log_dir: Optional[str]):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def annotate(name: str):
+    """A named span in a ``torch.profiler`` trace for a host-side phase
+    (``torch.profiler.record_function``; a context manager)."""
+    return torch.profiler.record_function(name)
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """Per-card memory: ``{"cuda:i": {"bytes_in_use", "bytes_limit",
+    "peak_bytes_in_use"}}`` from ``torch.cuda.memory_stats`` and the card's
+    total memory; empty without a card."""
+    out: Dict[str, Dict[str, int]] = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        s = torch.cuda.memory_stats(i)
+        out[f"cuda:{i}"] = {
+            "bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
+            "bytes_limit": int(torch.cuda.get_device_properties(i).total_memory),
+            "peak_bytes_in_use": int(s.get("allocated_bytes.all.peak", 0)),
+        }
+    return out
 
 
 @dataclass

@@ -10,6 +10,9 @@ port holds only what the forward uses: no zero text FFNs and no 30522-row
 word table, which the JAX package's ``torch_convert.export_qformer_model``
 synthesises for the reference layout.
 
+``state_dict_to_flax`` is its inverse, the way back to a Flax-layout tree
+that the exporters of ``utils/torch_convert`` write reference files from.
+
 A reference ``.pth`` of the joint model loads by composing the two numpy-only
 functions::
 
@@ -101,6 +104,40 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         sd[".".join(names + [leaf_name])] = torch.from_numpy(
             np.ascontiguousarray(arr))
     return sd
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``flax_to_state_dict``: a port state_dict -> the Flax
+    parameter tree with numpy leaves (floating ones as float32), which the
+    exporters of ``utils/torch_convert`` take.  ``layers.{i}`` /
+    ``layer.{i}`` -> ``layers_{i}`` / ``layer_{i}``; a 2-D ``weight`` ->
+    ``kernel [in, out]`` (transposed), a 1-D one -> a norm's ``scale``;
+    every other leaf (``bias``, ``embedding`` tables, raw parameters,
+    buffers) keeps its name and layout."""
+    tree: Dict[str, Any] = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        names, i = [], 0
+        while i < len(parts) - 1:
+            if (parts[i] in ("layers", "layer") and i + 2 < len(parts)
+                    and parts[i + 1].isdigit()):
+                names.append(f"{parts[i]}_{parts[i + 1]}")
+                i += 2
+            else:
+                names.append(parts[i])
+                i += 1
+        t = value.detach().cpu()
+        arr = t.float().numpy() if t.is_floating_point() else t.numpy()
+        leaf = parts[-1]
+        if leaf == "weight" and arr.ndim == 2:
+            arr, leaf = arr.T, "kernel"
+        elif leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        node = tree
+        for name in names:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 def joint_state_dict_from_flax(params: Mapping[str, Any],
@@ -275,15 +312,31 @@ def init_joint(qwen_cfg: Qwen3Config, qf_cfg: ItemQFormerConfig,
 @torch.no_grad()
 def init_item_qformer(cfg: ItemQFormerConfig, generator: torch.Generator,
                       device=None, dtype: torch.dtype = torch.float32,
-                      param_dtype: Optional[torch.dtype] = None
-                      ) -> ItemQFormer:
+                      param_dtype: Optional[torch.dtype] = None,
+                      modality_table: bool = False) -> ItemQFormer:
     """The Item Q-Former with the Flax initialisers' distributions:
     normal(1.0) for ``query_embeddings``, normal(0.02) for dense kernels and
-    ``field_id_embeddings``, ones/zeros for LayerNorm, zero biases.
-    ``param_dtype`` (default ``dtype``) stores the parameters, ``dtype``
+    ``field_id_embeddings`` (and ``modality_id_embeddings``), ones/zeros
+    for LayerNorm, zero biases.  ``param_dtype`` (default ``dtype``) stores the parameters, ``dtype``
     computes (the trainer's float32 masters under bfloat16 compute)."""
     model = ItemQFormer(cfg, device=device, dtype=dtype,
-                        param_dtype=param_dtype).eval()
+                        param_dtype=param_dtype,
+                        modality_table=modality_table).eval()
+    _flax_init_(model, generator)
+    return model
+
+
+@torch.no_grad()
+def init_qformer_lm_head(cfg, generator: torch.Generator, device=None,
+                         dtype: torch.dtype = torch.float32,
+                         param_dtype: Optional[torch.dtype] = None):
+    """``models/qformer.QFormerLMHeadModel`` with the Flax initialisers'
+    distributions: normal(0.02) for dense kernels and the embedding tables,
+    ones/zeros for LayerNorm, zero biases."""
+    from unirec_tpu_torch.models.qformer import QFormerLMHeadModel
+
+    model = QFormerLMHeadModel(cfg, device=device, dtype=dtype,
+                               param_dtype=param_dtype).eval()
     _flax_init_(model, generator)
     return model
 
