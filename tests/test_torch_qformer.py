@@ -82,7 +82,8 @@ def test_item_qformer_field_type_embeddings_match_jax(mode):
     for key in ("query_outputs", "item_representation", "reconstructed_fields"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    atol=ATOL, rtol=0, err_msg=key)
-    with pytest.raises(NotImplementedError, match="modality"):
+    # built without the modality table, modality ids are refused
+    with pytest.raises(ValueError, match="modality"):
         pm.query_outputs(torch.from_numpy(fields), torch.from_numpy(mask),
                          modality_ids=torch.zeros(3, dtype=torch.long))
 
