@@ -28,7 +28,6 @@ from tests.test_torch_joint import (
     JC,
     QF,
     QWEN,
-    build_pair,
     joint_inputs,
     randomize_lora_b,
 )
@@ -174,8 +173,25 @@ def test_mwne_export_matches_jax():
                 jax.tree_util.tree_map(np.asarray, jtr.params["encoder"]))
 
 
-def test_joint_export_matches_jax():
-    _, params, pm = build_pair()
+@pytest.fixture(scope="module")
+def joint():
+    """A JAX joint model at the LoRA rank `train joint` trains at
+    (``LoRAConfig()``, which the directory's adapter_config.json states),
+    ``lora_b`` made nonzero, and the port's on the same weights."""
+    jm = jax_joint.MultiModalQwenEmbedding(QWEN, QF, JC,
+                                           lora=jcfgs.LoRAConfig(dropout=0.0))
+    ids, mask, hist, hmask = joint_inputs(np.random.RandomState(3), 1)
+    params = randomize_lora_b(jm.init(
+        jax.random.PRNGKey(3), jnp.asarray(ids), jnp.asarray(mask),
+        jnp.asarray(hist), jnp.asarray(hmask)))
+    pm = port_joint.MultiModalQwenEmbedding(
+        QWEN, QF, JC, lora=pcfgs.LoRAConfig(dropout=0.0))
+    pm.load_state_dict(joint_state_dict_from_flax(params, QWEN, QF))
+    return params, pm
+
+
+def test_joint_export_matches_jax(joint):
+    params, pm = joint
     tree = state_dict_to_flax(pm.state_dict())
     want = jtc.export_joint_model(params["params"], QWEN, QF)
     got = ptc.export_joint_model(tree, QWEN, QF)
@@ -246,22 +262,13 @@ def test_export_pth_cli_mwne_matches_jax(tmp_path, capsys):
     assert got["final_metrics"] == want["final_metrics"]
 
 
-def test_export_pretrained_cli_matches_jax_and_loads_in_peft(tmp_path):
+def test_export_pretrained_cli_matches_jax_and_loads_in_peft(joint,
+                                                           tmp_path):
     peft = pytest.importorskip("peft")
     from transformers import Qwen3Config as HFQwen3Config
     from transformers import Qwen3Model
 
-    # the LoRA rank `train joint` trains at (LoRAConfig()), which the
-    # directory's adapter_config.json states
-    jm = jax_joint.MultiModalQwenEmbedding(QWEN, QF, JC,
-                                           lora=jcfgs.LoRAConfig(dropout=0.0))
-    ids, mask, hist, hmask = joint_inputs(np.random.RandomState(3), 1)
-    params = randomize_lora_b(jm.init(
-        jax.random.PRNGKey(3), jnp.asarray(ids), jnp.asarray(mask),
-        jnp.asarray(hist), jnp.asarray(hmask)))
-    pm = port_joint.MultiModalQwenEmbedding(
-        QWEN, QF, JC, lora=pcfgs.LoRAConfig(dropout=0.0))
-    pm.load_state_dict(joint_state_dict_from_flax(params, QWEN, QF))
+    params, pm = joint
     ckpt = tmp_path / "joint" / "latest_model"
     save_checkpoint(str(ckpt), pm, config=pcfgs.JointModelConfig(),
                     extra=train_cli._joint_cfg_meta(QWEN, QF))
