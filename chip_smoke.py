@@ -74,6 +74,24 @@ Phases (any failed check raises; the script then exits non-zero):
    items with none, and K = 2 (hd 32), fp32 and bf16, against its plain
    version, repeats, items without a field against their values' mean;
    both timed beside SDPA.
+3a. fp32 fused (``phase_fp32_fused``): the fp32 forms, at production
+   widths.  B1-B3 at float32 and B4-B6 at float32 activations on 1,024
+   items (~15% missing fields, >= 8 items with none) against their plain
+   versions (B1-B3 max|d| / max|ref| <= 1e-5; B4-B6 the int8 blocks' gate,
+   x's int8 codes in B6 those of the plain ``row_quant`` of the float32 x
+   bit for bit), repeated for identical bits with exact launch counts;
+   B12s/B12c at float32, forward and backward, at 512 items against their
+   plain versions (<= 1e-5 relative, C-11's rule), repeated, then through
+   ``fused_self/cross_attention_train`` and ``torch.autograd.grad``
+   (counted launches); each timed beside its plain version, its bound and
+   cuBLAS fp32 (B1-B3's products alone) or ``multi_head_attention_forward``
+   in fp32 (B12's forwards).  Then the fused engine at
+   ``ItemQFormerConfig()`` (12 layers) on 1,024 items:
+   ``prepare_fused_params(model, cfg, dtype=torch.float32)`` against the
+   plain fp32 ``ItemQFormer`` forward (max|d| / max|ref| <= 1e-4, per-token
+   cosine >= 0.99999) and with ``precision="int8"`` (per-token cosine >=
+   0.999, the int8 quality gate); exact launch counts (those of the fp32
+   rows), items/s and peak memory.
 4. the serving slice at full width (Qwen3-0.6B, 28 layers; 12-layer Item
    Q-Former with K=2; LoRA r=16 with nonzero lora_b; L=512; bf16; random
    weights from seed 0): 24 concurrent HTTP ``/recommend`` requests through
@@ -499,30 +517,41 @@ def phase_k1(gen) -> dict:
     return times
 
 
+def sweep_block_bounds(n: int, elem: int, kind: str) -> dict:
+    """bound_ms and bound_by of B1-B3 (``kind`` "bf16" or "fp32": b1-b3)
+    or B4-B6 ("int8": b4-b6) at ``n`` items of the production widths:
+    activations (x, mem, out) of ``elem`` bytes in and out once, weights
+    once (``elem`` bytes, or int8 codes plus float32 column scales), float32
+    vectors; the projections and attention products at ``kind``'s rate."""
+    d, k, f, inter = QF_D, QF_K, QF_F, QF_INTER
+    act = elem * 2 * n * k * d
+    names = ("b4", "b5", "b6") if kind == "int8" else ("b1", "b2", "b3")
+    wb = 1 if kind == "int8" else elem
+    sc = 4 if kind == "int8" else 0  # a float32 scale per output column
+    self_w, cross_w, ffn_w = 4 * d * d, 4 * d * d, 2 * d * inter
+    return {
+        names[0]: bound(
+            act + self_w * wb + 6 * d * 4 + 4 * d * sc,
+            n * (2 * k * d * 3 * d + 2 * 2 * k * k * d + 2 * k * d * d), kind),
+        names[1]: bound(
+            act + n * f * d * elem + n * f * 4 + cross_w * wb + 6 * d * 4
+            + 4 * d * sc,
+            n * (2 * k * d * d + 2 * f * d * 2 * d + 2 * 2 * k * f * d
+                 + 2 * k * d * d), kind),
+        names[2]: bound(
+            act + ffn_w * wb + (inter + 3 * d) * 4 + (inter + d) * sc,
+            n * 2 * 2 * k * d * inter, kind),
+    }
+
+
 def static_bounds() -> dict:
     """bound_ms and bound_by of the kernels whose work depends on the shapes
     alone, at the shapes their "ms" is timed at: B1-B6 (4096 items), B8 (the
     first serving projection), B9a and B9b (K2 and B11: retrieval_bound).
     Activations in and out once, weights once (bf16, or int8 codes plus
     float32 column scales), float32 vectors."""
-    d, k, f, inter, n = QF_D, QF_K, QF_F, QF_INTER, BLOCK_ITEMS[0]
-    act = 2 * 2 * n * k * d
-    out = {}
-    for kind, names, wb in (("bf16", ("b1", "b2", "b3"), 2),
-                            ("int8", ("b4", "b5", "b6"), 1)):
-        sc = 4 if kind == "int8" else 0  # a float32 scale per output column
-        self_w, cross_w, ffn_w = 4 * d * d, 4 * d * d, 2 * d * inter
-        out[names[0]] = bound(
-            act + self_w * wb + 6 * d * 4 + 4 * d * sc,
-            n * (2 * k * d * 3 * d + 2 * 2 * k * k * d + 2 * k * d * d), kind)
-        out[names[1]] = bound(
-            act + n * f * d * 2 + n * f * 4 + cross_w * wb + 6 * d * 4
-            + 4 * d * sc,
-            n * (2 * k * d * d + 2 * f * d * 2 * d + 2 * 2 * k * f * d
-                 + 2 * k * d * d), kind)
-        out[names[2]] = bound(
-            act + ffn_w * wb + (inter + 3 * d) * 4 + (inter + d) * sc,
-            n * 2 * 2 * k * d * inter, kind)
+    out = {**sweep_block_bounds(BLOCK_ITEMS[0], 2, "bf16"),
+           **sweep_block_bounds(BLOCK_ITEMS[0], 2, "int8")}
 
     def linear(m, kk, nn):
         return bound(2 * m * kk + nn * kk + 4 * nn + 2 * m * nn,
@@ -764,10 +793,13 @@ def check_block(name, err, cos, where):
         raise AssertionError(f"{name} {where} disagrees with its plain version")
 
 
-def block_inputs(gen, items):
-    """Unit-scale bf16 activations, ~15% missing fields, >= 8 items with no
-    field at all, and random weights of the blocks' layouts."""
-    def rand(*shape, std=1.0, dtype=torch.bfloat16):
+def block_inputs(gen, items, dtype=torch.bfloat16):
+    """Unit-scale activations in ``dtype`` (bf16, or float32 for the fp32
+    forms), ~15% missing fields, >= 8 items with no field at all, and random
+    weights of the blocks' layouts in ``dtype``."""
+    act = dtype
+
+    def rand(*shape, std=1.0, dtype=act):
         return (torch.randn(*shape, device="cuda", generator=gen) * std
                 ).to(dtype)
 
@@ -778,7 +810,7 @@ def block_inputs(gen, items):
     x = rand(items, k, d)
     mask = (torch.rand(items, f, device="cuda", generator=gen) > 0.15).float()
     mask[:: max(items // 8, 1)][:8] = 0.0
-    mem = rand(items, f, d) * mask[..., None].bfloat16()
+    mem = rand(items, f, d) * mask[..., None].to(act)
     key_bias = ((1.0 - mask) * -1e9).contiguous()
     self_w = dict(wqkv=rand(3 * d, d, std=0.03), bqkv=vec(3 * d),
                   wo=rand(d, d, std=0.03), bo=vec(d), ln_gamma=vec(d, 1.0),
@@ -1069,7 +1101,7 @@ def phase_wide_k(gen) -> dict:
 # index: EPQ_BIAS, EPQ_BIAS_F32, EPQ_BIAS_RESID, EPQ_CHUNKED_RESID,
 # EPQ_PLAIN, EPQ_SWIGLU
 GEMM_Q_EPIS = ("bias", "bias_f32", "bias_resid", "chunked_resid", "plain",
-               "swiglu")
+               "swiglu", "chunked")
 
 
 def gemm_q_plain(epi: str, a, w, rs, cs, bias, resid, chunk: int,
@@ -1081,12 +1113,12 @@ def gemm_q_plain(epi: str, a, w, rs, cs, bias, resid, chunk: int,
     IEEE division (``exp``: the device's expf on the card is torch.exp's)."""
     from unirec_tpu_torch.ops.fused_qformer_int8 import _int_mm, true_div
 
-    if epi == "chunked_resid":
+    if epi in ("chunked_resid", "chunked"):
         f = torch.zeros(a.shape[0], w.shape[0], device=a.device)
         for g in range(a.shape[1] // chunk):
             c = slice(g * chunk, (g + 1) * chunk)
             f = f + _int_mm(a[:, c], w[:, c]) * rs[:, g:g + 1]
-        return f * cs + bias + resid.float()
+        return f * cs + bias + (resid.float() if epi == "chunked_resid" else 0.0)
     f = _int_mm(a, w) * rs[:, :1] * cs
     if epi == "swiglu":
         g, u = f.chunk(2, dim=1)
@@ -1129,7 +1161,7 @@ def phase_int8_gemm(gen) -> None:
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (wn, k), device="cuda", generator=gen,
                           dtype=torch.int8)
-        groups = k // chunk if epi == "chunked_resid" else 1
+        groups = k // chunk if epi.startswith("chunked") else 1
         rs = torch.rand(m, groups, device="cuda", generator=gen) * 1e-3
         cs = torch.rand(wn, device="cuda", generator=gen) * 1e-2
         bias = torch.randn(n, device="cuda", generator=gen) * 0.1
@@ -1308,31 +1340,33 @@ def kernel_error(name, out, ref, where, noise_rows=None,
     return err
 
 
-def b12_bounds(items: int) -> dict:
+def b12_bounds(items: int, elem: int = 2, kind: str = "bf16") -> dict:
     """bound_ms and bound_by of the four B12 kernels at ``items`` items of
-    the production widths: inputs read once and outputs written once (bf16;
-    float32 key bias and biases; dctx is the kernels' own scratch), and the
-    projection and per-item attention products (s and p.v forward; s, dp,
-    dq, dk and dv backward) in bf16."""
+    the production widths: inputs read once and outputs written once
+    (``elem`` bytes: bf16, or 4 for the fp32 forms; float32 key bias and
+    biases; dctx is the kernels' own scratch), and the projection and
+    per-item attention products (s and p.v forward; s, dp, dq, dk and dv
+    backward) at ``kind``'s rate."""
     d, k, f, h = QF_D, QF_K, QF_F, QF_HEADS
     rows, mrows = items * k, items * f
-    w = 2 * d * d  # one [d, d] bf16 weight
+    e = elem
+    w = e * d * d  # one [d, d] weight
     attn = 2 * k * (d // h) * h  # one [k, n] x [n, hd] product per row pair
     return {
-        "b12s_fwd": bound(2 * rows * d + 4 * w + 4 * 4 * d + 4 * rows
-                          + 2 * rows * (d + 3 * d + d),
-                          2 * rows * d * 4 * d + 2 * attn * rows, "bf16"),
-        "b12s_bwd": bound(2 * rows * 3 * d + w + 4 * rows + 2 * rows * d
-                          + 2 * rows * 3 * d,
-                          2 * rows * d * d + 5 * attn * rows, "bf16"),
-        "b12c_fwd": bound(2 * rows * d + 2 * mrows * d + 4 * w + 4 * 4 * d
-                          + 4 * mrows + 2 * rows * 3 * d + 2 * mrows * 2 * d,
+        "b12s_fwd": bound(e * rows * d + 4 * w + 4 * 4 * d + 4 * rows
+                          + e * rows * (d + 3 * d + d),
+                          2 * rows * d * 4 * d + 2 * attn * rows, kind),
+        "b12s_bwd": bound(e * rows * 3 * d + w + 4 * rows + e * rows * d
+                          + e * rows * 3 * d,
+                          2 * rows * d * d + 5 * attn * rows, kind),
+        "b12c_fwd": bound(e * rows * d + e * mrows * d + 4 * w + 4 * 4 * d
+                          + 4 * mrows + e * rows * 3 * d + e * mrows * 2 * d,
                           2 * rows * d * 2 * d + 2 * mrows * d * 2 * d
-                          + 2 * 2 * k * f * d * items, "bf16"),
-        "b12c_bwd": bound(2 * rows * d + 2 * mrows * 2 * d + w + 4 * mrows
-                          + 2 * rows * d + 2 * rows * d + 2 * mrows * 2 * d,
+                          + 2 * 2 * k * f * d * items, kind),
+        "b12c_bwd": bound(e * rows * d + e * mrows * 2 * d + w + 4 * mrows
+                          + e * rows * d + e * rows * d + e * mrows * 2 * d,
                           2 * rows * d * d + 5 * 2 * k * f * d * items,
-                          "bf16"),
+                          kind),
     }
 
 
@@ -1559,6 +1593,354 @@ def phase_b12_shapes(gen) -> dict:
 
 
 # -- B13 / B14: the user stage's streaming cross-attention --------------------
+
+
+# -- the fp32 forms of B1-B6 and B12 ("fp32 fused") ---------------------------
+
+# the blocks' and the engine's batch, B12's (the item-training shape), and
+# the engine's gates: the fp32 engine against the plain fp32 ItemQFormer,
+# the int8 engine at fp32 activations against it (the gate of
+# scripts/measure_int8_quality.py); B1-B3 and B12 take KERNEL_TOL[float32]
+FP32_ITEMS, FP32_B12_ITEMS = 1024, 512
+FP32_ENGINE_REL, FP32_ENGINE_COS, FP32_INT8_COS = 1e-4, 0.99999, 0.999
+
+
+def b6_codes(x, fw) -> torch.Tensor:
+    """x's int8 codes as B6's kernel quantizes them: the C entry called with
+    scratch made here (not the wrapper: no launch is counted), whose xq
+    holds x's codes when it returns."""
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops._build import check, load_kernels
+    from unirec_tpu_torch.ops.attention import dtype_code
+
+    rows, d = x.shape[0] * x.shape[1], x.shape[2]
+    inter = fw["w1"].shape[0]
+    chunk = pq.ffn_q_chunk(inter)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(*shape, device=x.device, dtype=dtype)
+
+    xq = empty(rows, d, dtype=torch.int8)
+    scratch = [empty(rows), empty(rows, inter),
+               empty(rows, inter, dtype=torch.int8),
+               empty(rows, inter // chunk), empty(rows, d)]
+    out = torch.empty_like(x)
+    err = load_kernels().lib.unirec_qformer_ffn_block_q(
+        x.data_ptr(), fw["w1"].data_ptr(), fw["s1"].data_ptr(),
+        fw["b1"].data_ptr(), fw["w2"].data_ptr(), fw["s2"].data_ptr(),
+        fw["b2"].data_ptr(), fw["ln_gamma"].data_ptr(),
+        fw["ln_beta"].data_ptr(), out.data_ptr(), xq.data_ptr(),
+        *(t.data_ptr() for t in scratch), rows, d, inter, chunk,
+        dtype_code(x), 1e-12, torch.cuda.current_stream().cuda_stream)
+    check(err, "unirec_qformer_ffn_block_q")
+    torch.cuda.synchronize()
+    return xq
+
+
+def fp32_blocks(gen) -> dict:
+    """B1-B3 at float32 and B4-B6 at float32 activations, production widths,
+    FP32_ITEMS items: each against its plain version (B1-B3 max|d| /
+    max|ref| <= 1e-5; B4-B6 the int8 blocks' gate), repeated for identical
+    bits with exact launch counts, x's int8 codes in B6 those of the plain
+    row_quant of the fp32 x bit for bit; timed beside the plain versions,
+    the bounds and, for B1-B3, cuBLAS fp32 for the products alone."""
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+
+    n = FP32_ITEMS
+    x, mem, key_bias, mask, sw, cw, fw = block_inputs(gen, n, torch.float32)
+    qsw, qcw, qfw = quantized(sw), quantized(cw), quantized(fw)
+    sk = dict(num_heads=QF_HEADS, n_q=QF_K)
+    ck = dict(sk, n_kv=QF_F)
+    blocks = {
+        "b1": (fq.fused_self_attention_block,
+               fq.fused_self_attention_block_plain, (x,), sw, sk),
+        "b2": (fq.fused_cross_attention_block,
+               fq.fused_cross_attention_block_plain, (x, mem, key_bias), cw,
+               ck),
+        "b3": (fq.fused_ffn_block, fq.fused_ffn_block_plain, (x,), fw, {}),
+        "b4": (pq.fused_self_attention_block_q,
+               pq.fused_self_attention_block_q_plain, (x,), qsw, sk),
+        "b5": (pq.fused_cross_attention_block_q,
+               pq.fused_cross_attention_block_q_plain, (x, mem, key_bias),
+               qcw, ck),
+        "b6": (pq.fused_ffn_block_q, pq.fused_ffn_block_q_plain, (x,), qfw,
+               {}),
+    }
+    bounds = {**sweep_block_bounds(n, 4, "fp32"),
+              **sweep_block_bounds(n, 4, "int8")}
+    library = block_products_ms(x, mem, sw, cw, fw)
+    where = f"{n} items, fp32 activations"
+    result = {}
+    for name, (fn, plain_fn, args, w, kw) in blocks.items():
+        def kern(fn=fn, args=args, w=w, kw=kw):
+            return fn(*args, **w, **kw)
+
+        def plain(plain_fn=plain_fn, args=args, w=w, kw=kw):
+            return plain_fn(*args, **w, **kw)
+
+        fn.launches = 0
+        out = kern()
+        torch.cuda.synchronize()
+        again = kern()
+        torch.cuda.synchronize()
+        if fn.launches != 2:
+            raise AssertionError(f"{name.upper()} fp32: {fn.launches} "
+                                 "launches for 2 calls")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name.upper()} fp32: a repeat gave other "
+                                 "bits")
+        if out.dtype != torch.float32 or out.shape != x.shape:
+            raise AssertionError(f"{name.upper()} fp32: {out.dtype} "
+                                 f"{tuple(out.shape)}")
+        ref = plain()
+        if name in ("b1", "b2", "b3"):
+            err = kernel_error(f"{name.upper()} fp32", out, ref, where)
+        else:
+            err, cos = block_error(out, ref)
+            check_block(f"{name.upper()} fp32", err, cos, where)
+        t_k = time_ms(kern, iters=5, warmup=1)
+        t_p = time_ms(plain, iters=3, warmup=1)
+        t_k2 = time_ms(kern, iters=5, warmup=1)
+        b_ms, b_by = bounds[name]
+        result[name] = dict(err=err, ms=min(t_k, t_k2), plain_ms=t_p,
+                            bound_ms=b_ms, bound_by=b_by,
+                            library_ms=library.get(name))
+        log(f"{name.upper()} fp32 time {n} items: kernel {t_k:.4f} / "
+            f"{t_k2:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})" + (
+                f", cuBLAS fp32 for its products alone {library[name]:.4f} ms"
+                if name in library else ", no library call (int8 products)"))
+        del out, again, ref
+    codes = b6_codes(x, qfw)
+    want = pq.row_quant(x)[0].reshape(codes.shape)
+    via_bf16 = pq.row_quant(x.bfloat16())[0].reshape(codes.shape)
+    log(f"B6 fp32: x's int8 codes equal the plain row_quant of the fp32 x: "
+        f"{bool(torch.equal(codes, want))}; quantizing x cast to bf16 first "
+        f"would change {int((via_bf16 != want).sum())} of {want.numel()} "
+        "codes")
+    if not torch.equal(codes, want):
+        raise AssertionError("B6 fp32: x's codes are not those of its fp32 "
+                             "values")
+    del x, mem, key_bias, sw, cw, fw, qsw, qcw, qfw, blocks
+    torch.cuda.empty_cache()
+    return result
+
+
+def fp32_b12(gen) -> dict:
+    """B12s and B12c at float32, forward and backward, at the item-training
+    shape: against their plain versions (max|d| / max|ref| <= 1e-5 over each
+    output, C-11's rule: a row near zero is held to its tensor's scale),
+    repeated for identical bits; timed beside the plain versions, the bounds
+    (operations at the fp32 rate) and multi_head_attention_forward in fp32;
+    then the differentiable blocks through autograd with exact launch
+    counts (the rows' launches: that run's)."""
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    d, k, f, n = QF_D, QF_K, QF_F, FP32_B12_ITEMS
+    skw = dict(num_heads=QF_HEADS, n_q=k)
+    ckw = dict(skw, n_kv=f)
+    x, mem, key_bias, mask, sw, cw, _ = block_inputs(gen, n, torch.float32)
+    x2, mem2 = x.reshape(-1, d), mem.reshape(-1, d)
+    kb = key_bias.reshape(-1).contiguous()
+    zero = torch.zeros(x2.shape[0], device="cuda")
+    dout = torch.randn(x2.shape, device="cuda", generator=gen) * 0.1
+    sa = (x2, zero, sw["wqkv"], sw["bqkv"], sw["wo"], sw["bo"])
+    ca = (x2, mem2, kb, cw["wq"], cw["bq"], cw["wkv"], cw["bkv"], cw["wo"],
+          cw["bo"])
+    s_out = fv.self_attention_fwd(*sa, **skw)
+    c_out = fv.cross_attention_fwd(*ca, **ckw)
+    qkv, q, kv = s_out[1], c_out[1], c_out[2]
+    runs = {
+        "b12s_fwd": (lambda: fv.self_attention_fwd(*sa, **skw),
+                     lambda: fv.self_attention_fwd_plain(*sa, **skw),
+                     ("out", "qkv", "ctx")),
+        "b12s_bwd": (lambda: fv.self_attention_bwd(qkv, sw["wo"], zero, dout,
+                                                   **skw),
+                     lambda: fv.self_attention_bwd_plain(
+                         qkv, sw["wo"], zero, dout, **skw), ("dqkv",)),
+        "b12c_fwd": (lambda: fv.cross_attention_fwd(*ca, **ckw),
+                     lambda: fv.cross_attention_fwd_plain(*ca, **ckw),
+                     ("out", "q", "kv", "ctx")),
+        "b12c_bwd": (lambda: fv.cross_attention_bwd(q, kv, cw["wo"], kb, dout,
+                                                    **ckw),
+                     lambda: fv.cross_attention_bwd_plain(
+                         q, kv, cw["wo"], kb, dout, **ckw), ("dq", "dkv")),
+    }
+    where = f"{n} items fp32, {int((mask.sum(1) == 0).sum())} without fields"
+    bounds = b12_bounds(n, 4, "fp32")
+    library = b12_library_calls(x, mem, key_bias, sw, cw)
+    result = {}
+    for name, (kern, plain, outs) in runs.items():
+        got = kern()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(kernel_error(f"{name.upper()} fp32 {o}", g, r, where)
+                  for o, g, r in zip(outs, got, ref))
+        again = kern()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name.upper()} fp32: a repeat gave other "
+                                 "bits")
+        if name in library:  # the same function: out
+            lib_out = library[name]().transpose(0, 1).reshape(-1, d)
+            cos = torch.nn.functional.cosine_similarity(
+                lib_out, got[0], dim=-1).min().item()
+            if not cos >= 0.999:
+                raise AssertionError(f"{name.upper()} fp32: the yardstick "
+                                     f"computes another function ({cos})")
+        t_k = time_ms(kern, iters=10, warmup=2)
+        t_p = time_ms(plain, iters=3, warmup=1)
+        t_k2 = time_ms(kern, iters=10, warmup=2)
+        t_l = (time_ms(library[name], iters=10, warmup=2)
+               if name in library else None)
+        b_ms, b_by = bounds[name]
+        result[name] = dict(err=err, ms=min(t_k, t_k2), plain_ms=t_p,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        log(f"{name.upper()} fp32 time {n} items: kernel {t_k:.4f} / "
+            f"{t_k2:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})" + (
+                f", multi_head_attention_forward fp32 {t_l:.4f} ms (out only)"
+                if t_l is not None
+                else ", no single PyTorch call computes it"))
+    # the entry points a trainer calls: the differentiable blocks
+    wrappers = (fv.self_attention_fwd, fv.self_attention_bwd,
+                fv.cross_attention_fwd, fv.cross_attention_bwd)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, mem, sw["wqkv"], cw["wkv"])]
+    for fn in wrappers:
+        fn.launches = 0
+    out_s = fv.fused_self_attention_train(
+        leaves[0], zero.reshape(n, k), leaves[2], sw["bqkv"], sw["wo"],
+        sw["bo"], num_heads=QF_HEADS)
+    out_c = fv.fused_cross_attention_train(
+        leaves[0], leaves[1], key_bias, cw["wq"], cw["bq"], leaves[3],
+        cw["bkv"], cw["wo"], cw["bo"], num_heads=QF_HEADS)
+    grads = torch.autograd.grad((out_s * out_c).sum(), leaves)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in zip(runs, wrappers)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"B12 fp32 through fused_self/cross_attention_train and autograd: "
+        f"launches {launches} (want 1 each), gradients finite {finite}")
+    if any(v != 1 for v in launches.values()) or not finite:
+        raise AssertionError("B12 fp32: the autograd run's launches or "
+                             "gradients are wrong")
+    for name in runs:
+        result[name]["launches"] = launches[name]
+    del x, mem, runs, s_out, c_out, qkv, q, kv, grads, leaves
+    torch.cuda.empty_cache()
+    return result
+
+
+def fp32_engine(smi: str) -> dict:
+    """The fused engine at ``ItemQFormerConfig()`` (12 layers) on FP32_ITEMS
+    items with float32 activations: ``prepare_fused_params(model, cfg,
+    dtype=torch.float32)`` against the plain fp32 ``ItemQFormer`` forward
+    (max|d| / max|ref| <= 1e-4, per-token cosine >= 0.99999), and the same
+    with ``precision="int8"`` (per-token cosine >= 0.999 against the fp32
+    model); exact launch counts of B1-B6 (the fp32 rows' launches), items/s
+    and peak memory."""
+    from unirec_tpu_torch.configs import ItemQFormerConfig
+    from unirec_tpu_torch.inference.fused_qformer import (
+        fused_qformer_forward,
+        prepare_fused_params,
+    )
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+    from unirec_tpu_torch.utils.weights import init_item_qformer
+
+    cfg = ItemQFormerConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    model = init_item_qformer(cfg, gen, device="cuda", dtype=torch.float32)
+    n, f, dm = FP32_ITEMS, cfg.num_fields, cfg.field_embedding_dim
+    mask = (torch.rand(n, f, device="cuda", generator=gen) > 0.15).float()
+    mask[::128] = 0.0  # items with no field at all
+    emb = torch.randn(n, f, dm, device="cuda", generator=gen) * mask[..., None]
+    n_layers = cfg.num_hidden_layers
+    n_cross = len(range(0, n_layers, cfg.qformer().cross_attention_freq))
+    with torch.inference_mode():
+        ref = model.query_outputs(emb, mask).float()
+    result = {}
+    for precision, names, blocks in (
+            ("bf16", ("b1", "b2", "b3"),
+             (fq.fused_self_attention_block, fq.fused_cross_attention_block,
+              fq.fused_ffn_block)),
+            ("int8", ("b4", "b5", "b6"),
+             (pq.fused_self_attention_block_q,
+              pq.fused_cross_attention_block_q, pq.fused_ffn_block_q))):
+        label = "fp32" if precision == "bf16" else "int8 at fp32 activations"
+        fused = prepare_fused_params(model, cfg, dtype=torch.float32,
+                                     precision=precision)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in blocks:
+            fn.launches = 0
+        with torch.inference_mode():
+            got = fused_qformer_forward(fused, cfg, emb, mask)
+            torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in zip(names, blocks)}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = dict(zip(names, (n_layers, n_cross, n_layers)))
+        if got.dtype != torch.float32 or got.shape != ref.shape:
+            raise AssertionError(f"engine {label}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        cos = token_cosines(got, ref)
+        with torch.inference_mode():
+            rate = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused_qformer_forward(fused, cfg, emb, mask)
+                torch.cuda.synchronize()
+                rate.append(n / (time.perf_counter() - t0))
+        rate.sort()
+        log(f"[{smi}] engine {label} at ItemQFormerConfig() ({n_layers} "
+            f"layers), {n} items: vs the plain fp32 ItemQFormer max|d|/"
+            f"max|ref| {rel:.3e}, min token cosine {cos.min().item():.7f} "
+            f"(mean {cos.mean().item():.7f}); launches {launches} (want "
+            f"{want}); median {rate[1]:.1f} items/s (min {rate[0]:.1f}, max "
+            f"{rate[2]:.1f}; 3 synced batches); peak device memory "
+            f"{peak_gb:.2f} GB (max_memory_allocated over the first forward, "
+            "the engine's weights and the fp32 model included)")
+        if launches != want:
+            raise AssertionError(f"engine {label}: launches {launches}, want "
+                                 f"{want}")
+        if precision == "bf16" and not (
+                rel <= FP32_ENGINE_REL
+                and cos.min().item() >= FP32_ENGINE_COS):
+            raise AssertionError("the fp32 engine disagrees with the fp32 "
+                                 "ItemQFormer")
+        if precision == "int8" and not cos.min().item() >= FP32_INT8_COS:
+            raise AssertionError("the int8 engine at fp32 activations fails "
+                                 "the int8 quality gate")
+        result.update(launches)
+        result[f"{label} items/s"] = rate[1]
+        result[f"{label} peak GB"] = peak_gb
+        del fused, got
+        torch.cuda.empty_cache()
+    del model, ref, emb
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_fp32_fused(smi: str) -> dict:
+    """The fp32 forms of B1-B6 and B12 (the JAX kernels take float32
+    activations too): the blocks at production widths, B12 at the
+    item-training shape, then the fused engine at ``ItemQFormerConfig()``.
+    Each form's figures, its launches from the engine's run (B1-B6) or the
+    autograd run (B12)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    blocks = fp32_blocks(gen)
+    b12 = fp32_b12(gen)
+    engine = fp32_engine(smi)
+    for name in blocks:
+        blocks[name]["launches"] = engine[name]
+    log(f"phase fp32 fused: {time.perf_counter() - t0:.1f} s")
+    return {**blocks, **b12}
 
 
 def flash_inputs(gen, b, lkv, dtype, d=QF_D):
@@ -5532,6 +5914,9 @@ def main() -> int:
     b12 = phase_b12(gen)
     for key, err in phase_b12_shapes(gen).items():
         b12[key]["err"] = max(b12[key]["err"], err)
+    fp32 = phase_fp32_fused(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     flash = phase_flash_cross(gen)
     b14p = phase_b14p(gen)
     b15 = phase_b15(gen, new_gen)
@@ -5673,6 +6058,34 @@ def main() -> int:
         for key, name, replaces in (
             ("b14p_fwd", "flash_cross_attention_vjp_fwd", "flash_vjp.py:51"),
             ("b14p_bwd", "flash_cross_attention_vjp_bwd", "flash_vjp.py:113"))
+    ] + [
+        # the fp32 forms: launches from phase_fp32_fused's engine run (B1-B6)
+        # and its autograd run (B12); no caller in either package
+        row(name, source, replaces, fp32[key]["launches"], fp32[key]["err"],
+            fp32[key]["ms"], fp32[key]["plain_ms"], fp32[key]["bound_ms"],
+            fp32[key]["bound_by"], fp32[key]["library_ms"],
+            activations="float32")
+        for key, name, source, replaces in (
+            ("b1", "qformer_self_block_fp32", "qformer_blocks.cu",
+             "fused_qformer_layer.py:119"),
+            ("b2", "qformer_cross_block_fp32", "qformer_blocks.cu",
+             "fused_qformer_layer.py:174"),
+            ("b3", "qformer_ffn_block_fp32", "qformer_blocks.cu",
+             "fused_qformer_layer.py:421"),
+            ("b4", "qformer_self_block_q_fp32", "qformer_blocks.cu",
+             "fused_qformer_int8.py:90"),
+            ("b5", "qformer_cross_block_q_fp32", "qformer_blocks.cu",
+             "fused_qformer_int8.py:140"),
+            ("b6", "qformer_ffn_block_q_fp32", "qformer_blocks.cu",
+             "fused_qformer_int8.py:193"),
+            ("b12s_fwd", "qformer_self_block_train_fwd_fp32",
+             "fused_qformer_vjp.cu", "fused_qformer_vjp.py:133"),
+            ("b12s_bwd", "qformer_self_block_train_bwd_fp32",
+             "fused_qformer_vjp.cu", "fused_qformer_vjp.py:162"),
+            ("b12c_fwd", "qformer_cross_block_train_fwd_fp32",
+             "fused_qformer_vjp.cu", "fused_qformer_vjp.py:344"),
+            ("b12c_bwd", "qformer_cross_block_train_bwd_fp32",
+             "fused_qformer_vjp.cu", "fused_qformer_vjp.py:383"))
     ] + [
         row("packed_item_attention", "packed_attention.cu",
             "packed_attention.py:39", b15["launches"], b15["err"],

@@ -14,7 +14,8 @@ emulation of CUDA and hold them to their plain versions (no timing):
   runs past the intermediate width;
 * B4, B5 and B6 (``csrc/qformer_blocks.cu``) on the TMA path and on the edge
   path (a width that is not a multiple of 16 codes), B6 with one chunk and
-  with chunks that end inside a k-tile;
+  with chunks that end inside a k-tile, at bfloat16 and float32 activations
+  (x's codes at float32 those of ``row_quant`` bit for bit);
 * the residual product with its LayerNorm (``unirec_gemm_ln_test``): one
   launch of ``WG_BIAS_RESID_LN`` over a thread-block cluster (partial sums
   through the peers' shared memory) against ``WG_BIAS_RESID`` and
@@ -138,7 +139,7 @@ def check_gemm_q(lib, raw, m, n, k, epi, chunk):
     wn = 2 * n if epi == "swiglu" else n
     a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
     w = torch.randint(-127, 128, (wn, k), generator=gen, dtype=torch.int8)
-    groups = k // chunk if epi == "chunked_resid" else 1
+    groups = k // chunk if epi.startswith("chunked") else 1
     rs = (torch.rand(m, groups, generator=gen) * 1e-3).contiguous()
     cs_ = (torch.rand(wn, generator=gen) * 1e-2).contiguous()
     bias = _vec(gen, n)
@@ -211,13 +212,18 @@ def check_swiglu_block(lib, raw, rows, d, inter):
                 pf.swiglu_mlp_int8_plain(x, wgu, sgu, wd, sd))
 
 
-def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk):
+def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk,
+                      dtype=torch.bfloat16):
+    """B4-B6 at bfloat16 or float32 activations; at float32 x's int8 codes
+    (B6's xq) must be ``row_quant`` of the float32 x bit for bit."""
     gen = torch.Generator().manual_seed(items + d + inter + chunk)
     rows = items * nq
-    x = _bf(gen, items, nq, d)
+    x = torch.randn(items, nq, d, generator=gen).to(dtype)
     mask = (torch.rand(items, nkv, generator=gen) > 0.15).float()
     mask[-1] = 0.0
-    mem = _bf(gen, items, nkv, d) * mask[..., None].bfloat16()
+    mem = (torch.randn(items, nkv, d, generator=gen) * mask[..., None]).to(
+        dtype)
+    code = pa.dtype_code(x)
     kb = ((1.0 - mask) * -1e9).contiguous()
     s = d ** -0.5
     q = {n: pq.quantize_weight(torch.randn(o, i, generator=gen) * s)
@@ -230,7 +236,7 @@ def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk):
     scale = fq._scale(d // heads, torch.bfloat16)
     out = torch.empty_like(x)
     xq, xs = torch.empty(rows, d, dtype=torch.int8), torch.empty(rows)
-    where = f"items {items} K {nq} D {d} heads {heads}"
+    where = f"{str(dtype)[6:]} items {items} K {nq} D {d} heads {heads}"
     if chunk == inter:  # B4, B5 once a width
         qkv = torch.empty(rows, 3 * d).bfloat16()
         ctx = torch.empty(rows, d).bfloat16()
@@ -239,7 +245,7 @@ def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk):
         _twice(raw, lambda: lib.unirec_qformer_self_block_q(
             _p(x), _p(wqkv), _p(sqkv), _p(v["bqkv"]), _p(wo), _p(so),
             _p(v["bo"]), _p(g), _p(b), _p(out), _p(xq), _p(xs), _p(qkv),
-            _p(ctx), _p(acc), items, nq, d, heads, scale, 1e-12, None),
+            _p(ctx), _p(acc), items, nq, d, heads, code, scale, 1e-12, None),
             [out], x, wqkv, sqkv, v["bqkv"], wo, so, v["bo"], g, b, xq, xs,
             qkv, ctx, acc)
         _hold_block(f"B4 {where}", out, pq.fused_self_attention_block_q_plain(
@@ -254,7 +260,7 @@ def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk):
             _p(x), _p(mem), _p(kb), _p(wq), _p(sq), _p(v["bq"]), _p(wkv),
             _p(skv), _p(v["bkv"]), _p(wo), _p(so), _p(v["bo"]), _p(g), _p(b),
             _p(out), _p(xq), _p(xs), _p(mq), _p(ms), _p(qb), _p(kv), _p(ctx),
-            _p(acc), items, nq, nkv, d, d, heads, scale, 1e-12, None),
+            _p(acc), items, nq, nkv, d, d, heads, code, scale, 1e-12, None),
             [out], x, mem, kb, wq, sq, v["bq"], wkv, skv, v["bkv"], wo, so,
             v["bo"], g, b, xq, xs, mq, ms, qb, kv, ctx, acc)
         _hold_block(f"B5 {where} F {nkv}", out,
@@ -270,9 +276,11 @@ def check_int8_blocks(lib, raw, items, nq, nkv, d, heads, inter, chunk):
     _twice(raw, lambda: lib.unirec_qformer_ffn_block_q(
         _p(x), _p(w1), _p(s1), _p(v["b1"]), _p(w2), _p(s2), _p(v["b2"]),
         _p(g), _p(b), _p(out), _p(xq), _p(xs), _p(u), _p(hq), _p(hs),
-        _p(acc), rows, d, inter, chunk, 1e-12, None),
+        _p(acc), rows, d, inter, chunk, code, 1e-12, None),
         [out], x, w1, s1, v["b1"], w2, s2, v["b2"], g, b, xq, xs, u, hq, hs,
         acc)
+    if not torch.equal(xq, pq.row_quant(x)[0].reshape(rows, d)):
+        raise AssertionError(f"B6 {where}: x's codes are not row_quant's")
     _hold_block(f"B6 {where} I {inter} chunk {chunk}", out,
                 pq.fused_ffn_block_q_plain(x, w1, s1, v["b1"], w2, s2,
                                            v["b2"], g, b, chunk=chunk))
@@ -420,6 +428,7 @@ def main() -> int:
                  (150, 320, 384, "chunked_resid", 384),
                  (150, 320, 384, "chunked_resid", 128),
                  (70, 128, 384, "chunked_resid", 192),
+                 (150, 320, 384, "chunked", 128),
                  (150, 320, 384, "plain", 384),
                  (150, 104, 100, "plain", 100),  # the edge kernel
                  (150, 160, 256, "swiglu", 256),  # a gate box past I
@@ -435,6 +444,8 @@ def main() -> int:
     check_int8_blocks(lib, raw, 3, 8, 6, 128, 2, 384, 192)
     check_int8_blocks(lib, raw, 3, 8, 6, 100, 4, 256, 256)
     check_int8_blocks(lib, raw, 2, 8, 6, 104, 4, 192, 64)
+    check_int8_blocks(lib, raw, 3, 8, 6, 128, 2, 384, 192, torch.float32)
+    check_int8_blocks(lib, raw, 2, 8, 6, 100, 4, 256, 256, torch.float32)
     for case in ((150, 128, 64), (150, 896, 64), (40, 1032, 64),
                  (40, 2304, 64)):
         check_gemm_ln(lib, raw, *case)

@@ -153,15 +153,19 @@ def _block_inputs(mask, fields, seed=1):
     return x, (1.0 - mask) * NEG_INF, fields[:5]
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("block", ["self", "cross", "ffn"])
-def test_block_q_matches_jax_kernel(setup, block):
+def test_block_q_matches_jax_kernel(setup, block, dtype):
+    """B4-B6 at bfloat16 and float32 activations (the JAX kernels quantize
+    float32 rows from their float32 values and return float32)."""
     cfg, params, sd, fields, mask = setup
     jl = jax_engine.prepare_fused_params(params, cfg,
                                          precision="int8").layers[0]
     pl = prepare_fused_params(sd, cfg, precision="int8").layers[0]
     x, bias, mem = _block_inputs(mask, fields)
-    jx, px = jnp.asarray(x, jnp.bfloat16), _t(x).bfloat16()
-    jm, pm = jnp.asarray(mem, jnp.bfloat16), _t(mem).bfloat16()
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx, px = jnp.asarray(x, jdt), _t(x).to(tdt)
+    jm, pm = jnp.asarray(mem, jdt), _t(mem).to(tdt)
     if block == "self":
         want = jax_q.fused_self_attention_block_q(
             jx, jl.wqkv, jl.sqkv, jl.bqkv, jl.self_wo, jl.self_so, jl.self_bo,
@@ -184,7 +188,8 @@ def test_block_q_matches_jax_kernel(setup, block):
             jl.ffn_ln_b, interpret=True)
         got = pq.fused_ffn_block_q(px, pl.w1, pl.s1, pl.b1, pl.w2, pl.s2,
                                    pl.b2, pl.ffn_ln_g, pl.ffn_ln_b)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.dtype == tdt and got.shape == want.shape
+    assert want.dtype == jdt
     np.testing.assert_allclose(got.float().numpy(), _np(want),
                                atol=BLOCK_ATOL, rtol=0)
 

@@ -42,6 +42,10 @@ at hidden 1020 and 1032 (C-10).  B1-B3 run on each route of their
 LayerNorm (the cluster epilogue at hidden 1024 and at 896, whose last tile
 is ragged; two passes at 2304 and 1020) and repeat bit for bit; the
 cluster epilogue alone is held to the two-pass route within a bf16 ulp.
+The fp32 forms: B1-B3 and B12s/B12c (forward, backward and through
+autograd) at float32 within 1e-5 of max|ref|, B4-B6 at float32 activations
+within the int8 blocks' gate, B6's codes of x those of its float32 values
+bit for bit.
 """
 
 import pytest
@@ -450,12 +454,20 @@ def test_cluster_layer_norm_matches_two_passes(hopper, m, n, k):
 
 
 def test_blocks_refuse_fp32_on_the_card(hopper):
+    """Since the fp32 forms, float32 is taken and other dtypes (fp16) and
+    weights of another dtype than x are refused."""
     x = torch.zeros(2, K, D, device="cuda")
     w = torch.zeros(3 * D, D, device="cuda")
     v = torch.zeros(3 * D, device="cuda")
     d = torch.zeros(D, device="cuda")
-    with pytest.raises(TypeError):
-        fq.fused_self_attention_block(x, w, v, w[:D], d, d, d,
+    out = fq.fused_self_attention_block(x, w, v, w[:D], d, d, d,
+                                        num_heads=HEADS, n_q=K)
+    assert out.dtype == torch.float32
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fq.fused_self_attention_block(x.half(), w.half(), v, w[:D].half(), d,
+                                      d, d, num_heads=HEADS, n_q=K)
+    with pytest.raises(TypeError, match="wqkv"):
+        fq.fused_self_attention_block(x, w.bfloat16(), v, w[:D], d, d, d,
                                       num_heads=HEADS, n_q=K)
 
 
@@ -812,8 +824,8 @@ def test_b12_autograd_gradients_match_plain(hopper):
 
 
 def test_b12_wrappers_refuse_what_the_kernels_do_not_take(hopper):
-    """fp32 activations are refused; K = 256 (an item the old kernels' shared
-    memory could not hold) is taken since the attention core (C-7); an item
+    """fp16, and activations and weights of two dtypes, are refused; K = 256
+    (an item the old kernels' shared memory could not hold) is taken since the attention core (C-7); an item
     of more query tiles than a grid dimension holds is refused by the C
     entry itself (cudaErrorInvalidValue through check)."""
     from unirec_tpu_torch.ops import fused_qformer_vjp as fv
@@ -823,6 +835,9 @@ def test_b12_wrappers_refuse_what_the_kernels_do_not_take(hopper):
     with pytest.raises(TypeError, match="bfloat16"):
         fv.self_attention_fwd(x.float(), kb, w["wqkv"], b["bqkv"], w["wo"],
                               b["bo"], num_heads=16, n_q=32)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fv.self_attention_fwd(x.half(), kb, w["wqkv"].half(), b["bqkv"],
+                              w["wo"].half(), b["bo"], num_heads=16, n_q=32)
     big = _rand(hopper, 256 * 4, 1024)
     args = (big, torch.zeros(1024, device="cuda"), w["wqkv"], b["bqkv"],
             w["wo"], b["bo"])
@@ -1140,6 +1155,8 @@ def test_b14p_autograd_gradients_match_cpu(hopper, dtype):
     (32 * 1001, D, INTER, "chunked_resid", 1024),
     (32 * 4096, INTER, D, "bias_f32", D),
     (32 * 4096, D, INTER, "chunked_resid", INTER),
+    (32 * 1001, D, INTER, "chunked", INTER),
+    (32 * 1001, D, INTER, "chunked", 1024),
     (4096, QWEN_QKV, QWEN_D, "plain", QWEN_D),
     (4096, QWEN_D, QWEN_I, "plain", QWEN_I),
     (1000, 2 * QWEN_D, QWEN_D, "plain", QWEN_D),
@@ -1160,7 +1177,7 @@ def test_int8_gemm_matches_plain_bit_for_bit(hopper, m, n, k, epi, chunk):
                       dtype=torch.int8)
     w = torch.randint(-127, 128, (wn, k), device="cuda", generator=g,
                       dtype=torch.int8)
-    groups = k // chunk if epi == "chunked_resid" else 1
+    groups = k // chunk if epi.startswith("chunked") else 1
     rs = torch.rand(m, groups, device="cuda", generator=g) * 1e-3
     cs = torch.rand(wn, device="cuda", generator=g) * 1e-2
     bias = _vec(g, n)
@@ -1367,3 +1384,147 @@ def test_flash_cross_bf16_tensor_core_kernels(hopper, hd, lq):
     masked = bias32 != 0
     masked[1] = False
     assert all(bool((g.transpose(1, 2)[masked] == 0).all()) for g in got[1:])
+
+
+# -- the fp32 forms of B1-B6 and B12 ------------------------------------------
+
+
+def _inputs32(g, items):
+    """float32 x and mem (~15% missing fields, >= 8 items with none), the
+    key bias, and float32 weights of B1-B3 (and their int8 forms)."""
+    x = _rand(g, items, K, D, dtype=torch.float32)
+    mask = _missing_mask(g, items)
+    mem = _rand(g, items, F, D, dtype=torch.float32) * mask[..., None]
+    key_bias = ((1.0 - mask) * fq.NEG_INF).contiguous()
+    sw, cw, fw = (
+        {n: t.float() if t.dtype == torch.bfloat16 else t
+         for n, t in w.items()} for w in _block_weights(g, D))
+    return x, mem, key_bias, mask, sw, cw, fw
+
+
+def _blocks32(x, mem, key_bias, sw, cw, fw):
+    """(block, wrapper, plain, args, weights, kwargs) of B1-B6 at float32
+    activations."""
+    sk = dict(num_heads=HEADS, n_q=K)
+    ck = dict(sk, n_kv=F)
+    q = chip_smoke.quantized
+    return [
+        ("b1", fq.fused_self_attention_block,
+         fq.fused_self_attention_block_plain, (x,), sw, sk),
+        ("b1 one item", fq.fused_self_attention_block,
+         fq.fused_self_attention_block_plain, (x[:1].contiguous(),), sw, sk),
+        ("b2", fq.fused_cross_attention_block,
+         fq.fused_cross_attention_block_plain, (x, mem, key_bias), cw, ck),
+        ("b3", fq.fused_ffn_block, fq.fused_ffn_block_plain, (x,), fw, {}),
+        ("b4", pq.fused_self_attention_block_q,
+         pq.fused_self_attention_block_q_plain, (x,), q(sw), sk),
+        ("b5", pq.fused_cross_attention_block_q,
+         pq.fused_cross_attention_block_q_plain, (x, mem, key_bias), q(cw),
+         ck),
+        ("b6", pq.fused_ffn_block_q, pq.fused_ffn_block_q_plain, (x,), q(fw),
+         {}),
+    ]
+
+
+@pytest.mark.parametrize("items", [1001, 1024])
+def test_fp32_blocks_match_plain(hopper, items):
+    """B1-B3 at float32 within 1e-5 of max|ref|; B4-B6 at float32
+    activations within the int8 blocks' gate; float32 out, one counted
+    launch a call, repeats bit for bit."""
+    x, mem, key_bias, _, sw, cw, fw = _inputs32(hopper, items)
+    for name, kern, plain, args, w, kw in _blocks32(x, mem, key_bias, sw, cw,
+                                                    fw):
+        before = kern.launches
+        out = kern(*args, **w, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, name
+        assert out.dtype == torch.float32 and out.shape == args[0].shape
+        ref = plain(*args, **w, **kw)
+        if name.startswith(("b1", "b2", "b3")):
+            _check_kernel(name, out, ref)
+        else:
+            a, b = out.reshape(-1, D), ref.reshape(-1, D)
+            assert bool(torch.isfinite(a).all()), name
+            assert (a - b).abs().max().item() <= BLOCK_ATOL, name
+            assert torch.nn.functional.cosine_similarity(
+                a, b, dim=-1).min().item() >= BLOCK_COS, name
+        assert torch.equal(out, kern(*args, **w, **kw)), name
+
+
+def test_b6_fp32_quantizes_x_from_its_fp32_values(hopper):
+    """B6's kernel at float32 x writes the codes of the plain row_quant of
+    the float32 x, bit for bit (not those of x cast to bf16)."""
+    x, mem, key_bias, _, sw, cw, fw = _inputs32(hopper, 256)
+    codes = chip_smoke.b6_codes(x, chip_smoke.quantized(fw))
+    want = pq.row_quant(x)[0].reshape(codes.shape)
+    assert torch.equal(codes, want)
+    assert not torch.equal(codes, pq.row_quant(x.bfloat16())[0].reshape(
+        codes.shape))
+
+
+@pytest.mark.parametrize("items", [509, 512])
+def test_b12_fp32_matches_plain_and_repeats_bit_for_bit(hopper, items):
+    """B12s and B12c at float32, forward and backward: every output within
+    1e-5 of max|ref| (a row near zero, such as dq of an item with no field,
+    held to its tensor's scale), repeats bit for bit."""
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    x, mem, kb, w, b, dout, _ = _b12_inputs(hopper, items)
+    x, mem, dout = x.float(), mem.float(), dout.float()
+    w = {n: t.float() for n, t in w.items()}
+    b = {n: t.float() for n, t in b.items()}
+    zero = torch.zeros(x.shape[0], device="cuda")
+    sk = dict(num_heads=16, n_q=32)
+    ck = dict(sk, n_kv=14)
+    sa = (x, zero, w["wqkv"], b["bqkv"], w["wo"], b["bo"])
+    ca = (x, mem, kb, w["wq"], b["bq"], w["wkv"], b["bkv"], w["wo"], b["bo"])
+    s_out = fv.self_attention_fwd(*sa, **sk)
+    c_out = fv.cross_attention_fwd(*ca, **ck)
+    runs = [
+        (lambda: fv.self_attention_fwd(*sa, **sk),
+         lambda: fv.self_attention_fwd_plain(*sa, **sk)),
+        (lambda: (fv.self_attention_bwd(s_out[1], w["wo"], zero, dout, **sk),),
+         lambda: (fv.self_attention_bwd_plain(s_out[1], w["wo"], zero, dout,
+                                              **sk),)),
+        (lambda: fv.cross_attention_fwd(*ca, **ck),
+         lambda: fv.cross_attention_fwd_plain(*ca, **ck)),
+        (lambda: fv.cross_attention_bwd(c_out[1], c_out[2], w["wo"], kb,
+                                        dout, **ck),
+         lambda: fv.cross_attention_bwd_plain(c_out[1], c_out[2], w["wo"], kb,
+                                              dout, **ck)),
+    ]
+    for i, (kern, plain) in enumerate(runs):
+        got = kern()
+        torch.cuda.synchronize()
+        for j, (g, r) in enumerate(zip(got, plain())):
+            assert g.dtype == torch.float32
+            _check_kernel(f"run {i} output {j}", g, r)
+        assert all(torch.equal(a, c) for a, c in zip(got, kern()))
+
+
+def test_b12_fp32_autograd_gradients_match_plain(hopper):
+    """The differentiable blocks at float32 on the card against the same
+    Functions on the plain versions (the CPU path), every input's
+    gradient within 1e-5 of max|ref|; one launch of each kernel."""
+    from unirec_tpu_torch.ops import fused_qformer_vjp as fv
+
+    x, mem, kb, w, b, dout, _ = _b12_inputs(hopper, 64)
+    d = x.shape[1]
+    leaves = [t.float().clone().requires_grad_() for t in (
+        x.reshape(64, 32, d), mem.reshape(64, 14, d), w["wq"], b["bq"],
+        w["wkv"], b["bkv"], w["wo"], b["bo"])]
+    before = (fv.cross_attention_fwd.launches, fv.cross_attention_bwd.launches)
+    out = fv.fused_cross_attention_train(leaves[0], leaves[1],
+                                         kb.reshape(64, 14), *leaves[2:],
+                                         num_heads=16)
+    out.backward(dout.float().reshape(out.shape))
+    assert (fv.cross_attention_fwd.launches,
+            fv.cross_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    ref = fv.fused_cross_attention_train(cpu[0], cpu[1],
+                                         kb.reshape(64, 14).cpu(), *cpu[2:],
+                                         num_heads=16)
+    ref.backward(dout.float().reshape(out.shape).cpu())
+    _check_kernel("out", out.detach(), ref.detach().cuda())
+    for i, (g, r) in enumerate(zip(leaves, cpu)):
+        _check_kernel(f"grad {i}", g.grad, r.grad.cuda())

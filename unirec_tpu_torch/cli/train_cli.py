@@ -567,8 +567,10 @@ def _run_joint(args) -> int:
     from unirec_tpu_torch.train.joint import JointDataset, JointTrainer
     from unirec_tpu_torch.utils.checkpoint import (
         check_grad_accum,
+        has_params,
         has_train_state,
         read_meta,
+        restore_params_and_step,
         restore_train_state,
         save_train_state,
     )
@@ -652,9 +654,16 @@ def _run_joint(args) -> int:
         for cand in (os.path.join(args.checkpoint_dir, "latest_model"),
                      os.path.join(args.checkpoint_dir, "best_model"),
                      args.checkpoint_dir):
-            if has_train_state(cand):
+            if has_params(cand):
                 check_grad_accum(read_meta(cand), args.grad_accum)
-                state, meta = restore_train_state(cand, state)
+                if has_train_state(cand):
+                    state, meta = restore_train_state(cand, state)
+                else:
+                    # converted from a pipeline-parallel JAX checkpoint
+                    # (scripts/orbax_to_torch.py): no optimizer state
+                    state, meta = restore_params_and_step(cand, state)
+                    print("restored params + step only (no optimizer state "
+                          "in the checkpoint — it restarts)")
                 best_mrr = float(meta.get("mrr", float("-inf")))
                 print(f"resumed from {cand} at step {state.step} "
                       f"(best MRR {best_mrr:.4f})")

@@ -78,6 +78,9 @@
 //                     the whole 4096) needs no fp32 registers of its own and
 //                     takes the 128 x 256 tile; several fold into BN / 2 fp32
 //                     registers beside the int32 ones, which fit at 128 x 128.
+//   EPQ_CHUNKED       EPQ_CHUNKED_RESID without the residual (B6 at fp32
+//                     activations: its LayerNorm adds the fp32 x, at the
+//                     same rounding point; B4 and B5 take EPQ_BIAS_F32)
 //   EPQ_PLAIN         no bias -> bf16 (the Qwen3 projections B8, B9a and
 //                     B9b's down projection)
 //   EPQ_SWIGLU        W [2N, K] holds gate rows, then up rows (B9b's gate|up
@@ -145,7 +148,8 @@ enum {
   EPQ_BIAS_RESID,
   EPQ_CHUNKED_RESID,
   EPQ_PLAIN,
-  EPQ_SWIGLU
+  EPQ_SWIGLU,
+  EPQ_CHUNKED
 };
 
 // what an epilogue reads besides the sums (unused fields may be null)
@@ -254,7 +258,8 @@ __device__ __forceinline__ void wg_ktile(Acc (&acc)[NA], float (&facc)[FOLD ? NA
 template <int EPI>
 __host__ __device__ constexpr bool wg_f32_out() {
   return EPI == WG_F32 || EPI == WG_BIAS_RESID || EPI == EPQ_BIAS_F32 ||
-         EPI == EPQ_BIAS_RESID || EPI == EPQ_CHUNKED_RESID || EPI == EPQ_SWIGLU;
+         EPI == EPQ_BIAS_RESID || EPI == EPQ_CHUNKED_RESID || EPI == EPQ_SWIGLU ||
+         EPI == EPQ_CHUNKED;
 }
 
 // output columns of a block tile of BN product columns (EPQ_SWIGLU pairs a
@@ -321,7 +326,7 @@ __device__ __forceinline__ void wg_stage(const Acc (&acc)[NA], const float (&fac
           float f;
           if constexpr (FOLD)
             f = facc[i];
-          else if constexpr (EPI == EPQ_CHUNKED_RESID)  // one chunk, folded once
+          else if constexpr (EPI == EPQ_CHUNKED_RESID || EPI == EPQ_CHUNKED)  // folded once
             f = __fadd_rn(0.f, __fmul_rn(__int2float_rn(acc[i]), rs[hf]));
           else
             f = __fmul_rn(__int2float_rn(acc[i]), rs[hf]);
@@ -935,7 +940,7 @@ cudaError_t gemm_q(const void* A, const void* W, const WgEpi& ep, void* C, int M
     return tma ? launch_gemm_tma<int8_t, EPI, 256, false>(A, W, ep, C, M, N, K, stream)
                : cudaErrorInvalidValue;
   } else {
-    if constexpr (EPI == EPQ_CHUNKED_RESID) {
+    if constexpr (EPI == EPQ_CHUNKED_RESID || EPI == EPQ_CHUNKED) {
       if (ep.chunk < K)
         return tma ? launch_gemm_tma<int8_t, EPI, 128, true>(A, W, ep, C, M, N, K, stream)
                    : launch_gemm_edge<int8_t, EPI, true>(A, W, ep, C, M, N, K, stream);

@@ -59,7 +59,14 @@
 //     packed into 64-row tiles, S and P V run on tensor cores, and any head
 //     dim and any number of fields is taken.
 //   * layer_norm_kernel: one warp per row, fp32 mean / centred variance /
-//     rsqrt, output bf16 (the two-pass route above, and B4-B6).
+//     rsqrt, output bf16 or fp32 (the two-pass route above, B4-B6 and the
+//     fp32 forms).
+//   * fp32 forms of B1-B3 (the JAX kernels take float32 x too): every
+//     product on gemm_f32.cuh (fp32 FMA on CUDA cores; TF32 would break the
+//     fp32 gate of 1e-5), the attention on attention_f32.cuh (B15's scalar
+//     fp32 kernel), the fp32 pre-LN sum through HBM and layer_norm_kernel.
+//     Bound by operations at 67 TFLOP/s; a 3xTF32 split on tensor cores is
+//     later work.  B4-B6 take fp32 activations through a dtype argument.
 // What this design spills to HBM that the TPU kernels kept on chip, at 4096
 // items (131,072 query rows): B1 the qkv buffer [rows, 3072] bf16 (805 MB)
 // and ctx [rows, 1024] bf16 (268 MB); B2 q (268 MB), kv [57,344, 2048] bf16
@@ -94,6 +101,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_f32.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_wide.cuh"
 #include "item_attention.cuh"
 
@@ -109,33 +118,52 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// out = (x - mean) * rsqrt(var + eps) * gamma + beta, fp32 in, bf16 out
+__device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+
+// out = (y - mean) * rsqrt(var + eps) * gamma + beta with y = x, or with
+// RESID y = x + resid, resid [rows, d] fp32 (B4-B6 at fp32 activations add
+// their fp32 residual here, after the bias as the JAX kernels do); fp32 in,
+// TO (bf16 or float) out
+template <typename TO, bool RESID>
 __global__ void __launch_bounds__(LN_THREADS)
-layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, bf16* __restrict__ out, int rows, int d,
-                  float eps) {
+layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ resid,
+                  const float* __restrict__ gamma, const float* __restrict__ beta,
+                  TO* __restrict__ out, int rows, int d, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const float* xr = x + (size_t)row * d;
+  const float* rr = resid + (size_t)row * d;
+  auto y = [&](int c) {
+    if constexpr (RESID) return __fadd_rn(xr[c], rr[c]);
+    else return xr[c];
+  };
   float s = 0.f;
-  for (int c = lane; c < d; c += 32) s += xr[c];
+  for (int c = lane; c < d; c += 32) s += y(c);
   const float mu = warp_sum(s) / (float)d;
   float v = 0.f;
   for (int c = lane; c < d; c += 32) {
-    const float xc = xr[c] - mu;
+    const float xc = y(c) - mu;
     v += xc * xc;
   }
   const float r = 1.0f / sqrtf(warp_sum(v) / (float)d + eps);
-  bf16* o = out + (size_t)row * d;
-  for (int c = lane; c < d; c += 32) o[c] = __float2bfloat16((xr[c] - mu) * r * gamma[c] + beta[c]);
+  TO* o = out + (size_t)row * d;
+  for (int c = lane; c < d; c += 32) store_as(o + c, (y(c) - mu) * r * gamma[c] + beta[c]);
 }
 
+template <typename TO = bf16>
 cudaError_t layer_norm(const float* x, const float* gamma, const float* beta, void* out,
-                       int rows, int d, float eps, cudaStream_t stream) {
+                       int rows, int d, float eps, cudaStream_t stream,
+                       const float* resid = nullptr) {
   const int per_block = LN_THREADS / 32;
-  layer_norm_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, stream>>>(
-      x, gamma, beta, static_cast<bf16*>(out), rows, d, eps);
+  const int blocks = (rows + per_block - 1) / per_block;
+  if (resid != nullptr)
+    layer_norm_kernel<TO, true><<<blocks, LN_THREADS, 0, stream>>>(
+        x, resid, gamma, beta, static_cast<TO*>(out), rows, d, eps);
+  else
+    layer_norm_kernel<TO, false><<<blocks, LN_THREADS, 0, stream>>>(
+        x, resid, gamma, beta, static_cast<TO*>(out), rows, d, eps);
   return cudaGetLastError();
 }
 
@@ -422,33 +450,132 @@ extern "C" int unirec_qformer_ffn_block(const void* x, const void* w1, const flo
   return (int)resid_ln(h, w2, b2, x, gamma, beta, eps, out, acc, rows, d, inter, s);
 }
 
-// B4, the W8A8 B1.  x, out [items*nq, d] bf16; wqkv [3d, d] int8 (rows
-// Wq | Wk | Wv) with column scales sqkv [3d]; wo [d, d] int8, so [d];
-// scratch xq [items*nq, d] int8 and xs [items*nq] fp32 (x's codes and row
-// scales, then ctx's), qkv [items*nq, 3d] bf16, ctx [items*nq, d] bf16,
+// The fp32 forms of B1-B3: the JAX kernels at float32 (x, weights, qkv, ctx,
+// h and out all fp32, unirec_tpu/ops/fused_qformer_layer.py:143, :204, :211,
+// :452; exact erf gelu, :532).  Every product on gemm_f32.cuh (fp32 FMA on
+// CUDA cores, no TF32), the attention on attention_f32.cuh's scalar kernel
+// (B15's), the residual product writing the fp32 pre-LN sum into acc and
+// layer_norm_kernel<float> normalising it (the JAX two-pass route, :148-164).
+// Arguments as the bf16 entries', every tensor float32, acc always needed.
+
+// B1 fp32.  scratch qkv [items*nq, 3d], ctx [items*nq, d], acc [items*nq, d].
+extern "C" int unirec_qformer_self_block_f32(const float* x, const float* wqkv,
+                                             const float* bqkv, const float* wo, const float* bo,
+                                             const float* gamma, const float* beta, float* out,
+                                             float* qkv, float* ctx, float* acc, int items,
+                                             int nq, int d, int heads, float scale, float eps,
+                                             void* stream) {
+  const long long rows = (long long)items * nq;
+  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_f32_shape_ok(rows, 3 * d, d))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = (int)rows, hd = d / heads;
+  const Strides qkv_s{(long long)nq * 3 * d, hd, 3LL * d}, ctx_s{(long long)nq * d, hd, d};
+  UNIREC_TRY(gemm_f32<GF_BIAS>(x, wqkv, bqkv, nullptr, qkv, m, 3 * d, d, s));
+  UNIREC_TRY(attention_f32_fwd(qkv, qkv_s, qkv + d, qkv_s, qkv + 2 * d, qkv_s, nullptr, ctx,
+                               ctx_s, items, heads, nq, nq, hd, scale, s));
+  UNIREC_TRY(gemm_f32<GF_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
+  return (int)layer_norm<float>(acc, gamma, beta, out, m, d, eps, s);
+}
+
+// B2 fp32.  mem [items*nkv, dm]; key_bias [items, nkv]; scratch q
+// [items*nq, d], kv [items*nkv, 2d], ctx [items*nq, d], acc [items*nq, d].
+extern "C" int unirec_qformer_cross_block_f32(
+    const float* x, const float* mem, const float* key_bias, const float* wq, const float* bq,
+    const float* wkv, const float* bkv, const float* wo, const float* bo, const float* gamma,
+    const float* beta, float* out, float* q, float* kv, float* ctx, float* acc, int items, int nq,
+    int nkv, int d, int dm, int heads, float scale, float eps, void* stream) {
+  const long long rows = (long long)items * nq;
+  const long long mem_rows = (long long)items * nkv;
+  if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_f32_shape_ok(rows, d, d) ||
+      !gemm_f32_shape_ok(mem_rows, 2 * d, dm))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = (int)rows, hd = d / heads;
+  const Strides q_s{(long long)nq * d, hd, d}, kv_s{(long long)nkv * 2 * d, hd, 2LL * d};
+  UNIREC_TRY(gemm_f32<GF_BIAS>(x, wq, bq, nullptr, q, m, d, d, s));
+  UNIREC_TRY(gemm_f32<GF_BIAS>(mem, wkv, bkv, nullptr, kv, mem_rows, 2 * d, dm, s));
+  UNIREC_TRY(attention_f32_fwd(q, q_s, kv, kv_s, kv + d, kv_s, key_bias, ctx, q_s, items, heads,
+                               nq, nkv, hd, scale, s));
+  UNIREC_TRY(gemm_f32<GF_BIAS_RESID>(ctx, wo, bo, x, acc, m, d, d, s));
+  return (int)layer_norm<float>(acc, gamma, beta, out, m, d, eps, s);
+}
+
+// B3 fp32.  scratch h [rows, inter] (the gelu output, fp32 as the JAX kernel
+// keeps it), acc [rows, d].  The JAX kernel streams I in chunks summed in
+// fp32 (:470); here the down product sums all of I in one k loop.
+extern "C" int unirec_qformer_ffn_block_f32(const float* x, const float* w1, const float* b1,
+                                            const float* w2, const float* b2, const float* gamma,
+                                            const float* beta, float* out, float* h, float* acc,
+                                            int rows, int d, int inter, float eps, void* stream) {
+  if (!gemm_f32_shape_ok(rows, inter, d) || !gemm_f32_shape_ok(rows, d, inter))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  UNIREC_TRY(gemm_f32<GF_BIAS_GELU>(x, w1, b1, nullptr, h, rows, inter, d, s));
+  UNIREC_TRY(gemm_f32<GF_BIAS_RESID>(h, w2, b2, x, acc, rows, d, inter, s));
+  return (int)layer_norm<float>(acc, gamma, beta, out, rows, d, eps, s);
+}
+
+// The activations of B4-B6 (x, mem and out) are bf16 (dtype 1) or float32
+// (dtype 0), as the JAX kernels take either (unirec_tpu/ops/
+// fused_qformer_int8.py:110, :132, :137): fp32 rows are quantized from their
+// fp32 values (row_quant_kernel<float>; a cast to bf16 first would change
+// the codes), the residual product leaves the residual out (EPQ_BIAS_F32,
+// EPQ_CHUNKED) and the LayerNorm pass adds the fp32 x and writes fp32.
+// Inside, qkv, q, kv and ctx stay bf16 at either dtype, as the JAX kernels
+// keep them.
+static cudaError_t quant_act(int dtype, const void* x, void* q, float* scale, int rows,
+                             int width, cudaStream_t s) {
+  return dtype == 0 ? row_quant<float>(x, q, scale, rows, width, width, s)
+                    : row_quant<bf16>(x, q, scale, rows, width, width, s);
+}
+
+// B4 / B5's residual product (Wo) at either dtype: + bias + the bf16
+// residual, or + bias alone at fp32 (the LayerNorm adds the fp32 x)
+static cudaError_t residual_q(int dtype, const void* ctx_q, const void* wo, const WgEpi& ep,
+                              float* acc, int m, int d, cudaStream_t s) {
+  return dtype == 1 ? gemm_q<EPQ_BIAS_RESID>(ctx_q, wo, ep, acc, m, d, d, s)
+                    : gemm_q<EPQ_BIAS_F32>(ctx_q, wo, ep, acc, m, d, d, s);
+}
+
+// the residual product's LayerNorm at either dtype (acc holds the bf16
+// form's full pre-LN sum, the fp32 form's without x)
+static cudaError_t ln_act(int dtype, const float* acc, const void* x, const float* gamma,
+                          const float* beta, void* out, int rows, int d, float eps,
+                          cudaStream_t s) {
+  return dtype == 0 ? layer_norm<float>(acc, gamma, beta, out, rows, d, eps, s,
+                                        static_cast<const float*>(x))
+                    : layer_norm<bf16>(acc, gamma, beta, out, rows, d, eps, s);
+}
+
+// B4, the W8A8 B1.  x, out [items*nq, d] bf16 or fp32 (dtype); wqkv [3d, d]
+// int8 (rows Wq | Wk | Wv) with column scales sqkv [3d]; wo [d, d] int8, so
+// [d]; scratch xq [items*nq, d] int8 and xs [items*nq] fp32 (x's codes and
+// row scales, then ctx's), qkv [items*nq, 3d] bf16, ctx [items*nq, d] bf16,
 // acc [items*nq, d] fp32.
 extern "C" int unirec_qformer_self_block_q(const void* x, const void* wqkv, const float* sqkv,
                                            const float* bqkv, const void* wo, const float* so,
                                            const float* bo, const float* gamma,
                                            const float* beta, void* out, void* xq, float* xs,
                                            void* qkv, void* ctx, float* acc, int items, int nq,
-                                           int d, int heads, float scale, float eps,
+                                           int d, int heads, int dtype, float scale, float eps,
                                            void* stream) {
   const long long rows = (long long)items * nq;
-  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_wide_shape_ok(rows, 3 * d, d))
+  if (!attention_shape_ok(items, heads, nq, nq, d) || !gemm_wide_shape_ok(rows, 3 * d, d) ||
+      dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, hd = d / heads;
-  UNIREC_TRY(row_quant<bf16>(x, xq, xs, m, d, d, s));
+  UNIREC_TRY(quant_act(dtype, x, xq, xs, m, d, s));
   UNIREC_TRY(gemm_q<EPQ_BIAS>(xq, wqkv, epq(xs, 1, sqkv, bqkv), qkv, m, 3 * d, d, s));
   UNIREC_TRY(item_attention<IA_B1>(qkv, 3 * d, qkv, 3 * d, d, 2 * d, nullptr, ctx, d, items,
                                    heads, nq, nq, hd, scale, s));
   UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
-  UNIREC_TRY(gemm_q<EPQ_BIAS_RESID>(xq, wo, epq(xs, 1, so, bo, x), acc, m, d, d, s));
-  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+  UNIREC_TRY(residual_q(dtype, xq, wo, epq(xs, 1, so, bo, x), acc, m, d, s));
+  return (int)ln_act(dtype, acc, x, gamma, beta, out, m, d, eps, s);
 }
 
-// B5, the W8A8 B2.  x, out [items*nq, d] bf16; mem [items*nkv, dm] bf16;
+// B5, the W8A8 B2.  x, out [items*nq, d], mem [items*nkv, dm] bf16 or fp32;
 // key_bias [items, nkv] fp32; wq [d, d], wkv [2d, dm] (rows Wk | Wv), wo
 // [d, d] int8 with column scales sq, skv, so; scratch xq [items*nq, d] int8
 // and xs [items*nq] (x's, then ctx's), mq [items*nkv, dm] int8 and ms
@@ -459,27 +586,28 @@ extern "C" int unirec_qformer_cross_block_q(
     const float* bq, const void* wkv, const float* skv, const float* bkv, const void* wo,
     const float* so, const float* bo, const float* gamma, const float* beta, void* out,
     void* xq, float* xs, void* mq, float* ms, void* q, void* kv, void* ctx, float* acc,
-    int items, int nq, int nkv, int d, int dm, int heads, float scale, float eps,
+    int items, int nq, int nkv, int d, int dm, int heads, int dtype, float scale, float eps,
     void* stream) {
   const long long rows = (long long)items * nq;
   const long long mem_rows = (long long)items * nkv;
   if (!attention_shape_ok(items, heads, nq, nkv, d) || !gemm_wide_shape_ok(rows, d, d) ||
-      !gemm_wide_shape_ok(mem_rows, 2 * d, dm))
+      !gemm_wide_shape_ok(mem_rows, 2 * d, dm) || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = (int)rows, mm = (int)mem_rows, hd = d / heads;
-  UNIREC_TRY(row_quant<bf16>(x, xq, xs, m, d, d, s));
+  UNIREC_TRY(quant_act(dtype, x, xq, xs, m, d, s));
   UNIREC_TRY(gemm_q<EPQ_BIAS>(xq, wq, epq(xs, 1, sq, bq), q, m, d, d, s));
-  UNIREC_TRY(row_quant<bf16>(mem, mq, ms, mm, dm, dm, s));
+  UNIREC_TRY(quant_act(dtype, mem, mq, ms, mm, dm, s));
   UNIREC_TRY(gemm_q<EPQ_BIAS>(mq, wkv, epq(ms, 1, skv, bkv), kv, mm, 2 * d, dm, s));
   UNIREC_TRY(item_attention<IA_B1>(q, d, kv, 2 * d, 0, d, key_bias, ctx, d, items, heads, nq,
                                    nkv, hd, scale, s));
   UNIREC_TRY(row_quant<bf16>(ctx, xq, xs, m, d, d, s));
-  UNIREC_TRY(gemm_q<EPQ_BIAS_RESID>(xq, wo, epq(xs, 1, so, bo, x), acc, m, d, d, s));
-  return (int)layer_norm(acc, gamma, beta, out, m, d, eps, s);
+  UNIREC_TRY(residual_q(dtype, xq, wo, epq(xs, 1, so, bo, x), acc, m, d, s));
+  return (int)ln_act(dtype, acc, x, gamma, beta, out, m, d, eps, s);
 }
 
-// B6, the W8A8 FFN.  x, out [rows, d] bf16; w1 [inter, d] int8, s1 [inter];
+// B6, the W8A8 FFN.  x, out [rows, d] bf16 or fp32 (dtype); w1 [inter, d]
+// int8, s1 [inter];
 // w2 [d, inter] int8, s2 [d]; the gelu output h is requantized per row over
 // each group of `chunk` intermediate columns (a multiple of 64).  Scratch xq [rows, d] int8, xs [rows], u [rows, inter] fp32 (the up
 // projection before its gelu), hq [rows, inter] int8, hs [rows,
@@ -489,18 +617,20 @@ extern "C" int unirec_qformer_ffn_block_q(const void* x, const void* w1, const f
                                           const float* b2, const float* gamma,
                                           const float* beta, void* out, void* xq, float* xs,
                                           float* u, void* hq, float* hs, float* acc, int rows,
-                                          int d, int inter, int chunk, float eps, void* stream) {
+                                          int d, int inter, int chunk, int dtype, float eps,
+                                          void* stream) {
   if (!gemm_wide_shape_ok(rows, inter, d) || !gemm_wide_shape_ok(rows, d, inter) || chunk <= 0 ||
-      chunk % 64 != 0 || inter % chunk != 0)
+      chunk % 64 != 0 || inter % chunk != 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  UNIREC_TRY(row_quant<bf16>(x, xq, xs, rows, d, d, s));
+  UNIREC_TRY(quant_act(dtype, x, xq, xs, rows, d, s));
   UNIREC_TRY(gemm_q<EPQ_BIAS_F32>(xq, w1, epq(xs, 1, s1, b1), u, rows, inter, d, s));
   UNIREC_TRY(gelu_quant(u, hq, hs, rows, inter, chunk, s));
   WgEpi down = epq(hs, inter / chunk, s2, b2, x);
   down.chunk = chunk;
-  UNIREC_TRY(gemm_q<EPQ_CHUNKED_RESID>(hq, w2, down, acc, rows, d, inter, s));
-  return (int)layer_norm(acc, gamma, beta, out, rows, d, eps, s);
+  UNIREC_TRY(dtype == 1 ? gemm_q<EPQ_CHUNKED_RESID>(hq, w2, down, acc, rows, d, inter, s)
+                        : gemm_q<EPQ_CHUNKED>(hq, w2, down, acc, rows, d, inter, s));
+  return (int)ln_act(dtype, acc, x, gamma, beta, out, rows, d, eps, s);
 }
 
 // ------------------------------------------- Qwen3 W8A8 (B8, B9a, B9b) ----
@@ -567,13 +697,14 @@ extern "C" int unirec_qwen3_swiglu_q(const void* x, const void* wgu, const float
 // same fp32 rounding).  epi 0 EPQ_BIAS, 1 EPQ_BIAS_F32, 2 EPQ_BIAS_RESID, 3
 // EPQ_CHUNKED_RESID (row_scale [m, k / chunk]), 4 EPQ_PLAIN, 5 EPQ_SWIGLU
 // (w [2n, k], gate rows then up rows; c [m, n] fp32 is h; row_max [m],
-// zeros on entry, receives each row's max |h|).
+// zeros on entry, receives each row's max |h|), 6 EPQ_CHUNKED (as 3, no
+// residual).
 extern "C" int unirec_gemm_q_test(int epi, const void* a, const void* w, const float* row_scale,
                                   int rs_stride, const float* col_scale, const float* bias,
                                   const void* resid, void* c, float* row_max, int m, int n, int k,
                                   int chunk, void* stream) {
-  if (epi < 0 || epi > 5 || !gemm_wide_shape_ok(m, n, k) ||
-      (epi == 3 && (chunk <= 0 || chunk % 64 != 0 || k % chunk != 0)))
+  if (epi < 0 || epi > 6 || !gemm_wide_shape_ok(m, n, k) ||
+      ((epi == 3 || epi == 6) && (chunk <= 0 || chunk % 64 != 0 || k % chunk != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WgEpi e = epq(row_scale, rs_stride, col_scale, bias, resid);
@@ -590,8 +721,10 @@ extern "C" int unirec_gemm_q_test(int epi, const void* a, const void* w, const f
       return (int)gemm_q<EPQ_CHUNKED_RESID>(a, w, e, c, m, n, k, s);
     case 4:
       return (int)gemm_q<EPQ_PLAIN>(a, w, e, c, m, n, k, s);
-    default:
+    case 5:
       return (int)gemm_q<EPQ_SWIGLU>(a, w, e, c, m, n, k, s);
+    default:
+      return (int)gemm_q<EPQ_CHUNKED>(a, w, e, c, m, n, k, s);
   }
 }
 

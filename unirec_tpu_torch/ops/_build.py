@@ -29,8 +29,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
            "qformer_blocks.cu", "fused_qformer_vjp.cu", "flash_cross.cu",
            "packed_attention.cu")
-HEADERS = ("causal_tiles.cuh", "flash_chunked.cuh", "gemm_wide.cuh",
-           "head_dim.cuh", "item_attention.cuh", "ptx_helpers.cuh")
+HEADERS = ("attention_f32.cuh", "causal_tiles.cuh", "flash_chunked.cuh",
+           "gemm_f32.cuh", "gemm_wide.cuh", "head_dim.cuh",
+           "item_attention.cuh", "ptx_helpers.cuh")
 BUILD_DIR_ENV = "UNIREC_TPU_TORCH_BUILD_DIR"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
                      / "unirec_tpu_torch")
@@ -112,15 +113,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_qformer_cross_block.restype = _I
     lib.unirec_qformer_ffn_block.argtypes = [_P] * 10 + [_I] * 3 + [_F, _P]
     lib.unirec_qformer_ffn_block.restype = _I
+    lib.unirec_qformer_self_block_f32.argtypes = [_P] * 11 + [_I] * 4 + [
+        _F, _F, _P]
+    lib.unirec_qformer_self_block_f32.restype = _I
+    lib.unirec_qformer_cross_block_f32.argtypes = ([_P] * 16 + [_I] * 6
+                                                   + [_F, _F, _P])
+    lib.unirec_qformer_cross_block_f32.restype = _I
+    lib.unirec_qformer_ffn_block_f32.argtypes = [_P] * 10 + [_I] * 3 + [_F,
+                                                                        _P]
+    lib.unirec_qformer_ffn_block_f32.restype = _I
     lib.unirec_retrieve_topk_int8.argtypes = [_P] * 7 + [_I] * 8 + [_P]
     lib.unirec_retrieve_topk_int8.restype = _I
-    lib.unirec_qformer_self_block_q.argtypes = [_P] * 15 + [_I] * 4 + [_F, _F,
+    lib.unirec_qformer_self_block_q.argtypes = [_P] * 15 + [_I] * 5 + [_F, _F,
                                                                       _P]
     lib.unirec_qformer_self_block_q.restype = _I
-    lib.unirec_qformer_cross_block_q.argtypes = ([_P] * 23 + [_I] * 6
+    lib.unirec_qformer_cross_block_q.argtypes = ([_P] * 23 + [_I] * 7
                                                  + [_F, _F, _P])
     lib.unirec_qformer_cross_block_q.restype = _I
-    lib.unirec_qformer_ffn_block_q.argtypes = [_P] * 16 + [_I] * 4 + [_F, _P]
+    lib.unirec_qformer_ffn_block_q.argtypes = [_P] * 16 + [_I] * 5 + [_F, _P]
     lib.unirec_qformer_ffn_block_q.restype = _I
     lib.unirec_gemm_q_test.argtypes = [_I] + [_P] * 3 + [_I] + [_P] * 5 + [
         _I] * 4 + [_P]
@@ -141,6 +151,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_b12_cross_fwd.restype = _I
     lib.unirec_b12_cross_bwd.argtypes = [_P] * 8 + [_I] * 5 + [_F, _P]
     lib.unirec_b12_cross_bwd.restype = _I
+    lib.unirec_b12_self_fwd_f32.argtypes = [_P] * 9 + [_I] * 4 + [_F, _P]
+    lib.unirec_b12_self_fwd_f32.restype = _I
+    lib.unirec_b12_self_bwd_f32.argtypes = [_P] * 7 + [_I] * 4 + [_F, _P]
+    lib.unirec_b12_self_bwd_f32.restype = _I
+    lib.unirec_b12_cross_fwd_f32.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P]
+    lib.unirec_b12_cross_fwd_f32.restype = _I
+    lib.unirec_b12_cross_bwd_f32.argtypes = [_P] * 9 + [_I] * 5 + [_F, _P]
+    lib.unirec_b12_cross_bwd_f32.restype = _I
     lib.unirec_flash_cross_fwd.argtypes = [_P] * 7 + [_L] * 12 + [_I] * 6 + [
         _F, _P]
     lib.unirec_flash_cross_fwd.restype = _I

@@ -21,10 +21,16 @@ and requantizes it per row within each intermediate chunk (``ffn_q_chunk``):
 the down projection sums ``float(h_q . W2_c) * h_scale_c`` over the chunks in
 order, then ``y = LN(acc * s2 + b2 + x)``.
 
+The activations x and mem (and the output) are bfloat16 or float32, as the
+JAX kernels take either: float32 rows are quantized from their float32
+values (a cast to bfloat16 first would change the codes), the residual and
+LayerNorm read the float32 x, and qkv, q, kv and ctx stay bfloat16 inside.
+
 The plain versions compute the int32 products exactly in float64 (sums of at
 most 127**2 * I stay far below 2**53) on any device.  Each wrapper launches
-its kernel for a CUDA tensor (bfloat16 activations, int8 weights; anything
-the kernel does not take raises) and takes the plain version for a CPU tensor.
+its kernel for a CUDA tensor (bfloat16 or float32 activations, int8 weights;
+anything the kernel does not take raises) and takes the plain version for a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
+from unirec_tpu_torch.ops.attention import dtype_code
 from unirec_tpu_torch.ops.fused_qformer_layer import (
     _expect,
     _gelu,
@@ -205,7 +212,8 @@ def fused_self_attention_block_q(x, wqkv, sqkv, bqkv, wo, so, bo, ln_gamma,
         wo.data_ptr(), so.data_ptr(), bo.data_ptr(), ln_gamma.data_ptr(),
         ln_beta.data_ptr(), out.data_ptr(), xq.data_ptr(), xs.data_ptr(),
         qkv.data_ptr(), ctx.data_ptr(), acc.data_ptr(), b, k, d, num_heads,
-        _scale(d // num_heads, torch.bfloat16), ln_eps, _stream(x))
+        dtype_code(x), _scale(d // num_heads, torch.bfloat16), ln_eps,
+        _stream(x))
     check(err, name)
     fused_self_attention_block_q.launches += 1
     return out
@@ -260,7 +268,8 @@ def fused_cross_attention_block_q(x, mem, key_bias, wq, sq, bq, wkv, skv, bkv,
         ln_gamma.data_ptr(), ln_beta.data_ptr(), out.data_ptr(), xq.data_ptr(),
         xs.data_ptr(), mq.data_ptr(), ms.data_ptr(), q.data_ptr(),
         kv.data_ptr(), ctx.data_ptr(), acc.data_ptr(), b, k, n_kv, d, dm,
-        num_heads, _scale(d // num_heads, torch.bfloat16), ln_eps, _stream(x))
+        num_heads, dtype_code(x), _scale(d // num_heads, torch.bfloat16),
+        ln_eps, _stream(x))
     check(err, name)
     fused_cross_attention_block_q.launches += 1
     return out
@@ -304,7 +313,7 @@ def fused_ffn_block_q(x, w1, s1, b1, w2, s2, b2, ln_gamma, ln_beta, *,
         w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), ln_gamma.data_ptr(),
         ln_beta.data_ptr(), out.data_ptr(), xq.data_ptr(), xs.data_ptr(),
         u.data_ptr(), hq.data_ptr(), hs.data_ptr(), acc.data_ptr(), rows, d,
-        inter, chunk, ln_eps, _stream(x))
+        inter, chunk, dtype_code(x), ln_eps, _stream(x))
     check(err, name)
     fused_ffn_block_q.launches += 1
     return out

@@ -10,7 +10,11 @@ otherwise, e.g. hidden 1020), and the attention core
 product writes the LayerNorm output itself over a thread-block cluster where
 TMA takes its rows and the width is at most 2048; elsewhere it writes the
 fp32 sum into a scratch buffer that a LayerNorm kernel reads
-(``two_pass_layer_norm``).
+(``two_pass_layer_norm``).  Float32 activations (the JAX kernels take them
+too) take the blocks' fp32 forms (``_f32`` entries): every product on the
+fp32 GEMM of ``csrc/gemm_f32.cuh`` (fp32 FMA on CUDA cores, no TF32), the
+attention on the scalar fp32 kernel of ``csrc/attention_f32.cuh`` (B15's),
+and the fp32 pre-LN sum through the scratch buffer to the LayerNorm.
 
     B1  fused_self_attention_block   y = LN(x + Wo . SelfAttn(x) + bo)
     B2  fused_cross_attention_block  y = LN(x + Wo . CrossAttn(x -> mem) + bo)
@@ -24,8 +28,9 @@ contracted dimension contiguous: ``wqkv [3D, D]`` (rows Wq | Wk | Wv),
 Biases and LayerNorm parameters are float32 (``inference/fused_qformer.py``
 packs them all once).
 
-Each wrapper launches its kernel for a CUDA tensor (bfloat16 only; anything
-the kernel does not take raises) and takes the plain version beside it for a
+Each wrapper launches its kernel for a CUDA tensor (bfloat16 or float32
+activations and weights of one dtype; anything the kernel does not take
+raises) and takes the plain version beside it for a
 CPU tensor.  The plain versions mirror the JAX kernels' rounding points in any
 dtype: projections accumulate in fp32 and are cast to the input dtype after
 the bias; q is scaled in the input dtype; scores, softmax, residual and
@@ -156,9 +161,9 @@ def two_pass_layer_norm(d: int, k: int) -> bool:
 
 
 def _acc(rows: int, d: int, k: int, x: torch.Tensor):
-    """The fp32 pre-LN scratch where the two-pass route needs it, else
-    None (a null pointer)."""
-    if not two_pass_layer_norm(d, k):
+    """The fp32 pre-LN scratch where the two-pass route needs it (always for
+    float32 x), else None (a null pointer)."""
+    if x.dtype != torch.float32 and not two_pass_layer_norm(d, k):
         return None
     return torch.empty(rows, d, device=x.device, dtype=torch.float32)
 
@@ -172,24 +177,29 @@ def _expect(t: torch.Tensor, shape, name: str) -> None:
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _on_card(x: torch.Tensor, block: str, weights, params,
-             codes=None) -> bool:
+             codes=None, dtypes=KERNEL_DTYPES) -> bool:
     """False for CPU tensors (plain version); True after checking that the
-    kernel takes these CUDA tensors (``weights`` bfloat16, ``params``
-    float32, ``codes`` int8); raises otherwise."""
+    kernel takes these CUDA tensors (x in ``dtypes``: bfloat16 or float32
+    for B1-B6, bfloat16 alone for the Qwen3 kernels; ``weights`` in x's
+    dtype, ``params`` float32, ``codes`` int8); raises otherwise."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{block}: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{block}: the CUDA kernel takes bfloat16, got "
-                        f"{x.dtype} (fp32 on the card is not ported)")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{block}: the CUDA kernel takes "
+                        f"{' or '.join(str(t)[6:] for t in dtypes)}, got "
+                        f"{x.dtype}")
     codes = codes or {}
     for name, t in {**weights, **params, **codes}.items():
         if t.device != x.device:
             raise ValueError(f"{block}: {name} is on {t.device}, x on {x.device}")
         want = (torch.int8 if name in codes else
-                torch.bfloat16 if name in weights else torch.float32)
+                x.dtype if name in weights else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{block}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -201,6 +211,13 @@ def _on_card(x: torch.Tensor, block: str, weights, params,
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _entry(name: str, x: torch.Tensor):
+    """The C entry ``name`` for x's dtype (its fp32 form ``name_f32`` for
+    float32)."""
+    return getattr(load_kernels().lib,
+                   name + ("_f32" if x.dtype == torch.float32 else ""))
 
 
 def fused_self_attention_block(x, wqkv, bqkv, wo, bo, ln_gamma, ln_beta, *,
@@ -229,7 +246,7 @@ def fused_self_attention_block(x, wqkv, bqkv, wo, bo, ln_gamma, ln_beta, *,
     qkv = torch.empty(rows, 3 * d, device=x.device, dtype=x.dtype)
     ctx = torch.empty(rows, d, device=x.device, dtype=x.dtype)
     acc = _acc(rows, d, d, x)
-    err = load_kernels().lib.unirec_qformer_self_block(
+    err = _entry("unirec_qformer_self_block", x)(
         x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
         bo.data_ptr(), ln_gamma.data_ptr(), ln_beta.data_ptr(), out.data_ptr(),
         qkv.data_ptr(), ctx.data_ptr(), _ptr(acc), b, k, d, num_heads,
@@ -274,7 +291,7 @@ def fused_cross_attention_block(x, mem, key_bias, wq, bq, wkv, bkv, wo, bo,
     kv = torch.empty(b * n_kv, 2 * d, device=x.device, dtype=x.dtype)
     ctx = torch.empty(rows, d, device=x.device, dtype=x.dtype)
     acc = _acc(rows, d, d, x)
-    err = load_kernels().lib.unirec_qformer_cross_block(
+    err = _entry("unirec_qformer_cross_block", x)(
         x.data_ptr(), mem.data_ptr(), key_bias.data_ptr(), wq.data_ptr(),
         bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
         bo.data_ptr(), ln_gamma.data_ptr(), ln_beta.data_ptr(), out.data_ptr(),
@@ -306,7 +323,7 @@ def fused_ffn_block(x, w1, b1, w2, b2, ln_gamma, ln_beta, *,
     out = torch.empty_like(x)
     h = torch.empty(rows, inter, device=x.device, dtype=x.dtype)
     acc = _acc(rows, d, inter, x)
-    err = load_kernels().lib.unirec_qformer_ffn_block(
+    err = _entry("unirec_qformer_ffn_block", x)(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), ln_gamma.data_ptr(), ln_beta.data_ptr(), out.data_ptr(),
         h.data_ptr(), _ptr(acc), rows, d, inter, ln_eps, _stream(x))

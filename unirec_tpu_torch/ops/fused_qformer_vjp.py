@@ -22,7 +22,8 @@ layout ``[out, in]``, as the port's inference blocks take them: ``wqkv
 ``wo [D, D]``; biases ``[out]``.
 
 Four wrappers, one per TPU kernel, launch the kernels for CUDA tensors
-(bfloat16 only; anything the kernels do not take raises) and take the plain
+(bfloat16 or float32, one dtype for the activations and weights; anything
+the kernels do not take raises) and take the plain
 versions beside them for CPU tensors; each counts its launches:
 
     self_attention_fwd   (B12s fwd)  -> out, qkv, ctx
@@ -41,7 +42,12 @@ cast to the input dtype before the value product; in the backward dctx stays
 fp32, ``dp = dctx.cast . v^T``, ``ds = cast(p * (dp - sum(dp * p)) *
 scale)``, ``dq = ds . k``, ``dk = ds^T . q`` and ``dv = p^T . dctx`` with p
 and dctx in fp32.  In float32 they are the JAX kernels' arithmetic, which the
-CPU tests hold against the Pallas kernels in interpret mode.
+CPU tests hold against the Pallas kernels in interpret mode.  On the card
+float32 takes the fp32 forms of the kernels (``_f32`` entries): projections
+on ``csrc/gemm_f32.cuh`` (fp32 FMA, no TF32), the forward's attention on
+``csrc/attention_f32.cuh`` and the backward's on the scalar kernels of
+``csrc/fused_qformer_vjp.cu``, which keep their per-row statistics in a
+scratch ``[B * H * n_q * 3]``.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ from typing import Tuple
 
 import torch
 
-from unirec_tpu_torch.ops._build import check, load_kernels
+from unirec_tpu_torch.ops._build import check
+from unirec_tpu_torch.ops.fused_qformer_layer import _entry
 
 NEG_INF = -1e9
 _TILE_ROWS = 256  # the JAX kernels' packed tile, read by supports_fused_train
@@ -178,27 +185,38 @@ def cross_attention_bwd_plain(q, kv, wo, kbias, dout, *, num_heads: int,
 
 def _on_card(block: str, tensors: dict, floats: dict = ()) -> bool:
     """False for CPU tensors (plain version); True after checking that the
-    kernel takes these CUDA tensors (bfloat16, contiguous, 16-byte aligned;
-    ``floats`` float32 and contiguous); raises otherwise."""
+    kernel takes these CUDA tensors (one dtype, bfloat16 or float32,
+    contiguous, 16-byte aligned; ``floats`` float32 and contiguous); raises
+    otherwise."""
     first = next(iter(tensors.values()))
     if first.device.type == "cpu":
         return False
     if first.device.type != "cuda":
         raise ValueError(f"{block}: unsupported device {first.device}")
+    if first.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{block}: the CUDA kernels take bfloat16 or float32, "
+                        f"got {first.dtype}")
     for name, t in {**tensors, **dict(floats)}.items():
-        want = torch.float32 if name in dict(floats) else torch.bfloat16
+        want = torch.float32 if name in dict(floats) else first.dtype
         if t.device != first.device:
             raise ValueError(f"{block}: {name} is on {t.device}, not "
                              f"{first.device}")
         if t.dtype != want:
             raise TypeError(f"{block}: the CUDA kernel takes {name} in {want}, "
-                            f"got {t.dtype} (fp32 activations on the card are "
-                            "not ported)")
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{block}: {name} must be contiguous")
-        if want == torch.bfloat16 and t.data_ptr() % 16:
+        if name not in dict(floats) and t.data_ptr() % 16:
             raise ValueError(f"{block}: {name} must be 16-byte aligned")
     return True
+
+
+def _stats(x: torch.Tensor, items: int, num_heads: int, n_q: int):
+    """The fp32 backward's scratch of per-row statistics, or None."""
+    if x.dtype != torch.float32:
+        return None
+    return torch.empty(items * num_heads * n_q * 3, device=x.device,
+                       dtype=torch.float32)
 
 
 def _check_shapes(x2, n_q: int, num_heads: int, weights: dict) -> Tuple[int, int]:
@@ -236,7 +254,7 @@ def self_attention_fwd(x2, kbias, wqkv, bqkv, wo, bo, *, num_heads: int,
     qkv = torch.empty(rows, 3 * d, device=x2.device, dtype=x2.dtype)
     ctx = torch.empty_like(x2)
     bqkv32, bo32 = bqkv.float().contiguous(), bo.float().contiguous()
-    err = load_kernels().lib.unirec_b12_self_fwd(
+    err = _entry("unirec_b12_self_fwd", x2)(
         x2.data_ptr(), wqkv.data_ptr(), bqkv32.data_ptr(), wo.data_ptr(),
         bo32.data_ptr(), kbias.data_ptr(), out.data_ptr(), qkv.data_ptr(),
         ctx.data_ptr(), items, n_q, d, num_heads, _scale(d // num_heads),
@@ -261,10 +279,12 @@ def self_attention_bwd(qkv, wo, kbias, dout, *, num_heads: int,
     wo_t = wo.t().contiguous()  # [in, out]: the GEMM's contracted dim last
     dctx = torch.empty(dout.shape, device=dout.device, dtype=torch.float32)
     dqkv = torch.empty_like(qkv)
-    err = load_kernels().lib.unirec_b12_self_bwd(
+    stats = _stats(dout, items, num_heads, n_q)
+    err = _entry("unirec_b12_self_bwd", dout)(
         qkv.data_ptr(), wo_t.data_ptr(), kbias.data_ptr(), dout.data_ptr(),
-        dctx.data_ptr(), dqkv.data_ptr(), items, n_q, d, num_heads,
-        _scale(d // num_heads), _stream(dout))
+        dctx.data_ptr(), *([] if stats is None else [stats.data_ptr()]),
+        dqkv.data_ptr(), items, n_q, d, num_heads, _scale(d // num_heads),
+        _stream(dout))
     check(err, "B12s bwd")
     self_attention_bwd.launches += 1
     return dqkv
@@ -293,7 +313,7 @@ def cross_attention_fwd(x2, mem2, kbias, wq, bq, wkv, bkv, wo, bo, *,
     kv = torch.empty(mem2.shape[0], 2 * d, device=x2.device, dtype=x2.dtype)
     ctx = torch.empty_like(x2)
     bq32, bkv32, bo32 = (b.float().contiguous() for b in (bq, bkv, bo))
-    err = load_kernels().lib.unirec_b12_cross_fwd(
+    err = _entry("unirec_b12_cross_fwd", x2)(
         x2.data_ptr(), mem2.data_ptr(), kbias.data_ptr(), wq.data_ptr(),
         bq32.data_ptr(), wkv.data_ptr(), bkv32.data_ptr(), wo.data_ptr(),
         bo32.data_ptr(), out.data_ptr(), q.data_ptr(), kv.data_ptr(),
@@ -324,10 +344,13 @@ def cross_attention_bwd(q, kv, wo, kbias, dout, *, num_heads: int, n_q: int,
     dctx = torch.empty(dout.shape, device=dout.device, dtype=torch.float32)
     dq = torch.empty_like(q)
     dkv = torch.empty_like(kv)
-    err = load_kernels().lib.unirec_b12_cross_bwd(
+    stats = _stats(dout, items, num_heads, n_q)
+    err = _entry("unirec_b12_cross_bwd", dout)(
         q.data_ptr(), kv.data_ptr(), wo_t.data_ptr(), kbias.data_ptr(),
-        dout.data_ptr(), dctx.data_ptr(), dq.data_ptr(), dkv.data_ptr(), items,
-        n_q, n_kv, d, num_heads, _scale(d // num_heads), _stream(dout))
+        dout.data_ptr(), dctx.data_ptr(),
+        *([] if stats is None else [stats.data_ptr()]), dq.data_ptr(),
+        dkv.data_ptr(), items, n_q, n_kv, d, num_heads,
+        _scale(d // num_heads), _stream(dout))
     check(err, "B12c bwd")
     cross_attention_bwd.launches += 1
     return dq, dkv

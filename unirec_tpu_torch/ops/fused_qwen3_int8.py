@@ -93,7 +93,7 @@ def qkv_int8(x, wqkv_q, sqkv) -> torch.Tensor:
     _expect(wqkv_q, (n, d), "wqkv_q")
     _expect(sqkv, (n,), "sqkv")
     if not _on_card(x, "qkv_int8", {"x": x}, {"sqkv": sqkv},
-                    codes={"wqkv_q": wqkv_q}):
+                    codes={"wqkv_q": wqkv_q}, dtypes=(torch.bfloat16,)):
         return qkv_int8_plain(x, wqkv_q, sqkv)
     out = launch_int8_linear(x, wqkv_q, sqkv, "qkv_int8")
     qkv_int8.launches += 1
@@ -113,7 +113,8 @@ def swiglu_mlp_int8(x, wgu_q, sgu, wdown_q, sdown) -> torch.Tensor:
     _expect(sdown, (d,), "sdown")
     if not _on_card(x, "swiglu_mlp_int8", {"x": x},
                     {"sgu": sgu, "sdown": sdown},
-                    codes={"wgu_q": wgu_q, "wdown_q": wdown_q}):
+                    codes={"wgu_q": wgu_q, "wdown_q": wdown_q},
+                    dtypes=(torch.bfloat16,)):
         return swiglu_mlp_int8_plain(x, wgu_q, sgu, wdown_q, sdown)
     if not (supports_int8_linear(rows, d, 2 * inter)
             and supports_int8_linear(rows, inter, d)):

@@ -85,7 +85,7 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     _expect(wq, (n, k), "wq")
     _expect(ws, (n,), "ws")
     if not _on_card(x, "int8_linear", {"x": x}, {"ws": ws},
-                    codes={"wq": wq}):
+                    codes={"wq": wq}, dtypes=(torch.bfloat16,)):
         return int8_linear_plain(x, wq, ws, out_dtype)
     if out_dtype != torch.bfloat16:
         raise TypeError(f"int8_linear: the kernel writes bfloat16, got "

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, Iterator, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -133,6 +133,63 @@ class OptaxAdamW:
                              (self.acc, state["acc"])):
             for name, t in mine.items():
                 t.copy_(theirs[name])
+
+
+def _nodes(tree: Any, pred: Callable[[Mapping], bool]) -> list:
+    """Every mapping in a restored optax state (nested dicts and lists) that
+    ``pred`` accepts, in order; a match is not searched further."""
+    if isinstance(tree, Mapping):
+        if pred(tree):
+            return [tree]
+        return [n for v in tree.values() for n in _nodes(v, pred)]
+    if isinstance(tree, (list, tuple)):
+        return [n for v in tree for n in _nodes(v, pred)]
+    return []
+
+
+def optimizer_state_from_optax(state: Any, grad_accum: int = 1
+                               ) -> Dict[str, Any]:
+    """The JAX trainers' optax state, as orbax restores it (nested dicts, a
+    NamedTuple's fields by name; lists for tuples; numpy arrays; None for an
+    empty state or a masked leaf), -> ``OptaxAdamW.state_dict()`` for an
+    optimizer of gradient accumulation ``grad_accum`` (the checkpoint
+    meta's ``grad_accum``).
+
+    It reads ``multi_transform``'s trainable branch ("train"; the frozen
+    one holds no state), ``MultiSteps``' ``mini_step``, ``gradient_step``
+    and ``acc_grads``, adamw's ``count``, ``mu`` and ``nu``, and the warmup
+    schedule's ``count``, which must equal adam's (the port keeps one
+    count).  The moments and the accumulator take the port's names and
+    layouts (``utils/weights.port_state_dict_from_flax``); masked leaves
+    drop out, so they cover the trainable parameters only."""
+    from unirec_tpu_torch.utils.weights import port_state_dict_from_flax
+
+    node = state
+    if isinstance(node, Mapping) and "inner_states" in node:
+        node = node["inner_states"]["train"]["inner_state"]
+    multi = node if isinstance(node, Mapping) and "mini_step" in node else None
+    if (multi is not None) != (int(grad_accum) > 1):
+        raise ValueError(f"optax state {'has' if multi else 'lacks'} "
+                         f"MultiSteps, but grad_accum is {grad_accum}")
+    inner = multi["inner_opt_state"] if multi is not None else node
+    adam = _nodes(inner, lambda d: {"count", "mu", "nu"} <= set(d))
+    if len(adam) != 1:
+        raise ValueError(f"expected one adam state, found {len(adam)}")
+    count = int(np.asarray(adam[0]["count"]))
+    for sched in _nodes(inner, lambda d: set(d) == {"count"}):
+        if int(np.asarray(sched["count"])) != count:
+            raise ValueError("the schedule's count differs from adam's")
+    return {
+        "count": count,
+        "mini_step": int(np.asarray(multi["mini_step"])) if multi else 0,
+        "gradient_step": (int(np.asarray(multi["gradient_step"]))
+                          if multi else 0),
+        "k": max(1, int(grad_accum)),
+        "mu": port_state_dict_from_flax(adam[0]["mu"]),
+        "nu": port_state_dict_from_flax(adam[0]["nu"]),
+        "acc": (port_state_dict_from_flax(multi["acc_grads"])
+                if multi else {}),
+    }
 
 
 def make_optimizer(params: Dict[str, torch.Tensor],

@@ -14,6 +14,11 @@
 reference ``best_qformer_model.pth`` is read by ``QFormerInference`` through
 ``utils/torch_convert.py`` instead (unpickling its ``BertConfig`` needs
 ``transformers``).
+
+A JAX checkpoint (orbax's ``state/`` beside the same ``meta.json``) becomes
+such a directory through ``scripts/orbax_to_torch.py``, which runs where the
+JAX package is installed and hands numpy arrays to
+``save_converted_checkpoint`` here (numpy and torch only).
 """
 
 from __future__ import annotations
@@ -60,6 +65,37 @@ def load_checkpoint(directory: str, map_location: Union[str, torch.device] = "cp
     sd = torch.load(os.path.join(directory, PARAMS_FILE),
                     map_location=map_location, weights_only=True)
     return sd, read_meta(directory)
+
+
+def save_converted_checkpoint(directory: str, params: Mapping[str, Any],
+                              meta: Mapping[str, Any], step: int,
+                              optimizer: Optional[Dict[str, Any]] = None
+                              ) -> str:
+    """Write the port's checkpoint directory from a JAX checkpoint's parts:
+    ``params`` the Flax parameter tree as numpy arrays (names through
+    ``utils/weights.port_state_dict_from_flax``), ``meta`` its
+    ``meta.json`` copied whole (``config`` and ``config_class``,
+    ``field_names``, ``grad_accum``, the joint model's ``qwen_config`` /
+    ``qformer_config``, the trainers' extras) with ``step`` added, and
+    ``optimizer`` an ``OptaxAdamW.state_dict()``
+    (``train/common.optimizer_state_from_optax`` of its optax state) or None:
+    then no ``optimizer.pt`` is written, and the directory serves and
+    resumes with a fresh optimizer (``restore_params_and_step``).  Returns
+    the absolute directory."""
+    from unirec_tpu_torch.utils.weights import port_state_dict_from_flax
+
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    torch.save(port_state_dict_from_flax(params),
+               os.path.join(directory, PARAMS_FILE))
+    with open(os.path.join(directory, META_FILE), "w") as f:
+        json.dump({**meta, "step": int(step)}, f, default=str)
+    path = os.path.join(directory, OPTIMIZER_FILE)
+    if optimizer is not None:
+        torch.save({"step": int(step), "optimizer": optimizer}, path)
+    elif os.path.exists(path):
+        os.remove(path)  # a stale state would pair with other parameters
+    return directory
 
 
 def read_meta(directory: str) -> Dict[str, Any]:
@@ -110,6 +146,25 @@ def restore_train_state(directory: str, template_state):
                        map_location=device, weights_only=True)
     template_state.optimizer.load_state_dict(saved["optimizer"])
     template_state.step = int(saved["step"])
+    return template_state, meta
+
+
+def has_params(directory: Optional[str]) -> bool:
+    return bool(directory) and os.path.exists(
+        os.path.join(directory, PARAMS_FILE))
+
+
+def restore_params_and_step(directory: str, template_state):
+    """Parameters and step (from ``meta.json``) into a freshly built
+    ``TrainState`` whose optimizer restarts: a directory without
+    ``optimizer.pt``, such as one converted from a pipeline-parallel JAX
+    checkpoint, whose optimizer state has another layout (the JAX
+    package's resume does the same).  Returns (state, meta)."""
+    sd, meta = load_checkpoint(directory)
+    model = template_state.model
+    device = next(model.parameters()).device
+    model.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    template_state.step = int(meta.get("step", 0))
     return template_state, meta
 
 

@@ -106,6 +106,34 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _prune(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A tree without its None leaves (an empty optax state or a masked
+    leaf, as orbax restores them) and the branches left empty."""
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            value = _prune(value)
+            if value:
+                out[name] = value
+        elif value is not None:
+            out[name] = value
+    return out
+
+
+def port_state_dict_from_flax(tree: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """A parameter tree of any trainer of the JAX package (item, user, joint,
+    MWNE; numpy leaves, ``None`` at masked leaves) -> the port's names:
+    ``flax_to_state_dict`` without the text-side Q-Former entries, which the
+    query-only forward never reads (bare, under ``qformer.`` or under
+    ``user.``).  Applies alike to the optimizer's moments, whose trees mirror
+    the parameters'."""
+    sd = flax_to_state_dict(_prune(tree))
+    return {k: v for k, v in sd.items()
+            if not (_TEXT_SIDE.match(k) or (k.startswith("user.")
+                    and _TEXT_SIDE.match(k[len("user."):])))}
+
+
 def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``flax_to_state_dict``: a port state_dict -> the Flax
     parameter tree with numpy leaves (floating ones as float32), which the
@@ -191,8 +219,7 @@ def item_qformer_state_dict_from_flax(params: Mapping[str, Any]
     """JAX ``ItemQFormer`` parameter tree -> the port's ``ItemQFormer``
     state_dict, without the text-side entries that a tree converted from a
     reference checkpoint carries and the query-only forward never reads."""
-    return {k: v for k, v in flax_to_state_dict(params).items()
-            if not _TEXT_SIDE.match(k)}
+    return port_state_dict_from_flax(params)
 
 
 def user_state_dict_from_flax(params: Mapping[str, Any]
@@ -201,9 +228,7 @@ def user_state_dict_from_flax(params: Mapping[str, Any]
     ..., "user": ...}`` (numpy or array leaves) -> the port's ``UserStage``
     state_dict, without text-side Q-Former entries (the query-only forward
     never reads them)."""
-    return {k: v for k, v in flax_to_state_dict(params).items()
-            if not (k.startswith("user.")
-                    and _TEXT_SIDE.match(k[len("user."):]))}
+    return port_state_dict_from_flax(params)
 
 
 def mwne_state_dict_from_flax(variables: Mapping[str, Any]
