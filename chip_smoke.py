@@ -2,7 +2,8 @@
 serving path (over a float32 and an int8 catalog, and with the W8A8 int8
 Qwen3 forward), the item-token sweep (bf16 and W8A8 int8), the pipeline's
 front end (data, the item encoders' towers, ``tokens --data``, ``users``),
-joint training, Item Q-Former training and User Q-Former training; and the
+joint training, Item Q-Former training and User Q-Former training, their
+data (and the user stage's sequence) parallelism on one card; and the
 two kernels no path of the JAX package calls (B14p, B15) through their own
 entry points.
 
@@ -184,6 +185,23 @@ Phases (any failed check raises; the script then exits non-zero):
    JSON written for the cache (``--bf16 --flash --fused`` for 2 epochs,
    ``--resume`` for 1, then ``--bf16 --remat`` for 1, whose evaluation
    launches B13 4 times a batch); exact launch counts, finite metrics.
+8a. A9's data and sequence parallelism on this one-card machine
+   (``phase_parallel_serve`` after phase 4's entry point, ``phase_parallel``
+   last): serving at dp = 2 over [cuda:0, cuda:0] (replicas that share the
+   card) against dp = 1 on the float32 catalog, the int8 catalog and int8
+   (b) (user rows at cosine >= 0.9999, ids equal but near-ties, K1 / K2 /
+   B11 / B8 / B9a / B9b launched by the dp run); the sweep at batch 4096,
+   bf16 and int8, dp = 2 against dp = 1 (B1-B6's max|d| gate, twice the
+   launches); the joint (flash-VJP, batch 8), item (batch 512, fused
+   anchor, int8 references), user (batch 64, seq 50, ``--flash --fused``)
+   and user-sp (plain attention, 1,600 memory rows over sp = 2) steps on
+   one rank, then the joint step through the dp code on a world-size-1
+   NCCL group (bit for bit the plain step), then every case on two gloo
+   ranks that share cuda:0 (losses and gradients held to one rank's by
+   phase 6's gates, the ranks' parameters bit for bit equal, each rank's
+   launches one rank's); ms per step, the gradient all-reduce, items/s
+   (one card: no scaling figure); and ``train joint --dp 2`` refused,
+   naming the card count.
 9. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
    the PyTorch yardstick where one call computes the same function; K1 a
    second time at the text tower's shape, its launches the text backend's;
@@ -5864,6 +5882,442 @@ def phase_exports(smi: str, tmp: str, mwne_dir: str) -> None:
         f"checkpoints' tensors")
 
 
+# -- A9: data and sequence parallelism (phase_parallel) -------------------------
+#
+# The machine has one card, so the dp / sp paths are held three ways: the
+# inference replicas of dp = 2 share cuda:0 in this process; two gloo ranks
+# share cuda:0 (NCCL refuses two ranks on one device), each stepping on its
+# half of the global batch (or its half of the user memory at sp = 2); and a
+# world-size-1 NCCL group runs the joint step through the same dp code.  No
+# figure here is a multi-card scaling figure.
+
+PAR_CASES = ("joint", "item", "user", "user_sp")
+PAR_STEPS = 2
+PAR_TIMEOUT_S = 600.0
+
+
+def par_mesh(case: str, ranks: int):
+    """The MeshConfig of a training case: one rank, dp over the ranks, or
+    (user_sp) sp over them."""
+    from unirec_tpu_torch.configs import MeshConfig
+
+    if ranks == 1:
+        return MeshConfig(dp=1)
+    return MeshConfig(dp=1, sp=ranks) if case == "user_sp" else MeshConfig(
+        dp=ranks)
+
+
+def par_counters(case: str) -> dict:
+    return (train_launches() if case == "joint" else item_counters()
+            if case == "item" else user_counters())
+
+
+def par_inputs(tmp: str) -> dict:
+    """What every process builds its cases' batches from (written by the
+    parent: the joint samples, the user histories, the item rows)."""
+    from unirec_tpu_torch.configs import Qwen3Config
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+
+    cache = FieldEmbeddingCache.load(os.path.join(tmp, "cache"))
+    joint = write_train_files(os.path.join(tmp, "par"), cache,
+                              Qwen3Config().hidden_size)["data"]
+    user = write_user_files(os.path.join(tmp, "par"), cache)
+    rng = np.random.default_rng(SEED + 21)
+    item = [(rng.integers(0, len(cache), (ITEM_BATCH, 2)).astype(np.int32),
+             rng.integers(0, len(cache), ITEM_BATCH).astype(np.int32))
+            for _ in range(PAR_STEPS)]
+    return {"joint": joint, "user": (user["histories"],
+                                     user["reviews_by_item"]), "item": item}
+
+
+def par_case(case: str, tmp: str, inputs: dict, mesh_cfg,
+             save_grads: bool = False) -> dict:
+    """One training case at full width on cuda:0: the trainer under
+    ``mesh_cfg``, PAR_STEPS steps on the same global batches in every
+    process (dropout off), with the first step's (reduced) gradients, each
+    step's loss, the kernels' launches over the steps, the second step's ms
+    and a SHA-256 of the trainable parameters after the steps."""
+    import dataclasses
+    import hashlib
+
+    from unirec_tpu_torch.configs import (
+        JointModelConfig,
+        LoRAConfig,
+        OptimizerConfig,
+        Qwen3Config,
+        TrainConfig,
+        UserQFormerConfig,
+    )
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.tokenizer import HashTokenizer
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.models.item_qformer import ItemQFormer
+    from unirec_tpu_torch.train import item_qformer as it
+    from unirec_tpu_torch.train import joint as jt
+    from unirec_tpu_torch.train import user_qformer as ut
+
+    cfg, sd, _ = QFormerInference.read_checkpoint(os.path.join(tmp, "ckpt"))
+    cache = FieldEmbeddingCache.load(os.path.join(tmp, "cache"))
+    opt = OptimizerConfig(learning_rate=1e-4, warmup_steps=0,
+                          max_grad_norm=1.0)
+    if case == "joint":
+        qwen, jc = Qwen3Config(flash_vjp_attention=True), JointModelConfig()
+        trainer = jt.JointTrainer(
+            qwen, dataclasses.replace(cfg, dropout=0.0), jc,
+            lora=LoRAConfig(dropout=0.0), dtype="bfloat16", bf16_base=True,
+            train_config=TrainConfig(batch_size=TRAIN_BATCH, optimizer=opt,
+                                     seed=SEED, mesh=mesh_cfg),
+            device="cuda")
+        state = trainer.init_state(qformer_params=sd)
+        ds = jt.JointDataset(
+            inputs["joint"]["train"], inputs["joint"]["emb"],
+            HashTokenizer(qwen.vocab_size, jc.num_history_items,
+                          jc.num_query_tokens_per_item),
+            inputs["joint"]["items"], cache, jc, max_negatives=TRAIN_NEG,
+            item_emb_dim=qwen.hidden_size)
+        batches = [ds.batch(np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH))
+                   for i in range(PAR_STEPS)]
+        step = jt.make_joint_train_step(state.model, return_grads=True,
+                                        seed=SEED, mesh=trainer.mesh)
+    elif case == "item":
+        icfg = dataclasses.replace(cfg, fused_training=True, dropout=0.0)
+        trainer = it.ItemQFormerTrainer(
+            icfg, TrainConfig(batch_size=ITEM_BATCH, optimizer=opt, seed=SEED,
+                              mesh=mesh_cfg),
+            dtype="bfloat16", fused_reference_forwards=True,
+            fused_precision="int8", device="cuda")
+        state = trainer.init_state(params=sd)
+        batches = [trainer.gather_batch(cache, pairs, neg)
+                   for pairs, neg in inputs["item"]]
+        step = it.make_train_step(state.model, return_grads=True, seed=SEED,
+                                  fused_reference_config=icfg,
+                                  fused_precision="int8", mesh=trainer.mesh)
+    else:
+        kernels = case == "user"
+        uc = UserQFormerConfig(
+            num_item_tokens_to_predict=cfg.num_query_tokens,
+            input_embedding_dim=cfg.hidden_size, dropout=0.0,
+            flash_training=kernels, fused_training=kernels,
+            sequence_parallel=mesh_cfg.sp > 1)
+        trainer = ut.UserQFormerTrainer(
+            uc, TrainConfig(batch_size=USER_BATCH, optimizer=opt, seed=SEED,
+                            mesh=mesh_cfg),
+            USER_SEQ, dtype="bfloat16", device="cuda")
+        iq = ItemQFormer(cfg, device="cuda")
+        iq.load_state_dict(sd)
+        tokens = ut.precompute_item_tokens(iq, cache)
+        del iq
+        histories, by_item = inputs["user"]
+        samples = ut.build_sliding_window_samples(histories,
+                                                  max_seq_len=USER_SEQ)
+        ts_map = ut.build_timestamp_map(by_item)
+        order = np.random.default_rng(SEED + 5).permutation(len(samples))
+        batches = [trainer.make_batch(samples, order[i * USER_BATCH:
+                                                     (i + 1) * USER_BATCH],
+                                      tokens, cache, ts_map)
+                   for i in range(PAR_STEPS)]
+        del tokens
+        state = trainer.init_state()
+        step = ut.make_train_step(state.model, return_grads=True, seed=SEED,
+                                  mesh=trainer.mesh)
+    counters = par_counters(case)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, ms, grads = [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = {n: g.detach() for n, g in m["grads"].items()}
+        del m
+    launches = {n: fn.launches for n, fn in counters.items()}
+    digest = hashlib.sha256()
+    for name, p in state.model.named_parameters():
+        if p.requires_grad:
+            digest.update(name.encode())
+            digest.update(p.detach().float().cpu().numpy().tobytes())
+    out = {"losses": losses, "ms": ms[-1], "launches": launches,
+           "hash": digest.hexdigest()}
+    if save_grads:
+        out["grads"] = {n: g.to("cpu", torch.bfloat16) for n, g in
+                        grads.items()}
+    if case == "joint" and trainer.mesh is not None:
+        from unirec_tpu_torch.parallel.mesh import all_reduce_sum
+
+        leaves = list(grads.values())
+        all_reduce_sum(leaves)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            all_reduce_sum(leaves)
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["allreduce_mb"] = sum(g.numel() * g.element_size()
+                                  for g in leaves) / 1e6
+    out["full_grads"] = grads  # dropped before anything is saved
+    del state, step, batches, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """A gloo rank on cuda:0 (two ranks share the card): every case under
+    dp (user_sp: sp) over the world; rank 0 keeps the first step's
+    gradients."""
+    from unirec_tpu_torch.ops._build import load_kernels
+    from unirec_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_kernels()
+    init_distributed("cuda:0", backend="gloo",
+                     init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                     rank=rank, timeout_s=PAR_TIMEOUT_S)
+    with open(os.path.join(tmp, "par", "inputs.pkl"), "rb") as fh:
+        inputs = pickle.load(fh)
+    results = {}
+    for case in PAR_CASES:
+        r = par_case(case, tmp, inputs, par_mesh(case, world),
+                     save_grads=rank == 0)
+        r.pop("full_grads")
+        results[case] = r
+    torch.save(results, os.path.join(tmp, "par", f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def par_sweep(smi: str, tmp: str) -> dict:
+    """The sweep at ``ItemQFormerConfig()``, batch 4096, bf16 and int8: dp = 2
+    over [cuda:0, cuda:0] against dp = 1 on 8,192 items (two batches)."""
+    from unirec_tpu_torch.configs import MeshConfig
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.parallel.mesh import make_mesh
+
+    cache = FieldEmbeddingCache.load(os.path.join(tmp, "cache"))
+    emb, mask = cache.gather(cache.item_ids[:2 * SWEEP_BATCH])
+    mesh = make_mesh(MeshConfig(dp=2), ["cuda:0", "cuda:0"])
+    out = {}
+    for precision in ("bf16", "int8"):
+        names = ("b1", "b2", "b3") if precision == "bf16" else ("b4", "b5",
+                                                                "b6")
+        counters = {k: v for k, v in item_counters().items() if k in names}
+        got, rate, launches = {}, {}, {}
+        for dp, m in ((1, None), (2, mesh)):
+            inf = QFormerInference(os.path.join(tmp, "ckpt"), device="cuda",
+                                   batch_size=SWEEP_BATCH, mesh=m,
+                                   precision=precision)
+            inf.query_tokens_from_embeddings(emb[:SWEEP_BATCH],
+                                             mask[:SWEEP_BATCH])  # warm
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[dp] = inf.query_tokens_from_embeddings(emb, mask)
+            torch.cuda.synchronize()
+            rate[dp] = len(emb) / (time.perf_counter() - t0)
+            launches[dp] = {n: fn.launches for n, fn in counters.items()}
+            del inf
+        diff = float(np.abs(got[2] - got[1]).max())
+        exact = bool(np.array_equal(got[2], got[1]))
+        # two batches; at dp = 2 each is two shards of 2,048 items
+        want = {n: c * 2 for n, c in launches[1].items()}
+        log(f"[{smi}] dp sweep {precision}, {len(emb)} items at batch "
+            f"{SWEEP_BATCH}: dp=2 over [cuda:0, cuda:0] against dp=1 max|d| "
+            f"{diff:.3e} (gate {BLOCK_ATOL}), bit for bit: {exact}; items/s "
+            f"dp=1 {rate[1]:.0f}, dp=2 {rate[2]:.0f} (one card, not a "
+            f"scaling figure); launches dp=1 {launches[1]}, dp=2 "
+            f"{launches[2]}")
+        if not (diff <= BLOCK_ATOL and np.isfinite(got[2]).all()
+                and launches[2] == want and all(launches[1].values())):
+            raise AssertionError(f"the dp sweep ({precision}) fails its "
+                                 f"checks")
+        out[precision] = {"max_abs": diff, "bit_for_bit": exact,
+                          "items_per_s": rate, "launches": launches[2]}
+    return out
+
+
+def phase_parallel_serve(smi: str, rec, histories) -> dict:
+    """Serving at dp = 2 over [cuda:0, cuda:0] against dp = 1 on the serving
+    stack: the float32 catalog (K1, K2), the int8 catalog (B11) and int8
+    (b) (merged LoRA, B9a / B9b / B8).  User rows at cosine >= 0.9999, ids
+    equal but for near-ties: a pick that differs must score, under dp = 1's
+    user vector, within K2_TIE plus the largest difference of the two user
+    vectors of dp = 1's pick (a cosine moves by at most that)."""
+    from unirec_tpu_torch.configs import MeshConfig
+    from unirec_tpu_torch.ops.flash_causal import flash_causal_attention
+    from unirec_tpu_torch.ops.fused_qwen3_int8 import qkv_int8, swiglu_mlp_int8
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear
+    from unirec_tpu_torch.ops.quantization import retrieve_top_k_int8
+    from unirec_tpu_torch.ops.ranking import retrieve_top_k
+    from unirec_tpu_torch.parallel.mesh import make_mesh
+    from unirec_tpu_torch.serving.recommender import Recommender
+
+    mesh = make_mesh(MeshConfig(dp=2), ["cuda:0", "cuda:0"])
+    catalog = dict(zip(rec.catalog_ids, rec.catalog))
+    kinds = {"f32": ({}, (flash_causal_attention, retrieve_top_k)),
+             "int8_catalog": ({"quantize_catalog": True},
+                              (flash_causal_attention, retrieve_top_k_int8)),
+             "int8_b": ({"precision": "int8", "merge_lora": True},
+                        (qkv_int8, swiglu_mlp_int8, int8_linear,
+                         retrieve_top_k))}
+    out = {}
+    for kind, (kw, kernels) in kinds.items():
+        recs = [Recommender(rec.model, rec.tokenizer, rec.item_dict,
+                            rec.cache, catalog, batch_size=BATCH, mesh=m,
+                            **kw) for m in (None, mesh)]
+        users = [r.encode_users(histories) for r in recs]
+        answers = [recs[0].recommend(histories, k=SERVE_K)]
+        for fn in kernels:
+            fn.launches = 0
+        answers.append(recs[1].recommend(histories, k=SERVE_K))
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        cos = float(((users[0] * users[1]).sum(1) / (
+            np.linalg.norm(users[0], axis=1)
+            * np.linalg.norm(users[1], axis=1))).min())
+        du = float(np.abs(users[0] - users[1]).max())
+        cat = recs[0].catalog / np.linalg.norm(recs[0].catalog, axis=1,
+                                               keepdims=True)
+        index = {iid: j for j, iid in enumerate(recs[0].catalog_ids)}
+        swaps, worst = 0, 0.0
+        for u, a1, a2 in zip(users[0], *answers):
+            for r1, r2 in zip(a1, a2):
+                if r1.item_id != r2.item_id:
+                    swaps += 1
+                    gap = abs(float(cat[index[r2.item_id]] @ u) - r1.score)
+                    worst = max(worst, gap)
+        tie = K2_TIE + 2 * du
+        log(f"[{smi}] dp serving {kind}: dp=2 over [cuda:0, cuda:0] against "
+            f"dp=1 on {len(histories)} users, min user cosine {cos:.7f} "
+            f"(gate {KERNEL_COS}), max|d u| {du:.3e}, bit for bit "
+            f"{bool(np.array_equal(users[0], users[1]))}; {swaps} id swaps, "
+            f"worst score gap {worst:.3e} (near-tie bound {tie:.3e}); dp=2 "
+            f"launches {launches}")
+        if not (cos >= KERNEL_COS and worst <= tie
+                and all(launches.values())):
+            raise AssertionError(f"dp serving {kind} fails its checks")
+        out[kind] = {"cos": cos, "swaps": swaps, "launches": launches}
+        del recs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_compare(case: str, ref: dict, got: list) -> None:
+    """A case's ranks against its one-rank run (phase 6's gates): losses
+    within STEP_LOSS_REL, every leaf's gradient at cosine >= STEP_GRAD_COS
+    but the noise leaves, the ranks' parameters bit for bit equal and each
+    rank's launches the one-rank run's."""
+    rel = max(abs(a - b) / abs(b) for r in got
+              for a, b in zip(r["losses"], ref["losses"]))
+    g = {n: t.double() for n, t in got[0]["grads"].items()}
+    want = {n: t.double() for n, t in ref["grads"].items()}
+    noise = noise_leaves({n: t.float() for n, t in ref["full_grads"].items()})
+    cos = {n: c for n, c in grad_cosines(g, want).items() if n not in noise}
+    worst = min(cos, key=cos.get)
+    same = len({r["hash"] for r in got}) == 1
+    log(f"dp {case}: losses {[r['losses'] for r in got]} vs one rank "
+        f"{ref['losses']} (max rel {rel:.2e}, tol {STEP_LOSS_REL:g}); "
+        f"{len(cos)} leaves, min gradient cosine {cos[worst]:.6f} ({worst}, "
+        f"tol {STEP_GRAD_COS}), {len(noise)} noise leaves; ranks' parameters "
+        f"bit for bit equal: {same}; launches per rank "
+        f"{[r['launches'] for r in got]}, one rank {ref['launches']}")
+    if not (rel <= STEP_LOSS_REL and cos[worst] >= STEP_GRAD_COS and same
+            and all(r["launches"] == ref["launches"] for r in got)):
+        raise AssertionError(f"the dp {case} step disagrees with one rank")
+
+
+def phase_parallel(smi: str, tmp: str) -> dict:
+    """dp / sp on one card (see the section's comment): the sweep, the
+    training cases on one rank, on a world-size-1 NCCL group (the joint step
+    bit for bit the plain one) and on two gloo ranks sharing cuda:0, then
+    the refusal of ``train joint --dp 2`` on this one-card machine."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from unirec_tpu_torch.configs import MeshConfig
+    from unirec_tpu_torch.parallel.mesh import free_port, init_distributed
+
+    t_phase = time.perf_counter()
+    sweep = par_sweep(smi, tmp)
+    os.makedirs(os.path.join(tmp, "par"), exist_ok=True)
+    inputs = par_inputs(tmp)
+    with open(os.path.join(tmp, "par", "inputs.pkl"), "wb") as fh:
+        pickle.dump(inputs, fh)
+    refs = {case: par_case(case, tmp, inputs, par_mesh(case, 1),
+                           save_grads=True) for case in PAR_CASES}
+
+    # the world-size-1 NCCL group through the same dp code
+    port = free_port()
+    init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port}",
+                     world_size=1, rank=0, timeout_s=PAR_TIMEOUT_S)
+    try:
+        nccl = par_case("joint", tmp, inputs, MeshConfig(dp=1))
+    finally:
+        dist.destroy_process_group()
+    plain = refs["joint"]
+    exact = (nccl["losses"] == plain["losses"]
+             and nccl["hash"] == plain["hash"] and all(
+                 torch.equal(nccl["full_grads"][n], g)
+                 for n, g in plain["full_grads"].items()))
+    log(f"[{smi}] joint step on a world-size-1 NCCL group: bit for bit the "
+        f"plain step's: {exact}; ms per step plain {plain['ms']:.1f}, NCCL "
+        f"world 1 {nccl['ms']:.1f}, the gradient all-reduce "
+        f"({nccl['allreduce_mb']:.0f} MB) {nccl['allreduce_ms']:.2f} ms (one "
+        f"card, not a scaling figure)")
+    if not exact:
+        raise AssertionError("the world-size-1 NCCL joint step is not the "
+                             "plain step bit for bit")
+    del nccl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two gloo ranks sharing cuda:0
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(par_rank, args=(2, free_port(), tmp), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("the two gloo ranks timed out")
+    got = [torch.load(os.path.join(tmp, "par", f"rank{r}.pt"),
+                      weights_only=False) for r in range(2)]
+    log(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s, start "
+        f"and builds included")
+    for case in PAR_CASES:
+        par_compare(case, refs[case], [g[case] for g in got])
+    ranks_ms = {case: [g[case]["ms"] for g in got] for case in PAR_CASES}
+    log(f"[{smi}] ms per step (second step, host clock, synced): one rank "
+        f"{ {c: round(refs[c]['ms'], 1) for c in PAR_CASES} }, each of two "
+        f"gloo ranks sharing the card {ranks_ms}; the joint gradient "
+        f"all-reduce over gloo ({got[0]['joint']['allreduce_mb']:.0f} MB) "
+        f"{got[0]['joint']['allreduce_ms']:.1f} ms (one card, not a scaling "
+        f"figure)")
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the refusal: two ranks on a one-card machine
+    cmd = [sys.executable, "-m", "unirec_tpu_torch", "train", "joint",
+           "--train-data", "x", "--val-data", "x", "--item-emb", "x",
+           "--item-dict", "x", "--qformer-checkpoint", "x", "--cache-dir",
+           "x", "--dp", "2"]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    want = f"needs 2 cards, have {torch.cuda.device_count()}"
+    log(f"`train joint --dp 2` on this machine: exit {res.returncode}, "
+        f"{res.stderr.strip().splitlines()[-1] if res.stderr else ''}")
+    if res.returncode == 0 or want not in res.stderr:
+        raise AssertionError("train joint --dp 2 was not refused")
+    log(f"phase_parallel: {time.perf_counter() - t_phase:.1f} s")
+    return {"sweep": sweep, "ranks_ms": ranks_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5927,8 +6381,12 @@ def main() -> int:
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_entry_point(smi, served.pop("stack")[0],
-                          os.path.join(tmp, "serve"))
+        rec, histories = served.pop("stack")
+        phase_entry_point(smi, rec, os.path.join(tmp, "serve"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        par_served = phase_parallel_serve(smi, rec, histories)
+        del rec
         gc.collect()  # the serving stacks, before the sweep's memory is read
         torch.cuda.empty_cache()
         swept = phase_sweep(smi, tmp)
@@ -5956,6 +6414,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_exports(smi, tmp, phase_mwne(smi, tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel = phase_parallel(smi, tmp)
     sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
     bounds = static_bounds()

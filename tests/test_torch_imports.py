@@ -61,6 +61,9 @@ EXPECTED_MODULES = {
     "unirec_tpu_torch.models.qformer", "unirec_tpu_torch.models.qformer_decode",
     "unirec_tpu_torch.train.mwne", "unirec_tpu_torch.utils.torch_convert",
     "unirec_tpu_torch.utils.debug", "unirec_tpu_torch.utils.profiling",
+    # A9's data and sequence parallelism
+    "unirec_tpu_torch.parallel", "unirec_tpu_torch.parallel.mesh",
+    "unirec_tpu_torch.ops.sharded_attention",
 }
 
 

@@ -27,11 +27,13 @@ from unirec_tpu.inference.qformer_inference import (
 from unirec_tpu.models.item_qformer import ItemQFormer as JaxItemQFormer
 from unirec_tpu.utils.torch_convert import save_reference_item_qformer_checkpoint
 from unirec_tpu_torch.cli import generate_all_item_embeddings as cli
+from unirec_tpu_torch.configs import MeshConfig
 from unirec_tpu_torch.inference.qformer_inference import (
     QFormerInference,
     is_null_value,
     run_inference,
 )
+from unirec_tpu_torch.parallel.mesh import make_mesh
 from unirec_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     read_meta,
@@ -144,8 +146,10 @@ def test_precision_and_mesh_are_refused(setup):
     _, sd, _, _ = setup
     q8 = _port(sd, precision="int8")  # the W8A8 engine, even on the CPU
     assert q8.use_fused and q8.fused_params.layers[0].is_int8
-    with pytest.raises(NotImplementedError, match="dp"):
-        _port(sd, mesh=object())
+    # a dp mesh is taken (tests/test_torch_dp_inference.py); a batch that
+    # does not split over it is refused with the JAX class's error
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
+        _port(sd, mesh=make_mesh(MeshConfig(dp=3), ["cpu"] * 3))
     with pytest.raises(ValueError):
         _port(sd, precision="fp8")
 
@@ -285,11 +289,17 @@ def test_cli_int8_sweep(tiny_sweep):
         np.testing.assert_array_equal(tokens[iid], want[j])
 
 
-@pytest.mark.parametrize("extra", [["--dp", "2"], ["--data", "items.json"],
-                                   []],
+# more cards than the machine has (2 here)
+_TOO_MANY_CARDS = str(max(2, torch.cuda.device_count() + 1))
+
+
+@pytest.mark.parametrize("extra", [["--dp", _TOO_MANY_CARDS, "--device",
+                                    "cuda"],
+                                   ["--data", "items.json"], []],
                          ids=["dp2", "data-without-cache", "no-ckpt"])
 def test_cli_refuses_what_is_not_ported(tiny_sweep, extra):
-    """--dp above 1; --data without a cache is ported
+    """--dp above the number of cards (--dp itself is ported:
+    tests/test_torch_dp_inference.py); --data without a cache is ported
     (tests/test_torch_front_cli.py), and a --data file that does not exist
     is refused; no checkpoint."""
     tmp, argv, _ = tiny_sweep

@@ -359,8 +359,10 @@ def test_serve_cli_build_recommender_tiny(tmp_path):
     again = serve_cli.build_recommender(serve_cli.parse_args(
         base + ["--checkpoint", str(tmp_path / "joint")]))
     np.testing.assert_array_equal(again.encode_users(hists), u_bf)
-    with pytest.raises(NotImplementedError, match="dp"):
-        serve_cli.build_recommender(serve_cli.parse_args(base + ["--dp", "1"]))
+    # --dp is taken (tests/test_torch_dp_inference.py); a batch that does
+    # not split over it is refused with the JAX class's error
+    with pytest.raises(ValueError, match="not divisible by dp mesh size 3"):
+        serve_cli.build_recommender(serve_cli.parse_args(base + ["--dp", "3"]))
     with pytest.raises(ValueError, match="tokenizer"):
         serve_cli.build_recommender(serve_cli.parse_args(
             base + ["--hf-path", str(tmp_path)]))

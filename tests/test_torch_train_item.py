@@ -349,8 +349,9 @@ def test_train_cli_item_qformer_refusals(tmp_path, capsys, monkeypatch):
     argv = _cli_files(tmp_path, n=6)
     with pytest.raises(SystemExit, match="--fused-anchor requires --bf16"):
         train_cli.main(["item-qformer"] + argv + ["--fused-anchor"])
+    # --dp is ported (tests/test_torch_mesh.py); --tp is the next A9 slice
     with pytest.raises(NotImplementedError, match="A9"):
-        train_cli.main(["item-qformer"] + argv + ["--dp", "2"])
+        train_cli.main(["item-qformer"] + argv + ["--dp", "2", "--tp", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in (["item-qformer"] + [a for a in argv if a != "cpu"
                                     and a != "--device"],

@@ -449,7 +449,8 @@ def test_train_cli_joint_tiny_end_to_end(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--pp", "2"], NotImplementedError, "A9"),
-    (["--dp", "2"], NotImplementedError, "A9"),
+    # --dp is ported (tests/test_torch_mesh.py); with --tp it is refused
+    (["--dp", "2", "--tp", "2"], NotImplementedError, "A9"),
     (["--tp", "2"], NotImplementedError, "A9"),
     # --hf-path is ported (tests/test_torch_text_backend.py); a path that
     # holds no checkpoint is refused, not replaced by hash tokens

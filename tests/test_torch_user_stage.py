@@ -387,5 +387,6 @@ def test_train_cli_user_qformer_and_resume(stage, tmp_path, monkeypatch,
                                        "1"]) == 0
     _, m = metrics()
     assert np.isfinite(m["loss"]) and np.isfinite(m["token_mse"])
+    # --sp is ported (tests/test_torch_mesh.py); --tp is the next A9 slice
     with pytest.raises(NotImplementedError, match="A9"):
-        train_cli.main(base + ["--sp", "2"])
+        train_cli.main(base + ["--sp", "2", "--tp", "2"])

@@ -5,7 +5,7 @@
         --checkpoint CKPT --cache-dir CACHE --output tokens.pkl --batch-size 4096
 
 Same flags as the JAX CLI.  It sweeps a field-embedding cache through
-``QFormerInference`` on one device: the one in ``--cache-dir``, or, where
+``QFormerInference``: the one in ``--cache-dir``, or, where
 that holds none, one encoded from the raw items of ``--data`` (an item dict
 JSON) with ``ItemEncoder()`` (the hash text and image backends and MWNE, as
 the JAX CLI) for the checkpoint's fields, written to ``--cache-dir`` when
@@ -14,14 +14,16 @@ engine with kernels B1-B3 on a CUDA card, or with the W8A8 kernels B4-B6
 under ``--precision int8`` (which takes the fused engine on any device).
 It runs on the card; ``--device cpu`` asks for the CPU.
 ``--checkpoint`` is a checkpoint directory of ``utils/checkpoint.py`` or a
-reference ``.pth``.
+reference ``.pth``.  ``--dp N`` shards every batch over N cards, a replica
+of the weights on each (``-1``, the default: every visible card, as
+``jax.device_count()``; one card runs as before); more cards than there
+are is refused, and the batch size rounds up to a multiple of N, as in
+the JAX CLI.  With ``--device cpu`` the N replicas share the CPU.
 
 An OOM-shaped failure halves the batch (sticky) and retries; any other
 failure of a batch falls back to per-item processing, and a failed item gets
 zero tokens.  The number of items that took either fallback is printed and
 written to the progress file as ``fallback_items``.
-
-Not ported yet, refused with an error: ``--dp`` above 1 (A9).
 """
 
 from __future__ import annotations
@@ -111,8 +113,8 @@ def parse_args(argv=None):
     p.add_argument("--min-batch-size", type=int, default=16,
                    help="floor for the memory-aware batch downshift")
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel devices: -1 or 1 = one device (more "
-                        "than one is not ported yet)")
+                   help="data-parallel devices (-1: every visible card; "
+                        "with --device cpu, replicas that share the CPU)")
     p.add_argument("--max-items", type=int, default=None)
     p.add_argument("--profile", action="store_true",
                    help="print per-batch timing stats")
@@ -136,11 +138,10 @@ def _fail(msg: str) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.dp > 1:
-        return _fail("--dp > 1 (the data-parallel sweep) is not ported yet")
 
     from unirec_tpu_torch.data.cache import FieldEmbeddingCache, build_cache
     from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.parallel.mesh import inference_mesh
     from unirec_tpu_torch.utils.device import resolve_device
     from unirec_tpu_torch.utils.profiling import (
         ProgressWriter,
@@ -153,7 +154,15 @@ def main(argv=None) -> int:
         info = check_devices()
         if not (args.data or args.cache_dir):
             return 0 if info["ok"] else 1
+    try:  # more cards than there are is refused before anything runs
+        mesh = inference_mesh(args.dp, args.device)
+    except ValueError as e:
+        return _fail(f"--dp {args.dp}: {e}")
     device = resolve_device(args.device)  # the card unless --device cpu
+    if mesh is not None:
+        dp = mesh.shape["dp"]
+        args.batch_size += -args.batch_size % dp
+        print(f"sweep sharded over {dp} devices (batch {args.batch_size})")
     if not args.checkpoint:
         return _fail("--checkpoint required")
     cached = bool(args.cache_dir and FieldEmbeddingCache.exists(args.cache_dir))
@@ -163,7 +172,7 @@ def main(argv=None) -> int:
         return _fail(f"--data {args.data}: no such file")
 
     inference = QFormerInference(args.checkpoint, device=device,
-                                 batch_size=args.batch_size,
+                                 batch_size=args.batch_size, mesh=mesh,
                                  precision=args.precision)
     # field embeddings: from the cache (the fast path) or encoded from raw
     # items

@@ -26,7 +26,11 @@ host for a catalog whose cache does not fit there, and uploads each batch's
 gathered fields instead (``Recommender(device_field_cache=False)``).
 ``users`` (``cli/user_embeddings.py``) shares these flags.
 
-Not ported, refused with an error: ``--dp`` (a dp mesh, ROADMAP.md A9).
+``--dp N`` serves data-parallel over N cards in this process (``-1``: every
+visible card): a replica of the model, the catalog and the field cache on
+each, every batch of users split over them (``Recommender(mesh=...)``); the
+batch size must divide by N, and more cards than there are is refused.
+With ``--device cpu`` the N replicas share the CPU.
 """
 
 from __future__ import annotations
@@ -68,7 +72,9 @@ def add_recommender_flags(p, batch_size: int = 8):
     p.add_argument("--tiny", action="store_true",
                    help="tiny Qwen3 config (smoke tests / CPU)")
     p.add_argument("--dp", type=int, default=0,
-                   help="dp mesh size (not ported: anything but 0 raises)")
+                   help="shard over a dp mesh of this many cards (0 = one "
+                        "device, -1 = every card); batch-size must divide "
+                        "by it")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
 
@@ -97,14 +103,14 @@ def build_recommender(args):
     from unirec_tpu_torch.data.tokenizer import make_tokenizer
     from unirec_tpu_torch.inference.qformer_inference import QFormerInference
     from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
+    from unirec_tpu_torch.parallel.mesh import inference_mesh
     from unirec_tpu_torch.serving.recommender import Recommender
     from unirec_tpu_torch.utils.checkpoint import load_checkpoint
     from unirec_tpu_torch.utils.device import resolve_device
     from unirec_tpu_torch.utils.weights import init_joint
 
-    if args.dp:
-        raise NotImplementedError(
-            "--dp (serving over a dp mesh) is not ported yet (ROADMAP.md A9)")
+    # more cards than there are is refused before anything loads
+    mesh = inference_mesh(args.dp, args.device) if args.dp else None
     device = resolve_device(args.device)
     with open(args.item_dict) as f:
         item_dict = json.load(f)
@@ -150,7 +156,7 @@ def build_recommender(args):
         batch_size=args.batch_size, precision=args.precision,
         quantize_catalog=args.quantize, merge_lora=args.merge_lora,
         fused_blocks=False if args.no_fused_blocks else None,
-        device_field_cache=not args.host_field_cache)
+        device_field_cache=not args.host_field_cache, mesh=mesh)
     if args.prewarm:
         print(f"prewarmed {rec.prewarm_prompts()} prompt fragments")
     return rec

@@ -69,8 +69,21 @@ checkpoint directory, ``export-pretrained`` the reference's
 ``best_model/`` or the directory itself; its meta records both configs),
 through ``utils/weights.state_dict_to_flax`` and ``utils/torch_convert``.
 
-Not ported yet, refused with the queue that holds them: ``--pp``, ``--dp``,
-``--tp`` and ``--sp`` above 1 (A9).
+``--dp N`` (``joint``, ``item-qformer``, ``user-qformer``) trains
+data-parallel over N ranks and ``user-qformer --sp M`` splits the memory
+over M ranks (``parallel/mesh.py``): under ``torchrun`` (which sets
+``WORLD_SIZE``) the command is one rank of that world and dp x sp must
+equal it; otherwise the command spawns dp x sp local ranks, one per
+visible card (gloo ranks on the CPU with ``--device cpu``), joined over
+``tcp://127.0.0.1`` with a timeout on every collective
+(``parallel.mesh.DEFAULT_TIMEOUT_S``).  More
+ranks than cards is refused before anything spawns; ``--dp -1`` (the
+default) takes every card, so one card trains as before.  A rank that
+fails ends the run with an error.  Rank 0 alone prints and writes
+checkpoints and metrics.
+
+Not ported yet, refused with the queue that holds them: ``--pp`` and
+``--tp`` above 1 (the next slice of A9).
 """
 
 from __future__ import annotations
@@ -121,9 +134,11 @@ def _common_train_flags(sp, batch_size: int, epochs: int, lr: float) -> None:
                     help="also stream metrics to wandb (JSONL under "
                          "--checkpoint-dir is always written)")
     sp.add_argument("--dp", type=int, default=-1,
-                    help="data-parallel size (not ported: above 1 raises)")
+                    help="data-parallel ranks (-1: every visible card; "
+                         "with --device cpu, 1)")
     sp.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (not ported: above 1 raises)")
+                    help="tensor-parallel size (the next slice of A9: "
+                         "above 1 raises)")
     sp.add_argument("--grad-accum", type=int, default=1,
                     help="apply the optimizer every k micro-batches on the "
                          "averaged gradient")
@@ -223,7 +238,11 @@ def _item_parsers(sub) -> None:
                     help="trainable fused self-attention blocks (B12s); "
                          "sets dropout 0 like --flash")
     sp.add_argument("--sp", type=int, default=1,
-                    help="sequence parallelism (not ported: above 1 raises)")
+                    help="sequence parallelism: split the memory axis over "
+                         "N ranks (exact combine, ops/sharded_attention.py); "
+                         "seq * K must divide by N; incompatible with "
+                         "--flash / --fused; zeroes attention-prob dropout "
+                         "(hidden-state dropout stays on)")
     _common_train_flags(sp, 64, 50, 5e-5)
 
     sp = sub.add_parser("evaluate")
@@ -285,11 +304,89 @@ def main(argv=None) -> int:
         return 2
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
-    return {"joint": _run_joint, "item-qformer": _run_item_qformer,
-            "user-qformer": _run_user_qformer, "evaluate": _run_evaluate,
+    if args.cmd in _TRAINERS:
+        return _run_parallel(args)
+    return {"evaluate": _run_evaluate,
             "precompute": _run_precompute, "mwne": _run_mwne,
             "export-pth": _run_export_pth,
             "export-pretrained": _run_export_pretrained}[args.cmd](args)
+
+
+def _run_trainer(args) -> int:
+    return _TRAINERS[args.cmd](args)
+
+
+def _run_parallel(args) -> int:
+    """Run a trainer subcommand on its dp x sp ranks: in this process (one
+    rank, or a rank of ``torchrun``'s world), or on spawned local ranks."""
+    import torch
+
+    if args.tp > 1:
+        raise NotImplementedError(
+            "--tp above 1 (tensor parallelism) is the next slice of "
+            "ROADMAP.md A9")
+    if getattr(args, "pp", 1) > 1:
+        raise NotImplementedError(
+            "--pp (pipeline parallelism) is the next slice of ROADMAP.md A9")
+    sp = getattr(args, "sp", 1)
+    if sp > 1 and (args.flash or args.fused):
+        raise ValueError(
+            "sequence_parallel is incompatible with flash/fused training "
+            "(the kernels are single-device; the sp combine is a "
+            "collective path)")
+    if "WORLD_SIZE" in os.environ:  # a rank of torchrun's world
+        from unirec_tpu_torch.parallel.mesh import init_distributed
+
+        world = int(os.environ["WORLD_SIZE"])
+        dp = world // sp if args.dp < 0 else args.dp
+        if dp * sp != world:
+            raise ValueError(f"--dp {dp} x --sp {sp} != the world's "
+                             f"{world} ranks")
+        args.dp = dp
+        init_distributed(args.device)
+        return _rank_main(int(os.environ["RANK"]), args, None, 0)
+    cuda = torch.device(args.device).type == "cuda"
+    cards = torch.cuda.device_count() if cuda else 1
+    dp = args.dp if args.dp > 0 else max(cards // sp, 1) if cuda else 1
+    world = dp * sp
+    if cuda and world > max(cards, 1):
+        raise ValueError(f"--dp {dp} x --sp {sp} needs {world} cards, "
+                         f"have {cards}")
+    args.dp = dp
+    if world == 1:  # no card at all: the trainer's device check says so
+        return _run_trainer(args)
+    import torch.multiprocessing as mp
+
+    from unirec_tpu_torch.parallel.mesh import free_port
+
+    # joins every rank, and raises (ending the others) if one fails
+    mp.start_processes(_rank_main, args=(args, world, free_port()),
+                       nprocs=world, start_method="spawn")
+    return 0
+
+
+def _rank_main(rank: int, args, world, port: int) -> int:
+    """One rank: join the world (unless torchrun's is joined), run the
+    trainer, leave; a non-zero return exits the rank with it.  Ranks other
+    than 0 print nothing."""
+    import torch.distributed as dist
+
+    from unirec_tpu_torch.parallel.mesh import init_distributed
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    if world is not None:
+        if args.device.startswith("cuda"):
+            args.device = f"cuda:{rank}"
+        init_distributed(args.device, init_method=f"tcp://127.0.0.1:{port}",
+                         world_size=world, rank=rank)
+    try:
+        rc = _run_trainer(args)
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        raise SystemExit(rc)
+    return rc
 
 
 def _read_items(path: str):
@@ -328,13 +425,11 @@ def _run_item_qformer(args) -> int:
     from unirec_tpu_torch.data.cache import build_cache
     from unirec_tpu_torch.encoders.item_encoder import ItemEncoder
     from unirec_tpu_torch.ops.fused_qformer_vjp import supports_fused_train
+    from unirec_tpu_torch.parallel.mesh import writer_first
     from unirec_tpu_torch.train.item_qformer import train_item_qformer
     from unirec_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError("--dp / --tp above 1 are not ported yet "
-                                  "(ROADMAP.md A9)")
     if args.fused_anchor and not args.bf16:
         # the JAX CLI's refusal: the fused kernels are bf16-only
         raise SystemExit("--fused-anchor requires --bf16")
@@ -345,8 +440,9 @@ def _run_item_qformer(args) -> int:
         seq_data = json.load(f)
     sequences = [s["history"] for s in seq_data
                  if "history" in s and len(s["history"]) > 1]
-    cache = build_cache(items, ItemEncoder(device=device),
-                        cache_dir=args.cache_dir)
+    with writer_first():  # rank 0 writes the cache the others then read
+        cache = build_cache(items, ItemEncoder(device=device),
+                            cache_dir=args.cache_dir)
     # 90/10 split by --seed (reference: item_qformer_training.py:64-68)
     rng = np.random.default_rng(args.seed)
     perm = rng.permutation(len(cache))
@@ -392,9 +488,6 @@ def _run_user_qformer(args) -> int:
     from unirec_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    if args.dp > 1 or args.tp > 1 or args.sp > 1:
-        raise NotImplementedError("--dp / --tp / --sp above 1 are not ported "
-                                  "yet (ROADMAP.md A9)")
     iq_cfg, iq_sd, _ = QFormerInference.read_checkpoint(
         args.item_qformer_checkpoint)
     item_qformer = ItemQFormer(iq_cfg, device=device)
@@ -418,7 +511,7 @@ def _run_user_qformer(args) -> int:
         num_item_tokens_to_predict=iq_cfg.num_query_tokens,
         input_embedding_dim=iq_cfg.hidden_size,
         gradient_checkpointing=args.remat, flash_training=args.flash,
-        fused_training=args.fused,
+        fused_training=args.fused, sequence_parallel=args.sp > 1,
         dropout=0.0 if (args.flash or args.fused) else 0.1)
     _, metrics = train_user_qformer(
         cache, histories, reviews, item_qformer, user_config=uc,
@@ -577,12 +670,6 @@ def _run_joint(args) -> int:
     from unirec_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)  # the card unless --device cpu
-    if args.pp > 1:
-        raise NotImplementedError("--pp (pipeline parallelism) is not ported "
-                                  "yet (ROADMAP.md A9)")
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError("--dp / --tp above 1 are not ported yet "
-                                  "(ROADMAP.md A9)")
 
     with open(args.train_data) as f:
         train_data = json.load(f)
@@ -708,6 +795,10 @@ def _run_joint(args) -> int:
         ml.log(final, step=state.step)
         ml.close()
     return 0
+
+
+_TRAINERS = {"joint": _run_joint, "item-qformer": _run_item_qformer,
+             "user-qformer": _run_user_qformer}
 
 
 if __name__ == "__main__":

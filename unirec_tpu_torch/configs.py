@@ -234,15 +234,22 @@ class UserQFormerConfig:
     # the 1,600-row cross side fails supports_fused_train and takes the
     # flash or plain path), composes with flash_training
     fused_training: bool = False
+    # sequence parallelism (`train user-qformer --sp N`): the memory axis
+    # is split over the mesh's sp ranks and combined exactly
+    # (ops/sharded_attention.py); attention probabilities never exist
+    # whole, so their dropout is zeroed like the kernel flags'
+    sequence_parallel: bool = False
 
     def qformer(self) -> QFormerConfig:
         # the trainable kernels engage only without attention-prob dropout:
         # zero it when a kernel flag is set so the flags are never silently
         # inert; hidden-state dropout keeps the configured rate
-        kernel_train = self.fused_training or self.flash_training
+        kernel_train = (self.fused_training or self.flash_training
+                        or self.sequence_parallel)
         if kernel_train and self.dropout > 0.0:
             _warn_prob_dropout_zeroed(
-                "UserQFormerConfig", "flash_training/fused_training",
+                "UserQFormerConfig",
+                "flash_training/fused_training/sequence_parallel",
                 self.dropout,
             )
         return QFormerConfig(

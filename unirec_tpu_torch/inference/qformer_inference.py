@@ -15,6 +15,14 @@ existed to keep one jit-compiled shape, and eager PyTorch has none.  Outputs
 do not depend on the batch's composition (each block works row by row or item
 by item; ``tests/test_torch_qformer_inference.py`` holds a lone item to its
 row of a batch).
+
+``mesh`` (``parallel/mesh.make_mesh``) is the dp-sharded sweep: a replica
+of the forward weights (or of the fused engine's packed weights) on each
+distinct device of the mesh's dp axis, each batch split into dp shards,
+every shard launched before any is read back, and the outputs concatenated
+on the host.  ``batch_size`` must divide by dp; a smaller call is padded up
+to a multiple of dp by repeating its last row, and the padded rows are
+trimmed.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from unirec_tpu_torch.inference.fused_qformer import (
     supports_fused,
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
+from unirec_tpu_torch.parallel.mesh import pad_batch
 from unirec_tpu_torch.utils.device import resolve_device
 
 NULL_STRINGS = {
@@ -53,7 +62,8 @@ def is_null_value(value) -> bool:
 
 
 class QFormerInference:
-    """Checkpointed Item Q-Former + batched forward on one device.
+    """Checkpointed Item Q-Former + batched forward on one device, or on
+    the dp devices of ``mesh``.
 
     Interface expected by the batch CLI: ``device``,
     ``query_tokens_from_embeddings``, ``query_tokens_from_cache``,
@@ -83,9 +93,6 @@ class QFormerInference:
         use_fused: Optional[bool] = None,
         precision: str = "bf16",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the dp-sharded sweep is not ported yet (ROADMAP.md A9)")
         if precision not in ("bf16", "int8"):
             raise ValueError(f"precision must be bf16 or int8, got {precision!r}")
         if checkpoint_path is not None:
@@ -96,7 +103,18 @@ class QFormerInference:
         self.config = config
         self.field_names = list(field_names)
         self.item_encoder = item_encoder
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.dp_size = mesh.shape["dp"]
+            if batch_size % self.dp_size:
+                raise ValueError(f"batch_size {batch_size} not divisible by "
+                                 f"mesh size {self.dp_size}")
+            self.shard_devices = [resolve_device(d) for d in mesh.dp_devices]
+            self.device = self.shard_devices[0]
+        else:
+            self.dp_size = 1
+            self.device = resolve_device(device)
+            self.shard_devices = [self.device]
         self.batch_size = batch_size
         self.precision = precision
         if precision == "int8":
@@ -108,15 +126,24 @@ class QFormerInference:
         if use_fused is None:
             use_fused = self.device.type == "cuda"
         self.use_fused = bool(use_fused) and supports_fused(config)
-        self.model = None
-        if self.use_fused:
-            self.fused_params = prepare_fused_params(
-                params, config, dtype=torch.bfloat16, precision=precision,
-                device=self.device)
-        else:
-            self.model = ItemQFormer(config, device=self.device,
-                                     dtype=torch.bfloat16).eval()
-            self.model.load_state_dict(params)
+        # one replica of the weights per distinct device (replicas that
+        # share a device share it)
+        self._replicas: Dict[torch.device, object] = {}
+        for dev in self.shard_devices:
+            if dev in self._replicas:
+                continue
+            if self.use_fused:
+                self._replicas[dev] = prepare_fused_params(
+                    params, config, dtype=torch.bfloat16, precision=precision,
+                    device=dev)
+            else:
+                model = ItemQFormer(config, device=dev,
+                                    dtype=torch.bfloat16).eval()
+                model.load_state_dict(params)
+                self._replicas[dev] = model
+        primary = self._replicas[self.device]
+        self.fused_params = primary if self.use_fused else None
+        self.model = None if self.use_fused else primary
         self._data_cache: Dict[str, Dict] = {}
 
     @staticmethod
@@ -149,27 +176,47 @@ class QFormerInference:
 
     @torch.inference_mode()
     def forward(self, field_embeddings: torch.Tensor,
-                masks: torch.Tensor) -> torch.Tensor:
-        """One batch on the device: [B, F, D] + [B, F] -> [B, K, hidden]
-        bfloat16 tokens, left on the device."""
-        emb = field_embeddings.to(self.device)
-        mask = masks.to(self.device, torch.float32)
+                masks: torch.Tensor, device=None) -> torch.Tensor:
+        """One batch on ``device`` (default: the first): [B, F, D] + [B, F]
+        -> [B, K, hidden] bfloat16 tokens, left on the device."""
+        device = self.device if device is None else torch.device(device)
+        emb = field_embeddings.to(device)
+        mask = masks.to(device, torch.float32)
+        replica = self._replicas[device]
         if self.use_fused:
-            return fused_qformer_forward(self.fused_params, self.config, emb, mask)
-        return self.model.query_outputs(emb, mask)
+            return fused_qformer_forward(replica, self.config, emb, mask)
+        return replica.query_outputs(emb, mask)
+
+    def _forward_to_host(self, emb: np.ndarray, mask: np.ndarray
+                         ) -> np.ndarray:
+        """One chunk -> float32 tokens on the host: whole on one device, or
+        padded to a multiple of dp, split into dp shards, every shard
+        launched before any is read back, then trimmed."""
+        if self.mesh is None:
+            return self.forward(torch.from_numpy(emb),
+                                torch.from_numpy(mask)).float().cpu().numpy()
+        padded, n = pad_batch({"emb": emb, "mask": mask}, self.dp_size)
+        per = padded["emb"].shape[0] // self.dp_size
+        outs = [self.forward(torch.from_numpy(padded["emb"][j * per:
+                                                            (j + 1) * per]),
+                             torch.from_numpy(padded["mask"][j * per:
+                                                             (j + 1) * per]),
+                             device=dev)
+                for j, dev in enumerate(self.shard_devices)]
+        return np.concatenate([o.float().cpu().numpy() for o in outs])[:n]
 
     def query_tokens_from_embeddings(
         self, field_embeddings: np.ndarray, masks: np.ndarray
     ) -> np.ndarray:
         """[N, F, D] + [N, F] -> [N, K, hidden] float32, ``batch_size`` items
-        per forward."""
+        per forward (split over dp under a mesh)."""
         outs = []
         for i in range(0, field_embeddings.shape[0], self.batch_size):
-            emb = torch.from_numpy(np.ascontiguousarray(
-                field_embeddings[i:i + self.batch_size], np.float32))
-            mask = torch.from_numpy(np.ascontiguousarray(
-                masks[i:i + self.batch_size], np.float32))
-            outs.append(self.forward(emb, mask).float().cpu().numpy())
+            outs.append(self._forward_to_host(
+                np.ascontiguousarray(field_embeddings[i:i + self.batch_size],
+                                     np.float32),
+                np.ascontiguousarray(masks[i:i + self.batch_size],
+                                     np.float32)))
         return np.concatenate(outs, axis=0)
 
     def query_tokens_from_cache(

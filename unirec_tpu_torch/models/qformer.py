@@ -21,7 +21,10 @@ Pallas blocks; with ``flash_training`` a cross block that takes no fused
 block runs the trainable flash cross-attention (``ops/flash_vjp``: B14), and
 a deterministic cross block otherwise goes through
 ``ops/attention.cross_attention`` (B13 on the card over long memories), in
-the JAX module's order of checks.  With ``capture_attention_probs`` every
+the JAX module's order of checks.  A cross block with an ``sp_group``
+(sequence parallelism, the JAX module's ``sp_mesh``) projects K/V from its
+rank's slice of the memory and combines over the group
+(``ops/sharded_attention``).  With ``capture_attention_probs`` every
 attention block takes the plain path and keeps its post-dropout
 probabilities in ``captured_probs`` (``utils/debug.capture_attention_maps``).
 
@@ -66,6 +69,9 @@ from unirec_tpu_torch.ops.attention import (
 from unirec_tpu_torch.ops.dropout import DropoutStream, dropout
 from unirec_tpu_torch.ops.dropout import at as _at
 from unirec_tpu_torch.ops.flash_vjp import flash_cross_attention_proj_vjp
+from unirec_tpu_torch.ops.sharded_attention import (
+    sequence_parallel_cross_attention,
+)
 from unirec_tpu_torch.ops.fused_qformer_vjp import (
     fused_cross_attention_train,
     fused_self_attention_train,
@@ -197,6 +203,9 @@ class QFormerAttention(nn.Module):
             Embed(2 * config.max_position_embeddings - 1, config.head_dim,
                   **lkw) if self.relative else None)
         self.captured_probs: Optional[torch.Tensor] = None
+        # the sp process group of a cross block whose memory is split over
+        # ranks (models/user_qformer.UserQFormer.set_sequence_parallel)
+        self.sp_group = None
 
     def forward(self, hidden_states: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
@@ -209,6 +218,21 @@ class QFormerAttention(nn.Module):
         fast = cfg.fast_attention and drop is None and not capture
         if self._fused_ok(hidden_states, src, bias, drop):
             out = self._fused(hidden_states, src, bias)
+        elif (self.is_cross and self.sp_group is not None and not capture
+              and not fast):
+            # sequence parallel: K/V projected from this rank's memory
+            # slice, then the exact combine over the sp group
+            if drop is not None and probs_rate > 0.0:
+                raise ValueError(
+                    "sequence-parallel cross-attention requires "
+                    "attention-prob dropout off (set sequence_parallel on "
+                    "the config so qformer() zeroes it)")
+            ctx = sequence_parallel_cross_attention(
+                split_heads(self.query(hidden_states), self.num_heads),
+                split_heads(self.key(src), self.num_heads),
+                split_heads(self.value(src), self.num_heads), bias,
+                group=self.sp_group)
+            out = self.output_dense(merge_heads(ctx))
         elif (self.is_cross and cfg.flash_training and not capture
               and (drop is None or probs_rate <= 0.0) and not fast):
             # B14: the K/V projections inside the gradient, merged heads in

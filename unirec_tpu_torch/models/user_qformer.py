@@ -9,7 +9,9 @@ a head Dense -> exact gelu -> LayerNorm(eps 1e-5) -> Dense(K*D) predicts the
 next item's K query tokens.
 
 With ``gradient_checkpointing`` a training forward recomputes each layer in
-the backward (``models/qformer.QFormerEncoder``).  Parameter names follow
+the backward (``models/qformer.QFormerEncoder``).  ``set_sequence_parallel``
+splits the memory over an sp process group (the JAX module's ``sp_mesh``):
+the caller then passes this rank's slice of the memory and its mask.  Parameter names follow
 the Flax tree (``query_embeddings``, ``qformer.*``, ``head_dense1``,
 ``head_norm``, ``head_dense2``).
 """
@@ -76,6 +78,14 @@ class UserQFormer(nn.Module):
         if return_user_representation:
             return predicted, user_representation
         return predicted
+
+    def set_sequence_parallel(self, group) -> None:
+        """Split the cross-attention memory over ``group`` (None: whole):
+        every cross block then takes this rank's slice of the memory and
+        combines exactly over the group (``ops/sharded_attention``)."""
+        for mod in self.modules():
+            if getattr(mod, "is_cross", False):
+                mod.sp_group = group
 
 
 class UserStage(nn.Module):

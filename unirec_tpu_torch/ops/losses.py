@@ -3,7 +3,9 @@
 The same semantics as the JAX functions: masked reconstruction MSE and the
 triplet margin of the item trainer, InfoNCE over masked negatives for the
 joint trainer, plain MSE for the user trainer.  The JAX functions' dp
-``axis_name`` is not taken: data parallelism is ROADMAP.md A9.
+``axis_name`` is the ``group`` argument here: the dp process group whose
+shards' losses the gradient all-reduce averages
+(``parallel/mesh.all_reduce_sum``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -30,13 +33,30 @@ def normalize_promoted(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(l2_normalize(x).to(dtype) for x in xs)
 
 
+def global_mean_denominator(count: torch.Tensor, group=None) -> torch.Tensor:
+    """A shard's denominator for a sum normalised by a count over the
+    whole batch: ``max(count, 1)`` on one device; over the dp ``group`` of
+    S shards, the global count's mean ``C / S`` clamped at ``1 / S``
+    (``max(C, 1) / S``, not ``max(C / S, 1)``, which differs when
+    ``0 < C < S``).  The dp mean of the shards' ``sum_s / (C / S)`` is then
+    ``sum / C``, the one-device value, and so are its gradients."""
+    if group is None:
+        return count.clamp_min(1.0)
+    total = count.detach().clone()
+    dist.all_reduce(total, group=group)
+    shards = dist.get_world_size(group)
+    return torch.clamp_min(total / shards, 1.0 / shards)
+
+
 def masked_reconstruction_mse(reconstructed: torch.Tensor,
                               target: torch.Tensor,
-                              field_mask: torch.Tensor) -> torch.Tensor:
+                              field_mask: torch.Tensor,
+                              group=None) -> torch.Tensor:
     """Squared error summed over valid fields' elements, divided by the
-    number of valid fields (at least 1): [B, F, D], [B, F, D], [B, F]."""
+    number of valid fields (at least 1): [B, F, D], [B, F, D], [B, F].
+    ``group``: the dp group of a shard (``global_mean_denominator``)."""
     masked = (reconstructed - target) ** 2 * field_mask[..., None]
-    return masked.sum() / field_mask.sum().clamp_min(1.0)
+    return masked.sum() / global_mean_denominator(field_mask.sum(), group)
 
 
 def triplet_hinge_arguments(anchor: torch.Tensor, positive: torch.Tensor,
@@ -76,12 +96,15 @@ def item_qformer_loss(model_output: Dict[str, torch.Tensor],
                       negative_rep: torch.Tensor,
                       reconstruction_weight: float = 1.0,
                       contrastive_weight: float = 0.25, margin: float = 0.5,
-                      hinge_active: Optional[torch.Tensor] = None
+                      hinge_active: Optional[torch.Tensor] = None,
+                      group=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, reconstruction, contrastive) of the item trainer;
-    ``hinge_active`` is ``triplet_margin_loss``'s ``active``."""
+    ``hinge_active`` is ``triplet_margin_loss``'s ``active``; ``group``
+    the dp group of a shard (the triplet term is a mean over equal shards,
+    which the dp mean already makes exact)."""
     recon = masked_reconstruction_mse(model_output["reconstructed_fields"],
-                                      field_embeddings, field_mask)
+                                      field_embeddings, field_mask, group)
     cont = triplet_margin_loss(model_output["item_representation"],
                                positive_rep, negative_rep, margin,
                                active=hinge_active)

@@ -1,5 +1,5 @@
 """Serving: user encoding plus full-catalog retrieval (port of
-``unirec_tpu/serving/recommender.py``, single device).
+``unirec_tpu/serving/recommender.py``).
 
 ``Recommender`` encodes user histories with the joint model in fixed-shape
 padded batches and ranks the whole catalog with ``ops/ranking.retrieve_top_k``
@@ -20,7 +20,15 @@ equal ``tokenizer.encode(construct_input_text(...))``.
 kernels B9a and B9b.  As the JAX class clones its Flax module, the
 recommender builds its own module over the caller's tensors
 (``MultiModalQwenEmbedding.clone``): the caller's model, its weights and its
-config are never changed.  Meshes wait (A9).
+config are never changed.
+
+``mesh`` (``parallel/mesh.make_mesh``) serves data-parallel in one process:
+each distinct device of the mesh's dp axis holds a replica of the
+parameters, the int8 weights, the catalog (or its codes and scales) and the
+field cache; every batch of users splits into dp shards, each encoded (K1;
+B8/B9a/B9b at int8) and ranked against the whole catalog (K2 or B11) on its
+own device, with no collective, as the JAX class's ``shard_map``; the
+shards are concatenated on the host.  ``batch_size`` must divide by dp.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from unirec_tpu_torch.models.qwen3 import quantize_qwen3_weights, set_qweights
 from unirec_tpu_torch.ops.losses import l2_normalize
 from unirec_tpu_torch.ops.quantization import quantize_rows, retrieve_top_k_int8
 from unirec_tpu_torch.ops.ranking import retrieve_top_k
+from unirec_tpu_torch.parallel.mesh import replicate
 from unirec_tpu_torch.serving.prompt_cache import CachedPromptEncoder
 from unirec_tpu_torch.utils.params import merged_model
 
@@ -47,6 +56,18 @@ from unirec_tpu_torch.utils.params import merged_model
 class Recommendation:
     item_id: str
     score: float
+
+
+@dataclasses.dataclass
+class _Replica:
+    """What one device of a (dp) recommender holds."""
+
+    model: MultiModalQwenEmbedding
+    device: torch.device
+    catalog: Optional[torch.Tensor] = None  # float32 rows
+    catalog_q: Tuple = (None, None)  # int8 codes, float32 scales
+    cache_emb: Optional[torch.Tensor] = None  # bfloat16 field cache
+    cache_mask: Optional[torch.Tensor] = None
 
 
 class Recommender:
@@ -60,7 +81,7 @@ class Recommender:
                  batch_size: int = 8, precision: str = "bf16",
                  quantize_catalog: bool = False, merge_lora: bool = False,
                  fused_blocks: Optional[bool] = None,
-                 device_field_cache: bool = True):
+                 device_field_cache: bool = True, mesh=None):
         """``precision`` is "bf16" (the compute dtype is the model's own) or
         "int8" (W8A8 projections quantized from the weights as they are).
         ``merge_lora`` and ``fused_blocks`` take the JAX defaults: no merge,
@@ -70,9 +91,13 @@ class Recommender:
         the same name); ``score_candidates`` still reads the float32
         catalog.  ``device_field_cache`` (default on) keeps the field cache on
         the device; off, each batch's history fields are gathered on the
-        host."""
+        host.  ``mesh``: serve over its dp devices (the class docstring)."""
         if precision not in ("bf16", "int8"):
             raise ValueError(f"precision must be bf16 or int8, got {precision!r}")
+        self.dp_size = int(mesh.shape["dp"]) if mesh is not None else 1
+        if batch_size % self.dp_size:
+            raise ValueError(f"batch_size {batch_size} not divisible by dp "
+                             f"mesh size {self.dp_size}")
         if merge_lora:
             model = merged_model(model)
         if fused_blocks is None:
@@ -82,7 +107,8 @@ class Recommender:
             if fused_blocks and model.lora is None:
                 cfg = dataclasses.replace(cfg, fused_int8_inference=True)
             model = model.clone(qwen_config=cfg)  # the caller's stays as is
-            set_qweights(model, quantize_qwen3_weights(model))
+            qweights = quantize_qwen3_weights(model)
+            set_qweights(model, qweights)
         self.precision = precision
         self.model = model.eval()
         self.device = next(model.parameters()).device
@@ -96,24 +122,51 @@ class Recommender:
         self.catalog = np.asarray(
             [catalog_embeddings[i] for i in self.catalog_ids], np.float32)
         self.quantized = quantize_catalog
-        catalog_dev = torch.from_numpy(self.catalog).to(self.device)
-        if quantize_catalog:
-            self._catalog_q, self._catalog_scales = quantize_rows(catalog_dev)
-            self._catalog_dev = None
-        else:
-            self._catalog_dev = catalog_dev
-        # device-resident field cache, bfloat16 even for a float32 model
-        # (0.57 GB for 20k items x 14 x 1024), upcast after the gather
         self.device_cache = device_field_cache
+        # one replica per distinct device of the dp axis (shards that share
+        # a device share it); the model's own device keeps the model
+        devices = ([torch.device(d) for d in mesh.dp_devices]
+                   if mesh is not None else [self.device])
+        replicas: Dict[torch.device, _Replica] = {}
+        for dev in devices:
+            if dev not in replicas:
+                rep_model = self.model
+                if dev != self.device:
+                    rep_model = self.model.clone(replicate(
+                        self.model.state_dict(), [dev])[dev]).eval()
+                    if precision == "int8":
+                        set_qweights(rep_model, qweights)
+                replicas[dev] = self._replica(rep_model, dev)
+        self._shards = [replicas[d] for d in devices]
+        primary = self._shards[0]
+        self._catalog_dev = primary.catalog
+        self._catalog_q, self._catalog_scales = primary.catalog_q
         if device_field_cache:
-            self._cache_emb_dev = torch.from_numpy(
-                np.asarray(field_cache.embeddings, np.float32)).to(
-                    device=self.device, dtype=torch.bfloat16)
-            self._cache_mask_dev = torch.from_numpy(
-                np.asarray(field_cache.masks, np.float32)).to(self.device)
+            self._cache_emb_dev = primary.cache_emb
+            self._cache_mask_dev = primary.cache_mask
         self._prompt = CachedPromptEncoder(tokenizer, item_dict,
                                            self.jc.num_history_items,
                                            self.jc.num_query_tokens_per_item)
+
+    def _replica(self, model: MultiModalQwenEmbedding,
+                 device: torch.device) -> "_Replica":
+        """The model, the catalog (or its int8 codes and scales) and the
+        field cache on ``device``."""
+        catalog = torch.from_numpy(self.catalog).to(device)
+        rep = _Replica(model, device)
+        if self.quantized:
+            rep.catalog_q = quantize_rows(catalog)
+        else:
+            rep.catalog = catalog
+        if self.device_cache:
+            # bfloat16 even for a float32 model (0.57 GB for 20k items x
+            # 14 x 1024), upcast after the gather
+            rep.cache_emb = torch.from_numpy(
+                np.asarray(self.cache.embeddings, np.float32)).to(
+                    device=device, dtype=torch.bfloat16)
+            rep.cache_mask = torch.from_numpy(
+                np.asarray(self.cache.masks, np.float32)).to(device)
+        return rep
 
     def prewarm_prompts(self, item_ids=None, slots=None) -> int:
         """Tokenize prompt fragments ahead of traffic (prompt_cache)."""
@@ -143,13 +196,15 @@ class Recommender:
 
     @torch.no_grad()
     def _forward(self, ids: np.ndarray, attn: np.ndarray, he: np.ndarray,
-                 hm: np.ndarray) -> torch.Tensor:
-        """L2-normalised user embeddings [B, D] on the device, from host
-        arrays."""
-        dev = self.device
+                 hm: np.ndarray, rep: Optional["_Replica"] = None
+                 ) -> torch.Tensor:
+        """L2-normalised user embeddings [B, D] on the device of ``rep``
+        (default: the first shard's), from host arrays."""
+        rep = rep or self._shards[0]
+        dev = rep.device
         ids_t, attn_t, he_t, hm_t = (torch.from_numpy(a).to(dev)
                                      for a in (ids, attn, he, hm))
-        return l2_normalize(self.model(ids_t.long(), attn_t, he_t, hm_t))
+        return l2_normalize(rep.model(ids_t.long(), attn_t, he_t, hm_t))
 
     def _build_batch_rows(self, histories: Sequence[Sequence[str]]
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -168,9 +223,12 @@ class Recommender:
 
     @torch.no_grad()
     def _forward_rows(self, ids: np.ndarray, lengths: np.ndarray,
-                      rows: np.ndarray) -> torch.Tensor:
-        """L2-normalised user embeddings [B, D] on the device."""
-        dev = self.device
+                      rows: np.ndarray, rep: Optional["_Replica"] = None
+                      ) -> torch.Tensor:
+        """L2-normalised user embeddings [B, D] on the device of ``rep``
+        (default: the first shard's)."""
+        rep = rep or self._shards[0]
+        dev = rep.device
         ids_t = torch.from_numpy(ids).to(dev).long()
         lengths_t = torch.from_numpy(lengths).to(dev)
         rows_t = torch.from_numpy(rows).to(dev).long()
@@ -179,9 +237,9 @@ class Recommender:
         valid = rows_t >= 0
         safe = rows_t.clamp_min(0)
         he = torch.where(valid[..., None, None],
-                         self._cache_emb_dev[safe].float(), 0.0)
-        hm = torch.where(valid[..., None], self._cache_mask_dev[safe], 0.0)
-        return l2_normalize(self.model(ids_t, mask, he, hm))
+                         rep.cache_emb[safe].float(), 0.0)
+        hm = torch.where(valid[..., None], rep.cache_mask[safe], 0.0)
+        return l2_normalize(rep.model(ids_t, mask, he, hm))
 
     # batches allowed on the device before the oldest is drained to the host
     # in a bulk ``encode_users`` call: host assembly overlaps device work,
@@ -191,7 +249,9 @@ class Recommender:
     def _encode_user_chunks(self, histories: Sequence[Sequence[str]],
                             to_host: bool = False) -> List[Tuple[object, int]]:
         """[(embedding chunk [batch_size, D], n_valid), ...]; every chunk is
-        padded to the full batch with empty histories.
+        padded to the full batch with empty histories.  Under a dp mesh a
+        chunk's embedding is a tuple of its dp shards' [batch_size / dp, D],
+        each on its replica's device (all launched before any is read).
 
         ``to_host=False`` (the ``recommend`` path) keeps the chunks on the
         device for retrieval.  ``to_host=True`` (bulk ``encode_users``)
@@ -200,18 +260,28 @@ class Recommender:
         out: List[Tuple[object, int]] = []
         pending: collections.deque = collections.deque()
         bs = self.batch_size
+        per = bs // self.dp_size
 
-        def drain(emb: torch.Tensor, n: int) -> None:
-            out.append((emb.to("cpu", torch.float32, copy=True).numpy(), n))
+        def drain(emb, n: int) -> None:
+            parts = emb if isinstance(emb, tuple) else (emb,)
+            out.append((np.concatenate([
+                p.to("cpu", torch.float32, copy=True).numpy()
+                for p in parts]), n))
+
+        def encode(chunk, rep):
+            if self.device_cache:
+                return self._forward_rows(*self._build_batch_rows(chunk), rep)
+            return self._forward(*self._build_batch(chunk), rep)
 
         for i in range(0, len(histories), bs):
             chunk = list(histories[i: i + bs])
             n = len(chunk)
             chunk += [[] for _ in range(bs - n)]
-            if self.device_cache:
-                emb = self._forward_rows(*self._build_batch_rows(chunk))
+            if self.dp_size == 1:
+                emb = encode(chunk, self._shards[0])
             else:
-                emb = self._forward(*self._build_batch(chunk))
+                emb = tuple(encode(chunk[j * per: (j + 1) * per], rep)
+                            for j, rep in enumerate(self._shards))
             if not to_host:
                 out.append((emb, n))
                 continue
@@ -243,18 +313,30 @@ class Recommender:
         length so excluded items still leave ``k`` answers."""
         chunks = self._encode_user_chunks(histories)
         fetch = k + (self.jc.num_history_items if exclude_history else 0)
-        users = torch.cat([emb for emb, _ in chunks], dim=0).float()
-        if self.quantized:
-            s, ix = retrieve_top_k_int8(users, self._catalog_q,
-                                        self._catalog_scales, k=fetch)
-        else:
-            s, ix = retrieve_top_k(users, self._catalog_dev, k=fetch)
-        return (s, ix, [n for _, n in chunks], histories, k, exclude_history)
+        found = []  # per dp shard: its users of every chunk, on its device
+        for j, rep in enumerate(self._shards):
+            users = torch.cat([emb[j] if isinstance(emb, tuple) else emb
+                               for emb, _ in chunks], dim=0).float()
+            if self.quantized:
+                found.append(retrieve_top_k_int8(users, *rep.catalog_q,
+                                                 k=fetch))
+            else:
+                found.append(retrieve_top_k(users, rep.catalog, k=fetch))
+        return (found, [n for _, n in chunks], histories, k, exclude_history)
 
     def recommend_finalize(self, handle) -> List[List[Recommendation]]:
-        """Fetch the [users, fetch] scores and ids and build the results."""
-        s, ix, counts, histories, k, exclude_history = handle
-        s, ix = s.cpu().numpy(), ix.cpu().numpy()
+        """Fetch the [users, fetch] scores and ids and build the results
+        (dp shards back in their chunks' row order)."""
+        found, counts, histories, k, exclude_history = handle
+
+        def rows(t: List[np.ndarray]) -> np.ndarray:
+            # [dp][chunks * per, fetch] -> [chunks * batch_size, fetch]
+            a = np.stack(t).reshape(self.dp_size, len(counts), -1,
+                                    t[0].shape[-1])
+            return a.transpose(1, 0, 2, 3).reshape(-1, t[0].shape[-1])
+
+        s = rows([f[0].cpu().numpy() for f in found])
+        ix = rows([f[1].cpu().numpy() for f in found])
         keep = np.concatenate(
             [np.arange(i * self.batch_size, i * self.batch_size + n)
              for i, n in enumerate(counts)])

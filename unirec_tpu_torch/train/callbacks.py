@@ -5,6 +5,9 @@ Mirrors BestMRRCallback (reference:
 train_item_individual_token_joint.py:422-474): evaluate every N steps and
 save per strategy — ``best_only`` (save iff the metric improved), ``always``
 (save latest every eval), ``both`` (latest/ + best/ subdirectories).
+In a torch.distributed world every rank keeps the tracker (the reduced
+metrics are equal, so the ranks decide alike) and ``save_fn``
+(``utils/checkpoint.save_train_state``) writes on rank 0 only.
 """
 
 from __future__ import annotations

@@ -18,19 +18,31 @@ so that the port's updates equal the JAX trainers' (``make_optimizer``):
 
 The optimizer holds only the trainable parameters (the JAX trainer's
 ``multi_transform`` gives the frozen ones ``set_to_zero``).
+
+Under a torch.distributed mesh (``parallel/mesh.DistMesh``) every rank
+draws the same global batch and takes its rows (``local_rows``), its
+dropout stream folds in its dp index (``step_dropout``, the JAX step's
+``fold_in(axis_index)``), and ``reduce_step`` sums the gradients and the
+metrics over the world and divides by dp before ``OptaxAdamW.step``, so
+that clipping sees the reduced gradients, as ``jax.lax.pmean`` before
+``apply_gradients`` does; the accumulation of ``MultiSteps`` then holds
+reduced gradients too.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, Iterator, Mapping, Optional
+from typing import (Any, Callable, Dict, Iterable, Iterator, Mapping,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
 from torch import nn
 
 from unirec_tpu_torch.configs import OptimizerConfig
+from unirec_tpu_torch.ops.dropout import DropoutStream
+from unirec_tpu_torch.parallel.mesh import DistMesh, all_reduce_sum, shard_rows
 
 
 class OptaxAdamW:
@@ -244,6 +256,61 @@ def pad_to_batch(batch, batch_size: int):
     padded = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
               for k, v in batch.items()}
     return padded, n
+
+
+def step_dropout(seed: int, step: int,
+                 mesh: Optional[DistMesh]) -> DropoutStream:
+    """A training step's dropout stream: per dp shard under a mesh (the sp
+    ranks of one shard draw the same masks: their forwards are one
+    forward), the one-device stream otherwise."""
+    if mesh is None or mesh.dp_size == 1:
+        return DropoutStream(seed, step)
+    return DropoutStream(seed, step, ("dp", mesh.dp_index))
+
+
+def local_rows(batch: Mapping[str, np.ndarray],
+               mesh: Optional[DistMesh]) -> Mapping[str, np.ndarray]:
+    """This rank's rows of a global batch (its dp shard's block; the whole
+    batch without a mesh).  The batch must divide by dp."""
+    if mesh is None:
+        return batch
+    n = next(iter(batch.values())).shape[0]
+    rows = shard_rows(n, mesh.dp_size, mesh.dp_index)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def check_batch_size(batch_size: int, mesh: Optional[DistMesh]) -> None:
+    """The configured batch must split evenly over dp (the JAX trainers
+    pad with repeated rows, which then count twice in the loss; the port
+    refuses)."""
+    if mesh is not None and batch_size % mesh.dp_size:
+        raise ValueError(f"batch_size {batch_size} not divisible by dp mesh "
+                         f"size {mesh.dp_size}")
+
+
+def loss_scale(mesh: Optional[DistMesh]) -> float:
+    """The factor of a rank's loss before its backward: 1/sp (the sp ranks
+    compute one loss; ``reduce_step`` sums their gradients)."""
+    return 1.0 if mesh is None else 1.0 / mesh.sp_size
+
+
+def reduce_step(grads: Dict[str, torch.Tensor],
+                metrics: Dict[str, torch.Tensor],
+                mesh: Optional[DistMesh]
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Gradients (of the 1/sp-scaled loss) and metrics (unscaled) summed
+    over the world in flat buckets and divided by dp: the dp mean of the sp
+    sum, ``jax.lax.pmean`` over dp.  One bucketed collective; identity
+    without a mesh."""
+    if mesh is None:
+        return grads, metrics
+    names, keys = list(grads), list(metrics)
+    sp = float(mesh.sp_size)
+    tensors = [grads[n] for n in names] + [
+        (metrics[k].detach().float() / sp).reshape(1) for k in keys]
+    out = all_reduce_sum(tensors, scale=1.0 / mesh.dp_size)
+    return (dict(zip(names, out[:len(names)])),
+            {k: t.reshape(()) for k, t in zip(keys, out[len(names):])})
 
 
 def drive_steps(train_step: Callable, state, batches: Iterable, *,

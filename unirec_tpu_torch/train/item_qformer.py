@@ -22,8 +22,16 @@ representations come from the fused inference engine
 (``inference/fused_qformer``: B1-B3, or B4-B6 with ``fused_precision=
 "int8"``) on the live weights, packed again every step; with
 ``ItemQFormerConfig.fused_training`` the anchor's attention blocks run through
-B12s / B12c (``ops/fused_qformer_vjp``).  The trainer runs on one device;
-meshes wait for ROADMAP.md A9.
+B12s / B12c (``ops/fused_qformer_vjp``).
+
+``TrainConfig.mesh`` with ``dp > 1`` trains data-parallel over a
+torch.distributed world of dp ranks (``parallel/mesh.py``): each rank runs
+the anchor (fused or not) and the references on its rows, the
+reconstruction loss divides by the global valid-field count
+(``ops/losses.global_mean_denominator``, the JAX ``pmean`` of the count),
+and the gradients and the metrics are averaged over dp
+(``train/common.reduce_step``), which is the full batch's step.  The
+evaluation runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -42,17 +50,26 @@ from unirec_tpu_torch.eval.reconstruction import (
     reconstruction_batch,
 )
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
-from unirec_tpu_torch.ops.dropout import DropoutStream
 from unirec_tpu_torch.ops.losses import (
     item_qformer_loss,
     triplet_hinge_arguments,
 )
+from unirec_tpu_torch.parallel.mesh import (
+    DistMesh,
+    dist_mesh,
+    is_writer,
+    replicate,
+)
 from unirec_tpu_torch.train.common import (
     TrainState,
+    check_batch_size,
     drive_steps,
     epoch_batches,
     flush_grad_accum,
+    local_rows,
     make_optimizer,
+    reduce_step,
+    step_dropout,
 )
 
 _BATCH_KEYS = ("anchor_emb", "anchor_mask", "pos_emb", "pos_mask", "neg_emb",
@@ -132,6 +149,7 @@ def make_train_step(
     fused_precision: str = "bf16",
     return_grads: bool = False,
     seed: int = 0,
+    mesh: Optional[DistMesh] = None,
 ):
     """The ``(state, batch) -> (state, metrics)`` step.
 
@@ -144,19 +162,22 @@ def make_train_step(
     from (``item_representation``, the anchor's, ``positive_representation``
     and ``negative_representation``), and the step's ``hinge_active`` (0 / 1
     per sample) makes the hinge pass exactly those samples
-    (``triplet_margin_loss``'s ``active``)."""
+    (``triplet_margin_loss``'s ``active``).  Under a dp ``mesh`` the step
+    takes this rank's rows (``hinge_active`` then covers the rank's rows)
+    and averages over dp (``train/common.reduce_step``)."""
     params = dict(model.named_parameters())
+    group = None if mesh is None else mesh.dp_group
 
     def step(state: TrainState, batch,
              hinge_active: Optional[torch.Tensor] = None
              ) -> Tuple[TrainState, Dict]:
         device = next(model.parameters()).device
-        b = batch_to_device(batch, device)
+        b = batch_to_device(local_rows(batch, mesh), device)
         for p in params.values():
             p.grad = None
         model.train()
         anc = model(b["anchor_emb"], b["anchor_mask"],
-                    dropout=DropoutStream(seed, state.step))
+                    dropout=step_dropout(seed, state.step, mesh))
         with torch.no_grad():  # reference: item_qformer_training.py:123-125
             if fused_reference_config is not None:
                 from unirec_tpu_torch.inference.fused_qformer import (
@@ -174,14 +195,16 @@ def make_train_step(
                             ["item_representation"] for x in ("pos", "neg"))
         total, recon, cont = item_qformer_loss(
             anc, b["anchor_emb"], b["anchor_mask"], pos, neg,
-            reconstruction_weight, contrastive_weight, margin, hinge_active)
+            reconstruction_weight, contrastive_weight, margin, hinge_active,
+            group)
         total.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        grads, metrics = reduce_step(
+            grads, {"loss": total.detach(), "recon": recon.detach(),
+                    "contrastive": cont.detach()}, mesh)
         state.optimizer.step(grads)
         state.step += 1
-        metrics = {"loss": total.detach(), "recon": recon.detach(),
-                   "contrastive": cont.detach()}
         if return_grads:
             metrics["grads"] = {n: g.detach().clone() for n, g in grads.items()}
             rep = anc["item_representation"].detach()
@@ -222,10 +245,15 @@ class ItemQFormerTrainer:
         from unirec_tpu_torch.utils.device import resolve_device
 
         mesh = self.train_config.mesh
-        if mesh.dp > 1 or mesh.tp > 1 or mesh.sp > 1:
+        if mesh.tp > 1:
             raise NotImplementedError(
-                "meshes (dp > 1, tp > 1, sp > 1) are not ported (A9): the "
-                "trainer runs on one device")
+                "tp > 1 is the next slice of ROADMAP.md A9; the item "
+                "trainer takes dp")
+        if mesh.sp > 1:
+            raise ValueError("sp shards the user stage's memory; the item "
+                             "trainer takes dp only")
+        self.mesh = dist_mesh(mesh)
+        check_batch_size(self.train_config.batch_size, self.mesh)
         if self.fused_precision not in ("bf16", "int8"):
             raise ValueError(f"fused_precision must be bf16 or int8, got "
                              f"{self.fused_precision!r}")
@@ -254,6 +282,7 @@ class ItemQFormerTrainer:
                                   param_dtype=torch.float32)
         if params is not None:
             model.load_state_dict(params)
+        replicate(model)  # rank 0's parameters on every rank
         model.train()
         optimizer = make_optimizer(dict(model.named_parameters()),
                                    self.train_config.optimizer)
@@ -261,7 +290,8 @@ class ItemQFormerTrainer:
             model, self.reconstruction_weight, self.contrastive_weight,
             fused_reference_config=self.model_config if self.use_fused
             else None,
-            fused_precision=self.fused_precision, seed=self.train_config.seed)
+            fused_precision=self.fused_precision, seed=self.train_config.seed,
+            mesh=self.mesh)
         return TrainState(model, optimizer, 0)
 
     @staticmethod
@@ -327,6 +357,8 @@ def train_item_qformer(
         save_train_state,
     )
 
+    if not is_writer():  # rank 0 logs for the world
+        log_fn = lambda *args, **kwargs: None  # noqa: E731
     model_config = model_config or ItemQFormerConfig(
         num_fields=cache.num_fields, field_embedding_dim=cache.embedding_dim)
     train_config = train_config or TrainConfig()

@@ -11,13 +11,22 @@
 * evaluation: MRR and Recall/NDCG@{1,5,10} over the padded 100-candidate
   pool.
 
-The trainer runs on one device.  Parameters are float32 masters; with
-``dtype="bfloat16"`` the model computes in bfloat16 and ``bf16_base`` stores
-the frozen base in bfloat16.  On the card the training forward's attention
-is K1 and its backward B7b (``flash_vjp_attention``), ``int8_base`` runs the
-frozen projections through B8 (``int8_linear_ste``) and ``int8_fused`` the
-q|k|v and gate|up groups through the wide STE linear.  Meshes (``dp > 1``,
-``tp > 1``) and the pipelined trainer wait for ROADMAP.md A9.
+Parameters are float32 masters; with ``dtype="bfloat16"`` the model
+computes in bfloat16 and ``bf16_base`` stores the frozen base in bfloat16.
+On the card the training forward's attention is K1 and its backward B7b
+(``flash_vjp_attention``), ``int8_base`` runs the frozen projections through
+B8 (``int8_linear_ste``) and ``int8_fused`` the q|k|v and gate|up groups
+through the wide STE linear.
+
+``TrainConfig.mesh`` with ``dp > 1`` trains data-parallel over a
+torch.distributed world of dp ranks (``parallel/mesh.py``): rank 0's
+parameters are broadcast at init, every rank draws the same global batch
+and steps on its rows, and the gradients and the loss are averaged over dp
+before the optimizer (``train/common.reduce_step``; InfoNCE is a per-sample
+mean, so this is the full batch's step, as the JAX ``shard_map`` step's
+``pmean``).  The evaluation splits each batch over dp and gathers the ranks
+of the positives.  ``tp > 1`` and the pipelined trainer are the next slice
+of ROADMAP.md A9.
 """
 
 from __future__ import annotations
@@ -47,13 +56,18 @@ from unirec_tpu_torch.models.qwen3 import quantize_qwen3_weights, set_qweights
 from unirec_tpu_torch.ops.dropout import DropoutStream
 from unirec_tpu_torch.ops.losses import info_nce_loss
 from unirec_tpu_torch.ops.ranking import rank_of_positive
+from unirec_tpu_torch.parallel.mesh import DistMesh, dist_mesh, replicate
 from unirec_tpu_torch.train.common import (
     OptaxAdamW,
     TrainState,
+    check_batch_size,
     drive_steps,
     epoch_batches,
+    local_rows,
     make_optimizer,
     pad_to_batch,
+    reduce_step,
+    step_dropout,
 )
 from unirec_tpu_torch.utils.params import (
     apply_trainable_mask,
@@ -232,14 +246,18 @@ def joint_loss(model: MultiModalQwenEmbedding, batch: Mapping[str, torch.Tensor]
 
 def make_joint_train_step(model: MultiModalQwenEmbedding,
                           temperature: float = 0.07,
-                          return_grads: bool = False, seed: int = 1):
+                          return_grads: bool = False, seed: int = 1,
+                          mesh: Optional[DistMesh] = None):
     """The ``(state, batch) -> (state, metrics)`` step.
 
     Dropout draws from ``DropoutStream(seed, state.step)`` (the JAX step's
     ``fold_in(key(seed), step)``), one generator per site, so a remat
     recompute draws the same masks.  ``metrics["loss"]`` stays on the device
     (no host synchronisation); ``return_grads`` adds the trainable
-    parameters' gradients by name (parity-test instrumentation)."""
+    parameters' gradients by name (parity-test instrumentation).  Under a
+    dp ``mesh`` the step takes this rank's rows of the global batch, folds
+    the dp index into the dropout stream and averages the loss and the
+    gradients over dp (``train/common.reduce_step``)."""
     trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -247,16 +265,17 @@ def make_joint_train_step(model: MultiModalQwenEmbedding,
         model.train()
         for p in trainable.values():
             p.grad = None
-        loss = joint_loss(model, batch_to_device(batch, device),
-                          DropoutStream(seed, state.step), temperature)
+        loss = joint_loss(model,
+                          batch_to_device(local_rows(batch, mesh), device),
+                          step_dropout(seed, state.step, mesh), temperature)
         loss.backward()
         # the Item Q-Former's heads feed no joint output: zero gradient, as
         # in the JAX tree (AdamW's weight decay still reaches them)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in trainable.items()}
+        grads, metrics = reduce_step(grads, {"loss": loss.detach()}, mesh)
         state.optimizer.step(grads)
         state.step += 1
-        metrics = {"loss": loss.detach()}
         if return_grads:
             metrics["grads"] = {n: g.detach().clone() for n, g in grads.items()}
         return state, metrics
@@ -297,10 +316,15 @@ class JointTrainer:
         from unirec_tpu_torch.utils.device import resolve_device
 
         mesh = self.train_config.mesh
-        if mesh.dp > 1 or mesh.tp > 1 or mesh.sp > 1:
+        if mesh.tp > 1:
             raise NotImplementedError(
-                "meshes (dp > 1, tp > 1, sp > 1) are not ported (A9): the "
-                "trainer runs on one device")
+                "tp > 1 (tensor parallelism of the Qwen3 base) is the next "
+                "slice of ROADMAP.md A9; the joint trainer takes dp")
+        if mesh.sp > 1:
+            raise ValueError("sp shards the user stage's memory; the joint "
+                             "trainer takes dp only")
+        self.mesh = dist_mesh(mesh)
+        check_batch_size(self.train_config.batch_size, self.mesh)
         if self.int8_fused is None:
             self.int8_fused = False
         if self.int8_fused and not self.int8_base:
@@ -352,13 +376,15 @@ class JointTrainer:
         if self.bf16_base:
             cast_frozen_to_bf16(model)
         apply_trainable_mask(model)
+        replicate(model)  # rank 0's parameters on every rank
         if self.int8_base:
             self.qweights = quantize_qwen3_weights(model.base_model)
             set_qweights(model.base_model, self.qweights)
         model.train()
         optimizer = make_joint_optimizer(model, self.train_config.optimizer)
         self._train_step = make_joint_train_step(model,
-                                                 seed=self.train_config.seed)
+                                                 seed=self.train_config.seed,
+                                                 mesh=self.mesh)
         return TrainState(model, optimizer, 0)
 
     def _batch_stream(self, dataset: JointDataset, rng: np.random.Generator,
@@ -420,20 +446,30 @@ class JointTrainer:
                  batch_size: int = 32, max_negatives: int = 99,
                  ks: Tuple[int, ...] = (1, 5, 10)) -> Dict[str, float]:
         """MRR + Recall@K + NDCG@K over the full candidate pool; the tail
-        batch is padded to ``batch_size`` and its padded rows dropped."""
+        batch is padded to ``batch_size`` and its padded rows dropped.
+        Under a dp mesh ``batch_size`` rounds up to a multiple of dp, each
+        rank ranks its rows of every batch and the ranks are gathered over
+        dp (every rank returns the metrics)."""
         ranks: List[np.ndarray] = []
+        dp = 1 if self.mesh is None else self.mesh.dp_size
+        batch_size += (-batch_size) % dp
         with self.evaluating(state) as model:
             for i in range(0, len(dataset), batch_size):
                 idx = list(range(i, min(i + batch_size, len(dataset))))
                 batch, n = pad_to_batch(
                     dataset.batch(idx, max_negatives=max_negatives), batch_size)
-                b = batch_to_device(batch, self.device)
+                b = batch_to_device(local_rows(batch, self.mesh), self.device)
                 user = model(b["input_ids"], b["attention_mask"],
                              b["history_field_embeddings"],
                              b["history_attention_mask"])
                 r = rank_of_positive(user, b["positive_item_embeddings"],
                                      b["negative_item_embeddings"],
                                      b["negative_masks"])
+                if dp > 1:
+                    parts = [torch.empty_like(r) for _ in range(dp)]
+                    torch.distributed.all_gather(parts, r.contiguous(),
+                                                 group=self.mesh.dp_group)
+                    r = torch.cat(parts)
                 ranks.append(r.cpu().numpy()[:n])
         all_ranks = np.concatenate(ranks).astype(np.float64)
         out: Dict[str, float] = {"mrr": float(np.mean(1.0 / all_ranks))}

@@ -26,12 +26,25 @@ training/user_qformer_training.py).
 On the card with ``flash_training`` every cross-attention layer runs B14
 (``ops/flash_vjp``), with ``fused_training`` every self-attention layer
 B12s; the evaluation forward runs B14's forward, or B13 without
-``flash_training``.  The trainer runs on one device; meshes and ``--sp``
-wait for ROADMAP.md A9.
+``flash_training``.
+
+``TrainConfig.mesh`` trains over a torch.distributed world of dp x sp
+ranks (``parallel/mesh.py``; sp the fastest axis).  dp splits the batch:
+each rank steps on its rows and the weighted loss divides by the global
+weight sum (``ops/losses.global_mean_denominator``: ``max(W, 1) / S``).  sp
+(``UserQFormerConfig.sequence_parallel``) splits the memory: each sp rank
+assembles its rows' sequences, keeps its slice of the memory axis, projects
+K/V from it and combines exactly over the sp group
+(``ops/sharded_attention``); its loss is scaled by 1/sp and the gradients
+are summed over sp and averaged over dp (``train/common.reduce_step``).  sp
+runs the plain attention path: the JAX trainer refuses it with the flash
+and fused kernels, and so does this one.  The evaluation runs on the whole
+memory on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -48,13 +61,25 @@ from unirec_tpu_torch.data.cache import FieldEmbeddingCache
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.models.user_qformer import UserStage
 from unirec_tpu_torch.ops.dropout import DropoutStream
-from unirec_tpu_torch.ops.losses import mse_loss
+from unirec_tpu_torch.ops.losses import global_mean_denominator, mse_loss
+from unirec_tpu_torch.ops.sharded_attention import split_memory
+from unirec_tpu_torch.parallel.mesh import (
+    DistMesh,
+    dist_mesh,
+    is_writer,
+    replicate,
+)
 from unirec_tpu_torch.train.common import (
     TrainState,
+    check_batch_size,
     drive_steps,
     epoch_batches,
     flush_grad_accum,
+    local_rows,
+    loss_scale,
     make_optimizer,
+    reduce_step,
+    step_dropout,
 )
 
 BATCH_KEYS = ("item_tokens", "timestamps", "coordinates", "seq_mask",
@@ -113,58 +138,69 @@ def batch_to_device(batch: Mapping[str, np.ndarray],
 
 
 def user_forward(model: UserStage, b: Mapping[str, torch.Tensor],
-                 drop: Optional[DropoutStream] = None) -> torch.Tensor:
+                 drop: Optional[DropoutStream] = None,
+                 mesh: Optional[DistMesh] = None) -> torch.Tensor:
     """Predicted tokens ``[B, K, D]`` of a device batch: the sequence
     assembly, then the User Q-Former (``drop``: a training forward's stream).
     With ``gradient_checkpointing`` a training forward that needs gradients
     recomputes the assembly in the backward (the layers recompute
-    themselves)."""
+    themselves).  With an sp ``mesh`` the User Q-Former takes this rank's
+    slice of the memory (its cross blocks combine over the sp group)."""
     args = (b["item_tokens"], b["timestamps"], b["coordinates"], b["seq_mask"])
     if (model.config.gradient_checkpointing and model.training
             and torch.is_grad_enabled()):
         flat, flat_mask = checkpoint(model.sequence, *args, use_reentrant=False)
     else:
         flat, flat_mask = model.sequence(*args)
+    if mesh is not None and mesh.sp_size > 1:
+        flat, flat_mask = (split_memory(t, mesh.sp_size, mesh.sp_index)
+                           for t in (flat, flat_mask))
     return model.user(flat, flat_mask, dropout=drop)
 
 
 def user_loss(model: UserStage, b: Mapping[str, torch.Tensor],
-              drop: Optional[DropoutStream] = None) -> torch.Tensor:
+              drop: Optional[DropoutStream] = None,
+              mesh: Optional[DistMesh] = None) -> torch.Tensor:
     """MSE of the predicted tokens; with ``sample_weight`` the per-sample
-    means weighted over ``max(sum w, 1)``."""
-    pred = user_forward(model, b, drop)
+    means weighted over ``max(sum w, 1)``, under a dp ``mesh`` over the
+    global weight sum (``global_mean_denominator``)."""
+    pred = user_forward(model, b, drop, mesh)
     w = b.get("sample_weight")
-    if w is None:
+    if w is None:  # equal shards: the dp mean of the means is the mean
         return mse_loss(pred, b["target_tokens"])
     per = ((pred - b["target_tokens"]) ** 2).mean(dim=(1, 2))
-    return (per * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    group = None if mesh is None or mesh.dp_size == 1 else mesh.dp_group
+    return (per * w).sum() / global_mean_denominator(w.sum(), group)
 
 
 def make_train_step(model: UserStage, return_grads: bool = False,
-                    seed: int = 0):
+                    seed: int = 0, mesh: Optional[DistMesh] = None):
     """The ``(state, batch) -> (state, metrics)`` step over the parameters
     that need gradients.  Metrics stay on the device; ``return_grads`` adds
     every parameter's gradient by name (zeros for frozen ones: parity-test
-    instrumentation)."""
+    instrumentation).  Under a ``mesh`` the step takes this rank's rows and
+    memory slice, scales its loss by 1/sp and reduces
+    (``train/common.reduce_step``)."""
     params = dict(model.named_parameters())
     trainable = {n: p for n, p in params.items() if p.requires_grad}
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         device = next(model.parameters()).device
-        b = batch_to_device(batch, device)
+        b = batch_to_device(local_rows(batch, mesh), device)
         for p in params.values():
             p.grad = None
         model.train()
-        loss = user_loss(model, b, DropoutStream(seed, state.step))
-        loss.backward()
+        loss = user_loss(model, b, step_dropout(seed, state.step, mesh), mesh)
+        scale = loss_scale(mesh)
+        (loss * scale if scale != 1.0 else loss).backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in trainable.items()}
+        grads, metrics = reduce_step(grads, {"loss": loss.detach()}, mesh)
         state.optimizer.step(grads)
         state.step += 1
-        metrics = {"loss": loss.detach()}
         if return_grads:
             metrics["grads"] = {
-                n: (p.grad.detach().clone() if p.grad is not None
+                n: (grads[n].detach().clone() if n in grads
                     else torch.zeros_like(p)) for n, p in params.items()}
         return state, metrics
 
@@ -191,10 +227,23 @@ class UserQFormerTrainer:
         from unirec_tpu_torch.utils.device import resolve_device
 
         mesh = self.train_config.mesh
-        if mesh.dp > 1 or mesh.tp > 1 or mesh.sp > 1:
+        uc = self.user_config
+        if mesh.tp > 1:
             raise NotImplementedError(
-                "meshes (dp > 1, tp > 1, sp > 1) are not ported (A9): the "
-                "trainer runs on one device")
+                "tp > 1 is the next slice of ROADMAP.md A9; the user "
+                "trainer takes dp and sp")
+        if uc.sequence_parallel != (max(mesh.sp, 1) > 1):
+            raise ValueError(
+                "sequence_parallel requires an 'sp' mesh axis > 1 "
+                "(TrainConfig.mesh.sp / `train user-qformer --sp N`), and "
+                "an sp axis > 1 requires sequence_parallel")
+        if uc.sequence_parallel and (uc.flash_training or uc.fused_training):
+            raise ValueError(
+                "sequence_parallel is incompatible with flash/fused training "
+                "(the kernels are single-device; the sp combine is "
+                "a collective path)")
+        self.mesh = dist_mesh(mesh)
+        check_batch_size(self.train_config.batch_size, self.mesh)
         self.device = resolve_device(self.device)
         self.compute_dtype = (torch.bfloat16 if self.dtype == "bfloat16"
                               else torch.float32)
@@ -216,13 +265,29 @@ class UserQFormerTrainer:
                                   param_dtype=torch.float32)
         if params is not None:
             model.load_state_dict(params)
+        replicate(model)  # rank 0's parameters on every rank
+        if self.user_config.sequence_parallel:
+            model.user.set_sequence_parallel(self.mesh.sp_group)
         model.sequence.requires_grad_(self.train_context)
         model.train()
         optimizer = make_optimizer(
             {n: p for n, p in model.named_parameters() if p.requires_grad},
             self.train_config.optimizer)
-        self._train_step = make_train_step(model, seed=self.train_config.seed)
+        self._train_step = make_train_step(model, seed=self.train_config.seed,
+                                           mesh=self.mesh)
         return TrainState(model, optimizer, 0)
+
+    @contextlib.contextmanager
+    def whole_memory(self, state: TrainState):
+        """The model without sequence parallelism (an evaluation on the
+        whole memory, on every rank alone); restored afterwards."""
+        user = state.model.user
+        user.set_sequence_parallel(None)
+        try:
+            yield state.model
+        finally:
+            if self.user_config.sequence_parallel:
+                user.set_sequence_parallel(self.mesh.sp_group)
 
     def make_batch(
         self,
@@ -308,6 +373,8 @@ def train_user_qformer(
         save_train_state,
     )
 
+    if not is_writer():  # rank 0 logs for the world
+        log_fn = lambda *args, **kwargs: None  # noqa: E731
     iq = item_qformer.config
     user_config = user_config or UserQFormerConfig(
         num_item_tokens_to_predict=iq.num_query_tokens,
@@ -354,8 +421,9 @@ def train_user_qformer(
                                         "grad_accum": grad_accum})
     state = flush_grad_accum(state)
     if val_samples:
-        val = evaluate_user_qformer(trainer, state, val_samples, item_tokens,
-                                    cache, ts_map)
+        with trainer.whole_memory(state):
+            val = evaluate_user_qformer(trainer, state, val_samples,
+                                        item_tokens, cache, ts_map)
         log_fn(f"validation: {val}")
         if metrics_logger:
             metrics_logger.log(dict(val), step=state.step)

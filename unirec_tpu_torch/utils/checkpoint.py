@@ -19,6 +19,10 @@ A JAX checkpoint (orbax's ``state/`` beside the same ``meta.json``) becomes
 such a directory through ``scripts/orbax_to_torch.py``, which runs where the
 JAX package is installed and hands numpy arrays to
 ``save_converted_checkpoint`` here (numpy and torch only).
+
+In a torch.distributed world (``parallel/mesh.py``) only rank 0 writes,
+and a restore reads on every rank and then broadcasts rank 0's parameters,
+optimizer state and step, so the ranks hold one state.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from unirec_tpu_torch.parallel.mesh import is_writer, replicate
 
 PARAMS_FILE = "params.pt"
 META_FILE = "meta.json"
@@ -43,8 +49,11 @@ def save_checkpoint(
     extra: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Write a module's (or a state_dict's) parameters, on the CPU, plus the
-    config and ``extra`` metadata; returns the absolute directory."""
+    config and ``extra`` metadata; returns the absolute directory.  Only
+    rank 0 of a torch.distributed world writes."""
     directory = os.path.abspath(directory)
+    if not is_writer():
+        return directory
     os.makedirs(directory, exist_ok=True)
     sd = params.state_dict() if isinstance(params, nn.Module) else params
     torch.save({k: v.detach().cpu() for k, v in sd.items()},
@@ -126,6 +135,8 @@ def save_train_state(directory: str, state, config: Optional[Any] = None,
     (the JAX ``save_checkpoint`` of a TrainState)."""
     directory = save_checkpoint(directory, state.model, config,
                                 extra={**(extra or {}), "step": int(state.step)})
+    if not is_writer():
+        return directory
     opt = state.optimizer.state_dict()
     host = {k: ({n: t.detach().cpu() for n, t in v.items()}
                 if isinstance(v, dict) else v) for k, v in opt.items()}
@@ -146,7 +157,23 @@ def restore_train_state(directory: str, template_state):
                        map_location=device, weights_only=True)
     template_state.optimizer.load_state_dict(saved["optimizer"])
     template_state.step = int(saved["step"])
-    return template_state, meta
+    return _replicate_state(template_state), meta
+
+
+def _replicate_state(state):
+    """Rank 0's parameters, optimizer tensors and step on every rank of an
+    initialised world (a no-op outside one)."""
+    opt = state.optimizer
+    replicate(list(state.model.state_dict().values())
+              + [t for part in (opt.mu, opt.nu, opt.acc)
+                 for t in part.values()])
+    counters = torch.tensor([state.step, opt.count, opt.mini_step,
+                             opt.gradient_step], dtype=torch.int64,
+                            device=next(state.model.parameters()).device)
+    replicate([counters])
+    state.step, opt.count, opt.mini_step, opt.gradient_step = (
+        int(c) for c in counters.tolist())
+    return state
 
 
 def has_params(directory: Optional[str]) -> bool:
@@ -165,7 +192,7 @@ def restore_params_and_step(directory: str, template_state):
     device = next(model.parameters()).device
     model.load_state_dict({k: v.to(device) for k, v in sd.items()})
     template_state.step = int(meta.get("step", 0))
-    return template_state, meta
+    return _replicate_state(template_state), meta
 
 
 def check_grad_accum(meta: Dict[str, Any], expected: int) -> None:

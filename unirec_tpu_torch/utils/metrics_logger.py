@@ -5,7 +5,7 @@ The reference prints metrics and carries a dead ``USE_WANDB = True`` flag that
 never imports wandb (reference: train_item_individual_token_joint.py:691;
 SURVEY.md §5 "dead flag").  Here the flag is real: metrics always stream to a
 JSONL file (greppable, resumable) and to wandb iff it is installed and
-enabled.
+enabled.  In a torch.distributed world only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import json
 import os
 import time
 from typing import Any, Dict, Optional
+
+from unirec_tpu_torch.parallel.mesh import is_writer
 
 
 class MetricsLogger:
@@ -25,6 +27,9 @@ class MetricsLogger:
         wandb_config: Optional[Dict[str, Any]] = None,
         stdout: bool = True,
     ):
+        # in a torch.distributed world only rank 0 logs
+        if not is_writer():
+            log_path, use_wandb, stdout = None, False, False
         self.log_path = log_path
         self.stdout = stdout
         self._file = None
