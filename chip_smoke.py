@@ -202,6 +202,24 @@ Phases (any failed check raises; the script then exits non-zero):
    launches one rank's); ms per step, the gradient all-reduce, items/s
    (one card: no scaling figure); and ``train joint --dp 2`` refused,
    naming the card count.
+8b. A9's tensor and pipeline parallelism (``phase_tp_pp``, after
+   ``phase_parallel``): K1 at tp = 2's local heads (Hq 8, Hkv 4, hd 128, B
+   8, L 512) against its plain version; the joint step at full width
+   (batch 8, L 512, no remat, dropout 0, the plain attention, which tp and
+   pp take) on one rank; the one-rank trainer's and the pipeline's code
+   (pp = 1, one microbatch) on a world-size-1 NCCL group, bit for bit the
+   plain step; tp = 2 and pp = 2 (M = 2) on two gloo ranks sharing cuda:0
+   against one rank (losses within 1e-3, gradient cosine >= 0.999 but the
+   noise leaves, the replicated parameters bit for bit equal), the tp = 2
+   eval forward's user vectors at cosine >= 0.99999 in float32, and in
+   bf16 no farther from one rank's float32 users than one rank's bf16
+   users are, times the row layers' rounding ratio squared
+   (``tpp_rounding``: bf16 column halves against the whole product's
+   columns, two rounded row partials against one product), with K1
+   launched 28 times a forward on each rank; ms per step, peak memory per
+   rank, the activation all-reduce's and the microbatch send's ms (one
+   card: no scaling figure); ``train joint --tp 2`` and ``--pp 2``
+   refused, naming the card count.
 9. the ``kernels`` JSON line (time, plain time, bound and what bounds it,
    the PyTorch yardstick where one call computes the same function; K1 a
    second time at the text tower's shape, its launches the text backend's;
@@ -6318,6 +6336,424 @@ def phase_parallel(smi: str, tmp: str) -> dict:
     return {"sweep": sweep, "ranks_ms": ranks_ms}
 
 
+# -- A9: tensor and pipeline parallelism (phase_tp_pp) ------------------------
+#
+# The joint step at full width (Qwen3Config(), batch 8, L 512, 10 negatives,
+# no remat, dropout 0, bf16 with the frozen base in bf16; the plain attention
+# under autograd, since tp and pp refuse flash-VJP) on one rank, at tp = 2
+# and at pp = 2 (M = 2) over two gloo ranks that share cuda:0, and the tp and
+# pp code on a world-size-1 NCCL group.  No figure here is a multi-card
+# scaling figure.
+
+TPP_CASES = ("tp", "pp")
+TPP_STEPS, TPP_MICROBATCHES = 2, 2
+TPP_LOSS_REL, TPP_USER_COS = 1e-3, 0.99999
+TPP_LOCAL = dict(B=8, L=512, HQ=8, HKV=4, HD=128)  # K1 at tp = 2's heads
+
+
+def tpp_case(case: str, tmp: str, inputs: dict, save_grads: bool = False
+             ) -> dict:
+    """One layout of the joint step on cuda:0: "one" (one rank, or the
+    plain step of a world of one), "tp" (tp = 2 over the world), "pp" (pp =
+    2, M = 2 over the world) or "pp1" (the pipeline's code at pp = 1, one
+    microbatch).  TPP_STEPS steps on the same global batches; each step's
+    loss and ms, the first step's gradients (tp: gathered from the shards;
+    pp: this stage's, under its local names), a SHA-256 of the trainable
+    parameters (tp / pp: of the replicated ones), peak memory; the eval
+    forward's user vectors and K1 launches (not under pp, whose evaluation
+    is the merged tree's one-rank forward); the collectives' ms."""
+    import dataclasses
+    import hashlib
+
+    from unirec_tpu_torch.configs import (
+        JointModelConfig,
+        LoRAConfig,
+        MeshConfig,
+        OptimizerConfig,
+        Qwen3Config,
+        TrainConfig,
+    )
+    from unirec_tpu_torch.data.cache import FieldEmbeddingCache
+    from unirec_tpu_torch.data.tokenizer import HashTokenizer
+    from unirec_tpu_torch.inference.qformer_inference import QFormerInference
+    from unirec_tpu_torch.ops.flash_causal import flash_causal_attention
+    from unirec_tpu_torch.parallel.tensor import (
+        all_reduce_,
+        gather_state_dict,
+        tp_split,
+    )
+    from unirec_tpu_torch.train import joint as jt
+
+    cfg, sd, _ = QFormerInference.read_checkpoint(os.path.join(tmp, "ckpt"))
+    cache = FieldEmbeddingCache.load(os.path.join(tmp, "cache"))
+    qwen, jc = Qwen3Config(), JointModelConfig()
+    pp = {"pp": 2, "pp1": 1}.get(case)
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    mesh = (MeshConfig(dp=1, tp=2) if case == "tp"
+            else MeshConfig(dp=world))
+    trainer = jt.JointTrainer(
+        qwen, dataclasses.replace(cfg, dropout=0.0), jc,
+        lora=LoRAConfig(dropout=0.0), dtype="bfloat16", bf16_base=True,
+        train_config=TrainConfig(
+            batch_size=TRAIN_BATCH, seed=SEED, mesh=mesh,
+            optimizer=OptimizerConfig(learning_rate=1e-4, max_grad_norm=1.0)),
+        device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(qformer_params=sd)
+    ds = jt.JointDataset(
+        inputs["joint"]["train"], inputs["joint"]["emb"],
+        HashTokenizer(qwen.vocab_size, jc.num_history_items,
+                      jc.num_query_tokens_per_item),
+        inputs["joint"]["items"], cache, jc, max_negatives=TRAIN_NEG,
+        item_emb_dim=qwen.hidden_size)
+    batches = [ds.batch(np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH))
+               for i in range(TPP_STEPS)]
+    out = {}
+    if pp is None:  # the eval forward, sharded like training under tp
+        out["user"], out["k1_launches"] = tpp_eval(trainer, state,
+                                                   batches[0])
+        step = jt.make_joint_train_step(state.model, return_grads=True,
+                                        seed=SEED, mesh=trainer.mesh)
+    else:
+        pt = jt.PipelinedJointTrainer(trainer, pp=pp,
+                                      num_microbatches=TPP_MICROBATCHES
+                                      if pp > 1 else 1)
+        state = pt.init_trainable(state)
+        step = jt.make_pipeline_train_step(state.model, pt.mesh,
+                                           return_grads=True, seed=SEED)
+        out["stage"] = pt.mesh.stage
+        out["per"] = state.model.base_model.layers_per_stage
+    losses, ms, grads = [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = m["grads"]
+            if case == "tp":
+                grads = gather_state_dict(grads, trainer.tp)
+        del m
+    out.update(losses=losses, ms=ms[-1],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    digest = hashlib.sha256()
+    for name, p in state.model.named_parameters():
+        replicated = (tp_split(name) is None if case == "tp" else
+                      not name.startswith("base_model.layers.")
+                      if case == "pp" else True)
+        if p.requires_grad and replicated:
+            digest.update(name.encode())
+            digest.update(p.detach().float().cpu().numpy().tobytes())
+    out["hash"] = digest.hexdigest()
+    if save_grads:
+        out["grads"] = {n: g.to("cpu", torch.bfloat16)
+                        for n, g in grads.items()}
+    out["full_grads"] = grads  # dropped before anything is saved
+    if case == "tp":  # a row layer's output, reduced over the tp group
+        act = torch.randn(TRAIN_BATCH * jc.max_length, qwen.hidden_size,
+                          device="cuda").to(torch.bfloat16)
+        all_reduce_(act, trainer.tp.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            all_reduce_(act, trainer.tp.group)
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    elif pp == 2:  # one microbatch's activations from stage 0 to stage 1
+        base = state.model.base_model
+        act = torch.randn(TRAIN_BATCH // TPP_MICROBATCHES, jc.max_length,
+                          qwen.hidden_size, device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            if base.pipe.stage == 0:
+                base._send(act, base.pipe.next_rank)
+            else:
+                base._recv(act, base.pipe.prev_rank)
+        torch.cuda.synchronize()
+        out["p2p_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    del state, step, batches, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpp_eval(trainer, state, batch) -> tuple:
+    """The eval forward's user vectors on ``batch`` ({dtype: [B, D] on the
+    host}) and K1's launches ({dtype: count}): at the trainer's bf16, and
+    at float32 over the same tensors (the bf16 base cast at use), where
+    rounding cannot hide a tp fault; K1 runs in both."""
+    from unirec_tpu_torch.models.joint import MultiModalQwenEmbedding
+    from unirec_tpu_torch.ops.flash_causal import flash_causal_attention
+    from unirec_tpu_torch.train import joint as jt
+
+    b = jt.batch_to_device(batch, torch.device("cuda"))
+    users, launches = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        flash_causal_attention.launches = 0
+        with trainer.evaluating(state) as model:
+            if dtype == torch.float32:
+                model = MultiModalQwenEmbedding(
+                    trainer.qwen_config, trainer.qformer_config,
+                    trainer.joint_config, trainer.lora, device="meta",
+                    dtype=dtype, param_dtype=dtype, tp=trainer.tp).eval()
+                model.load_state_dict(state.model.state_dict(), assign=True)
+            user = model(b["input_ids"], b["attention_mask"],
+                         b["history_field_embeddings"],
+                         b["history_attention_mask"])
+        torch.cuda.synchronize()
+        users[dtype] = user.float().cpu()
+        launches[dtype] = flash_causal_attention.launches
+    return users, launches
+
+
+def tpp_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """A gloo rank on cuda:0 (two ranks share the card): the tp and pp
+    cases over the world; every rank keeps its first step's gradients (pp:
+    its stage's)."""
+    from unirec_tpu_torch.ops._build import load_kernels
+    from unirec_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_kernels()
+    init_distributed("cuda:0", backend="gloo",
+                     init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                     rank=rank, timeout_s=PAR_TIMEOUT_S)
+    with open(os.path.join(tmp, "par", "inputs.pkl"), "rb") as fh:
+        inputs = pickle.load(fh)
+    results = {}
+    for case in TPP_CASES:
+        r = tpp_case(case, tmp, inputs, save_grads=rank == 0 or case == "pp")
+        r.pop("full_grads")
+        results[case] = r
+    torch.save(results, os.path.join(tmp, "par", f"tpp_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def tpp_merged_grads(got: list) -> dict:
+    """The pp ranks' gradients under the joint model's names."""
+    out = {}
+    prefix = "base_model.layers."
+    for r in got:
+        for name, g in r["grads"].items():
+            if name.startswith(prefix):
+                j, _, leaf = name[len(prefix):].partition(".")
+                name = f"{prefix}{r['stage'] * r['per'] + int(j)}.{leaf}"
+            out[name] = g
+    return out
+
+
+def tpp_compare(case: str, ref: dict, got: list, grads: dict) -> None:
+    """A layout's ranks against the one-rank step: losses within
+    TPP_LOSS_REL, every leaf's gradient at cosine >= STEP_GRAD_COS but the
+    noise leaves, the ranks' replicated parameters bit for bit equal."""
+    rel = max(abs(a - b) / abs(b) for r in got
+              for a, b in zip(r["losses"], ref["losses"]))
+    want = {n: t.double() for n, t in ref["grads"].items()}
+    noise = noise_leaves({n: t.float() for n, t in ref["full_grads"].items()})
+    cos = {n: c for n, c in grad_cosines(
+        {n: t.double() for n, t in grads.items()}, want).items()
+        if n not in noise}
+    worst = min(cos, key=cos.get)
+    same = len({r["hash"] for r in got}) == 1
+    log(f"{case}: losses {[r['losses'] for r in got]} vs one rank "
+        f"{ref['losses']} (max rel {rel:.2e}, tol {TPP_LOSS_REL:g}); "
+        f"{len(cos)} leaves, min gradient cosine {cos[worst]:.6f} ({worst}, "
+        f"tol {STEP_GRAD_COS}), {len(noise)} noise leaves; the ranks' "
+        f"replicated parameters bit for bit equal: {same}")
+    if not (rel <= TPP_LOSS_REL and cos[worst] >= STEP_GRAD_COS and same):
+        raise AssertionError(f"the {case} step disagrees with one rank")
+
+
+def tpp_rounding(smi: str) -> dict:
+    """Where tp = 2's bf16 products part from one rank's, at
+    ``Qwen3Config()``'s widths on the step's 4,096 rows (random bf16
+    operands, weights at 1/sqrt(fan-in)): each column layer's half (the
+    first N/2 output features, as rank 0 holds them) against the same
+    columns of the whole product, the share of elements that differ; each
+    row layer as two bf16 partials over K/2, summed and rounded again (a
+    gloo or NCCL reduce of two ranks), against the one-rank product, the
+    share that differ; and the relative error of each form, and of the
+    float32 product rounded once to bf16, to the float64 product."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    rows = TRAIN_BATCH * 512
+
+    def operands(n_out, n_in):
+        x = torch.randn(rows, n_in, generator=gen, device="cuda")
+        w = torch.randn(n_out, n_in, generator=gen, device="cuda")
+        return x.bfloat16(), (w * n_in ** -0.5).bfloat16()
+
+    def rel(y, truth):
+        return float((y.double() - truth).norm() / truth.norm())
+
+    out = {}
+    for name, n_out, n_in in (("q_proj", 2048, 1024), ("k_proj", 1024, 1024),
+                              ("gate_proj", 3072, 1024)):
+        x, w = operands(n_out, n_in)
+        whole = F.linear(x, w)[:, :n_out // 2]
+        half = F.linear(x, w[:n_out // 2])
+        out[name] = {"differ": float((whole != half).float().mean())}
+    for name, n_out, n_in in (("o_proj", 1024, 2048),
+                              ("down_proj", 1024, 3072)):
+        x, w = operands(n_out, n_in)
+        k = n_in // 2
+        truth = x.double() @ w.double().T
+        one = F.linear(x, w)
+        two = (F.linear(x[:, :k], w[:, :k]).float()
+               + F.linear(x[:, k:], w[:, k:]).float()).bfloat16()
+        out[name] = {"differ": float((one != two).float().mean()),
+                     "rel_one": rel(one, truth), "rel_two": rel(two, truth),
+                     "rel_rounded": rel(truth.float().bfloat16(), truth)}
+    log(f"[{smi}] tp=2's bf16 products against one rank's (4,096 rows): "
+        f"column halves, share of elements that differ "
+        f"{ {n: out[n]['differ'] for n in ('q_proj', 'k_proj', 'gate_proj')} }"
+        f"; row layers, two rounded partials summed: "
+        f"{ {n: out[n] for n in ('o_proj', 'down_proj')} } (rel: relative "
+        f"error to the float64 product; rounded: the exact product rounded "
+        f"once to bf16)")
+    return out
+
+
+def phase_tp_pp(smi: str, tmp: str) -> dict:
+    """tp and pp on one card (see the section's comment): K1 at tp = 2's
+    local heads against its plain version; the joint step on one rank; the
+    pipeline's and the trainer's code on a world-size-1 NCCL group (bit for
+    bit the plain step); tp = 2 and pp = 2 over two gloo ranks sharing
+    cuda:0 against one rank (and the tp = 2 eval forward's user vectors and
+    K1 launches); the refusals of ``train joint --tp 2`` and ``--pp 2`` on
+    this one-card machine."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from unirec_tpu_torch.parallel.mesh import free_port, init_distributed
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    b, l, hq, hkv, hd = (TPP_LOCAL[x] for x in ("B", "L", "HQ", "HKV", "HD"))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, mask = causal_inputs(gen, b, l, hq, hkv, hd, dtype,
+                                         [512, 333, 200, 65, 64, 7, 1, 512])
+        check_k1(*k1_error(q, k, v, mask, hq, hkv), dtype,
+                 f"tp=2 local heads Hq={hq} Hkv={hkv}")
+    rounding = tpp_rounding(smi)
+    # the refusals, in the background while the steps run
+    refusals = {}
+    base = [sys.executable, "-m", "unirec_tpu_torch", "train", "joint",
+            "--train-data", "x", "--val-data", "x", "--item-emb", "x",
+            "--item-dict", "x", "--qformer-checkpoint", "x", "--cache-dir",
+            "x"]
+    for flag in ("--tp", "--pp"):
+        refusals[flag] = subprocess.Popen(
+            base + [flag, "2"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    path = os.path.join(tmp, "par", "inputs.pkl")
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as fh:
+            pickle.dump(par_inputs(tmp), fh)
+    with open(path, "rb") as fh:
+        inputs = pickle.load(fh)
+    ref = tpp_case("one", tmp, inputs, save_grads=True)
+
+    # the trainer's and the pipeline's code on a world-size-1 NCCL group
+    init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{free_port()}",
+                     world_size=1, rank=0, timeout_s=PAR_TIMEOUT_S)
+    try:
+        nccl = {case: tpp_case(case, tmp, inputs) for case in ("one", "pp1")}
+    finally:
+        dist.destroy_process_group()
+    for case, r in nccl.items():
+        exact = (r["losses"] == ref["losses"] and r["hash"] == ref["hash"]
+                 and all(torch.equal(r["full_grads"][n], g)
+                         for n, g in ref["full_grads"].items()))
+        log(f"[{smi}] joint step ({case}) on a world-size-1 NCCL group: bit "
+            f"for bit the plain step's: {exact}; ms per step plain "
+            f"{ref['ms']:.1f}, here {r['ms']:.1f}")
+        if not exact:
+            raise AssertionError(f"the world-size-1 NCCL step ({case}) is "
+                                 "not the plain step bit for bit")
+    del nccl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two gloo ranks sharing cuda:0
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tpp_rank, args=(2, free_port(), tmp), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("the two gloo ranks timed out")
+    got = [torch.load(os.path.join(tmp, "par", f"tpp_rank{r}.pt"),
+                      weights_only=False) for r in range(2)]
+    log(f"two gloo ranks on cuda:0 (tp, then pp): "
+        f"{time.perf_counter() - t0:.1f} s, start and builds included")
+    tp = [g["tp"] for g in got]
+    tpp_compare("tp=2", ref, tp, tp[0]["grads"])
+    tpp_compare("pp=2 (M=2)", ref, [g["pp"] for g in got],
+                tpp_merged_grads([g["pp"] for g in got]))
+
+    def min_cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            a.double(), b.double(), dim=1).min())
+
+    cos = {dtype: min(min_cos(r["user"][dtype], ref["user"][dtype])
+                      for r in tp) for dtype in ref["user"]}
+    # bf16's own distance from the float32 users, one rank's and tp's
+    f32, b16 = torch.float32, torch.bfloat16
+    off = {"one": 1 - min_cos(ref["user"][b16], ref["user"][f32]),
+           "tp": max(1 - min_cos(r["user"][b16], ref["user"][f32])
+                     for r in tp)}
+    # bf16: tp's only extra rounding is in the row layers (the column
+    # halves are the whole product's bits), whose error to the exact
+    # product grows by rel_two / rel_one; if all of bf16's distance came
+    # from them, tp's would be at most that ratio squared times one rank's
+    ratio = max(rounding[n]["rel_two"] / rounding[n]["rel_one"]
+                for n in ("o_proj", "down_proj")) ** 2
+    log(f"tp=2 eval forward: min user cosine to one rank "
+        f"{ {str(d): round(c, 8) for d, c in cos.items()} } (float32 gate "
+        f"{TPP_USER_COS}); bf16's 1 - min cosine to one rank's float32 "
+        f"users: one rank {off['one']:.3e}, tp=2 {off['tp']:.3e} (gate: "
+        f"tp=2's at most {ratio:.3f} x one rank's, the row layers' error "
+        f"ratio squared); K1 launches per rank "
+        f"{[r['k1_launches'] for r in tp]} (one rank {ref['k1_launches']}, "
+        f"gate 28 a forward)")
+    if not (cos[f32] >= TPP_USER_COS and off["tp"] <= ratio * off["one"]
+            and all(n == 28 for r in tp + [ref]
+                    for n in r["k1_launches"].values())):
+        raise AssertionError("the tp=2 eval forward fails its checks")
+    log(f"[{smi}] ms per step (second step, host clock, synced): one rank "
+        f"{ref['ms']:.1f}, tp=2 {[round(r['ms'], 1) for r in tp]}, pp=2 "
+        f"{[round(g['pp']['ms'], 1) for g in got]}; peak GB one rank "
+        f"{ref['peak_gb']:.2f}, tp=2 per rank "
+        f"{[round(r['peak_gb'], 2) for r in tp]}, pp=2 per rank "
+        f"{[round(g['pp']['peak_gb'], 2) for g in got]}; a row layer's "
+        f"all-reduce over gloo ([4096, 1024] bf16) "
+        f"{[round(r['allreduce_ms'], 2) for r in tp]} ms, a microbatch's "
+        f"send/recv ([4, 512, 1024] bf16, through host memory) "
+        f"{[round(g['pp']['p2p_ms'], 2) for g in got]} ms (one card, not a "
+        f"scaling figure)")
+
+    for flag, proc in refusals.items():
+        _, err = proc.communicate(timeout=300)
+        want = f"needs 2 cards, have {torch.cuda.device_count()}"
+        log(f"`train joint {flag} 2` on this machine: exit {proc.returncode}, "
+            f"{err.strip().splitlines()[-1] if err else ''}")
+        if proc.returncode == 0 or want not in err:
+            raise AssertionError(f"train joint {flag} 2 was not refused")
+    log(f"phase_tp_pp: {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": {"one": ref["ms"], "tp": [r["ms"] for r in tp],
+                   "pp": [g["pp"]["ms"] for g in got]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6417,6 +6853,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         parallel = phase_parallel(smi, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_tp_pp(smi, tmp)
     sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
     bounds = static_bounds()

@@ -16,7 +16,9 @@ import types
 
 import pytest
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu_torch.ops import _build
+
 
 ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
 

@@ -10,10 +10,12 @@ import random
 
 import pytest
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.cli import data_pipeline as jax_cli
 from unirec_tpu.data import builders as jax_builders
 from unirec_tpu_torch.cli import data_pipeline as port_cli
 from unirec_tpu_torch.data import builders
+
 
 N_ITEMS, N_USERS = 60, 40
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 from PIL import Image
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.encoders import backends as jax_backends
 from unirec_tpu.models import clip as jax_clip
 from unirec_tpu_torch.encoders.backends import CLIPImageBackend, CLIPTextBackend
@@ -33,6 +34,7 @@ from unirec_tpu_torch.utils.weights import (
     init_clip_text,
     init_clip_vision,
 )
+
 
 VC = clip.CLIPVisionConfig(hidden_size=32, intermediate_size=64,
                            num_hidden_layers=2, num_attention_heads=4,

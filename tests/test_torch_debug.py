@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import ItemQFormerConfig as JaxItemConfig
 from unirec_tpu.configs import QFormerConfig as JaxQFormerConfig
 from unirec_tpu.models.item_qformer import ItemQFormer as JaxItemQFormer
@@ -28,6 +29,7 @@ from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.models.qformer import QFormerModel
 from unirec_tpu_torch.utils import debug, profiling
 from unirec_tpu_torch.utils.weights import flax_to_state_dict
+
 
 TOL = 1e-5
 QF = dict(hidden_size=32, num_hidden_layers=4, num_attention_heads=4,

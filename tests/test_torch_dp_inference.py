@@ -29,6 +29,7 @@ from tests.test_torch_qformer_inference import (
     CFG,
     FIELDS,
 )
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import MeshConfig as JaxMeshConfig
 from unirec_tpu.inference.qformer_inference import (
     QFormerInference as JaxQFormerInference,
@@ -49,6 +50,7 @@ from unirec_tpu_torch.utils.weights import (
     state_dict_to_flax,
 )
 from tests.test_torch_joint import F, FD, JC, LORA, QF, QWEN
+
 
 HISTORIES = [["i0", "i1"], ["i3"], [], ["i2", "i7", "i9"], ["i4"],
              ["unknown", "i5"], ["i6", "i8"], ["i11"], ["i12", "i13", "i1"]]

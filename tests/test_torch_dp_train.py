@@ -50,6 +50,7 @@ from tests.test_torch_joint import randomize_lora_b
 from tests.test_torch_train_joint import JC, LORA, OPT, _data, _datasets
 from tests.test_torch_train_joint import QF as QF2
 from tests.test_torch_train_joint import QWEN as QWEN2
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import (
     ItemQFormerConfig,
     MeshConfig,
@@ -76,6 +77,7 @@ from unirec_tpu_torch.utils.weights import (
     joint_state_dict_from_flax,
     user_state_dict_from_flax,
 )
+
 
 ATOL = 1e-5
 # one layer each: the JAX steps' compile time is most of this file's

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import MWNEConfig as JaxMWNEConfig
 from unirec_tpu.data import cache as jax_cache
 from unirec_tpu.encoders import backends as jax_backends
@@ -23,6 +24,7 @@ from unirec_tpu_torch.encoders.item_encoder import ItemEncoder
 from unirec_tpu_torch.models.mwne import NormalizedMathematicalEncoder
 from unirec_tpu_torch.utils.torch_convert import convert_mwne
 from unirec_tpu_torch.utils.weights import mwne_state_dict_from_flax
+
 
 NUMBERS = [0.5, 1.0, 2.0, 5.0, 10.0, -3.0, 42.0, 100.0, 0.0, "n/a", None,
            "7.25"]

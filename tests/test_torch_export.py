@@ -31,6 +31,7 @@ from tests.test_torch_joint import (
     joint_inputs,
     randomize_lora_b,
 )
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.models import joint as jax_joint
 from unirec_tpu import configs as jcfgs
 from unirec_tpu.models.item_qformer import ItemQFormer as JaxItemQFormer
@@ -50,6 +51,7 @@ from unirec_tpu_torch.utils.weights import (
     joint_state_dict_from_flax,
     state_dict_to_flax,
 )
+
 
 ITEM = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
             intermediate_size=64, num_query_tokens=4, field_embedding_dim=16,

@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops.flash_causal_vjp import flash_causal_self_attention
 from unirec_tpu_torch.ops.flash_causal import (
     flash_causal_attention,
     flash_causal_attention_plain,
 )
+
 
 ATOL = 2e-5
 SHAPES = [  # (B, L, Hq, Hkv, hd)

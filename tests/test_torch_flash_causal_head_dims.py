@@ -25,9 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops.flash_causal_vjp import _fwd, flash_causal_self_attention
 from unirec_tpu_torch.ops import flash_causal as fc
 from unirec_tpu_torch.ops.attention import KERNEL_HEAD_DIMS, check_head_dim
+
 
 FWD_ATOL, GRAD_ATOL, GRAD_RTOL, STAT_RTOL = 2e-5, 5e-5, 1e-3, 1e-5
 FORMERLY_REFUSED = (8, 24, 136, 256, 272, 512)

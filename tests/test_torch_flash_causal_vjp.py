@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops.flash_causal_vjp import _fwd, flash_causal_self_attention
 from unirec_tpu_torch.ops.flash_causal import (
     attention_dsum,
@@ -28,6 +29,7 @@ from unirec_tpu_torch.ops.flash_causal import (
     flash_causal_bwd_dkv,
     flash_causal_bwd_dq,
 )
+
 
 FWD_ATOL, GRAD_ATOL, GRAD_RTOL, STAT_RTOL = 2e-5, 5e-5, 1e-3, 1e-5
 SHAPES = [  # (B, L, Hq, Hkv, hd)

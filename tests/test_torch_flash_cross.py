@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops import attention as jatt
 from unirec_tpu.ops import flash_vjp as jvjp
 from unirec_tpu_torch.ops import attention as patt
 from unirec_tpu_torch.ops import flash_vjp as pvjp
+
 
 HD = 16
 

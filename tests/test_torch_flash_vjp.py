@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops import attention as jatt
 from unirec_tpu.ops import flash_vjp as jvjp
 from unirec_tpu_torch.ops import attention as patt
 from unirec_tpu_torch.ops import flash_vjp as pvjp
+
 
 B, H, LQ, LKV, HD = 2, 3, 16, 384, 32
 FWD_TOL = dict(atol=2e-5, rtol=1e-4)

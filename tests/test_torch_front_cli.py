@@ -34,6 +34,7 @@ from PIL import Image
 
 from tests.test_torch_builders import write_raw
 from tests.test_torch_text_backend import write_hf_qwen3
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.cli import candidate_embeddings as jax_embed
 from unirec_tpu.cli import review_embeddings as jax_review
 from unirec_tpu.cli import serve_cli as jax_serve
@@ -62,6 +63,7 @@ from unirec_tpu_torch.utils.weights import (
     joint_state_dict_from_flax,
     mwne_state_dict_from_flax,
 )
+
 
 FIELDS = sorted(DEFAULT_FIELD_MAPPING)
 HIDDEN = 32

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import ItemQFormerConfig
 from unirec_tpu.inference import fused_qformer as jax_engine
 from unirec_tpu.models.item_qformer import ItemQFormer as JaxItemQFormer
@@ -31,6 +32,7 @@ from unirec_tpu_torch.inference.fused_qformer import (
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.ops import fused_qformer_layer as fq
 from unirec_tpu_torch.utils.weights import item_qformer_state_dict_from_flax
+
 
 F, K, HEADS = 6, 8, 4
 ATOL, RTOL = 2e-5, 1e-4

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import ItemQFormerConfig
 from unirec_tpu.inference import fused_qformer as jax_engine
 from unirec_tpu.inference.qformer_inference import (
@@ -43,6 +44,7 @@ from unirec_tpu_torch.inference.qformer_inference import QFormerInference
 from unirec_tpu_torch.ops import fused_qformer_int8 as pq
 from unirec_tpu_torch.ops.fused_qformer_layer import NEG_INF
 from unirec_tpu_torch.utils.weights import item_qformer_state_dict_from_flax
+
 
 F, K, HEADS, D = 6, 8, 4, 64
 BLOCK_ATOL = 6.25e-2

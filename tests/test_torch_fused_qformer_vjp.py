@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import ItemQFormerConfig
 from unirec_tpu.models.item_qformer import ItemQFormer as JaxItemQFormer
 from unirec_tpu.ops import fused_qformer_vjp as jvjp
@@ -36,6 +37,7 @@ from unirec_tpu_torch.utils.weights import (
     flax_to_state_dict,
     item_qformer_state_dict_from_flax,
 )
+
 
 HEADS, D = 4, 128  # head_dim 32
 

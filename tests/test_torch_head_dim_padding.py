@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops import attention as jatt
 from unirec_tpu.ops import flash_vjp as jvjp
 from unirec_tpu.ops.flash_causal_vjp import flash_causal_self_attention
@@ -41,6 +42,7 @@ from unirec_tpu_torch.ops import attention as pa
 from unirec_tpu_torch.ops import flash_causal as fc
 from unirec_tpu_torch.ops import flash_vjp as fl
 from unirec_tpu_torch.ops import packed_attention as pp
+
 
 PAD_REL = 1e-6
 PADDED = (8, 24, 200, 257, 300)

@@ -19,12 +19,14 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu_torch.configs import ItemQFormerConfig
 from unirec_tpu_torch.ops.losses import (
     triplet_hinge_active,
     triplet_hinge_arguments,
 )
 from unirec_tpu_torch.utils.weights import init_item_qformer
+
 
 B, D, MARGIN = 16, 32, 0.5
 

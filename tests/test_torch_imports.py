@@ -16,6 +16,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
@@ -64,6 +67,8 @@ EXPECTED_MODULES = {
     # A9's data and sequence parallelism
     "unirec_tpu_torch.parallel", "unirec_tpu_torch.parallel.mesh",
     "unirec_tpu_torch.ops.sharded_attention",
+    # A9's tensor and pipeline parallelism
+    "unirec_tpu_torch.parallel.tensor", "unirec_tpu_torch.parallel.pipeline",
 }
 
 
@@ -362,3 +367,39 @@ def test_build_dir_follows_the_environment(monkeypatch, tmp_path):
     assert _build.build_dir() == target.resolve()
     assert not target.exists()
     assert _build.load_kernels.cache_info().currsize == 0
+
+
+def test_hugging_face_loaders_read_local_files_only(monkeypatch):
+    """Every ``from_pretrained`` of the port reads a local directory and
+    never asks the hub (``--hf-path``, ``--tokenizer`` and the encoders'
+    paths are local checkpoints): each call passes ``local_files_only=True``,
+    and a name that is no directory fails at once."""
+    calls = []
+    for path in Path(REPO, "unirec_tpu_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "from_pretrained"):
+                kw = {k.arg: k.value for k in node.keywords}
+                calls.append((path.name, node.lineno))
+                flag = kw.get("local_files_only")
+                assert isinstance(flag, ast.Constant) and flag.value is True, \
+                    calls[-1]
+    assert len(calls) >= 8
+    import types
+
+    seen = {}
+
+    class Auto:
+        @staticmethod
+        def from_pretrained(name, **kw):
+            seen.update(kw, name=name)
+            raise OSError(f"{name} is not a local directory")
+
+    monkeypatch.setitem(sys.modules, "transformers",
+                        types.SimpleNamespace(AutoTokenizer=Auto))
+    from unirec_tpu_torch.data.tokenizer import make_tokenizer
+
+    with pytest.raises(ValueError, match="somewhere"):
+        make_tokenizer("somewhere")
+    assert seen == {"name": "somewhere", "local_files_only": True}

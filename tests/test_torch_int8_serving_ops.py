@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import LoRAConfig, Qwen3Config
 from unirec_tpu.models import qwen3 as jq
 from unirec_tpu.ops import fused_qwen3_int8 as jf
@@ -55,6 +56,7 @@ from unirec_tpu_torch.utils.weights import (
     qweights_from_flax,
 )
 from tests.test_torch_joint import JC, LORA, QF, QWEN, randomize_lora_b
+
 
 D, INTER, ROWS = 128, 256, 512
 MLP_COS, MLP_REL = 0.99999, 1e-3

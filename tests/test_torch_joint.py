@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import (
     ItemQFormerConfig,
     JointModelConfig,
@@ -28,6 +29,7 @@ from unirec_tpu.utils.torch_convert import (
 )
 from unirec_tpu_torch.models import joint as port_joint
 from unirec_tpu_torch.utils.weights import joint_state_dict_from_flax
+
 
 QWEN = tiny_qwen3_config(max_position_embeddings=64)
 F, FD = 3, 16

@@ -14,7 +14,9 @@ training CLI's ranks, on the CPU.
   ranks each (``python -m unirec_tpu_torch``), then ``--resume``; rank 0
   alone prints and logs; a rank that fails fails the command;
   ``train user-qformer --sp 2`` runs as two torchrun ranks; more ranks than
-  cards, ``--tp`` and ``--pp`` are refused before anything spawns.
+  cards (``--pp`` ranks too) and ``--tp`` with flash / fused training are
+  refused before anything spawns (``--tp`` and ``--pp`` themselves:
+  ``tests/test_torch_tp.py``, ``tests/test_torch_pipeline.py``).
 """
 
 import json
@@ -27,11 +29,13 @@ import pytest
 import torch
 
 from tests import torch_dist_ranks as ranks
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import MeshConfig as JaxMeshConfig
 from unirec_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from unirec_tpu.parallel.mesh import pad_batch as jax_pad_batch
 from unirec_tpu_torch.configs import MeshConfig
 from unirec_tpu_torch.parallel.mesh import make_mesh, pad_batch
+
 
 CLI_TIMEOUT_S = 240.0
 
@@ -245,7 +249,9 @@ def test_train_user_qformer_sp2_as_torchrun_ranks(launched):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--dp", "2", "--device", "cuda"], ValueError, "needs 2 cards, have"),
-    (["--tp", "2"], NotImplementedError, "next slice"),
+    # --tp is ported (tests/test_torch_tp.py); with --flash it is refused,
+    # as in the JAX package
+    (["--tp", "2", "--flash"], ValueError, "incompatible with tp>1"),
     (["--sp", "2", "--flash"], ValueError, "incompatible with flash")],
     ids=["more-ranks-than-cards", "tp", "sp-with-flash"])
 def test_refusals_before_anything_spawns(tmp_path, monkeypatch, extra, error,
@@ -260,5 +266,7 @@ def test_refusals_before_anything_spawns(tmp_path, monkeypatch, extra, error,
     joint_pp = ["joint", "--train-data", "t", "--val-data", "v", "--item-emb",
                 "e", "--item-dict", "d", "--qformer-checkpoint", "q",
                 "--cache-dir", "c", "--pp", "2"]
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # --pp is ported (tests/test_torch_pipeline.py): its two ranks need two
+    # cards
+    with pytest.raises(ValueError, match="needs 2 cards, have 1"):
         train_cli.main(joint_pp)

@@ -21,11 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import MWNEConfig as JaxMWNEConfig
 from unirec_tpu.train import mwne as jm
 from unirec_tpu_torch.configs import MWNEConfig
 from unirec_tpu_torch.train import mwne as pm
 from unirec_tpu_torch.utils.weights import flax_to_state_dict
+
 
 TOL = 1e-5
 DIMS = dict(embedding_dim=48, num_frequencies=8)

@@ -42,6 +42,7 @@ import optax
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.cli.train_cli import _joint_cfg_meta
 from unirec_tpu.configs import (
     ItemQFormerConfig,
@@ -85,6 +86,7 @@ from unirec_tpu_torch.utils.weights import (
     flax_to_state_dict,
     item_qformer_state_dict_from_flax,
 )
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(

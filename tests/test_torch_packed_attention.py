@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops.attention import make_additive_mask
 from unirec_tpu.ops.packed_attention import packed_item_attention as jpacked
 from unirec_tpu_torch.ops import packed_attention as pp
+
 
 ATOL = 2e-5
 

@@ -5,6 +5,7 @@ no tolerance)."""
 import numpy as np
 import pytest
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.data.tokenizer import HashTokenizer as JaxHashTokenizer
 from unirec_tpu.models.joint import construct_input_text as jax_prompt
 from unirec_tpu.serving.prompt_cache import (
@@ -13,6 +14,7 @@ from unirec_tpu.serving.prompt_cache import (
 from unirec_tpu_torch.data.tokenizer import HashTokenizer, make_tokenizer
 from unirec_tpu_torch.models.joint import construct_input_text
 from unirec_tpu_torch.serving.prompt_cache import CachedPromptEncoder
+
 
 ITEMS = {
     "a1": {"title": "Hydrating Face Cream"},

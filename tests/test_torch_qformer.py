@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import ItemQFormerConfig
 from unirec_tpu.models.item_qformer import ItemQFormer as JaxItemQFormer
 from unirec_tpu.ops import attention as jax_attn
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.ops import attention as port_attn
 from unirec_tpu_torch.utils.weights import flax_to_state_dict
+
 
 CFG = ItemQFormerConfig(
     hidden_size=64, num_hidden_layers=2, num_attention_heads=2,

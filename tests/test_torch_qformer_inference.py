@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import ItemQFormerConfig
 from unirec_tpu.data.cache import FieldEmbeddingCache
 from unirec_tpu.inference.qformer_inference import (
@@ -41,6 +42,7 @@ from unirec_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from unirec_tpu_torch.utils.weights import item_qformer_state_dict_from_flax
+
 
 CFG = ItemQFormerConfig(
     hidden_size=64, num_hidden_layers=3, num_attention_heads=4,

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import QFormerConfig as JaxQFormerConfig
 from unirec_tpu.models import qformer as jq
 from unirec_tpu.models import qformer_decode as jd
@@ -32,6 +33,7 @@ from unirec_tpu_torch.models import qformer as pq
 from unirec_tpu_torch.models import qformer_decode as pd
 from unirec_tpu_torch.ops.attention import make_causal_mask
 from unirec_tpu_torch.utils.weights import flax_to_state_dict
+
 
 TOL = 1e-5
 SIZES = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,

@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops import quantization as jq
 from unirec_tpu_torch.ops import quantization as pq
+
 
 N, DIM, USERS = 300, 64, 7
 

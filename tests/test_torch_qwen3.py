@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import LoRAConfig, tiny_qwen3_config
 from unirec_tpu.models import qwen3 as jq
 from unirec_tpu_torch.models import qwen3 as pq
 from unirec_tpu_torch.utils.weights import flax_to_state_dict
 from tests.test_torch_joint import randomize_lora_b
+
 
 CFG = tiny_qwen3_config(max_position_embeddings=64)
 ATOL = 5e-5

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.ops.ranking import retrieve_top_k as jax_retrieve
 from unirec_tpu.ops.losses import l2_normalize as jax_l2
 from unirec_tpu_torch.ops.losses import l2_normalize

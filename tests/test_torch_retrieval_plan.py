@@ -22,6 +22,7 @@ import itertools
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu_torch.ops.losses import l2_normalize
 from unirec_tpu_torch.ops.quantization import int8_kernel_inputs, quantize_rows
 from unirec_tpu_torch.ops.ranking import (
@@ -32,6 +33,7 @@ from unirec_tpu_torch.ops.ranking import (
     retrieval_plan,
     top_k_items,
 )
+
 
 ROWS = (1, 3, 37, 131, 132, 133, 20_000, 20_001)
 WIDTHS = (1, 3, 1021, 1024)

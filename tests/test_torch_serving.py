@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import (
     ItemQFormerConfig,
     JointModelConfig,
@@ -37,6 +38,7 @@ from unirec_tpu_torch.serving.recommender import Recommender
 from unirec_tpu_torch.serving.server import make_server
 from unirec_tpu_torch.utils.weights import joint_state_dict_from_flax
 from tests.test_torch_joint import F, FD, JC, LORA, QF, QWEN, randomize_lora_b
+
 
 HISTORIES = [["i0", "i1"], ["i3"], [], ["i2", "i7", "i9"], ["i4"],
              ["unknown", "i5"]]

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests import torch_dist_ranks as ranks
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import MeshConfig
 from unirec_tpu.ops.attention import attention, make_additive_mask
 from unirec_tpu.ops.sharded_attention import (
@@ -31,6 +32,7 @@ from unirec_tpu.ops.sharded_attention import (
 )
 from unirec_tpu.parallel.mesh import make_mesh
 from unirec_tpu_torch.ops.sharded_attention import split_memory
+
 
 B, H, LQ, LKV, HD = 2, 4, 8, 64, 16
 

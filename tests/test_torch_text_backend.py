@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import (
     MeshConfig,
     Qwen3Config as JaxQwen3Config,
@@ -60,6 +61,7 @@ from tests.test_torch_train_joint import (
     _cli_files,
     _data,
 )
+
 
 CFG = Qwen3Config(vocab_size=128, hidden_size=64, intermediate_size=128,
                   num_hidden_layers=2, num_attention_heads=4,

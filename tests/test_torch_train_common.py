@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import OptimizerConfig
 from unirec_tpu.train.common import TrainState as JaxTrainState
 from unirec_tpu.train.common import epoch_batches as jax_epoch_batches
@@ -30,6 +31,7 @@ from unirec_tpu_torch.train.common import (
     make_optimizer,
     pad_to_batch,
 )
+
 
 RTOL, ATOL = 1e-6, 1e-7
 SHAPES = {"w": (4, 3), "b": (5,)}

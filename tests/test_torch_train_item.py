@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import (
     ItemQFormerConfig,
     MeshConfig,
@@ -33,6 +34,7 @@ from unirec_tpu_torch.utils.weights import (
     flax_to_state_dict,
     item_qformer_state_dict_from_flax,
 )
+
 
 D, F, N_ITEMS = 128, 5, 48
 CFG = ItemQFormerConfig(hidden_size=D, num_hidden_layers=2,
@@ -349,9 +351,12 @@ def test_train_cli_item_qformer_refusals(tmp_path, capsys, monkeypatch):
     argv = _cli_files(tmp_path, n=6)
     with pytest.raises(SystemExit, match="--fused-anchor requires --bf16"):
         train_cli.main(["item-qformer"] + argv + ["--fused-anchor"])
-    # --dp is ported (tests/test_torch_mesh.py); --tp is the next A9 slice
-    with pytest.raises(NotImplementedError, match="A9"):
-        train_cli.main(["item-qformer"] + argv + ["--dp", "2", "--tp", "2"])
+    # --dp and --tp are ported (tests/test_torch_mesh.py,
+    # tests/test_torch_tp.py); --tp refuses the fused anchor, as in JAX
+    with pytest.raises(ValueError, match="fused_training is incompatible "
+                                         "with tp>1"):
+        train_cli.main(["item-qformer"] + argv + ["--dp", "2", "--tp", "2",
+                                                  "--bf16", "--fused-anchor"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in (["item-qformer"] + [a for a in argv if a != "cpu"
                                     and a != "--device"],

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from tests.test_torch_joint import randomize_lora_b
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import (
     ItemQFormerConfig,
     JointModelConfig,
@@ -61,6 +62,7 @@ from unirec_tpu_torch.utils.checkpoint import (
     save_train_state,
 )
 from unirec_tpu_torch.utils.weights import flax_to_state_dict, joint_state_dict_from_flax
+
 
 VOCAB, HIDDEN, FFN, LAYERS, HEADS, WIDTH, F = 128, 64, 128, 2, 4, 48, 6
 QWEN = Qwen3Config(vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
@@ -448,10 +450,14 @@ def test_train_cli_joint_tiny_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--pp", "2"], NotImplementedError, "A9"),
-    # --dp is ported (tests/test_torch_mesh.py); with --tp it is refused
-    (["--dp", "2", "--tp", "2"], NotImplementedError, "A9"),
-    (["--tp", "2"], NotImplementedError, "A9"),
+    # --dp, --tp and --pp are ported (tests/test_torch_mesh.py,
+    # tests/test_torch_tp.py, tests/test_torch_pipeline.py); the JAX
+    # package's refusals of their combinations stay
+    (["--pp", "2", "--tp", "2"], ValueError, "composes with dp only"),
+    (["--dp", "2", "--tp", "2", "--int8-base"], ValueError,
+     "int8_base is incompatible with tp>1"),
+    (["--tp", "2", "--flash-vjp"], ValueError,
+     "flash_vjp_attention is incompatible with tp>1"),
     # --hf-path is ported (tests/test_torch_text_backend.py); a path that
     # holds no checkpoint is refused, not replaced by hash tokens
     (["--hf-path", "somewhere"], ValueError, "somewhere")],

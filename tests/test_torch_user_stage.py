@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_dist_ranks import one_torch_thread  # noqa: F401
 from unirec_tpu.configs import (
     ItemQFormerConfig,
     MeshConfig,
@@ -50,6 +51,7 @@ from unirec_tpu_torch.utils.weights import (
     item_qformer_state_dict_from_flax,
     user_state_dict_from_flax,
 )
+
 
 D, K, N_ITEMS, S = 32, 4, 40, 50  # memory S * K = 200 rows
 UC = UserQFormerConfig(hidden_size=D, num_hidden_layers=2,
@@ -387,6 +389,8 @@ def test_train_cli_user_qformer_and_resume(stage, tmp_path, monkeypatch,
                                        "1"]) == 0
     _, m = metrics()
     assert np.isfinite(m["loss"]) and np.isfinite(m["token_mse"])
-    # --sp is ported (tests/test_torch_mesh.py); --tp is the next A9 slice
-    with pytest.raises(NotImplementedError, match="A9"):
-        train_cli.main(base + ["--sp", "2", "--tp", "2"])
+    # --sp and --tp are ported (tests/test_torch_mesh.py,
+    # tests/test_torch_tp.py); --tp refuses the flash and fused kernels, as
+    # in JAX
+    with pytest.raises(ValueError, match="incompatible with tp>1"):
+        train_cli.main(base + ["--sp", "2", "--tp", "2", "--fused"])

@@ -13,6 +13,7 @@ passes, and fails with every rank's output.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import subprocess
@@ -20,11 +21,41 @@ import sys
 import time
 from typing import Dict, List
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 GROUP_TIMEOUT_S = 120.0  # the collectives' timeout inside a rank
 
 
 # -- the test side ---------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` inside the block, restored
+    after it.  The port's test modules run on one thread: six test workers
+    share eight cores, at tiny shapes every torch op is a parallel region
+    whose threads wait for each other, and with six pools of eight threads
+    each such wait costs a scheduler slice (a CLI test of 5 s alone took
+    248 s in the suite)."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """A test module on one torch thread (``torch_threads``).  Each of the
+    port's test modules imports it by name, which makes pytest use it
+    there."""
+    with torch_threads(1):
+        yield
 
 
 def child_env(**extra) -> Dict[str, str]:
@@ -335,8 +366,176 @@ def _init(rank: int, world: int, workdir: str) -> dict:
     return out
 
 
+def _as_torchrun(rank: int, world: int) -> None:
+    """The environment ``torchrun`` gives a rank (its world is already
+    joined: ``init_distributed`` returns at once)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+
+
+def _cli_runs(rank: int, world: int, runs) -> list:
+    """``train_cli.main(argv)`` for each argv, as torchrun's ranks of the
+    joined world; the CLI's end-of-run ``destroy_process_group`` waits for
+    the last run."""
+    import functools
+
+    import torch.distributed as dist
+
+    from unirec_tpu_torch import configs
+    from unirec_tpu_torch.cli import train_cli
+
+    _as_torchrun(rank, world)
+    destroy, real_cfg = dist.destroy_process_group, configs.UserQFormerConfig
+    dist.destroy_process_group = lambda *a, **k: None
+    rcs = []
+    try:
+        for argv, user_widths in runs:
+            if user_widths:
+                configs.UserQFormerConfig = functools.partial(real_cfg,
+                                                              **user_widths)
+            try:
+                rcs.append(train_cli.main(argv))
+            finally:
+                configs.UserQFormerConfig = real_cfg
+    finally:
+        dist.destroy_process_group = destroy
+    return rcs
+
+
+def _tp(rank: int, world: int, workdir: str) -> dict:
+    """The joint trainer at tp = 2: the deterministic joint and Qwen3
+    forwards, two steps (each one's gradients gathered to the full tree),
+    the evaluation, a checkpoint written from the gathered state and
+    restored at tp = 2 into a template of another seed; the item (without
+    and with the fused reference forwards) and user trainers at tp = 2;
+    ``train joint --tp 2`` and ``train user-qformer --tp 2`` as torchrun's
+    ranks."""
+    import torch
+
+    from unirec_tpu_torch.parallel.tensor import gather_state_dict
+    from unirec_tpu_torch.train import joint as jt
+    from unirec_tpu_torch.utils import checkpoint as ckpt
+
+    inp = _inputs(workdir, "tp")
+    c = inp["joint"]
+    trainer = jt.JointTrainer(c["qwen"], c["qf"], c["jc"], lora=c["lora"],
+                              train_config=c["tc"], device="cpu")
+    assert trainer.tp.size == 2 and trainer.tp.index == rank
+    state = trainer.init_state(params=c["params"])
+    b = jt.batch_to_device(c["batches"][0], torch.device("cpu"))
+    out = {}
+    with trainer.evaluating(state) as model:
+        out["user"] = model(b["input_ids"], b["attention_mask"],
+                            b["history_field_embeddings"],
+                            b["history_attention_mask"])
+        out["hidden"] = model.base_model(input_ids=b["input_ids"],
+                                         attention_mask=b["attention_mask"])
+    out["eval"] = trainer.evaluate(state, c["val"], batch_size=6,
+                                   max_negatives=7)
+    step = jt.make_joint_train_step(state.model, return_grads=True,
+                                    seed=c["tc"].seed, mesh=trainer.mesh)
+    out["steps"] = []
+    for batch in c["batches"]:
+        state, m = step(state, batch)
+        out["steps"].append({"loss": float(m["loss"]), "grads":
+                             gather_state_dict(m["grads"], trainer.tp)})
+    full = trainer.checkpoint_state(state)
+    out["params"] = dict(full.model)
+    out["opt"] = full.optimizer.state_dict()
+    out["local"] = {n: p.detach().clone()
+                    for n, p in state.model.state_dict().items()}
+    ck = os.path.join(workdir, "tp_ck")
+    ckpt.save_train_state(ck, full, extra={"grad_accum": 1})
+    torch.distributed.barrier()
+    template = trainer.init_state(seed=11)
+    restored, _, whole = trainer.restore(ck, template)
+    out["restored"] = (whole, restored.step, {
+        n: p.detach().clone() for n, p in restored.model.state_dict().items()},
+        {n: t.clone() for n, t in restored.optimizer.mu.items()})
+    out["local_mu"] = {n: t.clone() for n, t in state.optimizer.mu.items()}
+    # one step at LoRA dropout 0.1
+    dtrainer = jt.JointTrainer(c["qwen"], c["qf"], c["jc"],
+                               lora=inp["joint_dropout"]["lora"],
+                               train_config=c["tc"], device="cpu")
+    dstate = dtrainer.init_state(params=c["params"])
+    _, m = jt.make_joint_train_step(dstate.model, return_grads=True,
+                                    seed=c["tc"].seed, mesh=dtrainer.mesh)(
+        dstate, c["batches"][0])
+    out["dropout"] = {"loss": float(m["loss"]),
+                      "grads": gather_state_dict(m["grads"], dtrainer.tp)}
+    out["item"] = _item(inp, "item")
+    out["item_refs"] = _item(inp, "item_refs")
+    out["user_step"] = _user(inp, "user")
+    out["cli"] = _cli_runs(rank, world, inp["cli"])
+    return out
+
+
+def _pp(rank: int, world: int, workdir: str) -> dict:
+    """The joint model over (dp = world / 2, pp = 2, M = 2): the evaluation
+    of the merged tree, the deterministic ``joint_pp_forward`` on this
+    rank's rows, one step's gradients (this stage's layers under its local
+    names) and the merged parameters after it; in the world of
+    2 also a step with LoRA dropout, a pipeline checkpoint and ``train
+    joint --pp 2 --pp-microbatches 2`` as torchrun's ranks."""
+    import dataclasses
+
+    import torch
+
+    from unirec_tpu_torch.configs import MeshConfig
+    from unirec_tpu_torch.parallel.mesh import shard_rows
+    from unirec_tpu_torch.parallel.pipeline import joint_pp_forward
+    from unirec_tpu_torch.train import joint as jt
+    from unirec_tpu_torch.utils.checkpoint import save_pipeline_state
+
+    inp = _inputs(workdir, "pp")
+    c = inp["joint"]
+
+    def pipelined(lora):
+        trainer = jt.JointTrainer(
+            c["qwen"], c["qf"], c["jc"], lora=lora,
+            train_config=dataclasses.replace(c["tc"],
+                                             mesh=MeshConfig(dp=world)),
+            device="cpu")
+        pt = jt.PipelinedJointTrainer(trainer, pp=2, num_microbatches=2)
+        return pt, pt.init_trainable(trainer.init_state(params=c["params"]))
+
+    pt, ps = pipelined(c["lora"])
+    ev = pt.evaluate(ps, c["val"], batch_size=6, max_negatives=7)
+    batch = c["batches"][0]
+    rows = shard_rows(len(batch["input_ids"]), pt.dp_size, pt.mesh.dp_index)
+    b = jt.batch_to_device({k: v[rows] for k, v in batch.items()},
+                           torch.device("cpu"))
+    ps.model.eval()
+    with torch.no_grad():
+        user = joint_pp_forward(ps.model, b["input_ids"], b["attention_mask"],
+                                b["history_field_embeddings"],
+                                b["history_attention_mask"])
+    ps.model.train()
+    step = jt.make_pipeline_train_step(ps.model, pt.mesh, return_grads=True,
+                                       seed=c["tc"].seed)
+    ps, m = step(ps, batch)
+    out = {"user": user, "rows": (rows.start, rows.stop),
+           "stage": pt.mesh.stage,
+           "per": ps.model.base_model.layers_per_stage,
+           "loss": float(m["loss"]), "grads": m["grads"],
+           "merged": pt.merged_params(ps), "eval": ev}
+    if world == 2:
+        dpt, dps = pipelined(c["lora_dropout"])
+        before = pt.merged_params(dps)
+        dps, dm = dpt._train_step(dps, batch)
+        after = dpt.merged_params(dps)
+        out["dropout"] = {"loss": float(dm["loss"]), "changed": sorted(
+            n for n in after if not torch.equal(after[n], before[n]))}
+        save_pipeline_state(os.path.join(workdir, "pp_ck"),
+                            pt.merged_params(ps, to_host=True), ps.step,
+                            config=c["jc"], extra={"grad_accum": 1})
+        out["cli"] = _cli_runs(rank, world, inp["cli"])
+    return out
+
+
 CASES = {"train": _train, "sp": _sp, "user_cli": _user_cli,
-         "sharded": _sharded, "init": _init}
+         "sharded": _sharded, "init": _init, "tp": _tp, "pp2": _pp,
+         "pp4": _pp}
 # cases that join their world themselves (torchrun's environment)
 SELF_INIT = {"user_cli", "init"}
 

@@ -7,7 +7,7 @@
         --item-dict items.json --qformer-checkpoint IQ_CKPT --cache-dir CACHE \\
         [--flash-vjp] [--no-remat] [--int8-base] [--lora-grouped] \\
         [--grad-accum K] [--checkpoint-dir DIR [--resume]] [--tiny] \\
-        [--device cpu]
+        [--dp N] [--tp N | --pp N [--pp-microbatches M]] [--device cpu]
     python -m unirec_tpu_torch.cli.train_cli item-qformer \\
         --data items.json --sequences train.json --cache-dir CACHE \\
         [--bf16 [--fused-anchor] [--int8-ref]] [--grad-accum K] \\
@@ -70,20 +70,29 @@ checkpoint directory, ``export-pretrained`` the reference's
 through ``utils/weights.state_dict_to_flax`` and ``utils/torch_convert``.
 
 ``--dp N`` (``joint``, ``item-qformer``, ``user-qformer``) trains
-data-parallel over N ranks and ``user-qformer --sp M`` splits the memory
-over M ranks (``parallel/mesh.py``): under ``torchrun`` (which sets
-``WORLD_SIZE``) the command is one rank of that world and dp x sp must
-equal it; otherwise the command spawns dp x sp local ranks, one per
-visible card (gloo ranks on the CPU with ``--device cpu``), joined over
-``tcp://127.0.0.1`` with a timeout on every collective
-(``parallel.mesh.DEFAULT_TIMEOUT_S``).  More
-ranks than cards is refused before anything spawns; ``--dp -1`` (the
-default) takes every card, so one card trains as before.  A rank that
-fails ends the run with an error.  Rank 0 alone prints and writes
-checkpoints and metrics.
-
-Not ported yet, refused with the queue that holds them: ``--pp`` and
-``--tp`` above 1 (the next slice of A9).
+data-parallel over N ranks, ``--tp N`` shards the joint model's Qwen3 base
+over N ranks (``parallel/tensor.py``; the item and user trainers replicate
+over it, as the JAX ones do), ``user-qformer --sp M`` splits the memory
+over M ranks (``parallel/mesh.py``) and ``joint --pp N
+[--pp-microbatches M]`` splits the decoder's layers into N GPipe stages
+(``parallel/pipeline.py``, ``train/joint.PipelinedJointTrainer``): under
+``torchrun`` (which sets ``WORLD_SIZE``) the command is one rank of that
+world and dp x tp x sp x pp must equal it; otherwise the command spawns
+that many local ranks, one per visible card (gloo ranks on the CPU with
+``--device cpu``), joined over ``tcp://127.0.0.1`` with a timeout on every
+collective (``parallel.mesh.DEFAULT_TIMEOUT_S``).  More ranks than cards
+is refused before anything spawns, as are the JAX package's refusals:
+``--tp`` above 1 with ``--flash-vjp`` or ``--int8-base`` (joint), with
+``--fused-anchor`` (item) or ``--flash`` / ``--fused`` (user); ``--pp``
+with ``--flash-vjp``, ``--int8-base`` or ``--tp`` above 1.  ``--dp -1``
+(the default) takes every card left after tp, sp and pp, so one card
+trains as before.  A rank that fails ends the run with an error.  Rank 0
+alone prints and writes checkpoints and metrics; a checkpoint written
+under tp holds the full tree (it resumes at any tp), and one written under
+pp holds the merged parameters and step with ``{"pp_layout": True}`` for
+the optimizer state, so ``--resume`` from it (with or without ``--pp``)
+restores parameters and step and restarts the optimizer, as the JAX CLI's
+does.
 """
 
 from __future__ import annotations
@@ -137,8 +146,9 @@ def _common_train_flags(sp, batch_size: int, epochs: int, lr: float) -> None:
                     help="data-parallel ranks (-1: every visible card; "
                          "with --device cpu, 1)")
     sp.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (the next slice of A9: "
-                         "above 1 raises)")
+                    help="tensor-parallel size: joint shards the Qwen3 base "
+                         "over N ranks; item-qformer / user-qformer "
+                         "replicate over them")
     sp.add_argument("--grad-accum", type=int, default=1,
                     help="apply the optimizer every k micro-batches on the "
                          "averaged gradient")
@@ -168,8 +178,13 @@ def _joint_parser(sub) -> None:
     sp.add_argument("--no-remat", dest="remat", action="store_false",
                     default=True, help="disable rematerialization")
     sp.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages (not ported: above 1 raises)")
-    sp.add_argument("--pp-microbatches", type=int, default=1)
+                    help="pipeline-parallel stages (GPipe, "
+                         "parallel/pipeline.py); composes with --dp, refuses "
+                         "--tp>1, --flash-vjp and --int8-base; --resume "
+                         "restores params only")
+    sp.add_argument("--pp-microbatches", type=int, default=1,
+                    help="microbatches per dp-local batch (shrinks the "
+                         "pipeline bubble; batch/(dp*M) must stay integral)")
     sp.add_argument("--flash-vjp", action="store_true",
                     help="trainable flash causal self-attention: kernel K1 "
                          "forward and B7b backward on the card")
@@ -316,41 +331,68 @@ def _run_trainer(args) -> int:
     return _TRAINERS[args.cmd](args)
 
 
+def _refusals(args) -> int:
+    """The JAX package's refusals of parallel layouts, before anything
+    spawns: the trainers' own checks raise, and ``--pp`` with
+    ``--flash-vjp`` or ``--int8-base`` returns the JAX CLI's exit code 2
+    (0 when none applies)."""
+    tp = args.tp
+    if args.cmd == "joint":
+        from unirec_tpu_torch.train.joint import check_joint_layout
+
+        if args.pp > 1:
+            for flag, why in (("flash_vjp", "--flash-vjp (the pp schedule "
+                               "drives layers with additive biases)"),
+                              ("int8_base", "--int8-base (the pp layout "
+                               "stacks layer params; the qweights tree is "
+                               "not stacked)")):
+                if getattr(args, flag):
+                    print(f"error: --pp is incompatible with {why}",
+                          file=sys.stderr)
+                    return 2
+        check_joint_layout(tp, args.flash_vjp, args.int8_base,
+                           pipeline=args.pp > 1)
+    elif args.cmd == "item-qformer":
+        from unirec_tpu_torch.train.item_qformer import check_item_layout
+
+        check_item_layout(tp, args.fused_anchor)
+    elif args.cmd == "user-qformer":
+        from unirec_tpu_torch.train.user_qformer import check_user_layout
+
+        check_user_layout(tp, args.sp, args.flash, args.fused)
+    return 0
+
+
 def _run_parallel(args) -> int:
-    """Run a trainer subcommand on its dp x sp ranks: in this process (one
-    rank, or a rank of ``torchrun``'s world), or on spawned local ranks."""
+    """Run a trainer subcommand on its dp x tp x sp x pp ranks: in this
+    process (one rank, or a rank of ``torchrun``'s world), or on spawned
+    local ranks."""
     import torch
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp above 1 (tensor parallelism) is the next slice of "
-            "ROADMAP.md A9")
-    if getattr(args, "pp", 1) > 1:
-        raise NotImplementedError(
-            "--pp (pipeline parallelism) is the next slice of ROADMAP.md A9")
-    sp = getattr(args, "sp", 1)
-    if sp > 1 and (args.flash or args.fused):
-        raise ValueError(
-            "sequence_parallel is incompatible with flash/fused training "
-            "(the kernels are single-device; the sp combine is a "
-            "collective path)")
+    rc = _refusals(args)
+    if rc:
+        return rc
+    tp, sp, pp = (max(args.tp, 1), getattr(args, "sp", 1),
+                  max(getattr(args, "pp", 1), 1))
+    inner = tp * sp * pp
+    sizes = f"--tp {tp} x --sp {sp} x --pp {pp}"
     if "WORLD_SIZE" in os.environ:  # a rank of torchrun's world
         from unirec_tpu_torch.parallel.mesh import init_distributed
 
         world = int(os.environ["WORLD_SIZE"])
-        dp = world // sp if args.dp < 0 else args.dp
-        if dp * sp != world:
-            raise ValueError(f"--dp {dp} x --sp {sp} != the world's "
-                             f"{world} ranks")
+        dp = world // inner if args.dp < 0 else args.dp
+        if dp * inner != world:
+            raise ValueError(f"--dp {dp} x {sizes} != the world's {world} "
+                             "ranks")
         args.dp = dp
         init_distributed(args.device)
         return _rank_main(int(os.environ["RANK"]), args, None, 0)
     cuda = torch.device(args.device).type == "cuda"
     cards = torch.cuda.device_count() if cuda else 1
-    dp = args.dp if args.dp > 0 else max(cards // sp, 1) if cuda else 1
-    world = dp * sp
+    dp = args.dp if args.dp > 0 else max(cards // inner, 1) if cuda else 1
+    world = dp * inner
     if cuda and world > max(cards, 1):
-        raise ValueError(f"--dp {dp} x --sp {sp} needs {world} cards, "
+        raise ValueError(f"--dp {dp} x {sizes} needs {world} cards, "
                          f"have {cards}")
     args.dp = dp
     if world == 1:  # no card at all: the trainer's device check says so
@@ -630,7 +672,8 @@ def _run_export_pretrained(args) -> int:
     if args.tokenizer:
         from transformers import AutoTokenizer
 
-        tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+        tokenizer = AutoTokenizer.from_pretrained(args.tokenizer,
+                                                  local_files_only=True)
     sd, _ = load_checkpoint(cand)
     save_pretrained_directory(
         args.output, state_dict_to_flax(sd),
@@ -661,10 +704,7 @@ def _run_joint(args) -> int:
     from unirec_tpu_torch.utils.checkpoint import (
         check_grad_accum,
         has_params,
-        has_train_state,
         read_meta,
-        restore_params_and_step,
-        restore_train_state,
         save_train_state,
     )
     from unirec_tpu_torch.utils.device import resolve_device
@@ -716,7 +756,9 @@ def _run_joint(args) -> int:
         optimizer=OptimizerConfig(
             learning_rate=args.learning_rate, warmup_steps=20,
             max_grad_norm=1.0, gradient_accumulation_steps=args.grad_accum),
-        mesh=MeshConfig(dp=args.dp, tp=args.tp))
+        # under --pp the trainer spans the world as dp (its evaluator)
+        mesh=MeshConfig(dp=args.dp * args.pp, tp=args.tp) if args.pp > 1
+        else MeshConfig(dp=args.dp, tp=args.tp))
     bf16_base = args.bf16_base
     if bf16_base is None:
         bf16_base = not args.remat  # the JAX CLI's default
@@ -743,12 +785,11 @@ def _run_joint(args) -> int:
                      args.checkpoint_dir):
             if has_params(cand):
                 check_grad_accum(read_meta(cand), args.grad_accum)
-                if has_train_state(cand):
-                    state, meta = restore_train_state(cand, state)
-                else:
-                    # converted from a pipeline-parallel JAX checkpoint
-                    # (scripts/orbax_to_torch.py): no optimizer state
-                    state, meta = restore_params_and_step(cand, state)
+                # any tp; a pipeline's checkpoint (written here under --pp,
+                # or converted from the JAX package's) has no optimizer
+                # state: parameters and step only
+                state, meta, whole = trainer.restore(cand, state)
+                if not whole:
                     print("restored params + step only (no optimizer state "
                           "in the checkpoint — it restarts)")
                 best_mrr = float(meta.get("mrr", float("-inf")))
@@ -759,12 +800,15 @@ def _run_joint(args) -> int:
             print(f"error: --resume but no checkpoint under "
                   f"{args.checkpoint_dir}", file=sys.stderr)
             return 2
+    if args.pp > 1:
+        return _run_joint_pp(args, trainer, state, train_ds, val_ds, jc,
+                             best_mrr)
 
     tracker = BestMetricTracker(
         args.checkpoint_dir, metric="mrr", strategy=args.save_strategy,
         eval_steps=args.eval_every_steps,
         save_fn=lambda path, st: save_train_state(
-            path, st, config=jc,
+            path, trainer.checkpoint_state(st), config=jc,
             extra={"mrr": tracker.best, "grad_accum": args.grad_accum,
                    **_joint_cfg_meta(qwen_cfg, qf_cfg)}))
     if best_mrr > tracker.best:
@@ -793,6 +837,67 @@ def _run_joint(args) -> int:
     print(f"final eval: {json.dumps(final)}; best MRR: {tracker.best:.4f}")
     if ml:
         ml.log(final, step=state.step)
+        ml.close()
+    return 0
+
+
+def _run_joint_pp(args, trainer, state, train_ds, val_ds, jc,
+                  best_mrr) -> int:
+    """GPipe-staged joint training (``train joint --pp N``): the dp path's
+    datasets, tracker and checkpoint schema, the decoder streaming through
+    the stages (``train/joint.PipelinedJointTrainer``).  A ``--resume``
+    carries parameters and step into the pp layout; the optimizer restarts
+    (the JAX CLI's ``_run_joint_pp``)."""
+    import numpy as np
+
+    from unirec_tpu_torch.train.callbacks import BestMetricTracker
+    from unirec_tpu_torch.train.joint import PipelinedJointTrainer
+    from unirec_tpu_torch.utils.checkpoint import save_pipeline_state
+
+    ptrainer = PipelinedJointTrainer(trainer, pp=args.pp,
+                                     num_microbatches=args.pp_microbatches)
+    if state.step > 0:
+        print("note: --resume under --pp restores params and the step "
+              "counter; the optimizer state restarts (layout change)")
+    pstate = ptrainer.init_trainable(state)
+    del state
+
+    def save_fn(path, st):
+        save_pipeline_state(
+            path, ptrainer.merged_params(st, to_host=True),
+            # the hook already passes global steps to tracker.update
+            tracker.last_eval_step, config=jc,
+            extra={"mrr": tracker.best, "grad_accum": args.grad_accum,
+                   **_joint_cfg_meta(trainer.qwen_config,
+                                     trainer.qformer_config)})
+
+    tracker = BestMetricTracker(
+        args.checkpoint_dir, metric="mrr", strategy=args.save_strategy,
+        eval_steps=args.eval_every_steps, save_fn=save_fn)
+    if best_mrr > tracker.best:
+        tracker.best = best_mrr
+    ml = _metrics_logger(args)
+    print("initial eval:", json.dumps(ptrainer.evaluate(pstate, val_ds)))
+
+    def hook(step, st, metrics):
+        if tracker.should_eval(step):
+            ev = ptrainer.evaluate(st, val_ds)
+            status = tracker.update(step, ev["mrr"], st)
+            print(f"step {step}: loss={metrics['loss']:.4f} "
+                  f"eval={json.dumps(ev)} {status}")
+            if ml:
+                ml.log({"loss": metrics["loss"], **ev}, step=step)
+        return st
+
+    rng = np.random.default_rng(args.seed)
+    steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
+    pstate, _ = ptrainer.train_steps(
+        pstate, train_ds, rng, num_steps=args.num_epochs * steps_per_epoch,
+        step_hook=hook)
+    final = ptrainer.evaluate(pstate, val_ds)
+    print(f"final eval: {json.dumps(final)}; best MRR: {tracker.best:.4f}")
+    if ml:
+        ml.log(final)
         ml.close()
     return 0
 

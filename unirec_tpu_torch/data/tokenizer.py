@@ -93,7 +93,8 @@ class HFTokenizer(BaseTokenizer):
                  num_query_tokens_per_item: int = 2):
         from transformers import AutoTokenizer
 
-        self.tok = AutoTokenizer.from_pretrained(name_or_path)
+        self.tok = AutoTokenizer.from_pretrained(name_or_path,
+                                                 local_files_only=True)
         base_vocab = len(self.tok)
         super().__init__(base_vocab, num_history_items,
                          num_query_tokens_per_item,

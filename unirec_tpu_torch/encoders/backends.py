@@ -174,7 +174,7 @@ class Qwen3TextBackend(TextBackend):
 
         from unirec_tpu_torch.utils.weights import qwen3_state_dict_from_hf
 
-        hf_cfg = AutoConfig.from_pretrained(path)
+        hf_cfg = AutoConfig.from_pretrained(path, local_files_only=True)
         cfg = Qwen3Config(
             vocab_size=hf_cfg.vocab_size,
             hidden_size=hf_cfg.hidden_size,
@@ -185,7 +185,8 @@ class Qwen3TextBackend(TextBackend):
             head_dim=getattr(hf_cfg, "head_dim", 128),
             rope_theta=hf_cfg.rope_theta,
         )
-        tok = _RightPadded(AutoTokenizer.from_pretrained(path))
+        tok = _RightPadded(AutoTokenizer.from_pretrained(
+            path, local_files_only=True))
         return cls(cfg, qwen3_state_dict_from_hf(path, cfg), tok, **kw)
 
     @torch.inference_mode()
@@ -258,7 +259,8 @@ class CLIPImageBackend(ImageBackend):
         )
         from unirec_tpu_torch.utils.weights import clip_state_dict_from_flax
 
-        hf = CLIPModel.from_pretrained(path, torch_dtype=torch.float32)
+        hf = CLIPModel.from_pretrained(path, torch_dtype=torch.float32,
+                                        local_files_only=True)
         cfg = vision_config_from_hf(hf.config)
         sd = clip_state_dict_from_flax(convert_clip_vision(hf.state_dict(),
                                                            cfg))
@@ -367,10 +369,12 @@ class CLIPTextBackend(TextBackend):
         )
         from unirec_tpu_torch.utils.weights import clip_state_dict_from_flax
 
-        hf = CLIPModel.from_pretrained(path, torch_dtype=torch.float32)
+        hf = CLIPModel.from_pretrained(path, torch_dtype=torch.float32,
+                                        local_files_only=True)
         cfg = text_config_from_hf(hf.config)
         sd = clip_state_dict_from_flax(convert_clip_text(hf.state_dict(), cfg))
-        return cls(cfg, sd, CLIPTokenizerFast.from_pretrained(path), **kw)
+        return cls(cfg, sd, CLIPTokenizerFast.from_pretrained(
+            path, local_files_only=True), **kw)
 
     @torch.inference_mode()
     def forward(self, ids: np.ndarray, masks: np.ndarray) -> np.ndarray:

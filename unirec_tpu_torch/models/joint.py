@@ -9,7 +9,10 @@ pooled.  ``model.train()`` puts both submodules in training mode; a training
 forward takes a ``DropoutStream`` (``dropout=``), which each submodule
 extends with its own name, so the Q-Former's and the decoder's masks are
 independent.  ``remat`` / ``remat_policy`` go to the decoder, and
-``param_dtype`` to both (see ``models/qwen3.py``).
+``param_dtype`` to both (see ``models/qwen3.py``), and ``tp`` shards the
+decoder's layers (the Q-Former and the embeddings stay whole).
+``inject_query_tokens`` and ``pool`` are the forward's two steps around the
+decoder, which the pipeline's stages run too (``parallel/pipeline.py``).
 ``history_token_strings`` and ``construct_input_text`` are
 framework-free copies of the JAX module's functions (that module imports JAX,
 and ``unirec_tpu`` is the reference the port is held against, so it is not
@@ -32,6 +35,7 @@ from unirec_tpu_torch.configs import (
 from unirec_tpu_torch.models.item_qformer import ItemQFormer
 from unirec_tpu_torch.models.qwen3 import Qwen3Model, last_token_pool, mean_pool
 from unirec_tpu_torch.ops.dropout import DropoutStream, at
+from unirec_tpu_torch.parallel.tensor import TensorParallel
 
 
 def history_token_strings(num_items: int, tokens_per_item: int) -> List[str]:
@@ -52,7 +56,8 @@ class MultiModalQwenEmbedding(nn.Module):
                  lora: Optional[LoRAConfig] = None, *, device=None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False, remat_policy: Optional[str] = None):
+                 remat: bool = False, remat_policy: Optional[str] = None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         if qformer_config.hidden_size != qwen_config.hidden_size:
             raise ValueError(
@@ -71,7 +76,7 @@ class MultiModalQwenEmbedding(nn.Module):
                                      n_extra_tokens=self.num_special_tokens,
                                      device=device, dtype=dtype,
                                      param_dtype=param_dtype, remat=remat,
-                                     remat_policy=remat_policy)
+                                     remat_policy=remat_policy, tp=tp)
         self.qformer = ItemQFormer(qformer_config, device=device, dtype=dtype,
                                    param_dtype=param_dtype)
 
@@ -86,7 +91,8 @@ class MultiModalQwenEmbedding(nn.Module):
                   joint_config=self.joint_config, lora=self.lora,
                   param_dtype=self.param_dtype,
                   remat=self.base_model.remat,
-                  remat_policy=self.base_model.remat_policy)
+                  remat_policy=self.base_model.remat_policy,
+                  tp=self.base_model.tp)
         kw.update(changes)
         new = MultiModalQwenEmbedding(**kw, device="meta", dtype=self.dtype)
         new.load_state_dict(
@@ -110,40 +116,58 @@ class MultiModalQwenEmbedding(nn.Module):
                 dropout: Optional[DropoutStream] = None) -> torch.Tensor:
         """ids/mask [B, L], history [B, H, F, FD] / [B, H, F] -> [B, D];
         ``dropout``: a training forward's stream."""
-        jc = self.joint_config
-        n_special = self.num_special_tokens
-        text_embeds = self.base_model.embed(input_ids)
-        b, l, d = text_embeds.shape
-
-        if history_field_embeddings is not None:
-            if history_attention_mask is None:
-                raise ValueError("history_attention_mask required with history")
-            bh, num_hist, num_fields, field_dim = history_field_embeddings.shape
-            q_out = self.qformer.query_outputs(
-                history_field_embeddings.reshape(bh * num_hist, num_fields,
-                                                 field_dim),
-                history_attention_mask.reshape(bh * num_hist, num_fields),
-                dropout=at(dropout, "qformer"),
-            )
-            k_per_item = jc.num_query_tokens_per_item
-            tokens = q_out[:, :k_per_item, :].reshape(
-                bh, num_hist * k_per_item, -1)  # [B, n_special, D]
-            offset = input_ids.long() - self.first_special_id
-            valid = (offset >= 0) & (offset < n_special)
-            safe = offset.clamp(0, n_special - 1)
-            gathered = torch.gather(tokens.to(text_embeds.dtype), 1,
-                                    safe[..., None].expand(b, l, d))
-            text_embeds = torch.where(valid[..., None], gathered, text_embeds)
-
+        text_embeds = inject_query_tokens(
+            self.qformer, self.joint_config, self.first_special_id,
+            self.base_model.embed(input_ids), input_ids,
+            history_field_embeddings, history_attention_mask,
+            at(dropout, "qformer"))
         hidden = self.base_model(
             inputs_embeds=text_embeds, attention_mask=attention_mask,
             dropout=at(dropout, "base_model"))
-        if jc.pool == "mean":
-            # mean over ALL positions, padding included (the reference)
-            return mean_pool(hidden)
-        if jc.pool == "masked_mean":
-            return mean_pool(hidden, attention_mask, masked=True)
-        return last_token_pool(hidden, attention_mask)
+        return pool(hidden, attention_mask, self.joint_config.pool)
+
+
+def inject_query_tokens(qformer: ItemQFormer, jc: JointModelConfig,
+                        first_special_id: int, text_embeds: torch.Tensor,
+                        input_ids: torch.Tensor,
+                        history_field_embeddings: Optional[torch.Tensor],
+                        history_attention_mask: Optional[torch.Tensor],
+                        dropout: Optional[DropoutStream]) -> torch.Tensor:
+    """The Q-Former over the history fields, and the first
+    ``num_query_tokens_per_item`` query tokens of each item written over the
+    reserved special tokens' rows of ``text_embeds`` (one vectorised
+    gather/where); ``text_embeds`` as it is without a history."""
+    if history_field_embeddings is None:
+        return text_embeds
+    if history_attention_mask is None:
+        raise ValueError("history_attention_mask required with history")
+    n_special = jc.num_history_items * jc.num_query_tokens_per_item
+    b, l, d = text_embeds.shape
+    bh, num_hist, num_fields, field_dim = history_field_embeddings.shape
+    q_out = qformer.query_outputs(
+        history_field_embeddings.reshape(bh * num_hist, num_fields, field_dim),
+        history_attention_mask.reshape(bh * num_hist, num_fields),
+        dropout=dropout)
+    k_per_item = jc.num_query_tokens_per_item
+    tokens = q_out[:, :k_per_item, :].reshape(
+        bh, num_hist * k_per_item, -1)  # [B, n_special, D]
+    offset = input_ids.long() - first_special_id
+    valid = (offset >= 0) & (offset < n_special)
+    safe = offset.clamp(0, n_special - 1)
+    gathered = torch.gather(tokens.to(text_embeds.dtype), 1,
+                            safe[..., None].expand(b, l, d))
+    return torch.where(valid[..., None], gathered, text_embeds)
+
+
+def pool(hidden: torch.Tensor, attention_mask: Optional[torch.Tensor],
+         how: str) -> torch.Tensor:
+    """The joint model's pooling: "mean" over ALL positions, padding
+    included (the reference), "masked_mean" or "last_token"."""
+    if how == "mean":
+        return mean_pool(hidden)
+    if how == "masked_mean":
+        return mean_pool(hidden, attention_mask, masked=True)
+    return last_token_pool(hidden, attention_mask)
 
 
 def construct_input_text(history_ids, item_dict: Dict[str, dict],

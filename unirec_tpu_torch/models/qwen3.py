@@ -34,6 +34,16 @@ use, Flax's mixed precision: the trainer keeps float32 masters of what it
 trains and computes in bfloat16.  ``lora_a [in, r]`` and ``lora_b [r, out]``
 keep the Flax layout.
 
+Tensor parallelism (``tp``, a ``parallel/tensor.TensorParallel`` of more
+than one rank): each rank holds ``Hq/tp`` query heads, ``Hkv/tp`` KV heads
+and ``I/tp`` of the MLP's intermediate features.  q/k/v and gate/up are
+column layers, o and down row layers, and the LoRA overlays are placed as
+``parallel/tensor.py`` sets out; a replicated activation enters q/k/v (and
+gate/up) through one ``copy_to_tp``.  q_norm and k_norm act per head, RoPE
+is unchanged, and the deterministic forward runs K1 on the local heads.  A
+tp that does not divide ``Hkv`` and ``I`` is refused.  The int8 weights do
+not take tp (the joint trainer refuses ``int8_base`` with it).
+
 The int8 (W8A8) forward: ``quantize_qwen3_weights`` quantizes the seven
 projections per output column, and ``set_qweights`` attaches the codes and
 scales to the ``LoRADense`` modules as non-persistent buffers (``weight_q``,
@@ -79,6 +89,12 @@ from unirec_tpu_torch.ops.fused_qwen3_int8 import (
     swiglu_mlp_int8,
 )
 from unirec_tpu_torch.ops.int8_ste import int8_linear_ste
+from unirec_tpu_torch.parallel.tensor import (
+    TensorParallel,
+    copy_to_tp,
+    local_size,
+    reduce_from_tp,
+)
 
 
 class RMSNorm(nn.Module):
@@ -128,15 +144,27 @@ class LoRADense(nn.Module):
     ``weight_q`` / ``weight_scale`` set (``set_qweights``) the base
     projection is the int8 one.  ``drop`` (a training forward's stream)
     applies LoRA dropout to the adapter's input, unless ``lora_mid`` was
-    given (the group drew it)."""
+    given (the group drew it).
+
+    ``tp_mode`` "col" or "row" (with ``tp``): a column layer holds its
+    rank's output features (and bias and ``lora_b`` columns), a row layer
+    its input features (and ``lora_a`` rows); ``in_features`` and
+    ``features`` are the local sizes.  A row layer's LoRA dropout takes its
+    columns of the whole input's mask, and it reduces its partial products
+    (the base one and ``x_loc @ A_loc``) in the compute dtype, as GSPMD's
+    partial sums are."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = False,
                  lora: Optional[LoRAConfig] = None, lora_enabled: bool = False,
                  *, device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 tp: Optional[TensorParallel] = None,
+                 tp_mode: Optional[str] = None):
         super().__init__()
         pkw = dict(device=device, dtype=param_dtype or dtype)
         self.dtype = dtype
+        self.tp = tp
+        self.tp_mode = tp_mode if tp is not None else None
         self.weight = nn.Parameter(torch.empty(features, in_features, **pkw))
         self.bias = (nn.Parameter(torch.zeros(features, **pkw))
                      if use_bias else None)
@@ -154,8 +182,20 @@ class LoRADense(nn.Module):
                 y_base: Optional[torch.Tensor] = None,
                 drop: Optional[DropoutStream] = None) -> torch.Tensor:
         dtype = self.dtype
+        row = self.tp_mode == "row"
         if y_base is None and self.weight_q is None:
-            y = F.linear(x, self.weight.to(dtype), _cast(self.bias, dtype))
+            if row:  # the partial products summed; the bias added once
+                y = reduce_from_tp(F.linear(x, self.weight.to(dtype)),
+                                   self.tp)
+                if self.bias is not None:
+                    y = y + self.bias.to(dtype)
+            else:
+                if self.tp_mode == "col":
+                    x_in = copy_to_tp(x, self.tp)
+                else:
+                    x_in = x
+                y = F.linear(x_in, self.weight.to(dtype),
+                             _cast(self.bias, dtype))
         else:
             if y_base is not None:
                 y = y_base
@@ -167,7 +207,16 @@ class LoRADense(nn.Module):
         if self.lora_a is not None:
             mid = lora_mid
             if mid is None:
-                mid = dropout(x, self.lora_dropout, drop) @ self.lora_a.to(dtype)
+                if row:
+                    mid = dropout(x, self.lora_dropout, drop,
+                                  (self.tp.size, self.tp.index))
+                    mid = reduce_from_tp(mid @ self.lora_a.to(dtype),
+                                         self.tp)
+                else:
+                    mid = (dropout(x, self.lora_dropout, drop)
+                           @ self.lora_a.to(dtype))
+                if self.tp_mode == "col":
+                    mid = copy_to_tp(mid, self.tp)
             y = y + (mid @ self.lora_b.to(dtype)) * self.scaling
         return y
 
@@ -181,39 +230,80 @@ def _lora_on(lora: Optional[LoRAConfig], name: str) -> bool:
 
 
 def _grouped_mids(lora: Optional[LoRAConfig], x: torch.Tensor, mods,
-                  drop: Optional[DropoutStream] = None
+                  drop: Optional[DropoutStream] = None,
+                  tp: Optional[TensorParallel] = None
                   ) -> Tuple[Optional[torch.Tensor], ...]:
     """Grouped overlay: one dropout draw and one [D, n*r] lora_a matmul for
-    modules sharing x."""
+    modules sharing x.  Under tp the modules are column layers, whose
+    ``lora_a`` is replicated: the concatenated mid takes one
+    ``copy_to_tp``."""
     if (lora is None or not lora.grouped
             or any(m.lora_a is None for m in mods)):
         return (None,) * len(mods)
     dtype = mods[0].dtype
     a_cat = torch.cat([m.lora_a.to(dtype) for m in mods], dim=1)
-    mid = dropout(x, lora.dropout, drop) @ a_cat
+    mid = copy_to_tp(dropout(x, lora.dropout, drop) @ a_cat, tp)
     return tuple(mid.split(lora.r, dim=-1))
 
 
+def _tensor_parallel(config: Qwen3Config,
+                     tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
+    """``tp`` when it spans more than one rank (None otherwise), after the
+    divisibility the shards need."""
+    if tp is None or tp.size == 1:
+        return None
+    if (config.num_key_value_heads % tp.size
+            or config.intermediate_size % tp.size):
+        raise ValueError(
+            f"tp={tp.size} must divide num_key_value_heads="
+            f"{config.num_key_value_heads} and intermediate_size="
+            f"{config.intermediate_size}: each rank holds whole KV heads "
+            "and an equal share of the MLP")
+    return tp
+
+
+def _base_products(x: torch.Tensor, mods,
+                   tp: TensorParallel) -> Tuple[torch.Tensor, ...]:
+    """Column layers sharing x under tp: one ``copy_to_tp`` of x, then each
+    module's local base product (its ``y_base``)."""
+    x_in = copy_to_tp(x, tp)
+    return tuple(F.linear(x_in, m.weight.to(m.dtype)) for m in mods)
+
+
 class Qwen3Attention(nn.Module):
+    """``tp``: this rank's query and KV heads only (see the module
+    docstring)."""
+
     def __init__(self, config: Qwen3Config, lora: Optional[LoRAConfig] = None,
                  *, device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         c = config
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.tp = tp = _tensor_parallel(c, tp)
+        n = tp.size if tp is not None else 1
+        self.num_heads = local_size(c.num_attention_heads, n,
+                                    "num_attention_heads")
+        self.num_kv_heads = local_size(c.num_key_value_heads, n,
+                                       "num_key_value_heads")
+        self.q_size = self.num_heads * c.head_dim
+        self.kv_size = self.num_kv_heads * c.head_dim
 
         def dense(name, n_in, n_out):
             return LoRADense(n_in, n_out, use_bias=c.attention_bias, lora=lora,
-                             lora_enabled=_lora_on(lora, name), **kw)
+                             lora_enabled=_lora_on(lora, name), tp=tp,
+                             tp_mode="col", **kw)
 
         self.config, self.lora = config, lora
-        self.q_proj = dense("q_proj", c.hidden_size, c.q_size)
-        self.k_proj = dense("k_proj", c.hidden_size, c.kv_size)
-        self.v_proj = dense("v_proj", c.hidden_size, c.kv_size)
+        self.q_proj = dense("q_proj", c.hidden_size, self.q_size)
+        self.k_proj = dense("k_proj", c.hidden_size, self.kv_size)
+        self.v_proj = dense("v_proj", c.hidden_size, self.kv_size)
         self.q_norm = RMSNorm(c.head_dim, c.rms_norm_eps, **kw)
         self.k_norm = RMSNorm(c.head_dim, c.rms_norm_eps, **kw)
-        self.o_proj = LoRADense(c.q_size, c.hidden_size, lora=lora,
-                                lora_enabled=_lora_on(lora, "o_proj"), **kw)
+        self.o_proj = LoRADense(self.q_size, c.hidden_size, lora=lora,
+                                lora_enabled=_lora_on(lora, "o_proj"), tp=tp,
+                                tp_mode="row", **kw)
         # int8 [Wq | Wk | Wv] rows and scales (set_qweights); the three
         # modules' weight_q / weight_scale are views into them
         self.register_buffer("qkv_q", None, persistent=False)
@@ -222,11 +312,18 @@ class Qwen3Attention(nn.Module):
     def projections(self, hidden: torch.Tensor,
                     drop: Optional[DropoutStream] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """q [B, L, Hq*hd], k and v [B, L, Hkv*hd] before norm and RoPE."""
+        """q [B, L, Hq*hd], k and v [B, L, Hkv*hd] before norm and RoPE
+        (this rank's heads under tp)."""
         c = self.config
         b, l, d = hidden.shape
         rows, mods = b * l, (self.q_proj, self.k_proj, self.v_proj)
         names = ("q_proj", "k_proj", "v_proj")
+        if self.tp is not None:
+            mids = _grouped_mids(self.lora, hidden, mods, _at(drop, "qkv"),
+                                 self.tp)
+            bases = _base_products(hidden, mods, self.tp)
+            return tuple(m(hidden, mid, y_base=y, drop=_at(drop, n))
+                         for m, mid, y, n in zip(mods, mids, bases, names))
         fused = self.qkv_q is not None and supports_fused_qwen3(rows, d)
         dtype = self.q_proj.dtype
         if (fused and c.fused_int8_inference and self.lora is None
@@ -256,10 +353,10 @@ class Qwen3Attention(nn.Module):
         c = self.config
         b, l, _ = hidden.shape
         q, k, v = self.projections(hidden, drop)
-        q = q.reshape(b, l, c.num_attention_heads, c.head_dim)
-        k = k.reshape(b, l, c.num_key_value_heads, c.head_dim)
-        q = apply_rope(self.q_norm(q), cos, sin).reshape(b, l, c.q_size)
-        k = apply_rope(self.k_norm(k), cos, sin).reshape(b, l, c.kv_size)
+        q = q.reshape(b, l, self.num_heads, c.head_dim)
+        k = k.reshape(b, l, self.num_kv_heads, c.head_dim)
+        q = apply_rope(self.q_norm(q), cos, sin).reshape(b, l, self.q_size)
+        k = apply_rope(self.k_norm(k), cos, sin).reshape(b, l, self.kv_size)
         return q, k, v.contiguous()
 
     def forward(self, hidden: torch.Tensor, cos: torch.Tensor,
@@ -267,7 +364,7 @@ class Qwen3Attention(nn.Module):
                 drop: Optional[DropoutStream] = None) -> torch.Tensor:
         """``pad_mask`` has passed ``check_pad_mask`` (``Qwen3Model``)."""
         c = self.config
-        heads = (c.num_attention_heads, c.num_key_value_heads)
+        heads = (self.num_heads, self.num_kv_heads)
         q, k, v = self.qkv(hidden, cos, sin, drop)
         if not self.training:
             ctx = flash_causal_attention(q, k, v, pad_mask, *heads,
@@ -281,23 +378,28 @@ class Qwen3Attention(nn.Module):
 
 
 class Qwen3MLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)); under ``tp`` this rank's share
+    of the intermediate features."""
 
     def __init__(self, config: Qwen3Config, lora: Optional[LoRAConfig] = None,
                  *, device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
-        d, i = config.hidden_size, config.intermediate_size
-        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.tp = tp = _tensor_parallel(config, tp)
+        d = config.hidden_size
+        i = config.intermediate_size // (tp.size if tp else 1)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype, tp=tp)
         self.config, self.lora = config, lora
         self.gate_proj = LoRADense(d, i, lora=lora,
                                    lora_enabled=_lora_on(lora, "gate_proj"),
-                                   **kw)
+                                   tp_mode="col", **kw)
         self.up_proj = LoRADense(d, i, lora=lora,
-                                 lora_enabled=_lora_on(lora, "up_proj"), **kw)
+                                 lora_enabled=_lora_on(lora, "up_proj"),
+                                 tp_mode="col", **kw)
         self.down_proj = LoRADense(i, d, lora=lora,
                                    lora_enabled=_lora_on(lora, "down_proj"),
-                                   **kw)
+                                   tp_mode="row", **kw)
         # int8 [Wgate | Wup] rows and scales (set_qweights), as Qwen3Attention
         self.register_buffer("gate_up_q", None, persistent=False)
         self.register_buffer("gate_up_scale", None, persistent=False)
@@ -307,6 +409,17 @@ class Qwen3MLP(nn.Module):
         c = self.config
         b, l, d = x.shape
         rows, inter = b * l, c.intermediate_size
+        if self.tp is not None:
+            mods = (self.gate_proj, self.up_proj)
+            g_mid, u_mid = _grouped_mids(self.lora, x, mods,
+                                         _at(drop, "gate_up"), self.tp)
+            g_base, u_base = _base_products(x, mods, self.tp)
+            gate = self.gate_proj(x, g_mid, y_base=g_base,
+                                  drop=_at(drop, "gate_proj"))
+            up = self.up_proj(x, u_mid, y_base=u_base,
+                              drop=_at(drop, "up_proj"))
+            return self.down_proj(F.silu(gate) * up,
+                                  drop=_at(drop, "down_proj"))
         fused = (self.gate_up_q is not None
                  and supports_fused_qwen3(rows, d, inter))
         dtype = self.gate_proj.dtype
@@ -340,15 +453,16 @@ class Qwen3MLP(nn.Module):
 class Qwen3Layer(nn.Module):
     def __init__(self, config: Qwen3Config, lora: Optional[LoRAConfig] = None,
                  *, device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                                        **kw)
-        self.self_attn = Qwen3Attention(config, lora, **kw)
+        self.self_attn = Qwen3Attention(config, lora, tp=tp, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **kw)
-        self.mlp = Qwen3MLP(config, lora, **kw)
+        self.mlp = Qwen3MLP(config, lora, tp=tp, **kw)
 
     def forward(self, hidden, cos, sin, pad_mask,
                 drop: Optional[DropoutStream] = None):
@@ -372,13 +486,15 @@ class Qwen3Model(nn.Module):
     ``n_extra_tokens`` rows (``extra_embed_tokens``) follow the base
     vocabulary: id ``vocab_size + i`` reads extra row i.  ``remat`` and
     ``remat_policy`` ("dots" or None) rematerialise each layer in a training
-    backward, as the JAX module's ``nn.remat``."""
+    backward, as the JAX module's ``nn.remat``.  ``tp`` shards every layer
+    (the embeddings and the final norm stay whole)."""
 
     def __init__(self, config: Qwen3Config, lora: Optional[LoRAConfig] = None,
                  n_extra_tokens: int = 0, *, device=None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False, remat_policy: Optional[str] = None):
+                 remat: bool = False, remat_policy: Optional[str] = None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         if remat_policy not in (None, "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
@@ -393,8 +509,9 @@ class Qwen3Model(nn.Module):
             nn.Parameter(torch.empty(n_extra_tokens, config.hidden_size,
                                      **pkw))
             if n_extra_tokens > 0 else None)
+        self.tp = _tensor_parallel(config, tp)
         self.layers = nn.ModuleList(
-            Qwen3Layer(config, lora, **kw)
+            Qwen3Layer(config, lora, tp=self.tp, **kw)
             for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 

@@ -13,7 +13,10 @@ the default generator's state, never an explicit one.
 The bits differ from JAX's (another generator), so training parity is held
 with dropout off, as the JAX package holds its own against the reference.
 Flax's semantics are kept: keep with probability ``1 - rate``, scale the
-kept values by ``1 / (1 - rate)``.
+kept values by ``1 / (1 - rate)``.  A tensor split over tp along its last
+dim (a row-parallel layer's input, ``parallel/tensor.py``) takes its own
+columns of the whole tensor's mask (``shard``), so the tp ranks together
+draw the one-rank masks.
 """
 
 from __future__ import annotations
@@ -41,20 +44,27 @@ class DropoutStream:
         gen.manual_seed(int.from_bytes(digest.digest(), "little") >> 1)
         return gen
 
-    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
-        """Keep each value with probability ``1 - rate``, scaled."""
+    def dropout(self, x: torch.Tensor, rate: float,
+                shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """Keep each value with probability ``1 - rate``, scaled.  ``shard``
+        ``(n, i)``: x is block i of n along its last dim, and takes that
+        block of the whole tensor's mask."""
         if rate <= 0.0:
             return x
-        u = torch.rand(x.shape, generator=self.generator(x.device),
-                       device=x.device)
+        n, i = shard or (1, 0)
+        width = x.shape[-1]
+        u = torch.rand(x.shape[:-1] + (width * n,),
+                       generator=self.generator(x.device), device=x.device)
+        if n > 1:
+            u = u[..., i * width:(i + 1) * width]
         return torch.where(u >= rate, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            stream: Optional[DropoutStream]) -> torch.Tensor:
-    """``stream.dropout(x, rate)``; identity without a stream (a
+def dropout(x: torch.Tensor, rate: float, stream: Optional[DropoutStream],
+            shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``stream.dropout(x, rate, shard)``; identity without a stream (a
     deterministic forward)."""
-    return x if stream is None else stream.dropout(x, rate)
+    return x if stream is None else stream.dropout(x, rate, shard)
 
 
 def at(stream: Optional[DropoutStream], *keys) -> Optional[DropoutStream]:

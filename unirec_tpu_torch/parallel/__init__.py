@@ -1,2 +1,3 @@
-"""Data and sequence parallelism over torch.distributed (port of
-``unirec_tpu/parallel``): ``mesh.py``."""
+"""Data, sequence, tensor and pipeline parallelism over torch.distributed
+(port of ``unirec_tpu/parallel``): ``mesh.py``, ``tensor.py`` and
+``pipeline.py``."""

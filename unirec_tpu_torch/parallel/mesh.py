@@ -10,18 +10,24 @@ The JAX package runs one controller over a ``jax.sharding.Mesh`` with axes
 * training is one process a rank.  The ranks of a ``torch.distributed``
   world are laid out as ``arange(world).reshape(dp, tp, sp)``, JAX's device
   order (sp the fastest axis).  ``DistMesh`` holds this rank's place and
-  the groups of its axes: the dp group (the ranks with its tp and sp index)
-  and the sp group (the ranks with its dp and tp index).  Gradients are
-  summed over the world in a few flat buckets (``all_reduce_sum``) and
-  divided by dp: with each sp rank's loss scaled by 1/sp that is the dp
-  mean of the sp sum (``ops/sharded_attention.py``).
+  the groups of its axes: the dp group (the ranks with its tp and sp
+  index), the tp group (the ranks with its dp and sp index) and the sp
+  group (the ranks with its dp and tp index).  Gradients are summed over
+  the ranks with this rank's tp index (the world when tp = 1) in a few flat
+  buckets (``all_reduce_sum``) and divided by dp: with each sp rank's loss
+  scaled by 1/sp that is the dp mean of the sp sum
+  (``ops/sharded_attention.py``).  The tp ranks of one dp index hold
+  shards of the Qwen3 base (``parallel/tensor.py``) or, in the item and
+  user trainers, replicas that compute one step;
+* the pipeline's ranks are laid out ``arange(world).reshape(dp, pp)``, pp
+  the fastest axis (JAX's ``make_pp_mesh``): ``PipeMesh`` holds this
+  rank's stage, its neighbours and the pp and dp groups
+  (``parallel/pipeline.py``).
 
 ``init_distributed`` is the counterpart of ``initialize_multihost``: it
 reads ``torchrun``'s environment or takes the address, world size and rank
 itself, with NCCL on the card and gloo on the CPU (gloo on the card only
 when the caller names it).  Every group it makes has an explicit timeout.
-Tensor parallelism and pipelines are the next slice (ROADMAP.md A9): the
-trainers refuse ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -208,26 +214,49 @@ def writer_first():
 
 @dataclasses.dataclass
 class DistMesh:
-    """This rank's place in a (dp, tp, sp) world and its axes' groups."""
+    """This rank's place in a (dp, tp, sp) world and its axes' groups.
+    ``grad_group`` holds the ranks with this rank's tp index, over which
+    gradients are reduced (None: the world, when tp = 1), and
+    ``grad_src`` its first rank."""
 
     mesh: Mesh  # of ranks
     dp_index: int
     sp_index: int
     dp_group: Any
     sp_group: Any
+    tp_index: int = 0
+    tp_group: Any = None
+    grad_group: Any = None
+    grad_src: int = 0
 
     @property
     def dp_size(self) -> int:
         return self.mesh.shape[DP_AXIS]
 
     @property
+    def tp_size(self) -> int:
+        return self.mesh.shape[TP_AXIS]
+
+    @property
     def sp_size(self) -> int:
         return self.mesh.shape[SP_AXIS]
 
 
-_GROUPS: Dict[Tuple, DistMesh] = {}
+_GROUPS: Dict[Tuple, Any] = {}
 # the world's timeout, which the axes' groups take too
 _TIMEOUT = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+
+
+def _new_groups(lists: Iterable[Sequence[int]], rank: int):
+    """One group per list of ranks (every rank makes every group, in one
+    order); returns the group holding ``rank``, or None."""
+    mine = None
+    for members in lists:
+        members = [int(r) for r in members]
+        g = dist.new_group(members, timeout=_TIMEOUT)
+        if rank in members:
+            mine = g
+    return mine
 
 
 def dist_mesh(config: MeshConfig) -> Optional[DistMesh]:
@@ -242,7 +271,7 @@ def dist_mesh(config: MeshConfig) -> Optional[DistMesh]:
             raise ValueError(
                 f"mesh dp={dp} x tp={tp} x sp={sp} needs a torch.distributed "
                 f"world of {dp * tp * sp} ranks (parallel.init_distributed, "
-                "torchrun, or the training CLI's --dp / --sp)")
+                "torchrun, or the training CLI's --dp / --tp / --sp)")
         return None
     world = dist.get_world_size()
     mesh = make_mesh(config, list(range(world)))
@@ -253,22 +282,86 @@ def dist_mesh(config: MeshConfig) -> Optional[DistMesh]:
     if key not in _GROUPS:
         ranks = mesh.devices.astype(np.int64)
         rank = dist.get_rank()
-        mine = {}
         dp, tp, sp = ranks.shape
-        for t in range(tp):
-            for s in range(sp):
-                members = [int(r) for r in ranks[:, t, s]]
-                g = dist.new_group(members, timeout=_TIMEOUT)
-                if rank in members:
-                    mine["dp"] = g
-        for d in range(dp):
-            for t in range(tp):
-                members = [int(r) for r in ranks[d, t, :]]
-                g = dist.new_group(members, timeout=_TIMEOUT)
-                if rank in members:
-                    mine["sp"] = g
-        d, _, s = (int(i[0]) for i in np.nonzero(ranks == rank))
-        _GROUPS[key] = DistMesh(mesh, d, s, mine["dp"], mine["sp"])
+        dp_group = _new_groups((ranks[:, t, s] for t in range(tp)
+                                for s in range(sp)), rank)
+        sp_group = _new_groups((ranks[d, t, :] for d in range(dp)
+                                for t in range(tp)), rank)
+        d, t, s = (int(i[0]) for i in np.nonzero(ranks == rank))
+        tp_group = grad_group = None
+        grad_src = 0
+        if tp > 1:
+            tp_group = _new_groups((ranks[d_, :, s_] for d_ in range(dp)
+                                    for s_ in range(sp)), rank)
+            grad_group = _new_groups((ranks[:, t_, :].reshape(-1)
+                                      for t_ in range(tp)), rank)
+            grad_src = int(ranks[0, t, 0])
+        _GROUPS[key] = DistMesh(mesh, d, s, dp_group, sp_group, t, tp_group,
+                                grad_group, grad_src)
+    return _GROUPS[key]
+
+
+@dataclasses.dataclass
+class PipeMesh:
+    """This rank's place in a ``(dp, pp)`` world (pp the fastest axis, as
+    JAX's ``make_pp_mesh``): its stage and dp index, the ranks of the
+    previous and next stage (None at the ends), the pp group (the ranks
+    with its dp index) and the dp group (the ranks of its stage)."""
+
+    ranks: np.ndarray  # [dp, pp]
+    dp_index: int
+    stage: int
+    pp_group: Any
+    dp_group: Any
+
+    @property
+    def dp_size(self) -> int:
+        return int(self.ranks.shape[0])
+
+    @property
+    def num_stages(self) -> int:
+        return int(self.ranks.shape[1])
+
+    @property
+    def prev_rank(self) -> Optional[int]:
+        return (None if self.stage == 0
+                else int(self.ranks[self.dp_index, self.stage - 1]))
+
+    @property
+    def next_rank(self) -> Optional[int]:
+        return (None if self.stage == self.num_stages - 1
+                else int(self.ranks[self.dp_index, self.stage + 1]))
+
+    @property
+    def last_rank(self) -> int:
+        """The last stage's rank of this rank's pipeline."""
+        return int(self.ranks[self.dp_index, -1])
+
+
+def pipe_mesh(pp: int, dp: Optional[int] = None) -> PipeMesh:
+    """This rank's ``PipeMesh`` over the initialised world: ``dp`` pipelines
+    of ``pp`` stages (``dp`` None: world / pp).  Outside a world only the
+    one-stage, one-pipeline layout exists."""
+    if not dist.is_initialized():
+        if pp * (dp or 1) > 1:
+            raise ValueError(
+                f"mesh {dp or 1}x{pp} needs a torch.distributed world of "
+                f"{pp * (dp or 1)} ranks (the training CLI's --pp / --dp)")
+        return PipeMesh(np.zeros((1, 1), np.int64), 0, 0, None, None)
+    world = dist.get_world_size()
+    if dp is None:
+        dp = world // pp
+    if dp * pp != world:
+        raise ValueError(f"mesh {dp}x{pp} needs {dp * pp} ranks, the world "
+                         f"has {world}")
+    key = ("pp", world, dp, pp)
+    if key not in _GROUPS:
+        ranks = np.arange(world, dtype=np.int64).reshape(dp, pp)
+        rank = dist.get_rank()
+        pp_group = _new_groups((ranks[d, :] for d in range(dp)), rank)
+        dp_group = _new_groups((ranks[:, s] for s in range(pp)), rank)
+        d, s = (int(i[0]) for i in np.nonzero(ranks == rank))
+        _GROUPS[key] = PipeMesh(ranks, d, s, pp_group, dp_group)
     return _GROUPS[key]
 
 
@@ -299,11 +392,13 @@ def all_reduce_sum(tensors: Iterable[torch.Tensor], group=None,
     return out  # type: ignore[return-value]
 
 
-def replicate(tree, devices: Optional[Sequence[Any]] = None):
+def replicate(tree, devices: Optional[Sequence[Any]] = None, *,
+              group=None, src: int = 0):
     """Inference: ``{device: tree moved there}`` for each distinct device
     (replicas that share a device share one copy).  Training (no
     ``devices``): the tensors of ``tree`` (a module or a list) overwritten
-    with rank 0's in place across the initialised world."""
+    in place with those of rank ``src`` of ``group`` (default: rank 0 of
+    the initialised world)."""
     if devices is not None:
         out = {}
         for dev in devices:
@@ -311,10 +406,10 @@ def replicate(tree, devices: Optional[Sequence[Any]] = None):
             if dev not in out:
                 out[dev] = {k: v.to(dev) for k, v in tree.items()}
         return out
-    if dist.is_initialized() and dist.get_world_size() > 1:
+    if dist.is_initialized() and dist.get_world_size(group) > 1:
         tensors = (list(tree.state_dict().values())
                    if isinstance(tree, torch.nn.Module) else list(tree))
         with torch.no_grad():
             for t in tensors:
-                dist.broadcast(t, src=0)
+                dist.broadcast(t, src=src, group=group)
     return tree

@@ -23,10 +23,16 @@ Under a torch.distributed mesh (``parallel/mesh.DistMesh``) every rank
 draws the same global batch and takes its rows (``local_rows``), its
 dropout stream folds in its dp index (``step_dropout``, the JAX step's
 ``fold_in(axis_index)``), and ``reduce_step`` sums the gradients and the
-metrics over the world and divides by dp before ``OptaxAdamW.step``, so
-that clipping sees the reduced gradients, as ``jax.lax.pmean`` before
-``apply_gradients`` does; the accumulation of ``MultiSteps`` then holds
-reduced gradients too.
+metrics over the ranks with its tp index (the world when tp = 1) and
+divides by dp before ``OptaxAdamW.step``, so that clipping sees the
+reduced gradients, as ``jax.lax.pmean`` before ``apply_gradients`` does;
+the accumulation of ``MultiSteps`` then holds reduced gradients too.  The
+tp ranks of one dp index step on the same rows with the same dropout
+stream.  Where a rank holds only a part of some leaves (tp shards,
+``parallel/tensor.py``; a pipeline stage's layers, ``parallel/pipeline.py``)
+the optimizer's ``sharded`` names and ``shard_group`` make the clipping
+norm global: those leaves' squared norms are summed over the group, every
+other leaf's counted once.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, Mapping,
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from unirec_tpu_torch.configs import OptimizerConfig
@@ -49,11 +56,18 @@ class OptaxAdamW:
     """``make_optimizer(cfg)`` of the JAX package over named parameters.
 
     ``step(grads)`` applies one micro-step in place; the moments and the
-    accumulator are float32 tensors beside each parameter."""
+    accumulator are float32 tensors beside each parameter.  ``sharded``:
+    the names of the leaves this rank holds a part of, whose squared norms
+    the clipping sums over ``shard_group`` (a group of one rank: the
+    one-device norm)."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: OptimizerConfig):
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: OptimizerConfig,
+                 sharded: Iterable[str] = (), shard_group=None):
         self.params = dict(params)
         self.cfg = cfg
+        sharded = set(sharded)
+        self.sharded = [n for n in self.params if n in sharded]
+        self.shard_group = shard_group
         self.k = max(1, int(cfg.gradient_accumulation_steps))
         zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
                          for n, p in self.params.items()}
@@ -78,7 +92,7 @@ class OptaxAdamW:
         cfg = self.cfg
         grads = {n: g.float() for n, g in grads.items()}
         if cfg.max_grad_norm > 0:  # on the device: no host synchronisation
-            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            norm = self._global_norm(grads)
             keep = norm < cfg.max_grad_norm
             grads = {n: torch.where(keep, g, g / norm * cfg.max_grad_norm)
                      for n, g in grads.items()}
@@ -97,6 +111,16 @@ class OptaxAdamW:
             if cfg.weight_decay:
                 upd = upd + cfg.weight_decay * p.float()
             p.copy_(p.float() + upd * step_size)
+
+    def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if (not self.sharded or not dist.is_initialized()
+                or dist.get_world_size(self.shard_group) == 1):
+            return torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        parts = sum((grads[n] * grads[n]).sum() for n in self.sharded)
+        dist.all_reduce(parts, group=self.shard_group)
+        split = set(self.sharded)
+        whole = sum((g * g).sum() for n, g in grads.items() if n not in split)
+        return torch.sqrt(parts + whole)
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
@@ -204,11 +228,13 @@ def optimizer_state_from_optax(state: Any, grad_accum: int = 1
     }
 
 
-def make_optimizer(params: Dict[str, torch.Tensor],
-                   cfg: OptimizerConfig) -> OptaxAdamW:
+def make_optimizer(params: Dict[str, torch.Tensor], cfg: OptimizerConfig,
+                   sharded: Iterable[str] = (),
+                   shard_group=None) -> OptaxAdamW:
     """AdamW with optional warmup, global-norm clipping and gradient
-    accumulation, as the JAX ``make_optimizer``."""
-    return OptaxAdamW(params, cfg)
+    accumulation, as the JAX ``make_optimizer`` (``sharded`` and
+    ``shard_group``: see ``OptaxAdamW``)."""
+    return OptaxAdamW(params, cfg, sharded, shard_group)
 
 
 @dataclasses.dataclass
@@ -299,16 +325,18 @@ def reduce_step(grads: Dict[str, torch.Tensor],
                 mesh: Optional[DistMesh]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Gradients (of the 1/sp-scaled loss) and metrics (unscaled) summed
-    over the world in flat buckets and divided by dp: the dp mean of the sp
-    sum, ``jax.lax.pmean`` over dp.  One bucketed collective; identity
-    without a mesh."""
+    over the ranks with this rank's tp index (the world when tp = 1) in
+    flat buckets and divided by dp: the dp mean of the sp sum,
+    ``jax.lax.pmean`` over dp.  One bucketed collective; identity without a
+    mesh."""
     if mesh is None:
         return grads, metrics
     names, keys = list(grads), list(metrics)
     sp = float(mesh.sp_size)
     tensors = [grads[n] for n in names] + [
         (metrics[k].detach().float() / sp).reshape(1) for k in keys]
-    out = all_reduce_sum(tensors, scale=1.0 / mesh.dp_size)
+    out = all_reduce_sum(tensors, group=mesh.grad_group,
+                         scale=1.0 / mesh.dp_size)
     return (dict(zip(names, out[:len(names)])),
             {k: t.reshape(()) for k, t in zip(keys, out[len(names):])})
 

@@ -31,7 +31,12 @@ reconstruction loss divides by the global valid-field count
 (``ops/losses.global_mean_denominator``, the JAX ``pmean`` of the count),
 and the gradients and the metrics are averaged over dp
 (``train/common.reduce_step``), which is the full batch's step.  The
-evaluation runs whole on every rank.
+evaluation runs whole on every rank.  ``tp > 1`` replicates the parameters
+over tp and splits the batch over dp only, so the tp ranks of a dp index
+compute the same step (the JAX trainer's semantics); the fused anchor is
+refused with it, as in JAX.  The fused reference forwards run per rank, as
+under dp (the JAX trainer turns them off under tp, where GSPMD cannot
+partition its kernels; here no kernel sees the tp axis).
 """
 
 from __future__ import annotations
@@ -224,6 +229,15 @@ def make_eval_step(model: ItemQFormer):
     return functools.partial(reconstruction_batch, model)
 
 
+
+def check_item_layout(tp: int, fused_training: bool) -> None:
+    """The JAX item trainer's refusal of tp > 1 with the fused anchor."""
+    if tp > 1 and fused_training:
+        raise ValueError(
+            "fused_training is incompatible with tp>1 (the kernels have no "
+            "in-kernel collectives); use dp-only meshes")
+
+
 @dataclasses.dataclass
 class ItemQFormerTrainer:
     """End-to-end trainer over a FieldEmbeddingCache, on one device."""
@@ -245,10 +259,7 @@ class ItemQFormerTrainer:
         from unirec_tpu_torch.utils.device import resolve_device
 
         mesh = self.train_config.mesh
-        if mesh.tp > 1:
-            raise NotImplementedError(
-                "tp > 1 is the next slice of ROADMAP.md A9; the item "
-                "trainer takes dp")
+        check_item_layout(mesh.tp, self.model_config.fused_training)
         if mesh.sp > 1:
             raise ValueError("sp shards the user stage's memory; the item "
                              "trainer takes dp only")
@@ -264,7 +275,10 @@ class ItemQFormerTrainer:
         if use_fused is None:
             use_fused = (self.device.type == "cuda"
                          and self.dtype == "bfloat16")
-        self.use_fused = bool(use_fused) and supports_fused(self.model_config)
+        # tp > 1 replicates the parameters: the fused reference forwards
+        # run per rank, as under dp (see the module docstring)
+        self.use_fused = (bool(use_fused)
+                          and supports_fused(self.model_config))
         self._train_step = None
 
     def init_state(self, seed: Optional[int] = None,

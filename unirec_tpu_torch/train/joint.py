@@ -25,8 +25,22 @@ and steps on its rows, and the gradients and the loss are averaged over dp
 before the optimizer (``train/common.reduce_step``; InfoNCE is a per-sample
 mean, so this is the full batch's step, as the JAX ``shard_map`` step's
 ``pmean``).  The evaluation splits each batch over dp and gathers the ranks
-of the positives.  ``tp > 1`` and the pipelined trainer are the next slice
-of ROADMAP.md A9.
+of the positives.
+
+``tp > 1`` shards the Qwen3 base over the tp ranks of each dp index
+(``parallel/tensor.py``; the JAX trainer's ``state_shardings``): every
+rank builds the full model from the seed, takes its shards and keeps the
+AdamW moments of those shards only; the gradients are reduced over dp
+alone and the clipping norm adds the sharded leaves' squares over tp.  The
+evaluation runs sharded like training (batch over dp, parameters over tp,
+K1 on each rank's heads on the card).  ``checkpoint_state`` gathers the
+full tree for the writer and ``restore`` cuts each rank's shards from a
+directory, so a checkpoint resumes at any tp.  Flash-VJP attention and
+``int8_base`` are refused with tp > 1, as in the JAX trainer.
+
+``PipelinedJointTrainer`` trains the same model with the Qwen3 layers split
+into pipeline stages (``parallel/pipeline.py``, the JAX class of the same
+name).
 """
 
 from __future__ import annotations
@@ -51,6 +65,12 @@ from unirec_tpu_torch.data.tokenizer import BaseTokenizer
 from unirec_tpu_torch.models.joint import (
     MultiModalQwenEmbedding,
     construct_input_text,
+)
+from unirec_tpu_torch.parallel.tensor import (
+    TensorParallel,
+    gather_state_dict,
+    shard_state_dict,
+    tp_split,
 )
 from unirec_tpu_torch.models.qwen3 import quantize_qwen3_weights, set_qweights
 from unirec_tpu_torch.ops.dropout import DropoutStream
@@ -283,12 +303,51 @@ def make_joint_train_step(model: MultiModalQwenEmbedding,
     return step
 
 
-def make_joint_optimizer(model: torch.nn.Module,
-                         opt_cfg: OptimizerConfig) -> OptaxAdamW:
+def make_joint_optimizer(model: torch.nn.Module, opt_cfg: OptimizerConfig,
+                         sharded=(), shard_group=None) -> OptaxAdamW:
     """AdamW on LoRA + the extra token embeddings + the Q-Former; the base
-    Qwen3 is frozen (PEFT's behaviour)."""
+    Qwen3 is frozen (PEFT's behaviour).  ``sharded`` / ``shard_group``: the
+    leaves this rank holds a part of (``train/common.OptaxAdamW``)."""
     return make_optimizer({n: p for n, p in model.named_parameters()
-                           if is_trainable(n)}, opt_cfg)
+                           if is_trainable(n)}, opt_cfg, sharded, shard_group)
+
+
+class _OptimizerView:
+    """An optimizer state's dict behind ``state_dict()``, for the writer."""
+
+    def __init__(self, state: Dict):
+        self._state = state
+
+    def state_dict(self) -> Dict:
+        return self._state
+
+
+
+def check_joint_layout(tp: int, flash_vjp: bool, int8_base: bool,
+                       pipeline: bool = False) -> None:
+    """The JAX joint trainers' refusals of a layout, in their words: tp
+    with flash-VJP or ``int8_base``, and the pipeline (``pipeline``) with
+    tp or ``int8_base`` (``PipelinedQwen3``'s own refusals are
+    ``parallel/pipeline.check_pipeline``)."""
+    if pipeline:
+        if tp > 1:
+            raise ValueError("pipeline parallelism composes with dp only; "
+                             "tp>1 is not supported (use --tp 1)")
+        if int8_base:
+            raise ValueError(
+                "int8_base is incompatible with pipeline parallelism (the "
+                "pp layout stacks layer params; the qweights tree is not "
+                "stacked)")
+    if tp > 1 and flash_vjp:
+        raise ValueError(
+            "flash_vjp_attention is incompatible with tp>1: the kernel has "
+            "no in-kernel collectives; use dp-only meshes or the XLA "
+            "attention (see docs/ARCHITECTURE.md 'tp scope')")
+    if tp > 1 and int8_base:
+        raise ValueError(
+            "int8_base is incompatible with tp>1 (the int8 qweights tree has "
+            "no tp sharding rules); use dp-only meshes (see "
+            "docs/ARCHITECTURE.md 'tp scope')")
 
 
 @dataclasses.dataclass
@@ -316,14 +375,16 @@ class JointTrainer:
         from unirec_tpu_torch.utils.device import resolve_device
 
         mesh = self.train_config.mesh
-        if mesh.tp > 1:
-            raise NotImplementedError(
-                "tp > 1 (tensor parallelism of the Qwen3 base) is the next "
-                "slice of ROADMAP.md A9; the joint trainer takes dp")
+        check_joint_layout(mesh.tp, self.qwen_config.flash_vjp_attention,
+                           self.int8_base)
         if mesh.sp > 1:
             raise ValueError("sp shards the user stage's memory; the joint "
-                             "trainer takes dp only")
+                             "trainer takes dp and tp")
         self.mesh = dist_mesh(mesh)
+        self.tp = None
+        if self.mesh is not None and self.mesh.tp_size > 1:
+            self.tp = TensorParallel(self.mesh.tp_size, self.mesh.tp_index,
+                                     self.mesh.tp_group)
         check_batch_size(self.train_config.batch_size, self.mesh)
         if self.int8_fused is None:
             self.int8_fused = False
@@ -377,15 +438,76 @@ class JointTrainer:
             cast_frozen_to_bf16(model)
         apply_trainable_mask(model)
         replicate(model)  # rank 0's parameters on every rank
+        sharded, group = (), None
+        if self.tp is not None:  # this rank's shards of the full model
+            model = model.clone(self.shard(model.state_dict()), tp=self.tp)
+            apply_trainable_mask(model)
+            sharded = [n for n, _ in model.named_parameters()
+                       if tp_split(n) is not None]
+            group = self.tp.group
         if self.int8_base:
             self.qweights = quantize_qwen3_weights(model.base_model)
             set_qweights(model.base_model, self.qweights)
         model.train()
-        optimizer = make_joint_optimizer(model, self.train_config.optimizer)
+        optimizer = make_joint_optimizer(model, self.train_config.optimizer,
+                                         sharded, group)
         self._train_step = make_joint_train_step(model,
                                                  seed=self.train_config.seed,
                                                  mesh=self.mesh)
         return TrainState(model, optimizer, 0)
+
+    def shard(self, full: Mapping[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """This rank's tp shards of a full state_dict (or of moments keyed
+        by parameter names); the tree itself without tp."""
+        if self.tp is None:
+            return dict(full)
+        return shard_state_dict(full, self.tp.size, self.tp.index)
+
+    def checkpoint_state(self, state: TrainState):
+        """What the checkpoint writer gets: ``state`` itself, or under tp
+        the full parameters and optimizer state gathered from every tp rank
+        (a collective: every rank calls it), the one-rank schema."""
+        if self.tp is None:
+            return state
+        params = gather_state_dict(state.model.state_dict(), self.tp)
+        opt = state.optimizer.state_dict()
+        opt.update({k: gather_state_dict(opt[k], self.tp)
+                    for k in ("mu", "nu", "acc")})
+        return TrainState(params, _OptimizerView(opt), state.step)
+
+    def restore(self, directory: str, state: TrainState):
+        """``state`` restored from a checkpoint directory written at any tp:
+        parameters, optimizer state and step, or parameters and step only
+        where the directory holds no optimizer state (written by the
+        pipeline's trainer, or converted from one of the JAX package's).
+        Returns (state, meta, whether the optimizer state was restored)."""
+        from unirec_tpu_torch.utils.checkpoint import (
+            has_train_state,
+            restore_params_and_step,
+            restore_train_state,
+        )
+
+        kw = {}
+        if self.tp is not None:
+            kw = dict(shard=self.shard, group=self.mesh.grad_group,
+                      src=self.mesh.grad_src)
+        if has_train_state(directory):
+            return (*restore_train_state(directory, state, **kw), True)
+        return (*restore_params_and_step(directory, state, **kw), False)
+
+    def model_from_state_dict(self, sd: Mapping[str, torch.Tensor]
+                              ) -> MultiModalQwenEmbedding:
+        """A full (unsharded) joint model of this trainer's configuration
+        over the tensors of ``sd`` (shared, not copied)."""
+        model = MultiModalQwenEmbedding(
+            self.qwen_config, self.qformer_config, self.joint_config,
+            self.lora, device="meta", dtype=self.compute_dtype,
+            param_dtype=torch.float32, remat=self.remat,
+            remat_policy=self.remat_policy)
+        model.load_state_dict(sd, assign=True)
+        apply_trainable_mask(model)
+        return model
 
     def _batch_stream(self, dataset: JointDataset, rng: np.random.Generator,
                       batch_size: int, num_steps: Optional[int] = None):
@@ -479,3 +601,175 @@ class JointTrainer:
             out[f"ndcg@{k}"] = float(
                 np.where(hit, 1.0 / np.log2(all_ranks + 1.0), 0.0).mean())
         return out
+
+
+# -- the pipeline (GPipe) ---------------------------------------------------
+
+
+def reduce_pipeline_step(grads: Dict[str, torch.Tensor],
+                         metrics: Dict[str, torch.Tensor], pipe,
+                         stage_leaves) -> Tuple[Dict[str, torch.Tensor],
+                                                Dict[str, torch.Tensor]]:
+    """A pipeline step's gradients averaged over dp: a stage's own leaves
+    over the ranks of its stage; the replicated ones summed over pp too
+    (zeros from the stages that do not use them) with one collective over
+    the world.  The metrics (the same on every stage) averaged over dp.
+    Identity outside a world."""
+    if not torch.distributed.is_initialized():
+        return grads, metrics
+    from unirec_tpu_torch.parallel.mesh import all_reduce_sum
+
+    scale = 1.0 / pipe.dp_size
+    own = [n for n in grads if n in stage_leaves]
+    rest = [n for n in grads if n not in stage_leaves]
+    keys = list(metrics)
+    out = all_reduce_sum([grads[n] for n in own] + [
+        metrics[k].detach().float().reshape(1) for k in keys],
+        group=pipe.dp_group, scale=scale)
+    reduced = dict(zip(own, out))
+    reduced.update(zip(rest, all_reduce_sum([grads[n] for n in rest],
+                                            scale=scale)))
+    return ({n: reduced[n] for n in grads},
+            {k: t.reshape(()) for k, t in zip(keys, out[len(own):])})
+
+
+def make_pipeline_train_step(model, pipe, temperature: float = 0.07,
+                             return_grads: bool = False, seed: int = 1):
+    """The ``(state, batch) -> (state, metrics)`` step of a
+    ``parallel/pipeline.JointPipelineStage``: this rank's dp rows of the
+    global batch through the GPipe schedule, InfoNCE on every stage, the
+    backward from the last stage's loss, the gradients reduced
+    (``reduce_pipeline_step``) and the AdamW chain.  Dropout draws from
+    ``DropoutStream(seed, step)`` with the pipeline's fold-ins."""
+    from unirec_tpu_torch.parallel.mesh import shard_rows
+    from unirec_tpu_torch.parallel.pipeline import joint_pp_forward
+
+    trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    stage_leaves = {n for n in trainable if n.startswith("base_model.layers.")}
+    m_count = model.base_model.num_microbatches
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        device = next(model.parameters()).device
+        model.train()
+        for p in trainable.values():
+            p.grad = None
+        n = len(batch["input_ids"])
+        if n % (pipe.dp_size * m_count):
+            raise ValueError(f"batch {n} must be a multiple of "
+                             f"dp*num_microbatches={pipe.dp_size * m_count}")
+        rows = shard_rows(n, pipe.dp_size, pipe.dp_index)
+        b = batch_to_device({k: v[rows] for k, v in batch.items()}, device)
+        user = joint_pp_forward(model, b["input_ids"], b["attention_mask"],
+                                b["history_field_embeddings"],
+                                b["history_attention_mask"],
+                                dropout=DropoutStream(seed, state.step))
+        loss = info_nce_loss(user, b["positive_item_embeddings"],
+                             b["negative_item_embeddings"],
+                             b["negative_masks"], temperature)
+        model.base_model.backward(loss)
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in trainable.items()}
+        grads, metrics = reduce_pipeline_step(grads, {"loss": loss.detach()},
+                                              pipe, stage_leaves)
+        state.optimizer.step(grads)
+        state.step += 1
+        if return_grads:
+            metrics["grads"] = {n: g.detach().clone() for n, g in grads.items()}
+        return state, metrics
+
+    return step
+
+
+@dataclasses.dataclass
+class PipelinedJointTrainer:
+    """GPipe-staged variant of the joint trainer (``parallel/pipeline.py``;
+    the JAX class of the same name).
+
+    The decoder's layers split over the pp ranks of a ``(dp, pp)`` world and
+    microbatches stream through the stages; the Q-Former and the token
+    injection run on stage 0.  The model, the InfoNCE loss, the LoRA freeze
+    and the optimizer are ``trainer``'s; ``trainer`` is built over the whole
+    world as dp (``MeshConfig(dp=dp * pp)``: its evaluator splits over every
+    rank) and supplies the state to split and the evaluation of the merged
+    tree.  tp > 1, flash-VJP attention and ``int8_base`` are refused."""
+
+    trainer: JointTrainer
+    pp: int
+    num_microbatches: int = 1
+
+    def __post_init__(self):
+        from unirec_tpu_torch.parallel.mesh import pipe_mesh
+        from unirec_tpu_torch.parallel.pipeline import check_pipeline
+
+        t = self.trainer
+        check_joint_layout(t.train_config.mesh.tp,
+                           t.qwen_config.flash_vjp_attention, t.int8_base,
+                           pipeline=True)
+        check_pipeline(t.qwen_config, self.pp)
+        self.mesh = pipe_mesh(self.pp)
+        self.dp_size = self.mesh.dp_size
+        self._train_step = None
+
+    def init_trainable(self, state: TrainState) -> TrainState:
+        """This stage's part of a ``JointTrainer`` state: its layers, the
+        replicated rest and Q-Former (``split_joint_params`` then
+        ``stage_state_dict``), a fresh AdamW over its trainable leaves and
+        the state's step."""
+        from unirec_tpu_torch.parallel.pipeline import (
+            JointPipelineStage,
+            split_joint_params,
+            stage_state_dict,
+        )
+
+        t, pipe = self.trainer, self.mesh
+        sd = stage_state_dict(*split_joint_params(state.model.state_dict()),
+                              pipe.stage, pipe.num_stages)
+        model = JointPipelineStage(
+            t.qwen_config, t.qformer_config, t.joint_config, t.lora, pipe,
+            self.num_microbatches, device="meta", dtype=t.compute_dtype,
+            param_dtype=torch.float32, remat=t.remat)
+        model.load_state_dict(sd, assign=True)
+        apply_trainable_mask(model)
+        model.train()
+        layers = [n for n, p in model.named_parameters()
+                  if p.requires_grad and n.startswith("base_model.layers.")]
+        optimizer = make_joint_optimizer(model, t.train_config.optimizer,
+                                         layers, pipe.pp_group)
+        self._train_step = make_pipeline_train_step(
+            model, pipe, seed=t.train_config.seed)
+        return TrainState(model, optimizer, int(state.step))
+
+    def merged_params(self, state: TrainState,
+                      to_host: bool = False) -> Dict[str, torch.Tensor]:
+        """The joint model's full state_dict (a collective over pp); on the
+        host with ``to_host``, for the checkpoint writer."""
+        from unirec_tpu_torch.parallel.pipeline import merged_state_dict
+
+        merged = merged_state_dict(state.model)
+        if to_host:
+            merged = {k: v.cpu() for k, v in merged.items()}
+        return merged
+
+    def train_steps(self, state: TrainState, dataset: JointDataset,
+                    rng: np.random.Generator, num_steps: int,
+                    batch_size: Optional[int] = None, step_hook=None
+                    ) -> Tuple[TrainState, Dict[str, float]]:
+        """``JointTrainer.train_steps`` through the pipeline; the hook sees
+        ``(global_step, state, metrics)``."""
+        batch_size = batch_size or self.trainer.train_config.batch_size
+        hook = None
+        if step_hook is not None:
+            hook = lambda i, st, m: step_hook(st.step, st, m)  # noqa: E731
+        state, _, last = drive_steps(
+            self._train_step, state,
+            self.trainer._batch_stream(dataset, rng, batch_size, num_steps),
+            step_hook=hook)
+        return state, last
+
+    def evaluate(self, state: TrainState, dataset: JointDataset,
+                 **kw) -> Dict[str, float]:
+        """The merged tree through ``JointTrainer.evaluate`` (the same
+        metrics and padding; K1 on the card)."""
+        model = self.trainer.model_from_state_dict(self.merged_params(state))
+        return self.trainer.evaluate(TrainState(model, None, state.step),
+                                     dataset, **kw)

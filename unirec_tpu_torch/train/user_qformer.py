@@ -39,7 +39,10 @@ K/V from it and combines exactly over the sp group
 are summed over sp and averaged over dp (``train/common.reduce_step``).  sp
 runs the plain attention path: the JAX trainer refuses it with the flash
 and fused kernels, and so does this one.  The evaluation runs on the whole
-memory on every rank.
+memory on every rank.  ``tp > 1`` replicates the parameters over tp (the
+ranks of one dp and sp index compute the same step, as the JAX trainer's
+GSPMD step does); the flash and fused kernels are refused with it, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -207,6 +210,22 @@ def make_train_step(model: UserStage, return_grads: bool = False,
     return step
 
 
+
+def check_user_layout(tp: int, sp: int, flash_training: bool,
+                      fused_training: bool) -> None:
+    """The JAX user trainer's refusals of tp > 1 and sp > 1 with the flash
+    or fused kernels."""
+    if tp > 1 and (flash_training or fused_training):
+        raise ValueError(
+            "flash_training/fused_training are incompatible with tp>1 (the "
+            "kernels have no in-kernel collectives); use dp-only meshes")
+    if sp > 1 and (flash_training or fused_training):
+        raise ValueError(
+            "sequence_parallel is incompatible with flash/fused training "
+            "(the kernels are single-device; the sp combine is a "
+            "collective path)")
+
+
 @dataclasses.dataclass
 class UserQFormerTrainer:
     """End-to-end trainer over precomputed catalog tokens, on one device."""
@@ -228,20 +247,13 @@ class UserQFormerTrainer:
 
         mesh = self.train_config.mesh
         uc = self.user_config
-        if mesh.tp > 1:
-            raise NotImplementedError(
-                "tp > 1 is the next slice of ROADMAP.md A9; the user "
-                "trainer takes dp and sp")
         if uc.sequence_parallel != (max(mesh.sp, 1) > 1):
             raise ValueError(
                 "sequence_parallel requires an 'sp' mesh axis > 1 "
                 "(TrainConfig.mesh.sp / `train user-qformer --sp N`), and "
                 "an sp axis > 1 requires sequence_parallel")
-        if uc.sequence_parallel and (uc.flash_training or uc.fused_training):
-            raise ValueError(
-                "sequence_parallel is incompatible with flash/fused training "
-                "(the kernels are single-device; the sp combine is "
-                "a collective path)")
+        check_user_layout(mesh.tp, mesh.sp, uc.flash_training,
+                          uc.fused_training)
         self.mesh = dist_mesh(mesh)
         check_batch_size(self.train_config.batch_size, self.mesh)
         self.device = resolve_device(self.device)

@@ -22,7 +22,14 @@ JAX package is installed and hands numpy arrays to
 
 In a torch.distributed world (``parallel/mesh.py``) only rank 0 writes,
 and a restore reads on every rank and then broadcasts rank 0's parameters,
-optimizer state and step, so the ranks hold one state.
+optimizer state and step, so the ranks hold one state.  Under tensor
+parallelism the trainer hands the writer the gathered full tree, and a
+restore cuts each rank's shards from it (``shard``) and broadcasts within
+the ranks of one tp index; a directory has the one-rank schema whatever tp
+wrote it.  The pipeline's trainer writes its merged parameters and step
+with ``{"pp_layout": True}`` in place of the optimizer state
+(``save_pipeline_state``, the JAX ``_run_joint_pp``'s sentinel): such a
+directory resumes with parameters and step only.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -125,8 +132,25 @@ def restore_config(meta: Dict[str, Any], config_cls):
 
 
 def has_train_state(directory: Optional[str]) -> bool:
-    return bool(directory) and os.path.exists(
-        os.path.join(directory, OPTIMIZER_FILE))
+    """Whether ``directory`` holds an optimizer state (a pipeline-saved one
+    holds the sentinel instead)."""
+    return (bool(directory)
+            and os.path.exists(os.path.join(directory, OPTIMIZER_FILE))
+            and not read_meta(directory).get("pp_layout"))
+
+
+def save_pipeline_state(directory: str, params: Mapping[str, torch.Tensor],
+                        step: int, config: Optional[Any] = None,
+                        extra: Optional[Dict[str, Any]] = None) -> str:
+    """The pipeline trainer's checkpoint: the merged (one-rank) parameters,
+    the step and ``{"pp_layout": True}`` for the optimizer state, which
+    the pp layout does not carry over (the JAX package's sentinel)."""
+    directory = save_checkpoint(directory, params, config, extra={
+        **(extra or {}), "step": int(step), "pp_layout": True})
+    if is_writer():
+        torch.save({"step": int(step), "optimizer": {"pp_layout": True}},
+                   os.path.join(directory, OPTIMIZER_FILE))
+    return directory
 
 
 def save_train_state(directory: str, state, config: Optional[Any] = None,
@@ -145,32 +169,44 @@ def save_train_state(directory: str, state, config: Optional[Any] = None,
     return directory
 
 
-def restore_train_state(directory: str, template_state):
+Shard = Optional[Callable[[Mapping[str, torch.Tensor]],
+                          Dict[str, torch.Tensor]]]
+
+
+def restore_train_state(directory: str, template_state, shard: Shard = None,
+                        group=None, src: int = 0):
     """Restore parameters, optimizer state and step into a freshly built
-    ``TrainState`` (its structure is the template); returns (state, meta)."""
+    ``TrainState`` (its structure is the template); returns (state, meta).
+    ``shard`` cuts this rank's part from the full parameters and moments;
+    ``group`` / ``src``: the ranks that hold the same part, and the one
+    whose state they all take (default: the world, rank 0)."""
+    shard = shard or dict
     directory = os.path.abspath(directory)
     sd, meta = load_checkpoint(directory)
     model = template_state.model
     device = next(model.parameters()).device
-    model.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    model.load_state_dict({k: v.to(device) for k, v in shard(sd).items()})
     saved = torch.load(os.path.join(directory, OPTIMIZER_FILE),
                        map_location=device, weights_only=True)
-    template_state.optimizer.load_state_dict(saved["optimizer"])
+    opt = dict(saved["optimizer"])
+    for part in ("mu", "nu", "acc"):
+        opt[part] = shard(opt[part])
+    template_state.optimizer.load_state_dict(opt)
     template_state.step = int(saved["step"])
-    return _replicate_state(template_state), meta
+    return _replicate_state(template_state, group, src), meta
 
 
-def _replicate_state(state):
-    """Rank 0's parameters, optimizer tensors and step on every rank of an
-    initialised world (a no-op outside one)."""
+def _replicate_state(state, group=None, src: int = 0):
+    """Rank ``src``'s parameters, optimizer tensors and step on every rank
+    of ``group`` (default: rank 0's on the world; a no-op outside one)."""
     opt = state.optimizer
     replicate(list(state.model.state_dict().values())
               + [t for part in (opt.mu, opt.nu, opt.acc)
-                 for t in part.values()])
+                 for t in part.values()], group=group, src=src)
     counters = torch.tensor([state.step, opt.count, opt.mini_step,
                              opt.gradient_step], dtype=torch.int64,
                             device=next(state.model.parameters()).device)
-    replicate([counters])
+    replicate([counters], group=group, src=src)
     state.step, opt.count, opt.mini_step, opt.gradient_step = (
         int(c) for c in counters.tolist())
     return state
@@ -181,18 +217,21 @@ def has_params(directory: Optional[str]) -> bool:
         os.path.join(directory, PARAMS_FILE))
 
 
-def restore_params_and_step(directory: str, template_state):
+def restore_params_and_step(directory: str, template_state,
+                            shard: Shard = None, group=None, src: int = 0):
     """Parameters and step (from ``meta.json``) into a freshly built
-    ``TrainState`` whose optimizer restarts: a directory without
-    ``optimizer.pt``, such as one converted from a pipeline-parallel JAX
-    checkpoint, whose optimizer state has another layout (the JAX
-    package's resume does the same).  Returns (state, meta)."""
+    ``TrainState`` whose optimizer restarts: a directory without an
+    optimizer state, such as one a pipeline wrote (here or in the JAX
+    package, converted), whose optimizer state has another layout (the JAX
+    package's resume does the same).  ``shard``, ``group`` and ``src`` as
+    in ``restore_train_state``.  Returns (state, meta)."""
     sd, meta = load_checkpoint(directory)
     model = template_state.model
     device = next(model.parameters()).device
-    model.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    model.load_state_dict({k: v.to(device)
+                           for k, v in (shard or dict)(sd).items()})
     template_state.step = int(meta.get("step", 0))
-    return _replicate_state(template_state), meta
+    return _replicate_state(template_state, group, src), meta
 
 
 def check_grad_accum(meta: Dict[str, Any], expected: int) -> None:

@@ -269,7 +269,8 @@ def qwen3_state_dict_from_hf(path: str, cfg: Qwen3Config
 
     from unirec_tpu_torch.utils.torch_convert import convert_qwen3
 
-    hf = AutoModel.from_pretrained(path, torch_dtype=torch.float32)
+    hf = AutoModel.from_pretrained(path, torch_dtype=torch.float32,
+                                   local_files_only=True)
     return qwen3_state_dict_from_flax(
         convert_qwen3(hf.state_dict(), cfg.num_hidden_layers), cfg)
 
