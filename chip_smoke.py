@@ -128,6 +128,25 @@ Phases (any failed check raises; the script then exits non-zero):
    to the engine on the plain block functions and to the fp32
    ``ItemQFormer``; items/s, TFLOP/s, peak memory and a ``torch.profiler``
    breakdown by kernel.
+5b. the quality gates of ``unirec_tpu_torch/scripts`` (``phase_quality``,
+   after phase 5): the engine gate (the bf16 and int8 engines at
+   ``ItemQFormerConfig()``, batch 512, against the fp32 model, per-token
+   cos_min >= 0.999), the serving gate (``Qwen3Config()``, seq 512, 64
+   users at batch 16, 2,000 items: bf16, int8_xla and int8_fused against the
+   fp32 oracle, per-user cosine >= 0.9995, 0.999 and 0.999) and the
+   ``--int8-base`` convergence gate (the joint stage's model, 800 steps
+   exact and with ``int8_base`` from one init: |dRecall@10| <= max(0.05,
+   2.5 / n_test), |dMRR| <= 0.05), each kernel's exact launches (B1-B6; K1;
+   B8, B9a, B9b; B8's fp32 form in the int8-base run), B8's fp32 form held
+   bit for bit to its plain version at the convergence model's projections
+   and timed at [4096, 1024] -> 2048, and the phase's seconds.  A serving
+   mode that misses its gate runs again on the plain path (K1, B8, B9a,
+   B9b replaced by their plain versions): if that passes, the kernels fail
+   the phase; if it misses too (C-18: the W8A8 forward's own miss), the
+   FAIL line stands, int8_xla's error is split between the attention's and
+   the MLP's W8A8 projections, and the mode is held to the fp32 oracle at
+   ``C18_FLOOR`` (a distance 1.2 times the gate's) and to the plain path at
+   ``PLAIN_PATH_COS`` (0.9995).
 5a. the pipeline's front end: ``data`` (the five subcommands of
    ``cli/data_pipeline.py``) over seeded raw files of 2,000 items and 1,000
    users; the Qwen3-Embedding text backend at full width (``Qwen3Config()``,
@@ -234,6 +253,7 @@ so the fp32 tolerances below hold.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -3875,6 +3895,293 @@ def sweep_cli(smi, precision, cfg, model, tmp, emb, masks, ids, fields, sample,
     return {"launches": launches}
 
 
+# -- phase 5b: the quality gates of unirec_tpu_torch/scripts --------------------
+
+# C-18 (ROADMAP.md C): an int8 serving mode that misses the JAX gate (0.999
+# against the fp32 oracle) on the kernel and on the plain path alike misses
+# by the W8A8 forward's own error.  It is then held against the fp32 oracle
+# at C18_FLOOR, a distance 1.2 times the gate's (on an H100 the kernels read
+# int8_xla 0.998836 and int8_fused 0.998908, the plain path 0.998945 and
+# 0.998934), so that a fault in code both paths share (the weight or the
+# activation quantization) still fails; and the kernel path against the
+# plain path at PLAIN_PATH_COS (read: >= 0.999817), so that a kernel fault
+# hidden inside that margin fails too.
+C18_FLOOR = 1 - 1.2 * (1 - 0.999)
+PLAIN_PATH_COS = 0.9995
+
+# B8's fp32 form (the W8A8 training forward of `train joint --int8-base` at
+# float32 compute) against its plain version, bit for bit: at the int8-base
+# convergence model's projections (batch 8 x L 96 = 768 rows: q, k|v, o,
+# gate|up, down) and at the serving shape, where it is timed
+QUALITY_B8_SHAPES = ((768, 64, 64), (768, 64, 32), (768, 64, 128),
+                     (768, 128, 64), B8_SHAPES[0])
+
+
+def quality_counters() -> dict:
+    """The kernels the gates run: B1-B6 (the engines), K1 (every serving
+    mode, the convergence runs' evaluations), B8 (int8_xla, int8_fused's
+    o_proj, the int8-base run's fp32 forward), B9a and B9b (int8_fused)."""
+    from unirec_tpu_torch.ops import fused_qformer_int8 as pq
+    from unirec_tpu_torch.ops import fused_qformer_layer as fq
+    from unirec_tpu_torch.ops.flash_causal import flash_causal_attention
+
+    return {"b1": fq.fused_self_attention_block,
+            "b2": fq.fused_cross_attention_block, "b3": fq.fused_ffn_block,
+            "b4": pq.fused_self_attention_block_q,
+            "b5": pq.fused_cross_attention_block_q,
+            "b6": pq.fused_ffn_block_q, "k1": flash_causal_attention,
+            **int8_launches()}
+
+
+def quality_b8_fp32(gen) -> dict:
+    """B8's fp32 form against its plain version at QUALITY_B8_SHAPES (and a
+    repeat), timed at the serving shape beside its plain version and
+    ``torch._int_mm`` for the product alone."""
+    from unirec_tpu_torch.ops.fused_qformer_int8 import quantize_weight
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_plain
+
+    f32 = torch.float32
+    out = {"err": 0.0}
+    for rows, k, n in QUALITY_B8_SHAPES:
+        x = torch.randn(rows, k, device="cuda", generator=gen)
+        x[5] = 0.0  # a row below the absmax floor
+        wq, ws = quantize_weight(torch.randn(n, k, device="cuda",
+                                             generator=gen) * 0.03)
+        got = int8_linear(x, wq, ws, out_dtype=f32)
+        ref = int8_linear_plain(x, wq, ws, f32)
+        err = (got - ref).abs().max().item()
+        same = torch.equal(got, ref) and torch.equal(
+            got, int8_linear(x, wq, ws, out_dtype=f32))
+        log(f"B8 fp32 [{rows}, {k}] -> {n}: max|d| {err:.3e} "
+            f"({'bit for bit' if same else 'DIFFERS'}, repeat included)")
+        if not same:
+            raise AssertionError("B8's fp32 form disagrees with its plain "
+                                 f"version at [{rows}, {k}] -> {n}")
+        out["err"] = max(out["err"], err)
+    codes = torch.randint(-127, 128, (rows, k), device="cuda", generator=gen,
+                          dtype=torch.int8)
+    t_k = time_ms(lambda: int8_linear(x, wq, ws, out_dtype=f32), iters=20)
+    t_p = time_ms(lambda: int8_linear_plain(x, wq, ws, f32), iters=5,
+                  warmup=1)
+    t_k2 = time_ms(lambda: int8_linear(x, wq, ws, out_dtype=f32), iters=20)
+    t_l = time_ms(lambda: torch._int_mm(codes, wq.t()), iters=20)
+    # x and the output in float32, the codes and their scales once
+    b_ms, b_by = bound(4 * rows * k + n * k + 4 * n + 4 * rows * n,
+                       2 * rows * k * n, "int8")
+    log(f"B8 fp32 [{rows}, {k}] -> {n} time: kernel {t_k:.4f} / {t_k2:.4f} "
+        f"ms, plain {t_p:.4f} ms, torch._int_mm (the product alone) "
+        f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    out.update(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=t_l,
+               bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+@contextlib.contextmanager
+def _plain_qwen3():
+    """The Qwen3 forward's kernels (K1, B8, B9a, B9b) replaced by their
+    plain versions, on the card, for ``phase_quality``: where a serving gate
+    is missed, the same mode on the plain path says whether a kernel is at
+    fault."""
+    from unirec_tpu_torch.models import qwen3 as pq
+    from unirec_tpu_torch.ops import fused_qwen3_int8 as pf
+    from unirec_tpu_torch.ops.flash_causal import flash_causal_attention_plain
+    from unirec_tpu_torch.ops.int8_matmul import int8_linear_plain
+
+    def attention(q, k, v, mask, hq, hkv, mask_checked=False):
+        return flash_causal_attention_plain(q, k, v, mask, hq, hkv)
+
+    def ste(x, wq, ws):
+        y = int8_linear_plain(x.reshape(-1, x.shape[-1]), wq, ws, x.dtype)
+        return y.reshape(*x.shape[:-1], wq.shape[0])
+
+    swaps = {"flash_causal_attention": attention, "int8_linear_ste": ste,
+             "qkv_int8": pf.qkv_int8_plain,
+             "swiglu_mlp_int8": pf.swiglu_mlp_int8_plain}
+    saved = {name: getattr(pq, name) for name in swaps}
+    try:
+        for name, fn in swaps.items():
+            setattr(pq, name, fn)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(pq, name, fn)
+
+
+def phase_quality(smi: str) -> dict:
+    """The gates of ``unirec_tpu_torch/scripts`` through their functions:
+    the engine gate (``measure_int8_quality``: the bf16 and int8 engines at
+    ``ItemQFormerConfig()``, batch 512, against the fp32 model, cos_min >=
+    0.999), the serving gate (``measure_serving_quality``: ``Qwen3Config()``,
+    seq 512, 64 users at batch 16, 2,000 items; bf16 >= 0.9995, int8_xla and
+    int8_fused >= 0.999 against the fp32 oracle) and the ``--int8-base``
+    convergence gate (``int8_base_convergence``: 800 steps each way,
+    ``quality_gates.converge_verdict``); each kernel's launches, exact, and
+    B8's fp32 form against its plain version.  A serving mode that misses
+    its gate runs again on the plain path (``_plain_qwen3``): if that
+    passes, the kernels fail the phase; if it misses too, the miss is the
+    W8A8 forward's own (C-18), logged as FAIL with the error split between
+    the attention's and the MLP's W8A8 projections, and the mode must hold
+    the fp32 oracle at ``C18_FLOOR`` and the plain path at
+    ``PLAIN_PATH_COS``.  Every reading is printed before a missed gate
+    fails the phase."""
+    from unirec_tpu_torch.configs import ItemQFormerConfig, LoRAConfig
+    from unirec_tpu_torch.models.qwen3 import (
+        quantize_qwen3_weights,
+        set_qweights,
+    )
+    from unirec_tpu_torch.scripts import convergence_demo as demo
+    from unirec_tpu_torch.scripts import int8_base_convergence as conv
+    from unirec_tpu_torch.scripts import measure_int8_quality as mq
+    from unirec_tpu_torch.scripts import measure_serving_quality as ms
+    from unirec_tpu_torch.scripts import quality_gates as qg
+    from unirec_tpu_torch.utils.weights import init_item_qformer, init_joint
+
+    t_phase = time.perf_counter()
+    log(f"quality gates on {smi}")
+    counters = quality_counters()
+    missed = []
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read() -> dict:
+        return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+    def expect(what: str, got: dict, want: dict) -> None:
+        log(f"{what} launches: {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"{what} launched {got}, expected {want}")
+
+    # (a) the engines at ItemQFormerConfig(), batch 512
+    t0 = time.perf_counter()
+    cfg = ItemQFormerConfig()
+    model = init_item_qformer(cfg, torch.Generator("cuda").manual_seed(0),
+                              device="cuda")
+    fields, mask = mq.make_inputs(cfg, mq.BATCH, "cuda", seed=1)
+    reset()
+    lines = [mq.quality_line(p, s)
+             for p, s in mq.measure(model, cfg, fields, mask).items()]
+    launches = {"engine": read()}
+    for line in lines:
+        log(line)
+    ok, detail = qg.engine_verdict("\n".join(lines))
+    log(f"[gate engine] {'PASS' if ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f}s) {detail}")
+    missed += [] if ok else ["engine"]
+    n_layers = cfg.num_hidden_layers
+    n_cross = sum(k.endswith("crossattention.query.weight")
+                  for k in model.state_dict())
+    expect("engine", launches["engine"],
+           {"b1": n_layers, "b2": n_cross, "b3": n_layers, "b4": n_layers,
+            "b5": n_cross, "b6": n_layers})
+    del model, fields, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) serving at Qwen3Config(), seq 512, 64 users at batch 16
+    t0 = time.perf_counter()
+    users, batch = 64, 16
+    qwen, qf, jc = ms.configs(tiny=False)
+    cache, catalog, item_dict, tok, hists = ms.serving_data(
+        qwen, qf, jc, 2000, users)
+    model32 = init_joint(qwen, qf, jc, LoRAConfig(),
+                         torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    reset()
+
+    def after(label):
+        launches[label] = read()
+        reset()
+
+    results = ms.encode_modes(model32, tok, item_dict, cache, catalog, hists,
+                              batch, log=log, after=after)
+    findings = []
+    for line, passed in ms.gate_lines(results):
+        log(line)
+        if passed:
+            continue
+        # the same mode on the plain path locates the miss: where it passes,
+        # the kernels are at fault; where it misses too, the miss is the
+        # W8A8 forward's own on these weights (C-18)
+        label = line.split(":")[0]
+        with _plain_qwen3():
+            plain = ms.encode(ms.bf16_model(model32), tok, item_dict, cache,
+                              catalog, hists, batch, **ms.MODES[label])
+        reset()
+        cos = ms.user_cosines(plain, results["fp32"])
+        log(f"{label} on the plain path: cosine mean {cos.mean():.6f} min "
+            f"{cos.min():.6f} (gate {ms.GATES[label]})")
+        if cos.min() >= ms.GATES[label]:
+            missed.append(label)
+            continue
+        kern = ms.user_cosines(results[label], results["fp32"])
+        held = ms.user_cosines(results[label], plain)
+        ok = bool(kern.min() >= C18_FLOOR and held.min() >= PLAIN_PATH_COS)
+        log(f"{label}: C-18, the JAX gate is missed on the plain path too; "
+            f"held to the fp32 oracle at min {kern.min():.6f} (floor "
+            f"{C18_FLOOR:.4f}) and to the plain path at min "
+            f"{held.min():.6f} (gate {PLAIN_PATH_COS}) "
+            f"{'OK' if ok else 'FAIL'}")
+        findings.append(label)
+        missed += [] if ok else [label]
+    if "int8_xla" in findings:
+        # int8_xla's error split by block: the attention's four W8A8
+        # projections alone, then the MLP's three, the rest in bf16
+        model_bf16 = ms.bf16_model(model32)
+        qweights = quantize_qwen3_weights(model_bf16)
+        for part in ("self_attn", "mlp"):
+            model = model_bf16.clone()
+            set_qweights(model, {k: v for k, v in qweights.items()
+                                 if f".{part}." in k})
+            cos = ms.user_cosines(
+                ms.encode(model, tok, item_dict, cache, catalog, hists,
+                          batch), results["fp32"])
+            log(f"int8_xla, {part} only in W8A8: cosine mean "
+                f"{cos.mean():.6f} min {cos.min():.6f}")
+            del model
+        del model_bf16, qweights
+        reset()
+    log(f"[gate serving] ({time.perf_counter() - t0:.1f}s)")
+    per = qwen.num_hidden_layers * (users // batch)  # a layer's, 4 batches
+    expect("serving fp32", launches["fp32"], {"k1": per})
+    expect("serving bf16", launches["bf16"], {"k1": per})
+    expect("serving int8_xla", launches["int8_xla"],
+           {"k1": per, "b8": 7 * per})
+    expect("serving int8_fused", launches["int8_fused"],
+           {"k1": per, "b8": per, "b9a": per, "b9b": per})
+    del model32, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) --int8-base convergence, 800 steps each way from one init
+    t0 = time.perf_counter()
+    corpus = demo.make_corpus()
+    reset()
+    j = conv.compare(*corpus[:4], device="cuda")
+    launches["converge"] = read()
+    log(json.dumps(j))
+    ok, detail = qg.converge_verdict(j)
+    log(f"[gate converge] {'PASS' if ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f}s) {detail}")
+    missed += [] if ok else ["converge"]
+    # the int8 run's forward: 7 projections of each layer a step; each run's
+    # evaluation: 2 batches of 16 over the 32 held-out users
+    expect("converge", launches["converge"],
+           {"b8": 7 * demo.LAYERS * j["steps"], "k1": 2 * 2 * demo.LAYERS})
+
+    b8_fp32 = quality_b8_fp32(torch.Generator(device="cuda").manual_seed(
+        SEED + 21))
+    b8_fp32["launches"] = launches["converge"]["b8"]
+    seconds = time.perf_counter() - t_phase
+    log(f"phase_quality: {seconds:.1f} s; JAX serving gates missed on the "
+        f"kernel and the plain path alike (C-18, held at {C18_FLOOR:.4f}): "
+        f"{findings or 'none'}")
+    if missed:
+        raise AssertionError(f"quality gates missed: {missed}")
+    return {"launches": launches, "b8_fp32": b8_fp32, "seconds": seconds}
+
+
 # -- phase 5a: the pipeline's front end -------------------------------------------
 
 # synthetic raw files for `data` (All_Beauty's shape), the text backend at
@@ -6828,6 +7135,9 @@ def main() -> int:
         swept = phase_sweep(smi, tmp)
         gc.collect()
         torch.cuda.empty_cache()
+        quality = phase_quality(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         front = phase_front_end(smi, tmp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6929,6 +7239,13 @@ def main() -> int:
             ("b8", "int8_linear", "int8_matmul.py:37"),
             ("b9a", "qkv_int8", "fused_qwen3_int8.py:55"),
             ("b9b", "qwen3_swiglu_q", "fused_qwen3_int8.py:163"))
+    ] + [
+        # B8's fp32 form: launches from phase_quality's --int8-base run
+        row("int8_linear_fp32", "qformer_blocks.cu", "int8_matmul.py:37",
+            quality["b8_fp32"]["launches"], quality["b8_fp32"]["err"],
+            quality["b8_fp32"]["ms"], quality["b8_fp32"]["plain_ms"],
+            quality["b8_fp32"]["bound_ms"], quality["b8_fp32"]["bound_by"],
+            quality["b8_fp32"]["library_ms"], activations="float32")
     ] + [
         row(name, "fused_qformer_vjp.cu", f"fused_qformer_vjp.py:{line}",
             item_trained["launches"][key], b12[key]["err"], b12[key]["ms"],

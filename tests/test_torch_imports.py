@@ -1,7 +1,8 @@
-"""The port imports torch and never JAX, Flax or the JAX package
-``unirec_tpu`` (not even its framework-free modules: the port carries its own
-copies), and builds nothing at import time; every module imports where
-``transformers``, ``tokenizers``, ``peft``, PIL and ``requests`` are absent (the card's
+"""The port imports torch and never JAX, Flax, the JAX package
+``unirec_tpu`` or the JAX scripts of ``scripts/`` (not even their
+framework-free parts: the port carries its own copies), and builds nothing
+at import time; every module imports where ``transformers``,
+``tokenizers``, ``peft``, PIL and ``requests`` are absent (the card's
 machine has none of them); its kernel wrappers take the plain versions for
 CPU tensors and leave their launch counters at 0.  The entry points run on
 the card unless asked for the CPU."""
@@ -34,7 +35,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
-                                    "unirec_tpu"))
+                                    "unirec_tpu", "scripts"))
 import json
 print(json.dumps({"modules": names, "framework": bad}))
 """
@@ -69,6 +70,12 @@ EXPECTED_MODULES = {
     "unirec_tpu_torch.ops.sharded_attention",
     # A9's tensor and pipeline parallelism
     "unirec_tpu_torch.parallel.tensor", "unirec_tpu_torch.parallel.pipeline",
+    # the quality gates and the convergence demo
+    "unirec_tpu_torch.scripts", "unirec_tpu_torch.scripts.convergence_demo",
+    "unirec_tpu_torch.scripts.int8_base_convergence",
+    "unirec_tpu_torch.scripts.measure_int8_quality",
+    "unirec_tpu_torch.scripts.measure_serving_quality",
+    "unirec_tpu_torch.scripts.quality_gates",
 }
 
 
@@ -104,7 +111,11 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
                                    "generate_all_item_embeddings",
                                    "train_cli", "train_cli_item_qformer",
                                    "train_cli_user_qformer", "user_embeddings",
-                                   "text_backend", "image_backend"])
+                                   "text_backend", "image_backend",
+                                   "measure_int8_quality",
+                                   "measure_serving_quality",
+                                   "convergence_demo",
+                                   "int8_base_convergence"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Without a card, an entry point that was not asked for the CPU raises
     and names the flag; nothing falls back to the CPU quietly."""
@@ -140,6 +151,12 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
                 ["--qformer-checkpoint", "q", "--cache-dir", "c",
                  "--item-dict", "i", "--catalog", "e", "--histories",
                  str(tmp_path / "h.json"), "--output", "o"])
+        elif entry in ("measure_int8_quality", "measure_serving_quality",
+                       "convergence_demo", "int8_base_convergence"):
+            import importlib
+
+            importlib.import_module(
+                f"unirec_tpu_torch.scripts.{entry}").main([])
         elif entry == "text_backend":
             from unirec_tpu_torch.encoders.backends import Qwen3TextBackend
 

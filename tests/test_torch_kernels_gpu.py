@@ -626,6 +626,33 @@ def test_b8_matches_plain(hopper, rows, k, n):
     assert (out[7] == 0).all()
 
 
+@pytest.mark.parametrize("rows,k,n", [(768, 64, 64), (768, 64, 32),
+                                      (768, 128, 64), (4096, 1024, 2048),
+                                      (1000, 1024, 2048)])
+def test_b8_fp32_matches_plain(hopper, rows, k, n):
+    """B8's fp32 form (float32 activations quantized from their float32
+    values, float32 out) gives its plain version's bits, at the int8-base
+    convergence model's projections (batch 8 x L 96) and at the serving
+    shape, repeats them, and is what ``int8_linear_ste`` runs forward on a
+    float32 CUDA tensor."""
+    from unirec_tpu_torch.ops.int8_ste import int8_linear_ste
+
+    g = hopper
+    x = torch.randn(rows, k, device="cuda", generator=g)
+    x[7] = 0.0  # a row below the absmax floor
+    wq, ws = _q(g, n, k, std=0.03)
+    before = int8_linear.launches
+    out = int8_linear(x, wq, ws, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert int8_linear.launches == before + 1
+    assert out.dtype == torch.float32
+    assert torch.equal(out, int8_linear_plain(x, wq, ws, torch.float32))
+    assert torch.equal(out, int8_linear(x, wq, ws, out_dtype=torch.float32))
+    assert (out[7] == 0).all()
+    assert torch.equal(int8_linear_ste(x[None], wq, ws)[0], out)
+    assert int8_linear.launches == before + 3
+
+
 @pytest.mark.parametrize("rows", [4096, 1024])
 def test_b9a_matches_plain(hopper, rows):
     g = hopper

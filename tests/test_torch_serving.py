@@ -94,6 +94,20 @@ def test_recommend_matches_jax(recommenders):
         assert len(g) == 5 and not {r.item_id for r in g} & set(h)
 
 
+def test_submit_phase_seconds_match_jax(recommenders):
+    """``submit_phase_s``: the JAX class's keys, both phases' host seconds
+    positive after ``recommend``, and ``clear()`` empties it."""
+    jrec, prec = recommenders
+    for rec in (jrec, prec):
+        rec.submit_phase_s.clear()
+        rec.recommend(HISTORIES, k=5)
+    assert set(prec.submit_phase_s) == set(jrec.submit_phase_s) == {
+        "encode", "retrieve"}
+    assert all(v > 0 for v in prec.submit_phase_s.values())
+    prec.submit_phase_s.clear()
+    assert dict(prec.submit_phase_s) == {}
+
+
 def test_recommend_quantized_catalog_matches_jax(fixture_data, recommenders):
     """quantize_catalog=True on both sides: ranking over the int8 catalog
     (B11's plain path here) gives the JAX recommender's ids and scores."""

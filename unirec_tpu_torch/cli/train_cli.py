@@ -103,9 +103,6 @@ import json
 import os
 import sys
 
-# the JAX CLI's subcommands still to port and the ROADMAP.md queue of each
-NOT_PORTED: dict = {}
-
 
 def _joint_cfg_meta(qwen_cfg, qformer_cfg) -> dict:
     """Config dicts recorded in a joint checkpoint's meta."""
@@ -310,15 +307,7 @@ def main(argv=None) -> int:
     _joint_parser(sub)
     _item_parsers(sub)
     _export_parsers(sub)
-    for name in NOT_PORTED:
-        sub.add_parser(name, add_help=False)
-    args, rest = p.parse_known_args(argv)
-    if args.cmd in NOT_PORTED:
-        print(f"train {args.cmd}: not ported yet (ROADMAP.md queue A, "
-              f"{NOT_PORTED[args.cmd]})", file=sys.stderr)
-        return 2
-    if rest:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = p.parse_args(argv)
     if args.cmd in _TRAINERS:
         return _run_parallel(args)
     return {"evaluate": _run_evaluate,

@@ -83,6 +83,7 @@
 //                     same rounding point; B4 and B5 take EPQ_BIAS_F32)
 //   EPQ_PLAIN         no bias -> bf16 (the Qwen3 projections B8, B9a and
 //                     B9b's down projection)
+//   EPQ_PLAIN_F32     no bias -> fp32 (B8's fp32 form)
 //   EPQ_SWIGLU        W [2N, K] holds gate rows, then up rows (B9b's gate|up
 //                     product); C [M, N] fp32 = h = (g * sigmoid(g)) * u of
 //                     the dequantized g and u, with each row's max |h| raised
@@ -149,7 +150,8 @@ enum {
   EPQ_CHUNKED_RESID,
   EPQ_PLAIN,
   EPQ_SWIGLU,
-  EPQ_CHUNKED
+  EPQ_CHUNKED,
+  EPQ_PLAIN_F32
 };
 
 // what an epilogue reads besides the sums (unused fields may be null)
@@ -259,7 +261,7 @@ template <int EPI>
 __host__ __device__ constexpr bool wg_f32_out() {
   return EPI == WG_F32 || EPI == WG_BIAS_RESID || EPI == EPQ_BIAS_F32 ||
          EPI == EPQ_BIAS_RESID || EPI == EPQ_CHUNKED_RESID || EPI == EPQ_SWIGLU ||
-         EPI == EPQ_CHUNKED;
+         EPI == EPQ_CHUNKED || EPI == EPQ_PLAIN_F32;
 }
 
 // output columns of a block tile of BN product columns (EPQ_SWIGLU pairs a
@@ -304,7 +306,7 @@ __device__ __forceinline__ void wg_stage(const Acc (&acc)[NA], const float (&fac
     if (col >= N) continue;
     const bool two = col + 1 < N;
     float bs[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
-    if constexpr (EPI != WG_F32 && EPI != EPQ_PLAIN) {
+    if constexpr (EPI != WG_F32 && EPI != EPQ_PLAIN && EPI != EPQ_PLAIN_F32) {
       bs[0] = ep.bias[col];
       bs[1] = two ? ep.bias[col + 1] : 0.f;
     }
@@ -331,7 +333,7 @@ __device__ __forceinline__ void wg_stage(const Acc (&acc)[NA], const float (&fac
           else
             f = __fmul_rn(__int2float_rn(acc[i]), rs[hf]);
           v[e] = __fmul_rn(f, cs[e]);
-          if constexpr (EPI != EPQ_PLAIN) v[e] = __fadd_rn(v[e], bs[e]);
+          if constexpr (EPI != EPQ_PLAIN && EPI != EPQ_PLAIN_F32) v[e] = __fadd_rn(v[e], bs[e]);
         }
       }
       if constexpr (EPI == WG_BIAS_GELU) {

@@ -670,6 +670,19 @@ extern "C" int unirec_int8_linear(const void* x, const void* wq, const float* ws
   return (int)gemm_q<EPQ_PLAIN>(xq, wq, epq(xs, 1, ws, nullptr), out, m, n, k, s);
 }
 
+// B8 at float32 activations (the W8A8 training forward of `train joint
+// --int8-base` at float32 compute): x [m, k] fp32 quantized per row from
+// its fp32 values (a cast to bf16 first would change the codes), out [m, n]
+// fp32 = (float(acc) * rs) * ws through EPQ_PLAIN_F32.
+extern "C" int unirec_int8_linear_f32(const float* x, const void* wq, const float* ws,
+                                      float* out, void* xq, float* xs, int m, int n, int k,
+                                      void* stream) {
+  if (!gemm_wide_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  UNIREC_TRY((row_quant<float, true>(x, xq, xs, m, k, k, s)));
+  return (int)gemm_q<EPQ_PLAIN_F32>(xq, wq, epq(xs, 1, ws, nullptr), out, m, n, k, s);
+}
+
 // B9b: the whole SwiGLU MLP.  x, out [rows, d] bf16; wgu [2 * inter, d] int8
 // (gate rows, then up rows) with sgu [2 * inter]; wd [d, inter] int8, sd [d];
 // scratch xq [rows, d] int8, xs [rows], h [rows, inter] fp32, hq [rows,

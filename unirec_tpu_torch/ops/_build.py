@@ -141,6 +141,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_resid_ln_two_pass.restype = _I
     lib.unirec_int8_linear.argtypes = [_P] * 6 + [_I] * 3 + [_P]
     lib.unirec_int8_linear.restype = _I
+    lib.unirec_int8_linear_f32.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.unirec_int8_linear_f32.restype = _I
     lib.unirec_qwen3_swiglu_q.argtypes = [_P] * 11 + [_I] * 3 + [_P]
     lib.unirec_qwen3_swiglu_q.restype = _I
     lib.unirec_b12_self_fwd.argtypes = [_P] * 9 + [_I] * 4 + [_F, _P]

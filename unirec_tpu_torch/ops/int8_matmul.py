@@ -23,8 +23,11 @@ not of the computation; on the card B8 takes every shape its tiles take
 (``supports_int8_linear``), so batch-8 serving (4096 rows) runs it too.
 ``PERF.md`` holds its times against the plain version at 4096 and 16384 rows.
 
-The wrapper launches the kernel for a CUDA tensor (bfloat16 in and out;
-anything else raises) and takes the plain version for a CPU tensor.
+The wrapper launches the kernel for a CUDA tensor (bfloat16 in and out,
+or float32 in and out: the fp32 form, whose rows are quantized from their
+float32 values and whose output is the float32 dequantized product, for the
+W8A8 training forward at float32 compute; anything else raises) and takes
+the plain version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ def int8_linear_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
 def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """B8: x ``[M, K]`` -> ``[M, N]`` in ``out_dtype``.  On the card x and
-    the output are bfloat16, wq int8 ``[N, K]``, ws float32 ``[N]``."""
+    the output are both bfloat16 or both float32, wq int8 ``[N, K]``, ws
+    float32 ``[N]``."""
     if x.dim() != 2:
         raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
     m, k = x.shape
@@ -85,13 +89,35 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     _expect(wq, (n, k), "wq")
     _expect(ws, (n,), "ws")
     if not _on_card(x, "int8_linear", {"x": x}, {"ws": ws},
-                    codes={"wq": wq}, dtypes=(torch.bfloat16,)):
+                    codes={"wq": wq},
+                    dtypes=(torch.bfloat16, torch.float32)):
         return int8_linear_plain(x, wq, ws, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"int8_linear: the kernel writes bfloat16, got "
-                        f"out_dtype {out_dtype}")
-    out = launch_int8_linear(x, wq, ws, "int8_linear")
+    if out_dtype != x.dtype:
+        raise TypeError(f"int8_linear: the kernel writes x's dtype "
+                        f"{x.dtype}, got out_dtype {out_dtype}")
+    if x.dtype == torch.float32:
+        out = _launch_int8_linear_f32(x, wq, ws)
+    else:
+        out = launch_int8_linear(x, wq, ws, "int8_linear")
     int8_linear.launches += 1
+    return out
+
+
+def _launch_int8_linear_f32(x: torch.Tensor, wq: torch.Tensor,
+                            ws: torch.Tensor) -> torch.Tensor:
+    """B8's fp32 form on checked float32 CUDA inputs."""
+    m, k = x.shape
+    n = wq.shape[0]
+    if not supports_int8_linear(m, k, n):
+        raise ValueError(f"int8_linear: [{m}, {k}] x [{k}, {n}] is not a "
+                         "shape the kernel takes")
+    out = torch.empty(m, n, device=x.device, dtype=torch.float32)
+    xq = torch.empty(m, k, device=x.device, dtype=torch.int8)
+    xs = torch.empty(m, device=x.device, dtype=torch.float32)
+    err = load_kernels().lib.unirec_int8_linear_f32(
+        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), xs.data_ptr(), m, n, k, _stream(x))
+    check(err, "int8_linear")
     return out
 
 

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -110,6 +112,11 @@ class Recommender:
             qweights = quantize_qwen3_weights(model)
             set_qweights(model, qweights)
         self.precision = precision
+        # host wall seconds of each phase of ``recommend_submit`` ("encode",
+        # "retrieve"), for the serving benches' attribution; the lock: the
+        # float += is not atomic under concurrent ``recommend`` callers
+        self.submit_phase_s: Dict[str, float] = collections.defaultdict(float)
+        self._phase_lock = threading.Lock()
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.tokenizer = tokenizer
@@ -310,8 +317,12 @@ class Recommender:
                          k: int = 10, exclude_history: bool = True):
         """Host assembly and device work for ``recommend``; returns a handle
         for ``recommend_finalize``.  Retrieval fetches ``k`` plus the history
-        length so excluded items still leave ``k`` answers."""
+        length so excluded items still leave ``k`` answers.
+        ``submit_phase_s`` accumulates the host time of its encode and
+        retrieve phases (asynchronous launches: host cost only)."""
+        t0 = time.perf_counter()
         chunks = self._encode_user_chunks(histories)
+        t1 = time.perf_counter()
         fetch = k + (self.jc.num_history_items if exclude_history else 0)
         found = []  # per dp shard: its users of every chunk, on its device
         for j, rep in enumerate(self._shards):
@@ -322,6 +333,10 @@ class Recommender:
                                                  k=fetch))
             else:
                 found.append(retrieve_top_k(users, rep.catalog, k=fetch))
+        t2 = time.perf_counter()
+        with self._phase_lock:
+            self.submit_phase_s["encode"] += t1 - t0
+            self.submit_phase_s["retrieve"] += t2 - t1
         return (found, [n for _, n in chunks], histories, k, exclude_history)
 
     def recommend_finalize(self, handle) -> List[List[Recommendation]]:
