@@ -3512,8 +3512,8 @@ def wide_causal(gen, hd: int, dtype) -> dict:
                         bound_ms=b_dkv[0], bound_by=b_dkv[1])}
 
 
-def wide_b14p(gen, dtype, res) -> None:
-    """B14p at WIDE_CROSS's shape in per-head layout, as ``phase_b14p``
+def wide_b14p(gen, dtype, res, b=WIDE_CROSS["B"]) -> None:
+    """B14p at WIDE_CROSS's shape (``b`` users) in per-head layout, as ``phase_b14p``
     holds it: driven through ``flash_cross_attention_vjp`` and
     ``torch.autograd.grad`` (counted: one launch each way), against the
     plain path; the kernels against their plain versions, repeats
@@ -3522,7 +3522,7 @@ def wide_b14p(gen, dtype, res) -> None:
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
-    b, lkv, h, hd = (WIDE_CROSS[x] for x in ("B", "LKV", "H", "HD"))
+    lkv, h, hd = (WIDE_CROSS[x] for x in ("LKV", "H", "HD"))
     lq = 64
     where = f"{dtype} B={b} H={h} Lq={lq} Lkv={lkv} hd={hd}"
     q, k, v, do, bias = b14p_inputs(gen, b, h, lq, lkv, hd, dtype)
@@ -3598,7 +3598,9 @@ def phase_wide_heads(gen) -> dict:
     memory rows, 2 heads of 512; ~15% masked keys and one user masked
     whole), fp32 and bf16: each held to its plain version with phase 3's
     gates and repeated for identical bits, timed against its bound and SDPA
-    (naming SDPA's backend)."""
+    (naming SDPA's backend).  B13 and B14 also at 2 heads of 320, held; and
+    the bf16 B13, B14 and B14p at the user step's USER_BATCH users, held and
+    timed (``out["users"]``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"causal": {(hd, dtype): wide_causal(gen, hd, dtype)
                       for hd in WIDE_HDS
@@ -3625,6 +3627,32 @@ def phase_wide_heads(gen) -> dict:
         wide_b14p(gen, dtype, res)
         out[dtype] = res
         torch.cuda.empty_cache()
+    # B13 / B14 at hd 320 (two chunks, zero-padded), held without timing;
+    # then the bf16 rows at the user step's 64 users, timed
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash_cross(gen, dtype, b, lkv, h, 320, {
+            n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")})
+        torch.cuda.empty_cache()
+    b16, users = torch.bfloat16, USER_BATCH
+    res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd", "b14p_fwd",
+                                     "b14p_bwd")}
+    c = check_flash_cross(gen, b16, users, lkv, h, hd, res)
+    mask = c["bias"].to(b16)
+    qh, kh, vh = c["qh"], c["kh"], c["vh"]
+    res["sdpa_backend"] = sdpa_backend(qh, kh, vh, mask)
+    library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+               "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+               "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
+                                       c["do"].reshape(users, 64, h, hd)
+                                       .transpose(1, 2))}
+    time_runs(c["runs"], library, flash_bounds(users, 64, lkv, 2, h), res,
+              f"{b16} B={users} Lq=64 Lkv={lkv} H={h} hd={hd} (SDPA backend "
+              f"{res['sdpa_backend']})")
+    del c, qh, kh, vh, library
+    torch.cuda.empty_cache()
+    wide_b14p(gen, b16, res, b=users)
+    out["users"] = res
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5785,27 +5813,6 @@ def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
         raise AssertionError(f"user step launches {l_k} / {l_p}, want "
                              f"{want_k} / {want_p}")
     del g_k, g_p, g_32
-    if heads is not None:  # the plain model's evaluation forward: B13
-        from unirec_tpu_torch.train.user_qformer import (
-            batch_to_device,
-            user_forward,
-        )
-
-        st, _ = trainer(False)
-        zero_counts()
-        st.model.eval()
-        with torch.no_grad():
-            pred = user_forward(st.model, batch_to_device(batches[0], "cuda"))
-        torch.cuda.synchronize()
-        l_eval = launches_now()
-        log(f"user evaluation forward at {heads} heads: launches {l_eval}")
-        if (l_eval != user_launches(n_layers, 0, 1, False)
-                or not bool(torch.isfinite(pred).all())):
-            raise AssertionError(f"user evaluation at {heads} heads: "
-                                 f"launches {l_eval}")
-        del st, pred, batches, tokens
-        release()
-        return {"launches": {**l_k, "b13": l_eval["b13"]}}
 
     def step_ms(kernels: bool):
         st, step = trainer(kernels)
@@ -5839,6 +5846,7 @@ def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
             fb.append((marks[-2] - t0) * 1e3)
             op.append((marks[-1] - marks[-2]) * 1e3)
         del st.optimizer.step
+        idle = None
         if kernels:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -5850,6 +5858,7 @@ def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
                 wall = (time.perf_counter() - t0) * 1e3
             rows = device_time_by_kernel(prof)
             total = sum(t for _, t in rows)
+            idle = max(0.0, 1 - total / wall) if rows else None
             log(f"[{smi}] one --flash --fused user step under torch.profiler:"
                 f" {total:.2f} ms of device time in {len(rows)} kernels over "
                 f"{wall:.1f} ms of wall time (device idle "
@@ -5858,16 +5867,56 @@ def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
                 + ("" if rows else " (no device rows: not measured)"))
             for name, t in rows[:12]:
                 log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
-            b14 = {kind: sum(t for name, t in rows if f"flash_cross_{kind}"
-                             in name) for kind in ("fwd", "bwd")}
-            log(f"  B14 (flash_cross.cu) in that step: forward "
-                f"{b14['fwd']:.3f} ms, backward {b14['bwd']:.3f} ms, "
+            # B14: the kernels of flash_cross.cu, or above hd 256 the
+            # chunked form's (flash_chunked.cuh)
+            b14 = {kind: sum(t for name, t in rows if any(
+                k in name for k in names)) for kind, names in (
+                    ("fwd", ("flash_cross_fwd", "chunk_fwd")),
+                    ("bwd", ("flash_cross_bwd", "flash_cross_dkv_sum",
+                             "chunk_bwd_rows", "chunk_dkv_sum")))}
+            log(f"  B14 in that step: forward {b14['fwd']:.3f} ms, backward "
+                f"{b14['bwd']:.3f} ms, "
                 f"{100 * sum(b14.values()) / max(total, 1e-9):.1f}% of the "
                 "device time")
         del st, step
         release()
         return dict(ms=ms, peak_gb=peak, fwd_bwd_ms=float(np.median(fb)),
-                    optimizer_ms=float(np.median(op)))
+                    optimizer_ms=float(np.median(op)), idle=idle)
+
+    if heads is not None:  # the plain model's evaluation forward: B13
+        from unirec_tpu_torch.train.user_qformer import (
+            batch_to_device,
+            user_forward,
+        )
+
+        st, _ = trainer(False)
+        zero_counts()
+        st.model.eval()
+        with torch.no_grad():
+            pred = user_forward(st.model, batch_to_device(batches[0], "cuda"))
+        torch.cuda.synchronize()
+        l_eval = launches_now()
+        log(f"user evaluation forward at {heads} heads: launches {l_eval}")
+        if (l_eval != user_launches(n_layers, 0, 1, False)
+                or not bool(torch.isfinite(pred).all())):
+            raise AssertionError(f"user evaluation at {heads} heads: "
+                                 f"launches {l_eval}")
+        del st, pred
+        release()
+        t = step_ms(True)
+        log(f"[{smi}] user step at batch {USER_BATCH}, UserQFormerConfig("
+            f"num_attention_heads={heads}) (head dim "
+            f"{uc0.hidden_size // heads}), --flash --fused, bf16 compute with "
+            f"float32 masters (host clock over 5 synced steps, the batch's "
+            f"copy to the card and the optimizer included; split over "
+            f"{len(batches) - 7} steps): {t['ms']:.1f} ms (forward + backward "
+            f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}), "
+            f"device idle " + ("not measured" if t["idle"] is None
+                               else f"{100 * t['idle']:.1f}%")
+            + f", peak {t['peak_gb']:.2f} GB")
+        del batches, tokens
+        release()
+        return {"launches": {**l_k, "b13": l_eval["b13"]}, "ms": t}
 
     times = {"plain": step_ms(False), "--flash --fused": step_ms(True),
              "plain (again)": step_ms(False)}
@@ -7354,7 +7403,11 @@ def main() -> int:
             at["bound_ms"], at["bound_by"], at["library_ms"], head_dim=512,
             sdpa_backend=wide[b16]["sdpa_backend"],
             **{f"{k}_fp32": at32[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "library_ms")}))
+                                              "library_ms")},
+            **{f"{k}_{USER_BATCH}users": wide["users"][key][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{f"sdpa_backend_{USER_BATCH}users":
+               wide["users"]["sdpa_backend"]}))
     log(f"(c) LM-head decoding tokens/s: {json.dumps(lm['tokens_per_s'])}, "
         f"bf16 agreement {lm['bf16_agreement']:.4f}")
     log(json.dumps({"kernels": kernels}))

@@ -6,7 +6,9 @@ card sees them (no timing).
         [--parent OTHER_ROOT]
 
 Head dims above 256 (``--hd 320,512``) run the chunked form of
-``flash_chunked.cuh`` (2 chunks of 256; about seven minutes for both).
+``flash_chunked.cuh`` (2 chunks of 256; in bf16 also B13 / B14 over 300
+keys, where the forward splits the keys over two blocks and merges them;
+about fifteen minutes for both).
 
 The sources of ``unirec_tpu_torch/csrc`` are compiled with ``g++`` against
 the headers beside this script (``emu.h``: CUDA threads as OS threads,
@@ -20,7 +22,9 @@ with GQA 2:1 and 1:1 over padded rows.  Each against its plain version
 (max|d| / max|ref|: 1e-5 for float32 outputs, 2e-2 for bf16 ones), the
 masked user's uniform average, exactly zero dk / dv at masked keys,
 identical bits on a repeat.  With ``--parent``, the float32 B13 / B14
-outputs at a head dim both trees build must equal OTHER_ROOT's bit for bit.
+outputs (merged heads, one q tile) must equal OTHER_ROOT's bit for bit,
+its C entries run on the same inputs zero-padded as the wrappers pad
+them.
 A few seconds a case; hd 256 takes about a minute.
 """
 
@@ -150,6 +154,7 @@ class Emulated:
         torch.cuda.current_stream = (
             lambda device=None: types.SimpleNamespace(cuda_stream=None))
         fc._check_kernel_inputs = lambda *a, **k: None
+        pa._sm_count = lambda index: 132  # an H100's SMs (key splits)
         pad = pa._pad_heads
 
         def pad_and_register(t, heads, hd):
@@ -238,9 +243,10 @@ def check_cross(emu, dtype, hd, b, h, lq, lkv, merged, parent=None):
         raise AssertionError("a repeat gave other bits")
     same = ""
     if parent is not None and dtype == torch.float32 and merged:
-        same = " parent bits " + str(_parent_bits(parent, q, k, v, do, bias32,
-                                                  dsum, m, l, h, hd,
-                                                  (o, m, l, *grads)))
+        if not _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd,
+                            (o, m, l, *grads)):
+            raise AssertionError("float32 outputs are not the parent's bits")
+        same = ", the parent's bits"
     print(f"B13/B14/B14p {str(dtype)[6:]} hd {hd} B {b} H {h} Lq {lq} "
           f"Lkv {lkv} {'merged' if merged else 'per-head'}: max rel "
           f"{max(errs):.1e}{same}", flush=True)
@@ -248,24 +254,38 @@ def check_cross(emu, dtype, hd, b, h, lq, lkv, merged, parent=None):
 
 def _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
     """The other tree's float32 kernels (C entries of that tree's
-    signature) on the same inputs, compared bit for bit."""
+    signature) on the same inputs, zero-padded to the kernels' head dim as
+    the wrappers pad them (``padded_launch``), compared bit for bit."""
     b, lq, _ = q.shape
     lkv = k.shape[1]
     o, m2, l2 = torch.empty_like(q), torch.empty_like(m), torch.empty_like(l)
-    strides = [s for t in (q, k, v, o) for s in fl._heads(t, h).stride()[:3]]
-    parent.emu_clear()
-    err = parent.unirec_flash_cross_fwd(
-        *(t.data_ptr() for t in (q, k, v, bias32, o, m2, l2)), *strides, b, h,
-        lq, lkv, hd, 0, pa.sm_scale(hd), None)
     grads = [torch.empty_like(t) for t in (q, k, v)]
-    strides = [s for t in (q, k, v, do, *grads)
-               for s in fl._heads(t, h).stride()[:3]]
-    err |= parent.unirec_flash_cross_bwd(
-        *(t.data_ptr() for t in (q, k, v, bias32, do, m, l, dsum, *grads)),
-        (ctypes.c_longlong * 21)(*strides), b, h, lq, lkv, hd, 0,
-        pa.sm_scale(hd), None)
-    return err == 0 and all(torch.equal(x, y)
-                            for x, y in zip(ours, (o, m2, l2, *grads)))
+    errs = []
+    parent.emu_clear()
+
+    def fwd(ins, outs, kernel_hd):
+        strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
+        errs.append(parent.unirec_flash_cross_fwd(
+            *(t.data_ptr() for t in (*ins, bias32, outs[0], m2, l2)),
+            *strides, b, h, lq, lkv, kernel_hd, 0, pa.sm_scale(hd), None))
+
+    def bwd(ins, outs, kernel_hd):
+        strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
+        errs.append(parent.unirec_flash_cross_bwd(
+            *(t.data_ptr() for t in (*ins[:3], bias32, ins[3], m, l, dsum,
+                                     *outs)), None,
+            (ctypes.c_longlong * 21)(*strides), b, h, lq, lkv, kernel_hd, 0,
+            pa.sm_scale(hd), None))
+
+    def heads(t):
+        return fl._heads(t, h)
+
+    pa.padded_launch("parent", hd, [(heads(t), None) for t in (q, k, v)],
+                     [(heads(o), None)], fwd)
+    pa.padded_launch("parent", hd, [(heads(t), None) for t in (q, k, v, do)],
+                     [(heads(g), None) for g in grads], bwd)
+    return not any(errs) and all(torch.equal(x, y)
+                                 for x, y in zip(ours, (o, m2, l2, *grads)))
 
 
 def check_causal(emu, dtype, hd, hkv):
@@ -319,7 +339,7 @@ def main() -> int:
         parent.unirec_flash_cross_fwd.argtypes = (
             [P] * 7 + [ctypes.c_longlong] * 12 + [I] * 6 + [ctypes.c_float, P])
         parent.unirec_flash_cross_bwd.argtypes = (
-            [P] * 12 + [I] * 6 + [ctypes.c_float, P])
+            [P] * 13 + [I] * 6 + [ctypes.c_float, P])
     for hd in map(int, args.hd.split(",")):
         for dtype in (torch.bfloat16, torch.float32):
             check_cross(emu, dtype, hd, 3, 2, 64, 130, True, parent)
@@ -327,6 +347,8 @@ def main() -> int:
             check_cross(emu, dtype, hd, 2, 1, 150, 100, False)
             for hkv in (2, 4):
                 check_causal(emu, dtype, hd, hkv)
+            if hd > 256 and dtype == torch.bfloat16:  # the forward's key splits
+                check_cross(emu, dtype, hd, 2, 2, 64, 300, True)
     print("all emulated kernels agree with their plain versions")
     return 0
 

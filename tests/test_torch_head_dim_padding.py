@@ -127,6 +127,62 @@ def test_kernel_head_dim_plans_chunks_above_256(hd, chunks):
     assert not split[..., hd:].any()
 
 
+@pytest.mark.parametrize("hd,limit,dtype,refused", [
+    (512, pa.BF16_BWD_CHUNKS, torch.bfloat16, False),
+    (513, pa.BF16_BWD_CHUNKS, torch.bfloat16, True),
+    (1024, pa.BF16_BWD_CHUNKS, torch.float32, False),
+    (1280, pa.BF16_FWD_CHUNKS, torch.bfloat16, False),
+    (1281, pa.BF16_FWD_CHUNKS, torch.bfloat16, True),
+    (2048, None, torch.bfloat16, False)])
+def test_padded_launch_bounds_bf16_chunks(hd, limit, dtype, refused):
+    """The bf16 chunked kernels hold at most ``bf16_chunks`` chunks in
+    shared memory (the forward 5, the one-pass backward and B7b's dq 2);
+    more raise before the launch, naming the largest head dim.  float32 and
+    a launch without a bound take any count."""
+    t = torch.zeros(1, 2, hd, dtype=dtype)
+    seen = []
+    launch = lambda ins, outs, kernel_hd: seen.append(kernel_hd)  # noqa: E731
+    if refused:
+        with pytest.raises(ValueError, match=f"up to {256 * limit}"):
+            pa.padded_launch("K1", hd, [(t, None)], [], launch, limit)
+        assert seen == []
+    else:
+        pa.padded_launch("K1", hd, [(t, None)], [], launch, limit)
+        assert seen == [256 * -(-hd // 256)]
+
+
+@pytest.mark.parametrize("blocks,key_tiles,sms,want", [
+    (32, 50, 132, 8),    # B13 / B14 at 8 users, 2 heads of 512, 1,600 keys
+    (256, 50, 132, 1),   # the same at 64 users: two blocks an SM already
+    (128, 16, 132, 2),
+    (4, 9, 132, 2),      # at least 4 key tiles a split
+    (8, 3, 132, 1),      # too few key tiles to split
+    (600, 50, 132, 1)])
+def test_chunked_fwd_splits(blocks, key_tiles, sms, want):
+    """The chunked bf16 forward splits each row's keys until its grid holds
+    two blocks an SM, each split at least 4 key tiles long."""
+    assert pa.chunked_fwd_splits(blocks, key_tiles, sms) == want
+
+
+def test_chunked_fwd_plan_sizes_the_merge_scratch(monkeypatch):
+    """(splits, scratch) of a launch: float32 scratch of splits * B * H * Lq
+    * (kernel_hd + 2) for a split bf16 launch at a chunked head dim, (1,
+    None) for float32, for a head dim of one chunk, and for a grid that
+    fills the card."""
+    monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
+    q = torch.zeros(1, dtype=torch.bfloat16)
+    splits, part = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 512)
+    assert splits == 8 and part.dtype == torch.float32
+    assert part.numel() == 8 * 8 * 2 * 64 * (512 + 2)
+    splits, part = pa.chunked_fwd_plan(q, 3, 2, 150, 300, 512)
+    assert splits == 2 and part.numel() == 2 * 3 * 2 * 150 * 514
+    splits, _ = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 1024)
+    assert splits == 4  # 64 blocks at 4 chunks
+    assert pa.chunked_fwd_plan(q, 64, 2, 64, 1600, 512) == (1, None)
+    assert pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 256) == (1, None)
+    assert pa.chunked_fwd_plan(q.float(), 8, 2, 64, 1600, 512) == (1, None)
+
+
 def test_padded_launch_passes_instances_as_they_are():
     t = torch.randn(2, 5, 3 * 32)
     seen = []

@@ -139,7 +139,7 @@ def test_int8_linear_ste_matches_jax(dtype):
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
                 else (jnp.bfloat16, torch.bfloat16))
     jx = jnp.asarray(x).astype(jdt)
-    want = jax_ste(jx, jnp.asarray(kq), jnp.asarray(ks))
+    want = jax.jit(jax_ste)(jx, jnp.asarray(kq), jnp.asarray(ks))
     xt = _t(x).to(tdt).requires_grad_(True)
     got = int8_linear_ste(xt, _t(kq.T), _t(ks))
     assert got.dtype == tdt
@@ -151,6 +151,25 @@ def test_int8_linear_ste_matches_jax(dtype):
         (got * _t(r)).sum().backward()
         np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx),
                                    atol=GRAD_ATOL, rtol=0)
+
+
+def test_int8_linear_ste_row_scale_is_the_jitted_form():
+    """The per-projection int8 forward off the TPU (C-18): under jit, as
+    every JAX caller runs it, XLA computes the row scale ``absmax / 127.0``
+    as ``absmax * fl(1 / 127)``; rows where that is not the quotient get
+    other dequantized outputs (and, near a rounding boundary, other codes)
+    from the quotient form.  Bit for bit against the jitted JAX function,
+    over rows that include such scales."""
+    rng = np.random.RandomState(11)
+    x = (rng.randn(256, 64) * rng.uniform(1e-3, 30.0, (256, 1))).astype(
+        np.float32)
+    absmax = np.maximum(np.abs(x).max(1), np.float32(1e-6))
+    assert (absmax / np.float32(127.0)
+            != absmax * np.float32(1.0 / 127.0)).sum() >= 10
+    kq, ks = _quant_cols(rng, 64, 48)
+    want = jax.jit(jax_ste)(jnp.asarray(x), jnp.asarray(kq), jnp.asarray(ks))
+    got = int8_linear_ste(_t(x), _t(kq.T), _t(ks))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_int8_linear_fused_ste_matches_jax():

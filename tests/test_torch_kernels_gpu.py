@@ -80,7 +80,7 @@ def hopper():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-CAUSAL_HEAD_DIMS = (16, 32, 64, 128, 8, 24, 256, 320, 512)
+CAUSAL_HEAD_DIMS = (16, 32, 64, 128, 8, 24, 256, 320, 512, 300)
 
 
 @pytest.mark.parametrize("hd", CAUSAL_HEAD_DIMS)
@@ -1068,7 +1068,7 @@ def test_flash_cross_wrappers_refuse_what_the_kernels_do_not_take(hopper):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 128, 8, 24, 256, 512])
+@pytest.mark.parametrize("hd", [32, 128, 8, 24, 256, 512, 264])
 def test_b13_b14_take_other_head_dims(hopper, dtype, hd):
     """The streaming kernels at other head dims of a width of 1024 (hd 32,
     128, 256, and 512 in two chunks; 8 zero-padded to 16; hd 64 above) and
@@ -1117,8 +1117,14 @@ def _b14p_inputs(gen, b, h, lq, lkv, hd, dtype):
 @pytest.mark.parametrize("b,h,lq,lkv,hd", [(8, 16, 64, 1600, 64),
                                            (4, 16, 64, 1000, 64),
                                            (2, 3, 16, 384, 32),
-                                           (2, 2, 5, 200, 32)],
-                         ids=["user_shape", "ragged", "jax_test", "odd"])
+                                           (2, 2, 5, 200, 32),
+                                           (64, 2, 64, 1600, 512),
+                                           (4, 2, 1, 700, 512),
+                                           (2, 2, 150, 400, 512),
+                                           (4, 2, 64, 1000, 264)],
+                         ids=["user_shape", "ragged", "jax_test", "odd",
+                              "hd512_user_shape", "hd512_one_query",
+                              "hd512_three_q_tiles", "hd264"])
 def test_b14p_fwd_bwd_match_plain(hopper, dtype, b, h, lq, lkv, hd):
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
@@ -1154,6 +1160,114 @@ def test_b14p_fwd_bwd_match_plain(hopper, dtype, b, h, lq, lkv, hd):
     # the fully masked user averages its keys
     torch.testing.assert_close(o[1], v[1].float().mean(1, keepdim=True)
                                .expand(h, lq, hd), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b13_b14_chunked_at_the_user_shape(hopper, dtype):
+    """The chunked form at the 2-head user step's shape (64 users, 64
+    queries over 1,600 rows, 2 heads of 512, merged heads; ~15% masked keys,
+    user 1 masked whole): B13 and B14's forward and one-pass backward
+    against their plain versions, (m, l) from the chunk-0 blocks to 1e-5,
+    the masked user's uniform average, masked keys' zero dk / dv, identical
+    bits on a repeat."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    b, lq, lkv, h, hd = 64, 64, 1600, 2, 512
+    q, k3, v3, do, bias = _flash_inputs(hopper, b, lq, lkv, dtype, d=h * hd)
+    qh, kh, vh = (pa.split_heads(t, h) for t in (q, k3, v3))
+    out = pa.flash_cross_attention(qh, kh, vh, bias)
+    _check_kernel("B13", out, pa.flash_cross_attention_plain(qh, kh, vh, bias))
+    assert torch.equal(out, pa.flash_cross_attention(qh, kh, vh, bias))
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    o, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, h)
+    ro, rm, rl = fl.flash_cross_fwd_plain(q, k3, v3, bias32, h)
+    _check_kernel("B14 o", o, ro)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    assert all(torch.equal(x, y) for x, y in
+               zip((o, m, l), fl.flash_cross_fwd(q, k3, v3, bias32, h)))
+    torch.testing.assert_close(
+        o[1].reshape(lq, h, hd),
+        v3[1].float().reshape(lkv, h, hd).mean(0, keepdim=True)
+        .expand(lq, h, hd), atol=2e-2, rtol=0)
+    dsum = fl.attention_dsum(do, o, h)
+    got = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, h)
+    ref = fl.flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, h)
+    for name, g, r in zip(("dq", "dk3", "dv3"), got, ref):
+        _check_kernel(f"B14 {name}", g, r)
+    again = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, h)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    masked = bias32 != 0
+    masked[1] = False
+    for g in got[1:]:
+        assert (g[masked] == 0).all()
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)], ids=["gqa2", "mha"])
+@pytest.mark.parametrize("hd", [300, 512])
+def test_k1_b7b_chunked_bf16_stats_and_repeats(hopper, hq, hkv, hd):
+    """K1 and B7b's dq in the chunked bf16 form over padded rows, GQA 2:1
+    and 1:1: (m, l) of the chunk-0 blocks against the plain version at the
+    B14p test's tolerances (m rtol 1e-5 with atol 1e-4, where m is near 0;
+    l rtol 1e-4), o, dq, dk and dv at the bf16 gates, identical bits on a
+    repeat."""
+    b, l = 3, 300
+    q, k, v, do = (torch.randn(b, l, n * hd, device="cuda", generator=hopper)
+                   .to(torch.bfloat16) for n in (hq, hkv, hkv, hq))
+    lengths = torch.tensor([300, 129, 1], device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    ro, rm, rl = fc.flash_causal_attention_fwd_plain(
+        q.float(), k.float(), v.float(), mask, hq, hkv)
+    _close(o, ro, 1e-2, hd)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(den, rl, rtol=1e-4, atol=0)
+    assert all(torch.equal(x, y) for x, y in zip(
+        (o, m, den), fc._k1(q, k, v, mask, hq, hkv, stats=True)))
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    dq = fc.flash_causal_bwd_dq(*args)
+    dk, dv = fc.flash_causal_bwd_dkv(*args)
+    want = fc.flash_causal_attention_bwd_plain(
+        q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum, hq,
+        hkv)
+    _close(dq, want[0], 2e-2, hd, _single_key_rows(mask, hq))
+    _close(dk, want[1], 2e-2, hd, _lone_key_rows(mask, hkv))
+    _close(dv, want[2], 2e-2, hd)
+    assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
+
+
+def test_chunked_bf16_refuses_more_chunks_than_it_holds(hopper):
+    """bf16 above BF16_BWD_CHUNKS chunks: the forward runs (its q tile's 3
+    chunks fit), the backward kernels raise before a launch; float32 takes
+    the head dim."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    hd, hq, hkv, b, l = 768, 2, 1, 2, 100
+    q, k, v, do = (torch.randn(b, l, n * hd, device="cuda", generator=hopper)
+                   .to(torch.bfloat16) for n in (hq, hkv, hkv, hq))
+    mask = torch.ones(b, l, device="cuda")
+    o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    _close(o, fc.flash_causal_attention_fwd_plain(
+        q.float(), k.float(), v.float(), mask, hq, hkv)[0], 1e-2, hd)
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    before = fc.flash_causal_bwd_dq.launches
+    with pytest.raises(ValueError, match="up to 512"):
+        fc.flash_causal_bwd_dq(q, k, v, mask, do, m, den, dsum, hq, hkv)
+    assert fc.flash_causal_bwd_dq.launches == before
+    bias32 = pa.key_bias(None, b, l, q.device)
+    o2, m2, l2 = fl.flash_cross_fwd(q, q, q, bias32, hq)
+    with pytest.raises(ValueError, match="up to 512"):
+        fl.flash_cross_bwd(q, q, q, bias32, do, m2, l2,
+                           fl.attention_dsum(do, o2, hq), hq)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o3, m3, l3 = fc._k1(*f32[:3], mask, hq, hkv, stats=True)
+    dq = fc.flash_causal_bwd_dq(*f32[:3], mask, f32[3], m3, l3,
+                                fc.attention_dsum(f32[3], o3, hq).contiguous(),
+                                hq, hkv)
+    assert bool(torch.isfinite(dq).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

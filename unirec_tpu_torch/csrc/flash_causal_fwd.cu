@@ -474,10 +474,11 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh
-// (cudaErrorInvalidValue otherwise; the wrapper pads to one first).  scale:
-// the softmax scale, 1 / sqrt of the true head dim.  m_out and l_out are
-// both null (inference) or both [B, L, Hq] float (training).
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh,
+// or C * 256 (the chunked form; cudaErrorInvalidValue otherwise: the wrapper
+// pads to one first).  scale: the softmax scale, 1 / sqrt of the true head
+// dim.  m_out and l_out are both null (inference) or both [B, L, Hq] float
+// (training).
 extern "C" int unirec_flash_causal_fwd(const void* q, const void* k, const void* v,
                                        const float* mask, void* out, float* m_out,
                                        float* l_out, int B, int L, int Hq, int Hkv,
@@ -490,13 +491,16 @@ extern "C" int unirec_flash_causal_fwd(const void* q, const void* k, const void*
   if (chunked::is_chunked(head_dim)) {
     const chunked::Strides qs = chunked::merged(L, Hq, head_dim),
                            ks = chunked::merged(L, Hkv, head_dim);
+    // one key split: K1's merge launch costs more than its split saves
     return (int)(dtype == 0
                      ? chunked::launch_fwd<float, float, true>(q, k, v, mask, out, m_out, l_out,
-                                                               qs, ks, ks, qs, B, Hq, Hq / Hkv,
-                                                               L, L, head_dim, scale, s)
+                                                               nullptr, qs, ks, ks, qs, B, Hq,
+                                                               Hq / Hkv, L, L, head_dim, 1,
+                                                               scale, s)
                      : chunked::launch_fwd<bf16, bf16, true>(q, k, v, mask, out, m_out, l_out,
-                                                             qs, ks, ks, qs, B, Hq, Hq / Hkv, L,
-                                                             L, head_dim, scale, s));
+                                                             nullptr, qs, ks, ks, qs, B, Hq,
+                                                             Hq / Hkv, L, L, head_dim, 1,
+                                                             scale, s));
   }
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;

@@ -1,36 +1,102 @@
 // Head dimensions above 256 in the flash kernels K1, B7b, B13, B14 and B14p:
 // the head-dim-chunked form.
 //
-// The JAX kernels take any head dim (unirec_tpu/ops/flash_causal_vjp.py pads
-// lanes; ops/flash_vjp.py and ops/attention.py hold the whole head in a VMEM
-// block).  Hopper's shared memory does not hold a whole head above 256 next
-// to the tiles of the designs at <= 256 (the bf16 cross forward takes
-// 135,552 bytes at 256 already), so above 256 the head dim is cut into C =
+// Replaces, at head dims above 256, the Pallas TPU kernels
+//   K1       unirec_tpu/ops/flash_causal_vjp.py::_fwd_kernel (and the stock
+//            flash of unirec_tpu/models/qwen3.py:347);
+//   B7b      unirec_tpu/ops/flash_causal_vjp.py::_dq_kernel and _dkv_kernel;
+//   B13      unirec_tpu/ops/attention.py::flash_cross_attention (_flash_kernel);
+//   B14      unirec_tpu/ops/flash_vjp.py::_mh_fwd_kernel and _mh_bwd_kernel;
+//   B14p     unirec_tpu/ops/flash_vjp.py::_fwd_kernel and _bwd_kernel.
+// The JAX kernels take any head dim (flash_causal_vjp.py pads lanes;
+// flash_vjp.py and attention.py hold the whole head in a VMEM block).
+// Hopper's shared memory does not hold a whole head above 256 next to the
+// tiles of the designs at <= 256, so above 256 the head dim is cut into C =
 // ceil(hd / 256) chunks of 256 columns (the wrappers zero-pad it to C * 256,
 // ops/attention.padded_launch) and a grid axis runs over the chunks: one
-// block owns one chunk of the output columns, and one call stays one launch.
-// The designs at <= 256 are not touched; their instances give the same bits.
+// block owns one chunk of the output columns, and a call is one launch (two
+// where the bf16 cross forward splits its keys, below).  The designs at <=
+// 256 are not touched.
 //
-//   - A block forms each score tile q . k^T by summing over all C chunks of
-//     q and k, staged through shared memory one chunk at a time, in chunk
-//     order 0 .. C - 1 (every chunk's block computes the same scores, bit for
-//     bit, so m and l are those of every chunk's softmax).  The backward's
-//     dP = dO . v^T sums over the chunks of dO and v in the same way.
-//   - The output accumulators are those of one chunk: o (or dq) for the
-//     block's 64 rows, dk / dv for its 32 keys, 256 columns each.
-//   - m and l (B14 / B14p / K1 training) are equal across chunks: only the
-//     chunk-0 block writes them.  dsum comes from the caller (the float32 o
-//     of B14 / B14p, ROADMAP.md numerics).
+// What bounds it (bf16, bytes): at the 2-head user step's shape (64 users,
+// 64 queries over 1,600 memory rows, 2 heads of 512) the forward reads ~420
+// MB of q, k and v for 27 GFLOP and the backward moves ~870 MB for 67
+// GFLOP, 0.13 and 0.26 ms at 3.35 TB/s, 8 times what the arithmetic takes
+// at the bf16 tensor-core peak; at 8 users an eighth of both.  K1 at B 2, L
+// 512, 4 / 2 heads reads ~12 MB (3.5 us).  Four things kept the first form
+// (scalar fp32 FMA) 5-8 times behind scaled_dot_product_attention:
+//   1. no tensor cores: every product a scalar FMA (67 TFLOP/s of fp32);
+//   2. staging through registers into padded float rows, q restaged for
+//      every key tile and chunk, two barriers per chunk;
+//   3. small key tiles (32) and a small grid (32 blocks at 8 users);
+//   4. the scores computed C times, once in each chunk's block.
+//
+// bf16 design (tensor cores; chunk_fwd_tc, chunk_fwd_merge, chunk_bwd_rows_tc):
+//   - One block of 4 warps per (64-row q tile, chunk, head, batch), warp w
+//     owning rows 16 w .. 16 w + 15; products on mma.sync.m16n8k16 (bf16 in,
+//     fp32 accumulate) through ldmatrix, from bf16 rows padded to 264
+//     columns (33 x 16 bytes: ldmatrix without bank conflicts).  (1)
+//   - The q tile's C chunks (and in the backward dO's) are loaded once by
+//     16-byte cp.async and stay in shared memory for the whole key loop.
+//     Each 32-key tile streams through a ring as units of one chunk [32][264]
+//     by 16-byte cp.async: the forward's C + 1 units are the K chunks 0 ..
+//     C - 1, then the block's V chunk; the backward's 2 C are K and V of
+//     chunk 0, then of chunk 1, ...  One barrier per unit; the next units
+//     load while this one computes.  (2)
+//   - A block's time is the chain of its key tiles: products, barriers and the
+//     softmax one after another, with the SM mostly waiting (one block of 4
+//     warps at 8 users took 0.21 ms for B13, 1.4 us a unit; two blocks an SM
+//     at 64 users took 0.26 ms for 8 times the work; taking the score
+//     products, the softmax or the barriers out of it one at a time saved
+//     0.017-0.032 ms each, scripts/probe_chunked_fwd.py).  So the forward's
+//     ring is 2 units where that lets two blocks share an SM (101,632 bytes at
+//     C = 2), and the cross forward (B13, B14, B14p) splits each row's key
+//     tiles over as many blocks as fill two an SM when its grid is smaller (8
+//     splits of up to 7 key tiles at 8 users; none at 64), each split writing
+//     its unnormalised o, m and l in float32 and chunk_fwd_merge combining
+//     them in split order (m = max, l and o rescaled by exp(m_s - m)).  K1
+//     takes no split: at B 2, L 512 its merge cost more than the split saved.
+//     Key tiles stay at 32 keys: each thread holds the 256 fp32 columns of its
+//     chunk of o (or dq) for two rows, 128 registers, as the hd-256 designs
+//     do.  (3)
+//   - S = sum_c Q_c K_c^T is summed in chunk order 0 .. C - 1 in every
+//     chunk's block, so all C blocks hold the same S, m, l and P bit for bit;
+//     the chunk-0 block (or the merge) writes m and l.  The scores are still
+//     computed C times (4): a block needs all of P for its columns of P V.
+//   - Forward: the online softmax in fp32 registers in the accumulator
+//     layout (__expf); P is rounded to bf16 in registers as the A fragment
+//     of P V_c.  B14 / B14p (o in float32, read by dsum) take P as two bf16
+//     terms, hi and lo, each tile's P V summed from zero and folded into o by
+//     one fp32 fma; B13 and K1 (o in bf16) take hi, accumulated in place.
+//   - Backward: S and dP = sum_c dO_c V_c^T on tensor cores; the block's K_c
+//     is copied aside as its unit passes; p = exp(s - m) / l and ds = p (dp -
+//     dsum) scale in fp32 registers, ds rounded to bf16 for dq += ds K_c (dq
+//     in registers over the pass).  B14 / B14p write p and ds as bf16 to
+//     shared memory and the four warps split the tile's dv_c = p^T dO_c and
+//     dk_c = ds^T Q_c by 16-key groups (ldmatrix.trans), written at once, or
+//     with Lq > 64 as float32 partials per q tile that chunk_dkv_sum adds in
+//     q-tile order (deterministic).  dsum comes from the caller (the float32
+//     o of B14 / B14p), m and l from the forward.  B7b's dq is the same
+//     kernel without dk / dv.
+//   - Shared memory (of 232,448 bytes): forward C * 33,792 (q) + S *
+//     17,024 (a unit and a key tile's key info), S = 2 at C = 2 (101,632
+//     bytes, two blocks an SM) and as many as fit, at least 2, up to C = 5
+//     (hd <= 1280); backward 2 C * 33,792 (q, dO) + 16,896 (K_c) + 10,240
+//     (p, ds) + S * 17,024, S = 4 at C = 2 (230,400 bytes), the most
+//     chunks it holds (hd <= 512).  The wrappers refuse bf16 above those
+//     (ops/attention.BF16_FWD_CHUNKS, BF16_BWD_CHUNKS).
+//   B7b's dk / dv (chunk_bwd_keys) keeps the scalar form in both types.
+//
+// fp32 design (chunk_fwd, chunk_bwd_rows, chunk_bwd_keys): tensor cores
+// would mean TF32, which breaks the 1e-5 fp32 gates, so fp32 keeps scalar
+// fp32 FMAs, staged through shared memory one chunk at a time in chunk
+// order, 16 x 16 threads over 64-row q tiles and 32-key tiles: the scores
+// are computed C times and q and k staged once per (key tile, chunk) pair.
 //   - Backward: B7b keeps its two kernels (dq over the key tiles of a q
 //     tile, dk / dv over the q tiles of a key tile and its GQA group); B14
 //     and B14p keep one pass over the keys: a block writes its chunk of dq,
 //     and its chunk of each key tile's dk / dv (float32 partials per 64-row
 //     q tile when Lq > 64, summed in q-tile order by a second kernel).
-//   - Arithmetic is scalar fp32 FMA for both input types (bf16 inputs are
-//     widened when staged): a simple form that is right first.  The scores
-//     are computed C times (once per chunk's block), and q and k are staged
-//     once per (key tile, chunk) pair: that is this form's cost, written
-//     down in PERF.md.
 //
 // Masks and numerics are each family's own:
 //   cross (B13 / B14 / B14p): s = (q . k) * scale + bias (two roundings), m
@@ -47,6 +113,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "ptx_helpers.cuh"
 
 namespace chunked {
 
@@ -573,6 +643,595 @@ chunk_bwd_keys(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
+// ------------------------------------------------- bf16, tensor cores ------
+
+constexpr int TTHREADS = 128;       // 4 warps, 16 query rows each
+constexpr int TK = 32;              // keys of a key tile
+constexpr int LDC = CW + 8;         // padded bf16 row of a staged chunk (33 x 16 bytes)
+constexpr int QCH = BQ * LDC;       // one resident q or dO chunk [BQ][LDC]
+constexpr int UNIT = TK * LDC;      // one ring unit: a key tile's K or V chunk [TK][LDC]
+constexpr int PLD = TK + 8;         // padded bf16 row of the p / ds tiles
+constexpr int MAX_STAGES = 8;      // units of the ring, at most
+constexpr size_t SMEM_MAX = 232448;
+// a stage of the ring: one unit and one key tile's key info (the key info
+// ring has as many entries as the unit ring, indexed by key tile)
+constexpr size_t STAGE_BYTES = UNIT * sizeof(bf16) + TK * sizeof(float);
+constexpr size_t SMEM_PAIR = 113664;  // a block's share where two share an SM
+// forward: Q's C chunks; backward: Q's and dO's, the block's K chunk, p and ds
+inline size_t tc_fixed_bytes(int C, bool bwd) {
+  return bwd ? (size_t)(2 * C * QCH + UNIT + 2 * BQ * PLD) * sizeof(bf16)
+             : (size_t)C * QCH * sizeof(bf16);
+}
+// the ring's stages: two where that lets two blocks share an SM (the
+// forward at C = 2: a block's chain of products, barriers and softmax
+// leaves the SM idle enough that a second block is worth more than a deeper
+// ring), else as many as fit, up to MAX_STAGES (0 where fewer than 2 fit:
+// the launch is refused)
+inline int tc_stages(int C, bool bwd) {
+  const size_t fixed = tc_fixed_bytes(C, bwd);
+  if (fixed + 2 * STAGE_BYTES <= SMEM_PAIR) return 2;
+  const int fit = fixed >= SMEM_MAX ? 0 : (int)((SMEM_MAX - fixed) / STAGE_BYTES);
+  return fit < 2 ? 0 : (fit < MAX_STAGES ? fit : MAX_STAGES);
+}
+
+// cp.async.wait_group with a run-time count n <= MAX_STAGES - 2
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+// rows [r0, r0 + n) of one chunk (src at the chunk's first column, row
+// stride rs; rows past L zero-filled) -> smem [n][LDC] bf16 by 16-byte cp.async
+__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, long long rs, int r0,
+                                           int n, int L, int tid) {
+  constexpr int CH = CW / 8;  // 16-byte pieces of a chunk's row
+  for (int e = tid; e < n * CH; e += TTHREADS) {
+    const int r = e / CH, ch = e % CH;
+    const int row = r0 + r;
+    const bool ok = row < L;
+    cp_async_16(smem_addr(dst + r * LDC + ch * 8), src + (long long)(ok ? row : 0) * rs + ch * 8,
+                ok);
+  }
+}
+
+// the key info of the key tile at k0 -> kin[TK]: cross, the bias (0 where
+// there is none, and past Lkv); causal, the pad mask (0 past Lkv).  dummy:
+// any global address, read by no copy
+__device__ __forceinline__ void copy_key_info(float* kin, const float* bm, int k0, int Lkv,
+                                              const void* dummy, int tid) {
+  if (tid < TK) {
+    const int key = k0 + tid;
+    const bool ok = bm != nullptr && key < Lkv;
+    cp_async_4(smem_addr(kin + tid), ok ? bm + key : static_cast<const float*>(dummy), ok);
+  }
+}
+
+// s (16 rows of the warp x TK keys) += A (rows r0.., one staged chunk) . B^T
+// (the TK rows of one staged chunk)
+__device__ __forceinline__ void chunk_scores(float (&s)[TK / 8][4], const bf16* A,
+                                             const bf16* Bt, int r0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < CW / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, smem_addr(A + (r0 + (lane & 15)) * LDC + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+    for (int nj = 0; nj < TK / 16; ++nj) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, smem_addr(Bt + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDC +
+                                kk * 16 + ((lane >> 3) & 1) * 8));
+      mma_16816(s[2 * nj], a, bk[0], bk[1]);
+      mma_16816(s[2 * nj + 1], a, bk[2], bk[3]);
+    }
+  }
+}
+
+// the score of one (row, key) pair of the accumulator layout, or -inf where
+// the pair is dead: cross (q . k) * scale + bias in two roundings, keys past
+// Lkv dead; causal (q . k) * scale, keys after the row or with mask 0 dead
+template <bool CAUSAL>
+__device__ __forceinline__ float tc_score(float dot, float scale, float kinfo, int row, int key,
+                                          int Lkv) {
+  if (CAUSAL) return kinfo != 0.f && key <= row ? dot * scale : -INFINITY;
+  return key < Lkv ? __fadd_rn(__fmul_rn(dot, scale), kinfo) : -INFINITY;
+}
+
+// The forward on tensor cores for one (64-row q tile, key split, chunk c,
+// head, batch): blockIdx.x = q tile * splits + split, blockIdx.y = h * C +
+// c; warp w owns rows 16 w .. 16 w + 15.  The q tile's C chunks stay in
+// shared memory; each key tile of the split's range streams through the
+// ring as C + 1 units, its K chunks 0 .. C - 1 (S summed over them in that
+// order, so every chunk's block has the same S, m, l and P) and then V's
+// chunk c.  OT float (B14, B14p): P enters P V as bf16 hi + lo and each
+// tile's P V is folded into o with one fp32 fma; OT bf16 (B13, K1): P's hi,
+// in place.  With one split the block writes o (and from chunk 0, m and l);
+// with more it writes its split's unnormalised o, m and l to part
+// (chunk_fwd_merge's layout) for chunk_fwd_merge.
+template <typename OT, bool CAUSAL>
+__global__ void __launch_bounds__(TTHREADS)
+chunk_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+             const float* __restrict__ bm, OT* __restrict__ o, float* __restrict__ m_out,
+             float* __restrict__ l_out, float* __restrict__ part, Strides qs, Strides ks,
+             Strides vs, Strides os, int Lq, int Lkv, int H, int group, int C, int S,
+             int splits, float scale) {
+  constexpr bool F32O = std::is_same<OT, float>::value;
+  constexpr int NT = TK / 8;  // n-tiles of a score row
+  extern __shared__ __align__(16) unsigned char chunk_tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(chunk_tc_smem);        // [C][BQ][LDC]
+  bf16* ring = Qs + C * QCH;                                 // [S][TK][LDC]
+  float* kin = reinterpret_cast<float*>(ring + S * UNIT);   // [S][TK]
+
+  // longest rows first (causal: the last q tiles visit the most key tiles)
+  const int n_qt = gridDim.x / splits;
+  const int qt = CAUSAL ? n_qt - 1 - (int)blockIdx.x / splits : (int)blockIdx.x / splits;
+  const int sp = blockIdx.x % splits;
+  const int q0 = qt * BQ;
+  const int h = blockIdx.y / C, c = blockIdx.y % C;
+  const int b = blockIdx.z, B = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;  // the warp's first row of the tile
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + (h / group) * ks.h;
+  const bf16* vb = v + b * vs.b + (h / group) * vs.h + c * CW;
+  const float* bmb = bm ? bm + (long long)b * Lkv : nullptr;
+  // the split's key tiles [t0, t1) of the row's n_kv
+  const int n_kv = CAUSAL ? (min(q0 + BQ, Lq) - 1) / TK + 1 : (Lkv + TK - 1) / TK;
+  const int per = (n_kv + splits - 1) / splits;
+  const int t0 = sp * per, t1 = min(t0 + per, n_kv);
+  const int U = C + 1;  // units of a key tile
+  const int n_units = t1 > t0 ? (t1 - t0) * U : 0;
+
+  auto load_unit = [&](int u) {
+    const int t = t0 + u / U, i = u % U;
+    bf16* dst = ring + (u % S) * UNIT;
+    if (i < C)
+      copy_chunk(dst, kb + i * CW, ks.r, t * TK, TK, Lkv, tid);
+    else
+      copy_chunk(dst, vb, vs.r, t * TK, TK, Lkv, tid);
+    if (i == 0) copy_key_info(kin + (u / U % S) * TK, bmb, t * TK, Lkv, q, tid);
+  };
+  // Q with unit 0, then units 1 .. S - 2, a commit group each
+  for (int cc = 0; cc < C; ++cc) copy_chunk(Qs + cc * QCH, qb + cc * CW, qs.r, q0, BQ, Lq, tid);
+  for (int u = 0; u < S - 1; ++u) {
+    if (u < n_units) load_unit(u);
+    cp_async_commit();
+  }
+
+  float oacc[CW / 8][4];
+#pragma unroll
+  for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m_run[2], l_run[2] = {0.f, 0.f};  // rows g and g + 8; l: this thread's columns' share
+  m_run[0] = m_run[1] = CAUSAL ? -INFINITY : NEG_INF;
+  float s[NT][4];
+
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait_upto(S - 2);  // unit u (and Q) has landed
+    __syncthreads();            // ... for every thread, and unit u - 1's stage is free
+    if (u + S - 1 < n_units) load_unit(u + S - 1);
+    cp_async_commit();
+    const int i = u % U;
+    const int k0 = (t0 + u / U) * TK;
+    const bf16* tile = ring + (u % S) * UNIT;
+    // causal: a warp whose rows all lie before the tile's first key skips it
+    if (CAUSAL && k0 > q0 + r0 + 15) continue;
+    if (i == 0) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    }
+    if (i < C) {  // S += Q_i K_i^T
+      chunk_scores(s, Qs + i * QCH, tile, r0, lane);
+      continue;
+    }
+    // the online softmax of rows g (e < 2) and g + 8 (e >= 2); every row
+    // has a live key in the block's first tile (cross: every key < Lkv;
+    // causal, one split: key 0), so m is finite from there on
+    const float* kt = kin + (u / U % S) * TK;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t4 + (e & 1);
+        s[n][e] = tc_score<CAUSAL>(s[n][e], scale, kt[col], q0 + r0 + g + 8 * (e >> 1), k0 + col,
+                                   Lkv);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = m_new == -INFINITY ? 1.f : __expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[n][e] == -INFINITY ? 0.f : __expf(s[n][e] - m_run[e >> 1]);
+        s[n][e] = p;
+        l_run[e >> 1] += p;
+      }
+    if constexpr (!F32O) {
+#pragma unroll
+      for (int n = 0; n < CW / 8; ++n) {
+        oacc[n][0] *= alpha[0];
+        oacc[n][1] *= alpha[0];
+        oacc[n][2] *= alpha[1];
+        oacc[n][3] *= alpha[1];
+      }
+    }
+    // O += P V_c: P (bf16; hi and lo with F32O) from the S fragments, V via
+    // ldmatrix.trans, CC columns at a time (F32O's tile sums stay few
+    // registers); with F32O each tile's P V is summed from zero and folded
+    // into o by an fp32 fma (o alpha + tile)
+    constexpr int CC = 32;
+#pragma unroll
+    for (int c0 = 0; c0 < CW; c0 += CC) {
+      float tacc[F32O ? CC / 8 : 1][4];
+      if constexpr (F32O) {
+#pragma unroll
+        for (int n = 0; n < CC / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tacc[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        uint32_t a[4], lo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float* x = s[2 * kk + (r >> 1)] + 2 * (r & 1);
+          if constexpr (F32O)
+            split_bf16(x[0], x[1], a[r], lo[r]);
+          else
+            a[r] = pack_bf16(x[0], x[1]);
+        }
+#pragma unroll
+        for (int nd = 0; nd < CC / 16; ++nd) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, smem_addr(tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                                     LDC +
+                                          c0 + nd * 16 + (lane >> 4) * 8));
+          if constexpr (F32O) {
+            mma_16816(tacc[2 * nd], a, bv[0], bv[1]);
+            mma_16816(tacc[2 * nd + 1], a, bv[2], bv[3]);
+            mma_16816(tacc[2 * nd], lo, bv[0], bv[1]);
+            mma_16816(tacc[2 * nd + 1], lo, bv[2], bv[3]);
+          } else {
+            mma_16816(oacc[c0 / 8 + 2 * nd], a, bv[0], bv[1]);
+            mma_16816(oacc[c0 / 8 + 2 * nd + 1], a, bv[2], bv[3]);
+          }
+        }
+      }
+      if constexpr (F32O) {
+#pragma unroll
+        for (int n = 0; n < CC / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            oacc[c0 / 8 + n][e] = fmaf(oacc[c0 / 8 + n][e], alpha[e >> 1], tacc[n][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const int HDP = C * CW;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= Lq) continue;
+    if (splits > 1) {  // the split's partial: o unnormalised, m and l
+      float* prow = part + ((((long long)sp * B + b) * H + h) * Lq + row) * HDP + c * CW;
+#pragma unroll
+      for (int n = 0; n < CW / 8; ++n)
+        *reinterpret_cast<float2*>(prow + n * 8 + 2 * t4) =
+            make_float2(oacc[n][2 * r], oacc[n][2 * r + 1]);
+      if (c == 0 && t4 == 0) {
+        float* ml = part + (long long)splits * B * H * Lq * HDP;
+        ml[(((long long)sp * 2 * B + b) * Lq + row) * H + h] = m_run[r];
+        ml[((((long long)sp * 2 + 1) * B + b) * Lq + row) * H + h] = l_run[r];
+      }
+      continue;
+    }
+    OT* orow = o + b * os.b + h * os.h + c * CW + row * os.r;
+    const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
+    const float den = l_run[r] == 0.f ? 1.f : l_run[r];
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n) {
+      const float x0 = CAUSAL ? oacc[n][2 * r] * inv : oacc[n][2 * r] / den;
+      const float x1 = CAUSAL ? oacc[n][2 * r + 1] * inv : oacc[n][2 * r + 1] / den;
+      if constexpr (F32O)
+        *reinterpret_cast<float2*>(orow + n * 8 + 2 * t4) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) = __floats2bfloat162_rn(x0, x1);
+    }
+    if (m_out != nullptr && c == 0 && t4 == 0) {
+      const size_t ri = ((size_t)b * Lq + row) * H + h;
+      m_out[ri] = m_run[r];
+      l_out[ri] = l_run[r];
+    }
+  }
+}
+
+// The key splits of the cross chunk_fwd_tc merged, one block per (row,
+// head, batch): m = max_s m_s (each split's m starts at -1e9, so every
+// weight is finite), l = sum_s l_s exp(m_s - m), o = sum_s o_s exp(m_s - m)
+// / (l == 0 ? 1 : l), summed in split order.  part: o_s
+// [splits][B][H][Lq][HDP], then m_s, l_s [splits][m, l][B][Lq][H].
+template <typename OT>
+__global__ void __launch_bounds__(256)
+chunk_fwd_merge(const float* __restrict__ part, OT* __restrict__ o, float* __restrict__ m_out,
+                float* __restrict__ l_out, Strides os, int splits, int H, int Lq, int HDP) {
+  const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const float* ml = part + (long long)splits * B * H * Lq * HDP;
+  auto at = [&](int sp, int which) {
+    return ml[((((long long)sp * 2 + which) * B + b) * Lq + row) * H + h];
+  };
+  float m = NEG_INF;
+  for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, at(sp, 0));
+  float l = 0.f;
+  for (int sp = 0; sp < splits; ++sp) l += at(sp, 1) * expf(at(sp, 0) - m);
+  const float den = l == 0.f ? 1.f : l;
+  OT* orow = o + b * os.b + h * os.h + row * os.r;
+  for (int col = threadIdx.x; col < HDP; col += 256) {
+    float acc = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      acc += part[((((long long)sp * B + b) * H + h) * Lq + row) * HDP + col] *
+             expf(at(sp, 0) - m);
+    put(orow + col, acc / den);
+  }
+  if (m_out != nullptr && threadIdx.x == 0) {
+    const size_t ri = ((size_t)b * Lq + row) * H + h;
+    m_out[ri] = m;
+    l_out[ri] = l;
+  }
+}
+
+// The backward on tensor cores over the key tiles of one (64-row q tile,
+// chunk c, head, batch), blockIdx.y = h * C + c.  Q's and dO's C chunks stay
+// in shared memory; each key tile streams through the ring as 2 C units, K
+// and V of chunk 0, then of chunk 1, ...: S = sum Q_cc K_cc^T and dP = sum
+// dO_cc V_cc^T on tensor cores, K_c copied aside for dq.  Then p = exp(s -
+// m) / l and ds = p (dp - dsum) scale in fp32 registers, dq += ds K_c with
+// ds rounded to bf16 in registers (dq in registers over the pass).  With DKV
+// (cross: B14 / B14p, one pass) p and ds go to shared memory as bf16 and
+// the four warps split this tile's dv_c = p^T dO_c and dk_c = ds^T Q_c by
+// 16-key groups, written as they are (part null: one q tile) or as float32
+// partials [n_qt][dk, dv][B][H][Lkv][C * CW] to part.  Without DKV it is
+// B7b's dq kernel.
+template <bool CAUSAL, bool DKV>
+__global__ void __launch_bounds__(TTHREADS)
+chunk_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ bm,
+                  const bf16* __restrict__ dout, const float* __restrict__ m_in,
+                  const float* __restrict__ l_in, const float* __restrict__ dsum_in,
+                  bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  float* __restrict__ part, BwdStrides st, int Lq, int Lkv, int H, int group,
+                  int C, int S, float scale) {
+  constexpr int NT = TK / 8;     // n-tiles of a score row
+  constexpr int UNITS = TK / 8;  // (16 keys, dk or dv) products of a key tile
+  extern __shared__ __align__(16) unsigned char chunk_tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(chunk_tc_smem);  // [C][BQ][LDC]
+  bf16* dOs = Qs + C * QCH;                            // [C][BQ][LDC]
+  bf16* Kc = dOs + C * QCH;                            // [TK][LDC]  the key tile's K chunk c
+  bf16* Ps = Kc + UNIT;                                // [BQ][PLD]  p, bf16
+  bf16* dSs = Ps + BQ * PLD;                           // [BQ][PLD]  ds, bf16
+  bf16* ring = dSs + BQ * PLD;                         // [S][TK][LDC]
+  float* kin = reinterpret_cast<float*>(ring + S * UNIT);  // [S][TK]
+
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int h = blockIdx.y / C, c = blockIdx.y % C;
+  const int b = blockIdx.z, B = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;
+  const int kh = h / group;
+  const bf16* qb = q + b * st.q.b + h * st.q.h;
+  const bf16* dob = dout + b * st.dout.b + h * st.dout.h;
+  const bf16* kb = k + b * st.k.b + kh * st.k.h;
+  const bf16* vb = v + b * st.v.b + kh * st.v.h;
+  const float* bmb = bm ? bm + (long long)b * Lkv : nullptr;
+  const int n_kv = CAUSAL ? (min(q0 + BQ, Lq) - 1) / TK + 1 : (Lkv + TK - 1) / TK;
+  const int U = 2 * C;  // units of a key tile
+  const int n_units = n_kv * U;
+
+  auto load_unit = [&](int u) {
+    const int t = u / U, i = u % U;
+    const bf16* src = ((i & 1) ? vb : kb) + (i >> 1) * CW;
+    copy_chunk(ring + (u % S) * UNIT, src, (i & 1) ? st.v.r : st.k.r, t * TK, TK, Lkv, tid);
+    if (i == 0) copy_key_info(kin + (t % S) * TK, bmb, t * TK, Lkv, q, tid);
+  };
+  for (int cc = 0; cc < C; ++cc) {
+    copy_chunk(Qs + cc * QCH, qb + cc * CW, st.q.r, q0, BQ, Lq, tid);
+    copy_chunk(dOs + cc * QCH, dob + cc * CW, st.dout.r, q0, BQ, Lq, tid);
+  }
+  for (int u = 0; u < S - 1; ++u) {
+    if (u < n_units) load_unit(u);
+    cp_async_commit();
+  }
+
+  // rows g and g + 8 of the warp: m, l (0 guarded to 1), dsum
+  float mr[2], lr[2], dsr[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    row_ok[r] = row < Lq;
+    const size_t ri = ((size_t)b * Lq + (row_ok[r] ? row : 0)) * H + h;
+    const float lv = row_ok[r] ? l_in[ri] : 1.f;
+    mr[r] = row_ok[r] ? m_in[ri] : 0.f;
+    lr[r] = lv == 0.f ? 1.f : lv;
+    dsr[r] = row_ok[r] ? dsum_in[ri] : 0.f;
+  }
+
+  float dqacc[CW / 8][4];
+#pragma unroll
+  for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqacc[n][e] = 0.f;
+  float s[NT][4], dp[NT][4];
+
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait_upto(S - 2);  // unit u (and Q, dO) has landed
+    __syncthreads();            // ... for every thread; unit u - 1's stage is free
+    if (u + S - 1 < n_units) load_unit(u + S - 1);
+    cp_async_commit();
+    const int t = u / U, i = u % U;
+    const int k0 = t * TK;
+    const bf16* tile = ring + (u % S) * UNIT;
+    // causal: a warp whose rows all lie before the tile's first key skips it
+    const bool active = !CAUSAL || k0 <= q0 + r0 + 15;
+    if (i == 0) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+    if (i == 2 * c) {  // K_c aside for dq (and read after this tile's last unit)
+      for (int e = tid; e < TK * (CW / 8); e += TTHREADS) {
+        const int r = e / (CW / 8), ch = e % (CW / 8);
+        *reinterpret_cast<uint4*>(Kc + r * LDC + ch * 8) =
+            *reinterpret_cast<const uint4*>(tile + r * LDC + ch * 8);
+      }
+    }
+    if (active) {
+      if (i & 1)
+        chunk_scores(dp, dOs + (i >> 1) * QCH, tile, r0, lane);  // dP += dO_cc V_cc^T
+      else
+        chunk_scores(s, Qs + (i >> 1) * QCH, tile, r0, lane);  // S += Q_cc K_cc^T
+    }
+    if (i != U - 1) continue;
+
+    // p = exp(score - m) / l (0 for dead pairs and rows past Lq), ds = p (dp
+    // - dsum) scale, kept in dp; with DKV both to shared memory as bf16
+    const float* kt = kin + (t % S) * TK;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float pe[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * t4 + e;
+          const float sc = tc_score<CAUSAL>(s[n][2 * r + e], scale, kt[col], q0 + r0 + g + 8 * r,
+                                            k0 + col, Lkv);
+          pe[e] = active && row_ok[r] && sc != -INFINITY ? __expf(sc - mr[r]) / lr[r] : 0.f;
+          dp[n][2 * r + e] = pe[e] * (dp[n][2 * r + e] - dsr[r]) * scale;
+        }
+        if constexpr (DKV) {
+          const int at = (r0 + g + 8 * r) * PLD + n * 8 + 2 * t4;
+          *reinterpret_cast<uint32_t*>(Ps + at) = pack_bf16(pe[0], pe[1]);
+          *reinterpret_cast<uint32_t*>(dSs + at) = pack_bf16(dp[n][2 * r], dp[n][2 * r + 1]);
+        }
+      }
+    // dq += ds K_c: ds (bf16) from the fragments, K_c via ldmatrix.trans
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        uint32_t a[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float* x = dp[2 * kk + (r >> 1)] + 2 * (r & 1);
+          a[r] = pack_bf16(x[0], x[1]);
+        }
+#pragma unroll
+        for (int nd = 0; nd < CW / 16; ++nd) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, smem_addr(Kc + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDC +
+                                          nd * 16 + (lane >> 4) * 8));
+          mma_16816(dqacc[2 * nd], a, bk[0], bk[1]);
+          mma_16816(dqacc[2 * nd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+    if constexpr (DKV) {
+      __syncthreads();  // p and ds of every row written
+      // unit w: dv (w < UNITS / 2) or dk of keys kg .. kg + 15 of the tile,
+      // over the q tile's 64 rows: p^T / ds^T and dO_c / Q_c via
+      // ldmatrix.trans, 16 output columns at a time
+      for (int w = warp; w < UNITS; w += TTHREADS / 32) {
+        const bool is_dk = w >= UNITS / 2;
+        const int kg = (w % (UNITS / 2)) * 16;
+        const bf16* as = is_dk ? dSs : Ps;
+        const bf16* bsrc = (is_dk ? Qs : dOs) + c * QCH;
+        uint32_t a[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          ldmatrix_x4_trans(a[kk], smem_addr(as + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * PLD +
+                                             kg + ((lane >> 3) & 1) * 8));
+        const int key0 = k0 + kg + g;  // rows g and g + 8 of the product
+#pragma unroll 2
+        for (int nd = 0; nd < CW / 16; ++nd) {
+          float acc[2][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            uint32_t bb[4];
+            ldmatrix_x4_trans(bb, smem_addr(bsrc + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                                       LDC +
+                                            nd * 16 + (lane >> 4) * 8));
+            mma_16816(acc[0], a[kk], bb[0], bb[1]);
+            mma_16816(acc[1], a[kk], bb[2], bb[3]);
+          }
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int key = key0 + 8 * hf;
+            if (key >= Lkv) continue;
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              const int col = c * CW + nd * 16 + n * 8 + 2 * t4;
+              if (part != nullptr) {
+                const long long at =
+                    ((((long long)(qt * 2 + is_dk) * B + b) * H + h) * Lkv + key) * (C * CW) + col;
+                *reinterpret_cast<float2*>(part + at) =
+                    make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
+              } else {
+                bf16* out = is_dk ? dk + b * st.dk.b + h * st.dk.h + key * st.dk.r
+                                  : dv + b * st.dv.b + h * st.dv.h + key * st.dv.r;
+                *reinterpret_cast<__nv_bfloat162*>(out + col) =
+                    __floats2bfloat162_rn(acc[n][2 * hf], acc[n][2 * hf + 1]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* dqb = dq + b * st.dq.b + h * st.dq.h + c * CW;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!row_ok[r]) continue;
+    bf16* drow = dqb + (q0 + r0 + g + 8 * r) * st.dq.r;
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(drow + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(dqacc[n][2 * r], dqacc[n][2 * r + 1]);
+  }
+}
+
 // dk and dv from chunk_bwd_rows' float32 partials, added in q-tile order
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -601,21 +1260,46 @@ chunk_dkv_sum(const float* __restrict__ part, T* __restrict__ dk, T* __restrict_
 // head_dim: C * CW for C >= 2 (the wrappers pad to it)
 inline bool is_chunked(int head_dim) { return head_dim > CW && head_dim % CW == 0; }
 
+// the forward.  bf16 cross: splits key splits (part: float32 scratch of
+// splits * B * H * Lq * (head_dim + 2) elements when splits > 1, null
+// otherwise), merged by a second launch; causal and float32 take splits == 1.
 template <typename T, typename OT, bool CAUSAL>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bm, void* o,
-                       float* m, float* l, Strides qs, Strides ks, Strides vs, Strides os,
-                       int B, int H, int group, int Lq, int Lkv, int head_dim, float scale,
-                       cudaStream_t stream) {
+                       float* m, float* l, float* part, Strides qs, Strides ks, Strides vs,
+                       Strides os, int B, int H, int group, int Lq, int Lkv, int head_dim,
+                       int splits, float scale, cudaStream_t stream) {
   const int C = head_dim / CW;
-  if ((long long)H * C > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(chunk_fwd<T, OT, CAUSAL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FWD_BYTES);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Lq + BQ - 1) / BQ, H * C, B);
-  chunk_fwd<T, OT, CAUSAL><<<grid, THREADS, FWD_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bm,
-      static_cast<OT*>(o), m, l, qs, ks, vs, os, Lq, Lkv, H, group, C, scale);
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  if ((long long)H * C > 65535 || splits < 1 || (splits > 1) != (part != nullptr) ||
+      (CAUSAL && splits > 1) || (long long)n_qt * splits > 2147483647ll)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {  // tensor cores
+    const int S = tc_stages(C, false);
+    if (S == 0) return cudaErrorInvalidValue;
+    const size_t smem = tc_fixed_bytes(C, false) + S * STAGE_BYTES;
+    err = cudaFuncSetAttribute(chunk_fwd_tc<OT, CAUSAL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    chunk_fwd_tc<OT, CAUSAL><<<dim3(n_qt * splits, H * C, B), TTHREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        bm, static_cast<OT*>(o), m, l, part, qs, ks, vs, os, Lq, Lkv, H, group, C, S, splits,
+        scale);
+    err = cudaGetLastError();
+    if constexpr (!CAUSAL) {
+      if (err != cudaSuccess || splits == 1) return err;
+      chunk_fwd_merge<OT><<<dim3(Lq, H, B), 256, 0, stream>>>(
+          part, static_cast<OT*>(o), m, l, os, splits, H, Lq, head_dim);
+    }
+  } else {
+    if (splits != 1) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(chunk_fwd<T, OT, CAUSAL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_BYTES);
+    if (err != cudaSuccess) return err;
+    chunk_fwd<T, OT, CAUSAL><<<dim3(n_qt, H * C, B), THREADS, FWD_BYTES, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bm,
+        static_cast<OT*>(o), m, l, qs, ks, vs, os, Lq, Lkv, H, group, C, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -633,16 +1317,29 @@ cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v, const f
   const int n_qt = (Lq + BQ - 1) / BQ;
   if ((long long)H * C > 65535 || (DKV && (n_qt > 1) != (part != nullptr)))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(chunk_bwd_rows<T, CAUSAL, DKV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)BWD_BYTES);
-  if (err != cudaSuccess) return err;
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
-  chunk_bwd_rows<T, CAUSAL, DKV><<<dim3(n_qt, H * C, B), THREADS, BWD_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bm,
-      static_cast<const T*>(dout), m, l, dsum, static_cast<T*>(dq), dkt, dvt, part, st, Lq,
-      Lkv, H, group, C, scale);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {  // tensor cores
+    const int S = tc_stages(C, true);
+    if (S == 0) return cudaErrorInvalidValue;
+    const size_t smem = tc_fixed_bytes(C, true) + S * STAGE_BYTES;
+    err = cudaFuncSetAttribute(chunk_bwd_rows_tc<CAUSAL, DKV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    chunk_bwd_rows_tc<CAUSAL, DKV><<<dim3(n_qt, H * C, B), TTHREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        bm, static_cast<const bf16*>(dout), m, l, dsum, static_cast<bf16*>(dq), dkt, dvt, part,
+        st, Lq, Lkv, H, group, C, S, scale);
+  } else {
+    err = cudaFuncSetAttribute(chunk_bwd_rows<T, CAUSAL, DKV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_BYTES);
+    if (err != cudaSuccess) return err;
+    chunk_bwd_rows<T, CAUSAL, DKV><<<dim3(n_qt, H * C, B), THREADS, BWD_BYTES, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bm,
+        static_cast<const T*>(dout), m, l, dsum, static_cast<T*>(dq), dkt, dvt, part, st, Lq,
+        Lkv, H, group, C, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return err;
   const long long n = 2ll * B * H * Lkv * head_dim;

@@ -1257,16 +1257,20 @@ bool bad_shape(int B, int H, int Lq, int Lkv) {
 // (m, l [B, Lq, H] float; o float).  Strides in elements for (batch, head,
 // row) of q, k, v and o.  dtype: 0 = float32 (the scalar kernel), 1 =
 // bfloat16 (tensor cores).  bias: [B, Lkv] float additive per-key bias, or
-// null.  head_dim: an instance of head_dim.cuh; scale: 1 / sqrt of the true
-// head dim (the wrapper pads other head dims to an instance).
+// null.  head_dim: an instance of head_dim.cuh, or C * 256 (the chunked
+// form); scale: 1 / sqrt of the true head dim (the wrapper pads other head
+// dims to an instance).  splits, part: the chunked bf16 form's key splits
+// and their float32 scratch (flash_chunked.cuh launch_fwd); 1 and null
+// otherwise.
 extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* v,
                                       const float* bias, void* o, float* m, float* l,
-                                      long long qsb, long long qsh, long long qsr,
-                                      long long ksb, long long ksh, long long ksr,
-                                      long long vsb, long long vsh, long long vsr,
-                                      long long osb, long long osh, long long osr, int B,
-                                      int H, int Lq, int Lkv, int head_dim, int dtype,
-                                      float scale, void* stream) {
+                                      float* part, long long qsb, long long qsh,
+                                      long long qsr, long long ksb, long long ksh,
+                                      long long ksr, long long vsb, long long vsh,
+                                      long long vsr, long long osb, long long osh,
+                                      long long osr, int B, int H, int Lq, int Lkv,
+                                      int head_dim, int dtype, int splits, float scale,
+                                      void* stream) {
   if (bad_shape(B, H, Lq, Lkv) || ((m == nullptr) != (l == nullptr)) || dtype < 0 ||
       dtype > 1)
     return (int)cudaErrorInvalidValue;
@@ -1275,15 +1279,15 @@ extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* 
     const chunked::Strides cq{qsb, qsh, qsr}, ck{ksb, ksh, ksr}, cv{vsb, vsh, vsr},
         co{osb, osh, osr};
     if (dtype == 0)
-      return (int)chunked::launch_fwd<float, float, false>(q, k, v, bias, o, m, l, cq, ck, cv,
-                                                           co, B, H, 1, Lq, Lkv, head_dim,
-                                                           scale, s);
-    return (int)(m ? chunked::launch_fwd<bf16, float, false>(q, k, v, bias, o, m, l, cq, ck, cv,
-                                                             co, B, H, 1, Lq, Lkv, head_dim,
-                                                             scale, s)
-                   : chunked::launch_fwd<bf16, bf16, false>(q, k, v, bias, o, m, l, cq, ck, cv,
-                                                            co, B, H, 1, Lq, Lkv, head_dim,
-                                                            scale, s));
+      return (int)chunked::launch_fwd<float, float, false>(q, k, v, bias, o, m, l, part, cq, ck,
+                                                           cv, co, B, H, 1, Lq, Lkv, head_dim,
+                                                           splits, scale, s);
+    return (int)(m ? chunked::launch_fwd<bf16, float, false>(q, k, v, bias, o, m, l, part, cq,
+                                                             ck, cv, co, B, H, 1, Lq, Lkv,
+                                                             head_dim, splits, scale, s)
+                   : chunked::launch_fwd<bf16, bf16, false>(q, k, v, bias, o, m, l, part, cq,
+                                                            ck, cv, co, B, H, 1, Lq, Lkv,
+                                                            head_dim, splits, scale, s));
   }
   const Strides qs{qsb, qsh, qsr}, ks{ksb, ksh, ksr}, vs{vsb, vsh, vsr}, os{osb, osh, osr};
   return (int)with_head_dim(head_dim, [&](auto hd) {

@@ -161,7 +161,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_b12_cross_fwd_f32.restype = _I
     lib.unirec_b12_cross_bwd_f32.argtypes = [_P] * 9 + [_I] * 5 + [_F, _P]
     lib.unirec_b12_cross_bwd_f32.restype = _I
-    lib.unirec_flash_cross_fwd.argtypes = [_P] * 7 + [_L] * 12 + [_I] * 6 + [
+    lib.unirec_flash_cross_fwd.argtypes = [_P] * 8 + [_L] * 12 + [_I] * 7 + [
         _F, _P]
     lib.unirec_flash_cross_fwd.restype = _I
     lib.unirec_flash_cross_bwd.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P]

@@ -20,6 +20,7 @@ forwards).  ``use_flash_cross`` is that decision as a pure predicate.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -43,6 +44,13 @@ FLASH_MIN_KV = 1024
 # (csrc/flash_chunked.cuh) runs over a grid axis.  The packed item attention
 # takes every head dim as it is (csrc/packed_attention.cu).
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
+# the most chunks that the chunked form's bf16 kernels (tensor cores) hold in
+# shared memory: the forward keeps a q tile's chunks resident (5: hd <= 1280),
+# the one-pass backward and B7b's dq kernel a q tile's and a dO tile's (2: hd
+# <= 512).  float32 (the scalar kernels) takes any count.
+BF16_FWD_CHUNKS, BF16_BWD_CHUNKS = 5, 2
+# the chunked bf16 forward's tiles: 64 query rows, 32 keys
+CHUNK_Q_TILE, CHUNK_KEY_TILE = 64, 32
 
 
 def make_additive_mask(mask: torch.Tensor,
@@ -190,7 +198,7 @@ def _pad_heads(t: torch.Tensor, heads: Optional[int], hd: int) -> torch.Tensor:
 
 
 def padded_launch(name: str, head_dim: int, inputs, outputs,
-                  launch) -> None:
+                  launch, bf16_chunks: Optional[int] = None) -> None:
     """Run ``launch(ins, outs, kernel_hd)`` at the kernels' width for
     ``head_dim``: instance * chunks (``kernel_head_dim``), which the C
     entries take as their head dim.  ``inputs`` and ``outputs`` are
@@ -201,8 +209,16 @@ def padded_launch(name: str, head_dim: int, inputs, outputs,
     true columns are copied back after the launch.  Zero lanes add exact
     zeros to every dot product, so the scores, m, l, o and the gradients'
     true columns are unchanged; the caller passes the softmax scale of the
-    true head dim (``sm_scale``)."""
+    true head dim (``sm_scale``).  ``bf16_chunks``: the most chunks the
+    kernel takes in bfloat16 (``BF16_FWD_CHUNKS``, ``BF16_BWD_CHUNKS``); more
+    raise before any launch."""
     instance, chunks = kernel_head_dim(name, head_dim)
+    if (bf16_chunks is not None and chunks > bf16_chunks
+            and inputs[0][0].dtype == torch.bfloat16):
+        raise ValueError(
+            f"{name} takes bfloat16 head dims up to {bf16_chunks * instance} "
+            f"({bf16_chunks} chunks of {instance} in shared memory), got "
+            f"{head_dim}; float32 takes any")
     hd = instance * chunks
     if hd == head_dim:
         launch([t for t, _ in inputs], [t for t, _ in outputs], hd)
@@ -244,6 +260,40 @@ def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
                              f"(strides {t.stride()})")
 
 
+def chunked_fwd_splits(blocks: int, key_tiles: int, sms: int) -> int:
+    """Key splits of the chunked bf16 cross forward (``csrc/flash_chunked.cuh``;
+    B13, B14, B14p): a grid of ``blocks`` (q tiles x heads x chunks x batch)
+    that holds fewer than two blocks per SM splits each row's ``key_tiles``
+    over as many blocks as fill two per SM, each split at least 4 key tiles
+    long; a second launch merges the splits' (m, l, o).  K1 takes one split
+    (its merge cost more than the split saved at B 2, L 512)."""
+    return max(1, min(2 * sms // max(blocks, 1), key_tiles // 4))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def chunked_fwd_plan(q: torch.Tensor, b: int, h: int, lq: int, lkv: int,
+                     kernel_hd: int):
+    """(splits, scratch) of one cross forward launch at the kernels' head
+    dim: (1, None) but for the chunked bf16 form, whose splits (above one)
+    write their float32 (o, m, l) to ``splits * b * h * lq * (kernel_hd +
+    2)`` floats of scratch."""
+    chunks = kernel_hd // KERNEL_HEAD_DIMS[-1]
+    if q.dtype != torch.bfloat16 or chunks < 2:
+        return 1, None
+    blocks = -(-lq // CHUNK_Q_TILE) * h * chunks * b
+    key_tiles = -(-lkv // CHUNK_KEY_TILE)
+    splits = chunked_fwd_splits(blocks, key_tiles,
+                                _sm_count(q.device.index or 0))
+    if splits == 1:
+        return 1, None
+    return splits, torch.empty(splits * b * h * lq * (kernel_hd + 2),
+                               device=q.device, dtype=torch.float32)
+
+
 def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
     """The forward kernel of ``csrc/flash_cross.cu`` on per-head views
     ``[B, H, L, hd]`` of any (batch, head, row) strides: B13 without (m, l),
@@ -255,17 +305,20 @@ def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
     def launch(ins, outs, kernel_hd):
         qk, kk, vk = ins
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
+        splits, part = chunked_fwd_plan(q, b, h, lq, k.shape[2], kernel_hd)
         err = load_kernels().lib.unirec_flash_cross_fwd(
             qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
             None if bias32 is None else bias32.data_ptr(), outs[0].data_ptr(),
             None if m is None else m.data_ptr(),
-            None if l is None else l.data_ptr(), *strides, b, h, lq,
-            k.shape[2], kernel_hd, dtype_code(q), sm_scale(hd),
+            None if l is None else l.data_ptr(),
+            None if part is None else part.data_ptr(), *strides, b, h, lq,
+            k.shape[2], kernel_hd, dtype_code(q), splits, sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_cross_fwd")
 
     padded_launch("the streaming forward", hd,
-                  [(q, None), (k, None), (v, None)], [(o, None)], launch)
+                  [(q, None), (k, None), (v, None)], [(o, None)], launch,
+                  BF16_FWD_CHUNKS)
 
 
 def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -63,6 +63,8 @@ import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.attention import (
+    BF16_BWD_CHUNKS,
+    BF16_FWD_CHUNKS,
     NEG_INF,
     check_head_dim,
     padded_launch,
@@ -246,7 +248,7 @@ def _k1(q, k, v, pad_mask, num_q_heads, num_kv_heads, stats: bool):
         check(err, "flash_causal_fwd")
 
     padded_launch("K1", hd, _heads(q, k, v, num_q_heads, num_kv_heads),
-                  [(out, num_q_heads)], launch)
+                  [(out, num_q_heads)], launch, BF16_FWD_CHUNKS)
     flash_causal_attention.launches += 1
     return (out, m, l_) if stats else out
 
@@ -295,7 +297,8 @@ def flash_causal_bwd_dq(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
         check(err, "flash_causal_bwd_dq")
 
     padded_launch("B7b", hd, _heads(q, k, v, num_q_heads, num_kv_heads)
-                  + [(do, num_q_heads)], [(dq, num_q_heads)], launch)
+                  + [(do, num_q_heads)], [(dq, num_q_heads)], launch,
+                  BF16_BWD_CHUNKS)
     flash_causal_bwd_dq.launches += 1
     return dq
 

@@ -59,6 +59,7 @@ import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.attention import (
+    BF16_BWD_CHUNKS,
     check_head_dim,
     check_kernel_tensors,
     dtype_code,
@@ -178,7 +179,8 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
 
     padded_launch("the streaming backward", hd,
                   [(q, None), (k, None), (v, None), (do, None)],
-                  [(dq, None), (dk, None), (dv, None)], launch)
+                  [(dq, None), (dk, None), (dv, None)], launch,
+                  BF16_BWD_CHUNKS)
 
 
 def _check_stats(name: str, b: int, lq: int, h: int, *stats) -> None:

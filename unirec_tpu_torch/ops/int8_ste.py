@@ -11,26 +11,31 @@ around them).
 
 Forward by device: for a CUDA tensor it is kernel B8 (``ops/int8_matmul``);
 for a CPU tensor it is the XLA formula that the JAX package runs off the TPU,
-which divides by the row scale (``x / fl(absmax / 127)``) and clips, where
-the kernel multiplies by ``fl(127 / absmax)``.  The two forms can put a value
-that lies on a rounding boundary one code apart; the JAX package splits the
-same way at 16384 rows on the TPU, the port by device.
+which divides by the row scale (``x / rs``) and clips, where the kernel
+multiplies by ``fl(127 / absmax)``.  The two forms can put a value that lies
+on a rounding boundary one code apart; the JAX package splits the same way at
+16384 rows on the TPU, the port by device.  The row scale is the one the
+JAX function computes under ``jit``, as every JAX caller runs it: XLA
+compiles ``absmax / 127.0`` to ``absmax * fl(1 / 127)``, which is one ulp
+off the quotient in some rows (and then moves their codes and their
+dequantized outputs).
 """
 
 from __future__ import annotations
 
 import torch
 
-from unirec_tpu_torch.ops.fused_qformer_int8 import _int_mm, true_div
-from unirec_tpu_torch.ops.int8_matmul import int8_linear
+from unirec_tpu_torch.ops.fused_qformer_int8 import _int_mm
+from unirec_tpu_torch.ops.int8_matmul import _RCP_127, int8_linear
 
 
 def _xla_forward(x: torch.Tensor, wq: torch.Tensor,
                  ws: torch.Tensor) -> torch.Tensor:
-    """``int8_ste._fwd_math`` off the TPU: the divide form with clip."""
+    """``int8_ste._fwd_math`` off the TPU, as jitted: the divide form with
+    clip, over the row scale ``absmax * fl(1 / 127)``."""
     x32 = x.float()
     absmax = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
-    rs = true_div(absmax, 127.0)
+    rs = absmax * _RCP_127
     xq = torch.round(x32 / rs).clamp(-127, 127).to(torch.int8)
     return ((_int_mm(xq, wq) * rs) * ws.float()).to(x.dtype)
 
