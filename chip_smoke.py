@@ -407,8 +407,11 @@ FLASH_OTHER_HD = (32, 128, 8, 24, 256)
 # (~760 sliding-window samples: 10 steps an epoch at batch 64, 2 evaluation
 # batches), a few items missing from the cache
 USER_CLI_USERS = 20
-# (a) C-4/C-5: head dims above 256 (the chunked form)
+# (a) C-4/C-5: head dims above 256 (the chunked form); C-19: bf16 at every
+# chunk count: K1 / B7b at hd 768 (three chunks), B13 / B14 / B14p at one
+# head of 1024 (four) and B13 at one head of 1536 (six)
 WIDE_HDS = (320, 512)
+WIDE_BF16_HD, WIDE_ONE_HEAD_HD, WIDE_B13_HD = 768, 1024, 1536
 WIDE_CAUSAL = dict(B=2, L=512, HQ=4, HKV=2, LENGTHS=(512, 301))
 WIDE_CROSS = dict(B=8, LKV=1600, H=2, HD=512)
 # (c) the Q-Former's LM head: QFormerConfig(), 32 query tokens over ViT-L/14's
@@ -3433,12 +3436,24 @@ def sdpa_time(fn, iters: int = 10):
         return None
 
 
+def chunked_forms(hd: int, dtype) -> dict:
+    """The form each chunked kernel takes at ``hd`` (above 256) in
+    ``dtype``: bf16 on tensor cores up to 5 chunks of 256 in the forward, 2
+    in the backward over rows (B7b's dq, B14 / B14p) and 4 over keys (B7b's
+    dk / dv, ``chunk_bwd_keys_tc``), the scalar form above and in fp32."""
+    chunks = -(-hd // 256)
+    return {kind: "tensor_cores" if dtype == torch.bfloat16 and chunks <= most
+            else "scalar" for kind, most in (("fwd", 5), ("rows", 2),
+                                             ("keys", 4))}
+
+
 def wide_causal(gen, hd: int, dtype) -> dict:
     """K1 (both forms) and B7b at head dim ``hd`` (WIDE_CAUSAL's shape)
     against their plain versions with phase 3's gates, repeats identical;
     driven once through ``flash_causal_attention_train`` and
-    ``torch.autograd.grad`` (counted, its gradients equal to the kernels'
-    bits); timed against the plain versions, the bounds and SDPA."""
+    ``torch.autograd.grad`` (counted, each kernel in the form
+    ``chunked_forms`` names, its gradients equal to the kernels' bits);
+    timed against the plain versions, the bounds and SDPA."""
     from unirec_tpu_torch.ops import flash_causal as fc
 
     b, l, hq, hkv = (WIDE_CAUSAL[x] for x in ("B", "L", "HQ", "HKV"))
@@ -3455,6 +3470,7 @@ def wide_causal(gen, hd: int, dtype) -> dict:
                 fc.flash_causal_bwd_dkv)
     for fn in counters:
         fn.launches = 0
+        fn.forms.clear()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     grads = torch.autograd.grad(
         fc.flash_causal_attention_train(*leaves, mask, hq, hkv), leaves, do)
@@ -3462,6 +3478,13 @@ def wide_causal(gen, hd: int, dtype) -> dict:
     launches = [fn.launches for fn in counters]
     if launches != [1, 1, 1]:
         raise AssertionError(f"K1 / B7b hd {hd} launches {launches}")
+    want = chunked_forms(hd, dtype)
+    forms = dict(zip(("k1", "dq", "dkv"), (want["fwd"], want["rows"],
+                                            want["keys"])))
+    ran = [dict(fn.forms) for fn in counters]
+    if ran != [{f: 1} for f in forms.values()]:
+        raise AssertionError(f"K1 / B7b hd {hd} {dtype} ran the forms {ran},"
+                             f" want {forms}")
     if not (torch.equal(grads[0], fc.flash_causal_bwd_dq(*args)) and all(
             torch.equal(g, r) for g, r in zip(
                 grads[1:], fc.flash_causal_bwd_dkv(*args)))):
@@ -3500,10 +3523,12 @@ def wide_causal(gen, hd: int, dtype) -> dict:
         f"{b_dkv[0]:.4f} {b_dkv[1]}), plain backward {bwd_plain:.4f} ms; "
         f"scaled_dot_product_attention ({backend}) forward "
         f"{'refused' if lib is None else f'{lib:.4f} ms'}, forward + backward "
-        f"{'refused' if lib_fb is None else f'{lib_fb:.4f} ms'}")
+        f"{'refused' if lib_fb is None else f'{lib_fb:.4f} ms'}; B7b's "
+        f"backward (dq + dk/dv) {dq + dkv:.4f} ms; forms {forms}")
     del qh, kh, vh, qg, kg, vg
     torch.cuda.empty_cache()
     return {"errs": errs, "launches": launches, "sdpa_backend": backend,
+            "forms": forms,
             "k1": dict(ms=k1, plain_ms=k1_plain, library_ms=lib,
                        bound_ms=b_k1[0], bound_by=b_k1[1]),
             "dq": dict(ms=dq, plain_ms=bwd_plain, library_ms=lib_fb,
@@ -3512,8 +3537,10 @@ def wide_causal(gen, hd: int, dtype) -> dict:
                         bound_ms=b_dkv[0], bound_by=b_dkv[1])}
 
 
-def wide_b14p(gen, dtype, res, b=WIDE_CROSS["B"]) -> None:
-    """B14p at WIDE_CROSS's shape (``b`` users) in per-head layout, as ``phase_b14p``
+def wide_b14p(gen, dtype, res, b=WIDE_CROSS["B"], h=WIDE_CROSS["H"],
+              hd=WIDE_CROSS["HD"]) -> None:
+    """B14p at WIDE_CROSS's shape (``b`` users, ``h`` heads of ``hd``) in
+    per-head layout, as ``phase_b14p``
     holds it: driven through ``flash_cross_attention_vjp`` and
     ``torch.autograd.grad`` (counted: one launch each way), against the
     plain path; the kernels against their plain versions, repeats
@@ -3522,8 +3549,7 @@ def wide_b14p(gen, dtype, res, b=WIDE_CROSS["B"]) -> None:
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
-    lkv, h, hd = (WIDE_CROSS[x] for x in ("LKV", "H", "HD"))
-    lq = 64
+    lkv, lq = WIDE_CROSS["LKV"], 64
     where = f"{dtype} B={b} H={h} Lq={lq} Lkv={lkv} hd={hd}"
     q, k, v, do, bias = b14p_inputs(gen, b, h, lq, lkv, hd, dtype)
     bias32 = pa.key_bias(bias, b, lkv, q.device)
@@ -3591,6 +3617,86 @@ def wide_b14p(gen, dtype, res, b=WIDE_CROSS["B"]) -> None:
         f"exactly zero dk / dv; SDPA's backend {res['sdpa_backend']}")
 
 
+def wide_one_head(gen) -> dict:
+    """C-19 on the card: bf16 at chunk counts the tensor-core backward does
+    not hold.  B13, B14 and B14p at WIDE_CROSS's users and memory in one
+    head of WIDE_ONE_HEAD_HD (four chunks: the forward on tensor cores, the
+    one-pass backward in the scalar form), held to their plain versions as
+    ``check_flash_cross`` and ``wide_b14p`` hold them, the forms counted,
+    timed beside the bounds and SDPA; B13 at one head of WIDE_B13_HD (six
+    chunks, the scalar forward), held, repeated and timed."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b16 = torch.bfloat16
+    b, lkv, hd = WIDE_CROSS["B"], WIDE_CROSS["LKV"], WIDE_ONE_HEAD_HD
+    where = f"{b16} B={b} Lq=64 Lkv={lkv} H=1 hd={hd}"
+    want = chunked_forms(hd, b16)
+    counters = (pa.launch_flash_cross_fwd, fl.launch_flash_cross_bwd)
+    for fn in counters:
+        fn.forms.clear()
+    res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd", "b14p_fwd",
+                                     "b14p_bwd")}
+    c = check_flash_cross(gen, b16, b, lkv, 1, hd, res)
+    mask = c["bias"].to(b16)
+    qh, kh, vh = c["qh"], c["kh"], c["vh"]
+    res["sdpa_backend"] = sdpa_backend(qh, kh, vh, mask)
+    library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+               "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+               "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
+                                       pa.split_heads(c["do"], 1))}
+    time_runs(c["runs"], library, flash_bounds(b, 64, lkv, 2, 1), res,
+              f"{where} (SDPA backend {res['sdpa_backend']})")
+    del c, qh, kh, vh, library
+    torch.cuda.empty_cache()
+    wide_b14p(gen, b16, res, h=1, hd=hd)
+    ran = [set(fn.forms) for fn in counters]  # every launch of B13 / B14 / B14p
+    if ran != [{want["fwd"]}, {want["rows"]}]:
+        raise AssertionError(f"B13 / B14 / B14p {where} ran the forms {ran}")
+    res["forms"] = {"fwd": want["fwd"], "bwd": want["rows"]}
+
+    # B13 at one head of WIDE_B13_HD: the scalar forward
+    hd = WIDE_B13_HD
+    where = f"{b16} B={b} Lq=64 Lkv={lkv} H=1 hd={hd}"
+    q, k3, v3, _, bias = flash_inputs(gen, b, lkv, b16, hd)
+    qh, kh, vh = (pa.split_heads(t, 1) for t in (q, k3, v3))
+    pa.launch_flash_cross_fwd.forms.clear()
+    pa.flash_cross_attention.launches = 0
+    got = pa.flash_cross_attention(qh, kh, vh, bias)
+    torch.cuda.synchronize()
+    form = chunked_forms(hd, b16)["fwd"]
+    if (dict(pa.launch_flash_cross_fwd.forms) != {form: 1}
+            or pa.flash_cross_attention.launches != 1):
+        raise AssertionError(f"B13 {where} ran "
+                             f"{dict(pa.launch_flash_cross_fwd.forms)}")
+    err = kernel_error("B13 o", got, pa.flash_cross_attention_plain(
+        qh, kh, vh, bias), where)
+    check_repeat(f"B13 {where}", [got],
+                 [pa.flash_cross_attention(qh, kh, vh, bias)])
+    kernel_error("B13 fully masked user", got[1], vh[1].float().mean(
+        1, keepdim=True).expand(1, 64, hd), where)
+    io_q, io_kv = 2 * b * 64 * hd, 2 * b * lkv * hd
+    b_ms, b_by = bound(2 * io_q + 2 * io_kv + 4 * b * lkv,
+                       2 * 2 * b * 64 * lkv * hd, "bf16")
+    mask = bias.to(b16)
+    b13 = dict(err=err, form=form, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lambda: pa.flash_cross_attention(qh, kh, vh, bias),
+                          iters=10),
+               plain_ms=time_ms(lambda: pa.flash_cross_attention_plain(
+                   qh, kh, vh, bias), iters=3, warmup=1),
+               library_ms=sdpa_time(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
+               sdpa_backend=sdpa_backend(qh, kh, vh, mask))
+    log(f"B13 time {where} ({form}): kernel {b13['ms']:.4f} ms, plain "
+        f"{b13['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"scaled_dot_product_attention ({b13['sdpa_backend']}) "
+        + ("refused" if b13["library_ms"] is None
+           else f"{b13['library_ms']:.4f} ms"))
+    del q, k3, v3, qh, kh, vh, got
+    torch.cuda.empty_cache()
+    return {"hd1024": res, "b13_hd1536": b13}
+
+
 def phase_wide_heads(gen) -> dict:
     """(a) C-4/C-5 on the card: the chunked form of K1 and B7b at
     WIDE_CAUSAL's shape, head dims 320 and 512 (``wide_causal``), and of
@@ -3600,7 +3706,9 @@ def phase_wide_heads(gen) -> dict:
     gates and repeated for identical bits, timed against its bound and SDPA
     (naming SDPA's backend).  B13 and B14 also at 2 heads of 320, held; and
     the bf16 B13, B14 and B14p at the user step's USER_BATCH users, held and
-    timed (``out["users"]``)."""
+    timed (``out["users"]``).  Last (C-19), K1 / B7b at hd WIDE_BF16_HD in
+    bf16 and the cross kernels at one head of 1024 and 1536
+    (``wide_one_head``, ``out["one_head"]``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"causal": {(hd, dtype): wide_causal(gen, hd, dtype)
                       for hd in WIDE_HDS
@@ -3653,6 +3761,11 @@ def phase_wide_heads(gen) -> dict:
     wide_b14p(gen, b16, res, b=users)
     out["users"] = res
     torch.cuda.empty_cache()
+    # C-19: K1 / B7b at hd 768 in bf16 (K1 and dk / dv on tensor cores, dq
+    # in the scalar form), then the cross kernels at one head of 1024 and
+    # B13 at 1536 (``wide_one_head``)
+    out["causal"][(WIDE_BF16_HD, b16)] = wide_causal(gen, WIDE_BF16_HD, b16)
+    out["one_head"] = wide_one_head(gen)
     return out
 
 
@@ -5653,7 +5766,8 @@ def write_user_files(tmp: str, cache) -> dict:
     return paths
 
 
-def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
+def phase_user_train(smi: str, tmp: str, heads=None,
+                     evaluate: bool = True) -> dict:
     """User Q-Former training at full width (``UserQFormerConfig()`` over the
     sweep's checkpoint and cache, --max-seq-len 50, batch 64, bf16 compute
     with float32 masters): (b) one step with ``--flash --fused`` (B14 in
@@ -5663,10 +5777,12 @@ def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
     --flash --fused`` for 2 epochs, ``--resume`` for 1, then ``--bf16
     --remat`` for 1, whose evaluation goes through B13; exact launches.
 
-    With ``heads`` (the chunked kernels' phase (b): 2 heads of 512): the
-    step parity of (b) alone at ``num_attention_heads=heads``, then one
-    evaluation forward of the plain model, whose cross layers take B13;
-    returns those launches."""
+    With ``heads`` (the chunked kernels' phase (b): 2 heads of 512; C-19: 1
+    head of 1024): the step parity of (b) alone at
+    ``num_attention_heads=heads``, then (``evaluate``) one evaluation
+    forward of the plain model, whose cross layers take B13, and ms per
+    step, device idle share and peak memory of the ``--flash --fused``
+    step; returns those launches and times."""
     import contextlib
     import dataclasses
     import io
@@ -5761,7 +5877,23 @@ def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
         release()
         return loss, grads, launches
 
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    form_counts = (pa.launch_flash_cross_fwd.forms,
+                   fl.launch_flash_cross_bwd.forms)
+    for f in form_counts:
+        f.clear()
     loss_k, g_k, l_k = one_step(True)
+    head_dim = uc0.hidden_size // uc0.num_attention_heads
+    if head_dim > 256:  # B14 in the chunked form: the forms named
+        want = chunked_forms(head_dim, torch.bfloat16)
+        ran = [dict(f) for f in form_counts]
+        if ran != [{want["fwd"]: n_layers}, {want["rows"]: n_layers}]:
+            raise AssertionError(f"user step at head dim {head_dim}: B14 "
+                                 f"ran the forms {ran}")
+        log(f"user step at head dim {head_dim}: B14 forward {want['fwd']},"
+            f" backward {want['rows']} in each of {n_layers} cross layers")
     loss_p, g_p, l_p = one_step(False)
     loss_32, g_32, _ = one_step(False, "float32")
     noise = noise_leaves(g_32)
@@ -5883,26 +6015,30 @@ def phase_user_train(smi: str, tmp: str, heads=None) -> dict:
         return dict(ms=ms, peak_gb=peak, fwd_bwd_ms=float(np.median(fb)),
                     optimizer_ms=float(np.median(op)), idle=idle)
 
-    if heads is not None:  # the plain model's evaluation forward: B13
-        from unirec_tpu_torch.train.user_qformer import (
-            batch_to_device,
-            user_forward,
-        )
+    if heads is not None:
+        l_eval = {"b13": 0}
+        if evaluate:  # the plain model's evaluation forward: B13
+            from unirec_tpu_torch.train.user_qformer import (
+                batch_to_device,
+                user_forward,
+            )
 
-        st, _ = trainer(False)
-        zero_counts()
-        st.model.eval()
-        with torch.no_grad():
-            pred = user_forward(st.model, batch_to_device(batches[0], "cuda"))
-        torch.cuda.synchronize()
-        l_eval = launches_now()
-        log(f"user evaluation forward at {heads} heads: launches {l_eval}")
-        if (l_eval != user_launches(n_layers, 0, 1, False)
-                or not bool(torch.isfinite(pred).all())):
-            raise AssertionError(f"user evaluation at {heads} heads: "
-                                 f"launches {l_eval}")
-        del st, pred
-        release()
+            st, _ = trainer(False)
+            zero_counts()
+            st.model.eval()
+            with torch.no_grad():
+                pred = user_forward(st.model,
+                                    batch_to_device(batches[0], "cuda"))
+            torch.cuda.synchronize()
+            l_eval = launches_now()
+            log(f"user evaluation forward at {heads} heads: launches "
+                f"{l_eval}")
+            if (l_eval != user_launches(n_layers, 0, 1, False)
+                    or not bool(torch.isfinite(pred).all())):
+                raise AssertionError(f"user evaluation at {heads} heads: "
+                                     f"launches {l_eval}")
+            del st, pred
+            release()
         t = step_ms(True)
         log(f"[{smi}] user step at batch {USER_BATCH}, UserQFormerConfig("
             f"num_attention_heads={heads}) (head dim "
@@ -7205,6 +7341,11 @@ def main() -> int:
         wide_user = phase_user_train(smi, tmp, heads=2)
         gc.collect()
         torch.cuda.empty_cache()
+        # C-19: the user step at one head of 1024 (B14's backward in the
+        # scalar form), parity and ms per step
+        one_head_user = phase_user_train(smi, tmp, heads=1, evaluate=False)
+        gc.collect()
+        torch.cuda.empty_cache()
         lm = phase_lm_decode(smi)
         gc.collect()
         torch.cuda.empty_cache()
@@ -7358,11 +7499,15 @@ def main() -> int:
             **{k: v for k, v in b15["timed"][0].items() if k != "F"})
     ]
 
-    # the chunked form at head dim 512 ((a); bf16 figures, the fp32 and
-    # hd-320 ones as extra keys): K1 / B7b launches from their entry
-    # point's run in (a), B13 / B14 from the 2-head user step and
-    # evaluation of (b), B14p from its entry point's run in (a)
+    # the chunked form at head dim 512 ((a); bf16 figures, the fp32, hd-320
+    # and hd-768 ones as extra keys, with the form each ran at each head
+    # dim; the cross rows' hd-1024 figures from one head of 1024, B13's
+    # also at 1536): K1 / B7b launches from their entry point's run in (a),
+    # B13 / B14 from the 2-head user step and evaluation of (b), B14p from
+    # its entry point's run in (a)
     causal = wide["causal"]
+    one = wide["one_head"]
+    timed = ("ms", "plain_ms", "bound_ms", "library_ms")
     for key, row_name, src, replaces in (
             ("k1", "flash_causal_fwd_hd512", "flash_causal_fwd.cu",
              "flash_causal_vjp.py:78"),
@@ -7376,13 +7521,18 @@ def main() -> int:
                   for dt in (torch.float32, b16) for e in errs)
         launches = sum(causal[(512, dt)]["launches"][
             ("k1", "dq", "dkv").index(key)] for dt in (torch.float32, b16))
+        err = max(err, *(causal[(WIDE_BF16_HD, b16)]["errs"][e]
+                         for e in errs))
         kernels.append(row(
             row_name, src, replaces, launches, err, **at[key], head_dim=512,
             sdpa_backend=at["sdpa_backend"],
             **{f"{k}_fp32": v for k, v in causal[(512, torch.float32)][key]
-               .items() if k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            **{f"{k}_hd320": v for k, v in causal[(320, b16)][key].items()
-               if k in ("ms", "plain_ms", "bound_ms", "library_ms")}))
+               .items() if k in timed},
+            **{f"{k}_hd{hd}": v for hd in (320, WIDE_BF16_HD)
+               for k, v in causal[(hd, b16)][key].items() if k in timed},
+            forms={hd: causal[(hd, b16)]["forms"][key]
+                   for hd in (*WIDE_HDS, WIDE_BF16_HD)},
+            **({"kernel": "chunk_bwd_keys_tc"} if key == "dkv" else {})))
     for key, row_name, replaces, launches in (
             ("b13", "flash_cross_attention_hd512", "attention.py:163",
              wide_user["launches"]["b13"]),
@@ -7395,11 +7545,25 @@ def main() -> int:
             ("b14p_bwd", "flash_cross_attention_vjp_bwd_hd512",
              "flash_vjp.py:113", None)):
         at, at32 = wide[b16][key], wide[torch.float32][key]
+        at1 = one["hd1024"][key]
+        way = "fwd" if key == "b13" or key.endswith("_fwd") else "bwd"
+        extra = {f"{k}_hd{WIDE_ONE_HEAD_HD}": at1[k] for k in timed}
+        extra["forms"] = {512: "tensor_cores",
+                          WIDE_ONE_HEAD_HD: one["hd1024"]["forms"][way]}
+        if key == "b13":
+            extra.update({f"{k}_hd{WIDE_B13_HD}": one["b13_hd1536"][k]
+                          for k in timed})
+            extra["forms"][WIDE_B13_HD] = one["b13_hd1536"]["form"]
+        if launches is not None:  # B14 in the 1-head user step
+            extra[f"launches_hd{WIDE_ONE_HEAD_HD}"] = (
+                one_head_user["launches"].get(key, 0))
         kernels.append(row(
             row_name, "flash_cross.cu", replaces,
             launches if launches is not None
             else at["launches"] + at32["launches"],
-            max(at["err"], at32["err"]), at["ms"], at["plain_ms"],
+            max(at["err"], at32["err"], at1["err"], *(
+                [one["b13_hd1536"]["err"]] if key == "b13" else [])),
+            at["ms"], at["plain_ms"],
             at["bound_ms"], at["bound_by"], at["library_ms"], head_dim=512,
             sdpa_backend=wide[b16]["sdpa_backend"],
             **{f"{k}_fp32": at32[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -7407,7 +7571,7 @@ def main() -> int:
             **{f"{k}_{USER_BATCH}users": wide["users"][key][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{f"sdpa_backend_{USER_BATCH}users":
-               wide["users"]["sdpa_backend"]}))
+               wide["users"]["sdpa_backend"]}, **extra))
     log(f"(c) LM-head decoding tokens/s: {json.dumps(lm['tokens_per_s'])}, "
         f"bf16 agreement {lm['bf16_agreement']:.4f}")
     log(json.dumps({"kernels": kernels}))

@@ -252,10 +252,23 @@ def check_cross(emu, dtype, hd, b, h, lq, lkv, merged, parent=None):
           f"{max(errs):.1e}{same}", flush=True)
 
 
+def _padded_to_chunks(hd, inputs, outputs, launch):
+    """``launch(ins, outs, width)`` on per-head views zero-padded to the
+    kernels' width, instance * chunks (the C entries' head dim before the
+    chunked form took a head dim as it is), the true columns copied back."""
+    instance, chunks = pa.kernel_head_dim("parent", hd)
+    width = instance * chunks
+    ins = [pa._pad_heads(t, None, width) for t in inputs]
+    outs = [torch.empty(*t.shape[:-1], width, dtype=t.dtype) for t in outputs]
+    launch(ins, outs, width)
+    for t, out in zip(outputs, outs):
+        t.copy_(out[..., :hd])
+
+
 def _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
     """The other tree's float32 kernels (C entries of that tree's
-    signature) on the same inputs, zero-padded to the kernels' head dim as
-    the wrappers pad them (``padded_launch``), compared bit for bit."""
+    signature) on the same inputs, zero-padded to whole chunks as that
+    tree's wrappers padded them, compared bit for bit."""
     b, lq, _ = q.shape
     lkv = k.shape[1]
     o, m2, l2 = torch.empty_like(q), torch.empty_like(m), torch.empty_like(l)
@@ -266,8 +279,8 @@ def _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
     def fwd(ins, outs, kernel_hd):
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
         errs.append(parent.unirec_flash_cross_fwd(
-            *(t.data_ptr() for t in (*ins, bias32, outs[0], m2, l2)),
-            *strides, b, h, lq, lkv, kernel_hd, 0, pa.sm_scale(hd), None))
+            *(t.data_ptr() for t in (*ins, bias32, outs[0], m2, l2)), None,
+            *strides, b, h, lq, lkv, kernel_hd, 0, 1, pa.sm_scale(hd), None))
 
     def bwd(ins, outs, kernel_hd):
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
@@ -280,10 +293,9 @@ def _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
     def heads(t):
         return fl._heads(t, h)
 
-    pa.padded_launch("parent", hd, [(heads(t), None) for t in (q, k, v)],
-                     [(heads(o), None)], fwd)
-    pa.padded_launch("parent", hd, [(heads(t), None) for t in (q, k, v, do)],
-                     [(heads(g), None) for g in grads], bwd)
+    _padded_to_chunks(hd, [heads(t) for t in (q, k, v)], [heads(o)], fwd)
+    _padded_to_chunks(hd, [heads(t) for t in (q, k, v, do)],
+                      [heads(g) for g in grads], bwd)
     return not any(errs) and all(torch.equal(x, y)
                                  for x, y in zip(ours, (o, m2, l2, *grads)))
 
@@ -299,17 +311,33 @@ def check_causal(emu, dtype, hd, hkv):
     mask[0, 10:80] = 0.0
     mask[1, 100:] = 0.0
     ins = (q, k, v, do, mask)
+    fc.flash_causal_attention.forms.clear()
     o, m, den = emu.run(lambda: fc._k1(q, k, v, mask, hq, hkv, stats=True),
                         *ins)
+    k1_form = expected_forms(hd, dtype)[0]
+    if dict(fc.flash_causal_attention.forms) != ({k1_form: 1} if k1_form
+                                                 else {}):
+        raise AssertionError(f"K1 ran {dict(fc.flash_causal_attention.forms)}")
     ref = fc.flash_causal_attention_fwd_plain(q.float(), k.float(), v.float(),
                                               mask, hq, hkv)
     errs = [_hold("K1 " + n, g, r, dtype) for n, g, r in
             zip(("o", "m", "l"), (o, m, den), ref)]
     dsum = fc.attention_dsum(do, o, hq).contiguous()
     args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    counters = (fc.flash_causal_attention, fc.flash_causal_bwd_dq,
+                fc.flash_causal_bwd_dkv)
+    for fn in counters:
+        fn.forms.clear()
     dq = emu.run(lambda: fc.flash_causal_bwd_dq(*args), *ins, m, den, dsum)
     dk, dv = emu.run(lambda: fc.flash_causal_bwd_dkv(*args), *ins, m, den,
                      dsum)
+    forms = [dict(fn.forms) for fn in counters]
+    if forms != [{}] + [{f: 1} if f else {} for f in expected_forms(hd, dtype)[1:]]:
+        raise AssertionError(f"B7b ran the forms {forms[1:]}")
+    again = emu.run(lambda: fc.flash_causal_bwd_dkv(*args), *ins, m, den,
+                    dsum)
+    if not (torch.equal(dk, again[0]) and torch.equal(dv, again[1])):
+        raise AssertionError("B7b's dk / dv: a repeat gave other bits")
     want = fc.flash_causal_attention_bwd_plain(
         q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum, hq,
         hkv)
@@ -319,13 +347,27 @@ def check_causal(emu, dtype, hd, hkv):
     if not (bool((dk[pad] == 0).all()) and bool((dv[pad] == 0).all())):
         raise AssertionError("B7b gave a padded key a gradient")
     print(f"K1/B7b {str(dtype)[6:]} hd {hd} Hq {hq} Hkv {hkv}: max rel "
-          f"{max(errs):.1e}", flush=True)
+          f"{max(errs):.1e}" + (f", forms (dq, dk / dv) {forms[1:]}"
+                                if hd > 256 else ""), flush=True)
+
+
+def expected_forms(hd: int, dtype) -> list:
+    """The chunked form of K1, B7b's dq and B7b's dk / dv at ``hd``: bf16
+    on tensor cores up to 5, 2 and 4 chunks of 256, the scalar form above
+    and in float32; none at hd <= 256."""
+    if hd <= 256:
+        return [None] * 3
+    chunks = -(-hd // 256)
+    return ["tensor_cores" if dtype == torch.bfloat16 and chunks <= most
+            else "scalar" for most in (5, 2, 4)]
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--hd", default="8,24,64,256",
                         help="head dims, comma-separated")
+    parser.add_argument("--causal", action="store_true",
+                        help="K1 and B7b only (no B13 / B14 / B14p)")
     parser.add_argument("--parent", help="another checkout to hold float32 "
                         "B13 / B14 bits to")
     args = parser.parse_args()
@@ -337,16 +379,18 @@ def main() -> int:
                        work / "parent", ("flash_cross.cu",))
         P, I = ctypes.c_void_p, ctypes.c_int
         parent.unirec_flash_cross_fwd.argtypes = (
-            [P] * 7 + [ctypes.c_longlong] * 12 + [I] * 6 + [ctypes.c_float, P])
+            [P] * 8 + [ctypes.c_longlong] * 12 + [I] * 7 + [ctypes.c_float, P])
         parent.unirec_flash_cross_bwd.argtypes = (
             [P] * 13 + [I] * 6 + [ctypes.c_float, P])
     for hd in map(int, args.hd.split(",")):
         for dtype in (torch.bfloat16, torch.float32):
+            for hkv in (2, 4):
+                check_causal(emu, dtype, hd, hkv)
+            if args.causal:
+                continue
             check_cross(emu, dtype, hd, 3, 2, 64, 130, True, parent)
             check_cross(emu, dtype, hd, 2, 3, 1, 70, False)
             check_cross(emu, dtype, hd, 2, 1, 150, 100, False)
-            for hkv in (2, 4):
-                check_causal(emu, dtype, hd, hkv)
             if hd > 256 and dtype == torch.bfloat16:  # the forward's key splits
                 check_cross(emu, dtype, hd, 2, 2, 64, 300, True)
     print("all emulated kernels agree with their plain versions")

@@ -140,7 +140,8 @@ def main() -> int:
             qh, kh, vh, oh = (pa.split_heads(t, H) for t in (q, k, v, o))
             strides = [s for t in (qh, kh, vh, oh) for s in t.stride()[:3]]
             stream = torch.cuda.current_stream().cuda_stream
-            splits, part = pa.chunked_fwd_plan(q, b, H, LQ, LKV, HD)
+            splits, part = pa.chunked_fwd_plan(q, b, H, LQ, LKV, HD,
+                                               "tensor_cores")
             for name, (lib, spill) in libs.items():
                 for n, scratch in {(splits, part), (1, None)}:
                     if n == 1 and name != "as_built" and splits > 1:

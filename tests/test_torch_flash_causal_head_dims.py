@@ -12,7 +12,7 @@ wrappers refused before the padding (8, 24, 136, 256) and before the chunked
 form (272, 512) now get to the device check.
 
 The plain versions (what a CPU tensor takes, and what the kernels are held
-to on the card) at hd 64 and 32 with GQA 2:1 against the JAX
+to on the card) at hd 64, 32 and 768 with GQA 2:1 against the JAX
 ``flash_causal_self_attention`` run in interpret mode (its Pallas forward
 and backward kernels) through ``jax.vjp``, fp32, with the tolerances of
 ``tests/test_torch_flash_causal_vjp.py``: forward atol 2e-5, gradients atol
@@ -34,7 +34,8 @@ from unirec_tpu_torch.ops.attention import KERNEL_HEAD_DIMS, check_head_dim
 FWD_ATOL, GRAD_ATOL, GRAD_RTOL, STAT_RTOL = 2e-5, 5e-5, 1e-3, 1e-5
 FORMERLY_REFUSED = (8, 24, 136, 256, 272, 512)
 REFUSED = (0,)
-SHAPES = [(2, 72, 4, 2, 64), (2, 72, 4, 2, 32)]  # (B, L, Hq, Hkv, hd)
+SHAPES = [(2, 72, 4, 2, 64), (2, 72, 4, 2, 32),  # (B, L, Hq, Hkv, hd)
+          (1, 72, 2, 1, 768)]  # three chunks of 256 on the card
 
 
 def _inputs(hd, hq=4, hkv=2, b=1, l=8):

@@ -216,3 +216,35 @@ def test_wrong_shapes_raise():
     with pytest.raises(ValueError, match="bad shapes"):
         pvjp.flash_cross_attention_vjp(q, torch.zeros(2, 3, 8, 16),
                                        torch.zeros(2, 3, 8, 16))
+
+
+def test_b14_one_head_of_768_matches_jax_kernels():
+    """B14 (merged heads) at one head of 768, three chunks of 256 on the
+    card: the plain forward (o, m, l) and backward (dq, dk3, dv3) against
+    ``_mh_fwd`` and ``_mh_bwd`` in interpret mode, at the B14 contract
+    test's tolerances (``tests/test_torch_flash_cross.py``)."""
+    rng = np.random.RandomState(768)
+    b, lq, lkv, d = 2, 8, 150, 768
+    q, do = (rng.randn(b, lq, d).astype(np.float32) for _ in range(2))
+    k3, v3 = (rng.randn(b, lkv, d).astype(np.float32) for _ in range(2))
+    mask = (rng.rand(b, lkv) > 0.2).astype(np.float32)
+    mask[:, 0] = 1.0
+    bias = np.array(jatt.make_additive_mask(jnp.asarray(mask)))
+    jq, jk, jv, jb, jdo = (jnp.asarray(a) for a in (q, k3, v3, bias, do))
+    jo, jm, jl = jvjp._mh_fwd(jq, jk, jv, jb, 1, block_kv=512, interpret=True)
+    t = torch.from_numpy
+    bias32 = patt.key_bias(t(bias), b, lkv, "cpu")
+    o, m, l = pvjp.flash_cross_fwd(t(q), t(k3), t(v3), bias32, 1)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **FWD_TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm)[:, :lq, :1],
+                               rtol=1e-6)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl)[:, :lq, :1],
+                               rtol=1e-5)
+    jdq, jdk, jdv = jvjp._mh_bwd(jq, jk, jv, jb, jo, jm, jl, jdo, 1,
+                                 block_kv=512, interpret=True)
+    dsum = pvjp.attention_dsum(t(do), o, 1)
+    got = pvjp.flash_cross_bwd(t(q), t(k3), t(v3), bias32, t(do), m, l, dsum,
+                               1)
+    for g, want, name in zip(got, (jdq, jdk, jdv), ("dq", "dk3", "dv3")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=2e-3, err_msg=name)

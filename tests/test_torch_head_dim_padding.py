@@ -3,16 +3,18 @@
 
 The attention kernels are built for every multiple of 16 up to 128 and for
 256 (``KERNEL_HEAD_DIMS``).  Any other head dim up to 256 runs zero-padded to
-the next instance, and any head dim above 256 zero-padded to C = ceil(hd /
-256) chunks of 256 (the chunked form, ``csrc/flash_chunked.cuh``), with the
-softmax scale of the true head dim: zero lanes add exact zeros to every dot
-product, so the scores, (m, l), the output and the gradients' true columns
-do not move.  Without a card that is checked on the plain versions: each
+the next instance, and above 256 the chunked form (``csrc/flash_chunked.cuh``,
+C = ceil(hd / 256) chunks of 256) takes a head dim whose rows are whole
+16-byte pieces as it is (zero-filling the last chunk's missing columns as it
+loads them) and any other zero-padded to C * 256, with the softmax scale of
+the true head dim: zero lanes add exact zeros to every dot product, so the
+scores, (m, l), the output and the gradients' true columns do not move.  Without a card that is checked on the plain versions: each
 runs on the padded tensors inside ``padded_launch`` (with the true head
 dim's scale, as the wrappers pass it to the kernels), and the true columns
 it returns are held to the unpadded plain version within 1e-6 relative, for
 K1 / B7b, B13, B14 (merged heads) and B14p, at hd 8, 24, 200, 257 and 300
-(257 and 300 at 2 chunks, 512 wide).  The packed item attention B15 pads
+(257 at 2 chunks, padded 512 wide; 300, whole 16-byte float32 pieces, as
+it is).  The packed item attention B15 pads
 nothing: its kernels take every head dim as it is; at those head dims its
 plain version is held to the JAX kernel.
 
@@ -46,8 +48,9 @@ from unirec_tpu_torch.ops import packed_attention as pp
 
 PAD_REL = 1e-6
 PADDED = (8, 24, 200, 257, 300)
-# the kernels' width for each padded head dim: instance * chunks
-INSTANCE = {8: 16, 24: 32, 200: 256, 257: 512, 300: 512}
+# the kernels' width for each head dim in float32: instance * chunks, but
+# 300 (rows of whole 16-byte pieces), which the chunked form takes as it is
+INSTANCE = {8: 16, 24: 32, 200: 256, 257: 512, 300: 300}
 
 
 def _rel(got, want) -> float:
@@ -112,8 +115,9 @@ def test_kernel_head_dim_refuses_naming_the_set(hd):
 @pytest.mark.parametrize("hd,chunks", [(257, 2), (300, 2), (320, 2),
                                        (512, 2), (513, 3), (1024, 4)])
 def test_kernel_head_dim_plans_chunks_above_256(hd, chunks):
-    """Above 256: C = ceil(hd / 256) chunks of the 256 instance, the head
-    dim zero-padded to C * 256 (``csrc/flash_chunked.cuh``)."""
+    """Above 256: C = ceil(hd / 256) chunks of the 256 instance
+    (``csrc/flash_chunked.cuh``); a float32 head dim whose rows are not
+    whole 16-byte pieces goes zero-padded to C * 256, any other as it is."""
     assert pa.kernel_head_dim("K1", hd) == (256, chunks)
     pa.check_head_dim("K1", hd)
     t = torch.randn(2, 3, 2 * hd)
@@ -121,34 +125,28 @@ def test_kernel_head_dim_plans_chunks_above_256(hd, chunks):
     pa.padded_launch("K1", hd, [(t, 2)], [],
                      lambda ins, outs, kernel_hd: seen.append((ins, kernel_hd)))
     (ins,), kernel_hd = seen[0]
-    assert kernel_hd == 256 * chunks and ins.shape == (2, 3, 2 * 256 * chunks)
-    split = ins.reshape(2, 3, 2, 256 * chunks)
+    width = hd if hd % 4 == 0 else 256 * chunks
+    assert kernel_hd == width and ins.shape == (2, 3, 2 * width)
+    split = ins.reshape(2, 3, 2, width)
     assert torch.equal(split[..., :hd], t.reshape(2, 3, 2, hd))
     assert not split[..., hd:].any()
 
 
-@pytest.mark.parametrize("hd,limit,dtype,refused", [
-    (512, pa.BF16_BWD_CHUNKS, torch.bfloat16, False),
-    (513, pa.BF16_BWD_CHUNKS, torch.bfloat16, True),
-    (1024, pa.BF16_BWD_CHUNKS, torch.float32, False),
-    (1280, pa.BF16_FWD_CHUNKS, torch.bfloat16, False),
-    (1281, pa.BF16_FWD_CHUNKS, torch.bfloat16, True),
-    (2048, None, torch.bfloat16, False)])
-def test_padded_launch_bounds_bf16_chunks(hd, limit, dtype, refused):
-    """The bf16 chunked kernels hold at most ``bf16_chunks`` chunks in
-    shared memory (the forward 5, the one-pass backward and B7b's dq 2);
-    more raise before the launch, naming the largest head dim.  float32 and
-    a launch without a bound take any count."""
+@pytest.mark.parametrize("hd,dtype", [
+    (512, torch.bfloat16), (513, torch.bfloat16), (1024, torch.float32),
+    (1280, torch.bfloat16), (1281, torch.bfloat16), (2048, torch.bfloat16)])
+def test_padded_launch_bounds_bf16_chunks(hd, dtype):
+    """bf16 launches at every chunk count, as float32 does (C-19): 513 and
+    1281, refused once (above the tensor-core forms' 2 and 5 chunks), go to
+    the launch zero-padded to 256 * C, where the kernels pick their form by
+    the chunk count (``chunked_form``)."""
     t = torch.zeros(1, 2, hd, dtype=dtype)
     seen = []
-    launch = lambda ins, outs, kernel_hd: seen.append(kernel_hd)  # noqa: E731
-    if refused:
-        with pytest.raises(ValueError, match=f"up to {256 * limit}"):
-            pa.padded_launch("K1", hd, [(t, None)], [], launch, limit)
-        assert seen == []
-    else:
-        pa.padded_launch("K1", hd, [(t, None)], [], launch, limit)
-        assert seen == [256 * -(-hd // 256)]
+    pa.padded_launch("K1", hd, [(t, None)], [],
+                     lambda ins, outs, kernel_hd: seen.append(
+                         (ins[0].shape[-1], ins[0].dtype, kernel_hd)))
+    width = 256 * -(-hd // 256)
+    assert seen == [(width, dtype, width)]
 
 
 @pytest.mark.parametrize("blocks,key_tiles,sms,want", [
@@ -166,21 +164,25 @@ def test_chunked_fwd_splits(blocks, key_tiles, sms, want):
 
 def test_chunked_fwd_plan_sizes_the_merge_scratch(monkeypatch):
     """(splits, scratch) of a launch: float32 scratch of splits * B * H * Lq
-    * (kernel_hd + 2) for a split bf16 launch at a chunked head dim, (1,
-    None) for float32, for a head dim of one chunk, and for a grid that
-    fills the card."""
+    * (kernel_hd + 2) for a split bf16 launch of the tensor-core form at a
+    chunked head dim, (1, None) for float32, for the scalar form (bf16
+    above 5 chunks), for a head dim of one chunk, and for a grid that fills
+    the card."""
     monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
     q = torch.zeros(1, dtype=torch.bfloat16)
-    splits, part = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 512)
+    tc = "tensor_cores"
+    splits, part = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 512, tc)
     assert splits == 8 and part.dtype == torch.float32
     assert part.numel() == 8 * 8 * 2 * 64 * (512 + 2)
-    splits, part = pa.chunked_fwd_plan(q, 3, 2, 150, 300, 512)
+    splits, part = pa.chunked_fwd_plan(q, 3, 2, 150, 300, 512, tc)
     assert splits == 2 and part.numel() == 2 * 3 * 2 * 150 * 514
-    splits, _ = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 1024)
+    splits, _ = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 1024, tc)
     assert splits == 4  # 64 blocks at 4 chunks
-    assert pa.chunked_fwd_plan(q, 64, 2, 64, 1600, 512) == (1, None)
-    assert pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 256) == (1, None)
-    assert pa.chunked_fwd_plan(q.float(), 8, 2, 64, 1600, 512) == (1, None)
+    assert pa.chunked_fwd_plan(q, 64, 2, 64, 1600, 512, tc) == (1, None)
+    assert pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 256, None) == (1, None)
+    assert pa.chunked_fwd_plan(q.float(), 8, 2, 64, 1600, 512,
+                               "scalar") == (1, None)
+    assert pa.chunked_fwd_plan(q, 8, 1, 64, 1600, 1536, "scalar") == (1, None)
 
 
 def test_padded_launch_passes_instances_as_they_are():

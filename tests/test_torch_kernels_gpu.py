@@ -35,8 +35,10 @@ padding, and repeat bit for bit.  B13 / B14 / B14p run at hd 8, 24, 64, 128
 and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
 and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
 dim and F (C-8).  K1-B14p run head dims above 256 in their chunked form
-(320 and 512: two chunks of 256); a head dim of 0 is refused, naming the
-set.  The int8 GEMM of B4-B6 and B8-B9b is held bit for bit to its plain
+(320 and 512: two chunks of 256; 768: three, in bf16 K1, B14's forward and
+B7b's dk / dv on tensor cores, dq and B14's backward in the scalar form);
+B7b's dk / dv on tensor cores at 320, 512 and 768; a head dim of 0 is
+refused, naming the set.  The int8 GEMM of B4-B6 and B8-B9b is held bit for bit to its plain
 form in every epilogue; B1-B6 run
 at hidden 1020 and 1032 (C-10).  B1-B3 run on each route of their
 LayerNorm (the cluster epilogue at hidden 1024 and at 896, whose last tile
@@ -1238,10 +1240,11 @@ def test_k1_b7b_chunked_bf16_stats_and_repeats(hopper, hq, hkv, hd):
     assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
 
 
-def test_chunked_bf16_refuses_more_chunks_than_it_holds(hopper):
-    """bf16 above BF16_BWD_CHUNKS chunks: the forward runs (its q tile's 3
-    chunks fit), the backward kernels raise before a launch; float32 takes
-    the head dim."""
+def test_chunked_bf16_runs_every_chunk_count(hopper):
+    """bf16 at hd 768 (three chunks; refused before C-19): K1 and dk / dv on
+    tensor cores, dq in the scalar form, B14's forward on tensor cores and
+    its one-pass backward in the scalar form, each against its plain
+    version at the bf16 gates, the form each wrapper ran counted."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
@@ -1249,25 +1252,78 @@ def test_chunked_bf16_refuses_more_chunks_than_it_holds(hopper):
     q, k, v, do = (torch.randn(b, l, n * hd, device="cuda", generator=hopper)
                    .to(torch.bfloat16) for n in (hq, hkv, hkv, hq))
     mask = torch.ones(b, l, device="cuda")
+    mask[1, 60:] = 0.0
+    counters = (fc.flash_causal_attention, fc.flash_causal_bwd_dq,
+                fc.flash_causal_bwd_dkv, pa.launch_flash_cross_fwd,
+                fl.launch_flash_cross_bwd)
+    for fn in counters:
+        fn.forms.clear()
     o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
-    _close(o, fc.flash_causal_attention_fwd_plain(
-        q.float(), k.float(), v.float(), mask, hq, hkv)[0], 1e-2, hd)
+    ro = fc.flash_causal_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                             mask, hq, hkv)[0]
+    _close(o, ro, 1e-2, hd)
     dsum = fc.attention_dsum(do, o, hq).contiguous()
-    before = fc.flash_causal_bwd_dq.launches
-    with pytest.raises(ValueError, match="up to 512"):
-        fc.flash_causal_bwd_dq(q, k, v, mask, do, m, den, dsum, hq, hkv)
-    assert fc.flash_causal_bwd_dq.launches == before
+    args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    dq = fc.flash_causal_bwd_dq(*args)
+    dk, dv = fc.flash_causal_bwd_dkv(*args)
+    want = fc.flash_causal_attention_bwd_plain(
+        q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum, hq,
+        hkv)
+    _close(dq, want[0], 2e-2, hd, _single_key_rows(mask, hq))
+    _close(dk, want[1], 2e-2, hd, _lone_key_rows(mask, hkv))
+    _close(dv, want[2], 2e-2, hd)
+    # B14 at one head of 768: q and dO of the first query head
+    q1, do1 = (t[..., :hd].contiguous() for t in (q, do))
     bias32 = pa.key_bias(None, b, l, q.device)
-    o2, m2, l2 = fl.flash_cross_fwd(q, q, q, bias32, hq)
-    with pytest.raises(ValueError, match="up to 512"):
-        fl.flash_cross_bwd(q, q, q, bias32, do, m2, l2,
-                           fl.attention_dsum(do, o2, hq), hq)
-    f32 = [t.float() for t in (q, k, v, do)]
-    o3, m3, l3 = fc._k1(*f32[:3], mask, hq, hkv, stats=True)
-    dq = fc.flash_causal_bwd_dq(*f32[:3], mask, f32[3], m3, l3,
-                                fc.attention_dsum(f32[3], o3, hq).contiguous(),
-                                hq, hkv)
-    assert bool(torch.isfinite(dq).all())
+    got = fl.flash_cross_fwd(q1, k, v, bias32, 1)
+    ref = fl.flash_cross_fwd_plain(q1, k, v, bias32, 1)
+    _close(got[0], ref[0], 2e-2, hd)
+    dsum1 = fl.attention_dsum(do1, got[0], 1).contiguous()
+    grads = fl.flash_cross_bwd(q1, k, v, bias32, do1, got[1], got[2], dsum1,
+                               1)
+    refs = fl.flash_cross_bwd_plain(q1, k, v, bias32, do1, got[1], got[2],
+                                    dsum1, 1)
+    for g, r in zip(grads, refs):
+        _close(g, r, 2e-2, hd)
+    assert [dict(fn.forms) for fn in counters] == [
+        {"tensor_cores": 1}, {"scalar": 1}, {"tensor_cores": 1},
+        {"tensor_cores": 1}, {"scalar": 1}]
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)], ids=["gqa2", "mha"])
+@pytest.mark.parametrize("hd", [320, 512, 768])
+def test_chunk_bwd_keys_tc(hopper, hq, hkv, hd):
+    """B7b's dk / dv on tensor cores (chunk_bwd_keys_tc) over ragged rows
+    with padded keys, GQA 2:1 and 1:1: dk and dv at the bf16 gates against
+    the plain version, exactly zero at padded keys, identical bits on a
+    repeat, the tensor-core form counted; float32 on the same inputs runs
+    the scalar form, within 1e-5 of its plain version and identical on a
+    repeat."""
+    b, l = 3, 300
+    q, k, v, do = (torch.randn(b, l, n * hd, device="cuda", generator=hopper)
+                   for n in (hq, hkv, hkv, hq))
+    lengths = torch.tensor([300, 129, 1], device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    mask[0, 40:70] = 0.0
+    pad = mask == 0
+    for dtype, tol, form in ((torch.bfloat16, 2e-2, "tensor_cores"),
+                             (torch.float32, 1e-5, "scalar")):
+        qt, kt, vt, dot = (t.to(dtype) for t in (q, k, v, do))
+        o, m, den = fc._k1(qt, kt, vt, mask, hq, hkv, stats=True)
+        dsum = fc.attention_dsum(dot, o, hq).contiguous()
+        args = (qt, kt, vt, mask, dot, m, den, dsum, hq, hkv)
+        fc.flash_causal_bwd_dkv.forms.clear()
+        dk, dv = fc.flash_causal_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        assert dict(fc.flash_causal_bwd_dkv.forms) == {form: 1}
+        want = fc.flash_causal_attention_bwd_plain(
+            *(t.float() for t in (qt, kt, vt)), mask, dot.float(), m, den,
+            dsum, hq, hkv)
+        _close(dk, want[1], tol, hd, _lone_key_rows(mask, hkv))
+        _close(dv, want[2], tol, hd)
+        assert bool((dk[pad] == 0).all()) and bool((dv[pad] == 0).all())
+        again = fc.flash_causal_bwd_dkv(*args)
+        assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

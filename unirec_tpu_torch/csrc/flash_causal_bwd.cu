@@ -19,8 +19,8 @@
 //   m, l, dsum  [B, L, Hq]  float
 // Head dims: every multiple of 16 up to 128, and 256 (head_dim.cuh); the
 // wrapper zero-pads any other head dim up to 256 to the next instance and
-// passes the softmax scale of the true one (above 256: whole chunks of 256,
-// run by the chunked form of flash_chunked.cuh).  At 256 the bf16 dq kernel
+// passes the softmax scale of the true one (above 256: the chunked form of
+// flash_chunked.cuh, chunks of 256).  At 256 the bf16 dq kernel
 // holds 64 slots in 4 warps (Q, dO and the ring take 202,752 bytes of shared
 // memory), and the fp32 kernels take 32-row tiles (a thread owns 2 x 2
 // scores): their four 64-row tiles would not fit.
@@ -904,8 +904,9 @@ chunked::BwdStrides chunked_strides(int L, int Hq, int Hkv, int head_dim) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh
-// (cudaErrorInvalidValue otherwise).  scale: the softmax scale, 1 / sqrt of
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh,
+// or above 256 (the chunked form, rows of whole 16-byte pieces;
+// cudaErrorInvalidValue otherwise).  scale: the softmax scale, 1 / sqrt of
 // the true head dim (the wrapper pads other head dims to an instance).
 extern "C" int unirec_flash_causal_bwd_dq(const void* q, const void* k, const void* v,
                                           const float* mask, const void* dout,
@@ -954,4 +955,17 @@ extern "C" int unirec_flash_causal_bwd_dkv(const void* q, const void* k, const v
     return launch_dkv<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dk, dv, B, L, Hq,
                                            Hkv, dtype == 1, scale, s);
   });
+}
+
+// The form a chunked launch takes (flash_chunked.cuh's chunked::form), for
+// the wrappers' key splits and per-form launch counts: kind 0 the forward
+// (K1, B13, B14, B14p), 1 the backward over rows (B7b's dq, B14 / B14p's one
+// pass), 2 the backward over keys (B7b's dk / dv); dtype 0 float32, 1
+// bfloat16.  1 the scalar kernel, 2 the tensor-core kernel; 0 where head_dim
+// is not chunked, -1 for a kind or dtype out of range.
+extern "C" int unirec_chunked_form(int kind, int head_dim, int dtype) {
+  if (kind < 0 || kind > 2 || dtype < 0 || dtype > 1) return -1;
+  if (!chunked::is_chunked(head_dim)) return 0;
+  return (int)chunked::form(static_cast<chunked::Kind>(kind), chunked::chunks(head_dim),
+                            dtype == 1);
 }

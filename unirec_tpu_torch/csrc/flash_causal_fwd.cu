@@ -21,8 +21,10 @@
 // Head dims: every multiple of 16 up to 128, and 256 (head_dim.cuh), each
 // its own template instance; the wrapper zero-pads any other head dim up to
 // 256 to the next instance and passes the softmax scale of the true one;
-// above 256 it pads to whole chunks of 256, which the C entry hands to the
-// chunked form of flash_chunked.cuh.  At 256 both designs below fit as they are: the bf16 block takes 202,752
+// above 256 the C entry hands the head dim to the chunked form of
+// flash_chunked.cuh (chunks of 256; the wrapper pads to whole chunks only
+// rows that are not whole 16-byte pieces).  At 256 both designs below fit
+// as they are: the bf16 block takes 202,752
 // bytes of shared memory and one block an SM, the fp32 block 148,480.
 //
 // What bounds it: at the serving shape (B=8, L=512, Hq=16, Hkv=8, HD=128) the
@@ -475,8 +477,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: an instance of head_dim.cuh,
-// or C * 256 (the chunked form; cudaErrorInvalidValue otherwise: the wrapper
-// pads to one first).  scale: the softmax scale, 1 / sqrt of the true head
+// or above 256 (the chunked form: rows of whole 16-byte pieces;
+// cudaErrorInvalidValue otherwise: the wrapper pads first).  scale: the softmax scale, 1 / sqrt of the true head
 // dim.  m_out and l_out are both null (inference) or both [B, L, Hq] float
 // (training).
 extern "C" int unirec_flash_causal_fwd(const void* q, const void* k, const void* v,

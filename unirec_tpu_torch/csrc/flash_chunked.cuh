@@ -12,8 +12,10 @@
 // flash_vjp.py and attention.py hold the whole head in a VMEM block).
 // Hopper's shared memory does not hold a whole head above 256 next to the
 // tiles of the designs at <= 256, so above 256 the head dim is cut into C =
-// ceil(hd / 256) chunks of 256 columns (the wrappers zero-pad it to C * 256,
-// ops/attention.padded_launch) and a grid axis runs over the chunks: one
+// ceil(hd / 256) chunks of 256 columns (the last chunk's columns past hd
+// zero-filled in shared memory; the wrappers zero-pad to C * 256 only a head
+// dim whose rows are not whole 16-byte pieces, ops/attention.padded_launch)
+// and a grid axis runs over the chunks: one
 // block owns one chunk of the output columns, and a call is one launch (two
 // where the bf16 cross forward splits its keys, below).  The designs at <=
 // 256 are not touched.
@@ -31,7 +33,8 @@
 //   3. small key tiles (32) and a small grid (32 blocks at 8 users);
 //   4. the scores computed C times, once in each chunk's block.
 //
-// bf16 design (tensor cores; chunk_fwd_tc, chunk_fwd_merge, chunk_bwd_rows_tc):
+// bf16 design (tensor cores; chunk_fwd_tc, chunk_fwd_merge, chunk_bwd_rows_tc,
+// chunk_bwd_keys_tc):
 //   - One block of 4 warps per (64-row q tile, chunk, head, batch), warp w
 //     owning rows 16 w .. 16 w + 15; products on mma.sync.m16n8k16 (bf16 in,
 //     fp32 accumulate) through ldmatrix, from bf16 rows padded to 264
@@ -78,19 +81,38 @@
 //     q-tile order (deterministic).  dsum comes from the caller (the float32
 //     o of B14 / B14p), m and l from the forward.  B7b's dq is the same
 //     kernel without dk / dv.
+//   - B7b's dk / dv (chunk_bwd_keys_tc): one block of 8 warps per (32-key
+//     tile, chunk, key head, batch), as the scalar kernel's grid, over the
+//     group's query heads and the 32-row q tiles from the diagonal on; dk_c
+//     and dv_c in fp32 registers over the loop (64 a thread).  The key
+//     tile's C chunks of K and V stay in shared memory; each q tile streams
+//     through the ring as C stages of (Q_cc, dO_cc), chunk c last (its Q_c
+//     and dO_c then serve the products: loading them again after chunk C
+//     - 1 would add half the loads at C = 2, and the ring's loads and
+//     barriers alone took 0.074 of the first form's 0.19 ms at
+//     WIDE_CAUSAL, scripts/probe_chunked_keys.py).  S^T_cc =
+//     K_cc Q_cc^T (warps 0-3) and dP^T_cc = V_cc dO_cc^T (warps 4-7), a 16
+//     x 16 block a warp, are partials of their own, summed in chunk order;
+//     dP^T crosses to warps 0-3 through shared memory, which write p^T and
+//     ds^T as bf16; then dv_c += p^T dO_c (warps 0-3) and dk_c += ds^T Q_c
+//     (4-7), a 16-key x 128-column block a warp.
 //   - Shared memory (of 232,448 bytes): forward C * 33,792 (q) + S *
 //     17,024 (a unit and a key tile's key info), S = 2 at C = 2 (101,632
 //     bytes, two blocks an SM) and as many as fit, at least 2, up to C = 5
-//     (hd <= 1280); backward 2 C * 33,792 (q, dO) + 16,896 (K_c) + 10,240
-//     (p, ds) + S * 17,024, S = 4 at C = 2 (230,400 bytes), the most
-//     chunks it holds (hd <= 512).  The wrappers refuse bf16 above those
-//     (ops/attention.BF16_FWD_CHUNKS, BF16_BWD_CHUNKS).
-//   B7b's dk / dv (chunk_bwd_keys) keeps the scalar form in both types.
+//     (hd <= 1280); backward over rows 2 C * 33,792 (q, dO) + 16,896 (K_c)
+//     + 10,240 (p, ds) + S * 17,024, S = 4 at C = 2 (230,400 bytes), the
+//     most chunks it holds (hd <= 512); backward over keys C * 33,792 (K,
+//     V) + 10,368 (p^T, ds^T, dP^T, the mask) + S * 34,176 (Q_cc, dO_cc and
+//     the rows' stats), S = 4 at C = 2, 2 at C = 4 (hd <= 1024).  Above
+//     those, bf16 runs the scalar kernels below (templates on the type),
+//     chosen by shape before the launch (form()): the forward above hd
+//     1280, dq and B14 / B14p's backward above 512, dk / dv above 1024.
 //
-// fp32 design (chunk_fwd, chunk_bwd_rows, chunk_bwd_keys): tensor cores
-// would mean TF32, which breaks the 1e-5 fp32 gates, so fp32 keeps scalar
-// fp32 FMAs, staged through shared memory one chunk at a time in chunk
-// order, 16 x 16 threads over 64-row q tiles and 32-key tiles: the scores
+// Scalar design (chunk_fwd, chunk_bwd_rows, chunk_bwd_keys; fp32, and bf16
+// above the tensor-core forms' chunk counts): tensor cores would mean TF32,
+// which breaks the 1e-5 fp32 gates, so fp32 keeps scalar fp32 FMAs,
+// staged through shared memory one chunk at a time in chunk order, 16 x 16
+// threads over 64-row q tiles and 32-key tiles: the scores
 // are computed C times and q and k staged once per (key tile, chunk) pair.
 //   - Backward: B7b keeps its two kernels (dq over the key tiles of a q
 //     tile, dk / dv over the q tiles of a key tile and its GQA group); B14
@@ -149,18 +171,24 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 __device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
 
+// the columns of chunk c that hold data, of a head dim of cols columns
+__host__ __device__ __forceinline__ int chunk_cols(int cols, int c) {
+  return cols - c * CW < CW ? cols - c * CW : CW;
+}
+
 // rows [r0, r0 + n) of one chunk (src at the chunk's first column, row
-// stride rs) -> smem [n][RS] floats, rows past L as zero; 16-byte loads
+// stride rs) -> smem [n][RS] floats, rows past L and columns from ncol on
+// as zero; 16-byte loads
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* src, long long rs, int r0, int n,
-                                      int L, int tid) {
+                                      int L, int ncol, int tid) {
   constexpr int V = 16 / sizeof(T);
   constexpr int VPR = CW / V;
   for (int e = tid; e < n * VPR; e += THREADS) {
     const int r = e / VPR, d = (e % VPR) * V;
     const int row = r0 + r;
     float* out = dst + r * RS + d;
-    if (row < L) {
+    if (row < L && d < ncol) {
       const uint4 raw = *reinterpret_cast<const uint4*>(src + (long long)row * rs + d);
       const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
@@ -252,7 +280,7 @@ __global__ void __launch_bounds__(THREADS)
 chunk_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const float* __restrict__ bm, OT* __restrict__ o, float* __restrict__ m_out,
           float* __restrict__ l_out, Strides qs, Strides ks, Strides vs, Strides os, int Lq,
-          int Lkv, int H, int group, int C, float scale) {
+          int Lkv, int H, int group, int C, int cols, float scale) {
   extern __shared__ __align__(16) float chunk_smem[];
   float* Qs = chunk_smem;          // [BQ][RS]
   float* Ks = Qs + BQ * RS;    // [BK][RS]
@@ -291,10 +319,10 @@ chunk_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
     for (int cc = 0; cc < C; ++cc) {
       __syncthreads();  // the previous chunk's (and tile's P / V) reads are done
-      stage(Qs, qb + cc * CW, qs.r, q0, BQ, Lq, tid);
-      stage(Ks, kb + cc * CW, ks.r, k0, BK, Lkv, tid);
+      stage(Qs, qb + cc * CW, qs.r, q0, BQ, Lq, chunk_cols(cols, cc), tid);
+      stage(Ks, kb + cc * CW, ks.r, k0, BK, Lkv, chunk_cols(cols, cc), tid);
       if (cc == 0) {
-        stage(Vs, vb, vs.r, k0, BK, Lkv, tid);
+        stage(Vs, vb, vs.r, k0, BK, Lkv, chunk_cols(cols, c), tid);
         stage_keys<CAUSAL>(bs, oks, bmb, k0, Lkv, tid);
       }
       __syncthreads();
@@ -357,7 +385,9 @@ chunk_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       inv_or_den = l_run[i] == 0.f ? 1.f : l_run[i];
 #pragma unroll
     for (int j = 0; j < CJ; ++j)
-      put(ob + row * os.r + tx + 16 * j, CAUSAL ? acc[i][j] * inv_or_den : acc[i][j] / inv_or_den);
+      if (c * CW + tx + 16 * j < cols)
+        put(ob + row * os.r + tx + 16 * j,
+            CAUSAL ? acc[i][j] * inv_or_den : acc[i][j] / inv_or_den);
     if (m_out != nullptr && c == 0 && tx == 0) {
       const size_t r = ((size_t)b * Lq + row) * H + h;
       m_out[r] = m_run[i];
@@ -441,7 +471,7 @@ chunk_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                const float* __restrict__ m_in, const float* __restrict__ l_in,
                const float* __restrict__ dsum_in, T* __restrict__ dq, T* __restrict__ dk,
                T* __restrict__ dv, float* __restrict__ part, BwdStrides st, int Lq, int Lkv,
-               int H, int group, int C, float scale) {
+               int H, int group, int C, int cols, float scale) {
   extern __shared__ __align__(16) float chunk_smem[];
   float* Qs = chunk_smem;           // [BQ][RS]
   float* dOs = Qs + BQ * RS;    // [BQ][RS]
@@ -484,10 +514,11 @@ chunk_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       for (int j = 0; j < RK; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int cc = 0; cc < C; ++cc) {
       __syncthreads();  // the previous chunk's (and tile's) reads are done
-      stage(Qs, qb + cc * CW, st.q.r, q0, BQ, Lq, tid);
-      stage(dOs, dob + cc * CW, st.dout.r, q0, BQ, Lq, tid);
-      stage(Ks, kb + cc * CW, st.k.r, k0, BK, Lkv, tid);
-      stage(Vs, vb + cc * CW, st.v.r, k0, BK, Lkv, tid);
+      const int nc = chunk_cols(cols, cc);
+      stage(Qs, qb + cc * CW, st.q.r, q0, BQ, Lq, nc, tid);
+      stage(dOs, dob + cc * CW, st.dout.r, q0, BQ, Lq, nc, tid);
+      stage(Ks, kb + cc * CW, st.k.r, k0, BK, Lkv, nc, tid);
+      stage(Vs, vb + cc * CW, st.v.r, k0, BK, Lkv, nc, tid);
       if (cc == 0) stage_keys<CAUSAL>(bs, oks, bmb, k0, Lkv, tid);
       __syncthreads();
       accumulate<true>(s, dp, Qs, dOs, Ks, Vs, ty, tx);
@@ -495,10 +526,10 @@ chunk_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     p_and_ds<CAUSAL>(s, dp, Ps, dSs, ms, ls, dsums, bs, oks, q0, k0, Lq, scale, ty, tx);
     if (c != C - 1) {  // the block's own chunk of K (and Q, dO) back in place
       __syncthreads();
-      stage(Ks, kb + c * CW, st.k.r, k0, BK, Lkv, tid);
+      stage(Ks, kb + c * CW, st.k.r, k0, BK, Lkv, chunk_cols(cols, c), tid);
       if (DKV) {
-        stage(Qs, qb + c * CW, st.q.r, q0, BQ, Lq, tid);
-        stage(dOs, dob + c * CW, st.dout.r, q0, BQ, Lq, tid);
+        stage(Qs, qb + c * CW, st.q.r, q0, BQ, Lq, chunk_cols(cols, c), tid);
+        stage(dOs, dob + c * CW, st.dout.r, q0, BQ, Lq, chunk_cols(cols, c), tid);
       }
     }
     __syncthreads();  // p, ds and the chunk's tiles in place
@@ -537,10 +568,11 @@ chunk_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
             if (part != nullptr) {
               part[((((long long)(qt * 2 + is_dk) * B + b) * H + h) * Lkv + key) * (C * CW) +
                    col] = kacc[i][j];
-            } else if (is_dk) {
-              put(dk + b * st.dk.b + h * st.dk.h + key * st.dk.r + col, kacc[i][j]);
-            } else {
-              put(dv + b * st.dv.b + h * st.dv.h + key * st.dv.r + col, kacc[i][j]);
+            } else if (col < cols) {
+              if (is_dk)
+                put(dk + b * st.dk.b + h * st.dk.h + key * st.dk.r + col, kacc[i][j]);
+              else
+                put(dv + b * st.dv.b + h * st.dv.h + key * st.dv.r + col, kacc[i][j]);
             }
           }
         }
@@ -554,7 +586,8 @@ chunk_bwd_rows(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int row = q0 + ty * RQ + i;
     if (row >= Lq) continue;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) put(dqb + row * st.dq.r + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < CJ; ++j)
+      if (c * CW + tx + 16 * j < cols) put(dqb + row * st.dq.r + tx + 16 * j, acc[i][j]);
   }
 }
 
@@ -567,7 +600,7 @@ chunk_bwd_keys(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                const float* __restrict__ mask, const T* __restrict__ dout,
                const float* __restrict__ m_in, const float* __restrict__ l_in,
                const float* __restrict__ dsum_in, T* __restrict__ dk, T* __restrict__ dv,
-               BwdStrides st, int L, int H, int group, int C, float scale) {
+               BwdStrides st, int L, int H, int group, int C, int cols, float scale) {
   extern __shared__ __align__(16) float chunk_smem[];
   float* Qs = chunk_smem;           // [BQ][RS]
   float* dOs = Qs + BQ * RS;    // [BQ][RS]
@@ -610,10 +643,11 @@ chunk_bwd_keys(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         for (int j = 0; j < RK; ++j) s[i][j] = dp[i][j] = 0.f;
       for (int cc = 0; cc < C; ++cc) {
         __syncthreads();  // the previous chunk's (and q tile's) reads are done
-        stage(Qs, qb + cc * CW, st.q.r, q0, BQ, L, tid);
-        stage(dOs, dob + cc * CW, st.dout.r, q0, BQ, L, tid);
-        stage(Ks, kb + cc * CW, st.k.r, k0, BK, L, tid);
-        stage(Vs, vb + cc * CW, st.v.r, k0, BK, L, tid);
+        const int nc = chunk_cols(cols, cc);
+        stage(Qs, qb + cc * CW, st.q.r, q0, BQ, L, nc, tid);
+        stage(dOs, dob + cc * CW, st.dout.r, q0, BQ, L, nc, tid);
+        stage(Ks, kb + cc * CW, st.k.r, k0, BK, L, nc, tid);
+        stage(Vs, vb + cc * CW, st.v.r, k0, BK, L, nc, tid);
         if (cc == 0) stage_rows(ms, ls, dsums, m_in, l_in, dsum_in, b, h, H, q0, L, tid);
         __syncthreads();
         accumulate<true>(s, dp, Qs, dOs, Ks, Vs, ty, tx);
@@ -621,8 +655,8 @@ chunk_bwd_keys(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       p_and_ds<true>(s, dp, Ps, dSs, ms, ls, dsums, bs, oks, q0, k0, L, scale, ty, tx);
       if (c != C - 1) {  // the block's own chunk of Q and dO back in place
         __syncthreads();
-        stage(Qs, qb + c * CW, st.q.r, q0, BQ, L, tid);
-        stage(dOs, dob + c * CW, st.dout.r, q0, BQ, L, tid);
+        stage(Qs, qb + c * CW, st.q.r, q0, BQ, L, chunk_cols(cols, c), tid);
+        stage(dOs, dob + c * CW, st.dout.r, q0, BQ, L, chunk_cols(cols, c), tid);
       }
       __syncthreads();  // p, ds and the chunk's tiles in place
       key_product(acc_v, Ps, dOs, ty, tx);
@@ -637,6 +671,7 @@ chunk_bwd_keys(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int col = c * CW + tx + 16 * j;
+      if (col >= cols) continue;
       put(dk + b * st.dk.b + kh * st.dk.h + key * st.dk.r + col, acc_k[i][j]);
       put(dv + b * st.dv.b + kh * st.dv.h + key * st.dv.r + col, acc_v[i][j]);
     }
@@ -666,7 +701,7 @@ inline size_t tc_fixed_bytes(int C, bool bwd) {
 // forward at C = 2: a block's chain of products, barriers and softmax
 // leaves the SM idle enough that a second block is worth more than a deeper
 // ring), else as many as fit, up to MAX_STAGES (0 where fewer than 2 fit:
-// the launch is refused)
+// the scalar form runs)
 inline int tc_stages(int C, bool bwd) {
   const size_t fixed = tc_fixed_bytes(C, bwd);
   if (fixed + 2 * STAGE_BYTES <= SMEM_PAIR) return 2;
@@ -688,17 +723,26 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 }
 
 // rows [r0, r0 + n) of one chunk (src at the chunk's first column, row
-// stride rs; rows past L zero-filled) -> smem [n][LDC] bf16 by 16-byte cp.async
+// stride rs; rows past L and columns from ncol on zero-filled) -> smem
+// [n][LDC] bf16 by 16-byte cp.async, over the NT threads of the block
+template <int NT = TTHREADS>
 __device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, long long rs, int r0,
-                                           int n, int L, int tid) {
+                                           int n, int L, int ncol, int tid) {
   constexpr int CH = CW / 8;  // 16-byte pieces of a chunk's row
-  for (int e = tid; e < n * CH; e += TTHREADS) {
+  for (int e = tid; e < n * CH; e += NT) {
     const int r = e / CH, ch = e % CH;
     const int row = r0 + r;
-    const bool ok = row < L;
-    cp_async_16(smem_addr(dst + r * LDC + ch * 8), src + (long long)(ok ? row : 0) * rs + ch * 8,
+    const bool ok = row < L && ch * 8 < ncol;
+    cp_async_16(smem_addr(dst + r * LDC + ch * 8), ok ? src + (long long)row * rs + ch * 8 : src,
                 ok);
   }
+}
+
+// the columns of chunk x a tensor-core kernel loads: all CW unless the head
+// dim ends inside the last chunk (PART)
+template <bool PART>
+__device__ __forceinline__ int tc_cols(int cols, int x) {
+  return PART ? chunk_cols(cols, x) : CW;
 }
 
 // the key info of the key tile at k0 -> kin[TK]: cross, the bias (0 where
@@ -713,16 +757,17 @@ __device__ __forceinline__ void copy_key_info(float* kin, const float* bm, int k
   }
 }
 
-// s (16 rows of the warp x TK keys) += A (rows r0.., one staged chunk) . B^T
-// (the TK rows of one staged chunk)
-__device__ __forceinline__ void chunk_scores(float (&s)[TK / 8][4], const bf16* A,
-                                             const bf16* Bt, int r0, int lane) {
+// s (16 rows of the warp x 8 NT columns) += A (rows r0.., one staged chunk)
+// . B^T (the first 8 NT rows of Bt, one staged chunk)
+template <int NT>
+__device__ __forceinline__ void chunk_scores(float (&s)[NT][4], const bf16* A, const bf16* Bt,
+                                             int r0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < CW / 16; ++kk) {
     uint32_t a[4];
     ldmatrix_x4(a, smem_addr(A + (r0 + (lane & 15)) * LDC + kk * 16 + (lane >> 4) * 8));
 #pragma unroll
-    for (int nj = 0; nj < TK / 16; ++nj) {
+    for (int nj = 0; nj < NT / 2; ++nj) {
       uint32_t bk[4];
       ldmatrix_x4(bk, smem_addr(Bt + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDC +
                                 kk * 16 + ((lane >> 3) & 1) * 8));
@@ -753,13 +798,13 @@ __device__ __forceinline__ float tc_score(float dot, float scale, float kinfo, i
 // in place.  With one split the block writes o (and from chunk 0, m and l);
 // with more it writes its split's unnormalised o, m and l to part
 // (chunk_fwd_merge's layout) for chunk_fwd_merge.
-template <typename OT, bool CAUSAL>
+template <typename OT, bool CAUSAL, bool PART>
 __global__ void __launch_bounds__(TTHREADS)
 chunk_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
              const float* __restrict__ bm, OT* __restrict__ o, float* __restrict__ m_out,
              float* __restrict__ l_out, float* __restrict__ part, Strides qs, Strides ks,
-             Strides vs, Strides os, int Lq, int Lkv, int H, int group, int C, int S,
-             int splits, float scale) {
+             Strides vs, Strides os, int Lq, int Lkv, int H, int group, int C, int cols,
+             int S, int splits, float scale) {
   constexpr bool F32O = std::is_same<OT, float>::value;
   constexpr int NT = TK / 8;  // n-tiles of a score row
   extern __shared__ __align__(16) unsigned char chunk_tc_smem[];
@@ -792,13 +837,14 @@ chunk_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     const int t = t0 + u / U, i = u % U;
     bf16* dst = ring + (u % S) * UNIT;
     if (i < C)
-      copy_chunk(dst, kb + i * CW, ks.r, t * TK, TK, Lkv, tid);
+      copy_chunk(dst, kb + i * CW, ks.r, t * TK, TK, Lkv, tc_cols<PART>(cols, i), tid);
     else
-      copy_chunk(dst, vb, vs.r, t * TK, TK, Lkv, tid);
+      copy_chunk(dst, vb, vs.r, t * TK, TK, Lkv, tc_cols<PART>(cols, c), tid);
     if (i == 0) copy_key_info(kin + (u / U % S) * TK, bmb, t * TK, Lkv, q, tid);
   };
   // Q with unit 0, then units 1 .. S - 2, a commit group each
-  for (int cc = 0; cc < C; ++cc) copy_chunk(Qs + cc * QCH, qb + cc * CW, qs.r, q0, BQ, Lq, tid);
+  for (int cc = 0; cc < C; ++cc)
+    copy_chunk(Qs + cc * QCH, qb + cc * CW, qs.r, q0, BQ, Lq, tc_cols<PART>(cols, cc), tid);
   for (int u = 0; u < S - 1; ++u) {
     if (u < n_units) load_unit(u);
     cp_async_commit();
@@ -955,6 +1001,7 @@ chunk_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     const float den = l_run[r] == 0.f ? 1.f : l_run[r];
 #pragma unroll
     for (int n = 0; n < CW / 8; ++n) {
+      if (PART && c * CW + n * 8 >= cols) continue;
       const float x0 = CAUSAL ? oacc[n][2 * r] * inv : oacc[n][2 * r] / den;
       const float x1 = CAUSAL ? oacc[n][2 * r + 1] * inv : oacc[n][2 * r + 1] / den;
       if constexpr (F32O)
@@ -974,11 +1021,13 @@ chunk_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 // head, batch): m = max_s m_s (each split's m starts at -1e9, so every
 // weight is finite), l = sum_s l_s exp(m_s - m), o = sum_s o_s exp(m_s - m)
 // / (l == 0 ? 1 : l), summed in split order.  part: o_s
-// [splits][B][H][Lq][HDP], then m_s, l_s [splits][m, l][B][Lq][H].
+// [splits][B][H][Lq][HDP], then m_s, l_s [splits][m, l][B][Lq][H]; o's
+// first cols columns are written.
 template <typename OT>
 __global__ void __launch_bounds__(256)
 chunk_fwd_merge(const float* __restrict__ part, OT* __restrict__ o, float* __restrict__ m_out,
-                float* __restrict__ l_out, Strides os, int splits, int H, int Lq, int HDP) {
+                float* __restrict__ l_out, Strides os, int splits, int H, int Lq, int HDP,
+                int cols) {
   const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const float* ml = part + (long long)splits * B * H * Lq * HDP;
   auto at = [&](int sp, int which) {
@@ -990,7 +1039,7 @@ chunk_fwd_merge(const float* __restrict__ part, OT* __restrict__ o, float* __res
   for (int sp = 0; sp < splits; ++sp) l += at(sp, 1) * expf(at(sp, 0) - m);
   const float den = l == 0.f ? 1.f : l;
   OT* orow = o + b * os.b + h * os.h + row * os.r;
-  for (int col = threadIdx.x; col < HDP; col += 256) {
+  for (int col = threadIdx.x; col < cols; col += 256) {
     float acc = 0.f;
     for (int sp = 0; sp < splits; ++sp)
       acc += part[((((long long)sp * B + b) * H + h) * Lq + row) * HDP + col] *
@@ -1016,7 +1065,7 @@ chunk_fwd_merge(const float* __restrict__ part, OT* __restrict__ o, float* __res
 // 16-key groups, written as they are (part null: one q tile) or as float32
 // partials [n_qt][dk, dv][B][H][Lkv][C * CW] to part.  Without DKV it is
 // B7b's dq kernel.
-template <bool CAUSAL, bool DKV>
+template <bool CAUSAL, bool DKV, bool PART>
 __global__ void __launch_bounds__(TTHREADS)
 chunk_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const float* __restrict__ bm,
@@ -1024,7 +1073,7 @@ chunk_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const float* __restrict__ l_in, const float* __restrict__ dsum_in,
                   bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
                   float* __restrict__ part, BwdStrides st, int Lq, int Lkv, int H, int group,
-                  int C, int S, float scale) {
+                  int C, int cols, int S, float scale) {
   constexpr int NT = TK / 8;     // n-tiles of a score row
   constexpr int UNITS = TK / 8;  // (16 keys, dk or dv) products of a key tile
   extern __shared__ __align__(16) unsigned char chunk_tc_smem[];
@@ -1056,12 +1105,14 @@ chunk_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_unit = [&](int u) {
     const int t = u / U, i = u % U;
     const bf16* src = ((i & 1) ? vb : kb) + (i >> 1) * CW;
-    copy_chunk(ring + (u % S) * UNIT, src, (i & 1) ? st.v.r : st.k.r, t * TK, TK, Lkv, tid);
+    copy_chunk(ring + (u % S) * UNIT, src, (i & 1) ? st.v.r : st.k.r, t * TK, TK, Lkv,
+               tc_cols<PART>(cols, i >> 1), tid);
     if (i == 0) copy_key_info(kin + (t % S) * TK, bmb, t * TK, Lkv, q, tid);
   };
   for (int cc = 0; cc < C; ++cc) {
-    copy_chunk(Qs + cc * QCH, qb + cc * CW, st.q.r, q0, BQ, Lq, tid);
-    copy_chunk(dOs + cc * QCH, dob + cc * CW, st.dout.r, q0, BQ, Lq, tid);
+    copy_chunk(Qs + cc * QCH, qb + cc * CW, st.q.r, q0, BQ, Lq, tc_cols<PART>(cols, cc), tid);
+    copy_chunk(dOs + cc * QCH, dob + cc * CW, st.dout.r, q0, BQ, Lq, tc_cols<PART>(cols, cc),
+               tid);
   }
   for (int u = 0; u < S - 1; ++u) {
     if (u < n_units) load_unit(u);
@@ -1201,6 +1252,7 @@ chunk_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
             for (int n = 0; n < 2; ++n) {
               const int col = c * CW + nd * 16 + n * 8 + 2 * t4;
+              if (PART && part == nullptr && col >= cols) continue;
               if (part != nullptr) {
                 const long long at =
                     ((((long long)(qt * 2 + is_dk) * B + b) * H + h) * Lkv + key) * (C * CW) + col;
@@ -1227,22 +1279,25 @@ chunk_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* drow = dqb + (q0 + r0 + g + 8 * r) * st.dq.r;
 #pragma unroll
     for (int n = 0; n < CW / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(drow + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dqacc[n][2 * r], dqacc[n][2 * r + 1]);
+      if (!PART || c * CW + n * 8 < cols)
+        *reinterpret_cast<__nv_bfloat162*>(drow + n * 8 + 2 * t4) =
+            __floats2bfloat162_rn(dqacc[n][2 * r], dqacc[n][2 * r + 1]);
   }
 }
 
 // dk and dv from chunk_bwd_rows' float32 partials, added in q-tile order
+// (their first cols columns)
 template <typename T>
 __global__ void __launch_bounds__(256)
 chunk_dkv_sum(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
-              Strides dks, Strides dvs, int n_qt, int B, int H, int Lkv, int HDP) {
+              Strides dks, Strides dvs, int n_qt, int B, int H, int Lkv, int HDP, int cols) {
   const long long n = (long long)B * H * Lkv * HDP;  // elements of dk (and of dv)
   for (long long i = blockIdx.x * 256ll + threadIdx.x; i < 2 * n;
        i += (long long)gridDim.x * 256) {
     const bool is_dk = i >= n;
     const long long e = is_dk ? i - n : i;
     const int col = (int)(e % HDP);
+    if (col >= cols) continue;
     const long long row = e / HDP;  // (b, h, key)
     const int key = (int)(row % Lkv);
     const int h = (int)((row / Lkv) % H);
@@ -1255,57 +1310,329 @@ chunk_dkv_sum(const float* __restrict__ part, T* __restrict__ dk, T* __restrict_
   }
 }
 
+// B7b's dk / dv on tensor cores (chunk_bwd_keys_tc): 8 warps over one 32-key
+// tile; 32-row q tiles, a ring stage holds one chunk of the tile's Q and dO
+// ([TQ][LDC] each, the UNIT of the other kernels) and the tile's m, l and
+// dsum; the key tile's C chunks of K and V, its mask, p^T / ds^T and the dP^T
+// exchange stay resident
+constexpr int KTHREADS = 256;
+constexpr int TQ = TK;        // query rows of a q tile (= keys of a key tile)
+constexpr int XLD = TQ + 8;   // padded float row of the dP^T exchange
+constexpr int KEYS_MAX_C = 4;  // chunks of the tensor-core form (a score partial each)
+constexpr size_t KSTAGE_BYTES = 2 * UNIT * sizeof(bf16) + 3 * TQ * sizeof(float);
+inline size_t keys_fixed_bytes(int C) {
+  return (size_t)(2 * C * UNIT + 2 * TK * PLD) * sizeof(bf16) +
+         (size_t)(TK * XLD + TK) * sizeof(float);
+}
+// the ring's stages where K / V's C chunks fit: as many as fit, up to
+// MAX_STAGES; 0 where fewer than 2 fit (the scalar form runs): C <= 4
+inline int keys_stages(int C) {
+  const size_t fixed = keys_fixed_bytes(C);
+  const int fit = fixed >= SMEM_MAX ? 0 : (int)((SMEM_MAX - fixed) / KSTAGE_BYTES);
+  return C > KEYS_MAX_C || fit < 2 ? 0 : (fit < MAX_STAGES ? fit : MAX_STAGES);
+}
+
+// B7b's dk / dv on tensor cores for one (32-key tile, chunk c, key head,
+// batch), blockIdx.y = kh * C + c: dv_c = sum p^T dO_c and dk_c = sum ds^T
+// Q_c over the group's query heads and, for each, the 32-row q tiles from
+// the diagonal on, in that order (fp32 registers over the loop; no atomics,
+// no partials: the same bits on every run).  The key tile's C chunks of K
+// and V stay in shared memory; each q tile streams through the ring as C
+// stages of Q_cc and dO_cc, chunks c + 1, .., C - 1, 0, .., c (chunk c last,
+// so that its Q_c and dO_c are still in the ring for the products; its
+// stage also brings the rows' m, l and dsum).  Each stage's S^T_cc = K_cc
+// Q_cc^T (warps 0-3) or dP^T_cc = V_cc dO_cc^T (warps 4-7), a 16-key x
+// 16-row block a warp, is a partial of its own; the partials are summed in
+// chunk order 0 .. C - 1, so every chunk's block holds the same S^T and p
+// bit for bit.  At the last stage warps 4-7 hand dP^T over through shared
+// memory, warps 0-3 write p^T = exp(s - m) / l and ds^T = p (dp - dsum)
+// scale as bf16, and warp w takes dv (w < 4) or dk of keys 16 (w & 1) ..
+// and columns 128 ((w >> 1) & 1) .. of the chunk (p^T / ds^T by ldmatrix,
+// dO_c / Q_c by ldmatrix.trans).  PART: the head dim (cols) ends inside the
+// last chunk.
+template <bool PART>
+__global__ void __launch_bounds__(KTHREADS)
+chunk_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ mask,
+                  const bf16* __restrict__ dout, const float* __restrict__ m_in,
+                  const float* __restrict__ l_in, const float* __restrict__ dsum_in,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, BwdStrides st, int L, int H,
+                  int group, int C, int cols, int S, float scale) {
+  extern __shared__ __align__(16) unsigned char chunk_tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(chunk_tc_smem);  // [C][TK][LDC]
+  bf16* Vs = Ks + C * UNIT;                            // [C][TK][LDC]
+  bf16* Pt = Vs + C * UNIT;                            // [TK][PLD]  p^T, bf16
+  bf16* dSt = Pt + TK * PLD;                           // [TK][PLD]  ds^T, bf16
+  float* Xs = reinterpret_cast<float*>(dSt + TK * PLD);  // [TK][XLD]  dP^T
+  float* kin = Xs + TK * XLD;                             // [TK]  the keys' mask
+  unsigned char* ring = reinterpret_cast<unsigned char*>(kin + TK);  // [S][KSTAGE_BYTES]
+
+  const int kt = blockIdx.x, k0 = kt * TK;
+  const int kh = blockIdx.y / C, c = blockIdx.y % C;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool dp_warp = warp >= 4;           // scores: dP^T (4-7) or S^T (0-3); dk or dv
+  const int kw = 16 * (warp & 1);           // the warp's keys of the tile
+  const int rw = 16 * ((warp >> 1) & 1);    // scores: the warp's rows of the q tile
+  const int cq = 128 * ((warp >> 1) & 1);   // dk / dv: the warp's columns of the chunk
+  const bf16* kb = k + b * st.k.b + kh * st.k.h;
+  const bf16* vb = v + b * st.v.b + kh * st.v.h;
+  const float* mb = mask + (long long)b * L;
+  const int nq = (L + TQ - 1) / TQ - kt;  // q tiles from the diagonal on
+  const int n_units = group * nq * C;
+
+  // unit u: q tile it = u / C (head kh * group + it / nq, rows (kt + it % nq)
+  // * TQ ..), chunk (c + 1 + u % C) % C; the last of a tile (chunk c) with
+  // the rows' m, l, dsum
+  auto load_unit = [&](int u) {
+    const int it = u / C, j = u % C;
+    const int h = kh * group + it / nq, q0 = (kt + it % nq) * TQ;
+    const int cc = (c + 1 + j) % C;
+    bf16* slot = reinterpret_cast<bf16*>(ring + (u % S) * KSTAGE_BYTES);
+    const int nc = tc_cols<PART>(cols, cc);
+    copy_chunk<KTHREADS>(slot, q + b * st.q.b + h * st.q.h + cc * CW, st.q.r, q0, TQ, L, nc, tid);
+    copy_chunk<KTHREADS>(slot + UNIT, dout + b * st.dout.b + h * st.dout.h + cc * CW, st.dout.r,
+                         q0, TQ, L, nc, tid);
+    if (j == C - 1 && tid < 3 * TQ) {
+      const int which = tid / TQ, row = q0 + tid % TQ;
+      const bool ok = row < L;  // rows past L: m = l = dsum = 0 (p = 0 below)
+      const float* src = which == 0 ? m_in : which == 1 ? l_in : dsum_in;
+      cp_async_4(smem_addr(reinterpret_cast<float*>(slot + 2 * UNIT) + tid),
+                 src + ((size_t)b * L + (ok ? row : 0)) * H + h, ok);
+    }
+  };
+  for (int cc = 0; cc < C; ++cc) {
+    copy_chunk<KTHREADS>(Ks + cc * UNIT, kb + cc * CW, st.k.r, k0, TK, L,
+                         tc_cols<PART>(cols, cc), tid);
+    copy_chunk<KTHREADS>(Vs + cc * UNIT, vb + cc * CW, st.v.r, k0, TK, L,
+                         tc_cols<PART>(cols, cc), tid);
+  }
+  copy_key_info(kin, mb, k0, L, q, tid);
+  for (int u = 0; u < S - 1; ++u) {
+    if (u < n_units) load_unit(u);
+    cp_async_commit();
+  }
+
+  float acc[CW / 16][4];  // dv or dk: keys kw + g (+ 8), columns cq ..
+#pragma unroll
+  for (int n = 0; n < CW / 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // S^T or dP^T partials by chunk: keys kw + g (+ 8), rows rw + 8 n + 2 t4 (+ 1)
+  float part[KEYS_MAX_C][2][4];
+
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait_upto(S - 2);  // unit u (and K, V, the mask) has landed
+    __syncthreads();            // ... for every thread; unit u - 1's stage is free
+    if (u + S - 1 < n_units) load_unit(u + S - 1);
+    cp_async_commit();
+    const int j = u % C, cc = (c + 1 + j) % C;
+    const int q0 = (kt + u / C % nq) * TQ;
+    const bf16* slot = reinterpret_cast<const bf16*>(ring + (u % S) * KSTAGE_BYTES);
+    // causal: a block of keys all after its rows (on the diagonal) is skipped
+    const bool live = k0 + kw <= q0 + rw + 15;
+#pragma unroll
+    for (int x = 0; x < KEYS_MAX_C; ++x) {
+      if (x != cc) continue;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[x][n][e] = 0.f;
+      if (live)  // S^T_cc = K_cc Q_cc^T, dP^T_cc = V_cc dO_cc^T
+        chunk_scores(part[x], (dp_warp ? Vs : Ks) + x * UNIT,
+                     slot + (dp_warp ? UNIT : 0) + rw * LDC, kw, lane);
+    }
+    if (j != C - 1) continue;
+
+    // the q tile's last stage (chunk c): the partials in chunk order
+    float sc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = part[0][n][e];
+#pragma unroll
+        for (int x = 1; x < KEYS_MAX_C; ++x)
+          if (x < C) sc[n][e] += part[x][n][e];
+      }
+    if (dp_warp) {  // dP^T to the exchange
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(Xs + (kw + g + 8 * hf) * XLD + rw + n * 8 + 2 * t4) =
+              make_float2(sc[n][2 * hf], sc[n][2 * hf + 1]);
+    }
+    __syncthreads();  // dP^T in the exchange
+    if (!dp_warp) {  // p^T and ds^T
+      const float* ms = reinterpret_cast<const float*>(slot + 2 * UNIT);
+      const float* ls = ms + TQ;
+      const float* dsums = ls + TQ;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int key = kw + g + 8 * hf;
+          const float2 dpv =
+              *reinterpret_cast<const float2*>(Xs + key * XLD + rw + n * 8 + 2 * t4);
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = rw + n * 8 + 2 * t4 + e;
+            const int row = q0 + r;
+            const float lv = ls[r];
+            const float s =
+                tc_score<true>(sc[n][2 * hf + e], scale, kin[key], row, k0 + key, L);
+            p[e] = row < L && s != -INFINITY ? __expf(s - ms[r]) / (lv == 0.f ? 1.f : lv) : 0.f;
+            ds[e] = p[e] * ((e ? dpv.y : dpv.x) - dsums[r]) * scale;
+          }
+          const int at = key * PLD + rw + n * 8 + 2 * t4;
+          *reinterpret_cast<uint32_t*>(Pt + at) = pack_bf16(p[0], p[1]);
+          *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(ds[0], ds[1]);
+        }
+    }
+    __syncthreads();  // p^T and ds^T written
+    const bf16* as = dp_warp ? dSt : Pt;
+    const bf16* bsrc = slot + (dp_warp ? 0 : UNIT);  // Q_c (dk) or dO_c (dv)
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, smem_addr(as + (kw + (lane & 15)) * PLD + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, smem_addr(bsrc + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                                   LDC +
+                                        cq + nd * 16 + (lane >> 4) * 8));
+        mma_16816(acc[2 * nd], a, bb[0], bb[1]);
+        mma_16816(acc[2 * nd + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* out = dp_warp ? dk + b * st.dk.b + kh * st.dk.h : dv + b * st.dv.b + kh * st.dv.h;
+  const long long rs = dp_warp ? st.dk.r : st.dv.r;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = k0 + kw + g + 8 * hf;
+    if (key >= L) continue;
+    bf16* orow = out + key * rs + c * CW + cq;
+#pragma unroll
+    for (int n = 0; n < CW / 16; ++n)
+      if (!PART || c * CW + cq + n * 8 < cols)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
+            __floats2bfloat162_rn(acc[n][2 * hf], acc[n][2 * hf + 1]);
+  }
+}
+
 // ----------------------------------------------------------------- launch --
 
-// head_dim: C * CW for C >= 2 (the wrappers pad to it)
-inline bool is_chunked(int head_dim) { return head_dim > CW && head_dim % CW == 0; }
+// The chunked form takes every head dim above CW as C = ceil(head_dim / CW)
+// chunks, the last one's columns past head_dim zero-filled as they are
+// loaded and never stored, so a head dim whose rows are whole 16-byte pieces
+// (a multiple of 8 in bf16, of 4 in float32) runs as it is; the wrappers
+// zero-pad any other to C * CW (ops/attention.padded_launch).
+inline bool is_chunked(int head_dim) { return head_dim > CW; }
+inline int chunks(int head_dim) { return (head_dim + CW - 1) / CW; }
+template <typename T>
+inline bool whole_pieces(int head_dim) { return head_dim % (16 / (int)sizeof(T)) == 0; }
+
+// The form a chunked launch takes, chosen by shape before any launch: the
+// tensor-core kernel where its shared memory holds C chunks (bf16: the
+// forward C <= 5, the backward over rows C <= 2, over keys C <= 4), the
+// scalar kernel otherwise (float32 always, bf16 above those).  A launch of
+// the form chosen that fails still fails: nothing is retried.
+enum Kind { FWD = 0, ROWS = 1, KEYS = 2 };
+enum Form { SCALAR = 1, TENSOR_CORES = 2 };
+inline Form form(Kind kind, int C, bool bf) {
+  if (!bf) return SCALAR;
+  const int S = kind == KEYS ? keys_stages(C) : tc_stages(C, kind == ROWS);
+  return S > 0 ? TENSOR_CORES : SCALAR;
+}
+
+template <typename OT, bool CAUSAL, bool PART>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const float* bm, void* o,
+                          float* m, float* l, float* part, Strides qs, Strides ks, Strides vs,
+                          Strides os, int B, int H, int group, int Lq, int Lkv, int C, int cols,
+                          int S, int splits, float scale, cudaStream_t stream) {
+  const size_t smem = tc_fixed_bytes(C, false) + S * STAGE_BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      chunk_fwd_tc<OT, CAUSAL, PART>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  chunk_fwd_tc<OT, CAUSAL, PART><<<dim3(n_qt * splits, H * C, B), TTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bm,
+      static_cast<OT*>(o), m, l, part, qs, ks, vs, os, Lq, Lkv, H, group, C, cols, S, splits,
+      scale);
+  return cudaGetLastError();
+}
+
+template <bool CAUSAL, bool DKV, bool PART>
+cudaError_t launch_rows_tc(const void* q, const void* k, const void* v, const float* bm,
+                           const void* dout, const float* m, const float* l, const float* dsum,
+                           void* dq, void* dk, void* dv, float* part, const BwdStrides& st,
+                           int B, int H, int group, int Lq, int Lkv, int C, int cols,
+                           float scale, cudaStream_t stream) {
+  const int S = tc_stages(C, true);
+  const size_t smem = tc_fixed_bytes(C, true) + S * STAGE_BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      chunk_bwd_rows_tc<CAUSAL, DKV, PART>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  chunk_bwd_rows_tc<CAUSAL, DKV, PART><<<dim3(n_qt, H * C, B), TTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bm,
+      static_cast<const bf16*>(dout), m, l, dsum, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), part, st, Lq, Lkv, H, group, C, cols, S, scale);
+  return cudaGetLastError();
+}
 
 // the forward.  bf16 cross: splits key splits (part: float32 scratch of
-// splits * B * H * Lq * (head_dim + 2) elements when splits > 1, null
+// splits * B * H * Lq * (C * CW + 2) elements when splits > 1, null
 // otherwise), merged by a second launch; causal and float32 take splits == 1.
 template <typename T, typename OT, bool CAUSAL>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bm, void* o,
                        float* m, float* l, float* part, Strides qs, Strides ks, Strides vs,
                        Strides os, int B, int H, int group, int Lq, int Lkv, int head_dim,
                        int splits, float scale, cudaStream_t stream) {
-  const int C = head_dim / CW;
+  const int C = chunks(head_dim);
   const int n_qt = (Lq + BQ - 1) / BQ;
   if ((long long)H * C > 65535 || splits < 1 || (splits > 1) != (part != nullptr) ||
-      (CAUSAL && splits > 1) || (long long)n_qt * splits > 2147483647ll)
+      (CAUSAL && splits > 1) || (long long)n_qt * splits > 2147483647ll ||
+      !whole_pieces<T>(head_dim))
     return cudaErrorInvalidValue;
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {  // tensor cores
-    const int S = tc_stages(C, false);
-    if (S == 0) return cudaErrorInvalidValue;
-    const size_t smem = tc_fixed_bytes(C, false) + S * STAGE_BYTES;
-    err = cudaFuncSetAttribute(chunk_fwd_tc<OT, CAUSAL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    chunk_fwd_tc<OT, CAUSAL><<<dim3(n_qt * splits, H * C, B), TTHREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        bm, static_cast<OT*>(o), m, l, part, qs, ks, vs, os, Lq, Lkv, H, group, C, S, splits,
-        scale);
-    err = cudaGetLastError();
-    if constexpr (!CAUSAL) {
-      if (err != cudaSuccess || splits == 1) return err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (form(FWD, C, true) == TENSOR_CORES) {
+      const int S = tc_stages(C, false);
+      err = head_dim < C * CW
+                ? launch_fwd_tc<OT, CAUSAL, true>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B,
+                                                  H, group, Lq, Lkv, C, head_dim, S, splits,
+                                                  scale, stream)
+                : launch_fwd_tc<OT, CAUSAL, false>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B,
+                                                   H, group, Lq, Lkv, C, head_dim, S, splits,
+                                                   scale, stream);
+      if (CAUSAL || err != cudaSuccess || splits == 1) return err;
       chunk_fwd_merge<OT><<<dim3(Lq, H, B), 256, 0, stream>>>(
-          part, static_cast<OT*>(o), m, l, os, splits, H, Lq, head_dim);
+          part, static_cast<OT*>(o), m, l, os, splits, H, Lq, C * CW, head_dim);
+      return cudaGetLastError();
     }
-  } else {
-    if (splits != 1) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(chunk_fwd<T, OT, CAUSAL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_BYTES);
-    if (err != cudaSuccess) return err;
-    chunk_fwd<T, OT, CAUSAL><<<dim3(n_qt, H * C, B), THREADS, FWD_BYTES, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bm,
-        static_cast<OT*>(o), m, l, qs, ks, vs, os, Lq, Lkv, H, group, C, scale);
   }
+  if (splits != 1) return cudaErrorInvalidValue;  // the scalar form takes no key splits
+  err = cudaFuncSetAttribute(chunk_fwd<T, OT, CAUSAL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_BYTES);
+  if (err != cudaSuccess) return err;
+  chunk_fwd<T, OT, CAUSAL><<<dim3(n_qt, H * C, B), THREADS, FWD_BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bm,
+      static_cast<OT*>(o), m, l, qs, ks, vs, os, Lq, Lkv, H, group, C, head_dim, scale);
   return cudaGetLastError();
 }
 
 // the backward over key tiles: B7b's dq (CAUSAL, no dk / dv) or B14 / B14p's
 // one pass (cross: part is float32 scratch of 2 * ceil(Lq / BQ) * B * H *
-// Lkv * head_dim elements when Lq > BQ, null otherwise)
+// Lkv * C * CW elements when Lq > BQ, null otherwise)
 template <typename T, bool CAUSAL>
 cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v, const float* bm,
                             const void* dout, const float* m, const float* l,
@@ -1313,39 +1640,60 @@ cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v, const f
                             const BwdStrides& st, int B, int H, int group, int Lq, int Lkv,
                             int head_dim, float scale, cudaStream_t stream) {
   constexpr bool DKV = !CAUSAL;
-  const int C = head_dim / CW;
+  const int C = chunks(head_dim);
   const int n_qt = (Lq + BQ - 1) / BQ;
-  if ((long long)H * C > 65535 || (DKV && (n_qt > 1) != (part != nullptr)))
+  if ((long long)H * C > 65535 || (DKV && (n_qt > 1) != (part != nullptr)) ||
+      !whole_pieces<T>(head_dim))
     return cudaErrorInvalidValue;
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {  // tensor cores
-    const int S = tc_stages(C, true);
-    if (S == 0) return cudaErrorInvalidValue;
-    const size_t smem = tc_fixed_bytes(C, true) + S * STAGE_BYTES;
-    err = cudaFuncSetAttribute(chunk_bwd_rows_tc<CAUSAL, DKV>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    chunk_bwd_rows_tc<CAUSAL, DKV><<<dim3(n_qt, H * C, B), TTHREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        bm, static_cast<const bf16*>(dout), m, l, dsum, static_cast<bf16*>(dq), dkt, dvt, part,
-        st, Lq, Lkv, H, group, C, S, scale);
-  } else {
+  bool tensor_cores = false;
+  if constexpr (std::is_same<T, bf16>::value) {
+    tensor_cores = form(ROWS, C, true) == TENSOR_CORES;
+    if (tensor_cores) {
+      err = head_dim < C * CW
+                ? launch_rows_tc<CAUSAL, DKV, true>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
+                                                    part, st, B, H, group, Lq, Lkv, C, head_dim,
+                                                    scale, stream)
+                : launch_rows_tc<CAUSAL, DKV, false>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
+                                                     part, st, B, H, group, Lq, Lkv, C,
+                                                     head_dim, scale, stream);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  if (!tensor_cores) {
     err = cudaFuncSetAttribute(chunk_bwd_rows<T, CAUSAL, DKV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_BYTES);
     if (err != cudaSuccess) return err;
     chunk_bwd_rows<T, CAUSAL, DKV><<<dim3(n_qt, H * C, B), THREADS, BWD_BYTES, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bm,
         static_cast<const T*>(dout), m, l, dsum, static_cast<T*>(dq), dkt, dvt, part, st, Lq,
-        Lkv, H, group, C, scale);
+        Lkv, H, group, C, head_dim, scale);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return err;
-  const long long n = 2ll * B * H * Lkv * head_dim;
+  const long long n = 2ll * B * H * Lkv * C * CW;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
   chunk_dkv_sum<T><<<blocks, 256, 0, stream>>>(part, dkt, dvt, st.dk, st.dv, n_qt, B, H, Lkv,
-                                                head_dim);
+                                                C * CW, head_dim);
+  return cudaGetLastError();
+}
+
+template <bool PART>
+cudaError_t launch_keys_tc(const void* q, const void* k, const void* v, const float* mask,
+                           const void* dout, const float* m, const float* l, const float* dsum,
+                           void* dk, void* dv, const BwdStrides& st, int B, int H, int group,
+                           int L, int C, int cols, int S, float scale, cudaStream_t stream) {
+  const size_t smem = keys_fixed_bytes(C) + S * KSTAGE_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(chunk_bwd_keys_tc<PART>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  chunk_bwd_keys_tc<PART><<<dim3((L + TK - 1) / TK, (H / group) * C, B), KTHREADS, smem,
+                            stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
+      static_cast<const bf16*>(dout), m, l, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      st, L, H, group, C, cols, S, scale);
   return cudaGetLastError();
 }
 
@@ -1355,8 +1703,19 @@ cudaError_t launch_bwd_keys(const void* q, const void* k, const void* v, const f
                             const float* dsum, void* dk, void* dv, const BwdStrides& st, int B,
                             int H, int group, int L, int head_dim, float scale,
                             cudaStream_t stream) {
-  const int C = head_dim / CW;
-  if ((long long)(H / group) * C > 65535) return cudaErrorInvalidValue;
+  const int C = chunks(head_dim);
+  if ((long long)(H / group) * C > 65535 || !whole_pieces<T>(head_dim))
+    return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (form(KEYS, C, true) == TENSOR_CORES) {
+      const int S = keys_stages(C);
+      return head_dim < C * CW
+                 ? launch_keys_tc<true>(q, k, v, mask, dout, m, l, dsum, dk, dv, st, B, H, group,
+                                        L, C, head_dim, S, scale, stream)
+                 : launch_keys_tc<false>(q, k, v, mask, dout, m, l, dsum, dk, dv, st, B, H,
+                                         group, L, C, head_dim, S, scale, stream);
+    }
+  }
   cudaError_t err = cudaFuncSetAttribute(chunk_bwd_keys<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)BWD_BYTES);
@@ -1365,7 +1724,7 @@ cudaError_t launch_bwd_keys(const void* q, const void* k, const void* v, const f
                       stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
       static_cast<const T*>(dout), m, l, dsum, static_cast<T*>(dk), static_cast<T*>(dv), st, L,
-      H, group, C, scale);
+      H, group, C, head_dim, scale);
   return cudaGetLastError();
 }
 

@@ -54,9 +54,10 @@
 // parameter: every multiple of 16 up to 128, and 256 (head_dim.cuh); the
 // wrappers zero-pad any other head dimension up to 256 to the next instance
 // (ops/attention.padded_launch: zero lanes add exact zeros to every dot
-// product) and pass the scale of the true one; above 256 they pad to whole
-// chunks of 256, which the C entries hand to the chunked form of
-// flash_chunked.cuh.  Inputs and outputs are float
+// product) and pass the scale of the true one; above 256 the C entries hand
+// the head dim to the chunked form of flash_chunked.cuh (chunks of 256; the
+// wrappers pad to whole chunks only rows that are not whole 16-byte
+// pieces).  Inputs and outputs are float
 // or bf16 (one type per call, except the forward's o of B14 and B14p, which
 // is float); arithmetic and accumulators are fp32.
 //
@@ -1257,8 +1258,8 @@ bool bad_shape(int B, int H, int Lq, int Lkv) {
 // (m, l [B, Lq, H] float; o float).  Strides in elements for (batch, head,
 // row) of q, k, v and o.  dtype: 0 = float32 (the scalar kernel), 1 =
 // bfloat16 (tensor cores).  bias: [B, Lkv] float additive per-key bias, or
-// null.  head_dim: an instance of head_dim.cuh, or C * 256 (the chunked
-// form); scale: 1 / sqrt of the true head dim (the wrapper pads other head
+// null.  head_dim: an instance of head_dim.cuh, or above 256 (the chunked
+// form, rows of whole 16-byte pieces); scale: 1 / sqrt of the true head dim (the wrapper pads other head
 // dims to an instance).  splits, part: the chunked bf16 form's key splits
 // and their float32 scratch (flash_chunked.cuh launch_fwd); 1 and null
 // otherwise.

@@ -104,6 +104,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_flash_causal_bwd_dq.restype = _I
     lib.unirec_flash_causal_bwd_dkv.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_causal_bwd_dkv.restype = _I
+    lib.unirec_chunked_form.argtypes = [_I] * 3
+    lib.unirec_chunked_form.restype = _I
     lib.unirec_retrieve_topk.argtypes = [_P] * 6 + [_I] * 9 + [_P]
     lib.unirec_retrieve_topk.restype = _I
     lib.unirec_qformer_self_block.argtypes = [_P] * 11 + [_I] * 4 + [_F, _F, _P]

@@ -20,6 +20,7 @@ forwards).  ``use_flash_cross`` is that decision as a pure predicate.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import Optional, Tuple
@@ -44,11 +45,11 @@ FLASH_MIN_KV = 1024
 # (csrc/flash_chunked.cuh) runs over a grid axis.  The packed item attention
 # takes every head dim as it is (csrc/packed_attention.cu).
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
-# the most chunks that the chunked form's bf16 kernels (tensor cores) hold in
-# shared memory: the forward keeps a q tile's chunks resident (5: hd <= 1280),
-# the one-pass backward and B7b's dq kernel a q tile's and a dO tile's (2: hd
-# <= 512).  float32 (the scalar kernels) takes any count.
-BF16_FWD_CHUNKS, BF16_BWD_CHUNKS = 5, 2
+# the chunked form's launches by kind (``unirec_chunked_form``): the forward
+# (K1, B13, B14, B14p), the backward over rows (B7b's dq, B14 / B14p's one
+# pass) and the backward over keys (B7b's dk / dv)
+CHUNKED_FWD, CHUNKED_ROWS, CHUNKED_KEYS = 0, 1, 2
+_FORMS = {1: "scalar", 2: "tensor_cores"}
 # the chunked bf16 forward's tiles: 64 query rows, 32 keys
 CHUNK_Q_TILE, CHUNK_KEY_TILE = 64, 32
 
@@ -198,30 +199,26 @@ def _pad_heads(t: torch.Tensor, heads: Optional[int], hd: int) -> torch.Tensor:
 
 
 def padded_launch(name: str, head_dim: int, inputs, outputs,
-                  launch, bf16_chunks: Optional[int] = None) -> None:
-    """Run ``launch(ins, outs, kernel_hd)`` at the kernels' width for
-    ``head_dim``: instance * chunks (``kernel_head_dim``), which the C
-    entries take as their head dim.  ``inputs`` and ``outputs`` are
-    (tensor, heads) pairs: heads None for a tensor whose last dim is the head
-    dim, H for merged heads ``[..., H * head_dim]``.  At an instance the
-    tensors go to ``launch`` as they are; at any other head dim the inputs go
-    zero-padded to the instance and the outputs into padded scratch, whose
-    true columns are copied back after the launch.  Zero lanes add exact
-    zeros to every dot product, so the scores, m, l, o and the gradients'
-    true columns are unchanged; the caller passes the softmax scale of the
-    true head dim (``sm_scale``).  ``bf16_chunks``: the most chunks the
-    kernel takes in bfloat16 (``BF16_FWD_CHUNKS``, ``BF16_BWD_CHUNKS``); more
-    raise before any launch."""
+                  launch) -> None:
+    """Run ``launch(ins, outs, kernel_hd)``, kernel_hd the head dim that
+    the C entries take: the tensors' own width at an instance, and above 256
+    where a row of a head is whole 16-byte pieces (the chunked form zero-fills
+    the last chunk's missing columns as it loads them and stores only the
+    true ones); otherwise instance * chunks (``kernel_head_dim``).
+    ``inputs`` and ``outputs`` are (tensor, heads) pairs: heads None for a
+    tensor whose last dim is the head dim, H for merged heads ``[..., H *
+    head_dim]``.  Where kernel_hd is not head_dim the inputs go zero-padded
+    to it and the outputs into padded scratch, whose true columns are copied
+    back after the launch.  Zero lanes add exact zeros to every dot product,
+    so the scores, m, l, o and the gradients' true columns are unchanged; the
+    caller passes the softmax scale of the true head dim (``sm_scale``).
+    Every head dim runs in both dtypes: above 256 the kernels pick their form
+    by the chunk count (``chunked_form``)."""
     instance, chunks = kernel_head_dim(name, head_dim)
-    if (bf16_chunks is not None and chunks > bf16_chunks
-            and inputs[0][0].dtype == torch.bfloat16):
-        raise ValueError(
-            f"{name} takes bfloat16 head dims up to {bf16_chunks * instance} "
-            f"({bf16_chunks} chunks of {instance} in shared memory), got "
-            f"{head_dim}; float32 takes any")
     hd = instance * chunks
-    if hd == head_dim:
-        launch([t for t, _ in inputs], [t for t, _ in outputs], hd)
+    piece = 16 // inputs[0][0].element_size()  # elements of a 16-byte load
+    if hd == head_dim or (chunks > 1 and head_dim % piece == 0):
+        launch([t for t, _ in inputs], [t for t, _ in outputs], head_dim)
         return
     ins = [_pad_heads(t, heads, hd) for t, heads in inputs]
     outs = [torch.empty(*t.shape[:-1], hd * (heads or 1), device=t.device,
@@ -230,9 +227,9 @@ def padded_launch(name: str, head_dim: int, inputs, outputs,
     for (t, heads), padded in zip(outputs, outs):
         if heads is None:
             t.copy_(padded[..., :head_dim])
-        else:
-            t.copy_(padded.reshape(*t.shape[:-1], heads, hd)[..., :head_dim]
-                    .reshape(t.shape))
+        else:  # one copy, view to view
+            t.unflatten(-1, (heads, head_dim)).copy_(
+                padded.unflatten(-1, (heads, hd))[..., :head_dim])
 
 
 def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
@@ -260,6 +257,34 @@ def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
                              f"(strides {t.stride()})")
 
 
+def chunked_form(kind: int, kernel_hd: int, t: torch.Tensor) -> Optional[str]:
+    """The form that a chunked launch of ``kind`` (``CHUNKED_FWD``,
+    ``CHUNKED_ROWS``, ``CHUNKED_KEYS``) takes at the kernels' head dim in t's
+    dtype, as ``csrc/flash_chunked.cuh`` chooses it by shape before any
+    launch: "tensor_cores" where its shared memory holds the C chunks (bf16:
+    the forward C <= 5, the backward over rows C <= 2, over keys C <= 4),
+    "scalar" otherwise (float32 always); None at a head dim that is not
+    chunked."""
+    return _chunked_form(kind, kernel_hd, dtype_code(t))
+
+
+def count_form(wrapper, kind: int, kernel_hd: int, t: torch.Tensor) -> None:
+    """One more launch in ``wrapper.forms`` (a Counter) of the form the
+    kernels chose (``chunked_form``); none at a head dim that is not
+    chunked."""
+    form = chunked_form(kind, kernel_hd, t)
+    if form is not None:
+        wrapper.forms[form] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _chunked_form(kind: int, kernel_hd: int, dtype: int) -> Optional[str]:
+    code = load_kernels().lib.unirec_chunked_form(kind, kernel_hd, dtype)
+    if code < 0:
+        raise ValueError(f"no chunked kind {kind} for dtype code {dtype}")
+    return _FORMS.get(code)
+
+
 def chunked_fwd_splits(blocks: int, key_tiles: int, sms: int) -> int:
     """Key splits of the chunked bf16 cross forward (``csrc/flash_chunked.cuh``;
     B13, B14, B14p): a grid of ``blocks`` (q tiles x heads x chunks x batch)
@@ -275,23 +300,32 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def scratch_width(kernel_hd: int) -> int:
+    """Columns of a row of the kernels' float32 scratch at ``kernel_hd``:
+    above 256, whole chunks of 256 (``csrc/flash_chunked.cuh``)."""
+    widest = KERNEL_HEAD_DIMS[-1]
+    return kernel_hd if kernel_hd <= widest else -(-kernel_hd // widest) * widest
+
+
 def chunked_fwd_plan(q: torch.Tensor, b: int, h: int, lq: int, lkv: int,
-                     kernel_hd: int):
+                     kernel_hd: int, form: Optional[str]):
     """(splits, scratch) of one cross forward launch at the kernels' head
-    dim: (1, None) but for the chunked bf16 form, whose splits (above one)
-    write their float32 (o, m, l) to ``splits * b * h * lq * (kernel_hd +
-    2)`` floats of scratch."""
-    chunks = kernel_hd // KERNEL_HEAD_DIMS[-1]
-    if q.dtype != torch.bfloat16 or chunks < 2:
+    dim, whose chunked form is ``form`` (``chunked_form``): (1, None) but for
+    the chunked bf16 form on tensor cores, whose splits (above one) write
+    their float32 (o, m, l) to ``splits * b * h * lq * (C * 256 + 2)``
+    floats of scratch."""
+    if form != "tensor_cores":  # bf16 above 256 only
         return 1, None
+    chunks = -(-kernel_hd // KERNEL_HEAD_DIMS[-1])
     blocks = -(-lq // CHUNK_Q_TILE) * h * chunks * b
     key_tiles = -(-lkv // CHUNK_KEY_TILE)
     splits = chunked_fwd_splits(blocks, key_tiles,
                                 _sm_count(q.device.index or 0))
     if splits == 1:
         return 1, None
-    return splits, torch.empty(splits * b * h * lq * (kernel_hd + 2),
-                               device=q.device, dtype=torch.float32)
+    return splits, torch.empty(
+        splits * b * h * lq * (scratch_width(kernel_hd) + 2), device=q.device,
+        dtype=torch.float32)
 
 
 def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
@@ -299,13 +333,16 @@ def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
     ``[B, H, L, hd]`` of any (batch, head, row) strides: B13 without (m, l),
     the forward of B14 and B14p with them (float32 ``[B, Lq, H]``).  o is in
     q's dtype for B13 and float32 for B14 and B14p.  A head dim that is not
-    an instance runs zero-padded (``padded_launch``)."""
+    an instance runs zero-padded (``padded_launch``); the chunked form's
+    launches count by form in ``launch_flash_cross_fwd.forms``."""
     b, h, lq, hd = q.shape
 
     def launch(ins, outs, kernel_hd):
         qk, kk, vk = ins
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
-        splits, part = chunked_fwd_plan(q, b, h, lq, k.shape[2], kernel_hd)
+        form = chunked_form(CHUNKED_FWD, kernel_hd, q)
+        splits, part = chunked_fwd_plan(q, b, h, lq, k.shape[2], kernel_hd,
+                                        form)
         err = load_kernels().lib.unirec_flash_cross_fwd(
             qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
             None if bias32 is None else bias32.data_ptr(), outs[0].data_ptr(),
@@ -315,10 +352,13 @@ def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
             k.shape[2], kernel_hd, dtype_code(q), splits, sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_cross_fwd")
+        count_form(launch_flash_cross_fwd, CHUNKED_FWD, kernel_hd, q)
 
     padded_launch("the streaming forward", hd,
-                  [(q, None), (k, None), (v, None)], [(o, None)], launch,
-                  BF16_FWD_CHUNKS)
+                  [(q, None), (k, None), (v, None)], [(o, None)], launch)
+
+
+launch_flash_cross_fwd.forms = collections.Counter()
 
 
 def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -57,16 +57,19 @@ A CPU tensor takes the plain versions of both directions.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional, Tuple
 
 import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.attention import (
-    BF16_BWD_CHUNKS,
-    BF16_FWD_CHUNKS,
+    CHUNKED_FWD,
+    CHUNKED_KEYS,
+    CHUNKED_ROWS,
     NEG_INF,
     check_head_dim,
+    count_form,
     padded_launch,
     sm_scale,
 )
@@ -246,9 +249,10 @@ def _k1(q, k, v, pad_mask, num_q_heads, num_kv_heads, stats: bool):
             b, l, num_q_heads, num_kv_heads, kernel_hd, _dtype_code(q),
             sm_scale(hd), torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_causal_fwd")
+        count_form(flash_causal_attention, CHUNKED_FWD, kernel_hd, q)
 
     padded_launch("K1", hd, _heads(q, k, v, num_q_heads, num_kv_heads),
-                  [(out, num_q_heads)], launch, BF16_FWD_CHUNKS)
+                  [(out, num_q_heads)], launch)
     flash_causal_attention.launches += 1
     return (out, m, l_) if stats else out
 
@@ -275,6 +279,7 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_causal_attention.launches = 0
+flash_causal_attention.forms = collections.Counter()  # K1's, above hd 256
 
 
 def flash_causal_bwd_dq(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
@@ -295,15 +300,16 @@ def flash_causal_bwd_dq(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
             _dtype_code(q), sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_causal_bwd_dq")
+        count_form(flash_causal_bwd_dq, CHUNKED_ROWS, kernel_hd, q)
 
     padded_launch("B7b", hd, _heads(q, k, v, num_q_heads, num_kv_heads)
-                  + [(do, num_q_heads)], [(dq, num_q_heads)], launch,
-                  BF16_BWD_CHUNKS)
+                  + [(do, num_q_heads)], [(dq, num_q_heads)], launch)
     flash_causal_bwd_dq.launches += 1
     return dq
 
 
 flash_causal_bwd_dq.launches = 0
+flash_causal_bwd_dq.forms = collections.Counter()
 
 
 def flash_causal_bwd_dkv(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
@@ -324,6 +330,7 @@ def flash_causal_bwd_dkv(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
             num_kv_heads, kernel_hd, _dtype_code(q), sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_causal_bwd_dkv")
+        count_form(flash_causal_bwd_dkv, CHUNKED_KEYS, kernel_hd, q)
 
     padded_launch("B7b", hd, _heads(q, k, v, num_q_heads, num_kv_heads)
                   + [(do, num_q_heads)],
@@ -333,6 +340,7 @@ def flash_causal_bwd_dkv(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
 
 
 flash_causal_bwd_dkv.launches = 0
+flash_causal_bwd_dkv.forms = collections.Counter()
 
 
 def flash_causal_attention_bwd(q, k, v, pad_mask, do, m, l, num_q_heads: int,

@@ -52,6 +52,7 @@ B14's plain versions are B14p's on per-head views of the merged tensors.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -59,14 +60,16 @@ import torch
 
 from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.attention import (
-    BF16_BWD_CHUNKS,
+    CHUNKED_ROWS,
     check_head_dim,
+    count_form,
     check_kernel_tensors,
     dtype_code,
     key_bias,
     launch_flash_cross_fwd,
     merge_heads,
     padded_launch,
+    scratch_width,
     sm_scale,
     streaming_softmax_stats,
 )
@@ -153,7 +156,9 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
     B14p's per-head one.  bf16 runs one pass over the keys (with float32
     scratch for the partial dk / dv of each 64-row q tile when Lq is
     longer), float32 the dq kernel, then the dk / dv kernel.  A head dim
-    that is not an instance runs zero-padded (``padded_launch``)."""
+    that is not an instance runs zero-padded (``padded_launch``); the
+    chunked form's launches count by form in
+    ``launch_flash_cross_bwd.forms``."""
     b, h, lq, hd = q.shape
     lkv = k.shape[2]
 
@@ -162,8 +167,9 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
         scratch = None
         # bf16, and the chunked form above 256 in both types, run one pass
         if (q.dtype == torch.bfloat16 or kernel_hd > 256) and n_qt > 1:
-            scratch = torch.empty(n_qt * 2 * b * h * lkv * kernel_hd,
-                                  device=q.device, dtype=torch.float32)
+            scratch = torch.empty(
+                n_qt * 2 * b * h * lkv * scratch_width(kernel_hd),
+                device=q.device, dtype=torch.float32)
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
         qk, kk, vk, dok = ins
         err = load_kernels().lib.unirec_flash_cross_bwd(
@@ -176,11 +182,14 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
             dtype_code(q), sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_cross_bwd")
+        count_form(launch_flash_cross_bwd, CHUNKED_ROWS, kernel_hd, q)
 
     padded_launch("the streaming backward", hd,
                   [(q, None), (k, None), (v, None), (do, None)],
-                  [(dq, None), (dk, None), (dv, None)], launch,
-                  BF16_BWD_CHUNKS)
+                  [(dq, None), (dk, None), (dv, None)], launch)
+
+
+launch_flash_cross_bwd.forms = collections.Counter()
 
 
 def _check_stats(name: str, b: int, lq: int, h: int, *stats) -> None:
