@@ -409,9 +409,12 @@ FLASH_OTHER_HD = (32, 128, 8, 24, 256)
 USER_CLI_USERS = 20
 # (a) C-4/C-5: head dims above 256 (the chunked form); C-19: bf16 at every
 # chunk count: K1 / B7b at hd 768 (three chunks), B13 / B14 / B14p at one
-# head of 1024 (four) and B13 at one head of 1536 (six)
+# head of 1024 (four) and B13 at one head of 1536 (six), the backward over
+# rows at 768 and 1024 and B13 at 1536 in the cluster form; bf16 at 9
+# chunks (hd 2304, above the cluster form's 8) in the scalar form
 WIDE_HDS = (320, 512)
 WIDE_BF16_HD, WIDE_ONE_HEAD_HD, WIDE_B13_HD = 768, 1024, 1536
+WIDE_SCALAR_HD = 2304
 WIDE_CAUSAL = dict(B=2, L=512, HQ=4, HKV=2, LENGTHS=(512, 301))
 WIDE_CROSS = dict(B=8, LKV=1600, H=2, HD=512)
 # (c) the Q-Former's LM head: QFormerConfig(), 32 query tokens over ViT-L/14's
@@ -3440,11 +3443,17 @@ def chunked_forms(hd: int, dtype) -> dict:
     """The form each chunked kernel takes at ``hd`` (above 256) in
     ``dtype``: bf16 on tensor cores up to 5 chunks of 256 in the forward, 2
     in the backward over rows (B7b's dq, B14 / B14p) and 4 over keys (B7b's
-    dk / dv, ``chunk_bwd_keys_tc``), the scalar form above and in fp32."""
+    dk / dv, ``chunk_bwd_keys_tc``); above those in a thread-block cluster
+    up to 8 chunks in the forward and over rows
+    (``csrc/flash_chunked_cluster.cuh``); the scalar form above and in
+    fp32."""
     chunks = -(-hd // 256)
-    return {kind: "tensor_cores" if dtype == torch.bfloat16 and chunks <= most
-            else "scalar" for kind, most in (("fwd", 5), ("rows", 2),
-                                             ("keys", 4))}
+    if dtype != torch.bfloat16:
+        return {kind: "scalar" for kind in ("fwd", "rows", "keys")}
+    return {kind: "tensor_cores" if chunks <= most else
+            "cluster" if chunks <= cluster else "scalar"
+            for kind, most, cluster in (("fwd", 5, 8), ("rows", 2, 8),
+                                        ("keys", 4, 4))}
 
 
 def wide_causal(gen, hd: int, dtype) -> dict:
@@ -3621,10 +3630,12 @@ def wide_one_head(gen) -> dict:
     """C-19 on the card: bf16 at chunk counts the tensor-core backward does
     not hold.  B13, B14 and B14p at WIDE_CROSS's users and memory in one
     head of WIDE_ONE_HEAD_HD (four chunks: the forward on tensor cores, the
-    one-pass backward in the scalar form), held to their plain versions as
+    one-pass backward in the cluster form), held to their plain versions as
     ``check_flash_cross`` and ``wide_b14p`` hold them, the forms counted,
     timed beside the bounds and SDPA; B13 at one head of WIDE_B13_HD (six
-    chunks, the scalar forward), held, repeated and timed."""
+    chunks, the cluster forward), held, repeated and timed with the key
+    splits of ``chunked_fwd_plan`` and without (``ms_unsplit``); then
+    ``wide_scalar``."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
@@ -3633,6 +3644,8 @@ def wide_one_head(gen) -> dict:
     b, lkv, hd = WIDE_CROSS["B"], WIDE_CROSS["LKV"], WIDE_ONE_HEAD_HD
     where = f"{b16} B={b} Lq=64 Lkv={lkv} H=1 hd={hd}"
     want = chunked_forms(hd, b16)
+    if (want["fwd"], want["rows"]) != ("tensor_cores", "cluster"):
+        raise AssertionError(f"the chunked forms at hd {hd}: {want}")
     counters = (pa.launch_flash_cross_fwd, fl.launch_flash_cross_bwd)
     for fn in counters:
         fn.forms.clear()
@@ -3656,7 +3669,7 @@ def wide_one_head(gen) -> dict:
         raise AssertionError(f"B13 / B14 / B14p {where} ran the forms {ran}")
     res["forms"] = {"fwd": want["fwd"], "bwd": want["rows"]}
 
-    # B13 at one head of WIDE_B13_HD: the scalar forward
+    # B13 at one head of WIDE_B13_HD: the cluster forward
     hd = WIDE_B13_HD
     where = f"{b16} B={b} Lq=64 Lkv={lkv} H=1 hd={hd}"
     q, k3, v3, _, bias = flash_inputs(gen, b, lkv, b16, hd)
@@ -3666,7 +3679,7 @@ def wide_one_head(gen) -> dict:
     got = pa.flash_cross_attention(qh, kh, vh, bias)
     torch.cuda.synchronize()
     form = chunked_forms(hd, b16)["fwd"]
-    if (dict(pa.launch_flash_cross_fwd.forms) != {form: 1}
+    if (form != "cluster" or dict(pa.launch_flash_cross_fwd.forms) != {form: 1}
             or pa.flash_cross_attention.launches != 1):
         raise AssertionError(f"B13 {where} ran "
                              f"{dict(pa.launch_flash_cross_fwd.forms)}")
@@ -3680,21 +3693,69 @@ def wide_one_head(gen) -> dict:
     b_ms, b_by = bound(2 * io_q + 2 * io_kv + 4 * b * lkv,
                        2 * 2 * b * 64 * lkv * hd, "bf16")
     mask = bias.to(b16)
+    splits = pa.chunked_fwd_plan(qh, b, 1, 64, lkv, hd, form)[0]
     b13 = dict(err=err, form=form, bound_ms=b_ms, bound_by=b_by,
+               splits=splits,
                ms=time_ms(lambda: pa.flash_cross_attention(qh, kh, vh, bias),
                           iters=10),
                plain_ms=time_ms(lambda: pa.flash_cross_attention_plain(
                    qh, kh, vh, bias), iters=3, warmup=1),
                library_ms=sdpa_time(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
                sdpa_backend=sdpa_backend(qh, kh, vh, mask))
-    log(f"B13 time {where} ({form}): kernel {b13['ms']:.4f} ms, plain "
+    split_plan = pa.chunked_fwd_splits
+    pa.chunked_fwd_splits = lambda *a: 1  # the same launch without key splits
+    try:
+        unsplit = pa.flash_cross_attention(qh, kh, vh, bias)
+        b13["ms_unsplit"] = time_ms(
+            lambda: pa.flash_cross_attention(qh, kh, vh, bias), iters=10)
+    finally:
+        pa.chunked_fwd_splits = split_plan
+    b13["err"] = max(err, kernel_error("B13 o (one split)", unsplit,
+                                       pa.flash_cross_attention_plain(
+                                           qh, kh, vh, bias), where))
+    log(f"B13 time {where} ({form}, {splits} key splits): kernel "
+        f"{b13['ms']:.4f} ms (one split {b13['ms_unsplit']:.4f} ms), plain "
         f"{b13['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"scaled_dot_product_attention ({b13['sdpa_backend']}) "
         + ("refused" if b13["library_ms"] is None
            else f"{b13['library_ms']:.4f} ms"))
-    del q, k3, v3, qh, kh, vh, got
+    del q, k3, v3, qh, kh, vh, got, unsplit
     torch.cuda.empty_cache()
-    return {"hd1024": res, "b13_hd1536": b13}
+    return {"hd1024": res, "b13_hd1536": b13, "hd2304": wide_scalar(gen)}
+
+
+def wide_scalar(gen) -> dict:
+    """bf16 at WIDE_SCALAR_HD (9 chunks, above the cluster form's 8): one
+    small launch each of B13, B14's forward and backward (2 users, 64
+    queries over 64 keys, one head; ``check_flash_cross``), K1 and B7b's dq
+    and dk / dv (``b7b_errors``: B 2, L 64, 2 / 1 heads), held to their
+    plain versions and repeated for identical bits, each counted in the
+    scalar form."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_causal as fc
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    b16, hd = torch.bfloat16, WIDE_SCALAR_HD
+    want = chunked_forms(hd, b16)
+    if set(want.values()) != {"scalar"}:
+        raise AssertionError(f"the chunked forms at hd {hd}: {want}")
+    counters = (pa.launch_flash_cross_fwd, fl.launch_flash_cross_bwd,
+                fc.flash_causal_attention, fc.flash_causal_bwd_dq,
+                fc.flash_causal_bwd_dkv)
+    for fn in counters:
+        fn.forms.clear()
+    res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
+    check_flash_cross(gen, b16, 2, 64, 1, hd, res)
+    q, k, v, do, mask = causal_inputs(gen, 2, 64, 2, 1, hd, b16, (64, 37))
+    errs, _ = b7b_errors(q, k, v, do, mask, 2, 1, hd)
+    torch.cuda.synchronize()
+    ran = [set(fn.forms) for fn in counters]
+    if ran != [{"scalar"}] * len(counters):
+        raise AssertionError(f"bf16 at hd {hd} ran the forms {ran}")
+    log(f"bf16 at hd {hd} (9 chunks): B13, B14, K1 and B7b in the scalar "
+        f"form, held and repeated")
+    return {"errs": {**{k: r["err"] for k, r in res.items()}, **errs},
+            "forms": want}
 
 
 def phase_wide_heads(gen) -> dict:
@@ -3765,6 +3826,9 @@ def phase_wide_heads(gen) -> dict:
     # in the scalar form), then the cross kernels at one head of 1024 and
     # B13 at 1536 (``wide_one_head``)
     out["causal"][(WIDE_BF16_HD, b16)] = wide_causal(gen, WIDE_BF16_HD, b16)
+    if out["causal"][(WIDE_BF16_HD, b16)]["forms"]["dq"] != "cluster":
+        raise AssertionError(f"B7b's dq at hd {WIDE_BF16_HD}: not the "
+                             "cluster form")
     out["one_head"] = wide_one_head(gen)
     return out
 
@@ -7342,7 +7406,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # C-19: the user step at one head of 1024 (B14's backward in the
-        # scalar form), parity and ms per step
+        # cluster form), parity and ms per step
         one_head_user = phase_user_train(smi, tmp, heads=1, evaluate=False)
         gc.collect()
         torch.cuda.empty_cache()
@@ -7507,6 +7571,7 @@ def main() -> int:
     # its entry point's run in (a)
     causal = wide["causal"]
     one = wide["one_head"]
+    scalar = one["hd2304"]
     timed = ("ms", "plain_ms", "bound_ms", "library_ms")
     for key, row_name, src, replaces in (
             ("k1", "flash_causal_fwd_hd512", "flash_causal_fwd.cu",
@@ -7522,7 +7587,7 @@ def main() -> int:
         launches = sum(causal[(512, dt)]["launches"][
             ("k1", "dq", "dkv").index(key)] for dt in (torch.float32, b16))
         err = max(err, *(causal[(WIDE_BF16_HD, b16)]["errs"][e]
-                         for e in errs))
+                         for e in errs), *(scalar["errs"][e] for e in errs))
         kernels.append(row(
             row_name, src, replaces, launches, err, **at[key], head_dim=512,
             sdpa_backend=at["sdpa_backend"],
@@ -7530,8 +7595,10 @@ def main() -> int:
                .items() if k in timed},
             **{f"{k}_hd{hd}": v for hd in (320, WIDE_BF16_HD)
                for k, v in causal[(hd, b16)][key].items() if k in timed},
-            forms={hd: causal[(hd, b16)]["forms"][key]
-                   for hd in (*WIDE_HDS, WIDE_BF16_HD)},
+            forms={**{hd: causal[(hd, b16)]["forms"][key]
+                      for hd in (*WIDE_HDS, WIDE_BF16_HD)},
+                   WIDE_SCALAR_HD: scalar["forms"][
+                       {"k1": "fwd", "dq": "rows", "dkv": "keys"}[key]]},
             **({"kernel": "chunk_bwd_keys_tc"} if key == "dkv" else {})))
     for key, row_name, replaces, launches in (
             ("b13", "flash_cross_attention_hd512", "attention.py:163",
@@ -7549,10 +7616,12 @@ def main() -> int:
         way = "fwd" if key == "b13" or key.endswith("_fwd") else "bwd"
         extra = {f"{k}_hd{WIDE_ONE_HEAD_HD}": at1[k] for k in timed}
         extra["forms"] = {512: "tensor_cores",
-                          WIDE_ONE_HEAD_HD: one["hd1024"]["forms"][way]}
+                          WIDE_ONE_HEAD_HD: one["hd1024"]["forms"][way],
+                          WIDE_SCALAR_HD: scalar["forms"][
+                              "fwd" if way == "fwd" else "rows"]}
         if key == "b13":
             extra.update({f"{k}_hd{WIDE_B13_HD}": one["b13_hd1536"][k]
-                          for k in timed})
+                          for k in (*timed, "ms_unsplit", "splits")})
             extra["forms"][WIDE_B13_HD] = one["b13_hd1536"]["form"]
         if launches is not None:  # B14 in the 1-head user step
             extra[f"launches_hd{WIDE_ONE_HEAD_HD}"] = (
@@ -7562,7 +7631,8 @@ def main() -> int:
             launches if launches is not None
             else at["launches"] + at32["launches"],
             max(at["err"], at32["err"], at1["err"], *(
-                [one["b13_hd1536"]["err"]] if key == "b13" else [])),
+                [one["b13_hd1536"]["err"]] if key == "b13" else []),
+                scalar["errs"].get(key, 0.0)),
             at["ms"], at["plain_ms"],
             at["bound_ms"], at["bound_by"], at["library_ms"], head_dim=512,
             sdpa_backend=wide[b16]["sdpa_backend"],

@@ -1,6 +1,6 @@
 """The chunked form (head dims above 256) of two checkouts of the port on one
-card: the 2-head user step and the hd-512 kernels timed side by side, the
-outputs compared.
+card: the 2-head and 1-head user steps and the chunked kernels timed side by
+side, the outputs compared.
 
     python3 scripts/compare_chunked_builds.py OTHER_ROOT
 
@@ -8,29 +8,33 @@ OTHER_ROOT is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``).  Each checkout runs in its own
 interpreter, which builds that checkout's kernels into its own ``build/``
 directory; the order is other, this, this, other.  Every run makes the same
-inputs from seed 0 and measures, at head dim 512 in bf16:
+inputs from seed 0 and measures in bf16 (CUDA events over 20 launches after
+3 warm-ups):
 
   - B13, B14 (forward, backward) and B14p (forward, backward) at 8 and 64
-    users (64 queries over 1,600 memory rows, 2 heads; ~15% masked keys,
-    user 1 masked whole), and K1 and B7b's dq and dk / dv at B 2, L 512, 4
-    query / 2 key heads (rows of 512 and 301 keys): CUDA events over 20
-    launches after 3 warm-ups;
+    users (64 queries over 1,600 memory rows, 2 heads of 512 and of 320;
+    ~15% masked keys, user 1 masked whole), at 8 users in one head of
+    1024, and B13 at 8 users in one head of 1536;
+  - K1 and B7b's dq and dk / dv at B 2, L 512, 4 query / 2 key heads (rows
+    of 512 and 301 keys) at head dims 320, 512 and 768;
   - one step of the user trainer at ``UserQFormerConfig(num_attention_heads
-    =2)``, ``--flash --fused``, batch 64, seq 50, on random item tokens
-    (bf16 compute, float32 masters): host clock over 5 synchronised steps
-    after 2, the forward + backward and the optimizer split over 3 more,
-    peak memory, and the device idle share of one step under
-    ``torch.profiler``.
+    =2)`` and at one head (of 1024), ``--flash --fused``, batch 64, seq 50,
+    on random item tokens (bf16 compute, float32 masters): host clock over
+    5 synchronised steps after 2, the forward + backward and the optimizer
+    split over 3 more, peak memory, and the device time, B14's share of it
+    and the idle share of one step under ``torch.profiler``.
 
-It hashes the float32 outputs of B13 and B14 at 8 users and of K1 / B7b,
-and saves the bf16 ones.  The script fails unless the float32 hashes are
-the same in all four runs (the float32 kernels are the scalar form in both),
-the bf16 hashes are the same in the two runs of each checkout, and this
-checkout's bf16 outputs agree with the other's within chip_smoke.py's
+It hashes the outputs of every kernel run, float32 at 8 users and bf16, and
+saves the bf16 ones.  The script fails unless the float32 hashes are the
+same in all four runs (the float32 kernels are the scalar form in both),
+the bf16 hashes are the same in the two runs of each checkout and, but for
+the runs in ``OTHER_FORMS`` (the bf16 forms of the cluster kernels, where
+the other checkout may run another form), the same in all four runs; and
+this checkout's bf16 outputs agree with the other's within chip_smoke.py's
 kernel gates (max|d| at most 2e-2 of max|other|, per-row cosine at least
 0.9999 where the other's row is nonzero; B7b's dq over the rows of at least
-1e-3 of its largest row norm).  It prints the card's name and
-power limit and one JSON line per run.
+1e-3 of its largest row norm).  It prints the card's name and power limit
+and one JSON line per run.
 """
 
 from __future__ import annotations
@@ -50,6 +54,11 @@ LQ, LKV, H, HD = 64, 1600, 2, 512
 CAUSAL = dict(B=2, L=512, HQ=4, HKV=2, LENGTHS=(512, 301))
 USERS, STEP_BATCH, STEP_SEQ = (8, 64), 64, 50
 KERNEL_TOL, KERNEL_COS = 2e-2, 0.9999  # chip_smoke.py's bf16 kernel gates
+# bf16 runs in the forms of csrc/flash_chunked_cluster.cuh (the forward at
+# 6-8 chunks, the backward over rows at 3-8): their bits may differ from a
+# checkout that runs another form there
+OTHER_FORMS = ("b13_1x1536_8users", "b14_bwd_1x1024_8users",
+               "b14p_bwd_1x1024_8users", "b7b_dq_hd768")
 
 
 def _ms(run, iters: int = 20, warmup: int = 3) -> float:
@@ -67,14 +76,15 @@ def _ms(run, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _cross_runs(gen, b, dtype):
-    """B13, B14 and B14p at ``b`` users: name -> a call returning outputs."""
+def _cross_runs(gen, b, dtype, h=H, hd=HD):
+    """B13, B14 and B14p at ``b`` users in ``h`` heads of ``hd``: name -> a
+    call returning outputs."""
     import torch
 
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
-    d = H * HD
+    d = h * hd
     q, do = (torch.randn(b, LQ, d, device="cuda", generator=gen).to(dtype)
              for _ in range(2))
     k3, v3 = (torch.randn(b, LKV, d, device="cuda", generator=gen)
@@ -83,33 +93,33 @@ def _cross_runs(gen, b, dtype):
     mask[1] = 0.0
     bias = ((1.0 - mask) * -1e9)[:, None, None, :]
     bias32 = pa.key_bias(bias, b, LKV, q.device)
-    qh, kh, vh, doh = (pa.split_heads(t, H) for t in (q, k3, v3, do))
-    o, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, H)
-    dsum = fl.attention_dsum(do, o, H).contiguous()
+    qh, kh, vh, doh = (pa.split_heads(t, h) for t in (q, k3, v3, do))
+    o, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, h)
+    dsum = fl.attention_dsum(do, o, h).contiguous()
     qp, kp, vp, dop = (t.contiguous() for t in (qh, kh, vh, doh))
     op, mp, lp = fl.flash_cross_vjp_fwd(qp, kp, vp, bias32)
     dsum_p = (dop.float() * op).sum(-1).transpose(1, 2).contiguous()
     return {
         "b13": lambda: (pa.flash_cross_attention(qh, kh, vh, bias),),
-        "b14_fwd": lambda: fl.flash_cross_fwd(q, k3, v3, bias32, H),
+        "b14_fwd": lambda: fl.flash_cross_fwd(q, k3, v3, bias32, h),
         "b14_bwd": lambda: fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l,
-                                              dsum, H),
+                                              dsum, h),
         "b14p_fwd": lambda: fl.flash_cross_vjp_fwd(qp, kp, vp, bias32),
         "b14p_bwd": lambda: fl.flash_cross_vjp_bwd(qp, kp, vp, bias32, dop,
                                                    mp, lp, dsum_p),
     }
 
 
-def _causal_runs(gen, dtype):
-    """K1 and B7b at CAUSAL's shape."""
+def _causal_runs(gen, dtype, hd=HD):
+    """K1 and B7b at CAUSAL's shape, head dim ``hd``."""
     import torch
 
     from unirec_tpu_torch.ops import flash_causal as fc
 
     b, l, hq, hkv = (CAUSAL[x] for x in ("B", "L", "HQ", "HKV"))
-    q, do = (torch.randn(b, l, hq * HD, device="cuda", generator=gen)
+    q, do = (torch.randn(b, l, hq * hd, device="cuda", generator=gen)
              .to(dtype) for _ in range(2))
-    k, v = (torch.randn(b, l, hkv * HD, device="cuda", generator=gen)
+    k, v = (torch.randn(b, l, hkv * hd, device="cuda", generator=gen)
             .to(dtype) for _ in range(2))
     lengths = torch.tensor(CAUSAL["LENGTHS"], device="cuda")
     mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
@@ -123,9 +133,9 @@ def _causal_runs(gen, dtype):
     }
 
 
-def _user_step(gen) -> dict:
-    """ms per step of the 2-head --flash --fused user step, its split, peak
-    memory and device idle share."""
+def _user_step(gen, heads: int = H) -> dict:
+    """ms per step of the ``heads``-head --flash --fused user step, its
+    split, peak memory, device time, B14's share and idle share."""
     import dataclasses
 
     import numpy as np
@@ -144,7 +154,7 @@ def _user_step(gen) -> dict:
     uc = dataclasses.replace(
         UserQFormerConfig(num_item_tokens_to_predict=32,
                           input_embedding_dim=1024, dropout=0.0),
-        num_attention_heads=H, flash_training=True, fused_training=True)
+        num_attention_heads=heads, flash_training=True, fused_training=True)
     tc = TrainConfig(batch_size=STEP_BATCH, seed=0,
                      optimizer=OptimizerConfig(learning_rate=5e-5))
     st = UserQFormerTrainer(uc, tc, STEP_SEQ, dtype="bfloat16",
@@ -217,6 +227,8 @@ def _user_step(gen) -> dict:
     b14 = sum(t for k, t in device.items() if any(
         n in k for n in ("flash_cross_fwd", "flash_cross_bwd", "chunk_fwd",
                          "chunk_bwd_rows", "chunk_dkv_sum")))
+    del st, step, batches
+    torch.cuda.empty_cache()
     return {"ms": ms, "fwd_bwd_ms": float(np.median(fb)),
             "optimizer_ms": float(np.median(op)), "peak_gb": peak,
             "loss": loss, "device_ms": total, "wall_ms": wall,
@@ -236,6 +248,18 @@ def worker(root: str, save: str) -> dict:
         groups = {f"{name}_{b}users": run for b in users
                   for name, run in _cross_runs(gen, b, dtype).items()}
         groups.update(_causal_runs(gen, dtype))
+        groups.update({f"{name}_2x320_{b}users": run for b in users
+                       for name, run in
+                       _cross_runs(gen, b, dtype, hd=320).items()})
+        groups.update({f"{name}_hd320": run for name, run in
+                       _causal_runs(gen, dtype, 320).items()})
+        if dtype == torch.bfloat16:  # the cluster forms' shapes
+            groups.update({f"{name}_1x1024_8users": run for name, run in
+                           _cross_runs(gen, 8, dtype, 1, 1024).items()})
+            groups["b13_1x1536_8users"] = _cross_runs(gen, 8, dtype, 1,
+                                                      1536)["b13"]
+            groups.update({f"{name}_hd768": run for name, run in
+                           _causal_runs(gen, dtype, 768).items()})
         for name, run in groups.items():
             digest = hashlib.sha256()
             for t in run():
@@ -249,12 +273,14 @@ def worker(root: str, save: str) -> dict:
         del groups
         torch.cuda.empty_cache()
     return {"root": root, "hashes": hashes, "ms": times,
-            "user_step": _user_step(gen)}
+            "user_step": _user_step(gen),
+            "user_step_1x1024": _user_step(gen, heads=1)}
 
 
 def compare(results, saved) -> bool:
     """float32 bits equal in all four runs; bf16 bits equal within each
-    checkout; this checkout's bf16 outputs against the other's."""
+    checkout, and across checkouts but in ``OTHER_FORMS``; this checkout's
+    bf16 outputs against the other's."""
     import torch
 
     f32 = [{k: v for k, v in r["hashes"].items() if "float32" in k}
@@ -263,9 +289,14 @@ def compare(results, saved) -> bool:
            for r in results]
     same_f32 = all(h == f32[0] for h in f32)
     repeat_b16 = b16[0] == b16[3] and b16[1] == b16[2]
+    kept = [{k: v for k, v in h.items() if k.split()[0] not in OTHER_FORMS}
+            for h in b16]
+    same_b16 = all(h == kept[0] for h in kept)
     print(f"float32 outputs identical across the four runs: {same_f32}")
     print(f"bf16 outputs identical within each checkout: {repeat_b16}")
-    ok = same_f32 and repeat_b16
+    print(f"bf16 outputs but {', '.join(OTHER_FORMS)} identical across the "
+          f"four runs: {same_b16}")
+    ok = same_f32 and repeat_b16 and same_b16
     for name in sorted(os.listdir(os.path.join(saved, "0"))):
         ref = torch.load(os.path.join(saved, "0", name))
         got = torch.load(os.path.join(saved, "1", name))

@@ -353,13 +353,17 @@ def check_causal(emu, dtype, hd, hkv):
 
 def expected_forms(hd: int, dtype) -> list:
     """The chunked form of K1, B7b's dq and B7b's dk / dv at ``hd``: bf16
-    on tensor cores up to 5, 2 and 4 chunks of 256, the scalar form above
-    and in float32; none at hd <= 256."""
+    on tensor cores up to 5, 2 and 4 chunks of 256, in a cluster above
+    those up to 8 (K1 and dq), the scalar form above and in float32; none
+    at hd <= 256."""
     if hd <= 256:
         return [None] * 3
     chunks = -(-hd // 256)
-    return ["tensor_cores" if dtype == torch.bfloat16 and chunks <= most
-            else "scalar" for most in (5, 2, 4)]
+    if dtype != torch.bfloat16:
+        return ["scalar"] * 3
+    return ["tensor_cores" if chunks <= most else
+            "cluster" if chunks <= cluster else "scalar"
+            for most, cluster in ((5, 8), (2, 8), (4, 4))]
 
 
 def main() -> int:
@@ -370,7 +374,11 @@ def main() -> int:
                         help="K1 and B7b only (no B13 / B14 / B14p)")
     parser.add_argument("--parent", help="another checkout to hold float32 "
                         "B13 / B14 bits to")
+    parser.add_argument("--dtypes", default="bf16,fp32",
+                        help="bf16 and / or fp32, comma-separated")
     args = parser.parse_args()
+    dtypes = [{"bf16": torch.bfloat16, "fp32": torch.float32}[d]
+              for d in args.dtypes.split(",")]
     work = ROOT / "build" / "emulate_cuda"
     emu = Emulated(build(ROOT / "unirec_tpu_torch" / "csrc", work / "this"))
     parent = None
@@ -383,7 +391,7 @@ def main() -> int:
         parent.unirec_flash_cross_bwd.argtypes = (
             [P] * 13 + [I] * 6 + [ctypes.c_float, P])
     for hd in map(int, args.hd.split(",")):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             for hkv in (2, 4):
                 check_causal(emu, dtype, hd, hkv)
             if args.causal:

@@ -46,3 +46,16 @@ inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, K kernel, A
   emu::launch_cluster(cx, cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, kernel, args...);
   return emu::last_error;
 }
+
+// the clusters of cfg's shape that fit at once: an H100's 132 SMs, one block
+// an SM, where a cluster is at most 8 blocks along x and a block's shared
+// memory fits (the one question the kernels ask before a cluster launch)
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, K, const cudaLaunchConfig_t* cfg) {
+  unsigned cx = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) cx = cfg->attrs[i].val.clusterDim.x;
+  const unsigned nt = cfg->blockDim.x * cfg->blockDim.y * cfg->blockDim.z;
+  *n = cx >= 1 && cx <= 8 && nt <= 1024 && cfg->dynamicSmemBytes <= 232448 ? 132 / cx : 0;
+  return cudaSuccess;
+}

@@ -324,4 +324,14 @@ inline float ld_cluster_f32(uint32_t a) {
   memcpy(&v, emu::clu->smem[rank] + off, 4);
   return v;
 }
+inline float4 ld_cluster_f32x4(uint32_t a) {
+  const uint32_t rank = (a >> 24) - 1, off = a & 0xFFFFFF;
+  if ((a >> 24) == 0 || rank >= emu::clu->smem.size() || off % 16 || off + 16 > emu::smem_size) {
+    emu::fail("ld.shared::cluster.v4: not a mapped, aligned shared-memory piece");
+    return float4{0.f, 0.f, 0.f, 0.f};
+  }
+  float4 v;
+  memcpy(&v, emu::clu->smem[rank] + off, 16);
+  return v;
+}
 }  // namespace

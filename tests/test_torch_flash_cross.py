@@ -76,13 +76,15 @@ def _proj_inputs(seed, b, lq, lkv, d, masked_row=None):
     return [q, mem, wk, bk, wv, bv], bias
 
 
-@pytest.mark.parametrize("lkv,masked_row", [(200, 1), (150, None)],
-                         ids=["padded_masked_row", "non_aligned"])
-def test_b14_fwd_and_bwd_plain_match_jax_kernels(lkv, masked_row):
+@pytest.mark.parametrize("lkv,masked_row,d,h", [
+    (200, 1, 32, 2), (150, None, 32, 2), (40, 1, 1024, 1)],
+    ids=["padded_masked_row", "non_aligned", "one_head_1024"])
+def test_b14_fwd_and_bwd_plain_match_jax_kernels(lkv, masked_row, d, h):
     """The kernels' own contract: (o, m, l) of ``_mh_fwd`` (m and l per
-    head in the lane columns) and (dq, dk3, dv3) of ``_mh_bwd``."""
-    (q, mem, wk, bk, wv, _), bias = _proj_inputs(5, 2, 8, lkv, 32, masked_row)
-    h = 2
+    head in the lane columns) and (dq, dk3, dv3) of ``_mh_bwd``; also at
+    one head of 1024, whose backward the card runs in the cluster form
+    (``csrc/flash_chunked_cluster.cuh``)."""
+    (q, mem, wk, bk, wv, _), bias = _proj_inputs(5, 2, 8, lkv, d, masked_row)
     k3, v3 = mem @ wk + bk, mem @ wk.T - bk  # any two [B, Lkv, D] tensors
     do = np.random.RandomState(6).randn(*q.shape).astype(np.float32)
     jo, jm, jl = jvjp._mh_fwd(jnp.asarray(q), jnp.asarray(k3), jnp.asarray(v3),

@@ -18,8 +18,10 @@ it is).  The packed item attention B15 pads
 nothing: its kernels take every head dim as it is; at those head dims its
 plain version is held to the JAX kernel.
 
-The port's plain B13, B14p and K1 / B7b at hd 8, 24, 320 and 512 are held
-to the JAX functions in interpret mode, as ``tests/test_torch_flash_cross.py``,
+The port's plain B13, B14p and K1 / B7b at hd 8, 24, 320 and 512, and at
+the cluster form's head dims (K1 / B7b at 768, B14p at 768 and 1024, B13 at
+768, 1024 and 1536; over 40 keys at most), are held to the JAX functions in
+interpret mode, as ``tests/test_torch_flash_cross.py``,
 ``tests/test_torch_flash_vjp.py`` and
 ``tests/test_torch_flash_causal_head_dims.py`` hold them at the kernels'
 head dims and at their tolerances (B13 atol 2e-5 rtol 1e-4; B14p forward
@@ -28,7 +30,9 @@ atol 2e-5 rtol 1e-4, gradients atol 5e-5 rtol 1e-3; K1 / B7b forward atol
 seed.
 """
 
+import collections
 import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -185,6 +189,53 @@ def test_chunked_fwd_plan_sizes_the_merge_scratch(monkeypatch):
     assert pa.chunked_fwd_plan(q, 8, 1, 64, 1600, 1536, "scalar") == (1, None)
 
 
+def test_chunked_fwd_plan_splits_the_cluster_form(monkeypatch):
+    """The cluster form (one block a chunk, ``csrc/flash_chunked_cluster.cuh``)
+    takes the key splits and the merge scratch of the tensor-core form: B13
+    at 8 users and one head of 1536 (6 chunks, 48 blocks) splits its 50 key
+    tiles 5 ways; at 64 users the grid fills the card unsplit."""
+    monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
+    q = torch.zeros(1, dtype=torch.bfloat16)
+    splits, part = pa.chunked_fwd_plan(q, 8, 1, 64, 1600, 1536, "cluster")
+    assert splits == 5 and part.dtype == torch.float32
+    assert part.numel() == 5 * 8 * 1 * 64 * (1536 + 2)
+    splits, part = pa.chunked_fwd_plan(q, 2, 2, 150, 300, 2048, "cluster")
+    assert splits == 2 and part.numel() == 2 * 2 * 2 * 150 * (2048 + 2)
+    assert pa.chunked_fwd_plan(q, 64, 1, 64, 1600, 1536, "cluster") == (1,
+                                                                      None)
+
+
+@pytest.mark.parametrize("code,name", [(0, None), (1, "scalar"),
+                                       (2, "tensor_cores"), (3, "cluster")])
+def test_chunked_form_names_the_kernels_code(monkeypatch, code, name):
+    """``chunked_form`` names the code ``unirec_chunked_form`` returns (3:
+    the cluster form) for the kind, head dim and dtype code it asks about,
+    and ``count_form`` counts a launch under that name; a negative code (a
+    kind or dtype out of range) raises."""
+    seen, codes = [], {pa.CHUNKED_ROWS: code, pa.CHUNKED_FWD: code,
+                       pa.CHUNKED_KEYS: -1}
+
+    def form(kind, hd, dtype):
+        seen.append((kind, hd, dtype))
+        return codes[kind]
+
+    lib = types.SimpleNamespace(unirec_chunked_form=form)
+    monkeypatch.setattr(pa, "load_kernels",
+                        lambda: types.SimpleNamespace(lib=lib))
+    pa._chunked_form.cache_clear()
+    try:
+        t = torch.zeros(1, dtype=torch.bfloat16)
+        assert pa.chunked_form(pa.CHUNKED_ROWS, 768, t) == name
+        assert seen == [(pa.CHUNKED_ROWS, 768, 1)]
+        wrapper = types.SimpleNamespace(forms=collections.Counter())
+        pa.count_form(wrapper, pa.CHUNKED_FWD, 1536, t)
+        assert dict(wrapper.forms) == ({} if name is None else {name: 1})
+        with pytest.raises(ValueError, match="no chunked kind"):
+            pa.chunked_form(pa.CHUNKED_KEYS, 768, t.float())
+    finally:
+        pa._chunked_form.cache_clear()
+
+
 def test_padded_launch_passes_instances_as_they_are():
     t = torch.randn(2, 5, 3 * 32)
     seen = []
@@ -310,10 +361,15 @@ def test_b15_padded_matches_plain(hd):
 # -- the plain versions at hd 8 and 24 against the JAX kernels ----------------
 
 
-@pytest.mark.parametrize("hd", [8, 24, 320, 512])
+# head dims of the bf16 cluster form (``csrc/flash_chunked_cluster.cuh``)
+# run at a few keys: the JAX kernels in interpret mode hold the whole head
+WIDE_LKV = 40
+
+
+@pytest.mark.parametrize("hd", [8, 24, 320, 512, 768, 1024, 1536])
 def test_b13_plain_matches_jax_kernel_at_padded_head_dims(hd):
     rng = np.random.RandomState(10 + hd)
-    b, h, lq, lkv = 2, 2, 8, 200
+    b, h, lq, lkv = 2, 2, 8, 200 if hd <= 512 else WIDE_LKV
     q, k, v = (rng.randn(b, h, n, hd).astype(np.float32)
                for n in (lq, lkv, lkv))
     bias = np.array(jatt.make_additive_mask(jnp.asarray(
@@ -327,10 +383,10 @@ def test_b13_plain_matches_jax_kernel_at_padded_head_dims(hd):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("hd", [8, 24, 320, 512])
+@pytest.mark.parametrize("hd", [8, 24, 320, 512, 768, 1024])
 def test_b14p_plain_matches_jax_kernels_at_padded_head_dims(hd):
     rng = np.random.RandomState(20 + hd)
-    b, h, lq, lkv = 2, 3, 16, 384
+    b, h, lq, lkv = (2, 3, 16, 384) if hd <= 512 else (2, 1, 16, WIDE_LKV)
     q, k, v = (rng.randn(b, h, n, hd).astype(np.float32)
                for n in (lq, lkv, lkv))
     bias = np.array(jatt.make_additive_mask(jnp.asarray(
@@ -355,10 +411,10 @@ def test_b14p_plain_matches_jax_kernels_at_padded_head_dims(hd):
                                    rtol=1e-3, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("hd", [8, 24, 320, 512])
+@pytest.mark.parametrize("hd", [8, 24, 320, 512, 768])
 def test_k1_b7b_plain_match_jax_kernels_at_padded_head_dims(hd):
     rng = np.random.RandomState(30 + hd)
-    b, l, hq, hkv = 2, 72, 4, 2
+    b, l, hq, hkv = 2, 72 if hd <= 512 else WIDE_LKV, 4, 2
     q = rng.randn(b, l, hq * hd).astype(np.float32)
     k = rng.randn(b, l, hkv * hd).astype(np.float32)
     v = rng.randn(b, l, hkv * hd).astype(np.float32)

@@ -36,7 +36,9 @@ and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
 and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
 dim and F (C-8).  K1-B14p run head dims above 256 in their chunked form
 (320 and 512: two chunks of 256; 768: three, in bf16 K1, B14's forward and
-B7b's dk / dv on tensor cores, dq and B14's backward in the scalar form);
+B7b's dk / dv on tensor cores, dq and B14's backward in the cluster form;
+the bf16 forms' bounds at 768-2304, the cluster form at 6-8 chunks forward
+and 3-8 over rows, 9 chunks scalar);
 B7b's dk / dv on tensor cores at 320, 512 and 768; a head dim of 0 is
 refused, naming the set.  The int8 GEMM of B4-B6 and B8-B9b is held bit for bit to its plain
 form in every epilogue; B1-B6 run
@@ -1242,8 +1244,8 @@ def test_k1_b7b_chunked_bf16_stats_and_repeats(hopper, hq, hkv, hd):
 
 def test_chunked_bf16_runs_every_chunk_count(hopper):
     """bf16 at hd 768 (three chunks; refused before C-19): K1 and dk / dv on
-    tensor cores, dq in the scalar form, B14's forward on tensor cores and
-    its one-pass backward in the scalar form, each against its plain
+    tensor cores, dq in the cluster form, B14's forward on tensor cores and
+    its one-pass backward in the cluster form, each against its plain
     version at the bf16 gates, the form each wrapper ran counted."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
@@ -1286,8 +1288,100 @@ def test_chunked_bf16_runs_every_chunk_count(hopper):
     for g, r in zip(grads, refs):
         _close(g, r, 2e-2, hd)
     assert [dict(fn.forms) for fn in counters] == [
-        {"tensor_cores": 1}, {"scalar": 1}, {"tensor_cores": 1},
-        {"tensor_cores": 1}, {"scalar": 1}]
+        {"tensor_cores": 1}, {"cluster": 1}, {"tensor_cores": 1},
+        {"tensor_cores": 1}, {"cluster": 1}]
+
+
+@pytest.mark.parametrize("hd,fwd,rows,keys", [
+    (520, "tensor_cores", "cluster", "tensor_cores"),
+    (768, "tensor_cores", "cluster", "tensor_cores"),
+    (1024, "tensor_cores", "cluster", "tensor_cores"),
+    (1280, "tensor_cores", "cluster", "scalar"),
+    (1400, "cluster", "cluster", "scalar"),
+    (1536, "cluster", "cluster", "scalar"),
+    (2048, "cluster", "cluster", "scalar"),
+    (2304, "scalar", "scalar", "scalar")])
+def test_chunked_bf16_cluster_form(hopper, hd, fwd, rows, keys):
+    """The bf16 chunked kernels on each side of the cluster form's bounds
+    (``csrc/flash_chunked_cluster.cuh``: the forward at 6-8 chunks, the
+    backward over rows at 3-8; 9 chunks, hd 2304, stays scalar; 520 and
+    1400 end inside their last chunk), each wrapper's form counted: K1 and
+    B7b over ragged rows with padded keys at GQA 2:1 and 1:1, then B13 and
+    B14 (one head, merged layout) at two q tiles over a ragged memory of
+    300 keys with user 1 masked whole; every output against its plain
+    version at the bf16 gates (2e-2 of max|ref|, row cosine >= 0.9999; K1's
+    o at 1e-2), identical bits on a repeat, exactly zero dk / dv at masked
+    keys."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    b16 = torch.bfloat16
+    b, l = 3, 150
+    lengths = torch.tensor([150, 70, 1], device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    mask[0, 20:45] = 0.0
+    pad = mask == 0
+    causal = (fc.flash_causal_attention, fc.flash_causal_bwd_dq,
+              fc.flash_causal_bwd_dkv)
+    for hq, hkv in ((2, 1), (2, 2)):
+        q, k, v, do = (torch.randn(b, l, n * hd, device="cuda",
+                                   generator=hopper).to(b16)
+                       for n in (hq, hkv, hkv, hq))
+        for fn in causal:
+            fn.forms.clear()
+        o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+        ro = fc.flash_causal_attention_fwd_plain(
+            q.float(), k.float(), v.float(), mask, hq, hkv)[0]
+        _close(o, ro, 1e-2, hd)
+        dsum = fc.attention_dsum(do, o, hq).contiguous()
+        args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+        dq = fc.flash_causal_bwd_dq(*args)
+        dk, dv = fc.flash_causal_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        assert [dict(fn.forms) for fn in causal] == [{fwd: 1}, {rows: 1},
+                                                     {keys: 1}]
+        want = fc.flash_causal_attention_bwd_plain(
+            q.float(), k.float(), v.float(), mask, do.float(), m, den, dsum,
+            hq, hkv)
+        _close(dq, want[0], 2e-2, hd, _single_key_rows(mask, hq))
+        _close(dk, want[1], 2e-2, hd, _lone_key_rows(mask, hkv))
+        _close(dv, want[2], 2e-2, hd)
+        assert bool((dk[pad] == 0).all()) and bool((dv[pad] == 0).all())
+        assert all(torch.equal(x, y) for x, y in zip(
+            (o, m, den), fc._k1(q, k, v, mask, hq, hkv, stats=True)))
+        assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
+
+    b, lq, lkv = 3, 70, 300
+    q, k3, v3, do, bias = _flash_inputs(hopper, b, lq, lkv, b16, d=hd)
+    qh, kh, vh = (pa.split_heads(t, 1) for t in (q, k3, v3))
+    pa.launch_flash_cross_fwd.forms.clear()
+    fl.launch_flash_cross_bwd.forms.clear()
+    out = pa.flash_cross_attention(qh, kh, vh, bias)
+    _check_kernel("B13", out, pa.flash_cross_attention_plain(qh, kh, vh, bias))
+    assert torch.equal(out, pa.flash_cross_attention(qh, kh, vh, bias))
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    o, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, 1)
+    ro, rm, rl = fl.flash_cross_fwd_plain(q, k3, v3, bias32, 1)
+    _check_kernel("B14 o", o, ro)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    assert all(torch.equal(x, y) for x, y in
+               zip((o, m, l), fl.flash_cross_fwd(q, k3, v3, bias32, 1)))
+    torch.testing.assert_close(o[1], v3[1].float().mean(0, keepdim=True)
+                               .expand(lq, hd), atol=2e-2, rtol=0)
+    dsum = fl.attention_dsum(do, o, 1)
+    got = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, 1)
+    ref = fl.flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, 1)
+    for name, g, r in zip(("dq", "dk3", "dv3"), got, ref):
+        _check_kernel(f"B14 {name}", g, r)
+    again = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, 1)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    masked = bias32 != 0
+    masked[1] = False
+    for g in got[1:]:
+        assert (g[masked] == 0).all()
+    assert set(pa.launch_flash_cross_fwd.forms) == {fwd}
+    assert set(fl.launch_flash_cross_bwd.forms) == {rows}
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)], ids=["gqa2", "mha"])

@@ -961,8 +961,9 @@ extern "C" int unirec_flash_causal_bwd_dkv(const void* q, const void* k, const v
 // the wrappers' key splits and per-form launch counts: kind 0 the forward
 // (K1, B13, B14, B14p), 1 the backward over rows (B7b's dq, B14 / B14p's one
 // pass), 2 the backward over keys (B7b's dk / dv); dtype 0 float32, 1
-// bfloat16.  1 the scalar kernel, 2 the tensor-core kernel; 0 where head_dim
-// is not chunked, -1 for a kind or dtype out of range.
+// bfloat16.  1 the scalar kernel, 2 the tensor-core kernel, 3 the cluster
+// kernel (flash_chunked_cluster.cuh); 0 where head_dim is not chunked, -1
+// for a kind or dtype out of range.
 extern "C" int unirec_chunked_form(int kind, int head_dim, int dtype) {
   if (kind < 0 || kind > 2 || dtype < 0 || dtype > 1) return -1;
   if (!chunked::is_chunked(head_dim)) return 0;

@@ -34,7 +34,7 @@
 //   4. the scores computed C times, once in each chunk's block.
 //
 // bf16 design (tensor cores; chunk_fwd_tc, chunk_fwd_merge, chunk_bwd_rows_tc,
-// chunk_bwd_keys_tc):
+// chunk_bwd_keys_tc; the cluster form below reuses its tiles):
 //   - One block of 4 warps per (64-row q tile, chunk, head, batch), warp w
 //     owning rows 16 w .. 16 w + 15; products on mma.sync.m16n8k16 (bf16 in,
 //     fp32 accumulate) through ldmatrix, from bf16 rows padded to 264
@@ -65,7 +65,8 @@
 //   - S = sum_c Q_c K_c^T is summed in chunk order 0 .. C - 1 in every
 //     chunk's block, so all C blocks hold the same S, m, l and P bit for bit;
 //     the chunk-0 block (or the merge) writes m and l.  The scores are still
-//     computed C times (4): a block needs all of P for its columns of P V.
+//     computed C times (4): a block needs all of P for its columns of P V
+//     (the cluster form below computes them once).
 //   - Forward: the online softmax in fp32 registers in the accumulator
 //     layout (__expf); P is rounded to bf16 in registers as the A fragment
 //     of P V_c.  B14 / B14p (o in float32, read by dsum) take P as two bf16
@@ -103,10 +104,26 @@
 //     + 10,240 (p, ds) + S * 17,024, S = 4 at C = 2 (230,400 bytes), the
 //     most chunks it holds (hd <= 512); backward over keys C * 33,792 (K,
 //     V) + 10,368 (p^T, ds^T, dP^T, the mask) + S * 34,176 (Q_cc, dO_cc and
-//     the rows' stats), S = 4 at C = 2, 2 at C = 4 (hd <= 1024).  Above
-//     those, bf16 runs the scalar kernels below (templates on the type),
-//     chosen by shape before the launch (form()): the forward above hd
-//     1280, dq and B14 / B14p's backward above 512, dk / dv above 1024.
+//     the rows' stats), S = 4 at C = 2, 2 at C = 4 (hd <= 1024).
+//
+// Cluster design (bf16 above those limits, up to 8 chunks: the forward at 6
+// <= C <= 8, dq and B14 / B14p's backward at 3 <= C <= 8;
+// flash_chunked_cluster.cuh): the C chunk blocks of a q tile run as one
+// thread-block cluster; each keeps only its own Q_c (and dO_c) resident,
+// streams only its own K_c / V_c, and the partial scores S_c (and dP_c)
+// are summed in rank order through distributed shared memory, one cluster
+// barrier a key tile, so every block holds the same S bit for bit and the
+// scores are computed once (4).  What bounds it: a block's chain of key
+// tiles, as above, plus one cluster barrier and C float4 reads through
+// distributed shared memory a thread for each partial; shared memory 101 KB
+// (forward) and 230 KB (backward) whatever C is; the cluster's 8 blocks,
+// the portable size.
+//
+// The form rule (form()), by shape before the launch: bf16 on tensor cores
+// up to 5 chunks forward, 2 over rows, 4 over keys; in a cluster up to 8
+// forward and over rows; the scalar kernels below (templates on the type)
+// for bf16 above those (the forward and over rows above hd 2048, dk / dv
+// above 1024) and for float32.
 //
 // Scalar design (chunk_fwd, chunk_bwd_rows, chunk_bwd_keys; fp32, and bf16
 // above the tensor-core forms' chunk counts): tensor cores would mean TF32,
@@ -1527,6 +1544,12 @@ chunk_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+}  // namespace chunked
+
+#include "flash_chunked_cluster.cuh"
+
+namespace chunked {
+
 // ----------------------------------------------------------------- launch --
 
 // The chunked form takes every head dim above CW as C = ceil(head_dim / CW)
@@ -1541,15 +1564,19 @@ inline bool whole_pieces(int head_dim) { return head_dim % (16 / (int)sizeof(T))
 
 // The form a chunked launch takes, chosen by shape before any launch: the
 // tensor-core kernel where its shared memory holds C chunks (bf16: the
-// forward C <= 5, the backward over rows C <= 2, over keys C <= 4), the
-// scalar kernel otherwise (float32 always, bf16 above those).  A launch of
-// the form chosen that fails still fails: nothing is retried.
+// forward C <= 5, the backward over rows C <= 2, over keys C <= 4); above
+// those the cluster kernel (flash_chunked_cluster.cuh) up to CL_MAX chunks
+// in the forward and over rows (bf16: the forward 6 <= C <= 8, over rows 3
+// <= C <= 8); the scalar kernel otherwise (float32 always, bf16 above 8
+// chunks, and over keys above 4).  A launch of the form chosen that fails
+// still fails: nothing is retried.
 enum Kind { FWD = 0, ROWS = 1, KEYS = 2 };
-enum Form { SCALAR = 1, TENSOR_CORES = 2 };
+enum Form { SCALAR = 1, TENSOR_CORES = 2, CLUSTER = 3 };
 inline Form form(Kind kind, int C, bool bf) {
   if (!bf) return SCALAR;
   const int S = kind == KEYS ? keys_stages(C) : tc_stages(C, kind == ROWS);
-  return S > 0 ? TENSOR_CORES : SCALAR;
+  if (S > 0) return TENSOR_CORES;
+  return kind != KEYS && C <= CL_MAX ? CLUSTER : SCALAR;
 }
 
 template <typename OT, bool CAUSAL, bool PART>
@@ -1605,7 +1632,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
     return cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    if (form(FWD, C, true) == TENSOR_CORES) {
+    const Form f = form(FWD, C, true);
+    if (f == TENSOR_CORES) {
       const int S = tc_stages(C, false);
       err = head_dim < C * CW
                 ? launch_fwd_tc<OT, CAUSAL, true>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B,
@@ -1614,6 +1642,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
                 : launch_fwd_tc<OT, CAUSAL, false>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B,
                                                    H, group, Lq, Lkv, C, head_dim, S, splits,
                                                    scale, stream);
+    } else if (f == CLUSTER) {
+      err = head_dim < C * CW
+                ? launch_fwd_cl<OT, CAUSAL, true>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B,
+                                                  H, group, Lq, Lkv, C, head_dim, splits, scale,
+                                                  stream)
+                : launch_fwd_cl<OT, CAUSAL, false>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B,
+                                                   H, group, Lq, Lkv, C, head_dim, splits, scale,
+                                                   stream);
+    }
+    if (f != SCALAR) {
       if (CAUSAL || err != cudaSuccess || splits == 1) return err;
       chunk_fwd_merge<OT><<<dim3(Lq, H, B), 256, 0, stream>>>(
           part, static_cast<OT*>(o), m, l, os, splits, H, Lq, C * CW, head_dim);
@@ -1648,10 +1686,10 @@ cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v, const f
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
   cudaError_t err;
-  bool tensor_cores = false;
+  Form f = SCALAR;
   if constexpr (std::is_same<T, bf16>::value) {
-    tensor_cores = form(ROWS, C, true) == TENSOR_CORES;
-    if (tensor_cores) {
+    f = form(ROWS, C, true);
+    if (f == TENSOR_CORES)
       err = head_dim < C * CW
                 ? launch_rows_tc<CAUSAL, DKV, true>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
                                                     part, st, B, H, group, Lq, Lkv, C, head_dim,
@@ -1659,10 +1697,17 @@ cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v, const f
                 : launch_rows_tc<CAUSAL, DKV, false>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
                                                      part, st, B, H, group, Lq, Lkv, C,
                                                      head_dim, scale, stream);
-      if (err != cudaSuccess) return err;
-    }
+    else if (f == CLUSTER)
+      err = head_dim < C * CW
+                ? launch_rows_cl<CAUSAL, DKV, true>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
+                                                    part, st, B, H, group, Lq, Lkv, C, head_dim,
+                                                    scale, stream)
+                : launch_rows_cl<CAUSAL, DKV, false>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
+                                                     part, st, B, H, group, Lq, Lkv, C,
+                                                     head_dim, scale, stream);
+    if (f != SCALAR && err != cudaSuccess) return err;
   }
-  if (!tensor_cores) {
+  if (f == SCALAR) {
     err = cudaFuncSetAttribute(chunk_bwd_rows<T, CAUSAL, DKV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_BYTES);
     if (err != cudaSuccess) return err;

@@ -373,4 +373,14 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
   return v;
 }
 
+// four floats from a 16-byte aligned cluster_map address
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 }  // namespace

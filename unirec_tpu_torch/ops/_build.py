@@ -30,7 +30,7 @@ SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
            "qformer_blocks.cu", "fused_qformer_vjp.cu", "flash_cross.cu",
            "packed_attention.cu")
 HEADERS = ("attention_f32.cuh", "causal_tiles.cuh", "flash_chunked.cuh",
-           "gemm_f32.cuh", "gemm_wide.cuh", "head_dim.cuh",
+           "flash_chunked_cluster.cuh", "gemm_f32.cuh", "gemm_wide.cuh", "head_dim.cuh",
            "item_attention.cuh", "ptx_helpers.cuh")
 BUILD_DIR_ENV = "UNIREC_TPU_TORCH_BUILD_DIR"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"

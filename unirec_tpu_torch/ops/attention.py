@@ -49,7 +49,7 @@ KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
 # (K1, B13, B14, B14p), the backward over rows (B7b's dq, B14 / B14p's one
 # pass) and the backward over keys (B7b's dk / dv)
 CHUNKED_FWD, CHUNKED_ROWS, CHUNKED_KEYS = 0, 1, 2
-_FORMS = {1: "scalar", 2: "tensor_cores"}
+_FORMS = {1: "scalar", 2: "tensor_cores", 3: "cluster"}
 # the chunked bf16 forward's tiles: 64 query rows, 32 keys
 CHUNK_Q_TILE, CHUNK_KEY_TILE = 64, 32
 
@@ -263,8 +263,10 @@ def chunked_form(kind: int, kernel_hd: int, t: torch.Tensor) -> Optional[str]:
     dtype, as ``csrc/flash_chunked.cuh`` chooses it by shape before any
     launch: "tensor_cores" where its shared memory holds the C chunks (bf16:
     the forward C <= 5, the backward over rows C <= 2, over keys C <= 4),
-    "scalar" otherwise (float32 always); None at a head dim that is not
-    chunked."""
+    "cluster" above those up to 8 chunks in the forward and over rows (one
+    block a chunk in a thread-block cluster), "scalar" otherwise (float32
+    always, bf16 above 8 chunks and over keys above 4); None at a head dim
+    that is not chunked."""
     return _chunked_form(kind, kernel_hd, dtype_code(t))
 
 
@@ -311,10 +313,10 @@ def chunked_fwd_plan(q: torch.Tensor, b: int, h: int, lq: int, lkv: int,
                      kernel_hd: int, form: Optional[str]):
     """(splits, scratch) of one cross forward launch at the kernels' head
     dim, whose chunked form is ``form`` (``chunked_form``): (1, None) but for
-    the chunked bf16 form on tensor cores, whose splits (above one) write
-    their float32 (o, m, l) to ``splits * b * h * lq * (C * 256 + 2)``
-    floats of scratch."""
-    if form != "tensor_cores":  # bf16 above 256 only
+    the chunked bf16 forms on tensor cores and in clusters (a block a chunk
+    in both), whose splits (above one) write their float32 (o, m, l) to
+    ``splits * b * h * lq * (C * 256 + 2)`` floats of scratch."""
+    if form not in ("tensor_cores", "cluster"):  # bf16 above 256 only
         return 1, None
     chunks = -(-kernel_hd // KERNEL_HEAD_DIMS[-1])
     blocks = -(-lq // CHUNK_Q_TILE) * h * chunks * b
