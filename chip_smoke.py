@@ -204,6 +204,11 @@ Phases (any failed check raises; the script then exits non-zero):
    JSON written for the cache (``--bf16 --flash --fused`` for 2 epochs,
    ``--resume`` for 1, then ``--bf16 --remat`` for 1, whose evaluation
    launches B13 4 times a batch); exact launch counts, finite metrics.
+   Then the step at 2 heads of 512 (the chunked B14) in bf16 and at
+   float32 compute (the train CLI's default precision: B14 in the 3xTF32
+   cluster form in every cross layer, the self blocks plain) held to the
+   plain step, with B14's device time a step and the forms asserted, and
+   the bf16 step at one head of 1024.
 8a. A9's data and sequence parallelism on this one-card machine
    (``phase_parallel_serve`` after phase 4's entry point, ``phase_parallel``
    last): serving at dp = 2 over [cuda:0, cuda:0] (replicas that share the
@@ -365,8 +370,11 @@ INT8_VS_BF16_COS, FUSED_VS_CONTROL_COS, ROUNDING_GAP_MARGIN = 0.98, 0.9999, 2e-5
 ENTRY_ITEMS = 2000  # the serve_cli catalog: small JSON files
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): the least
 # time a kernel could take is the larger of its bytes over the memory rate
-# and its operations over the peak rate of their type
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# and its operations over the peak rate of their type; "tf32x3" is a float32
+# product in 3xTF32 (the "cluster_tf32" forms: three TF32 products on the
+# tensor cores, 495 TFLOP/s, for each float32-accurate one)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
+            "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # joint training (phase 6): B7b and the m/l-saving K1 at the training shape
 # against their plain versions (relative to max|ref|; bf16 as K1's serving
@@ -417,6 +425,12 @@ WIDE_BF16_HD, WIDE_ONE_HEAD_HD, WIDE_B13_HD = 768, 1024, 1536
 WIDE_SCALAR_HD = 2304
 WIDE_CAUSAL = dict(B=2, L=512, HQ=4, HKV=2, LENGTHS=(512, 301))
 WIDE_CROSS = dict(B=8, LKV=1600, H=2, HD=512)
+# fp32 at every chunk count of the 3xTF32 cluster form above WIDE_HDS' two
+# (1400 ends inside its last chunk) and at 9 chunks (the scalar form), at
+# small shapes; B13 / B14 timed at WIDE_CROSS's users and memory in one head
+# of each of WIDE_FP32_TIMED
+WIDE_FP32_HDS = (768, 1024, 1280, 1400, 1536, 1792, 2048, 2304)
+WIDE_FP32_TIMED = (1024, 1536, 2048)
 # (c) the Q-Former's LM head: QFormerConfig(), 32 query tokens over ViT-L/14's
 # 257 patch tokens, 32 generated tokens
 LM_BATCH, LM_MEMORY, LM_TOKENS = 64, 257, 32
@@ -2019,14 +2033,26 @@ def flash_inputs(gen, b, lkv, dtype, d=QF_D):
     return q, k3, v3, do, ((1.0 - mask) * -1e9)[:, None, None, :]
 
 
-def flash_bounds(b, lq, lkv, size, h=USER_HEADS) -> dict:
+def ops_kind(dtype, form=None) -> str:
+    """The peak rate (``PEAK_OPS``) that bounds a kernel's products in
+    ``dtype`` and chunked ``form``: bf16's, float32's 3xTF32 in the
+    "cluster_tf32" form, else fp32 outside the tensor cores."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "tf32x3" if form == "cluster_tf32" else "fp32"
+
+
+def flash_bounds(b, lq, lkv, size, h=USER_HEADS, d=QF_D) -> dict:
     """bound_ms and bound_by of B13 and B14 at these shapes (merged width
-    QF_D in ``h`` heads): q, k, v (and dO) read once and the outputs written
-    once in the working type (B14's forward o in float32), the float32 key
-    bias and (m, l, dsum) [B, Lq, H]; the score and p.v products (2
-    forward; s, dp, dv, dk, dq backward)."""
-    d = QF_D
-    kind = "bf16" if size == 2 else "fp32"
+    ``d``, QF_D by default, in ``h`` heads): q, k, v (and dO) read once and
+    the outputs written once in the working type (B14's forward o in
+    float32), the float32 key bias and (m, l, dsum) [B, Lq, H]; the score
+    and p.v products (2 forward; s, dp, dv, dk, dq backward) at the rate of
+    the form the head dim takes (``ops_kind``)."""
+    hd = d // h
+    dtype = torch.bfloat16 if size == 2 else torch.float32
+    kind = ops_kind(dtype, chunked_forms(hd, dtype)["fwd"] if hd > 256
+                    else None)
     io_q, io_kv = size * b * lq * d, size * b * lkv * d
     stats, bias = 4 * b * lq * h, 4 * b * lkv
     prod = 2 * b * lq * lkv * d  # one product over every head
@@ -2068,7 +2094,8 @@ def check_flash_cross(gen, dtype, b, lkv, h, hd, res) -> dict:
     for name, (kern, plain, outs) in runs.items():
         got = kern()
         torch.cuda.synchronize()
-        check_outputs(name.upper(), outs, got, plain(), where, res[name])
+        check_outputs(name.upper(), outs, got, plain(), where, res[name],
+                      rows32=dtype == torch.float32 and hd > 256)
         if not all(torch.equal(x, y) for x, y in zip(got, kern())):
             raise AssertionError(f"{name.upper()} {where}: a repeat gave "
                                  "other bits")
@@ -2091,11 +2118,18 @@ def check_flash_cross(gen, dtype, b, lkv, h, hd, res) -> dict:
             "bias": bias, "path": path}
 
 
-def check_outputs(name, outs, got, ref, where, res) -> None:
+def check_outputs(name, outs, got, ref, where, res, rows32=False) -> None:
     """Each output of a kernel against its plain version: float32 (m, l)
     statistics to 1e-5 relative, the rest by ``kernel_error`` (dq and dk
-    with the GRAD_NOISE_FLOOR); the largest error goes to ``res["err"]``."""
+    with the GRAD_NOISE_FLOOR), or with ``rows32`` (the float32 chunked
+    forms) every output by ``fp32_rows`` (max|d| and row cosine); the
+    largest error goes to ``res["err"]``."""
     for o, g, r in zip(outs, got, ref):
+        if rows32:
+            err = fp32_rows(f"{name} {o}", g, r, where)
+            if o not in ("m", "l"):
+                res["err"] = max(res["err"], err)
+            continue
         if o in ("m", "l"):  # float32 statistics of both
             rel = ((g - r).abs() / r.abs().clamp_min(1e-30)).max()
             log(f"{name} {o} {where}: max rel {rel.item():.3e} (tol 1e-5)")
@@ -3445,11 +3479,13 @@ def chunked_forms(hd: int, dtype) -> dict:
     in the backward over rows (B7b's dq, B14 / B14p) and 4 over keys (B7b's
     dk / dv, ``chunk_bwd_keys_tc``); above those in a thread-block cluster
     up to 8 chunks in the forward and over rows
-    (``csrc/flash_chunked_cluster.cuh``); the scalar form above and in
-    fp32."""
+    (``csrc/flash_chunked_cluster.cuh``); fp32 in the 3xTF32 cluster form
+    ("cluster_tf32", the same file) up to 8 chunks in the forward and over
+    rows; the scalar form above and for fp32 dk / dv."""
     chunks = -(-hd // 256)
     if dtype != torch.bfloat16:
-        return {kind: "scalar" for kind in ("fwd", "rows", "keys")}
+        tf32 = "cluster_tf32" if chunks <= 8 else "scalar"
+        return {"fwd": tf32, "rows": tf32, "keys": "scalar"}
     return {kind: "tensor_cores" if chunks <= most else
             "cluster" if chunks <= cluster else "scalar"
             for kind, most, cluster in (("fwd", 5, 8), ("rows", 2, 8),
@@ -3500,7 +3536,6 @@ def wide_causal(gen, hd: int, dtype) -> dict:
         raise AssertionError(f"K1 / B7b hd {hd}: the autograd path's "
                              "gradients are not the kernels'")
     del leaves, grads
-    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
     pairs = causal_pairs(mask)
     k1 = time_ms(lambda: fc.flash_causal_attention(
         q, k, v, mask, hq, hkv, mask_checked=True), iters=10)
@@ -3522,10 +3557,12 @@ def wide_causal(gen, hd: int, dtype) -> dict:
     stats = 3 * 4 * b * l * hq + 4 * b * l
     bq, bkv = size * b * l * hq * hd, size * b * l * hkv * hd
     kv_read = 2 * bkv * float(mask.sum()) / mask.numel()
-    b_k1 = bound(k1_bytes(q, k, v, mask), 2 * 2 * hd * pairs * hq, kind)
-    b_dq = bound(3 * bq + kv_read + stats, 3 * 2 * hd * pairs * hq, kind)
+    b_k1 = bound(k1_bytes(q, k, v, mask), 2 * 2 * hd * pairs * hq,
+                 ops_kind(dtype, forms["k1"]))
+    b_dq = bound(3 * bq + kv_read + stats, 3 * 2 * hd * pairs * hq,
+                 ops_kind(dtype, forms["dq"]))
     b_dkv = bound(2 * bq + kv_read + 2 * bkv + stats,
-                  4 * 2 * hd * pairs * hq, kind)
+                  4 * 2 * hd * pairs * hq, ops_kind(dtype, forms["dkv"]))
     log(f"K1 / B7b chunked time {dtype} {where}: K1 {k1:.4f} ms (plain "
         f"{k1_plain:.4f}, bound {b_k1[0]:.4f} {b_k1[1]}), dq {dq:.4f} ms "
         f"(bound {b_dq[0]:.4f} {b_dq[1]}), dk/dv {dkv:.4f} ms (bound "
@@ -3597,7 +3634,8 @@ def wide_b14p(gen, dtype, res, b=WIDE_CROSS["B"], h=WIDE_CROSS["H"],
     for name, (kern, plain_fn, outs) in runs.items():
         got = kern()
         torch.cuda.synchronize()
-        check_outputs(name.upper(), outs, got, plain_fn(), where, res[name])
+        check_outputs(name.upper(), outs, got, plain_fn(), where, res[name],
+                      rows32=dtype == torch.float32 and hd > 256)
         if not all(torch.equal(x, y) for x, y in zip(got, kern())):
             raise AssertionError(f"{name.upper()} {where}: a repeat gave "
                                  "other bits")
@@ -3634,7 +3672,7 @@ def wide_one_head(gen) -> dict:
     ``check_flash_cross`` and ``wide_b14p`` hold them, the forms counted,
     timed beside the bounds and SDPA; B13 at one head of WIDE_B13_HD (six
     chunks, the cluster forward), held, repeated and timed with the key
-    splits of ``chunked_fwd_plan`` and without (``ms_unsplit``); then
+    splits of ``chunked_plan`` and without (``ms_unsplit``); then
     ``wide_scalar``."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
@@ -3693,7 +3731,8 @@ def wide_one_head(gen) -> dict:
     b_ms, b_by = bound(2 * io_q + 2 * io_kv + 4 * b * lkv,
                        2 * 2 * b * 64 * lkv * hd, "bf16")
     mask = bias.to(b16)
-    splits = pa.chunked_fwd_plan(qh, b, 1, 64, lkv, hd, form)[0]
+    splits = pa.chunked_plan(qh, pa.CHUNKED_FWD, b, 1, 64, lkv, hd,
+                              form)[0]
     b13 = dict(err=err, form=form, bound_ms=b_ms, bound_by=b_by,
                splits=splits,
                ms=time_ms(lambda: pa.flash_cross_attention(qh, kh, vh, bias),
@@ -3758,6 +3797,140 @@ def wide_scalar(gen) -> dict:
             "forms": want}
 
 
+def fp32_rows(name, got, ref, where) -> float:
+    """A float32 chunked output against its plain version: max|d| within
+    KERNEL_TOL (1e-5 of max|ref|) and per-row (last dim) cosine >=
+    KERNEL_COS over the rows whose ref norm is at least GRAD_NOISE_FLOOR of
+    the largest row's (rows of exact value 0, or sums of nearly cancelling
+    terms, are held by max|d| alone); the (m, l) statistics (``stats``
+    names) elementwise within 1e-5 relative.  Returns max|d|."""
+    a, b = got.double(), ref.double()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{name} {where}: non-finite values")
+    err = (a - b).abs().max().item()
+    if name.split()[-1] in ("m", "l"):
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+        log(f"{name} {where}: max rel {rel:.3e} (tol 1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError(f"{name} {where} disagrees")
+        return err
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    rel = err / b.abs().max().item()
+    norm = b.norm(dim=-1)
+    live = norm >= GRAD_NOISE_FLOOR * norm.max()
+    cos = torch.nn.functional.cosine_similarity(a[live], b[live],
+                                                dim=-1).min().item()
+    log(f"{name} {where}: max|d| {err:.3e}, rel {rel:.3e} (tol "
+        f"{KERNEL_TOL[torch.float32]:g}), min row cosine {cos:.7f} over "
+        f"{int(live.sum())} of {len(live)} rows (tol {KERNEL_COS})")
+    if not (rel <= KERNEL_TOL[torch.float32] and cos >= KERNEL_COS):
+        raise AssertionError(f"{name} {where} disagrees with its plain "
+                             "version")
+    return err
+
+
+def wide_fp32(gen) -> dict:
+    """fp32 at every chunk count of the 3xTF32 cluster form above 2 chunks
+    and at 9 (WIDE_FP32_HDS): K1 and B7b at B 2, L 160, 2 / 1 heads over
+    ragged rows (``b7b_errors``), then B13, B14 and B14p at 3 users, 64
+    queries over 300 keys in one head (the forward's key splits; user 1
+    masked whole), each held to its plain version at 1e-5 of max|ref| with
+    row cosine >= 0.9999 (``fp32_rows``), repeated for identical bits, each
+    wrapper's chunked form counted (``chunked_forms``: the cluster form up
+    to 8 chunks, B7b's dk / dv and 9 chunks scalar).  Then B13 and B14
+    (``check_flash_cross``) at WIDE_CROSS's 8 users over 1,600 keys in one
+    head of each of WIDE_FP32_TIMED, held and timed beside the bounds and
+    SDPA."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_causal as fc
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    f32 = torch.float32
+    counters = {"fwd": (fc.flash_causal_attention, pa.launch_flash_cross_fwd),
+                "rows": (fc.flash_causal_bwd_dq, fl.launch_flash_cross_bwd),
+                "keys": (fc.flash_causal_bwd_dkv,)}
+    errs = dict.fromkeys(("o", "dq", "b13", "b14_fwd", "b14_bwd", "b14p_fwd",
+                          "b14p_bwd"), 0.0)
+    forms = {}
+    for hd in WIDE_FP32_HDS:
+        want = chunked_forms(hd, f32)
+        for fns in counters.values():
+            for fn in fns:
+                fn.forms.clear()
+        q, k, v, do, mask = causal_inputs(gen, 2, 160, 2, 1, hd, f32,
+                                          (160, 97))
+        e, _ = b7b_errors(q, k, v, do, mask, 2, 1, hd)
+        errs["o"], errs["dq"] = max(errs["o"], e["o"]), max(errs["dq"],
+                                                            e["dq"])
+        where = f"{f32} B=3 Lq=64 Lkv=300 H=1 hd={hd}"
+        q, k3, v3, do, bias = flash_inputs(gen, 3, 300, f32, hd)
+        qh, kh, vh, doh = (pa.split_heads(t, 1) for t in (q, k3, v3, do))
+        bias32 = pa.key_bias(bias, 3, 300, q.device)
+
+        def hold(key, names, run, plain):
+            got = run()
+            check_repeat(f"{key.upper()} {where}", got, run())
+            for n, g, r in zip(names, got, plain(got)):
+                errs[key] = max(errs[key], fp32_rows(
+                    f"{key.upper()} {n}", g, r, where))
+            return got
+
+        hold("b13", ("o",), lambda: (pa.flash_cross_attention(
+            qh, kh, vh, bias),), lambda _: (pa.flash_cross_attention_plain(
+                qh, kh, vh, bias),))
+        o, m, l = hold("b14_fwd", ("o", "m", "l"),
+                       lambda: fl.flash_cross_fwd(q, k3, v3, bias32, 1),
+                       lambda _: fl.flash_cross_fwd_plain(q, k3, v3, bias32,
+                                                          1))
+        dsum = fl.attention_dsum(do, o, 1).contiguous()
+        hold("b14_bwd", ("dq", "dk", "dv"),
+             lambda: fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, 1),
+             lambda _: fl.flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l,
+                                                dsum, 1))
+        qp, kp, vp, dop = (t.contiguous() for t in (qh, kh, vh, doh))
+        op, mp, lp = hold("b14p_fwd", ("o", "m", "l"),
+                          lambda: fl.flash_cross_vjp_fwd(qp, kp, vp, bias32),
+                          lambda _: fl.flash_cross_vjp_fwd_plain(qp, kp, vp,
+                                                                 bias32))
+        dsum = (dop * op).sum(-1).transpose(1, 2).contiguous()
+        hold("b14p_bwd", ("dq", "dk", "dv"),
+             lambda: fl.flash_cross_vjp_bwd(qp, kp, vp, bias32, dop, mp, lp,
+                                            dsum),
+             lambda _: fl.flash_cross_vjp_bwd_plain(qp, kp, vp, bias32, dop,
+                                                    mp, lp, dsum))
+        torch.cuda.synchronize()
+        ran = {kind: [set(fn.forms) for fn in fns]
+               for kind, fns in counters.items()}
+        if ran != {kind: [{want[kind]}] * len(fns)
+                   for kind, fns in counters.items()}:
+            raise AssertionError(f"fp32 at hd {hd} ran the forms {ran}, "
+                                 f"want {want}")
+        forms[hd] = want
+        log(f"fp32 at hd {hd} ({-(-hd // 256)} chunks): K1, B7b, B13, B14 "
+            f"and B14p held and repeated, forms {want}")
+        del q, k, v, do, k3, v3, qp, kp, vp, dop
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, lkv = WIDE_CROSS["B"], WIDE_CROSS["LKV"]
+    timed = {}
+    for hd in WIDE_FP32_TIMED:
+        res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
+        c = check_flash_cross(gen, f32, b, lkv, 1, hd, res)
+        mask = c["bias"].to(f32)
+        qh, kh, vh = c["qh"], c["kh"], c["vh"]
+        res["sdpa_backend"] = sdpa_backend(qh, kh, vh, mask)
+        library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                   "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                   "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
+                                           pa.split_heads(c["do"], 1))}
+        time_runs(c["runs"], library, flash_bounds(b, 64, lkv, 4, 1, hd),
+                  res, f"{f32} B={b} Lq=64 Lkv={lkv} H=1 hd={hd} (SDPA "
+                  f"backend {res['sdpa_backend']})")
+        timed[hd] = res
+        del c, qh, kh, vh, library
+        torch.cuda.empty_cache()
+    return {"errs": errs, "forms": forms, "timed": timed}
+
+
 def phase_wide_heads(gen) -> dict:
     """(a) C-4/C-5 on the card: the chunked form of K1 and B7b at
     WIDE_CAUSAL's shape, head dims 320 and 512 (``wide_causal``), and of
@@ -3766,10 +3939,15 @@ def phase_wide_heads(gen) -> dict:
     whole), fp32 and bf16: each held to its plain version with phase 3's
     gates and repeated for identical bits, timed against its bound and SDPA
     (naming SDPA's backend).  B13 and B14 also at 2 heads of 320, held; and
-    the bf16 B13, B14 and B14p at the user step's USER_BATCH users, held and
-    timed (``out["users"]``).  Last (C-19), K1 / B7b at hd WIDE_BF16_HD in
+    B13, B14 and B14p at the user step's USER_BATCH users, held and timed:
+    bf16 (``out["users"]``), and float32 (``out["users_fp32"]``, its
+    3xTF32 cluster kernels unsplit, with fp32_rows' max|d| and row cosine
+    and a repeat).  Last (C-19), K1 / B7b at hd WIDE_BF16_HD in
     bf16 and the cross kernels at one head of 1024 and 1536
-    (``wide_one_head``, ``out["one_head"]``)."""
+    (``wide_one_head``, ``out["one_head"]``); then fp32 at every chunk
+    count of the 3xTF32 cluster form (``wide_fp32``, ``out["fp32"]``)."""
+    from unirec_tpu_torch.ops import attention as pa
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"causal": {(hd, dtype): wide_causal(gen, hd, dtype)
                       for hd in WIDE_HDS
@@ -3802,26 +3980,44 @@ def phase_wide_heads(gen) -> dict:
         check_flash_cross(gen, dtype, b, lkv, h, 320, {
             n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")})
         torch.cuda.empty_cache()
+    # B13, B14 and B14p at the user step's USER_BATCH users, held and timed:
+    # bf16, and float32, whose grid there fills the card, so that the
+    # 3xTF32 cluster kernels run unsplit (no merge, no dq sum), as in the
+    # float32 2-head user step
     b16, users = torch.bfloat16, USER_BATCH
-    res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd", "b14p_fwd",
-                                     "b14p_bwd")}
-    c = check_flash_cross(gen, b16, users, lkv, h, hd, res)
-    mask = c["bias"].to(b16)
-    qh, kh, vh = c["qh"], c["kh"], c["vh"]
-    res["sdpa_backend"] = sdpa_backend(qh, kh, vh, mask)
-    library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
-               "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
-               "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
-                                       c["do"].reshape(users, 64, h, hd)
-                                       .transpose(1, 2))}
-    time_runs(c["runs"], library, flash_bounds(users, 64, lkv, 2, h), res,
-              f"{b16} B={users} Lq=64 Lkv={lkv} H={h} hd={hd} (SDPA backend "
-              f"{res['sdpa_backend']})")
-    del c, qh, kh, vh, library
-    torch.cuda.empty_cache()
-    wide_b14p(gen, b16, res, b=users)
-    out["users"] = res
-    torch.cuda.empty_cache()
+    gen32 = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    for dtype, g in ((b16, gen), (torch.float32, gen32)):
+        if dtype == torch.float32:
+            q1 = torch.zeros(1, device="cuda")
+            plans = [pa.chunked_plan(q1, kind, users, h, 64, lkv, hd,
+                                     chunked_forms(hd, dtype)[way])[0]
+                     for kind, way in ((pa.CHUNKED_FWD, "fwd"),
+                                       (pa.CHUNKED_ROWS, "rows"))]
+            if plans != [1, 1]:
+                raise AssertionError(f"float32 at {users} users: key splits "
+                                     f"{plans}, want none")
+            log(f"float32 B13 / B14 / B14p at {users} users, 2 heads of "
+                f"{hd}: the cluster_tf32 forward and backward unsplit")
+        res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd",
+                                         "b14p_fwd", "b14p_bwd")}
+        c = check_flash_cross(g, dtype, users, lkv, h, hd, res)
+        mask = c["bias"].to(dtype)
+        qh, kh, vh = c["qh"], c["kh"], c["vh"]
+        res["sdpa_backend"] = sdpa_backend(qh, kh, vh, mask)
+        library = {"b13": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                   "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                   "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
+                                           c["do"].reshape(users, 64, h, hd)
+                                           .transpose(1, 2))}
+        time_runs(c["runs"], library,
+                  flash_bounds(users, 64, lkv, qh.element_size(), h), res,
+                  f"{dtype} B={users} Lq=64 Lkv={lkv} H={h} hd={hd} (SDPA "
+                  f"backend {res['sdpa_backend']})")
+        del c, qh, kh, vh, library
+        torch.cuda.empty_cache()
+        wide_b14p(g, dtype, res, b=users)
+        out["users" if dtype == b16 else "users_fp32"] = res
+        torch.cuda.empty_cache()
     # C-19: K1 / B7b at hd 768 in bf16 (K1 and dk / dv on tensor cores, dq
     # in the scalar form), then the cross kernels at one head of 1024 and
     # B13 at 1536 (``wide_one_head``)
@@ -3830,6 +4026,7 @@ def phase_wide_heads(gen) -> dict:
         raise AssertionError(f"B7b's dq at hd {WIDE_BF16_HD}: not the "
                              "cluster form")
     out["one_head"] = wide_one_head(gen)
+    out["fp32"] = wide_fp32(gen)
     return out
 
 
@@ -5780,18 +5977,19 @@ def user_counters() -> dict:
 
 
 def user_launches(n_layers: int, steps: int, eval_batches: int,
-                  kernels: bool) -> dict:
+                  kernels: bool, fused: bool = True) -> dict:
     """Launches of ``steps`` user-training steps and ``eval_batches``
     evaluation forwards: with ``--flash --fused`` every layer's cross block
-    through B14 and self block through B12s, forward in both, backward in the
-    steps; otherwise the steps take the plain path and every evaluation
-    layer B13 (its 1,600-row memory).  The 1,600-row cross side never takes
-    B12c."""
+    through B14 and (``fused``: bf16 compute, the JAX dispatch's rule) self
+    block through B12s, forward in both, backward in the steps; otherwise
+    the steps take the plain path and every evaluation layer B13 (its
+    1,600-row memory).  The 1,600-row cross side never takes B12c."""
     want = dict.fromkeys(user_counters(), 0)
     if kernels:
         want.update(b14_fwd=n_layers * (steps + eval_batches),
-                    b14_bwd=n_layers * steps,
-                    b12s_fwd=n_layers * (steps + eval_batches),
+                    b14_bwd=n_layers * steps)
+    if kernels and fused:
+        want.update(b12s_fwd=n_layers * (steps + eval_batches),
                     b12s_bwd=n_layers * steps)
     else:
         want.update(b13=n_layers * eval_batches)
@@ -5831,7 +6029,7 @@ def write_user_files(tmp: str, cache) -> dict:
 
 
 def phase_user_train(smi: str, tmp: str, heads=None,
-                     evaluate: bool = True) -> dict:
+                     evaluate: bool = True, dtype: str = "bfloat16") -> dict:
     """User Q-Former training at full width (``UserQFormerConfig()`` over the
     sweep's checkpoint and cache, --max-seq-len 50, batch 64, bf16 compute
     with float32 masters): (b) one step with ``--flash --fused`` (B14 in
@@ -5845,8 +6043,11 @@ def phase_user_train(smi: str, tmp: str, heads=None,
     head of 1024): the step parity of (b) alone at
     ``num_attention_heads=heads``, then (``evaluate``) one evaluation
     forward of the plain model, whose cross layers take B13, and ms per
-    step, device idle share and peak memory of the ``--flash --fused``
-    step; returns those launches and times."""
+    step, device idle share, B14's device time and peak memory of the
+    ``--flash --fused`` step; returns those launches and times.  ``dtype``
+    "float32" (with ``heads``) runs both steps at float32 compute, the train
+    CLI's default precision (the chunked B14 in the 3xTF32 cluster form at
+    2 heads of 512), held to each other at the bf16 step's gates."""
     import contextlib
     import dataclasses
     import io
@@ -5917,7 +6118,7 @@ def phase_user_train(smi: str, tmp: str, heads=None,
         torch.cuda.empty_cache()
 
     def trainer(kernels: bool, return_grads: bool = False,
-                dtype: str = "bfloat16"):
+                dtype: str = dtype):
         """A trainer's state from the seed at dropout 0, with ``--flash
         --fused`` (kernels) or without, and its step."""
         uc = dataclasses.replace(uc0, flash_training=kernels,
@@ -5929,7 +6130,7 @@ def phase_user_train(smi: str, tmp: str, heads=None,
 
     # (b) one step each way from one init (and the plain step in float32 as
     # the reference of both), then ms per step and the split
-    def one_step(kernels: bool, dtype: str = "bfloat16"):
+    def one_step(kernels: bool, dtype: str = dtype):
         st, step = trainer(kernels, return_grads=True, dtype=dtype)
         zero_counts()
         st, m = step(st, batches[0])
@@ -5951,7 +6152,7 @@ def phase_user_train(smi: str, tmp: str, heads=None,
     loss_k, g_k, l_k = one_step(True)
     head_dim = uc0.hidden_size // uc0.num_attention_heads
     if head_dim > 256:  # B14 in the chunked form: the forms named
-        want = chunked_forms(head_dim, torch.bfloat16)
+        want = chunked_forms(head_dim, getattr(torch, dtype))
         ran = [dict(f) for f in form_counts]
         if ran != [{want["fwd"]: n_layers}, {want["rows"]: n_layers}]:
             raise AssertionError(f"user step at head dim {head_dim}: B14 "
@@ -5959,7 +6160,10 @@ def phase_user_train(smi: str, tmp: str, heads=None,
         log(f"user step at head dim {head_dim}: B14 forward {want['fwd']},"
             f" backward {want['rows']} in each of {n_layers} cross layers")
     loss_p, g_p, l_p = one_step(False)
-    loss_32, g_32, _ = one_step(False, "float32")
+    # the float32 plain step, the reference of both (at float32 compute,
+    # the plain step itself)
+    loss_32, g_32, _ = ((loss_p, g_p, None) if dtype == "float32"
+                        else one_step(False, "float32"))
     noise = noise_leaves(g_32)
     top = max(t.norm().item() for t in g_32.values())
     cos = {n: c for n, c in grad_cosines(g_k, g_p).items() if n not in noise}
@@ -5972,15 +6176,19 @@ def phase_user_train(smi: str, tmp: str, heads=None,
         return (x @ y).item() / max(x.norm().item() * y.norm().item(), 1e-300)
 
     vs32 = {n: (cosine(g_k[n], t), cosine(g_p[n], t)) for n, t in g_32.items()}
+    # the bf16 steps' noise leaves against the float32 step (at float32
+    # compute the plain step is that step: no gap to hold)
     gap, widest = max((((1 - vs32[n][0]) / max(1 - vs32[n][1], 1e-12), n)
-                       for n in noise if not null_gradient(n)),
-                      default=(0.0, "none"))
+                       for n in noise if not null_gradient(n)
+                       and dtype != "float32"), default=(0.0, "none"))
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    want_k = user_launches(n_layers, 1, 0, True)
+    # at float32 compute the self blocks take the plain path (B12s is the
+    # bf16 blocks' dispatch, models/qformer._fused_ok)
+    want_k = user_launches(n_layers, 1, 0, True, fused=dtype == "bfloat16")
     want_p = user_launches(n_layers, 1, 0, False)
     log(f"user step, batch {USER_BATCH} ({masked} with no valid event), "
         f"UserQFormerConfig({'' if heads is None else f'num_attention_heads={heads}'})"
-        f" at --max-seq-len {USER_SEQ}, dropout 0: loss "
+        f" at --max-seq-len {USER_SEQ}, {dtype} compute, dropout 0: loss "
         f"--flash --fused {loss_k:.6f}, plain {loss_p:.6f}, plain float32 "
         f"{loss_32:.6f} (rel {rel:.2e}, tol {STEP_LOSS_REL:g}); {len(cos)} of "
         f"{len(g_k)} leaves above {NOISE_LEAF:g} of the largest float32 leaf "
@@ -6042,7 +6250,7 @@ def phase_user_train(smi: str, tmp: str, heads=None,
             fb.append((marks[-2] - t0) * 1e3)
             op.append((marks[-1] - marks[-2]) * 1e3)
         del st.optimizer.step
-        idle = None
+        idle = b14 = None
         if kernels:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -6064,7 +6272,7 @@ def phase_user_train(smi: str, tmp: str, heads=None,
             for name, t in rows[:12]:
                 log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
             # B14: the kernels of flash_cross.cu, or above hd 256 the
-            # chunked form's (flash_chunked.cuh)
+            # chunked forms' (flash_chunked.cuh, flash_chunked_cluster.cuh)
             b14 = {kind: sum(t for name, t in rows if any(
                 k in name for k in names)) for kind, names in (
                     ("fwd", ("flash_cross_fwd", "chunk_fwd")),
@@ -6077,7 +6285,8 @@ def phase_user_train(smi: str, tmp: str, heads=None,
         del st, step
         release()
         return dict(ms=ms, peak_gb=peak, fwd_bwd_ms=float(np.median(fb)),
-                    optimizer_ms=float(np.median(op)), idle=idle)
+                    optimizer_ms=float(np.median(op)), idle=idle,
+                    b14_device_ms=b14)
 
     if heads is not None:
         l_eval = {"b13": 0}
@@ -6106,8 +6315,8 @@ def phase_user_train(smi: str, tmp: str, heads=None,
         t = step_ms(True)
         log(f"[{smi}] user step at batch {USER_BATCH}, UserQFormerConfig("
             f"num_attention_heads={heads}) (head dim "
-            f"{uc0.hidden_size // heads}), --flash --fused, bf16 compute with "
-            f"float32 masters (host clock over 5 synced steps, the batch's "
+            f"{uc0.hidden_size // heads}), --flash --fused, {dtype} compute "
+            f"with float32 masters (host clock over 5 synced steps, the batch's "
             f"copy to the card and the optimizer included; split over "
             f"{len(batches) - 7} steps): {t['ms']:.1f} ms (forward + backward "
             f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}), "
@@ -6116,7 +6325,8 @@ def phase_user_train(smi: str, tmp: str, heads=None,
             + f", peak {t['peak_gb']:.2f} GB")
         del batches, tokens
         release()
-        return {"launches": {**l_k, "b13": l_eval["b13"]}, "ms": t}
+        return {"launches": {**l_k, "b13": l_eval["b13"]}, "ms": t,
+                "forms": (want if head_dim > 256 else None)}
 
     times = {"plain": step_ms(False), "--flash --fused": step_ms(True),
              "plain (again)": step_ms(False)}
@@ -7340,6 +7550,15 @@ def main() -> int:
         f"{kern.build_seconds:.1f} s (load {time.perf_counter() - t0:.1f} s)")
     log(kern.ptxas_log.strip())
 
+    marks = [t0]
+
+    def lap(name: str) -> None:
+        """The seconds a phase took (where the run's time limit goes)."""
+        marks.append(time.perf_counter())
+        log(f"time: {name} {marks[-1] - marks[-2]:.1f} s, "
+            f"{marks[-1] - marks[0]:.1f} s in all")
+
+    lap("build")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_times = phase_k1(gen)
     b7b = phase_b7b(gen)
@@ -7361,6 +7580,7 @@ def main() -> int:
     for key, err in phase_b12_shapes(gen).items():
         b12[key]["err"] = max(b12[key]["err"], err)
     fp32 = phase_fp32_fused(smi)
+    lap("kernel phases")
     gc.collect()
     torch.cuda.empty_cache()
     flash = phase_flash_cross(gen)
@@ -7368,58 +7588,79 @@ def main() -> int:
     b15 = phase_b15(gen, new_gen)
     wide = phase_wide_heads(torch.Generator(device="cuda").manual_seed(
         SEED + 17))
+    lap("flash cross, B14p, B15, wide heads")
     gc.collect()
     torch.cuda.empty_cache()
     qwen3_int8 = phase_qwen3_int8(gen)
     served = phase_serve(smi)
+    lap("qwen3 int8, serving")
     with tempfile.TemporaryDirectory() as tmp:
         rec, histories = served.pop("stack")
         phase_entry_point(smi, rec, os.path.join(tmp, "serve"))
         gc.collect()
         torch.cuda.empty_cache()
         par_served = phase_parallel_serve(smi, rec, histories)
+        lap("entry point, parallel serving")
         del rec
         gc.collect()  # the serving stacks, before the sweep's memory is read
         torch.cuda.empty_cache()
         swept = phase_sweep(smi, tmp)
+        lap("sweep")
         gc.collect()
         torch.cuda.empty_cache()
         quality = phase_quality(smi)
+        lap("quality")
         gc.collect()
         torch.cuda.empty_cache()
         front = phase_front_end(smi, tmp)
+        lap("front end")
         gc.collect()
         torch.cuda.empty_cache()
         trained = phase_train(smi, tmp)
+        lap("joint training")
         gc.collect()
         torch.cuda.empty_cache()
         item_trained = phase_item_train(smi, tmp)
+        lap("item training")
         gc.collect()
         torch.cuda.empty_cache()
         user_trained = phase_user_train(smi, tmp)
+        lap("user training")
         gc.collect()
         torch.cuda.empty_cache()
         # (b)-(e): the user step at 2 heads of 512, the LM head's decoding,
         # MWNE training, and the exports of phases 6-8's and (d)'s
         # checkpoints
         wide_user = phase_user_train(smi, tmp, heads=2)
+        lap("user step, 2 heads, bf16")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same step at float32 compute, the train CLI's default: B14 in
+        # the 3xTF32 cluster form in every cross layer
+        wide_user32 = phase_user_train(smi, tmp, heads=2, dtype="float32")
+        lap("user step, 2 heads, float32")
         gc.collect()
         torch.cuda.empty_cache()
         # C-19: the user step at one head of 1024 (B14's backward in the
         # cluster form), parity and ms per step
         one_head_user = phase_user_train(smi, tmp, heads=1, evaluate=False)
+        lap("user step, 1 head")
         gc.collect()
         torch.cuda.empty_cache()
         lm = phase_lm_decode(smi)
+        lap("LM decoding")
         gc.collect()
         torch.cuda.empty_cache()
         phase_exports(smi, tmp, phase_mwne(smi, tmp))
+        lap("MWNE, exports")
         gc.collect()
         torch.cuda.empty_cache()
         parallel = phase_parallel(smi, tmp)
+        lap("parallel")
         gc.collect()
         torch.cuda.empty_cache()
         phase_tp_pp(smi, tmp)
+        lap("tp, pp")
     sweep_launches = {**swept["bf16"]["launches"], **swept["int8"]["launches"]}
 
     bounds = static_bounds()
@@ -7642,6 +7883,63 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{f"sdpa_backend_{USER_BATCH}users":
                wide["users"]["sdpa_backend"]}, **extra))
+    # the fp32 chunked form (the 3xTF32 cluster kernels of
+    # flash_chunked_cluster.cuh): hd-512 figures, hd 320's and one head of
+    # 1024, 1536 and 2048's as extra keys, with the form each ran; K1 / B7b's
+    # dq launches from their entry point's run in (a), B13 / B14 from the
+    # float32 2-head user step and evaluation (with B14's device ms a step),
+    # B14p from its entry point's run in (a)
+    f32, w32 = torch.float32, wide["fp32"]
+    for key, row_name, replaces, kernel in (
+            ("k1", "flash_causal_fwd_hd512_fp32", "flash_causal_vjp.py:78",
+             "chunk_fwd_cl32"),
+            ("dq", "flash_causal_bwd_dq_hd512_fp32",
+             "flash_causal_vjp.py:158", "chunk_bwd_rows_cl32")):
+        at = causal[(512, f32)]
+        e = "o" if key == "k1" else "dq"
+        kernels.append(row(
+            row_name, "flash_chunked_cluster.cuh", replaces,
+            at["launches"][("k1", "dq").index(key)],
+            max(w32["errs"][e], *(causal[(hd, f32)]["errs"][e]
+                                  for hd in WIDE_HDS)),
+            **at[key], head_dim=512, sdpa_backend=at["sdpa_backend"],
+            kernel=kernel, activations="float32",
+            **{f"{k}_hd320": v for k, v in causal[(320, f32)][key].items()
+               if k in timed},
+            forms={hd: causal[(hd, f32)]["forms"][key] for hd in WIDE_HDS}
+            | {hd: f[{"k1": "fwd", "dq": "rows"}[key]]
+               for hd, f in w32["forms"].items()}))
+    for key, row_name, replaces in (
+            ("b13", "flash_cross_attention_hd512_fp32", "attention.py:163"),
+            ("b14_fwd", "flash_cross_proj_fwd_hd512_fp32", "flash_vjp.py:362"),
+            ("b14_bwd", "flash_cross_proj_bwd_hd512_fp32", "flash_vjp.py:426"),
+            ("b14p_fwd", "flash_cross_attention_vjp_fwd_hd512_fp32",
+             "flash_vjp.py:51"),
+            ("b14p_bwd", "flash_cross_attention_vjp_bwd_hd512_fp32",
+             "flash_vjp.py:113")):
+        at, at64 = wide[f32][key], wide["users_fp32"][key]
+        way = "fwd" if key == "b13" or key.endswith("_fwd") else "rows"
+        extra = {f"{k}_hd{hd}": w32["timed"][hd][key][k]
+                 for hd in WIDE_FP32_TIMED if key in w32["timed"][hd]
+                 for k in (*timed, "bound_by")}
+        extra.update({f"{k}_{USER_BATCH}users": at64[k]
+                      for k in (*timed, "bound_by")})
+        if key.startswith("b14_"):  # device ms a float32 2-head user step
+            extra["step_device_ms"] = (wide_user32["ms"]["b14_device_ms"]
+                                       or {}).get(key[4:])
+        kernels.append(row(
+            row_name, "flash_chunked_cluster.cuh", replaces,
+            at["launches"] if key.startswith("b14p")
+            else wide_user32["launches"][key],
+            max(at["err"], at64["err"], w32["errs"][key], *(
+                w32["timed"][hd][key]["err"] for hd in WIDE_FP32_TIMED
+                if key in w32["timed"][hd])),
+            at["ms"], at["plain_ms"], at["bound_ms"], at["bound_by"],
+            at["library_ms"], head_dim=512,
+            sdpa_backend=wide[f32]["sdpa_backend"], activations="float32",
+            kernel="chunk_fwd_cl32" if way == "fwd" else "chunk_bwd_rows_cl32",
+            forms={512: "cluster_tf32"} | {hd: f[way] for hd, f in
+                                           w32["forms"].items()}, **extra))
     log(f"(c) LM-head decoding tokens/s: {json.dumps(lm['tokens_per_s'])}, "
         f"bf16 agreement {lm['bf16_agreement']:.4f}")
     log(json.dumps({"kernels": kernels}))

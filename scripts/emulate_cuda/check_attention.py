@@ -6,9 +6,9 @@ card sees them (no timing).
         [--parent OTHER_ROOT]
 
 Head dims above 256 (``--hd 320,512``) run the chunked form of
-``flash_chunked.cuh`` (2 chunks of 256; in bf16 also B13 / B14 over 300
-keys, where the forward splits the keys over two blocks and merges them;
-about fifteen minutes for both).
+``flash_chunked.cuh`` (2 chunks of 256; also B13 / B14 over 300 keys, where
+the forward splits the keys over two blocks and merges them; about fifteen
+minutes for bf16, about as long again for float32's 3xTF32 cluster form).
 
 The sources of ``unirec_tpu_torch/csrc`` are compiled with ``g++`` against
 the headers beside this script (``emu.h``: CUDA threads as OS threads,
@@ -22,9 +22,10 @@ with GQA 2:1 and 1:1 over padded rows.  Each against its plain version
 (max|d| / max|ref|: 1e-5 for float32 outputs, 2e-2 for bf16 ones), the
 masked user's uniform average, exactly zero dk / dv at masked keys,
 identical bits on a repeat.  With ``--parent``, the float32 B13 / B14
-outputs (merged heads, one q tile) must equal OTHER_ROOT's bit for bit,
-its C entries run on the same inputs zero-padded as the wrappers pad
-them.
+outputs (merged heads, one q tile) at head dims up to 256 must equal
+OTHER_ROOT's bit for bit, its C entries run on the same inputs
+zero-padded as the wrappers pad them (above 256 float32 runs the 3xTF32
+cluster form, whose bits a parent's scalar form need not have).
 A few seconds a case; hd 256 takes about a minute.
 """
 
@@ -242,7 +243,9 @@ def check_cross(emu, dtype, hd, b, h, lq, lkv, merged, parent=None):
     if not all(torch.equal(x, y) for x, y in zip(grads, bwd())):
         raise AssertionError("a repeat gave other bits")
     same = ""
-    if parent is not None and dtype == torch.float32 and merged:
+    # the float32 kernels above 256 are another form (3xTF32 in a cluster)
+    # than the scalar one a parent may run: its bits are held at hd <= 256
+    if parent is not None and dtype == torch.float32 and merged and hd <= 256:
         if not _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd,
                             (o, m, l, *grads)):
             raise AssertionError("float32 outputs are not the parent's bits")
@@ -354,13 +357,14 @@ def check_causal(emu, dtype, hd, hkv):
 def expected_forms(hd: int, dtype) -> list:
     """The chunked form of K1, B7b's dq and B7b's dk / dv at ``hd``: bf16
     on tensor cores up to 5, 2 and 4 chunks of 256, in a cluster above
-    those up to 8 (K1 and dq), the scalar form above and in float32; none
-    at hd <= 256."""
+    those up to 8 (K1 and dq); float32 K1 and dq in the 3xTF32 cluster form
+    up to 8 chunks; the scalar form above and for float32 dk / dv; none at
+    hd <= 256."""
     if hd <= 256:
         return [None] * 3
     chunks = -(-hd // 256)
     if dtype != torch.bfloat16:
-        return ["scalar"] * 3
+        return ["cluster_tf32" if chunks <= 8 else "scalar"] * 2 + ["scalar"]
     return ["tensor_cores" if chunks <= most else
             "cluster" if chunks <= cluster else "scalar"
             for most, cluster in ((5, 8), (2, 8), (4, 4))]
@@ -399,7 +403,7 @@ def main() -> int:
             check_cross(emu, dtype, hd, 3, 2, 64, 130, True, parent)
             check_cross(emu, dtype, hd, 2, 3, 1, 70, False)
             check_cross(emu, dtype, hd, 2, 1, 150, 100, False)
-            if hd > 256 and dtype == torch.bfloat16:  # the forward's key splits
+            if hd > 256:  # the forward's key splits
                 check_cross(emu, dtype, hd, 2, 2, 64, 300, True)
     print("all emulated kernels agree with their plain versions")
     return 0

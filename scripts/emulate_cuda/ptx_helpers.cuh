@@ -141,6 +141,60 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = pack_bf16(x0 - __bfloat162float(h.x), x1 - __bfloat162float(h.y));
 }
 
+// tf32: the split rounds the float32 bit pattern to 10 mantissa bits, to
+// nearest with ties away from zero (cvt.rna's rounding: half of the dropped
+// ulp added to the magnitude; big's 13 low bits cleared), as
+// csrc/ptx_helpers.cuh does, and the mma reads only the top 19 bits of each
+// operand, whatever the low 13 hold: a kernel that hands it unrounded floats
+// gets truncation, as the card gives it.  Products of two tf32 values are
+// exact in fp32; the mma sums them into the accumulator in k order.
+inline void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  uint32_t u; memcpy(&u, &x, 4);
+  big = (u + 0x1000u) & 0xFFFFE000u;
+  float b; memcpy(&b, &big, 4);
+  const float d = x - b;
+  memcpy(&small, &d, 4);
+  small += 0x1000u;
+}
+inline float tf32_operand(uint32_t w) {
+  const uint32_t u = w & 0xFFFFE000u; float f; memcpy(&f, &u, 4); return f;
+}
+inline void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  auto& xb = emu::blk->xbuf[emu::warp()];
+  const int ln = emu::lane();
+  for (int i = 0; i < 4; ++i) xb[ln][i] = a[i];
+  xb[ln][4] = b0; xb[ln][5] = b1;
+  for (int i = 0; i < 4; ++i) memcpy(&xb[ln][6 + i], &c[i], 4);
+  emu::wsync();
+  float A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    A[g][t] = tf32_operand(xb[l][0]);
+    A[g + 8][t] = tf32_operand(xb[l][1]);
+    A[g][t + 4] = tf32_operand(xb[l][2]);
+    A[g + 8][t + 4] = tf32_operand(xb[l][3]);
+    B[t][g] = tf32_operand(xb[l][4]);
+    B[t + 4][g] = tf32_operand(xb[l][5]);
+  }
+  const int g = ln >> 2, t = ln & 3;
+  float out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    float acc; memcpy(&acc, &xb[ln][6 + e], 4);
+    for (int k = 0; k < 8; ++k) acc += A[row][k] * B[k][col];
+    out[e] = acc;
+  }
+  emu::wsync();
+  for (int e = 0; e < 4; ++e) c[e] = out[e];
+}
+template <int N>
+inline void mma_3xtf32(float (*t)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                       const uint32_t (&bb)[N][2], const uint32_t (&bs)[N][2]) {
+  for (int n = 0; n < N; ++n) mma_1688_tf32(t[n], as, bb[n][0], bb[n][1]);
+  for (int n = 0; n < N; ++n) mma_1688_tf32(t[n], ab, bs[n][0], bs[n][1]);
+  for (int n = 0; n < N; ++n) mma_1688_tf32(t[n], ab, bb[n][0], bb[n][1]);
+}
+
 // wgmma: each thread computes its own accumulator elements straight from
 // the shared-memory tiles the descriptors name (K-major, 128-byte swizzle:
 // address bits 4-6 XOR bits 7-9), summing each product in k order.  The

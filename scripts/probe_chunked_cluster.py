@@ -16,7 +16,7 @@ copy of ``unirec_tpu_torch/csrc`` (``flash_cross.cu`` and
                dO_c V_c^T;
   no_dkv       the backward without B14's dk / dv products.
 
-B13 runs with the key splits of ``ops/attention.chunked_fwd_plan`` and with
+B13 runs with the key splits of ``ops/attention.chunked_plan`` and with
 one split; B14's backward at 8 and 64 users.  Each is timed by CUDA events
 over 50 calls after 5.  Outputs of the variants are not checked: they
 compute something else.  Prints the card's name and power limit first.

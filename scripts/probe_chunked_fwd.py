@@ -20,7 +20,7 @@ same inputs.
 
 Each is timed by CUDA events over 50 launches after 5 (no wrapper: the C
 entry called directly) with the key splits the wrapper plans
-(``ops/attention.chunked_fwd_plan``; the kernel as built also unsplit),
+(``ops/attention.chunked_plan``; the kernel as built also unsplit),
 beside the wrapper ``flash_cross_attention`` of the built library (its host
 work included).  Outputs of the variants are not
 checked: they compute something else.
@@ -87,7 +87,7 @@ def _lib(csrc: Path, work: Path, causal: bool = False) -> ctypes.CDLL:
         ctypes.c_float, P]
     lib.unirec_flash_cross_fwd.restype = I
     if causal:
-        lib.unirec_flash_causal_fwd.argtypes = [P] * 7 + [I] * 6 + [
+        lib.unirec_flash_causal_fwd.argtypes = [P] * 8 + [I] * 7 + [
             ctypes.c_float, P]
         lib.unirec_flash_causal_fwd.restype = I
     lines = log.splitlines()
@@ -140,8 +140,8 @@ def main() -> int:
             qh, kh, vh, oh = (pa.split_heads(t, H) for t in (q, k, v, o))
             strides = [s for t in (qh, kh, vh, oh) for s in t.stride()[:3]]
             stream = torch.cuda.current_stream().cuda_stream
-            splits, part = pa.chunked_fwd_plan(q, b, H, LQ, LKV, HD,
-                                               "tensor_cores")
+            splits, part = pa.chunked_plan(q, pa.CHUNKED_FWD, b, H, LQ, LKV,
+                                           HD, "tensor_cores")
             for name, (lib, spill) in libs.items():
                 for n, scratch in {(splits, part), (1, None)}:
                     if n == 1 and name != "as_built" and splits > 1:
@@ -182,8 +182,8 @@ def _k1(lib, gen) -> None:
     def run():
         err = lib.unirec_flash_causal_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            o.data_ptr(), None, None, b, l, hq, hkv, HD, 1, pa.sm_scale(HD),
-            stream)
+            o.data_ptr(), None, None, None, b, l, hq, hkv, HD, 1, 1,
+            pa.sm_scale(HD), stream)
         assert err == 0, err
     print(f"K1 B {b} L {l} {hq}/{hkv} heads of {HD}: {_time(run):.4f} ms",
           flush=True)

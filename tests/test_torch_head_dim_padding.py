@@ -166,6 +166,25 @@ def test_chunked_fwd_splits(blocks, key_tiles, sms, want):
     assert pa.chunked_fwd_splits(blocks, key_tiles, sms) == want
 
 
+@pytest.mark.parametrize("blocks,key_tiles,sms,want", [
+    (32, 50, 132, 4),    # B13 / B14 at 8 users, 2 heads of 512, 1,600 keys
+    (64, 50, 132, 2),    # one head of 2048 (8 chunks) at 8 users
+    (256, 50, 132, 1),   # 64 users: one block an SM already
+    (8, 9, 132, 2)])     # at least 4 key tiles a split
+def test_chunked_fwd_splits_one_block_an_sm(blocks, key_tiles, sms, want):
+    """The float32 cluster form holds one block an SM: its splits fill one
+    block an SM (``per_sm`` 1), each split at least 4 key tiles long."""
+    assert pa.chunked_fwd_splits(blocks, key_tiles, sms, per_sm=1) == want
+
+
+def _fwd_plan(q, *args):
+    return pa.chunked_plan(q, pa.CHUNKED_FWD, *args)
+
+
+def _rows_plan(q, *args):
+    return pa.chunked_plan(q, pa.CHUNKED_ROWS, *args)
+
+
 def test_chunked_fwd_plan_sizes_the_merge_scratch(monkeypatch):
     """(splits, scratch) of a launch: float32 scratch of splits * B * H * Lq
     * (kernel_hd + 2) for a split bf16 launch of the tensor-core form at a
@@ -175,18 +194,17 @@ def test_chunked_fwd_plan_sizes_the_merge_scratch(monkeypatch):
     monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
     q = torch.zeros(1, dtype=torch.bfloat16)
     tc = "tensor_cores"
-    splits, part = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 512, tc)
+    splits, part = _fwd_plan(q, 8, 2, 64, 1600, 512, tc)
     assert splits == 8 and part.dtype == torch.float32
     assert part.numel() == 8 * 8 * 2 * 64 * (512 + 2)
-    splits, part = pa.chunked_fwd_plan(q, 3, 2, 150, 300, 512, tc)
+    splits, part = _fwd_plan(q, 3, 2, 150, 300, 512, tc)
     assert splits == 2 and part.numel() == 2 * 3 * 2 * 150 * 514
-    splits, _ = pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 1024, tc)
+    splits, _ = _fwd_plan(q, 8, 2, 64, 1600, 1024, tc)
     assert splits == 4  # 64 blocks at 4 chunks
-    assert pa.chunked_fwd_plan(q, 64, 2, 64, 1600, 512, tc) == (1, None)
-    assert pa.chunked_fwd_plan(q, 8, 2, 64, 1600, 256, None) == (1, None)
-    assert pa.chunked_fwd_plan(q.float(), 8, 2, 64, 1600, 512,
-                               "scalar") == (1, None)
-    assert pa.chunked_fwd_plan(q, 8, 1, 64, 1600, 1536, "scalar") == (1, None)
+    assert _fwd_plan(q, 64, 2, 64, 1600, 512, tc) == (1, None)
+    assert _fwd_plan(q, 8, 2, 64, 1600, 256, None) == (1, None)
+    assert _fwd_plan(q.float(), 8, 2, 64, 1600, 512, "scalar") == (1, None)
+    assert _fwd_plan(q, 8, 1, 64, 1600, 1536, "scalar") == (1, None)
 
 
 def test_chunked_fwd_plan_splits_the_cluster_form(monkeypatch):
@@ -196,17 +214,87 @@ def test_chunked_fwd_plan_splits_the_cluster_form(monkeypatch):
     tiles 5 ways; at 64 users the grid fills the card unsplit."""
     monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
     q = torch.zeros(1, dtype=torch.bfloat16)
-    splits, part = pa.chunked_fwd_plan(q, 8, 1, 64, 1600, 1536, "cluster")
+    splits, part = _fwd_plan(q, 8, 1, 64, 1600, 1536, "cluster")
     assert splits == 5 and part.dtype == torch.float32
     assert part.numel() == 5 * 8 * 1 * 64 * (1536 + 2)
-    splits, part = pa.chunked_fwd_plan(q, 2, 2, 150, 300, 2048, "cluster")
+    splits, part = _fwd_plan(q, 2, 2, 150, 300, 2048, "cluster")
     assert splits == 2 and part.numel() == 2 * 2 * 2 * 150 * (2048 + 2)
-    assert pa.chunked_fwd_plan(q, 64, 1, 64, 1600, 1536, "cluster") == (1,
-                                                                      None)
+    assert _fwd_plan(q, 64, 1, 64, 1600, 1536, "cluster") == (1, None)
+
+
+def test_chunked_fwd_plan_splits_the_float32_cluster_form(monkeypatch):
+    """float32 in its 3xTF32 cluster form ("cluster_tf32",
+    ``csrc/flash_chunked_cluster.cuh``) takes the key splits and the merge
+    scratch, filling one block an SM: B13 / B14 at 8 users in 2 heads of 512
+    (32 blocks) split their 50 key tiles 4 ways, one head of 2048 (64
+    blocks) 2 ways; at 64 users the grid fills the card unsplit, and the
+    scalar form still takes (1, None)."""
+    monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
+    q = torch.zeros(1, dtype=torch.float32)
+    tf32 = "cluster_tf32"
+    splits, part = _fwd_plan(q, 8, 2, 64, 1600, 512, tf32)
+    assert splits == 4 and part.dtype == torch.float32
+    assert part.numel() == 4 * 8 * 2 * 64 * (512 + 2)
+    splits, part = _fwd_plan(q, 8, 1, 64, 1600, 2048, tf32)
+    assert splits == 2 and part.numel() == 2 * 8 * 1 * 64 * (2048 + 2)
+    splits, part = _fwd_plan(q, 3, 2, 150, 300, 320, tf32)
+    assert splits == 2 and part.numel() == 2 * 3 * 2 * 150 * (512 + 2)
+    assert _fwd_plan(q, 64, 2, 64, 1600, 512, tf32) == (1, None)
+    assert _fwd_plan(q, 8, 2, 64, 1600, 512, "scalar") == (1, None)
+    assert _fwd_plan(q, 8, 1, 64, 1600, 2304, "scalar") == (1, None)
+
+
+def test_chunked_rows_plan_splits_the_float32_backward(monkeypatch):
+    """The float32 cluster form's backward over rows (B14, B14p) takes key
+    splits over its 16-key tiles and dq scratch, filling one block an SM:
+    at 8 users in 2 heads of 512 (32 blocks) 4 splits of the 100 key tiles
+    and 4 * 8 * 2 * 64 * 512 floats; at 64 users, for the scalar form and
+    for bf16's forms, (1, None)."""
+    monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
+    q = torch.zeros(1, dtype=torch.float32)
+    tf32 = "cluster_tf32"
+    splits, part = _rows_plan(q, 8, 2, 64, 1600, 512, tf32)
+    assert splits == 4 and part.dtype == torch.float32
+    assert part.numel() == 4 * 8 * 2 * 64 * 512
+    splits, part = _rows_plan(q, 3, 2, 70, 300, 320, tf32)
+    assert splits == 4 and part.numel() == 4 * 3 * 2 * 70 * 512
+    assert _rows_plan(q, 64, 2, 64, 1600, 512, tf32) == (1, None)
+    assert _rows_plan(q, 8, 2, 64, 1600, 512, "scalar") == (1, None)
+    for form in ("tensor_cores", "cluster"):
+        assert _rows_plan(q.bfloat16(), 8, 2, 64, 1600, 512, form) == (1,
+                                                                        None)
+
+
+def test_chunked_causal_plan_splits_the_float32_k1_and_dq(monkeypatch):
+    """The float32 cluster form's K1 and B7b's dq split the keys of a causal
+    grid of up to two blocks an SM (its last q tiles visit the most key
+    tiles): at B 2, L 512, 4 heads of 512 (128 blocks) both split in two,
+    K1 with (o, m, l) scratch, dq with dq scratch; a grid of more blocks, the
+    scalar form and bf16's forms take (1, None)."""
+    monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
+    q = torch.zeros(1, dtype=torch.float32)
+    tf32 = "cluster_tf32"
+
+    def plan(kind, b, l, h, form, t=q):
+        return pa.chunked_plan(t, kind, b, h, l, l, 512, form, causal=True)
+
+    splits, part = plan(pa.CHUNKED_FWD, 2, 512, 4, tf32)
+    assert splits == 2 and part.numel() == 2 * 2 * 4 * 512 * (512 + 2)
+    splits, part = plan(pa.CHUNKED_ROWS, 2, 512, 4, tf32)
+    assert splits == 2 and part.numel() == 2 * 2 * 4 * 512 * 512
+    assert plan(pa.CHUNKED_ROWS, 8, 512, 16, tf32) == (1, None)
+    assert plan(pa.CHUNKED_FWD, 2, 512, 4, "scalar") == (1, None)
+    for form in ("tensor_cores", "cluster"):
+        assert plan(pa.CHUNKED_ROWS, 2, 512, 4, form, q.bfloat16()) == (1,
+                                                                        None)
+        # bf16's K1 takes no split (the cross forward's rule is not causal)
+        assert plan(pa.CHUNKED_FWD, 2, 512, 4, form, q.bfloat16()) == (1,
+                                                                       None)
 
 
 @pytest.mark.parametrize("code,name", [(0, None), (1, "scalar"),
-                                       (2, "tensor_cores"), (3, "cluster")])
+                                       (2, "tensor_cores"), (3, "cluster"),
+                                       (4, "cluster_tf32")])
 def test_chunked_form_names_the_kernels_code(monkeypatch, code, name):
     """``chunked_form`` names the code ``unirec_chunked_form`` returns (3:
     the cluster form) for the kind, head dim and dtype code it asks about,

@@ -38,7 +38,9 @@ dim and F (C-8).  K1-B14p run head dims above 256 in their chunked form
 (320 and 512: two chunks of 256; 768: three, in bf16 K1, B14's forward and
 B7b's dk / dv on tensor cores, dq and B14's backward in the cluster form;
 the bf16 forms' bounds at 768-2304, the cluster form at 6-8 chunks forward
-and 3-8 over rows, 9 chunks scalar);
+and 3-8 over rows, 9 chunks scalar; float32 K1, B7b's dq, B13, B14 and
+B14p at every chunk count 2-8 in the 3xTF32 cluster form at 1e-5, 9
+chunks scalar);
 B7b's dk / dv on tensor cores at 320, 512 and 768; a head dim of 0 is
 refused, naming the set.  The int8 GEMM of B4-B6 and B8-B9b is held bit for bit to its plain
 form in every epilogue; B1-B6 run
@@ -1382,6 +1384,148 @@ def test_chunked_bf16_cluster_form(hopper, hd, fwd, rows, keys):
         assert (g[masked] == 0).all()
     assert set(pa.launch_flash_cross_fwd.forms) == {fwd}
     assert set(fl.launch_flash_cross_bwd.forms) == {rows}
+
+
+def _hold_fp32(name, out, ref):
+    """The float32 chunked gates: max|d| <= 1e-5 of max|ref| and, over the
+    rows (last dim) where ref is nonzero, cosine >= 0.9999."""
+    a, b = out.float(), ref.float()
+    assert bool(torch.isfinite(a).all()), name
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    assert rel <= 1e-5, (name, rel)
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    live = b2.abs().amax(-1) > 0
+    cos = torch.nn.functional.cosine_similarity(a2[live].double(),
+                                                b2[live].double(), dim=-1)
+    assert cos.min().item() >= 0.9999, (name, cos.min().item())
+
+
+@pytest.mark.parametrize("hd,form", [
+    (320, "cluster_tf32"), (512, "cluster_tf32"), (768, "cluster_tf32"),
+    (1024, "cluster_tf32"), (1280, "cluster_tf32"), (1400, "cluster_tf32"),
+    (1792, "cluster_tf32"), (2048, "cluster_tf32"), (2304, "scalar")])
+def test_chunked_fp32_runs_every_chunk_count(hopper, hd, form):
+    """float32 at every chunk count of the 3xTF32 cluster form (2-8 chunks;
+    320 and 1400 end inside their last chunk) and at 9 (2304, the scalar
+    form): K1 and B7b's dq over ragged rows with padded keys at GQA 2:1,
+    then B13, B14 (one head, merged layout) and B14p (per-head) at two q
+    tiles over a ragged memory of 300 keys with user 1 masked whole (the
+    forward's key splits and the backward's dk / dv partials); every output
+    within 1e-5 of max|ref| of its plain version with row cosine >= 0.9999,
+    identical bits on a repeat, each wrapper's form counted (B7b's dk / dv
+    scalar)."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    f32 = torch.float32
+    b, l, hq, hkv = 3, 150, 2, 1
+    lengths = torch.tensor([150, 70, 1], device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    mask[0, 20:45] = 0.0
+    causal = (fc.flash_causal_attention, fc.flash_causal_bwd_dq,
+              fc.flash_causal_bwd_dkv)
+    q, k, v, do = (torch.randn(b, l, n * hd, device="cuda", generator=hopper)
+                   for n in (hq, hkv, hkv, hq))
+    for fn in causal:
+        fn.forms.clear()
+    o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    ro, rm, rl = fc.flash_causal_attention_fwd_plain(q, k, v, mask, hq, hkv)
+    for name, got, ref in (("K1 o", o, ro), ("K1 m", m, rm), ("K1 l", den,
+                                                            rl)):
+        _hold_fp32(name, got, ref)
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    dq = fc.flash_causal_bwd_dq(*args)
+    fc.flash_causal_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert [dict(fn.forms) for fn in causal] == [{form: 1}, {form: 1},
+                                                 {"scalar": 1}]
+    want = fc.flash_causal_attention_bwd_plain(q, k, v, mask, do, m, den,
+                                               dsum, hq, hkv)
+    # rows over one valid key: their exact dq is 0, both sides noise
+    noise = _single_key_rows(mask, hq).reshape(b, l, hq)
+    _hold_fp32("B7b dq", dq.reshape(b, l, hq, hd)[~noise],
+               want[0].reshape(b, l, hq, hd)[~noise])
+    assert all(torch.equal(x, y) for x, y in zip(
+        (o, m, den), fc._k1(q, k, v, mask, hq, hkv, stats=True)))
+    assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
+
+    b, lq, lkv = 3, 70, 300
+    q, k3, v3, do, bias = _flash_inputs(hopper, b, lq, lkv, f32, d=hd)
+    qh, kh, vh = (pa.split_heads(t, 1) for t in (q, k3, v3))
+    pa.launch_flash_cross_fwd.forms.clear()
+    fl.launch_flash_cross_bwd.forms.clear()
+    out = pa.flash_cross_attention(qh, kh, vh, bias)
+    _hold_fp32("B13", out, pa.flash_cross_attention_plain(qh, kh, vh, bias))
+    assert torch.equal(out, pa.flash_cross_attention(qh, kh, vh, bias))
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    o, m, l = fl.flash_cross_fwd(q, k3, v3, bias32, 1)
+    for name, got, ref in zip(("B14 o", "B14 m", "B14 l"), (o, m, l),
+                              fl.flash_cross_fwd_plain(q, k3, v3, bias32, 1)):
+        _hold_fp32(name, got, ref)
+    assert all(torch.equal(x, y) for x, y in
+               zip((o, m, l), fl.flash_cross_fwd(q, k3, v3, bias32, 1)))
+    dsum = fl.attention_dsum(do, o, 1)
+    got = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, 1)
+    ref = fl.flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, 1)
+    for name, g, r in zip(("dq", "dk3", "dv3"), got, ref):
+        _hold_fp32(f"B14 {name}", g, r)
+    again = fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum, 1)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    masked = bias32 != 0
+    masked[1] = False
+    for g in got[1:]:
+        assert (g[masked] == 0).all()
+    qp, kp, vp, dop = (pa.split_heads(t, 1).contiguous()
+                       for t in (q, k3, v3, do))
+    op, mp, lp = fl.flash_cross_vjp_fwd(qp, kp, vp, bias32)
+    for name, g, r in zip(("B14p o", "B14p m", "B14p l"), (op, mp, lp),
+                          fl.flash_cross_vjp_fwd_plain(qp, kp, vp, bias32)):
+        _hold_fp32(name, g, r)
+    dsum_p = (dop * op).sum(-1).transpose(1, 2).contiguous()
+    got = fl.flash_cross_vjp_bwd(qp, kp, vp, bias32, dop, mp, lp, dsum_p)
+    ref = fl.flash_cross_vjp_bwd_plain(qp, kp, vp, bias32, dop, mp, lp,
+                                       dsum_p)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _hold_fp32(f"B14p {name}", g, r)
+    assert all(torch.equal(x, y) for x, y in zip(got, fl.flash_cross_vjp_bwd(
+        qp, kp, vp, bias32, dop, mp, lp, dsum_p)))
+    # B13, B14 and B14p's backward twice each, B14p's forward once
+    assert dict(pa.launch_flash_cross_fwd.forms) == {form: 5}
+    assert dict(fl.launch_flash_cross_bwd.forms) == {form: 4}
+
+
+def test_chunked_fp32_causal_key_splits(hopper):
+    """float32 K1 (with (m, l)) and B7b's dq at B 2, L 512, 4 query / 2 key
+    heads of 512 over rows of 512 and 301 keys, where the 3xTF32 cluster
+    form splits each row's key tiles (``chunked_plan``) and merges
+    (K1) or adds (dq) the splits: within 1e-5 of max|ref| of the plain
+    versions with row cosine >= 0.9999, identical bits on a repeat."""
+    from unirec_tpu_torch.ops import attention as pa
+
+    b, l, hq, hkv, hd = 2, 512, 4, 2, 512
+    for kind in (pa.CHUNKED_FWD, pa.CHUNKED_ROWS):
+        assert pa.chunked_plan(torch.zeros(1, device="cuda"), kind, b, hq, l,
+                               l, hd, "cluster_tf32", causal=True)[0] >= 2
+    q, k, v, do = (torch.randn(b, l, n * hd, device="cuda", generator=hopper)
+                   for n in (hq, hkv, hkv, hq))
+    mask = (torch.arange(l, device="cuda")[None]
+            < torch.tensor([512, 301], device="cuda")[:, None]).float()
+    o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    ref = fc.flash_causal_attention_fwd_plain(q, k, v, mask, hq, hkv)
+    for name, got, want in zip(("o", "m", "l"), (o, m, den), ref):
+        _hold_fp32(f"K1 {name}", got, want)
+    assert all(torch.equal(x, y) for x, y in zip(
+        (o, m, den), fc._k1(q, k, v, mask, hq, hkv, stats=True)))
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    dq = fc.flash_causal_bwd_dq(*args)
+    want = fc.flash_causal_attention_bwd_plain(q, k, v, mask, do, m, den,
+                                               dsum, hq, hkv)[0]
+    noise = _single_key_rows(mask, hq).reshape(b, l, hq)
+    _hold_fp32("B7b dq", dq.reshape(b, l, hq, hd)[~noise],
+               want.reshape(b, l, hq, hd)[~noise])
+    assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)], ids=["gqa2", "mha"])

@@ -66,8 +66,10 @@
 //   which took dq's row cosine below 0.9999 at head dim 8.
 //   wgmma and TMA are the next step, as for K1 (flash_causal_fwd.cu).
 //
-// fp32 design: tensor cores would mean TF32, which breaks the 1e-5 fp32
-// gates, so fp32 keeps the scalar design (templated on the head dim): 16 x 16
+// fp32 design (HD <= 256; above it dq in the chunked form's 3xTF32
+// tensor-core kernel, flash_chunked_cluster.cuh, and dk / dv scalar): plain
+// TF32 on tensor cores breaks the 1e-5 fp32 gates, so fp32 keeps the scalar
+// design (templated on the head dim): 16 x 16
 // threads, each owning a 4 x 4 block of a 64 x 64 score tile and a 4 x (HD /
 // 16) block of a 64 x HD output, fp32 FMAs from padded shared tiles.
 
@@ -908,24 +910,29 @@ chunked::BwdStrides chunked_strides(int L, int Hq, int Hkv, int head_dim) {
 // or above 256 (the chunked form, rows of whole 16-byte pieces;
 // cudaErrorInvalidValue otherwise).  scale: the softmax scale, 1 / sqrt of
 // the true head dim (the wrapper pads other head dims to an instance).
+// splits (dq only): key splits, above one only in the float32 chunked
+// cluster form (dqpart: float32 scratch of splits * B * Hq * L * C * 256
+// elements, flash_chunked.cuh's launch_bwd_rows; null with one split).
 extern "C" int unirec_flash_causal_bwd_dq(const void* q, const void* k, const void* v,
                                           const float* mask, const void* dout,
                                           const float* m, const float* l,
-                                          const float* dsum, void* dq, int B, int L,
-                                          int Hq, int Hkv, int head_dim, int dtype,
-                                          float scale, void* stream) {
-  if (bad_shape(B, L, Hq, Hkv, dtype)) return (int)cudaErrorInvalidValue;
+                                          const float* dsum, void* dq, float* dqpart, int B,
+                                          int L, int Hq, int Hkv, int head_dim, int dtype,
+                                          int splits, float scale, void* stream) {
+  if (bad_shape(B, L, Hq, Hkv, dtype) || (splits != 1 && !chunked::is_chunked(head_dim)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunked::is_chunked(head_dim)) {
     const chunked::BwdStrides st = chunked_strides(L, Hq, Hkv, head_dim);
     return (int)(dtype == 0
                      ? chunked::launch_bwd_rows<float, true>(q, k, v, mask, dout, m, l, dsum, dq,
-                                                             nullptr, nullptr, nullptr, st, B,
-                                                             Hq, Hq / Hkv, L, L, head_dim,
-                                                             scale, s)
+                                                             nullptr, nullptr, nullptr, dqpart,
+                                                             st, B, Hq, Hq / Hkv, L, L, head_dim,
+                                                             splits, scale, s)
                      : chunked::launch_bwd_rows<bf16, true>(q, k, v, mask, dout, m, l, dsum, dq,
-                                                            nullptr, nullptr, nullptr, st, B, Hq,
-                                                            Hq / Hkv, L, L, head_dim, scale, s));
+                                                            nullptr, nullptr, nullptr, dqpart,
+                                                            st, B, Hq, Hq / Hkv, L, L, head_dim,
+                                                            splits, scale, s));
   }
   return (int)with_head_dim(head_dim, [&](auto hd) {
     return launch_dq<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dq, B, L, Hq, Hkv,

@@ -58,11 +58,13 @@
 //   the next step: mma.sync keeps this redesign's fragment logic in one
 //   warp, where it could be brought up and checked within one change.
 //
-// fp32 design (flash_causal_fwd_f32): tensor cores would mean TF32, which
-// keeps ~3 decimal digits and breaks the 1e-5 fp32 gates, so fp32 keeps the
-// scalar design: 16 x 16 threads, each owning a 4 x 4 block of a 64 x 64
-// score tile and a 4 x (HD / 16) block of the output, fp32 FMAs from padded
-// shared tiles.  No main path on the card runs fp32 attention.
+// fp32 design (flash_causal_fwd_f32, HD <= 256; above it the chunked form's
+// 3xTF32 tensor-core kernels, flash_chunked_cluster.cuh): plain TF32 on
+// tensor cores keeps ~3 decimal digits and breaks the 1e-5 fp32 gates, so
+// fp32 keeps the scalar design: 16 x 16 threads, each owning a 4 x 4 block
+// of a 64 x 64 score tile and a 4 x (HD / 16) block of the output, fp32
+// FMAs from padded shared tiles.  A float32 Qwen3 run (int8_base_convergence)
+// reaches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -480,28 +482,32 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
 // or above 256 (the chunked form: rows of whole 16-byte pieces;
 // cudaErrorInvalidValue otherwise: the wrapper pads first).  scale: the softmax scale, 1 / sqrt of the true head
 // dim.  m_out and l_out are both null (inference) or both [B, L, Hq] float
-// (training).
+// (training).  splits: key splits, above one only in the float32 chunked
+// cluster form (part: float32 scratch of splits * B * Hq * L * (C * 256 +
+// 2) elements, flash_chunked.cuh's launch_fwd; null with one split).
 extern "C" int unirec_flash_causal_fwd(const void* q, const void* k, const void* v,
                                        const float* mask, void* out, float* m_out,
-                                       float* l_out, int B, int L, int Hq, int Hkv,
-                                       int head_dim, int dtype, float scale,
+                                       float* l_out, float* part, int B, int L, int Hq, int Hkv,
+                                       int head_dim, int dtype, int splits, float scale,
                                        void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || L <= 0 ||
-      (m_out == nullptr) != (l_out == nullptr) || (dtype != 0 && dtype != 1))
+      (m_out == nullptr) != (l_out == nullptr) || (dtype != 0 && dtype != 1) ||
+      (splits != 1 && !chunked::is_chunked(head_dim)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunked::is_chunked(head_dim)) {
     const chunked::Strides qs = chunked::merged(L, Hq, head_dim),
                            ks = chunked::merged(L, Hkv, head_dim);
-    // one key split: K1's merge launch costs more than its split saves
+    // bf16: one key split (K1's merge launch costs more than its split
+    // saves); float32 as the wrapper plans it
     return (int)(dtype == 0
                      ? chunked::launch_fwd<float, float, true>(q, k, v, mask, out, m_out, l_out,
-                                                               nullptr, qs, ks, ks, qs, B, Hq,
-                                                               Hq / Hkv, L, L, head_dim, 1,
+                                                               part, qs, ks, ks, qs, B, Hq,
+                                                               Hq / Hkv, L, L, head_dim, splits,
                                                                scale, s)
                      : chunked::launch_fwd<bf16, bf16, true>(q, k, v, mask, out, m_out, l_out,
-                                                             nullptr, qs, ks, ks, qs, B, Hq,
-                                                             Hq / Hkv, L, L, head_dim, 1,
+                                                             part, qs, ks, ks, qs, B, Hq,
+                                                             Hq / Hkv, L, L, head_dim, splits,
                                                              scale, s));
   }
   return (int)with_head_dim(head_dim, [&](auto hd) {

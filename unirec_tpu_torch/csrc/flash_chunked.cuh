@@ -119,18 +119,28 @@
 // (forward) and 230 KB (backward) whatever C is; the cluster's 8 blocks,
 // the portable size.
 //
+// float32 design (chunk_fwd_cl32, chunk_bwd_rows_cl32 in
+// flash_chunked_cluster.cuh, 2 to 8 chunks): the cluster schedule with
+// every product on tensor cores in 3xTF32 (each float32 operand split into
+// tf32 big + small, three products a step; ptx_helpers.cuh), which holds
+// the 1e-5 float32 gates where plain TF32 (one product) misses them by 30
+// to 60 times (tests/test_torch_tf32_split.py); 8 warps a block, one block
+// an SM, key splits where the grid holds fewer (the cross forward and
+// backward, K1 and B7b's dq).
+//
 // The form rule (form()), by shape before the launch: bf16 on tensor cores
 // up to 5 chunks forward, 2 over rows, 4 over keys; in a cluster up to 8
+// forward and over rows; float32 in a cluster in 3xTF32 up to 8 chunks
 // forward and over rows; the scalar kernels below (templates on the type)
 // for bf16 above those (the forward and over rows above hd 2048, dk / dv
-// above 1024) and for float32.
+// above 1024) and for float32 above 8 chunks and over keys (B7b's dk /
+// dv).
 //
-// Scalar design (chunk_fwd, chunk_bwd_rows, chunk_bwd_keys; fp32, and bf16
-// above the tensor-core forms' chunk counts): tensor cores would mean TF32,
-// which breaks the 1e-5 fp32 gates, so fp32 keeps scalar fp32 FMAs,
-// staged through shared memory one chunk at a time in chunk order, 16 x 16
-// threads over 64-row q tiles and 32-key tiles: the scores
-// are computed C times and q and k staged once per (key tile, chunk) pair.
+// Scalar design (chunk_fwd, chunk_bwd_rows, chunk_bwd_keys; above the other
+// forms' chunk counts, and float32's dk / dv): scalar fp32 FMAs, staged
+// through shared memory one chunk at a time in chunk order, 16 x 16 threads
+// over 64-row q tiles and 32-key tiles: the scores are computed C times and
+// q and k staged once per (key tile, chunk) pair.
 //   - Backward: B7b keeps its two kernels (dq over the key tiles of a q
 //     tile, dk / dv over the q tiles of a key tile and its GQA group); B14
 //     and B14p keep one pass over the keys: a block writes its chunk of dq,
@@ -762,12 +772,13 @@ __device__ __forceinline__ int tc_cols(int cols, int x) {
   return PART ? chunk_cols(cols, x) : CW;
 }
 
-// the key info of the key tile at k0 -> kin[TK]: cross, the bias (0 where
+// the key info of the N-key tile at k0 -> kin[N]: cross, the bias (0 where
 // there is none, and past Lkv); causal, the pad mask (0 past Lkv).  dummy:
 // any global address, read by no copy
+template <int N = TK>
 __device__ __forceinline__ void copy_key_info(float* kin, const float* bm, int k0, int Lkv,
                                               const void* dummy, int tid) {
-  if (tid < TK) {
+  if (tid < N) {
     const int key = k0 + tid;
     const bool ok = bm != nullptr && key < Lkv;
     cp_async_4(smem_addr(kin + tid), ok ? bm + key : static_cast<const float*>(dummy), ok);
@@ -1034,13 +1045,15 @@ chunk_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   }
 }
 
-// The key splits of the cross chunk_fwd_tc merged, one block per (row,
-// head, batch): m = max_s m_s (each split's m starts at -1e9, so every
-// weight is finite), l = sum_s l_s exp(m_s - m), o = sum_s o_s exp(m_s - m)
-// / (l == 0 ? 1 : l), summed in split order.  part: o_s
-// [splits][B][H][Lq][HDP], then m_s, l_s [splits][m, l][B][Lq][H]; o's
-// first cols columns are written.
-template <typename OT>
+// The key splits of the chunked forward merged, one block per (row, head,
+// batch): m = max_s m_s (cross: each split's m starts at -1e9, so every
+// weight is finite; causal, the float32 cluster form: a split whose keys
+// all follow the row keeps m = -inf, weight 0, and split 0 holds key 0), l
+// = sum_s l_s exp(m_s - m), o = sum_s o_s exp(m_s - m), normalised as the
+// family's kernels do (cross / (l == 0 ? 1 : l), causal * (l > 0 ? 1 / l :
+// 0)), summed in split order.  part: o_s [splits][B][H][Lq][HDP], then m_s,
+// l_s [splits][m, l][B][Lq][H]; o's first cols columns are written.
+template <typename OT, bool CAUSAL = false>
 __global__ void __launch_bounds__(256)
 chunk_fwd_merge(const float* __restrict__ part, OT* __restrict__ o, float* __restrict__ m_out,
                 float* __restrict__ l_out, Strides os, int splits, int H, int Lq, int HDP,
@@ -1055,13 +1068,14 @@ chunk_fwd_merge(const float* __restrict__ part, OT* __restrict__ o, float* __res
   float l = 0.f;
   for (int sp = 0; sp < splits; ++sp) l += at(sp, 1) * expf(at(sp, 0) - m);
   const float den = l == 0.f ? 1.f : l;
+  const float inv = l > 0.f ? 1.f / l : 0.f;
   OT* orow = o + b * os.b + h * os.h + row * os.r;
   for (int col = threadIdx.x; col < cols; col += 256) {
     float acc = 0.f;
     for (int sp = 0; sp < splits; ++sp)
       acc += part[((((long long)sp * B + b) * H + h) * Lq + row) * HDP + col] *
              expf(at(sp, 0) - m);
-    put(orow + col, acc / den);
+    put(orow + col, CAUSAL ? acc * inv : acc / den);
   }
   if (m_out != nullptr && threadIdx.x == 0) {
     const size_t ri = ((size_t)b * Lq + row) * H + h;
@@ -1562,18 +1576,20 @@ inline int chunks(int head_dim) { return (head_dim + CW - 1) / CW; }
 template <typename T>
 inline bool whole_pieces(int head_dim) { return head_dim % (16 / (int)sizeof(T)) == 0; }
 
-// The form a chunked launch takes, chosen by shape before any launch: the
-// tensor-core kernel where its shared memory holds C chunks (bf16: the
+// The form a chunked launch takes, chosen by shape before any launch: bf16
+// on the tensor-core kernel where its shared memory holds C chunks (the
 // forward C <= 5, the backward over rows C <= 2, over keys C <= 4); above
 // those the cluster kernel (flash_chunked_cluster.cuh) up to CL_MAX chunks
-// in the forward and over rows (bf16: the forward 6 <= C <= 8, over rows 3
-// <= C <= 8); the scalar kernel otherwise (float32 always, bf16 above 8
-// chunks, and over keys above 4).  A launch of the form chosen that fails
-// still fails: nothing is retried.
+// in the forward and over rows (the forward 6 <= C <= 8, over rows 3 <= C
+// <= 8); float32 on the 3xTF32 cluster kernel (flash_chunked_cluster.cuh)
+// at every C up to CL_MAX in the forward and over rows; the scalar kernel
+// otherwise (above 8 chunks, and over keys: bf16 above 4 chunks, float32
+// always).  A launch of the form chosen that fails still fails: nothing is
+// retried.
 enum Kind { FWD = 0, ROWS = 1, KEYS = 2 };
-enum Form { SCALAR = 1, TENSOR_CORES = 2, CLUSTER = 3 };
+enum Form { SCALAR = 1, TENSOR_CORES = 2, CLUSTER = 3, CLUSTER_TF32 = 4 };
 inline Form form(Kind kind, int C, bool bf) {
-  if (!bf) return SCALAR;
+  if (!bf) return kind != KEYS && C <= CL_MAX ? CLUSTER_TF32 : SCALAR;
   const int S = kind == KEYS ? keys_stages(C) : tc_stages(C, kind == ROWS);
   if (S > 0) return TENSOR_CORES;
   return kind != KEYS && C <= CL_MAX ? CLUSTER : SCALAR;
@@ -1616,9 +1632,11 @@ cudaError_t launch_rows_tc(const void* q, const void* k, const void* v, const fl
   return cudaGetLastError();
 }
 
-// the forward.  bf16 cross: splits key splits (part: float32 scratch of
-// splits * B * H * Lq * (C * CW + 2) elements when splits > 1, null
-// otherwise), merged by a second launch; causal and float32 take splits == 1.
+// the forward.  Cross on tensor cores or in a cluster (bf16 and float32),
+// and causal in the float32 cluster form: splits key splits (part: float32
+// scratch of splits * B * H * Lq * (C * CW + 2) elements when splits > 1,
+// null otherwise), merged by a second launch; bf16 causal and the scalar
+// form take splits == 1.
 template <typename T, typename OT, bool CAUSAL>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bm, void* o,
                        float* m, float* l, float* part, Strides qs, Strides ks, Strides vs,
@@ -1627,8 +1645,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
   const int C = chunks(head_dim);
   const int n_qt = (Lq + BQ - 1) / BQ;
   if ((long long)H * C > 65535 || splits < 1 || (splits > 1) != (part != nullptr) ||
-      (CAUSAL && splits > 1) || (long long)n_qt * splits > 2147483647ll ||
-      !whole_pieces<T>(head_dim))
+      (CAUSAL && splits > 1 && form(FWD, C, std::is_same<T, bf16>::value) != CLUSTER_TF32) ||
+      (long long)n_qt * splits > 2147483647ll || !whole_pieces<T>(head_dim))
     return cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
@@ -1657,6 +1675,18 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
           part, static_cast<OT*>(o), m, l, os, splits, H, Lq, C * CW, head_dim);
       return cudaGetLastError();
     }
+  } else if (form(FWD, C, false) == CLUSTER_TF32) {
+    static_assert(std::is_same<OT, float>::value, "float32 writes a float32 o");
+    err = head_dim < C * CW
+              ? launch_fwd_cl32<CAUSAL, true>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B, H,
+                                              group, Lq, Lkv, C, head_dim, splits, scale, stream)
+              : launch_fwd_cl32<CAUSAL, false>(q, k, v, bm, o, m, l, part, qs, ks, vs, os, B, H,
+                                               group, Lq, Lkv, C, head_dim, splits, scale,
+                                               stream);
+    if (err != cudaSuccess || splits == 1) return err;
+    chunk_fwd_merge<float, CAUSAL><<<dim3(Lq, H, B), 256, 0, stream>>>(
+        part, static_cast<float*>(o), m, l, os, splits, H, Lq, C * CW, head_dim);
+    return cudaGetLastError();
   }
   if (splits != 1) return cudaErrorInvalidValue;  // the scalar form takes no key splits
   err = cudaFuncSetAttribute(chunk_fwd<T, OT, CAUSAL>,
@@ -1670,18 +1700,23 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
 
 // the backward over key tiles: B7b's dq (CAUSAL, no dk / dv) or B14 / B14p's
 // one pass (cross: part is float32 scratch of 2 * ceil(Lq / BQ) * B * H *
-// Lkv * C * CW elements when Lq > BQ, null otherwise)
+// Lkv * C * CW elements when Lq > BQ, null otherwise).  The float32 form in
+// a cluster takes splits key splits (dqpart: float32 scratch of splits * B
+// * H * Lq * C * CW elements when splits > 1, null otherwise), their dq
+// summed by a second launch; the others take splits == 1.
 template <typename T, bool CAUSAL>
 cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v, const float* bm,
                             const void* dout, const float* m, const float* l,
                             const float* dsum, void* dq, void* dk, void* dv, float* part,
-                            const BwdStrides& st, int B, int H, int group, int Lq, int Lkv,
-                            int head_dim, float scale, cudaStream_t stream) {
+                            float* dqpart, const BwdStrides& st, int B, int H, int group, int Lq,
+                            int Lkv, int head_dim, int splits, float scale,
+                            cudaStream_t stream) {
   constexpr bool DKV = !CAUSAL;
   const int C = chunks(head_dim);
   const int n_qt = (Lq + BQ - 1) / BQ;
   if ((long long)H * C > 65535 || (DKV && (n_qt > 1) != (part != nullptr)) ||
-      !whole_pieces<T>(head_dim))
+      !whole_pieces<T>(head_dim) || splits < 1 || (splits > 1) != (dqpart != nullptr) ||
+      (splits > 1 && form(ROWS, C, std::is_same<T, bf16>::value) != CLUSTER_TF32))
     return cudaErrorInvalidValue;
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
@@ -1706,6 +1741,25 @@ cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v, const f
                                                      part, st, B, H, group, Lq, Lkv, C,
                                                      head_dim, scale, stream);
     if (f != SCALAR && err != cudaSuccess) return err;
+  } else {
+    f = form(ROWS, C, false);
+    if (f == CLUSTER_TF32)
+      err = head_dim < C * CW
+                ? launch_rows_cl32<CAUSAL, DKV, true>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
+                                                      part, dqpart, st, B, H, group, Lq, Lkv, C,
+                                                      head_dim, splits, scale, stream)
+                : launch_rows_cl32<CAUSAL, DKV, false>(q, k, v, bm, dout, m, l, dsum, dq, dk, dv,
+                                                       part, dqpart, st, B, H, group, Lq, Lkv, C,
+                                                       head_dim, splits, scale, stream);
+    if (f != SCALAR && err != cudaSuccess) return err;
+    if (dqpart != nullptr) {
+      const long long n = (long long)B * H * Lq * C * CW;
+      const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+      chunk_dq_sum<T><<<blocks, 256, 0, stream>>>(dqpart, static_cast<T*>(dq), st.dq, splits, B,
+                                                   H, Lq, C * CW, head_dim);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
   }
   if (f == SCALAR) {
     err = cudaFuncSetAttribute(chunk_bwd_rows<T, CAUSAL, DKV>,

@@ -120,9 +120,12 @@
 //     put into the first cross layer's weight gradients (chip_smoke.py phase
 //     8 holds them).  wgmma and TMA are the next step, as for K1.
 //
-// fp32 design: tensor cores would mean TF32, which breaks the 1e-5 fp32
-// gates, and no path on the card runs fp32 cross-attention, so fp32 keeps the
-// scalar kernels, unchanged at HD <= 128: the forward, then for the backward
+// fp32 design up to HD 256 (above it the chunked form, whose float32 kernels
+// run on tensor cores in 3xTF32: flash_chunked_cluster.cuh): plain TF32 on
+// tensor cores keeps about 3 decimal digits and breaks the 1e-5 fp32 gates,
+// so fp32 keeps the scalar kernels, unchanged at HD <= 128 (float32 is the
+// default precision of train user-qformer, whose --flash cross layers run
+// B14): the forward, then for the backward
 // a dq kernel (one block per q tile) and a dk / dv kernel (one block per kv
 // tile), 16 x 16 threads, a thread owning an R x R block of a BT x BT score
 // tile and an R x (HD / 16) block of an output, fp32 FMAs from padded shared
@@ -1308,15 +1311,22 @@ extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* 
 // The backward of B14 and B14p.  float32: the dq kernel, then the dk / dv
 // kernel.  bfloat16: the one-pass kernel, and with Lq > 64 the sum of its
 // q tiles' partials, for which part is float32 scratch of 2 * ceil(Lq / 64)
-// * B * H * Lkv * head_dim elements (null otherwise).  strides: 21 values,
+// * B * H * Lkv * head_dim elements (null otherwise).  Above 256 the
+// chunked form, one pass in both types; the float32 cluster form takes
+// splits key splits (dqpart: float32 scratch of splits * B * H * Lq *
+// head_dim elements when splits > 1, null otherwise; flash_chunked.cuh's
+// launch_bwd_rows), every other launch splits == 1.  strides: 21 values,
 // (batch, head, row) of q, k, v, dO, dq, dk and dv in that order.
 extern "C" int unirec_flash_cross_bwd(const void* q, const void* k, const void* v,
                                       const float* bias, const void* dout, const float* m,
                                       const float* l, const float* dsum, void* dq, void* dk,
-                                      void* dv, float* part, const long long* strides, int B,
-                                      int H, int Lq, int Lkv, int head_dim, int dtype,
-                                      float scale, void* stream) {
-  if (bad_shape(B, H, Lq, Lkv) || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+                                      void* dv, float* part, float* dqpart,
+                                      const long long* strides, int B, int H, int Lq, int Lkv,
+                                      int head_dim, int dtype, int splits, float scale,
+                                      void* stream) {
+  if (bad_shape(B, H, Lq, Lkv) || dtype < 0 || dtype > 1 ||
+      (splits != 1 && !chunked::is_chunked(head_dim)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* x = strides;
   const BwdStrides st{{x[0], x[1], x[2]},    {x[3], x[4], x[5]},    {x[6], x[7], x[8]},
@@ -1329,11 +1339,13 @@ extern "C" int unirec_flash_cross_bwd(const void* q, const void* k, const void* 
                                  {x[18], x[19], x[20]}};
     return (int)(dtype == 0
                      ? chunked::launch_bwd_rows<float, false>(q, k, v, bias, dout, m, l, dsum,
-                                                              dq, dk, dv, part, cs, B, H, 1,
-                                                              Lq, Lkv, head_dim, scale, s)
+                                                              dq, dk, dv, part, dqpart, cs, B, H,
+                                                              1, Lq, Lkv, head_dim, splits,
+                                                              scale, s)
                      : chunked::launch_bwd_rows<bf16, false>(q, k, v, bias, dout, m, l, dsum,
-                                                             dq, dk, dv, part, cs, B, H, 1, Lq,
-                                                             Lkv, head_dim, scale, s));
+                                                             dq, dk, dv, part, dqpart, cs, B, H,
+                                                             1, Lq, Lkv, head_dim, splits, scale,
+                                                             s));
   }
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;

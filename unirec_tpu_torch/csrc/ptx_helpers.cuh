@@ -1,8 +1,9 @@
 // PTX helpers shared by the port's tensor-core kernels: shared-memory
 // addresses, 16- and 4-byte cp.async copies, ldmatrix (plain and transposed)
 // and the bf16 mma.sync.m16n8k16 with fp32 accumulation, with the bf16
-// packing of its A fragments (one rounding, or a hi + lo pair), and the int8
-// mma.sync.m16n8k32; the warpgroup products wgmma.m64n128k16 / m64n256k16
+// packing of its A fragments (one rounding, or a hi + lo pair), the int8
+// mma.sync.m16n8k32, the tf32 mma.sync.m16n8k8 with the 3xTF32 split of
+// float32 operands; the warpgroup products wgmma.m64n128k16 / m64n256k16
 // (bf16) and m64n128k32 / m64n256k32 (int8) from swizzled shared-memory
 // tiles, mbarriers and 2-D TMA tile loads; the cluster barrier and reads of
 // a peer CTA's shared memory (distributed shared memory).
@@ -100,6 +101,69 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   hi = pack_bf16(x0, x1);
   const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
   lo = pack_bf16(x0 - __bfloat162float(h.x), x1 - __bfloat162float(h.y));
+}
+
+// ------------------------------------------------------- tf32, 3xTF32 --
+// mma.m16n8k8 with tf32 operands (g = lane / 4, t = lane % 4):
+//   A (16 x 8, row-major) a[0]: (g, t)  a[1]: (g + 8, t)  a[2]: (g, t + 4)
+//                         a[3]: (g + 8, t + 4)
+//   B (8 x 8, k x n)      b0: (k t, n g)  b1: (k t + 4, n g)
+//   C (16 x 8, fp32)      as m16n8k16's: c[0..1]: (g, 2t..2t+1)
+//                         c[2..3]: (g + 8, 2t..2t+1)
+// The tensor cores read the top 19 bits of each 32-bit operand (sign, 8
+// exponent bits, 10 of the 23 mantissa bits): plain TF32 keeps about 3
+// decimal digits.  3xTF32 (CUTLASS's "fast fp32") holds each float32 operand
+// x as big = rna(x) and small = rna(x - big), both tf32, and issues a
+// product as small . big + big . small + big . big (mma_3xtf32): each
+// operand is then held to about 2^-22 of itself and only small . small
+// (about 2^-22 of the product) is dropped.  A C fragment is an
+// A fragment only with the k index of each 8-wide step permuted (A slot t
+// holding column 2t, slot t + 4 column 2t + 1): a kernel that feeds one
+// product's C fragments to the next reads B's k rows 2t and 2t + 1 to match
+// (the sum over k is the same; only the order in which the tensor cores add
+// it is another).
+
+// x as big = rna(x) and small = rna(x - big), rna rounding to tf32 to
+// nearest with ties away from zero as cvt.rna.tf32.f32 does: half of the
+// dropped ulp added to the magnitude (the bit pattern's low 31 bits), and
+// for big the 13 low bits cleared, so that x - big is exact in fp32 (the
+// mma reads the top 19 bits of small, which are rna's).  Integer adds and
+// masks on the bit pattern give cvt.rna's bits for every finite x and took
+// 13-17% off the kernels' times against cvt (scripts/probe_chunked_tf32.py,
+// int_rna).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// t[n] += A B_n for N n-tiles in 3xTF32 from split fragments (ab / as:
+// A's big and small halves; bb / bs: B_n's): small . big, big . small,
+// then big . big, issued in turn over the n-tiles (each n-tile's three are
+// a chain; N chains run side by side).  The tensor cores do not round
+// their sums to nearest: a kernel sums a few steps into a t that starts at
+// zero and adds t to its accumulator with an fp32 add (round to nearest);
+// summing every step of a long loop into one accumulator in the mma took
+// B14's dq at hd 320 to 1.17e-5 of max|ref| on the card, past the 1e-5
+// gate.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*t)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&bb)[N][2],
+                                           const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(t[n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(t[n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(t[n], ab, bb[n][0], bb[n][1]);
 }
 
 // ------------------------------------------------------------ wgmma (sm_90a) --

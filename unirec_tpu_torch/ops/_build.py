@@ -98,9 +98,9 @@ def load_kernels() -> Kernels:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' argument and result types on ``lib``."""
-    lib.unirec_flash_causal_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_F, _P]
+    lib.unirec_flash_causal_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_F, _P]
     lib.unirec_flash_causal_fwd.restype = _I
-    lib.unirec_flash_causal_bwd_dq.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
+    lib.unirec_flash_causal_bwd_dq.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
     lib.unirec_flash_causal_bwd_dq.restype = _I
     lib.unirec_flash_causal_bwd_dkv.argtypes = [_P] * 10 + [_I] * 6 + [_F, _P]
     lib.unirec_flash_causal_bwd_dkv.restype = _I
@@ -166,7 +166,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.unirec_flash_cross_fwd.argtypes = [_P] * 8 + [_L] * 12 + [_I] * 7 + [
         _F, _P]
     lib.unirec_flash_cross_fwd.restype = _I
-    lib.unirec_flash_cross_bwd.argtypes = [_P] * 13 + [_I] * 6 + [_F, _P]
+    lib.unirec_flash_cross_bwd.argtypes = [_P] * 14 + [_I] * 7 + [_F, _P]
     lib.unirec_flash_cross_bwd.restype = _I
     lib.unirec_packed_item_attention.argtypes = [_P] * 5 + [_L] * 12 + [
         _I] * 6 + [_F, _P]

@@ -49,9 +49,11 @@ KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
 # (K1, B13, B14, B14p), the backward over rows (B7b's dq, B14 / B14p's one
 # pass) and the backward over keys (B7b's dk / dv)
 CHUNKED_FWD, CHUNKED_ROWS, CHUNKED_KEYS = 0, 1, 2
-_FORMS = {1: "scalar", 2: "tensor_cores", 3: "cluster"}
-# the chunked bf16 forward's tiles: 64 query rows, 32 keys
-CHUNK_Q_TILE, CHUNK_KEY_TILE = 64, 32
+_FORMS = {1: "scalar", 2: "tensor_cores", 3: "cluster", 4: "cluster_tf32"}
+# the chunked forward's tiles (bf16 and the float32 cluster form): 64 query
+# rows, 32 keys; the float32 cluster form's backward over rows takes 16 keys
+# (the key tiles that ``chunked_plan`` splits)
+CHUNK_Q_TILE, CHUNK_KEY_TILE, CHUNK_ROWS_KEY_TILE = 64, 32, 16
 
 
 def make_additive_mask(mask: torch.Tensor,
@@ -261,12 +263,13 @@ def chunked_form(kind: int, kernel_hd: int, t: torch.Tensor) -> Optional[str]:
     """The form that a chunked launch of ``kind`` (``CHUNKED_FWD``,
     ``CHUNKED_ROWS``, ``CHUNKED_KEYS``) takes at the kernels' head dim in t's
     dtype, as ``csrc/flash_chunked.cuh`` chooses it by shape before any
-    launch: "tensor_cores" where its shared memory holds the C chunks (bf16:
-    the forward C <= 5, the backward over rows C <= 2, over keys C <= 4),
+    launch: bf16 "tensor_cores" where its shared memory holds the C chunks
+    (the forward C <= 5, the backward over rows C <= 2, over keys C <= 4),
     "cluster" above those up to 8 chunks in the forward and over rows (one
-    block a chunk in a thread-block cluster), "scalar" otherwise (float32
-    always, bf16 above 8 chunks and over keys above 4); None at a head dim
-    that is not chunked."""
+    block a chunk in a thread-block cluster); float32 "cluster_tf32" up to 8
+    chunks in the forward and over rows (the cluster schedule, products in
+    3xTF32); "scalar" otherwise (above 8 chunks, and over keys: bf16 above
+    4 chunks, float32 always); None at a head dim that is not chunked."""
     return _chunked_form(kind, kernel_hd, dtype_code(t))
 
 
@@ -287,14 +290,14 @@ def _chunked_form(kind: int, kernel_hd: int, dtype: int) -> Optional[str]:
     return _FORMS.get(code)
 
 
-def chunked_fwd_splits(blocks: int, key_tiles: int, sms: int) -> int:
-    """Key splits of the chunked bf16 cross forward (``csrc/flash_chunked.cuh``;
-    B13, B14, B14p): a grid of ``blocks`` (q tiles x heads x chunks x batch)
-    that holds fewer than two blocks per SM splits each row's ``key_tiles``
-    over as many blocks as fill two per SM, each split at least 4 key tiles
-    long; a second launch merges the splits' (m, l, o).  K1 takes one split
-    (its merge cost more than the split saved at B 2, L 512)."""
-    return max(1, min(2 * sms // max(blocks, 1), key_tiles // 4))
+def chunked_fwd_splits(blocks: int, key_tiles: int, sms: int,
+                       per_sm: int = 2) -> int:
+    """Key splits of a chunked launch that takes them (``chunked_plan``): a
+    grid of ``blocks`` (q tiles x heads x chunks x batch) that holds fewer
+    than ``per_sm`` blocks per SM splits each row's ``key_tiles`` over as
+    many blocks as fill ``per_sm`` per SM, each split at least 4 key tiles
+    long."""
+    return max(1, min(per_sm * sms // max(blocks, 1), key_tiles // 4))
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,25 +312,50 @@ def scratch_width(kernel_hd: int) -> int:
     return kernel_hd if kernel_hd <= widest else -(-kernel_hd // widest) * widest
 
 
-def chunked_fwd_plan(q: torch.Tensor, b: int, h: int, lq: int, lkv: int,
-                     kernel_hd: int, form: Optional[str]):
-    """(splits, scratch) of one cross forward launch at the kernels' head
-    dim, whose chunked form is ``form`` (``chunked_form``): (1, None) but for
-    the chunked bf16 forms on tensor cores and in clusters (a block a chunk
-    in both), whose splits (above one) write their float32 (o, m, l) to
-    ``splits * b * h * lq * (C * 256 + 2)`` floats of scratch."""
-    if form not in ("tensor_cores", "cluster"):  # bf16 above 256 only
+# The chunked launches that split each row's keys over blocks when their
+# grid holds too few blocks for the card, by (kind, causal, form): (key
+# tile, blocks an SM that the splits fill).  bf16's cross forward on tensor
+# cores and in clusters fills two blocks an SM (K1 takes no split: its merge
+# cost more than the split saved at B 2, L 512); the float32 cluster form
+# ("cluster_tf32"), whose shared memory holds one block an SM, fills one
+# with the cross kernels and two with K1 and B7b's dq (a causal grid's last
+# q tiles visit n_qt times the key tiles of its first), its backward over
+# rows on 16-key tiles.  A second launch merges the splits' (o, m, l) in
+# split order (forward) or adds their dq (over rows).
+_KEY_SPLITS = {
+    (CHUNKED_FWD, False, "tensor_cores"): (CHUNK_KEY_TILE, 2),
+    (CHUNKED_FWD, False, "cluster"): (CHUNK_KEY_TILE, 2),
+    (CHUNKED_FWD, False, "cluster_tf32"): (CHUNK_KEY_TILE, 1),
+    (CHUNKED_ROWS, False, "cluster_tf32"): (CHUNK_ROWS_KEY_TILE, 1),
+    (CHUNKED_FWD, True, "cluster_tf32"): (CHUNK_KEY_TILE, 2),
+    (CHUNKED_ROWS, True, "cluster_tf32"): (CHUNK_ROWS_KEY_TILE, 2),
+}
+
+
+def chunked_plan(q: torch.Tensor, kind: int, b: int, h: int, lq: int,
+                 lkv: int, kernel_hd: int, form: Optional[str],
+                 causal: bool = False):
+    """(splits, scratch) of one chunked launch of ``kind`` (``CHUNKED_FWD``
+    or ``CHUNKED_ROWS``; ``causal`` for K1 and B7b's dq) over ``lq`` query
+    rows and ``lkv`` keys in ``h`` heads at the kernels' head dim, whose
+    form is ``form`` (``chunked_form``): the splits of ``_KEY_SPLITS``
+    (``chunked_fwd_splits``), whose float32 partials go to ``splits * b * h
+    * lq * width`` floats of scratch, width C * 256 + 2 for the forward's
+    (o, m, l) and C * 256 for dq; (1, None) for every other launch and for a
+    grid that fills the card."""
+    rule = _KEY_SPLITS.get((kind, causal, form))
+    if rule is None:
         return 1, None
+    key_tile, per_sm = rule
     chunks = -(-kernel_hd // KERNEL_HEAD_DIMS[-1])
     blocks = -(-lq // CHUNK_Q_TILE) * h * chunks * b
-    key_tiles = -(-lkv // CHUNK_KEY_TILE)
-    splits = chunked_fwd_splits(blocks, key_tiles,
-                                _sm_count(q.device.index or 0))
+    splits = chunked_fwd_splits(blocks, -(-lkv // key_tile),
+                                _sm_count(q.device.index or 0), per_sm)
     if splits == 1:
         return 1, None
-    return splits, torch.empty(
-        splits * b * h * lq * (scratch_width(kernel_hd) + 2), device=q.device,
-        dtype=torch.float32)
+    width = scratch_width(kernel_hd) + (2 if kind == CHUNKED_FWD else 0)
+    return splits, torch.empty(splits * b * h * lq * width, device=q.device,
+                               dtype=torch.float32)
 
 
 def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
@@ -343,8 +371,8 @@ def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
         qk, kk, vk = ins
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
         form = chunked_form(CHUNKED_FWD, kernel_hd, q)
-        splits, part = chunked_fwd_plan(q, b, h, lq, k.shape[2], kernel_hd,
-                                        form)
+        splits, part = chunked_plan(q, CHUNKED_FWD, b, h, lq, k.shape[2],
+                                    kernel_hd, form)
         err = load_kernels().lib.unirec_flash_cross_fwd(
             qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
             None if bias32 is None else bias32.data_ptr(), outs[0].data_ptr(),

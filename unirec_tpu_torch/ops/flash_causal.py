@@ -20,8 +20,11 @@ ring, one block per pair of query heads of a GQA group so each K/V tile is
 loaded once for both, online softmax in fp32 registers, P and dS rounded to
 bf16 in registers before their products, tiles above the diagonal and key
 tiles that are all padding never loaded.  float32 keeps the scalar fp32 FMA
-design: tensor cores would mean TF32, which breaks the 1e-5 float32 gates.
-The sources' notes give the details, and why ``wgmma`` is the next step.
+design up to head dim 256: plain TF32 on tensor cores keeps about 3 decimal
+digits and breaks the 1e-5 float32 gates; above 256 the chunked form runs
+K1 and B7b's dq on tensor cores in 3xTF32 (three TF32 products of split
+operands, which hold the gates; ``csrc/flash_chunked_cluster.cuh``).  The
+sources' notes give the details, and why ``wgmma`` is the next step.
 
 Head dims: the kernels are built for every multiple of 16 up to 128 and
 for 256 (``ops/attention.KERNEL_HEAD_DIMS``); any other head dim up to 256
@@ -69,6 +72,8 @@ from unirec_tpu_torch.ops.attention import (
     CHUNKED_ROWS,
     NEG_INF,
     check_head_dim,
+    chunked_form,
+    chunked_plan,
     count_form,
     padded_launch,
     sm_scale,
@@ -243,11 +248,15 @@ def _k1(q, k, v, pad_mask, num_q_heads, num_kv_heads, stats: bool):
         l_ = torch.empty_like(m)
 
     def launch(ins, outs, kernel_hd):
+        splits, part = chunked_plan(
+            q, CHUNKED_FWD, b, num_q_heads, l, l, kernel_hd,
+            chunked_form(CHUNKED_FWD, kernel_hd, q), causal=True)
         err = load_kernels().lib.unirec_flash_causal_fwd(
             *(t.data_ptr() for t in ins), mask.data_ptr(), outs[0].data_ptr(),
             m.data_ptr() if stats else None, l_.data_ptr() if stats else None,
-            b, l, num_q_heads, num_kv_heads, kernel_hd, _dtype_code(q),
-            sm_scale(hd), torch.cuda.current_stream(q.device).cuda_stream)
+            None if part is None else part.data_ptr(), b, l, num_q_heads,
+            num_kv_heads, kernel_hd, _dtype_code(q), splits, sm_scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_causal_fwd")
         count_form(flash_causal_attention, CHUNKED_FWD, kernel_hd, q)
 
@@ -293,11 +302,15 @@ def flash_causal_bwd_dq(q, k, v, pad_mask, do, m, l, dsum, num_q_heads: int,
 
     def launch(ins, outs, kernel_hd):
         qk, kk, vk, dok = ins
+        splits, dqpart = chunked_plan(
+            q, CHUNKED_ROWS, b, num_q_heads, seq, seq, kernel_hd,
+            chunked_form(CHUNKED_ROWS, kernel_hd, q), causal=True)
         err = load_kernels().lib.unirec_flash_causal_bwd_dq(
             qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), mask.data_ptr(),
             dok.data_ptr(), m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
-            outs[0].data_ptr(), b, seq, num_q_heads, num_kv_heads, kernel_hd,
-            _dtype_code(q), sm_scale(hd),
+            outs[0].data_ptr(), None if dqpart is None else dqpart.data_ptr(),
+            b, seq, num_q_heads, num_kv_heads, kernel_hd, _dtype_code(q),
+            splits, sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_causal_bwd_dq")
         count_form(flash_causal_bwd_dq, CHUNKED_ROWS, kernel_hd, q)

@@ -62,6 +62,8 @@ from unirec_tpu_torch.ops._build import check, load_kernels
 from unirec_tpu_torch.ops.attention import (
     CHUNKED_ROWS,
     check_head_dim,
+    chunked_form,
+    chunked_plan,
     count_form,
     check_kernel_tensors,
     dtype_code,
@@ -155,10 +157,11 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
     L, hd]`` of any (batch, head, row) strides: B14's merged layout or
     B14p's per-head one.  bf16 runs one pass over the keys (with float32
     scratch for the partial dk / dv of each 64-row q tile when Lq is
-    longer), float32 the dq kernel, then the dk / dv kernel.  A head dim
-    that is not an instance runs zero-padded (``padded_launch``); the
-    chunked form's launches count by form in
-    ``launch_flash_cross_bwd.forms``."""
+    longer), float32 the dq kernel, then the dk / dv kernel; above 256 both
+    run one pass, float32's cluster form with the key splits and dq scratch
+    of ``chunked_plan``.  A head dim that is not an instance runs
+    zero-padded (``padded_launch``); the chunked form's launches count by
+    form in ``launch_flash_cross_bwd.forms``."""
     b, h, lq, hd = q.shape
     lkv = k.shape[2]
 
@@ -170,6 +173,9 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
             scratch = torch.empty(
                 n_qt * 2 * b * h * lkv * scratch_width(kernel_hd),
                 device=q.device, dtype=torch.float32)
+        splits, dqpart = chunked_plan(
+            q, CHUNKED_ROWS, b, h, lq, lkv, kernel_hd,
+            chunked_form(CHUNKED_ROWS, kernel_hd, q))
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
         qk, kk, vk, dok = ins
         err = load_kernels().lib.unirec_flash_cross_bwd(
@@ -178,8 +184,9 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
             m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
             *(t.data_ptr() for t in outs),
             None if scratch is None else scratch.data_ptr(),
+            None if dqpart is None else dqpart.data_ptr(),
             (ctypes.c_longlong * 21)(*strides), b, h, lq, lkv, kernel_hd,
-            dtype_code(q), sm_scale(hd),
+            dtype_code(q), splits, sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_cross_bwd")
         count_form(launch_flash_cross_bwd, CHUNKED_ROWS, kernel_hd, q)
