@@ -371,8 +371,8 @@ ENTRY_ITEMS = 2000  # the serve_cli catalog: small JSON files
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): the least
 # time a kernel could take is the larger of its bytes over the memory rate
 # and its operations over the peak rate of their type; "tf32x3" is a float32
-# product in 3xTF32 (the "cluster_tf32" forms: three TF32 products on the
-# tensor cores, 495 TFLOP/s, for each float32-accurate one)
+# product in 3xTF32 (the "cluster_tf32" and "tf32" forms: three TF32 products
+# on the tensor cores, 495 TFLOP/s, for each float32-accurate one)
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
             "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
@@ -2035,11 +2035,11 @@ def flash_inputs(gen, b, lkv, dtype, d=QF_D):
 
 def ops_kind(dtype, form=None) -> str:
     """The peak rate (``PEAK_OPS``) that bounds a kernel's products in
-    ``dtype`` and chunked ``form``: bf16's, float32's 3xTF32 in the
-    "cluster_tf32" form, else fp32 outside the tensor cores."""
+    ``dtype`` and ``form``: bf16's, float32's 3xTF32 in the "cluster_tf32"
+    and "tf32" forms, else fp32 outside the tensor cores."""
     if dtype == torch.bfloat16:
         return "bf16"
-    return "tf32x3" if form == "cluster_tf32" else "fp32"
+    return "tf32x3" if form in ("cluster_tf32", "tf32") else "fp32"
 
 
 def flash_bounds(b, lq, lkv, size, h=USER_HEADS, d=QF_D) -> dict:
@@ -2052,7 +2052,7 @@ def flash_bounds(b, lq, lkv, size, h=USER_HEADS, d=QF_D) -> dict:
     hd = d // h
     dtype = torch.bfloat16 if size == 2 else torch.float32
     kind = ops_kind(dtype, chunked_forms(hd, dtype)["fwd"] if hd > 256
-                    else None)
+                    else "tf32")
     io_q, io_kv = size * b * lq * d, size * b * lkv * d
     stats, bias = 4 * b * lq * h, 4 * b * lkv
     prod = 2 * b * lq * lkv * d  # one product over every head
@@ -2095,7 +2095,7 @@ def check_flash_cross(gen, dtype, b, lkv, h, hd, res) -> dict:
         got = kern()
         torch.cuda.synchronize()
         check_outputs(name.upper(), outs, got, plain(), where, res[name],
-                      rows32=dtype == torch.float32 and hd > 256)
+                      rows32=dtype == torch.float32)
         if not all(torch.equal(x, y) for x, y in zip(got, kern())):
             raise AssertionError(f"{name.upper()} {where}: a repeat gave "
                                  "other bits")
@@ -2121,9 +2121,9 @@ def check_flash_cross(gen, dtype, b, lkv, h, hd, res) -> dict:
 def check_outputs(name, outs, got, ref, where, res, rows32=False) -> None:
     """Each output of a kernel against its plain version: float32 (m, l)
     statistics to 1e-5 relative, the rest by ``kernel_error`` (dq and dk
-    with the GRAD_NOISE_FLOOR), or with ``rows32`` (the float32 chunked
-    forms) every output by ``fp32_rows`` (max|d| and row cosine); the
-    largest error goes to ``res["err"]``."""
+    with the GRAD_NOISE_FLOOR), or with ``rows32`` (the float32 forms, all
+    on tensor cores in 3xTF32) every output by ``fp32_rows`` (max|d| and
+    row cosine); the largest error goes to ``res["err"]``."""
     for o, g, r in zip(outs, got, ref):
         if rows32:
             err = fp32_rows(f"{name} {o}", g, r, where)
@@ -2188,15 +2188,18 @@ def phase_flash_cross(gen) -> dict:
     and over a ragged 1,000-row memory in 16 heads of 64, and over the
     ragged memory at the other head dims (FLASH_OTHER_HD: heads of the same
     width, 16 heads where the head dim does not divide it); each run twice
-    for identical bits.  Timed in bf16 at the user shape beside the plain
-    versions, the bounds and ``scaled_dot_product_attention`` (forward for
-    B13 and B14's forward, forward + backward for B14's backward, which
-    also gets ``path_ms``: B14's forward + backward as the autograd
-    Function runs them, without its projections)."""
+    for identical bits.  Timed in both dtypes at the user shape beside the
+    plain versions, the bounds (float32's at the 3xTF32 rate: the "tf32"
+    form, ``csrc/flash_tf32.cu``) and ``scaled_dot_product_attention`` in
+    the same dtype (forward for B13 and B14's forward, forward + backward
+    for B14's backward, which also gets ``path_ms``: B14's forward +
+    backward as the autograd Function runs them, without its projections).
+    Returns the bf16 figures, and the float32 ones under "fp32"."""
     from unirec_tpu_torch.ops import attention as pa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
+    res32 = {n: {"err": 0.0} for n in ("b13", "b14_fwd", "b14_bwd")}
     cases = [(dtype, b, lkv, USER_HEADS, QF_D // USER_HEADS)
              for dtype in (torch.float32, torch.bfloat16)
              for b, lkv in ((USER_BATCH, USER_SEQ * QF_K), USER_RAGGED)]
@@ -2205,8 +2208,9 @@ def phase_flash_cross(gen) -> dict:
               for hd in FLASH_OTHER_HD
               for dtype in (torch.float32, torch.bfloat16)]
     for dtype, b, lkv, h, hd in cases:
-        c = check_flash_cross(gen, dtype, b, lkv, h, hd, res)
-        if dtype == torch.bfloat16 and b == USER_BATCH:
+        into = res32 if dtype == torch.float32 else res
+        c = check_flash_cross(gen, dtype, b, lkv, h, hd, into)
+        if b == USER_BATCH:
             mask = c["bias"].to(dtype)
             qh, kh, vh = c["qh"], c["kh"], c["vh"]
             sdpa_cosine("B13", sdpa(qh, kh, vh, attn_mask=mask),
@@ -2215,14 +2219,17 @@ def phase_flash_cross(gen) -> dict:
                        "b14_fwd": lambda: sdpa(qh, kh, vh, attn_mask=mask),
                        "b14_bwd": sdpa_fwd_bwd(sdpa, qh, kh, vh, mask,
                                                pa.split_heads(c["do"], h))}
-            time_runs(c["runs"], library, flash_bounds(b, 64, lkv, 2), res,
-                      f"{dtype} B={b} Lq=64 Lkv={lkv}")
-            res["b14_bwd"]["path_ms"] = time_ms(c["path"], iters=20,
-                                                warmup=3)
+            into["sdpa_backend"] = sdpa_backend(qh, kh, vh, mask)
+            time_runs(c["runs"], library,
+                      flash_bounds(b, 64, lkv, c["qh"].element_size()), into,
+                      f"{dtype} B={b} Lq=64 Lkv={lkv} (SDPA backend "
+                      f"{into['sdpa_backend']})")
+            into["b14_bwd"]["path_ms"] = time_ms(c["path"], iters=20,
+                                                 warmup=3)
             log(f"B14 forward + backward through the Function's kernels "
                 f"{dtype} B={b} Lq=64 Lkv={lkv}: "
-                f"{res['b14_bwd']['path_ms']:.4f} ms (SDPA forward + "
-                f"backward {res['b14_bwd']['library_ms']:.4f} ms)")
+                f"{into['b14_bwd']['path_ms']:.4f} ms (SDPA forward + "
+                f"backward {into['b14_bwd']['library_ms']:.4f} ms)")
         elif dtype == torch.bfloat16:  # the ragged memory at each head dim
             log(f"B13 / B14 kernel times {dtype} B={b} Lq=64 Lkv={lkv} "
                 f"H={h} hd={hd}: " + ", ".join(
@@ -2230,7 +2237,138 @@ def phase_flash_cross(gen) -> dict:
                     for name, (kern, _, _) in c["runs"].items()))
         del c
         torch.cuda.empty_cache()
-    return res
+    return {**res, "fp32": res32}
+
+
+# float32 at every head dim up to 256: the instances of csrc/head_dim.cuh and
+# two that run zero-padded to one (8 -> 16, 24 -> 32)
+TF32_HDS = (16, 32, 48, 64, 80, 96, 112, 128, 256, 8, 24)
+# the attention kernels that float32 launches at those head dims
+# (csrc/flash_tf32.cu; chunk_dkv_sum adds the backward's q-tile partials),
+# and the scalar kernels they replaced, which no source defines any more
+TF32_KERNELS = ("fwd_tf32", "bwd_rows_tf32", "bwd_keys_tf32", "chunk_dkv_sum")
+SCALAR_F32_KERNELS = ("flash_cross_fwd_kernel", "flash_cross_bwd_dq_kernel",
+                      "flash_cross_bwd_dkv_kernel", "flash_causal_bwd_dq_f32",
+                      "flash_causal_bwd_dkv_f32")
+
+
+def attention_kernels(prof) -> dict:
+    """The flash kernels' device rows of a profile (name -> launches): B13,
+    B14, B14p and B7b's (K1 aside)."""
+    out = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and any(
+                k in e.key for k in ("flash_cross", "flash_causal_bwd",
+                                     "_tf32", "chunk_")):
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+def phase_tf32_forms(gen) -> dict:
+    """float32 B13, B14 and B14p (forward and backward) and B7b (dq, dk /
+    dv) at every head dim of TF32_HDS: B13 / B14p over a ragged 1,000-key
+    memory at 64 and 200 queries (the backward's float32 partials), B14 in
+    the merged layout at 64, B7b with GQA 2:1 over right-padded rows; each
+    held to its plain version at 1e-5 of max|ref| and row cosine 0.9999
+    (``fp32_rows``, ``b7b_errors``), repeated for identical bits, every
+    launch counted in the "tf32" form (``chunked_form``), and all of them
+    under ``torch.profiler``: every flash kernel the card ran is one of
+    TF32_KERNELS.  First, no source under ``unirec_tpu_torch/csrc`` may
+    define a name of SCALAR_F32_KERNELS.  Returns the errors."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_causal as fc
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "unirec_tpu_torch", "csrc")
+    for fname in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, fname)) as fh:
+            text = fh.read()
+        found = [k for k in SCALAR_F32_KERNELS if k in text]
+        if found:
+            raise AssertionError(f"csrc/{fname} still defines {found}")
+    f32 = torch.float32
+    errs = dict.fromkeys(("b13", "b14_fwd", "b14_bwd", "b14p_fwd",
+                          "b14p_bwd", "dq", "dk", "dv"), 0.0)
+    counters = (pa.launch_flash_cross_fwd, fl.launch_flash_cross_bwd,
+                fc.flash_causal_bwd_dq, fc.flash_causal_bwd_dkv)
+    for fn in counters:
+        fn.forms.clear()
+    launches = 0
+
+    def hold(key, names, run, plain, where):
+        got = run()
+        check_repeat(f"{key.upper()} {where}", got, run())
+        for n, g, r in zip(names, got, plain):
+            err = fp32_rows(f"{key.upper()} {n}", g, r, where)
+            if n not in ("m", "l"):  # the statistics: held elementwise
+                errs[key] = max(errs[key], err)
+        return got
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for hd in TF32_HDS:
+            b, h, lkv = 3, 4, 1000
+            for lq in (64, 200):
+                where = f"{f32} B={b} H={h} Lq={lq} Lkv={lkv} hd={hd}"
+                q, k, v, do, bias = b14p_inputs(gen, b, h, lq, lkv, hd, f32)
+                bias32 = pa.key_bias(bias, b, lkv, q.device)
+                hold("b13", ("o",), lambda: (pa.flash_cross_attention(
+                    q, k, v, bias),), (pa.flash_cross_attention_plain(
+                        q, k, v, bias),), where)
+                o, m, l = hold("b14p_fwd", ("o", "m", "l"),
+                               lambda: fl.flash_cross_vjp_fwd(q, k, v, bias32),
+                               fl.flash_cross_vjp_fwd_plain(q, k, v, bias32),
+                               where)
+                dsum = (do * o).sum(-1).transpose(1, 2).contiguous()
+                hold("b14p_bwd", ("dq", "dk", "dv"),
+                     lambda: fl.flash_cross_vjp_bwd(q, k, v, bias32, do, m, l,
+                                                    dsum),
+                     fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l,
+                                                  dsum), where)
+                launches += 6
+            where = f"{f32} B={b} Lq=64 Lkv={lkv} H={h} hd={hd}, merged"
+            q, k3, v3, do, bias = flash_inputs(gen, b, lkv, f32, h * hd)
+            bias32 = pa.key_bias(bias, b, lkv, q.device)
+            o, m, l = hold("b14_fwd", ("o", "m", "l"),
+                           lambda: fl.flash_cross_fwd(q, k3, v3, bias32, h),
+                           fl.flash_cross_fwd_plain(q, k3, v3, bias32, h),
+                           where)
+            dsum = fl.attention_dsum(do, o, h).contiguous()
+            hold("b14_bwd", ("dq", "dk3", "dv3"),
+                 lambda: fl.flash_cross_bwd(q, k3, v3, bias32, do, m, l, dsum,
+                                            h),
+                 fl.flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum,
+                                          h), where)
+            launches += 4
+            q, k, v, do, mask = causal_inputs(gen, 2, 160, 4, 2, hd, f32,
+                                              (160, 97))
+            e, _ = b7b_errors(q, k, v, do, mask, 4, 2, hd)
+            for n in ("dq", "dk", "dv"):
+                errs[n] = max(errs[n], e[n])
+            launches += 4
+        torch.cuda.synchronize()
+    forms = [dict(fn.forms) for fn in counters]
+    n = len(TF32_HDS)
+    want = [{"tf32": 10 * n}, {"tf32": 6 * n}, {"tf32": 2 * n},
+            {"tf32": 2 * n}]
+    if forms != want:
+        raise AssertionError(f"float32 at hd <= 256 ran the forms {forms}, "
+                             f"want {want}")
+    ran = attention_kernels(prof)
+    log(f"float32 at hd {TF32_HDS}: flash kernels on the card under "
+        f"torch.profiler: " + "; ".join(f"{k[:70]} x{c}"
+                                        for k, c in sorted(ran.items())))
+    bad = [k for k in ran if not any(t in k for t in TF32_KERNELS)]
+    missing = [t for t in TF32_KERNELS[:3] if not any(t in k for k in ran)]
+    if bad or missing or not ran:
+        raise AssertionError(f"float32 at hd <= 256: kernels {bad} outside "
+                             f"the 3xTF32 form, {missing} never ran")
+    log(f"float32 B13 / B14 / B14p / B7b at hd {TF32_HDS}: {launches} calls "
+        f"held at 1e-5 and row cosine {KERNEL_COS}, repeated bit for bit, "
+        f"every launch in the tf32 form, no scalar kernel on the card; "
+        f"errors {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    return {"errs": errs, "kernels": sorted(ran)}
 
 
 # -- B14p: trainable flash cross-attention over per-head tensors -------------
@@ -2263,8 +2401,10 @@ def phase_b14p(gen) -> dict:
     output and gradients against the plain path's, the kernels (forward:
     o, m, l; backward: dq, dk, dv) against their plain versions, identical
     bits on a repeat, exactly zero dk / dv at masked keys, the masked user's
-    uniform average; timed in bf16 at the user shape beside the plain
-    versions, the bounds and SDPA."""
+    uniform average; timed in both dtypes at the user shape beside the
+    plain versions, the bounds and SDPA in the same dtype.  The launch
+    counts are set to 0 and read for each dtype's run of its own.  Returns
+    the bf16 figures, and the float32 ones under "fp32"."""
     from unirec_tpu_torch.ops import attention as pa
     from unirec_tpu_torch.ops import flash_vjp as fl
 
@@ -2277,24 +2417,32 @@ def phase_b14p(gen) -> dict:
     cases = [(dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
              for shape in shapes]
     inputs = {case: b14p_inputs(gen, *case[1:], case[0]) for case in cases}
-    # the entry point's run: its launches
-    fl.flash_cross_vjp_fwd.launches = fl.flash_cross_vjp_bwd.launches = 0
-    driven = {}
-    for case in cases:
-        q, k, v, do, bias = inputs[case]
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = fl.flash_cross_attention_vjp(*leaves, bias)
-        driven[case] = (out.detach(), torch.autograd.grad(out, leaves, do))
-    torch.cuda.synchronize()
-    launches = {"b14p_fwd": fl.flash_cross_vjp_fwd.launches,
-                "b14p_bwd": fl.flash_cross_vjp_bwd.launches}
-    log(f"B14p launches through flash_cross_attention_vjp: {launches} over "
-        f"{len(cases)} calls")
-    if launches != {"b14p_fwd": len(cases), "b14p_bwd": len(cases)}:
-        raise AssertionError(f"B14p launches {launches}")
     res = {n: {"err": 0.0} for n in ("b14p_fwd", "b14p_bwd")}
+    res32 = {n: {"err": 0.0} for n in ("b14p_fwd", "b14p_bwd")}
+    # the entry point's run, one dtype at a time: each dtype's launches
+    driven = {}
+    for dtype, into in ((torch.float32, res32), (torch.bfloat16, res)):
+        fl.flash_cross_vjp_fwd.launches = fl.flash_cross_vjp_bwd.launches = 0
+        for case in cases:
+            if case[0] != dtype:
+                continue
+            q, k, v, do, bias = inputs[case]
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fl.flash_cross_attention_vjp(*leaves, bias)
+            driven[case] = (out.detach(), torch.autograd.grad(out, leaves,
+                                                              do))
+        torch.cuda.synchronize()
+        launches = {"b14p_fwd": fl.flash_cross_vjp_fwd.launches,
+                    "b14p_bwd": fl.flash_cross_vjp_bwd.launches}
+        log(f"B14p {dtype} launches through flash_cross_attention_vjp: "
+            f"{launches} over {len(shapes)} calls")
+        if launches != {"b14p_fwd": len(shapes), "b14p_bwd": len(shapes)}:
+            raise AssertionError(f"B14p {dtype} launches {launches}")
+        for name, count in launches.items():
+            into[name]["launches"] = count
     for case in cases:
         dtype, b, h, lq, lkv, hd = case
+        into = res32 if dtype == torch.float32 else res
         where = f"{dtype} B={b} H={h} Lq={lq} Lkv={lkv} hd={hd}"
         q, k, v, do, bias = inputs[case]
         bias32 = pa.key_bias(bias, b, lkv, q.device)
@@ -2304,10 +2452,11 @@ def phase_b14p(gen) -> dict:
         plain_grads = fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l,
                                                    dsum)
         out, grads = driven.pop(case)
-        res["b14p_fwd"]["err"] = max(res["b14p_fwd"]["err"], kernel_error(
+        into["b14p_fwd"]["err"] = max(into["b14p_fwd"]["err"], kernel_error(
             "B14P out (autograd)", out, o32.to(dtype), where))
         for name, g, r in zip("qkv", grads, plain_grads):
-            res["b14p_bwd"]["err"] = max(res["b14p_bwd"]["err"], kernel_error(
+            into["b14p_bwd"]["err"] = max(into["b14p_bwd"]["err"],
+                                          kernel_error(
                 f"B14P d{name} (autograd)", g, r, where,
                 noise_floor=GRAD_NOISE_FLOOR if name in "qk" else 0.0))
         # the kernels against their plain versions, on the same (m, l, dsum)
@@ -2326,7 +2475,8 @@ def phase_b14p(gen) -> dict:
         for name, (kern, plain, outs) in runs.items():
             got = kern()
             torch.cuda.synchronize()
-            check_outputs(name.upper(), outs, got, plain(), where, res[name])
+            check_outputs(name.upper(), outs, got, plain(), where, into[name],
+                          rows32=dtype == torch.float32)
             if not all(torch.equal(x, y) for x, y in zip(got, kern())):
                 raise AssertionError(f"{name.upper()} {where}: a repeat gave "
                                      "other bits")
@@ -2345,30 +2495,28 @@ def phase_b14p(gen) -> dict:
                                          "gradient")
         log(f"B14p {where}: the kernels repeat bit for bit, masked keys get "
             "exactly zero dk / dv")
-        if dtype == torch.bfloat16 and b == USER_BATCH:
+        if b == USER_BATCH:
             mask = bias.to(dtype)
             sdpa_cosine("B14P", sdpa(q, k, v, attn_mask=mask),
                         runs["b14p_fwd"][0]()[0])
             library = {"b14p_fwd": lambda: sdpa(q, k, v, attn_mask=mask),
                        "b14p_bwd": sdpa_fwd_bwd(sdpa, q, k, v, mask, do)}
-            bounds = flash_bounds(b, lq, lkv, 2)
+            bounds = flash_bounds(b, lq, lkv, q.element_size())
             time_runs(runs, library, {"b14p_fwd": bounds["b14_fwd"],
-                                      "b14p_bwd": bounds["b14_bwd"]}, res,
+                                      "b14p_bwd": bounds["b14_bwd"]}, into,
                       where)
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            res["b14p_bwd"]["path_ms"] = time_ms(
+            into["b14p_bwd"]["path_ms"] = time_ms(
                 lambda: torch.autograd.grad(
                     fl.flash_cross_attention_vjp(*leaves, bias), leaves, do),
                 iters=20, warmup=3)
             log(f"B14p forward + backward through flash_cross_attention_vjp"
-                f" {where}: {res['b14p_bwd']['path_ms']:.4f} ms (SDPA "
-                f"forward + backward {res['b14p_bwd']['library_ms']:.4f} ms)")
+                f" {where}: {into['b14p_bwd']['path_ms']:.4f} ms (SDPA "
+                f"forward + backward {into['b14p_bwd']['library_ms']:.4f} ms)")
             del leaves
         del runs, state
         torch.cuda.empty_cache()
-    for name in res:
-        res[name]["launches"] = launches[name]
-    return res
+    return {**res, "fp32": res32}
 
 
 # -- B15: packed item attention ----------------------------------------------
@@ -3260,9 +3408,11 @@ def phase_b7b(gen) -> dict:
     versions at the joint training shape, with random right padding (key 0
     valid), and K1 in both forms and B7b at the other head dims
     (CAUSAL_OTHER: 64, 32, 8 and 24 zero-padded, 256), fp32 and bf16,
-    repeats identical; times against the plain versions and
-    scaled_dot_product_attention forward + backward (the yardstick), and
-    the kernels alone in bf16 at each other head dim."""
+    repeats identical; the launches (and float32's "tf32" form) of one
+    backward through the autograd Function; times against the plain
+    versions and scaled_dot_product_attention forward + backward (the
+    yardstick; float32's bounds at the 3xTF32 rate), and the kernels alone
+    in bf16 at each other head dim."""
     from unirec_tpu_torch.ops import flash_causal as fc
 
     b, l, hq, hkv, hd = (K1_SHAPE[x] for x in ("B", "L", "HQ", "HKV", "HD"))
@@ -3300,13 +3450,27 @@ def phase_b7b(gen) -> dict:
             sdpa(qh, kh, vh, attn_mask=allowed).backward(doh,
                                                          retain_graph=True)
 
+        # the entry point's run (flash_causal_attention_train's backward):
+        # its launches and, in float32, the forms (3xTF32, flash_tf32.cu)
+        counted = (fc.flash_causal_bwd_dq, fc.flash_causal_bwd_dkv)
+        for fn in counted:
+            fn.launches = 0
+            fn.forms.clear()
+        kernel_path()
+        torch.cuda.synchronize()
+        launched = {"dq": counted[0].launches, "dkv": counted[1].launches}
+        forms = [dict(fn.forms) for fn in counted]
+        want = [{"tf32": 1}] * 2 if dtype == torch.float32 else [{}] * 2
+        if launched != {"dq": 1, "dkv": 1} or forms != want:
+            raise AssertionError(f"B7b {dtype} through the autograd Function: "
+                                 f"launches {launched}, forms {forms}")
         t_path = time_ms(kernel_path, iters=5)
         t_plain_path = time_ms(plain_path, iters=3, warmup=1)
         t_lib = time_ms(library, iters=5)
         t_dq2 = time_ms(lambda: fc.flash_causal_bwd_dq(*args), iters=10)
         t_dkv2 = time_ms(lambda: fc.flash_causal_bwd_dkv(*args), iters=10)
         size = q.element_size()
-        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        kind = ops_kind(dtype, "tf32")  # float32: 3xTF32 (flash_tf32.cu)
         stats = 3 * 4 * b * l * hq + 4 * b * l  # m, l, dsum and the mask
         bq, bkv = size * b * l * hq * hd, size * b * l * hkv * hd
         # K and V read at the valid keys only; dK and dV written in full
@@ -3315,7 +3479,7 @@ def phase_b7b(gen) -> dict:
         b_dkv = bound(2 * bq + kv_read + 2 * bkv + stats,
                       4 * 2 * hd * pairs * hq, kind)
         out[dtype] = dict(
-            errs=errs,
+            errs=errs, launches=launched, forms=forms,
             dq=dict(ms=min(t_dq, t_dq2), plain_ms=t_plain, library_ms=t_lib,
                     bound_ms=b_dq[0], bound_by=b_dq[1], path_ms=t_path),
             dkv=dict(ms=min(t_dkv, t_dkv2), plain_ms=t_plain, library_ms=t_lib,
@@ -6046,8 +6210,10 @@ def phase_user_train(smi: str, tmp: str, heads=None,
     step, device idle share, B14's device time and peak memory of the
     ``--flash --fused`` step; returns those launches and times.  ``dtype``
     "float32" (with ``heads``) runs both steps at float32 compute, the train
-    CLI's default precision (the chunked B14 in the 3xTF32 cluster form at
-    2 heads of 512), held to each other at the bf16 step's gates."""
+    CLI's default precision (B14 in 3xTF32 on tensor cores: the cluster form
+    at 2 heads of 512, the "tf32" form at the default 16 heads of 64, whose
+    step's profile must show those kernels and no scalar one), held to each
+    other at the bf16 step's gates."""
     import contextlib
     import dataclasses
     import io
@@ -6151,14 +6317,19 @@ def phase_user_train(smi: str, tmp: str, heads=None,
         f.clear()
     loss_k, g_k, l_k = one_step(True)
     head_dim = uc0.hidden_size // uc0.num_attention_heads
-    if head_dim > 256:  # B14 in the chunked form: the forms named
-        want = chunked_forms(head_dim, getattr(torch, dtype))
+    # B14 in the chunked form above hd 256, and at float32 below it in the
+    # 3xTF32 form (csrc/flash_tf32.cu): the forms named
+    want = (chunked_forms(head_dim, getattr(torch, dtype)) if head_dim > 256
+            else {"fwd": "tf32", "rows": "tf32"} if dtype == "float32"
+            else None)
+    if want is not None:
         ran = [dict(f) for f in form_counts]
         if ran != [{want["fwd"]: n_layers}, {want["rows"]: n_layers}]:
             raise AssertionError(f"user step at head dim {head_dim}: B14 "
                                  f"ran the forms {ran}")
-        log(f"user step at head dim {head_dim}: B14 forward {want['fwd']},"
-            f" backward {want['rows']} in each of {n_layers} cross layers")
+        log(f"user step at head dim {head_dim}, {dtype}: B14 forward "
+            f"{want['fwd']}, backward {want['rows']} in each of {n_layers} "
+            "cross layers")
     loss_p, g_p, l_p = one_step(False)
     # the float32 plain step, the reference of both (at float32 compute,
     # the plain step itself)
@@ -6271,13 +6442,27 @@ def phase_user_train(smi: str, tmp: str, heads=None,
                 + ("" if rows else " (no device rows: not measured)"))
             for name, t in rows[:12]:
                 log(f"  {t:9.3f} ms {100 * t / total:5.1f}%  {name[:110]}")
-            # B14: the kernels of flash_cross.cu, or above hd 256 the
-            # chunked forms' (flash_chunked.cuh, flash_chunked_cluster.cuh)
+            # B14: the kernels of flash_cross.cu, at float32 those of
+            # flash_tf32.cu, or above hd 256 the chunked forms'
+            # (flash_chunked.cuh, flash_chunked_cluster.cuh)
             b14 = {kind: sum(t for name, t in rows if any(
                 k in name for k in names)) for kind, names in (
-                    ("fwd", ("flash_cross_fwd", "chunk_fwd")),
+                    ("fwd", ("flash_cross_fwd", "chunk_fwd", "fwd_tf32")),
                     ("bwd", ("flash_cross_bwd", "flash_cross_dkv_sum",
-                             "chunk_bwd_rows", "chunk_dkv_sum")))}
+                             "chunk_bwd_rows", "chunk_dkv_sum",
+                             "bwd_rows_tf32")))}
+            if dtype == "float32" and head_dim <= 256:
+                # the card's own record: B14 ran the 3xTF32 kernels alone
+                names = [name for name, _ in rows]
+                tf32 = [n for n in names if any(
+                    k in n for k in ("fwd_tf32", "bwd_rows_tf32"))]
+                other = [n for n in names if n not in tf32 and any(
+                    k in n for k in ("flash_cross_", "chunk_fwd",
+                                     "chunk_bwd_rows"))]
+                log(f"  B14's kernels in that step: {tf32}")
+                if other or len(tf32) != 2 or not all(b14.values()):
+                    raise AssertionError(f"float32 user step: B14 ran "
+                                         f"{tf32}, other kernels {other}")
             log(f"  B14 in that step: forward {b14['fwd']:.3f} ms, backward "
                 f"{b14['bwd']:.3f} ms, "
                 f"{100 * sum(b14.values()) / max(total, 1e-9):.1f}% of the "
@@ -6326,7 +6511,7 @@ def phase_user_train(smi: str, tmp: str, heads=None,
         del batches, tokens
         release()
         return {"launches": {**l_k, "b13": l_eval["b13"]}, "ms": t,
-                "forms": (want if head_dim > 256 else None)}
+                "forms": want}
 
     times = {"plain": step_ms(False), "--flash --fused": step_ms(True),
              "plain (again)": step_ms(False)}
@@ -7520,6 +7705,50 @@ def phase_tp_pp(smi: str, tmp: str) -> dict:
                    "pp": [g["pp"]["ms"] for g in got]}}
 
 
+def tf32_kernel_rows(row, flash, tf32, b14p, b7b, user32) -> list:
+    """The kernels line's rows of the float32 kernels at hd <= 256
+    (csrc/flash_tf32.cu, every product in 3xTF32 on tensor cores): B13 /
+    B14 at the user shape (16 heads of 64), launches from the default
+    float32 user step (B14) and its evaluation forward (B13), with B14's
+    device ms a step; B14p from its entry point's float32 runs; B7b at the
+    joint shape, launches from one backward through its autograd Function;
+    the errors also over every head dim of TF32_HDS (phase_tf32_forms).
+    ``row`` makes one row (main's)."""
+    f32 = torch.float32
+    step = user32["ms"]["b14_device_ms"] or {}
+    cases = (
+        ("flash_cross_attention", "attention.py:163", "fwd_tf32",
+         flash["fp32"]["b13"], ("b13",), user32["launches"]["b13"], {}),
+        ("flash_cross_proj_fwd", "flash_vjp.py:362", "fwd_tf32",
+         flash["fp32"]["b14_fwd"], ("b14_fwd",),
+         user32["launches"]["b14_fwd"], {"step_device_ms": step.get("fwd")}),
+        ("flash_cross_proj_bwd", "flash_vjp.py:426", "bwd_rows_tf32",
+         flash["fp32"]["b14_bwd"], ("b14_bwd",),
+         user32["launches"]["b14_bwd"], {"step_device_ms": step.get("bwd")}),
+        ("flash_cross_attention_vjp_fwd", "flash_vjp.py:51", "fwd_tf32",
+         b14p["fp32"]["b14p_fwd"], ("b14p_fwd",),
+         b14p["fp32"]["b14p_fwd"]["launches"], {}),
+        ("flash_cross_attention_vjp_bwd", "flash_vjp.py:113", "bwd_rows_tf32",
+         b14p["fp32"]["b14p_bwd"], ("b14p_bwd",),
+         b14p["fp32"]["b14p_bwd"]["launches"], {}),
+        ("flash_causal_bwd_dq", "flash_causal_vjp.py:158", "bwd_rows_tf32",
+         {**b7b[f32]["dq"], "err": b7b[f32]["errs"]["dq"]}, ("dq",),
+         b7b[f32]["launches"]["dq"], {}),
+        ("flash_causal_bwd_dkv", "flash_causal_vjp.py:224", "bwd_keys_tf32",
+         {**b7b[f32]["dkv"],
+          "err": max(b7b[f32]["errs"][n] for n in ("dk", "dv"))},
+         ("dk", "dv"), b7b[f32]["launches"]["dkv"], {}))
+    return [
+        row(f"{name}_fp32", "flash_tf32.cu", replaces, launches,
+            max(at["err"], *(tf32["errs"][e] for e in errs)), at["ms"],
+            at["plain_ms"], at["bound_ms"], at["bound_by"], at["library_ms"],
+            activations="float32", form="tf32", kernel=kernel,
+            **{k: v for k, v in at.items() if k in ("path_ms",
+                                                    "sdpa_backend")},
+            **extra)
+        for name, replaces, kernel, at, errs, launches, extra in cases]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7584,6 +7813,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flash = phase_flash_cross(gen)
+    tf32 = phase_tf32_forms(torch.Generator(device="cuda").manual_seed(
+        SEED + 20))
     b14p = phase_b14p(gen)
     b15 = phase_b15(gen, new_gen)
     wide = phase_wide_heads(torch.Generator(device="cuda").manual_seed(
@@ -7626,6 +7857,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         user_trained = phase_user_train(smi, tmp)
         lap("user training")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the train CLI's default step: float32 compute at
+        # UserQFormerConfig()'s 16 heads of 64, --flash: B14 in the 3xTF32
+        # form (csrc/flash_tf32.cu) in every cross layer
+        user32 = phase_user_train(smi, tmp, heads=USER_HEADS,
+                                  dtype="float32")
+        lap("user step, 16 heads, float32")
         gc.collect()
         torch.cuda.empty_cache()
         # (b)-(e): the user step at 2 heads of 512, the LM head's decoding,
@@ -7798,7 +8037,7 @@ def main() -> int:
              "fused_qformer_vjp.cu", "fused_qformer_vjp.py:344"),
             ("b12c_bwd", "qformer_cross_block_train_bwd_fp32",
              "fused_qformer_vjp.cu", "fused_qformer_vjp.py:383"))
-    ] + [
+    ] + tf32_kernel_rows(row, flash, tf32, b14p, b7b, user32) + [
         row("packed_item_attention", "packed_attention.cu",
             "packed_attention.py:39", b15["launches"], b15["err"],
             **{k: v for k, v in b15["timed"][0].items() if k != "F"})

@@ -31,10 +31,10 @@ launches after 3 warm-ups):
 It hashes the outputs of every kernel run and saves them.  The script fails
 unless every output's hash is the same in the two runs of each checkout;
 the bf16 hashes and, of float32, those of what both checkouts run in the
-same form (``same_form``: B7b's dk / dv, the scalar ``chunk_bwd_keys``, and
-every kernel at hd <= 256) are the same in all four runs (the float32
-chunked forward and backward over rows are the 3xTF32 cluster form here and
-may be the scalar form in the other checkout); and this checkout's outputs
+same form (``same_form``: every chunked form, and K1 at hd 256) are the
+same in all four runs (the float32 B13, B14, B14p and B7b at hd 256 are
+3xTF32 on tensor cores here and may be the scalar form in the other
+checkout); and this checkout's outputs
 agree with the other's within chip_smoke.py's kernel gates (max|d| at most
 2e-2 of max|other| in bf16 and 1e-5 in float32, per-row cosine at least
 0.9999 where the other's row is nonzero; B7b's dq over the rows of at least
@@ -64,12 +64,13 @@ KERNEL_TOL, KERNEL_COS = {"bfloat16": 2e-2, "float32": 1e-5}, 0.9999
 
 def same_form(key: str) -> bool:
     """Whether the run ``key`` ("name dtype") takes the same form in both
-    checkouts, so that its bits must agree: every bf16 run, and of float32
-    B7b's dk / dv (the scalar chunk_bwd_keys) and the head dims up to 256
-    (not chunked)."""
+    checkouts, so that its bits must agree: every bf16 run and every
+    float32 run but those at hd 256 other than K1 (the float32 B13, B14,
+    B14p and B7b up to hd 256 run 3xTF32 on tensor cores here and may run
+    the scalar design in the other checkout)."""
     name, dtype = key.split()
-    return (dtype.endswith("bfloat16") or name.startswith("b7b_dkv")
-            or "256" in name)
+    return (dtype.endswith("bfloat16") or "256" not in name
+            or name.startswith("k1"))
 
 
 def _ms(run, iters: int = 20, warmup: int = 3) -> float:
@@ -249,7 +250,8 @@ def _user_step(batches, heads: int = H, dtype: str = "bfloat16") -> dict:
     total = sum(device.values())
     b14 = sum(t for k, t in device.items() if any(
         n in k for n in ("flash_cross_fwd", "flash_cross_bwd", "chunk_fwd",
-                         "chunk_bwd_rows", "chunk_dkv_sum", "chunk_fwd_merge")))
+                         "chunk_bwd_rows", "chunk_dkv_sum", "chunk_fwd_merge",
+                         "fwd_tf32", "bwd_rows_tf32")))
     del st, step
     torch.cuda.empty_cache()
     return {"ms": ms, "fwd_bwd_ms": float(np.median(fb)),
@@ -323,7 +325,7 @@ def compare(results, saved) -> bool:
     kept = [{k: v for k, v in h.items() if same_form(k)} for h in hashes]
     same = all(h == kept[0] for h in kept)
     print(f"outputs identical within each checkout: {repeat}")
-    print(f"bf16 outputs, float32 B7b dk / dv and float32 at hd 256 "
+    print(f"bf16 outputs, float32 chunked forms and float32 K1 at hd 256 "
           f"identical across the four runs: {same}")
     for key in sorted(k for k in hashes[0] if not same_form(k)):
         print(f"  {key}: this {hashes[1][key]}, other {hashes[0][key]}")

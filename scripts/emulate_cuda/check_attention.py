@@ -22,10 +22,10 @@ with GQA 2:1 and 1:1 over padded rows.  Each against its plain version
 (max|d| / max|ref|: 1e-5 for float32 outputs, 2e-2 for bf16 ones), the
 masked user's uniform average, exactly zero dk / dv at masked keys,
 identical bits on a repeat.  With ``--parent``, the float32 B13 / B14
-outputs (merged heads, one q tile) at head dims up to 256 must equal
-OTHER_ROOT's bit for bit, its C entries run on the same inputs
-zero-padded as the wrappers pad them (above 256 float32 runs the 3xTF32
-cluster form, whose bits a parent's scalar form need not have).
+outputs (merged heads, one q tile) at head dims up to 256 must agree with
+OTHER_ROOT's within 1e-5 of max|parent|, its C entries run on the same
+inputs zero-padded as the wrappers pad them (the float32 kernels here run
+3xTF32 on tensor cores, whose bits a parent's scalar form need not have).
 A few seconds a case; hd 256 takes about a minute.
 """
 
@@ -52,7 +52,8 @@ from unirec_tpu_torch.ops import flash_causal as fc  # noqa: E402
 from unirec_tpu_torch.ops import flash_vjp as fl  # noqa: E402
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "flash_cross.cu")
+SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "flash_cross.cu",
+           "flash_tf32.cu")
 
 
 def _launches(text: str) -> str:
@@ -243,13 +244,15 @@ def check_cross(emu, dtype, hd, b, h, lq, lkv, merged, parent=None):
     if not all(torch.equal(x, y) for x, y in zip(grads, bwd())):
         raise AssertionError("a repeat gave other bits")
     same = ""
-    # the float32 kernels above 256 are another form (3xTF32 in a cluster)
-    # than the scalar one a parent may run: its bits are held at hd <= 256
+    # the float32 kernels are 3xTF32 here and may be another form in a
+    # parent (its scalar kernels): held to its outputs at the float32 gate
     if parent is not None and dtype == torch.float32 and merged and hd <= 256:
-        if not _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd,
-                            (o, m, l, *grads)):
-            raise AssertionError("float32 outputs are not the parent's bits")
-        same = ", the parent's bits"
+        far = _parent_distance(parent, q, k, v, do, bias32, dsum, m, l, h, hd,
+                               (o, m, l, *grads))
+        if not far <= TOL[torch.float32]:
+            raise AssertionError(f"float32 outputs {far:.2e} from the "
+                                 "parent's")
+        same = f", {far:.1e} from the parent's"
     print(f"B13/B14/B14p {str(dtype)[6:]} hd {hd} B {b} H {h} Lq {lq} "
           f"Lkv {lkv} {'merged' if merged else 'per-head'}: max rel "
           f"{max(errs):.1e}{same}", flush=True)
@@ -268,10 +271,11 @@ def _padded_to_chunks(hd, inputs, outputs, launch):
         t.copy_(out[..., :hd])
 
 
-def _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
+def _parent_distance(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
     """The other tree's float32 kernels (C entries of that tree's
     signature) on the same inputs, zero-padded to whole chunks as that
-    tree's wrappers padded them, compared bit for bit."""
+    tree's wrappers padded them: the largest max|d| / max|parent| of the
+    outputs (infinity where a launch failed)."""
     b, lq, _ = q.shape
     lkv = k.shape[1]
     o, m2, l2 = torch.empty_like(q), torch.empty_like(m), torch.empty_like(l)
@@ -289,9 +293,9 @@ def _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
         errs.append(parent.unirec_flash_cross_bwd(
             *(t.data_ptr() for t in (*ins[:3], bias32, ins[3], m, l, dsum,
-                                     *outs)), None,
+                                     *outs)), None, None,
             (ctypes.c_longlong * 21)(*strides), b, h, lq, lkv, kernel_hd, 0,
-            pa.sm_scale(hd), None))
+            1, pa.sm_scale(hd), None))
 
     def heads(t):
         return fl._heads(t, h)
@@ -299,8 +303,9 @@ def _parent_bits(parent, q, k, v, do, bias32, dsum, m, l, h, hd, ours):
     _padded_to_chunks(hd, [heads(t) for t in (q, k, v)], [heads(o)], fwd)
     _padded_to_chunks(hd, [heads(t) for t in (q, k, v, do)],
                       [heads(g) for g in grads], bwd)
-    return not any(errs) and all(torch.equal(x, y)
-                                 for x, y in zip(ours, (o, m2, l2, *grads)))
+    if any(errs):
+        return float("inf")
+    return max(_rel(x, y) for x, y in zip(ours, (o, m2, l2, *grads)))
 
 
 def check_causal(emu, dtype, hd, hkv):
@@ -360,8 +365,8 @@ def expected_forms(hd: int, dtype) -> list:
     those up to 8 (K1 and dq); float32 K1 and dq in the 3xTF32 cluster form
     up to 8 chunks; the scalar form above and for float32 dk / dv; none at
     hd <= 256."""
-    if hd <= 256:
-        return [None] * 3
+    if hd <= 256:  # float32's B7b in 3xTF32 (flash_tf32.cu); K1 uncounted
+        return [None] * 3 if dtype == torch.bfloat16 else [None, "tf32", "tf32"]
     chunks = -(-hd // 256)
     if dtype != torch.bfloat16:
         return ["cluster_tf32" if chunks <= 8 else "scalar"] * 2 + ["scalar"]
@@ -377,7 +382,7 @@ def main() -> int:
     parser.add_argument("--causal", action="store_true",
                         help="K1 and B7b only (no B13 / B14 / B14p)")
     parser.add_argument("--parent", help="another checkout to hold float32 "
-                        "B13 / B14 bits to")
+                        "B13 / B14 to")
     parser.add_argument("--dtypes", default="bf16,fp32",
                         help="bf16 and / or fp32, comma-separated")
     args = parser.parse_args()
@@ -393,7 +398,7 @@ def main() -> int:
         parent.unirec_flash_cross_fwd.argtypes = (
             [P] * 8 + [ctypes.c_longlong] * 12 + [I] * 7 + [ctypes.c_float, P])
         parent.unirec_flash_cross_bwd.argtypes = (
-            [P] * 13 + [I] * 6 + [ctypes.c_float, P])
+            [P] * 14 + [I] * 7 + [ctypes.c_float, P])
     for hd in map(int, args.hd.split(",")):
         for dtype in dtypes:
             for hkv in (2, 4):

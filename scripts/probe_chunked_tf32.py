@@ -90,9 +90,10 @@ def _variants(header: str, helpers: str) -> dict:
         no_exchange = _replace(no_exchange, old, keep,
                                no_exchange.index("chunk_fwd_cl32("))
     no_scores = header
-    for call in ("        chunk_scores32(own, Qs, tile + hk * NTH * 8 * LDF, r0, lane);\n",
-                 "        chunk_scores32(own_dp, dOs, tile + hk * 8 * LDF, r0, lane);\n",
-                 "      chunk_scores32(own_s, Qs, tile + hk * 8 * LDF, r0, lane);\n"):
+    for call in ("        scores32<LDF, CW, NTH, RUN32, 1, 2>(own, Qs, tile + hk * NTH * 8 * LDF, r0, "
+                 "lane);\n",
+                 "        scores32<LDF, CW, 1, RUN32, 1, 2>(own_dp, dOs, tile + hk * 8 * LDF, r0, lane);\n",
+                 "      scores32<LDF, CW, 1, RUN32, 1, 2>(own_s, Qs, tile + hk * 8 * LDF, r0, lane);\n"):
         no_scores = _replace(no_scores, call, "", fp32)
     no_dkv = _replace(header, "    if constexpr (DKV) {\n      __syncthreads();  // p and ds of "
                       "every row written\n      // warp w:", "    if constexpr (false) {\n"

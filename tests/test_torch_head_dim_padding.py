@@ -294,12 +294,13 @@ def test_chunked_causal_plan_splits_the_float32_k1_and_dq(monkeypatch):
 
 @pytest.mark.parametrize("code,name", [(0, None), (1, "scalar"),
                                        (2, "tensor_cores"), (3, "cluster"),
-                                       (4, "cluster_tf32")])
+                                       (4, "cluster_tf32"), (5, "tf32")])
 def test_chunked_form_names_the_kernels_code(monkeypatch, code, name):
     """``chunked_form`` names the code ``unirec_chunked_form`` returns (3:
-    the cluster form) for the kind, head dim and dtype code it asks about,
-    and ``count_form`` counts a launch under that name; a negative code (a
-    kind or dtype out of range) raises."""
+    the cluster form; 5: float32's 3xTF32 kernels at head dims up to 256)
+    for the kind, head dim and dtype code it asks about, and ``count_form``
+    counts a launch under that name; a negative code (a kind or dtype out of
+    range) raises."""
     seen, codes = [], {pa.CHUNKED_ROWS: code, pa.CHUNKED_FWD: code,
                        pa.CHUNKED_KEYS: -1}
 

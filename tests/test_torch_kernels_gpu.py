@@ -31,9 +31,12 @@ versions at the joint training shape: max|d| <= 1e-5 max|ref| in fp32 and
 equal the two kernels' outputs, and padded keys get no gradient.  K1 and
 B7b run at every head dim the model configs use (16, 32, 64, 128), at hd 8
 and 24 (zero-padded to 16 and 32) and 256, over key tiles that are all
-padding, and repeat bit for bit.  B13 / B14 / B14p run at hd 8, 24, 64, 128
-and 256 in bf16 (the tensor-core forward and one-pass backward) at Lq 64, 1
-and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
+padding, and repeat bit for bit; B7b's float32 dq and dk / dv (3xTF32 on
+tensor cores) at every instance up to 256 and at 8 and 24, GQA 2:1, 3:1 and
+MHA, held at 1e-5 and row cosine 0.9999.  B13 / B14 / B14p run at hd 8,
+24, 64, 128 and 256 in bf16 (the tensor-core forward and one-pass backward)
+and at every instance up to 256 and 8 and 24 in float32 (3xTF32 on tensor
+cores) at Lq 64, 1 and 200 over a ragged last key tile; B15 at hd 8 and 24 and at every head
 dim and F (C-8).  K1-B14p run head dims above 256 in their chunked form
 (320 and 512: two chunks of 256; 768: three, in bf16 K1, B14's forward and
 B7b's dk / dv on tensor cores, dq and B14's backward in the cluster form;
@@ -1819,6 +1822,110 @@ def test_flash_cross_bf16_tensor_core_kernels(hopper, hd, lq):
     masked = bias32 != 0
     masked[1] = False
     assert all(bool((g.transpose(1, 2)[masked] == 0).all()) for g in got[1:])
+
+
+TF32_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256, 8, 24)
+
+
+def _rows32(name, out, ref, hd, noise_rows=None):
+    """A float32 output of the 3xTF32 kernels against its plain version:
+    max|d| <= 1e-5 max|ref| and per-row cosine >= 0.9999 over the rows of
+    width hd where ref is nonzero, but for ``noise_rows``."""
+    a, b = out.float(), ref.float()
+    assert bool(torch.isfinite(a).all()), name
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    assert rel <= 1e-5, (name, rel)
+    a2, b2 = a.reshape(-1, hd), b.reshape(-1, hd)
+    live = b2.abs().amax(-1) > 0
+    if noise_rows is not None:
+        live &= ~noise_rows
+    cos = torch.nn.functional.cosine_similarity(a2[live], b2[live], dim=-1)
+    assert cos.min().item() >= 0.9999, (name, cos.min().item())
+
+
+@pytest.mark.parametrize("hd", TF32_HEAD_DIMS)
+@pytest.mark.parametrize("lq", [64, 1, 200])
+def test_flash_cross_fp32_tf32_kernels(hopper, hd, lq):
+    """The float32 forward and one-pass backward in 3xTF32 (B14p's entries;
+    B13 and B14 share them) at every head-dim instance and the padded 8 and
+    24, at one q tile, one query and four q tiles (the float32 partial dk /
+    dv and their sum), over a 1,000-key memory whose last key tile is
+    ragged: against the plain versions at 1e-5 and row cosine 0.9999, the
+    form counted "tf32", bit for bit on a repeat, the fully masked user's
+    uniform average, and exactly zero dk / dv at the masked keys of users
+    with a valid key."""
+    from unirec_tpu_torch.ops import attention as pa
+    from unirec_tpu_torch.ops import flash_vjp as fl
+
+    b, h, lkv = 3, 4, 1000
+    q, k, v, do, bias = _b14p_inputs(hopper, b, h, lq, lkv, hd,
+                                     torch.float32)
+    bias32 = pa.key_bias(bias, b, lkv, q.device)
+    pa.launch_flash_cross_fwd.forms.clear()
+    fl.launch_flash_cross_bwd.forms.clear()
+    o, m, l = fl.flash_cross_vjp_fwd(q, k, v, bias32)
+    torch.cuda.synchronize()
+    ro, rm, rl = fl.flash_cross_vjp_fwd_plain(q, k, v, bias32)
+    _rows32("o", o, ro, hd)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    torch.testing.assert_close(o[1], v[1].mean(1, keepdim=True)
+                               .expand(h, lq, hd), atol=1e-5, rtol=0)
+    o13 = pa.flash_cross_attention(q, k, v, bias)
+    _rows32("B13", o13, pa.flash_cross_attention_plain(q, k, v, bias), hd)
+    dsum = (do * o).sum(-1).transpose(1, 2).contiguous()
+    got = fl.flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum)
+    torch.cuda.synchronize()
+    ref = fl.flash_cross_vjp_bwd_plain(q, k, v, bias32, do, m, l, dsum)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _rows32(name, g, r, hd)
+    assert dict(pa.launch_flash_cross_fwd.forms) == {"tf32": 2}
+    assert dict(fl.launch_flash_cross_bwd.forms) == {"tf32": 1}
+    again = fl.flash_cross_vjp_bwd(q, k, v, bias32, do, m, l, dsum)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.equal(x, y) for x, y in
+               zip((o, m, l), fl.flash_cross_vjp_fwd(q, k, v, bias32)))
+    assert torch.equal(o13, pa.flash_cross_attention(q, k, v, bias))
+    masked = bias32 != 0
+    masked[1] = False
+    assert all(bool((g.transpose(1, 2)[masked] == 0).all()) for g in got[1:])
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (3, 1), (4, 4)],
+                         ids=["gqa2", "gqa3", "mha"])
+@pytest.mark.parametrize("hd", TF32_HEAD_DIMS)
+def test_b7b_fp32_tf32_kernels(hopper, hd, hq, hkv):
+    """B7b's float32 dq and dk / dv in 3xTF32 at every head-dim instance
+    and the padded 8 and 24, GQA 2:1 and 3:1 and MHA, over right-padded rows
+    (a key tile that is all padding, rows of one key, a ragged last tile):
+    against the plain version at 1e-5 and row cosine 0.9999 from K1's m and
+    l, the forms counted "tf32", bit for bit on a repeat, exactly zero dk /
+    dv at padded keys."""
+    b, l = 4, 300
+    q, k, v, do = (torch.randn(b, l, h * hd, device="cuda", generator=hopper)
+                   for h in (hq, hkv, hkv, hq))
+    lengths = torch.tensor([1, 60, 173, 300], device="cuda")
+    mask = (torch.arange(l, device="cuda")[None] < lengths[:, None]).float()
+    o, m, den = fc._k1(q, k, v, mask, hq, hkv, stats=True)
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    args = (q, k, v, mask, do, m, den, dsum, hq, hkv)
+    for fn in (fc.flash_causal_bwd_dq, fc.flash_causal_bwd_dkv):
+        fn.forms.clear()
+    dq = fc.flash_causal_bwd_dq(*args)
+    dk, dv = fc.flash_causal_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert dict(fc.flash_causal_bwd_dq.forms) == {"tf32": 1}
+    assert dict(fc.flash_causal_bwd_dkv.forms) == {"tf32": 1}
+    want = fc.flash_causal_attention_bwd_plain(q, k, v, mask, do, m, den,
+                                               dsum, hq, hkv)
+    _rows32("dq", dq, want[0], hd, _single_key_rows(mask, hq))
+    _rows32("dk", dk, want[1], hd, _lone_key_rows(mask, hkv))
+    _rows32("dv", dv, want[2], hd)
+    assert torch.equal(dq, fc.flash_causal_bwd_dq(*args))
+    again = fc.flash_causal_bwd_dkv(*args)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    padded = mask == 0
+    assert (dk[padded] == 0).all() and (dv[padded] == 0).all()
 
 
 # -- the fp32 forms of B1-B6 and B12 ------------------------------------------

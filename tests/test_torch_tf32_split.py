@@ -1,7 +1,9 @@
-"""The 3xTF32 split that the float32 chunked flash kernels use on tensor cores
+"""The 3xTF32 split that the float32 flash kernels use on tensor cores
 (``csrc/ptx_helpers.cuh``: ``split_tf32``, ``mma_3xtf32``;
 ``csrc/flash_chunked_cluster.cuh``: ``chunk_fwd_cl32``,
-``chunk_bwd_rows_cl32``), modelled in torch on the CPU.
+``chunk_bwd_rows_cl32`` above head dim 256; ``csrc/flash_tf32.cu``:
+``fwd_tf32``, ``bwd_rows_tf32``, ``bwd_keys_tf32`` up to 256), modelled in
+torch on the CPU.
 
 The tensor cores read the top 19 bits of each 32-bit operand (TF32: 10
 mantissa bits).  The kernels hold each float32 operand x as big = rna(x) and
@@ -11,14 +13,17 @@ big + big . small + big . big.  The model does the same: products of tf32
 values are exact in float32, summed in float32.  On seeded numpy inputs, B14's
 forward (o, m, l) and backward (dq, dk, dv) with every score and value
 product in 3xTF32 stay within 1e-5 of max|ref| of the float32 plain versions
-(``ops/flash_vjp``) at head dims 512 and 1024, the kernels' gate; with
-plain TF32 (big alone) they do not, which is why the split is there.
+(``ops/flash_vjp``) at head dims 16, 64, 128, 256, 512 and 1024, and B7b's
+causal GQA backward (dq, dk, dv over right-padded rows) within 1e-5 of
+``ops/flash_causal``'s at 64 and 128, the kernels' gate; with plain TF32
+(big alone) they do not, which is why the split is there.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from unirec_tpu_torch.ops import flash_causal as fc
 from unirec_tpu_torch.ops import flash_vjp as fl
 from unirec_tpu_torch.ops.attention import sm_scale
 
@@ -125,7 +130,7 @@ def test_split_holds_each_operand_to_2e22():
             > 2.0 ** -14 * x.double().abs()).any()
 
 
-@pytest.mark.parametrize("hd", [512, 1024])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256, 512, 1024])
 def test_3xtf32_holds_b14_forward(hd):
     """o, m and l with S = Q K^T and O = P V in 3xTF32 within 1e-5 of the
     float32 plain version; with plain TF32 o misses that gate."""
@@ -138,7 +143,7 @@ def test_3xtf32_holds_b14_forward(hd):
     assert _rel(plain[0], ref[0]) > 10 * GATE
 
 
-@pytest.mark.parametrize("hd", [512, 1024])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256, 512, 1024])
 def test_3xtf32_holds_b14_backward(hd):
     """dq, dk and dv with S, dP = dO V^T, dq = ds K, dk = ds^T Q and dv =
     p^T dO in 3xTF32 within 1e-5 of the float32 plain version (from the
@@ -152,4 +157,55 @@ def test_3xtf32_holds_b14_backward(hd):
     errs = [_rel(g, r) for g, r in zip(got, ref)]
     assert max(errs) <= GATE, errs
     plain = b14_backward(mm_tf32, q, k, v, bias32, do, m, l, dsum)
+    assert min(_rel(g, r) for g, r in zip(plain, ref)) > 10 * GATE
+
+
+def b7b_backward(mm, q, k, v, pad_mask, do, m, l, dsum, hq, hkv):
+    """B7b's causal GQA backward (merged heads, right-padded keys) with its
+    products through ``mm``: (dq, dk, dv) as
+    ``flash_causal.flash_causal_attention_bwd_plain`` returns them, dk and
+    dv summed over each group's query heads."""
+    b, seq, width = q.shape
+    hd, groups = width // hq, hq // hkv
+    qh, kh, vh, _ = fc._split(q, k, v, hq, hkv)
+    doh = do.reshape(b, seq, hq, hd).transpose(1, 2)
+    causal = torch.tril(torch.ones(seq, seq))[None, None]
+    allowed = causal * pad_mask[:, None, None, :]
+    s = mm(qh, kh.transpose(-1, -2)) * sm_scale(hd)
+    s = s + (1.0 - allowed) * -1e9
+    m_h, l_h = m.transpose(1, 2)[..., None], l.transpose(1, 2)[..., None]
+    p = torch.exp(s - m_h) / torch.where(l_h == 0, 1.0, l_h)
+    dp = mm(doh, vh.transpose(-1, -2))
+    ds = p * (dp - dsum.transpose(1, 2)[..., None]) * sm_scale(hd)
+
+    def kv_grad(g):
+        g = g.reshape(b, hkv, groups, seq, hd).sum(2)
+        return g.transpose(1, 2).reshape(b, seq, hkv * hd)
+
+    dq = mm(ds, kh).transpose(1, 2).reshape(b, seq, width)
+    return (dq, kv_grad(mm(ds.transpose(-1, -2), qh)),
+            kv_grad(mm(p.transpose(-1, -2), doh)))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_3xtf32_holds_b7b_backward(hd):
+    """B7b's dq, dk and dv (B 2, L 96, 4 query heads over 2 key heads,
+    rows right-padded to 96 and 53 keys) with S, dP, dq, dk and dv in
+    3xTF32 within 1e-5 of the float32 plain version (from K1's plain m, l
+    and dsum); with plain TF32 each misses that gate."""
+    rng = np.random.default_rng(11 + hd)
+    b, seq, hq, hkv = 2, 96, 4, 2
+    q, do = (torch.from_numpy(rng.standard_normal((b, seq, hq * hd))
+                              .astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, seq, hkv * hd))
+                             .astype(np.float32)) for _ in range(2))
+    pad_mask = (torch.arange(seq)[None] < torch.tensor([[seq], [53]])).float()
+    o, m, l = fc.flash_causal_attention_fwd_plain(q, k, v, pad_mask, hq, hkv)
+    dsum = fc.attention_dsum(do, o, hq).contiguous()
+    ref = fc.flash_causal_attention_bwd_plain(q, k, v, pad_mask, do, m, l,
+                                              dsum, hq, hkv)
+    got = b7b_backward(mm_3xtf32, q, k, v, pad_mask, do, m, l, dsum, hq, hkv)
+    errs = [_rel(g, r) for g, r in zip(got, ref)]
+    assert max(errs) <= GATE, errs
+    plain = b7b_backward(mm_tf32, q, k, v, pad_mask, do, m, l, dsum, hq, hkv)
     assert min(_rel(g, r) for g, r in zip(plain, ref)) > 10 * GATE

@@ -20,10 +20,8 @@
 // Head dims: every multiple of 16 up to 128, and 256 (head_dim.cuh); the
 // wrapper zero-pads any other head dim up to 256 to the next instance and
 // passes the softmax scale of the true one (above 256: the chunked form of
-// flash_chunked.cuh, chunks of 256).  At 256 the bf16 dq kernel
-// holds 64 slots in 4 warps (Q, dO and the ring take 202,752 bytes of shared
-// memory), and the fp32 kernels take 32-row tiles (a thread owns 2 x 2
-// scores): their four 64-row tiles would not fit.
+// flash_chunked.cuh, chunks of 256).  At 256 the bf16 dq kernel holds 64
+// slots in 4 warps (Q, dO and the ring take 202,752 bytes of shared memory).
 //
 // Two kernels, deterministic and without atomics, as the JAX design: a TPU
 // grid runs in order and carries a sum in scratch, a Hopper grid does not, so
@@ -66,12 +64,18 @@
 //   which took dq's row cosine below 0.9999 at head dim 8.
 //   wgmma and TMA are the next step, as for K1 (flash_causal_fwd.cu).
 //
-// fp32 design (HD <= 256; above it dq in the chunked form's 3xTF32
-// tensor-core kernel, flash_chunked_cluster.cuh, and dk / dv scalar): plain
-// TF32 on tensor cores breaks the 1e-5 fp32 gates, so fp32 keeps the scalar
-// design (templated on the head dim): 16 x 16
-// threads, each owning a 4 x 4 block of a 64 x 64 score tile and a 4 x (HD /
-// 16) block of a 64 x HD output, fp32 FMAs from padded shared tiles.
+// fp32 design (HD <= 256, flash_tf32.cu; above it dq in the chunked form's
+// 3xTF32 cluster kernel, flash_chunked_cluster.cuh, and dk / dv scalar):
+// plain TF32 on tensor cores breaks the 1e-5 fp32 gates, so every product
+// runs in 3xTF32 (each float32 operand split into tf32 big + small, three
+// mma.sync.m16n8k8 a step, each short run of steps summed from zero and
+// added by an fp32 add).  dq: bwd_rows_tf32 with CAUSAL, one block
+// per (64-row q tile, query head, batch), longest rows first, 16-key tiles
+// at hd 128 (two blocks an SM).  dk / dv: bwd_keys_tf32, one block of 8
+// warps per (32-key tile, key head, batch; two blocks an SM at hd 128) over
+// the group's query heads and the 32-row q tiles from the diagonal on, dk
+// and dv in registers over the loop, an all-padding key tile written as
+// zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +86,7 @@
 
 #include "causal_tiles.cuh"
 #include "flash_chunked.cuh"
+#include "flash_tf32.cuh"
 #include "head_dim.cuh"
 #include "ptx_helpers.cuh"
 
@@ -90,326 +95,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int BT = 64;  // rows of a q tile and of a kv tile
-
-// ------------------------------------------------------------ fp32, scalar --
-
-constexpr int F32_THREADS = 256;  // 16 x 16 threads
-
-template <int HD>
-struct F32Bwd {
-  // rows of a q tile and keys of a kv tile: 64, or 32 at HD 256 (shared
-  // memory: the dq kernel's four 64-row tiles would take 280,832 bytes)
-  static constexpr int BT = HD > 128 ? 32 : 64;
-  static constexpr int R = BT / 16;  // score rows and columns a thread owns
-  static constexpr int RS = HD + 1;  // padded row stride of a [BT][HD] tile
-  static constexpr int PS = BT + 1;  // padded row stride of a [BT][BT] tile
-  // dq kernel: Q, dO, K, V tiles, the ds tile, m / l / dsum / key validity
-  static constexpr size_t DQ_BYTES = (size_t)(4 * BT * RS + BT * PS + 4 * BT) * sizeof(float);
-  // dkv kernel: K, V, Q, dO tiles, the p^T and ds^T tiles, m / l / dsum / rows
-  static constexpr size_t DKV_BYTES =
-      (size_t)(4 * BT * RS + 2 * BT * PS + 4 * BT) * sizeof(float);
-};
-
-// rows [r0, r0 + BT) of one head's columns of a merged-head tensor -> smem
-// [BT][HD + 1] floats; rows past L read as zero
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t row_stride,
-                                          int r0, int L, int tid) {
-  for (int e = tid; e < F32Bwd<HD>::BT * HD; e += F32_THREADS) {
-    const int r = e / HD, d = e % HD;
-    const int row = r0 + r;
-    dst[r * (HD + 1) + d] = row < L ? src[(size_t)row * row_stride + d] : 0.f;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(F32_THREADS)
-flash_causal_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ mask,
-                        const float* __restrict__ dout, const float* __restrict__ m_in,
-                        const float* __restrict__ l_in, const float* __restrict__ dsum_in,
-                        float* __restrict__ dq, int L, int Hq, int Hkv, float scale) {
-  constexpr int RS = F32Bwd<HD>::RS;
-  constexpr int PS = F32Bwd<HD>::PS;
-  constexpr int OC = HD / 16;
-  constexpr int BT = F32Bwd<HD>::BT, R = F32Bwd<HD>::R;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BT][RS]
-  float* dOs = Qs + BT * RS;                        // [BT][RS]
-  float* Ks = dOs + BT * RS;                        // [BT][RS]
-  float* Vs = Ks + BT * RS;                         // [BT][RS]
-  float* dSs = Vs + BT * RS;                        // [BT][PS]  ds of this tile
-  float* ms = dSs + BT * PS;                        // [BT]
-  float* ls = ms + BT;                              // [BT]  l with 0 guarded to 1
-  float* dsums = ls + BT;                           // [BT]
-  float* kval = dsums + BT;                         // [BT]  key validity of this kv tile
-
-  // longest rows first: the last q tiles loop over the most kv tiles
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (Hq / Hkv);
-  const int q0 = qt * BT;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows ty*R .. ty*R+R-1
-  const int tx = tid & 15;  // score cols tx + 16j, output cols tx + 16j
-  const size_t q_row = (size_t)Hq * HD;
-  const size_t kv_row = (size_t)Hkv * HD;
-  const float* qb = q + (size_t)b * L * q_row + (size_t)h * HD;
-  const float* dob = dout + (size_t)b * L * q_row + (size_t)h * HD;
-  const float* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  const float* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  const float* mb = mask + (size_t)b * L;
-
-  load_tile<HD>(Qs, qb, q_row, q0, L, tid);
-  load_tile<HD>(dOs, dob, q_row, q0, L, tid);
-  if (tid < BT) {
-    const int row = q0 + tid;
-    const size_t r = ((size_t)b * L + row) * Hq + h;
-    const float lv = row < L ? l_in[r] : 1.f;
-    ms[tid] = row < L ? m_in[r] : 0.f;
-    ls[tid] = lv == 0.f ? 1.f : lv;
-    dsums[tid] = row < L ? dsum_in[r] : 0.f;
-  }
-
-  float acc[R][OC];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < OC; ++j) acc[i][j] = 0.f;
-
-  const int last_row = min(q0 + BT, L) - 1;
-  const int n_kv = last_row / BT + 1;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's K reads are done
-    load_tile<HD>(Ks, kb, kv_row, k0, L, tid);
-    load_tile<HD>(Vs, vb, kv_row, k0, L, tid);
-    if (tid < BT) {
-      const int key = k0 + tid;
-      kval[tid] = (key < L && mb[key] != 0.f) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    // s = q k^T and dp = dO v^T for rows ty*R+i, keys tx+16j
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[R], ov[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = Qs[(ty * R + i) * RS + d];
-        ov[i] = dOs[(ty * R + i) * RS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * RS + d];
-        vv[j] = Vs[(tx + 16 * j) * RS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ty * R + i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = row < L && k0 + c <= row && kval[c] != 0.f;
-        const float p = ok ? expf(s[i][j] * scale - ms[r]) / ls[r] : 0.f;
-        dSs[r * PS + c] = p * (dp[i][j] - dsums[r]) * scale;
-      }
-    }
-    __syncthreads();  // ds written
-
-    // dq += ds k
-#pragma unroll 4
-    for (int c = 0; c < BT; ++c) {
-      float dv_[R], kk[OC];
-#pragma unroll
-      for (int i = 0; i < R; ++i) dv_[i] = dSs[(ty * R + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < OC; ++j) kk[j] = Ks[c * RS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < OC; ++j) acc[i][j] = fmaf(dv_[i], kk[j], acc[i][j]);
-    }
-  }
-
-  float* dqb = dq + (size_t)b * L * q_row + (size_t)h * HD;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
-    if (row >= L) continue;
-#pragma unroll
-    for (int j = 0; j < OC; ++j) dqb[(size_t)row * q_row + tx + 16 * j] = acc[i][j];
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(F32_THREADS)
-flash_causal_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ mask,
-                         const float* __restrict__ dout, const float* __restrict__ m_in,
-                         const float* __restrict__ l_in, const float* __restrict__ dsum_in,
-                         float* __restrict__ dk, float* __restrict__ dv, int L, int Hq,
-                         int Hkv, float scale) {
-  constexpr int RS = F32Bwd<HD>::RS;
-  constexpr int PS = F32Bwd<HD>::PS;
-  constexpr int OC = HD / 16;
-  constexpr int BT = F32Bwd<HD>::BT, R = F32Bwd<HD>::R;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);  // [BT][RS]
-  float* Vs = Ks + BT * RS;                         // [BT][RS]
-  float* Qs = Vs + BT * RS;                         // [BT][RS]
-  float* dOs = Qs + BT * RS;                        // [BT][RS]
-  float* Pt = dOs + BT * RS;                        // [BT][PS]  p^T: [key][row]
-  float* dSt = Pt + BT * PS;                        // [BT][PS]  ds^T
-  float* ms = dSt + BT * PS;                        // [BT]
-  float* ls = ms + BT;                              // [BT]
-  float* dsums = ls + BT;                           // [BT]
-  float* kval = dsums + BT;                         // [BT]
-
-  // the first kv tiles are seen by the most q tiles: start them first
-  const int kt = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int k0 = kt * BT;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // keys ty*R .. ty*R+R-1
-  const int tx = tid & 15;  // score rows tx + 16j, output cols tx + 16j
-  const size_t q_row = (size_t)Hq * HD;
-  const size_t kv_row = (size_t)Hkv * HD;
-  const float* kb = k + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  const float* vb = v + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  const float* mb = mask + (size_t)b * L;
-
-  load_tile<HD>(Ks, kb, kv_row, k0, L, tid);
-  load_tile<HD>(Vs, vb, kv_row, k0, L, tid);
-  if (tid < BT) {
-    const int key = k0 + tid;
-    kval[tid] = (key < L && mb[key] != 0.f) ? 1.f : 0.f;
-  }
-
-  float acc_k[R][OC], acc_v[R][OC];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < OC; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int n_q = (L + BT - 1) / BT;
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const float* qb = q + (size_t)b * L * q_row + (size_t)h * HD;
-    const float* dob = dout + (size_t)b * L * q_row + (size_t)h * HD;
-    for (int qt = kt; qt < n_q; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();  // the previous tile's Q / dO / p^T / ds^T reads are done
-      load_tile<HD>(Qs, qb, q_row, q0, L, tid);
-      load_tile<HD>(dOs, dob, q_row, q0, L, tid);
-      if (tid < BT) {
-        const int row = q0 + tid;
-        const size_t r = ((size_t)b * L + row) * Hq + h;
-        const float lv = row < L ? l_in[r] : 1.f;
-        ms[tid] = row < L ? m_in[r] : 0.f;
-        ls[tid] = lv == 0.f ? 1.f : lv;
-        dsums[tid] = row < L ? dsum_in[r] : 0.f;
-      }
-      __syncthreads();
-
-      // s^T = k q^T and dp^T = v dO^T for keys ty*R+i, rows tx+16j
-      float s[R][R], dp[R][R];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        float kk[R], vv[R], qv[R], ov[R];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          kk[i] = Ks[(ty * R + i) * RS + d];
-          vv[i] = Vs[(ty * R + i) * RS + d];
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * RS + d];
-          ov[j] = dOs[(tx + 16 * j) * RS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < R; ++j) {
-            s[i][j] = fmaf(kk[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int c = ty * R + i;
-        const int key = k0 + c;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int r = tx + 16 * j;
-          const int row = q0 + r;
-          const bool ok = row < L && key <= row && kval[c] != 0.f;
-          const float p = ok ? expf(s[i][j] * scale - ms[r]) / ls[r] : 0.f;
-          Pt[c * PS + r] = p;
-          dSt[c * PS + r] = p * (dp[i][j] - dsums[r]) * scale;
-        }
-      }
-      __syncthreads();  // p^T and ds^T written
-
-      // dv += p^T dO, dk += ds^T q
-#pragma unroll 2
-      for (int r = 0; r < BT; ++r) {
-        float pv[R], sv[R], ov[OC], qv[OC];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          pv[i] = Pt[(ty * R + i) * PS + r];
-          sv[i] = dSt[(ty * R + i) * PS + r];
-        }
-#pragma unroll
-        for (int j = 0; j < OC; ++j) {
-          ov[j] = dOs[r * RS + tx + 16 * j];
-          qv[j] = Qs[r * RS + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < OC; ++j) {
-            acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
-            acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
-          }
-      }
-    }
-  }
-
-  float* dkb = dk + (size_t)b * L * kv_row + (size_t)kvh * HD;
-  float* dvb = dv + (size_t)b * L * kv_row + (size_t)kvh * HD;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int key = k0 + ty * R + i;
-    if (key >= L) continue;
-#pragma unroll
-    for (int j = 0; j < OC; ++j) {
-      dkb[(size_t)key * kv_row + tx + 16 * j] = acc_k[i][j];
-      dvb[(size_t)key * kv_row + tx + 16 * j] = acc_v[i][j];
-    }
-  }
-}
 
 // ------------------------------------------------- bf16, tensor cores ------
 
@@ -832,22 +517,7 @@ flash_causal_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* mask,
                       const void* dout, const float* m, const float* l, const float* dsum,
-                      void* dq, int B, int L, int Hq, int Hkv, bool bf, float scale,
-                      cudaStream_t stream) {
-  if (!bf) {
-    const size_t smem = F32Bwd<HD>::DQ_BYTES;
-    cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dq_f32<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    constexpr int FT = F32Bwd<HD>::BT;
-    dim3 grid((L + FT - 1) / FT, Hq, B);
-    flash_causal_bwd_dq_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mask, static_cast<const float*>(dout), m, l, dsum,
-        static_cast<float*>(dq), L, Hq, Hkv, scale);
-    return cudaGetLastError();
-  }
+                      void* dq, int B, int L, int Hq, int Hkv, float scale, cudaStream_t stream) {
   const size_t smem = TcBwd<HD>::DQ_FIXED + live_tiles_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dq_tc<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -865,22 +535,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* 
 template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const float* mask,
                        const void* dout, const float* m, const float* l, const float* dsum,
-                       void* dk, void* dv, int B, int L, int Hq, int Hkv, bool bf,
-                       float scale, cudaStream_t stream) {
-  if (!bf) {
-    constexpr int FT = F32Bwd<HD>::BT;
-    dim3 grid((L + FT - 1) / FT, Hkv, B);
-    const size_t smem = F32Bwd<HD>::DKV_BYTES;
-    cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dkv_f32<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_causal_bwd_dkv_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mask, static_cast<const float*>(dout), m, l, dsum,
-        static_cast<float*>(dk), static_cast<float*>(dv), L, Hq, Hkv, scale);
-    return cudaGetLastError();
-  }
+                       void* dk, void* dv, int B, int L, int Hq, int Hkv, float scale,
+                       cudaStream_t stream) {
   const size_t smem = TcBwd<HD>::DKV_BYTES;
   dim3 grid((L + BT - 1) / BT, Hkv, B);
   cudaError_t err = cudaFuncSetAttribute(flash_causal_bwd_dkv_tc<HD>,
@@ -934,9 +590,13 @@ extern "C" int unirec_flash_causal_bwd_dq(const void* q, const void* k, const vo
                                                             st, B, Hq, Hq / Hkv, L, L, head_dim,
                                                             splits, scale, s));
   }
+  if (dtype == 0)
+    return (int)tf32::causal_dq(q, k, v, mask, dout, m, l, dsum, dq,
+                                chunked_strides(L, Hq, Hkv, head_dim), B, L, Hq, Hkv, head_dim,
+                                scale, s);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     return launch_dq<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dq, B, L, Hq, Hkv,
-                                          dtype == 1, scale, s);
+                                          scale, s);
   });
 }
 
@@ -958,22 +618,30 @@ extern "C" int unirec_flash_causal_bwd_dkv(const void* q, const void* k, const v
                                                       st, B, Hq, Hq / Hkv, L, head_dim, scale,
                                                       s));
   }
+  if (dtype == 0)
+    return (int)tf32::causal_dkv(q, k, v, mask, dout, m, l, dsum, dk, dv,
+                                 chunked_strides(L, Hq, Hkv, head_dim), B, L, Hq, Hkv, head_dim,
+                                 scale, s);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     return launch_dkv<decltype(hd)::value>(q, k, v, mask, dout, m, l, dsum, dk, dv, B, L, Hq,
-                                           Hkv, dtype == 1, scale, s);
+                                           Hkv, scale, s);
   });
 }
 
-// The form a chunked launch takes (flash_chunked.cuh's chunked::form), for
-// the wrappers' key splits and per-form launch counts: kind 0 the forward
-// (K1, B13, B14, B14p), 1 the backward over rows (B7b's dq, B14 / B14p's one
-// pass), 2 the backward over keys (B7b's dk / dv); dtype 0 float32, 1
-// bfloat16.  1 the scalar kernel, 2 the tensor-core kernel, 3 the cluster
-// kernel (flash_chunked_cluster.cuh); 0 where head_dim is not chunked, -1
-// for a kind or dtype out of range.
+// The form a launch takes, for the wrappers' key splits and per-form launch
+// counts: kind 0 the forward (K1; above 256 also B13, B14, B14p), 1 the
+// backward over rows (B7b's dq, B14 / B14p's one pass), 2 the backward over
+// keys (B7b's dk / dv), 3 the cross forward (B13, B14, B14p; kind 0's form
+// above 256); dtype 0 float32, 1 bfloat16.  Above 256 flash_chunked.cuh's
+// chunked::form: 1 the scalar kernel, 2 the tensor-core kernel, 3 the
+// cluster kernel, 4 the float32 3xTF32 cluster kernel
+// (flash_chunked_cluster.cuh).  At head dims up to 256: 5 for float32's
+// 3xTF32 kernels of kinds 1-3 (flash_tf32.cu), 0 otherwise (bf16's
+// tensor-core kernels and K1's float32 forward, not counted).  -1 for a kind
+// or dtype out of range.
 extern "C" int unirec_chunked_form(int kind, int head_dim, int dtype) {
-  if (kind < 0 || kind > 2 || dtype < 0 || dtype > 1) return -1;
-  if (!chunked::is_chunked(head_dim)) return 0;
-  return (int)chunked::form(static_cast<chunked::Kind>(kind), chunked::chunks(head_dim),
-                            dtype == 1);
+  if (kind < 0 || kind > 3 || dtype < 0 || dtype > 1) return -1;
+  if (!chunked::is_chunked(head_dim)) return dtype == 0 && kind != 0 ? 5 : 0;
+  return (int)chunked::form(static_cast<chunked::Kind>(kind == 3 ? 0 : kind),
+                            chunked::chunks(head_dim), dtype == 1);
 }

@@ -1558,6 +1558,170 @@ chunk_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// -------------------------------------------------- 3xTF32 tile products --
+// The float32 tile products on tensor cores, shared by the cluster kernels
+// (flash_chunked_cluster.cuh: chunk_fwd_cl32, chunk_bwd_rows_cl32) and the
+// kernels at head dims up to 256 (flash_tf32.cu).  Tiles are float32 rows of
+// LD floats in shared memory, each operand split into tf32 big + small as it
+// is read (ptx_helpers.cuh: split_tf32, mma_3xtf32).  The tensor cores do not
+// round their sums to nearest, so each product sums runs of RUN mma steps (k
+// = 8 each) from zero and adds each run to its accumulator by an fp32 add;
+// the callers choose RUN (the cluster kernels 4, flash_tf32.cu 2: see their
+// headers), OU and IU the unroll counts of the loops over runs and over a
+// run's steps (full unless given).
+
+// rows [r0, r0 + n) of a tile W floats wide (src at its first column, row
+// stride rs; rows past L zero-filled, with COLS also the columns from ncol
+// on) -> smem [n][LD] by 16-byte cp.async over NTHR threads.  Without COLS
+// neither the column test nor the pointer select: with them the 3xTF32
+// forward at hd 64 took 3% longer (scripts/probe_flash_tf32.py,
+// copy_rows_cols)
+template <int LD, int W, int NTHR, bool COLS = false>
+__device__ __forceinline__ void copy_rows32(float* dst, const float* src, long long rs, int r0,
+                                            int n, int L, int tid, int ncol = W) {
+  constexpr int CH = W / 4;  // 16-byte pieces of a row
+  for (int e = tid; e < n * CH; e += NTHR) {
+    const int r = e / CH, ch = e % CH;
+    const int row = r0 + r;
+    const bool ok = row < L && (!COLS || ch * 4 < ncol);
+    cp_async_16(smem_addr(dst + r * LD + ch * 4),
+                COLS ? (ok ? src + (long long)row * rs + ch * 4 : src)
+                     : src + (long long)(ok ? row : 0) * rs + ch * 4,
+                ok);
+  }
+}
+
+// s (16 rows of the warp x 8 NT columns) += A (rows r0..) . B^T (the first
+// 8 NT rows of Bt) over K columns, in 3xTF32
+template <int LD, int K, int NT, int RUN, int OU = K / (8 * RUN), int IU = RUN>
+__device__ __forceinline__ void scores32(float (&s)[NT][4], const float* A, const float* Bt,
+                                         int r0, int lane) {
+  static_assert(K % (8 * RUN) == 0, "whole runs");
+  const float* ar = A + (r0 + (lane >> 2)) * LD + (lane & 3);
+  const float* br = Bt + (lane >> 2) * LD + (lane & 3);
+#pragma unroll (OU)
+  for (int k0 = 0; k0 < K; k0 += 8 * RUN) {
+    float t[NT][4] = {};
+#pragma unroll (IU)
+    for (int kk = k0; kk < k0 + 8 * RUN; kk += 8) {
+      uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
+      split_tf32(ar[kk], ab[0], as[0]);
+      split_tf32(ar[8 * LD + kk], ab[1], as[1]);
+      split_tf32(ar[kk + 4], ab[2], as[2]);
+      split_tf32(ar[8 * LD + kk + 4], ab[3], as[3]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        split_tf32(br[n * 8 * LD + kk], bb[n][0], bs[n][0]);
+        split_tf32(br[n * 8 * LD + kk + 4], bb[n][1], bs[n][1]);
+      }
+      mma_3xtf32<NT>(t, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += t[n][e];
+  }
+}
+
+// acc (16 rows x 8 ND columns) += P (the C fragments of NT n-tiles: 8 NT
+// keys) . B (rows: those keys, from B's first row and the output's first
+// column), in 3xTF32, each 8-key step's k index permuted: A slot t holds key
+// 2t and slot t + 4 key 2t + 1, as the C fragment has them; B's rows read to
+// match.  Groups of G n-tiles of the output side by side, each group's runs
+// of up to RUN steps summed from zero, then added to acc
+template <int LD, int NT, int ND, int RUN>
+__device__ __forceinline__ void frag_product32(float (&acc)[ND][4], const float (&p)[NT][4],
+                                               const float* B, int lane) {
+  constexpr int G = ND % 4 == 0 ? 4 : 2;
+  static_assert(ND % G == 0, "whole groups of n-tiles");
+  const float* br = B + 2 * (lane & 3) * LD + (lane >> 2);
+  uint32_t ab[NT][4], as[NT][4];
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    split_tf32(p[kk][0], ab[kk][0], as[kk][0]);  // (g, key 2t)
+    split_tf32(p[kk][2], ab[kk][1], as[kk][1]);  // (g + 8, key 2t)
+    split_tf32(p[kk][1], ab[kk][2], as[kk][2]);  // (g, key 2t + 1)
+    split_tf32(p[kk][3], ab[kk][3], as[kk][3]);  // (g + 8, key 2t + 1)
+  }
+#pragma unroll
+  for (int nd = 0; nd < ND; nd += G) {
+#pragma unroll
+    for (int k0 = 0; k0 < NT; k0 += RUN) {
+      float t[G][4] = {};
+#pragma unroll
+      for (int kk = k0; kk < k0 + RUN && kk < NT; ++kk) {
+        const float* bk = br + kk * 8 * LD + nd * 8;
+        uint32_t bb[G][2], bs[G][2];
+#pragma unroll
+        for (int n = 0; n < G; ++n) {
+          split_tf32(bk[n * 8], bb[n][0], bs[n][0]);
+          split_tf32(bk[LD + n * 8], bb[n][1], bs[n][1]);
+        }
+        mma_3xtf32<G>(t, ab[kk], as[kk], bb, bs);
+      }
+#pragma unroll
+      for (int n = 0; n < G; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd + n][e] += t[n][e];
+    }
+  }
+}
+
+// acc (16 keys x 8 G columns) += X^T (X [rows][PL] floats: p or ds, keys
+// from column kc) . B ([rows][LD]: dO or Q, from the output's first column)
+// over rows [0, R): A's k index (the row) permuted as in frag_product32, so
+// both operands read rows 2t and 2t + 1
+template <int LD, int PL, int R, int G, int RUN, int IU = RUN>
+__device__ __forceinline__ void key_product32(float (&acc)[G][4], const float* X, int kc,
+                                              const float* B, int lane) {
+  static_assert(R % (8 * RUN) == 0, "whole runs");
+  const float* ar = X + 2 * (lane & 3) * PL + kc + (lane >> 2);
+  const float* br = B + 2 * (lane & 3) * LD + (lane >> 2);
+#pragma unroll
+  for (int r0 = 0; r0 < R; r0 += 8 * RUN) {
+    float t[G][4] = {};
+#pragma unroll (IU)
+    for (int kk = r0; kk < r0 + 8 * RUN; kk += 8) {
+      uint32_t ab[4], as[4], bb[G][2], bs[G][2];
+      split_tf32(ar[kk * PL], ab[0], as[0]);            // (key g, row 2t)
+      split_tf32(ar[kk * PL + 8], ab[1], as[1]);        // (key g + 8, row 2t)
+      split_tf32(ar[(kk + 1) * PL], ab[2], as[2]);      // (key g, row 2t + 1)
+      split_tf32(ar[(kk + 1) * PL + 8], ab[3], as[3]);  // (key g + 8, row 2t + 1)
+#pragma unroll
+      for (int n = 0; n < G; ++n) {
+        split_tf32(br[kk * LD + n * 8], bb[n][0], bs[n][0]);
+        split_tf32(br[(kk + 1) * LD + n * 8], bb[n][1], bs[n][1]);
+      }
+      mma_3xtf32<G>(t, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int n = 0; n < G; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += t[n][e];
+  }
+}
+
+// part (NT n-tiles of this thread's partial scores, from n-tile n0 of the key
+// tile) -> its slots of the exchange X ([n-tile][row group][lane] float4s)
+template <int NT>
+__device__ __forceinline__ void put_x(float* X, const float (&part)[NT][4], int n0, int rg,
+                                      int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    *reinterpret_cast<float4*>(X + (((n0 + n) * (BQ / 16) + rg) * 32 + lane) * 4) =
+        make_float4(part[n][0], part[n][1], part[n][2], part[n][3]);
+}
+
+// s = all NT n-tiles of the exchange at this thread's slots
+template <int NT>
+__device__ __forceinline__ void get_x(float (&s)[NT][4], const float* X, int rg, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float4 x = *reinterpret_cast<const float4*>(X + ((n * (BQ / 16) + rg) * 32 + lane) * 4);
+    s[n][0] = x.x; s[n][1] = x.y; s[n][2] = x.z; s[n][3] = x.w;
+  }
+}
+
 }  // namespace chunked
 
 #include "flash_chunked_cluster.cuh"

@@ -624,6 +624,11 @@ constexpr int FTHREADS = 256;     // 8 warps
 constexpr int LDF = CW + 4;       // padded float row of a float32 chunk tile
 constexpr int QCH32 = BQ * LDF;   // one resident float32 q or dO chunk [BQ][LDF]
 constexpr int TKR = 16;           // keys of the float32 backward's key tile
+// mma steps a score product (scores32) and dk / dv (key_product32) sum from
+// zero: 4, where flash_tf32.cu takes 2 (its header: 2 halved B14's error at
+// hd <= 256); the products through P or ds (frag_product32) take a key
+// tile's steps as one run
+constexpr int RUN32 = 4;
 constexpr int PLF = TKR + 4;      // padded float row of its p / ds tiles
 constexpr int XFR = TKR / 8 * BQ / 16 * 32 * 4;  // floats of one exchanged backward tile
 constexpr size_t F32_FWD_STAGE = (size_t)(TK * LDF + TK) * sizeof(float);
@@ -635,32 +640,6 @@ constexpr int F32_BWD_STAGES = (int)((SMEM_MAX - F32_BWD_FIXED) / F32_BWD_STAGE)
 static_assert(XF == TK / 8 * BQ / 16 * 32 * 4, "the forward's exchange holds its score tile");
 static_assert(F32_FWD_STAGES >= 3 && F32_FWD_STAGES <= MAX_STAGES, "the forward's ring");
 static_assert(F32_BWD_STAGES >= 3 && F32_BWD_STAGES <= MAX_STAGES, "the backward's ring");
-
-// rows [r0, r0 + n) of one float32 chunk (src at the chunk's first column,
-// row stride rs; rows past L and columns from ncol on zero-filled) -> smem
-// [n][LDF] by 16-byte cp.async over the block's FTHREADS threads
-__device__ __forceinline__ void copy_chunk32(float* dst, const float* src, long long rs, int r0,
-                                             int n, int L, int ncol, int tid) {
-  constexpr int CH = CW / 4;  // 16-byte pieces of a chunk's row
-  for (int e = tid; e < n * CH; e += FTHREADS) {
-    const int r = e / CH, ch = e % CH;
-    const int row = r0 + r;
-    const bool ok = row < L && ch * 4 < ncol;
-    cp_async_16(smem_addr(dst + r * LDF + ch * 4), ok ? src + (long long)row * rs + ch * 4 : src,
-                ok);
-  }
-}
-
-// part (NT n-tiles of this thread's partial, from n-tile n0 of the key tile)
-// -> its slots of the exchange X ([n-tile][row group][lane] float4s)
-template <int NT>
-__device__ __forceinline__ void cl32_put(float* X, const float (&part)[NT][4], int n0, int rg,
-                                         int lane) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    *reinterpret_cast<float4*>(X + (((n0 + n) * (BQ / 16) + rg) * 32 + lane) * 4) =
-        make_float4(part[n][0], part[n][1], part[n][2], part[n][3]);
-}
 
 // sum = the C ranks' partials of the key tile's NT n-tiles at this thread's
 // slots of X, added in rank order 0 .. C - 1, two ranks' reads in flight
@@ -682,79 +661,6 @@ __device__ __forceinline__ void cl32_sum(float (&sum)[NT][4], const float* X, in
         sum[n][0] += x[n].x; sum[n][1] += x[n].y; sum[n][2] += x[n].z; sum[n][3] += x[n].w;
       }
     }
-  }
-}
-
-// s (16 rows of the warp x 8 NT columns) += A (rows r0.., one float32 chunk)
-// . B^T (the first 8 NT rows of Bt, one float32 chunk), in 3xTF32: each run
-// of 4 steps (32 columns) summed from zero, then added to s
-template <int NT>
-__device__ __forceinline__ void chunk_scores32(float (&s)[NT][4], const float* A, const float* Bt,
-                                               int r0, int lane) {
-  const float* ar = A + (r0 + (lane >> 2)) * LDF + (lane & 3);
-  const float* br = Bt + (lane >> 2) * LDF + (lane & 3);
-#pragma unroll 1
-  for (int k0 = 0; k0 < CW; k0 += 32) {
-    float t[NT][4] = {};
-#pragma unroll 2
-    for (int kk = k0; kk < k0 + 32; kk += 8) {
-      uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
-      split_tf32(ar[kk], ab[0], as[0]);
-      split_tf32(ar[8 * LDF + kk], ab[1], as[1]);
-      split_tf32(ar[kk + 4], ab[2], as[2]);
-      split_tf32(ar[8 * LDF + kk + 4], ab[3], as[3]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        split_tf32(br[n * 8 * LDF + kk], bb[n][0], bs[n][0]);
-        split_tf32(br[n * 8 * LDF + kk + 4], bb[n][1], bs[n][1]);
-      }
-      mma_3xtf32<NT>(t, ab, as, bb, bs);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] += t[n][e];
-  }
-}
-
-// acc (16 rows x 8 ND columns) += P (the C fragments of NT n-tiles: 8 NT
-// keys) . B (rows: those keys, from B's first row and the columns' first),
-// in 3xTF32, each 8-key step's k index permuted: A slot t holds key 2t and
-// slot t + 4 key 2t + 1, as the C fragment has them; B's rows read to match.
-// G n-tiles of the output side by side, each group's NT steps summed from
-// zero, then added to acc
-template <int NT, int ND>
-__device__ __forceinline__ void frag_product32(float (&acc)[ND][4], const float (&p)[NT][4],
-                                               const float* B, int lane) {
-  constexpr int G = 4;
-  static_assert(ND % G == 0, "whole groups of n-tiles");
-  const float* br = B + 2 * (lane & 3) * LDF + (lane >> 2);
-  uint32_t ab[NT][4], as[NT][4];
-#pragma unroll
-  for (int kk = 0; kk < NT; ++kk) {
-    split_tf32(p[kk][0], ab[kk][0], as[kk][0]);  // (g, key 2t)
-    split_tf32(p[kk][2], ab[kk][1], as[kk][1]);  // (g + 8, key 2t)
-    split_tf32(p[kk][1], ab[kk][2], as[kk][2]);  // (g, key 2t + 1)
-    split_tf32(p[kk][3], ab[kk][3], as[kk][3]);  // (g + 8, key 2t + 1)
-  }
-#pragma unroll
-  for (int nd = 0; nd < ND; nd += G) {
-    float t[G][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      const float* bk = br + kk * 8 * LDF + nd * 8;
-      uint32_t bb[G][2], bs[G][2];
-#pragma unroll
-      for (int n = 0; n < G; ++n) {
-        split_tf32(bk[n * 8], bb[n][0], bs[n][0]);
-        split_tf32(bk[LDF + n * 8], bb[n][1], bs[n][1]);
-      }
-      mma_3xtf32<G>(t, ab[kk], as[kk], bb, bs);
-    }
-#pragma unroll
-    for (int n = 0; n < G; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd + n][e] += t[n][e];
   }
 }
 
@@ -806,11 +712,12 @@ chunk_fwd_cl32(const float* __restrict__ q, const float* __restrict__ k,
 
   auto load_unit = [&](int u) {
     const int tt = u >> 1, t = t0 + tt;
-    copy_chunk32(ring + (u % S) * TK * LDF, (u & 1) ? vb : kb, (u & 1) ? vs.r : ks.r, t * TK, TK,
-                 Lkv, nc, tid);
+    copy_rows32<LDF, CW, FTHREADS, true>(ring + (u % S) * TK * LDF, (u & 1) ? vb : kb,
+                                         (u & 1) ? vs.r : ks.r, t * TK, TK, Lkv, tid, nc);
     if (!(u & 1)) copy_key_info(kin + (tt % S) * TK, bmb, t * TK, Lkv, q, tid);
   };
-  copy_chunk32(Qs, q + b * qs.b + h * qs.h + c * CW, qs.r, q0, BQ, Lq, nc, tid);
+  copy_rows32<LDF, CW, FTHREADS, true>(Qs, q + b * qs.b + h * qs.h + c * CW, qs.r, q0, BQ, Lq,
+                                       tid, nc);
   for (int u = 0; u < S - 1; ++u) {
     if (u < n_units) load_unit(u);
     cp_async_commit();
@@ -843,8 +750,8 @@ chunk_fwd_cl32(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < NTH; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) own[n][e] = 0.f;
-        chunk_scores32(own, Qs, tile + hk * NTH * 8 * LDF, r0, lane);
-        cl32_put(Xp, own, hk * NTH, rg, lane);
+        scores32<LDF, CW, NTH, RUN32, 1, 2>(own, Qs, tile + hk * NTH * 8 * LDF, r0, lane);
+        put_x(Xp, own, hk * NTH, rg, lane);
       }
       cluster_arrive();
       continue;
@@ -890,7 +797,8 @@ chunk_fwd_cl32(const float* __restrict__ q, const float* __restrict__ k,
       oacc[n][2] *= alpha[1];
       oacc[n][3] *= alpha[1];
     }
-    frag_product32(oacc, s, tile + hk * ND * 8, lane);  // o_c += P V_c, the warp's columns
+    // o_c += P V_c, the warp's columns (the key tile's 4 steps one run)
+    frag_product32<LDF, NT, ND, NT>(oacc, s, tile + hk * ND * 8, lane);
   }
   cp_async_wait<0>();
   cluster_arrive();  // no block leaves while a peer may read its exchange
@@ -998,12 +906,14 @@ chunk_bwd_rows_cl32(const float* __restrict__ q, const float* __restrict__ k,
 
   auto load_unit = [&](int u) {
     const int tt = u >> 1, t = t0 + tt;
-    copy_chunk32(ring + (u % S) * TKR * LDF, (u & 1) ? kb : vb, (u & 1) ? st.k.r : st.v.r,
-                 t * TKR, TKR, Lkv, nc, tid);
+    copy_rows32<LDF, CW, FTHREADS, true>(ring + (u % S) * TKR * LDF, (u & 1) ? kb : vb,
+                                         (u & 1) ? st.k.r : st.v.r, t * TKR, TKR, Lkv, tid, nc);
     if (!(u & 1)) copy_key_info<TKR>(kin + (tt % S) * TKR, bmb, t * TKR, Lkv, q, tid);
   };
-  copy_chunk32(Qs, q + b * st.q.b + h * st.q.h + c * CW, st.q.r, q0, BQ, Lq, nc, tid);
-  copy_chunk32(dOs, dout + b * st.dout.b + h * st.dout.h + c * CW, st.dout.r, q0, BQ, Lq, nc, tid);
+  copy_rows32<LDF, CW, FTHREADS, true>(Qs, q + b * st.q.b + h * st.q.h + c * CW, st.q.r, q0, BQ,
+                                       Lq, tid, nc);
+  copy_rows32<LDF, CW, FTHREADS, true>(dOs, dout + b * st.dout.b + h * st.dout.h + c * CW,
+                                       st.dout.r, q0, BQ, Lq, tid, nc);
   for (int u = 0; u < S - 1; ++u) {
     if (u < n_units) load_unit(u);
     cp_async_commit();
@@ -1046,16 +956,16 @@ chunk_bwd_rows_cl32(const float* __restrict__ q, const float* __restrict__ k,
       if (active) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) own_dp[0][e] = 0.f;
-        chunk_scores32(own_dp, dOs, tile + hk * 8 * LDF, r0, lane);
-        cl32_put(Xs + XFR, own_dp, hk, rg, lane);
+        scores32<LDF, CW, 1, RUN32, 1, 2>(own_dp, dOs, tile + hk * 8 * LDF, r0, lane);
+        put_x(Xs + XFR, own_dp, hk, rg, lane);
       }
       continue;
     }
     if (active) {  // K_c: n-tile hk of S_c = Q_c K_c^T
 #pragma unroll
       for (int e = 0; e < 4; ++e) own_s[0][e] = 0.f;
-      chunk_scores32(own_s, Qs, tile + hk * 8 * LDF, r0, lane);
-      cl32_put(Xs, own_s, hk, rg, lane);
+      scores32<LDF, CW, 1, RUN32, 1, 2>(own_s, Qs, tile + hk * 8 * LDF, r0, lane);
+      put_x(Xs, own_s, hk, rg, lane);
     }
     cluster_arrive();
     cluster_wait();  // every rank's partials of this tile are in its exchange
@@ -1087,7 +997,8 @@ chunk_bwd_rows_cl32(const float* __restrict__ q, const float* __restrict__ k,
           *reinterpret_cast<float2*>(dSs + at) = make_float2(dp[n][2 * r], dp[n][2 * r + 1]);
         }
       }
-    if (active) frag_product32(dqacc, dp, tile + hk * ND * 8, lane);  // dq_c += ds K_c
+    // dq_c += ds K_c (the key tile's 2 steps one run)
+    if (active) frag_product32<LDF, NT, ND, NT>(dqacc, dp, tile + hk * ND * 8, lane);
     if constexpr (DKV) {
       __syncthreads();  // p and ds of every row written
       // warp w: dv (w < 4) or dk of the tile's keys g and g + 8, columns cq
@@ -1095,34 +1006,12 @@ chunk_bwd_rows_cl32(const float* __restrict__ q, const float* __restrict__ k,
       // k index over rows permuted as in frag_product32) and dO_c / Q_c
       const bool is_dk = warp >= 4;
       const int cq = rg * 64;
-      const float* ar = (is_dk ? dSs : Ps) + 2 * t4 * PLF + g;
-      const float* br = (is_dk ? Qs : dOs) + 2 * t4 * LDF + cq + g;
+      const float* X_ = is_dk ? dSs : Ps;
+      const float* B_ = (is_dk ? Qs : dOs) + cq;
 #pragma unroll 1
       for (int n0 = 0; n0 < 64; n0 += 32) {
         float acc[4][4] = {};
-#pragma unroll
-        for (int rs = 0; rs < BQ; rs += 32) {  // 4 steps from zero, then added
-          float t[4][4] = {};
-#pragma unroll 2
-          for (int kk = rs; kk < rs + 32; kk += 8) {
-            uint32_t ab[4], as[4];
-            split_tf32(ar[kk * PLF], ab[0], as[0]);            // (key g, row 2t)
-            split_tf32(ar[kk * PLF + 8], ab[1], as[1]);        // (key g + 8, row 2t)
-            split_tf32(ar[(kk + 1) * PLF], ab[2], as[2]);      // (key g, row 2t + 1)
-            split_tf32(ar[(kk + 1) * PLF + 8], ab[3], as[3]);  // (key g + 8, row 2t + 1)
-            uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              split_tf32(br[kk * LDF + n0 + n * 8], bb[n][0], bs[n][0]);
-              split_tf32(br[(kk + 1) * LDF + n0 + n * 8], bb[n][1], bs[n][1]);
-            }
-            mma_3xtf32<4>(t, ab, as, bb, bs);
-          }
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[n][e] += t[n][e];
-        }
+        key_product32<LDF, PLF, BQ, 4, RUN32, 2>(acc, X_, 0, B_ + n0, lane);
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int key = k0 + g + 8 * hf;

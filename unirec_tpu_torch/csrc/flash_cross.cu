@@ -120,17 +120,19 @@
 //     put into the first cross layer's weight gradients (chip_smoke.py phase
 //     8 holds them).  wgmma and TMA are the next step, as for K1.
 //
-// fp32 design up to HD 256 (above it the chunked form, whose float32 kernels
-// run on tensor cores in 3xTF32: flash_chunked_cluster.cuh): plain TF32 on
-// tensor cores keeps about 3 decimal digits and breaks the 1e-5 fp32 gates,
-// so fp32 keeps the scalar kernels, unchanged at HD <= 128 (float32 is the
-// default precision of train user-qformer, whose --flash cross layers run
-// B14): the forward, then for the backward
-// a dq kernel (one block per q tile) and a dk / dv kernel (one block per kv
-// tile), 16 x 16 threads, a thread owning an R x R block of a BT x BT score
-// tile and an R x (HD / 16) block of an output, fp32 FMAs from padded shared
-// tiles.  BT = 64 (R = 4) up to HD 128; at HD 256, 32-row tiles (R = 2):
-// four 64-row tiles of 257 floats would not fit in shared memory.
+// fp32 design up to HD 256 (flash_tf32.cu; above it the chunked form,
+// whose float32 kernels run in 3xTF32 too: flash_chunked_cluster.cuh):
+// plain TF32 on tensor cores keeps about 3 decimal digits and breaks the
+// 1e-5 fp32 gates, so every product runs in 3xTF32 (each float32 operand
+// split into tf32 big + small, three mma.sync.m16n8k8 a step, each short run
+// of steps summed from zero and added by an fp32 add), with the bf16
+// design's schedule: the forward on 64-row q tiles, the backward in one pass
+// over the keys with per-q-tile float32 partials of dk / dv above Lq 64.
+// float32 is the default precision of train user-qformer, whose --flash
+// cross layers run B14.  Float32 rows are padded to hd + 4 floats; the key
+// tile and the ring depth are chosen per head dim (32 keys up to hd 64 in
+// the backward, 16 above; 8 warps at hd 256, where a pair of warps shares
+// a row group and splits the columns), as flash_tf32.cu's header sets out.
 //
 // Every C entry launches on the caller's stream, allocates nothing, and
 // returns the first CUDA error (0 = success).
@@ -143,6 +145,7 @@
 #include <type_traits>
 
 #include "flash_chunked.cuh"
+#include "flash_tf32.cuh"
 #include "head_dim.cuh"
 #include "ptx_helpers.cuh"
 
@@ -152,491 +155,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr float NEG_INF = -1e9f;  // the running max's start (ops/attention.py)
 
-// ------------------------------------------------------------ fp32, scalar --
-
-constexpr int THREADS = 256;  // 16 x 16 threads
-
-// the shared-memory layout of each fp32 kernel, per head dimension
-template <int HD>
-struct Tile {
-  // rows of a q tile and keys of a kv tile: 64, or 32 at HD 256, where the
-  // backward kernels' four 64-row tiles would not fit in shared memory
-  static constexpr int BT = HD > 128 ? 32 : 64;
-  static constexpr int R = BT / 16;   // score rows and columns a thread owns
-  static constexpr int PS = BT + 1;   // padded row stride of a [BT][BT] tile
-  static constexpr int CJ = HD / 16;  // output columns a thread owns
-  static constexpr int RS = HD + 1;   // padded row stride of a [BT][HD] tile
-  // forward: Q, K, V tiles, the p tile, the kv tile's bias
-  static constexpr size_t FWD_BYTES = (3 * BT * RS + BT * PS + BT) * sizeof(float);
-  // dq kernel: Q, dO, K, V tiles, the ds tile, m / l / dsum / bias
-  static constexpr size_t DQ_BYTES = (4 * BT * RS + BT * PS + 4 * BT) * sizeof(float);
-  // dkv kernel: K, V, Q, dO tiles, the p^T and ds^T tiles, m / l / dsum / bias
-  static constexpr size_t DKV_BYTES =
-      (4 * BT * RS + 2 * BT * PS + 4 * BT) * sizeof(float);
-  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 256, "head_dim");
-  static_assert(DKV_BYTES <= 232448, "shared memory of one block");
-};
-
-struct Strides {
-  long long b, h, r;  // elements between batches, heads and rows
-};
-
-// the backward's seven tensors
-struct BwdStrides {
-  Strides q, k, v, dout, dq, dk, dv;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+using chunked::BwdStrides;
+using chunked::Strides;
 
 // (q . k) * scale + bias with both roundings, as the JAX kernels compute it
 __device__ __forceinline__ float score(float dot, float scale, float bias) {
   return __fadd_rn(__fmul_rn(dot, scale), bias);
 }
 
-// rows [r0, r0 + BT) of one head (row stride rs) -> smem [BT][HD + 1] floats;
-// rows past L read as zero.  16-byte loads (4 floats a thread; the scalar
-// kernels are built for float only, bf16 runs the tensor-core kernels):
-// the tile loads wait on device memory with nothing to overlap them, so the
-// fewer load instructions the better.  Rows start on 16-byte boundaries
-// (the wrappers check: ops/attention.check_kernel_tensors).
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long rs, int r0,
-                                          int L, int tid) {
-  constexpr int V = 16 / sizeof(T);  // elements of one load
-  constexpr int VPR = HD / V;        // loads per row
-  for (int e = tid; e < Tile<HD>::BT * VPR; e += THREADS) {
-    const int r = e / VPR, d = (e % VPR) * V;
-    const int row = r0 + r;
-    float* out = dst + r * Tile<HD>::RS + d;
-    if (row < L) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (long long)row * rs + d);
-      const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < V; ++i) out[i] = to_f(x[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) out[i] = 0.f;
-    }
-  }
-}
-
-// max / sum over the 16 threads (tx) that share a row: a half warp
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // the forward's o: B13 writes T, B14 (STATS) float for the backward's dsum
 template <typename T, bool STATS>
 using OutT = typename std::conditional<STATS, float, T>::type;
-
-template <int HD, typename T, bool STATS>
-__global__ void __launch_bounds__(THREADS)
-flash_cross_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ bias,
-                       OutT<T, STATS>* __restrict__ o, float* __restrict__ m_out,
-                       float* __restrict__ l_out, Strides qs, Strides ks, Strides vs,
-                       Strides os, int Lq, int Lkv, int H, float scale) {
-  constexpr int CJ = Tile<HD>::CJ, RS = Tile<HD>::RS;
-  constexpr int BT = Tile<HD>::BT, R = Tile<HD>::R, PS = Tile<HD>::PS;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BT][RS]
-  float* Ks = Qs + BT * RS;      // [BT][RS]
-  float* Vs = Ks + BT * RS;      // [BT][RS]
-  float* Ps = Vs + BT * RS;      // [BT][PS]  exp(s - m) of this tile
-  float* bs = Ps + BT * PS;      // [BT]      bias of this tile's keys
-
-  const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;        // rows ty*R .. ty*R+R-1
-  const int tx = tid & 15;        // score cols tx + 16j, output cols tx + 16j
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const float* biasb = bias ? bias + (long long)b * Lkv : nullptr;
-
-  load_tile<HD>(Qs, qb, qs.r, q0, Lq, tid);
-
-  float m_run[R], l_run[R], acc[R][CJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m_run[i] = NEG_INF;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_kv = (Lkv + BT - 1) / BT;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's K / V / P reads are done
-    load_tile<HD>(Ks, kb, ks.r, k0, Lkv, tid);
-    load_tile<HD>(Vs, vb, vs.r, k0, Lkv, tid);
-    if (tid < BT) {
-      const int key = k0 + tid;
-      bs[tid] = (key < Lkv && biasb) ? biasb[key] : 0.f;
-    }
-    __syncthreads();
-
-    float s[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[R], kv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) qv[i] = Qs[(ty * R + i) * RS + d];
-#pragma unroll
-      for (int j = 0; j < R; ++j) kv[j] = Ks[(tx + 16 * j) * RS + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // online softmax: every tile holds key k0 < Lkv, so the tile max is finite
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = tx + 16 * j;
-        s[i][j] = score(s[i][j], scale, bs[c]);
-        if (k0 + c < Lkv) mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_run[i], row_max(mx));
-      const float alpha = expf(m_run[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = tx + 16 * j;
-        const float p = k0 + c < Lkv ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * R + i) * PS + c] = p;
-        sum += p;
-      }
-      l_run[i] = l_run[i] * alpha + row_sum(sum);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // p written
-
-    // acc += p v
-#pragma unroll 4
-    for (int c = 0; c < BT; ++c) {
-      float pv[R], vv[CJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) pv[i] = Ps[(ty * R + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) vv[j] = Vs[c * RS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-  OutT<T, STATS>* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
-    if (row >= Lq) continue;
-    // all-masked rows have l == 0: emit zeros rather than NaN
-    const float den = l_run[i] == 0.f ? 1.f : l_run[i];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) store(ob + row * os.r + tx + 16 * j, acc[i][j] / den);
-    if (STATS && tx == 0) {
-      const size_t r = ((size_t)b * Lq + row) * H + h;
-      m_out[r] = m_run[i];
-      l_out[r] = l_run[i];
-    }
-  }
-}
-
-template <int HD, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_cross_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const float* __restrict__ bias,
-                          const T* __restrict__ dout, const float* __restrict__ m_in,
-                          const float* __restrict__ l_in,
-                          const float* __restrict__ dsum_in, T* __restrict__ dq,
-                          BwdStrides st, int Lq, int Lkv, int H, float scale) {
-  constexpr int CJ = Tile<HD>::CJ, RS = Tile<HD>::RS;
-  constexpr int BT = Tile<HD>::BT, R = Tile<HD>::R, PS = Tile<HD>::PS;
-  extern __shared__ float smem[];
-  float* Qs = smem;                // [BT][RS]
-  float* dOs = Qs + BT * RS;       // [BT][RS]
-  float* Ks = dOs + BT * RS;       // [BT][RS]
-  float* Vs = Ks + BT * RS;        // [BT][RS]
-  float* dSs = Vs + BT * RS;       // [BT][PS]  ds of this tile
-  float* ms = dSs + BT * PS;       // [BT]
-  float* ls = ms + BT;             // [BT]  l with 0 guarded to 1
-  float* dsums = ls + BT;          // [BT]
-  float* bs = dsums + BT;          // [BT]  bias of this tile's keys
-
-  const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;          // rows ty*R .. ty*R+R-1
-  const int tx = tid & 15;          // score cols tx + 16j, output cols tx + 16j
-  const T* qb = q + b * st.q.b + h * st.q.h;
-  const T* dob = dout + b * st.dout.b + h * st.dout.h;
-  const T* kb = k + b * st.k.b + h * st.k.h;
-  const T* vb = v + b * st.v.b + h * st.v.h;
-  const float* biasb = bias ? bias + (long long)b * Lkv : nullptr;
-
-  load_tile<HD>(Qs, qb, st.q.r, q0, Lq, tid);
-  load_tile<HD>(dOs, dob, st.dout.r, q0, Lq, tid);
-  if (tid < BT) {
-    const int row = q0 + tid;
-    const size_t r = ((size_t)b * Lq + row) * H + h;
-    const float lv = row < Lq ? l_in[r] : 1.f;
-    ms[tid] = row < Lq ? m_in[r] : 0.f;
-    ls[tid] = lv == 0.f ? 1.f : lv;
-    dsums[tid] = row < Lq ? dsum_in[r] : 0.f;
-  }
-
-  float acc[R][CJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-
-  const int n_kv = (Lkv + BT - 1) / BT;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's K / ds reads are done
-    load_tile<HD>(Ks, kb, st.k.r, k0, Lkv, tid);
-    load_tile<HD>(Vs, vb, st.v.r, k0, Lkv, tid);
-    if (tid < BT) {
-      const int key = k0 + tid;
-      bs[tid] = (key < Lkv && biasb) ? biasb[key] : 0.f;
-    }
-    __syncthreads();
-
-    // s = q k^T and dp = dO v^T for rows ty*R+i, keys tx+16j
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[R], ov[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = Qs[(ty * R + i) * RS + d];
-        ov[i] = dOs[(ty * R + i) * RS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * RS + d];
-        vv[j] = Vs[(tx + 16 * j) * RS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ty * R + i;
-      const bool row_ok = q0 + r < Lq;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = tx + 16 * j;
-        const float p = (row_ok && k0 + c < Lkv)
-                            ? expf(score(s[i][j], scale, bs[c]) - ms[r]) / ls[r]
-                            : 0.f;
-        dSs[r * PS + c] = p * (dp[i][j] - dsums[r]) * scale;
-      }
-    }
-    __syncthreads();  // ds written
-
-    // dq += ds k
-#pragma unroll 4
-    for (int c = 0; c < BT; ++c) {
-      float dsv[R], kk[CJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) dsv[i] = dSs[(ty * R + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kk[j] = Ks[c * RS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(dsv[i], kk[j], acc[i][j]);
-    }
-  }
-
-  T* dqb = dq + b * st.dq.b + h * st.dq.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
-    if (row >= Lq) continue;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) store(dqb + row * st.dq.r + tx + 16 * j, acc[i][j]);
-  }
-}
-
-template <int HD, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_cross_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const float* __restrict__ bias,
-                           const T* __restrict__ dout, const float* __restrict__ m_in,
-                           const float* __restrict__ l_in,
-                           const float* __restrict__ dsum_in, T* __restrict__ dk,
-                           T* __restrict__ dv, BwdStrides st, int Lq, int Lkv, int H,
-                           float scale) {
-  constexpr int CJ = Tile<HD>::CJ, RS = Tile<HD>::RS;
-  constexpr int BT = Tile<HD>::BT, R = Tile<HD>::R, PS = Tile<HD>::PS;
-  extern __shared__ float smem[];
-  float* Ks = smem;                // [BT][RS]
-  float* Vs = Ks + BT * RS;        // [BT][RS]
-  float* Qs = Vs + BT * RS;        // [BT][RS]
-  float* dOs = Qs + BT * RS;       // [BT][RS]
-  float* Pt = dOs + BT * RS;       // [BT][PS]  p^T: [key][row]
-  float* dSt = Pt + BT * PS;       // [BT][PS]  ds^T
-  float* ms = dSt + BT * PS;       // [BT]
-  float* ls = ms + BT;             // [BT]
-  float* dsums = ls + BT;          // [BT]
-  float* bs = dsums + BT;          // [BT]
-
-  const int k0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;          // keys ty*R .. ty*R+R-1
-  const int tx = tid & 15;          // score rows tx + 16j, output cols tx + 16j
-  const T* kb = k + b * st.k.b + h * st.k.h;
-  const T* vb = v + b * st.v.b + h * st.v.h;
-  const T* qb = q + b * st.q.b + h * st.q.h;
-  const T* dob = dout + b * st.dout.b + h * st.dout.h;
-  const float* biasb = bias ? bias + (long long)b * Lkv : nullptr;
-
-  load_tile<HD>(Ks, kb, st.k.r, k0, Lkv, tid);
-  load_tile<HD>(Vs, vb, st.v.r, k0, Lkv, tid);
-  if (tid < BT) {
-    const int key = k0 + tid;
-    bs[tid] = (key < Lkv && biasb) ? biasb[key] : 0.f;
-  }
-
-  float acc_k[R][CJ], acc_v[R][CJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int n_q = (Lq + BT - 1) / BT;
-  for (int qt = 0; qt < n_q; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();  // the previous tile's Q / dO / p^T / ds^T reads are done
-    load_tile<HD>(Qs, qb, st.q.r, q0, Lq, tid);
-    load_tile<HD>(dOs, dob, st.dout.r, q0, Lq, tid);
-    if (tid < BT) {
-      const int row = q0 + tid;
-      const size_t r = ((size_t)b * Lq + row) * H + h;
-      const float lv = row < Lq ? l_in[r] : 1.f;
-      ms[tid] = row < Lq ? m_in[r] : 0.f;
-      ls[tid] = lv == 0.f ? 1.f : lv;
-      dsums[tid] = row < Lq ? dsum_in[r] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T = k q^T and dp^T = v dO^T for keys ty*R+i, rows tx+16j
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kk[R], vv[R], qv[R], ov[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kk[i] = Ks[(ty * R + i) * RS + d];
-        vv[i] = Vs[(ty * R + i) * RS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * RS + d];
-        ov[j] = dOs[(tx + 16 * j) * RS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(kk[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int c = ty * R + i;
-      const bool key_ok = k0 + c < Lkv;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int r = tx + 16 * j;
-        const float p = (key_ok && q0 + r < Lq)
-                            ? expf(score(s[i][j], scale, bs[c]) - ms[r]) / ls[r]
-                            : 0.f;
-        Pt[c * PS + r] = p;
-        dSt[c * PS + r] = p * (dp[i][j] - dsums[r]) * scale;
-      }
-    }
-    __syncthreads();  // p^T and ds^T written
-
-    // dv += p^T dO, dk += ds^T q
-#pragma unroll 2
-    for (int r = 0; r < BT; ++r) {
-      float pv[R], sv[R], ov[CJ], qv[CJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pv[i] = Pt[(ty * R + i) * PS + r];
-        sv[i] = dSt[(ty * R + i) * PS + r];
-      }
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        ov[j] = dOs[r * RS + tx + 16 * j];
-        qv[j] = Qs[r * RS + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
-        }
-    }
-  }
-
-  T* dkb = dk + b * st.dk.b + h * st.dk.h;
-  T* dvb = dv + b * st.dv.b + h * st.dv.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int key = k0 + ty * R + i;
-    if (key >= Lkv) continue;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      store(dkb + key * st.dk.r + tx + 16 * j, acc_k[i][j]);
-      store(dvb + key * st.dv.r + tx + 16 * j, acc_v[i][j]);
-    }
-  }
-}
 
 // ------------------------------------------------- bf16, tensor cores ------
 
@@ -1158,24 +687,6 @@ flash_cross_dkv_sum(const float* __restrict__ part, bf16* __restrict__ dk,
 
 // ----------------------------------------------------------------- launch --
 
-template <int HD, typename T, bool STATS>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias,
-                       void* o, float* m, float* l, Strides qs, Strides ks, Strides vs,
-                       Strides os, int B, int H, int Lq, int Lkv, float scale,
-                       cudaStream_t stream) {
-  constexpr size_t smem = Tile<HD>::FWD_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_cross_fwd_kernel<HD, T, STATS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  constexpr int BT = Tile<HD>::BT;
-  dim3 grid((Lq + BT - 1) / BT, H, B);
-  flash_cross_fwd_kernel<HD, T, STATS><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<OutT<T, STATS>*>(o), m, l, qs, ks, vs, os, Lq, Lkv, H, scale);
-  return cudaGetLastError();
-}
-
 template <int HD, bool STATS>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
                           void* o, float* m, float* l, Strides qs, Strides ks, Strides vs,
@@ -1190,37 +701,6 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const flo
   flash_cross_fwd_tc<HD, STATS><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, static_cast<OutT<bf16, STATS>*>(o), m, l, qs, ks, vs, os, Lq, Lkv, H, scale);
-  return cudaGetLastError();
-}
-
-template <int HD>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
-                       const void* dout, const float* m, const float* l, const float* dsum,
-                       void* dq, void* dk, void* dv, const BwdStrides& st, int B, int H,
-                       int Lq, int Lkv, float scale, cudaStream_t stream) {
-  using T = float;
-  constexpr size_t dq_smem = Tile<HD>::DQ_BYTES, dkv_smem = Tile<HD>::DKV_BYTES;
-  constexpr int BT = Tile<HD>::BT;
-  cudaError_t err = cudaFuncSetAttribute(flash_cross_bwd_dq_kernel<HD, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dq_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_cross_bwd_dkv_kernel<HD, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
-  if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  flash_cross_bwd_dq_kernel<HD, T><<<dim3((Lq + BT - 1) / BT, H, B), THREADS, dq_smem,
-                                     stream>>>(qt, kt, vt, bias, dot, m, l, dsum,
-                                               static_cast<T*>(dq), st, Lq, Lkv, H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_cross_bwd_dkv_kernel<HD, T><<<dim3((Lkv + BT - 1) / BT, H, B), THREADS, dkv_smem,
-                                      stream>>>(qt, kt, vt, bias, dot, m, l, dsum,
-                                                static_cast<T*>(dk), static_cast<T*>(dv),
-                                                st, Lq, Lkv, H, scale);
   return cudaGetLastError();
 }
 
@@ -1259,8 +739,8 @@ bool bad_shape(int B, int H, int Lq, int Lkv) {
 
 // B13 (m = l = null; o in the inputs' type), the forward of B14 and of B14p
 // (m, l [B, Lq, H] float; o float).  Strides in elements for (batch, head,
-// row) of q, k, v and o.  dtype: 0 = float32 (the scalar kernel), 1 =
-// bfloat16 (tensor cores).  bias: [B, Lkv] float additive per-key bias, or
+// row) of q, k, v and o.  dtype: 0 = float32 (3xTF32 on tensor cores,
+// flash_tf32.cu), 1 = bfloat16 (tensor cores).  bias: [B, Lkv] float additive per-key bias, or
 // null.  head_dim: an instance of head_dim.cuh, or above 256 (the chunked
 // form, rows of whole 16-byte pieces); scale: 1 / sqrt of the true head dim (the wrapper pads other head
 // dims to an instance).  splits, part: the chunked bf16 form's key splits
@@ -1294,13 +774,11 @@ extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* 
                                                             head_dim, splits, scale, s));
   }
   const Strides qs{qsb, qsh, qsr}, ks{ksb, ksh, ksr}, vs{vsb, vsh, vsr}, os{osb, osh, osr};
+  if (dtype == 0)
+    return (int)tf32::cross_fwd(q, k, v, bias, o, m, l, qs, ks, vs, os, B, H, Lq, Lkv, head_dim,
+                                scale, s);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
-    if (dtype == 0)
-      return m ? launch_fwd<HD, float, true>(q, k, v, bias, o, m, l, qs, ks, vs, os, B, H,
-                                             Lq, Lkv, scale, s)
-               : launch_fwd<HD, float, false>(q, k, v, bias, o, m, l, qs, ks, vs, os, B,
-                                              H, Lq, Lkv, scale, s);
     return m ? launch_fwd_tc<HD, true>(q, k, v, bias, o, m, l, qs, ks, vs, os, B, H, Lq, Lkv,
                                        scale, s)
              : launch_fwd_tc<HD, false>(q, k, v, bias, o, m, l, qs, ks, vs, os, B, H, Lq,
@@ -1308,8 +786,8 @@ extern "C" int unirec_flash_cross_fwd(const void* q, const void* k, const void* 
   });
 }
 
-// The backward of B14 and B14p.  float32: the dq kernel, then the dk / dv
-// kernel.  bfloat16: the one-pass kernel, and with Lq > 64 the sum of its
+// The backward of B14 and B14p: the one-pass kernel (float32 in 3xTF32,
+// flash_tf32.cu; bfloat16 on tensor cores), and with Lq > 64 the sum of its
 // q tiles' partials, for which part is float32 scratch of 2 * ceil(Lq / 64)
 // * B * H * Lkv * head_dim elements (null otherwise).  Above 256 the
 // chunked form, one pass in both types; the float32 cluster form takes
@@ -1347,11 +825,11 @@ extern "C" int unirec_flash_cross_bwd(const void* q, const void* k, const void* 
                                                              1, Lq, Lkv, head_dim, splits, scale,
                                                              s));
   }
+  if (dtype == 0)
+    return (int)tf32::cross_bwd(q, k, v, bias, dout, m, l, dsum, dq, dk, dv, part, st, B, H, Lq,
+                                Lkv, head_dim, scale, s);
   return (int)with_head_dim(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
-    if (dtype == 0)
-      return launch_bwd<HD>(q, k, v, bias, dout, m, l, dsum, dq, dk, dv, st, B, H, Lq, Lkv,
-                            scale, s);
     return launch_bwd_tc<HD>(q, k, v, bias, dout, m, l, dsum, dq, dk, dv, part, st, B, H, Lq,
                              Lkv, scale, s);
   });

@@ -28,10 +28,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_causal_fwd.cu", "flash_causal_bwd.cu", "retrieve_topk.cu",
            "qformer_blocks.cu", "fused_qformer_vjp.cu", "flash_cross.cu",
-           "packed_attention.cu")
+           "flash_tf32.cu", "packed_attention.cu")
 HEADERS = ("attention_f32.cuh", "causal_tiles.cuh", "flash_chunked.cuh",
-           "flash_chunked_cluster.cuh", "gemm_f32.cuh", "gemm_wide.cuh", "head_dim.cuh",
-           "item_attention.cuh", "ptx_helpers.cuh")
+           "flash_chunked_cluster.cuh", "flash_tf32.cuh", "gemm_f32.cuh",
+           "gemm_wide.cuh", "head_dim.cuh", "item_attention.cuh",
+           "ptx_helpers.cuh")
 BUILD_DIR_ENV = "UNIREC_TPU_TORCH_BUILD_DIR"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
                      / "unirec_tpu_torch")

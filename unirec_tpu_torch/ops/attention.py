@@ -45,11 +45,13 @@ FLASH_MIN_KV = 1024
 # (csrc/flash_chunked.cuh) runs over a grid axis.  The packed item attention
 # takes every head dim as it is (csrc/packed_attention.cu).
 KERNEL_HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
-# the chunked form's launches by kind (``unirec_chunked_form``): the forward
-# (K1, B13, B14, B14p), the backward over rows (B7b's dq, B14 / B14p's one
-# pass) and the backward over keys (B7b's dk / dv)
-CHUNKED_FWD, CHUNKED_ROWS, CHUNKED_KEYS = 0, 1, 2
-_FORMS = {1: "scalar", 2: "tensor_cores", 3: "cluster", 4: "cluster_tf32"}
+# the launches by kind (``unirec_chunked_form``): the forward (K1; above
+# 256 every forward), the backward over rows (B7b's dq, B14 / B14p's one
+# pass), the backward over keys (B7b's dk / dv) and the cross forward (B13,
+# B14, B14p: the forward's form above 256, float32's 3xTF32 form below)
+CHUNKED_FWD, CHUNKED_ROWS, CHUNKED_KEYS, CROSS_FWD = 0, 1, 2, 3
+_FORMS = {1: "scalar", 2: "tensor_cores", 3: "cluster", 4: "cluster_tf32",
+          5: "tf32"}
 # the chunked forward's tiles (bf16 and the float32 cluster form): 64 query
 # rows, 32 keys; the float32 cluster form's backward over rows takes 16 keys
 # (the key tiles that ``chunked_plan`` splits)
@@ -260,23 +262,25 @@ def check_kernel_tensors(name: str, *tensors: torch.Tensor) -> None:
 
 
 def chunked_form(kind: int, kernel_hd: int, t: torch.Tensor) -> Optional[str]:
-    """The form that a chunked launch of ``kind`` (``CHUNKED_FWD``,
-    ``CHUNKED_ROWS``, ``CHUNKED_KEYS``) takes at the kernels' head dim in t's
-    dtype, as ``csrc/flash_chunked.cuh`` chooses it by shape before any
-    launch: bf16 "tensor_cores" where its shared memory holds the C chunks
-    (the forward C <= 5, the backward over rows C <= 2, over keys C <= 4),
-    "cluster" above those up to 8 chunks in the forward and over rows (one
-    block a chunk in a thread-block cluster); float32 "cluster_tf32" up to 8
-    chunks in the forward and over rows (the cluster schedule, products in
-    3xTF32); "scalar" otherwise (above 8 chunks, and over keys: bf16 above
-    4 chunks, float32 always); None at a head dim that is not chunked."""
+    """The form that a launch of ``kind`` (``CHUNKED_FWD``, ``CHUNKED_ROWS``,
+    ``CHUNKED_KEYS``, ``CROSS_FWD``) takes at the kernels' head dim in t's
+    dtype, as the C entries choose it by shape before any launch.  Above
+    256 (``csrc/flash_chunked.cuh``): bf16 "tensor_cores" where its shared
+    memory holds the C chunks (the forward C <= 5, the backward over rows C
+    <= 2, over keys C <= 4), "cluster" above those up to 8 chunks in the
+    forward and over rows (one block a chunk in a thread-block cluster);
+    float32 "cluster_tf32" up to 8 chunks in the forward and over rows (the
+    cluster schedule, products in 3xTF32); "scalar" otherwise (above 8
+    chunks, and over keys: bf16 above 4 chunks, float32 always).  Up to 256:
+    float32 "tf32" for the cross forward and both backwards (3xTF32 on
+    tensor cores, ``csrc/flash_tf32.cu``); None for bf16 and for K1's
+    float32 forward."""
     return _chunked_form(kind, kernel_hd, dtype_code(t))
 
 
 def count_form(wrapper, kind: int, kernel_hd: int, t: torch.Tensor) -> None:
     """One more launch in ``wrapper.forms`` (a Counter) of the form the
-    kernels chose (``chunked_form``); none at a head dim that is not
-    chunked."""
+    kernels chose (``chunked_form``); none where it names no form."""
     form = chunked_form(kind, kernel_hd, t)
     if form is not None:
         wrapper.forms[form] += 1
@@ -363,14 +367,15 @@ def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
     ``[B, H, L, hd]`` of any (batch, head, row) strides: B13 without (m, l),
     the forward of B14 and B14p with them (float32 ``[B, Lq, H]``).  o is in
     q's dtype for B13 and float32 for B14 and B14p.  A head dim that is not
-    an instance runs zero-padded (``padded_launch``); the chunked form's
-    launches count by form in ``launch_flash_cross_fwd.forms``."""
+    an instance runs zero-padded (``padded_launch``); the launches of the
+    chunked forms and of float32's 3xTF32 form count by form in
+    ``launch_flash_cross_fwd.forms`` (``chunked_form``)."""
     b, h, lq, hd = q.shape
 
     def launch(ins, outs, kernel_hd):
         qk, kk, vk = ins
         strides = [s for t in (*ins, *outs) for s in t.stride()[:3]]
-        form = chunked_form(CHUNKED_FWD, kernel_hd, q)
+        form = chunked_form(CROSS_FWD, kernel_hd, q)
         splits, part = chunked_plan(q, CHUNKED_FWD, b, h, lq, k.shape[2],
                                     kernel_hd, form)
         err = load_kernels().lib.unirec_flash_cross_fwd(
@@ -382,7 +387,7 @@ def launch_flash_cross_fwd(q, k, v, bias32, o, m=None, l=None) -> None:
             k.shape[2], kernel_hd, dtype_code(q), splits, sm_scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
         check(err, "flash_cross_fwd")
-        count_form(launch_flash_cross_fwd, CHUNKED_FWD, kernel_hd, q)
+        count_form(launch_flash_cross_fwd, CROSS_FWD, kernel_hd, q)
 
     padded_launch("the streaming forward", hd,
                   [(q, None), (k, None), (v, None)], [(o, None)], launch)

@@ -19,12 +19,14 @@ shared memory filled by 16-byte ``cp.async`` copies through a two-stage
 ring, one block per pair of query heads of a GQA group so each K/V tile is
 loaded once for both, online softmax in fp32 registers, P and dS rounded to
 bf16 in registers before their products, tiles above the diagonal and key
-tiles that are all padding never loaded.  float32 keeps the scalar fp32 FMA
-design up to head dim 256: plain TF32 on tensor cores keeps about 3 decimal
-digits and breaks the 1e-5 float32 gates; above 256 the chunked form runs
-K1 and B7b's dq on tensor cores in 3xTF32 (three TF32 products of split
-operands, which hold the gates; ``csrc/flash_chunked_cluster.cuh``).  The
-sources' notes give the details, and why ``wgmma`` is the next step.
+tiles that are all padding never loaded.  Plain TF32 on tensor cores
+keeps about 3 decimal digits and breaks the 1e-5 float32 gates, so float32
+runs B7b in 3xTF32 (three TF32 products of split operands, which hold the
+gates): up to head dim 256 dq and dk / dv on tensor cores
+(``csrc/flash_tf32.cu``), above it dq in the chunked cluster form
+(``csrc/flash_chunked_cluster.cuh``); K1's float32 forward keeps the
+scalar fp32 FMA design up to 256 and runs in 3xTF32 above.  The sources'
+notes give the details, and why ``wgmma`` is the next step.
 
 Head dims: the kernels are built for every multiple of 16 up to 128 and
 for 256 (``ops/attention.KERNEL_HEAD_DIMS``); any other head dim up to 256

@@ -25,8 +25,8 @@ projected k/v:
   component and dk through the memory's; the first cross layer's query and
   key weight gradients, sums over users whose queries are all the same,
   nearly cancel and keep mostly that error; B14's backward (replacing
-  ``_mh_bwd_kernel``; in bf16 one pass over the keys on tensor cores, in
-  float32 a dq kernel, then a dk/dv kernel) for dq, dk3 and dv3, then dmem,
+  ``_mh_bwd_kernel``; one pass over the keys on tensor cores, in float32
+  every product in 3xTF32) for dq, dk3 and dv3, then dmem,
   dWk, dbk, dWv and dbv by float32 ``torch.matmul`` and sums, as
   ``_proj_vjp_bwd`` computes them; the bias (a validity mask) gets no
   gradient.
@@ -146,8 +146,8 @@ def flash_cross_bwd_plain(q, k3, v3, bias32, do, m, l, dsum, num_heads: int
     return tuple(merge_heads(g) for g in grads)
 
 
-# query rows of the bf16 backward's tile: with more, each q tile's block
-# writes float32 partial dk / dv, which a second kernel sums in order
+# query rows of the backward's tile: with more, each q tile's block writes
+# float32 partial dk / dv, which a second kernel sums in order
 BWD_Q_TILE = 64
 
 
@@ -155,21 +155,20 @@ def launch_flash_cross_bwd(q, k, v, bias32, do, m, l, dsum, dq, dk, dv
                            ) -> None:
     """The backward of ``csrc/flash_cross.cu`` on per-head views ``[B, H,
     L, hd]`` of any (batch, head, row) strides: B14's merged layout or
-    B14p's per-head one.  bf16 runs one pass over the keys (with float32
-    scratch for the partial dk / dv of each 64-row q tile when Lq is
-    longer), float32 the dq kernel, then the dk / dv kernel; above 256 both
-    run one pass, float32's cluster form with the key splits and dq scratch
-    of ``chunked_plan``.  A head dim that is not an instance runs
-    zero-padded (``padded_launch``); the chunked form's launches count by
-    form in ``launch_flash_cross_bwd.forms``."""
+    B14p's per-head one.  Both dtypes run one pass over the keys (with
+    float32 scratch for the partial dk / dv of each 64-row q tile when Lq is
+    longer; float32 in 3xTF32 on tensor cores), above 256 float32's cluster
+    form with the key splits and dq scratch of ``chunked_plan``.  A head dim
+    that is not an instance runs zero-padded (``padded_launch``); the
+    launches count by form in ``launch_flash_cross_bwd.forms``
+    (``chunked_form``)."""
     b, h, lq, hd = q.shape
     lkv = k.shape[2]
 
     def launch(ins, outs, kernel_hd):
         n_qt = -(-lq // BWD_Q_TILE)
         scratch = None
-        # bf16, and the chunked form above 256 in both types, run one pass
-        if (q.dtype == torch.bfloat16 or kernel_hd > 256) and n_qt > 1:
+        if n_qt > 1:
             scratch = torch.empty(
                 n_qt * 2 * b * h * lkv * scratch_width(kernel_hd),
                 device=q.device, dtype=torch.float32)
